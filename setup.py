@@ -10,7 +10,11 @@ setup(
     version="0.1.0",
     description=("A TPU-native (JAX/XLA/Pallas) speech enhancement and "
                  "source separation framework"),
-    packages=find_packages(include=["puresound_tpu", "puresound_tpu.*"]),
+    packages=find_packages(include=["puresound_tpu", "puresound_tpu.*",
+                                    "puresound_tpu_torch",
+                                    "puresound_tpu_torch.*"]),
+    # the port's CUDA sources, built with nvcc at first use on the card
+    package_data={"puresound_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -23,6 +27,7 @@ setup(
     extras_require={
         "train": ["tensorboard", "matplotlib", "scikit-learn"],
         "test": ["pytest"],
+        "torch": ["torch"],
         "metrics": ["pesq"],
     },
 )
