@@ -1,8 +1,9 @@
 """Residual TCN block (counterpart of puresound_tpu/nnet/conv_tasnet.py:38),
 the unfused path (`:66-77`) in the speaker net's form: non-causal, no
-embedding input. The fused Pallas training kernel it can route to, and
-the causal / embedded blocks of ConvTasNet, are still JAX-only (ROADMAP
-queues 1-2)."""
+embedding input. It trains through autograd, as JAX's stock path does; the
+fused training kernel it can route to (`tcn_block_train`, `:79-105`) and the
+causal / embedded blocks of ConvTasNet are still JAX-only (ROADMAP queues
+1-2)."""
 from __future__ import annotations
 
 from typing import Optional

@@ -70,11 +70,20 @@ class GroupNorm1(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over dim 1 with running statistics (inference only).
+    """BatchNorm over dim 1 with running statistics (`norm.py:120-163`).
 
-    Training-mode batch statistics belong to the training slice (ROADMAP
-    queue 1); a module left in training mode raises.
+    Training mode normalises with the batch statistics, taken in at least
+    float32 with the single-pass variance, and updates the running stats
+    with momentum 0.1 and the unbiased variance n / (n - 1). The update
+    starts from the stats as they are stored: under mixed precision those
+    are the bfloat16 casts, and the old term is scaled in their dtype, as
+    JAX's weak-typed scalar does. When the new stats keep the buffers'
+    dtype they are written in place; otherwise (bfloat16 buffers given to
+    `torch.func.functional_call`) the buffers are rebound to the float32
+    result, which the caller reads back.
     """
+
+    momentum = 0.1
 
     def __init__(self, channel_size: int, eps: float = 1e-5, *, device=None,
                  dtype=torch.float32):
@@ -87,14 +96,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var",
                              torch.ones(channel_size, device=device, dtype=dtype))
 
+    def _update(self, name: str, batch_value: torch.Tensor):
+        old = getattr(self, name)
+        keep = torch.tensor(1 - self.momentum, dtype=old.dtype, device=old.device)
+        new = old * keep + self.momentum * batch_value
+        if new.dtype == old.dtype:
+            old.copy_(new)
+        else:
+            setattr(self, name, new)
+
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm batch statistics (training) are not ported yet "
-                "(ROADMAP: training slice); call .eval()")
         shape = _channel_shape(x, self.channel_size)
-        rstd = torch.rsqrt(self.running_var.reshape(shape) + self.eps)
-        return ((x - self.running_mean.reshape(shape).to(x.dtype))
+        if self.training:
+            dims = (0,) + tuple(range(2, x.dim()))
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(dim=dims)
+            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            n = x.numel() // x.shape[1]
+            with torch.no_grad():
+                self._update("running_mean", mean)
+                self._update("running_var", var * n / max(n - 1, 1))
+        else:
+            mean, var = self.running_mean, self.running_var
+        rstd = torch.rsqrt(var.reshape(shape) + self.eps)
+        return ((x - mean.reshape(shape).to(x.dtype))
                 * rstd.to(x.dtype)
                 * self.weight.reshape(shape).to(x.dtype)
                 + self.bias.reshape(shape).to(x.dtype))

@@ -1,5 +1,6 @@
 """Attentive statistics pooling (counterpart of
-puresound_tpu/nnet/lobe/pooling.py:22), inference path."""
+puresound_tpu/nnet/lobe/pooling.py:22). In training mode its BatchNorm
+takes batch statistics and updates its running stats (`pooling.py:41`)."""
 from __future__ import annotations
 
 from typing import Optional

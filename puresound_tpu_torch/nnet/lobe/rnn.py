@@ -3,9 +3,12 @@
 One module holds torch nn.LSTM's single-layer parameters
 (`weight_ih_l0` [4H, C], `weight_hh_l0` [4H, H], `bias_ih_l0`,
 `bias_hh_l0`; gate order i, f, g, o) and the cell methods of the JAX
-`LSTMCellParams` (`input_proj`, `gates_step`, `step`, `scan`). The scan is
-the plain path (`rnn.py:126-136`): the input projection is hoisted over
-all steps, then a Python loop runs the recurrence.
+`LSTMCellParams` (`input_proj`, `gates_step`, `step`, `scan`). Every scan
+goes through `ops.lstm_train_kernel.lstm_scan_train_fp`: the CUDA kernel
+(forward and backward) for CUDA tensors, its plain version for CPU tensors.
+JAX's routing conditions are TPU facts and are dropped here: the >= 256-row
+crossover measured on a v5e (`rnn.py:98-102`), the `% 8` alignment and the
+`PURESOUND_FUSED_SCAN` switch. The single-step methods stay for streaming.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ...ops.lstm_train_kernel import lstm_scan_train_fp
 from ...utils.init import generator_or_default, uniform
 
 
@@ -58,15 +62,12 @@ class LSTM(nn.Module):
         """One step from a raw input x_t [B, C]; h, c [B, H]."""
         return self.gates_step(self.input_proj(x_t), h, c)
 
-    def scan(self, x, h0, c0):
-        """x [B, T, C] -> (y [B, T, H], (hT, cT))."""
-        xp = self.input_proj(x)
-        h, c = h0, c0
-        ys = []
-        for t in range(x.shape[1]):
-            h, c = self.gates_step(xp[:, t], h, c)
-            ys.append(h)
-        return torch.stack(ys, dim=1), (h, c)
+    def scan(self, x, h0, c0, reverse: bool = False):
+        """x [B, T, C], h0/c0 [B, H] -> (y [B, T, H], (hT, cT))."""
+        y, hT, cT = lstm_scan_train_fp(
+            x, h0, c0, self.weight_ih_l0.T, self.bias_ih_l0 + self.bias_hh_l0,
+            self.weight_hh_l0.T, reverse)
+        return y, (hT, cT)
 
     def forward(self, x: torch.Tensor,
                 init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):

@@ -1,9 +1,12 @@
 """SkiM — Skipping-Memory LSTM (counterpart of puresound_tpu/nnet/skim.py).
 
 Causal SkiM with FiLM (or no) conditioning: the offline forward
-(`skim.py:236`), the explicit streaming state (`init_state` `:293`), the
-per-frame streaming step (`step_frames` `:384`) and the fused streaming
-step (`step_frames_fused` `:523`) that runs the block stack through
+(`skim.py:236`), differentiable, with every SegLSTM / MemLSTM scan through
+`ops.lstm_train_kernel.lstm_scan_train_fp` (the SegLSTM finals feed
+MemLSTM, and its outputs the next block's h0/c0, gradients included); the
+explicit streaming state (`init_state` `:293`); the per-frame streaming
+step (`step_frames` `:384`); and the fused streaming step
+(`step_frames_fused` `:523`) that runs the block stack through
 `ops.skim_stream_kernel.fused_skim_frames`. Module and parameter names
 follow PureSound (`seg_lstm`, `mem_lstm`, `seg_input_fusion`,
 `output_fc`), so its checkpoints load as they are.
@@ -129,9 +132,13 @@ class SkiM(nn.Module):
                  causal: bool = True, embed_dim: int = 0,
                  embed_norm: bool = False, embed_fusion: Optional[str] = None,
                  block_with_embed: Optional[tuple] = None,
-                 *, device=None, dtype=torch.float32,
+                 dropout: float = 0.0, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if dropout:
+            raise NotImplementedError(
+                "SkiM dropout is not ported (the flagship trains with 0; "
+                "ROADMAP queue 1: the rest of the TSE zoo)")
         if not causal or seg_overlap:
             raise NotImplementedError(
                 "non-causal / overlapped-segment SkiM is not ported yet "

@@ -7,6 +7,7 @@ onto them one module type at a time. Leaves may be numpy or jax arrays
 
     sd = from_jax(variables)               # a whole TSE SoTaskWrapModule
     model.load_state_dict(sd)
+    grads = params_by_name(jax_grads)      # {name: array} like the params
 
 The per-module converters take (params, batch_stats) subtrees and return a
 flat {name: np.ndarray} dict; `to_torch` turns one into tensors.
@@ -61,11 +62,14 @@ def layer_norm_last(p) -> Flat:
 
 
 def norm(p, s=None, kind: str = "gLN") -> Flat:
-    """BatchNorm when running stats exist; else GlobLN (gamma/beta) for
-    kind 'gLN' or torch GroupNorm (weight/bias) for kind 'gGN'."""
-    if s:
-        return {"weight": _a(p["scale"]), "bias": _a(p["bias"]),
-                "running_mean": _a(s["mean"]), "running_var": _a(s["var"])}
+    """BatchNorm (its flax params are scale/bias; running stats when `s`
+    has them); else GlobLN (gamma/beta) for kind 'gLN' or torch GroupNorm
+    (weight/bias) for kind 'gGN'."""
+    if "scale" in p:
+        out = {"weight": _a(p["scale"]), "bias": _a(p["bias"])}
+        if s:
+            out.update(running_mean=_a(s["mean"]), running_var=_a(s["var"]))
+        return out
     if kind == "gLN":
         return {"gamma": _a(p["gamma"]), "beta": _a(p["beta"])}
     if kind == "gGN":
@@ -175,6 +179,14 @@ def so_wrapper_tse_skim(variables: Mapping) -> Flat:
             parts.append(_prefix(f"speaker_net.{i}",
                                  speaker_net_layer(p[key], s.get(key))))
     return _merge(*parts)
+
+
+def params_by_name(tree: Mapping) -> Flat:
+    """A params-shaped pytree of a TSE SoTaskWrapModule (its params, a
+    gradient, an optimizer moment) -> {port parameter name: array}, each
+    laid out as the port's parameter (kernels transposed, as the weights
+    are), so gradients and updated parameters compare name by name."""
+    return so_wrapper_tse_skim({"params": tree})
 
 
 def from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:

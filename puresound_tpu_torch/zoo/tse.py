@@ -30,12 +30,27 @@ def _tcn_speaker_net(feat_dim: int, embed_dim: int = 192, tcn_dim: int = 256,
                Conv1d(feat_dim * 2, embed_dim, 1, bias=False, **fk)])
 
 
-def init_model(name: str, *, device=None, dtype=torch.float32,
+def _device(device):
+    """None means the card; the CPU only when a caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "init_model builds on the CUDA card by default and torch sees none "
+            "(torch.cuda.is_available() is False); pass device='cpu' to build "
+            "on the CPU")
+    return torch.device("cuda")
+
+
+def init_model(name: str, sig_loss=None, cls_loss=None, other_loss=None, *,
+               device=None, dtype=torch.float32,
                generator: Optional[torch.Generator] = None) -> SoTaskWrapModule:
-    """Build a named TSE model in inference (eval) mode."""
+    """Build a named TSE model in eval mode, on the card unless `device`
+    says otherwise. The losses make `forward` the training loss
+    (`sig_loss` the waveform loss, `cls_loss` the speaker loss)."""
     if name == "tse_skim_v0_causal":
         # 6,375,440 parameters, as the JAX package counts; lookahead 16
-        fk = dict(device=device, dtype=dtype,
+        fk = dict(device=_device(device), dtype=dtype,
                   generator=generator_or_default(generator))
         return SoTaskWrapModule(
             encoder=FreeEncDec(win_length=32, hop_length=16, laten_length=128,
@@ -46,7 +61,8 @@ def init_model(name: str, *, device=None, dtype=torch.float32,
                         block_with_embed=(1, 1, 1, 1), embed_fusion="FiLM",
                         **fk),
             speaker_net=_tcn_speaker_net(128, **fk),
-            mask_constraint="ReLU").eval()
+            loss_func_wav=sig_loss, loss_func_spk=cls_loss,
+            loss_func_others=other_loss, mask_constraint="ReLU").eval()
     if name in JAX_ONLY:
         raise NotImplementedError(
             f"{name!r} is not ported yet (ROADMAP queue 1: the rest of the "

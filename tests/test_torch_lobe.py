@@ -248,9 +248,64 @@ def test_lobe_matches_jax_f64(name, rng):
     _close(got, want)
 
 
-def test_batch_norm_refuses_training_mode():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_norm.BatchNorm(4)(torch.zeros(1, 4, 3))
+def _train_apply(module, v, x, **kw):
+    """JAX training apply: (output, updated batch_stats)."""
+    out, upd = module.apply(v, x, train=True, mutable=["batch_stats"], **kw)
+    return out, upd["batch_stats"]
+
+
+@pytest.mark.parametrize("shape", [(3, 6, 9), (2, 6, 4, 5)])
+def test_batch_norm_training_matches_jax(rng, shape):
+    """Batch statistics (single-pass variance) normalise; the running stats
+    move by momentum 0.1 toward the mean and the unbiased variance."""
+    x = rng.standard_normal(shape) * 2 + 0.5
+    jm = j_norm.BatchNorm(6)
+    with jax.enable_x64(True):
+        v = _randomize(jm.init(KEY, jnp.asarray(x)), rng)
+        want, stats = _train_apply(jm, v, jnp.asarray(x))
+    tm = _load(t_norm.BatchNorm(6, **F64),
+               fj.norm(v["params"], v["batch_stats"])).train()
+    _close(tm(_t(x)).detach().numpy(), want)
+    _close(tm.running_mean.numpy(), stats["mean"])
+    _close(tm.running_var.numpy(), stats["var"])
+
+
+def test_batch_norm_training_bf16_cast_stats(rng):
+    """Under mixed precision the step hands BatchNorm bfloat16 casts of its
+    parameters and running stats: the statistics are taken in float32, the
+    old stats are scaled in bfloat16, and the new stats come out float32
+    (JAX's weak-typed momentum arithmetic). The stats agree to float32
+    rounding, the bf16 output to one bf16 ulp at |y| < 2 (measured: equal)."""
+    x = (rng.standard_normal((4, 6, 11)) * 2 + 0.5).astype(np.float32)
+    jm = j_norm.BatchNorm(6)
+    v = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32),
+                               _randomize(jm.init(KEY, jnp.asarray(x)), rng))
+    bf = lambda t: jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16), t)
+    want, stats = _train_apply(jm, bf(v), jnp.asarray(x, jnp.bfloat16))
+    tm = _load(t_norm.BatchNorm(6), fj.norm(v["params"], v["batch_stats"])).train()
+    tensors = {n: t.to(torch.bfloat16) for n, t in tm.state_dict().items()}
+    got = torch.func.functional_call(tm, tensors, (_t(x).to(torch.bfloat16),))
+    for name, key in (("running_mean", "mean"), ("running_var", "var")):
+        assert tensors[name].dtype == torch.float32
+        assert stats[key].dtype == jnp.float32
+        np.testing.assert_allclose(tensors[name].numpy(), stats[key],
+                                   rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=0,
+                               atol=7.8125e-3)
+
+
+def test_attentive_statistics_pooling_training_matches_jax(rng):
+    x = rng.standard_normal((3, 6, 13))
+    jm = j_pool.AttentiveStatisticsPooling(6, 5)
+    with jax.enable_x64(True):
+        v = _randomize(jm.init(KEY, jnp.asarray(x)), rng)
+        want, stats = _train_apply(jm, v, jnp.asarray(x))
+    tm = _load(t_pool.AttentiveStatisticsPooling(6, 5, **F64),
+               fj.asp(v["params"], v["batch_stats"])).train()
+    _close(tm(_t(x)).detach().numpy(), want)
+    _close(tm.tdnn[2].running_mean.numpy(), stats["tdnn_bn"]["mean"])
+    _close(tm.tdnn[2].running_var.numpy(), stats["tdnn_bn"]["var"])
 
 
 def test_factories_take_device_dtype_generator():

@@ -280,16 +280,29 @@ def test_streaming_server_and_slot_axes(rng, ring_hub):
 
 
 def test_flagship_parameter_count():
-    model = init_model("tse_skim_v0_causal",
+    model = init_model("tse_skim_v0_causal", device="cpu",
                        generator=torch.Generator().manual_seed(0))
     assert sum(p.numel() for p in model.parameters()) == 6_375_440
     assert sum(b.numel() for b in model.buffers()) == 256
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model("tse_skim_v1_causal")
+        init_model("tse_skim_v1_causal", device="cpu")
+
+
+def test_init_model_defaults_to_the_card():
+    """Without a device the entry point builds on the CUDA card, and raises
+    where torch sees none; the CPU only when a caller asks for it."""
+    if torch.cuda.is_available():
+        model = init_model("tse_skim_v0_causal")
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_model("tse_skim_v0_causal")
 
 
 def test_port_imports_no_jax():
     code = ("import puresound_tpu_torch, puresound_tpu_torch.streaming.deploy, "
-            "puresound_tpu_torch.zoo.tse, sys; "
+            "puresound_tpu_torch.zoo.tse, puresound_tpu_torch.parallel.mesh, "
+            "puresound_tpu_torch.nnet.loss.sdr, "
+            "puresound_tpu_torch.ops.lstm_train_kernel, sys; "
             "assert not {'jax', 'flax', 'puresound_tpu'} & set(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
