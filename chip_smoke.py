@@ -4,27 +4,41 @@ Drives the port's serving and training paths for the flagship
 `tse_skim_v0_causal` at full width (random weights from a seed):
 
   0. device: torch / CUDA versions, the card's name and power limit;
-  1. build: nvcc builds both CUDA sources from the checkout, in parallel,
-     and prints each build's seconds and ptxas registers and spills;
+  1. build: nvcc builds the three CUDA sources from the checkout, in
+     parallel, and prints each build's seconds and ptxas registers and spills;
   2. `fused_skim_frames` vs `fused_skim_frames_ref` on the card at the
      flagship shapes (f32 and bf16, 20 carried chunks), at a ragged batch and
      at a small shape, with CUDA-event timings of both;
   2b. `lstm_scan_train_fp` forward and backward vs their plain versions at
-     the training shapes (SegLSTM 896 x 150, C=128, H=256; MemLSTM 64 x 14,
-     C=H=256; a ragged 13 x 7 reverse case), f32 and bf16, with CUDA-event
+     the training shapes of phase 6 (SegLSTM 896 x 150, C=128, H=256;
+     MemLSTM 64 x 14, C=H=256) and of the recipe (SegLSTM 240 x 150; MemLSTM
+     12 x 20) and a ragged 13 x 7 reverse case, f32 and bf16, with CUDA-event
      timings, the bounds from the shapes, and cuDNN's LSTM as the yardstick;
-  3. flagship: 6,375,440 parameters; 20 streamed ticks through
-     `StreamingTSE.step(fused=True)` equal the offline `inference`, which
-     launches the LSTM kernel 10 times (4 SegLSTM + 6 MemLSTM scans);
-  4. serving: `make_session_server(half=True, fused=True)` with 256 sessions,
-     25 ticks, every output finite, every step through the kernel;
+  2c. `tcn_block_train` forward and backward vs their plain versions at the
+     speaker net's shapes in phase 6 (B=64, C=128, Ch=256, T=1,999) and in
+     the recipe (B=12, T=4,999), dilations 1 and 16 each, and a ragged case,
+     f32 and bf16, with CUDA-event timings, the bounds, and the stock module
+     under autograd as the yardstick;
+  3. flagship: 6,375,440 parameters; `StreamingTSE.embed` launches the TCN
+     kernel 5 times; 20 streamed ticks through `StreamingTSE.step(fused=True)`
+     equal the offline `inference`, which launches the LSTM kernel 10 times
+     (4 SegLSTM + 6 MemLSTM scans) and the TCN kernel 5 times;
+  4. serving: `make_session_server(half=True, fused=True)` with 256 sessions
+     (each attach embeds: 5 TCN launches), 25 ticks, every output finite,
+     every step through the kernel;
   5. one f32 training step (B=2 x 1 s) on the card against the same step on
      the CPU in f64 (and the CPU's f32 step beside it): loss, grad_norm,
      every gradient and updated parameter;
   6. full-width training, B=64 x 2 s, Adam 1e-3, grad clip 10, in f32 and
-     with bf16 compute: 2 warm-up and 5 timed steps, 10 forward and 10
-     backward LSTM launches per step, step time, peak memory and the LSTM
-     kernels' share of device time over 2 profiled steps;
+     with bf16 compute: 2 warm-up and 5 timed steps, 10 + 10 LSTM and 5 + 5
+     TCN launches per step, step time, peak memory and the LSTM and TCN
+     kernels' shares of device time over 2 profiled steps;
+  6b. the recipe: `python -m puresound_tpu_torch.egs.tse.main <config>
+     --action train` (in this process) on a synthetic manifest folder, the
+     flagship at B=12 x 3 s with 5 s enrollments and 4 loader workers, 1
+     epoch of 12 steps + 1 dev batch: finite losses, exact launch counts,
+     the step p50 over steps 2-11 and the host's gap between steps, and
+     `epoch_0.ckpt` reloads into a fresh model;
   7. the kernels JSON line.
 
 Each phase prints one line with its result and time; any failure raises and
@@ -36,6 +50,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -49,6 +64,9 @@ SOURCE = "puresound_tpu_torch/csrc/skim_stream.cu"
 LSTM_REPLACES = ("puresound_tpu/ops/lstm_train_kernel.py:533",
                  "puresound_tpu/ops/lstm_train_kernel.py:590")
 LSTM_SOURCE = "puresound_tpu_torch/csrc/lstm_train.cu"
+TCN_REPLACES = ("puresound_tpu/ops/tcn_train_kernel.py:353",
+                "puresound_tpu/ops/tcn_train_kernel.py:383")
+TCN_SOURCE = "puresound_tpu_torch/csrc/tcn_train.cu"
 # phase 2: (name, blocks, C, H, streams, frames, fusion modes)
 SKIM_CASES = [("flagship B=1024", 4, 128, 256, 1024, 15, ("film",) * 4),
               ("ragged B=1001", 4, 128, 256, 1001, 15, ("film",) * 4),
@@ -56,8 +74,17 @@ SKIM_CASES = [("flagship B=1024", 4, 128, 256, 1024, 15, ("film",) * 4),
 # phase 2b: (name, rows, T, C, H, reverse, timed repetitions)
 LSTM_CASES = [("SegLSTM", 896, 150, 128, 256, False, 20),
               ("MemLSTM", 64, 14, 256, 256, False, 20),
+              ("recipe SegLSTM", 240, 150, 128, 256, False, 20),
+              ("recipe MemLSTM", 12, 20, 256, 256, False, 20),
               ("ragged", 13, 7, 24, 16, True, 20)]
+# phase 2c: (name, B, C, Ch, T, dilation, timed repetitions)
+TCN_CASES = [("speaker d=1", 64, 128, 256, 1999, 1, 10),
+             ("speaker d=16", 64, 128, 256, 1999, 16, 10),
+             ("recipe d=1", 12, 128, 256, 4999, 1, 10),
+             ("recipe d=16", 12, 128, 256, 4999, 16, 10),
+             ("ragged", 5, 20, 36, 13, 16, 10)]
 TRAIN_B, TRAIN_SECONDS = 64, 2.0    # phase 6: the JAX bench's B=64 x 2 s
+RECIPE_STEPS, RECIPE_WARM = 12, 2   # phase 6b: steps in its epoch, untimed ones
 
 
 def log(phase: str, msg: str, t0: float):
@@ -92,6 +119,17 @@ def expect_launches(got, want, what: str):
     should have launched them."""
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, not {want}")
+
+
+def zero_counts(*kernels):
+    """Set the launch counts of the kernel modules to 0."""
+    for k in kernels:
+        k.FWD_LAUNCHES = k.BWD_LAUNCHES = 0
+
+
+def counts(lk, tk) -> tuple:
+    """(LSTM forward, LSTM backward, TCN forward, TCN backward) launches."""
+    return lk.FWD_LAUNCHES, lk.BWD_LAUNCHES, tk.FWD_LAUNCHES, tk.BWD_LAUNCHES
 
 
 def snr_db(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -292,6 +330,179 @@ def cudnn_lstm_ms(x, h0, c0, w_ih, bias, w_hh, dy, dhT, dcT, reverse, reps):
     return fwd, bwd, both
 
 
+# ------------------------------------------------------------------ phase 2c
+def tcn_work(B, C, Ch, T, k, dt):
+    """(forward flops, forward bytes, backward flops, backward bytes) of one
+    tcn_block_train call: the three 1x1 products and the depthwise taps
+    (the backward recomputes the forward and runs each product twice more);
+    x, the parameters and y (forward), x, dy, the parameters, dx and the
+    gradients (backward), each read or written once."""
+    e = torch.finfo(dt).bits // 8
+    R = B * T
+    prod = 2.0 * R * (Ch * C + Ch * Ch + C * Ch)
+    taps = 2.0 * R * Ch * k
+    params = (2 * Ch * C + Ch * Ch + Ch * k + 7 * Ch + C + 3) * e
+    fwd_bytes = 2 * R * C * e + params
+    bwd_bytes = 3 * R * C * e + 2 * params
+    return prod + taps, fwd_bytes, 3 * (prod + taps), bwd_bytes
+
+
+def tcn_params(C, Ch, k, gen):
+    """Random block parameters at the scale of a trained speaker net."""
+    uni = lambda bound, *s: (torch.rand(s, generator=gen) * 2 - 1) * bound
+    near1 = lambda n: 1 + 0.1 * torch.randn(n, generator=gen)
+    small = lambda n: 0.1 * torch.randn(n, generator=gen)
+    alpha = lambda: 0.25 + 0.05 * torch.randn(1, generator=gen)
+    return [uni(C ** -0.5, Ch, C), near1(Ch), small(Ch), alpha(),
+            uni(k ** -0.5, Ch, k), small(Ch), near1(Ch), small(Ch), alpha(),
+            uni(Ch ** -0.5, Ch, Ch), small(Ch), near1(Ch), small(Ch), alpha(),
+            uni(Ch ** -0.5, C, Ch), small(C)]
+
+
+def stock_tcn_ms(params, x, dy, dilation, reps):
+    """The port's stock TCN path (cuDNN convolutions, the norms and PReLUs
+    under autograd) on the same weights, forward + backward: a yardstick,
+    since no single PyTorch call computes the block."""
+    from puresound_tpu_torch.nnet.conv_tasnet import TCN
+
+    B, C, T = x.shape
+    Ch, k = params[0].shape[0], params[4].shape[1]
+    m = TCN(C, Ch, k, dilation, device=x.device, dtype=x.dtype)
+    ds = m.dconv[0]
+    targets = [m.in_conv[0].weight, m.in_conv[1].gamma, m.in_conv[1].beta,
+               m.in_conv[2].weight, ds.depthwise[0].weight, ds.depthwise[0].bias,
+               ds.depthwise[1].weight, ds.depthwise[1].bias, ds.depthwise[2].weight,
+               ds.pointwise[0].weight, ds.pointwise[0].bias, ds.pointwise[1].weight,
+               ds.pointwise[1].bias, ds.pointwise[2].weight, m.out_conv.weight,
+               m.out_conv.bias]
+    with torch.no_grad():
+        for t, p in zip(targets, params):
+            t.copy_(p.reshape(t.shape))
+    xg = x.detach().requires_grad_()
+
+    def fwd_bwd():
+        y = m.out_conv(m.dconv(m.in_conv(xg))) + xg
+        torch.autograd.grad(y, [xg, *m.parameters()], dy)
+
+    return cuda_ms(fwd_bwd, reps)
+
+
+def tcn_kernel_case(tk, name, B, C, Ch, T, dilation, gen, dev, reps):
+    """`tcn_block_train` kernel (forward + backward) against its plain
+    version on the card, f32 then bf16, with CUDA-event times, the bounds
+    and the stock module's forward + backward as the yardstick."""
+    k = 3
+    params = tcn_params(C, Ch, k, gen)
+    x = torch.randn(B, C, T, generator=gen)
+    dy = torch.randn(B, C, T, generator=gen)
+    res = {"name": name, "shape": f"B={B} C={C} Ch={Ch} T={T} k={k} d={dilation}"}
+    alphas = {3, 8, 13}          # al1, al2, al3 among the 16 gradients
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        ps = [p.to(dev, dt) for p in params]
+        xd, dyd = x.to(dev, dt), dy.to(dev, dt)
+        got_y = tk._launch_fwd(xd, ps, dilation)
+        got_b = tk._launch_bwd(xd, dyd, ps, dilation)
+        want_y = tk.tcn_block_train_ref(xd, *ps, dilation=dilation)
+        want_b = tk.tcn_block_train_bwd_ref(xd, dyd, *ps, dilation=dilation)
+        torch.cuda.synchronize()
+        pairs = [(got_y, want_y)] + list(zip(got_b, want_b))
+        for g, _ in pairs:
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name} {label}: non-finite kernel output")
+        # The direct bars hold the kernel against the plain version: f32
+        # max|d|/max|ref| <= 1e-4 on y and dx, 1e-3 on the parameter
+        # gradients (3e-3 on the alphas); bf16 >= 40 dB SNR on y and >= 30 dB
+        # on the gradients. Two computations at these sizes can miss them
+        # both: an f32 PReLU input within rounding of 0 takes the other slope
+        # (a few dozen of 33M elements do; the plain f32 version misses the
+        # f64 one by about 1e-2 of max|dx|), and a bf16 dot operand near a
+        # rounding boundary rounds the other way, which moves an alpha
+        # gradient, a sum over B*Ch*T terms that cancel, by a few per cent.
+        # So each result is also held against the exact reference, the same
+        # cast points with the math in float64, by relative L2 error: where
+        # a direct bar fails (not on y), the kernel must be no further from
+        # it than twice the plain version is, and within 3e-3 (f32) or 30 dB
+        # (bf16) whatever the plain version's own distance.
+        exact = ([tk.tcn_block_train_ref(xd, *ps, dilation=dilation,
+                                         compute_dtype=torch.float64)]
+                 + list(tk.tcn_block_train_bwd_ref(xd, dyd, *ps, dilation=dilation,
+                                                   compute_dtype=torch.float64)))
+        rel2 = lambda a, b: ((a.double() - b).norm() / b.norm()).item()
+        kx = [rel2(g, r) for (g, _), r in zip(pairs, exact)]
+        px = [rel2(w, r) for (_, w), r in zip(pairs, exact)]
+        del exact
+        names = ("y", "dx") + tk.PARAM_NAMES
+        if dt == torch.float32:
+            direct = [((g.double() - w.double()).abs().max()
+                       / w.double().abs().max()).item() for g, w in pairs]
+            bars = [1e-4, 1e-4] + [3e-3 if i in alphas else 1e-3 for i in range(16)]
+            held = [d <= bar for d, bar in zip(direct, bars)]
+            cap = 3e-3
+            res["f32_val_rel"], res["f32_grad_rel"] = direct[0], max(direct[1:])
+            res["f32_max_abs_err"] = max((g - w).abs().max().item() for g, w in pairs)
+        else:
+            direct = [snr_db(g, w) for g, w in pairs]
+            bars = [40.0] + [30.0] * 17
+            held = [d >= bar for d, bar in zip(direct, bars)]
+            cap = 10 ** (-30.0 / 20)
+            res["bf16_val_snr"], res["bf16_grad_snr"] = direct[0], min(direct[1:])
+        res[f"{label}_l2_vs_exact"], res[f"{label}_plain_l2_vs_exact"] = max(kx), max(px)
+        rows = list(zip(names, held, direct, kx, px))
+        res[f"{label}_l2_fallback"] = [(n, d, k, p) for n, h, d, k, p in rows if not h]
+        bad = [(n, d, k, p) for n, h, d, k, p in rows
+               if not (h or (n != "y" and k <= min(2 * p, cap)))]
+        if bad:
+            raise AssertionError(
+                f"{name} {label}: (tensor, reading vs plain, L2 vs exact kernel, plain) "
+                f"over the bars: {bad}")
+        res[f"{label}_fwd_ms"] = cuda_ms(lambda: tk._launch_fwd(xd, ps, dilation), reps)
+        res[f"{label}_bwd_ms"] = cuda_ms(lambda: tk._launch_bwd(xd, dyd, ps, dilation),
+                                         reps)
+        res[f"{label}_plain_fwd_ms"] = cuda_ms(
+            lambda: tk.tcn_block_train_ref(xd, *ps, dilation=dilation), max(2, reps // 4), 1)
+        res[f"{label}_plain_bwd_ms"] = cuda_ms(
+            lambda: tk.tcn_block_train_bwd_ref(xd, dyd, *ps, dilation=dilation),
+            max(2, reps // 4), 1)
+        res[f"{label}_stock_ms"] = stock_tcn_ms(ps, xd, dyd, dilation,
+                                                max(2, reps // 4))
+        ff, fb, bf, bb = tcn_work(B, C, Ch, T, k, dt)
+        res[f"{label}_fwd_bound"] = bound_ms(ff, fb, dt)
+        res[f"{label}_bwd_bound"] = bound_ms(bf, bb, dt)
+    # scratch the kernel keeps in device memory (float32)
+    res["fwd_scratch_mb"] = 4 * 3 * B * Ch * T / 1e6
+    res["bwd_scratch_mb"] = 4 * 5 * B * Ch * T / 1e6
+    return res
+
+
+def tcn_phase(tk, gen, dev, card) -> dict:
+    out = {}
+    for name, B, C, Ch, T, dilation, reps in TCN_CASES:
+        t = time.perf_counter()
+        r = tcn_kernel_case(tk, name, B, C, Ch, T, dilation, gen, dev, reps)
+        out[name] = r
+        fallback = lambda lb, fmt: ", ".join(
+            f"({n}, {fmt(d)}, {k:.2e} / {p:.2e})" for n, d, k, p in r[f"{lb}_l2_fallback"]
+        ) or "none"
+        log("2c tcn", f"{r['shape']}: f32 max|d|/max|ref| y {r['f32_val_rel']:.2e}, dx "
+            f"and grads {r['f32_grad_rel']:.2e}; bf16 SNR y {r['bf16_val_snr']:.1f} dB, "
+            f"dx and grads {r['bf16_grad_snr']:.1f} dB; worst relative L2 against the "
+            f"exact reference, kernel / plain: f32 {r['f32_l2_vs_exact']:.2e} / "
+            f"{r['f32_plain_l2_vs_exact']:.2e}, bf16 {r['bf16_l2_vs_exact']:.2e} / "
+            f"{r['bf16_plain_l2_vs_exact']:.2e}; held by the L2 bar as (tensor, reading "
+            f"vs plain, L2 vs exact kernel / plain): f32 "
+            f"{fallback('f32', lambda d: f'{d:.2e}')}, bf16 "
+            f"{fallback('bf16', lambda d: f'{d:.1f} dB')}; "
+            + "; ".join(
+                f"{lb} ms fwd/bwd kernel {r[f'{lb}_fwd_ms']:.3f}/{r[f'{lb}_bwd_ms']:.3f}, "
+                f"plain {r[f'{lb}_plain_fwd_ms']:.3f}/{r[f'{lb}_plain_bwd_ms']:.3f}, "
+                f"stock module fwd+bwd {r[f'{lb}_stock_ms']:.3f}, "
+                f"bound {r[f'{lb}_fwd_bound'][0]:.3f}/{r[f'{lb}_bwd_bound'][0]:.3f} "
+                f"({r[f'{lb}_fwd_bound'][1]})" for lb in ("f32", "bf16"))
+            + f"; scratch fwd/bwd {r['fwd_scratch_mb']:.1f}/{r['bwd_scratch_mb']:.1f} MB"
+            f" [{card}]", t)
+    return out
+
+
 # ------------------------------------------------------------ phases 5-6
 def train_parts(dev, gen, dtype=torch.float32):
     """(flagship with the SI-SNR loss, TrainState, step) on `dev`."""
@@ -315,7 +526,7 @@ def train_batch(B: int, seconds: float, dev) -> dict:
             for k in ("noisy", "enroll", "ref_clean")}
 
 
-def card_vs_cpu_step(lk, dev, card):
+def card_vs_cpu_step(lk, tk, dev, card):
     """One f32 training step of the flagship (B=2 x 1 s) on the card
     (kernels) held against the same step on the CPU (plain versions) in
     float64, with the CPU's own f32 step beside it, from the same weights."""
@@ -325,16 +536,15 @@ def card_vs_cpu_step(lk, dev, card):
                   (torch.device("cpu"), torch.float64)):
         model, state, step = train_parts(d, torch.Generator().manual_seed(SEED))
         model.to(dt)
-        lk.FWD_LAUNCHES = lk.BWD_LAUNCHES = 0
+        zero_counts(lk, tk)
         state, m = step(state, {k: v.to(dt)
                                 for k, v in train_batch(2, 1.0, d).items()})
         sides.append(({n: (p.detach().cpu().double(), p.grad.cpu().double())
                        for n, p in model.named_parameters()},
-                      {k: float(v) for k, v in m.items()},
-                      (lk.FWD_LAUNCHES, lk.BWD_LAUNCHES)))
+                      {k: float(v) for k, v in m.items()}, counts(lk, tk)))
     (gpu, gm, gl), (cpu, cm, cl), (ref, rm, _) = sides
-    expect_launches(gl, (10, 10), "card step, LSTM (fwd, bwd)")
-    expect_launches(cl, (0, 0), "CPU step, LSTM (fwd, bwd)")
+    expect_launches(gl, (10, 10, 5, 5), "card step, LSTM and TCN (fwd, bwd)")
+    expect_launches(cl, (0, 0, 0, 0), "CPU step, LSTM and TCN (fwd, bwd)")
     loss_rel = abs(gm["loss"] - rm["loss"]) / abs(rm["loss"])
     norm_rel = abs(gm["grad_norm"] - rm["grad_norm"]) / rm["grad_norm"]
     if not loss_rel <= 1e-4 or not norm_rel <= 1e-3:
@@ -373,7 +583,7 @@ def card_vs_cpu_step(lk, dev, card):
         f"{worst['cpu f32'][0]:.2e} ({worst['cpu f32'][1]}); card tensors over "
         f"1e-3 (bar 3e-3): {over or 'none'}; updated params {worst_p:.2e} (bar "
         f"1e-3; {flips} weights with |g| <= 3e-3 max|g| apart by <= 2 lr); LSTM "
-        f"launches fwd/bwd {gl} on the card, TF32 off [{card}]", t)
+        f"and TCN launches fwd/bwd {gl} on the card, TF32 off [{card}]", t)
 
 
 def device_share(prof, pattern: str, top: int = 6):
@@ -401,9 +611,10 @@ def device_share(prof, pattern: str, top: int = 6):
     return mine / 1e3, total / 1e3, sorted(kernels, reverse=True)[:top]
 
 
-def full_width_training(lk, dev, card, dtype):
+def full_width_training(lk, tk, dev, card, dtype):
     """The flagship at B=64 x 2 s: 2 warm-up steps, 5 timed steps, 2
-    profiled steps; every step runs 10 LSTM scans forward and backward."""
+    profiled steps; every step runs 10 LSTM scans and 5 TCN blocks forward
+    and backward."""
     t = time.perf_counter()
     B, seconds, warm, timed, profiled = TRAIN_B, TRAIN_SECONDS, 2, 5, 2
     model, state, step = train_parts(dev, torch.Generator().manual_seed(SEED), dtype)
@@ -411,17 +622,17 @@ def full_width_training(lk, dev, card, dtype):
     first = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
     times, losses, norms = [], [], []
-    lk.FWD_LAUNCHES = lk.BWD_LAUNCHES = 0
+    zero_counts(lk, tk)
     for i in range(warm + timed):
-        seen = (lk.FWD_LAUNCHES, lk.BWD_LAUNCHES)
+        seen = counts(lk, tk)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         state, m = step(state, batch)
         b.record()
         torch.cuda.synchronize()
-        expect_launches((lk.FWD_LAUNCHES - seen[0], lk.BWD_LAUNCHES - seen[1]),
-                        (10, 10), f"training step {i}, LSTM (fwd, bwd)")
+        expect_launches(tuple(a - b for a, b in zip(counts(lk, tk), seen)),
+                        (10, 10, 5, 5), f"training step {i}, LSTM and TCN (fwd, bwd)")
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         if i >= warm:
@@ -439,22 +650,201 @@ def full_width_training(lk, dev, card, dtype):
         for _ in range(profiled):
             state, m = step(state, batch)
         torch.cuda.synchronize()
-    launches = (lk.FWD_LAUNCHES, lk.BWD_LAUNCHES)
+    launches = counts(lk, tk)
     lstm_ms, device_ms, top = device_share(prof, "lstm_")
+    tcn_ms = device_share(prof, "tcn_")[0]
     p50 = float(np.median(times))
     label = "f32" if dtype == torch.float32 else "bf16"
     share = ("not measured (the profiler saw no device time)" if device_ms is None
-             else f"{lstm_ms:.3f} of {device_ms:.3f} ms over {profiled} steps "
-             f"({100 * lstm_ms / device_ms:.1f} %); top kernels: " + "; ".join(
+             else f"LSTM {lstm_ms:.3f} ({100 * lstm_ms / device_ms:.1f} %), TCN "
+             f"{tcn_ms:.3f} ({100 * tcn_ms / device_ms:.1f} %) of {device_ms:.3f} ms "
+             f"over {profiled} steps; top kernels: " + "; ".join(
                  f"{ms:.3f} ms {name[:60]}" for ms, name in top))
     log("6 training", f"flagship {label} B={B} x {seconds:g} s, Adam 1e-3, clip "
         f"10: loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad_norm "
         f"{norms[-1]:.4f}, all {moved} parameter tensors moved; 10 + 10 LSTM "
-        f"launches per step; step p50 {p50:.3f} ms (min {min(times):.3f}, max "
-        f"{max(times):.3f}), {B * seconds * 1e3 / p50:.1f} audio-s/s; peak "
-        f"{peak / 2**30:.2f} GiB; LSTM kernels' device time {share} [{card}]", t)
+        f"and 5 + 5 TCN launches per step; step p50 {p50:.3f} ms (min "
+        f"{min(times):.3f}, max {max(times):.3f}), {B * seconds * 1e3 / p50:.1f} "
+        f"audio-s/s; peak {peak / 2**30:.2f} GiB; kernels' device time {share} "
+        f"[{card}]", t)
     return {"step_ms_p50": p50, "peak_bytes": peak, "lstm_ms": lstm_ms,
-            "device_ms": device_ms, "launches": launches}
+            "tcn_ms": tcn_ms, "device_ms": device_ms, "launches": launches}
+
+
+# ------------------------------------------------------------ phase 6b
+def write_tse_manifest(folder: str, n: int, seed: int) -> str:
+    """A synthetic TSE manifest folder (the recipe's five files) of n
+    mixtures of 4 s and 6 s enrollments at 16 kHz, keys mix_<i>_s1."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    lines = {f: [] for f in ("wav2scp", "wav2ref", "ref2list", "ref2spk", "wav2spk")}
+    sr = 16000
+    for i in range(n):
+        clean = 0.1 * rng.standard_normal(4 * sr)
+        sigs = {"mix": clean + 0.05 * rng.standard_normal(4 * sr), "clean": clean,
+                "enroll": 0.1 * rng.standard_normal(6 * sr)}
+        for name, sig in sigs.items():
+            wavfile.write(os.path.join(folder, f"{name}_{i}.wav"), sr,
+                          np.clip(sig * 32768, -32768, 32767).astype(np.int16))
+        key = f"mix_{i}_s1"
+        path = lambda name: os.path.join(folder, f"{name}_{i}.wav")
+        lines["wav2scp"].append(f"{key} {path('mix')}")
+        lines["wav2ref"].append(f"{key} {path('clean')}")
+        lines["ref2list"].append(f"{key} {path('enroll')}")
+        lines["ref2spk"].append(f"{key} sp{i % 7}")
+        lines["wav2spk"].append(f"{key} sp{i % 7}-sp{(i + 3) % 7}")
+    for name, ls in lines.items():
+        with open(os.path.join(folder, f"{name}.txt"), "w") as f:
+            f.write("\n".join(ls) + "\n")
+    return folder
+
+
+def recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
+    """`python -m puresound_tpu_torch.egs.tse.main <config> --action train`
+    on the card (run in this process with `runpy`, so the launch counts are
+    read here): the flagship at full width, TSE.yaml's defaults (SI-SNR,
+    alpha 10, 3 s, fixed_length 5 s enrollment, batch 12), 4 fork'd loader
+    workers, one epoch of RECIPE_STEPS train batches and 1 dev batch. Each
+    step is timed on the host clock with the card synchronised before and
+    after it; the gap between two steps is the host's time in which the card
+    has nothing queued, split into the wait for the loader's next batch, the
+    batch's copy to the card, and the rest (logging the step's metrics)."""
+    import runpy
+    import tempfile
+
+    from puresound_tpu_torch.tasks import base, ns
+    from puresound_tpu_torch.zoo.tse import init_model
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = {
+            "DATASET": {"type": "TSE", "sample_rate": 16000, "max_length": 3,
+                        "train": write_tse_manifest(os.path.join(tmp, "train"),
+                                                    12 * RECIPE_STEPS, 1),
+                        "dev": write_tse_manifest(os.path.join(tmp, "dev"), 12, 2),
+                        "eval": None, "noise_folder": None, "rir_folder": None,
+                        "rir_mode": None, "vol_perturbed": None,
+                        "speed_perturbed": False, "perturb_frequency_response": False,
+                        "single_spk_prob": 0.0, "inactive_training": 0.0,
+                        "enroll_rule": "fixed_length", "enroll_augment": False,
+                        "augment_on_device": False},
+            "MODEL": {"type": "tse_skim_v0_causal"},
+            "LOSS": {"sig_loss": "sisnr", "sig_threshold": None, "alpha": 10,
+                     "cls_loss": None, "cls_loss_other": None},
+            "OPTIMIZER": {"gradiend_clip": 10, "lr": 0.0001, "num_epochs_decay": 0,
+                          "lr_scheduler": "Plateau", "mode": "min", "patience": 5,
+                          "gamma": 0.5, "beta1": 0.9, "beta2": 0.999,
+                          "weight_decay": 0.0, "multi_rate": False},
+            "TRAIN": {"num_epochs": 1, "resume_epoch": None,
+                      "contrastive_learning": False, "batch_size": 12,
+                      "multi_gpu": True, "mixed_precision": False, "grad_accum": 1,
+                      "skip_nan_steps": False, "mp_devices": 1, "remat": False,
+                      "fused_scan": False, "num_workers": 4, "seed": SEED,
+                      "use_tensorboard": True,
+                      "model_save_dir": os.path.join(tmp, "models"),
+                      "log_dir": os.path.join(tmp, "logs")}}
+        path = os.path.join(tmp, "TSE.yaml")
+        with open(path, "w") as f:    # YAML's JSON form
+            json.dump(cfg, f, indent=1)
+        # time each train step, each batch's wait and copy, and keep the
+        # trainer (measurement only)
+        trainers, spans, waits, copies = [], [], [], []
+        build, loader_iter = ns.NsTask._build_steps, base.DataLoader.__iter__
+
+        def timed_iter(self):
+            batches = loader_iter(self)
+            while True:
+                t1 = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    return
+                waits.append(time.perf_counter() - t1)
+                yield batch
+
+        def timed_build(self):
+            build(self)
+            trainers.append(self)
+            step, to_card = self._train_step, self._batch_kwargs
+
+            def timed_copy(batch):
+                t1 = time.perf_counter()
+                out = to_card(batch)
+                copies.append(time.perf_counter() - t1)
+                return out
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                spans.append((t1, time.perf_counter()))
+                return out
+
+            self._train_step, self._batch_kwargs = timed, timed_copy
+
+        argv = sys.argv
+        sys.argv = ["puresound_tpu_torch.egs.tse.main", path, "--action", "train",
+                    "--backend", backend]
+        ns.NsTask._build_steps, base.DataLoader.__iter__ = timed_build, timed_iter
+        zero_counts(lk, tk)
+        try:
+            runpy.run_module("puresound_tpu_torch.egs.tse.main", run_name="__main__",
+                             alter_sys=True)
+            torch.cuda.synchronize()
+        finally:
+            ns.NsTask._build_steps, base.DataLoader.__iter__ = build, loader_iter
+            sys.argv = argv
+        got = counts(lk, tk)
+        # each train step 10 + 10 LSTM and 5 + 5 TCN launches, the dev batch 10 + 5
+        steps = RECIPE_STEPS
+        expect_launches(got, (10 * steps + 10, 10 * steps, 5 * steps + 5, 5 * steps),
+                        "recipe, LSTM and TCN (fwd, bwd)")
+        with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [r["value"] for r in logged if r["name"] == "train/batch_loss"]
+        dev_loss = [r["value"] for r in logged if r["name"] == "train/avg_dev_loss"]
+        if len(losses) != steps or len(dev_loss) != 1 or not np.isfinite(losses + dev_loss).all():
+            raise AssertionError(f"recipe losses {losses}, dev {dev_loss}")
+        trainer = trainers[0]
+        if trainer.device.type != dev.type:
+            raise AssertionError(f"the recipe trained on {trainer.device}")
+        fresh = init_model("tse_skim_v0_causal", device=dev)
+        tree = torch.load(os.path.join(tmp, "models", "epoch_0.ckpt"),
+                          map_location=dev, weights_only=True)
+        fresh.load_state_dict({**tree["params"], **tree["batch_stats"]}, strict=True)
+        for (n, a), b in zip(trainer.model.state_dict().items(),
+                             fresh.state_dict().values()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"checkpoint tensor {n} differs after reload")
+        info = open(os.path.join(tmp, "models", "epoch_0.info")).read().split("\n")
+    step_ms = [1e3 * (b - a) for a, b in spans]
+    gap_ms = [1e3 * (spans[i + 1][0] - spans[i][1]) for i in range(steps - 1)]
+    w = RECIPE_WARM
+    window = 1e3 * (spans[-1][1] - spans[w][0])
+    busy = sum(step_ms[w:]) / window
+    # the gap before step i holds the wait for batch i and its copy (the
+    # first `steps` waits and copies are the train loader's)
+    wait_ms = [1e3 * waits[i + 1] for i in range(steps - 1)]
+    copy_ms = [1e3 * copies[i + 1] for i in range(steps - 1)]
+    rest_ms = [g - a - b for g, a, b in zip(gap_ms, wait_ms, copy_ms)]
+    p50 = lambda v: float(np.median(v[w:]))
+    log("6b recipe", f"python -m puresound_tpu_torch.egs.tse.main --action train: "
+        f"flagship, B=12 x 3 s, 5 s enrollment, 4 loader workers, 1 epoch of {steps} "
+        f"steps + 1 dev batch on {trainer.device}: losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, dev {dev_loss[0]:.4f}; synced step ms over steps {w}-"
+        f"{steps - 1}: p50 {np.median(step_ms[w:]):.3f} (min {min(step_ms[w:]):.3f}, max "
+        f"{max(step_ms[w:]):.3f}), {12 * 3 * 1e3 / np.median(step_ms[w:]):.1f} "
+        f"audio-s/s; the untimed first steps {[round(x, 3) for x in step_ms[:w]]}; "
+        f"host gap between steps p50 {p50(gap_ms):.3f} ms (max "
+        f"{max(gap_ms[w:]):.3f}): loader wait p50 {p50(wait_ms):.3f}, copy to the "
+        f"card {p50(copy_ms):.3f}, the rest {p50(rest_ms):.3f}; steps fill {100 * busy:.1f} % of the {window:.1f} "
+        f"ms from step {w}'s start to the last step's end; launches LSTM fwd/bwd "
+        f"{got[:2]}, TCN fwd/bwd {got[2:]}; epoch_0.ckpt reloads equal "
+        f"({info[0]}, {info[1]}) [{card}]", t)
+    return {"step_ms": step_ms, "gap_ms": gap_ms, "wait_ms": wait_ms, "copy_ms": copy_ms,
+            "busy": busy, "launches": got}
 
 
 def run(dev: torch.device) -> int:
@@ -462,6 +852,7 @@ def run(dev: torch.device) -> int:
     from puresound_tpu_torch.ops import _build
     from puresound_tpu_torch.ops import lstm_train_kernel as lk
     from puresound_tpu_torch.ops import skim_stream_kernel as ops
+    from puresound_tpu_torch.ops import tcn_train_kernel as tk
     from puresound_tpu_torch.nnet.skim import SkiM
     from puresound_tpu_torch.streaming.deploy import make_session_server
     from puresound_tpu_torch.streaming.engine import (StreamingTSE,
@@ -477,10 +868,11 @@ def run(dev: torch.device) -> int:
 
     # ------------------------------------------------------------ 1. build
     t = time.perf_counter()
-    sources = ("skim_stream", "lstm_train")
+    sources = ("skim_stream", "lstm_train", "tcn_train")
     _build.build(sources)       # one nvcc per source, in parallel
     ops._lib()
     lk._lib()
+    tk._lib()
     for name in sources:
         regs = "; ".join(f"{k}: {r} registers, spills {st}/{ld} B"
                          for k, r, st, ld in _build.ptxas_report(name))
@@ -518,6 +910,9 @@ def run(dev: torch.device) -> int:
                 f"bound {r[f'{lb}_fwd_bound'][0]:.3f}/{r[f'{lb}_bwd_bound'][0]:.3f}"
                 for lb in ("f32", "bf16")) + f" [{card}]", t)
 
+    # -------------------------------------- 2c. TCN training kernel vs plain
+    tcn_results = tcn_phase(tk, gen, dev, card)
+
     # ------------------------------------------------------- 3. flagship
     t = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED)
@@ -530,7 +925,11 @@ def run(dev: torch.device) -> int:
     audio = (0.1 * torch.randn(n_str, S * ticks, generator=gen)).to(dev)
     enroll = (0.1 * torch.randn(n_str, 16000, generator=gen)).to(dev)
     with torch.no_grad():
+        zero_counts(tk)
         dvec = engine.embed(enroll)
+        torch.cuda.synchronize()
+        expect_launches((tk.FWD_LAUNCHES, tk.BWD_LAUNCHES), (5, 0),
+                        "StreamingTSE.embed, TCN (fwd, bwd)")
         state = engine.init_state(n_str)
         ops.LAUNCHES = 0
         outs = []
@@ -541,12 +940,13 @@ def run(dev: torch.device) -> int:
         torch.cuda.synchronize()
         launches = ops.LAUNCHES
         streamed = torch.cat(outs, -1)
-        lk.FWD_LAUNCHES = lk.BWD_LAUNCHES = 0
+        zero_counts(lk, tk)
         offline = model.inference(offline_equivalent_input(audio, 32, 16),
                                   enroll)[:, :streamed.shape[-1]]
         torch.cuda.synchronize()
-        offline_launches = (lk.FWD_LAUNCHES, lk.BWD_LAUNCHES)
-    expect_launches(offline_launches, (10, 0), "offline inference, LSTM (fwd, bwd)")
+        offline_launches = counts(lk, tk)
+    expect_launches(offline_launches, (10, 0, 5, 0),
+                    "offline inference, LSTM and TCN (fwd, bwd)")
     expect_launches(launches, ticks, "streamed ticks, fused_skim_frames")
     err = (streamed - offline).abs().max().item()
     peak = offline.abs().max().item()
@@ -556,7 +956,8 @@ def run(dev: torch.device) -> int:
     log("3 flagship", f"{n_params:,} params; {ticks} ticks x {S} samples x "
         f"{n_str} streams fused == offline inference: max|d| {err:.3e}, "
         f"max|y| {peak:.3e}; fused_skim_frames launches {launches}; offline "
-        f"inference's LSTM kernel launches (fwd, bwd) {offline_launches}", t)
+        f"inference's LSTM and TCN kernel launches (fwd, bwd) {offline_launches}; "
+        f"embed's TCN launches 5", t)
 
     # -------------------------------------------------------- 4. serving
     t = time.perf_counter()
@@ -570,7 +971,11 @@ def run(dev: torch.device) -> int:
     enrolls = (0.1 * rng.standard_normal((n_slots, 16000))).astype(np.float32)
     feed = (0.1 * rng.standard_normal((n_slots, chunk * n_ticks))
             ).astype(np.float32)
+    zero_counts(tk)
     sids = [server.attach(enroll=enrolls[i]) for i in range(n_slots)]
+    torch.cuda.synchronize()
+    expect_launches((tk.FWD_LAUNCHES, tk.BWD_LAUNCHES), (5 * n_slots, 0),
+                    "session attaches, TCN (fwd, bwd)")
     t_attach = time.perf_counter() - t
     served = np.zeros((n_slots, chunk * n_ticks), np.float32)
     ops.LAUNCHES = 0
@@ -603,18 +1008,22 @@ def run(dev: torch.device) -> int:
             ref0.append(y)
         ref0 = torch.cat(ref0, -1)[0].float().cpu()
     half_snr = snr_db(torch.from_numpy(served[0]), ref0)
-    log("4 serving", f"{n_slots} sessions (attach {t_attach:.2f} s), "
+    log("4 serving", f"{n_slots} sessions (attach {t_attach:.2f} s, "
+        f"{5 * n_slots} TCN launches), "
         f"{n_ticks} ticks of {chunk} samples: {n_slots} finite outputs per "
         f"tick, 0 underruns, launches {serve_launches}; tick p50 "
         f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; "
         f"bf16 slot 0 vs f32 engine SNR {half_snr:.1f} dB [{card}]", t)
 
     # ----------------------------------------------- 5. card vs CPU step
-    card_vs_cpu_step(lk, dev, card)
+    card_vs_cpu_step(lk, tk, dev, card)
 
     # ------------------------------------------ 6. full-width training
-    train = {label: full_width_training(lk, dev, card, dt)
+    train = {label: full_width_training(lk, tk, dev, card, dt)
              for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+
+    # ------------------------------------------- 6b. the recipe's trainer
+    recipe = recipe_phase(lk, tk, dev, card)
 
     # ------------------------------------------------- 7. the kernels line
     flag = results[0]
@@ -637,7 +1046,8 @@ def run(dev: torch.device) -> int:
         kernels.append({
             "name": f"lstm_scan_train_fp ({'forward' if i == 0 else 'backward'})",
             "route": "cuda", "source": LSTM_SOURCE, "replaces": replaces,
-            "launches": train["f32"]["launches"][i] + train["bf16"]["launches"][i],
+            "launches": (train["f32"]["launches"][i] + train["bf16"]["launches"][i]
+                         + recipe["launches"][i]),
             "max_abs_err": seg["f32_max_abs_err"], "ms": seg[f"f32_{half}_ms"],
             "plain_ms": seg[f"f32_plain_{half}_ms"],
             "bound_ms": seg[f"f32_{half}_bound"][0],
@@ -648,6 +1058,24 @@ def run(dev: torch.device) -> int:
             "bf16_bound_ms": seg[f"bf16_{half}_bound"][0],
             "bf16_library_ms": seg[f"bf16_lib_{half}_ms"],
             "shape": seg["shape"]})
+    spk = tcn_results["speaker d=1"]
+    for half, replaces in (("fwd", TCN_REPLACES[0]), ("bwd", TCN_REPLACES[1])):
+        i = 2 if half == "fwd" else 3
+        kernels.append({
+            "name": f"tcn_block_train ({'forward' if half == 'fwd' else 'backward'})",
+            "route": "cuda", "source": TCN_SOURCE, "replaces": replaces,
+            "launches": (train["f32"]["launches"][i] + train["bf16"]["launches"][i]
+                         + recipe["launches"][i]),
+            "max_abs_err": spk["f32_max_abs_err"], "ms": spk[f"f32_{half}_ms"],
+            "plain_ms": spk[f"f32_plain_{half}_ms"],
+            "bound_ms": spk[f"f32_{half}_bound"][0],
+            "bound_by": spk[f"f32_{half}_bound"][1], "library_ms": None,
+            "stock_fwd_bwd_ms": spk["f32_stock_ms"],
+            "bf16_ms": spk[f"bf16_{half}_ms"],
+            "bf16_plain_ms": spk[f"bf16_plain_{half}_ms"],
+            "bf16_bound_ms": spk[f"bf16_{half}_bound"][0],
+            "bf16_stock_fwd_bwd_ms": spk["bf16_stock_ms"],
+            "shape": spk["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,17 @@ its counterpart's file name and math, and its tests hold the two against
 each other on the CPU. This package imports `torch` and never `jax`.
 
 What is ported (the serving and training slices of the flagship
-`tse_skim_v0_causal`):
+`tse_skim_v0_causal`, and the recipe's trainer):
     zoo.tse.init_model                 — the flagship, random init from a Generator
     nnet                               — encoder, TCN speaker net, SkiM, the TSE wrapper
     nnet.loss.sdr                      — the SDR loss family (SI-SNR for the flagship)
     ops.skim_stream_kernel             — the fused SkiM streaming step (CUDA, sm_90a)
     ops.lstm_train_kernel              — the LSTM scan, forward and backward (CUDA, sm_90a)
+    ops.tcn_train_kernel               — the TCN block, forward and backward (CUDA, sm_90a)
     parallel                           — TrainState, adam, make_train_step
+    src                                — AudioIO, load_hparam, the C++ host library
+    tasks                              — DataLoader, TseDataset, TseTask (the trainer)
+    egs.tse.main                       — the recipe's command line (--action train)
     streaming                          — StreamingTSE, SessionServer, make_session_server
     utils.from_jax                     — JAX variables -> this package's state_dict
 
@@ -21,4 +25,5 @@ tensor takes each kernel's plain PyTorch version.
 
 __version__ = "0.1.0"
 
-__all__ = ["dsp", "nnet", "ops", "parallel", "streaming", "utils", "zoo"]
+__all__ = ["dsp", "egs", "nnet", "ops", "parallel", "src", "streaming", "tasks",
+           "utils", "zoo"]

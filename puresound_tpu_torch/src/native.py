@@ -1,8 +1,10 @@
-"""Loader of the repository's C++ host library (csrc/, the ring hub).
+"""Loader of the repository's C++ host library (csrc/): the ring hub, the
+audio decoders and the polyphase resampler.
 
 The same `csrc/libpuresound_audio.so` that puresound_tpu/src/native.py
 loads, found and built (`make -C csrc`) here so that this package never
-imports the JAX package. Nothing runs at import time.
+imports the JAX package. Nothing runs at import time. This is host I/O for
+the data pipeline, not the device.
 """
 from __future__ import annotations
 
@@ -10,13 +12,16 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Tuple
+
+import numpy as np
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 LIB_PATH = os.path.join(CSRC, "libpuresound_audio.so")
 
 _lib: Optional[ctypes.CDLL] = None
+_error: Optional[Exception] = None   # the failure of the one build attempt
 _lock = threading.Lock()
 
 
@@ -29,17 +34,96 @@ def _stale() -> bool:
                for name in os.listdir(CSRC))
 
 
+def _bind_audio(lib: ctypes.CDLL) -> None:
+    for name in ("decode_flac", "decode_wav"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t,
+                       ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+                       ctypes.POINTER(ctypes.c_int64),
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    lib.free_buffer.argtypes = [ctypes.POINTER(ctypes.c_float)]
+    lib.free_buffer.restype = None
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    lib.ps_resample_len.argtypes = [ctypes.c_int64] * 3
+    lib.ps_resample_len.restype = ctypes.c_int64
+    lib.ps_resample_poly_f32.argtypes = [f32p, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int64, f32p]
+    lib.ps_resample_poly_f32.restype = ctypes.c_int
+
+
 def load() -> ctypes.CDLL:
     """The library handle, built first when missing or older than a
-    source. Raises with make's output when the build fails."""
-    global _lib
+    source. Raises with make's output when the build fails; make runs once
+    per process, and later calls raise the first failure again."""
+    global _lib, _error
     with _lock:
         if _lib is None:
-            if _stale():
-                proc = subprocess.run(["make", "-C", CSRC],
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"make -C {CSRC} failed:\n"
-                                       f"{proc.stdout}\n{proc.stderr}")
-            _lib = ctypes.CDLL(LIB_PATH)
+            if _error is not None:
+                raise _error
+            try:
+                if _stale():
+                    proc = subprocess.run(["make", "-C", CSRC],
+                                          capture_output=True, text=True)
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"make -C {CSRC} failed:\n"
+                                           f"{proc.stdout}\n{proc.stderr}")
+                lib = ctypes.CDLL(LIB_PATH)
+            except (RuntimeError, OSError) as e:
+                _error = e
+                raise
+            _bind_audio(lib)
+            _lib = lib
         return _lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads here."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
+def _decode(fn_name: str, raw: bytes) -> Tuple[np.ndarray, int]:
+    lib = load()
+    buf = (ctypes.c_uint8 * len(raw)).from_buffer_copy(raw)
+    out = ctypes.POINTER(ctypes.c_float)()
+    total, channels, sr = ctypes.c_int64(), ctypes.c_int(), ctypes.c_int()
+    rc = getattr(lib, fn_name)(buf, len(raw), ctypes.byref(out),
+                               ctypes.byref(total), ctypes.byref(channels),
+                               ctypes.byref(sr))
+    if rc != 0:
+        raise ValueError(f"{fn_name} failed with code {rc}")
+    n = total.value * channels.value
+    arr = np.ctypeslib.as_array(out, shape=(n,)).copy()
+    lib.free_buffer(out)
+    return arr.reshape(channels.value, total.value), sr.value
+
+
+def read_flac(path: str) -> Tuple[np.ndarray, int]:
+    with open(path, "rb") as f:
+        return _decode("decode_flac", f.read())
+
+
+def read_wav(path: str) -> Tuple[np.ndarray, int]:
+    with open(path, "rb") as f:
+        return _decode("decode_wav", f.read())
+
+
+def resample_poly(x: np.ndarray, up: int, down: int) -> np.ndarray:
+    """scipy.signal.resample_poly's polyphase resampler (kaiser-5.0 lowpass,
+    float32) along the last axis."""
+    lib = load()
+    x = np.ascontiguousarray(x, np.float32)
+    lead = x.shape[:-1]
+    flat = x.reshape(-1, x.shape[-1])
+    ny = lib.ps_resample_len(flat.shape[1], up, down)
+    out = np.empty((flat.shape[0], ny), np.float32)
+    for r in range(flat.shape[0]):
+        rc = lib.ps_resample_poly_f32(flat[r], flat.shape[1], up, down, out[r])
+        if rc != 0:
+            raise ValueError(f"ps_resample_poly_f32 failed ({rc})")
+    return out.reshape(lead + (ny,))

@@ -1,0 +1,505 @@
+"""Training runtime: logging, LR scheduling, Kaldi-manifest datasets, the
+host-side data loader and the epoch trainer (counterpart of
+puresound_tpu/tasks/base.py: TensorboardWriter `:35`, LearningRateScheduler
+`:107`, TaskDataset `:158`, DataLoader `:281`, pad_stack `:499`,
+DeferredMetricSink `:512`, BaseTrainer `:554-855`).
+
+The optimizer chain of `_make_tx` (`:602`) is one `torch.optim.Adam` with
+a parameter group per LR factor: optax's `add_decayed_weights` before
+`scale_by_adam` is Adam's `weight_decay` (an L2 term added to the gradient,
+not AdamW), and `multi_rate` scales a group's update by its factor, which
+is the group's lr = base lr x factor. The scheduler sets the base LR and
+keeps the factors. Checkpoints (`epoch_{n}.ckpt`, `torch.save`) hold the
+parameters, the buffers (JAX's `batch_stats`), the optimizer state, the
+bookkeeping (`meta`) and the scheduler, with JAX's resume semantics.
+Reading a flax-msgpack checkpoint of the JAX package is not ported (ROADMAP
+queue 1 item 2).
+"""
+from __future__ import annotations
+
+import json
+import os
+import random
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..src.utils import create_folder, load_text_as_dict
+
+
+# ---------------------------------------------------------------------------
+# Logging
+# ---------------------------------------------------------------------------
+
+class TensorboardWriter:
+    """TensorBoard logger; always also a `metrics.jsonl` beside it (the
+    only log where tensorboard is not installed)."""
+
+    def __init__(self, logging_path: str):
+        create_folder(logging_path)
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            self.tf_writer = None
+        else:
+            self.tf_writer = SummaryWriter(log_dir=logging_path)
+        self._jsonl = open(os.path.join(logging_path, "metrics.jsonl"), "a")
+
+    def _log(self, kind, name, value, step):
+        self._jsonl.write(json.dumps(
+            {"kind": kind, "name": name, "value": float(value), "step": int(step)}) + "\n")
+        self._jsonl.flush()
+
+    def update_ep_lr(self, lr: float, epoch: int) -> None:
+        if self.tf_writer:
+            self.tf_writer.add_scalar("learning_rate", lr, epoch)
+        self._log("scalar", "learning_rate", lr, epoch)
+
+    def update_ep_loss(self, name: str, loss: Any, epoch: int) -> None:
+        if self.tf_writer:
+            self.tf_writer.add_scalar(name, float(loss), epoch)
+        self._log("scalar", name, loss, epoch)
+
+    def update_step_loss(self, name: str, loss: Any, step: int) -> None:
+        if self.tf_writer:
+            self.tf_writer.add_scalar(name, float(loss), step)
+        self._log("scalar", name, loss, step)
+
+    def add_ep_audio(self, name: str, audio: Any, epoch: int, sr: int = 16000) -> None:
+        if self.tf_writer is None:
+            return
+        audio = np.asarray(audio)
+        if audio.ndim == 3:
+            audio = audio[0]
+        self.tf_writer.add_audio(name, torch.from_numpy(audio), epoch, sr)
+
+    def close(self) -> None:
+        if self.tf_writer:
+            self.tf_writer.close()
+        self._jsonl.close()
+
+
+# ---------------------------------------------------------------------------
+# LR scheduling (host-side; the trainer writes the value into the optimizer)
+# ---------------------------------------------------------------------------
+
+class LearningRateScheduler:
+    """stepLR (decay every `patience` steps) or Plateau (decay after
+    `patience` epochs without improvement). Call step() per epoch and read
+    .lr."""
+
+    def __init__(self, type: str, base_lr: float, gamma: float = 0.5,
+                 patience: int = 3, mode: str = "min"):
+        if type not in ("stepLR", "Plateau"):
+            raise NotImplementedError(type)
+        self.type = type
+        self.lr = base_lr
+        self.gamma = gamma
+        self.patience = patience
+        self.mode = mode
+        self._step_count = 0
+        self._best = np.inf if mode == "min" else -np.inf
+        self._bad_epochs = 0
+
+    def step(self, loss: Optional[float] = None) -> float:
+        if self.type == "stepLR":
+            self._step_count += 1
+            if self._step_count % self.patience == 0:
+                self.lr *= self.gamma
+        else:
+            if loss is None:
+                raise ValueError("the Plateau scheduler needs the dev loss")
+            improved = (loss < self._best) if self.mode == "min" else (loss > self._best)
+            if improved:
+                self._best = loss
+                self._bad_epochs = 0
+            else:
+                self._bad_epochs += 1
+                if self._bad_epochs > self.patience:
+                    self.lr *= self.gamma
+                    self._bad_epochs = 0
+        return self.lr
+
+    def state_dict(self) -> Dict:
+        return {"lr": self.lr, "step_count": self._step_count,
+                "best": float(self._best), "bad_epochs": self._bad_epochs}
+
+    def load_state_dict(self, d: Dict) -> None:
+        self.lr = float(d["lr"])
+        self._step_count = int(d["step_count"])
+        self._best = float(d["best"])
+        self._bad_epochs = int(d["bad_epochs"])
+
+
+# ---------------------------------------------------------------------------
+# Datasets / loader
+# ---------------------------------------------------------------------------
+
+class TaskDataset:
+    """Kaldi-style manifest dataset (wav2scp.txt is mandatory; subclasses
+    declare extra files via folder_content)."""
+
+    def __init__(self, folder: str, resample_to: Optional[int] = None):
+        self.folder = folder
+        self.resample_to = resample_to
+        self.df = self._load_df(folder)
+        self.idx_df = {i: k for i, k in enumerate(self.df.keys())}
+
+    def __len__(self):
+        return len(self.idx_df)
+
+    def __getitem__(self, index):
+        raise NotImplementedError
+
+    @property
+    def folder_content(self) -> Dict[str, str]:
+        return {"wav2scp": "wav2scp.txt"}
+
+    def _load_df(self, folder: str) -> Dict:
+        content = dict(self.folder_content)
+        scp_path = os.path.join(folder, content.pop("wav2scp"))
+        if not os.path.isfile(scp_path):
+            raise FileNotFoundError(f"{scp_path} is not found")
+        df: Dict[str, Dict] = {}
+        wav2scp = load_text_as_dict(scp_path)
+        for key in sorted(wav2scp.keys()):
+            df[key] = {"wav2scp": wav2scp[key][0]}
+        for name, fname in content.items():
+            fpath = os.path.join(folder, fname)
+            if not os.path.isfile(fpath):
+                raise FileNotFoundError(f"{fpath} is not found")
+            temp = load_text_as_dict(fpath)
+            for key in sorted(temp.keys()):
+                if key not in df:
+                    print(f"Non match key {key}")
+                    continue
+                df[key][name] = temp[key] if len(temp[key]) != 1 else temp[key][0]
+        return df
+
+
+def _as_is(batch):
+    return batch
+
+
+def _to_tensors(batch):
+    """In a worker: a batch's numpy arrays become tensors, which torch's
+    loader hands over through shared memory, where arrays would be pickled
+    through a pipe (a recipe batch is 8.4 MB)."""
+    if not isinstance(batch, dict):
+        return batch
+    return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+            for k, v in batch.items()}
+
+
+def _to_arrays(batch):
+    """The numpy arrays of a batch `_to_tensors` handed over (no copy)."""
+    if not isinstance(batch, dict):
+        return batch
+    return {k: v.numpy() if isinstance(v, torch.Tensor) else v
+            for k, v in batch.items()}
+
+
+class _EpochBatches(torch.utils.data.Dataset):
+    """One epoch's batches as a map-style dataset: item `seq` is batch `seq`
+    of the epoch's order, built under the RNG seeded for it."""
+
+    def __init__(self, loader: "DataLoader", batches: List[List[int]]):
+        self.loader = loader
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __getitem__(self, seq: int):
+        return self.loader._make(self.batches[seq], seq)
+
+
+class DataLoader:
+    """Host-side loader: shuffling, batching and collate (the
+    `batch_sampler` of contrastive batches is not ported yet, ROADMAP queue
+    1 item 5). num_workers == 0 builds each batch in this process;
+    num_workers > 0 hands an epoch's batches to torch's DataLoader with
+    fork'd workers, which run numpy code only and never touch the CUDA
+    state the parent may have initialised before it forked; a batch's
+    arrays come back through shared memory.
+
+    Every batch is built under an RNG seeded from (seed, epoch, batch), so
+    the batches do not depend on num_workers; without `seed` a random base
+    is drawn per loader (fork'd workers never share one RNG stream)."""
+
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 collate_fn: Optional[Callable] = None, num_workers: int = 0,
+                 drop_last: bool = False,
+                 prefetch: int = 2, seed: Optional[int] = None,
+                 shard: Optional[tuple] = None):
+        if shard is not None:
+            raise NotImplementedError(
+                "DataLoader(shard=...) (multi-process training) is not ported "
+                "yet (ROADMAP queue 1 item 2: DDP)")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.collate_fn = collate_fn or _as_is
+        self.num_workers = num_workers
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.seed = seed
+        self._auto_base = random.getrandbits(63)
+        self._epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        """Start the epoch count at `epoch` (the next pass is epoch + 1), as a
+        resumed run's loader would have reached it."""
+        self._epoch = epoch
+
+    def _batches(self):
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            if self.seed is not None:
+                random.Random(self.seed + 7919 * self._epoch).shuffle(idx)
+            else:
+                random.shuffle(idx)
+        for i in range(0, len(idx), self.batch_size):
+            b = idx[i:i + self.batch_size]
+            if len(b) < self.batch_size and self.drop_last:
+                continue
+            yield b
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _batch_seed(self, seq: int) -> int:
+        base = self._auto_base if self.seed is None else self.seed
+        return (base * 1_000_003 + self._epoch * 7919 + seq) % (2**63)
+
+    def _make(self, indices, seq: int):
+        s = self._batch_seed(seq)
+        random.seed(s)
+        np.random.seed(s % (2**32))
+        return self.collate_fn([self.dataset[i] for i in indices])
+
+    def __iter__(self):
+        self._epoch += 1
+        batches = _EpochBatches(self, list(self._batches()))
+        if self.num_workers == 0:
+            for seq in range(len(batches)):
+                yield batches[seq]
+            return
+        for batch in torch.utils.data.DataLoader(
+                batches, batch_size=None, collate_fn=_to_tensors,
+                num_workers=self.num_workers, prefetch_factor=max(self.prefetch, 1),
+                multiprocessing_context="fork"):
+            yield _to_arrays(batch)
+
+
+def pad_stack(seqs: List[np.ndarray]) -> np.ndarray:
+    """Zero-pad 1-D arrays to the max length and stack -> [N, L]."""
+    L = max(s.shape[-1] for s in seqs)
+    out = np.zeros((len(seqs), L), np.float32)
+    for i, s in enumerate(seqs):
+        out[i, :s.shape[-1]] = s.reshape(-1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Trainer
+# ---------------------------------------------------------------------------
+
+class DeferredMetricSink:
+    """Read per-step device metrics back one step behind dispatch, so the
+    host queues step k+1 before it waits on step k's loss. The logged
+    values, their order and the epoch averages are unchanged.
+
+        sink = DeferredMetricSink(consume)   # consume(ctx, metrics)
+        for ...:
+            state, metrics = train_step(...)
+            sink.push(ctx, metrics)          # reads the PREVIOUS step
+        sink.flush()                         # reads the last one
+    """
+
+    def __init__(self, consume):
+        self._consume = consume
+        self._pending = None
+
+    def push(self, ctx, metrics):
+        prev = self._pending
+        self._pending = (ctx, metrics)
+        if prev is not None:
+            self._consume(*prev)
+
+    def flush(self):
+        if self._pending is not None:
+            prev, self._pending = self._pending, None
+            self._consume(*prev)
+
+
+def _f32(lr: float) -> float:
+    """The learning rate as JAX holds it (a float32 hyperparameter)."""
+    return float(np.float32(lr))
+
+
+class BaseTrainer:
+    """Epoch-driven trainer around one train step on `device`.
+
+    Subclasses set `self.model` before calling this constructor and build
+    their step in `_build_steps`. Checkpoints include the optimizer state
+    and the scheduler bookkeeping (full resume)."""
+
+    def __init__(self, hparam: Dict, device):
+        self.hparam = hparam
+        self.device = torch.device(device)
+        self.best_loss = np.inf
+        self.best_epoch = np.inf
+        self.overall_step = 0
+        self.build_optim()
+        if hparam["TRAIN"].get("use_tensorboard"):
+            self.tf_writer = TensorboardWriter(hparam["TRAIN"]["log_dir"])
+        else:
+            self.tf_writer = None
+
+    # ------------------------------------------------------------- builders
+    def lr_factors(self) -> Optional[Dict[str, float]]:
+        """Optional per-submodule LR factors (e.g. encoder 0.1)."""
+        return None
+
+    def _factor(self, name: str, factors: Optional[Dict[str, float]]) -> float:
+        """The factor of the first prefix the top-level module name starts
+        with (the tree path's first key in JAX), else 1."""
+        top = name.split(".", 1)[0]
+        for prefix, f in (factors or {}).items():
+            if top.startswith(prefix):
+                return f
+        return 1.0
+
+    def _make_optimizer(self) -> torch.optim.Optimizer:
+        opt = self.hparam["OPTIMIZER"]
+        factors = self.lr_factors() if opt.get("multi_rate") else None
+        groups: Dict[float, list] = {}
+        for name, p in self.model.named_parameters():
+            groups.setdefault(self._factor(name, factors), []).append(p)
+        lr = _f32(opt["lr"])
+        return torch.optim.Adam(
+            [{"params": ps, "factor": f, "lr": lr * f} for f, ps in groups.items()],
+            lr=lr, betas=(opt.get("beta1", 0.9), opt.get("beta2", 0.999)),
+            eps=1e-8, weight_decay=opt.get("weight_decay", 0.0) or 0.0)
+
+    def build_optim(self):
+        from ..parallel.mesh import TrainState
+
+        opt = self.hparam["OPTIMIZER"]
+        self.scheduler = LearningRateScheduler(
+            opt["lr_scheduler"], base_lr=opt["lr"], gamma=opt.get("gamma", 0.5),
+            patience=opt.get("patience", 3), mode=opt.get("mode", "min"))
+        self.state = TrainState(self.model, self._make_optimizer())
+        self._lr = _f32(opt["lr"])
+        resume = self.hparam["TRAIN"].get("resume_epoch")
+        if resume:
+            print(f"***** Start from {resume} epoch")
+            self.load_ckpt(os.path.join(self.hparam["TRAIN"]["model_save_dir"],
+                                        f"epoch_{resume - 1}.ckpt"))
+
+    def set_learning_rate(self, lr: float):
+        self._lr = _f32(lr)
+        for group in self.state.optimizer.param_groups:
+            group["lr"] = self._lr * group["factor"]
+
+    @property
+    def current_lr(self) -> float:
+        return self._lr
+
+    # ---------------------------------------------------------- checkpoints
+    def _ckpt_tree(self, epoch, loss) -> Dict:
+        params = dict(self.model.named_parameters())
+        return {
+            "params": {n: t.detach() for n, t in self.model.state_dict().items()
+                       if n in params},
+            "batch_stats": {n: b.detach() for n, b in self.model.named_buffers()},
+            "opt_state": self.state.optimizer.state_dict(),
+            "meta": {"epoch": int(epoch), "learning_rate": self.current_lr,
+                     "loss": float(loss["total_loss"]),
+                     "best_loss": float(self.best_loss),
+                     "best_epoch": (float(self.best_epoch)
+                                    if np.isfinite(self.best_epoch) else -1.0),
+                     "overall_step": int(self.overall_step),
+                     "step": int(self.state.step)},
+            "scheduler": self.scheduler.state_dict(),
+        }
+
+    def save_ckpt(self, filename: str, epoch: int, loss: Dict) -> None:
+        torch.save(self._ckpt_tree(epoch, loss), filename)
+
+    def save_ckpt_info(self, filename: str, epoch: int, learning_rate, loss) -> None:
+        with open(filename, "w") as f:
+            f.write(f"epoch: {epoch}\n")
+            f.write(f"lr: {learning_rate}\n")
+            f.write(f"loss: {loss['total_loss']}\n")
+            f.write(f"best_epoch: {self.best_epoch}\n")
+            f.write(f"best_dev_loss: {self.best_loss}\n")
+
+    def load_ckpt(self, filename: str) -> Tuple[int, float, float]:
+        tree = torch.load(filename, map_location=self.device, weights_only=True)
+        state = dict(tree["params"])
+        state.update(tree["batch_stats"])
+        self.model.load_state_dict(state, strict=True)
+        self.state.optimizer.load_state_dict(tree["opt_state"])
+        meta = tree["meta"]
+        self.best_loss = float(meta["best_loss"])
+        self.best_epoch = np.inf if meta["best_epoch"] < 0 else float(meta["best_epoch"])
+        self.overall_step = int(meta["overall_step"])
+        self.state.step = int(meta["step"])
+        self.scheduler.load_state_dict(tree["scheduler"])
+        self.set_learning_rate(float(meta["learning_rate"]))
+        return int(meta["epoch"]), float(meta["learning_rate"]), float(meta["loss"])
+
+    # -------------------------------------------------------------- running
+    def train_one_epoch(self, current_epoch: int) -> Dict:
+        raise NotImplementedError
+
+    def compute_dev_loss(self, current_epoch: int) -> Dict:
+        raise NotImplementedError
+
+    def gen_logging(self, epoch: Optional[int] = None, prefix: str = ""):
+        raise NotImplementedError
+
+    def early_stopping(self, current_epoch: int, stop_criterion: int = 20):
+        if current_epoch >= self.best_epoch + stop_criterion:
+            raise RuntimeError("Early stopping")
+
+    def train(self):
+        num_epochs = self.hparam["TRAIN"]["num_epochs"]
+        start = self.hparam["TRAIN"].get("resume_epoch") or 0
+        if start:   # a resumed run draws the batches the straight run would
+            for loader in (self.train_dataloader, self.dev_dataloader):
+                if hasattr(loader, "set_epoch"):
+                    loader.set_epoch(start)
+        for epoch in range(start, num_epochs):
+            lr = self.current_lr
+            loss = self.train_one_epoch(current_epoch=epoch)
+            dev_loss = self.compute_dev_loss(current_epoch=epoch)
+
+            if dev_loss["total_loss"] <= self.best_loss:
+                self.best_loss = dev_loss["total_loss"]
+                self.best_epoch = epoch
+
+            if self.tf_writer:
+                self.tf_writer.update_ep_lr(lr, epoch)
+                self.tf_writer.update_ep_loss("train/avg_loss", loss["total_loss"], epoch)
+                self.tf_writer.update_ep_loss("train/avg_dev_loss",
+                                              dev_loss["total_loss"], epoch)
+
+            save_dir = self.hparam["TRAIN"]["model_save_dir"]
+            create_folder(save_dir)
+            self.save_ckpt(os.path.join(save_dir, f"epoch_{epoch}.ckpt"), epoch, loss)
+            self.save_ckpt_info(os.path.join(save_dir, f"epoch_{epoch}.info"),
+                                epoch, lr, loss)
+
+            if epoch >= self.hparam["OPTIMIZER"]["num_epochs_decay"]:
+                new_lr = self.scheduler.step(
+                    dev_loss["total_loss"]
+                    if self.hparam["OPTIMIZER"]["lr_scheduler"] == "Plateau" else None)
+                self.set_learning_rate(new_lr)
+
+            self.gen_logging(epoch=epoch, prefix="")
+            self.early_stopping(current_epoch=epoch, stop_criterion=25)

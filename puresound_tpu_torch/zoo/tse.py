@@ -1,5 +1,6 @@
 """TSE model zoo (counterpart of puresound_tpu/zoo/tse.py): the flagship
-`tse_skim_v0_causal` (`:157-170`). The other names are still JAX-only."""
+`tse_skim_v0_causal` (`:157-170`) and `init_loss` (`:33`) for the SDR
+losses. The other names and losses are still JAX-only."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,6 +12,7 @@ from ..nnet.conv_tasnet import TCN
 from ..nnet.encoder import FreeEncDec
 from ..nnet.lobe.cnn import Conv1d
 from ..nnet.lobe.pooling import AttentiveStatisticsPooling
+from ..nnet.loss.sdr import SDRLoss
 from ..nnet.skim import SkiM
 from ..utils.init import generator_or_default
 
@@ -19,6 +21,24 @@ JAX_ONLY = ("td_tse_conv_tasnet_v0", "td_tse_conv_tasnet_v0_causal",
             "tse_unet_tcn_v0", "tse_unet_tcn_v0_causal", "tse_unet_tcn_v1",
             "tse_skim_v0", "tse_skim_v1_causal", "tse_skim_v2_causal",
             "tse_skim_v0_causal_vad", "veve_dprnn_v0_causal")
+
+
+def init_loss(hparam):
+    """(sig_loss, cls_loss) from the LOSS config (`:33`): the SDR losses
+    `sisnr`, `sdsdr`, `sdr`, `tsdr` with `sig_threshold`; no speaker loss."""
+    loss = hparam["LOSS"]
+    sig_loss, cls_loss = loss.get("sig_loss"), loss.get("cls_loss")
+    if cls_loss or loss.get("cls_loss_other"):
+        raise NotImplementedError(
+            f"speaker loss {cls_loss or loss.get('cls_loss_other')!r} is not ported "
+            "yet (ROADMAP queue 1 item 5: loss/metrics.py, loss/aamsoftmax.py)")
+    if not sig_loss:
+        return None, None
+    if sig_loss.lower() not in ("sisnr", "sdsdr", "sdr", "tsdr"):
+        raise NotImplementedError(
+            f"signal loss {sig_loss!r} is not ported yet (ROADMAP queue 1 item 6: "
+            "loss/stft_loss.py; item 5: F1)")
+    return SDRLoss.init_mode(sig_loss.lower(), threshold=loss.get("sig_threshold")), None
 
 
 def _tcn_speaker_net(feat_dim: int, embed_dim: int = 192, tcn_dim: int = 256,

@@ -303,6 +303,9 @@ def test_port_imports_no_jax():
     code = ("import puresound_tpu_torch, puresound_tpu_torch.streaming.deploy, "
             "puresound_tpu_torch.zoo.tse, puresound_tpu_torch.parallel.mesh, "
             "puresound_tpu_torch.nnet.loss.sdr, "
-            "puresound_tpu_torch.ops.lstm_train_kernel, sys; "
+            "puresound_tpu_torch.ops.lstm_train_kernel, "
+            "puresound_tpu_torch.ops.tcn_train_kernel, puresound_tpu_torch.src.audio, "
+            "puresound_tpu_torch.src.utils, puresound_tpu_torch.tasks.tse, "
+            "puresound_tpu_torch.egs.tse.main, sys; "
             "assert not {'jax', 'flax', 'puresound_tpu'} & set(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
