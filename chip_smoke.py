@@ -1,10 +1,11 @@
 """Chip smoke test of puresound_tpu_torch on one NVIDIA card.
 
 Drives the port's serving and training paths for the flagship
-`tse_skim_v0_causal` at full width (random weights from a seed):
+`tse_skim_v0_causal` and the NS serving path of `ns_dpcrn_v0_causal`, at
+full width (random weights from a seed):
 
   0. device: torch / CUDA versions, the card's name and power limit;
-  1. build: nvcc builds the three CUDA sources from the checkout, in
+  1. build: nvcc builds the five CUDA sources from the checkout, in
      parallel, and prints each build's seconds and ptxas registers and spills;
   2. `fused_skim_frames` vs `fused_skim_frames_ref` on the card at the
      flagship shapes (f32 and bf16, 20 carried chunks), at a ragged batch and
@@ -19,6 +20,14 @@ Drives the port's serving and training paths for the flagship
      the recipe (B=12, T=4,999), dilations 1 and 16 each, and a ragged case,
      f32 and bf16, with CUDA-event timings, the bounds, and the stock module
      under autograd as the yardstick;
+  2d. `lstm_scan` vs its plain version at DPCRN's fused serving scans with
+     2048 streams (intra 4,096 rows x 64 steps, forward and reverse; inter
+     131,072 rows x 2 steps with carries) and a ragged reverse case, f32 and
+     bf16 xp / weights / state with f32 dots, with CUDA-event times, the
+     bound and cuDNN's LSTM forward (C=128) as the yardstick;
+  2e. `dual_path_chunk` vs its plain version at 2048 streams, a ragged 1,001
+     and a small shape, f32 and bf16, over 10 carried chunks (y and the
+     four carries), with CUDA-event times of one chunk and the bound;
   3. flagship: 6,375,440 parameters; `StreamingTSE.embed` launches the TCN
      kernel 5 times; 20 streamed ticks through `StreamingTSE.step(fused=True)`
      equal the offline `inference`, which launches the LSTM kernel 10 times
@@ -26,6 +35,17 @@ Drives the port's serving and training paths for the flagship
   4. serving: `make_session_server(half=True, fused=True)` with 256 sessions
      (each attach embeds: 5 TCN launches), 25 ticks, every output finite,
      every step through the kernel;
+  3b. NS: `ns_dpcrn_v0_causal` in f32 (1,380,043 parameters), 4 streams x
+     2 s at 16 ms ticks through the stock, fused and dp_kernel routes of
+     `StreamingNS.step`, each equal to the offline `inference` past n_fft
+     samples; exact launches: 6 `lstm_scan_train_fp` per inference and per
+     stock tick, 6 `lstm_scan` per fused tick, 1 `dual_path_chunk` per
+     dp_kernel tick;
+  4b. NS serving: `make_session_server(half=True, dp_kernel=True)` at 256
+     and 2048 sessions attached without enrollment, 25 ticks after 3
+     warm-up, one `dual_path_chunk` per tick, every output finite; tick
+     p50/p99, the engine step alone, and bf16 slot 0 against the f32 engine
+     (bar 35 dB);
   5. one f32 training step (B=2 x 1 s) on the card against the same step on
      the CPU in f64 (and the CPU's f32 step beside it): loss, grad_norm,
      every gradient and updated parameter;
@@ -83,6 +103,24 @@ TCN_CASES = [("speaker d=1", 64, 128, 256, 1999, 1, 10),
              ("recipe d=1", 12, 128, 256, 4999, 1, 10),
              ("recipe d=16", 12, 128, 256, 4999, 16, 10),
              ("ragged", 5, 20, 36, 13, 16, 10)]
+LSCAN_REPLACES = "puresound_tpu/ops/lstm_scan_kernel.py:109"
+LSCAN_SOURCE = "puresound_tpu_torch/csrc/lstm_scan.cu"
+DP_REPLACES = "puresound_tpu/ops/dual_path_kernel.py:433"
+DP_SOURCE = "puresound_tpu_torch/csrc/dual_path.cu"
+# phase 2d: (name, rows, T, H, reverse, carries, the bf16 run's dot dtype,
+# timed repetitions), the DPCRN serving scans at 2048 streams (bf16 xp with
+# f32 dots, as the fused route runs them) and a ragged case with bf16 dots
+LSCAN_CASES = [("intra", 4096, 64, 128, False, False, torch.float32, 20),
+               ("intra reverse", 4096, 64, 128, True, False, torch.float32, 20),
+               ("inter", 131072, 2, 128, False, True, torch.float32, 20),
+               ("ragged reverse", 13, 7, 24, True, True, torch.bfloat16, 20)]
+# phase 2e: (name, streams, F, K, CH, H, timed repetitions)
+DP_CASES = [("2048 streams", 2048, 64, 2, 128, 128, 10),
+            ("ragged B=1001", 1001, 64, 2, 128, 128, 5),
+            ("small B=3", 3, 6, 2, 16, 8, 5)]
+DP_CHUNKS = 10                      # carried chunks held against the plain version
+NS_STREAMS, NS_SECONDS = 4, 2.0     # phase 3b
+NS_SLOTS, NS_TICKS, NS_WARM = (256, 2048), 25, 3    # phase 4b
 TRAIN_B, TRAIN_SECONDS = 64, 2.0    # phase 6: the JAX bench's B=64 x 2 s
 RECIPE_STEPS, RECIPE_WARM = 12, 2   # phase 6b: steps in its epoch, untimed ones
 
@@ -503,6 +541,286 @@ def tcn_phase(tk, gen, dev, card) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 2d
+def lscan_work(B, T, H, dt):
+    """(operations, bytes) of one lstm_scan call: the H x 4H recurrent dot
+    per row and step; xp, w_hh and h0 / c0 read once, y and hT / cT written
+    once (xp, y and the state in `dt`)."""
+    e = torch.finfo(dt).bits // 8
+    G = 4 * H
+    return 2.0 * B * T * H * G, (B * T * G + H * G + 4 * B * H + B * T * H) * e
+
+
+def cudnn_lstm_fwd_ms(B, T, C, H, dt, dev, reps):
+    """cuDNN's LSTM forward (`torch.nn.LSTM`, C=128 inputs) at the same rows,
+    steps and H: a yardstick that also computes the input projection; the
+    port never calls it. None where it refuses the dtype."""
+    lstm = torch.nn.LSTM(C, H, batch_first=True).to(device=dev, dtype=dt)
+    x = torch.randn(B, T, C, device=dev, dtype=dt)
+    h0 = torch.zeros(1, B, H, device=dev, dtype=dt)
+    try:
+        with torch.no_grad():
+            return cuda_ms(lambda: lstm(x, (h0, h0)), reps)
+    except RuntimeError as err:    # the yardstick only; the port is not involved
+        print(f"  cuDNN LSTM ({dt}) not timed: {err}".splitlines()[0], flush=True)
+        return None
+
+
+def lstm_scan_case(lsk, name, B, T, H, reverse, carries, bf16_dot, gen, dev, reps):
+    """`lstm_scan` kernel against its plain version on the card, f32 then
+    bf16 xp / weights / state with `bf16_dot` dots (f32 on the fused serving
+    route), with CUDA-event times, the bound and cuDNN's forward."""
+    k = 1.0 / math.sqrt(H)
+    xp = torch.randn(B, T, 4 * H, generator=gen)
+    h0 = 0.3 * torch.randn(B, H, generator=gen) if carries else torch.zeros(B, H)
+    c0 = 0.3 * torch.randn(B, H, generator=gen) if carries else torch.zeros(B, H)
+    w = (torch.rand(H, 4 * H, generator=gen) * 2 - 1) * k
+    res = {"name": name, "shape": f"rows={B} T={T} H={H} reverse={reverse}, bf16 run "
+           f"with {str(bf16_dot)[6:]} dots"}
+    for label, dt, dot in (("f32", torch.float32, torch.float32),
+                           ("bf16", torch.bfloat16, bf16_dot)):
+        args = [a.to(dev, dt) for a in (xp, h0, c0, w)]
+        got = lsk._launch(*args, reverse, dot)
+        want = lsk.lstm_scan_ref(*args, reverse, dot)
+        torch.cuda.synchronize()
+        for g in got:
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name} {label}: non-finite kernel output")
+        if dt == torch.float32:
+            rel = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(got, want)]
+            res["f32_rel"] = max(rel)
+            res["f32_max_abs_err"] = max((g - r).abs().max().item() for g, r in zip(got, want))
+            if max(rel) > 1e-4:
+                raise AssertionError(f"{name} f32: max|d|/max|ref| (y, hT, cT) {rel} > 1e-4")
+        else:
+            snr = [snr_db(g, r) for g, r in zip(got, want)]
+            res["bf16_snr_db"] = min(snr)
+            if min(snr) < 40.0:
+                raise AssertionError(f"{name} bf16: SNR (y, hT, cT) {snr} dB < 40")
+        del got, want
+        res[f"{label}_ms"] = cuda_ms(lambda: lsk._launch(*args, reverse, dot), reps)
+        res[f"{label}_plain_ms"] = cuda_ms(
+            lambda: lsk.lstm_scan_ref(*args, reverse, dot), max(2, reps // 4), 1)
+        # the peak of the dot's operand type
+        res[f"{label}_bound"] = bound_ms(*lscan_work(B, T, H, dt), dot)
+        res[f"{label}_lib_ms"] = (None if reverse else
+                                  cudnn_lstm_fwd_ms(B, T, 128, H, dt, dev, reps))
+    return res
+
+
+# ------------------------------------------------------------------ phase 2e
+def dual_path_work(F, K, B, CH, H, dt, n_blocks=2):
+    """(operations, bytes) of one dual_path_chunk call, as the JAX bench's
+    ns_roofline counts them (bench.py:264-281): per block the intra scans
+    (2 directions, (CH + H) x 4H per row and step), the intra projection
+    (2H x CH), the inter scan and its projection (H x CH); x read and y
+    written once, the carries read and written once, the weights read once."""
+    e = torch.finfo(dt).bits // 8
+    G, R = 4 * H, K * B
+    per_block = (2 * 2.0 * R * F * (CH + H) * G + 2.0 * F * R * 2 * H * CH
+                 + 2.0 * F * B * K * (CH + H) * G + 2.0 * F * B * K * H * CH)
+    weights = n_blocks * (3 * (CH + H) * G + 3 * G + 3 * H * CH + 6 * CH)
+    nbytes = (2 * F * K * B * CH + 2 * 2 * n_blocks * F * B * H + weights) * e
+    return n_blocks * per_block, nbytes
+
+
+def dp_weights(CH, H, gen, n_blocks=2):
+    """Random weights in dual_path_chunk's flat order, at trained scales."""
+    from puresound_tpu_torch.ops.dual_path_kernel import NAMES, _weight_shape
+
+    ws = []
+    for _ in range(n_blocks):
+        for name in NAMES:
+            shape = _weight_shape(name, CH, H)
+            scale = 1.0 / math.sqrt(shape[0]) if len(shape) == 2 else 0.1
+            w = (torch.rand(shape, generator=gen) * 2 - 1) * scale
+            ws.append(1.0 + w if name in ("ig", "tg") else w)
+    return ws
+
+
+def dual_path_case(dpk, name, B, F, K, CH, H, reps, gen, dev):
+    """`dual_path_chunk` kernel against its plain version on the card over
+    DP_CHUNKS carried chunks, f32 then bf16 (x, weights, carries and dots),
+    with CUDA-event times of one chunk and the bound."""
+    ws = dp_weights(CH, H, gen)
+    cgen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = [torch.randn(F, K, B, CH, device=dev, generator=cgen) for _ in range(DP_CHUNKS)]
+    carries = [0.3 * torch.randn(F, B, H, device=dev, generator=cgen) for _ in range(4)]
+    res = {"name": name, "shape": f"B={B} F={F} K={K} CH={CH} H={H}"}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        wd = [w.to(dev, dt) for w in ws]
+        runs = []
+        for fn in (dpk._launch, dpk.dual_path_chunk_ref):
+            h, c = [t.to(dt) for t in carries[:2]], [t.to(dt) for t in carries[2:]]
+            ys = []
+            for x in xs:
+                y, h, c = fn(x.to(dt), h, c, wd, dt)
+                ys.append(y)
+            runs.append([torch.cat(ys, 1)] + h + c)
+        torch.cuda.synchronize()
+        got, want = runs
+        for g in got:
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name} {label}: non-finite kernel output")
+        if dt == torch.float32:
+            rel = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(got, want)]
+            res["f32_rel"] = max(rel)
+            res["f32_max_abs_err"] = max((g - r).abs().max().item() for g, r in zip(got, want))
+            if max(rel) > 1e-4:
+                raise AssertionError(f"{name} f32: max|d|/max|ref| (y, h1, h2, c1, c2) "
+                                     f"{rel} > 1e-4")
+        else:
+            snr = [snr_db(g, r) for g, r in zip(got, want)]
+            res["bf16_snr_db"] = min(snr)
+            # both round to bf16 at the same points; a value within rounding
+            # of a bf16 boundary goes either way, and the carries take such
+            # a flip through 10 chunks: the bar is 30 dB
+            if min(snr) < 30.0:
+                raise AssertionError(f"{name} bf16: SNR (y, h1, h2, c1, c2) {snr} dB < 30")
+        del runs, got, want
+        x1 = xs[0].to(dt)
+        h1, c1 = [t.to(dt) for t in carries[:2]], [t.to(dt) for t in carries[2:]]
+        res[f"{label}_ms"] = cuda_ms(lambda: dpk._launch(x1, h1, c1, wd, dt), reps)
+        res[f"{label}_plain_ms"] = cuda_ms(
+            lambda: dpk.dual_path_chunk_ref(x1, h1, c1, wd, dt), 2, 1)
+        res[f"{label}_bound"] = bound_ms(*dual_path_work(F, K, B, CH, H, dt), dt)
+    return res
+
+
+# -------------------------------------------------------- phases 3b, 4b
+def ns_full_width(lk, lsk, dpk, dev, card):
+    """The full-width ns_dpcrn_v0_causal in f32: 4 streams of 2 s through
+    the stock, fused and dp_kernel routes of StreamingNS.step at 16 ms
+    ticks, each equal to the offline inference past n_fft samples."""
+    from puresound_tpu_torch.streaming.ns_engine import StreamingNS
+    from puresound_tpu_torch.zoo.ns import init_model
+
+    t = time.perf_counter()
+    model = init_model("ns_dpcrn_v0_causal", device=dev,
+                       generator=torch.Generator().manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != 1_380_043:
+        raise AssertionError(f"ns_dpcrn_v0_causal has {n_params} parameters")
+    engine = StreamingNS.from_offline(model)
+    S, n_str, L = 256, NS_STREAMS, int(16000 * NS_SECONDS)
+    ticks = L // S
+    audio = (0.1 * torch.randn(n_str, L, generator=torch.Generator().manual_seed(SEED))
+             ).to(dev)
+    n_fft, hop = 512, 128
+    with torch.no_grad():
+        zero_counts(lk)
+        offline = model.inference(torch.nn.functional.pad(audio, (n_fft - hop, 0)))
+        torch.cuda.synchronize()
+        expect_launches((lk.FWD_LAUNCHES, lk.BWD_LAUNCHES), (6, 0),
+                        "NS offline inference, lstm_scan_train_fp (fwd, bwd)")
+        out = {"params": n_params, "model": model, "engine": engine, "ticks": ticks}
+        routes = {}
+        for route, kw, want in (("stock", {}, (6 * ticks, 0, 0)),
+                                ("fused", {"fused": True}, (0, 6 * ticks, 0)),
+                                ("dp_kernel", {"dp_kernel": True}, (0, 0, ticks))):
+            state = engine.init_state(n_str, dp_kernel=route == "dp_kernel")
+            zero_counts(lk)
+            lsk.LAUNCHES = dpk.LAUNCHES = 0
+            ys = []
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for k in range(ticks):
+                y, state = engine.step(audio[:, k * S:(k + 1) * S], state, **kw)
+                ys.append(y)
+            torch.cuda.synchronize()
+            tick_ms = 1e3 * (time.perf_counter() - t1) / ticks
+            got = (lk.FWD_LAUNCHES, lsk.LAUNCHES, dpk.LAUNCHES)
+            expect_launches(got, want, f"NS {route} route, (lstm_scan_train_fp, "
+                            "lstm_scan, dual_path_chunk)")
+            streamed = torch.cat(ys, -1)
+            a, b = streamed[:, n_fft:], offline[:, n_fft:streamed.shape[-1]]
+            err = (a - b).abs()
+            bad = (err > 3e-5 + 1e-3 * b.abs()).sum().item()
+            if bad or not torch.isfinite(streamed).all():
+                raise AssertionError(f"NS {route}: {bad} samples past n_fft off the "
+                                     f"offline inference (max|d| {err.max().item():.3e})")
+            routes[route] = (err.max().item(), got, tick_ms)
+    out["routes"] = routes
+    log("3b ns", f"ns_dpcrn_v0_causal f32, {n_params:,} params; {n_str} streams x "
+        f"{NS_SECONDS:g} s "
+        f"at 16 ms ticks ({ticks} ticks) == offline inference past n_fft (atol 3e-5, "
+        "rtol 1e-3; offline launches lstm_scan_train_fp 6 times): " + "; ".join(
+            f"{r} max|d| {e:.3e}, launches (lstm_scan_train_fp, lstm_scan, "
+            f"dual_path_chunk) {g}, host ms per synced tick {ms:.3f}"
+            for r, (e, g, ms) in routes.items()) + f" [{card}]", t)
+    return out
+
+
+def ns_serving(dpk, ns, n_slots, dev, card):
+    """make_session_server(half=True, dp_kernel=True) for the full-width NS
+    model at n_slots sessions: NS_WARM warm-up ticks, then NS_TICKS ticks,
+    one dual_path_chunk launch each, every output finite; slot 0 in bf16
+    against the f32 engine on the same audio; tick p50/p99 and the engine
+    step alone."""
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+    from puresound_tpu_torch.streaming.server import ServeStats
+
+    t = time.perf_counter()
+    bundle = make_session_server(ns["model"], None, n_slots=n_slots, chunk_ms=16.0,
+                                 half=True, dp_kernel=True, lockstep=True)
+    server, chunk = bundle.server, bundle.chunk_samples
+    n_ticks = NS_WARM + NS_TICKS
+    rng = np.random.default_rng(SEED)
+    feed = (0.1 * rng.standard_normal((n_slots, chunk * n_ticks))).astype(np.float32)
+    sids = [server.attach() for _ in range(n_slots)]
+    served = np.zeros_like(feed)
+    for k in range(n_ticks):
+        if k == NS_WARM:
+            torch.cuda.synchronize()
+            server.stats = ServeStats()
+            dpk.LAUNCHES = 0
+        for i, sid in enumerate(sids):
+            server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+        if server.tick() != n_slots:
+            raise AssertionError(f"tick {k}: not every slot served")
+        for i, sid in enumerate(sids):
+            got = server.hub.pop_output(sid, chunk)
+            if len(got) != chunk or not np.isfinite(got).all():
+                raise AssertionError(f"tick {k} slot {sid}: bad output")
+            served[i, k * chunk:(k + 1) * chunk] = got
+    torch.cuda.synchronize()
+    launches = dpk.LAUNCHES
+    expect_launches(launches, NS_TICKS, f"NS serving {n_slots} slots, dual_path_chunk")
+    stats = server.stats.snapshot()
+    # the engine step alone, host clock around a synced step
+    engine = bundle.engine
+    x = torch.from_numpy(feed[:, :chunk]).to(dev, torch.bfloat16)
+    state = engine.init_state(n_slots, torch.bfloat16, dp_kernel=True)
+    step_ms = []
+    with torch.no_grad():
+        for k in range(NS_WARM + 10):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, state = engine.step(x, state, dp_kernel=True)
+            torch.cuda.synchronize()
+            if k >= NS_WARM:
+                step_ms.append(1e3 * (time.perf_counter() - t1))
+        st = ns["engine"].init_state(1, dp_kernel=True)
+        ref = []
+        for k in range(n_ticks):
+            y, st = ns["engine"].step(torch.from_numpy(
+                feed[:1, k * chunk:(k + 1) * chunk]).to(dev), st, dp_kernel=True)
+            ref.append(y)
+    half_snr = snr_db(torch.from_numpy(served[0]), torch.cat(ref, -1)[0].cpu())
+    if half_snr < 35.0:
+        raise AssertionError(f"NS bf16 serving vs f32: SNR {half_snr:.1f} dB < 35")
+    log("4b ns serving", f"ns_dpcrn_v0_causal, make_session_server(half=True, "
+        f"dp_kernel=True), {n_slots} sessions, {NS_TICKS} ticks of {chunk} samples after "
+        f"{NS_WARM} warm-up: every output finite, dual_path_chunk launches {launches}, "
+        f"0 underruns ({stats['underrun_slot_ticks']}); tick p50 {stats['tick_ms_p50']:.3f} "
+        f"ms, p99 {stats['tick_ms_p99']:.3f} ms; engine step alone p50 "
+        f"{float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); bf16 slot 0 vs the "
+        f"f32 engine SNR {half_snr:.1f} dB (bar 35) [{card}]", t)
+    return {"launches": launches, "tick_p50": stats["tick_ms_p50"],
+            "tick_p99": stats["tick_ms_p99"], "step_p50": float(np.median(step_ms)),
+            "snr": half_snr}
+
+
 # ------------------------------------------------------------ phases 5-6
 def train_parts(dev, gen, dtype=torch.float32):
     """(flagship with the SI-SNR loss, TrainState, step) on `dev`."""
@@ -850,6 +1168,8 @@ def recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
 def run(dev: torch.device) -> int:
     t0 = time.perf_counter()
     from puresound_tpu_torch.ops import _build
+    from puresound_tpu_torch.ops import dual_path_kernel as dpk
+    from puresound_tpu_torch.ops import lstm_scan_kernel as lsk
     from puresound_tpu_torch.ops import lstm_train_kernel as lk
     from puresound_tpu_torch.ops import skim_stream_kernel as ops
     from puresound_tpu_torch.ops import tcn_train_kernel as tk
@@ -868,11 +1188,10 @@ def run(dev: torch.device) -> int:
 
     # ------------------------------------------------------------ 1. build
     t = time.perf_counter()
-    sources = ("skim_stream", "lstm_train", "tcn_train")
+    sources = ("skim_stream", "lstm_train", "tcn_train", "lstm_scan", "dual_path")
     _build.build(sources)       # one nvcc per source, in parallel
-    ops._lib()
-    lk._lib()
-    tk._lib()
+    for mod in (ops, lk, tk, lsk, dpk):
+        mod._lib()
     for name in sources:
         regs = "; ".join(f"{k}: {r} registers, spills {st}/{ld} B"
                          for k, r, st, ld in _build.ptxas_report(name))
@@ -912,6 +1231,33 @@ def run(dev: torch.device) -> int:
 
     # -------------------------------------- 2c. TCN training kernel vs plain
     tcn_results = tcn_phase(tk, gen, dev, card)
+
+    # ------------------------------------------- 2d. the serving LSTM scan
+    lscan_results = {}
+    for name, B, T, H, reverse, carries, bf16_dot, reps in LSCAN_CASES:
+        t = time.perf_counter()
+        r = lstm_scan_case(lsk, name, B, T, H, reverse, carries, bf16_dot, gen, dev, reps)
+        lscan_results[name] = r
+        fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
+        log("2d lstm_scan", f"{r['shape']}: f32 max|d|/max|ref| {r['f32_rel']:.2e}, bf16 "
+            f"SNR {r['bf16_snr_db']:.1f} dB; " + "; ".join(
+                f"{lb} ms kernel {r[f'{lb}_ms']:.3f}, plain {r[f'{lb}_plain_ms']:.3f}, "
+                f"bound {r[f'{lb}_bound'][0]:.3f} ({r[f'{lb}_bound'][1]}), cuDNN LSTM "
+                f"forward with C=128 (it also projects the input) "
+                f"{fmt(r[f'{lb}_lib_ms'])}" for lb in ("f32", "bf16")) + f" [{card}]", t)
+
+    # --------------------------------------- 2e. the dual-path bottleneck
+    dp_results = {}
+    for name, B, F, K, CH, H, reps in DP_CASES:
+        t = time.perf_counter()
+        r = dual_path_case(dpk, name, B, F, K, CH, H, reps, gen, dev)
+        dp_results[name] = r
+        log("2e dual_path", f"{r['shape']}, {DP_CHUNKS} carried chunks: f32 "
+            f"max|d|/max|ref| (y, carries) {r['f32_rel']:.2e} (bar 1e-4), bf16 SNR "
+            f"{r['bf16_snr_db']:.1f} dB (bar 30); " + "; ".join(
+                f"{lb} ms per chunk kernel {r[f'{lb}_ms']:.3f}, plain "
+                f"{r[f'{lb}_plain_ms']:.3f}, bound {r[f'{lb}_bound'][0]:.3f} "
+                f"({r[f'{lb}_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
 
     # ------------------------------------------------------- 3. flagship
     t = time.perf_counter()
@@ -1015,6 +1361,12 @@ def run(dev: torch.device) -> int:
         f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; "
         f"bf16 slot 0 vs f32 engine SNR {half_snr:.1f} dB [{card}]", t)
 
+    # ------------------------------------- 3b, 4b. NS: ns_dpcrn_v0_causal
+    ns = ns_full_width(lk, lsk, dpk, dev, card)
+    ns_serve = {n: ns_serving(dpk, ns, n, dev, card) for n in NS_SLOTS}
+    ns_routes = ns["routes"]
+    del ns
+
     # ----------------------------------------------- 5. card vs CPU step
     card_vs_cpu_step(lk, tk, dev, card)
 
@@ -1076,6 +1428,30 @@ def run(dev: torch.device) -> int:
             "bf16_bound_ms": spk[f"bf16_{half}_bound"][0],
             "bf16_stock_fwd_bwd_ms": spk["bf16_stock_ms"],
             "shape": spk["shape"]})
+    intra = lscan_results["intra"]
+    kernels.append({
+        "name": "lstm_scan", "route": "cuda", "source": LSCAN_SOURCE,
+        "replaces": LSCAN_REPLACES, "launches": ns_routes["fused"][1][1],
+        "max_abs_err": intra["f32_max_abs_err"], "ms": intra["f32_ms"],
+        "plain_ms": intra["f32_plain_ms"], "bound_ms": intra["f32_bound"][0],
+        "bound_by": intra["f32_bound"][1], "library_ms": intra["f32_lib_ms"],
+        "library": "cuDNN nn.LSTM forward, C=128 (also projects the input)",
+        "bf16_ms": intra["bf16_ms"], "bf16_plain_ms": intra["bf16_plain_ms"],
+        "bf16_bound_ms": intra["bf16_bound"][0], "bf16_library_ms": intra["bf16_lib_ms"],
+        "bf16_snr_db": intra["bf16_snr_db"],
+        "inter_ms": lscan_results["inter"]["f32_ms"],
+        "inter_bf16_ms": lscan_results["inter"]["bf16_ms"], "shape": intra["shape"]})
+    dp = dp_results["2048 streams"]
+    kernels.append({
+        "name": "dual_path_chunk", "route": "cuda", "source": DP_SOURCE,
+        "replaces": DP_REPLACES,
+        "launches": sum(r["launches"] for r in ns_serve.values()),
+        "max_abs_err": dp["f32_max_abs_err"], "ms": dp["f32_ms"],
+        "plain_ms": dp["f32_plain_ms"], "bound_ms": dp["f32_bound"][0],
+        "bound_by": dp["f32_bound"][1], "library_ms": None,
+        "bf16_ms": dp["bf16_ms"], "bf16_plain_ms": dp["bf16_plain_ms"],
+        "bf16_bound_ms": dp["bf16_bound"][0], "bf16_snr_db": dp["bf16_snr_db"],
+        "shape": dp["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

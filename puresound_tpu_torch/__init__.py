@@ -5,18 +5,23 @@ its counterpart's file name and math, and its tests hold the two against
 each other on the CPU. This package imports `torch` and never `jax`.
 
 What is ported (the serving and training slices of the flagship
-`tse_skim_v0_causal`, and the recipe's trainer):
+`tse_skim_v0_causal`, the recipe's trainer, and NS serving of
+`ns_dpcrn_v0_causal`):
     zoo.tse.init_model                 — the flagship, random init from a Generator
-    nnet                               — encoder, TCN speaker net, SkiM, the TSE wrapper
+    zoo.ns.init_model                  — the DPCRN NS models
+    nnet                               — encoders (FreeEncDec, ConvSTFT), TCN speaker net,
+                                         SkiM, the Unet and DPCRN, the wrapper and TF masks
     nnet.loss.sdr                      — the SDR loss family (SI-SNR for the flagship)
     ops.skim_stream_kernel             — the fused SkiM streaming step (CUDA, sm_90a)
     ops.lstm_train_kernel              — the LSTM scan, forward and backward (CUDA, sm_90a)
     ops.tcn_train_kernel               — the TCN block, forward and backward (CUDA, sm_90a)
+    ops.lstm_scan_kernel               — the serving LSTM scan (CUDA, sm_90a)
+    ops.dual_path_kernel               — DPCRN's dual-path bottleneck (CUDA, sm_90a)
     parallel                           — TrainState, adam, make_train_step
     src                                — AudioIO, load_hparam, the C++ host library
     tasks                              — DataLoader, TseDataset, TseTask (the trainer)
     egs.tse.main                       — the recipe's command line (--action train)
-    streaming                          — StreamingTSE, SessionServer, make_session_server
+    streaming                          — StreamingTSE, StreamingNS, SessionServer, make_session_server
     utils.from_jax                     — JAX variables -> this package's state_dict
 
 Kernels build from `csrc/` with nvcc at first use on a CUDA tensor; a CPU

@@ -1,7 +1,9 @@
-"""Task wrapper (counterpart of puresound_tpu/nnet/base_nn.py).
+"""Task wrapper and mask algebra (counterpart of puresound_tpu/nnet/base_nn.py).
 
-`SoTaskWrapModule` with a time-domain (FreeEncDec) encoder and real masks:
-encoder -> speaker net -> masker -> mask -> decoder. `forward` returns the
+`SoTaskWrapModule` with a time-domain (FreeEncDec) encoder and real masks,
+or a conv-STFT (ConvEncDec) encoder with RI-concat features (the first bin
+dropped and re-padded when `drop_first_bin`) and any mask of
+`apply_tf_masks`: encoder -> speaker net -> masker -> mask -> decoder. `forward` returns the
 training loss of the task (`base_nn.py:200`): tasks 0/4 (`_forward`) and 1
 (`_forward_join`); `inference` (`:282`) returns the waveform. The module's
 own `training` flag takes the place of JAX's `train` argument.
@@ -13,7 +15,41 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .encoder import FreeEncDec
+from .encoder import ConvEncDec, FreeEncDec
+
+
+def mul_complex(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Entrywise complex product of [.., 2] RI tensors."""
+    r1, i1 = x1[..., 0], x1[..., 1]
+    r2, i2 = x2[..., 0], x2[..., 1]
+    return torch.stack([r1 * r2 - i1 * i2, r1 * i2 + i1 * r2], dim=-1)
+
+
+def apply_tf_masks(tf_rep: torch.Tensor, est_masks: torch.Tensor,
+                   mask_type: str, f_type: str) -> torch.Tensor:
+    """Apply a TF mask (`base_nn.py:49-78`). tf_rep / est_masks [N, C, T] or
+    RI-concat [N, 2C, T]; (mask_type, f_type) one of complex/complex,
+    real/complex, real/real, polar/polar."""
+    mt, ft = mask_type.lower(), f_type.lower()
+    if mt == "real" and ft == "real":
+        return tf_rep * est_masks
+    re, im = torch.chunk(tf_rep, 2, dim=1)
+    if mt == "real" and ft == "complex":
+        return torch.cat([re * est_masks, im * est_masks], dim=1)
+    mre, mim = torch.chunk(est_masks, 2, dim=1)
+    if mt == "complex" and ft == "complex":
+        out = mul_complex(torch.stack([re, im], -1), torch.stack([mre, mim], -1))
+        return torch.cat([out[..., 0], out[..., 1]], dim=1)
+    if mt == "polar" and ft == "polar":
+        tf_mag = torch.sqrt(re ** 2 + im ** 2 + 1e-8)
+        tf_phase = torch.atan2(im, re)
+        mask_mag = torch.sqrt(mre ** 2 + mim ** 2 + 1e-8)
+        mask_phase = torch.atan2(mim / (mask_mag + 1e-8), mre / (mask_mag + 1e-8))
+        est_mag = tf_mag * torch.tanh(mask_mag)
+        est_phase = tf_phase + mask_phase
+        return torch.cat([est_mag * torch.cos(est_phase),
+                          est_mag * torch.sin(est_phase)], dim=1)
+    raise NameError(f"unsupported mask/feature combination {mask_type}/{f_type}")
 
 
 def get_mask(mask: torch.Tensor, mask_constraint: str = "linear") -> torch.Tensor:
@@ -57,9 +93,9 @@ def run_speaker_net(layers, x: torch.Tensor) -> torch.Tensor:
 
 
 class SoTaskWrapModule(nn.Module):
-    """Single-output TSE wrapper: FreeEncDec -> (speaker net) -> masker ->
-    real mask -> decoder. Submodule names match PureSound's wrapper; the
-    loss functions are plain callables and hold no parameters."""
+    """Single-output wrapper (SE / TSE): encoder -> (speaker net) -> masker
+    -> mask -> decoder. Submodule names match PureSound's wrapper; the loss
+    functions are plain callables and hold no parameters."""
 
     def __init__(self, encoder: nn.Module, masker: nn.Module,
                  speaker_net: Optional[Sequence[nn.Module]] = None,
@@ -68,12 +104,13 @@ class SoTaskWrapModule(nn.Module):
                  loss_func_others: Optional[Callable] = None,
                  embedding_free_tse: bool = False,
                  mask_constraint: str = "linear",
-                 output_constraint: str = "linear"):
+                 output_constraint: str = "linear", f_type: str = "real",
+                 mask_type: str = "real", drop_first_bin: bool = False):
         super().__init__()
-        if not isinstance(encoder, FreeEncDec):
+        if not isinstance(encoder, (FreeEncDec, ConvEncDec)):
             raise NotImplementedError(
-                "only the FreeEncDec encoder (real masks) is ported (ROADMAP "
-                "queue 1: NS brings ConvEncDec and complex masks)")
+                f"encoder {type(encoder).__name__} is not ported yet (ROADMAP "
+                "queue 1 item 5: FbankEnc)")
         self.encoder = encoder
         self.masker = masker
         self.speaker_net = (nn.ModuleList(speaker_net)
@@ -84,6 +121,8 @@ class SoTaskWrapModule(nn.Module):
         self.embedding_free_tse = embedding_free_tse
         self.mask_constraint = mask_constraint
         self.output_constraint = output_constraint
+        self.f_type, self.mask_type = f_type, mask_type
+        self.drop_first_bin = drop_first_bin
 
     @property
     def task(self) -> Optional[int]:
@@ -116,32 +155,50 @@ class SoTaskWrapModule(nn.Module):
                 "(ROADMAP queue 1: loss/metrics.py)")
         raise NotImplementedError("wrapper constructed without loss functions")
 
+    def _encode(self, wav):
+        """Waveform -> masker features ([N, C, T]; RI-concat for the STFT)."""
+        feats = self.encoder(wav)
+        if isinstance(self.encoder, ConvEncDec):
+            lo = 1 if self.drop_first_bin else 0
+            feats = torch.cat([feats[:, lo:, :, 0], feats[:, lo:, :, 1]], dim=1)
+        return feats
+
+    def _decode(self, enh_feats):
+        """Masked features -> waveform (the DC bin re-padded for the STFT)."""
+        if isinstance(self.encoder, ConvEncDec):
+            re, im = torch.chunk(enh_feats, 2, dim=1)
+            if self.drop_first_bin:
+                re = torch.nn.functional.pad(re, (0, 0, 1, 0))
+                im = torch.nn.functional.pad(im, (0, 0, 1, 0))
+            enh_feats = torch.stack([re, im], dim=-1)
+        return self.encoder.inverse(enh_feats)
+
     def _dvec(self, enroll_feats):
         return run_speaker_net(self.speaker_net, enroll_feats).squeeze(-1)
 
     def _condition(self, enroll):
         if enroll is None:
             return None
-        feats = self.encoder(enroll)
+        feats = self._encode(enroll)
         return feats if self.embedding_free_tse else self._dvec(feats)
 
     def _mask_and_decode(self, noisy_feats, dvec):
         mask = (self.masker(noisy_feats, dvec) if dvec is not None
                 else self.masker(noisy_feats))
-        enh_feats = noisy_feats * get_mask(mask, self.mask_constraint)
-        return wav_output_constrain(self.encoder.inverse(enh_feats),
-                                    self.output_constraint)
+        enh_feats = apply_tf_masks(noisy_feats, get_mask(mask, self.mask_constraint),
+                                   self.mask_type, self.f_type)
+        return wav_output_constrain(self._decode(enh_feats), self.output_constraint)
 
     def _forward(self, noisy, enroll, ref_clean, inactive_labels):
-        enh_wav = self._mask_and_decode(self.encoder(noisy),
+        enh_wav = self._mask_and_decode(self._encode(noisy),
                                         self._condition(enroll))
         enh_wav, ref_clean = align_waveform(enh_wav, ref_clean)
         return self.loss_func_wav(enh_wav, ref_clean, inactive_labels)
 
     def _forward_join(self, noisy, enroll, ref_clean, spk_class, alpha,
                       return_loss_detail, inactive_labels):
-        dvec = self._dvec(self.encoder(enroll))
-        enh_wav = self._mask_and_decode(self.encoder(noisy), dvec)
+        dvec = self._dvec(self._encode(enroll))
+        enh_wav = self._mask_and_decode(self._encode(noisy), dvec)
         enh_wav, ref_clean = align_waveform(enh_wav, ref_clean)
         loss_wav = self.loss_func_wav(enh_wav, ref_clean, inactive_labels)
         if self.loss_func_spk is not None and spk_class is not None:
@@ -154,4 +211,4 @@ class SoTaskWrapModule(nn.Module):
     def inference(self, noisy: torch.Tensor,
                   enroll: Optional[torch.Tensor] = None) -> torch.Tensor:
         """noisy [N, L] (+ enroll [N, L']) -> enhanced [N, L]."""
-        return self._mask_and_decode(self.encoder(noisy), self._condition(enroll))
+        return self._mask_and_decode(self._encode(noisy), self._condition(enroll))

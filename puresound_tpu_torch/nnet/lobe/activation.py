@@ -1,4 +1,4 @@
-"""PReLU (counterpart of puresound_tpu/nnet/lobe/activation.py:9)."""
+"""Activations (counterpart of puresound_tpu/nnet/lobe/activation.py)."""
 from __future__ import annotations
 
 import torch
@@ -16,3 +16,15 @@ class PReLU(nn.Module):
 
     def forward(self, x):
         return torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
+
+
+_REGISTRY = {"relu": nn.ReLU, "prelu": PReLU, "mish": nn.Mish,
+             "sigmoid": nn.Sigmoid, "tanh": nn.Tanh}
+
+
+def get_activation(name: str):
+    """The activation class for a name (JAX `activation.py:50`); PReLU takes
+    device / dtype, the others no arguments."""
+    if name.lower() not in _REGISTRY:
+        raise NameError(f"Could not interpret activation identifier: {name}")
+    return _REGISTRY[name.lower()]

@@ -1,7 +1,8 @@
 """Conv building blocks (counterpart of puresound_tpu/nnet/lobe/cnn.py).
 
 `Conv1d` is torch-compatible ([O, I/groups, K] weight) with explicit
-symmetric padding; `DepthwiseSeparableConv1d` keeps PureSound's
+symmetric padding; `Conv2d` / `ConvTranspose2d` are torch-compatible too, with the causal
+frame-streaming forms of the Unet; `DepthwiseSeparableConv1d` keeps PureSound's
 `in_conv` / `depthwise` / `pointwise` Sequential layout so its state_dict
 names match the reference.
 """
@@ -52,6 +53,104 @@ class Conv1d(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
+
+
+def _pad2d(x: torch.Tensor, pad) -> torch.Tensor:
+    """Zero-pad [N, C, H, W] by pad = ((top, bottom), (left, right))."""
+    (t, b), (l, r) = pad
+    return F.pad(x, (l, r, t, b)) if (t or b or l or r) else x
+
+
+class Conv2d(nn.Module):
+    """torch-compatible Conv2d on [N, C, H, W] ([O, I, kH, kW] weight) with
+    explicit asymmetric padding `pad` = ((top, bottom), (left, right))
+    (JAX `nnet/lobe/cnn.py:79`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel,
+                 stride=(1, 1), dilation=(1, 1), pad=((0, 0), (0, 0)),
+                 bias: bool = True, *, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.dilation, self.pad = tuple(dilation), pad
+        g = generator_or_default(generator)
+        bound = math.sqrt(1.0 / (in_channels * self.kernel[0] * self.kernel[1]))
+        self.weight = uniform((out_channels, in_channels, *self.kernel), bound,
+                              g, device, dtype)
+        self.bias = (uniform((out_channels,), bound, g, device, dtype)
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor, pad=None) -> torch.Tensor:
+        """`pad` overrides the configured padding (streaming paths supply
+        their own time context)."""
+        x = _pad2d(x, self.pad if pad is None else pad)
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.conv2d(x, self.weight.to(x.dtype), b, stride=self.stride,
+                        dilation=self.dilation)
+
+    def stream_apply(self, h: torch.Tensor, carry: torch.Tensor,
+                     pad_f) -> torch.Tensor:
+        """Causal frame streaming for time kernel 2, stride 1: the module on
+        [carry, h] without the concat. The time context enters as zero
+        padding and the carried frame's tap is added into frame 0."""
+        if self.kernel[1] != 2 or self.stride[1] != 1 or self.dilation[1] != 1:
+            raise ValueError("stream_apply needs time kernel 2, stride 1")
+        y = self(h, pad=(pad_f, (1, 0)))
+        c = F.conv2d(_pad2d(carry.to(h.dtype)[..., None], (pad_f, (0, 0))),
+                     self.weight[:, :, :, 0:1].to(h.dtype), stride=self.stride,
+                     dilation=self.dilation)
+        return torch.cat([y[..., :1] + c, y[..., 1:]], dim=-1)
+
+
+class ConvTranspose2d(nn.Module):
+    """torch-compatible ConvTranspose2d ([in, out, kH, kW] weight,
+    `padding` / `output_padding`; JAX `nnet/lobe/cnn.py:137`):
+    out = (in-1)*stride - 2*padding + dilation*(kernel-1) + output_padding + 1."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel,
+                 stride=(1, 1), dilation=(1, 1), padding=(0, 0),
+                 output_padding=(0, 0), bias: bool = True, *, device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.dilation, self.padding = tuple(dilation), tuple(padding)
+        self.output_padding = tuple(output_padding)
+        g = generator_or_default(generator)
+        bound = math.sqrt(1.0 / (out_channels * self.kernel[0] * self.kernel[1]))
+        self.weight = uniform((in_channels, out_channels, *self.kernel), bound,
+                              g, device, dtype)
+        self.bias = (uniform((out_channels,), bound, g, device, dtype)
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.bias.to(x.dtype) if self.bias is not None else None
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), b,
+                                  stride=self.stride, padding=self.padding,
+                                  output_padding=self.output_padding,
+                                  dilation=self.dilation)
+
+    def _carry_tap(self, carry: torch.Tensor, dtype) -> torch.Tensor:
+        """Frame-0 contribution of the carried (previous chunk's last) input
+        frame: a one-frame transpose conv with the earlier-time tap."""
+        return F.conv_transpose2d(
+            carry.to(dtype)[..., None], self.weight[:, :, :, 1:2].to(dtype),
+            stride=(self.stride[0], 1), padding=(self.padding[0], 0),
+            output_padding=(self.output_padding[0], 0),
+            dilation=(self.dilation[0], 1))
+
+    def stream_apply(self, h: torch.Tensor, carry: torch.Tensor) -> torch.Tensor:
+        """Causal frame streaming for time kernel 2 / stride 1 / padding 0:
+        the module on [carry, h], frames 1..K, without the concat. The call
+        on h alone gives out[t] = W_1 h[t-1] + W_0 h[t] (h[-1] = 0) at
+        [..., :K]; the carried frame reaches frame 0 through W_1."""
+        if (self.kernel[1] != 2 or self.stride[1] != 1 or self.dilation[1] != 1
+                or self.padding[1] != 0 or self.output_padding[1] != 0):
+            raise ValueError("stream_apply needs time kernel 2, stride 1, "
+                             "padding 0")
+        K = h.shape[-1]
+        y = self(h)[..., :K]
+        return torch.cat([y[..., :1] + self._carry_tap(carry, h.dtype),
+                          y[..., 1:]], dim=-1)
 
 
 class DepthwiseSeparableConv1d(nn.Module):

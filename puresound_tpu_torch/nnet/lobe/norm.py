@@ -1,6 +1,7 @@
 """Normalization layers over channel-first [N, C, T] data.
 
-Counterpart of puresound_tpu/nnet/lobe/norm.py. Statistics are taken in at
+Counterpart of puresound_tpu/nnet/lobe/norm.py (`bN2d` is the same
+BatchNorm on [N, C, F, T]). Statistics are taken in at
 least float32 (float64 stays float64), with the single-pass variance
 E[x^2] - mean^2 of the reference (norm.py:20-32). Parameter names follow
 PureSound's torch modules: GlobLN keeps gamma/beta, the gGN alias is
@@ -154,3 +155,9 @@ def get_norm(name: str) -> Callable[..., nn.Module]:
     if name not in _REGISTRY:
         raise NameError(f"Could not interpret normalization identifier: {name}")
     return _REGISTRY[name]
+
+
+def apply_norm(norm_module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Call a norm module (JAX `norm.py:220`). JAX passes `train` to
+    BatchNorm only; here BatchNorm reads its module's `training` flag."""
+    return norm_module(x)

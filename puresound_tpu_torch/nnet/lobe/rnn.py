@@ -1,14 +1,15 @@
-"""The LSTM (counterpart of puresound_tpu/nnet/lobe/rnn.py:63-228).
+"""The LSTM and SingleRNN (counterpart of puresound_tpu/nnet/lobe/rnn.py:63-346).
 
-One module holds torch nn.LSTM's single-layer parameters
-(`weight_ih_l0` [4H, C], `weight_hh_l0` [4H, H], `bias_ih_l0`,
-`bias_hh_l0`; gate order i, f, g, o) and the cell methods of the JAX
-`LSTMCellParams` (`input_proj`, `gates_step`, `step`, `scan`). Every scan
-goes through `ops.lstm_train_kernel.lstm_scan_train_fp`: the CUDA kernel
-(forward and backward) for CUDA tensors, its plain version for CPU tensors.
-JAX's routing conditions are TPU facts and are dropped here: the >= 256-row
-crossover measured on a v5e (`rnn.py:98-102`), the `% 8` alignment and the
-`PURESOUND_FUSED_SCAN` switch. The single-step methods stay for streaming.
+`LSTM` holds torch nn.LSTM's single-layer parameters (`weight_ih_l0`
+[4H, C], `weight_hh_l0` [4H, H], `bias_ih_l0`, `bias_hh_l0`; gate order
+i, f, g, o; a bidirectional LSTM adds the `*_reverse` set) and the cell
+methods of the JAX `LSTMCellParams` (`input_proj`, `gates_step`, `step`,
+`scan`). Every scan goes through `ops.lstm_train_kernel.lstm_scan_train_fp`:
+the CUDA kernel (forward and backward) for CUDA tensors, its plain version
+for CPU tensors. JAX's routing conditions are TPU facts and are dropped
+here: the >= 256-row crossover measured on a v5e (`rnn.py:98-102`), the
+`% 8` alignment and the `PURESOUND_FUSED_SCAN` switch. The single-step
+methods stay for streaming.
 """
 from __future__ import annotations
 
@@ -19,36 +20,61 @@ import torch
 from torch import nn
 
 from ...ops.lstm_train_kernel import lstm_scan_train_fp
-from ...utils.init import generator_or_default, uniform
+from ...utils.init import fan_in_bound, generator_or_default, uniform
+
+
+class Linear(nn.Module):
+    """torch nn.Linear parameters ([out, in] weight), U(+-1/sqrt(in)) init."""
+
+    def __init__(self, in_features: int, out_features: int, *, device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator_or_default(generator)
+        k = fan_in_bound(in_features)
+        self.weight = uniform((out_features, in_features), k, g, device, dtype)
+        self.bias = uniform((out_features,), k, g, device, dtype)
+
+    def forward(self, x):
+        return x @ self.weight.T.to(x.dtype) + self.bias.to(x.dtype)
 
 
 class LSTM(nn.Module):
-    """Single-layer uni-directional LSTM, batch-first.
+    """Single-layer LSTM, batch-first, optionally bidirectional.
 
-    forward(x [B, T, C], init=None) -> (y [B, T, H], (h [1, B, H], c [1, B, H]))
+    forward(x [B, T, C], init=None) -> (y [B, T, D*H], (h [D, B, H], c [D, B, H]))
     """
 
     def __init__(self, in_features: int, hidden: int,
                  bidirectional: bool = False, *, device=None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if bidirectional:
-            raise NotImplementedError(
-                "bidirectional LSTM is not ported yet (ROADMAP queue 1: "
-                "non-causal SkiM / the rest of the TSE zoo)")
         self.in_features, self.hidden = in_features, hidden
+        self.bidirectional = bidirectional
         g = generator_or_default(generator)
         k = 1.0 / math.sqrt(hidden)
         fk = dict(device=device, dtype=dtype)
-        self.weight_ih_l0 = uniform((4 * hidden, in_features), k, g, **fk)
-        self.weight_hh_l0 = uniform((4 * hidden, hidden), k, g, **fk)
-        self.bias_ih_l0 = uniform((4 * hidden,), k, g, **fk)
-        self.bias_hh_l0 = uniform((4 * hidden,), k, g, **fk)
+        for sfx in ("", "_reverse") if bidirectional else ("",):
+            setattr(self, f"weight_ih_l0{sfx}", uniform((4 * hidden, in_features), k, g, **fk))
+            setattr(self, f"weight_hh_l0{sfx}", uniform((4 * hidden, hidden), k, g, **fk))
+            setattr(self, f"bias_ih_l0{sfx}", uniform((4 * hidden,), k, g, **fk))
+            setattr(self, f"bias_hh_l0{sfx}", uniform((4 * hidden,), k, g, **fk))
 
-    def input_proj(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def num_directions(self) -> int:
+        return 2 if self.bidirectional else 1
+
+    def direction(self, reverse: bool = False):
+        """(weight_ih, weight_hh, bias_ih, bias_hh) of one direction."""
+        sfx = "_reverse" if reverse else ""
+        if reverse and not self.bidirectional:
+            raise ValueError("a uni-directional LSTM has no reverse direction")
+        return tuple(getattr(self, f"{n}_l0{sfx}")
+                     for n in ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+
+    def input_proj(self, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         """x [..., C] -> [..., 4H] (both biases folded in)."""
-        return (x @ self.weight_ih_l0.T.to(x.dtype) + self.bias_ih_l0.to(x.dtype)
-                + self.bias_hh_l0.to(x.dtype))
+        w_ih, _, b_ih, b_hh = self.direction(reverse)
+        return x @ w_ih.T.to(x.dtype) + b_ih.to(x.dtype) + b_hh.to(x.dtype)
 
     def gates_step(self, xp_t, h, c):
         """One recurrence step from a pre-projected input; all [B, *]."""
@@ -62,24 +88,68 @@ class LSTM(nn.Module):
         """One step from a raw input x_t [B, C]; h, c [B, H]."""
         return self.gates_step(self.input_proj(x_t), h, c)
 
-    def scan(self, x, h0, c0, reverse: bool = False):
-        """x [B, T, C], h0/c0 [B, H] -> (y [B, T, H], (hT, cT))."""
-        y, hT, cT = lstm_scan_train_fp(
-            x, h0, c0, self.weight_ih_l0.T, self.bias_ih_l0 + self.bias_hh_l0,
-            self.weight_hh_l0.T, reverse)
+    def scan(self, x, h0, c0, reverse: bool = False, direction: bool = False):
+        """x [B, T, C], h0/c0 [B, H] -> (y [B, T, H], (hT, cT)), scanning T
+        backwards under `reverse` (y stays input-aligned) with the
+        parameters of direction `direction` (True: the `_reverse` set)."""
+        w_ih, w_hh, b_ih, b_hh = self.direction(direction)
+        y, hT, cT = lstm_scan_train_fp(x, h0, c0, w_ih.T, b_ih + b_hh, w_hh.T,
+                                       reverse)
         return y, (hT, cT)
 
     def forward(self, x: torch.Tensor,
                 init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         if init is None:
-            h0 = x.new_zeros((1, x.shape[0], self.hidden))
+            h0 = x.new_zeros((self.num_directions, x.shape[0], self.hidden))
             c0 = torch.zeros_like(h0)
         else:
             h0, c0 = init
         y, (h, c) = self.scan(x, h0[0], c0[0])
-        return y, (h[None], c[None])
+        if not self.bidirectional:
+            return y, (h[None], c[None])
+        y_b, (hb, cb) = self.scan(x, h0[1], c0[1], reverse=True, direction=True)
+        return (torch.cat([y, y_b], dim=-1),
+                (torch.stack([h, hb]), torch.stack([c, cb])))
 
     def step(self, x_t, h, c):
-        """Single-frame step. x_t [B, C], h/c [1, B, H]."""
+        """Single-frame step (uni-directional). x_t [B, C], h/c [1, B, H]."""
+        if self.bidirectional:
+            raise ValueError("step() is only defined for a uni-directional LSTM")
         h1, c1 = self.cell_step(x_t, h[0], c[0])
         return h1, (h1[None], c1[None])
+
+
+class SingleRNN(nn.Module):
+    """1-layer LSTM + dropout + linear projection back to the input size,
+    [N, C, T] in and out (JAX `rnn.py:289`; PureSound's `rnn` / `proj`)."""
+
+    def __init__(self, rnn_type: str, input_size: int, hidden_size: int,
+                 bidirectional: bool = False, dropout: float = 0.0, *,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        rt = rnn_type.upper()
+        if rt in ("GRU", "RNN"):
+            raise NotImplementedError(
+                f"SingleRNN {rt} is not ported yet (ROADMAP queue 1 item 5: "
+                "the rest of the TSE zoo)")
+        if rt != "LSTM":
+            raise ValueError(f"unsupported rnn type {rnn_type}")
+        fk = dict(device=device, dtype=dtype)
+        g = generator_or_default(generator)
+        self.hidden_size, self.bidirectional = hidden_size, bidirectional
+        self.rnn = LSTM(input_size, hidden_size, bidirectional, generator=g, **fk)
+        D = 2 if bidirectional else 1
+        self.proj = Linear(D * hidden_size, input_size, generator=g, **fk)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N, C, T] -> [N, C, T]."""
+        y, _ = self.rnn(x.transpose(1, 2))
+        return self.proj(self.drop(y)).transpose(1, 2)
+
+    def step(self, x_t, h, c):
+        """Streaming single-frame step (uni-directional): x_t [B, C],
+        h/c [1, B, H] -> (y [B, C], h', c')."""
+        y, (h, c) = self.rnn.step(x_t, h, c)
+        return self.proj(y), h, c

@@ -1,4 +1,5 @@
-"""FiLM conditioning (counterpart of puresound_tpu/nnet/lobe/trivial.py:88)."""
+"""FiLM conditioning and spectral compression (counterpart of
+puresound_tpu/nnet/lobe/trivial.py:88, :188)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -48,3 +49,14 @@ class FiLM(nn.Module):
         cond = condition[:, :, None].expand(*condition.shape, x.shape[-1])
         cat = torch.cat([x, cond.to(x.dtype)], dim=1)
         return self.cond_scale(cat) * x + self.cond_bias(cat)
+
+
+def spectral_compression(x: torch.Tensor, alpha: float = 0.3,
+                         dim: int = 1) -> torch.Tensor:
+    """mag^alpha * e^{i angle(phase)} on RI-concat input, complex out. As in
+    JAX (and the reference), the angle is taken of the real phase, so the
+    factor is +1 or -1."""
+    re, im = torch.chunk(x, 2, dim=dim)
+    mag = torch.sqrt(re ** 2 + im ** 2 + 1e-8) ** alpha
+    phase = torch.atan2(im, re)
+    return mag * torch.exp(1j * torch.angle(phase))

@@ -23,27 +23,12 @@ import torch
 from torch import nn
 
 from ..ops.skim_stream_kernel import SkimWeights, fused_skim_frames
-from ..utils.init import fan_in_bound, generator_or_default, uniform
+from ..utils.init import generator_or_default
 from .lobe.activation import PReLU
 from .lobe.cnn import Conv1d
 from .lobe.norm import LayerNormLast
-from .lobe.rnn import LSTM
+from .lobe.rnn import LSTM, Linear
 from .lobe.trivial import FiLM
-
-
-class Linear(nn.Module):
-    """torch nn.Linear parameters ([out, in] weight) with an explicit init."""
-
-    def __init__(self, in_features: int, out_features: int, *, device=None,
-                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
-        super().__init__()
-        g = generator_or_default(generator)
-        k = fan_in_bound(in_features)
-        self.weight = uniform((out_features, in_features), k, g, device, dtype)
-        self.bias = uniform((out_features,), k, g, device, dtype)
-
-    def forward(self, x):
-        return x @ self.weight.T.to(x.dtype) + self.bias.to(x.dtype)
 
 
 class SegLSTM(nn.Module):

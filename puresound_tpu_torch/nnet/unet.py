@@ -1,0 +1,215 @@
+"""Frequency-axis U-Net (counterpart of puresound_tpu/nnet/unet.py:27-293).
+
+Only the `Unet` base is ported (`UnetTcn` and `UnetFsmn` wait, ROADMAP
+queue 1 item 5). The shape algebra is JAX's (and PureSound's):
+- down layer i: zero pad (time (k_t-1-delay, delay), freq centred), Conv2d
+  of stride (s_f, s_t), norm, activation, dropout;
+- up layer: ConvTranspose2d(kernel (k_f, t_kernel), padding k_f//2,
+  output_padding s_f - k_f + 2*(k_f//2)), norm and activation but on the
+  last, then t_kernel-1 frames trimmed on the right (or on the left with
+  `transpose_delay`, the semi-causal lookahead mode).
+Module names follow PureSound's Sequential layout: `cnn_down[i]` =
+[ZeroPad2d, Conv2d, norm, act, Dropout], `cnn_up[j]` = [ConvTranspose2d,
+norm, act] (the last up layer only the transpose conv), so a state_dict
+reads `masker.cnn_down.0.1.weight`.
+
+The streaming helpers run a chunk of K frames through the causal layers
+(time kernel 2): a down conv prepends its carried last input frame as a
+one-tap term, a transpose conv keeps its last input frame pending, and
+with `transpose_delay` per-layer FIFOs realign the skips.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..utils.init import generator_or_default
+from .lobe.activation import get_activation
+from .lobe.cnn import Conv2d, ConvTranspose2d
+from .lobe.norm import apply_norm, get_norm
+
+
+class Unet(nn.Module):
+    """Freq-axis down/up 2-D CNN: x [N, C, T] (RI-concat or real) -> mask
+    [N, C, T]."""
+
+    def __init__(self, input_type: str = "RI", input_dim: int = 512,
+                 activation_type: str = "PReLU", norm_type: str = "bN2d",
+                 dropout: float = 0.05, channels: Sequence[int] = (1, 1, 8, 8, 16, 16),
+                 transpose_t_size: int = 2, skip_conv: bool = False,
+                 kernel_t=(5, 1, 9, 1, 1), stride_t=(1, 1, 1, 1, 1),
+                 dilation_t=(1, 1, 1, 1, 1), kernel_f=(1, 5, 1, 5, 1),
+                 stride_f=(1, 4, 1, 4, 1), dilation_f=(1, 1, 1, 1, 1),
+                 delay=(0, 0, 1, 0, 0), multi_output: int = 1,
+                 transpose_delay: bool = False, *, device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        n = len(kernel_t)
+        if not (len(kernel_f) == len(stride_t) == len(stride_f) == len(dilation_t)
+                == len(dilation_f) == len(delay) == n):
+            raise ValueError("the per-layer tuples need one entry per layer")
+        if skip_conv or multi_output != 1:
+            raise NotImplementedError(
+                "Unet skip_conv / multi_output is not ported yet (ROADMAP queue 1 "
+                "item 5: the rest of the TSE zoo)")
+        if input_type.lower() not in ("ri", "real"):
+            raise TypeError("input_type must be RI or Real")
+        self.input_type, self.input_dim, self.dropout = input_type, input_dim, dropout
+        self.transpose_t_size, self.transpose_delay = transpose_t_size, transpose_delay
+        self.kernel_t, self.kernel_f = tuple(kernel_t), tuple(kernel_f)
+        self.stride_t, self.stride_f = tuple(stride_t), tuple(stride_f)
+        self.dilation_t, self.delay = tuple(dilation_t), tuple(delay)
+        self._n_cnn = n
+        chans = list(channels)
+        chans[0] = chans[0] * 2 if input_type.lower() == "ri" else chans[0]
+        self._chans = chans
+        fk = dict(device=device, dtype=dtype)
+        g = generator_or_default(generator)
+        act, norm = get_activation(activation_type), get_norm(norm_type)
+        mk_act = lambda: act(**fk) if act.__name__ == "PReLU" else act()
+
+        self.cnn_down = nn.ModuleList()
+        for i in range(n):
+            kf, kt = kernel_f[i], kernel_t[i]
+            self.cnn_down.append(nn.Sequential(
+                nn.ZeroPad2d((kt - delay[i] - 1, delay[i], kf // 2, kf // 2)),
+                Conv2d(chans[i], chans[i + 1], (kf, kt), stride=(stride_f[i], stride_t[i]),
+                       dilation=(dilation_f[i], dilation_t[i]), generator=g, **fk),
+                norm(chans[i + 1], **fk), mk_act(), nn.Dropout(dropout)))
+        self.cnn_up = nn.ModuleList()
+        for i in reversed(range(n)):
+            k, s = kernel_f[i], stride_f[i]
+            p = k // 2
+            layers = [ConvTranspose2d(chans[i + 1] * 2, chans[i], (k, transpose_t_size),
+                                      stride=(s, stride_t[i]),
+                                      dilation=(dilation_f[i], dilation_t[i]),
+                                      padding=(p, 0), output_padding=(s - k + 2 * p, 0),
+                                      generator=g, **fk)]
+            if i != 0:
+                layers += [norm(chans[i], **fk), mk_act()]
+            self.cnn_up.append(nn.Sequential(*layers))
+
+    @property
+    def num_freq(self) -> int:
+        return self.input_dim // 2 if self.input_type.lower() == "ri" else self.input_dim
+
+    # ------------------------------------------------------------ components
+    def _pack_input(self, x):
+        """[N, C, T] -> [N, CH, F, T] (RI as 2 channels)."""
+        if self.input_type.lower() == "ri":
+            re, im = torch.chunk(x, 2, dim=-2)
+            return torch.stack([re, im], dim=1)
+        return x[:, None] if x.dim() == 3 else x
+
+    def _unpack_output(self, x):
+        if self.input_type.lower() == "ri":
+            return torch.cat([x[:, 0], x[:, 1]], dim=1)
+        return x[:, 0]
+
+    def _down(self, x):
+        skips = [x]
+        for seq in self.cnn_down:
+            x = seq(x)
+            skips.append(x)
+        return x, skips
+
+    def _up(self, x, skips):
+        trim = self.transpose_t_size - 1
+        for i, seq in enumerate(self.cnn_up):
+            x = seq(torch.cat([x, skips[-i - 1]], dim=1))
+            if trim:
+                x = x[..., trim:] if self.transpose_delay else x[..., :-trim]
+        return x
+
+    def shape_info(self):
+        """(down-path freqs, up-path freqs)."""
+        down_shape, f = [self.num_freq], self.num_freq
+        for s in self.stride_f:
+            f = f // s + (0 if f % s == 0 else 1)
+            down_shape.append(f)
+        up_shape = [f]
+        for i in range(self._n_cnn):
+            seq = self.cnn_up[i][0]
+            k, s = seq.kernel[0], seq.stride[0]
+            p, op = seq.padding[0], seq.output_padding[0]
+            up_shape.append((up_shape[-1] - 1) * s - 2 * p + seq.dilation[0] * (k - 1)
+                            + op + 1)
+        return down_shape, up_shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, skips = self._down(self._pack_input(x))
+        return self._unpack_output(self._up(x, skips))
+
+    # ------------------------------------------------------------- streaming
+    def causal_streamable(self) -> bool:
+        """Chunked streaming needs a 1-frame conv context per down layer
+        (time kernel 2, stride 1, no per-layer delay) and transpose_t_size 2."""
+        return (all(k == 2 for k in self.kernel_t)
+                and all(s == 1 for s in self.stride_t)
+                and all(d == 1 for d in self.dilation_t)
+                and all(d == 0 for d in self.delay)
+                and self.transpose_t_size == 2)
+
+    @property
+    def stream_delay_frames(self) -> int:
+        """Mask-output delay in frames: with transpose_delay each up layer
+        needs one future frame, so the stream runs n_layers frames late."""
+        return len(self.kernel_t) if self.transpose_delay else 0
+
+    def _stream_freqs(self):
+        freqs = [self.num_freq]
+        for s in self.stride_f:
+            f = freqs[-1]
+            freqs.append(f // s + (0 if f % s == 0 else 1))
+        return freqs
+
+    def _init_unet_stream_state(self, batch: int, dtype=torch.float32,
+                                device=None) -> dict:
+        if not self.causal_streamable():
+            raise ValueError("streaming needs time kernels 2, strides/dilations "
+                             "1, no delay, transpose_t_size 2")
+        freqs, chans, n = self._stream_freqs(), self._chans, self._n_cnn
+        z = lambda *s: torch.zeros(s, device=device, dtype=dtype)
+        state = {"down": [z(batch, chans[i], freqs[i]) for i in range(n)],
+                 "up": [z(batch, 2 * chans[n - j], freqs[n - j]) for j in range(n)]}
+        if self.transpose_delay:
+            # up layer j runs j frames behind: a FIFO of j down frames
+            # realigns its skip
+            state["skipq"] = [z(batch, chans[n - j], freqs[n - j], j) for j in range(n)]
+        return state
+
+    def _stream_down(self, x: torch.Tensor, state: dict):
+        """x [B, C, K] -> (bottleneck [B, ch, F, K], skips, new down carries)."""
+        h = self._pack_input(x)
+        skips, new_down = [h], []
+        for i, seq in enumerate(self.cnn_down):
+            new_down.append(h[..., -1])
+            kf = self.kernel_f[i]
+            h = seq[1].stream_apply(h, state["down"][i], (kf // 2, kf // 2))
+            h = seq[3](apply_norm(seq[2], h))
+            skips.append(h)
+        return h, skips, new_down
+
+    def _stream_up(self, h: torch.Tensor, skips, state: dict):
+        """Bottleneck output [B, ch, F, K] -> (mask [B, C, K], new up
+        carries, new skip FIFOs)."""
+        K = h.shape[-1]
+        new_up, new_skipq = [], []
+        for j, seq in enumerate(self.cnn_up):
+            skip_now = skips[-j - 1]
+            if self.transpose_delay and j > 0:
+                cat = torch.cat([state["skipq"][j], skip_now], dim=-1)
+                skip_use = cat[..., :K]
+                new_skipq.append(cat[..., K:])
+            else:
+                skip_use = skip_now
+                new_skipq.append(state["skipq"][j] if self.transpose_delay else None)
+            h = torch.cat([h, skip_use], dim=1)
+            new_up.append(h[..., -1])
+            y = seq[0].stream_apply(h, state["up"][j])
+            if len(seq) > 1:
+                y = seq[2](apply_norm(seq[1], y))
+            h = y
+        return self._unpack_output(h), new_up, new_skipq

@@ -2,8 +2,8 @@
 
 Each source in `puresound_tpu_torch/csrc/` becomes one shared library with
 a plain C interface under `build/puresound_tpu_torch/` at the checkout
-root. It is built at first use and rebuilt when the source is newer than
-the library; a failed build raises with nvcc's stderr. `build` starts one
+root. It is built at first use and rebuilt when the source, or a shared
+`.cuh` header beside it, is newer than the library; a failed build raises with nvcc's stderr. `build` starts one
 nvcc per stale source, all at once. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -48,7 +48,10 @@ def build(names: Sequence[str]) -> None:
     procs = {}
     for name in names:
         src, out = _paths(name)
-        if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+        newest = max([os.path.getmtime(src)] + [
+            os.path.getmtime(os.path.join(CSRC, h)) for h in os.listdir(CSRC)
+            if h.endswith(".cuh")])
+        if os.path.exists(out) and os.path.getmtime(out) >= newest:
             build_seconds.setdefault(name, 0.0)
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)

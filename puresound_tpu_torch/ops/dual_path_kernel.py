@@ -1,0 +1,207 @@
+"""DPCRN's dual-path bottleneck for one chunk: CUDA wrapper + plain version.
+
+Counterpart of puresound_tpu/ops/dual_path_kernel.py::dual_path_chunk
+(`:357`, pallas_call at `:433`, body `dual_path_body` `:94-168`). Per
+block, on the activation x [F, K, B, CH] (kept in float32 between passes):
+
+  intra: a bidirectional LSTM over the F axis, rows (frame, stream), zero
+         initial state; then x += LN(yf @ pw_f + yb @ pw_b + pb)
+  inter: an LSTM over the K frames, rows (freq, stream), from the carried
+         h / c [F, B, H]; per frame x += LN(h @ pw_i + pb_i)
+
+LN is the two-pass LayerNorm over CH with eps 1e-5 (`_ln` `:37`). The gate
+order is torch's i, f, g, o, the LSTM biases come summed. Every dot rounds
+its operands to `dot_dtype` and sums in float32; the carries run in
+float32; yf / yb hold the dot dtype's values; y comes back in x's dtype and
+the carries in theirs (bf16 serving rounds h / c between chunks, as JAX
+does). Layouts and the flat weight order (18 per block, `_PER_BLOCK`
+`:52-60`) are JAX's, see `NAMES`.
+
+Dispatch: a CPU tensor runs `dual_path_chunk_ref`; a CUDA tensor launches
+`csrc/dual_path.cu` (built with nvcc at first use) or raises. `int8_hh`
+and `xscr_half` raise; JAX's `b_tile` / `sub_tiles` are TPU tilings with
+the same numbers and have no counterpart here.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import List, Sequence
+
+import torch
+
+from .lstm_scan_kernel import _rounder, lstm_cell
+
+#: kernel launches since the caller last set it to 0 (one per `_launch`)
+LAUNCHES = 0
+
+#: one block's weights in JAX's flat order: intra forward / backward LSTM
+#: ([CH, 4H], [H, 4H], [4H]), the intra projection split by direction
+#: ([H, CH] x 2, [CH]), its LayerNorm, the inter LSTM, its projection
+#: ([H, CH], [CH]) and LayerNorm
+NAMES = ("w_ih_f", "w_hh_f", "b_f", "w_ih_b", "w_hh_b", "b_b",
+         "pw_f", "pw_b", "pb", "ig", "ib",
+         "w_ih_i", "w_hh_i", "b_i", "pw_i", "pb_i", "tg", "tb")
+PER_BLOCK = len(NAMES)
+EPS = 1e-5
+
+_KDT = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _unported(int8_hh: bool, xscr_half: bool):
+    if int8_hh or xscr_half:
+        raise NotImplementedError(
+            "dual_path_chunk int8_hh / xscr_half are not ported yet (ROADMAP "
+            "queue 2 item 7)")
+
+
+def _ln(t, scale, bias):
+    mean = t.mean(dim=-1, keepdim=True)
+    var = ((t - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (t - mean) * torch.rsqrt(var + EPS) * scale + bias
+
+
+def dual_path_chunk_ref(x, h_in: Sequence[torch.Tensor],
+                        c_in: Sequence[torch.Tensor], weights,
+                        dot_dtype=torch.float32, int8_hh: bool = False,
+                        xscr_half: bool = False):
+    """Plain version with the kernel's cast points: (y, h_out, c_out)."""
+    _unported(int8_hh, xscr_half)
+    F, K, B, CH = x.shape
+    cdt, rnd = _rounder(x.dtype, dot_dtype)
+    xs = x.reshape(F, K * B, CH).to(cdt)
+    h_out: List[torch.Tensor] = []
+    c_out: List[torch.Tensor] = []
+    for blk in range(len(h_in)):
+        w = dict(zip(NAMES, weights[blk * PER_BLOCK:(blk + 1) * PER_BLOCK]))
+        dots = {n: rnd(w[n]) for n in ("w_ih_f", "w_hh_f", "w_ih_b", "w_hh_b",
+                                       "pw_f", "pw_b", "w_ih_i", "w_hh_i", "pw_i")}
+        vec = {n: w[n].to(cdt) for n in ("b_f", "b_b", "pb", "ig", "ib", "b_i",
+                                          "pb_i", "tg", "tb")}
+        H = w["w_hh_f"].shape[0]
+        zero = xs.new_zeros((K * B, H))
+        hf, cf, hb, cb = zero, zero, zero, zero
+        yf, yb = [None] * F, [None] * F
+        for f in range(F):
+            hf, cf = lstm_cell(rnd(xs[f]) @ dots["w_ih_f"] + rnd(hf) @ dots["w_hh_f"]
+                               + vec["b_f"], cf)
+            yf[f] = rnd(hf)
+            fb = F - 1 - f
+            hb, cb = lstm_cell(rnd(xs[fb]) @ dots["w_ih_b"] + rnd(hb) @ dots["w_hh_b"]
+                               + vec["b_b"], cb)
+            yb[fb] = rnd(hb)
+        t = (torch.stack(yf) @ dots["pw_f"] + torch.stack(yb) @ dots["pw_b"]
+             + vec["pb"])
+        xs = (xs + _ln(t, vec["ig"], vec["ib"])).reshape(F, K, B, CH)
+        h, c = h_in[blk].to(cdt), c_in[blk].to(cdt)
+        frames = []
+        for k in range(K):
+            h, c = lstm_cell(rnd(xs[:, k]) @ dots["w_ih_i"] + rnd(h) @ dots["w_hh_i"]
+                             + vec["b_i"], c)
+            t = rnd(h) @ dots["pw_i"] + vec["pb_i"]
+            frames.append(xs[:, k] + _ln(t, vec["tg"], vec["tb"]))
+        xs = torch.stack(frames, dim=1).reshape(F, K * B, CH)
+        h_out.append(h.to(h_in[blk].dtype))
+        c_out.append(c.to(c_in[blk].dtype))
+    return xs.reshape(F, K, B, CH).to(x.dtype), h_out, c_out
+
+
+# -------------------------------------------------------------------- CUDA
+def _lib():
+    from ._build import load
+
+    lib = load("dual_path")
+    if not getattr(lib, "_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dual_path_chunk.argtypes = [p] * 9 + [i] * 10 + [p]
+        lib.dual_path_chunk.restype = i
+        lib.dual_path_error_string.argtypes = [i]
+        lib.dual_path_error_string.restype = ctypes.c_char_p
+        lib._bound = True
+    return lib
+
+
+def _weight_shape(name: str, CH: int, H: int):
+    kind = name[:-2] if name[-2:] in ("_f", "_b", "_i") else name
+    return {"w_ih": (CH, 4 * H), "w_hh": (H, 4 * H), "b": (4 * H,),
+            "pw": (H, CH)}.get(kind, (CH,))
+
+
+def _check(x, h_in, c_in, weights, dot_dtype):
+    if x.dim() != 4:
+        raise ValueError(f"x must be [F, K, B, CH], got {tuple(x.shape)}")
+    F, K, B, CH = x.shape
+    n = len(h_in)
+    if n == 0 or len(c_in) != n or len(weights) != PER_BLOCK * n:
+        raise ValueError(f"{n} blocks need {n} h / c carries and "
+                         f"{PER_BLOCK * n} weights, got {len(c_in)} / {len(weights)}")
+    H = h_in[0].shape[-1]
+    sdt, wdt = h_in[0].dtype, weights[0].dtype
+    if x.dtype not in _KDT or sdt not in _KDT or wdt not in _KDT or dot_dtype not in _KDT:
+        raise TypeError(f"the CUDA kernel takes float32/bfloat16 (x {x.dtype}, "
+                        f"carries {sdt}, weights {wdt}, dot {dot_dtype})")
+    for t in list(h_in) + list(c_in):
+        if t.shape != (F, B, H) or t.dtype != sdt or t.device != x.device:
+            raise ValueError(f"carries must be [F, B, H] = {(F, B, H)} of one "
+                             f"dtype on {x.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    for i, w in enumerate(weights):
+        name = NAMES[i % PER_BLOCK]
+        want = _weight_shape(name, CH, H)
+        if tuple(w.shape) != want or w.dtype != wdt or w.device != x.device:
+            raise ValueError(f"weight {i} ({name}) is {tuple(w.shape)} {w.dtype} on "
+                             f"{w.device}, not {want} {wdt} on {x.device}")
+    if wdt == torch.bfloat16 and H % 2:
+        raise ValueError(f"bfloat16 weights need an even H (16-byte rows), got {H}")
+    if not (0 < H <= 512 and 0 < CH <= 512 and F and K and B):
+        raise ValueError(f"the kernel takes 0 < H, CH <= 512 and a non-empty "
+                         f"chunk: x {tuple(x.shape)}, H {H}")
+    if F * K * B * max(CH, 4 * H) >= 2 ** 31:
+        raise ValueError("the chunk has 2^31 elements or more")
+    return F, K, B, CH, H, n
+
+
+def _launch(x, h_in, c_in, weights, dot_dtype):
+    global LAUNCHES
+    F, K, B, CH, H, n = _check(x, h_in, c_in, weights, dot_dtype)
+    dev = x.device
+    x = x.contiguous()
+    h_in = [h.contiguous() for h in h_in]
+    c_in = [c.contiguous() for c in c_in]
+    # the kernel stages the LSTM weights with 16-byte copies
+    ws = [w.contiguous() for w in weights]
+    ws = [w if w.data_ptr() % 16 == 0 else w.clone() for w in ws]
+    y = torch.empty_like(x)
+    h_out = [torch.empty_like(h) for h in h_in]
+    c_out = [torch.empty_like(c) for c in c_in]
+    f32 = dict(device=dev, dtype=torch.float32)
+    x_scr = torch.empty((F, K * B, CH), **f32)               # scratch
+    y_dir = torch.empty((2, F, K * B, H), **f32)             # scratch: yf, yb
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.dual_path_chunk(
+            x.data_ptr(), ptrs(h_in), ptrs(c_in), ptrs(ws), y.data_ptr(),
+            ptrs(h_out), ptrs(c_out), x_scr.data_ptr(), y_dir.data_ptr(),
+            n, F, K, B, CH, H, _KDT[x.dtype], _KDT[h_in[0].dtype],
+            _KDT[ws[0].dtype], _KDT[dot_dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("dual_path_chunk launch failed: "
+                           + lib.dual_path_error_string(err).decode())
+    LAUNCHES += 1
+    return y, h_out, c_out
+
+
+def dual_path_chunk(x, h_in, c_in, weights, dot_dtype=torch.float32,
+                    int8_hh: bool = False, xscr_half: bool = False):
+    """Every dual-path block of a chunk.
+
+    x [F, K, B, CH]; h_in / c_in per-block lists of [F, B, H] inter
+    carries; weights the flat tuple, `PER_BLOCK` per block in `NAMES`
+    order. Returns (y [F, K, B, CH], h_out, c_out)."""
+    _unported(int8_hh, xscr_half)
+    if x.device.type == "cpu":
+        return dual_path_chunk_ref(x, h_in, c_in, weights, dot_dtype)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"no kernel for device {x.device}")
+    return _launch(x, list(h_in), list(c_in), list(weights), dot_dtype)

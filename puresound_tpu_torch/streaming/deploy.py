@@ -1,7 +1,8 @@
-"""One-call deployment: TSE model -> ready-to-tick SessionServer.
+"""One-call deployment: model -> ready-to-tick SessionServer.
 
-Counterpart of puresound_tpu/streaming/deploy.py:40 (`make_session_server`),
-the time-domain TSE branch. The server owns a copy of the model (cast to
+Counterpart of puresound_tpu/streaming/deploy.py:40 (`make_session_server`):
+the time-domain TSE branch and the STFT-engine (NS) branch
+(`:119-122, 191-197`). The server owns a copy of the model (cast to
 bfloat16 when `half`), so the caller's module is never changed.
 """
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..nnet.encoder import FreeEncDec
 from .engine import StreamingTSE
+from .file_eval import build_engine, engine_step_options
 from .halfprec import to_half
 from .server import SessionServer, infer_slot_axes
 
@@ -27,20 +29,23 @@ class ServingBundle:
     """Everything a serving front-end needs."""
 
     server: SessionServer
-    engine: StreamingTSE
+    engine: torch.nn.Module
     chunk_samples: int
-    embed_fn: Callable
-    embed_dim: int
+    embed_fn: Optional[Callable]    # None for an unconditioned NS engine
+    embed_dim: Optional[int]
 
 
 def make_session_server(model, weights: Optional[dict], n_slots: int,
                         chunk_ms: float = 16.0, sr: int = 16000,
-                        half: bool = False, fused: bool = True,
+                        half: bool = False, fused: Optional[bool] = None,
+                        dp_kernel: bool = False, attn_kernel: bool = False,
+                        mk_kernel: bool = False,
                         enroll_len: Optional[int] = None, mesh=None,
                         pipelined: bool = False, lockstep: bool = False,
                         ring_capacity: int = 1 << 16,
                         pcm16: bool = False) -> ServingBundle:
-    """Build a SessionServer for a TSE SoTaskWrapModule.
+    """Build a SessionServer for a SoTaskWrapModule: TSE (FreeEncDec +
+    SkiM + speaker net) or NS (ConvEncDec + DPCRN).
 
     Args:
         model: the offline wrapper (its device is the serving device).
@@ -49,23 +54,24 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
             the model's own weights.
         n_slots: fixed concurrent-session capacity (the step's batch).
         chunk_ms: tick size, rounded down to a hop multiple.
-        half: serve in bfloat16 (weights, state and the kernel's dots); the
+        half: serve in bfloat16 (weights, state and the kernels' dots); the
             hub surface stays float32.
-        fused: run the SkiM stack through `fused_skim_frames` (the CUDA
-            kernel on a CUDA model, its plain version on the CPU).
-        enroll_len: enrollment length (samples) of the probe that reads the
-            embedding width (default 5 s).
+        fused: TSE runs the SkiM stack through `fused_skim_frames`; NS runs
+            the DPCRN recurrences through `lstm_scan`. None (the default)
+            means on for TSE and off for NS, so that an NS call with
+            dp_kernel=True stands.
+        dp_kernel: NS only, the whole DPCRN bottleneck through
+            `dual_path_chunk` (exclusive with fused).
+        attn_kernel / mk_kernel: not ported yet (raise).
+        enroll_len: TSE enrollment length (samples) of the probe that reads
+            the embedding width (default 5 s).
         mesh / pipelined / pcm16: not ported yet (raise).
     """
     if mesh is not None or pipelined or pcm16:
         raise NotImplementedError(
             "mesh / pipelined / pcm16 serving is not ported yet (ROADMAP "
             "queue 1: serving options)")
-    if not isinstance(model.encoder, FreeEncDec):
-        raise NotImplementedError(
-            "only time-domain TSE engines are ported (ROADMAP queue 1: NS / "
-            "DSS engines)")
-    if model.speaker_net is None:
+    if isinstance(model.encoder, FreeEncDec) and model.speaker_net is None:
         raise ValueError(
             "embedding-free TSE conditioning lives in the initial recurrent "
             "state; SessionServer cannot attach per-slot sessions for it")
@@ -75,38 +81,55 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
     dt = torch.bfloat16 if half else torch.float32
     if half:
         to_half(model)
-    engine = StreamingTSE.from_offline(model).eval()
-    device = engine.encoder.decoder.weight.device
-
+    engine = build_engine(model).eval()
+    device = next(engine.parameters()).device
     hop = engine.encoder.hop_length
     chunk = max(1, int(round(sr * chunk_ms / 1000.0)) // hop) * hop
-    seg = engine.masker.seg_size
-    if (chunk // hop) % seg:
-        warnings.warn(
-            f"chunk of {chunk // hop} frames does not cover whole SkiM "
-            f"segments (seg_size={seg}): sessions attached mid-serving will "
-            "see shifted segment boundaries vs a fresh engine (SkiM's "
-            "segment clock is shared across slots). Attach-before-first-tick "
-            "serving is unaffected.", stacklevel=2)
-    step_kw = dict(fused=True, dot_dtype=dt) if fused else {}
 
-    def embed_fn(enroll):
-        with torch.no_grad():
-            x = torch.as_tensor(np.asarray(enroll, np.float32), device=device)
-            return engine.embed(x.to(dt)).float()
-
-    probe = embed_fn(np.zeros((1, enroll_len or 5 * sr), np.float32))
-    embed_dim = int(probe.shape[-1])
-
-    def step_fn(chunk_b, dvec, st):
-        with torch.no_grad():
-            x = torch.from_numpy(np.ascontiguousarray(chunk_b, np.float32))
-            out, st = engine.step(x.to(device=device, dtype=dt), dvec.to(dt),
-                                  st, **step_kw)
-            return out.float(), st
+    if isinstance(engine, StreamingTSE):
+        if dp_kernel or attn_kernel or mk_kernel:
+            raise ValueError("dp_kernel/attn_kernel/mk_kernel apply to STFT-domain "
+                             "engines; time-domain TSE serving fuses via fused=True")
+        seg = engine.masker.seg_size
+        if (chunk // hop) % seg:
+            warnings.warn(
+                f"chunk of {chunk // hop} frames does not cover whole SkiM "
+                f"segments (seg_size={seg}): sessions attached mid-serving will "
+                "see shifted segment boundaries vs a fresh engine (SkiM's "
+                "segment clock is shared across slots). Attach-before-first-tick "
+                "serving is unaffected.", stacklevel=2)
+        step_kw = dict(fused=True, dot_dtype=dt) if fused in (None, True) else {}
+        init_kw = {}
+    else:
+        step_kw, init_kw = engine_step_options(engine, fused=bool(fused),
+                                               dp_kernel=dp_kernel,
+                                               attn_kernel=attn_kernel,
+                                               mk_kernel=mk_kernel)
 
     def init_state(n):
-        return engine.init_state(n, dt)
+        return engine.init_state(n, dt, **init_kw)
+
+    to_dev = lambda b: torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(
+        device=device, dtype=dt)
+    embed_fn = embed_dim = None
+    if isinstance(engine, StreamingTSE):
+        def embed_fn(enroll):
+            with torch.no_grad():
+                x = torch.as_tensor(np.asarray(enroll, np.float32), device=device)
+                return engine.embed(x.to(dt)).float()
+
+        probe = embed_fn(np.zeros((1, enroll_len or 5 * sr), np.float32))
+        embed_dim = int(probe.shape[-1])
+
+        def step_fn(chunk_b, dvec, st):
+            with torch.no_grad():
+                out, st = engine.step(to_dev(chunk_b), dvec.to(dt), st, **step_kw)
+                return out.float(), st
+    else:
+        def step_fn(chunk_b, st):
+            with torch.no_grad():
+                out, st = engine.step(to_dev(chunk_b), st, **step_kw)
+                return out.float(), st
 
     server = SessionServer(step_fn, init_state(n_slots), n_slots, chunk,
                            embed_dim, infer_slot_axes(init_state),

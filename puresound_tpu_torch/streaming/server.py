@@ -237,19 +237,22 @@ class SessionServer(StreamingServer):
     """Dynamic sessions on the fixed-slot loop.
 
     step_fn(chunk [B, S] numpy, dvec [B, E] tensor, state) -> (out [B, S],
-    state) is stateless; the server owns the state. `fresh_state` is the
-    engine's init_state(n_slots) and `slot_axes` its `infer_slot_axes`. A
-    slot's state is reset at its session's first ready tick, so a session
-    that joins mid-serving gets the output of a fresh engine fed the same
-    audio. Each TSE session carries its own d-vector row
-    (attach(dvec=...) or attach(enroll=...) via embed_fn).
+    state) for TSE, step_fn(chunk, state) for an engine without
+    conditioning (embed_dim None, e.g. NS); it is stateless and the server
+    owns the state. `fresh_state` is the engine's init_state(n_slots) and
+    `slot_axes` its `infer_slot_axes`. A slot's state is reset at its
+    session's first ready tick, so a session that joins mid-serving gets
+    the output of a fresh engine fed the same audio. Each TSE session
+    carries its own d-vector row (attach(dvec=...) or attach(enroll=...)
+    via embed_fn); an NS session attaches with no argument.
 
     SkiM's segment clock is shared by all slots: a chunk that covers whole
-    segments keeps mid-serving attaches exact.
+    segments keeps mid-serving attaches exact. STFT engines carry per-frame
+    state only; any hop-multiple chunk works.
     """
 
     def __init__(self, step_fn, fresh_state, n_slots: int, chunk_samples: int,
-                 embed_dim: int, slot_axes, embed_fn=None,
+                 embed_dim: Optional[int], slot_axes, embed_fn=None,
                  ring_capacity: int = 1 << 16, lockstep: bool = False):
         super().__init__(step_fn, n_slots, chunk_samples,
                          ring_capacity=ring_capacity, lockstep=lockstep)
@@ -260,8 +263,9 @@ class SessionServer(StreamingServer):
         self._state = fresh_state
         self._embed_fn = embed_fn
         self._reset = _axes_state_reset(slot_axes)
-        self._dvec = np.zeros((n_slots, embed_dim), np.float32)
-        self._dvec_dev = self._put_rows(self._dvec)
+        self._dvec = (np.zeros((n_slots, embed_dim), np.float32)
+                      if embed_dim is not None else None)
+        self._dvec_dev = self._put_rows(self._dvec) if self._dvec is not None else None
         self._dvec_dirty = False
         self._active = np.zeros(n_slots, bool)
         self._pending_reset = np.zeros(n_slots, bool)
@@ -280,7 +284,7 @@ class SessionServer(StreamingServer):
             raise RuntimeError(
                 f"serving loop died: {self.failure!r}") from self.failure
         # embed outside the lock: tick() needs it every tick
-        if dvec is None:
+        if self._dvec is not None and dvec is None:
             if enroll is None or self._embed_fn is None:
                 raise ValueError("TSE session needs dvec= or enroll= "
                                  "(with embed_fn)")
@@ -291,8 +295,9 @@ class SessionServer(StreamingServer):
             if len(free) == 0:
                 raise RuntimeError("no free stream slots")
             sid = int(free[0])
-            self._dvec[sid] = np.asarray(dvec, np.float32)
-            self._dvec_dirty = True  # uploaded at the next tick
+            if self._dvec is not None:
+                self._dvec[sid] = np.asarray(dvec, np.float32)
+                self._dvec_dirty = True  # uploaded at the next tick
             self.hub.reset_stream(sid)
             self._pending_reset[sid] = True
             self._active[sid] = True
@@ -329,7 +334,10 @@ class SessionServer(StreamingServer):
             n_late = int((active & ~mask).sum())
         if reset_now.any():
             self._state = self._reset(self._state, self._fresh, reset_now)
-        out, self._state = self.step_fn(batch, dvec, self._state)
+        if dvec is None:
+            out, self._state = self.step_fn(batch, self._state)
+        else:
+            out, self._state = self.step_fn(batch, dvec, self._state)
         out = _to_numpy(out)
         with self._lock:
             # a slot detached (or re-attached) while the step ran gets no

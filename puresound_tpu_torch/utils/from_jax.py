@@ -5,7 +5,7 @@ port keeps PureSound's module and parameter names, so the flax tree maps
 onto them one module type at a time. Leaves may be numpy or jax arrays
 (anything `np.asarray` takes); this module never imports jax.
 
-    sd = from_jax(variables)               # a whole TSE SoTaskWrapModule
+    sd = from_jax(variables)               # a whole TSE or NS SoTaskWrapModule
     model.load_state_dict(sd)
     grads = params_by_name(jax_grads)      # {name: array} like the params
 
@@ -78,10 +78,20 @@ def norm(p, s=None, kind: str = "gLN") -> Flat:
 
 
 def lstm(p) -> Flat:
-    f = p["fwd"]
-    return {"weight_ih_l0": _a(f["w_ih"]).T.copy(),
-            "weight_hh_l0": _a(f["w_hh"]).T.copy(),
-            "bias_ih_l0": _a(f["b_ih"]), "bias_hh_l0": _a(f["b_hh"])}
+    """LSTM `fwd` (and `bwd`, torch's `*_reverse` set) LSTMCellParams."""
+    out = {}
+    for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
+        if d in p:
+            c = p[d]
+            out.update({f"weight_ih_l0{sfx}": _a(c["w_ih"]).T.copy(),
+                        f"weight_hh_l0{sfx}": _a(c["w_hh"]).T.copy(),
+                        f"bias_ih_l0{sfx}": _a(c["b_ih"]),
+                        f"bias_hh_l0{sfx}": _a(c["b_hh"])})
+    return out
+
+
+def conv_stft(p) -> Flat:
+    return {"wsin": _a(p["wsin"]), "wcos": _a(p["wcos"])}
 
 
 # --------------------------------------------------------------- composites
@@ -181,6 +191,52 @@ def so_wrapper_tse_skim(variables: Mapping) -> Flat:
     return _merge(*parts)
 
 
+def single_rnn(p) -> Flat:
+    return _merge(_prefix("rnn", lstm(p["rnn"])), _prefix("proj", linear(p["proj"])))
+
+
+def dprnn_block2d(p) -> Flat:
+    return _merge(*(_prefix(k, fn(p[k])) for k, fn in (
+        ("intra_rnn", single_rnn), ("intra_norm", layer_norm_last),
+        ("inter_rnn", single_rnn), ("inter_norm", layer_norm_last))))
+
+
+def unet_updown(p, s=None) -> Flat:
+    """The Unet's conv stacks in PureSound's Sequential layout: cnn_down[i]
+    = [pad, Conv2d, norm, act, dropout], cnn_up[j] = [ConvTranspose2d, norm,
+    act]."""
+    parts = []
+    for key in p:
+        kind, _, i = key.rpartition("_")
+        slot = {"cnn_down": ("cnn_down", 1), "down_norm": ("cnn_down", 2),
+                "down_act": ("cnn_down", 3), "cnn_up": ("cnn_up", 0),
+                "up_norm": ("cnn_up", 1), "up_act": ("cnn_up", 2)}.get(kind)
+        if slot is None:
+            continue
+        name = f"{slot[0]}.{i}.{slot[1]}"
+        if kind.endswith("norm"):
+            parts.append(_prefix(name, norm(p[key], _sub(s, key))))
+        elif kind.endswith("act"):
+            parts.append(_prefix(name, prelu(p[key])))
+        else:
+            parts.append(_prefix(name, conv1d(p[key])))
+    return _merge(*parts)
+
+
+def dpcrn(p, s=None) -> Flat:
+    return _merge(unet_updown(p, s),
+                  *(_prefix(k, dprnn_block2d(p[k])) for k in ("dprnn_block1",
+                                                             "dprnn_block2")))
+
+
+def so_wrapper_ns_dpcrn(variables: Mapping) -> Flat:
+    """An NS SoTaskWrapModule (ConvEncDec + DPCRN) or its StreamingNS."""
+    p = variables["params"]
+    s = variables.get("batch_stats", {})
+    return _merge(_prefix("encoder.encoder", conv_stft(p["encoder"]["encoder"])),
+                  _prefix("masker", dpcrn(p["masker"], s.get("masker"))))
+
+
 def params_by_name(tree: Mapping) -> Flat:
     """A params-shaped pytree of a TSE SoTaskWrapModule (its params, a
     gradient, an optimizer moment) -> {port parameter name: array}, each
@@ -190,6 +246,9 @@ def params_by_name(tree: Mapping) -> Flat:
 
 
 def from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax variables ({"params", "batch_stats"}) of a TSE SoTaskWrapModule
-    (or StreamingTSE) -> state_dict."""
+    """flax variables ({"params", "batch_stats"}) of a TSE (FreeEncDec +
+    SkiM) or NS (ConvEncDec + DPCRN) SoTaskWrapModule, or of its streaming
+    engine -> state_dict, told apart by the masker's keys."""
+    if "dprnn_block1" in variables["params"]["masker"]:
+        return to_torch(so_wrapper_ns_dpcrn(variables))
     return to_torch(so_wrapper_tse_skim(variables))

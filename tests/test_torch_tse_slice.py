@@ -306,6 +306,13 @@ def test_port_imports_no_jax():
             "puresound_tpu_torch.ops.lstm_train_kernel, "
             "puresound_tpu_torch.ops.tcn_train_kernel, puresound_tpu_torch.src.audio, "
             "puresound_tpu_torch.src.utils, puresound_tpu_torch.tasks.tse, "
-            "puresound_tpu_torch.egs.tse.main, sys; "
+            "puresound_tpu_torch.egs.tse.main, puresound_tpu_torch.zoo.ns, "
+            "puresound_tpu_torch.streaming.ns_engine, "
+            "puresound_tpu_torch.streaming.file_eval, "
+            "puresound_tpu_torch.nnet.dpcrn, puresound_tpu_torch.nnet.unet, "
+            "puresound_tpu_torch.nnet.dual_path_streaming, "
+            "puresound_tpu_torch.ops.lstm_scan_kernel, "
+            "puresound_tpu_torch.ops.dual_path_kernel, "
+            "puresound_tpu_torch.dsp.stft, sys; "
             "assert not {'jax', 'flax', 'puresound_tpu'} & set(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
