@@ -1,11 +1,11 @@
 """Chip smoke test of puresound_tpu_torch on one NVIDIA card.
 
 Drives the port's serving and training paths for the flagship
-`tse_skim_v0_causal` and the NS serving path of `ns_dpcrn_v0_causal`, at
-full width (random weights from a seed):
+`tse_skim_v0_causal` and the NS serving paths of `ns_dpcrn_v0_causal` and
+`ns_dparn_v0_causal`, at full width (random weights from a seed):
 
   0. device: torch / CUDA versions, the card's name and power limit;
-  1. build: nvcc builds the five CUDA sources from the checkout, in
+  1. build: nvcc builds the seven CUDA sources from the checkout, in
      parallel, and prints each build's seconds and ptxas registers and spills;
   2. `fused_skim_frames` vs `fused_skim_frames_ref` on the card at the
      flagship shapes (f32 and bf16, 20 carried chunks), at a ragged batch and
@@ -28,6 +28,16 @@ full width (random weights from a seed):
   2e. `dual_path_chunk` vs its plain version at 2048 streams, a ragged 1,001
      and a small shape, f32 and bf16, over 10 carried chunks (y and the
      four carries), with CUDA-event times of one chunk and the bound;
+  2f. `dparn_intra_pass` vs its plain version at R = 4,096 rows (2048
+     streams x K = 2) of 64 tokens x 128, a ragged R = 2,002 and a small F =
+     8, C = 16 case, f32 (max|d|/max|ref| <= 1e-4) and bf16 (SNR >= 30 dB),
+     with CUDA-event times, the bound and stock modules (nn.TransformerEncoder
+     + Linear + LayerNorm) as the yardstick;
+  2g. `center_chunk` at 2048 streams and `dparn_center_chunk` at 1024, the
+     zoo maskers' weights, vs their plain versions over 10 carried chunks (y
+     and the 11 carries; the bars of 2f), with the time of one chunk, the
+     bound and the port's route for the same layers (cuDNN convs + the
+     bottleneck kernels) as the yardstick;
   3. flagship: 6,375,440 parameters; `StreamingTSE.embed` launches the TCN
      kernel 5 times; 20 streamed ticks through `StreamingTSE.step(fused=True)`
      equal the offline `inference`, which launches the LSTM kernel 10 times
@@ -36,16 +46,28 @@ full width (random weights from a seed):
      (each attach embeds: 5 TCN launches), 25 ticks, every output finite,
      every step through the kernel;
   3b. NS: `ns_dpcrn_v0_causal` in f32 (1,380,043 parameters), 4 streams x
-     2 s at 16 ms ticks through the stock, fused and dp_kernel routes of
-     `StreamingNS.step`, each equal to the offline `inference` past n_fft
-     samples; exact launches: 6 `lstm_scan_train_fp` per inference and per
-     stock tick, 6 `lstm_scan` per fused tick, 1 `dual_path_chunk` per
-     dp_kernel tick;
+     2 s at 16 ms ticks through the stock, fused, dp_kernel and mk_kernel
+     routes of `StreamingNS.step`, each equal to the offline `inference` past
+     n_fft samples; exact launches: 6 `lstm_scan_train_fp` per inference and
+     per stock tick, 6 `lstm_scan` per fused tick, 1 `dual_path_chunk` per
+     dp_kernel tick, 1 `center_chunk` per mk_kernel tick;
   4b. NS serving: `make_session_server(half=True, dp_kernel=True)` at 256
      and 2048 sessions attached without enrollment, 25 ticks after 3
-     warm-up, one `dual_path_chunk` per tick, every output finite; tick
-     p50/p99, the engine step alone, and bf16 slot 0 against the f32 engine
-     (bar 35 dB);
+     warm-up, one `dual_path_chunk` per tick, every output finite, 0
+     underruns; tick p50/p99, the engine step alone, and bf16 slot 0
+     against the f32 engine (bar 35 dB);
+  4d. the same through `mk_kernel=True` (one `center_chunk` per tick, bar 25
+     dB), printed beside 4b's numbers;
+  3c. DPARN: `ns_dparn_v0_causal` in f32 (1,215,179 parameters), 4 streams x
+     2 s through the stock, fused, attn_kernel, fused + attn_kernel and
+     mk_kernel routes, each equal to the offline `inference`; exact
+     launches: 2 `lstm_scan_train_fp` per inference and stock tick, 2
+     `lstm_scan` per fused tick, 2 `dparn_intra_pass` per attn_kernel tick,
+     1 `dparn_center_chunk` per mk_kernel tick;
+  4c. DPARN serving: `make_session_server(half=True, fused=True,
+     attn_kernel=True)` at 256 and 1024 sessions: 25 ticks after 3 warm-up,
+     2 `dparn_intra_pass` and 2 `lstm_scan` per tick, 0 underruns, bf16 slot
+     0 against the f32 engine (bar 25 dB);
   5. one f32 training step (B=2 x 1 s) on the card against the same step on
      the CPU in f64 (and the CPU's f32 step beside it): loss, grad_norm,
      every gradient and updated parameter;
@@ -119,8 +141,23 @@ DP_CASES = [("2048 streams", 2048, 64, 2, 128, 128, 10),
             ("ragged B=1001", 1001, 64, 2, 128, 128, 5),
             ("small B=3", 3, 6, 2, 16, 8, 5)]
 DP_CHUNKS = 10                      # carried chunks held against the plain version
-NS_STREAMS, NS_SECONDS = 4, 2.0     # phase 3b
-NS_SLOTS, NS_TICKS, NS_WARM = (256, 2048), 25, 3    # phase 4b
+DPARN_REPLACES = "puresound_tpu/ops/dparn_attention_kernel.py:252"
+DPARN_SOURCE = "puresound_tpu_torch/csrc/dparn_attention.cu"
+CENTER_REPLACES = {"center_chunk": "puresound_tpu/ops/masker_kernel.py:468",
+                   "dparn_center_chunk": "puresound_tpu/ops/masker_kernel.py:468"}
+CENTER_ENTRY = {"center_chunk": "puresound_tpu/ops/masker_kernel.py:489",
+                "dparn_center_chunk": "puresound_tpu/ops/masker_kernel.py:536"}
+CENTER_SOURCE = "puresound_tpu_torch/csrc/masker.cu"
+# phase 2f: (name, rows, F, C, heads, feed-forward width, timed repetitions)
+ATTN_CASES = [("2048 streams", 4096, 64, 128, 8, 128, 10),
+              ("ragged R=2002", 2002, 64, 128, 8, 128, 5),
+              ("small F=8 C=16", 13, 8, 16, 4, 16, 5)]
+# phase 2g: (kernel, zoo model, streams, timed repetitions)
+CENTER_CASES = [("center_chunk", "ns_dpcrn_v0_causal", 2048, 5),
+                ("dparn_center_chunk", "ns_dparn_v0_causal", 1024, 5)]
+NS_STREAMS, NS_SECONDS = 4, 2.0     # phases 3b, 3c
+NS_SLOTS, NS_TICKS, NS_WARM = (256, 2048), 25, 3    # phases 4b, 4d
+DPARN_SLOTS = (256, 1024)           # phase 4c
 TRAIN_B, TRAIN_SECONDS = 64, 2.0    # phase 6: the JAX bench's B=64 x 2 s
 RECIPE_STEPS, RECIPE_WARM = 12, 2   # phase 6b: steps in its epoch, untimed ones
 
@@ -687,82 +724,320 @@ def dual_path_case(dpk, name, B, F, K, CH, H, reps, gen, dev):
     return res
 
 
-# -------------------------------------------------------- phases 3b, 4b
-def ns_full_width(lk, lsk, dpk, dev, card):
-    """The full-width ns_dpcrn_v0_causal in f32: 4 streams of 2 s through
-    the stock, fused and dp_kernel routes of StreamingNS.step at 16 ms
-    ticks, each equal to the offline inference past n_fft samples."""
+# ------------------------------------------------------------------ phase 2f
+def attn_work(R, F, C, FFD, dt):
+    """(operations, bytes) of one dparn_intra_pass call: per row and encoder
+    layer the q / k / v and out projections (4 F C^2 multiply-adds), the
+    logits and the probabilities times v (2 F^2 C) and the feed-forward
+    (2 F C FFD), then the FC (F C^2); x read and y written once, pe and the
+    weights read once."""
+    e = torch.finfo(dt).bits // 8
+    per_row = 2.0 * (2 * (4 * F * C * C + 2 * F * F * C + 2 * F * C * FFD) + F * C * C)
+    weights = 2 * (4 * C * C + 2 * C * FFD + FFD + 5 * C) + C * C + 3 * C
+    return R * per_row, (2 * R * F * C + F * C + weights) * e
+
+
+def attn_weights(C, FFD, gen):
+    """Random weights in dparn_intra_pass's flat order, at trained scales."""
+    from puresound_tpu_torch.ops.dparn_attention_kernel import weight_shapes
+
+    ws = []
+    for i, shape in enumerate(weight_shapes(C, FFD)):
+        if len(shape) == 2:
+            ws.append((torch.rand(shape, generator=gen) * 2 - 1) / math.sqrt(shape[0]))
+        else:
+            gain = i % 12 in (4, 10) or i == 26          # the LayerNorm scales
+            ws.append(float(gain) + 0.1 * torch.randn(shape, generator=gen))
+    return ws
+
+
+def stock_encoder_ms(x, pe, C, FFD, heads, reps):
+    """Stock PyTorch modules computing the same function's shape of work: a
+    2-layer post-norm ReLU nn.TransformerEncoder (bias=False throughout),
+    then nn.Linear + nn.LayerNorm, on x + pe. A yardstick: no single PyTorch
+    call computes the pass, and the port never calls these."""
+    layer = torch.nn.TransformerEncoderLayer(C, heads, FFD, dropout=0.0, batch_first=True,
+                                             bias=False)
+    mods = torch.nn.Sequential(torch.nn.TransformerEncoder(layer, 2, enable_nested_tensor=False),
+                               torch.nn.Linear(C, C), torch.nn.LayerNorm(C))
+    mods = mods.to(device=x.device, dtype=x.dtype).eval()
+    with torch.no_grad():
+        return cuda_ms(lambda: mods(x + pe), reps)
+
+
+def attn_case(dak, name, R, F, C, heads, FFD, reps, gen, dev):
+    """`dparn_intra_pass` kernel against its plain version on the card, f32
+    then bf16 (x, pe, weights and dots), with CUDA-event times, the bound
+    and the stock encoder modules as the yardstick."""
+    ws = attn_weights(C, FFD, gen)
+    x = 0.5 * torch.randn(R, F, C, generator=gen)
+    pe = 0.1 * torch.randn(F, C, generator=gen)
+    res = {"name": name, "shape": f"R={R} F={F} C={C} heads={heads} FFD={FFD}"}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        xd, ped, wd = x.to(dev, dt), pe.to(dev, dt), [w.to(dev, dt) for w in ws]
+        got = dak._launch(xd, ped, wd, heads, dt)
+        want = dak.dparn_intra_pass_ref(xd, ped, wd, heads, dt)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {label}: non-finite kernel output")
+        if dt == torch.float32:
+            res["f32_rel"] = ((got - want).abs().max() / want.abs().max()).item()
+            res["f32_max_abs_err"] = (got - want).abs().max().item()
+            if res["f32_rel"] > 1e-4:
+                raise AssertionError(f"{name} f32: max|d|/max|ref| {res['f32_rel']:.2e} > 1e-4")
+        else:
+            res["bf16_snr_db"] = snr_db(got, want)
+            if res["bf16_snr_db"] < 30.0:
+                raise AssertionError(f"{name} bf16: SNR {res['bf16_snr_db']:.1f} dB < 30")
+        del got, want
+        res[f"{label}_ms"] = cuda_ms(lambda: dak._launch(xd, ped, wd, heads, dt), reps)
+        res[f"{label}_plain_ms"] = cuda_ms(
+            lambda: dak.dparn_intra_pass_ref(xd, ped, wd, heads, dt), 2, 1)
+        res[f"{label}_stock_ms"] = stock_encoder_ms(xd, ped, C, FFD, heads, reps)
+        res[f"{label}_bound"] = bound_ms(*attn_work(R, F, C, FFD, dt), dt)
+    return res
+
+
+# ------------------------------------------------------------------ phase 2g
+def center_work(name, F, K, B, chans, H, dt):
+    """(operations, bytes) of one wide-center call: the six convs (six taps
+    of C_in x C_out per output row, twelve with the skip part), then the
+    bottleneck (dual_path_work for DPCRN; for DPARN attn_work's rows and the
+    inter scan with its projection); x and y, the 11 carries in and out and
+    the weights, each once."""
+    C0, C2, C3, C4, CH, Cu2, yC = chans
+    e = torch.finfo(dt).bits // 8
+    rows = F * K * B
+    convs = [(C0, C2), (C2, C3), (C3, CH), (2 * CH, C4), (C4 + C3, Cu2), (Cu2 + C2, yC)]
+    conv_flops = sum(2.0 * rows * 6 * ci * co for ci, co in convs)
+    conv_w = sum(6 * ci * co + 2 * co for ci, co in convs)
+    if name == "center_chunk":
+        bflops, bbytes = dual_path_work(F, K, B, CH, H, dt)
+    else:
+        G = 4 * H
+        aflops, abytes = attn_work(K * B, F, CH, H, dt)
+        bflops = 2 * (aflops + 2.0 * F * B * K * ((CH + H) * G + H * CH))
+        bbytes = 2 * (abytes - 2 * K * B * F * CH * e + (3 * (CH + H) * G + H * CH) * e)
+    carries = F * B * (C0 + C2 + C3 + 2 * CH + C4 + Cu2 + 4 * H)
+    return conv_flops + bflops, bbytes + (rows * (C0 + yC) + 2 * carries + conv_w) * e
+
+
+def full_width_masker(zoo_name, dev, seed):
+    """The zoo model's masker on the card with its BatchNorms' statistics
+    and affines drawn away from the identity."""
+    from puresound_tpu_torch.zoo.ns import init_model
+
+    gen = torch.Generator().manual_seed(seed)
+    m = init_model(zoo_name, device=dev, generator=gen).masker
+    with torch.no_grad():
+        for mod in m.modules():
+            if hasattr(mod, "running_var"):
+                n = mod.running_var.shape[0]
+                mod.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+                mod.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                mod.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=gen))
+                mod.bias.copy_(0.1 * torch.randn(n, generator=gen))
+    return m
+
+
+def stock_center_ms(masker, x, reps):
+    """The port's dp_kernel-style route for the same six layers: cuDNN
+    convs d2-d4, the bottleneck through `dual_path_chunk` (DPCRN) or
+    `dparn_intra_pass` + `lstm_scan` (DPARN), cuDNN transpose convs u0-u2
+    with their skip concats. A yardstick; x is the d1 output [B, C, F, K]."""
+    from puresound_tpu_torch.nnet.dparn import DPARN
+    from puresound_tpu_torch.nnet.lobe.norm import apply_norm
+
+    B = x.shape[0]
+    dparn = isinstance(masker, DPARN)
+    st = masker.init_stream_state(B, x.dtype, dp_kernel=not dparn)
+    n = masker._n_cnn
+
+    def run():
+        h, skips = x, []
+        for i in range(n - 3, n):
+            seq = masker.cnn_down[i]
+            h = seq[3](apply_norm(seq[2], seq[1].stream_apply(h, st["down"][i], (1, 1))))
+            skips.append(h)
+        if dparn:
+            h = masker.dprnn_block1.step_chunk(h, st["h1"], st["c1"], fused=True,
+                                               attn_kernel=True)[0]
+            h = masker.dprnn_block2.step_chunk(h, st["h2"], st["c2"], fused=True,
+                                               attn_kernel=True)[0]
+        else:
+            h = masker.bottleneck_kernel_chunk(h, st)[0]
+        for j in range(3):
+            seq = masker.cnn_up[j]
+            h = torch.cat([h, skips[-j - 1]], dim=1)
+            h = seq[2](apply_norm(seq[1], seq[0].stream_apply(h, st["up"][j])))
+        return h
+
+    with torch.no_grad():
+        return cuda_ms(run, reps)
+
+
+def center_case(mkk, name, zoo_name, B, reps, dev):
+    """`center_chunk` / `dparn_center_chunk` against the plain version on
+    the card over DP_CHUNKS carried chunks (y and the 11 carries), f32 then
+    bf16 (x, carries, weights and dots), the full-width zoo masker's
+    weights; CUDA-event time of one chunk, the bound, and the port's
+    dp_kernel-style route for the same layers as the yardstick."""
+    from puresound_tpu_torch.streaming.halfprec import to_half
+
+    masker = full_width_masker(zoo_name, dev, SEED)
+    K = 2
+    res = {"name": name, "shape": f"{zoo_name} B={B} K={K} F=64"}
+    cgen = torch.Generator(device=dev).manual_seed(SEED)
+    st0 = masker.init_stream_state(B, mk_kernel=True)
+    F, C0 = st0["dc"][0].shape[0], st0["dc"][0].shape[-1]
+    xs = [0.5 * torch.randn(F, K, B, C0, device=dev, generator=cgen) for _ in range(DP_CHUNKS)]
+    carries0 = [0.3 * torch.randn(t.shape, device=dev, generator=cgen)
+                for t in st0["dc"] + [st0[k] for k in ("u0h", "u0s", "u1h", "u2h",
+                                                         "h1", "h2", "c1", "c2")]]
+    chans = (C0, st0["dc"][1].shape[-1], st0["dc"][2].shape[-1], st0["u1h"].shape[-1],
+             st0["u0h"].shape[-1], st0["u2h"].shape[-1], None)
+    H = st0["h1"].shape[-1]
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if dt == torch.bfloat16:
+            to_half(masker)
+        with torch.no_grad():
+            cw = masker._mk_conv_weights()
+            if name == "center_chunk":
+                bw = masker._dp_kernel_weights()
+                pe = None
+                call = lambda fn, x, c: fn(x, c[0:3], *c[3:7], c[7:9], c[9:11], cw, bw, dt)
+            else:
+                bw = masker._dparn_block_weights()
+                pe = masker.dprnn_block1.intra_atten1.pos.table(F, dev)
+                call = lambda fn, x, c: fn(x, pe, c[0:3], *c[3:7], c[7:9], c[9:11], cw, bw,
+                                           masker.nhead, dt)
+            heads = getattr(masker, "nhead", 0)
+            kern = lambda *a: mkk._launch(0 if name == "center_chunk" else 1, a[0],
+                                          pe, a[1][0:3], *a[1][3:7], a[1][7:9], a[1][9:11],
+                                          cw, bw, heads, dt)
+            plain = getattr(mkk, name + "_ref")
+            runs = []
+            for fn in (lambda x, c: kern(x, c), lambda x, c: call(plain, x, c)):
+                c = [t.to(dt) for t in carries0]
+                ys = []
+                for x in xs:
+                    y, dc, u0h, u0s, u1h, u2h, h, cc = fn(x.to(dt), c)
+                    c = list(dc) + [u0h, u0s, u1h, u2h] + list(h) + list(cc)
+                    ys.append(y)
+                runs.append([torch.cat(ys, 1)] + c)
+            torch.cuda.synchronize()
+        got, want = runs
+        chans = chans[:6] + (got[0].shape[-1],)
+        for g in got:
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name} {label}: non-finite kernel output")
+        if dt == torch.float32:
+            rel = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(got, want)]
+            res["f32_rel"] = max(rel)
+            res["f32_max_abs_err"] = max((g - r).abs().max().item() for g, r in zip(got, want))
+            if max(rel) > 1e-4:
+                raise AssertionError(f"{name} f32: max|d|/max|ref| (y, 11 carries) {rel} > 1e-4")
+        else:
+            snr = [snr_db(g, r) for g, r in zip(got, want)]
+            res["bf16_snr_db"] = min(snr)
+            if min(snr) < 30.0:
+                raise AssertionError(f"{name} bf16: SNR (y, 11 carries) {snr} dB < 30")
+        del runs, got, want
+        x1, c1 = xs[0].to(dt), [t.to(dt) for t in carries0]
+        with torch.no_grad():
+            res[f"{label}_ms"] = cuda_ms(lambda: kern(x1, c1), reps)
+            res[f"{label}_plain_ms"] = cuda_ms(lambda: call(plain, x1, c1), 2, 1)
+        res[f"{label}_stock_ms"] = stock_center_ms(masker, x1.permute(2, 3, 0, 1), reps)
+        res[f"{label}_bound"] = bound_ms(*center_work(name, F, K, B, chans, H, dt), dt)
+    return res
+
+
+# ------------------------------------------------ phases 3b, 3c, 4b, 4c, 4d
+def counter_values(counters):
+    return tuple(getattr(mod, attr) for _, mod, attr in counters)
+
+
+def zero_counters(counters):
+    for _, mod, attr in counters:
+        setattr(mod, attr, 0)
+
+
+def ns_full_width(zoo_name, n_params_want, routes, counters, offline_want, dev, card,
+                  phase):
+    """The full-width zoo model in f32: NS_STREAMS streams of NS_SECONDS s
+    through each route of StreamingNS.step at 16 ms ticks, each equal to
+    the offline inference past n_fft samples, with exact launch counts per
+    tick (`routes`: (name, step kwargs, launches per tick)) and per
+    inference (`offline_want`)."""
+    from puresound_tpu_torch.streaming.file_eval import engine_step_options
     from puresound_tpu_torch.streaming.ns_engine import StreamingNS
     from puresound_tpu_torch.zoo.ns import init_model
 
     t = time.perf_counter()
-    model = init_model("ns_dpcrn_v0_causal", device=dev,
-                       generator=torch.Generator().manual_seed(SEED))
+    model = init_model(zoo_name, device=dev, generator=torch.Generator().manual_seed(SEED))
     n_params = sum(p.numel() for p in model.parameters())
-    if n_params != 1_380_043:
-        raise AssertionError(f"ns_dpcrn_v0_causal has {n_params} parameters")
+    if n_params != n_params_want:
+        raise AssertionError(f"{zoo_name} has {n_params} parameters")
     engine = StreamingNS.from_offline(model)
     S, n_str, L = 256, NS_STREAMS, int(16000 * NS_SECONDS)
     ticks = L // S
     audio = (0.1 * torch.randn(n_str, L, generator=torch.Generator().manual_seed(SEED))
              ).to(dev)
     n_fft, hop = 512, 128
+    names = ", ".join(n for n, _, _ in counters)
     with torch.no_grad():
-        zero_counts(lk)
+        zero_counters(counters)
         offline = model.inference(torch.nn.functional.pad(audio, (n_fft - hop, 0)))
         torch.cuda.synchronize()
-        expect_launches((lk.FWD_LAUNCHES, lk.BWD_LAUNCHES), (6, 0),
-                        "NS offline inference, lstm_scan_train_fp (fwd, bwd)")
+        expect_launches(counter_values(counters), offline_want,
+                        f"{zoo_name} offline inference, ({names})")
         out = {"params": n_params, "model": model, "engine": engine, "ticks": ticks}
-        routes = {}
-        for route, kw, want in (("stock", {}, (6 * ticks, 0, 0)),
-                                ("fused", {"fused": True}, (0, 6 * ticks, 0)),
-                                ("dp_kernel", {"dp_kernel": True}, (0, 0, ticks))):
-            state = engine.init_state(n_str, dp_kernel=route == "dp_kernel")
-            zero_counts(lk)
-            lsk.LAUNCHES = dpk.LAUNCHES = 0
+        results = {}
+        for route, kw, per_tick in routes:
+            step_kw, init_kw = engine_step_options(engine, **kw)
+            state = engine.init_state(n_str, **init_kw)
+            zero_counters(counters)
             ys = []
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             for k in range(ticks):
-                y, state = engine.step(audio[:, k * S:(k + 1) * S], state, **kw)
+                y, state = engine.step(audio[:, k * S:(k + 1) * S], state, **step_kw)
                 ys.append(y)
             torch.cuda.synchronize()
             tick_ms = 1e3 * (time.perf_counter() - t1) / ticks
-            got = (lk.FWD_LAUNCHES, lsk.LAUNCHES, dpk.LAUNCHES)
-            expect_launches(got, want, f"NS {route} route, (lstm_scan_train_fp, "
-                            "lstm_scan, dual_path_chunk)")
+            got = counter_values(counters)
+            expect_launches(got, tuple(ticks * w for w in per_tick),
+                            f"{zoo_name} {route} route, ({names})")
             streamed = torch.cat(ys, -1)
             a, b = streamed[:, n_fft:], offline[:, n_fft:streamed.shape[-1]]
             err = (a - b).abs()
             bad = (err > 3e-5 + 1e-3 * b.abs()).sum().item()
             if bad or not torch.isfinite(streamed).all():
-                raise AssertionError(f"NS {route}: {bad} samples past n_fft off the "
+                raise AssertionError(f"{zoo_name} {route}: {bad} samples past n_fft off the "
                                      f"offline inference (max|d| {err.max().item():.3e})")
-            routes[route] = (err.max().item(), got, tick_ms)
-    out["routes"] = routes
-    log("3b ns", f"ns_dpcrn_v0_causal f32, {n_params:,} params; {n_str} streams x "
-        f"{NS_SECONDS:g} s "
+            results[route] = (err.max().item(), got, tick_ms)
+    out["routes"] = results
+    log(phase, f"{zoo_name} f32, {n_params:,} params; {n_str} streams x {NS_SECONDS:g} s "
         f"at 16 ms ticks ({ticks} ticks) == offline inference past n_fft (atol 3e-5, "
-        "rtol 1e-3; offline launches lstm_scan_train_fp 6 times): " + "; ".join(
-            f"{r} max|d| {e:.3e}, launches (lstm_scan_train_fp, lstm_scan, "
-            f"dual_path_chunk) {g}, host ms per synced tick {ms:.3f}"
-            for r, (e, g, ms) in routes.items()) + f" [{card}]", t)
+        f"rtol 1e-3; offline launches ({names}) {offline_want}): " + "; ".join(
+            f"{r} max|d| {e:.3e}, launches {g}, host ms per synced tick {ms:.3f}"
+            for r, (e, g, ms) in results.items()) + f" [{card}]", t)
     return out
 
 
-def ns_serving(dpk, ns, n_slots, dev, card):
-    """make_session_server(half=True, dp_kernel=True) for the full-width NS
-    model at n_slots sessions: NS_WARM warm-up ticks, then NS_TICKS ticks,
-    one dual_path_chunk launch each, every output finite; slot 0 in bf16
-    against the f32 engine on the same audio; tick p50/p99 and the engine
-    step alone."""
+def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, card, phase):
+    """make_session_server(half=True, **mode) for the full-width NS model at
+    n_slots sessions: NS_WARM warm-up ticks, then NS_TICKS ticks with
+    exact launches, every output finite, 0 underruns; slot 0 in bf16
+    against the f32 engine on the same route and audio (bar `bar_db`);
+    tick p50/p99 and the engine step alone."""
     from puresound_tpu_torch.streaming.deploy import make_session_server
+    from puresound_tpu_torch.streaming.file_eval import engine_step_options
     from puresound_tpu_torch.streaming.server import ServeStats
 
     t = time.perf_counter()
     bundle = make_session_server(ns["model"], None, n_slots=n_slots, chunk_ms=16.0,
-                                 half=True, dp_kernel=True, lockstep=True)
+                                 half=True, lockstep=True, **mode)
     server, chunk = bundle.server, bundle.chunk_samples
     n_ticks = NS_WARM + NS_TICKS
     rng = np.random.default_rng(SEED)
@@ -773,7 +1048,7 @@ def ns_serving(dpk, ns, n_slots, dev, card):
         if k == NS_WARM:
             torch.cuda.synchronize()
             server.stats = ServeStats()
-            dpk.LAUNCHES = 0
+            zero_counters(counters)
         for i, sid in enumerate(sids):
             server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
         if server.tick() != n_slots:
@@ -784,38 +1059,44 @@ def ns_serving(dpk, ns, n_slots, dev, card):
                 raise AssertionError(f"tick {k} slot {sid}: bad output")
             served[i, k * chunk:(k + 1) * chunk] = got
     torch.cuda.synchronize()
-    launches = dpk.LAUNCHES
-    expect_launches(launches, NS_TICKS, f"NS serving {n_slots} slots, dual_path_chunk")
+    launches = counter_values(counters)
+    names = ", ".join(n for n, _, _ in counters)
+    expect_launches(launches, tuple(NS_TICKS * w for w in per_tick),
+                    f"{zoo_name} serving {n_slots} slots, ({names})")
     stats = server.stats.snapshot()
+    if stats["underrun_slot_ticks"] != 0:
+        raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
     # the engine step alone, host clock around a synced step
     engine = bundle.engine
+    step_kw, init_kw = engine_step_options(engine, **mode)
     x = torch.from_numpy(feed[:, :chunk]).to(dev, torch.bfloat16)
-    state = engine.init_state(n_slots, torch.bfloat16, dp_kernel=True)
+    state = engine.init_state(n_slots, torch.bfloat16, **init_kw)
     step_ms = []
     with torch.no_grad():
         for k in range(NS_WARM + 10):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            _, state = engine.step(x, state, dp_kernel=True)
+            _, state = engine.step(x, state, **step_kw)
             torch.cuda.synchronize()
             if k >= NS_WARM:
                 step_ms.append(1e3 * (time.perf_counter() - t1))
-        st = ns["engine"].init_state(1, dp_kernel=True)
+        st = ns["engine"].init_state(1, **init_kw)
         ref = []
         for k in range(n_ticks):
             y, st = ns["engine"].step(torch.from_numpy(
-                feed[:1, k * chunk:(k + 1) * chunk]).to(dev), st, dp_kernel=True)
+                feed[:1, k * chunk:(k + 1) * chunk]).to(dev), st, **step_kw)
             ref.append(y)
     half_snr = snr_db(torch.from_numpy(served[0]), torch.cat(ref, -1)[0].cpu())
-    if half_snr < 35.0:
-        raise AssertionError(f"NS bf16 serving vs f32: SNR {half_snr:.1f} dB < 35")
-    log("4b ns serving", f"ns_dpcrn_v0_causal, make_session_server(half=True, "
-        f"dp_kernel=True), {n_slots} sessions, {NS_TICKS} ticks of {chunk} samples after "
-        f"{NS_WARM} warm-up: every output finite, dual_path_chunk launches {launches}, "
-        f"0 underruns ({stats['underrun_slot_ticks']}); tick p50 {stats['tick_ms_p50']:.3f} "
-        f"ms, p99 {stats['tick_ms_p99']:.3f} ms; engine step alone p50 "
-        f"{float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); bf16 slot 0 vs the "
-        f"f32 engine SNR {half_snr:.1f} dB (bar 35) [{card}]", t)
+    if half_snr < bar_db:
+        raise AssertionError(f"{zoo_name} bf16 serving vs f32: SNR {half_snr:.1f} dB < "
+                             f"{bar_db:g}")
+    opts = ", ".join(f"{k}=True" for k in mode)
+    log(phase, f"{zoo_name}, make_session_server(half=True, {opts}), {n_slots} sessions, "
+        f"{NS_TICKS} ticks of {chunk} samples after {NS_WARM} warm-up: every output "
+        f"finite, launches ({names}) {launches}, 0 underruns; tick p50 "
+        f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; engine step "
+        f"alone p50 {float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); bf16 slot 0 "
+        f"vs the f32 engine SNR {half_snr:.1f} dB (bar {bar_db:g}) [{card}]", t)
     return {"launches": launches, "tick_p50": stats["tick_ms_p50"],
             "tick_p99": stats["tick_ms_p99"], "step_p50": float(np.median(step_ms)),
             "snr": half_snr}
@@ -1168,7 +1449,9 @@ def recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
 def run(dev: torch.device) -> int:
     t0 = time.perf_counter()
     from puresound_tpu_torch.ops import _build
+    from puresound_tpu_torch.ops import dparn_attention_kernel as dak
     from puresound_tpu_torch.ops import dual_path_kernel as dpk
+    from puresound_tpu_torch.ops import masker_kernel as mkk
     from puresound_tpu_torch.ops import lstm_scan_kernel as lsk
     from puresound_tpu_torch.ops import lstm_train_kernel as lk
     from puresound_tpu_torch.ops import skim_stream_kernel as ops
@@ -1188,9 +1471,10 @@ def run(dev: torch.device) -> int:
 
     # ------------------------------------------------------------ 1. build
     t = time.perf_counter()
-    sources = ("skim_stream", "lstm_train", "tcn_train", "lstm_scan", "dual_path")
+    sources = ("skim_stream", "lstm_train", "tcn_train", "lstm_scan", "dual_path",
+               "dparn_attention", "masker")
     _build.build(sources)       # one nvcc per source, in parallel
-    for mod in (ops, lk, tk, lsk, dpk):
+    for mod in (ops, lk, tk, lsk, dpk, dak, mkk):
         mod._lib()
     for name in sources:
         regs = "; ".join(f"{k}: {r} registers, spills {st}/{ld} B"
@@ -1257,6 +1541,33 @@ def run(dev: torch.device) -> int:
             f"{r['bf16_snr_db']:.1f} dB (bar 30); " + "; ".join(
                 f"{lb} ms per chunk kernel {r[f'{lb}_ms']:.3f}, plain "
                 f"{r[f'{lb}_plain_ms']:.3f}, bound {r[f'{lb}_bound'][0]:.3f} "
+                f"({r[f'{lb}_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
+
+    # ------------------------------------ 2f. the DPARN intra attention pass
+    attn_results = {}
+    for name, R, F, C, heads, FFD, reps in ATTN_CASES:
+        t = time.perf_counter()
+        r = attn_case(dak, name, R, F, C, heads, FFD, reps, gen, dev)
+        attn_results[name] = r
+        log("2f dparn_intra_pass", f"{r['shape']}: f32 max|d|/max|ref| {r['f32_rel']:.2e} "
+            f"(bar 1e-4), bf16 SNR {r['bf16_snr_db']:.1f} dB (bar 30); " + "; ".join(
+                f"{lb} ms kernel {r[f'{lb}_ms']:.3f}, plain {r[f'{lb}_plain_ms']:.3f}, "
+                f"stock nn.TransformerEncoder x2 + Linear + LayerNorm "
+                f"{r[f'{lb}_stock_ms']:.3f}, bound {r[f'{lb}_bound'][0]:.3f} "
+                f"({r[f'{lb}_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
+
+    # --------------------------------------------- 2g. the wide-center masker
+    center_results = {}
+    for name, zoo_name, B, reps in CENTER_CASES:
+        t = time.perf_counter()
+        r = center_case(mkk, name, zoo_name, B, reps, dev)
+        center_results[name] = r
+        log("2g center", f"{name}, {r['shape']}, {DP_CHUNKS} carried chunks: f32 "
+            f"max|d|/max|ref| (y, 11 carries) {r['f32_rel']:.2e} (bar 1e-4), bf16 SNR "
+            f"{r['bf16_snr_db']:.1f} dB (bar 30); " + "; ".join(
+                f"{lb} ms per chunk kernel {r[f'{lb}_ms']:.3f}, plain "
+                f"{r[f'{lb}_plain_ms']:.3f}, the port's cuDNN convs + bottleneck kernels "
+                f"{r[f'{lb}_stock_ms']:.3f}, bound {r[f'{lb}_bound'][0]:.3f} "
                 f"({r[f'{lb}_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
 
     # ------------------------------------------------------- 3. flagship
@@ -1362,10 +1673,42 @@ def run(dev: torch.device) -> int:
         f"bf16 slot 0 vs f32 engine SNR {half_snr:.1f} dB [{card}]", t)
 
     # ------------------------------------- 3b, 4b. NS: ns_dpcrn_v0_causal
-    ns = ns_full_width(lk, lsk, dpk, dev, card)
-    ns_serve = {n: ns_serving(dpk, ns, n, dev, card) for n in NS_SLOTS}
+    counters = [("lstm_scan_train_fp", lk, "FWD_LAUNCHES"), ("lstm_scan", lsk, "LAUNCHES"),
+                ("dual_path_chunk", dpk, "LAUNCHES"), ("center_chunk", mkk, "LAUNCHES")]
+    ns = ns_full_width("ns_dpcrn_v0_causal", 1_380_043, [
+        ("stock", {}, (6, 0, 0, 0)), ("fused", {"fused": True}, (0, 6, 0, 0)),
+        ("dp_kernel", {"dp_kernel": True}, (0, 0, 1, 0)),
+        ("mk_kernel", {"mk_kernel": True}, (0, 0, 0, 1))], counters, (6, 0, 0, 0),
+        dev, card, "3b ns")
+    ns_serve = {n: ns_serving(ns, "ns_dpcrn_v0_causal", {"dp_kernel": True}, counters,
+                              (0, 0, 1, 0), 35.0, n, dev, card, "4b ns serving")
+                for n in NS_SLOTS}
     ns_routes = ns["routes"]
+    # ------------------------------- 4d. the wide-center route of DPCRN serving
+    mk_serve = {n: ns_serving(ns, "ns_dpcrn_v0_causal", {"mk_kernel": True}, counters,
+                              (0, 0, 0, 1), 25.0, n, dev, card, "4d ns mk_kernel")
+                for n in NS_SLOTS}
+    log("4d ns mk_kernel", "tick p50 / engine step p50 ms, dp_kernel (4b) against mk_kernel: "
+        + "; ".join(f"{n} slots {ns_serve[n]['tick_p50']:.3f} / {ns_serve[n]['step_p50']:.3f} "
+                    f"against {mk_serve[n]['tick_p50']:.3f} / {mk_serve[n]['step_p50']:.3f}"
+                    for n in NS_SLOTS) + f" [{card}]", time.perf_counter())
     del ns
+
+    # ------------------------------------- 3c, 4c. NS: ns_dparn_v0_causal
+    counters = [("lstm_scan_train_fp", lk, "FWD_LAUNCHES"), ("lstm_scan", lsk, "LAUNCHES"),
+                ("dparn_intra_pass", dak, "LAUNCHES"), ("dparn_center_chunk", mkk, "LAUNCHES")]
+    dparn = ns_full_width("ns_dparn_v0_causal", 1_215_179, [
+        ("stock", {}, (2, 0, 0, 0)), ("fused", {"fused": True}, (0, 2, 0, 0)),
+        ("attn_kernel", {"attn_kernel": True}, (2, 0, 2, 0)),
+        ("fused+attn_kernel", {"fused": True, "attn_kernel": True}, (0, 2, 2, 0)),
+        ("mk_kernel", {"mk_kernel": True}, (0, 0, 0, 1))], counters, (2, 0, 0, 0),
+        dev, card, "3c dparn")
+    dparn_serve = {n: ns_serving(dparn, "ns_dparn_v0_causal",
+                                 {"fused": True, "attn_kernel": True}, counters,
+                                 (0, 2, 2, 0), 25.0, n, dev, card, "4c dparn serving")
+                   for n in DPARN_SLOTS}
+    dparn_routes = dparn["routes"]
+    del dparn
 
     # ----------------------------------------------- 5. card vs CPU step
     card_vs_cpu_step(lk, tk, dev, card)
@@ -1445,13 +1788,44 @@ def run(dev: torch.device) -> int:
     kernels.append({
         "name": "dual_path_chunk", "route": "cuda", "source": DP_SOURCE,
         "replaces": DP_REPLACES,
-        "launches": sum(r["launches"] for r in ns_serve.values()),
+        "launches": sum(r["launches"][2] for r in ns_serve.values()),
         "max_abs_err": dp["f32_max_abs_err"], "ms": dp["f32_ms"],
         "plain_ms": dp["f32_plain_ms"], "bound_ms": dp["f32_bound"][0],
         "bound_by": dp["f32_bound"][1], "library_ms": None,
         "bf16_ms": dp["bf16_ms"], "bf16_plain_ms": dp["bf16_plain_ms"],
         "bf16_bound_ms": dp["bf16_bound"][0], "bf16_snr_db": dp["bf16_snr_db"],
         "shape": dp["shape"]})
+    at = attn_results["2048 streams"]
+    kernels.append({
+        "name": "dparn_intra_pass", "route": "cuda", "source": DPARN_SOURCE,
+        "replaces": DPARN_REPLACES,
+        "launches": sum(r["launches"][2] for r in dparn_serve.values()),
+        "max_abs_err": at["f32_max_abs_err"], "ms": at["f32_ms"],
+        "plain_ms": at["f32_plain_ms"], "bound_ms": at["f32_bound"][0],
+        "bound_by": at["f32_bound"][1], "library_ms": None,
+        "stock_ms": at["f32_stock_ms"],
+        "stock": "nn.TransformerEncoder (2 post-norm ReLU layers, bias=False) + Linear + "
+                 "LayerNorm, no single call computes the pass",
+        "bf16_ms": at["bf16_ms"], "bf16_plain_ms": at["bf16_plain_ms"],
+        "bf16_bound_ms": at["bf16_bound"][0], "bf16_stock_ms": at["bf16_stock_ms"],
+        "bf16_snr_db": at["bf16_snr_db"], "shape": at["shape"]})
+    center_launches = {"center_chunk": sum(r["launches"][3] for r in mk_serve.values()),
+                       "dparn_center_chunk": dparn_routes["mk_kernel"][1][3]}
+    for name, r in center_results.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": CENTER_SOURCE,
+            "replaces": CENTER_REPLACES[name], "entry": CENTER_ENTRY[name],
+            "launches": center_launches[name],
+            "max_abs_err": r["f32_max_abs_err"], "ms": r["f32_ms"],
+            "plain_ms": r["f32_plain_ms"], "bound_ms": r["f32_bound"][0],
+            "bound_by": r["f32_bound"][1], "library_ms": None,
+            "stock_ms": r["f32_stock_ms"],
+            "stock": "the port's route for the same layers: cuDNN convs + "
+                     + ("dual_path_chunk" if name == "center_chunk"
+                        else "dparn_intra_pass + lstm_scan"),
+            "bf16_ms": r["bf16_ms"], "bf16_plain_ms": r["bf16_plain_ms"],
+            "bf16_bound_ms": r["bf16_bound"][0], "bf16_stock_ms": r["bf16_stock_ms"],
+            "bf16_snr_db": r["bf16_snr_db"], "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,385 @@
+// The passes of DPCRN's dual-path bottleneck, shared by dual_path.cu
+// (dual_path_chunk) and masker.cu (the wide-center kernels, whose DPCRN
+// bottleneck is this code and whose DPARN bottleneck reuses its inter pass).
+// See dual_path.cu for what each pass computes and why it is built so.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "lstm_gates.cuh"
+
+namespace dual_path_passes {
+
+
+using namespace lstm_gates;
+
+constexpr int MAX_THREADS = 512;
+constexpr float LN_EPS = 1e-5f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// per-row mean and 1/sqrt(var + eps) of t_s [BT][CH + 1], one warp per row
+__device__ void row_stats(const float* t_s, int BT, int CH, float* mean_s, float* rstd_s) {
+  const int lane = threadIdx.x % 32, nw = blockDim.x / 32;
+  for (int r = threadIdx.x / 32; r < BT; r += nw) {
+    const float* tr = t_s + r * (CH + 1);
+    float s = 0.f;
+    for (int c = lane; c < CH; c += 32) s += tr[c];
+    const float mean = warp_sum(s) / CH;
+    float v = 0.f;
+    for (int c = lane; c < CH; c += 32) {
+      const float d = tr[c] - mean;
+      v += d * d;
+    }
+    v = warp_sum(v) / CH;
+    if (lane == 0) {
+      mean_s[r] = mean;
+      rstd_s[r] = rsqrtf(v + LN_EPS);
+    }
+  }
+}
+
+// acc[r] += sum_k in_s[k][col + r] * W[k][c] for k < n (8 rows, channel c)
+template <typename WT, bool DB>
+__device__ __forceinline__ void proj_dot(float (&acc)[RB], const float* in_s, int BTP,
+                                         int col, const WT* W, int n, int CH, int c) {
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) {
+    const float w = rndw<WT, DB>(W[(long)k * CH + c]);
+    const float4 lo = *reinterpret_cast<const float4*>(in_s + k * BTP + col);
+    const float4 hi = *reinterpret_cast<const float4*>(in_s + k * BTP + col + 4);
+    const float v[RB] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r] += v[r] * w;
+  }
+}
+
+// ------------------------------------------------------------ A. intra scans
+struct IntraParams {
+  const void* x;       // [F, R, CH] (x's dtype for the first block, else x_scr)
+  const void* w_ih[2]; // [CH, 4H] forward / backward
+  const void* w_hh[2]; // [H, 4H]
+  const void* bias[2]; // [4H]
+  float* y_dir;        // [2, F, R, H]
+  int x_bf16, F, R, CH, H, RG, KT;
+};
+
+template <typename WT, bool DB>
+__global__ void __launch_bounds__(MAX_THREADS) dp_intra_kernel(IntraParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int H = p.H, CH = p.CH, R = p.R, Fn = p.F;
+  const int BT = p.RG * RB, BTP = BT + 4;
+  const int tid = threadIdx.x, j = tid % H, rg = tid / H, col = rg * RB;
+  const bool live = rg < p.RG;
+  const int dir = blockIdx.y;
+  WT* w_s = reinterpret_cast<WT*>(smem_raw);                       // [2][KT][4H]
+  float* x_s = reinterpret_cast<float*>(w_s + 2 * p.KT * 4 * H);   // [CH][BTP]
+  float* h_s = x_s + CH * BTP;                                      // [2][H][BTP]
+  const WT* w_ih = static_cast<const WT*>(p.w_ih[dir]);
+  const WT* w_hh = static_cast<const WT*>(p.w_hh[dir]);
+  const WT* bias = static_cast<const WT*>(p.bias[dir]);
+  const long row0 = (long)blockIdx.x * BT;
+  float* y = p.y_dir + (long)dir * Fn * R * H;
+
+  float c[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) c[r] = 0.f;
+  for (int idx = tid; idx < H * BTP; idx += blockDim.x) h_s[idx] = 0.f;
+
+  int cur = 0;
+  for (int s = 0; s < Fn; ++s) {
+    const int f = dir ? Fn - 1 - s : s;
+    for (int idx = tid; idx < BT * CH; idx += blockDim.x) {
+      const int r = idx / CH, k = idx % CH;
+      const long row = row0 + r;
+      x_s[k * BTP + r] = row < R ? rnd<DB>(ld(p.x, ((long)f * R + row) * CH + k, p.x_bf16))
+                                 : 0.f;
+    }
+    float acc[4][RB];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int r = 0; r < RB; ++r) acc[q][r] = 0.f;
+    // x_s's stores are published by gate_dot's first barrier
+    gate_dot<WT, DB>(acc, x_s, BTP, col, w_ih, CH, H, j, live, w_s, p.KT);
+    gate_dot<WT, DB>(acc, h_s + cur * H * BTP, BTP, col, w_hh, H, H, j, live, w_s, p.KT);
+    if (live) {
+      const float b0 = ldw(bias, j), b1 = ldw(bias, H + j);
+      const float b2 = ldw(bias, 2 * H + j), b3 = ldw(bias, 3 * H + j);
+      float* hn = h_s + (cur ^ 1) * H * BTP + col;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const long row = row0 + col + r;
+        const float ig = sigm(acc[0][r] + b0), fg = sigm(acc[1][r] + b1);
+        const float gg = tanhf(acc[2][r] + b2), og = sigm(acc[3][r] + b3);
+        c[r] = fg * c[r] + ig * gg;
+        const float hv = rnd<DB>(og * tanhf(c[r]));
+        hn[j * BTP + r] = hv;
+        if (row < R) y[((long)f * R + row) * H + j] = hv;
+      }
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+}
+
+// ------------------------------------------------ B. intra projection + LN
+struct ProjParams {
+  const float* y_dir;  // [2, NR, H]
+  const void* res;     // [NR, CH] residual source
+  float* out;          // [NR, CH] x_scr
+  const void *pw_f, *pw_b, *pb, *g, *b;
+  int res_bf16, NR, CH, H, RG;
+};
+
+template <typename WT, bool DB>
+__global__ void __launch_bounds__(MAX_THREADS) dp_proj_kernel(ProjParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = p.H, CH = p.CH, NR = p.NR, H2 = 2 * H;
+  const int BT = p.RG * RB, BTP = BT + 4;
+  const int tid = threadIdx.x, cc = tid % CH, rg = tid / CH, col = rg * RB;
+  float* y_s = smem;                   // [2H][BTP]
+  float* t_s = y_s + H2 * BTP;         // [BT][CH + 1]
+  float* mean_s = t_s + BT * (CH + 1); // [BT]
+  float* rstd_s = mean_s + BT;         // [BT]
+  const long row0 = (long)blockIdx.x * BT;
+
+  for (int idx = tid; idx < BT * H2; idx += blockDim.x) {
+    const int r = idx / H2, k = idx % H2;
+    const long row = row0 + r;
+    y_s[k * BTP + r] =
+        row < NR ? p.y_dir[(k < H ? 0 : (long)NR * H) + row * H + (k < H ? k : k - H)] : 0.f;
+  }
+  __syncthreads();
+  if (rg < p.RG) {
+    float acc[RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+    proj_dot<WT, DB>(acc, y_s, BTP, col, static_cast<const WT*>(p.pw_f), H, CH, cc);
+    proj_dot<WT, DB>(acc, y_s + H * BTP, BTP, col, static_cast<const WT*>(p.pw_b), H, CH, cc);
+    const float bias = ldw(static_cast<const WT*>(p.pb), cc);
+#pragma unroll
+    for (int r = 0; r < RB; ++r) t_s[(col + r) * (CH + 1) + cc] = acc[r] + bias;
+  }
+  __syncthreads();
+  row_stats(t_s, BT, CH, mean_s, rstd_s);
+  __syncthreads();
+  const WT* g = static_cast<const WT*>(p.g);
+  const WT* b = static_cast<const WT*>(p.b);
+  for (int idx = tid; idx < BT * CH; idx += blockDim.x) {
+    const int r = idx / CH, c = idx % CH;
+    const long row = row0 + r;
+    if (row < NR) {
+      const float t = (t_s[r * (CH + 1) + c] - mean_s[r]) * rstd_s[r] * ldw(g, c) + ldw(b, c);
+      p.out[row * CH + c] = ld(p.res, row * CH + c, p.res_bf16) + t;
+    }
+  }
+}
+
+// ----------------------------------- C. inter scan + projection + LN + residual
+struct InterParams {
+  float* x;            // x_scr [F, K, B, CH]
+  void* y;             // [F, K, B, CH] output (x's dtype), written by the last block
+  const void *h_in, *c_in;
+  void *h_out, *c_out; // [F, B, H] (state dtype)
+  const void *w_ih, *w_hh, *bias, *pw, *pb, *g, *b;
+  int last, y_bf16, s_bf16, F, K, B, CH, H, RG, KT;
+};
+
+template <typename WT, bool DB>
+__global__ void __launch_bounds__(MAX_THREADS) dp_inter_kernel(InterParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int H = p.H, CH = p.CH, K = p.K, Bn = p.B;
+  const long NR = (long)p.F * Bn;
+  const int BT = p.RG * RB, BTP = BT + 4;
+  const int tid = threadIdx.x, j = tid % H, rg = tid / H, col = rg * RB;
+  const bool live = rg < p.RG;
+  WT* w_s = reinterpret_cast<WT*>(smem_raw);                       // [2][KT][4H]
+  float* x_s = reinterpret_cast<float*>(w_s + 2 * p.KT * 4 * H);   // [CH][BTP]
+  float* h_s = x_s + CH * BTP;                                      // [2][H][BTP]
+  float* t_s = h_s + 2 * H * BTP;                                   // [BT][CH + 1]
+  float* mean_s = t_s + BT * (CH + 1);  // [BT]
+  float* rstd_s = mean_s + BT;          // [BT]
+  const WT* w_ih = static_cast<const WT*>(p.w_ih);
+  const WT* w_hh = static_cast<const WT*>(p.w_hh);
+  const WT* bias = static_cast<const WT*>(p.bias);
+  const WT* pw = static_cast<const WT*>(p.pw);
+  const WT* pb = static_cast<const WT*>(p.pb);
+  const WT* lg = static_cast<const WT*>(p.g);
+  const WT* lb = static_cast<const WT*>(p.b);
+  const long row0 = (long)blockIdx.x * BT;
+  // element (row = f*B + b, channel ch) of frame k: ((f*K + k)*B + b)*CH + ch
+  auto xi = [&](long row, int k, int ch) {
+    return ((row / Bn * K + k) * Bn + row % Bn) * CH + ch;
+  };
+
+  float c[RB], h[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    c[r] = h[r] = 0.f;
+    if (live) {
+      const long row = row0 + col + r;
+      if (row < NR) {
+        h[r] = ld(p.h_in, row * H + j, p.s_bf16);
+        c[r] = ld(p.c_in, row * H + j, p.s_bf16);
+      }
+      h_s[j * BTP + col + r] = rnd<DB>(h[r]);
+    }
+  }
+
+  int cur = 0;
+  for (int k = 0; k < K; ++k) {
+    for (int idx = tid; idx < BT * CH; idx += blockDim.x) {
+      const int r = idx / CH, ch = idx % CH;
+      const long row = row0 + r;
+      x_s[ch * BTP + r] = row < NR ? rnd<DB>(p.x[xi(row, k, ch)]) : 0.f;
+    }
+    float acc[4][RB];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int r = 0; r < RB; ++r) acc[q][r] = 0.f;
+    // x_s's (and the first h_s's) stores are published by gate_dot's barrier
+    gate_dot<WT, DB>(acc, x_s, BTP, col, w_ih, CH, H, j, live, w_s, p.KT);
+    gate_dot<WT, DB>(acc, h_s + cur * H * BTP, BTP, col, w_hh, H, H, j, live, w_s, p.KT);
+    if (live) {
+      const float b0 = ldw(bias, j), b1 = ldw(bias, H + j);
+      const float b2 = ldw(bias, 2 * H + j), b3 = ldw(bias, 3 * H + j);
+      float* hn = h_s + (cur ^ 1) * H * BTP + col;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float ig = sigm(acc[0][r] + b0), fg = sigm(acc[1][r] + b1);
+        const float gg = tanhf(acc[2][r] + b2), og = sigm(acc[3][r] + b3);
+        c[r] = fg * c[r] + ig * gg;
+        h[r] = og * tanhf(c[r]);
+        hn[j * BTP + r] = rnd<DB>(h[r]);
+      }
+    }
+    __syncthreads();
+    const float* hs = h_s + (cur ^ 1) * H * BTP;
+    for (int w = tid; w < p.RG * CH; w += blockDim.x) {
+      const int ch = w % CH, pc = (w / CH) * RB;
+      float acc[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+      proj_dot<WT, DB>(acc, hs, BTP, pc, pw, H, CH, ch);
+      const float bv = ldw(pb, ch);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) t_s[(pc + r) * (CH + 1) + ch] = acc[r] + bv;
+    }
+    __syncthreads();
+    row_stats(t_s, BT, CH, mean_s, rstd_s);
+    __syncthreads();
+    for (int idx = tid; idx < BT * CH; idx += blockDim.x) {
+      const int r = idx / CH, ch = idx % CH;
+      const long row = row0 + r;
+      if (row < NR) {
+        const long e = xi(row, k, ch);
+        const float v = p.x[e] + ((t_s[r * (CH + 1) + ch] - mean_s[r]) * rstd_s[r] *
+                                      ldw(lg, ch) + ldw(lb, ch));
+        if (p.last)
+          st(p.y, e, v, p.y_bf16);
+        else
+          p.x[e] = v;
+      }
+    }
+    cur ^= 1;
+  }
+  if (live) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const long row = row0 + col + r;
+      if (row < NR) {
+        st(p.h_out, row * H + j, h[r], p.s_bf16);
+        st(p.c_out, row * H + j, c[r], p.s_bf16);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+inline int warps(int n) { return (n + 31) / 32 * 32; }
+
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+struct Chunk {
+  const void* x;
+  const void* const* h_in;
+  const void* const* c_in;
+  const void* const* w;  // PER_BLOCK per block
+  void* y;
+  void* const* h_out;
+  void* const* c_out;
+  float* x_scr;
+  float* y_dir;
+  int n, F, K, B, CH, H, x_bf16, s_bf16;
+};
+
+constexpr int PER_BLOCK = 18;
+
+template <typename WT, bool DB>
+cudaError_t run(const Chunk& q, cudaStream_t stream) {
+  const int H = q.H, CH = q.CH, R = q.K * q.B;
+  const long NR = (long)q.F * R, NI = (long)q.F * q.B;
+  // the intra pass runs 2 directions; row groups as lstm_gates.cuh picks them
+  const int rg_a = row_groups(R, H, 2), rg_c = row_groups(NI, H, 1);
+  const int rg_b = row_groups(NR, CH, 1);
+  const int bt_a = rg_a * RB, bt_b = rg_b * RB, bt_c = rg_c * RB;
+  const int kt = tile_rows<WT>(4 * H);
+  const size_t w_bytes = sizeof(WT) * 2 * (size_t)kt * 4 * H;
+  const size_t smem_a = w_bytes + sizeof(float) * ((size_t)CH + 2 * H) * (bt_a + 4);
+  const size_t smem_b = sizeof(float) * ((size_t)2 * H * (bt_b + 4) + bt_b * (CH + 1) + 2 * bt_b);
+  const size_t smem_c = w_bytes + sizeof(float) * (((size_t)CH + 2 * H) * (bt_c + 4) +
+                                                   (size_t)bt_c * (CH + 1) + 2 * bt_c);
+  cudaError_t err;
+  if ((err = allow_smem(dp_intra_kernel<WT, DB>, smem_a)) != cudaSuccess) return err;
+  if ((err = allow_smem(dp_proj_kernel<WT, DB>, smem_b)) != cudaSuccess) return err;
+  if ((err = allow_smem(dp_inter_kernel<WT, DB>, smem_c)) != cudaSuccess) return err;
+  for (int blk = 0; blk < q.n; ++blk) {
+    const void* const* w = q.w + blk * PER_BLOCK;
+    const bool first = blk == 0, last = blk == q.n - 1;
+    IntraParams a{first ? q.x : q.x_scr, {w[0], w[3]}, {w[1], w[4]}, {w[2], w[5]},
+                  q.y_dir, first ? q.x_bf16 : 0, q.F, R, CH, H, rg_a, kt};
+    dp_intra_kernel<WT, DB><<<dim3((R + bt_a - 1) / bt_a, 2), warps(rg_a * H), smem_a,
+                              stream>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ProjParams b{q.y_dir, first ? q.x : q.x_scr, q.x_scr, w[6], w[7], w[8], w[9], w[10],
+                 first ? q.x_bf16 : 0, (int)NR, CH, H, rg_b};
+    dp_proj_kernel<WT, DB><<<(unsigned)((NR + bt_b - 1) / bt_b), warps(rg_b * CH), smem_b,
+                             stream>>>(b);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    InterParams c{q.x_scr, q.y, q.h_in[blk], q.c_in[blk], q.h_out[blk], q.c_out[blk],
+                  w[11], w[12], w[13], w[14], w[15], w[16], w[17],
+                  last, q.x_bf16, q.s_bf16, q.F, q.K, q.B, CH, H, rg_c, kt};
+    dp_inter_kernel<WT, DB><<<(unsigned)((NI + bt_c - 1) / bt_c), warps(rg_c * H), smem_c,
+                              stream>>>(c);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// one inter pass (C) alone: the DPARN bottleneck's inter section
+template <typename WT, bool DB>
+cudaError_t run_inter(InterParams c, cudaStream_t stream) {
+  const long NI = (long)c.F * c.B;
+  c.RG = row_groups(NI, c.H, 1);
+  c.KT = tile_rows<WT>(4 * c.H);
+  const int bt = c.RG * RB;
+  const size_t smem = sizeof(WT) * 2 * (size_t)c.KT * 4 * c.H +
+                      sizeof(float) * (((size_t)c.CH + 2 * c.H) * (bt + 4) +
+                                       (size_t)bt * (c.CH + 1) + 2 * bt);
+  cudaError_t err = allow_smem(dp_inter_kernel<WT, DB>, smem);
+  if (err != cudaSuccess) return err;
+  dp_inter_kernel<WT, DB><<<(unsigned)((NI + bt - 1) / bt), warps(c.RG * c.H), smem,
+                            stream>>>(c);
+  return cudaGetLastError();
+}
+
+}  // namespace dual_path_passes

@@ -6,7 +6,8 @@ projection, LayerNorm and residual. Its streaming `step_chunk` carries the
 inter LSTM's (h, c); `fused=True` sends both recurrences through
 `ops.lstm_scan_kernel.lstm_scan` (the input projections stay products
 outside it). `DPCRN.bottleneck_kernel_chunk` runs both blocks through
-`ops.dual_path_kernel.dual_path_chunk`.
+`ops.dual_path_kernel.dual_path_chunk`, `DPCRN.center_kernel_chunk` the six
+stride-1 inner layers through `ops.masker_kernel.center_chunk`.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from torch import nn
 
 from ..ops.dual_path_kernel import dual_path_chunk
 from ..ops.lstm_scan_kernel import lstm_scan
+from ..ops.masker_kernel import center_chunk
 from ..utils.init import generator_or_default
 from .dual_path_streaming import DualPathStreaming
 from .lobe.norm import LayerNormLast
@@ -148,7 +150,18 @@ class DPCRN(DualPathStreaming, Unet):
             int8_hh=int8_hh, xscr_half=xscr_half)
         return y.permute(2, 3, 0, 1), h_out[0], c_out[0], h_out[1], c_out[1]
 
-    def center_kernel_chunk(self, x, state, **kw):
-        raise NotImplementedError(
-            "the center-fused masker kernel (ops/masker_kernel.py center_chunk) "
-            "is not ported yet (ROADMAP queue 2 item 9)")
+    def center_kernel_chunk(self, x: torch.Tensor, state: dict,
+                            int8_hh: bool = False, xscr_half: bool = False):
+        """The six stride-1 inner layers (d_{n-3}..d_{n-1} convs, both
+        dual-path blocks, u0..u2 transpose convs) through `center_chunk`:
+        x [B, C, F, K] (the output of down layer n-4) -> (y [B, C', F, K],
+        the output of up layer 2, then the new dc, u0h, u0s, u1h, u2h conv
+        carries and h1, c1, h2, c2) from init_stream_state(mk_kernel=True)."""
+        dot_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+        y, dc, u0h, u0s, u1h, u2h, h_out, c_out = center_chunk(
+            x.permute(2, 3, 0, 1).contiguous(), state["dc"], state["u0h"],
+            state["u0s"], state["u1h"], state["u2h"], [state["h1"], state["h2"]],
+            [state["c1"], state["c2"]], self._mk_conv_weights(),
+            self._dp_kernel_weights(), dot_dtype, int8_hh=int8_hh, xscr_half=xscr_half)
+        return (y.permute(2, 3, 0, 1), dc, u0h, u0s, u1h, u2h,
+                h_out[0], c_out[0], h_out[1], c_out[1])

@@ -180,11 +180,14 @@ class Unet(nn.Module):
             state["skipq"] = [z(batch, chans[n - j], freqs[n - j], j) for j in range(n)]
         return state
 
-    def _stream_down(self, x: torch.Tensor, state: dict):
-        """x [B, C, K] -> (bottleneck [B, ch, F, K], skips, new down carries)."""
+    def _stream_down(self, x: torch.Tensor, state: dict,
+                     n_layers: Optional[int] = None):
+        """x [B, C, K] -> (bottleneck [B, ch, F, K], skips, new down carries).
+        `n_layers` stops after that many layers (a center-fused kernel runs
+        the rest; state["down"] then holds that many carries)."""
         h = self._pack_input(x)
         skips, new_down = [h], []
-        for i, seq in enumerate(self.cnn_down):
+        for i, seq in enumerate(self.cnn_down[:n_layers]):
             new_down.append(h[..., -1])
             kf = self.kernel_f[i]
             h = seq[1].stream_apply(h, state["down"][i], (kf // 2, kf // 2))
@@ -192,12 +195,15 @@ class Unet(nn.Module):
             skips.append(h)
         return h, skips, new_down
 
-    def _stream_up(self, h: torch.Tensor, skips, state: dict):
+    def _stream_up(self, h: torch.Tensor, skips, state: dict, start: int = 0):
         """Bottleneck output [B, ch, F, K] -> (mask [B, C, K], new up
-        carries, new skip FIFOs)."""
+        carries, new skip FIFOs). `start` skips the first up layers (a
+        center-fused kernel ran them; state["up"][j - start] then carries
+        layer j)."""
         K = h.shape[-1]
         new_up, new_skipq = [], []
-        for j, seq in enumerate(self.cnn_up):
+        for j in range(start, len(self.cnn_up)):
+            seq = self.cnn_up[j]
             skip_now = skips[-j - 1]
             if self.transpose_delay and j > 0:
                 cat = torch.cat([state["skipq"][j], skip_now], dim=-1)
@@ -208,7 +214,7 @@ class Unet(nn.Module):
                 new_skipq.append(state["skipq"][j] if self.transpose_delay else None)
             h = torch.cat([h, skip_use], dim=1)
             new_up.append(h[..., -1])
-            y = seq[0].stream_apply(h, state["up"][j])
+            y = seq[0].stream_apply(h, state["up"][j - start])
             if len(seq) > 1:
                 y = seq[2](apply_norm(seq[1], y))
             h = y

@@ -42,6 +42,8 @@ NAMES = ("w_ih_f", "w_hh_f", "b_f", "w_ih_b", "w_hh_b", "b_b",
          "pw_f", "pw_b", "pb", "ig", "ib",
          "w_ih_i", "w_hh_i", "b_i", "pw_i", "pb_i", "tg", "tb")
 PER_BLOCK = len(NAMES)
+#: the inter section's weights, the last seven of a block
+INTER_NAMES = NAMES[11:]
 EPS = 1e-5
 
 _KDT = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,6 +62,23 @@ def _ln(t, scale, bias):
     return (t - mean) * torch.rsqrt(var + EPS) * scale + bias
 
 
+def inter_block_ref(xs, h, c, weights, rnd):
+    """The inter section on xs [F, K, B, CH] in the compute dtype: an LSTM
+    over the K frames from the carries h / c [F, B, H], and per frame
+    x += LN(h @ pw_i + pb_i). `weights` in INTER_NAMES order. Returns (xs',
+    h, c) in the compute dtype."""
+    cdt = xs.dtype
+    w_ih, w_hh, b, pw, pb, g, beta = weights
+    w_ih, w_hh, pw = rnd(w_ih), rnd(w_hh), rnd(pw)
+    b, pb, g, beta = (v.to(cdt) for v in (b, pb, g, beta))
+    h, c = h.to(cdt), c.to(cdt)
+    frames = []
+    for k in range(xs.shape[1]):
+        h, c = lstm_cell(rnd(xs[:, k]) @ w_ih + rnd(h) @ w_hh + b, c)
+        frames.append(xs[:, k] + _ln(rnd(h) @ pw + pb, g, beta))
+    return torch.stack(frames, dim=1), h, c
+
+
 def dual_path_chunk_ref(x, h_in: Sequence[torch.Tensor],
                         c_in: Sequence[torch.Tensor], weights,
                         dot_dtype=torch.float32, int8_hh: bool = False,
@@ -74,9 +93,8 @@ def dual_path_chunk_ref(x, h_in: Sequence[torch.Tensor],
     for blk in range(len(h_in)):
         w = dict(zip(NAMES, weights[blk * PER_BLOCK:(blk + 1) * PER_BLOCK]))
         dots = {n: rnd(w[n]) for n in ("w_ih_f", "w_hh_f", "w_ih_b", "w_hh_b",
-                                       "pw_f", "pw_b", "w_ih_i", "w_hh_i", "pw_i")}
-        vec = {n: w[n].to(cdt) for n in ("b_f", "b_b", "pb", "ig", "ib", "b_i",
-                                          "pb_i", "tg", "tb")}
+                                       "pw_f", "pw_b")}
+        vec = {n: w[n].to(cdt) for n in ("b_f", "b_b", "pb", "ig", "ib")}
         H = w["w_hh_f"].shape[0]
         zero = xs.new_zeros((K * B, H))
         hf, cf, hb, cb = zero, zero, zero, zero
@@ -92,14 +110,9 @@ def dual_path_chunk_ref(x, h_in: Sequence[torch.Tensor],
         t = (torch.stack(yf) @ dots["pw_f"] + torch.stack(yb) @ dots["pw_b"]
              + vec["pb"])
         xs = (xs + _ln(t, vec["ig"], vec["ib"])).reshape(F, K, B, CH)
-        h, c = h_in[blk].to(cdt), c_in[blk].to(cdt)
-        frames = []
-        for k in range(K):
-            h, c = lstm_cell(rnd(xs[:, k]) @ dots["w_ih_i"] + rnd(h) @ dots["w_hh_i"]
-                             + vec["b_i"], c)
-            t = rnd(h) @ dots["pw_i"] + vec["pb_i"]
-            frames.append(xs[:, k] + _ln(t, vec["tg"], vec["tb"]))
-        xs = torch.stack(frames, dim=1).reshape(F, K * B, CH)
+        xs, h, c = inter_block_ref(xs, h_in[blk], c_in[blk],
+                                   [w[n] for n in INTER_NAMES], rnd)
+        xs = xs.reshape(F, K * B, CH)
         h_out.append(h.to(h_in[blk].dtype))
         c_out.append(c.to(c_in[blk].dtype))
     return xs.reshape(F, K, B, CH).to(x.dtype), h_out, c_out

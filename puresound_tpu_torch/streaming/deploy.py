@@ -45,7 +45,7 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
                         ring_capacity: int = 1 << 16,
                         pcm16: bool = False) -> ServingBundle:
     """Build a SessionServer for a SoTaskWrapModule: TSE (FreeEncDec +
-    SkiM + speaker net) or NS (ConvEncDec + DPCRN).
+    SkiM + speaker net) or NS (ConvEncDec + DPCRN / DPARN).
 
     Args:
         model: the offline wrapper (its device is the serving device).
@@ -57,12 +57,16 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
         half: serve in bfloat16 (weights, state and the kernels' dots); the
             hub surface stays float32.
         fused: TSE runs the SkiM stack through `fused_skim_frames`; NS runs
-            the DPCRN recurrences through `lstm_scan`. None (the default)
+            the masker's recurrences through `lstm_scan`. None (the default)
             means on for TSE and off for NS, so that an NS call with
-            dp_kernel=True stands.
+            dp_kernel=True or mk_kernel=True stands.
         dp_kernel: NS only, the whole DPCRN bottleneck through
             `dual_path_chunk` (exclusive with fused).
-        attn_kernel / mk_kernel: not ported yet (raise).
+        attn_kernel: NS DPARN only, each block's intra pass through
+            `dparn_intra_pass` (combines with fused).
+        mk_kernel: NS only, the six stride-1 inner layers of a causal DPCRN
+            or DPARN through the wide-center kernel (`center_chunk` /
+            `dparn_center_chunk`; exclusive with fused and dp_kernel).
         enroll_len: TSE enrollment length (samples) of the probe that reads
             the embedding width (default 5 s).
         mesh / pipelined / pcm16: not ported yet (raise).

@@ -4,6 +4,7 @@ matching an offline wrapper. `stream_signal` (the file-streaming CLI) is
 not ported yet (ROADMAP queue 1 item 8)."""
 from __future__ import annotations
 
+from ..nnet.dparn import _DPARNBase
 from ..nnet.encoder import ConvEncDec, FreeEncDec
 from .engine import StreamingTSE
 from .ns_engine import StreamingNS
@@ -22,7 +23,10 @@ def engine_delay_samples(engine) -> int:
 def engine_step_options(engine, fused: bool = False, dp_kernel: bool = False,
                         attn_kernel: bool = False, mk_kernel: bool = False):
     """Check the kernel flags against the engine and turn them into
-    (step kwargs, init_state kwargs)."""
+    (step kwargs, init_state kwargs). attn_kernel (a DPARN masker) combines
+    with fused; fused, dp_kernel (DPCRN) and mk_kernel (DPCRN or DPARN)
+    exclude each other. As in JAX, dp_kernel / mk_kernel drop attn_kernel:
+    their kernels run the whole bottleneck."""
     if sum(map(bool, (fused, dp_kernel, mk_kernel))) > 1:
         raise ValueError("fused / dp_kernel / mk_kernel are mutually exclusive "
                          "(each already fuses the bottleneck)")
@@ -32,13 +36,20 @@ def engine_step_options(engine, fused: bool = False, dp_kernel: bool = False,
     if dp_kernel and not hasattr(engine.masker, "bottleneck_kernel_chunk"):
         raise ValueError("dp_kernel requires a DPCRN masker "
                          f"(got {type(engine.masker).__name__})")
-    if attn_kernel or mk_kernel:
-        raise NotImplementedError(
-            "attn_kernel (DPARN) / mk_kernel (the center-fused masker kernel) are "
-            "not ported yet (ROADMAP queue 2 items 8-9)")
+    if mk_kernel and not hasattr(engine.masker, "center_kernel_chunk"):
+        raise ValueError("mk_kernel requires a DPCRN or DPARN masker "
+                         f"(got {type(engine.masker).__name__})")
+    if attn_kernel and not isinstance(engine.masker, _DPARNBase):
+        raise ValueError("attn_kernel requires a DPARN masker "
+                         f"(got {type(engine.masker).__name__})")
     if dp_kernel:
         return {"dp_kernel": True}, {"dp_kernel": True}
-    return ({"fused": True} if fused else {}), {}
+    if mk_kernel:
+        return {"mk_kernel": True}, {"mk_kernel": True}
+    kw = {"fused": True} if fused else {}
+    if attn_kernel:
+        kw["attn_kernel"] = True
+    return kw, {}
 
 
 def build_engine(model):

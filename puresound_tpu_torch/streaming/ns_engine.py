@@ -60,8 +60,9 @@ class StreamingNS(nn.Module):
 
     def init_state(self, batch: int, dtype=torch.float32, device=None,
                    dp_kernel: bool = False, mk_kernel: bool = False) -> dict:
-        """Zero state for `batch` streams; `wsum`, the OLA normaliser, stays
-        float32 and has no stream axis."""
+        """Zero state for `batch` streams (the masker's layout for the
+        dp_kernel / mk_kernel routes as asked); `wsum`, the OLA normaliser,
+        stays float32 and has no stream axis."""
         n_fft, hop = self.encoder.fft_length, self.encoder.hop_length
         if device is None:
             device = self.encoder.encoder.wsin.device
@@ -84,8 +85,11 @@ class StreamingNS(nn.Module):
              mk_kernel: bool = False):
         """Advance every stream by a chunk [B, S] (S a multiple of the hop).
         fused=True runs the masker's recurrences through `lstm_scan`;
-        dp_kernel=True its whole bottleneck through `dual_path_chunk`
-        (state from init_state(dp_kernel=True)). Returns ([B, S], new state)."""
+        attn_kernel=True a DPARN's intra passes through `dparn_intra_pass`;
+        dp_kernel=True a DPCRN's whole bottleneck through `dual_path_chunk`
+        and mk_kernel=True the six stride-1 inner layers through the
+        wide-center kernel (state from init_state(dp_kernel=True) /
+        init_state(mk_kernel=True)). Returns ([B, S], new state)."""
         if dvec is not None:
             raise NotImplementedError(
                 "STFT-domain TSE streaming is not ported yet (ROADMAP queue 1 "

@@ -237,6 +237,46 @@ def so_wrapper_ns_dpcrn(variables: Mapping) -> Flat:
                   _prefix("masker", dpcrn(p["masker"], s.get("masker"))))
 
 
+def flax_layer_norm(p) -> Flat:
+    """flax nn.LayerNorm (scale / bias) -> torch LayerNorm names."""
+    return {"weight": _a(p["scale"]), "bias": _a(p["bias"])}
+
+
+def mha_self_atten_layer(p) -> Flat:
+    """MhaSelfAttenLayer(improved=False): MHA under `self_atten.atten`
+    (torch MultiheadAttention's names), the feed-forward Sequential's
+    Linears at 0 and 3."""
+    if "recurrent" in p:
+        raise NotImplementedError("MhaSelfAttenLayer(improved=True) is not ported yet")
+    return _merge({"self_atten.atten.in_proj_weight": _a(p["self_atten"]["in_proj"]),
+                   "self_atten.atten.out_proj.weight": _a(p["self_atten"]["out_proj"])},
+                  _prefix("norm1", flax_layer_norm(p["norm1"])),
+                  _prefix("norm2", flax_layer_norm(p["norm2"])),
+                  _prefix("feedforward.0", linear(p["ff1"])),
+                  _prefix("feedforward.3", linear(p["ff2"])))
+
+
+def dparn_block2d(p) -> Flat:
+    return _merge(*(_prefix(k, fn(p[k])) for k, fn in (
+        ("intra_atten1", mha_self_atten_layer), ("intra_atten2", mha_self_atten_layer),
+        ("intra_fc", linear), ("intra_norm", layer_norm_last),
+        ("inter_rnn", single_rnn), ("inter_norm", layer_norm_last))))
+
+
+def dparn(p, s=None) -> Flat:
+    return _merge(unet_updown(p, s),
+                  *(_prefix(k, dparn_block2d(p[k])) for k in ("dprnn_block1",
+                                                             "dprnn_block2")))
+
+
+def so_wrapper_ns_dparn(variables: Mapping) -> Flat:
+    """An NS SoTaskWrapModule (ConvEncDec + DPARN) or its StreamingNS."""
+    p = variables["params"]
+    s = variables.get("batch_stats", {})
+    return _merge(_prefix("encoder.encoder", conv_stft(p["encoder"]["encoder"])),
+                  _prefix("masker", dparn(p["masker"], s.get("masker"))))
+
+
 def params_by_name(tree: Mapping) -> Flat:
     """A params-shaped pytree of a TSE SoTaskWrapModule (its params, a
     gradient, an optimizer moment) -> {port parameter name: array}, each
@@ -247,8 +287,11 @@ def params_by_name(tree: Mapping) -> Flat:
 
 def from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """flax variables ({"params", "batch_stats"}) of a TSE (FreeEncDec +
-    SkiM) or NS (ConvEncDec + DPCRN) SoTaskWrapModule, or of its streaming
-    engine -> state_dict, told apart by the masker's keys."""
-    if "dprnn_block1" in variables["params"]["masker"]:
+    SkiM) or NS (ConvEncDec + DPCRN / DPARN) SoTaskWrapModule, or of its
+    streaming engine -> state_dict, told apart by the masker's keys."""
+    masker = variables["params"]["masker"]
+    if "dprnn_block1" in masker:
+        if "intra_atten1" in masker["dprnn_block1"]:
+            return to_torch(so_wrapper_ns_dparn(variables))
         return to_torch(so_wrapper_ns_dpcrn(variables))
     return to_torch(so_wrapper_tse_skim(variables))

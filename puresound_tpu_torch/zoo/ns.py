@@ -1,6 +1,6 @@
-"""NS model zoo (counterpart of puresound_tpu/zoo/ns.py): `ns_dpcrn_v0_causal`
-and `ns_dpcrn_v0` (the `transpose_delay` lookahead form). The DPARN names
-and `init_loss` are still JAX-only."""
+"""NS model zoo (counterpart of puresound_tpu/zoo/ns.py): `ns_dpcrn_v0_causal`,
+`ns_dparn_v0_causal` and their `transpose_delay` lookahead forms
+`ns_dpcrn_v0` / `ns_dparn_v0`. `init_loss` waits for the NS trainer."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,13 +8,14 @@ from typing import Optional
 import torch
 
 from ..nnet.base_nn import SoTaskWrapModule
+from ..nnet.dparn import DPARN
 from ..nnet.dpcrn import DPCRN
 from ..nnet.encoder import ConvEncDec
 from ..utils.init import generator_or_default
 from .tse import _device
 
 #: zoo names of the JAX package that this port does not build yet
-JAX_ONLY = ("ns_dparn_v0_causal", "ns_dparn_v0")
+JAX_ONLY = ()
 
 _UNET_KW = dict(
     input_type="RI", input_dim=512, activation_type="PReLU",
@@ -30,22 +31,23 @@ def init_model(name: str, sig_loss=None, *, device=None, dtype=torch.float32,
                generator: Optional[torch.Generator] = None) -> SoTaskWrapModule:
     """Build a named NS model in eval mode, on the card unless `device`
     says otherwise; `sig_loss` makes `forward` the training loss."""
+    if name not in ("ns_dpcrn_v0_causal", "ns_dpcrn_v0", "ns_dparn_v0_causal",
+                    "ns_dparn_v0"):
+        raise NameError(name)
+    fk = dict(device=_device(device), dtype=dtype)
+    g = generator_or_default(generator)
     if name in ("ns_dpcrn_v0_causal", "ns_dpcrn_v0"):
         # 1,380,043 parameters, as the JAX package counts; lookahead 384
         # (causal) or 1024 (semi-causal)
-        fk = dict(device=_device(device), dtype=dtype)
-        g = generator_or_default(generator)
-        encoder = ConvEncDec(fft_length=512, win_type="hann", win_length=512,
-                             hop_length=128, trainable=True,
-                             output_format="Complex", **fk)
         masker = DPCRN(transpose_delay=(name == "ns_dpcrn_v0"), generator=g,
                        **_UNET_KW, **fk)
-        return SoTaskWrapModule(
-            encoder=encoder, masker=masker, speaker_net=None,
-            loss_func_wav=sig_loss, drop_first_bin=True,
-            mask_constraint="linear", f_type="Complex", mask_type="Complex").eval()
-    if name in JAX_ONLY:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP queue 1 item 6: DPARN); only "
-            "the DPCRN names are")
-    raise NameError(name)
+    else:
+        # 1,215,179 parameters; the same lookaheads
+        masker = DPARN(transpose_delay=(name == "ns_dparn_v0"), nhead=8, generator=g,
+                       **_UNET_KW, **fk)
+    encoder = ConvEncDec(fft_length=512, win_type="hann", win_length=512,
+                         hop_length=128, trainable=True, output_format="Complex", **fk)
+    return SoTaskWrapModule(
+        encoder=encoder, masker=masker, speaker_net=None, loss_func_wav=sig_loss,
+        drop_first_bin=True, mask_constraint="linear", f_type="Complex",
+        mask_type="Complex").eval()

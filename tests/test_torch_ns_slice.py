@@ -3,8 +3,9 @@ n_fft 128 / hop 32 + DPCRN channels (1, 8, 8, 16, 16, 32), hidden 16)
 against the JAX package in float64 (atol 1e-8, rtol 1e-6) module by module
 and as a whole (offline inference, StreamingNS chunk by chunk, stock and
 transpose_delay), the weights crossing over through from_jax (strict);
-make_session_server + SessionServer for NS on the CPU; the zoo's device rule
-and parameter count; the engine flags' checks."""
+make_session_server + SessionServer for NS on the CPU (stock, fused,
+dp_kernel and mk_kernel); the zoo's device rule and parameter count; the
+engine flags' checks."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -249,7 +250,8 @@ def ring_hub():
     return native.load()
 
 
-@pytest.mark.parametrize("mode", [dict(), dict(fused=True), dict(dp_kernel=True)])
+@pytest.mark.parametrize("mode", [dict(), dict(fused=True), dict(dp_kernel=True),
+                                  dict(mk_kernel=True)])
 def test_ns_session_server_matches_bare_engine(rng, ring_hub, mode):
     """3 NS slots attached without enrollment; a session joins one tick
     late and another takes a freed slot: each output equals a fresh bare
@@ -313,9 +315,10 @@ def test_engine_step_options_flags():
         {"dp_kernel": True}, {"dp_kernel": True})
     with pytest.raises(ValueError, match="mutually exclusive"):
         engine_step_options(engine, fused=True, dp_kernel=True)
-    for flag in ("attn_kernel", "mk_kernel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine_step_options(engine, **{flag: True})
+    assert engine_step_options(engine, mk_kernel=True) == (
+        {"mk_kernel": True}, {"mk_kernel": True})
+    with pytest.raises(ValueError, match="DPARN"):
+        engine_step_options(engine, attn_kernel=True)
     with pytest.raises(ValueError, match="mutually exclusive"):
         make_session_server(_port_wrap(torch.float32), None, 1, fused=True,
                             dp_kernel=True)
@@ -327,8 +330,8 @@ def test_ns_zoo_parameter_count_and_device_rule():
     assert sum(p.numel() for p in model.parameters()) == 1_380_043
     assert not model.masker.transpose_delay
     assert init_model("ns_dpcrn_v0", device="cpu").masker.transpose_delay
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model("ns_dparn_v0_causal", device="cpu")
+    assert sum(p.numel() for p in init_model(
+        "ns_dparn_v0_causal", device="cpu").parameters()) == 1_215_179
     if torch.cuda.is_available():
         assert next(init_model("ns_dpcrn_v0_causal").parameters()).device.type == "cuda"
     else:

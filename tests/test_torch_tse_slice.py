@@ -313,6 +313,9 @@ def test_port_imports_no_jax():
             "puresound_tpu_torch.nnet.dual_path_streaming, "
             "puresound_tpu_torch.ops.lstm_scan_kernel, "
             "puresound_tpu_torch.ops.dual_path_kernel, "
+            "puresound_tpu_torch.nnet.dparn, puresound_tpu_torch.nnet.lobe.attention, "
+            "puresound_tpu_torch.ops.dparn_attention_kernel, "
+            "puresound_tpu_torch.ops.masker_kernel, "
             "puresound_tpu_torch.dsp.stft, sys; "
             "assert not {'jax', 'flax', 'puresound_tpu'} & set(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
