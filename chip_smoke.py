@@ -38,6 +38,18 @@ Drives the port's serving and training paths for the flagship
      and the 11 carries; the bars of 2f), with the time of one chunk, the
      bound and the port's route for the same layers (cuDNN convs + the
      bottleneck kernels) as the yardstick;
+  2h. the card's __dp4a rate (a loop in skim_stream.cu, CUDA events), the
+     int8 products' peak; then the int8 and bf16-scratch variants at full
+     width, each against its own plain version over 5 carried chunks:
+     `fused_skim_frames` int8_hh / int8_full (n=4, C=128, H=256, F=15,
+     B=1024), `dual_path_chunk` int8_hh / xscr_half / both (2048 streams),
+     `center_chunk` int8_hh / xscr_half (2048), `dparn_center_chunk`
+     xscr_half (1024). f32 I/O: each variant's own SNR bar (Q_F32_BARS), and
+     the kernel without the option (the control) must read below it; under
+     xscr_half dual_path_chunk's y and the centers' u0h carry-out must lie
+     on the bfloat16 grid and the control's must not. bf16 I/O: SNR >= 30
+     dB. CUDA-event times beside the same kernel's f32 / bf16 times from 2,
+     2e, 2g, the bound (int8 at the measured dp4a rate) and the share of it;
   3. flagship: 6,375,440 parameters; `StreamingTSE.embed` launches the TCN
      kernel 5 times; 20 streamed ticks through `StreamingTSE.step(fused=True)`
      equal the offline `inference`, which launches the LSTM kernel 10 times
@@ -45,6 +57,16 @@ Drives the port's serving and training paths for the flagship
   4. serving: `make_session_server(half=True, fused=True)` with 256 sessions
      (each attach embeds: 5 TCN launches), 25 ticks, every output finite,
      every step through the kernel;
+  4e. the flagship in bf16 through `StreamingTSE.step(fused=True, int8_hh /
+     int8_full)` at 1024 streams: the engine step alone, then
+     `make_session_server(half=True, fused=True)` with its step_fn bound to
+     the option (25 ticks after 3 warm-up; every launch with the option, no
+     plain version, slot 0 against the f32 engine: bars 20 / 15 dB);
+  4f. `make_session_server(half=True, fused=True)` at 256 sessions with the
+     float32 transport, `pcm16=True` and `pipelined=True, pcm16=True`: the
+     pipelined outputs bit-equal to the unpipelined ones, the pcm16 SNR, the
+     three tick p50 / p99 beside phase 4's, and each one's whole timed window
+     (pushes, ticks, pops, a final device sync) per tick;
   3b. NS: `ns_dpcrn_v0_causal` in f32 (1,380,043 parameters), 4 streams x
      2 s at 16 ms ticks through the stock, fused, dp_kernel and mk_kernel
      routes of `StreamingNS.step`, each equal to the offline `inference` past
@@ -58,6 +80,11 @@ Drives the port's serving and training paths for the flagship
      against the f32 engine (bar 35 dB);
   4d. the same through `mk_kernel=True` (one `center_chunk` per tick, bar 25
      dB), printed beside 4b's numbers;
+  4g. DPCRN at 2048 sessions through `make_session_server(half=True)` with
+     its step_fn bound to the option: `dp_kernel` + int8_hh, `mk_kernel` +
+     int8_hh, `dp_kernel` + xscr_half, `mk_kernel` + xscr_half and
+     `dp_kernel` + both (bars 20, 30, 35, 35, 20 dB against the f32 engine;
+     launches by option, no plain version);
   3c. DPARN: `ns_dparn_v0_causal` in f32 (1,215,179 parameters), 4 streams x
      2 s through the stock, fused, attn_kernel, fused + attn_kernel and
      mk_kernel routes, each equal to the offline `inference`; exact
@@ -68,6 +95,7 @@ Drives the port's serving and training paths for the flagship
      attn_kernel=True)` at 256 and 1024 sessions: 25 ticks after 3 warm-up,
      2 `dparn_intra_pass` and 2 `lstm_scan` per tick, 0 underruns, bf16 slot
      0 against the f32 engine (bar 25 dB);
+  4h. DPARN at 1024 sessions on `mk_kernel` + xscr_half, as 4g (bar 25 dB);
   5. one f32 training step (B=2 x 1 s) on the card against the same step on
      the CPU in f64 (and the CPU's f32 step beside it): loss, grad_norm,
      every gradient and updated parameter;
@@ -90,6 +118,7 @@ Run from the repo root: `python3 chip_smoke.py` (needs one CUDA card).
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -952,6 +981,356 @@ def center_case(mkk, name, zoo_name, B, reps, dev):
     return res
 
 
+# ------------------------------------------------------------------ phase 2h
+#: the int8 products' peak on the CUDA cores in op/s (a multiply-add is 2):
+#: the card's __dp4a rate, read by `dp4a_rate` at the start of phase 2h
+INT8_CORE_OPS = None
+Q_CHUNKS = 5        # carried chunks each variant is held over
+#: kernel-vs-plain SNR bars. bf16 I/O: the bf16 bar of phases 2e-2g. f32 I/O:
+#: each variant's own, set between its reading and its control's (the kernel
+#: without the option against the plain version with it), both read on an
+#: H100 80GB HBM3 at 700 W (PERF.md §6), so that a kernel that ignored
+#: the option fails; the run asserts that the control stays below. The
+#: readings repeat bit for bit from run to run (fixed seeds, no atomics).
+Q_BF16_BAR_DB = 30.0
+Q_F32_BARS = {                                     # reading / control, dB
+    "fused_skim_frames int8_hh": 55.0,             # 61.97 / 44.28
+    "fused_skim_frames int8_full": 38.0,           # 43.05 / 29.00
+    "dual_path_chunk int8_hh": 65.0,               # 74.82 / 51.67
+    "dual_path_chunk xscr_half": 58.0,             # 66.41 / 48.59
+    "dual_path_chunk int8_hh+xscr_half": 53.0,     # 58.96 / 46.68
+    "center_chunk int8_hh": 65.0,                  # 72.96 / 43.87
+    "center_chunk xscr_half": 54.0,                # 59.74 / 47.14
+    "dparn_center_chunk xscr_half": 57.0}          # 63.92 / 49.95
+QSKIM_VARIANTS = ("int8_hh", "int8_full")
+QSKIM_SHAPE = (4, 128, 256, 1024, 15)      # n, C, H, B, F: the flagship
+QDP_VARIANTS = ("int8_hh", "xscr_half", "int8_hh+xscr_half")
+QDP_SHAPE = (2048, 64, 2, 128, 128)        # B, F, K, CH, H: DPCRN at 2048 streams
+QCENTER_CASES = [("center_chunk", "ns_dpcrn_v0_causal", 2048, ("int8_hh", "xscr_half")),
+                 ("dparn_center_chunk", "ns_dparn_v0_causal", 1024, ("xscr_half",))]
+
+
+def dp4a_rate(ops, dev) -> float:
+    """The card's int8 rate on the CUDA cores, op/s: `skim_stream.cu`'s
+    __dp4a loop (8 CTAs of 256 threads per SM, 8 chains a thread) timed
+    with CUDA events, 4 multiply-adds a dp4a."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(sms * 8 * 256, dtype=torch.int32, device=dev)
+    n = ops.dp4a_rate(out, 16384)
+    ms = cuda_ms(lambda: ops.dp4a_rate(out, 16384), 10)
+    return 8.0 * n / (ms * 1e-3)
+
+
+def opts_of(variant: str) -> dict:
+    """"int8_hh+xscr_half" -> {"int8_hh": True, "xscr_half": True}."""
+    return {k: True for k in variant.split("+")}
+
+
+def mixed_bound(ops: dict, nbytes: float) -> tuple:
+    """bound_ms for work of several types: each type's operations over its
+    own peak (int8: INT8_CORE_OPS), the times summed, against the bytes."""
+    t_ops = sum(v / (INT8_CORE_OPS if t == "int8" else PEAK_OPS[t]) for t, v in ops.items())
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def qskim_work(n, C, H, F, B, dt, variant):
+    """skim_work split by type: int8_hh moves h @ W_hh to int8, int8_full
+    every dot; a quantized matrix is read as 1 byte a weight plus its
+    float32 scales."""
+    e = torch.finfo(dt).bits // 8
+    rows = 2.0 * B * F * n
+    dots = {"film": (2 * C * C, 2 * C), "ih": (C * 4 * H, 4 * H), "hh": (H * 4 * H, 4 * H),
+            "proj": (H * C, C)}
+    q = {"hh"} if variant == "int8_hh" else set(dots)
+    ops = {dt: sum(rows * m for k, (m, _) in dots.items() if k not in q),
+           "int8": sum(rows * m for k, (m, _) in dots.items() if k in q)}
+    weights = sum((m + 4 * s) if k in q else m * e for k, (m, s) in dots.items()) * n
+    return ops, weights + (2 * B * F * C + 2 * n * B * C + 4 * n * B * H) * e
+
+
+def q_dual_path_work(work, F, K, B, H, dt, variant, n_blocks=2):
+    """A dual-path kernel's (flops, bytes) split by type: int8_hh moves the
+    recurrent products (the two intra directions and the inter scan, h [H]
+    x W_hh [H, 4H] per row and step) to int8 and reads each of the 3 W_hh a
+    block as 1 byte a weight plus its 4H float32 scales."""
+    flops, nbytes = work
+    if "int8_hh" not in variant:
+        return {dt: flops}, nbytes
+    hh = n_blocks * 3 * 2.0 * K * B * F * H * 4 * H
+    e = torch.finfo(dt).bits // 8
+    return ({dt: flops - hh, "int8": hh},
+            nbytes - n_blocks * 3 * (H * 4 * H * (e - 1) - 16 * H))
+
+
+def on_bf16_grid(t: torch.Tensor) -> bool:
+    return torch.equal(t, t.to(torch.bfloat16).to(t.dtype))
+
+
+def hold(res, label, got, want, control, floor=None):
+    """Record a variant's kernel outputs over the carried chunks (`got`)
+    against its plain version's (`want`): finite, the SNR over every output
+    (values at an int8 or bf16 rounding boundary go either way on the two
+    sides, and the carries take such a flip on), and the same SNR of
+    `control`, the kernel without the option on the same inputs. `floor`,
+    the plain version in float64: the SNR of the float32 plain version
+    against it, the rounding floor that no float32 kernel can beat."""
+    for g in got:
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{res['name']} {label}: non-finite kernel output")
+    res[f"{label}_snr_db"] = min(snr_db(g, w) for g, w in zip(got, want))
+    res[f"{label}_control_snr_db"] = min(snr_db(g, w) for g, w in zip(control, want))
+    if floor is not None:
+        res[f"{label}_floor_snr_db"] = min(snr_db(w, f) for w, f in zip(want, floor))
+    res[f"{label}_max_abs_err"] = max((g.float() - w.float()).abs().max().item()
+                                      for g, w in zip(got, want))
+
+
+def check_bar(res, label):
+    """The kernel reaches the variant's bar; in f32 the control stays below
+    it (the bar tells a kernel without the option apart), and under
+    xscr_half the kernel's checked outputs lie on the bfloat16 grid while
+    the control's do not."""
+    what = f"{res['name']} {label}"
+    bar = Q_F32_BARS[res["name"]] if label == "f32" else Q_BF16_BAR_DB
+    res[f"{label}_bar_db"] = bar
+    if res[f"{label}_snr_db"] < bar:
+        raise AssertionError(f"{what}: kernel vs plain SNR {res[f'{label}_snr_db']:.1f} dB "
+                             f"< {bar:g}")
+    if label == "f32" and res["f32_control_snr_db"] >= bar:
+        raise AssertionError(f"{what}: the control reads {res['f32_control_snr_db']:.1f} dB "
+                             f">= the bar {bar:g}, so the bar cannot fail it")
+    if label == "f32" and "xscr_half" in res["name"]:
+        if not res["f32_on_bf16_grid"] or res["f32_control_on_bf16_grid"]:
+            raise AssertionError(f"{what}: {res['grid_what']} on the bf16 grid: kernel "
+                                 f"{res['f32_on_bf16_grid']}, control "
+                                 f"{res['f32_control_on_bf16_grid']} (want True, False)")
+
+
+@torch.no_grad()
+def qskim_case(ops, SkiM, variant, reps, gen, dev):
+    """`fused_skim_frames` with int8_hh / int8_full at the flagship shapes
+    (n=4, C=128, H=256, F=15, B=1024) against its plain version over
+    Q_CHUNKS carried chunks, f32 then bf16 (I/O, state, float weights,
+    dots), with CUDA-event times and the bound."""
+    n, C, H, B, F = QSKIM_SHAPE
+    modes = ("film",) * n
+    masker = SkiM(input_size=C, hidden_size=H, output_size=C, n_blocks=n, seg_size=F * 10,
+                  causal=True, embed_dim=192, embed_norm=True, embed_fusion="FiLM",
+                  block_with_embed=(1,) * n, device=dev, generator=gen).eval()
+    kw = opts_of(variant)
+    wq, wf = masker._fused_weights(**kw), masker._fused_weights()
+    embed = torch.randn(B, 192, generator=gen).to(dev)
+    se, be, ge = masker._embed_terms(masker._norm_embed(embed), B, torch.float32, wq)
+    xs = [torch.randn(B, F, C, generator=gen).to(dev) for _ in range(Q_CHUNKS)]
+    h0 = (0.3 * torch.randn(n, B, H, generator=gen)).to(dev)
+    c0 = (0.3 * torch.randn(n, B, H, generator=gen)).to(dev)
+    res = {"name": f"fused_skim_frames {variant}", "shape": f"n={n} C={C} H={H} F={F} B={B}"}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cast = lambda ws, d=dt: ops.SkimWeights(w if w.dtype == torch.int8 else w.to(d)
+                                                for w in ws)
+        ws = cast(wq)
+        args = (se.to(dt), be.to(dt), ge.to(dt))
+        specs = [(ops.fused_skim_frames, ws, kw, dt), (ops.fused_skim_frames_ref, ws, kw, dt),
+                 (ops.fused_skim_frames, cast(wf), {}, dt)]
+        if dt == torch.float32:
+            f64 = torch.float64
+            specs.append((ops.fused_skim_frames_ref, cast(wq, f64), kw, f64))
+        runs = []
+        for fn, w, o, rdt in specs:
+            h, c = h0.to(rdt), c0.to(rdt)
+            ys = []
+            for x in xs:
+                y, h, c = fn(x.to(rdt), se.to(rdt), be.to(rdt), ge.to(rdt), h, c, w, modes,
+                             dot_dtype=rdt, **o)
+                ys.append(y)
+            runs.append([torch.cat(ys, 1), h, c])
+        torch.cuda.synchronize()
+        hold(res, label, *runs)
+        check_bar(res, label)
+        x1, h1, c1 = xs[0].to(dt), h0.to(dt), c0.to(dt)
+        res[f"{label}_ms"] = cuda_ms(lambda: ops.fused_skim_frames(
+            x1, *args, h1, c1, ws, modes, dot_dtype=dt, **kw), reps)
+        res[f"{label}_plain_ms"] = cuda_ms(lambda: ops.fused_skim_frames_ref(
+            x1, *args, h1, c1, ws, modes, dot_dtype=dt, **kw), 2, 1)
+        res[f"{label}_bound"] = mixed_bound(*qskim_work(n, C, H, F, B, dt, variant))
+    return res
+
+
+@torch.no_grad()
+def qdp_case(dpk, variant, reps, gen, dev):
+    """`dual_path_chunk` with int8_hh / xscr_half / both at 2048 streams
+    against its plain version over Q_CHUNKS carried chunks, f32 then bf16;
+    under xscr_half every chunk's f32 y must lie on the bfloat16 grid."""
+    from puresound_tpu_torch.ops.dual_path_kernel import NAMES
+    from puresound_tpu_torch.ops.quant import quantize_cols
+
+    B, F, K, CH, H = QDP_SHAPE
+    kw = opts_of(variant)
+    wf, ws = dp_weights(CH, H, gen), []
+    for i, w in enumerate(wf):
+        q = kw.get("int8_hh") and NAMES[i % len(NAMES)].startswith("w_hh")
+        ws += list(quantize_cols(w)) if q else [w]
+    cgen = torch.Generator(device=dev).manual_seed(SEED)
+    xs = [torch.randn(F, K, B, CH, device=dev, generator=cgen) for _ in range(Q_CHUNKS)]
+    carries = [0.3 * torch.randn(F, B, H, device=dev, generator=cgen) for _ in range(4)]
+    res = {"name": f"dual_path_chunk {variant}", "shape": f"B={B} F={F} K={K} CH={CH} H={H}",
+           "grid_what": "every chunk's y"}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cast = lambda wl, d=dt: [w.to(dev) if w.dtype == torch.int8 else w.to(dev, d)
+                                 for w in wl]
+        wd = cast(ws)
+        specs = [(dpk._launch, wd, kw, dt), (dpk.dual_path_chunk_ref, wd, kw, dt),
+                 (dpk._launch, cast(wf), {}, dt)]
+        if dt == torch.float32:
+            specs.append((dpk.dual_path_chunk_ref, cast(ws, torch.float64), kw, torch.float64))
+        runs = []
+        for fn, w, o, rdt in specs:
+            h, c = [t.to(rdt) for t in carries[:2]], [t.to(rdt) for t in carries[2:]]
+            ys = []
+            for x in xs:
+                y, h, c = fn(x.to(rdt), h, c, w, rdt, **o)
+                ys.append(y)
+            runs.append([torch.cat(ys, 1)] + h + c)
+        torch.cuda.synchronize()
+        hold(res, label, *runs)
+        res[f"{label}_on_bf16_grid"] = on_bf16_grid(runs[0][0])
+        res[f"{label}_control_on_bf16_grid"] = on_bf16_grid(runs[2][0])
+        check_bar(res, label)
+        del runs
+        x1 = xs[0].to(dt)
+        h1, c1 = [t.to(dt) for t in carries[:2]], [t.to(dt) for t in carries[2:]]
+        res[f"{label}_ms"] = cuda_ms(lambda: dpk._launch(x1, h1, c1, wd, dt, **kw), reps)
+        res[f"{label}_plain_ms"] = cuda_ms(
+            lambda: dpk.dual_path_chunk_ref(x1, h1, c1, wd, dt, **kw), 2, 1)
+        res[f"{label}_bound"] = mixed_bound(*q_dual_path_work(
+            dual_path_work(F, K, B, CH, H, dt), F, K, B, H, dt, variant))
+    return res
+
+
+@torch.no_grad()
+def qcenter_case(mkk, name, zoo_name, B, variants, reps, dev):
+    """`center_chunk` (int8_hh, xscr_half) / `dparn_center_chunk`
+    (xscr_half) with the full-width zoo masker's weights against the plain
+    version over Q_CHUNKS carried chunks, f32 then bf16; one result a
+    variant. Under xscr_half every chunk's f32 u0h carry-out (the last
+    frame of the bottleneck's scratch) must lie on the bfloat16 grid."""
+    from puresound_tpu_torch.streaming.halfprec import to_half
+
+    masker = full_width_masker(zoo_name, dev, SEED)
+    K = 2
+    cgen = torch.Generator(device=dev).manual_seed(SEED)
+    st0 = masker.init_stream_state(B, mk_kernel=True)
+    F, C0 = st0["dc"][0].shape[0], st0["dc"][0].shape[-1]
+    xs = [0.5 * torch.randn(F, K, B, C0, device=dev, generator=cgen) for _ in range(Q_CHUNKS)]
+    carries0 = [0.3 * torch.randn(t.shape, device=dev, generator=cgen)
+                for t in st0["dc"] + [st0[k] for k in ("u0h", "u0s", "u1h", "u2h",
+                                                         "h1", "h2", "c1", "c2")]]
+    H = st0["h1"].shape[-1]
+    kind = 0 if name == "center_chunk" else 1
+    heads = getattr(masker, "nhead", 0)
+    out = {v: {"name": f"{name} {v}", "shape": f"{zoo_name} B={B} K={K} F={F}",
+               "grid_what": "every chunk's u0h carry-out"} for v in variants}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        if dt == torch.bfloat16:
+            to_half(masker)
+        cw = masker._mk_conv_weights()
+        pe = masker.dprnn_block1.intra_atten1.pos.table(F, dev) if kind else None
+        plain = getattr(mkk, name + "_ref")
+        bws = {q: (masker._dp_kernel_weights(q) if kind == 0
+                   else masker._dparn_block_weights()) for q in (False, True)}
+
+        def kern(x, c, int8_hh=False, xscr_half=False):
+            return mkk._launch(kind, x, pe, c[0:3], *c[3:7], c[7:9], c[9:11], cw,
+                               bws[int8_hh], heads, dt, int8_hh, xscr_half)
+
+        def ref(x, c, rdt=dt, **o):
+            """The plain version; rdt=float64: every float operand in float64."""
+            f = ((lambda ws: [w.to(rdt) if w.is_floating_point() else w for w in ws])
+                 if rdt == torch.float64 else (lambda ws: ws))
+            bw, cw_r = f(bws[o.get("int8_hh", False)]), f(cw)
+            if kind == 0:
+                return plain(x, c[0:3], *c[3:7], c[7:9], c[9:11], cw_r, bw, rdt, **o)
+            return plain(x, *f([pe]), c[0:3], *c[3:7], c[7:9], c[9:11], cw_r, bw, heads,
+                         rdt, **o)
+
+        for variant in variants:
+            kw = opts_of(variant)
+            res = out[variant]
+            specs = [(kern, kw, dt), (ref, kw, dt), (kern, {}, dt)]
+            if dt == torch.float32:
+                specs.append((functools.partial(ref, rdt=torch.float64), kw, torch.float64))
+            runs, grid = [], []
+            for fn, o, rdt in specs:
+                c = [t.to(rdt) for t in carries0]
+                ys, on_grid = [], True
+                for x in xs:
+                    y, dc, u0h, u0s, u1h, u2h, h, cc = fn(x.to(rdt), c, **o)
+                    c = list(dc) + [u0h, u0s, u1h, u2h] + list(h) + list(cc)
+                    ys.append(y)
+                    on_grid = on_grid and on_bf16_grid(u0h)
+                runs.append([torch.cat(ys, 1)] + c)
+                grid.append(on_grid)
+            torch.cuda.synchronize()
+            chans = (C0, st0["dc"][1].shape[-1], st0["dc"][2].shape[-1],
+                     st0["u1h"].shape[-1], st0["u0h"].shape[-1], st0["u2h"].shape[-1],
+                     runs[0][0].shape[-1])
+            hold(res, label, *runs)
+            res[f"{label}_on_bf16_grid"], res[f"{label}_control_on_bf16_grid"] = grid[0], grid[2]
+            check_bar(res, label)
+            del runs
+            x1, c1 = xs[0].to(dt), [t.to(dt) for t in carries0]
+            res[f"{label}_ms"] = cuda_ms(lambda: kern(x1, c1, **kw), reps)
+            res[f"{label}_plain_ms"] = cuda_ms(lambda: ref(x1, c1, **kw), 2, 1)
+            res[f"{label}_bound"] = mixed_bound(*q_dual_path_work(
+                center_work(name, F, K, B, chans, H, dt), F, K, B, H, dt, variant))
+    return list(out.values())
+
+
+def quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base) -> dict:
+    """Phase 2h: the card's dp4a rate (INT8_CORE_OPS), then every int8 /
+    bf16-scratch variant against its plain version at full width, its time
+    beside the same kernel's f32 / bf16 time from phases 2, 2e, 2g (`base`:
+    name -> (f32 ms, bf16 ms)), the bound (int8 on the CUDA cores at
+    INT8_CORE_OPS) and the share of it."""
+    global INT8_CORE_OPS
+    t = time.perf_counter()
+    INT8_CORE_OPS = dp4a_rate(ops, dev)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True).stdout.strip()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    log("2h quantized", f"__dp4a loop: INT8_CORE_OPS {INT8_CORE_OPS:.4e} int8 op/s (a "
+        f"multiply-add 2) = {INT8_CORE_OPS / 8 / sms:.4e} dp4a/s per SM; SM clock after "
+        f"the loop {clock} [{card}]", t)
+    results = {}
+    cases = ([lambda v=v: qskim_case(ops, SkiM, v, 10, gen, dev) for v in QSKIM_VARIANTS]
+             + [lambda v=v: qdp_case(dpk, v, 5, gen, dev) for v in QDP_VARIANTS]
+             + [lambda c=c: qcenter_case(mkk, *c, 5, dev) for c in QCENTER_CASES])
+    for case in cases:
+        t = time.perf_counter()
+        got = case()
+        for r in (got if isinstance(got, list) else [got]):
+            results[r["name"]] = r
+            kernel = r["name"].split()[0]
+            f32_ms, bf16_ms = base[kernel]
+            int8_note = ", int8 at INT8_CORE_OPS" if "int8" in r["name"] else ""
+            grid = (f"; {r['grid_what']} on the bf16 grid: kernel {r['f32_on_bf16_grid']}, "
+                    f"control {r['f32_control_on_bf16_grid']}" if "xscr_half" in r["name"]
+                    else "")
+            log("2h quantized", f"{r['name']}, {r['shape']}, {Q_CHUNKS} carried chunks: "
+                f"kernel vs plain SNR f32 {r['f32_snr_db']:.2f} dB (bar {r['f32_bar_db']:g}; "
+                f"control {r['f32_control_snr_db']:.2f}; the f32 plain version against "
+                f"itself in f64 {r['f32_floor_snr_db']:.2f}) / bf16 {r['bf16_snr_db']:.2f} dB (bar "
+                f"{r['bf16_bar_db']:g}; control {r['bf16_control_snr_db']:.2f}){grid}; " +
+                "; ".join(
+                    f"{lb} ms kernel {r[f'{lb}_ms']:.3f} (the same kernel without the option "
+                    f"{ms:.3f}), plain {r[f'{lb}_plain_ms']:.3f}, bound "
+                    f"{r[f'{lb}_bound'][0]:.3f} ({r[f'{lb}_bound'][1]}{int8_note}), share "
+                    f"{100 * r[f'{lb}_bound'][0] / r[f'{lb}_ms']:.1f} %"
+                    for lb, ms in (("f32", f32_ms), ("bf16", bf16_ms))) + f" [{card}]", t)
+    return results
+
+
 # ------------------------------------------------ phases 3b, 3c, 4b, 4c, 4d
 def counter_values(counters):
     return tuple(getattr(mod, attr) for _, mod, attr in counters)
@@ -1025,44 +1404,90 @@ def ns_full_width(zoo_name, n_params_want, routes, counters, offline_want, dev, 
     return out
 
 
-def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, card, phase):
+class PlainCalls:
+    """Counts the calls of the kernels' plain versions while it is entered
+    (a serving run must make none: every step goes through the kernels)."""
+
+    NAMES = {"skim_stream_kernel": ("fused_skim_frames_ref",),
+             "dual_path_kernel": ("dual_path_chunk_ref",),
+             "masker_kernel": ("center_chunk_ref", "dparn_center_chunk_ref"),
+             "lstm_scan_kernel": ("lstm_scan_ref",),
+             "dparn_attention_kernel": ("dparn_intra_pass_ref",)}
+
+    def __enter__(self):
+        import importlib
+
+        self.calls, self._saved = 0, []
+        for mod_name, fns in self.NAMES.items():
+            mod = importlib.import_module(f"puresound_tpu_torch.ops.{mod_name}")
+            for fn in fns:
+                orig = getattr(mod, fn)
+                self._saved.append((mod, fn, orig))
+
+                def counted(*a, _orig=orig, **kw):
+                    self.calls += 1
+                    return _orig(*a, **kw)
+
+                setattr(mod, fn, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, orig in self._saved:
+            setattr(mod, fn, orig)
+
+
+def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, card, phase,
+               options=None, by_option=None):
     """make_session_server(half=True, **mode) for the full-width NS model at
     n_slots sessions: NS_WARM warm-up ticks, then NS_TICKS ticks with
     exact launches, every output finite, 0 underruns; slot 0 in bf16
     against the f32 engine on the same route and audio (bar `bar_db`);
-    tick p50/p99 and the engine step alone."""
+    tick p50/p99 and the engine step alone. `options` (int8_hh /
+    xscr_half) are bound to the server's step function, with `by_option` =
+    (module, key): that many launches must carry the option and no plain
+    version may run."""
     from puresound_tpu_torch.streaming.deploy import make_session_server
     from puresound_tpu_torch.streaming.file_eval import engine_step_options
     from puresound_tpu_torch.streaming.server import ServeStats
 
     t = time.perf_counter()
+    options = options or {}
     bundle = make_session_server(ns["model"], None, n_slots=n_slots, chunk_ms=16.0,
                                  half=True, lockstep=True, **mode)
     server, chunk = bundle.server, bundle.chunk_samples
+    server.step_fn = functools.partial(server.step_fn, **options)
     n_ticks = NS_WARM + NS_TICKS
     rng = np.random.default_rng(SEED)
     feed = (0.1 * rng.standard_normal((n_slots, chunk * n_ticks))).astype(np.float32)
     sids = [server.attach() for _ in range(n_slots)]
     served = np.zeros_like(feed)
-    for k in range(n_ticks):
-        if k == NS_WARM:
-            torch.cuda.synchronize()
-            server.stats = ServeStats()
-            zero_counters(counters)
-        for i, sid in enumerate(sids):
-            server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
-        if server.tick() != n_slots:
-            raise AssertionError(f"tick {k}: not every slot served")
-        for i, sid in enumerate(sids):
-            got = server.hub.pop_output(sid, chunk)
-            if len(got) != chunk or not np.isfinite(got).all():
-                raise AssertionError(f"tick {k} slot {sid}: bad output")
-            served[i, k * chunk:(k + 1) * chunk] = got
-    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        for k in range(n_ticks):
+            if k == NS_WARM:
+                torch.cuda.synchronize()
+                server.stats = ServeStats()
+                zero_counters(counters)
+                if by_option:
+                    by_option[0].LAUNCHES_BY_OPTION.clear()
+                plain.calls = 0
+            for i, sid in enumerate(sids):
+                server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+            if server.tick() != n_slots:
+                raise AssertionError(f"tick {k}: not every slot served")
+            for i, sid in enumerate(sids):
+                got = server.hub.pop_output(sid, chunk)
+                if len(got) != chunk or not np.isfinite(got).all():
+                    raise AssertionError(f"tick {k} slot {sid}: bad output")
+                served[i, k * chunk:(k + 1) * chunk] = got
+        torch.cuda.synchronize()
     launches = counter_values(counters)
     names = ", ".join(n for n, _, _ in counters)
     expect_launches(launches, tuple(NS_TICKS * w for w in per_tick),
                     f"{zoo_name} serving {n_slots} slots, ({names})")
+    expect_launches(plain.calls, 0, f"{zoo_name} serving, plain versions")
+    if by_option:
+        expect_launches(dict(by_option[0].LAUNCHES_BY_OPTION), {by_option[1]: NS_TICKS},
+                        f"{zoo_name} serving {n_slots} slots, launches by option")
     stats = server.stats.snapshot()
     if stats["underrun_slot_ticks"] != 0:
         raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
@@ -1076,7 +1501,7 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
         for k in range(NS_WARM + 10):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            _, state = engine.step(x, state, **step_kw)
+            _, state = engine.step(x, state, **step_kw, **options)
             torch.cuda.synchronize()
             if k >= NS_WARM:
                 step_ms.append(1e3 * (time.perf_counter() - t1))
@@ -1091,15 +1516,188 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
         raise AssertionError(f"{zoo_name} bf16 serving vs f32: SNR {half_snr:.1f} dB < "
                              f"{bar_db:g}")
     opts = ", ".join(f"{k}=True" for k in mode)
+    if options:
+        opts += "; its step_fn bound to " + ", ".join(f"{k}=True" for k in options)
     log(phase, f"{zoo_name}, make_session_server(half=True, {opts}), {n_slots} sessions, "
         f"{NS_TICKS} ticks of {chunk} samples after {NS_WARM} warm-up: every output "
         f"finite, launches ({names}) {launches}, 0 underruns; tick p50 "
         f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; engine step "
         f"alone p50 {float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); bf16 slot 0 "
-        f"vs the f32 engine SNR {half_snr:.1f} dB (bar {bar_db:g}) [{card}]", t)
+        f"vs the f32 engine SNR {half_snr:.1f} dB (bar {bar_db:g}); plain-version calls "
+        f"{plain.calls} [{card}]", t)
     return {"launches": launches, "tick_p50": stats["tick_ms_p50"],
             "tick_p99": stats["tick_ms_p99"], "step_p50": float(np.median(step_ms)),
             "snr": half_snr}
+
+
+# ------------------------------------------------------------ phases 4e, 4f
+TSE_Q_SLOTS = 1024                  # phase 4e: the JAX bench's int8 probes' serving point
+TRANSPORT_SLOTS = 256               # phase 4f
+Q_BARS = {"int8_hh": 20.0, "int8_full": 15.0}   # JAX's bars (tests/test_pallas_kernels.py)
+
+
+@torch.no_grad()
+def tse_quant_serving(ops, model, option, n_slots, dev, card):
+    """Phase 4e: the flagship through make_session_server(half=True,
+    fused=True) at n_slots with its step_fn bound to `option`=True: the
+    engine step alone (as bench.py's int8 probes time it), then NS_WARM +
+    NS_TICKS server ticks: exact launches (every one with the option, no
+    plain version), every output finite, 0 underruns, tick p50/p99, and
+    slot 0 against the f32 engine on the same audio (JAX's bar for the
+    option)."""
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+    from puresound_tpu_torch.streaming.engine import StreamingTSE
+    from puresound_tpu_torch.streaming.server import ServeStats
+
+    t = time.perf_counter()
+    bf = torch.bfloat16
+    engine32 = StreamingTSE.from_offline(model).eval()
+    bundle = make_session_server(model, None, n_slots=n_slots, chunk_ms=15.0, half=True,
+                                 fused=True, lockstep=True, enroll_len=16000)
+    server, engine, chunk = bundle.server, bundle.engine, bundle.chunk_samples
+    server.step_fn = functools.partial(server.step_fn, **{option: True})
+    n_ticks = NS_WARM + NS_TICKS
+    rng = np.random.default_rng(SEED)
+    enrolls = (0.1 * rng.standard_normal((n_slots, 16000))).astype(np.float32)
+    feed = (0.1 * rng.standard_normal((n_slots, chunk * n_ticks))).astype(np.float32)
+    dvecs = torch.cat([engine32.embed(torch.from_numpy(enrolls[i:i + 256]).to(dev))
+                       for i in range(0, n_slots, 256)])
+    # the engine step alone
+    x = torch.from_numpy(feed[:, :chunk]).to(dev, bf)
+    state = engine.init_state(n_slots, bf)
+    step_ms = []
+    for k in range(NS_WARM + NS_TICKS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, state = engine.step(x, dvecs.to(bf), state, fused=True, dot_dtype=bf,
+                               **{option: True})
+        torch.cuda.synchronize()
+        if k >= NS_WARM:
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+    # the server
+    dv = dvecs.float().cpu().numpy()
+    sids = [server.attach(dvec=dv[i]) for i in range(n_slots)]
+    served = np.zeros_like(feed)
+    with PlainCalls() as plain:
+        for k in range(n_ticks):
+            if k == NS_WARM:
+                torch.cuda.synchronize()
+                server.stats = ServeStats()
+                ops.LAUNCHES = 0
+                ops.LAUNCHES_BY_OPTION.clear()
+                plain.calls = 0
+            for i, sid in enumerate(sids):
+                server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+            if server.tick() != n_slots:
+                raise AssertionError(f"tick {k}: not every slot served")
+            for i, sid in enumerate(sids):
+                got = server.hub.pop_output(sid, chunk)
+                if len(got) != chunk or not np.isfinite(got).all():
+                    raise AssertionError(f"tick {k} slot {sid}: bad output")
+                served[i, k * chunk:(k + 1) * chunk] = got
+        torch.cuda.synchronize()
+    launches = ops.LAUNCHES
+    expect_launches(launches, NS_TICKS, f"flagship {option} serving, fused_skim_frames")
+    expect_launches(dict(ops.LAUNCHES_BY_OPTION), {option: NS_TICKS},
+                    f"flagship {option} serving, launches by option")
+    expect_launches(plain.calls, 0, f"flagship {option} serving, plain versions")
+    stats = server.stats.snapshot()
+    if stats["underrun_slot_ticks"] != 0:
+        raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
+    st = engine32.init_state(1)
+    ref = []
+    for k in range(n_ticks):
+        y, st = engine32.step(torch.from_numpy(feed[:1, k * chunk:(k + 1) * chunk]).to(dev),
+                              dvecs[:1], st, fused=True)
+        ref.append(y)
+    snr = snr_db(torch.from_numpy(served[0]), torch.cat(ref, -1)[0].cpu())
+    bar = Q_BARS[option]
+    if snr < bar:
+        raise AssertionError(f"flagship {option} bf16 serving vs f32: SNR {snr:.1f} dB < {bar:g}")
+    log("4e tse quantized", f"tse_skim_v0_causal, make_session_server(half=True, fused=True) "
+        f"with its step_fn bound to {option}=True, {n_slots} streams: engine step alone p50 "
+        f"{float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}, {NS_TICKS} synced "
+        f"steps); {NS_TICKS} server ticks of {chunk} samples after {NS_WARM} warm-up: every "
+        f"output finite, fused_skim_frames launches {launches} (all {option}), plain-version "
+        f"calls {plain.calls}, 0 underruns; tick p50 {stats['tick_ms_p50']:.3f} ms, p99 "
+        f"{stats['tick_ms_p99']:.3f} ms; slot 0 vs the f32 engine SNR {snr:.1f} dB (bar "
+        f"{bar:g}) [{card}]", t)
+    return {"launches": launches, "tick_p50": stats["tick_ms_p50"],
+            "tick_p99": stats["tick_ms_p99"], "step_p50": float(np.median(step_ms)),
+            "snr": snr}
+
+
+@torch.no_grad()
+def transport_phase(ops, model, n_slots, dev, card):
+    """Phase 4f: the flagship through make_session_server(half=True,
+    fused=True) at n_slots with the float32 transport, with pcm16=True, and
+    with pipelined=True + pcm16=True, NS_WARM + NS_TICKS ticks each on the
+    same audio: the pipelined outputs bit-equal to the unpipelined pcm16
+    ones (one tick later; flush() at the end), pcm16 against the float32
+    transport by SNR, the three tick p50 / p99, and the sustained rate: the
+    host clock over the whole timed window (every push, tick and pop, then
+    a device sync) per tick, so that a tick which returns before its own
+    step has run gains nothing it has not earned."""
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+    from puresound_tpu_torch.streaming.server import ServeStats
+
+    t = time.perf_counter()
+    n_ticks = NS_WARM + NS_TICKS
+    rng = np.random.default_rng(SEED + 1)
+    enrolls = (0.1 * rng.standard_normal((n_slots, 16000))).astype(np.float32)
+    configs = (("float32", {}), ("pcm16", {"pcm16": True}),
+               ("pipelined+pcm16", {"pipelined": True, "pcm16": True}))
+    out, feed, dvecs = {}, None, None
+    for label, kw in configs:
+        bundle = make_session_server(model, None, n_slots=n_slots, chunk_ms=15.0, half=True,
+                                     fused=True, lockstep=True, enroll_len=16000, **kw)
+        server, chunk = bundle.server, bundle.chunk_samples
+        if feed is None:
+            feed = (0.1 * rng.standard_normal((n_slots, chunk * n_ticks))).astype(np.float32)
+            dvecs = bundle.embed_fn(enrolls).float().cpu().numpy()
+        sids = [server.attach(dvec=dvecs[i]) for i in range(n_slots)]
+        served = [[] for _ in range(n_slots)]
+        for k in range(n_ticks):
+            if k == NS_WARM:
+                torch.cuda.synchronize()
+                server.stats = ServeStats()
+                ops.LAUNCHES = 0
+                t_win = time.perf_counter()
+            for i, sid in enumerate(sids):
+                server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+            n_out = server.tick()
+            if n_out != (n_slots if k or not kw.get("pipelined") else 0):
+                raise AssertionError(f"{label} tick {k}: {n_out} outputs")
+            for i, sid in enumerate(sids):
+                served[i].append(server.hub.pop_output(sid, chunk))
+        torch.cuda.synchronize()
+        window_ms = 1e3 * (time.perf_counter() - t_win) / NS_TICKS
+        launches = ops.LAUNCHES
+        expect_launches(launches, NS_TICKS, f"{label} serving, fused_skim_frames")
+        if kw.get("pipelined") and server.flush() != n_slots:
+            raise AssertionError("flush() did not scatter the last tick")
+        for i, sid in enumerate(sids):
+            served[i].append(server.hub.pop_output(sid, chunk))
+        served = np.stack([np.concatenate(s) for s in served])
+        if served.shape[1] != chunk * n_ticks or not np.isfinite(served).all():
+            raise AssertionError(f"{label}: {served.shape} outputs, or non-finite")
+        out[label] = (served, server.stats.snapshot(), launches, window_ms)
+    pcm, piped = out["pcm16"][0], out["pipelined+pcm16"][0]
+    if not np.array_equal(pcm, piped):
+        raise AssertionError(f"pipelined outputs differ from unpipelined: max|d| "
+                             f"{np.abs(pcm - piped).max():.3e}")
+    snr = snr_db(torch.from_numpy(pcm), torch.from_numpy(out["float32"][0]))
+    log("4f transport", f"tse_skim_v0_causal, make_session_server(half=True, fused=True) at "
+        f"{n_slots} sessions, {NS_TICKS} ticks after {NS_WARM} warm-up each: " + "; ".join(
+            f"{label} tick p50 {st['tick_ms_p50']:.3f} ms, p99 {st['tick_ms_p99']:.3f} ms, "
+            f"window {w:.3f} ms per tick ({n_slots * chunk / 16.0 / w:.1f} x real time, "
+            f"{chunk / 16.0:g} ms of audio a slot and tick), launches {n}"
+            for label, (_, st, n, w) in out.items())
+        + f"; pipelined + pcm16 outputs bit-equal to unpipelined pcm16 ({pcm.size:,} "
+        f"samples); pcm16 vs float32 transport SNR {snr:.1f} dB [{card}]", t)
+    return {label: {"tick_p50": st["tick_ms_p50"], "tick_p99": st["tick_ms_p99"],
+                    "window_ms_per_tick": w, "launches": n}
+            for label, (_, st, n, w) in out.items()} | {"pcm16_snr": snr}
 
 
 # ------------------------------------------------------------ phases 5-6
@@ -1570,6 +2168,13 @@ def run(dev: torch.device) -> int:
                 f"{r[f'{lb}_stock_ms']:.3f}, bound {r[f'{lb}_bound'][0]:.3f} "
                 f"({r[f'{lb}_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
 
+    # ------------------------- 2h. the int8 and bf16-scratch kernel variants
+    dp2048 = dp_results["2048 streams"]
+    base = {"fused_skim_frames": (results[0]["f32_ms"], results[0]["bf16_ms"]),
+            "dual_path_chunk": (dp2048["f32_ms"], dp2048["bf16_ms"]),
+            **{n: (r["f32_ms"], r["bf16_ms"]) for n, r in center_results.items()}}
+    quant_results = quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base)
+
     # ------------------------------------------------------- 3. flagship
     t = time.perf_counter()
     gen = torch.Generator().manual_seed(SEED)
@@ -1672,6 +2277,15 @@ def run(dev: torch.device) -> int:
         f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; "
         f"bf16 slot 0 vs f32 engine SNR {half_snr:.1f} dB [{card}]", t)
 
+    # ------------------------------------- 4e. quantized flagship serving
+    tse_q = {opt: tse_quant_serving(ops, model, opt, TSE_Q_SLOTS, dev, card)
+             for opt in ("int8_hh", "int8_full")}
+    # ------------------------------- 4f. pipelined and pcm16 flagship serving
+    transport = transport_phase(ops, model, TRANSPORT_SLOTS, dev, card)
+    log("4f transport", f"phase 4 (the same server, float32 transport, unpipelined, no "
+        f"warm-up ticks) read tick p50 {stats['tick_ms_p50']:.3f} ms, p99 "
+        f"{stats['tick_ms_p99']:.3f} at {n_slots} sessions [{card}]", time.perf_counter())
+
     # ------------------------------------- 3b, 4b. NS: ns_dpcrn_v0_causal
     counters = [("lstm_scan_train_fp", lk, "FWD_LAUNCHES"), ("lstm_scan", lsk, "LAUNCHES"),
                 ("dual_path_chunk", dpk, "LAUNCHES"), ("center_chunk", mkk, "LAUNCHES")]
@@ -1692,6 +2306,17 @@ def run(dev: torch.device) -> int:
         + "; ".join(f"{n} slots {ns_serve[n]['tick_p50']:.3f} / {ns_serve[n]['step_p50']:.3f} "
                     f"against {mk_serve[n]['tick_p50']:.3f} / {mk_serve[n]['step_p50']:.3f}"
                     for n in NS_SLOTS) + f" [{card}]", time.perf_counter())
+    # ------------------- 4g. DPCRN serving with the int8 and bf16-scratch options
+    ns_q = {}
+    for route, opt, bar, per_tick, mod in (
+            ("dp_kernel", "int8_hh", 20.0, (0, 0, 1, 0), dpk),
+            ("mk_kernel", "int8_hh", 30.0, (0, 0, 0, 1), mkk),
+            ("dp_kernel", "xscr_half", 35.0, (0, 0, 1, 0), dpk),
+            ("mk_kernel", "xscr_half", 35.0, (0, 0, 0, 1), mkk),
+            ("dp_kernel", "int8_hh+xscr_half", 20.0, (0, 0, 1, 0), dpk)):
+        ns_q[(route, opt)] = ns_serving(
+            ns, "ns_dpcrn_v0_causal", {route: True}, counters, per_tick, bar, NS_SLOTS[-1],
+            dev, card, "4g ns quantized", options=opts_of(opt), by_option=(mod, opt))
     del ns
 
     # ------------------------------------- 3c, 4c. NS: ns_dparn_v0_causal
@@ -1708,6 +2333,10 @@ def run(dev: torch.device) -> int:
                                  (0, 2, 2, 0), 25.0, n, dev, card, "4c dparn serving")
                    for n in DPARN_SLOTS}
     dparn_routes = dparn["routes"]
+    # -------------------------- 4h. DPARN wide-center serving with xscr_half
+    dparn_q = ns_serving(dparn, "ns_dparn_v0_causal", {"mk_kernel": True}, counters,
+                         (0, 0, 0, 1), 25.0, DPARN_SLOTS[-1], dev, card, "4h dparn xscr_half",
+                         options={"xscr_half": True}, by_option=(mkk, "xscr_half"))
     del dparn
 
     # ----------------------------------------------- 5. card vs CPU step
@@ -1826,6 +2455,37 @@ def run(dev: torch.device) -> int:
             "bf16_ms": r["bf16_ms"], "bf16_plain_ms": r["bf16_plain_ms"],
             "bf16_bound_ms": r["bf16_bound"][0], "bf16_stock_ms": r["bf16_stock_ms"],
             "bf16_snr_db": r["bf16_snr_db"], "shape": r["shape"]})
+    q_launches = {
+        "fused_skim_frames int8_hh": tse_q["int8_hh"]["launches"],
+        "fused_skim_frames int8_full": tse_q["int8_full"]["launches"],
+        "dual_path_chunk int8_hh": ns_q[("dp_kernel", "int8_hh")]["launches"][2],
+        "dual_path_chunk xscr_half": ns_q[("dp_kernel", "xscr_half")]["launches"][2],
+        "dual_path_chunk int8_hh+xscr_half":
+            ns_q[("dp_kernel", "int8_hh+xscr_half")]["launches"][2],
+        "center_chunk int8_hh": ns_q[("mk_kernel", "int8_hh")]["launches"][3],
+        "center_chunk xscr_half": ns_q[("mk_kernel", "xscr_half")]["launches"][3],
+        "dparn_center_chunk xscr_half": dparn_q["launches"][3]}
+    where = {"fused_skim_frames": (SOURCE, REPLACES), "dual_path_chunk": (DP_SOURCE, DP_REPLACES),
+             "center_chunk": (CENTER_SOURCE, CENTER_REPLACES["center_chunk"]),
+             "dparn_center_chunk": (CENTER_SOURCE, CENTER_REPLACES["dparn_center_chunk"])}
+    for name, r in quant_results.items():
+        kernel = name.split()[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": where[kernel][0],
+            "replaces": where[kernel][1], "launches": q_launches[name],
+            "max_abs_err": r["f32_max_abs_err"], "ms": r["f32_ms"],
+            "plain_ms": r["f32_plain_ms"], "bound_ms": r["f32_bound"][0],
+            "bound_by": r["f32_bound"][1], "library_ms": None,
+            "int8_peak": ("CUDA cores (__dp4a), int8_core_ops measured by phase 2h's "
+                          "dp4a loop" if "int8" in name else None),
+            "int8_core_ops": INT8_CORE_OPS if "int8" in name else None,
+            "without_option_ms": base[kernel][0], "snr_db": r["f32_snr_db"],
+            "snr_bar_db": r["f32_bar_db"], "control_snr_db": r["f32_control_snr_db"],
+            "floor_snr_db": r["f32_floor_snr_db"],
+            "bf16_ms": r["bf16_ms"], "bf16_plain_ms": r["bf16_plain_ms"],
+            "bf16_bound_ms": r["bf16_bound"][0], "bf16_without_option_ms": base[kernel][1],
+            "bf16_snr_db": r["bf16_snr_db"], "bf16_control_snr_db": r["bf16_control_snr_db"],
+            "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ What is ported (the serving and training slices of the flagship
     ops.tcn_train_kernel               — the TCN block, forward and backward (CUDA, sm_90a)
     ops.lstm_scan_kernel               — the serving LSTM scan (CUDA, sm_90a)
     ops.dual_path_kernel               — DPCRN's dual-path bottleneck (CUDA, sm_90a)
+    ops.quant                          — the int8 serving quantizer and plain int8 products
     parallel                           — TrainState, adam, make_train_step
     src                                — AudioIO, load_hparam, the C++ host library
     tasks                              — DataLoader, TseDataset, TseTask (the trainer)

@@ -45,17 +45,27 @@
 // (down to 8) while the CTAs would not cover the SMs once, so a small
 // batch spreads its serial chains over more SMs. The projection weights
 // stream from L1/L2. Tensor cores (mma / wgmma) and TMA are later work.
+//
+// int8_hh (JAX's dot_hh): each w_hh comes as int8 x4 words [H/4][4H] with
+// its scales / 127^2; h is quantized (clip(rint(h * 127), +-127)) as it is
+// written to shared memory, where it stays int8 (a quarter of the bytes),
+// and the recurrent product runs as __dp4a on the CUDA cores, its weight
+// tiles staged like the float ones (lstm_gates.cuh gate_dot_q). xscr_half:
+// the scratch x_scr is bfloat16, x is first copied into it rounded, and
+// every write to it (the intra residual, each inter step) rounds; the last
+// block's y carries the same rounding.
 #include "dual_path_passes.cuh"
 
 using namespace dual_path_passes;
 
 extern "C" int dual_path_chunk(const void* x, const void* const* h_in, const void* const* c_in,
-                               const void* const* weights, void* y, void* const* h_out,
-                               void* const* c_out, void* x_scr, void* y_dir, int n, int F,
-                               int K, int B, int CH, int H, int x_bf16, int s_bf16,
-                               int w_bf16, int dot_bf16, void* stream) {
-  Chunk q{x, h_in, c_in, weights, y, h_out, c_out, static_cast<float*>(x_scr),
-          static_cast<float*>(y_dir), n, F, K, B, CH, H, x_bf16, s_bf16};
+                               const void* const* weights, const void* const* s_hh, void* y,
+                               void* const* h_out, void* const* c_out, void* x_scr,
+                               void* y_dir, int n, int F, int K, int B, int CH, int H,
+                               int x_bf16, int s_bf16, int w_bf16, int dot_bf16,
+                               int xscr_half, void* stream) {
+  Chunk q{x, h_in, c_in, weights, s_hh, y, h_out, c_out, x_scr,
+          static_cast<float*>(y_dir), n, F, K, B, CH, H, x_bf16, s_bf16, x_bf16, xscr_half};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (w_bf16)

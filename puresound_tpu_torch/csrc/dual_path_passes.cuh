@@ -62,8 +62,9 @@ __device__ __forceinline__ void proj_dot(float (&acc)[RB], const float* in_s, in
 struct IntraParams {
   const void* x;       // [F, R, CH] (x's dtype for the first block, else x_scr)
   const void* w_ih[2]; // [CH, 4H] forward / backward
-  const void* w_hh[2]; // [H, 4H]
+  const void* w_hh[2]; // [H, 4H], or int8 x4 words [H/4][4H] under int8_hh
   const void* bias[2]; // [4H]
+  const float* s_hh[2];// int8_hh: w_hh's scales / 127^2 [4H]; nullptr: float w_hh
   float* y_dir;        // [2, F, R, H]
   int x_bf16, F, R, CH, H, RG, KT;
 };
@@ -79,6 +80,10 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_intra_kernel(IntraParams p) {
   WT* w_s = reinterpret_cast<WT*>(smem_raw);                       // [2][KT][4H]
   float* x_s = reinterpret_cast<float*>(w_s + 2 * p.KT * 4 * H);   // [CH][BTP]
   float* h_s = x_s + CH * BTP;                                      // [2][H][BTP]
+  // int8_hh: h lives only as its quantized words, [2][H/4][BTP] in h_s's bytes
+  int* hq_s = reinterpret_cast<int*>(h_s);
+  const float* s_hh = p.s_hh[dir];
+  const int HQ = H / 4 * BTP;
   const WT* w_ih = static_cast<const WT*>(p.w_ih[dir]);
   const WT* w_hh = static_cast<const WT*>(p.w_hh[dir]);
   const WT* bias = static_cast<const WT*>(p.bias[dir]);
@@ -106,7 +111,11 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_intra_kernel(IntraParams p) {
       for (int r = 0; r < RB; ++r) acc[q][r] = 0.f;
     // x_s's stores are published by gate_dot's first barrier
     gate_dot<WT, DB>(acc, x_s, BTP, col, w_ih, CH, H, j, live, w_s, p.KT);
-    gate_dot<WT, DB>(acc, h_s + cur * H * BTP, BTP, col, w_hh, H, H, j, live, w_s, p.KT);
+    if (s_hh)
+      gate_dot_q(acc, hq_s + cur * HQ, BTP, col, reinterpret_cast<const int*>(w_hh), H / 4,
+                 H, j, live, reinterpret_cast<int*>(w_s), tile_rows_q<WT>(p.KT), s_hh);
+    else
+      gate_dot<WT, DB>(acc, h_s + cur * H * BTP, BTP, col, w_hh, H, H, j, live, w_s, p.KT);
     if (live) {
       const float b0 = ldw(bias, j), b1 = ldw(bias, H + j);
       const float b2 = ldw(bias, 2 * H + j), b3 = ldw(bias, 3 * H + j);
@@ -117,8 +126,12 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_intra_kernel(IntraParams p) {
         const float ig = sigm(acc[0][r] + b0), fg = sigm(acc[1][r] + b1);
         const float gg = tanhf(acc[2][r] + b2), og = sigm(acc[3][r] + b3);
         c[r] = fg * c[r] + ig * gg;
-        const float hv = rnd<DB>(og * tanhf(c[r]));
-        hn[j * BTP + r] = hv;
+        const float h = og * tanhf(c[r]);
+        const float hv = rnd<DB>(h);
+        if (s_hh)
+          put_q(hq_s + (cur ^ 1) * HQ, BTP, j, col + r, quant_h(h));
+        else
+          hn[j * BTP + r] = hv;
         if (row < R) y[((long)f * R + row) * H + j] = hv;
       }
     }
@@ -131,9 +144,9 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_intra_kernel(IntraParams p) {
 struct ProjParams {
   const float* y_dir;  // [2, NR, H]
   const void* res;     // [NR, CH] residual source
-  float* out;          // [NR, CH] x_scr
+  void* out;           // [NR, CH] x_scr (float32, or bfloat16 under xscr_half)
   const void *pw_f, *pw_b, *pb, *g, *b;
-  int res_bf16, NR, CH, H, RG;
+  int res_bf16, out_bf16, NR, CH, H, RG;
 };
 
 template <typename WT, bool DB>
@@ -175,19 +188,20 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_proj_kernel(ProjParams p) {
     const long row = row0 + r;
     if (row < NR) {
       const float t = (t_s[r * (CH + 1) + c] - mean_s[r]) * rstd_s[r] * ldw(g, c) + ldw(b, c);
-      p.out[row * CH + c] = ld(p.res, row * CH + c, p.res_bf16) + t;
+      st(p.out, row * CH + c, ld(p.res, row * CH + c, p.res_bf16) + t, p.out_bf16);
     }
   }
 }
 
 // ----------------------------------- C. inter scan + projection + LN + residual
 struct InterParams {
-  float* x;            // x_scr [F, K, B, CH]
-  void* y;             // [F, K, B, CH] output (x's dtype), written by the last block
+  void* x;             // x_scr [F, K, B, CH] (float32, or bfloat16: xs_bf16)
+  void* y;             // [F, K, B, CH] output, written by the last block
   const void *h_in, *c_in;
   void *h_out, *c_out; // [F, B, H] (state dtype)
   const void *w_ih, *w_hh, *bias, *pw, *pb, *g, *b;
-  int last, y_bf16, s_bf16, F, K, B, CH, H, RG, KT;
+  const float* s_hh;   // int8_hh: w_hh (int8 x4 words) scales / 127^2; else nullptr
+  int last, y_bf16, s_bf16, xs_bf16, F, K, B, CH, H, RG, KT;
 };
 
 template <typename WT, bool DB>
@@ -204,6 +218,8 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_inter_kernel(InterParams p) {
   float* t_s = h_s + 2 * H * BTP;                                   // [BT][CH + 1]
   float* mean_s = t_s + BT * (CH + 1);  // [BT]
   float* rstd_s = mean_s + BT;          // [BT]
+  int* hq_s = reinterpret_cast<int*>(rstd_s + BT);  // int8_hh: [2][H/4][BTP] words
+  const int HQ = H / 4 * BTP;
   const WT* w_ih = static_cast<const WT*>(p.w_ih);
   const WT* w_hh = static_cast<const WT*>(p.w_hh);
   const WT* bias = static_cast<const WT*>(p.bias);
@@ -228,6 +244,7 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_inter_kernel(InterParams p) {
         c[r] = ld(p.c_in, row * H + j, p.s_bf16);
       }
       h_s[j * BTP + col + r] = rnd<DB>(h[r]);
+      if (p.s_hh) put_q(hq_s, BTP, j, col + r, quant_h(h[r]));
     }
   }
 
@@ -236,7 +253,7 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_inter_kernel(InterParams p) {
     for (int idx = tid; idx < BT * CH; idx += blockDim.x) {
       const int r = idx / CH, ch = idx % CH;
       const long row = row0 + r;
-      x_s[ch * BTP + r] = row < NR ? rnd<DB>(p.x[xi(row, k, ch)]) : 0.f;
+      x_s[ch * BTP + r] = row < NR ? rnd<DB>(ld(p.x, xi(row, k, ch), p.xs_bf16)) : 0.f;
     }
     float acc[4][RB];
 #pragma unroll
@@ -245,7 +262,11 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_inter_kernel(InterParams p) {
       for (int r = 0; r < RB; ++r) acc[q][r] = 0.f;
     // x_s's (and the first h_s's) stores are published by gate_dot's barrier
     gate_dot<WT, DB>(acc, x_s, BTP, col, w_ih, CH, H, j, live, w_s, p.KT);
-    gate_dot<WT, DB>(acc, h_s + cur * H * BTP, BTP, col, w_hh, H, H, j, live, w_s, p.KT);
+    if (p.s_hh)
+      gate_dot_q(acc, hq_s + cur * HQ, BTP, col, reinterpret_cast<const int*>(w_hh), H / 4,
+                 H, j, live, reinterpret_cast<int*>(w_s), tile_rows_q<WT>(p.KT), p.s_hh);
+    else
+      gate_dot<WT, DB>(acc, h_s + cur * H * BTP, BTP, col, w_hh, H, H, j, live, w_s, p.KT);
     if (live) {
       const float b0 = ldw(bias, j), b1 = ldw(bias, H + j);
       const float b2 = ldw(bias, 2 * H + j), b3 = ldw(bias, 3 * H + j);
@@ -257,6 +278,7 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_inter_kernel(InterParams p) {
         c[r] = fg * c[r] + ig * gg;
         h[r] = og * tanhf(c[r]);
         hn[j * BTP + r] = rnd<DB>(h[r]);
+        if (p.s_hh) put_q(hq_s + (cur ^ 1) * HQ, BTP, j, col + r, quant_h(h[r]));
       }
     }
     __syncthreads();
@@ -279,12 +301,13 @@ __global__ void __launch_bounds__(MAX_THREADS) dp_inter_kernel(InterParams p) {
       const long row = row0 + r;
       if (row < NR) {
         const long e = xi(row, k, ch);
-        const float v = p.x[e] + ((t_s[r * (CH + 1) + ch] - mean_s[r]) * rstd_s[r] *
-                                      ldw(lg, ch) + ldw(lb, ch));
+        float v = ld(p.x, e, p.xs_bf16) + ((t_s[r * (CH + 1) + ch] - mean_s[r]) * rstd_s[r] *
+                                               ldw(lg, ch) + ldw(lb, ch));
+        if (p.xs_bf16) v = rnd<true>(v);  // xscr_half: the scratch's rounding, y too
         if (p.last)
           st(p.y, e, v, p.y_bf16);
         else
-          p.x[e] = v;
+          st(p.x, e, v, p.xs_bf16);
       }
     }
     cur ^= 1;
@@ -313,16 +336,35 @@ struct Chunk {
   const void* x;
   const void* const* h_in;
   const void* const* c_in;
-  const void* const* w;  // PER_BLOCK per block
+  const void* const* w;     // PER_BLOCK per block (each w_hh int8 x4 words under int8_hh)
+  const void* const* s_hh;  // int8_hh: 3 per block (intra f, b, inter), scale / 127^2; else nullptr
   void* y;
   void* const* h_out;
   void* const* c_out;
-  float* x_scr;
+  void* x_scr;              // float32, or bfloat16 under xscr_half (xs_bf16)
   float* y_dir;
-  int n, F, K, B, CH, H, x_bf16, s_bf16;
+  int n, F, K, B, CH, H, x_bf16, s_bf16, y_bf16, xs_bf16;
 };
 
 constexpr int PER_BLOCK = 18;
+
+// xscr_half's first copy of x into the bfloat16 scratch
+__global__ void to_half_kernel(const void* src, int src_bf16, __nv_bfloat16* dst, long n) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x)
+    dst[i] = __float2bfloat16(ld(src, i, src_bf16));
+}
+
+inline cudaError_t to_half(const void* src, int src_bf16, void* dst, long n,
+                           cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  to_half_kernel<<<blocks, 256, 0, stream>>>(src, src_bf16, static_cast<__nv_bfloat16*>(dst), n);
+  return cudaGetLastError();
+}
+
+inline const float* scale_of(const Chunk& q, int blk, int i) {
+  return q.s_hh ? static_cast<const float*>(q.s_hh[3 * blk + i]) : nullptr;
+}
 
 template <typename WT, bool DB>
 cudaError_t run(const Chunk& q, cudaStream_t stream) {
@@ -337,27 +379,36 @@ cudaError_t run(const Chunk& q, cudaStream_t stream) {
   const size_t smem_a = w_bytes + sizeof(float) * ((size_t)CH + 2 * H) * (bt_a + 4);
   const size_t smem_b = sizeof(float) * ((size_t)2 * H * (bt_b + 4) + bt_b * (CH + 1) + 2 * bt_b);
   const size_t smem_c = w_bytes + sizeof(float) * (((size_t)CH + 2 * H) * (bt_c + 4) +
-                                                   (size_t)bt_c * (CH + 1) + 2 * bt_c);
+                                                   (size_t)bt_c * (CH + 1) + 2 * bt_c) +
+                        (q.s_hh ? sizeof(int) * 2 * (size_t)(H / 4) * (bt_c + 4) : 0);
   cudaError_t err;
+  const void* x = q.x;
+  int x_bf16 = q.x_bf16;
+  if (q.xs_bf16) {  // xscr_half: every pass reads the rounded copy
+    if ((err = to_half(q.x, q.x_bf16, q.x_scr, NR * CH, stream)) != cudaSuccess) return err;
+    x = q.x_scr;
+    x_bf16 = 1;
+  }
   if ((err = allow_smem(dp_intra_kernel<WT, DB>, smem_a)) != cudaSuccess) return err;
   if ((err = allow_smem(dp_proj_kernel<WT, DB>, smem_b)) != cudaSuccess) return err;
   if ((err = allow_smem(dp_inter_kernel<WT, DB>, smem_c)) != cudaSuccess) return err;
   for (int blk = 0; blk < q.n; ++blk) {
     const void* const* w = q.w + blk * PER_BLOCK;
     const bool first = blk == 0, last = blk == q.n - 1;
-    IntraParams a{first ? q.x : q.x_scr, {w[0], w[3]}, {w[1], w[4]}, {w[2], w[5]},
-                  q.y_dir, first ? q.x_bf16 : 0, q.F, R, CH, H, rg_a, kt};
+    IntraParams a{first ? x : q.x_scr, {w[0], w[3]}, {w[1], w[4]}, {w[2], w[5]},
+                  {scale_of(q, blk, 0), scale_of(q, blk, 1)}, q.y_dir,
+                  first ? x_bf16 : q.xs_bf16, q.F, R, CH, H, rg_a, kt};
     dp_intra_kernel<WT, DB><<<dim3((R + bt_a - 1) / bt_a, 2), warps(rg_a * H), smem_a,
                               stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ProjParams b{q.y_dir, first ? q.x : q.x_scr, q.x_scr, w[6], w[7], w[8], w[9], w[10],
-                 first ? q.x_bf16 : 0, (int)NR, CH, H, rg_b};
+    ProjParams b{q.y_dir, first ? x : q.x_scr, q.x_scr, w[6], w[7], w[8], w[9], w[10],
+                 first ? x_bf16 : q.xs_bf16, q.xs_bf16, (int)NR, CH, H, rg_b};
     dp_proj_kernel<WT, DB><<<(unsigned)((NR + bt_b - 1) / bt_b), warps(rg_b * CH), smem_b,
                              stream>>>(b);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     InterParams c{q.x_scr, q.y, q.h_in[blk], q.c_in[blk], q.h_out[blk], q.c_out[blk],
-                  w[11], w[12], w[13], w[14], w[15], w[16], w[17],
-                  last, q.x_bf16, q.s_bf16, q.F, q.K, q.B, CH, H, rg_c, kt};
+                  w[11], w[12], w[13], w[14], w[15], w[16], w[17], scale_of(q, blk, 2),
+                  last, q.y_bf16, q.s_bf16, q.xs_bf16, q.F, q.K, q.B, CH, H, rg_c, kt};
     dp_inter_kernel<WT, DB><<<(unsigned)((NI + bt_c - 1) / bt_c), warps(rg_c * H), smem_c,
                               stream>>>(c);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -374,7 +425,8 @@ cudaError_t run_inter(InterParams c, cudaStream_t stream) {
   const int bt = c.RG * RB;
   const size_t smem = sizeof(WT) * 2 * (size_t)c.KT * 4 * c.H +
                       sizeof(float) * (((size_t)c.CH + 2 * c.H) * (bt + 4) +
-                                       (size_t)bt * (c.CH + 1) + 2 * bt);
+                                       (size_t)bt * (c.CH + 1) + 2 * bt) +
+                      (c.s_hh ? sizeof(int) * 2 * (size_t)(c.H / 4) * (bt + 4) : 0);
   cudaError_t err = allow_smem(dp_inter_kernel<WT, DB>, smem);
   if (err != cudaSuccess) return err;
   dp_inter_kernel<WT, DB><<<(unsigned)((NI + bt - 1) / bt), warps(c.RG * c.H), smem,

@@ -6,7 +6,10 @@
 // The weights W [K][4H] stream through shared memory in tiles of KT rows,
 // copied with cp.async and double-buffered, so the FMA loop reads only
 // shared memory while the next tile is in flight; every thread of the CTA
-// takes part in the copy and the barriers.
+// takes part in the copy and the barriers. gate_dot_q is the int8 form
+// (JAX's dot_hh): the input is h quantized to int8, 4 k a word ([K/4][BTP]
+// words), W int8 packed the same way ([K/4][4H] words), summed by __dp4a on
+// the CUDA cores in int32 (exact) and scaled once by scale / 127^2.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,13 +66,13 @@ __device__ __forceinline__ void stage_rows(WT* dst, const WT* W, int k0, int row
   for (int i = threadIdx.x; i < chunks; i += blockDim.x) cp_async16(d + 16 * i, src + 16L * i);
 }
 
-// acc[q][r] += sum_{k < n} in_s[k][col + r] * W[k][q*H + j], the weights
-// rounded to the dot dtype (DB: bfloat16). w_s holds 2 x KT x 4H weights.
-// Called by every thread of the CTA; only `live` threads accumulate.
-template <typename WT, bool DB>
-__device__ void gate_dot(float (&acc)[4][RB], const float* in_s, int BTP, int col,
-                         const WT* W, int n, int H, int j, bool live, WT* w_s, int KT) {
-  const int G = 4 * H, ntiles = (n + KT - 1) / KT;
+// The staged-tile loop: W [n][G] of T through w_s (2 x KT x G) in tiles of
+// KT rows, double-buffered; body(tile, k0, rows) runs on each staged tile
+// between the barriers. Called by every thread of the CTA.
+template <typename T, typename Body>
+__device__ __forceinline__ void staged_rows(const T* W, int n, int G, T* w_s, int KT,
+                                            Body body) {
+  const int ntiles = (n + KT - 1) / KT;
   stage_rows(w_s, W, 0, n < KT ? n : KT, G);
   cp_async_commit();
   for (int t = 0; t < ntiles; ++t) {
@@ -83,8 +86,21 @@ __device__ void gate_dot(float (&acc)[4][RB], const float* in_s, int BTP, int co
       cp_async_wait<0>();
     }
     __syncthreads();
+    body(w_s + (t & 1) * KT * G, k0, rows);
+    __syncthreads();  // the buffer is refilled two tiles on
+  }
+}
+
+// acc[q][r] += sum_{k < n} in_s[k][col + r] * W[k][q*H + j], the weights
+// rounded to the dot dtype (DB: bfloat16). w_s holds 2 x KT x 4H weights.
+// Called by every thread of the CTA; only `live` threads accumulate.
+template <typename WT, bool DB>
+__device__ void gate_dot(float (&acc)[4][RB], const float* in_s, int BTP, int col,
+                         const WT* W, int n, int H, int j, bool live, WT* w_s, int KT) {
+  const int G = 4 * H;
+  staged_rows(W, n, G, w_s, KT, [&](const WT* tile, int k0, int rows) {
     if (live) {
-      const WT* ws = w_s + (t & 1) * KT * G + j;
+      const WT* ws = tile + j;
       const float* in = in_s + k0 * BTP + col;
 #pragma unroll 4
       for (int kk = 0; kk < rows; ++kk) {
@@ -103,8 +119,61 @@ __device__ void gate_dot(float (&acc)[4][RB], const float* in_s, int BTP, int co
         }
       }
     }
-    __syncthreads();  // the buffer is refilled two tiles on
+  });
+}
+
+// clip(round(v * 127), -127, 127), round half to even (jnp.round): h in
+// (-1, 1) at the fixed scale of JAX's dot_hh
+__device__ __forceinline__ signed char quant_h(float v) {
+  return static_cast<signed char>(max(-127, min(127, __float2int_rn(v * 127.f))));
+}
+
+// The int8 form of gate_dot: acc[q][r] += scale[q*H + j] * sum_{g < ng}
+// dp4a(inq_s[g][col + r], W[g][q*H + j]), inq_s the quantized rows as int8
+// x4 words [ng][BTP], W [ng][4H] words staged through w_s (2 x KT x 4H).
+__device__ void gate_dot_q(float (&acc)[4][RB], const int* inq_s, int BTP, int col,
+                           const int* W, int ng, int H, int j, bool live, int* w_s, int KT,
+                           const float* scale) {
+  const int G = 4 * H;
+  int ia[4][RB];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int r = 0; r < RB; ++r) ia[q][r] = 0;
+  staged_rows(W, ng, G, w_s, KT, [&](const int* tile, int g0, int rows) {
+    if (live) {
+      const int* ws = tile + j;
+      const int* in = inq_s + g0 * BTP + col;
+#pragma unroll 4
+      for (int gg = 0; gg < rows; ++gg) {
+        const int w0 = ws[gg * G], w1 = ws[gg * G + H], w2 = ws[gg * G + 2 * H];
+        const int w3 = ws[gg * G + 3 * H];
+        const int4 lo = *reinterpret_cast<const int4*>(in + gg * BTP);
+        const int4 hi = *reinterpret_cast<const int4*>(in + gg * BTP + 4);
+        const int v[RB] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          ia[0][r] = __dp4a(v[r], w0, ia[0][r]);
+          ia[1][r] = __dp4a(v[r], w1, ia[1][r]);
+          ia[2][r] = __dp4a(v[r], w2, ia[2][r]);
+          ia[3][r] = __dp4a(v[r], w3, ia[3][r]);
+        }
+      }
+    }
+  });
+  if (live) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float s = scale[q * H + j];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) acc[q][r] += (float)ia[q][r] * s;
+    }
   }
+}
+
+// the byte of unit j, row r in a quantized row buffer [H/4][BTP] of int8 x4 words
+__device__ __forceinline__ void put_q(int* hq, int BTP, int j, int r, signed char v) {
+  reinterpret_cast<signed char*>(hq)[((j >> 2) * BTP + r) * 4 + (j & 3)] = v;
 }
 
 // rows of W per staged tile: up to 32, two tiles within 128 KB
@@ -112,6 +181,13 @@ template <typename WT>
 inline int tile_rows(int G) {
   const int kt = 65536 / (G * static_cast<int>(sizeof(WT)));
   return kt < 1 ? 1 : (kt > 32 ? 32 : kt);
+}
+
+// rows of int8 x4 words per staged tile in the bytes of KT rows of WT
+template <typename WT>
+__host__ __device__ inline int tile_rows_q(int KT) {
+  const int kt = KT * static_cast<int>(sizeof(WT)) / 4;
+  return kt < 1 ? 1 : kt;
 }
 
 // row groups of 8 rows per CTA: as many as fit 512 threads (at most 64),

@@ -38,6 +38,11 @@
 // the tensor cores; a small copy kernel per carry; the bottleneck's passes
 // as they are. Keeping the stages on chip across layers, and tensor cores
 // in the dual-path passes, are later work.
+//
+// int8_hh (DPCRN): the dual-path passes' int8 recurrent products (see
+// dual_path.cu). xscr_half: the bottleneck activation is a bfloat16 buffer;
+// the d4 output is copied into it rounded (the float32 d4 stays the u0 skip),
+// every residual write rounds, and u0 reads it, its carry rounded likewise.
 #include "dparn_attention.cuh"
 #include "dual_path_passes.cuh"
 
@@ -59,6 +64,7 @@ struct ConvParams {
   const void* alpha;
   void* out;            // [F, K, B, Co]
   int h_bf16, hc_bf16, s_bf16, sc_bf16, out_bf16, round_out, tconv;
+  int hc_round;         // round the h carry to bfloat16 (it enters xscr_half's scratch)
   int F, K, B, Ch, Cs, Co, TM;
   int mma;              // the products on tensor cores (bf16 dots and weights)
 };
@@ -81,7 +87,7 @@ constexpr int GB = 4;
 template <bool DB>
 __device__ void gather(float* A, int lda, const void* fr, int fr_bf16, const void* cr,
                        int cr_bf16, int C, int t, int df, long row0, int F, int K, int B,
-                       int TM, int tconv) {
+                       int TM, int tconv, int cr_round = 0) {
   const long NR = (long)F * K * B, KB = (long)K * B;
   const int n = TM * (C / 4);
   for (int base = threadIdx.x; base < n; base += GB * blockDim.x) {
@@ -95,9 +101,16 @@ __device__ void gather(float* A, int lda, const void* fr, int fr_bf16, const voi
         const int c = 4 * (idx / TM);
         const int fo = (int)(row / KB), k = (int)(row % KB / B), b = (int)(row % B);
         const int fi = tconv ? fo + 1 - df : fo - 1 + df, kf = k - 1 + t;
-        if (fi >= 0 && fi < F)
-          v[u] = kf < 0 ? ld4(cr, ((long)fi * B + b) * C + c, cr_bf16)
-                        : ld4(fr, (((long)fi * K + kf) * B + b) * C + c, fr_bf16);
+        if (fi >= 0 && fi < F) {
+          if (kf < 0) {
+            v[u] = ld4(cr, ((long)fi * B + b) * C + c, cr_bf16);
+            if (cr_round)
+              v[u] = make_float4(rnd<true>(v[u].x), rnd<true>(v[u].y), rnd<true>(v[u].z),
+                                 rnd<true>(v[u].w));
+          } else {
+            v[u] = ld4(fr, (((long)fi * K + kf) * B + b) * C + c, fr_bf16);
+          }
+        }
       }
     }
 #pragma unroll
@@ -206,7 +219,7 @@ __global__ void __launch_bounds__(THREADS) conv_kernel(ConvParams p) {
     for (int g = 0; g < NCONV; ++g) {
       gather<DB>(A, lda, part ? p.s : p.h, part ? p.s_bf16 : p.h_bf16, part ? p.sc : p.hc,
                  part ? p.sc_bf16 : p.hc_bf16, C, g / 3, g % 3, row0, p.F, p.K, p.B, TM,
-                 p.tconv);
+                 p.tconv, part ? 0 : p.hc_round);
       stage_tap<WT, DB>(W, static_cast<const WT*>(part ? p.ws[g] : p.wh[g]), C * Co);
       __syncthreads();
       if (mt < nmt) {
@@ -260,24 +273,27 @@ __global__ void last_frame_kernel(const void* src, int src_bf16, void* dst, int 
 
 struct Center {
   int kind, F, K, B, C0, C2, C3, C4, CH, Cu2, yC, H, FFD, heads;
-  int x_bf16, c_bf16, w_bf16, dot_bf16, pe_bf16;
+  int x_bf16, c_bf16, w_bf16, dot_bf16, pe_bf16, xs_bf16;
   const void* x;
   const void* pe;
   const void* const* cin;   // dc0, dc1, dc2, u0h, u0s, u1h, u2h, h1, h2, c1, c2
   void* const* cout;
   const void* const* cw;    // 66 conv weights
   const void* const* bw;    // the bottleneck's weights
+  const void* const* s_hh;  // DPCRN int8_hh: 3 scale vectors a block; else nullptr
   void* y;
   void* scr;                // d2, d3, u0, u1 outputs (the dot dtype)
-  float* f32;               // d4 output, bottleneck activation (, yf / yb)
+  float* f32;               // d4 output (, yf / yb)
+  void* xs;                 // the bottleneck activation (bfloat16 under xscr_half)
 };
 
 template <typename WT, bool DB>
 cudaError_t conv(const Center& q, const void* h, int h_bf16, const void* hc, const void* s,
                  int s_bf16, const void* sc, const void* const* wh, const void* const* ws,
                  const void* bias, const void* alpha, void* out, int out_bf16, int round_out,
-                 int tconv, int Ch, int Cs, int Co, cudaStream_t stream) {
+                 int tconv, int Ch, int Cs, int Co, cudaStream_t stream, int hc_round = 0) {
   ConvParams p{};
+  p.hc_round = hc_round;
   p.h = h;
   p.hc = hc;
   p.s = s;
@@ -342,8 +358,8 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
   void* u0 = scr + se * n * (q.C2 + q.C3);
   void* u1 = scr + se * n * (q.C2 + q.C3 + q.C4);
   float* d4 = q.f32;
-  float* xs = d4 + n * q.CH;
-  float* y_dir = xs + n * q.CH;
+  float* y_dir = d4 + n * q.CH;
+  void* xs = q.xs;
   const void* const* cw = q.cw;
   const void* const* cin = q.cin;
   void* const* cout = q.cout;
@@ -363,15 +379,21 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
   CHECK(last_frame<DB>(q, d4, 0, cout[4], q.CH, 1, stream));
   // ------------------------------------------------ the bottleneck
   if (q.kind == 0) {
-    dual_path_passes::Chunk c{d4, cin + 7, cin + 9, q.bw, xs, cout + 7, cout + 9, xs, y_dir,
-                              2, q.F, q.K, q.B, q.CH, q.H, 0, q.c_bf16};
+    dual_path_passes::Chunk c{d4, cin + 7, cin + 9, q.bw, q.s_hh, xs, cout + 7, cout + 9,
+                              xs, y_dir, 2, q.F, q.K, q.B, q.CH, q.H, 0, q.c_bf16,
+                              q.xs_bf16, q.xs_bf16};
     CHECK((dual_path_passes::run<WT, DB>(c, stream)));
   } else {
     constexpr int PER = dparn_attn::NW + 7;
+    // xscr_half: the d4 output's rounded copy is the first block's input
+    if (q.xs_bf16) CHECK(dual_path_passes::to_half(d4, 0, xs, n * q.CH, stream));
+    const void* src = q.xs_bf16 ? xs : static_cast<const void*>(d4);
     for (int blk = 0; blk < 2; ++blk) {
       const void* const* w = q.bw + PER * blk;
       dparn_attn::AttnParams a{};
-      a.x = blk ? static_cast<const void*>(xs) : d4;
+      a.x = blk ? xs : src;
+      a.x_bf16 = q.xs_bf16;
+      a.y_bf16 = q.xs_bf16;
       a.pe = q.pe;
       for (int i = 0; i < dparn_attn::NW; ++i) a.w[i] = w[i];
       a.y = xs;
@@ -388,15 +410,15 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
       const void* const* iw = w + dparn_attn::NW;
       dual_path_passes::InterParams ip{xs, xs, cin[7 + blk], cin[9 + blk], cout[7 + blk],
                                        cout[9 + blk], iw[0], iw[1], iw[2], iw[3], iw[4],
-                                       iw[5], iw[6], 0, 0, q.c_bf16, q.F, q.K, q.B, q.CH,
-                                       q.H, 0, 0};
+                                       iw[5], iw[6], nullptr, 0, q.xs_bf16, q.c_bf16,
+                                       q.xs_bf16, q.F, q.K, q.B, q.CH, q.H, 0, 0};
       CHECK((dual_path_passes::run_inter<WT, DB>(ip, stream)));
     }
   }
-  CHECK(last_frame<DB>(q, xs, 0, cout[3], q.CH, 0, stream));
+  CHECK(last_frame<DB>(q, xs, q.xs_bf16, cout[3], q.CH, 0, stream));
   // ------------------------------------------------ up: u0, u1, u2
-  CHECK((conv<WT, DB>(q, xs, 0, cin[3], d4, 0, cin[4], cw + 24, cw + 30, cw[36], cw[37], u0,
-                      sb, 1, 1, q.CH, q.CH, q.C4, stream)));
+  CHECK((conv<WT, DB>(q, xs, q.xs_bf16, cin[3], d4, 0, cin[4], cw + 24, cw + 30, cw[36],
+                      cw[37], u0, sb, 1, 1, q.CH, q.CH, q.C4, stream, q.xs_bf16)));
   CHECK(last_frame<DB>(q, u0, sb, cout[5], q.C4, 0, stream));
   CHECK((conv<WT, DB>(q, u0, sb, cin[5], d3, sb, cin[2], cw + 38, cw + 44, cw[50], cw[51], u1,
                       sb, 1, 1, q.C4, q.C3, q.Cu2, stream)));
@@ -410,16 +432,17 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
 }  // namespace
 
 // geo: kind (0 DPCRN, 1 DPARN), F, K, B, C0, C2, C3, C4, CH, Cu2, yC, H, FFD,
-// heads, x_bf16, carries_bf16, weights_bf16, dot_bf16, pe_bf16
+// heads, x_bf16, carries_bf16, weights_bf16, dot_bf16, pe_bf16, xscr_half
 extern "C" int masker_center_chunk(const int* geo, const void* x, const void* pe,
                                    const void* const* carries_in, void* const* carries_out,
                                    const void* const* conv_weights,
-                                   const void* const* bneck_weights, void* y, void* scr,
-                                   void* f32_scr, void* stream) {
+                                   const void* const* bneck_weights,
+                                   const void* const* s_hh, void* y, void* scr,
+                                   void* f32_scr, void* xs, void* stream) {
   Center q{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6], geo[7], geo[8], geo[9],
            geo[10], geo[11], geo[12], geo[13], geo[14], geo[15], geo[16], geo[17], geo[18],
-           x, pe, carries_in, carries_out, conv_weights, bneck_weights, y, scr,
-           static_cast<float*>(f32_scr)};
+           geo[19], x, pe, carries_in, carries_out, conv_weights, bneck_weights, s_hh, y,
+           scr, static_cast<float*>(f32_scr), xs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q.w_bf16)

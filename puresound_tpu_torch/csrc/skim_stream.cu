@@ -28,6 +28,17 @@
 // leaves its owner's shared-memory slot. The tile's x and h values are
 // broadcast from shared memory. LayerNorm is one warp per stream. A ragged last
 // tile is masked. Tensor cores (wgmma) and TMA-fed weight tiles are later work.
+//
+// int8 (q_mode bit 0: int8_hh, the recurrent product; bit 1: int8_full, also
+// the FiLM dots, W_ih and the projection): JAX's dot_hh / dot_dyn. A warp per
+// stream quantizes the activation rows once per block step into shared memory
+// (clip(rint(v * 127)) for h; per-row amax, clip(rint(v / amax * 127)) for x
+// and xn), packed 4 a word along k; the quantized weights come packed the
+// same way ([K/4][N] words, w_q) with their scales already divided (w_s), so
+// thread j sums 4 products per __dp4a on the CUDA cores into int32 (exact)
+// and scales once: acc * s, or acc * (amax / 127) * s. A weight word is a
+// quarter of the float32 bytes, so L2 traffic per frame falls 4x for each
+// quantized matrix.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -47,7 +58,10 @@ struct Params {
   void* c_out;       // [n, B, H]
   const void* w_mat; // per block: wsx[C,C] wbx[C,C] w_ih[C,4H] w_hh[H,4H] proj_w[H,C]
   const float* w_vec;// per block: fg[C] fb[C] b[4H] proj_b[C] ln_g[C] ln_b[C]
-  int B, F, C, H, n_blocks, film_mask, x_bf16, s_bf16;
+  const int* w_q;    // per block, int8 x4 words: wsx[C/4][C] wbx[C/4][C]
+                     // w_ih[C/4][4H] w_hh[H/4][4H] proj_w[H/4][C]
+  const float* w_s;  // per block: their column scales, divided as dequant_scale
+  int B, F, C, H, n_blocks, film_mask, x_bf16, s_bf16, q_mode;
 };
 
 __device__ __forceinline__ float ld(const void* p, long i, int bf16) {
@@ -81,6 +95,39 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// clip(round(v), -127, 127) with round half to even, as jnp.round
+__device__ __forceinline__ int q8(float v) { return max(-127, min(127, __float2int_rn(v))); }
+
+// One warp quantizes the K-vector v (K % 4 == 0) into dst[K/4] words, 4 int8
+// a word (byte e = element 4w + e). dynamic: JAX's dot_dyn, v / amax * 127
+// with amax = max|v| clipped at 1e-8, written to *amax; else dot_hh, v * 127.
+__device__ void warp_quant(const float* v, int K, int* dst, float* amax, bool dynamic) {
+  const int lane = threadIdx.x & 31;
+  float m = 1.f;
+  if (dynamic) {
+    float a = 0.f;
+    for (int k = lane; k < K; k += 32) a = fmaxf(a, fabsf(v[k]));
+    m = fmaxf(warp_max(a), 1e-8f);
+    if (lane == 0) *amax = m;
+  }
+  for (int w = lane; w < K / 4; w += 32) {
+    unsigned packed = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = v[4 * w + e];
+      const int q = q8(dynamic ? x / m * 127.f : x * 127.f);
+      packed |= (unsigned)(q & 0xff) << (8 * e);
+    }
+    dst[w] = (int)packed;
+  }
+}
+
 // Two-pass LayerNorm of one C-vector by one warp (eps 1e-5):
 // out = LN(v) * g + b, or out += that when `accumulate`.
 __device__ void warp_ln(const float* v, int C, const float* g, const float* b,
@@ -112,6 +159,11 @@ __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
   float* t0_s = xn_s + BT * C;    // [BT][C] FiLM scale dot / projection
   float* t1_s = t0_s + BT * C;    // [BT][C] FiLM bias dot
   float* hn_s = t1_s + BT * C;    // [BT][H] new h of the current block
+  const int KQ = (C > H ? C : H) / 4;
+  int* aq_s = reinterpret_cast<int*>(hn_s + BT * H);  // [BT][KQ] quantized rows
+  int* hq_s = aq_s + BT * KQ;                          // [BT][H/4] quantized h
+  float* amax_s = reinterpret_cast<float*>(hq_s + BT * H / 4);  // [BT]
+  const bool q_hh = p.q_mode & 1, q_full = p.q_mode & 2;
 
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int warp = tid >> 5, nwarps = nthr >> 5;
@@ -119,6 +171,8 @@ __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
   const int nb = min(BT, B - b0);
   const long mat_stride = 2L * C * C + (long)C * G + (long)H * G + (long)H * C;
   const int vec_stride = 2 * C + G + 3 * C;
+  const long q_stride = mat_stride / 4;  // words
+  const int s_stride = 2 * C + 2 * G + C;
 
   for (int idx = tid; idx < n * BT * H; idx += nthr) {
     const int i = idx / (BT * H), r = idx % (BT * H), b = r / H, j = r % H;
@@ -146,21 +200,42 @@ __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
       if ((p.film_mask >> i) & 1) {
         const float* fg = wv;
         const float* fb = wv + C;
-        for (int b = warp; b < BT; b += nwarps)
+        for (int b = warp; b < BT; b += nwarps) {
           warp_ln(x_s + b * C, C, fg, fb, xn_s + b * C, false);
+          if (q_full) {
+            __syncwarp();
+            warp_quant(xn_s + b * C, C, aq_s + b * KQ, amax_s + b, true);
+          }
+        }
         __syncthreads();
         // output o < C: scale column o; o >= C: bias column o - C
         for (int o = tid; o < 2 * C; o += nthr) {
           const int col = o < C ? o : o - C;
-          const TW* w = wm + (o < C ? 0 : (long)C * C);
           float acc[BT];
 #pragma unroll
           for (int b = 0; b < BT; ++b) acc[b] = 0.f;
-#pragma unroll 4
-          for (int k = 0; k < C; ++k) {
-            const float wk = wload(w, (long)k * C + col);
+          if (q_full) {
+            const int* w = p.w_q + i * q_stride + (o < C ? 0 : (long)C * C / 4);
+            const float sc = p.w_s[(long)i * s_stride + o];
+            int ia[BT];
 #pragma unroll
-            for (int b = 0; b < BT; ++b) acc[b] += rnd(xn_s[b * C + k], wm) * wk;
+            for (int b = 0; b < BT; ++b) ia[b] = 0;
+#pragma unroll 4
+            for (int g = 0; g < C / 4; ++g) {
+              const int wk = w[(long)g * C + col];
+#pragma unroll
+              for (int b = 0; b < BT; ++b) ia[b] = __dp4a(aq_s[b * KQ + g], wk, ia[b]);
+            }
+#pragma unroll
+            for (int b = 0; b < BT; ++b) acc[b] = (float)ia[b] * (amax_s[b] / 127.f) * sc;
+          } else {
+            const TW* w = wm + (o < C ? 0 : (long)C * C);
+#pragma unroll 4
+            for (int k = 0; k < C; ++k) {
+              const float wk = wload(w, (long)k * C + col);
+#pragma unroll
+              for (int b = 0; b < BT; ++b) acc[b] += rnd(xn_s[b * C + k], wm) * wk;
+            }
           }
           float* dst = o < C ? t0_s : t1_s;
 #pragma unroll
@@ -190,38 +265,103 @@ __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
       const float* lb = lg + C;
       float* hi = h_s + i * BT * H;
       float* ci = c_s + i * BT * H;
+      if (q_hh || q_full) {
+        for (int b = warp; b < BT; b += nwarps) {
+          if (q_hh) warp_quant(hi + b * H, H, hq_s + b * (H / 4), nullptr, false);
+          if (q_full) warp_quant(x_s + b * C, C, aq_s + b * KQ, amax_s + b, true);
+        }
+        __syncthreads();
+      }
+      const int* wq_ih = p.w_q + i * q_stride + (long)C * C / 2;
+      const int* wq_hh = wq_ih + (long)C * G / 4;
+      const float* s_ih = p.w_s + (long)i * s_stride + 2 * C;
+      const float* s_hh = s_ih + G;
       for (int j = tid; j < H; j += nthr) {
         float a[4][BT];
 #pragma unroll
         for (int q = 0; q < 4; ++q)
 #pragma unroll
           for (int b = 0; b < BT; ++b) a[q][b] = 0.f;
-#pragma unroll 2
-        for (int k = 0; k < C; ++k) {
-          const long row = (long)k * G + j;
-          const float w0 = wload(w_ih, row), w1 = wload(w_ih, row + H),
-                      w2 = wload(w_ih, row + 2 * H), w3 = wload(w_ih, row + 3 * H);
+        if (q_full) {
+          int ia[4][BT];
 #pragma unroll
-          for (int b = 0; b < BT; ++b) {
-            const float v = rnd(x_s[b * C + k], wm);
-            a[0][b] += v * w0;
-            a[1][b] += v * w1;
-            a[2][b] += v * w2;
-            a[3][b] += v * w3;
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int b = 0; b < BT; ++b) ia[q][b] = 0;
+#pragma unroll 2
+          for (int g = 0; g < C / 4; ++g) {
+            const int* row = wq_ih + (long)g * G + j;
+            const int w0 = row[0], w1 = row[H], w2 = row[2 * H], w3 = row[3 * H];
+#pragma unroll
+            for (int b = 0; b < BT; ++b) {
+              const int v = aq_s[b * KQ + g];
+              ia[0][b] = __dp4a(v, w0, ia[0][b]);
+              ia[1][b] = __dp4a(v, w1, ia[1][b]);
+              ia[2][b] = __dp4a(v, w2, ia[2][b]);
+              ia[3][b] = __dp4a(v, w3, ia[3][b]);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float sc = s_ih[q * H + j];
+#pragma unroll
+            for (int b = 0; b < BT; ++b) a[q][b] = (float)ia[q][b] * (amax_s[b] / 127.f) * sc;
+          }
+        } else {
+#pragma unroll 2
+          for (int k = 0; k < C; ++k) {
+            const long row = (long)k * G + j;
+            const float w0 = wload(w_ih, row), w1 = wload(w_ih, row + H),
+                        w2 = wload(w_ih, row + 2 * H), w3 = wload(w_ih, row + 3 * H);
+#pragma unroll
+            for (int b = 0; b < BT; ++b) {
+              const float v = rnd(x_s[b * C + k], wm);
+              a[0][b] += v * w0;
+              a[1][b] += v * w1;
+              a[2][b] += v * w2;
+              a[3][b] += v * w3;
+            }
           }
         }
-#pragma unroll 2
-        for (int k = 0; k < H; ++k) {
-          const long row = (long)k * G + j;
-          const float w0 = wload(w_hh, row), w1 = wload(w_hh, row + H),
-                      w2 = wload(w_hh, row + 2 * H), w3 = wload(w_hh, row + 3 * H);
+        if (q_hh) {
+          int ia[4][BT];
 #pragma unroll
-          for (int b = 0; b < BT; ++b) {
-            const float v = rnd(hi[b * H + k], wm);
-            a[0][b] += v * w0;
-            a[1][b] += v * w1;
-            a[2][b] += v * w2;
-            a[3][b] += v * w3;
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int b = 0; b < BT; ++b) ia[q][b] = 0;
+#pragma unroll 2
+          for (int g = 0; g < H / 4; ++g) {
+            const int* row = wq_hh + (long)g * G + j;
+            const int w0 = row[0], w1 = row[H], w2 = row[2 * H], w3 = row[3 * H];
+#pragma unroll
+            for (int b = 0; b < BT; ++b) {
+              const int v = hq_s[b * (H / 4) + g];
+              ia[0][b] = __dp4a(v, w0, ia[0][b]);
+              ia[1][b] = __dp4a(v, w1, ia[1][b]);
+              ia[2][b] = __dp4a(v, w2, ia[2][b]);
+              ia[3][b] = __dp4a(v, w3, ia[3][b]);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float sc = s_hh[q * H + j];
+#pragma unroll
+            for (int b = 0; b < BT; ++b) a[q][b] += (float)ia[q][b] * sc;
+          }
+        } else {
+#pragma unroll 2
+          for (int k = 0; k < H; ++k) {
+            const long row = (long)k * G + j;
+            const float w0 = wload(w_hh, row), w1 = wload(w_hh, row + H),
+                        w2 = wload(w_hh, row + 2 * H), w3 = wload(w_hh, row + 3 * H);
+#pragma unroll
+            for (int b = 0; b < BT; ++b) {
+              const float v = rnd(hi[b * H + k], wm);
+              a[0][b] += v * w0;
+              a[1][b] += v * w1;
+              a[2][b] += v * w2;
+              a[3][b] += v * w3;
+            }
           }
         }
         const float bi = bias[j], bf = bias[H + j], bg = bias[2 * H + j],
@@ -237,15 +377,36 @@ __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
       }
       __syncthreads();
       for (int idx = tid; idx < BT * H; idx += nthr) hi[idx] = hn_s[idx];
+      if (q_full) {
+        for (int b = warp; b < BT; b += nwarps)
+          warp_quant(hn_s + b * H, H, aq_s + b * KQ, nullptr, false);
+        __syncthreads();
+      }
       for (int o = tid; o < C; o += nthr) {
         float acc[BT];
 #pragma unroll
         for (int b = 0; b < BT; ++b) acc[b] = 0.f;
-#pragma unroll 4
-        for (int k = 0; k < H; ++k) {
-          const float wk = wload(pw, (long)k * C + o);
+        if (q_full) {
+          const int* w = wq_hh + (long)H * G / 4;
+          const float sc = s_hh[G + o];
+          int ia[BT];
 #pragma unroll
-          for (int b = 0; b < BT; ++b) acc[b] += rnd(hn_s[b * H + k], wm) * wk;
+          for (int b = 0; b < BT; ++b) ia[b] = 0;
+#pragma unroll 4
+          for (int g = 0; g < H / 4; ++g) {
+            const int wk = w[(long)g * C + o];
+#pragma unroll
+            for (int b = 0; b < BT; ++b) ia[b] = __dp4a(aq_s[b * KQ + g], wk, ia[b]);
+          }
+#pragma unroll
+          for (int b = 0; b < BT; ++b) acc[b] = (float)ia[b] * sc;
+        } else {
+#pragma unroll 4
+          for (int k = 0; k < H; ++k) {
+            const float wk = wload(pw, (long)k * C + o);
+#pragma unroll
+            for (int b = 0; b < BT; ++b) acc[b] += rnd(hn_s[b * H + k], wm) * wk;
+          }
         }
 #pragma unroll
         for (int b = 0; b < BT; ++b) t0_s[b * C + o] = acc[b] + pb[o];
@@ -275,8 +436,10 @@ __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
 
 template <typename TW>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
+  const int kq = (p.C > p.H ? p.C : p.H) / 4;
   const size_t smem =
-      sizeof(float) * (2L * p.n_blocks * BT * p.H + 4L * BT * p.C + (long)BT * p.H);
+      sizeof(float) * (2L * p.n_blocks * BT * p.H + 4L * BT * p.C + (long)BT * p.H) +
+      sizeof(int) * ((size_t)BT * kq + (size_t)BT * p.H / 4) + sizeof(float) * BT;
   cudaError_t err = cudaFuncSetAttribute(
       skim_frames_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -285,17 +448,46 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The __dp4a issue rate, the peak of the int8 products above: each thread
+// runs 8 independent dp4a chains `iters` times (asm volatile, so none is
+// folded away) and writes their sum. 8 dp4a a thread and iteration, each 4
+// multiply-adds.
+__global__ void dp4a_rate_kernel(int* out, int a, int b, int iters) {
+  int acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = threadIdx.x + i;
+#pragma unroll 8
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      asm volatile("dp4a.s32.s32 %0, %1, %2, %0;" : "+r"(acc[i]) : "r"(a), "r"(b + i));
+  }
+  int s = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s += acc[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
 }  // namespace
+
+// out: blocks x 256 ints; iters a multiple of 8
+extern "C" int skim_dp4a_rate(void* out, int blocks, int iters, void* stream) {
+  dp4a_rate_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(out), 0x01020304, 0x7f7f7f7f, iters);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int skim_stream_frames(const void* x, const void* se, const void* be,
                                   const void* h_in, const void* c_in, void* y,
                                   void* h_out, void* c_out, const void* w_mat,
-                                  const void* w_vec, int B, int F, int C, int H,
-                                  int n_blocks, int film_mask, int x_bf16, int s_bf16,
-                                  int w_bf16, void* stream) {
+                                  const void* w_vec, const void* w_q, const void* w_s,
+                                  int B, int F, int C, int H, int n_blocks, int film_mask,
+                                  int x_bf16, int s_bf16, int w_bf16, int q_mode,
+                                  void* stream) {
   Params p{x, se, be, h_in, c_in, y, h_out, c_out, w_mat,
-           static_cast<const float*>(w_vec), B, F, C, H, n_blocks, film_mask,
-           x_bf16, s_bf16};
+           static_cast<const float*>(w_vec), static_cast<const int*>(w_q),
+           static_cast<const float*>(w_s), B, F, C, H, n_blocks, film_mask,
+           x_bf16, s_bf16, q_mode};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       w_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);

@@ -16,9 +16,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.dual_path_kernel import NAMES as DP_NAMES
 from ..ops.dual_path_kernel import dual_path_chunk
 from ..ops.lstm_scan_kernel import lstm_scan
 from ..ops.masker_kernel import center_chunk
+from ..ops.quant import quantize_cols
 from ..utils.init import generator_or_default
 from .dual_path_streaming import DualPathStreaming
 from .lobe.norm import LayerNormLast
@@ -109,6 +111,7 @@ class DPCRN(DualPathStreaming, Unet):
         fk = dict(device=device, dtype=dtype, generator=g)
         self.dprnn_block1 = DPRNNblock2D(ch, rnn_hidden, self.dropout, **fk)
         self.dprnn_block2 = DPRNNblock2D(ch, rnn_hidden, self.dropout, **fk)
+        self._int8_cache = None    # (parameter key, the int8_hh weight list)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.spectral_compress:
@@ -118,9 +121,24 @@ class DPCRN(DualPathStreaming, Unet):
         return self._unpack_output(self._up(x, skips))
 
     # ------------------------------------------------- fused bottleneck
-    def _dp_kernel_weights(self):
+    def _dp_kernel_weights(self, int8_hh: bool = False):
         """Both blocks' weights in `dual_path_chunk`'s flat order (JAX
-        layouts: [in, out] products, the LSTM biases summed)."""
+        layouts: [in, out] products, the LSTM biases summed). int8_hh: each
+        recurrent w_hh becomes (int8 per-column weights, column scales), as
+        JAX's (puresound_tpu/nnet/dpcrn.py:140-150); that tuple is cached
+        until a parameter changes (storage or in-place version)."""
+        if int8_hh:
+            key = tuple((p.data_ptr(), p._version, p.dtype, p.device)
+                        for p in self.parameters())
+            cached = self._int8_cache
+            if cached is None or cached[0] != key:
+                with torch.no_grad():
+                    ws = []
+                    for i, w in enumerate(self._dp_kernel_weights()):
+                        hh = DP_NAMES[i % len(DP_NAMES)].startswith("w_hh")
+                        ws += list(quantize_cols(w)) if hh else [w]
+                self._int8_cache = cached = (key, ws)
+            return cached[1]
         ws = []
         for blk in (self.dprnn_block1, self.dprnn_block2):
             H = blk.hidden_size
@@ -146,7 +164,7 @@ class DPCRN(DualPathStreaming, Unet):
         dot_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
         y, h_out, c_out = dual_path_chunk(
             x.permute(2, 3, 0, 1).contiguous(), [state["h1"], state["h2"]],
-            [state["c1"], state["c2"]], self._dp_kernel_weights(), dot_dtype,
+            [state["c1"], state["c2"]], self._dp_kernel_weights(int8_hh), dot_dtype,
             int8_hh=int8_hh, xscr_half=xscr_half)
         return y.permute(2, 3, 0, 1), h_out[0], c_out[0], h_out[1], c_out[1]
 
@@ -162,6 +180,7 @@ class DPCRN(DualPathStreaming, Unet):
             x.permute(2, 3, 0, 1).contiguous(), state["dc"], state["u0h"],
             state["u0s"], state["u1h"], state["u2h"], [state["h1"], state["h2"]],
             [state["c1"], state["c2"]], self._mk_conv_weights(),
-            self._dp_kernel_weights(), dot_dtype, int8_hh=int8_hh, xscr_half=xscr_half)
+            self._dp_kernel_weights(int8_hh), dot_dtype, int8_hh=int8_hh,
+            xscr_half=xscr_half)
         return (y.permute(2, 3, 0, 1), dc, u0h, u0s, u1h, u2h,
                 h_out[0], c_out[0], h_out[1], c_out[1])

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.quant import quantize_cols
 from ..ops.skim_stream_kernel import SkimWeights, fused_skim_frames
 from ..utils.init import generator_or_default
 from .lobe.activation import PReLU
@@ -152,7 +153,7 @@ class SkiM(nn.Module):
             for _ in range(n_blocks - 1))
         self.output_fc = nn.Sequential(
             PReLU(**fk), Conv1d(input_size, output_size, 1, generator=g, **fk))
-        self._fw_cache = None
+        self._fw_cache = {}    # (int8_hh, int8_full) -> (parameter key, weights)
 
     # ---------------------------------------------------------------- utils
     def _norm_embed(self, embed):
@@ -260,37 +261,44 @@ class SkiM(nn.Module):
         return tuple("film" if self._has_film(i) else ""
                      for i in range(self.n_blocks))
 
-    def _fused_weights(self) -> SkimWeights:
-        """The kernel's weight tuple, rebuilt only when a parameter changes
-        (storage or in-place version), so the per-device packing cached on
-        it is reused across ticks."""
+    def _fused_weights(self, int8_hh: bool = False,
+                       int8_full: bool = False) -> SkimWeights:
+        """The kernel's weight tuple (JAX's `_fused_weights`,
+        puresound_tpu/nnet/skim.py:414-480): int8_hh replaces each w_hh by
+        (int8 per-column weights, column scales) from `quantize_cols`;
+        int8_full also wsx / wbx / w_ih / proj_w. Each option's tuple is
+        rebuilt only when a parameter changes (storage or in-place version),
+        so the per-device packing cached on it is reused across ticks."""
+        int8_hh = int8_hh or int8_full
         params = list(self.parameters())
         key = tuple((p.data_ptr(), p._version, p.dtype, p.device)
                     for p in params)
-        if self._fw_cache is not None and self._fw_cache[0] == key:
-            return self._fw_cache[1]
+        cached = self._fw_cache.get((int8_hh, int8_full))
+        if cached is not None and cached[0] == key:
+            return cached[1]
         C = self.input_size
         ws, embed_cols = [], []
+        q = lambda w, on: list(quantize_cols(w)) if on else [w.contiguous()]
         with torch.no_grad():
             for i, mode in enumerate(self._fusion_modes()):
                 if mode == "film":
                     film = self.seg_input_fusion[i]
                     w_s = film.cond_scale.weight[:, :, 0]   # [C, C+E]
                     w_b = film.cond_bias.weight[:, :, 0]
-                    ws += [w_s[:, :C].T.contiguous(), w_b[:, :C].T.contiguous(),
-                           film.norm.weight, film.norm.bias]
+                    ws += (q(w_s[:, :C].T, int8_full) + q(w_b[:, :C].T, int8_full)
+                           + [film.norm.weight, film.norm.bias])
                     embed_cols.append(torch.cat([w_s[:, C:], w_b[:, C:]], 0))
                 seg = self.seg_lstm[i]
-                ws += [seg.lstm.weight_ih_l0.T.contiguous(),
-                       seg.lstm.weight_hh_l0.T.contiguous(),
-                       seg.lstm.bias_ih_l0 + seg.lstm.bias_hh_l0,
-                       seg.proj.weight.T.contiguous(), seg.proj.bias,
-                       seg.norm.weight, seg.norm.bias]
+                ws += (q(seg.lstm.weight_ih_l0.T, int8_full)
+                       + q(seg.lstm.weight_hh_l0.T, int8_hh)
+                       + [seg.lstm.bias_ih_l0 + seg.lstm.bias_hh_l0]
+                       + q(seg.proj.weight.T, int8_full)
+                       + [seg.proj.bias, seg.norm.weight, seg.norm.bias])
             weights = SkimWeights(ws)
             # embed columns of every FiLM block stacked: [E, n_film * 2C]
             weights.embed_w = (torch.cat(embed_cols, 0).T.contiguous()
                                if embed_cols else None)
-        self._fw_cache = (key, weights)
+        self._fw_cache[(int8_hh, int8_full)] = (key, weights)
         return weights
 
     def _embed_terms(self, embed, B, dtype, weights: SkimWeights):
@@ -311,22 +319,24 @@ class SkiM(nn.Module):
         return se, be, ge
 
     def step_frames_fused(self, x: torch.Tensor, embed: Optional[torch.Tensor],
-                          state: dict, dot_dtype=torch.float32):
+                          state: dict, dot_dtype=torch.float32,
+                          int8_hh: bool = False, int8_full: bool = False):
         """The streaming step through `fused_skim_frames`: the CUDA kernel
         for CUDA tensors, its plain version for CPU tensors. F must divide
         seg_size, so a segment boundary only falls at a chunk's end; the
-        MemLSTM update at the boundary runs outside the kernel."""
+        MemLSTM update at the boundary runs outside the kernel. int8_hh /
+        int8_full quantize the kernel's products as JAX's do (`:526-554`)."""
         B, F, C = x.shape
         if self.seg_size % F:
             raise ValueError(f"chunk frames {F} must divide seg_size "
                              f"{self.seg_size}")
-        weights = self._fused_weights()
+        weights = self._fused_weights(int8_hh, int8_full)
         embed = self._norm_embed(embed)
         se, be, ge = self._embed_terms(embed, B, x.dtype, weights)
         y, h_out, c_out = fused_skim_frames(
             x.contiguous(), se, be, ge, torch.cat(state["seg_h"], 0),
             torch.cat(state["seg_c"], 0), weights, self._fusion_modes(),
-            dot_dtype=dot_dtype)
+            dot_dtype=dot_dtype, int8_hh=int8_hh, int8_full=int8_full)
         state = self._advance_clock(state, list(h_out.split(1)),
                                     list(c_out.split(1)), F)
         return self.output_fc(y.transpose(1, 2)), state

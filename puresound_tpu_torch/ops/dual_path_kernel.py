@@ -17,10 +17,19 @@ the carries in theirs (bf16 serving rounds h / c between chunks, as JAX
 does). Layouts and the flat weight order (18 per block, `_PER_BLOCK`
 `:52-60`) are JAX's, see `NAMES`.
 
+`int8_hh` runs the three recurrent products of a block (intra forward /
+backward, inter) as int8 x int8 -> int32 (JAX's `dot_hh`, `make_dots`
+`:63-77`): h at the fixed scale 1/127, each w_hh per output column, so a
+block's weights are 21, each w_hh followed by its [4H] scales
+(`block_names`, `_block_weights` `:80-92`). `xscr_half` stores the residual
+activation (the scratch between passes) in bfloat16 and rounds it at every
+write: the first copy of x, the intra residual add and each inter step's
+add (`:140-142`, `:165-167`, `:421-424`); the arithmetic stays float32.
+
 Dispatch: a CPU tensor runs `dual_path_chunk_ref`; a CUDA tensor launches
-`csrc/dual_path.cu` (built with nvcc at first use) or raises. `int8_hh`
-and `xscr_half` raise; JAX's `b_tile` / `sub_tiles` are TPU tilings with
-the same numbers and have no counterpart here.
+`csrc/dual_path.cu` (built with nvcc at first use) or raises. JAX's
+`b_tile` / `sub_tiles` are TPU tilings with the same numbers and have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -30,9 +39,12 @@ from typing import List, Sequence
 import torch
 
 from .lstm_scan_kernel import _rounder, lstm_cell
+from .quant import HH_DIV, dot_hh_ref, option_key, pack_int8
 
 #: kernel launches since the caller last set it to 0 (one per `_launch`)
 LAUNCHES = 0
+#: the same launches by option ("" for none; "int8_hh", "xscr_half", ...)
+LAUNCHES_BY_OPTION: dict = {}
 
 #: one block's weights in JAX's flat order: intra forward / backward LSTM
 #: ([CH, 4H], [H, 4H], [4H]), the intra projection split by direction
@@ -49,11 +61,22 @@ EPS = 1e-5
 _KDT = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _unported(int8_hh: bool, xscr_half: bool):
-    if int8_hh or xscr_half:
-        raise NotImplementedError(
-            "dual_path_chunk int8_hh / xscr_half are not ported yet (ROADMAP "
-            "queue 2 item 7)")
+def block_names(int8_hh: bool = False) -> tuple:
+    """One block's weight names in JAX's flat order: under int8_hh each
+    w_hh is followed by its column scales s_hh_<dir> (`_block_weights`)."""
+    if not int8_hh:
+        return NAMES
+    out = []
+    for name in NAMES:
+        out.append(name)
+        if name.startswith("w_hh_"):
+            out.append("s_hh_" + name[-1])
+    return tuple(out)
+
+
+def half_store(cdt):
+    """xscr_half's write: round to bfloat16, keep computing in cdt."""
+    return lambda a: a.to(torch.bfloat16).to(cdt)
 
 
 def _ln(t, scale, bias):
@@ -62,20 +85,33 @@ def _ln(t, scale, bias):
     return (t - mean) * torch.rsqrt(var + EPS) * scale + bias
 
 
-def inter_block_ref(xs, h, c, weights, rnd):
+def _hh_dot(rnd, cdt, w_hh, s_hh):
+    """h @ w_hh as the kernel takes it: rounded to the dot dtype, or JAX's
+    `dot_hh` when s_hh (the column scales of an int8 w_hh) is given."""
+    if s_hh is None:
+        w = rnd(w_hh)
+        return lambda h: rnd(h) @ w
+    wq, s = w_hh.to(cdt), (s_hh / HH_DIV).to(cdt)
+    return lambda h: dot_hh_ref(h, wq, s)
+
+
+def inter_block_ref(xs, h, c, weights, rnd, s_hh=None, store=None):
     """The inter section on xs [F, K, B, CH] in the compute dtype: an LSTM
     over the K frames from the carries h / c [F, B, H], and per frame
-    x += LN(h @ pw_i + pb_i). `weights` in INTER_NAMES order. Returns (xs',
-    h, c) in the compute dtype."""
+    x += LN(h @ pw_i + pb_i). `weights` in INTER_NAMES order; s_hh: the
+    scales of an int8 w_hh (`dot_hh`); store: the rounding of each written
+    frame (xscr_half). Returns (xs', h, c) in the compute dtype."""
     cdt = xs.dtype
+    store = store or (lambda a: a)
     w_ih, w_hh, b, pw, pb, g, beta = weights
-    w_ih, w_hh, pw = rnd(w_ih), rnd(w_hh), rnd(pw)
+    hh = _hh_dot(rnd, cdt, w_hh, s_hh)
+    w_ih, pw = rnd(w_ih), rnd(pw)
     b, pb, g, beta = (v.to(cdt) for v in (b, pb, g, beta))
     h, c = h.to(cdt), c.to(cdt)
     frames = []
     for k in range(xs.shape[1]):
-        h, c = lstm_cell(rnd(xs[:, k]) @ w_ih + rnd(h) @ w_hh + b, c)
-        frames.append(xs[:, k] + _ln(rnd(h) @ pw + pb, g, beta))
+        h, c = lstm_cell(rnd(xs[:, k]) @ w_ih + hh(h) + b, c)
+        frames.append(store(xs[:, k] + _ln(rnd(h) @ pw + pb, g, beta)))
     return torch.stack(frames, dim=1), h, c
 
 
@@ -84,34 +120,35 @@ def dual_path_chunk_ref(x, h_in: Sequence[torch.Tensor],
                         dot_dtype=torch.float32, int8_hh: bool = False,
                         xscr_half: bool = False):
     """Plain version with the kernel's cast points: (y, h_out, c_out)."""
-    _unported(int8_hh, xscr_half)
     F, K, B, CH = x.shape
     cdt, rnd = _rounder(x.dtype, dot_dtype)
-    xs = x.reshape(F, K * B, CH).to(cdt)
+    store = half_store(cdt) if xscr_half else (lambda a: a)
+    names = block_names(int8_hh)
+    per = len(names)
+    xs = store(x.reshape(F, K * B, CH).to(cdt))
     h_out: List[torch.Tensor] = []
     c_out: List[torch.Tensor] = []
     for blk in range(len(h_in)):
-        w = dict(zip(NAMES, weights[blk * PER_BLOCK:(blk + 1) * PER_BLOCK]))
-        dots = {n: rnd(w[n]) for n in ("w_ih_f", "w_hh_f", "w_ih_b", "w_hh_b",
-                                       "pw_f", "pw_b")}
+        w = dict(zip(names, weights[blk * per:(blk + 1) * per]))
+        dots = {n: rnd(w[n]) for n in ("w_ih_f", "w_ih_b", "pw_f", "pw_b")}
+        hh = {d: _hh_dot(rnd, cdt, w["w_hh_" + d], w.get("s_hh_" + d)) for d in "fb"}
         vec = {n: w[n].to(cdt) for n in ("b_f", "b_b", "pb", "ig", "ib")}
         H = w["w_hh_f"].shape[0]
         zero = xs.new_zeros((K * B, H))
         hf, cf, hb, cb = zero, zero, zero, zero
         yf, yb = [None] * F, [None] * F
         for f in range(F):
-            hf, cf = lstm_cell(rnd(xs[f]) @ dots["w_ih_f"] + rnd(hf) @ dots["w_hh_f"]
-                               + vec["b_f"], cf)
+            hf, cf = lstm_cell(rnd(xs[f]) @ dots["w_ih_f"] + hh["f"](hf) + vec["b_f"], cf)
             yf[f] = rnd(hf)
             fb = F - 1 - f
-            hb, cb = lstm_cell(rnd(xs[fb]) @ dots["w_ih_b"] + rnd(hb) @ dots["w_hh_b"]
-                               + vec["b_b"], cb)
+            hb, cb = lstm_cell(rnd(xs[fb]) @ dots["w_ih_b"] + hh["b"](hb) + vec["b_b"], cb)
             yb[fb] = rnd(hb)
         t = (torch.stack(yf) @ dots["pw_f"] + torch.stack(yb) @ dots["pw_b"]
              + vec["pb"])
-        xs = (xs + _ln(t, vec["ig"], vec["ib"])).reshape(F, K, B, CH)
+        xs = store(xs + _ln(t, vec["ig"], vec["ib"])).reshape(F, K, B, CH)
         xs, h, c = inter_block_ref(xs, h_in[blk], c_in[blk],
-                                   [w[n] for n in INTER_NAMES], rnd)
+                                   [w[n] for n in INTER_NAMES], rnd,
+                                   s_hh=w.get("s_hh_i"), store=store)
         xs = xs.reshape(F, K * B, CH)
         h_out.append(h.to(h_in[blk].dtype))
         c_out.append(c.to(c_in[blk].dtype))
@@ -125,7 +162,7 @@ def _lib():
     lib = load("dual_path")
     if not getattr(lib, "_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dual_path_chunk.argtypes = [p] * 9 + [i] * 10 + [p]
+        lib.dual_path_chunk.argtypes = [p] * 10 + [i] * 11 + [p]
         lib.dual_path_chunk.restype = i
         lib.dual_path_error_string.argtypes = [i]
         lib.dual_path_error_string.restype = ctypes.c_char_p
@@ -136,17 +173,18 @@ def _lib():
 def _weight_shape(name: str, CH: int, H: int):
     kind = name[:-2] if name[-2:] in ("_f", "_b", "_i") else name
     return {"w_ih": (CH, 4 * H), "w_hh": (H, 4 * H), "b": (4 * H,),
-            "pw": (H, CH)}.get(kind, (CH,))
+            "pw": (H, CH), "s_hh": (4 * H,)}.get(kind, (CH,))
 
 
-def _check(x, h_in, c_in, weights, dot_dtype):
+def _check(x, h_in, c_in, weights, dot_dtype, int8_hh: bool = False):
     if x.dim() != 4:
         raise ValueError(f"x must be [F, K, B, CH], got {tuple(x.shape)}")
     F, K, B, CH = x.shape
     n = len(h_in)
-    if n == 0 or len(c_in) != n or len(weights) != PER_BLOCK * n:
+    names = block_names(int8_hh)
+    if n == 0 or len(c_in) != n or len(weights) != len(names) * n:
         raise ValueError(f"{n} blocks need {n} h / c carries and "
-                         f"{PER_BLOCK * n} weights, got {len(c_in)} / {len(weights)}")
+                         f"{len(names) * n} weights, got {len(c_in)} / {len(weights)}")
     H = h_in[0].shape[-1]
     sdt, wdt = h_in[0].dtype, weights[0].dtype
     if x.dtype not in _KDT or sdt not in _KDT or wdt not in _KDT or dot_dtype not in _KDT:
@@ -158,13 +196,18 @@ def _check(x, h_in, c_in, weights, dot_dtype):
                              f"dtype on {x.device}, got {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}")
     for i, w in enumerate(weights):
-        name = NAMES[i % PER_BLOCK]
+        name = names[i % len(names)]
         want = _weight_shape(name, CH, H)
-        if tuple(w.shape) != want or w.dtype != wdt or w.device != x.device:
+        dt = (torch.int8 if int8_hh and name.startswith("w_hh") else
+              w.dtype if name.startswith("s_hh") and w.dtype in _KDT else wdt)
+        if tuple(w.shape) != want or w.dtype != dt or w.device != x.device:
             raise ValueError(f"weight {i} ({name}) is {tuple(w.shape)} {w.dtype} on "
-                             f"{w.device}, not {want} {wdt} on {x.device}")
+                             f"{w.device}, not {want} {dt} on {x.device}")
     if wdt == torch.bfloat16 and H % 2:
         raise ValueError(f"bfloat16 weights need an even H (16-byte rows), got {H}")
+    if int8_hh and H % 4:
+        raise ValueError(f"int8_hh packs w_hh 4 rows a word: H must be a multiple of 4, "
+                         f"got {H}")
     if not (0 < H <= 512 and 0 < CH <= 512 and F and K and B):
         raise ValueError(f"the kernel takes 0 < H, CH <= 512 and a non-empty "
                          f"chunk: x {tuple(x.shape)}, H {H}")
@@ -173,35 +216,54 @@ def _check(x, h_in, c_in, weights, dot_dtype):
     return F, K, B, CH, H, n
 
 
-def _launch(x, h_in, c_in, weights, dot_dtype):
+def kernel_weights(weights, int8_hh: bool):
+    """The kernel's operands from the flat tuple: PER_BLOCK pointers' worth
+    of tensors a block (each int8 w_hh packed into __dp4a words,
+    `pack_int8`) and, under int8_hh, the three dequantization scales a block
+    (scale / 127^2 in float32); every tensor 16-byte aligned for cp.async."""
+    names = block_names(int8_hh)
+    mats, scales = [], []
+    for i, w in enumerate(weights):
+        name = names[i % len(names)]
+        if name.startswith("s_hh"):
+            scales.append((w / HH_DIV).float().contiguous())
+            continue
+        w = pack_int8(w) if int8_hh and name.startswith("w_hh") else w.contiguous()
+        mats.append(w if w.data_ptr() % 16 == 0 else w.clone())
+    return mats, scales
+
+
+def _launch(x, h_in, c_in, weights, dot_dtype, int8_hh: bool = False,
+            xscr_half: bool = False):
     global LAUNCHES
-    F, K, B, CH, H, n = _check(x, h_in, c_in, weights, dot_dtype)
+    F, K, B, CH, H, n = _check(x, h_in, c_in, weights, dot_dtype, int8_hh)
     dev = x.device
     x = x.contiguous()
     h_in = [h.contiguous() for h in h_in]
     c_in = [c.contiguous() for c in c_in]
-    # the kernel stages the LSTM weights with 16-byte copies
-    ws = [w.contiguous() for w in weights]
-    ws = [w if w.data_ptr() % 16 == 0 else w.clone() for w in ws]
+    ws, scales = kernel_weights(weights, int8_hh)
     y = torch.empty_like(x)
     h_out = [torch.empty_like(h) for h in h_in]
     c_out = [torch.empty_like(c) for c in c_in]
-    f32 = dict(device=dev, dtype=torch.float32)
-    x_scr = torch.empty((F, K * B, CH), **f32)               # scratch
-    y_dir = torch.empty((2, F, K * B, H), **f32)             # scratch: yf, yb
+    x_scr = torch.empty((F, K * B, CH), device=dev,             # scratch
+                        dtype=torch.bfloat16 if xscr_half else torch.float32)
+    y_dir = torch.empty((2, F, K * B, H), device=dev, dtype=torch.float32)  # yf, yb
     ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.dual_path_chunk(
-            x.data_ptr(), ptrs(h_in), ptrs(c_in), ptrs(ws), y.data_ptr(),
+            x.data_ptr(), ptrs(h_in), ptrs(c_in), ptrs(ws),
+            ptrs(scales) if int8_hh else None, y.data_ptr(),
             ptrs(h_out), ptrs(c_out), x_scr.data_ptr(), y_dir.data_ptr(),
             n, F, K, B, CH, H, _KDT[x.dtype], _KDT[h_in[0].dtype],
-            _KDT[ws[0].dtype], _KDT[dot_dtype],
+            _KDT[weights[0].dtype], _KDT[dot_dtype], int(xscr_half),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("dual_path_chunk launch failed: "
                            + lib.dual_path_error_string(err).decode())
     LAUNCHES += 1
+    key = option_key(int8_hh=int8_hh, xscr_half=xscr_half)
+    LAUNCHES_BY_OPTION[key] = LAUNCHES_BY_OPTION.get(key, 0) + 1
     return y, h_out, c_out
 
 
@@ -210,11 +272,12 @@ def dual_path_chunk(x, h_in, c_in, weights, dot_dtype=torch.float32,
     """Every dual-path block of a chunk.
 
     x [F, K, B, CH]; h_in / c_in per-block lists of [F, B, H] inter
-    carries; weights the flat tuple, `PER_BLOCK` per block in `NAMES`
-    order. Returns (y [F, K, B, CH], h_out, c_out)."""
-    _unported(int8_hh, xscr_half)
+    carries; weights the flat tuple in `block_names(int8_hh)` order.
+    Returns (y [F, K, B, CH], h_out, c_out)."""
     if x.device.type == "cpu":
-        return dual_path_chunk_ref(x, h_in, c_in, weights, dot_dtype)
+        return dual_path_chunk_ref(x, h_in, c_in, weights, dot_dtype, int8_hh,
+                                   xscr_half)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {x.device}")
-    return _launch(x, list(h_in), list(c_in), list(weights), dot_dtype)
+    return _launch(x, list(h_in), list(c_in), list(weights), dot_dtype, int8_hh,
+                   xscr_half)

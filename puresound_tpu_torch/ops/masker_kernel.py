@@ -29,9 +29,15 @@ dtype and the carries in theirs. `conv_weights` is
 DualPathStreaming._mk_conv_weights' flat list (66: per down layer W[6],
 bias, alpha; per up layer Wh[6], Ws[6], bias, alpha).
 
+`int8_hh` (`center_chunk` only: JAX asserts DPARN has none,
+puresound_tpu/nnet/dparn.py:181) runs the DPCRN bottleneck's recurrent
+products in int8 as `dual_path_chunk` does (21 weights a block, `n_pb`
+`:525`). `xscr_half` stores the bottleneck activation `x_scr` in bfloat16
+(`:455`): the d4 output is rounded into it, every residual write rounds, the
+u0 h carry enters it rounded, and u0 reads it as its h part.
+
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches
-`csrc/masker.cu` (built with nvcc at first use) or raises. `int8_hh` and
-`xscr_half` raise (ROADMAP queue 2); JAX's `b_tile` and its `fc` / `rc` /
+`csrc/masker.cu` (built with nvcc at first use) or raises. JAX's `b_tile` and its `fc` / `rc` /
 `n_ichunk` chunkings are TPU tilings with the same numbers and have no
 counterpart; the banded weight builders (`build_layer_blocks`,
 `pack_channel_perm`, `_dense_conv_matrix`) are on no path yet.
@@ -46,13 +52,15 @@ import torch.nn.functional as Fn
 
 from .dparn_attention_kernel import N_WEIGHTS as N_ATTN
 from .dparn_attention_kernel import aligned, check_geometry, check_weights, intra_core_ref
-from .dual_path_kernel import INTER_NAMES
-from .dual_path_kernel import PER_BLOCK as DP_PER_BLOCK
-from .dual_path_kernel import dual_path_chunk_ref, inter_block_ref
+from .dual_path_kernel import INTER_NAMES, block_names, dual_path_chunk_ref, half_store
+from .dual_path_kernel import inter_block_ref, kernel_weights
 from .lstm_scan_kernel import _rounder
+from .quant import option_key
 
 #: kernel launches since the caller last set it to 0 (one per `_launch`)
 LAUNCHES = 0
+#: the same launches by option ("" for none; "int8_hh", "xscr_half", ...)
+LAUNCHES_BY_OPTION: dict = {}
 
 N_CONV = 6                        # (2 time slots) x (3 freq taps)
 N_DOWN = N_UP = 3
@@ -60,13 +68,6 @@ N_CONV_WEIGHTS = N_DOWN * (N_CONV + 2) + N_UP * (2 * N_CONV + 2)
 DPARN_PER_BLOCK = N_ATTN + len(INTER_NAMES)
 
 _KDT = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _unported(int8_hh: bool, xscr_half: bool):
-    if int8_hh or xscr_half:
-        raise NotImplementedError(
-            "the wide-center kernels' int8_hh / xscr_half are not ported yet (ROADMAP "
-            "queue 2)")
 
 
 def parse_conv_weights(ws: Sequence[torch.Tensor]):
@@ -100,10 +101,14 @@ def conv_stage_ref(h, s, Wh, Ws, bias, alpha, kind: str, rnd):
     return torch.where(acc >= 0, acc, a * acc)
 
 
-def _wide_ref(x, dc, u0h, u0s, u1h, u2h, conv_weights, bottleneck, dot_dtype):
+def _wide_ref(x, dc, u0h, u0s, u1h, u2h, conv_weights, bottleneck, dot_dtype,
+              xscr_half: bool = False):
     """The conv envelope around `bottleneck(d4_out) -> out`, all in the
-    compute dtype: (y, [dc'], u0h', u0s', u1h', u2h')."""
+    compute dtype: (y, [dc'], u0h', u0s', u1h', u2h'). xscr_half: the u0 h
+    carry enters the bfloat16 scratch, so it is rounded to it."""
     cdt, rnd = _rounder(x.dtype, dot_dtype)
+    if xscr_half:
+        u0h = half_store(cdt)(u0h.to(cdt))
     stage = lambda frames, carry: torch.cat([carry.to(cdt)[:, None], frames], dim=1)
     (down, up) = parse_conv_weights(conv_weights)
     x_st = stage(rnd(x.to(cdt)), rnd(dc[0].to(cdt)))
@@ -129,15 +134,15 @@ def center_chunk_ref(x, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights, dp_wei
                      dot_dtype=torch.float32, int8_hh: bool = False,
                      xscr_half: bool = False):
     """Plain DPCRN wide center: (y, dc', u0h', u0s', u1h', u2h', h', c')."""
-    _unported(int8_hh, xscr_half)
     carries = {}
 
     def bottleneck(d4):
         y, carries["h"], carries["c"] = dual_path_chunk_ref(d4, h_in, c_in, dp_weights,
-                                                            dot_dtype)
+                                                            dot_dtype, int8_hh, xscr_half)
         return y
 
-    out = _wide_ref(x, dc, u0h, u0s, u1h, u2h, conv_weights, bottleneck, dot_dtype)
+    out = _wide_ref(x, dc, u0h, u0s, u1h, u2h, conv_weights, bottleneck, dot_dtype,
+                    xscr_half)
     return (*out, carries["h"], carries["c"])
 
 
@@ -145,24 +150,26 @@ def dparn_center_chunk_ref(x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weigh
                            block_weights, heads: int, dot_dtype=torch.float32,
                            xscr_half: bool = False):
     """Plain DPARN wide center: (y, dc', u0h', u0s', u1h', u2h', h', c')."""
-    _unported(False, xscr_half)
-    _, rnd = _rounder(x.dtype, dot_dtype)
+    cdt, rnd = _rounder(x.dtype, dot_dtype)
+    store = half_store(cdt) if xscr_half else (lambda a: a)
     h_out: List[torch.Tensor] = []
     c_out: List[torch.Tensor] = []
 
     def bottleneck(xs):
         F, K, B, CH = xs.shape
+        xs = store(xs)
         for b in range(len(h_in)):
             w = list(block_weights[b * DPARN_PER_BLOCK:(b + 1) * DPARN_PER_BLOCK])
             rows = xs.permute(1, 2, 0, 3).reshape(K * B, F, CH)
-            rows = rows + intra_core_ref(rows, pe.to(xs.dtype), w[:N_ATTN], heads, rnd)
+            rows = store(rows + intra_core_ref(rows, pe.to(xs.dtype), w[:N_ATTN], heads, rnd))
             xs = rows.reshape(K, B, F, CH).permute(2, 0, 1, 3)
-            xs, h, c = inter_block_ref(xs, h_in[b], c_in[b], w[N_ATTN:], rnd)
+            xs, h, c = inter_block_ref(xs, h_in[b], c_in[b], w[N_ATTN:], rnd, store=store)
             h_out.append(h.to(h_in[b].dtype))
             c_out.append(c.to(c_in[b].dtype))
         return xs
 
-    out = _wide_ref(x, dc, u0h, u0s, u1h, u2h, conv_weights, bottleneck, dot_dtype)
+    out = _wide_ref(x, dc, u0h, u0s, u1h, u2h, conv_weights, bottleneck, dot_dtype,
+                    xscr_half)
     return (*out, h_out, c_out)
 
 
@@ -173,7 +180,7 @@ def _lib():
     lib = load("masker")
     if not getattr(lib, "_bound", False):
         p = ctypes.c_void_p
-        lib.masker_center_chunk.argtypes = [p] * 11
+        lib.masker_center_chunk.argtypes = [p] * 13
         lib.masker_center_chunk.restype = ctypes.c_int
         lib.masker_error_string.argtypes = [ctypes.c_int]
         lib.masker_error_string.restype = ctypes.c_char_p
@@ -221,7 +228,8 @@ def _geometry(x, carries, conv_weights, y_C):
 
 
 def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
-            bneck_weights, heads, dot_dtype):
+            bneck_weights, heads, dot_dtype, int8_hh: bool = False,
+            xscr_half: bool = False):
     global LAUNCHES
     carries = list(dc) + [u0h, u0s, u1h, u2h] + list(h_in) + list(c_in)
     if len(dc) != 3 or len(h_in) != 2 or len(c_in) != 2:
@@ -239,7 +247,7 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
         # the bottleneck's input is the float32 d4 output: check its shape
         # with a one-element view
         d4 = torch.empty((1, 1, 1, 1), device=x.device).expand(F, K, B, CH)
-        dp_check(d4, h_in, c_in, bneck_weights, dot_dtype)
+        dp_check(d4, h_in, c_in, bneck_weights, dot_dtype, int8_hh)
         FFD = 0
     else:
         if len(bneck_weights) != 2 * DPARN_PER_BLOCK:
@@ -265,28 +273,35 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
     x = x.contiguous()
     pe = pe.contiguous() if pe is not None else x
     carries = [t.contiguous() for t in carries]
-    cw, bw = aligned(conv_weights), aligned(bneck_weights)
+    cw = aligned(conv_weights)
+    bw, scales = (kernel_weights(bneck_weights, int8_hh) if kind == 0
+                  else (aligned(bneck_weights), []))
     y = torch.empty((F, K, B, y_C), device=dev, dtype=x.dtype)
     outs = [torch.empty_like(t) for t in carries]
     sdt = torch.bfloat16 if dot_dtype == torch.bfloat16 else torch.float32
     n = F * K * B
     scr = torch.empty(n * (C2 + C3 + C4 + Cu2), device=dev, dtype=sdt)
-    f32 = torch.empty(n * (2 * CH + (2 * H if kind == 0 else 0)), device=dev,
-                      dtype=torch.float32)
+    f32 = torch.empty(n * (CH + (2 * H if kind == 0 else 0)), device=dev,
+                      dtype=torch.float32)                  # d4 (, yf / yb)
+    xs = torch.empty(n * CH, device=dev,                    # the bottleneck's x_scr
+                     dtype=torch.bfloat16 if xscr_half else torch.float32)
     geo = [kind, F, K, B, C0, C2, C3, C4, CH, Cu2, y_C, H, FFD, heads,
            _KDT[x.dtype], _KDT[carries[0].dtype], _KDT[wdt], _KDT[dot_dtype],
-           _KDT.get(pe.dtype, 0)]
+           _KDT.get(pe.dtype, 0), int(xscr_half)]
     arr = lambda ts: (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.masker_center_chunk(
             (ctypes.c_int * len(geo))(*geo), x.data_ptr(), pe.data_ptr(), arr(carries),
-            arr(outs), arr(cw), arr(bw), y.data_ptr(), scr.data_ptr(), f32.data_ptr(),
+            arr(outs), arr(cw), arr(bw), arr(scales) if int8_hh else None, y.data_ptr(),
+            scr.data_ptr(), f32.data_ptr(), xs.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("wide-center launch failed: "
                            + lib.masker_error_string(err).decode())
     LAUNCHES += 1
+    key = option_key(int8_hh=int8_hh, xscr_half=xscr_half)
+    LAUNCHES_BY_OPTION[key] = LAUNCHES_BY_OPTION.get(key, 0) + 1
     return (y, outs[0:3], outs[3], outs[4], outs[5], outs[6], outs[7:9], outs[9:11])
 
 
@@ -296,18 +311,17 @@ def center_chunk(x, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights, dp_weights
     """DPCRN wide center: d2..d4 convs -> both dual-path blocks -> u0..u2
     transpose convs, one call. x [F, K, B, C0]; dc a list of 3 carries;
     u0h / u0s / u1h / u2h [F, B, C]; h_in / c_in per-block [F, B, H];
-    dp_weights `dual_path_chunk`'s flat list. Returns (y [F, K, B, yC], dc',
-    u0h', u0s', u1h', u2h', h', c')."""
-    _unported(int8_hh, xscr_half)
+    dp_weights `dual_path_chunk`'s flat list (`block_names(int8_hh)` a
+    block). Returns (y [F, K, B, yC], dc', u0h', u0s', u1h', u2h', h', c')."""
     if x.device.type == "cpu":
         return center_chunk_ref(x, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
-                                dp_weights, dot_dtype)
+                                dp_weights, dot_dtype, int8_hh, xscr_half)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {x.device}")
-    if len(dp_weights) != 2 * DP_PER_BLOCK:
-        raise ValueError(f"{2 * DP_PER_BLOCK} dual-path weights expected")
+    if len(dp_weights) != 2 * len(block_names(int8_hh)):
+        raise ValueError(f"{2 * len(block_names(int8_hh))} dual-path weights expected")
     return _launch(0, x, None, dc, u0h, u0s, u1h, u2h, h_in, c_in, list(conv_weights),
-                   list(dp_weights), 0, dot_dtype)
+                   list(dp_weights), 0, dot_dtype, int8_hh, xscr_half)
 
 
 def dparn_center_chunk(x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
@@ -316,11 +330,11 @@ def dparn_center_chunk(x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
     """DPARN wide center: the envelope of `center_chunk` around 2 x
     (attention intra + inter LSTM); `pe` [F, CH] feeds the first encoder
     layer, `block_weights` is flat (DPARN_PER_BLOCK per block)."""
-    _unported(False, xscr_half)
     if x.device.type == "cpu":
         return dparn_center_chunk_ref(x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in,
-                                      conv_weights, block_weights, heads, dot_dtype)
+                                      conv_weights, block_weights, heads, dot_dtype,
+                                      xscr_half)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {x.device}")
     return _launch(1, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, list(conv_weights),
-                   list(block_weights), heads, dot_dtype)
+                   list(block_weights), heads, dot_dtype, False, xscr_half)

@@ -13,10 +13,20 @@ the input dtype (float32 or bfloat16), elementwise math in float32; with
 `dot_dtype=bfloat16` each dot's operands are rounded to bf16 and summed in
 float32. h/c are written back in the state's dtype and y in x's dtype.
 
+`int8_hh` runs the recurrent h @ W_hh as int8 x int8 -> int32 (JAX's
+`dot_hh`, `:71-78`): h quantized at the fixed scale 1/127 (clip(round(h *
+127), +-127), round half to even), W_hh per output column
+(`ops/quant.py::quantize_cols`),
+the sum times scale / 127^2. `int8_full` also quantizes the FiLM dots, W_ih
+(per-row dynamic scale of the unbounded activation, `dot_dyn` `:80-85`) and
+the projection (fixed scale); the other dots keep `dot_dtype`. The int8
+weights replace their float ones in the flat tuple, each followed by its
+[N] column scales (`block_names`).
+
 Dispatch: a CPU tensor goes to `fused_skim_frames_ref`; a CUDA tensor
 launches `csrc/skim_stream.cu` (built with nvcc at first use) or raises.
-Gate conditioning, `int8_hh` and `int8_full` are not ported yet and raise
-on both paths (ROADMAP queue 2).
+Gate conditioning is not ported and raises on both paths (ROADMAP queue 2
+item 5).
 """
 from __future__ import annotations
 
@@ -25,13 +35,19 @@ from typing import Dict, List, Sequence
 
 import torch
 
+from .quant import DYN_DIV, HH_DIV, dot_dyn_ref, dot_hh_ref, option_key, pack_int8
+
 #: kernel launches since the last reset (the wrapper adds one per launch)
 LAUNCHES = 0
+#: the same launches by option ("" for none; "int8_hh", "xscr_half", ...)
+LAUNCHES_BY_OPTION: dict = {}
 
-_TODO = ("fused_skim_frames {what} is not ported yet (ROADMAP queue 2: "
-         "'fused_skim_frames Gate / int8_hh / int8_full')")
-_FILM = ("wsx", "wbx", "fg", "fb")
-_LSTM = ("w_ih", "w_hh", "b", "proj_w", "proj_b", "ln_g", "ln_b")
+_TODO = "fused_skim_frames {what} is not ported yet (ROADMAP queue 2 item 5)"
+#: the dots that int8_full quantizes with a per-row dynamic activation scale
+#: (the rest of the quantized dots take h at the fixed 1/127)
+_DYN = ("wsx", "wbx", "w_ih")
+#: the vectors of a block, kept in float32 whatever the dot dtype
+_VEC = ("fg", "fb", "b", "proj_b", "ln_g", "ln_b")
 
 
 class SkimWeights(tuple):
@@ -46,23 +62,32 @@ class SkimWeights(tuple):
         return obj
 
 
-def _check_options(fusion_modes: Sequence[str], int8_hh: bool, int8_full: bool):
+def _check_options(fusion_modes: Sequence[str]):
     if any(m == "gate" for m in fusion_modes):
         raise NotImplementedError(_TODO.format(what="Gate fusion"))
-    if int8_hh:
-        raise NotImplementedError(_TODO.format(what="int8_hh"))
-    if int8_full:
-        raise NotImplementedError(_TODO.format(what="int8_full"))
     bad = [m for m in fusion_modes if m not in ("", "film")]
     if bad:
         raise ValueError(f"unknown fusion modes {bad}")
 
 
-def _unpack(weights: Sequence[torch.Tensor],
-            fusion_modes: Sequence[str]) -> List[Dict[str, torch.Tensor]]:
+def block_names(mode: str, int8_hh: bool = False,
+                int8_full: bool = False) -> tuple:
+    """One block's weight names in JAX's flat order (`:93-120`): a quantized
+    matrix is followed by its column scales (`<name>_s`)."""
+    int8_hh = int8_hh or int8_full
+    q = lambda name, on: (name, name + "_s") if on else (name,)
+    film = (q("wsx", int8_full) + q("wbx", int8_full) + ("fg", "fb")
+            if mode == "film" else ())
+    return (film + q("w_ih", int8_full) + q("w_hh", int8_hh) + ("b",)
+            + q("proj_w", int8_full) + ("proj_b", "ln_g", "ln_b"))
+
+
+def _unpack(weights: Sequence[torch.Tensor], fusion_modes: Sequence[str],
+            int8_hh: bool = False,
+            int8_full: bool = False) -> List[Dict[str, torch.Tensor]]:
     blocks, idx = [], 0
     for mode in fusion_modes:
-        names = (_FILM if mode == "film" else ()) + _LSTM
+        names = block_names(mode, int8_hh, int8_full)
         blocks.append(dict(zip(names, weights[idx:idx + len(names)])))
         idx += len(names)
     if idx != len(weights):
@@ -78,20 +103,40 @@ def _ln(x, g, b, eps=1e-5):
     return (x - mean) * torch.rsqrt(var + eps) * g + b
 
 
+def dequant_scale(name: str, scale: torch.Tensor) -> torch.Tensor:
+    """A column scale as the kernel multiplies it in, divided in its own
+    dtype as JAX divides it: scale / 127 for the dynamic dots (`dot_dyn`),
+    scale / 127^2 for the fixed-scale ones (`dot_hh`)."""
+    return scale / (DYN_DIV if name in _DYN else HH_DIV)
+
+
 def fused_skim_frames_ref(x, se, be, ge, seg_h, seg_c, weights,
                           fusion_modes, dot_dtype=torch.float32,
                           int8_hh: bool = False, int8_full: bool = False):
     """Plain PyTorch version of `fused_skim_frames`: a loop over frames and
     blocks with the kernel's cast points. Math runs in float32 (float64
     inputs stay float64)."""
-    _check_options(fusion_modes, int8_hh, int8_full)
+    _check_options(fusion_modes)
     del ge  # Gate conditioning only
     cdt = torch.promote_types(x.dtype, torch.float32)
     rnd = ((lambda a: a.to(torch.bfloat16).to(cdt))
            if dot_dtype == torch.bfloat16 else (lambda a: a.to(cdt)))
-    blocks = [{k: v.to(cdt) if k in ("fg", "fb", "b", "proj_b", "ln_g", "ln_b")
-               else rnd(v) for k, v in blk.items()}
-              for blk in _unpack(weights, fusion_modes)]
+
+    def prep(k, v):
+        if k.endswith("_s"):
+            return dequant_scale(k[:-2], v).to(cdt)
+        return v.to(cdt) if k in _VEC or v.dtype == torch.int8 else rnd(v)
+
+    blocks = [{k: prep(k, v) for k, v in blk.items()}
+              for blk in _unpack(weights, fusion_modes, int8_hh, int8_full)]
+
+    def dot(a, blk, name):
+        """a @ W, through the int8 product when W is quantized."""
+        if name + "_s" not in blk:
+            return rnd(a) @ blk[name]
+        fn = dot_dyn_ref if name in _DYN else dot_hh_ref
+        return fn(a, blk[name], blk[name + "_s"])
+
     h = list(seg_h.to(cdt).unbind(0))
     c = list(seg_c.to(cdt).unbind(0))
     H = seg_h.shape[-1]
@@ -101,17 +146,17 @@ def fused_skim_frames_ref(x, se, be, ge, seg_h, seg_c, weights,
         for i, blk in enumerate(blocks):
             if fusion_modes[i] == "film":
                 xn = _ln(xt, blk["fg"], blk["fb"])
-                scale = rnd(xn) @ blk["wsx"] + se[i].to(cdt)
-                bias = rnd(xn) @ blk["wbx"] + be[i].to(cdt)
+                scale = dot(xn, blk, "wsx") + se[i].to(cdt)
+                bias = dot(xn, blk, "wbx") + be[i].to(cdt)
                 xt = scale * xn + bias
-            gates = rnd(xt) @ blk["w_ih"] + rnd(h[i]) @ blk["w_hh"] + blk["b"]
+            gates = dot(xt, blk, "w_ih") + dot(h[i], blk, "w_hh") + blk["b"]
             ii = torch.sigmoid(gates[:, :H])
             ff = torch.sigmoid(gates[:, H:2 * H])
             gg = torch.tanh(gates[:, 2 * H:3 * H])
             oo = torch.sigmoid(gates[:, 3 * H:])
             c[i] = ff * c[i] + ii * gg
             h[i] = oo * torch.tanh(c[i])
-            proj = rnd(h[i]) @ blk["proj_w"] + blk["proj_b"]
+            proj = dot(h[i], blk, "proj_w") + blk["proj_b"]
             xt = xt + _ln(proj, blk["ln_g"], blk["ln_b"])
         ys.append(xt.to(x.dtype))
     return (torch.stack(ys, dim=1), torch.stack(h).to(seg_h.dtype),
@@ -122,19 +167,36 @@ def fused_skim_frames_ref(x, se, be, ge, seg_h, seg_c, weights,
 _KDT = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _pack(weights, fusion_modes, C, H, dot_dtype, device):
+def _pack(weights, fusion_modes, C, H, dot_dtype, device, int8_hh, int8_full):
     """One matrix buffer in dot_dtype and one float32 vector buffer, with a
     fixed per-block stride (FiLM slots zero for unconditioned blocks) —
-    the layout `csrc/skim_stream.cu` indexes."""
-    mats, vecs = [], []
-    for mode, blk in zip(fusion_modes, _unpack(weights, fusion_modes)):
+    the layout `csrc/skim_stream.cu` indexes. Under int8_hh / int8_full also
+    an int32 buffer of the quantized matrices (`pack_int8`, wsx wbx w_ih
+    w_hh proj_w a block; a float matrix's slot is zero there and a quantized
+    one's zero in the matrix buffer) and a float32 buffer of their scales
+    as `dequant_scale` gives them."""
+    mats, vecs, qmats, scales = [], [], [], []
+    zeros = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=device)
+    shapes = {"wsx": (C, C), "wbx": (C, C), "w_ih": (C, 4 * H),
+              "w_hh": (H, 4 * H), "proj_w": (H, C)}
+    quantized = int8_hh or int8_full
+    blocks = _unpack(weights, fusion_modes, int8_hh, int8_full)
+    for mode, blk in zip(fusion_modes, blocks):
+        for name, shape in shapes.items():
+            w = blk.get(name)
+            if w is None:                          # an unconditioned block's FiLM
+                w = zeros(*shape)
+            q = name + "_s" in blk
+            mats.append(zeros(*shape) if q else w)
+            if quantized:
+                qmats.append(pack_int8(w.to(device)) if q else
+                             zeros(shape[0] // 4, shape[1], dt=torch.int32))
+                scales.append(dequant_scale(name, blk[name + "_s"]).float() if q else
+                              zeros(shape[1]))
         if mode == "film":
-            mats += [blk["wsx"], blk["wbx"]]
             vecs += [blk["fg"], blk["fb"]]
         else:
-            mats.append(torch.zeros(2 * C * C, device=device))
-            vecs.append(torch.zeros(2 * C, device=device))
-        mats += [blk["w_ih"], blk["w_hh"], blk["proj_w"]]
+            vecs.append(zeros(2 * C))
         vecs += [blk["b"], blk["proj_b"], blk["ln_g"], blk["ln_b"]]
     w_mat = torch.cat([m.reshape(-1).to(device=device, dtype=dot_dtype)
                        for m in mats])
@@ -144,16 +206,21 @@ def _pack(weights, fusion_modes, C, H, dot_dtype, device):
     if (w_mat.numel() != n * (2 * C * C + 4 * H * C + 4 * H * H + H * C)
             or w_vec.numel() != n * (2 * C + 4 * H + 3 * C)):
         raise ValueError("weight shapes do not match C/H of the state")
-    return w_mat, w_vec
+    if not quantized:
+        return w_mat, w_vec, None, None
+    w_q = torch.cat([m.reshape(-1) for m in qmats])
+    w_s = torch.cat([v.reshape(-1).to(device) for v in scales])
+    return w_mat, w_vec, w_q, w_s
 
 
-def _packed(weights, fusion_modes, C, H, dot_dtype, device):
-    key = (tuple(fusion_modes), dot_dtype, str(device))
+def _packed(weights, fusion_modes, C, H, dot_dtype, device, int8_hh, int8_full):
+    key = (tuple(fusion_modes), dot_dtype, str(device), int8_hh, int8_full)
     cache = getattr(weights, "packed", None)
     if cache is not None and key in cache:
         return cache[key]
     with torch.no_grad():
-        buf = _pack(weights, fusion_modes, C, H, dot_dtype, device)
+        buf = _pack(weights, fusion_modes, C, H, dot_dtype, device, int8_hh,
+                    int8_full)
     if cache is not None:
         cache[key] = buf
     return buf
@@ -165,15 +232,18 @@ def _lib():
     lib = load("skim_stream")
     if not getattr(lib, "_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.skim_stream_frames.argtypes = [p] * 10 + [i] * 9 + [p]
+        lib.skim_stream_frames.argtypes = [p] * 12 + [i] * 10 + [p]
         lib.skim_stream_frames.restype = i
+        lib.skim_dp4a_rate.argtypes = [p, i, i, p]
+        lib.skim_dp4a_rate.restype = i
         lib.skim_stream_error_string.argtypes = [i]
         lib.skim_stream_error_string.restype = ctypes.c_char_p
         lib._bound = True
     return lib
 
 
-def _launch(x, se, be, seg_h, seg_c, weights, fusion_modes, dot_dtype):
+def _launch(x, se, be, seg_h, seg_c, weights, fusion_modes, dot_dtype,
+            int8_hh: bool = False, int8_full: bool = False):
     global LAUNCHES
     B, F, C = x.shape
     n, _, H = seg_h.shape
@@ -199,7 +269,11 @@ def _launch(x, se, be, seg_h, seg_c, weights, fusion_modes, dot_dtype):
                          f"{len(fusion_modes)} fusion modes")
     if B == 0 or F == 0:
         raise ValueError("empty stream batch or chunk")
-    w_mat, w_vec = _packed(weights, fusion_modes, C, H, dot_dtype, dev)
+    int8_hh = int8_hh or int8_full
+    if int8_hh and (C % 4 or H % 4):
+        raise ValueError(f"the int8 products take C and H in steps of 4 (C {C}, H {H})")
+    w_mat, w_vec, w_q, w_s = _packed(weights, fusion_modes, C, H, dot_dtype, dev,
+                                     int8_hh, int8_full)
     y = torch.empty_like(x)
     h_out = torch.empty_like(seg_h)
     c_out = torch.empty_like(seg_c)
@@ -210,12 +284,17 @@ def _launch(x, se, be, seg_h, seg_c, weights, fusion_modes, dot_dtype):
         err = lib.skim_stream_frames(
             x.data_ptr(), se.data_ptr(), be.data_ptr(), seg_h.data_ptr(),
             seg_c.data_ptr(), y.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-            w_mat.data_ptr(), w_vec.data_ptr(), B, F, C, H, n, film_mask,
-            _KDT[x.dtype], _KDT[seg_h.dtype], _KDT[dot_dtype], stream)
+            w_mat.data_ptr(), w_vec.data_ptr(),
+            w_q.data_ptr() if w_q is not None else None,
+            w_s.data_ptr() if w_s is not None else None,
+            B, F, C, H, n, film_mask, _KDT[x.dtype], _KDT[seg_h.dtype],
+            _KDT[dot_dtype], int(int8_hh) | (int(int8_full) << 1), stream)
     if err != 0:
         raise RuntimeError("skim_stream_frames launch failed: "
                            + lib.skim_stream_error_string(err).decode())
     LAUNCHES += 1
+    key = option_key(int8_hh=int8_hh and not int8_full, int8_full=int8_full)
+    LAUNCHES_BY_OPTION[key] = LAUNCHES_BY_OPTION.get(key, 0) + 1
     return y, h_out, c_out
 
 
@@ -231,22 +310,46 @@ def fused_skim_frames(x, se, be, ge, seg_h, seg_c, weights, fusion_modes,
             unconditioned blocks).
         ge: [n_blocks, B, Hg] Gate embed terms (Gate is not ported; unused).
         seg_h/seg_c: [n_blocks, B, H] SegLSTM carries.
-        weights: flat per-block tuple, [wsx, wbx, fg, fb] for FiLM blocks,
-            then [w_ih, w_hh, b, proj_w, proj_b, ln_g, ln_b]; pass a
+        weights: flat per-block tuple in `block_names` order: [wsx, wbx, fg,
+            fb] for FiLM blocks, then [w_ih, w_hh, b, proj_w, proj_b, ln_g,
+            ln_b], each quantized matrix followed by its scales; pass a
             `SkimWeights` to pack it once per device.
         fusion_modes: per block "" or "film".
+        int8_hh / int8_full: the int8 products (module doc).
 
     Returns: (y [B, F, C], seg_h' [n_blocks, B, H], seg_c').
     """
-    _check_options(fusion_modes, int8_hh, int8_full)
+    _check_options(fusion_modes)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, se, be, seg_h, seg_c, *weights)):
         raise NotImplementedError(
-            "fused_skim_frames has no backward yet (ROADMAP: training slice); "
-            "call it under torch.no_grad()")
+            "fused_skim_frames is a serving kernel with no backward, by design "
+            "as in JAX (ROADMAP: training runs lstm_scan_train_fp); call it "
+            "under torch.no_grad()")
     if x.device.type == "cpu":
         return fused_skim_frames_ref(x, se, be, ge, seg_h, seg_c, weights,
-                                     fusion_modes, dot_dtype)
+                                     fusion_modes, dot_dtype, int8_hh, int8_full)
     if x.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {x.device}")
-    return _launch(x, se, be, seg_h, seg_c, weights, fusion_modes, dot_dtype)
+    return _launch(x, se, be, seg_h, seg_c, weights, fusion_modes, dot_dtype,
+                   int8_hh, int8_full)
+
+
+def dp4a_rate(out: torch.Tensor, iters: int) -> int:
+    """Launch `csrc/skim_stream.cu`'s __dp4a issue-rate loop on `out` (int32
+    on a card, a multiple of 256 elements: one CTA of 256 threads per 256)
+    and return the dp4a it issues, each 4 multiply-adds; time it to read the
+    card's int8 rate on the CUDA cores. A probe, not a serving kernel: it
+    adds to no launch count."""
+    if not (out.is_cuda and out.dtype == torch.int32 and out.is_contiguous()
+            and out.numel() % 256 == 0 and iters % 8 == 0):
+        raise ValueError("out must be contiguous int32 on a card, numel a multiple "
+                         "of 256, and iters a multiple of 8")
+    lib = _lib()
+    with torch.cuda.device(out.device):
+        err = lib.skim_dp4a_rate(out.data_ptr(), out.numel() // 256, iters,
+                                 torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("dp4a probe launch failed: "
+                           + lib.skim_stream_error_string(err).decode())
+    return out.numel() * iters * 8

@@ -68,7 +68,7 @@ class TrainState:
 def _not_ported(name: str):
     raise NotImplementedError(
         f"make_train_step({name}=...) is not ported yet (ROADMAP queue 1: "
-        "the trainer; queue 8: multi-device)")
+        "the trainer; queue 1 item 8: multi-device)")
 
 
 def make_train_step(model: nn.Module, loss_kwargs: Optional[Dict] = None,

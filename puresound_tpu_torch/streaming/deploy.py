@@ -2,8 +2,9 @@
 
 Counterpart of puresound_tpu/streaming/deploy.py:40 (`make_session_server`):
 the time-domain TSE branch and the STFT-engine (NS) branch
-(`:119-122, 191-197`). The server owns a copy of the model (cast to
-bfloat16 when `half`), so the caller's module is never changed.
+(`:119-122, 191-197`), with the pipelined and int16 (pcm16) transports
+(`:199-246`). The server owns a copy of the model (cast to bfloat16 when
+`half`), so the caller's module is never changed.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
                         enroll_len: Optional[int] = None, mesh=None,
                         pipelined: bool = False, lockstep: bool = False,
                         ring_capacity: int = 1 << 16,
-                        pcm16: bool = False) -> ServingBundle:
+                        pcm16: bool = False,
+                        pcm16_scale: float = 8192.0) -> ServingBundle:
     """Build a SessionServer for a SoTaskWrapModule: TSE (FreeEncDec +
     SkiM + speaker net) or NS (ConvEncDec + DPCRN / DPARN).
 
@@ -69,12 +71,22 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
             `dparn_center_chunk`; exclusive with fused and dp_kernel).
         enroll_len: TSE enrollment length (samples) of the probe that reads
             the embedding width (default 5 s).
-        mesh / pipelined / pcm16: not ported yet (raise).
+        pipelined: a tick returns the previous tick's output while its own
+            copies back (`SessionServer`; call `server.flush()` at the end).
+        pcm16: the audio crosses the host link as int16 at pcm16_scale; the
+            step converts on the device (x / scale in, clip(y * scale,
+            +-32767) truncated to int16 out).
+        mesh: not ported yet (raises; the card is one H100).
+
+    The server's `step_fn` passes keyword options on to `engine.step`: serve
+    the int8 / bf16-scratch kernels (`int8_hh`, `int8_full`, `xscr_half`,
+    which this function does not take, nor does JAX's) with
+    `server.step_fn = functools.partial(server.step_fn, int8_hh=True)`.
     """
-    if mesh is not None or pipelined or pcm16:
+    if mesh is not None:
         raise NotImplementedError(
-            "mesh / pipelined / pcm16 serving is not ported yet (ROADMAP "
-            "queue 1: serving options)")
+            "mesh serving is not ported yet (ROADMAP queue 1 item 8: "
+            "multi-device)")
     if isinstance(model.encoder, FreeEncDec) and model.speaker_net is None:
         raise ValueError(
             "embedding-free TSE conditioning lives in the initial recurrent "
@@ -113,8 +125,17 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
     def init_state(n):
         return engine.init_state(n, dt, **init_kw)
 
-    to_dev = lambda b: torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(
-        device=device, dtype=dt)
+    scale = float(pcm16_scale)
+    if pcm16:
+        # only int16 crosses the host link: dequantize and quantize on the
+        # device, as JAX's wrapper does inside its jit (deploy.py:199-217)
+        to_dev = lambda b: (torch.from_numpy(np.ascontiguousarray(b, np.int16)).to(device)
+                            .float() / scale).to(dt)
+        from_dev = lambda y: (y.float() * scale).clamp(-32767.0, 32767.0).to(torch.int16)
+    else:
+        to_dev = lambda b: torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(
+            device=device, dtype=dt)
+        from_dev = lambda y: y.float()
     embed_fn = embed_dim = None
     if isinstance(engine, StreamingTSE):
         def embed_fn(enroll):
@@ -125,19 +146,21 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
         probe = embed_fn(np.zeros((1, enroll_len or 5 * sr), np.float32))
         embed_dim = int(probe.shape[-1])
 
-        def step_fn(chunk_b, dvec, st):
+        def step_fn(chunk_b, dvec, st, **options):
             with torch.no_grad():
-                out, st = engine.step(to_dev(chunk_b), dvec.to(dt), st, **step_kw)
-                return out.float(), st
+                out, st = engine.step(to_dev(chunk_b), dvec.to(dt), st, **step_kw,
+                                      **options)
+                return from_dev(out), st
     else:
-        def step_fn(chunk_b, st):
+        def step_fn(chunk_b, st, **options):
             with torch.no_grad():
-                out, st = engine.step(to_dev(chunk_b), st, **step_kw)
-                return out.float(), st
+                out, st = engine.step(to_dev(chunk_b), st, **step_kw, **options)
+                return from_dev(out), st
 
     server = SessionServer(step_fn, init_state(n_slots), n_slots, chunk,
                            embed_dim, infer_slot_axes(init_state),
                            embed_fn=embed_fn, lockstep=lockstep,
-                           ring_capacity=ring_capacity)
+                           ring_capacity=ring_capacity, pipelined=pipelined,
+                           pcm16=pcm16, pcm16_scale=scale)
     return ServingBundle(server=server, engine=engine, chunk_samples=chunk,
                          embed_fn=embed_fn, embed_dim=embed_dim)

@@ -61,10 +61,14 @@ class StreamingTSE(nn.Module):
         }
 
     def step(self, chunk: torch.Tensor, dvec: Optional[torch.Tensor],
-             state: dict, fused: bool = False, dot_dtype=torch.float32):
+             state: dict, fused: bool = False, dot_dtype=torch.float32,
+             int8_hh: bool = False, int8_full: bool = False):
         """Advance every stream by one chunk [B, S] (S a multiple of the hop).
-        fused=True runs the SkiM block stack through the fused kernel.
-        Returns ([B, S], new state)."""
+        fused=True runs the SkiM block stack through the fused kernel;
+        int8_hh / int8_full quantize its recurrent (and, with int8_full, all
+        its) products (`fused_skim_frames`). Returns ([B, S], new state)."""
+        if (int8_hh or int8_full) and not fused:
+            raise ValueError("int8_hh / int8_full go with fused=True")
         win, hop = self.encoder.win_length, self.encoder.hop_length
         S = chunk.shape[1]
         if S % hop:
@@ -75,7 +79,8 @@ class StreamingTSE(nn.Module):
         frames = feats.transpose(1, 2)                  # [B, K, C]
         if fused:
             mask, skim_state = self.masker.step_frames_fused(
-                frames, dvec, state["skim"], dot_dtype=dot_dtype)
+                frames, dvec, state["skim"], dot_dtype=dot_dtype,
+                int8_hh=int8_hh, int8_full=int8_full)
         else:
             mask, skim_state = self.masker.step_frames(frames, dvec,
                                                        state["skim"])

@@ -6,6 +6,13 @@ by puresound_tpu_torch.src.native); the serving thread gathers a fixed
 [n_slots, chunk] batch, runs one step on the device, and scatters the
 output. A slot without a full chunk contributes zeros for that tick and
 its output is withheld.
+
+SessionServer(pipelined=True) does not wait for a tick's own output: the
+device-to-host copy of tick t goes into a pinned host buffer behind a CUDA
+event, and the tick scatters tick t-1's output, so the copy and the ring I/O
+of one tick overlap the device work of the next (`flush()` drains the last
+one). pcm16=True moves the audio as int16 PCM at `pcm16_scale` both ways;
+the caller's step converts on the device (deploy.make_session_server).
 """
 from __future__ import annotations
 
@@ -23,9 +30,44 @@ from ..utils.tree import tree_leaves, tree_map
 
 
 def _to_numpy(out) -> np.ndarray:
-    if isinstance(out, torch.Tensor):
-        return out.detach().float().cpu().numpy()
-    return np.asarray(out)
+    """A step output as numpy in its own dtype (bfloat16, which numpy
+    lacks, as float32)."""
+    if not isinstance(out, torch.Tensor):
+        return np.asarray(out)
+    t = out.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+class _HostCopy:
+    """A step output on its way to the host in its own dtype: a CUDA tensor
+    is copied into one of two pinned buffers behind an event (the buffer of
+    the copy before stays readable until this one is taken); anything else
+    is converted at once."""
+
+    def __init__(self):
+        self._bufs = [None, None]
+        self._next = 0
+
+    def start(self, out):
+        if not (isinstance(out, torch.Tensor) and out.is_cuda):
+            return _to_numpy(out), None
+        buf = self._bufs[self._next]
+        if buf is None or buf.shape != out.shape or buf.dtype != out.dtype:
+            buf = self._bufs[self._next] = torch.empty(out.shape, dtype=out.dtype,
+                                                       pin_memory=True)
+        self._next ^= 1
+        buf.copy_(out.detach(), non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(out.device))
+        return buf, event
+
+    @staticmethod
+    def finish(pending) -> np.ndarray:
+        out, event = pending
+        if event is None:
+            return out
+        event.synchronize()
+        return _to_numpy(out)
 
 
 class StreamHub:
@@ -249,11 +291,20 @@ class SessionServer(StreamingServer):
     SkiM's segment clock is shared by all slots: a chunk that covers whole
     segments keeps mid-serving attaches exact. STFT engines carry per-frame
     state only; any hop-multiple chunk works.
+
+    pipelined=True: a tick dispatches its step and scatters the previous
+    tick's output (one tick later to the clients, the same values); an idle
+    tick drains it, and `flush()` after the last tick. pcm16=True: the
+    gathered batch goes to step_fn as int16 (clip(x * pcm16_scale,
+    +-32767), truncated), step_fn returns int16, and the output is scaled
+    back by 1 / pcm16_scale on the host.
     """
 
     def __init__(self, step_fn, fresh_state, n_slots: int, chunk_samples: int,
                  embed_dim: Optional[int], slot_axes, embed_fn=None,
-                 ring_capacity: int = 1 << 16, lockstep: bool = False):
+                 ring_capacity: int = 1 << 16, lockstep: bool = False,
+                 pipelined: bool = False, pcm16: bool = False,
+                 pcm16_scale: float = 8192.0):
         super().__init__(step_fn, n_slots, chunk_samples,
                          ring_capacity=ring_capacity, lockstep=lockstep)
         tensors = [t for t in tree_leaves(fresh_state)
@@ -271,8 +322,13 @@ class SessionServer(StreamingServer):
         self._pending_reset = np.zeros(n_slots, bool)
         # per-slot session generation: an output computed for a slot's
         # previous occupant never reaches a session attached meanwhile
+        # (a pipelined output outlives its tick's ownership snapshot)
         self._gen = np.zeros(n_slots, np.int64)
         self._lock = threading.Lock()
+        self.pipelined = pipelined
+        self._pcm16_scale = float(pcm16_scale) if pcm16 else None
+        self._copy = _HostCopy()
+        self._inflight = None  # (pending host copy, mask, gen) of tick t-1
 
     def _put_rows(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.array(arr)).to(self.device)
@@ -313,38 +369,62 @@ class SessionServer(StreamingServer):
 
     # ------------------------------------------------------------------ tick
     def tick(self) -> int:
+        idle = False
         with self._lock:
             active = self._active.copy()
             if self.lockstep and any(
                     self.hub.input_available(i) < self.chunk
                     for i in np.flatnonzero(active)):
-                return 0
-            t0 = time.perf_counter()
-            batch, mask, _ = self.hub.gather(self.chunk)
-            mask &= active
-            if not mask.any():
-                return 0
-            reset_now = self._pending_reset & mask
-            self._pending_reset &= ~mask
-            if self._dvec_dirty:
-                self._dvec_dev = self._put_rows(self._dvec)
-                self._dvec_dirty = False
-            dvec = self._dvec_dev
-            gen = self._gen.copy()
-            n_late = int((active & ~mask).sum())
+                idle = True
+            else:
+                t0 = time.perf_counter()
+                batch, mask, _ = self.hub.gather(self.chunk)
+                mask &= active
+                idle = not mask.any()
+            if not idle:
+                reset_now = self._pending_reset & mask
+                self._pending_reset &= ~mask
+                if self._dvec_dirty:
+                    self._dvec_dev = self._put_rows(self._dvec)
+                    self._dvec_dirty = False
+                dvec = self._dvec_dev
+                gen = self._gen.copy()
+                n_late = int((active & ~mask).sum())
+        if idle:
+            # nothing to step: still drain a pipelined output, so a paused
+            # stream gets its last chunk
+            return self.flush() if self.pipelined else 0
         if reset_now.any():
             self._state = self._reset(self._state, self._fresh, reset_now)
+        if self._pcm16_scale is not None:
+            batch = np.clip(batch * self._pcm16_scale, -32767.0, 32767.0).astype(np.int16)
         if dvec is None:
             out, self._state = self.step_fn(batch, self._state)
         else:
             out, self._state = self.step_fn(batch, dvec, self._state)
-        out = _to_numpy(out)
-        with self._lock:
-            # a slot detached (or re-attached) while the step ran gets no
-            # output
-            mask = mask & self._active & (self._gen == gen)
-            self.hub.scatter(out, mask)
+        pending = (self._copy.start(out), mask, gen)
+        if self.pipelined:
+            # scatter the last tick's output while the device runs this one
+            prev, self._inflight = self._inflight, pending
+            n = self._scatter_owned(*prev) if prev is not None else 0
+        else:
+            n = self._scatter_owned(*pending)
         self.ticks += 1
         self.stats.record(time.perf_counter() - t0, n_late=n_late)
+        return n
+
+    def _scatter_owned(self, pending, mask, gen) -> int:
+        out = _HostCopy.finish(pending)
+        if self._pcm16_scale is not None:
+            out = out.astype(np.float32) * (1.0 / self._pcm16_scale)
+        with self._lock:
+            # a slot detached (or re-attached: a generation bump) while the
+            # step ran gets no output
+            mask = mask & self._active & (self._gen == gen)
+            self.hub.scatter(out, mask)
         return int(mask.sum())
 
+    def flush(self) -> int:
+        """Scatter the pipelined in-flight output (after the last tick)."""
+        prev, self._inflight = self._inflight, None
+        return self._scatter_owned(*prev) if prev is not None else 0

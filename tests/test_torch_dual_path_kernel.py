@@ -5,8 +5,9 @@ the Pallas kernel against the stock step (the Pallas kernel casts its dots
 to float32 even on float64 inputs, so the comparison is float32): 3
 carried chunks, y and the four carries. Then StreamingNS.step(dp_kernel=
 True) against JAX's, a 120-chunk run of the kernel route against the stock
-route (no drift), and the unported options raising. The CUDA kernel is
-held against the plain version on the card by chip_smoke.py (phase 2e)."""
+route (no drift). The int8_hh / xscr_half options are held to JAX in
+test_torch_quantized_kernels.py. The CUDA kernel is held against the plain
+version on the card by chip_smoke.py (phases 2e, 2h)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,12 +121,3 @@ def test_dp_kernel_long_stream_no_drift(rng):
             y_k, s_k = m.stream_frames(x, s_k, dp_kernel=True)
     assert torch.isfinite(y_k).all()
     np.testing.assert_allclose(y_k.numpy(), y_ref.numpy(), atol=5e-5, rtol=1e-3)
-
-
-@pytest.mark.parametrize("option", ["int8_hh", "xscr_half"])
-def test_unported_options_raise(rng, option):
-    ws = [torch.from_numpy(w) for w in _weights(rng, 16, 8, 1)]
-    z = torch.zeros(4, 2, 8)
-    for fn in (dpk.dual_path_chunk, dpk.dual_path_chunk_ref):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(torch.zeros(4, 2, 2, 16), [z], [z], ws, **{option: True})

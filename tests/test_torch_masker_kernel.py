@@ -138,11 +138,5 @@ def test_stream_frames_mk_kernel_matches_jax(name, rng):
 
 
 def test_unported_options_raise(rng):
-    _, _, pm = _pair("dpcrn")
-    st = pm.init_stream_state(B, mk_kernel=True)
-    x = torch.zeros(B, C_IN, 2)
-    for kw in (dict(int8_hh=True), dict(xscr_half=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pm.stream_frames(x, st, mk_kernel=True, **kw)
     with pytest.raises(ValueError, match="66 conv weights"):
         mk.parse_conv_weights([torch.zeros(1)] * 65)

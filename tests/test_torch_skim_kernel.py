@@ -105,7 +105,7 @@ def test_plain_matches_pallas_bf16_dots(rng, io):
     assert _snr_db(got, want) >= 100.0
 
 
-@pytest.mark.parametrize("opt", ["gate", "int8_hh", "int8_full"])
+@pytest.mark.parametrize("opt", ["gate"])
 def test_unported_options_raise(rng, opt):
     xs, se, be, h, c = _inputs(rng, 1)
     ws = [torch.from_numpy(w) for w in _weights(rng, MODES)]

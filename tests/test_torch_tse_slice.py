@@ -240,8 +240,7 @@ def test_half_serving_runs_finite(rng, ring_hub):
     assert ops.LAUNCHES == 0  # CPU tensors take the plain version
 
 
-@pytest.mark.parametrize("option", [dict(mesh=object()), dict(pipelined=True),
-                                    dict(pcm16=True)])
+@pytest.mark.parametrize("option", [dict(mesh=object())])
 def test_unported_serving_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_session_server(_port_model(torch.float32), None, n_slots=1,
@@ -315,7 +314,7 @@ def test_port_imports_no_jax():
             "puresound_tpu_torch.ops.dual_path_kernel, "
             "puresound_tpu_torch.nnet.dparn, puresound_tpu_torch.nnet.lobe.attention, "
             "puresound_tpu_torch.ops.dparn_attention_kernel, "
-            "puresound_tpu_torch.ops.masker_kernel, "
+            "puresound_tpu_torch.ops.masker_kernel, puresound_tpu_torch.ops.quant, "
             "puresound_tpu_torch.dsp.stft, sys; "
             "assert not {'jax', 'flax', 'puresound_tpu'} & set(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
