@@ -1,8 +1,10 @@
 """Chip smoke test of puresound_tpu_torch on one NVIDIA card.
 
 Drives the port's serving and training paths for the flagship
-`tse_skim_v0_causal` and the NS serving paths of `ns_dpcrn_v0_causal` and
-`ns_dparn_v0_causal`, at full width (random weights from a seed):
+`tse_skim_v0_causal` (also under the training LSTM path's two switches),
+the serving path of the flagship's configuration with Gate fusion, and the
+NS serving paths of `ns_dpcrn_v0_causal` and `ns_dparn_v0_causal`, at full
+width (random weights from a seed):
 
   0. device: torch / CUDA versions, the card's name and power limit;
   1. build: nvcc builds the seven CUDA sources from the checkout, in
@@ -10,16 +12,31 @@ Drives the port's serving and training paths for the flagship
   2. `fused_skim_frames` vs `fused_skim_frames_ref` on the card at the
      flagship shapes (f32 and bf16, 20 carried chunks), at a ragged batch and
      at a small shape, with CUDA-event timings of both;
+  2i. the Gate mode of `fused_skim_frames` vs its plain version with every
+     block a Gate at the flagship's width (Hg=128, B=1024), a ragged 1,001
+     and the mixed pattern ("gate", "", "gate") at C=H=16, over 10 carried
+     chunks (f32 max|d|/max|ref| <= 1e-4, bf16 SNR >= 30 dB), with
+     CUDA-event times beside the FiLM kernel's from phase 2;
   2b. `lstm_scan_train_fp` forward and backward vs their plain versions at
      the training shapes of phase 6 (SegLSTM 896 x 150, C=128, H=256;
      MemLSTM 64 x 14, C=H=256) and of the recipe (SegLSTM 240 x 150; MemLSTM
      12 x 20) and a ragged 13 x 7 reverse case, f32 and bf16, with CUDA-event
      timings, the bounds from the shapes, and cuDNN's LSTM as the yardstick;
+  2j. `lstm_scan_train_tm` (the hoisted projection) forward and backward vs
+     their plain versions at the SegLSTM shape (896 x 150, C=128, H=256)
+     in both directions, the MemLSTM shape (64 x 14, C=H=256) and a ragged
+     case, f32 and bf16 at 2b's bars, with the batch-major `lstm_scan_train`
+     (its xp swap included) timed beside;
+     `lstm_scan_train_fp_tm` against the batch-major launches bit for bit
+     and against its plain version; the bounds and cuDNN's LSTM;
   2c. `tcn_block_train` forward and backward vs their plain versions at the
      speaker net's shapes in phase 6 (B=64, C=128, Ch=256, T=1,999) and in
      the recipe (B=12, T=4,999), dilations 1 and 16 each, and a ragged case,
      f32 and bf16, with CUDA-event timings, the bounds, and the stock module
-     under autograd as the yardstick;
+     under autograd as the yardstick; then the PReLU slope gradients of the
+     speaker shape over 8 seeds of their own, each dtype's kernel against
+     the exact reference by the median over the seeds (at most twice the
+     plain version's distance);
   2d. `lstm_scan` vs its plain version at DPCRN's fused serving scans with
      2048 streams (intra 4,096 rows x 64 steps, forward and reverse; inter
      131,072 rows x 2 steps with carries) and a ragged reverse case, f32 and
@@ -44,7 +61,7 @@ Drives the port's serving and training paths for the flagship
      `fused_skim_frames` int8_hh / int8_full (n=4, C=128, H=256, F=15,
      B=1024), `dual_path_chunk` int8_hh / xscr_half / both (2048 streams),
      `center_chunk` int8_hh / xscr_half (2048), `dparn_center_chunk`
-     xscr_half (1024). f32 I/O: each variant's own SNR bar (Q_F32_BARS), and
+     xscr_half (1024), and the Gate mode's int8_hh / int8_full (B=1024). f32 I/O: each variant's own SNR bar (Q_F32_BARS), and
      the kernel without the option (the control) must read below it; under
      xscr_half dual_path_chunk's y and the centers' u0h carry-out must lie
      on the bfloat16 grid and the control's must not. bf16 I/O: SNR >= 30
@@ -67,6 +84,14 @@ Drives the port's serving and training paths for the flagship
      pipelined outputs bit-equal to the unpipelined ones, the pcm16 SNR, the
      three tick p50 / p99 beside phase 4's, and each one's whole timed window
      (pushes, ticks, pops, a final device sync) per tick;
+  3g. the Gate model (the flagship's configuration with Gate fusion,
+     6,409,240 parameters) in f32: 4 streams x 20 ticks through
+     `StreamingTSE.step(fused=True)` (one Gate-mode launch a tick) and
+     `step(fused=False)`, each equal to the offline `inference`;
+  4i. its serving, `make_session_server(half=True, fused=True)` at 256 and
+     1024 sessions (25 ticks after 3 warm-up, one launch a tick, the engine
+     step alone, bf16 slot 0 against the f32 engine, bar 25 dB), and at
+     1024 with `int8_hh` / `int8_full` (JAX's bars 20 / 15 dB);
   3b. NS: `ns_dpcrn_v0_causal` in f32 (1,380,043 parameters), 4 streams x
      2 s at 16 ms ticks through the stock, fused, dp_kernel and mk_kernel
      routes of `StreamingNS.step`, each equal to the offline `inference` past
@@ -103,6 +128,13 @@ Drives the port's serving and training paths for the flagship
      with bf16 compute: 2 warm-up and 5 timed steps, 10 + 10 LSTM and 5 + 5
      TCN launches per step, step time, peak memory and the LSTM and TCN
      kernels' shares of device time over 2 profiled steps;
+  6c. the same step under `FUSED_PROJ_SCAN=False`, `TM_BLOCKS=True` and
+     both (module attributes, restored after), f32 and bf16: loss and
+     gradients against the default route from the same weights and batch
+     (f32: every leaf within 1e-4 under TM_BLOCKS alone, the same
+     arithmetic; 1e-2, and 3e-2 on the scalar PReLU slopes, on the hoisted
+     routes), the LSTM launches by entry in every step, step p50 and peak
+     memory;
   6b. the recipe: `python -m puresound_tpu_torch.egs.tse.main <config>
      --action train` (in this process) on a synthetic manifest folder, the
      flagship at B=12 x 3 s with 5 s enrollments and 4 loader workers, 1
@@ -142,6 +174,23 @@ TCN_SOURCE = "puresound_tpu_torch/csrc/tcn_train.cu"
 SKIM_CASES = [("flagship B=1024", 4, 128, 256, 1024, 15, ("film",) * 4),
               ("ragged B=1001", 4, 128, 256, 1001, 15, ("film",) * 4),
               ("small C=16 H=16 B=13", 3, 16, 16, 13, 4, ("film", "", "film"))]
+# phase 2i: the Gate mode, the same columns; 10 carried chunks at the bars of
+# phases 2e-2g (f32 max|d|/max|ref| 1e-4, bf16 SNR 30 dB)
+GATE_HG = 128                       # the Gate width of a Gate SkiM (JAX skim.py:192-194)
+GATE_CASES = [("gate flagship B=1024", 4, 128, 256, 1024, 15, ("gate",) * 4),
+              ("gate ragged B=1001", 4, 128, 256, 1001, 15, ("gate",) * 4),
+              ("gate mixed C=16 H=16 B=13", 3, 16, 16, 13, 4, ("gate", "", "gate"))]
+GATE_CHUNKS, GATE_BARS = 10, (1e-4, 30.0)
+# phase 2j: lstm_scan_train(_tm) and lstm_scan_train_fp_tm at the SegLSTM
+# shapes of phase 6, both directions, and its MemLSTM shape (the hoisted
+# scans of phase 6c): (name, rows, T, C, H, reverse, reps)
+UNFUSED_CASES = [("SegLSTM", 896, 150, 128, 256, False, 10),
+                 ("SegLSTM reverse", 896, 150, 128, 256, True, 10),
+                 ("MemLSTM", 64, 14, 256, 256, False, 20),
+                 ("ragged", 13, 7, 24, 16, True, 5)]
+UNFUSED_REPLACES = ("puresound_tpu/ops/lstm_train_kernel.py:177",
+                    "puresound_tpu/ops/lstm_train_kernel.py:224")
+FP_TM_ENTRY = "puresound_tpu/ops/lstm_train_kernel.py:708"
 # phase 2b: (name, rows, T, C, H, reverse, timed repetitions)
 LSTM_CASES = [("SegLSTM", 896, 150, 128, 256, False, 20),
               ("MemLSTM", 64, 14, 256, 256, False, 20),
@@ -225,15 +274,36 @@ def expect_launches(got, want, what: str):
         raise AssertionError(f"{what}: kernel launches {got}, not {want}")
 
 
+def count_of(mod, attr) -> int:
+    """A kernel module's launch count: an int, or the sum of a count by
+    entry (the LSTM training kernel's FWD_BY_ENTRY / BWD_BY_ENTRY)."""
+    v = getattr(mod, attr)
+    return sum(v.values()) if isinstance(v, dict) else v
+
+
+def zero_count(mod, attr):
+    v = getattr(mod, attr)
+    if isinstance(v, dict):
+        v.clear()
+    else:
+        setattr(mod, attr, 0)
+
+
+def _fwd_bwd(k) -> tuple:
+    return (("FWD_BY_ENTRY", "BWD_BY_ENTRY") if hasattr(k, "FWD_BY_ENTRY")
+            else ("FWD_LAUNCHES", "BWD_LAUNCHES"))
+
+
 def zero_counts(*kernels):
     """Set the launch counts of the kernel modules to 0."""
     for k in kernels:
-        k.FWD_LAUNCHES = k.BWD_LAUNCHES = 0
+        for attr in _fwd_bwd(k):
+            zero_count(k, attr)
 
 
 def counts(lk, tk) -> tuple:
     """(LSTM forward, LSTM backward, TCN forward, TCN backward) launches."""
-    return lk.FWD_LAUNCHES, lk.BWD_LAUNCHES, tk.FWD_LAUNCHES, tk.BWD_LAUNCHES
+    return tuple(count_of(k, a) for k in (lk, tk) for a in _fwd_bwd(k))
 
 
 def snr_db(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -244,12 +314,15 @@ def snr_db(got: torch.Tensor, want: torch.Tensor) -> float:
 
 # ------------------------------------------------------------------ phase 2
 @torch.no_grad()
-def kernel_case(ops, SkiM, name, n, C, H, B, F, modes, chunks, gen, dev):
-    """Kernel vs plain over `chunks` carried chunks, f32 then bf16."""
+def kernel_case(ops, SkiM, name, n, C, H, B, F, modes, chunks, gen, dev,
+                bars=(1e-3, 40.0)):
+    """Kernel vs plain over `chunks` carried chunks, f32 then bf16: f32
+    max|d|/max|ref| within bars[0], bf16 SNR at least bars[1] dB. The
+    masker's fusion is Gate when a mode is "gate", else FiLM."""
     masker = SkiM(input_size=C, hidden_size=H, output_size=C, n_blocks=n,
                   seg_size=F * 10, causal=True, embed_dim=192, embed_norm=True,
-                  embed_fusion="FiLM",
-                  block_with_embed=tuple(int(m == "film") for m in modes),
+                  embed_fusion="Gate" if "gate" in modes else "FiLM",
+                  block_with_embed=tuple(int(m != "") for m in modes),
                   device=dev, generator=gen).eval()
     w32 = masker._fused_weights()
     embed = torch.randn(B, 192, generator=gen).to(dev)
@@ -282,15 +355,15 @@ def kernel_case(ops, SkiM, name, n, C, H, B, F, modes, chunks, gen, dev):
             res["f32_rel_err"] = max(errs)
             res["f32_max_abs_err"] = max((g - w).abs().max().item()
                                          for g, w in zip(got, want))
-            if max(errs) > 1e-3:
+            if max(errs) > bars[0]:
                 raise AssertionError(f"{name} f32: max|d| / max|ref| per "
-                                     f"(y, h, c) = {errs} > 1e-3")
+                                     f"(y, h, c) = {errs} > {bars[0]:g}")
         else:
             snrs = [snr_db(g, w) for g, w in zip(got, want)]
             res["bf16_snr_db"] = min(snrs)
-            if min(snrs) < 40.0:
+            if min(snrs) < bars[1]:
                 raise AssertionError(f"{name} bf16: SNR (y, h, c) = {snrs} dB "
-                                     "< 40 dB")
+                                     f"< {bars[1]:g} dB")
         x1, h1, c1 = xs[0].to(dt), h0.to(dt), c0.to(dt)
         for fn, key in ((ops.fused_skim_frames, "ms"),
                         (ops.fused_skim_frames_ref, "plain_ms")):
@@ -310,15 +383,24 @@ def bound_ms(flops: float, nbytes: float, dt) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def skim_work(n, C, H, F, B, dt):
-    """(operations, bytes) of one fused_skim_frames call: per frame, stream
-    and FiLM block the two C x C FiLM dots, the LSTM's (C + H) x 4H dot and
-    the H x C projection; the weights, x, se/be and h/c read once, y and
-    h/c written once."""
+def fusion_macs(C, fusion, Hg=GATE_HG):
+    """Multiply-adds a stream row of one conditioned block adds per frame:
+    FiLM's two C x C dots, or the Gate's x @ Win, u @ Wl, u @ Wrx and
+    (left * right) @ Wout."""
+    return 2 * C * Hg + 2 * Hg * Hg if fusion == "gate" else 2 * C * C
+
+
+def skim_work(n, C, H, F, B, dt, fusion="film", Hg=GATE_HG):
+    """(operations, bytes) of one fused_skim_frames call with every block
+    conditioned by `fusion`: per frame, stream and block the fusion's dots,
+    the LSTM's (C + H) x 4H dot and the H x C projection; the weights, x,
+    the embed terms (se/be, or ge) and h/c read once, y and h/c written
+    once."""
     e = torch.finfo(dt).bits // 8
-    flops = 2.0 * B * F * n * (2 * C * C + (C + H) * 4 * H + H * C)
-    weights = n * (2 * C * C + (C + H) * 4 * H + H * C) * e
-    nbytes = weights + (2 * B * F * C + 2 * n * B * C + 4 * n * B * H) * e
+    macs = fusion_macs(C, fusion, Hg) + (C + H) * 4 * H + H * C
+    flops = 2.0 * B * F * n * macs
+    terms = n * B * Hg if fusion == "gate" else 2 * n * B * C
+    nbytes = n * macs * e + (2 * B * F * C + terms + 4 * n * B * H) * e
     return flops, nbytes
 
 
@@ -334,6 +416,30 @@ def lstm_work(B, T, C, H, dt):
     bwd_bytes = (R * (G + H + H + C + H) * e + w + 4 * B * H * e   # in
                  + R * C * e + 2 * B * H * e + w)                   # out
     return fwd_flops, fwd_bytes, bwd_flops, bwd_bytes
+
+
+def hold_values_grads(res, label, name, vals, grads):
+    """(kernel, plain) pairs of values and gradients at phase 2b's bars: f32
+    max|d|/max|ref| 1e-4 on the values and 1e-3 on the gradients; bf16 SNR
+    40 dB on the values and 30 on the gradients."""
+    for g, _ in vals + grads:
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {label}: non-finite kernel output")
+    if label == "f32":
+        rel = lambda pairs: [((g - w).abs().max() / w.abs().max()).item() for g, w in pairs]
+        rv, rg = rel(vals), rel(grads)
+        res["f32_val_rel"], res["f32_grad_rel"] = max(rv), max(rg)
+        res["f32_max_abs_err"] = max((g - w).abs().max().item() for g, w in vals + grads)
+        if max(rv) > 1e-4 or max(rg) > 1e-3:
+            raise AssertionError(f"{name} f32: max|d|/max|ref| values {rv} > 1e-4 or "
+                                 f"gradients {rg} > 1e-3")
+    else:
+        sv = [snr_db(g, w) for g, w in vals]
+        sg = [snr_db(g, w) for g, w in grads]
+        res["bf16_val_snr"], res["bf16_grad_snr"] = min(sv), min(sg)
+        if min(sv) < 40.0 or min(sg) < 30.0:
+            raise AssertionError(f"{name} bf16: SNR values {sv} dB < 40 or gradients "
+                                 f"{sg} dB < 30")
 
 
 def lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
@@ -357,29 +463,8 @@ def lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
         want_b = lk.lstm_scan_train_fp_bwd_ref(*args, want_f[0], *want_f[3:], *cot,
                                                reverse)
         torch.cuda.synchronize()
-        vals = list(zip(got_f[:3], want_f[:3]))
-        grads = list(zip(got_b, want_b))
-        for g, _ in vals + grads:
-            if not torch.isfinite(g).all():
-                raise AssertionError(f"{name} {label}: non-finite kernel output")
-        if dt == torch.float32:
-            rel = lambda pairs: [((g - w).abs().max() / w.abs().max()).item()
-                                 for g, w in pairs]
-            rv, rg = rel(vals), rel(grads)
-            res["f32_val_rel"], res["f32_grad_rel"] = max(rv), max(rg)
-            res["f32_max_abs_err"] = max((g - w).abs().max().item()
-                                         for g, w in vals + grads)
-            if max(rv) > 1e-4 or max(rg) > 1e-3:
-                raise AssertionError(
-                    f"{name} f32: max|d|/max|ref| (y, hT, cT) {rv} > 1e-4 or "
-                    f"(dx, dh0, dc0, dw_ih, dbias, dw_hh) {rg} > 1e-3")
-        else:
-            sv = [snr_db(g, w) for g, w in vals]
-            sg = [snr_db(g, w) for g, w in grads]
-            res["bf16_val_snr"], res["bf16_grad_snr"] = min(sv), min(sg)
-            if min(sv) < 40.0 or min(sg) < 30.0:
-                raise AssertionError(f"{name} bf16: SNR (y, hT, cT) {sv} dB < 40 "
-                                     f"or gradients {sg} dB < 30")
+        hold_values_grads(res, label, name, list(zip(got_f[:3], want_f[:3])),
+                          list(zip(got_b, want_b)))
         kf = lambda: lk._launch_fwd(*args, reverse, residuals=True)
         kb = lambda: lk._launch_bwd(*args, *got_f[:1], *got_f[3:], *cot, reverse)
         pf = lambda: lk.lstm_scan_train_fp_ref(*args, reverse)
@@ -432,6 +517,117 @@ def cudnn_lstm_ms(x, h0, c0, w_ih, bias, w_hh, dy, dhT, dcT, reverse, reps):
         print(f"  cuDNN LSTM ({x.dtype}) not timed: {err}".splitlines()[0], flush=True)
         return None, None, None
     return fwd, bwd, both
+
+
+# ------------------------------------------------------------------ phase 2j
+def hoisted_work(B, T, H, dt):
+    """(forward flops, forward bytes, backward flops, backward bytes) of one
+    lstm_scan_train_tm call: the forward's h @ W_hh (xp is given), the
+    backward's dgates @ W_hh^T and h_prev^T @ dgates; each input read once
+    (xp, W_hh, h0/c0; then gates, cseq, y, dy, dhT/dcT), each output written
+    once (y, hT/cT, gates, cseq; then dxp, dh0/dc0 and dW_hh in float32)."""
+    e = torch.finfo(dt).bits // 8
+    R, G = B * T, 4 * H
+    fwd_flops = 2.0 * R * H * G
+    fwd_bytes = (R * G + H * G + 2 * B * H) * e + (R * (H + G + H) + 2 * B * H) * e
+    bwd_flops = 4.0 * R * H * G
+    bwd_bytes = ((R * (G + H + H + H) + H * G + 2 * B * H) * e + 2 * B * H * 4
+                 + R * G * e + 2 * B * H * 4 + H * G * 4)
+    return fwd_flops, fwd_bytes, bwd_flops, bwd_bytes
+
+
+def lstm_unfused_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
+    """Phase 2j at one shape, f32 then bf16:
+    - `lstm_scan_train_tm` (the hoisted projection: xp_t = x_t @ w_ih + bias
+      made in the input dtype) forward and backward kernels against their
+      plain versions, with CUDA-event times, the bound, and the batch-major
+      `lstm_scan_train` timed whole (its [B, T, 4H] swap of xp included);
+    - `lstm_scan_train_fp_tm` forward and backward against the batch-major
+      `lstm_scan_train_fp` launches on the same data, bit for bit (the same
+      arithmetic), and against its plain version;
+    cuDNN's LSTM (it projects the input too) as the yardstick."""
+    k = 1.0 / math.sqrt(H)
+    uni = lambda *s: (torch.rand(s, generator=gen) * 2 - 1) * k
+    x = 0.5 * torch.randn(B, T, C, generator=gen)
+    h0, c0 = 0.3 * torch.randn(B, H, generator=gen), 0.3 * torch.randn(B, H, generator=gen)
+    w_ih, bias, w_hh = uni(C, 4 * H), uni(4 * H), uni(H, 4 * H)
+    dy = torch.randn(B, T, H, generator=gen)
+    dhT, dcT = torch.randn(B, H, generator=gen), torch.randn(B, H, generator=gen)
+    res = {"name": name, "shape": f"B={B} T={T} C={C} H={H} reverse={reverse}"}
+    sw = lambda a: a.transpose(0, 1).contiguous()
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        xd, h0d, c0d, wid, bd, whd = (a.to(dev, dt) for a in (x, h0, c0, w_ih, bias, w_hh))
+        x_t, dy_t = sw(xd), sw(dy.to(dev, dt))
+        cot = (dhT.to(dev), dcT.to(dev))
+        # the hoisted scan
+        xp_t = x_t @ wid + bd
+        hargs = (xp_t, h0d, c0d, None, None, whd)
+        got_f = lk._launch_fwd(*hargs, reverse, residuals=True, time_major=True)
+        got_b = lk._launch_bwd(*hargs, *got_f[:1], *got_f[3:], dy_t, *cot, reverse,
+                               time_major=True)
+        want_f = lk.lstm_scan_train_ref(xp_t, h0d, c0d, whd, reverse)
+        want_b = lk.lstm_scan_train_bwd_ref(xp_t, h0d, c0d, whd, want_f[0], *want_f[3:],
+                                            dy_t, *cot, reverse)
+        torch.cuda.synchronize()
+        hold_values_grads(res, label, f"{name} lstm_scan_train_tm",
+                          list(zip(got_f[:3], want_f[:3])), list(zip(got_b, want_b)))
+        res[f"{label}_fwd_ms"] = cuda_ms(
+            lambda: lk._launch_fwd(*hargs, reverse, residuals=True, time_major=True), reps)
+        res[f"{label}_bwd_ms"] = cuda_ms(
+            lambda: lk._launch_bwd(*hargs, *got_f[:1], *got_f[3:], dy_t, *cot, reverse,
+                                   time_major=True), reps)
+        res[f"{label}_plain_fwd_ms"] = cuda_ms(
+            lambda: lk.lstm_scan_train_ref(xp_t, h0d, c0d, whd, reverse), max(2, reps // 4), 1)
+        res[f"{label}_plain_bwd_ms"] = cuda_ms(
+            lambda: lk.lstm_scan_train_bwd_ref(xp_t, h0d, c0d, whd, want_f[0], *want_f[3:],
+                                               dy_t, *cot, reverse), max(2, reps // 4), 1)
+        xp = sw(xp_t)
+        with torch.no_grad():
+            res[f"{label}_batch_major_fwd_ms"] = cuda_ms(
+                lambda: lk.lstm_scan_train(xp, h0d, c0d, whd, reverse), reps)
+        ff, fb, bf, bb = hoisted_work(B, T, H, dt)
+        res[f"{label}_fwd_bound"] = bound_ms(ff, fb, dt)
+        res[f"{label}_bwd_bound"] = bound_ms(bf, bb, dt)
+        # the time-major entry of the fused kernel
+        fargs = (x_t, h0d, c0d, wid, bd, whd)
+        tm_f = lk._launch_fwd(*fargs, reverse, residuals=True, time_major=True)
+        tm_b = lk._launch_bwd(*fargs, *tm_f[:1], *tm_f[3:], dy_t, *cot, reverse,
+                              time_major=True)
+        bm_f = lk._launch_fwd(xd, *fargs[1:], reverse, residuals=True)
+        bm_b = lk._launch_bwd(xd, *fargs[1:], *bm_f[:1], *bm_f[3:], dy.to(dev, dt), *cot,
+                              reverse)
+        ref_f = lk.lstm_scan_train_fp_ref(*fargs, reverse, True)
+        ref_b = lk.lstm_scan_train_fp_bwd_ref(*fargs, ref_f[0], *ref_f[3:], dy_t, *cot,
+                                              reverse, True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(
+            [tm_f[0], *tm_f[1:], tm_b[0], *tm_b[1:]],
+            [sw(bm_f[0]), *bm_f[1:], sw(bm_b[0]), *bm_b[1:]]))
+        if not same:
+            raise AssertionError(f"{name} {label}: lstm_scan_train_fp_tm differs from the "
+                                 "batch-major launches")
+        sub = {}
+        hold_values_grads(sub, label, f"{name} lstm_scan_train_fp_tm",
+                          list(zip(tm_f[:3], ref_f[:3])), list(zip(tm_b, ref_b)))
+        res.update({f"fp_tm_{k}": v for k, v in sub.items()})
+        res[f"fp_tm_{label}_fwd_ms"] = cuda_ms(
+            lambda: lk._launch_fwd(*fargs, reverse, residuals=True, time_major=True), reps)
+        res[f"fp_tm_{label}_bwd_ms"] = cuda_ms(
+            lambda: lk._launch_bwd(*fargs, *tm_f[:1], *tm_f[3:], dy_t, *cot, reverse,
+                                   time_major=True), reps)
+        res[f"fp_tm_{label}_plain_fwd_ms"] = cuda_ms(
+            lambda: lk.lstm_scan_train_fp_ref(*fargs, reverse, True), max(2, reps // 4), 1)
+        res[f"fp_tm_{label}_plain_bwd_ms"] = cuda_ms(
+            lambda: lk.lstm_scan_train_fp_bwd_ref(*fargs, ref_f[0], *ref_f[3:], dy_t, *cot,
+                                                  reverse, True), max(2, reps // 4), 1)
+        ff, fb, bf, bb = lstm_work(B, T, C, H, dt)
+        res[f"fp_tm_{label}_fwd_bound"] = bound_ms(ff, fb, dt)
+        res[f"fp_tm_{label}_bwd_bound"] = bound_ms(bf, bb, dt)
+        (res[f"{label}_lib_fwd_ms"], res[f"{label}_lib_bwd_ms"],
+         res[f"{label}_lib_fwdbwd_ms"]) = cudnn_lstm_ms(xd, h0d, c0d, wid, bd, whd,
+                                                        dy.to(dev, dt), *cot, reverse, reps)
+    res["fp_tm_bit_equal"] = True
+    return res
 
 
 # ------------------------------------------------------------------ phase 2c
@@ -605,6 +801,79 @@ def tcn_phase(tk, gen, dev, card) -> dict:
             + f"; scratch fwd/bwd {r['fwd_scratch_mb']:.1f}/{r['bwd_scratch_mb']:.1f} MB"
             f" [{card}]", t)
     return out
+
+
+#: phase 2c's seed sweep: the PReLU slope gradients (al1, al2, al3) of the
+#: speaker net's block (B=64 x T=1,999, d = 1 and 16) over seeds of their own
+TCN_SWEEP_SEEDS = 8
+
+
+def tcn_seed_sweep(tk, dev, card):
+    """Phase 2c, seeds: whether the bf16 backward's slope gradients miss the
+    exact reference (the plain version's cast points, float64 math) more
+    than the plain version does, over TCN_SWEEP_SEEDS fresh draws at the
+    speaker net's shape. Each slope gradient is one sum over B*Ch*T terms
+    that cancel, after dot operands rounded to bf16: an f32 difference that
+    moves one operand across a bf16 rounding boundary moves the sum. The
+    reductions that form it (tcn_norm_rows_kernel, tcn_dw_bwd_kernel,
+    tcn_norm_reduce) run in float32 for both dtypes, so the f32 backward
+    holds them apart from bf16 rounding. In both dtypes the kernel's median
+    distance to exact over the seeds must be at most twice the plain
+    version's (2c's per-call fallback, held by the distribution; f32 also
+    passes at or below 1e-4); the bf16 cases where 2c's per-call bar would
+    fail are listed."""
+    alphas = (3, 8, 13)
+    t = time.perf_counter()
+    for dilation in (1, 16):
+        rows = {"f32": [], "bf16": []}
+        for s in range(TCN_SWEEP_SEEDS):
+            gen = torch.Generator().manual_seed(SEED + 100 + s)
+            B, C, Ch, T, k = 64, 128, 256, 1999, 3
+            params = tcn_params(C, Ch, k, gen)
+            x = torch.randn(B, C, T, generator=gen)
+            dy = torch.randn(B, C, T, generator=gen)
+            for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                ps = [p.to(dev, dt) for p in params]
+                xd, dyd = x.to(dev, dt), dy.to(dev, dt)
+                got = tk._launch_bwd(xd, dyd, ps, dilation)
+                plain = tk.tcn_block_train_bwd_ref(xd, dyd, *ps, dilation=dilation)
+                exact = tk.tcn_block_train_bwd_ref(xd, dyd, *ps, dilation=dilation,
+                                                   compute_dtype=torch.float64)
+                for i in alphas:
+                    e = exact[1 + i].item()
+                    rows[label].append((s, tk.PARAM_NAMES[i],
+                                        abs(got[1 + i].double().item() - e) / abs(e),
+                                        abs(plain[1 + i].double().item() - e) / abs(e)))
+                del got, plain, exact
+        torch.cuda.synchronize()
+        o = {"cases": len(rows["bf16"])}
+        for label, floor in (("f32", 1e-4), ("bf16", 0.0)):
+            k_med = float(np.median([r[2] for r in rows[label]]))
+            p_med = float(np.median([r[3] for r in rows[label]]))
+            if k_med > max(2 * p_med, floor):
+                raise AssertionError(
+                    f"d={dilation} {label} slope gradients: kernel median {k_med:.3e} vs "
+                    f"exact > max(2 x plain's {p_med:.3e}, {floor:g}): {rows[label]}")
+            o.update({f"{label}_kernel_median": k_med, f"{label}_plain_median": p_med,
+                      f"{label}_kernel_max": max(r[2] for r in rows[label]),
+                      f"{label}_plain_max": max(r[3] for r in rows[label]),
+                      f"{label}_kernel_closer": sum(r[2] < r[3] for r in rows[label]),
+                      f"{label}_median_ratio": float(np.median(
+                          [r[2] / max(r[3], 1e-30) for r in rows[label]]))})
+        cap = 10 ** (-30.0 / 20)
+        misses = [r for r in rows["bf16"] if not r[2] <= min(2 * r[3], cap)]
+        log("2c tcn seeds", f"B=64 C=128 Ch=256 T=1999 d={dilation}, {TCN_SWEEP_SEEDS} "
+            f"seeds x (al1, al2, al3), |d| / |exact|, kernel / plain: " + "; ".join(
+                f"{lb} median {o[f'{lb}_kernel_median']:.2e} / {o[f'{lb}_plain_median']:.2e}"
+                f", max {o[f'{lb}_kernel_max']:.2e} / {o[f'{lb}_plain_max']:.2e}, kernel "
+                f"closer in {o[f'{lb}_kernel_closer']} of {o['cases']}, median of kernel / "
+                f"plain a case {o[f'{lb}_median_ratio']:.2f}"
+                for lb in ("f32", "bf16"))
+            + f" (bar: kernel median <= 2 x plain's; f32 or <= 1e-4); bf16 cases over 2c's "
+            f"per-call bar (seed, slope, kernel, plain): "
+            f"{[(a, b, f'{c:.2e}', f'{d:.2e}') for a, b, c, d in misses] or 'none'} "
+            f"[{card}]", t)
+        t = time.perf_counter()
 
 
 # ------------------------------------------------------------------ phase 2d
@@ -1001,7 +1270,9 @@ Q_F32_BARS = {                                     # reading / control, dB
     "dual_path_chunk int8_hh+xscr_half": 53.0,     # 58.96 / 46.68
     "center_chunk int8_hh": 65.0,                  # 72.96 / 43.87
     "center_chunk xscr_half": 54.0,                # 59.74 / 47.14
-    "dparn_center_chunk xscr_half": 57.0}          # 63.92 / 49.95
+    "dparn_center_chunk xscr_half": 57.0,          # 63.92 / 49.95
+    "fused_skim_frames gate int8_hh": 60.0,        # 70.73 / 49.60
+    "fused_skim_frames gate int8_full": 44.0}      # 53.70 / 34.80
 QSKIM_VARIANTS = ("int8_hh", "int8_full")
 QSKIM_SHAPE = (4, 128, 256, 1024, 15)      # n, C, H, B, F: the flagship
 QDP_VARIANTS = ("int8_hh", "xscr_half", "int8_hh+xscr_half")
@@ -1034,19 +1305,20 @@ def mixed_bound(ops: dict, nbytes: float) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def qskim_work(n, C, H, F, B, dt, variant):
+def qskim_work(n, C, H, F, B, dt, variant, fusion="film"):
     """skim_work split by type: int8_hh moves h @ W_hh to int8, int8_full
-    every dot; a quantized matrix is read as 1 byte a weight plus its
-    float32 scales."""
+    every dot but the Gate's (JAX leaves those float); a quantized matrix is
+    read as 1 byte a weight plus its float32 scales."""
     e = torch.finfo(dt).bits // 8
     rows = 2.0 * B * F * n
-    dots = {"film": (2 * C * C, 2 * C), "ih": (C * 4 * H, 4 * H), "hh": (H * 4 * H, 4 * H),
-            "proj": (H * C, C)}
-    q = {"hh"} if variant == "int8_hh" else set(dots)
+    dots = {fusion: (fusion_macs(C, fusion), 2 * C), "ih": (C * 4 * H, 4 * H),
+            "hh": (H * 4 * H, 4 * H), "proj": (H * C, C)}
+    q = {"hh"} if variant == "int8_hh" else set(dots) - {"gate"}
     ops = {dt: sum(rows * m for k, (m, _) in dots.items() if k not in q),
            "int8": sum(rows * m for k, (m, _) in dots.items() if k in q)}
     weights = sum((m + 4 * s) if k in q else m * e for k, (m, s) in dots.items()) * n
-    return ops, weights + (2 * B * F * C + 2 * n * B * C + 4 * n * B * H) * e
+    terms = n * B * GATE_HG if fusion == "gate" else 2 * n * B * C
+    return ops, weights + (2 * B * F * C + terms + 4 * n * B * H) * e
 
 
 def q_dual_path_work(work, F, K, B, H, dt, variant, n_blocks=2):
@@ -1108,15 +1380,17 @@ def check_bar(res, label):
 
 
 @torch.no_grad()
-def qskim_case(ops, SkiM, variant, reps, gen, dev):
+def qskim_case(ops, SkiM, variant, reps, gen, dev, fusion="film"):
     """`fused_skim_frames` with int8_hh / int8_full at the flagship shapes
-    (n=4, C=128, H=256, F=15, B=1024) against its plain version over
-    Q_CHUNKS carried chunks, f32 then bf16 (I/O, state, float weights,
-    dots), with CUDA-event times and the bound."""
+    (n=4, C=128, H=256, F=15, B=1024; every block FiLM, or every block a
+    Gate) against its plain version over Q_CHUNKS carried chunks, f32 then
+    bf16 (I/O, state, float weights, dots), with CUDA-event times and the
+    bound."""
     n, C, H, B, F = QSKIM_SHAPE
-    modes = ("film",) * n
+    modes = (fusion,) * n
     masker = SkiM(input_size=C, hidden_size=H, output_size=C, n_blocks=n, seg_size=F * 10,
-                  causal=True, embed_dim=192, embed_norm=True, embed_fusion="FiLM",
+                  causal=True, embed_dim=192, embed_norm=True,
+                  embed_fusion="Gate" if fusion == "gate" else "FiLM",
                   block_with_embed=(1,) * n, device=dev, generator=gen).eval()
     kw = opts_of(variant)
     wq, wf = masker._fused_weights(**kw), masker._fused_weights()
@@ -1125,7 +1399,8 @@ def qskim_case(ops, SkiM, variant, reps, gen, dev):
     xs = [torch.randn(B, F, C, generator=gen).to(dev) for _ in range(Q_CHUNKS)]
     h0 = (0.3 * torch.randn(n, B, H, generator=gen)).to(dev)
     c0 = (0.3 * torch.randn(n, B, H, generator=gen)).to(dev)
-    res = {"name": f"fused_skim_frames {variant}", "shape": f"n={n} C={C} H={H} F={F} B={B}"}
+    res = {"name": f"fused_skim_frames {'gate ' if fusion == 'gate' else ''}{variant}",
+           "shape": f"n={n} C={C} H={H} F={F} B={B}, {fusion}"}
     for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         cast = lambda ws, d=dt: ops.SkimWeights(w if w.dtype == torch.int8 else w.to(d)
                                                 for w in ws)
@@ -1153,7 +1428,7 @@ def qskim_case(ops, SkiM, variant, reps, gen, dev):
             x1, *args, h1, c1, ws, modes, dot_dtype=dt, **kw), reps)
         res[f"{label}_plain_ms"] = cuda_ms(lambda: ops.fused_skim_frames_ref(
             x1, *args, h1, c1, ws, modes, dot_dtype=dt, **kw), 2, 1)
-        res[f"{label}_bound"] = mixed_bound(*qskim_work(n, C, H, F, B, dt, variant))
+        res[f"{label}_bound"] = mixed_bound(*qskim_work(n, C, H, F, B, dt, variant, fusion))
     return res
 
 
@@ -1303,7 +1578,10 @@ def quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base) -> dict:
         f"multiply-add 2) = {INT8_CORE_OPS / 8 / sms:.4e} dp4a/s per SM; SM clock after "
         f"the loop {clock} [{card}]", t)
     results = {}
+    gate_gen = torch.Generator().manual_seed(SEED + 3)   # the earlier cases' data as before
     cases = ([lambda v=v: qskim_case(ops, SkiM, v, 10, gen, dev) for v in QSKIM_VARIANTS]
+             + [lambda v=v: qskim_case(ops, SkiM, v, 10, gate_gen, dev, "gate")
+                for v in QSKIM_VARIANTS]
              + [lambda v=v: qdp_case(dpk, v, 5, gen, dev) for v in QDP_VARIANTS]
              + [lambda c=c: qcenter_case(mkk, *c, 5, dev) for c in QCENTER_CASES])
     for case in cases:
@@ -1312,7 +1590,8 @@ def quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base) -> dict:
         for r in (got if isinstance(got, list) else [got]):
             results[r["name"]] = r
             kernel = r["name"].split()[0]
-            f32_ms, bf16_ms = base[kernel]
+            f32_ms, bf16_ms = base["fused_skim_frames gate" if " gate " in r["name"]
+                                   else kernel]
             int8_note = ", int8 at INT8_CORE_OPS" if "int8" in r["name"] else ""
             grid = (f"; {r['grid_what']} on the bf16 grid: kernel {r['f32_on_bf16_grid']}, "
                     f"control {r['f32_control_on_bf16_grid']}" if "xscr_half" in r["name"]
@@ -1333,12 +1612,12 @@ def quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base) -> dict:
 
 # ------------------------------------------------ phases 3b, 3c, 4b, 4c, 4d
 def counter_values(counters):
-    return tuple(getattr(mod, attr) for _, mod, attr in counters)
+    return tuple(count_of(mod, attr) for _, mod, attr in counters)
 
 
 def zero_counters(counters):
     for _, mod, attr in counters:
-        setattr(mod, attr, 0)
+        zero_count(mod, attr)
 
 
 def ns_full_width(zoo_name, n_params_want, routes, counters, offline_want, dev, card,
@@ -1537,14 +1816,15 @@ Q_BARS = {"int8_hh": 20.0, "int8_full": 15.0}   # JAX's bars (tests/test_pallas_
 
 
 @torch.no_grad()
-def tse_quant_serving(ops, model, option, n_slots, dev, card):
-    """Phase 4e: the flagship through make_session_server(half=True,
-    fused=True) at n_slots with its step_fn bound to `option`=True: the
-    engine step alone (as bench.py's int8 probes time it), then NS_WARM +
-    NS_TICKS server ticks: exact launches (every one with the option, no
-    plain version), every output finite, 0 underruns, tick p50/p99, and
-    slot 0 against the f32 engine on the same audio (JAX's bar for the
-    option)."""
+def tse_quant_serving(ops, model, option, n_slots, dev, card, label="tse_skim_v0_causal",
+                      phase="4e tse quantized", bar=None):
+    """Phase 4e (and 4i): a TSE model through make_session_server(half=True,
+    fused=True) at n_slots with its step_fn bound to `option`=True (None:
+    no option): the engine step alone (as bench.py's int8 probes time it),
+    then NS_WARM + NS_TICKS server ticks: exact launches (every one with
+    the option, no plain version), every output finite, 0 underruns, tick
+    p50/p99, and slot 0 against the f32 engine on the same audio (JAX's bar
+    for the option, or `bar`)."""
     from puresound_tpu_torch.streaming.deploy import make_session_server
     from puresound_tpu_torch.streaming.engine import StreamingTSE
     from puresound_tpu_torch.streaming.server import ServeStats
@@ -1555,7 +1835,8 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card):
     bundle = make_session_server(model, None, n_slots=n_slots, chunk_ms=15.0, half=True,
                                  fused=True, lockstep=True, enroll_len=16000)
     server, engine, chunk = bundle.server, bundle.engine, bundle.chunk_samples
-    server.step_fn = functools.partial(server.step_fn, **{option: True})
+    opts = {option: True} if option else {}
+    server.step_fn = functools.partial(server.step_fn, **opts)
     n_ticks = NS_WARM + NS_TICKS
     rng = np.random.default_rng(SEED)
     enrolls = (0.1 * rng.standard_normal((n_slots, 16000))).astype(np.float32)
@@ -1569,8 +1850,7 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card):
     for k in range(NS_WARM + NS_TICKS):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        _, state = engine.step(x, dvecs.to(bf), state, fused=True, dot_dtype=bf,
-                               **{option: True})
+        _, state = engine.step(x, dvecs.to(bf), state, fused=True, dot_dtype=bf, **opts)
         torch.cuda.synchronize()
         if k >= NS_WARM:
             step_ms.append(1e3 * (time.perf_counter() - t1))
@@ -1597,10 +1877,11 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card):
                 served[i, k * chunk:(k + 1) * chunk] = got
         torch.cuda.synchronize()
     launches = ops.LAUNCHES
-    expect_launches(launches, NS_TICKS, f"flagship {option} serving, fused_skim_frames")
-    expect_launches(dict(ops.LAUNCHES_BY_OPTION), {option: NS_TICKS},
-                    f"flagship {option} serving, launches by option")
-    expect_launches(plain.calls, 0, f"flagship {option} serving, plain versions")
+    what = f"{label} {option or 'bf16'} serving"
+    expect_launches(launches, NS_TICKS, f"{what}, fused_skim_frames")
+    expect_launches(dict(ops.LAUNCHES_BY_OPTION), {option or "": NS_TICKS},
+                    f"{what}, launches by option")
+    expect_launches(plain.calls, 0, f"{what}, plain versions")
     stats = server.stats.snapshot()
     if stats["underrun_slot_ticks"] != 0:
         raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
@@ -1611,20 +1892,102 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card):
                               dvecs[:1], st, fused=True)
         ref.append(y)
     snr = snr_db(torch.from_numpy(served[0]), torch.cat(ref, -1)[0].cpu())
-    bar = Q_BARS[option]
+    bar = Q_BARS[option] if bar is None else bar
     if snr < bar:
-        raise AssertionError(f"flagship {option} bf16 serving vs f32: SNR {snr:.1f} dB < {bar:g}")
-    log("4e tse quantized", f"tse_skim_v0_causal, make_session_server(half=True, fused=True) "
-        f"with its step_fn bound to {option}=True, {n_slots} streams: engine step alone p50 "
+        raise AssertionError(f"{what} vs f32: SNR {snr:.1f} dB < {bar:g}")
+    bound = f"with its step_fn bound to {option}=True" if option else "(no option)"
+    log(phase, f"{label}, make_session_server(half=True, fused=True) "
+        f"{bound}, {n_slots} streams: engine step alone p50 "
         f"{float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}, {NS_TICKS} synced "
         f"steps); {NS_TICKS} server ticks of {chunk} samples after {NS_WARM} warm-up: every "
-        f"output finite, fused_skim_frames launches {launches} (all {option}), plain-version "
+        f"output finite, fused_skim_frames launches {launches} (all {option or 'no option'}), "
+        f"plain-version "
         f"calls {plain.calls}, 0 underruns; tick p50 {stats['tick_ms_p50']:.3f} ms, p99 "
         f"{stats['tick_ms_p99']:.3f} ms; slot 0 vs the f32 engine SNR {snr:.1f} dB (bar "
         f"{bar:g}) [{card}]", t)
     return {"launches": launches, "tick_p50": stats["tick_ms_p50"],
             "tick_p99": stats["tick_ms_p99"], "step_p50": float(np.median(step_ms)),
             "snr": snr}
+
+
+GATE_PARAMS = 6_409_240             # the flagship's configuration with Gate fusion
+GATE_SLOTS = (256, 1024)            # phase 4i; 1024 again with int8_hh and int8_full
+GATE_BF16_BAR = 35.0                # bf16 serving vs the f32 engine, dB (read 43.1 on an H100)
+
+
+def gate_model(dev, gen):
+    """The flagship's configuration (puresound_tpu/zoo/tse.py:157-170) with
+    embed_fusion="Gate": no zoo name builds it in either package."""
+    from puresound_tpu_torch.nnet.base_nn import SoTaskWrapModule
+    from puresound_tpu_torch.nnet.encoder import FreeEncDec
+    from puresound_tpu_torch.nnet.skim import SkiM
+    from puresound_tpu_torch.zoo.tse import _tcn_speaker_net
+
+    fk = dict(device=dev, generator=gen)
+    return SoTaskWrapModule(
+        encoder=FreeEncDec(win_length=32, hop_length=16, laten_length=128,
+                           output_active=True, **fk),
+        masker=SkiM(input_size=128, hidden_size=256, output_size=128, n_blocks=4,
+                    seg_size=150, seg_overlap=False, causal=True, embed_dim=192,
+                    embed_norm=True, block_with_embed=(1, 1, 1, 1),
+                    embed_fusion="Gate", **fk),
+        speaker_net=_tcn_speaker_net(128, **fk), mask_constraint="ReLU").eval()
+
+
+@torch.no_grad()
+def gate_full_width(ops, lk, tk, dev, card):
+    """Phase 3g: the Gate model in f32, 4 streams x 20 ticks of 240 samples
+    through StreamingTSE.step(fused=True) (one Gate-mode fused_skim_frames
+    a tick) and step(fused=False) (SkiM.step_frames), each equal to the
+    offline inference (which launches the LSTM kernel 10 times and the TCN
+    kernel 5) to 1e-4 of max|y|, as phase 3 holds the flagship."""
+    from puresound_tpu_torch.streaming.engine import StreamingTSE, offline_equivalent_input
+
+    t = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    model = gate_model(dev, gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != GATE_PARAMS:
+        raise AssertionError(f"the Gate model has {n_params} parameters")
+    engine = StreamingTSE.from_offline(model).eval()
+    S, ticks, n_str = 240, 20, 4
+    audio = (0.1 * torch.randn(n_str, S * ticks, generator=gen)).to(dev)
+    enroll = (0.1 * torch.randn(n_str, 16000, generator=gen)).to(dev)
+    zero_counts(tk)
+    dvec = engine.embed(enroll)
+    torch.cuda.synchronize()
+    expect_launches((tk.FWD_LAUNCHES, tk.BWD_LAUNCHES), (5, 0), "Gate embed, TCN")
+    streamed, launches = {}, {}
+    for fused in (True, False):
+        state = engine.init_state(n_str)
+        ops.LAUNCHES = 0
+        outs = []
+        for k in range(ticks):
+            y, state = engine.step(audio[:, k * S:(k + 1) * S], dvec, state, fused=fused)
+            outs.append(y)
+        torch.cuda.synchronize()
+        launches[fused] = ops.LAUNCHES
+        streamed[fused] = torch.cat(outs, -1)
+    zero_counts(lk, tk)
+    offline = model.inference(offline_equivalent_input(audio, 32, 16),
+                              enroll)[:, :streamed[True].shape[-1]]
+    torch.cuda.synchronize()
+    offline_launches = counts(lk, tk)
+    expect_launches(offline_launches, (10, 0, 5, 0), "Gate offline inference, LSTM and TCN")
+    expect_launches(launches, {True: ticks, False: 0}, "Gate streamed ticks, fused_skim_frames")
+    peak = offline.abs().max().item()
+    errs = {}
+    for fused, y in streamed.items():
+        errs[fused] = (y - offline).abs().max().item()
+        if not torch.isfinite(y).all() or errs[fused] > 1e-4 * peak:
+            raise AssertionError(f"Gate streamed (fused={fused}) vs offline max|d| "
+                                 f"{errs[fused]:.3e} > 1e-4 * max|y| ({peak:.3e})")
+    log("3g gate", f"flagship configuration with Gate fusion, {n_params:,} params; {ticks} "
+        f"ticks x {S} samples x {n_str} streams == offline inference: fused max|d| "
+        f"{errs[True]:.3e}, unfused (step_frames) {errs[False]:.3e}, max|y| {peak:.3e}; "
+        f"fused_skim_frames launches {launches[True]} fused, {launches[False]} unfused; "
+        f"offline LSTM and TCN launches (fwd, bwd) {offline_launches} [{card}]", t)
+    return model
 
 
 @torch.no_grad()
@@ -1869,6 +2232,180 @@ def full_width_training(lk, tk, dev, card, dtype):
 
 
 # ------------------------------------------------------------ phase 6b
+#: phase 6c: the switches of the training LSTM path, set through the module
+#: attributes inside the phase and restored after it
+TRAIN_SETTINGS = {"FUSED_PROJ_SCAN=False": dict(fused_proj=False, tm=False),
+                  "TM_BLOCKS=True": dict(fused_proj=True, tm=True),
+                  "both": dict(fused_proj=False, tm=True)}
+#: LSTM launches a step by entry, forward and backward alike: the flagship's
+#: 4 SegLSTM scans (time-major under TM_BLOCKS) and 6 MemLSTM scans
+SETTING_ENTRIES = {"FUSED_PROJ_SCAN=False": {"hoisted": 10},
+                   "TM_BLOCKS=True": {"fp_tm": 4, "fp": 6},
+                   "both": {"hoisted": 10}}
+#: against the default route's step from the same weights and batch, by
+#: dtype and route: "same" (TM_BLOCKS=True alone, the default arithmetic in
+#: another layout) and "hoisted" (xp by one matmul; rounded to bf16 under
+#: bf16, where the fused kernel never rounds it): (the loss's relative
+#: difference, the gradient's cosine over all parameters, each leaf's
+#: max|d| / max|ref| except the scalar PReLU slopes, each slope's |d| /
+#: |ref|). A slope's gradient is one sum over B x Ch x T terms that cancel,
+#: and a ReLU / PReLU input within rounding of 0 that takes the other side
+#: moves every gradient below it, so another rounding upstream moves leaves
+#: far more than the loss. Readings on an H100, worst setting, two
+#: calls: f32 same 0 / 1.0000000 / 1.0e-6 / 0; f32 hoisted 1.5e-7 /
+#: 0.9999997 / 4.2e-3 (masker.output_fc.1.weight, the conv under the ReLU
+#: mask) / 8.6e-3 (speaker_net.2.dconv.0.pointwise.2.weight), both calls
+#: alike; bf16, which differs between calls: same 0 / 0.99998 / 1.7e-2 -
+#: 2.4e-2 / 0.37 - 1.29, hoisted 5.1e-3 (one bf16 ulp) / 0.981 / 0.61 / 8.5
+#: - 32.5 (speaker_net.0.in_conv.2.weight), so no slope bar in bf16 (and a
+#: leaf of the opposite sign reads 2)
+SETTING_BARS = {("f32", "same"): (1e-5, 0.99999, 1e-4, 1e-4),
+                ("f32", "hoisted"): (1e-5, 0.99999, 1e-2, 3e-2),
+                ("bf16", "same"): (2e-2, 0.9999, 0.1, None),
+                ("bf16", "hoisted"): (2e-2, 0.95, 1.5, None)}
+
+
+def prelu_slopes(model) -> set:
+    """The names of the model's scalar PReLU slopes."""
+    from puresound_tpu_torch.nnet.lobe.activation import PReLU
+
+    return {f"{n}.weight" for n, m in model.named_modules()
+            if isinstance(m, PReLU) and m.weight.numel() == 1}
+
+
+def leaf_readings(grads, ref_g, slopes):
+    """[(max|d| / max|ref|, name)] of every leaf, worst first, split into
+    (the other leaves, the PReLU slopes); leaves whose reference is an exact
+    zero (ASP's conv bias) are left out."""
+    g_all = max(g.abs().max().item() for g in ref_g.values())
+    rows = []
+    for n, g in grads.items():
+        gmax = ref_g[n].abs().max().item()
+        if gmax > 1e-6 * g_all:
+            rows.append(((g - ref_g[n]).abs().max().item() / gmax, n))
+    rows.sort(reverse=True)
+    return [r for r in rows if r[1] not in slopes], [r for r in rows if r[1] in slopes]
+
+
+class lstm_switches:
+    """`nnet.lobe.rnn.FUSED_PROJ_SCAN` and `nnet.skim.TM_BLOCKS` set for a
+    `with` block, restored after it."""
+
+    def __init__(self, fused_proj=True, tm=False):
+        self.want = (fused_proj, tm)
+
+    def __enter__(self):
+        from puresound_tpu_torch.nnet import skim
+        from puresound_tpu_torch.nnet.lobe import rnn
+
+        self.mods = rnn, skim
+        self.prev = rnn.FUSED_PROJ_SCAN, skim.TM_BLOCKS
+        rnn.FUSED_PROJ_SCAN, skim.TM_BLOCKS = self.want
+
+    def __exit__(self, *exc):
+        rnn, skim = self.mods
+        rnn.FUSED_PROJ_SCAN, skim.TM_BLOCKS = self.prev
+
+
+def one_step(dev, dtype, batch):
+    """(loss, {name: gradient in float32}, (model, state, step)) after one
+    step of a fresh flagship from SEED."""
+    model, state, step = train_parts(dev, torch.Generator().manual_seed(SEED), dtype)
+    state, m = step(state, batch)
+    grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+    return float(m["loss"]), grads, (model, state, step)
+
+
+def entry_counts(lk) -> tuple:
+    """(forward, backward) LSTM launches by entry."""
+    return dict(lk.FWD_BY_ENTRY), dict(lk.BWD_BY_ENTRY)
+
+
+def entry_diff(now: dict, seen: dict) -> dict:
+    return {e: n - seen.get(e, 0) for e, n in now.items() if n != seen.get(e, 0)}
+
+
+def train_settings_phase(lk, tk, dev, card):
+    """Phase 6c: the full-width flagship step (B=64 x 2 s) under each of
+    TRAIN_SETTINGS, f32 and bf16: loss and every gradient against the
+    default route's step from the same weights and batch (SETTING_BARS),
+    the LSTM launches by entry against SETTING_ENTRIES in every step, step
+    p50 over 5 timed steps after 1, and the memory peak. The launches by
+    entry of the 7 steps are returned for the kernels line."""
+    results = {}
+    batch = train_batch(TRAIN_B, TRAIN_SECONDS, dev)
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        ref_loss, ref_g, (model, _, _) = one_step(dev, dt, batch)
+        slopes = prelu_slopes(model)
+        del model
+        for setting, kw in TRAIN_SETTINGS.items():
+            t = time.perf_counter()
+            want = SETTING_ENTRIES[setting]
+            bars = SETTING_BARS[(label, "same" if kw["fused_proj"] else "hoisted")]
+            with lstm_switches(**kw):
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts(lk, tk)
+                loss, grads, (model, state, step) = one_step(dev, dt, batch)
+                torch.cuda.synchronize()
+                expect_launches(entry_counts(lk), (want, want),
+                                f"{setting} {label} step, LSTM launches (fwd, bwd) by entry")
+                expect_launches(counts(lk, tk), (10, 10, 5, 5),
+                                f"{setting} {label} step, LSTM and TCN (fwd, bwd)")
+                loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+                others, slope_rows = leaf_readings(grads, ref_g, slopes)
+                dot = sum((g.double() * ref_g[n].double()).sum().item()
+                          for n, g in grads.items())
+                norm2 = lambda gs: sum(g.double().pow(2).sum().item() for g in gs)
+                cosine = dot / math.sqrt(norm2(grads.values()) * norm2(ref_g.values()))
+                loss_bar, cos_bar, leaf_bar, slope_bar = bars
+                if not (loss_rel <= loss_bar and cosine >= cos_bar
+                        and others[0][0] <= leaf_bar
+                        and (slope_bar is None or slope_rows[0][0] <= slope_bar)):
+                    raise AssertionError(
+                        f"{setting} {label}: loss rel {loss_rel:.3e}, cosine "
+                        f"{cosine:.7f}, worst leaves {others[:3]}, worst slopes "
+                        f"{slope_rows[:3]} (bars {bars})")
+                times = []
+                for i in range(6):
+                    seen, seen_e = counts(lk, tk), entry_counts(lk)
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    state, m = step(state, batch)
+                    b.record()
+                    torch.cuda.synchronize()
+                    expect_launches(tuple(x - y for x, y in zip(counts(lk, tk), seen)),
+                                    (10, 10, 5, 5), f"{setting} {label} step {i}")
+                    expect_launches(tuple(entry_diff(x, y) for x, y in
+                                          zip(entry_counts(lk), seen_e)),
+                                    (want, want), f"{setting} {label} step {i} by entry")
+                    if not math.isfinite(float(m["loss"])):
+                        raise AssertionError(f"{setting} {label}: non-finite loss")
+                    if i:
+                        times.append(a.elapsed_time(b))
+                peak = torch.cuda.max_memory_allocated()
+                fwd_by, bwd_by = entry_counts(lk)
+            p50 = float(np.median(times))
+            results[(label, setting)] = {"step_ms_p50": p50, "peak_bytes": peak,
+                                         "loss_rel": loss_rel, "leaf_rel": others[0],
+                                         "slope_rel": slope_rows[0], "cosine": cosine,
+                                         "fwd_launches": fwd_by, "bwd_launches": bwd_by}
+            fmt = lambda rows: ", ".join(f"{n} {r:.2e}" for r, n in rows)
+            log("6c settings", f"flagship {label} B={TRAIN_B} x {TRAIN_SECONDS:g} s under "
+                f"{setting}: loss {loss:.6f} vs default {ref_loss:.6f} (rel {loss_rel:.2e}), "
+                f"gradient cosine {cosine:.7f}, max|d|/max|ref| of the worst leaves "
+                f"{fmt(others[:3])}, of the worst PReLU slopes {fmt(slope_rows[:3])} (bars "
+                f"{bars}); LSTM launches in 7 steps by entry, forward "
+                f"{fwd_by}, backward {bwd_by}, TCN 5 + 5 a step; step p50 "
+                f"{p50:.3f} ms (min {min(times):.3f}, max {max(times):.3f}), "
+                f"{TRAIN_B * TRAIN_SECONDS * 1e3 / p50:.1f} audio-s/s; peak "
+                f"{peak / 2**30:.2f} GiB [{card}]", t)
+            del model, state, step, grads
+        del ref_g
+        torch.cuda.empty_cache()
+    return results
+
+
 def write_tse_manifest(folder: str, n: int, seed: int) -> str:
     """A synthetic TSE manifest folder (the recipe's five files) of n
     mixtures of 4 s and 6 s enrollments at 16 kHz, keys mix_<i>_s1."""
@@ -2093,6 +2630,25 @@ def run(dev: torch.device) -> int:
             f"{r['f32_ms']:.3f}/{r['f32_plain_ms']:.3f}, bf16 "
             f"{r['bf16_ms']:.3f}/{r['bf16_plain_ms']:.3f} [{card}]", t)
 
+    # --------------------------------------- 2i. the Gate mode vs plain
+    # phases 2i and 2j draw from generators of their own, so the data of
+    # the phases around them stay as they were
+    gate_gen = torch.Generator().manual_seed(SEED + 1)
+    gate_results = {}
+    for name, n, C, H, B, F, modes in GATE_CASES:
+        t = time.perf_counter()
+        r = kernel_case(ops, SkiM, name, n, C, H, B, F, modes, GATE_CHUNKS, gate_gen, dev,
+                        GATE_BARS)
+        gate_results[name] = r
+        flag_ms = (f"; FiLM flagship (phase 2) f32 {results[0]['f32_ms']:.3f} / bf16 "
+                   f"{results[0]['bf16_ms']:.3f}" if B == 1024 else "")
+        log("2i gate", f"{name}, modes {modes}, {GATE_CHUNKS} carried chunks: f32 "
+            f"max|d|/max|ref| {r['f32_rel_err']:.3e} (bar {GATE_BARS[0]:g}; max|d| "
+            f"{r['f32_max_abs_err']:.3e}), bf16 SNR {r['bf16_snr_db']:.1f} dB (bar "
+            f"{GATE_BARS[1]:g}); median ms kernel/plain: f32 {r['f32_ms']:.3f}/"
+            f"{r['f32_plain_ms']:.3f}, bf16 {r['bf16_ms']:.3f}/{r['bf16_plain_ms']:.3f}"
+            f"{flag_ms} [{card}]", t)
+
     # ------------------------------------- 2b. LSTM training kernel vs plain
     lstm_results = {}
     for name, B, T, C, H, reverse, reps in LSTM_CASES:
@@ -2111,8 +2667,39 @@ def run(dev: torch.device) -> int:
                 f"bound {r[f'{lb}_fwd_bound'][0]:.3f}/{r[f'{lb}_bwd_bound'][0]:.3f}"
                 for lb in ("f32", "bf16")) + f" [{card}]", t)
 
+    # ------------- 2j. lstm_scan_train(_tm), lstm_scan_train_fp_tm vs plain
+    unfused_results = {}
+    unfused_gen = torch.Generator().manual_seed(SEED + 2)
+    for name, B, T, C, H, reverse, reps in UNFUSED_CASES:
+        t = time.perf_counter()
+        r = lstm_unfused_case(lk, name, B, T, C, H, reverse, unfused_gen, dev, reps)
+        unfused_results[name] = r
+        fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
+        log("2j lstm unfused", f"{r['shape']}: lstm_scan_train_tm f32 max|d|/max|ref| "
+            f"values {r['f32_val_rel']:.2e}, grads {r['f32_grad_rel']:.2e}; bf16 SNR values "
+            f"{r['bf16_val_snr']:.1f} dB, grads {r['bf16_grad_snr']:.1f} dB; "
+            + "; ".join(
+                f"{lb} ms fwd/bwd kernel {r[f'{lb}_fwd_ms']:.3f}/{r[f'{lb}_bwd_ms']:.3f}, "
+                f"plain {r[f'{lb}_plain_fwd_ms']:.3f}/{r[f'{lb}_plain_bwd_ms']:.3f}, bound "
+                f"{r[f'{lb}_fwd_bound'][0]:.3f} ({r[f'{lb}_fwd_bound'][1]})/"
+                f"{r[f'{lb}_bwd_bound'][0]:.3f} ({r[f'{lb}_bwd_bound'][1]}), batch-major "
+                f"lstm_scan_train forward with its xp swap {r[f'{lb}_batch_major_fwd_ms']:.3f}"
+                for lb in ("f32", "bf16"))
+            + "; lstm_scan_train_fp_tm == the batch-major launches bit for bit, vs plain "
+            f"f32 values {r['fp_tm_f32_val_rel']:.2e} grads {r['fp_tm_f32_grad_rel']:.2e}, "
+            f"bf16 SNR {r['fp_tm_bf16_val_snr']:.1f} / {r['fp_tm_bf16_grad_snr']:.1f} dB; "
+            + "; ".join(
+                f"{lb} ms fwd/bwd kernel {r[f'fp_tm_{lb}_fwd_ms']:.3f}/"
+                f"{r[f'fp_tm_{lb}_bwd_ms']:.3f}, plain {r[f'fp_tm_{lb}_plain_fwd_ms']:.3f}/"
+                f"{r[f'fp_tm_{lb}_plain_bwd_ms']:.3f}, bound "
+                f"{r[f'fp_tm_{lb}_fwd_bound'][0]:.3f}/{r[f'fp_tm_{lb}_bwd_bound'][0]:.3f}; "
+                f"cuDNN LSTM (it projects the input too) fwd/bwd "
+                f"{fmt(r[f'{lb}_lib_fwd_ms'])}/{fmt(r[f'{lb}_lib_bwd_ms'])}"
+                for lb in ("f32", "bf16")) + f" [{card}]", t)
+
     # -------------------------------------- 2c. TCN training kernel vs plain
     tcn_results = tcn_phase(tk, gen, dev, card)
+    tcn_seed_sweep(tk, dev, card)
 
     # ------------------------------------------- 2d. the serving LSTM scan
     lscan_results = {}
@@ -2170,7 +2757,9 @@ def run(dev: torch.device) -> int:
 
     # ------------------------- 2h. the int8 and bf16-scratch kernel variants
     dp2048 = dp_results["2048 streams"]
+    gate_flag = gate_results[GATE_CASES[0][0]]
     base = {"fused_skim_frames": (results[0]["f32_ms"], results[0]["bf16_ms"]),
+            "fused_skim_frames gate": (gate_flag["f32_ms"], gate_flag["bf16_ms"]),
             "dual_path_chunk": (dp2048["f32_ms"], dp2048["bf16_ms"]),
             **{n: (r["f32_ms"], r["bf16_ms"]) for n, r in center_results.items()}}
     quant_results = quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base)
@@ -2286,8 +2875,18 @@ def run(dev: torch.device) -> int:
         f"warm-up ticks) read tick p50 {stats['tick_ms_p50']:.3f} ms, p99 "
         f"{stats['tick_ms_p99']:.3f} at {n_slots} sessions [{card}]", time.perf_counter())
 
+    # --------------------------- 3g, 4i. the Gate model, streamed and served
+    gate = gate_full_width(ops, lk, tk, dev, card)
+    gate_serve = {n: tse_quant_serving(ops, gate, None, n, dev, card, "Gate model",
+                                       "4i gate serving", GATE_BF16_BAR)
+                  for n in GATE_SLOTS}
+    gate_q = {opt: tse_quant_serving(ops, gate, opt, GATE_SLOTS[-1], dev, card,
+                                     "Gate model", "4i gate serving")
+              for opt in ("int8_hh", "int8_full")}
+    del gate
+
     # ------------------------------------- 3b, 4b. NS: ns_dpcrn_v0_causal
-    counters = [("lstm_scan_train_fp", lk, "FWD_LAUNCHES"), ("lstm_scan", lsk, "LAUNCHES"),
+    counters = [("lstm_scan_train_fp", lk, "FWD_BY_ENTRY"), ("lstm_scan", lsk, "LAUNCHES"),
                 ("dual_path_chunk", dpk, "LAUNCHES"), ("center_chunk", mkk, "LAUNCHES")]
     ns = ns_full_width("ns_dpcrn_v0_causal", 1_380_043, [
         ("stock", {}, (6, 0, 0, 0)), ("fused", {"fused": True}, (0, 6, 0, 0)),
@@ -2320,7 +2919,7 @@ def run(dev: torch.device) -> int:
     del ns
 
     # ------------------------------------- 3c, 4c. NS: ns_dparn_v0_causal
-    counters = [("lstm_scan_train_fp", lk, "FWD_LAUNCHES"), ("lstm_scan", lsk, "LAUNCHES"),
+    counters = [("lstm_scan_train_fp", lk, "FWD_BY_ENTRY"), ("lstm_scan", lsk, "LAUNCHES"),
                 ("dparn_intra_pass", dak, "LAUNCHES"), ("dparn_center_chunk", mkk, "LAUNCHES")]
     dparn = ns_full_width("ns_dparn_v0_causal", 1_215_179, [
         ("stock", {}, (2, 0, 0, 0)), ("fused", {"fused": True}, (0, 2, 0, 0)),
@@ -2346,6 +2945,9 @@ def run(dev: torch.device) -> int:
     train = {label: full_width_training(lk, tk, dev, card, dt)
              for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
 
+    # ------------------- 6c. the training step under the LSTM path's switches
+    settings = train_settings_phase(lk, tk, dev, card)
+
     # ------------------------------------------- 6b. the recipe's trainer
     recipe = recipe_phase(lk, tk, dev, card)
 
@@ -2365,13 +2967,15 @@ def run(dev: torch.device) -> int:
         "bf16_snr_db": flag["bf16_snr_db"],
         "shape": "n=4 C=128 H=256 F=15 B=1024"}]
     seg = lstm_results["SegLSTM"]
+    # phase 6c's launches by entry
+    by_entry = lambda half, e: sum(r[f"{half}_launches"].get(e, 0) for r in settings.values())
     for half, replaces in (("fwd", LSTM_REPLACES[0]), ("bwd", LSTM_REPLACES[1])):
         i = 0 if half == "fwd" else 1
         kernels.append({
             "name": f"lstm_scan_train_fp ({'forward' if i == 0 else 'backward'})",
             "route": "cuda", "source": LSTM_SOURCE, "replaces": replaces,
             "launches": (train["f32"]["launches"][i] + train["bf16"]["launches"][i]
-                         + recipe["launches"][i]),
+                         + recipe["launches"][i] + by_entry(half, "fp")),
             "max_abs_err": seg["f32_max_abs_err"], "ms": seg[f"f32_{half}_ms"],
             "plain_ms": seg[f"f32_plain_{half}_ms"],
             "bound_ms": seg[f"f32_{half}_bound"][0],
@@ -2382,6 +2986,52 @@ def run(dev: torch.device) -> int:
             "bf16_bound_ms": seg[f"bf16_{half}_bound"][0],
             "bf16_library_ms": seg[f"bf16_lib_{half}_ms"],
             "shape": seg["shape"]})
+    gb = bound_ms(*skim_work(4, 128, 256, 15, 1024, torch.float32, "gate"), torch.float32)
+    kernels.append({
+        "name": "fused_skim_frames gate", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES, "entry": "puresound_tpu/ops/skim_stream_kernel.py:148-165",
+        "launches": sum(r["launches"] for r in gate_serve.values()),
+        "max_abs_err": gate_flag["f32_max_abs_err"], "ms": gate_flag["f32_ms"],
+        "plain_ms": gate_flag["f32_plain_ms"], "bound_ms": gb[0], "bound_by": gb[1],
+        "library_ms": None, "bf16_ms": gate_flag["bf16_ms"],
+        "bf16_plain_ms": gate_flag["bf16_plain_ms"],
+        "bf16_bound_ms": bound_ms(*skim_work(4, 128, 256, 15, 1024, torch.bfloat16, "gate"),
+                                  torch.bfloat16)[0],
+        "bf16_snr_db": gate_flag["bf16_snr_db"], "film_ms": flag["f32_ms"],
+        "shape": "n=4 C=128 H=256 Hg=128 F=15 B=1024, every block a Gate"})
+    seg_u = unfused_results["SegLSTM"]
+    for half, i in (("fwd", 0), ("bwd", 1)):
+        word = "forward" if i == 0 else "backward"
+        hoisted, fp_tm = by_entry(half, "hoisted"), by_entry(half, "fp_tm")
+        kernels.append({
+            "name": f"lstm_scan_train ({word})", "route": "cuda", "source": LSTM_SOURCE,
+            "replaces": UNFUSED_REPLACES[i],
+            "entry": "lstm_scan_train_tm (puresound_tpu/ops/lstm_train_kernel.py:264) and "
+                     "its batch-major lstm_scan_train (:357)",
+            "launches": hoisted, "max_abs_err": seg_u["f32_max_abs_err"],
+            "ms": seg_u[f"f32_{half}_ms"], "plain_ms": seg_u[f"f32_plain_{half}_ms"],
+            "bound_ms": seg_u[f"f32_{half}_bound"][0],
+            "bound_by": seg_u[f"f32_{half}_bound"][1],
+            "library_ms": seg_u[f"f32_lib_{half}_ms"],
+            "library": "cuDNN nn.LSTM, C=128 (also projects the input)",
+            "bf16_ms": seg_u[f"bf16_{half}_ms"],
+            "bf16_plain_ms": seg_u[f"bf16_plain_{half}_ms"],
+            "bf16_bound_ms": seg_u[f"bf16_{half}_bound"][0],
+            "bf16_library_ms": seg_u[f"bf16_lib_{half}_ms"], "shape": seg_u["shape"]})
+        kernels.append({
+            "name": f"lstm_scan_train_fp_tm ({word})", "route": "cuda",
+            "source": LSTM_SOURCE, "replaces": LSTM_REPLACES[i], "entry": FP_TM_ENTRY,
+            "launches": fp_tm, "max_abs_err": seg_u["fp_tm_f32_max_abs_err"],
+            "ms": seg_u[f"fp_tm_f32_{half}_ms"],
+            "plain_ms": seg_u[f"fp_tm_f32_plain_{half}_ms"],
+            "bound_ms": seg_u[f"fp_tm_f32_{half}_bound"][0],
+            "bound_by": seg_u[f"fp_tm_f32_{half}_bound"][1],
+            "library_ms": seg_u[f"f32_lib_{half}_ms"],
+            "library": "cuDNN nn.LSTM, C=128", "bit_equal_to_batch_major": True,
+            "bf16_ms": seg_u[f"fp_tm_bf16_{half}_ms"],
+            "bf16_plain_ms": seg_u[f"fp_tm_bf16_plain_{half}_ms"],
+            "bf16_bound_ms": seg_u[f"fp_tm_bf16_{half}_bound"][0],
+            "bf16_library_ms": seg_u[f"bf16_lib_{half}_ms"], "shape": seg_u["shape"]})
     spk = tcn_results["speaker d=1"]
     for half, replaces in (("fwd", TCN_REPLACES[0]), ("bwd", TCN_REPLACES[1])):
         i = 2 if half == "fwd" else 3
@@ -2458,6 +3108,8 @@ def run(dev: torch.device) -> int:
     q_launches = {
         "fused_skim_frames int8_hh": tse_q["int8_hh"]["launches"],
         "fused_skim_frames int8_full": tse_q["int8_full"]["launches"],
+        "fused_skim_frames gate int8_hh": gate_q["int8_hh"]["launches"],
+        "fused_skim_frames gate int8_full": gate_q["int8_full"]["launches"],
         "dual_path_chunk int8_hh": ns_q[("dp_kernel", "int8_hh")]["launches"][2],
         "dual_path_chunk xscr_half": ns_q[("dp_kernel", "xscr_half")]["launches"][2],
         "dual_path_chunk int8_hh+xscr_half":
@@ -2470,6 +3122,7 @@ def run(dev: torch.device) -> int:
              "dparn_center_chunk": (CENTER_SOURCE, CENTER_REPLACES["dparn_center_chunk"])}
     for name, r in quant_results.items():
         kernel = name.split()[0]
+        base_key = "fused_skim_frames gate" if " gate " in name else kernel
         kernels.append({
             "name": name, "route": "cuda", "source": where[kernel][0],
             "replaces": where[kernel][1], "launches": q_launches[name],
@@ -2479,11 +3132,11 @@ def run(dev: torch.device) -> int:
             "int8_peak": ("CUDA cores (__dp4a), int8_core_ops measured by phase 2h's "
                           "dp4a loop" if "int8" in name else None),
             "int8_core_ops": INT8_CORE_OPS if "int8" in name else None,
-            "without_option_ms": base[kernel][0], "snr_db": r["f32_snr_db"],
+            "without_option_ms": base[base_key][0], "snr_db": r["f32_snr_db"],
             "snr_bar_db": r["f32_bar_db"], "control_snr_db": r["f32_control_snr_db"],
             "floor_snr_db": r["f32_floor_snr_db"],
             "bf16_ms": r["bf16_ms"], "bf16_plain_ms": r["bf16_plain_ms"],
-            "bf16_bound_ms": r["bf16_bound"][0], "bf16_without_option_ms": base[kernel][1],
+            "bf16_bound_ms": r["bf16_bound"][0], "bf16_without_option_ms": base[base_key][1],
             "bf16_snr_db": r["bf16_snr_db"], "bf16_control_snr_db": r["bf16_control_snr_db"],
             "shape": r["shape"]})
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,21 @@
-// LSTM scan for training with the input projection inside the kernel, for
-// Hopper (sm_90a): forward, and backward in two passes.
+// LSTM scans for training, for Hopper (sm_90a): forward, and backward in two
+// passes, with the input projection inside the kernel (proj = 1) or hoisted
+// out of it (proj = 0), on batch-major or time-major sequences (x_tm).
 //
 // Replaces the Pallas TPU kernels of puresound_tpu/ops/lstm_train_kernel.py:
 //   _fwd_call_fp (pallas_call at :533, body _fwd_kernel_fp) and
 //   _bwd_call_fp (pallas_call at :590, body _bwd_kernel_fp),
-// the forward and the custom VJP of lstm_scan_train_fp. Per step t (t walks
+// the forward and the custom VJP of lstm_scan_train_fp and, time-major (x_t
+// [T, B, C] in, y_t out; dy_t in, dx_t out), of lstm_scan_train_fp_tm; and
+//   _fwd_call (pallas_call at :177, body _fwd_kernel) and
+//   _bwd_call (pallas_call at :224, body _bwd_kernel),
+// those of lstm_scan_train_tm / lstm_scan_train, which read the hoisted
+// projection xp_t [T, B, 4H] in place of x_t @ W_ih + bias, write the dgates
+// as dxp_t (in xp's dtype) in place of dx, compute no dbias, and give dW_hh
+// alone: the weight-gradient product has H rows in place of H + C. At the
+// boundary step the hoisted backward reads c0 rounded to xp's dtype, as JAX
+// concatenates it onto cseq (:329-341); no concatenated copy is built.
+// Per step t (t walks
 // T-1 .. 0 under `reverse`), for a tile of rows:
 //   forward:  gates = x_t @ W_ih + bias + h @ W_hh (i, f, g, o);
 //             c = f*c + i*g;  h = o*tanh(c)
@@ -26,7 +37,10 @@
 // backward does about 211 GFLOP. Against the published peaks (989 TFLOP/s
 // bf16, 67 TFLOP/s float32 without tensor cores, 3.35 TB/s) the forward is
 // bounded at 0.134 ms (bf16, bytes) / 1.58 ms (f32, operations) and the
-// backward at 0.214 / 3.15 ms. But every call is also a chain of T dependent
+// backward at 0.214 / 3.15 ms. The hoisted variant at that shape does 70.5
+// GFLOP forward (1.05 ms f32 by operations) and moves about 690 MB in bf16
+// (0.21 ms by bytes; xp and the gates 275 MB each), and 141 GFLOP backward
+// (2.10 ms f32; 0.23 ms bf16 by bytes). But every call is also a chain of T dependent
 // steps, and without tensor cores the float32 products run on CUDA cores; as
 // in skim_stream.cu, one CTA's serial chain of steps is expected to set the
 // time.
@@ -53,6 +67,11 @@
 //      no concatenated copy); a last kernel sums the n_split partials and the
 //      per-tile dbias in a fixed order. No atomics: the result is
 //      deterministic. Tensor cores (wgmma) and TMA are later work.
+// The hoisted variant is the same kernels with C = 0: no x tile, xp_t read
+// straight from device memory in place of the projection, and no dx / dW_ih /
+// dbias work. The layout flag only changes the x / y / dy / dx index
+// arithmetic, so the time-major and batch-major entries compute the same
+// sums in the same order, bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -97,6 +116,11 @@ __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
 
+// row of step t and sequence `row` in a [B, T, *] (tm = 0) or [T, B, *] array
+__device__ __forceinline__ long seq_row(int tm, int t, long row, int B, int T) {
+  return tm ? (long)t * B + row : row * T + t;
+}
+
 // acc[b] += v[b] * w for the BT = 8 row values stored at v (16-byte aligned)
 __device__ __forceinline__ void fma8(float* acc, const float* v, float w) {
   const float4 lo = *reinterpret_cast<const float4*>(v);
@@ -113,18 +137,18 @@ __device__ __forceinline__ void fma8(float* acc, const float* v, float w) {
 
 // ------------------------------------------------------------------ forward
 struct FwdParams {
-  const void* x;      // [B, T, C]  (dot dtype T)
+  const void* x;      // [B, T, C] or [T, B, C] (dot dtype T); proj = 0: xp [T, B, 4H]
   const void* h0;     // [B, H]     (state dtype)
   const void* c0;     // [B, H]
-  const void* w_ih;   // [C, 4H]    (T)
-  const float* bias;  // [4H]
+  const void* w_ih;   // [C, 4H]    (T), null when proj = 0
+  const float* bias;  // [4H], null when proj = 0
   const void* w_hh;   // [H, 4H]    (T)
-  void* y;            // [B, T, H]  (T)
+  void* y;            // [B, T, H] or [T, B, H]  (T)
   void* hT;           // [B, H]     (state dtype)
   void* cT;           // [B, H]
   void* gates;        // [T, B, 4H] (T) activated gates, or null
   void* cseq;         // [T, B, H]  (T) cell states, or null
-  int B, T, C, H, reverse, s_bf16;
+  int B, T, C, H, reverse, s_bf16, proj, x_tm;  // proj = 0: C = 0
 };
 
 template <typename T>
@@ -161,7 +185,8 @@ __global__ void __launch_bounds__(THREADS) lstm_fwd_kernel(FwdParams p) {
     // x_s was last read before the previous step's second barrier
     for (int idx = tid; idx < BT * C; idx += nthr) {
       const int b = idx / C, k = idx % C;
-      x_s[k * BT + b] = b < nb ? ldf(x, ((long)(b0 + b) * Tn + t) * C + k) : 0.f;
+      x_s[k * BT + b] =
+          b < nb ? ldf(x, seq_row(p.x_tm, t, b0 + b, B, Tn) * C + k) : 0.f;
     }
     __syncthreads();
     for (int n = tid; n < G; n += nthr) {
@@ -172,9 +197,17 @@ __global__ void __launch_bounds__(THREADS) lstm_fwd_kernel(FwdParams p) {
       for (int k = 0; k < C; ++k) fma8(ax, x_s + k * BT, ldf(w_ih, (long)k * G + n));
 #pragma unroll 4
       for (int k = 0; k < H; ++k) fma8(ah, h_s + k * BT, ldf(w_hh, (long)k * G + n));
-      const float bn = p.bias[n];
+      if (p.proj) {
+        const float bn = p.bias[n];
 #pragma unroll
-      for (int b = 0; b < BT; ++b) pre_s[n * BT + b] = (ax[b] + bn) + ah[b];
+        for (int b = 0; b < BT; ++b) pre_s[n * BT + b] = (ax[b] + bn) + ah[b];
+      } else {  // the hoisted xp_t, read once, coalesced across n
+#pragma unroll
+        for (int b = 0; b < BT; ++b) {
+          const float xp = b < nb ? ldf(x, ((long)t * B + b0 + b) * G + n) : 0.f;
+          pre_s[n * BT + b] = xp + ah[b];
+        }
+      }
     }
     __syncthreads();
     for (int idx = tid; idx < BT * H; idx += nthr) {
@@ -189,7 +222,7 @@ __global__ void __launch_bounds__(THREADS) lstm_fwd_kernel(FwdParams p) {
       h_s[j * BT + b] = rnd<T>(h);
       if (b < nb) {
         const long row = b0 + b;
-        stf(y, (row * Tn + t) * H + j, h);
+        stf(y, seq_row(p.x_tm, t, row, B, Tn) * H + j, h);
         if (gates != nullptr) {
           const long g = ((long)t * B + row) * G + j;
           stf(gates, g, ig);
@@ -209,23 +242,24 @@ __global__ void __launch_bounds__(THREADS) lstm_fwd_kernel(FwdParams p) {
 
 // -------------------------------------------------- backward (a): recurrence
 struct BwdParams {
-  const void* x;       // [B, T, C]  (T)
+  const void* x;       // [B, T, C] or [T, B, C] (T); null when proj = 0
   const void* h0;      // [B, H]     (state dtype)
   const void* c0;      // [B, H]
-  const void* w_ih_t;  // [4H, C]    (T) torch layout, rows read coalesced
+  const void* w_ih_t;  // [4H, C]    (T) torch layout, rows read coalesced; or null
   const void* w_hh_t;  // [4H, H]    (T)
-  const void* y;       // [B, T, H]  (T)
+  const void* y;       // [B, T, H] or [T, B, H] (T)
   const void* gates;   // [T, B, 4H] (T)
   const void* cseq;    // [T, B, H]  (T)
-  const void* dy;      // [B, T, H]  (T)
+  const void* dy;      // y's layout (T)
   const float* dhT;    // [B, H]
   const float* dcT;    // [B, H]
-  void* dx;            // [B, T, C]  (T)
+  void* dx;            // x's layout (T), or null
   float* dh0;          // [B, H]
   float* dc0;          // [B, H]
-  void* dg;            // [T, B, 4H] (T) scratch: dgates rounded to the dot dtype
-  float* db_part;      // [n_tiles, 4H] per-tile dbias
-  int B, T, C, H, reverse, s_bf16;
+  void* dg;            // [T, B, 4H] (T) dgates rounded to the dot dtype: scratch,
+                       // or the output dxp_t when proj = 0
+  float* db_part;      // [n_tiles, 4H] per-tile dbias, or null
+  int B, T, C, H, reverse, s_bf16, proj, x_tm;  // proj = 0: C = 0
   int n_slices;        // the 4H sums of dh / dx split into this many ranges
 };
 
@@ -273,10 +307,15 @@ __global__ void __launch_bounds__(THREADS) lstm_bwd_kernel(BwdParams p) {
         const float ig = ldf(gates, gb), fg = ldf(gates, gb + H);
         const float gg = ldf(gates, gb + 2 * H), og = ldf(gates, gb + 3 * H);
         const float cn = ldf(cseq, ((long)t * B + row) * H + j);
-        const float cp = s == 0 ? lds(p.c0, row * H + j, p.s_bf16)
-                                : ldf(cseq, ((long)tp * B + row) * H + j);
+        float cp;
+        if (s == 0) {
+          const float c0 = lds(p.c0, row * H + j, p.s_bf16);
+          cp = p.proj ? c0 : rnd<T>(c0);
+        } else {
+          cp = ldf(cseq, ((long)tp * B + row) * H + j);
+        }
         const float tc = tanhf(cn);
-        const float dh = dh_s[idx] + ldf(dy, (row * Tn + t) * H + j);
+        const float dh = dh_s[idx] + ldf(dy, seq_row(p.x_tm, t, row, B, Tn) * H + j);
         const float dc = dc_s[idx] + dh * og * (1.f - tc * tc);
         d[0] = dc * gg * ig * (1.f - ig);
         d[1] = dc * cp * fg * (1.f - fg);
@@ -296,7 +335,8 @@ __global__ void __launch_bounds__(THREADS) lstm_bwd_kernel(BwdParams p) {
     // tasks: (range, column) of the dh | dx products, a column being one
     // of dh [0, H) or dx [H, H + C) and a range one of the S slices of the
     // 4H sum (so S * (H + C) threads share the products); dbias after
-    for (int task = tid; task < S * KC + G; task += nthr) {
+    const int n_tasks = S * KC + (p.proj ? G : 0);
+    for (int task = tid; task < n_tasks; task += nthr) {
       if (task < S * KC) {
         const int sl = task / KC, k = task % KC;
         const bool is_h = k < H;
@@ -329,7 +369,7 @@ __global__ void __launch_bounds__(THREADS) lstm_bwd_kernel(BwdParams p) {
       if (k < H)
         dh_s[b * H + k] = v;
       else if (b < nb)
-        stf(dx, ((long)(b0 + b) * Tn + t) * C + (k - H), v);
+        stf(dx, seq_row(p.x_tm, t, b0 + b, B, Tn) * C + (k - H), v);
     }
     __syncthreads();
   }
@@ -341,17 +381,18 @@ __global__ void __launch_bounds__(THREADS) lstm_bwd_kernel(BwdParams p) {
       p.dc0[(long)(b0 + b) * H + j] = dc_s[idx];
     }
   }
-  for (int n = tid; n < G; n += nthr) p.db_part[(long)blockIdx.x * G + n] = db_s[n];
+  if (p.proj)
+    for (int n = tid; n < G; n += nthr) p.db_part[(long)blockIdx.x * G + n] = db_s[n];
 }
 
 // ------------------------------------------- backward (b): weight gradients
 struct WgradParams {
-  const void* x;   // [B, T, C]  (T)
+  const void* x;   // [B, T, C] or [T, B, C] (T); null when C = 0
   const void* h0;  // [B, H]     (state dtype)
-  const void* y;   // [B, T, H]  (T)
+  const void* y;   // x's layout, H wide (T)
   const void* dg;  // [T, B, 4H] (T)
   float* w_part;   // [n_split, H + C, 4H] partial [dW_hh; dW_ih]
-  int B, T, C, H, reverse, s_bf16, rows_per_split;
+  int B, T, C, H, reverse, s_bf16, rows_per_split, x_tm;
 };
 
 template <typename T>
@@ -385,9 +426,9 @@ __global__ void __launch_bounds__(WTHREADS) lstm_wgrad_kernel(WgradParams p) {
           const bool first = p.reverse ? t == Tn - 1 : t == 0;
           const int tp = p.reverse ? t + 1 : t - 1;
           a = first ? lds(p.h0, (long)b * H + k, p.s_bf16)
-                    : ldf(y, ((long)b * Tn + tp) * H + k);
+                    : ldf(y, seq_row(p.x_tm, tp, b, B, Tn) * H + k);
         } else if (k < K) {
-          a = ldf(x, ((long)b * Tn + t) * C + (k - H));
+          a = ldf(x, seq_row(p.x_tm, t, b, B, Tn) * C + (k - H));
         }
         if (n < G) g = ldf(dg, (long)r * G + n);
       }
@@ -417,13 +458,14 @@ __global__ void __launch_bounds__(WTHREADS) lstm_wgrad_kernel(WgradParams p) {
     }
 }
 
-// sums the row-range partials and the per-tile dbias, each in a fixed order
+// sums the row-range partials and (proj) the per-tile dbias, each in a fixed order
 __global__ void lstm_wgrad_reduce(const float* w_part, const float* db_part, float* dw_hh,
                                   float* dw_ih, float* dbias, int H, int C, int n_split,
-                                  int n_tiles) {
+                                  int n_tiles, int proj) {
   const int G = 4 * H;
   const long KG = (long)(H + C) * G;
-  for (long idx = (long)blockIdx.x * blockDim.x + threadIdx.x; idx < KG + G;
+  const long total = KG + (proj ? G : 0);
+  for (long idx = (long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
        idx += (long)gridDim.x * blockDim.x) {
     float s = 0.f;
     if (idx < KG) {
@@ -475,15 +517,15 @@ cudaError_t bwd_launch(const BwdParams& p, float* w_part, float* dw_ih, float* d
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   WgradParams w{p.x, p.h0, p.y, p.dg, w_part, p.B, p.T, p.C, p.H, p.reverse, p.s_bf16,
-                rows_per_split};
+                rows_per_split, p.x_tm};
   const dim3 grid((G + WT - 1) / WT, (K + WT - 1) / WT, n_split);
   lstm_wgrad_kernel<T><<<grid, WTHREADS, 0, stream>>>(w);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const long total = (long)K * G + G;
+  const long total = (long)K * G + (p.proj ? G : 0);
   const int blocks = total / 256 + 1 < 4096 ? (int)(total / 256 + 1) : 4096;
   lstm_wgrad_reduce<<<blocks, 256, 0, stream>>>(w_part, p.db_part, dw_hh, dw_ih, dbias,
-                                                p.H, p.C, n_split, n_tiles);
+                                                p.H, p.C, n_split, n_tiles, p.proj);
   return cudaGetLastError();
 }
 
@@ -493,9 +535,10 @@ extern "C" int lstm_train_fwd(const void* x, const void* h0, const void* c0,
                               const void* w_ih, const void* bias, const void* w_hh,
                               void* y, void* hT, void* cT, void* gates, void* cseq, int B,
                               int T, int C, int H, int reverse, int x_bf16, int s_bf16,
-                              void* stream) {
+                              int proj, int x_tm, void* stream) {
+  if (!proj && (C != 0 || !x_tm)) return static_cast<int>(cudaErrorInvalidValue);
   FwdParams p{x, h0, c0, w_ih, static_cast<const float*>(bias), w_hh, y, hT, cT, gates,
-              cseq, B, T, C, H, reverse, s_bf16};
+              cseq, B, T, C, H, reverse, s_bf16, proj, x_tm};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(x_bf16 ? fwd_launch<__nv_bfloat16>(p, s) : fwd_launch<float>(p, s));
 }
@@ -507,11 +550,12 @@ extern "C" int lstm_train_bwd(const void* x, const void* h0, const void* c0,
                               void* dc0, void* dw_ih, void* dw_hh, void* dbias, void* dg,
                               void* db_part, void* w_part, int B, int T, int C, int H,
                               int reverse, int x_bf16, int s_bf16, int n_split,
-                              int rows_per_split, void* stream) {
+                              int rows_per_split, int proj, int x_tm, void* stream) {
+  if (!proj && (C != 0 || !x_tm)) return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p{x, h0, c0, w_ih_t, w_hh_t, y, gates, cseq, dy,
               static_cast<const float*>(dhT), static_cast<const float*>(dcT), dx,
               static_cast<float*>(dh0), static_cast<float*>(dc0), dg,
-              static_cast<float*>(db_part), B, T, C, H, reverse, s_bf16,
+              static_cast<float*>(db_part), B, T, C, H, reverse, s_bf16, proj, x_tm,
               bwd_slices(H, C)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wp = static_cast<float*>(w_part);

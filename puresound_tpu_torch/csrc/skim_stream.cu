@@ -2,8 +2,11 @@
 //
 // Replaces the Pallas TPU kernel
 //   puresound_tpu/ops/skim_stream_kernel.py::fused_skim_frames (body _make_kernel),
-// FiLM and unconditioned blocks. Per frame t and block i, for a tile of streams:
+// FiLM, Gate and unconditioned blocks. Per frame t and block i, for a tile of
+// streams:
 //   FiLM:  xn = LN(x); x = (xn @ Wsx + se[i]) * xn + (xn @ Wbx + be[i])
+//   Gate:  u = x @ Win; left = PReLU(LN'(u @ Wl)); right = sigmoid(PReLU(LN'(u @ Wrx + ge[i])));
+//          x += (left * right) @ Wout   (LN' two-pass with eps 1e-8; one PReLU slope each)
 //   LSTM:  gates = x @ W_ih + h @ W_hh + b (i, f, g, o); c = f*c + i*g; h = o*tanh(c)
 //   out:   x += LN(h @ proj_w + proj_b)
 // Loads in the input dtype (float32 or bfloat16), all math in float32; with
@@ -39,6 +42,13 @@
 // and scales once: acc * s, or acc * (amax / 127) * s. A weight word is a
 // quarter of the float32 bytes, so L2 traffic per frame falls 4x for each
 // quantized matrix.
+//
+// Gate (gate_mask): four more products of width Hg per block step (x @ Win,
+// u @ Wl and u @ Wrx together, (left * right) @ Wout), thread o owning output
+// column o for the tile's 8 streams as in the FiLM dots, in the dot dtype
+// whatever q_mode says (JAX leaves them unquantized). Its two LayerNorms, the
+// PReLUs and the sigmoid run in one pass of the warp that owns the stream, so
+// a Gate block adds four barriers to the serial chain of block steps.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -51,6 +61,7 @@ struct Params {
   const void* x;     // [B, F, C]
   const void* se;    // [n, B, C]
   const void* be;    // [n, B, C]
+  const void* ge;    // [n, B, Hg]
   const void* h_in;  // [n, B, H]
   const void* c_in;  // [n, B, H]
   void* y;           // [B, F, C]
@@ -61,7 +72,9 @@ struct Params {
   const int* w_q;    // per block, int8 x4 words: wsx[C/4][C] wbx[C/4][C]
                      // w_ih[C/4][4H] w_hh[H/4][4H] proj_w[H/4][C]
   const float* w_s;  // per block: their column scales, divided as dequant_scale
-  int B, F, C, H, n_blocks, film_mask, x_bf16, s_bf16, q_mode;
+  const void* g_mat; // per block: win[C,Hg] wl[Hg,Hg] wrx[Hg,Hg] wout[Hg,C], or null
+  const float* g_vec;// per block: lg[Hg] lb[Hg] rg[Hg] rb[Hg] la ra, or null
+  int B, F, C, H, Hg, n_blocks, film_mask, gate_mask, x_bf16, s_bf16, q_mode;
 };
 
 __device__ __forceinline__ float ld(const void* p, long i, int bf16) {
@@ -148,6 +161,39 @@ __device__ void warp_ln(const float* v, int C, const float* g, const float* b,
   }
 }
 
+// Two-pass LayerNorm statistics of one K-vector by one warp: (mean, rstd).
+__device__ __forceinline__ float2 warp_ln_stats(const float* v, int K, float eps) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int k = lane; k < K; k += 32) s += v[k];
+  const float mean = warp_sum(s) / K;
+  float q = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float d = v[k] - mean;
+    q += d * d;
+  }
+  return make_float2(mean, rsqrtf(warp_sum(q) / K + eps));
+}
+
+__device__ __forceinline__ float prelu(float v, float a) {
+  return fmaxf(v, 0.f) + a * fminf(v, 0.f);
+}
+
+// A Gate's elementwise middle for one stream, by one warp: left = PReLU(LN(l)),
+// right = sigmoid(PReLU(LN(r))), l <- left * right. gv: lg lb rg rb [Hg], la ra.
+__device__ void warp_gate_mix(float* l, const float* r, int Hg, const float* gv) {
+  const int lane = threadIdx.x & 31;
+  const float2 sl = warp_ln_stats(l, Hg, 1e-8f);
+  const float2 sr = warp_ln_stats(r, Hg, 1e-8f);
+  const float la = gv[4 * Hg], ra = gv[4 * Hg + 1];
+  for (int k = lane; k < Hg; k += 32) {
+    const float left = prelu((l[k] - sl.x) * sl.y * gv[k] + gv[Hg + k], la);
+    const float right =
+        sigm(prelu((r[k] - sr.x) * sr.y * gv[2 * Hg + k] + gv[3 * Hg + k], ra));
+    l[k] = left * right;
+  }
+}
+
 template <typename TW>
 __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
   extern __shared__ float smem[];
@@ -163,6 +209,10 @@ __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
   int* aq_s = reinterpret_cast<int*>(hn_s + BT * H);  // [BT][KQ] quantized rows
   int* hq_s = aq_s + BT * KQ;                          // [BT][H/4] quantized h
   float* amax_s = reinterpret_cast<float*>(hq_s + BT * H / 4);  // [BT]
+  const int Hg = p.Hg;
+  float* gu_s = amax_s + BT;      // [BT][Hg] Gate u = x @ Win
+  float* gl_s = gu_s + BT * Hg;   // [BT][Hg] Gate left pre-activation, then left * right
+  float* gr_s = gl_s + BT * Hg;   // [BT][Hg] Gate right pre-activation
   const bool q_hh = p.q_mode & 1, q_full = p.q_mode & 2;
 
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -173,6 +223,7 @@ __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
   const int vec_stride = 2 * C + G + 3 * C;
   const long q_stride = mat_stride / 4;  // words
   const int s_stride = 2 * C + 2 * G + C;
+  const long g_stride = 2L * C * Hg + 2L * Hg * Hg;
 
   for (int idx = tid; idx < n * BT * H; idx += nthr) {
     const int i = idx / (BT * H), r = idx % (BT * H), b = r / H, j = r % H;
@@ -251,6 +302,71 @@ __global__ void __launch_bounds__(THREADS) skim_frames_kernel(Params p) {
             bv = ld(p.be, g, p.x_bf16);
           }
           x_s[idx] = (t0_s[idx] + sv) * xn_s[idx] + (t1_s[idx] + bv);
+        }
+        __syncthreads();
+      }
+
+      if ((p.gate_mask >> i) & 1) {
+        const TW* win = static_cast<const TW*>(p.g_mat) + i * g_stride;
+        const TW* wl = win + (long)C * Hg;
+        const TW* wrx = wl + (long)Hg * Hg;
+        const TW* wout = wrx + (long)Hg * Hg;
+        const float* gv = p.g_vec + (long)i * (4 * Hg + 2);
+        for (int o = tid; o < Hg; o += nthr) {
+          float acc[BT];
+#pragma unroll
+          for (int b = 0; b < BT; ++b) acc[b] = 0.f;
+#pragma unroll 4
+          for (int k = 0; k < C; ++k) {
+            const float wk = wload(win, (long)k * Hg + o);
+#pragma unroll
+            for (int b = 0; b < BT; ++b) acc[b] += rnd(x_s[b * C + k], wm) * wk;
+          }
+#pragma unroll
+          for (int b = 0; b < BT; ++b) gu_s[b * Hg + o] = acc[b];
+        }
+        __syncthreads();
+        // output o < Hg: left column o; o >= Hg: right column o - Hg, plus ge
+        for (int o = tid; o < 2 * Hg; o += nthr) {
+          const bool left = o < Hg;
+          const int col = left ? o : o - Hg;
+          const TW* w = left ? wl : wrx;
+          float acc[BT];
+#pragma unroll
+          for (int b = 0; b < BT; ++b) acc[b] = 0.f;
+#pragma unroll 4
+          for (int k = 0; k < Hg; ++k) {
+            const float wk = wload(w, (long)k * Hg + col);
+#pragma unroll
+            for (int b = 0; b < BT; ++b) acc[b] += rnd(gu_s[b * Hg + k], wm) * wk;
+          }
+#pragma unroll
+          for (int b = 0; b < BT; ++b) {
+            if (left) {
+              gl_s[b * Hg + col] = acc[b];
+            } else {
+              const float e =
+                  b < nb ? ld(p.ge, ((long)i * B + b0 + b) * Hg + col, p.x_bf16) : 0.f;
+              gr_s[b * Hg + col] = acc[b] + e;
+            }
+          }
+        }
+        __syncthreads();
+        for (int b = warp; b < BT; b += nwarps)
+          warp_gate_mix(gl_s + b * Hg, gr_s + b * Hg, Hg, gv);
+        __syncthreads();
+        for (int o = tid; o < C; o += nthr) {
+          float acc[BT];
+#pragma unroll
+          for (int b = 0; b < BT; ++b) acc[b] = 0.f;
+#pragma unroll 4
+          for (int k = 0; k < Hg; ++k) {
+            const float wk = wload(wout, (long)k * C + o);
+#pragma unroll
+            for (int b = 0; b < BT; ++b) acc[b] += rnd(gl_s[b * Hg + k], wm) * wk;
+          }
+#pragma unroll
+          for (int b = 0; b < BT; ++b) x_s[b * C + o] += acc[b];
         }
         __syncthreads();
       }
@@ -439,7 +555,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int kq = (p.C > p.H ? p.C : p.H) / 4;
   const size_t smem =
       sizeof(float) * (2L * p.n_blocks * BT * p.H + 4L * BT * p.C + (long)BT * p.H) +
-      sizeof(int) * ((size_t)BT * kq + (size_t)BT * p.H / 4) + sizeof(float) * BT;
+      sizeof(int) * ((size_t)BT * kq + (size_t)BT * p.H / 4) +
+      sizeof(float) * (BT + 3L * BT * p.Hg);
   cudaError_t err = cudaFuncSetAttribute(
       skim_frames_kernel<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -478,16 +595,17 @@ extern "C" int skim_dp4a_rate(void* out, int blocks, int iters, void* stream) {
 }
 
 extern "C" int skim_stream_frames(const void* x, const void* se, const void* be,
-                                  const void* h_in, const void* c_in, void* y,
-                                  void* h_out, void* c_out, const void* w_mat,
+                                  const void* ge, const void* h_in, const void* c_in,
+                                  void* y, void* h_out, void* c_out, const void* w_mat,
                                   const void* w_vec, const void* w_q, const void* w_s,
-                                  int B, int F, int C, int H, int n_blocks, int film_mask,
-                                  int x_bf16, int s_bf16, int w_bf16, int q_mode,
-                                  void* stream) {
-  Params p{x, se, be, h_in, c_in, y, h_out, c_out, w_mat,
+                                  const void* g_mat, const void* g_vec, int B, int F,
+                                  int C, int H, int Hg, int n_blocks, int film_mask,
+                                  int gate_mask, int x_bf16, int s_bf16, int w_bf16,
+                                  int q_mode, void* stream) {
+  Params p{x, se, be, ge, h_in, c_in, y, h_out, c_out, w_mat,
            static_cast<const float*>(w_vec), static_cast<const int*>(w_q),
-           static_cast<const float*>(w_s), B, F, C, H, n_blocks, film_mask,
-           x_bf16, s_bf16, q_mode};
+           static_cast<const float*>(w_s), g_mat, static_cast<const float*>(g_vec),
+           B, F, C, H, Hg, n_blocks, film_mask, gate_mask, x_bf16, s_bf16, q_mode};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       w_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);

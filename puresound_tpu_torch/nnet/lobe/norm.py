@@ -4,8 +4,8 @@ Counterpart of puresound_tpu/nnet/lobe/norm.py (`bN2d` is the same
 BatchNorm on [N, C, F, T]). Statistics are taken in at
 least float32 (float64 stays float64), with the single-pass variance
 E[x^2] - mean^2 of the reference (norm.py:20-32). Parameter names follow
-PureSound's torch modules: GlobLN keeps gamma/beta, the gGN alias is
-torch's GroupNorm(1, C) (weight/bias), BatchNorm and LayerNorm are torch's.
+PureSound's torch modules: GlobLN and ChanLN keep gamma/beta, the gGN alias
+is torch's GroupNorm(1, C) (weight/bias), BatchNorm and LayerNorm are torch's.
 """
 from __future__ import annotations
 
@@ -46,6 +46,18 @@ class GlobLN(nn.Module):
 
     def forward(self, x):
         mean, var = _moments(x, tuple(range(1, x.dim())))
+        shape = _channel_shape(x, self.channel_size)
+        return (_normalize(x, mean, var, self.eps)
+                * self.gamma.reshape(shape).to(x.dtype)
+                + self.beta.reshape(shape).to(x.dtype))
+
+
+class ChanLN(GlobLN):
+    """Channel-wise layer norm: over the channel dim only (cLN, eps 1e-8;
+    JAX `norm.py:78`)."""
+
+    def forward(self, x):
+        mean, var = _moments(x, (1,))
         shape = _channel_shape(x, self.channel_size)
         return (_normalize(x, mean, var, self.eps)
                 * self.gamma.reshape(shape).to(x.dtype)
@@ -142,9 +154,9 @@ class LayerNormLast(nn.Module):
                 + self.bias.to(x.dtype))
 
 
-_REGISTRY = {"gLN": GlobLN, "gGN": GroupNorm1, "bN1d": BatchNorm,
-             "bN2d": BatchNorm}
-_NOT_PORTED = ("cLN", "iLN")
+_REGISTRY = {"gLN": GlobLN, "cLN": ChanLN, "gGN": GroupNorm1,
+             "bN1d": BatchNorm, "bN2d": BatchNorm}
+_NOT_PORTED = ("iLN",)
 
 
 def get_norm(name: str) -> Callable[..., nn.Module]:

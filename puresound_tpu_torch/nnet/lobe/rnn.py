@@ -4,23 +4,34 @@
 [4H, C], `weight_hh_l0` [4H, H], `bias_ih_l0`, `bias_hh_l0`; gate order
 i, f, g, o; a bidirectional LSTM adds the `*_reverse` set) and the cell
 methods of the JAX `LSTMCellParams` (`input_proj`, `gates_step`, `step`,
-`scan`). Every scan goes through `ops.lstm_train_kernel.lstm_scan_train_fp`:
-the CUDA kernel (forward and backward) for CUDA tensors, its plain version
-for CPU tensors. JAX's routing conditions are TPU facts and are dropped
-here: the >= 256-row crossover measured on a v5e (`rnn.py:98-102`), the
-`% 8` alignment and the `PURESOUND_FUSED_SCAN` switch. The single-step
-methods stay for streaming.
+`scan`, `scan_tm`). Every scan goes through a training LSTM kernel of
+`ops.lstm_train_kernel` (the CUDA kernel, forward and backward, for CUDA
+tensors; its plain version for CPU tensors): `lstm_scan_train_fp`, the
+input projection inside the kernel, or, with `FUSED_PROJ_SCAN` off (JAX's
+`PURESOUND_FUSED_PROJ=0`, read at import), `lstm_scan_train` on the
+hoisted projection `input_proj(x)`. The time-major `scan_tm` takes their
+`_tm` entries. JAX's other routing conditions are TPU facts and are
+dropped here: the >= 256-row crossover measured on a v5e (`rnn.py:98-102`),
+the `% 8` alignment and the `PURESOUND_FUSED_SCAN` switch; so where JAX's
+`scan_tm` runs `lax.scan` (`rnn.py:157-166`) the port runs a kernel. The
+single-step methods stay for streaming.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from ...ops.lstm_train_kernel import lstm_scan_train_fp
+from ...ops.lstm_train_kernel import (lstm_scan_train, lstm_scan_train_fp,
+                                      lstm_scan_train_fp_tm, lstm_scan_train_tm)
 from ...utils.init import fan_in_bound, generator_or_default, uniform
+
+#: the input projection inside the scan kernel (JAX `rnn.py:47`); off, the
+#: projection is hoisted out and the scan runs `lstm_scan_train`
+FUSED_PROJ_SCAN = os.environ.get("PURESOUND_FUSED_PROJ", "1") != "0"
 
 
 class Linear(nn.Module):
@@ -88,28 +99,52 @@ class LSTM(nn.Module):
         """One step from a raw input x_t [B, C]; h, c [B, H]."""
         return self.gates_step(self.input_proj(x_t), h, c)
 
+    def _scan(self, x, h0, c0, reverse, direction, time_major):
+        w_ih, w_hh, b_ih, b_hh = self.direction(direction)
+        if FUSED_PROJ_SCAN:
+            fn = lstm_scan_train_fp_tm if time_major else lstm_scan_train_fp
+            y, hT, cT = fn(x, h0, c0, w_ih.T, b_ih + b_hh, w_hh.T, reverse)
+        else:
+            fn = lstm_scan_train_tm if time_major else lstm_scan_train
+            y, hT, cT = fn(self.input_proj(x, direction), h0, c0, w_hh.T,
+                           reverse)
+        return y, (hT, cT)
+
     def scan(self, x, h0, c0, reverse: bool = False, direction: bool = False):
         """x [B, T, C], h0/c0 [B, H] -> (y [B, T, H], (hT, cT)), scanning T
         backwards under `reverse` (y stays input-aligned) with the
         parameters of direction `direction` (True: the `_reverse` set)."""
-        w_ih, w_hh, b_ih, b_hh = self.direction(direction)
-        y, hT, cT = lstm_scan_train_fp(x, h0, c0, w_ih.T, b_ih + b_hh, w_hh.T,
-                                       reverse)
-        return y, (hT, cT)
+        return self._scan(x, h0, c0, reverse, direction, time_major=False)
 
-    def forward(self, x: torch.Tensor,
-                init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    def scan_tm(self, x_t, h0, c0, reverse: bool = False, direction: bool = False):
+        """Time-major `scan`: x_t [T, B, C] -> (y_t [T, B, H], (hT, cT))
+        (JAX `rnn.py:138-166`)."""
+        return self._scan(x_t, h0, c0, reverse, direction, time_major=True)
+
+    def _run(self, x, init, time_major):
+        scan = self.scan_tm if time_major else self.scan
         if init is None:
-            h0 = x.new_zeros((self.num_directions, x.shape[0], self.hidden))
+            h0 = x.new_zeros((self.num_directions, x.shape[1 if time_major else 0],
+                              self.hidden))
             c0 = torch.zeros_like(h0)
         else:
             h0, c0 = init
-        y, (h, c) = self.scan(x, h0[0], c0[0])
+        y, (h, c) = scan(x, h0[0], c0[0])
         if not self.bidirectional:
             return y, (h[None], c[None])
-        y_b, (hb, cb) = self.scan(x, h0[1], c0[1], reverse=True, direction=True)
+        y_b, (hb, cb) = scan(x, h0[1], c0[1], reverse=True, direction=True)
         return (torch.cat([y, y_b], dim=-1),
                 (torch.stack([h, hb]), torch.stack([c, cb])))
+
+    def forward(self, x: torch.Tensor,
+                init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        return self._run(x, init, time_major=False)
+
+    def call_tm(self, x_t: torch.Tensor,
+                init: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """Time-major forward: x_t [T, B, C] -> (y_t [T, B, D*H], (h, c))
+        (JAX `rnn.py:204`)."""
+        return self._run(x_t, init, time_major=True)
 
     def step(self, x_t, h, c):
         """Single-frame step (uni-directional). x_t [B, C], h/c [1, B, H]."""

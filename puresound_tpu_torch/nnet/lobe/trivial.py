@@ -1,5 +1,5 @@
-"""FiLM conditioning and spectral compression (counterpart of
-puresound_tpu/nnet/lobe/trivial.py:88, :188)."""
+"""Gate and FiLM conditioning and spectral compression (counterpart of
+puresound_tpu/nnet/lobe/trivial.py:50, :88, :188)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,8 +8,54 @@ import torch
 from torch import nn
 
 from ...utils.init import generator_or_default
+from .activation import PReLU
 from .cnn import Conv1d
-from .norm import LayerNormLast
+from .norm import ChanLN, LayerNormLast
+
+
+class Gate(nn.Module):
+    """Gated conditioning block: x + out_conv(left * sigmoid(right)), with
+    left = PReLU(cLN(left_conv(in_conv(x)))) and right the same over
+    [in_conv(x); cond]. x: [N, C, T], condition: [N, E].
+
+    PureSound's layout (`left_conv` / `right_conv` are Sequential(conv, cLN,
+    PReLU)). Dropout after each PReLU runs in training mode only and draws
+    its mask from the module's own `torch.Generator`, never the global RNG.
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, embed_size: int,
+                 dropout: float = 0.0, *, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        g = generator_or_default(generator)
+        self.hidden_size, self.dropout, self.generator = hidden_size, dropout, g
+        self.in_conv = Conv1d(input_size, hidden_size, 1, bias=False,
+                              generator=g, **fk)
+        self.left_conv = nn.Sequential(
+            Conv1d(hidden_size, hidden_size, 1, bias=False, generator=g, **fk),
+            ChanLN(hidden_size, **fk), PReLU(**fk))
+        self.right_conv = nn.Sequential(
+            Conv1d(hidden_size + embed_size, hidden_size, 1, bias=False,
+                   generator=g, **fk),
+            ChanLN(hidden_size, **fk), PReLU(**fk))
+        self.out_conv = Conv1d(hidden_size, input_size, 1, bias=False,
+                               generator=g, **fk)
+
+    def _drop(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.dropout):
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=self.generator.device) >= self.dropout
+        return x * keep.to(x.device, x.dtype) / (1.0 - self.dropout)
+
+    def forward(self, x: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+        u = self.in_conv(x)
+        cond = condition[:, :, None].expand(*condition.shape, u.shape[-1])
+        left = self._drop(self.left_conv(u))
+        right = torch.sigmoid(self._drop(
+            self.right_conv(torch.cat([u, cond.to(u.dtype)], dim=1))))
+        return self.out_conv(left * right) + x
 
 
 class FiLM(nn.Module):

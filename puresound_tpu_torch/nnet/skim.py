@@ -1,8 +1,8 @@
 """SkiM — Skipping-Memory LSTM (counterpart of puresound_tpu/nnet/skim.py).
 
-Causal SkiM with FiLM (or no) conditioning: the offline forward
+Causal SkiM with FiLM, Gate (or no) conditioning: the offline forward
 (`skim.py:236`), differentiable, with every SegLSTM / MemLSTM scan through
-`ops.lstm_train_kernel.lstm_scan_train_fp` (the SegLSTM finals feed
+a training LSTM kernel (`nnet/lobe/rnn.py`; the SegLSTM finals feed
 MemLSTM, and its outputs the next block's h0/c0, gradients included); the
 explicit streaming state (`init_state` `:293`); the per-frame streaming
 step (`step_frames` `:384`); and the fused streaming step
@@ -14,9 +14,15 @@ follow PureSound (`seg_lstm`, `mem_lstm`, `seg_input_fusion`,
 The streaming state keeps the JAX pytree's keys; its shared segment clock
 `frame_count` is a host int, so the segment-boundary test never reads the
 device.
+
+`TM_BLOCKS` (JAX's `PURESOUND_TM_BLOCKS`, default off, read at import)
+runs the offline block stack time-major, [K, N*S, C]: one transpose in and
+one out, with `SegLSTM.call_tm` and `LSTM.call_tm` in between (`skim.py:42`,
+`:258-283`). The math is the same; tests set the module attribute.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -29,7 +35,12 @@ from .lobe.activation import PReLU
 from .lobe.cnn import Conv1d
 from .lobe.norm import LayerNormLast
 from .lobe.rnn import LSTM, Linear
-from .lobe.trivial import FiLM
+from .lobe.trivial import FiLM, Gate
+
+#: run the offline block stack time-major (JAX `skim.py:42`)
+TM_BLOCKS = os.environ.get("PURESOUND_TM_BLOCKS", "0") != "0"
+#: the Gate width of a Gate-conditioned SkiM, fixed as in JAX (`skim.py:192-194`)
+GATE_HIDDEN = 128
 
 
 class SegLSTM(nn.Module):
@@ -57,6 +68,16 @@ class SegLSTM(nn.Module):
             c = x.new_zeros((1, x.shape[0], self.hidden_size))
         y, (h, c) = self.lstm(x, (h, c))
         return x + self.norm(self.proj(y)), h, c
+
+    def call_tm(self, x_t, h=None, c=None):
+        """Time-major forward: x_t [K, B, C] (JAX `skim.py:75-89`); the
+        projection, norm and residual act on the last axis."""
+        if h is None:
+            h = x_t.new_zeros((1, x_t.shape[1], self.hidden_size))
+        if c is None:
+            c = x_t.new_zeros((1, x_t.shape[1], self.hidden_size))
+        y, (h, c) = self.lstm.call_tm(x_t, (h, c))
+        return x_t + self.norm(self.proj(y)), h, c
 
 
 class MemLSTM(nn.Module):
@@ -129,24 +150,26 @@ class SkiM(nn.Module):
             raise NotImplementedError(
                 "non-causal / overlapped-segment SkiM is not ported yet "
                 "(ROADMAP queue 1: the rest of the TSE zoo)")
-        if embed_dim and embed_fusion.lower() != "film":
-            raise NotImplementedError(
-                f"SkiM {embed_fusion} fusion is not ported yet (ROADMAP "
-                "queues 1-2: Gate fusion and its fused_skim_frames mode)")
+        if embed_dim and embed_fusion.lower() not in ("film", "gate"):
+            raise NameError(embed_fusion)
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
         self.input_size, self.hidden_size = input_size, hidden_size
         self.output_size, self.n_blocks = output_size, n_blocks
         self.seg_size, self.causal = seg_size, causal
         self.embed_dim, self.embed_norm = embed_dim, embed_norm
+        self.embed_fusion = embed_fusion.lower() if embed_dim else None
         self.block_with_embed = tuple(block_with_embed or ())
         self.seg_lstm = nn.ModuleList(
             SegLSTM(input_size, hidden_size, causal, generator=g, **fk)
             for _ in range(n_blocks))
         if embed_dim:
-            self.seg_input_fusion = nn.ModuleList(
+            fusion = lambda: (
                 FiLM(input_size, embed_dim, input_norm=True, generator=g, **fk)
-                if self.block_with_embed[i] else nn.Identity()
+                if self.embed_fusion == "film" else
+                Gate(input_size, GATE_HIDDEN, embed_dim, generator=g, **fk))
+            self.seg_input_fusion = nn.ModuleList(
+                fusion() if self.block_with_embed[i] else nn.Identity()
                 for i in range(n_blocks))
         self.mem_lstm = nn.ModuleList(
             MemLSTM(hidden_size, causal, generator=g, **fk)
@@ -162,14 +185,23 @@ class SkiM(nn.Module):
                 embed, dim=1, keepdim=True).clamp_min(1e-12)
         return embed
 
-    def _has_film(self, i: int) -> bool:
+    def _has_embed(self, i: int) -> bool:
         return bool(self.embed_dim and self.block_with_embed[i])
 
-    def _fuse(self, i, x, embed):
-        """x: [B, K, C] feature-last, embed: [B, E]."""
-        if embed is not None and self._has_film(i):
-            return self.seg_input_fusion[i](x, embed, feature_last=True)
-        return x
+    def _fuse(self, i, x, embed, batch_axis: int = 0):
+        """x: [B, K, C] (batch_axis 0) or time-major [K, B, C] (batch_axis
+        1), embed: [B, E] -> fused, in x's layout (JAX `skim.py:212-228`).
+        FiLM runs feature-last; Gate on [B, C, K]."""
+        if embed is None or not self._has_embed(i):
+            return x
+        fusion = self.seg_input_fusion[i]
+        if batch_axis == 1:
+            x = x.transpose(0, 1)
+        if isinstance(fusion, FiLM):
+            y = fusion(x, embed, feature_last=True)
+        else:
+            y = fusion(x.transpose(1, 2), embed).transpose(1, 2)
+        return y.transpose(0, 1) if batch_axis == 1 else y
 
     # --------------------------------------------------------------- offline
     def forward(self, x: torch.Tensor,
@@ -183,15 +215,21 @@ class SkiM(nn.Module):
         embed_rep = (embed[:, None, :].expand(N, S, embed.shape[1])
                      .reshape(N * S, -1) if embed is not None else None)
         out = xt.reshape(N * S, K, C)
+        tm = TM_BLOCKS       # the stack time-major: [K, N*S, C]
+        if tm:
+            out = out.transpose(0, 1)
         h = c = None
         for i in range(self.n_blocks):
-            out = self._fuse(i, out, embed_rep)
-            out, h, c = self.seg_lstm[i](out, h, c)
+            out = self._fuse(i, out, embed_rep, batch_axis=int(tm))
+            seg = self.seg_lstm[i]
+            out, h, c = seg.call_tm(out, h, c) if tm else seg(out, h, c)
             if i < self.n_blocks - 1:
                 D = h.shape[0]
                 h_n = h.reshape(D, N, S, self.hidden_size).permute(1, 2, 0, 3)
                 c_n = c.reshape(D, N, S, self.hidden_size).permute(1, 2, 0, 3)
                 h, c = self.mem_lstm[i](h_n, c_n)
+        if tm:
+            out = out.transpose(0, 1)
         out = out.reshape(N, S * K, C)[:, :T, :]
         return self.output_fc(out.transpose(1, 2))
 
@@ -258,7 +296,7 @@ class SkiM(nn.Module):
 
     # ------------------------------------------------- fused streaming (CUDA)
     def _fusion_modes(self):
-        return tuple("film" if self._has_film(i) else ""
+        return tuple(self.embed_fusion if self._has_embed(i) else ""
                      for i in range(self.n_blocks))
 
     def _fused_weights(self, int8_hh: bool = False,
@@ -266,9 +304,10 @@ class SkiM(nn.Module):
         """The kernel's weight tuple (JAX's `_fused_weights`,
         puresound_tpu/nnet/skim.py:414-480): int8_hh replaces each w_hh by
         (int8 per-column weights, column scales) from `quantize_cols`;
-        int8_full also wsx / wbx / w_ih / proj_w. Each option's tuple is
-        rebuilt only when a parameter changes (storage or in-place version),
-        so the per-device packing cached on it is reused across ticks."""
+        int8_full also wsx / wbx / w_ih / proj_w; a Gate block's ten arrays
+        stay float. Each option's tuple is rebuilt only when a parameter
+        (the Gates' included) changes (storage or in-place version), so the
+        per-device packing cached on it is reused across ticks."""
         int8_hh = int8_hh or int8_full
         params = list(self.parameters())
         key = tuple((p.data_ptr(), p._version, p.dtype, p.device)
@@ -277,7 +316,7 @@ class SkiM(nn.Module):
         if cached is not None and cached[0] == key:
             return cached[1]
         C = self.input_size
-        ws, embed_cols = [], []
+        ws, embed_cols, gate_cols = [], [], []
         q = lambda w, on: list(quantize_cols(w)) if on else [w.contiguous()]
         with torch.no_grad():
             for i, mode in enumerate(self._fusion_modes()):
@@ -288,6 +327,17 @@ class SkiM(nn.Module):
                     ws += (q(w_s[:, :C].T, int8_full) + q(w_b[:, :C].T, int8_full)
                            + [film.norm.weight, film.norm.bias])
                     embed_cols.append(torch.cat([w_s[:, C:], w_b[:, C:]], 0))
+                elif mode == "gate":   # JAX skim.py:446-463
+                    gate = self.seg_input_fusion[i]
+                    Hd = gate.hidden_size
+                    w = lambda conv: conv.weight[:, :, 0]
+                    left, right = gate.left_conv, gate.right_conv
+                    ws += [w(gate.in_conv).T.contiguous(), w(left[0]).T.contiguous(),
+                           left[1].gamma, left[1].beta, left[2].weight,
+                           w(right[0])[:, :Hd].T.contiguous(), right[1].gamma,
+                           right[1].beta, right[2].weight,
+                           w(gate.out_conv).T.contiguous()]
+                    gate_cols.append(w(right[0])[:, Hd:])   # [Hd, E]
                 seg = self.seg_lstm[i]
                 ws += (q(seg.lstm.weight_ih_l0.T, int8_full)
                        + q(seg.lstm.weight_hh_l0.T, int8_hh)
@@ -295,27 +345,39 @@ class SkiM(nn.Module):
                        + q(seg.proj.weight.T, int8_full)
                        + [seg.proj.bias, seg.norm.weight, seg.norm.bias])
             weights = SkimWeights(ws)
-            # embed columns of every FiLM block stacked: [E, n_film * 2C]
-            weights.embed_w = (torch.cat(embed_cols, 0).T.contiguous()
-                               if embed_cols else None)
+            # embed columns of every FiLM block stacked: [E, n_film * 2C];
+            # of every Gate block's right_conv: [E, n_gate * Hd]
+            stack = lambda cols: torch.cat(cols, 0).T.contiguous() if cols else None
+            weights.embed_w = stack(embed_cols)
+            weights.gate_embed_w = stack(gate_cols)
         self._fw_cache[(int8_hh, int8_full)] = (key, weights)
         return weights
 
     def _embed_terms(self, embed, B, dtype, weights: SkimWeights):
-        """Frame-invariant FiLM terms se/be [n_blocks, B, C] (zeros for
-        unconditioned blocks) and the unused Gate term ge [n_blocks, B, 1]."""
+        """Frame-invariant conditioning terms (JAX `skim.py:487-520`): FiLM
+        se/be [n_blocks, B, C] and Gate ge [n_blocks, B, Hg] (right_conv's
+        embed columns on the d-vector), zeros for the other blocks; Hg = 1
+        when no block is a Gate. Every Gate block is GATE_HIDDEN wide, the
+        one width the kernel takes (`_pack_gate` checks the weights)."""
         n, C = self.n_blocks, self.input_size
+        modes = self._fusion_modes()
+        Hg = GATE_HIDDEN if "gate" in modes else 1
         dev = weights[0].device
         se = torch.zeros((n, B, C), device=dev, dtype=dtype)
         be = torch.zeros((n, B, C), device=dev, dtype=dtype)
-        ge = torch.zeros((n, B, 1), device=dev, dtype=dtype)
-        if embed is None or weights.embed_w is None:
+        ge = torch.zeros((n, B, Hg), device=dev, dtype=dtype)
+        if embed is None:
             return se, be, ge
-        terms = (embed @ weights.embed_w.to(embed.dtype)).to(dtype)
-        terms = terms.reshape(B, -1, 2, C).permute(2, 1, 0, 3)  # [2, nf, B, C]
-        film = [i for i in range(n) if self._has_film(i)]
-        se[film] = terms[0]
-        be[film] = terms[1]
+        if weights.embed_w is not None:
+            terms = (embed @ weights.embed_w.to(embed.dtype)).to(dtype)
+            terms = terms.reshape(B, -1, 2, C).permute(2, 1, 0, 3)  # [2, nf, B, C]
+            film = [i for i in range(n) if modes[i] == "film"]
+            se[film] = terms[0]
+            be[film] = terms[1]
+        if weights.gate_embed_w is not None:
+            terms = (embed @ weights.gate_embed_w.to(embed.dtype)).to(dtype)
+            ge[[i for i in range(n) if modes[i] == "gate"]] = (
+                terms.reshape(B, -1, Hg).transpose(0, 1))        # [ng, B, Hg]
         return se, be, ge
 
     def step_frames_fused(self, x: torch.Tensor, embed: Optional[torch.Tensor],

@@ -1,26 +1,40 @@
-"""LSTM scan for training, input projection in the kernel: CUDA wrapper + plain versions.
+"""LSTM scans for training: CUDA wrappers + plain versions.
 
-Counterpart of puresound_tpu/ops/lstm_train_kernel.py::lstm_scan_train_fp
-(`:643`; forward body `_fwd_kernel_fp` `:382`, backward body
-`_bwd_kernel_fp` `:427`, VJP `_bwd_rule_fp` `:684`). Per step t (T-1 .. 0
-under `reverse`):
+Counterpart of puresound_tpu/ops/lstm_train_kernel.py. Two variants of one
+kernel pair (forward and backward), per step t (T-1 .. 0 under `reverse`):
 
-    gates = x_t @ w_ih + bias + h @ w_hh      (i, f, g, o; bias = b_ih + b_hh)
-    c = f * c + i * g;  h = o * tanh(c)
+    gates = x_t @ w_ih + bias + h @ w_hh      (fused projection: *_fp)
+    gates = xp_t + h @ w_hh                   (hoisted projection)
+    (i, f, g, o; bias = b_ih + b_hh);  c = f * c + i * g;  h = o * tanh(c)
 
-The forward stores y, the ACTIVATED gates and the cell states (in x's
-dtype); the backward reads them as stored, takes h_prev / c_prev from the
-neighbouring y / cseq entries (h0 / c0 at the forward's first step), and
-returns dx, dh0, dc0, dw_ih, dbias and dw_hh. The dot dtype follows x:
-bfloat16 for bfloat16 x, else float32; each dot's operands are rounded to
-it and summed in float32 (the math runs in float32, float64 stays float64
-in the plain versions). Layouts are JAX's: x [B, T, C], w_ih [C, 4H],
-bias [4H], w_hh [H, 4H], h0/c0 [B, H]; gates [T, B, 4H], cseq [T, B, H].
+- `lstm_scan_train_fp` (`:643`; bodies `_fwd_kernel_fp` `:382`,
+  `_bwd_kernel_fp` `:427`, VJP `_bwd_rule_fp` `:684`): x [B, T, C] in, y
+  [B, T, H] out; its VJP returns dx, dh0, dc0, dw_ih, dbias and dw_hh.
+  `lstm_scan_train_fp_tm` (`:708`) is the same kernel on time-major x_t
+  [T, B, C] / y_t [T, B, H] (and dy_t / dx_t).
+- `lstm_scan_train_tm` (`:264`; bodies `_fwd_kernel` `:36`, `_bwd_kernel`
+  `:83`, VJP `_bwd_rule` `:323`): the projection hoisted out, xp_t
+  [T, B, 4H] in, y_t [T, B, H] out; its VJP returns dxp_t (the dgates, in
+  the gates' dtype), dh0, dc0 and dw_hh, and autograd through the caller's
+  projection gives the rest. `lstm_scan_train` (`:357`) is its batch-major
+  wrapper, which swaps xp and y around it as JAX's does.
 
-Dispatch: one `torch.autograd.Function` for both devices. A CPU tensor
-runs the plain forward and backward below; a CUDA tensor launches
-`csrc/lstm_train.cu` (built with nvcc at first use) or raises. Without a
-gradient to compute the forward skips the residual stores.
+The forward stores y, the ACTIVATED gates and the cell states (in the
+input's dtype); the backward reads them as stored, takes h_prev / c_prev
+from the neighbouring y / cseq entries (h0 / c0 at the forward's first
+step; the hoisted variant rounds c0 to the input dtype there, as JAX's
+concatenation does), and builds no shifted copy. The dot dtype follows the
+input: bfloat16 for bfloat16, else float32; each dot's operands are
+rounded to it and summed in float32 (the math runs in float32, float64
+stays float64 in the plain versions). Under bf16 a hoisted xp arrives
+already rounded, where the fused kernel never rounds it: the two routes
+differ there by design. Weights are JAX's layout: w_ih [C, 4H], bias
+[4H], w_hh [H, 4H]; h0/c0 [B, H]; gates [T, B, 4H], cseq [T, B, H].
+
+Dispatch: one `torch.autograd.Function` per variant for both devices. A
+CPU tensor runs the plain forward and backward below; a CUDA tensor
+launches `csrc/lstm_train.cu` (built with nvcc at first use) or raises.
+Without a gradient to compute the forward skips the residual stores.
 """
 from __future__ import annotations
 
@@ -30,10 +44,12 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-#: forward / backward kernel launches since the caller last set them to 0
-#: (the wrappers add one per launch)
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
+#: forward / backward kernel launches by entry since the caller last cleared
+#: them (the wrappers add one per launch): "fp" (lstm_scan_train_fp),
+#: "fp_tm" (lstm_scan_train_fp_tm), "hoisted" (lstm_scan_train_tm and its
+#: batch-major wrapper lstm_scan_train)
+FWD_BY_ENTRY: dict = {}
+BWD_BY_ENTRY: dict = {}
 
 
 def _dot_dtype(x: torch.Tensor) -> torch.dtype:
@@ -54,67 +70,124 @@ def _split(gates, H):
 
 
 # ------------------------------------------------------------------- plain
-def lstm_scan_train_fp_ref(x, h0, c0, w_ih, bias, w_hh, reverse: bool = False):
-    """Plain forward with the kernel's cast points.
+def _steps(T, reverse):
+    return range(T - 1, -1, -1) if reverse else range(T)
 
-    Returns (y [B, T, H], hT, cT, gates [T, B, 4H], cseq [T, B, H])."""
-    cdt, rnd = _rounder(x)
-    T, H = x.shape[1], w_hh.shape[0]
-    wi, wh, b = rnd(w_ih), rnd(w_hh), bias.to(cdt)
+
+def _fwd_ref(inp, h0, c0, w_ih, bias, w_hh, reverse, time_major):
+    """The forward of both variants: `w_ih` None means `inp` is the hoisted
+    xp_t [T, B, 4H]; else x, batch- or time-major."""
+    cdt, rnd = _rounder(inp)
+    T, H = inp.shape[0 if time_major else 1], w_hh.shape[0]
+    wh = rnd(w_hh)
+    if w_ih is not None:
+        wi, b = rnd(w_ih), bias.to(cdt)
     h, c = h0.to(cdt), c0.to(cdt)
     ys, gs, cs = [None] * T, [None] * T, [None] * T
-    for t in (range(T - 1, -1, -1) if reverse else range(T)):
-        pre = rnd(x[:, t]) @ wi + b + rnd(h) @ wh
+    for t in _steps(T, reverse):
+        x_t = inp[t] if time_major else inp[:, t]
+        if w_ih is None:
+            pre = x_t.to(cdt) + rnd(h) @ wh
+        else:
+            pre = rnd(x_t) @ wi + b + rnd(h) @ wh
         i, f, g, o = _split(pre, H)
         i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
         c = f * c + i * g
         h = o * torch.tanh(c)
-        ys[t] = h.to(x.dtype)
-        gs[t] = torch.cat([i, f, g, o], dim=-1).to(x.dtype)
-        cs[t] = c.to(x.dtype)
-    return (torch.stack(ys, dim=1), h.to(h0.dtype), c.to(c0.dtype),
-            torch.stack(gs), torch.stack(cs))
+        ys[t] = h.to(inp.dtype)
+        gs[t] = torch.cat([i, f, g, o], dim=-1).to(inp.dtype)
+        cs[t] = c.to(inp.dtype)
+    return (torch.stack(ys, dim=0 if time_major else 1), h.to(h0.dtype),
+            c.to(c0.dtype), torch.stack(gs), torch.stack(cs))
 
 
-def lstm_scan_train_fp_bwd_ref(x, h0, c0, w_ih, bias, w_hh, y, gates, cseq,
-                               dy, dhT=None, dcT=None, reverse: bool = False):
-    """Plain backward from the stored residuals (`_bwd_kernel_fp`).
-
-    Returns (dx, dh0, dc0, dw_ih, dbias, dw_hh) in the dtypes of x, h0, c0,
-    w_ih, bias and w_hh."""
-    cdt, rnd = _rounder(x)
-    T, H = x.shape[1], w_hh.shape[0]
-    wi, wh = rnd(w_ih), rnd(w_hh)
+def _bwd_ref(inp, h0, c0, w_ih, w_hh, y, gates, cseq, dy, dhT, dcT, reverse,
+             time_major):
+    """The backward of both variants (`_bwd_kernel_fp` / `_bwd_kernel`):
+    (dx, dh0, dc0, dw_ih, dbias, dw_hh) with the projection in the kernel,
+    (dxp_t, dh0, dc0, dw_hh) with it hoisted (`w_ih` None)."""
+    cdt, rnd = _rounder(inp)
+    proj = w_ih is not None
+    T, H = gates.shape[0], w_hh.shape[0]
+    wh = rnd(w_hh)
+    at = (lambda a, t: a[t]) if time_major else (lambda a, t: a[:, t])
     dh_c = dhT.to(cdt) if dhT is not None else h0.new_zeros(h0.shape, dtype=cdt)
     dc_c = dcT.to(cdt) if dcT is not None else c0.new_zeros(c0.shape, dtype=cdt)
-    dwi = torch.zeros(wi.shape, dtype=cdt, device=x.device)
-    dwh = torch.zeros(wh.shape, dtype=cdt, device=x.device)
-    db = torch.zeros(wh.shape[1], dtype=cdt, device=x.device)
-    first = T - 1 if reverse else 0      # the forward's first step
-    dxs = [None] * T
+    dwh = torch.zeros(wh.shape, dtype=cdt, device=inp.device)
+    if proj:
+        wi = rnd(w_ih)
+        dwi = torch.zeros(wi.shape, dtype=cdt, device=inp.device)
+        db = torch.zeros(wh.shape[1], dtype=cdt, device=inp.device)
+    # the forward's first step reads h0 / c0; the hoisted variant's c0 as
+    # JAX concatenates it onto cseq, in cseq's dtype
+    c_first = c0.to(cdt) if proj else c0.to(cseq.dtype).to(cdt)
+    first = T - 1 if reverse else 0
+    outs = [None] * T
     for t in (range(T) if reverse else range(T - 1, -1, -1)):
         i, f, g, o = _split(gates[t].to(cdt), H)
         c_new = cseq[t].to(cdt)
         if t == first:
-            c_prev, h_prev = c0.to(cdt), h0.to(cdt)
+            c_prev, h_prev = c_first, h0.to(cdt)
         else:
             tp = t + 1 if reverse else t - 1
-            c_prev, h_prev = cseq[tp].to(cdt), y[:, tp].to(cdt)
+            c_prev, h_prev = cseq[tp].to(cdt), at(y, tp).to(cdt)
         tanh_c = torch.tanh(c_new)
-        dh = dh_c + dy[:, t].to(cdt)
+        dh = dh_c + at(dy, t).to(cdt)
         dc = dc_c + dh * o * (1.0 - tanh_c * tanh_c)
         dgates = torch.cat([dc * g * i * (1.0 - i), dc * c_prev * f * (1.0 - f),
                             dc * i * (1.0 - g * g), dh * tanh_c * o * (1.0 - o)],
                            dim=-1)
         dg = rnd(dgates)
-        dxs[t] = (dg @ wi.T).to(x.dtype)
         dh_c = dg @ wh.T
         dc_c = dc * f
         dwh += rnd(h_prev).T @ dg
-        dwi += rnd(x[:, t]).T @ dg
-        db += dgates.sum(dim=0)
-    return (torch.stack(dxs, dim=1), dh_c.to(h0.dtype), dc_c.to(c0.dtype),
-            dwi.to(w_ih.dtype), db.to(bias.dtype), dwh.to(w_hh.dtype))
+        if proj:
+            outs[t] = (dg @ wi.T).to(inp.dtype)
+            dwi += rnd(at(inp, t)).T @ dg
+            db += dgates.sum(dim=0)
+        else:
+            outs[t] = dgates.to(gates.dtype)
+    grad_in = torch.stack(outs, dim=0 if time_major or not proj else 1)
+    dh0, dc0 = dh_c.to(h0.dtype), dc_c.to(c0.dtype)
+    if not proj:
+        return grad_in, dh0, dc0, dwh.to(w_hh.dtype)
+    return grad_in, dh0, dc0, dwi.to(w_ih.dtype), db, dwh.to(w_hh.dtype)
+
+
+def lstm_scan_train_fp_ref(x, h0, c0, w_ih, bias, w_hh, reverse: bool = False,
+                           time_major: bool = False):
+    """Plain forward with the kernel's cast points.
+
+    Returns (y [B, T, H] (time-major: y_t [T, B, H]), hT, cT, gates
+    [T, B, 4H], cseq [T, B, H])."""
+    return _fwd_ref(x, h0, c0, w_ih, bias, w_hh, reverse, time_major)
+
+
+def lstm_scan_train_fp_bwd_ref(x, h0, c0, w_ih, bias, w_hh, y, gates, cseq,
+                               dy, dhT=None, dcT=None, reverse: bool = False,
+                               time_major: bool = False):
+    """Plain backward from the stored residuals (`_bwd_kernel_fp`).
+
+    Returns (dx, dh0, dc0, dw_ih, dbias, dw_hh) in the dtypes of x, h0, c0,
+    w_ih, bias and w_hh."""
+    dx, dh0, dc0, dwi, db, dwh = _bwd_ref(x, h0, c0, w_ih, w_hh, y, gates, cseq,
+                                          dy, dhT, dcT, reverse, time_major)
+    return dx, dh0, dc0, dwi, db.to(bias.dtype), dwh
+
+
+def lstm_scan_train_ref(xp_t, h0, c0, w_hh, reverse: bool = False):
+    """Plain forward of the hoisted variant (`_fwd_kernel`): xp_t [T, B, 4H]
+    -> (y_t [T, B, H], hT, cT, gates [T, B, 4H], cseq [T, B, H])."""
+    return _fwd_ref(xp_t, h0, c0, None, None, w_hh, reverse, True)
+
+
+def lstm_scan_train_bwd_ref(xp_t, h0, c0, w_hh, y_t, gates, cseq, dy_t,
+                            dhT=None, dcT=None, reverse: bool = False):
+    """Plain backward of the hoisted variant (`_bwd_kernel`, `_bwd_rule`):
+    (dxp_t [T, B, 4H] in the gates' dtype, dh0, dc0, dw_hh). xp_t is read
+    for its dtype and device only."""
+    return _bwd_ref(xp_t, h0, c0, None, w_hh, y_t, gates, cseq, dy_t, dhT, dcT,
+                    reverse, True)
 
 
 # -------------------------------------------------------------------- CUDA
@@ -130,9 +203,9 @@ def _lib():
     lib = load("lstm_train")
     if not getattr(lib, "_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_train_fwd.argtypes = [p] * 11 + [i] * 7 + [p]
+        lib.lstm_train_fwd.argtypes = [p] * 11 + [i] * 9 + [p]
         lib.lstm_train_fwd.restype = i
-        lib.lstm_train_bwd.argtypes = [p] * 20 + [i] * 9 + [p]
+        lib.lstm_train_bwd.argtypes = [p] * 20 + [i] * 11 + [p]
         lib.lstm_train_bwd.restype = i
         lib.lstm_train_error_string.argtypes = [i]
         lib.lstm_train_error_string.restype = ctypes.c_char_p
@@ -144,26 +217,44 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check(x, h0, c0, w_ih, bias, w_hh):
-    B, T, C = x.shape
+def _check(inp, h0, c0, w_ih, bias, w_hh, time_major):
+    """(B, T, C, H) of a scan; C is 0 for the hoisted variant (w_ih None,
+    inp the time-major xp_t [T, B, 4H])."""
     H = w_hh.shape[0]
+    if time_major:
+        T, B, K = inp.shape
+    else:
+        B, T, K = inp.shape
+    C = 0 if w_ih is None else K
     for name, t in (("h0", h0), ("c0", c0), ("w_ih", w_ih), ("bias", bias),
                     ("w_hh", w_hh)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if x.dtype not in _KDT or h0.dtype not in _KDT or c0.dtype != h0.dtype:
-        raise TypeError(f"the CUDA kernel takes float32/bfloat16 (x {x.dtype}, "
-                        f"h0 {h0.dtype}, c0 {c0.dtype})")
-    if (w_ih.shape != (C, 4 * H) or w_hh.shape != (H, 4 * H)
-            or bias.shape != (4 * H,) or h0.shape != (B, H) or c0.shape != (B, H)):
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, h0 {tuple(h0.shape)}, "
-                         f"w_ih {tuple(w_ih.shape)}, bias {tuple(bias.shape)}, "
+        if t is not None and t.device != inp.device:
+            raise ValueError(f"{name} is on {t.device}, the input on {inp.device}")
+    if inp.dtype not in _KDT or h0.dtype not in _KDT or c0.dtype != h0.dtype:
+        raise TypeError(f"the CUDA kernel takes float32/bfloat16 (input "
+                        f"{inp.dtype}, h0 {h0.dtype}, c0 {c0.dtype})")
+    bad = (w_hh.shape != (H, 4 * H) or h0.shape != (B, H) or c0.shape != (B, H)
+           or (w_ih is None and K != 4 * H)
+           or (w_ih is not None and (w_ih.shape != (C, 4 * H)
+                                     or bias.shape != (4 * H,))))
+    if bad:
+        raise ValueError(f"shape mismatch: input {tuple(inp.shape)}, h0 "
+                         f"{tuple(h0.shape)}, w_ih "
+                         f"{None if w_ih is None else tuple(w_ih.shape)}, "
                          f"w_hh {tuple(w_hh.shape)}")
-    if B == 0 or T == 0 or C == 0 or H == 0:
-        raise ValueError(f"empty scan: x {tuple(x.shape)}, H {H}")
+    if B == 0 or T == 0 or K == 0 or H == 0:
+        raise ValueError(f"empty scan: input {tuple(inp.shape)}, H {H}")
     if B * T >= 2 ** 31:
         raise ValueError(f"B * T = {B * T} rows: the kernel indexes them with int")
     return B, T, C, H
+
+
+def _entry(proj, time_major):
+    return ("fp_tm" if time_major else "fp") if proj else "hoisted"
+
+
+def _count(counts, key):
+    counts[key] = counts.get(key, 0) + 1
 
 
 def _stream(dev):
@@ -176,28 +267,33 @@ def _raise_on(err, lib, what):
                            + lib.lstm_train_error_string(err).decode())
 
 
-def _launch_fwd(x, h0, c0, w_ih, bias, w_hh, reverse, residuals):
-    global FWD_LAUNCHES
-    B, T, C, H = _check(x, h0, c0, w_ih, bias, w_hh)
-    dt = x.dtype
+def _launch_fwd(x, h0, c0, w_ih, bias, w_hh, reverse, residuals,
+                time_major=False):
+    """One forward launch. `w_ih` and `bias` None: the hoisted variant on
+    x = xp_t [T, B, 4H] (time_major must be set)."""
+    proj = w_ih is not None
+    if not (proj or time_major):
+        raise ValueError("the hoisted scan takes time-major xp_t")
+    B, T, C, H = _check(x, h0, c0, w_ih, bias, w_hh, time_major)
+    dt, dev = x.dtype, x.device
     x = x.contiguous()
     h0, c0 = h0.contiguous(), c0.contiguous()
-    wi = w_ih.to(dt).contiguous()
+    wi = w_ih.to(dt).contiguous() if proj else None
+    b = bias.to(torch.float32).contiguous() if proj else None
     wh = w_hh.to(dt).contiguous()
-    b = bias.to(torch.float32).contiguous()
-    y = torch.empty((B, T, H), device=x.device, dtype=dt)
+    y = torch.empty((T, B, H) if time_major else (B, T, H), device=dev, dtype=dt)
     hT, cT = torch.empty_like(h0), torch.empty_like(c0)
-    gates = torch.empty((T, B, 4 * H), device=x.device, dtype=dt) if residuals else None
-    cseq = torch.empty((T, B, H), device=x.device, dtype=dt) if residuals else None
+    gates = torch.empty((T, B, 4 * H), device=dev, dtype=dt) if residuals else None
+    cseq = torch.empty((T, B, H), device=dev, dtype=dt) if residuals else None
     lib = _lib()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
         err = lib.lstm_train_fwd(
-            x.data_ptr(), h0.data_ptr(), c0.data_ptr(), wi.data_ptr(), b.data_ptr(),
+            x.data_ptr(), h0.data_ptr(), c0.data_ptr(), _ptr(wi), _ptr(b),
             wh.data_ptr(), y.data_ptr(), hT.data_ptr(), cT.data_ptr(), _ptr(gates),
             _ptr(cseq), B, T, C, H, int(reverse), _KDT[dt], _KDT[h0.dtype],
-            _stream(x.device))
+            int(proj), int(time_major), _stream(dev))
     _raise_on(err, lib, "lstm_train_fwd")
-    FWD_LAUNCHES += 1
+    _count(FWD_BY_ENTRY, _entry(proj, time_major))
     return y, hT, cT, gates, cseq
 
 
@@ -210,13 +306,16 @@ def _split_rows(R: int):
 
 
 def _launch_bwd(x, h0, c0, w_ih, bias, w_hh, y, gates, cseq, dy, dhT, dcT,
-                reverse):
-    global BWD_LAUNCHES
-    B, T, C, H = _check(x, h0, c0, w_ih, bias, w_hh)
+                reverse, time_major=False):
+    """One backward launch: (dx, dh0, dc0, dw_ih, dbias, dw_hh), or with
+    `w_ih` None (the hoisted variant, x = xp_t) (dxp_t, dh0, dc0, dw_hh)."""
+    proj = w_ih is not None
+    B, T, C, H = _check(x, h0, c0, w_ih, bias, w_hh, time_major or not proj)
     dt, dev, G = x.dtype, x.device, 4 * H
     f32 = dict(device=dev, dtype=torch.float32)
-    x, h0, c0 = x.contiguous(), h0.contiguous(), c0.contiguous()
-    wi_t = w_ih.t().to(dt).contiguous()     # [4H, C]: torch's weight_ih_l0
+    x = x.contiguous() if proj else None    # the hoisted backward reads no xp
+    h0, c0 = h0.contiguous(), c0.contiguous()
+    wi_t = w_ih.t().to(dt).contiguous() if proj else None   # [4H, C]: torch's
     wh_t = w_hh.t().to(dt).contiguous()     # [4H, H]
     dy = dy.to(dt).contiguous()
     dhT = (dhT.to(torch.float32).contiguous() if dhT is not None
@@ -225,61 +324,102 @@ def _launch_bwd(x, h0, c0, w_ih, bias, w_hh, y, gates, cseq, dy, dhT, dcT,
            else torch.zeros((B, H), **f32))
     n_tiles = -(-B // _BT)
     n_split, rows = _split_rows(B * T)
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x) if proj else None    # in x's layout
     dh0, dc0 = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
-    dw_ih, dw_hh = torch.empty((C, G), **f32), torch.empty((H, G), **f32)
-    dbias = torch.empty((G,), **f32)
-    dg = torch.empty((T, B, G), device=dev, dtype=dt)          # scratch
-    db_part = torch.empty((n_tiles, G), **f32)                  # scratch
-    w_part = torch.empty((n_split, H + C, G), **f32)            # scratch
+    dw_ih = torch.empty((C, G), **f32) if proj else None
+    dw_hh = torch.empty((H, G), **f32)
+    dbias = torch.empty((G,), **f32) if proj else None
+    # dgates rounded to the dot dtype: scratch, or the hoisted variant's dxp_t
+    dg = torch.empty((T, B, G), device=dev, dtype=dt)
+    db_part = torch.empty((n_tiles, G), **f32) if proj else None   # scratch
+    w_part = torch.empty((n_split, H + C, G), **f32)                # scratch
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.lstm_train_bwd(
-            x.data_ptr(), h0.data_ptr(), c0.data_ptr(), wi_t.data_ptr(),
+            _ptr(x), h0.data_ptr(), c0.data_ptr(), _ptr(wi_t),
             wh_t.data_ptr(), y.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
-            dy.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), dx.data_ptr(),
-            dh0.data_ptr(), dc0.data_ptr(), dw_ih.data_ptr(), dw_hh.data_ptr(),
-            dbias.data_ptr(), dg.data_ptr(), db_part.data_ptr(), w_part.data_ptr(),
+            dy.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), _ptr(dx),
+            dh0.data_ptr(), dc0.data_ptr(), _ptr(dw_ih), dw_hh.data_ptr(),
+            _ptr(dbias), dg.data_ptr(), _ptr(db_part), w_part.data_ptr(),
             B, T, C, H, int(reverse), _KDT[dt], _KDT[h0.dtype], n_split, rows,
-            _stream(dev))
+            int(proj), int(time_major or not proj), _stream(dev))
     _raise_on(err, lib, "lstm_train_bwd")
-    BWD_LAUNCHES += 1
+    _count(BWD_BY_ENTRY, _entry(proj, time_major))
+    if not proj:
+        return dg, dh0.to(h0.dtype), dc0.to(c0.dtype), dw_hh.to(w_hh.dtype)
     return (dx, dh0.to(h0.dtype), dc0.to(c0.dtype), dw_ih.to(w_ih.dtype),
             dbias.to(bias.dtype), dw_hh.to(w_hh.dtype))
 
 
 # ---------------------------------------------------------------- dispatch
-def _forward(x, h0, c0, w_ih, bias, w_hh, reverse, residuals):
+def _on_card(x):
     if x.device.type == "cpu":
-        return lstm_scan_train_fp_ref(x, h0, c0, w_ih, bias, w_hh, reverse)
+        return False
     if x.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {x.device}")
-    return _launch_fwd(x, h0, c0, w_ih, bias, w_hh, reverse, residuals)
-
-
-def _backward(*args):
-    x = args[0]
-    if x.device.type == "cpu":
-        return lstm_scan_train_fp_bwd_ref(*args)
-    if x.device.type != "cuda":
-        raise NotImplementedError(f"no kernel for device {x.device}")
-    return _launch_bwd(*args)
+    return True
 
 
 class _ScanFP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, h0, c0, w_ih, bias, w_hh, reverse):
-        y, hT, cT, gates, cseq = _forward(x, h0, c0, w_ih, bias, w_hh, reverse,
-                                          residuals=True)
+    def forward(ctx, x, h0, c0, w_ih, bias, w_hh, reverse, time_major):
+        args = (x, h0, c0, w_ih, bias, w_hh, reverse)
+        if _on_card(x):
+            out = _launch_fwd(*args, residuals=True, time_major=time_major)
+        else:
+            out = lstm_scan_train_fp_ref(*args, time_major)
+        y, hT, cT, gates, cseq = out
         ctx.save_for_backward(x, h0, c0, w_ih, bias, w_hh, y, gates, cseq)
-        ctx.reverse = reverse
+        ctx.reverse, ctx.time_major = reverse, time_major
         return y, hT, cT
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy, dhT, dcT):
-        grads = _backward(*ctx.saved_tensors, dy, dhT, dcT, ctx.reverse)
+        args = (*ctx.saved_tensors, dy, dhT, dcT, ctx.reverse)
+        bwd = _launch_bwd if _on_card(args[0]) else lstm_scan_train_fp_bwd_ref
+        return (*bwd(*args, time_major=ctx.time_major), None, None)
+
+
+class _ScanHoisted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xp_t, h0, c0, w_hh, reverse):
+        if _on_card(xp_t):
+            out = _launch_fwd(xp_t, h0, c0, None, None, w_hh, reverse,
+                              residuals=True, time_major=True)
+        else:
+            out = lstm_scan_train_ref(xp_t, h0, c0, w_hh, reverse)
+        y_t, hT, cT, gates, cseq = out
+        ctx.save_for_backward(xp_t, h0, c0, w_hh, y_t, gates, cseq)
+        ctx.reverse = reverse
+        return y_t, hT, cT
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy_t, dhT, dcT):
+        xp_t, h0, c0, w_hh, y_t, gates, cseq = ctx.saved_tensors
+        if _on_card(xp_t):
+            grads = _launch_bwd(xp_t, h0, c0, None, None, w_hh, y_t, gates, cseq,
+                                dy_t, dhT, dcT, ctx.reverse, time_major=True)
+        else:
+            grads = lstm_scan_train_bwd_ref(xp_t, h0, c0, w_hh, y_t, gates, cseq,
+                                            dy_t, dhT, dcT, ctx.reverse)
         return (*grads, None)
+
+
+def _needs_grad(*args):
+    return torch.is_grad_enabled() and any(a.requires_grad for a in args)
+
+
+def _scan_fp(x, h0, c0, w_ih, bias, w_hh, reverse, time_major):
+    args = (x, h0, c0, w_ih, bias, w_hh)
+    if _needs_grad(*args):
+        return _ScanFP.apply(*args, reverse, time_major)
+    if _on_card(x):
+        out = _launch_fwd(*args, reverse, residuals=False, time_major=time_major)
+    else:
+        out = lstm_scan_train_fp_ref(*args, reverse, time_major)
+    return out[:3]
 
 
 def lstm_scan_train_fp(x, h0, c0, w_ih, bias, w_hh, reverse: bool = False):
@@ -288,8 +428,34 @@ def lstm_scan_train_fp(x, h0, c0, w_ih, bias, w_hh, reverse: bool = False):
     x [B, T, C], h0/c0 [B, H], w_ih [C, 4H], bias [4H] (= b_ih + b_hh),
     w_hh [H, 4H]. Returns (y [B, T, H], hT [B, H], cT [B, H]).
     """
-    args = (x, h0, c0, w_ih, bias, w_hh)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return _ScanFP.apply(*args, reverse)
-    y, hT, cT, _, _ = _forward(*args, reverse, residuals=False)
-    return y, hT, cT
+    return _scan_fp(x, h0, c0, w_ih, bias, w_hh, reverse, False)
+
+
+def lstm_scan_train_fp_tm(x_t, h0, c0, w_ih, bias, w_hh, reverse: bool = False):
+    """Time-major `lstm_scan_train_fp`: x_t [T, B, C] -> (y_t [T, B, H], hT,
+    cT), its VJP's dx_t time-major too. The same kernel with another index
+    arithmetic for x / y / dy / dx, so the same arithmetic as the
+    batch-major entry."""
+    return _scan_fp(x_t, h0, c0, w_ih, bias, w_hh, reverse, True)
+
+
+def lstm_scan_train_tm(xp_t, h0, c0, w_hh, reverse: bool = False):
+    """Differentiable LSTM scan on the hoisted projection, time-major end to
+    end: xp_t [T, B, 4H] (x @ w_ih + b_ih + b_hh), h0/c0 [B, H], w_hh
+    [H, 4H] -> (y_t [T, B, H], hT, cT)."""
+    if _needs_grad(xp_t, h0, c0, w_hh):
+        return _ScanHoisted.apply(xp_t, h0, c0, w_hh, reverse)
+    if _on_card(xp_t):
+        out = _launch_fwd(xp_t, h0, c0, None, None, w_hh, reverse,
+                          residuals=False, time_major=True)
+    else:
+        out = lstm_scan_train_ref(xp_t, h0, c0, w_hh, reverse)
+    return out[:3]
+
+
+def lstm_scan_train(xp, h0, c0, w_hh, reverse: bool = False):
+    """Batch-major wrapper: xp [B, T, 4H] -> (y [B, T, H], hT, cT). As JAX's
+    (`:357-368`) it swaps xp to time-major (on the card a [B, T, 4H] copy)
+    and y back (a view)."""
+    y_t, hT, cT = lstm_scan_train_tm(xp.transpose(0, 1), h0, c0, w_hh, reverse)
+    return y_t.transpose(0, 1), hT, cT

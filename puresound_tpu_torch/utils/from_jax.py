@@ -127,6 +127,18 @@ def film(p) -> Flat:
     return out
 
 
+def gate(p) -> Flat:
+    """Gate (the inverse of torch_import.gate): left_conv / right_conv are
+    Sequential(conv, cLN, PReLU)."""
+    parts = [_prefix("in_conv", conv1d(p["in_conv"])),
+             _prefix("out_conv", conv1d(p["out_conv"]))]
+    for side in ("left", "right"):
+        parts += [_prefix(f"{side}_conv.0", conv1d(p[f"{side}_conv"])),
+                  _prefix(f"{side}_conv.1", norm(p[f"{side}_norm"], kind="gLN")),
+                  _prefix(f"{side}_conv.2", prelu(p[f"{side}_act"]))]
+    return _merge(*parts)
+
+
 def seg_lstm(p) -> Flat:
     return _merge(_prefix("lstm", lstm(p["lstm"])),
                   _prefix("proj", linear(p["proj"])),
@@ -149,9 +161,8 @@ def skim(p) -> Flat:
         elif kind == "mem_lstm":
             parts.append(_prefix(f"mem_lstm.{idx}", mem_lstm(p[key])))
         elif kind == "seg_input_fusion":
-            if "cond_scale" not in p[key]:
-                raise NotImplementedError("Gate fusion is not ported yet")
-            parts.append(_prefix(f"seg_input_fusion.{idx}", film(p[key])))
+            fusion = film if "cond_scale" in p[key] else gate
+            parts.append(_prefix(f"seg_input_fusion.{idx}", fusion(p[key])))
     parts += [_prefix("output_fc.0", prelu(p["out_act"])),
               _prefix("output_fc.1", conv1d(p["out_conv"]))]
     return _merge(*parts)

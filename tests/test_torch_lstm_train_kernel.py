@@ -121,11 +121,12 @@ def test_plain_backward_equals_autograd_ragged_f64(rng, reverse):
 def test_dispatch_counts_and_no_grad(rng):
     """CPU tensors take the plain versions (the launch counts stay 0); with
     no gradient to compute the forward returns the same values."""
-    lk.FWD_LAUNCHES = lk.BWD_LAUNCHES = 0
+    lk.FWD_BY_ENTRY.clear()
+    lk.BWD_BY_ENTRY.clear()
     args = [torch.from_numpy(a) for a in _inputs(rng)]
     with torch.no_grad():
         y, hT, cT = lk.lstm_scan_train_fp(*args)
     ref = lk.lstm_scan_train_fp_ref(*args)
     for a, b in zip((y, hT, cT), ref):
         assert torch.equal(a, b)
-    assert lk.FWD_LAUNCHES == lk.BWD_LAUNCHES == 0
+    assert lk.FWD_BY_ENTRY == lk.BWD_BY_ENTRY == {}

@@ -238,15 +238,17 @@ def test_fused_skim_frames_int8_carried_chunks(rng, option):
 
 
 def test_fused_skim_frames_gate_still_raises(rng):
-    """Gate fusion stays unported (no zoo model uses it) and raises on both
-    paths, with or without the int8 options."""
+    """Gate fusion runs with the int8 options (tests/test_torch_gate_fusion.py);
+    a weight tuple that does not hold a Gate block's ten arrays where the
+    fusion modes put one still raises on both paths, with or without them."""
     xs, se, be, h, c = _skim_inputs(rng, 1)
-    _, tws = _skim_weights(rng, "int8_hh")
-    for fn in (ops.fused_skim_frames, ops.fused_skim_frames_ref):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*(torch.from_numpy(a) for a in (xs[0], se, be)), torch.zeros(3, SB, 1),
-               torch.from_numpy(h), torch.from_numpy(c), tws, ("gate", "", "film"),
-               int8_hh=True)
+    for option in ("int8_hh", "int8_full"):
+        _, tws = _skim_weights(rng, option)
+        for fn in (ops.fused_skim_frames, ops.fused_skim_frames_ref):
+            with pytest.raises(ValueError, match="weight tuple has"):
+                fn(*(torch.from_numpy(a) for a in (xs[0], se, be)),
+                   torch.zeros(3, SB, 1), torch.from_numpy(h), torch.from_numpy(c),
+                   tws, ("gate", "", "film"), **{option: True})
 
 
 # --------------------------------------------------------- dual-path chunk

@@ -107,16 +107,17 @@ def test_plain_matches_pallas_bf16_dots(rng, io):
 
 @pytest.mark.parametrize("opt", ["gate"])
 def test_unported_options_raise(rng, opt):
+    """Every fusion mode of JAX's kernel is ported (Gate since its own tests,
+    tests/test_torch_gate_fusion.py); a mode JAX does not have raises on
+    both paths."""
     xs, se, be, h, c = _inputs(rng, 1)
     ws = [torch.from_numpy(w) for w in _weights(rng, MODES)]
     args = [torch.from_numpy(a) for a in (xs[0], se, be)]
     ge = torch.zeros(3, B, 1)
-    modes = ("gate", "", "film") if opt == "gate" else MODES
-    kw = {opt: True} if opt != "gate" else {}
+    modes = (opt + "_film", "", "film")
     for fn in (ops.fused_skim_frames, ops.fused_skim_frames_ref):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*args, ge, torch.from_numpy(h), torch.from_numpy(c), ws,
-               modes, **kw)
+        with pytest.raises(ValueError, match="unknown fusion modes"):
+            fn(*args, ge, torch.from_numpy(h), torch.from_numpy(c), ws, modes)
 
 
 def test_misaligned_chunk_raises():
