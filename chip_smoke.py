@@ -8,7 +8,9 @@ width (random weights from a seed):
 
   0. device: torch / CUDA versions, the card's name and power limit;
   1. build: nvcc builds the seven CUDA sources from the checkout, in
-     parallel, and prints each build's seconds and ptxas registers and spills;
+     parallel, and prints each build's seconds and ptxas registers and spills,
+     and the training LSTM kernels' tensor-core (HMMA) instructions from
+     cuobjdump (every bf16 kernel has some, every f32 one none);
   2. `fused_skim_frames` vs `fused_skim_frames_ref` on the card at the
      flagship shapes (f32 and bf16, 20 carried chunks), at a ragged batch and
      at a small shape, with CUDA-event timings of both;
@@ -22,13 +24,17 @@ width (random weights from a seed):
      MemLSTM 64 x 14, C=H=256) and of the recipe (SegLSTM 240 x 150; MemLSTM
      12 x 20) and a ragged 13 x 7 reverse case, f32 and bf16, with CUDA-event
      timings, the bounds from the shapes, and cuDNN's LSTM as the yardstick;
+     two calls of each kernel bit-equal; at the SegLSTM shape the device ms
+     of each kernel of one call from a profiler window (the backward's
+     chain, weight gradient, dx and reduce);
   2j. `lstm_scan_train_tm` (the hoisted projection) forward and backward vs
      their plain versions at the SegLSTM shape (896 x 150, C=128, H=256)
      in both directions, the MemLSTM shape (64 x 14, C=H=256) and a ragged
      case, f32 and bf16 at 2b's bars, with the batch-major `lstm_scan_train`
      (its xp swap included) timed beside;
      `lstm_scan_train_fp_tm` against the batch-major launches bit for bit
-     and against its plain version; the bounds and cuDNN's LSTM;
+     and against its plain version; the bounds and cuDNN's LSTM; two calls of
+     each kernel bit-equal and, at SegLSTM, the device ms by kernel;
   2c. `tcn_block_train` forward and backward vs their plain versions at the
      speaker net's shapes in phase 6 (B=64, C=128, Ch=256, T=1,999) and in
      the recipe (B=12, T=4,999), dilations 1 and 16 each, and a ragged case,
@@ -134,7 +140,9 @@ width (random weights from a seed):
      (f32: every leaf within 1e-4 under TM_BLOCKS alone, the same
      arithmetic; 1e-2, and 3e-2 on the scalar PReLU slopes, on the hoisted
      routes), the LSTM launches by entry in every step, step p50 and peak
-     memory;
+     memory; then the step's forward and backward twice from one state, f32
+     and bf16, with cuDNN free and held to its deterministic algorithms:
+     the first module output and the gradients that differ between calls;
   6b. the recipe: `python -m puresound_tpu_torch.egs.tse.main <config>
      --action train` (in this process) on a synthetic manifest folder, the
      flagship at B=12 x 3 s with 5 s enrollments and 4 loader workers, 1
@@ -154,6 +162,8 @@ import functools
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -265,6 +275,30 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def hmma_counts(build_dir: str, name: str) -> dict:
+    """{kernel: tensor-core (HMMA) instructions} in the SASS of a built
+    library (`cuobjdump -sass`), {} where the toolkit has no cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {}
+    out = subprocess.run([exe, "-sass", os.path.join(build_dir, f"lib{name}.so")],
+                         capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            short = re.search(r"lstm_[a-z_]+?_(?:cluster|prod|reduce)", m.group(1))
+            fn = (short.group(0) if short else m.group(1)) + (
+                "<bf16>" if "bfloat16" in m.group(1)
+                else "<f32>" if re.search(r"(?:cluster|prod)If", m.group(1)) else "")
+            if "Lb1" in m.group(1):
+                fn += "<proj>"
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def expect_launches(got, want, what: str):
@@ -459,6 +493,9 @@ def lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
         cot = [a.to(dev, dt) for a in (dy,)] + [dhT.to(dev), dcT.to(dev)]
         got_f = lk._launch_fwd(*args, reverse, residuals=True)
         got_b = lk._launch_bwd(*args, *got_f[:1], *got_f[3:], *cot, reverse)
+        repeat_equal(f"{name} {label} lstm_scan_train_fp", got_f, got_b,
+                     lk._launch_fwd(*args, reverse, residuals=True),
+                     lk._launch_bwd(*args, *got_f[:1], *got_f[3:], *cot, reverse))
         want_f = lk.lstm_scan_train_fp_ref(*args, reverse)
         want_b = lk.lstm_scan_train_fp_bwd_ref(*args, want_f[0], *want_f[3:], *cot,
                                                reverse)
@@ -480,6 +517,75 @@ def lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
         (res[f"{label}_lib_fwd_ms"], res[f"{label}_lib_bwd_ms"],
          res[f"{label}_lib_fwdbwd_ms"]) = cudnn_lstm_ms(*args, *cot, reverse, reps)
     return res
+
+
+def repeat_equal(what, got_f, got_b, again_f, again_b):
+    """Two calls of the forward and backward kernels on the same inputs give
+    the same outputs bit for bit (no atomics, fixed summation orders)."""
+    torch.cuda.synchronize()
+    for a, b in zip(list(got_f) + list(got_b), list(again_f) + list(again_b)):
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{what}: two calls of the kernels differ")
+
+
+#: phase 2b / 2j's split of one backward: the profiler's kernel names
+SPLIT_NAMES = (("chain", "lstm_bwd_cluster"), ("weight gradient", "lstm_wgrad_prod"),
+               ("dx", "lstm_dx_prod"), ("reduce", "lstm_wgrad_reduce"))
+
+
+def split_text(split: dict) -> str:
+    """The backward's (and the forward's) device ms by kernel, for the log."""
+    if not split:
+        return "not measured (the profiler saw no device time)"
+    bwd = split.get("bwd", {})
+    fwd = "; ".join(f"{k} {v:.3f}" for k, v in split.get("fwd", {}).items()
+                    if k.startswith("lstm_"))
+    return ("backward " + ", ".join(f"{label} {bwd.get(key, 0.0):.3f}"
+                                    for label, key in SPLIT_NAMES) + f"; forward {fwd}")
+
+
+def lstm_split(lk, B, T, C, H, dt, dev, reps=5, hoisted=False):
+    """{"fwd": {kernel: ms a call}, "bwd": {...}}: the device time of each
+    kernel of one `lstm_scan_train_fp` forward and backward launch (with
+    `hoisted`, `lstm_scan_train_tm`'s) at one shape, from a torch.profiler
+    window over `reps` launches of each, after one of each untimed; {} when
+    the profiler saw no device time."""
+    from torch.autograd import DeviceType
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    x = (0.5 * torch.randn(T, B, 4 * H if hoisted else C, generator=gen)).to(dev, dt)
+    h0, c0 = (0.3 * torch.randn(2, B, H, generator=gen)).to(dev, dt)
+    w_ih = None if hoisted else (0.05 * torch.randn(C, 4 * H, generator=gen)).to(dev, dt)
+    bias = None if hoisted else (0.05 * torch.randn(4 * H, generator=gen)).to(dev, dt)
+    w_hh = (0.05 * torch.randn(H, 4 * H, generator=gen)).to(dev, dt)
+    dy = torch.randn(T, B, H, generator=gen).to(dev, dt)
+    args = (x, h0, c0, w_ih, bias, w_hh)
+    fwd = lambda: lk._launch_fwd(*args, False, residuals=True, time_major=True)
+    y, _, _, gates, cseq = fwd()
+    bwd = lambda: lk._launch_bwd(*args, y, gates, cseq, dy, None, None, False,
+                                 time_major=True)
+    bwd()
+    torch.cuda.synchronize()
+    out = {}
+    for half, fn in (("fwd", fwd), ("bwd", bwd)):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            m = re.search(r"(lstm_\w+)", e.key)
+            key = m.group(1) if m else e.key[:40]
+            split[key] = split.get(key, 0.0) + us / 1e3 / reps
+        if split:
+            out[half] = split
+    return out
 
 
 def cudnn_lstm_ms(x, h0, c0, w_ih, bias, w_hh, dy, dhT, dcT, reverse, reps):
@@ -565,6 +671,10 @@ def lstm_unfused_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
         got_f = lk._launch_fwd(*hargs, reverse, residuals=True, time_major=True)
         got_b = lk._launch_bwd(*hargs, *got_f[:1], *got_f[3:], dy_t, *cot, reverse,
                                time_major=True)
+        repeat_equal(f"{name} {label} lstm_scan_train_tm", got_f, got_b,
+                     lk._launch_fwd(*hargs, reverse, residuals=True, time_major=True),
+                     lk._launch_bwd(*hargs, *got_f[:1], *got_f[3:], dy_t, *cot, reverse,
+                                    time_major=True))
         want_f = lk.lstm_scan_train_ref(xp_t, h0d, c0d, whd, reverse)
         want_b = lk.lstm_scan_train_bwd_ref(xp_t, h0d, c0d, whd, want_f[0], *want_f[3:],
                                             dy_t, *cot, reverse)
@@ -593,6 +703,10 @@ def lstm_unfused_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
         tm_f = lk._launch_fwd(*fargs, reverse, residuals=True, time_major=True)
         tm_b = lk._launch_bwd(*fargs, *tm_f[:1], *tm_f[3:], dy_t, *cot, reverse,
                               time_major=True)
+        repeat_equal(f"{name} {label} lstm_scan_train_fp_tm", tm_f, tm_b,
+                     lk._launch_fwd(*fargs, reverse, residuals=True, time_major=True),
+                     lk._launch_bwd(*fargs, *tm_f[:1], *tm_f[3:], dy_t, *cot, reverse,
+                                    time_major=True))
         bm_f = lk._launch_fwd(xd, *fargs[1:], reverse, residuals=True)
         bm_b = lk._launch_bwd(xd, *fargs[1:], *bm_f[:1], *bm_f[3:], dy.to(dev, dt), *cot,
                               reverse)
@@ -2406,6 +2520,77 @@ def train_settings_phase(lk, tk, dev, card):
     return results
 
 
+def step_determinism(dev, card):
+    """Phase 6c's probe of the training step's determinism: the flagship's
+    forward and backward at B=64 x 2 s as `make_train_step`'s micro-batch runs
+    them (parameters cast to the compute dtype, `functional_call`,
+    `torch.autograd.grad`), twice from the same weights on one batch, in f32
+    and bf16, then again with cuDNN held to its deterministic algorithms
+    (`torch.backends.cudnn.deterministic`, restored after). Forward hooks
+    record every leaf module's output and the order the modules ran in. The
+    first module whose output differs is a forward op that is not
+    deterministic; with every output equal, the module that ran last among
+    those whose parameter gradients differ is next to the backward op that
+    is not (its gradient flows to every module that ran before it). Returns
+    {(dtype label, cuDNN deterministic): (first differing output, that last
+    module, number of differing gradients)}."""
+    from torch.func import functional_call
+
+    batch = train_batch(TRAIN_B, TRAIN_SECONDS, dev)
+    found = {}
+    prev = torch.backends.cudnn.deterministic
+    for label, dt, det in (("f32", torch.float32, False), ("bf16", torch.bfloat16, False),
+                           ("f32", torch.float32, True), ("bf16", torch.bfloat16, True)):
+        t = time.perf_counter()
+        torch.backends.cudnn.deterministic = det
+        model, _, _ = train_parts(dev, torch.Generator().manual_seed(SEED), dt)
+        model.train()
+        leaves = [(n, m) for n, m in model.named_modules() if not list(m.children())]
+        cast = (lambda v: v.to(dt) if v.dtype == torch.float32 else v)
+        runs = []
+        for _ in range(2):
+            outs, seen = {}, []
+
+            def hook(mod, inp, out, name=None):
+                first = out[0] if isinstance(out, tuple) else out
+                if isinstance(first, torch.Tensor) and name not in outs:
+                    outs[name] = first.detach().clone()
+                    seen.append(name)
+
+            handles = [m.register_forward_hook(functools.partial(hook, name=n))
+                       for n, m in leaves]
+            params = dict(model.named_parameters())
+            tensors = {n: cast(p) for n, p in params.items()}
+            tensors.update({n: cast(b.clone()) for n, b in model.named_buffers()})
+            out = functional_call(model, tensors, (), {k: cast(v) for k, v in batch.items()},
+                                  strict=True)
+            loss = out[0] if isinstance(out, tuple) else out
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+            torch.cuda.synchronize()
+            for h in handles:
+                h.remove()
+            runs.append((outs, seen, dict(zip(params, grads))))
+        (o1, seen, g1), (o2, _, g2) = runs
+        first_out = next((n for n in seen if not torch.equal(o1[n], o2[n])), None)
+        diff = [n for n in g1 if g1[n] is not None and not torch.equal(g1[n], g2[n])]
+        ran = {n: i for i, n in enumerate(seen)}
+        owner = lambda pname: pname.rsplit(".", 1)[0]
+        last = max(diff, key=lambda n: ran.get(owner(n), -1)) if diff else None
+        found[(label, det)] = (first_out, last, len(diff))
+        log("6c determinism", f"flagship {label} B={TRAIN_B} x {TRAIN_SECONDS:g} s, cuDNN "
+            f"deterministic {det}: forward and backward twice from one state, "
+            f"{len(seen)} leaf-module outputs, first differing {first_out}; {len(diff)} of "
+            f"{len(g1)} parameter gradients differ"
+            + (f", the module that ran last among them {owner(last)} (max|d| "
+               f"{(g1[last] - g2[last]).abs().max().item():.3e}); run order of the hooked "
+               f"modules: {' > '.join(seen[-4:])}" if last else "")
+            + f" [{card}]", t)
+        del model, runs
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = prev
+    return found
+
+
 def write_tse_manifest(folder: str, n: int, seed: int) -> str:
     """A synthetic TSE manifest folder (the recipe's five files) of n
     mixtures of 4 s and 6 s enrollments at 16 kHz, keys mix_<i>_s1."""
@@ -2616,6 +2801,17 @@ def run(dev: torch.device) -> int:
                          for k, r, st, ld in _build.ptxas_report(name))
         log("1 build", f"{name}.cu built in {_build.build_seconds[name]:.1f} s "
             f"(nvcc, sm_90a); ptxas: {regs}", t)
+    # the LSTM training kernels: bf16 products on tensor cores, f32 on CUDA cores
+    hmma = hmma_counts(_build.BUILD_DIR, "lstm_train")
+    if hmma:
+        bad = [k for k, n in hmma.items() if ("<bf16>" in k) != (n > 0)
+               and "reduce" not in k]
+        log("1 build", "lstm_train.cu HMMA (tensor-core) instructions by kernel (cuobjdump "
+            "-sass): " + "; ".join(f"{k} {n}" for k, n in sorted(hmma.items())), t)
+        if bad:
+            raise AssertionError(f"tensor cores where bf16 wants them and f32 does not: {bad}")
+    else:
+        log("1 build", "cuobjdump not found: HMMA count not read", t)
 
     # --------------------------------------------------- 2. kernel vs plain
     gen = torch.Generator().manual_seed(SEED)
@@ -2656,7 +2852,17 @@ def run(dev: torch.device) -> int:
         r = lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps)
         lstm_results[name] = r
         fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
-        log("2b lstm", f"{r['shape']}: f32 max|d|/max|ref| values "
+        split = ""
+        if name == "SegLSTM":   # its own data, so the phases after keep theirs
+            r["split"] = {lb: lstm_split(lk, B, T, C, H, dt, dev)
+                          for lb, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+            split = "; device ms by kernel (profiler): " + "; ".join(
+                f"{lb} {split_text(v)}" for lb, v in r["split"].items())
+        log("2b lstm", f"{r['shape']}: two calls of each kernel bit-equal; "
+            f"clusters in flight (fwd, bwd) f32 "
+            f"{lk.clusters_in_flight(B, T, C, H, torch.float32, dev)}, bf16 "
+            f"{lk.clusters_in_flight(B, T, C, H, torch.bfloat16, dev)}; "
+            f"f32 max|d|/max|ref| values "
             f"{r['f32_val_rel']:.2e}, grads {r['f32_grad_rel']:.2e}; bf16 SNR "
             f"values {r['bf16_val_snr']:.1f} dB, grads {r['bf16_grad_snr']:.1f} dB; "
             + "; ".join(
@@ -2665,7 +2871,7 @@ def run(dev: torch.device) -> int:
                 f"cuDNN {fmt(r[f'{lb}_lib_fwd_ms'])}/{fmt(r[f'{lb}_lib_bwd_ms'])} "
                 f"(fwd+bwd {fmt(r[f'{lb}_lib_fwdbwd_ms'])}), "
                 f"bound {r[f'{lb}_fwd_bound'][0]:.3f}/{r[f'{lb}_bwd_bound'][0]:.3f}"
-                for lb in ("f32", "bf16")) + f" [{card}]", t)
+                for lb in ("f32", "bf16")) + f"{split} [{card}]", t)
 
     # ------------- 2j. lstm_scan_train(_tm), lstm_scan_train_fp_tm vs plain
     unfused_results = {}
@@ -2675,6 +2881,12 @@ def run(dev: torch.device) -> int:
         r = lstm_unfused_case(lk, name, B, T, C, H, reverse, unfused_gen, dev, reps)
         unfused_results[name] = r
         fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
+        split = ""
+        if name == "SegLSTM":
+            r["split"] = {lb: lstm_split(lk, B, T, C, H, dt, dev, hoisted=True)
+                          for lb, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+            split = "; lstm_scan_train_tm device ms by kernel (profiler): " + "; ".join(
+                f"{lb} {split_text(v)}" for lb, v in r["split"].items())
         log("2j lstm unfused", f"{r['shape']}: lstm_scan_train_tm f32 max|d|/max|ref| "
             f"values {r['f32_val_rel']:.2e}, grads {r['f32_grad_rel']:.2e}; bf16 SNR values "
             f"{r['bf16_val_snr']:.1f} dB, grads {r['bf16_grad_snr']:.1f} dB; "
@@ -2685,7 +2897,8 @@ def run(dev: torch.device) -> int:
                 f"{r[f'{lb}_bwd_bound'][0]:.3f} ({r[f'{lb}_bwd_bound'][1]}), batch-major "
                 f"lstm_scan_train forward with its xp swap {r[f'{lb}_batch_major_fwd_ms']:.3f}"
                 for lb in ("f32", "bf16"))
-            + "; lstm_scan_train_fp_tm == the batch-major launches bit for bit, vs plain "
+            + "; two calls of each kernel bit-equal; lstm_scan_train_fp_tm == the "
+            "batch-major launches bit for bit, vs plain "
             f"f32 values {r['fp_tm_f32_val_rel']:.2e} grads {r['fp_tm_f32_grad_rel']:.2e}, "
             f"bf16 SNR {r['fp_tm_bf16_val_snr']:.1f} / {r['fp_tm_bf16_grad_snr']:.1f} dB; "
             + "; ".join(
@@ -2695,7 +2908,7 @@ def run(dev: torch.device) -> int:
                 f"{r[f'fp_tm_{lb}_fwd_bound'][0]:.3f}/{r[f'fp_tm_{lb}_bwd_bound'][0]:.3f}; "
                 f"cuDNN LSTM (it projects the input too) fwd/bwd "
                 f"{fmt(r[f'{lb}_lib_fwd_ms'])}/{fmt(r[f'{lb}_lib_bwd_ms'])}"
-                for lb in ("f32", "bf16")) + f" [{card}]", t)
+                for lb in ("f32", "bf16")) + f"{split} [{card}]", t)
 
     # -------------------------------------- 2c. TCN training kernel vs plain
     tcn_results = tcn_phase(tk, gen, dev, card)
@@ -2947,6 +3160,7 @@ def run(dev: torch.device) -> int:
 
     # ------------------- 6c. the training step under the LSTM path's switches
     settings = train_settings_phase(lk, tk, dev, card)
+    determinism = step_determinism(dev, card)
 
     # ------------------------------------------- 6b. the recipe's trainer
     recipe = recipe_phase(lk, tk, dev, card)
@@ -2985,7 +3199,8 @@ def run(dev: torch.device) -> int:
             "bf16_plain_ms": seg[f"bf16_plain_{half}_ms"],
             "bf16_bound_ms": seg[f"bf16_{half}_bound"][0],
             "bf16_library_ms": seg[f"bf16_lib_{half}_ms"],
-            "shape": seg["shape"]})
+            "device_ms_by_kernel": {lb: v.get(half) for lb, v in seg["split"].items()},
+            "two_calls_bit_equal": True, "shape": seg["shape"]})
     gb = bound_ms(*skim_work(4, 128, 256, 15, 1024, torch.float32, "gate"), torch.float32)
     kernels.append({
         "name": "fused_skim_frames gate", "route": "cuda", "source": SOURCE,
@@ -3017,7 +3232,9 @@ def run(dev: torch.device) -> int:
             "bf16_ms": seg_u[f"bf16_{half}_ms"],
             "bf16_plain_ms": seg_u[f"bf16_plain_{half}_ms"],
             "bf16_bound_ms": seg_u[f"bf16_{half}_bound"][0],
-            "bf16_library_ms": seg_u[f"bf16_lib_{half}_ms"], "shape": seg_u["shape"]})
+            "bf16_library_ms": seg_u[f"bf16_lib_{half}_ms"],
+            "device_ms_by_kernel": {lb: v.get(half) for lb, v in seg_u["split"].items()},
+            "two_calls_bit_equal": True, "shape": seg_u["shape"]})
         kernels.append({
             "name": f"lstm_scan_train_fp_tm ({word})", "route": "cuda",
             "source": LSTM_SOURCE, "replaces": LSTM_REPLACES[i], "entry": FP_TM_ENTRY,

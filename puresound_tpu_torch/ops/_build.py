@@ -98,7 +98,7 @@ def ptxas_report(name: str) -> List[Tuple[str, int, int, int]]:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 mangled = m.group(1)
-                short = re.search(r"[a-z]+(?:_[a-z]+)*_(?:kernel|reduce)", mangled)
+                short = re.search(r"[a-z]+(?:_[a-z0-9]+)*_(?:kernel|reduce|cluster|prod)", mangled)
                 kernel = short.group(0) if short else mangled
                 if "bfloat16" in mangled:
                     kernel += "<bf16>"

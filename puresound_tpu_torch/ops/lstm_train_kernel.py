@@ -34,12 +34,16 @@ differ there by design. Weights are JAX's layout: w_ih [C, 4H], bias
 Dispatch: one `torch.autograd.Function` per variant for both devices. A
 CPU tensor runs the plain forward and backward below; a CUDA tensor
 launches `csrc/lstm_train.cu` (built with nvcc at first use) or raises.
-Without a gradient to compute the forward skips the residual stores.
+Without a gradient to compute the forward skips the residual stores. The
+kernels' layout (cluster size, units and rows a cluster, buffers) comes
+from `_plan`, which raises `LstmPlanError` (a ValueError) for a shape no
+layout fits; the source checks it again at each launch.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -192,9 +196,147 @@ def lstm_scan_train_bwd_ref(xp_t, h0, c0, w_hh, y_t, gates, cseq, dy_t,
 
 # -------------------------------------------------------------------- CUDA
 _KDT = {torch.float32: 0, torch.bfloat16: 1}
-_BT = 8          # rows per CTA (csrc/lstm_train.cu)
 _RB = 32         # rows per stage of the weight-gradient product
 _SPLIT_ROWS = 2048
+_SMEM_MAX = 232448   # shared memory a block may use on the H100 (bytes)
+_THREADS, _XCH = 256, 8   # csrc/lstm_train.cu: threads, x chunks a thread
+_H100_SMS = 132
+
+
+class LstmPlanError(ValueError):
+    """A scan shape for which no layout of `csrc/lstm_train.cu` fits."""
+
+
+@dataclass(frozen=True)
+class ChainPlan:
+    """One chain kernel's layout: M rows a cluster, `nbuf` h (forward) or
+    partial-dh (backward) buffers, `xproj` (forward only: x @ W_ih + bias
+    made for every step first by the product kernel, float32 where W_ih does
+    not fit beside the tile; the chain then has the hoisted layout), its
+    shared-memory bytes and row tiles."""
+    M: int
+    nbuf: int
+    xproj: int
+    smem: int
+    n_tiles: int
+
+
+@dataclass(frozen=True)
+class Plan:
+    """The layout of one scan shape: clusters of CL CTAs, U hidden units a CTA
+    (H padded to CL * U), C padded to Cp, each chain kernel's ChainPlan, and
+    the clusters that fit on the card at once (each launch takes at most as
+    many as it has row tiles; a cluster walks its tiles)."""
+    CL: int
+    U: int
+    Cp: int
+    fwd: ChainPlan
+    bwd: ChainPlan
+    clusters: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _fwd_smem(bf16, CL, U, M, Cp, nbuf):
+    """Bytes of the forward's shared memory (`fwd_smem_bytes` in the source):
+    the weight slice, nbuf [x | h] tiles, the bias slice."""
+    Hp, NC = CL * U, 4 * U
+    Kp = Cp + Hp
+    if bf16:
+        return NC * (Kp + 8) * 2 + nbuf * M * (Kp + 8) * 2 + NC * 4
+    return Kp * NC * 4 + nbuf * Kp * M * 4 + NC * 4
+
+
+def _bwd_smem(bf16, CL, U, M, nbuf):
+    """Bytes of the backward chain's shared memory (`bwd_smem_bytes`): the
+    W_hh slice, the tile's dgates, nbuf sets of CL partial dh."""
+    Hp, NC = CL * U, 4 * U
+    part = nbuf * CL * M * U * 4
+    if bf16:
+        return Hp * (NC + 8) * 2 + M * (NC + 8) * 2 + part
+    return NC * Hp * 4 + NC * M * 4 + part
+
+
+def _plan(B: int, C: int, H: int, bf16: bool, clusters=None) -> Plan:
+    """The layout of the chain kernels for B rows, C input channels (0: the
+    hoisted variant) and H units, under 227 KB of shared memory a CTA.
+
+    The cluster is the smallest of 1, 2, 4, 8 CTAs with 8 units each that
+    covers H (8 from H = 33), each CTA owning U units (a multiple of 8). The
+    rows per cluster M (a multiple of 16 under bf16, of 4 under float32) are
+    the fewest that put every row tile in one wave of `clusters` (a callable
+    of the cluster size: the clusters that fit on the card at once; without
+    it 132 SMs / CL, but 15 at CL = 8, as an H100 SXM reports), within the
+    threads' tiles and the x staging. Each chain then takes the first layout
+    that fits: double buffers, else one buffer and two barriers a step; the
+    float32 forward with the projection keeps W_ih resident where it fits and
+    else projects x first (`xproj`, the chain in the hoisted layout); a
+    smaller M where none fits. Raises LstmPlanError when none does."""
+    if B <= 0 or H <= 0 or C < 0:
+        raise LstmPlanError(f"no layout for B={B}, C={C}, H={H}")
+    CL = next((c for c in (1, 2, 4) if 8 * c >= H), 8)
+    U = _cdiv(_cdiv(H, CL), 8) * 8
+    if (CL * U) % 16:
+        U += 8
+    Cp = _cdiv(C, 16) * 16 if bf16 else C
+    mstep = 16 if bf16 else 4
+    # threads' tiles: bf16 (M / 16) * (U / 8) pairs over 8 warps, two each, f32
+    # (M / 4) * (U / 2) over 256 threads, one each; x staged in _XCH 16-byte chunks
+    cap = min(64, 2048 // U,
+              (_XCH * _THREADS) // max(1, _cdiv(C, 8 if bf16 else 4)))
+    cap -= cap % mstep
+    if cap < mstep:
+        raise LstmPlanError(f"no layout for C={C}, H={H}: U={U} units a CTA leave "
+                            f"fewer than {mstep} rows a cluster")
+    n_cl = max(1, clusters(CL) if clusters is not None
+               else (15 if CL == 8 else _H100_SMS // CL))
+    m0 = min(cap, _cdiv(_cdiv(B, n_cl), mstep) * mstep)
+    opts = [(2, 0), (1, 0)] + ([(2, 1), (1, 1)] if not bf16 and C > 0 else [])
+
+    def first(sizes):
+        for M in range(m0, 0, -mstep):
+            for nbuf, xproj in sizes:
+                smem = (_fwd_smem(bf16, CL, U, M, 0 if xproj else Cp, nbuf)
+                        if xproj is not None else _bwd_smem(bf16, CL, U, M, nbuf))
+                if smem <= _SMEM_MAX:
+                    return ChainPlan(M, nbuf, xproj or 0, smem, _cdiv(B, M))
+        return None
+
+    fwd = first(opts)
+    bwd = first([(2, None), (1, None)])
+    if fwd is None or bwd is None:
+        raise LstmPlanError(f"no layout for C={C}, H={H} under {_SMEM_MAX} bytes of "
+                            f"shared memory ({'bf16' if bf16 else 'float32'})")
+    return Plan(CL, U, Cp, fwd, bwd, n_cl)
+
+
+_CLUSTERS: dict = {}   # (device, CL) -> clusters of the forward kernel at once
+_PLANS: dict = {}
+
+
+def _plan_on(dev, B, C, H, dt) -> Plan:
+    """`_plan` with the card's own count of clusters in flight (cached)."""
+    key = (dev, B, C, H, dt)
+    if key not in _PLANS:
+        _PLANS[key] = _plan_counted(dev, B, C, H, dt)
+    return _PLANS[key]
+
+
+def _plan_counted(dev, B, C, H, dt) -> Plan:
+    def clusters(CL):
+        key = (dev, CL)
+        if key not in _CLUSTERS:
+            with torch.cuda.device(dev):
+                n = _lib().lstm_train_clusters(1, 1, 1, CL, _SMEM_MAX)
+            if n < 1:
+                raise RuntimeError("lstm_train_clusters failed: "
+                                   + _lib().lstm_train_error_string(-n).decode())
+            _CLUSTERS[key] = n
+        return _CLUSTERS[key]
+
+    return _plan(B, C, H, dt == torch.bfloat16, clusters)
 
 
 def _lib():
@@ -202,15 +344,28 @@ def _lib():
 
     lib = load("lstm_train")
     if not getattr(lib, "_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_train_fwd.argtypes = [p] * 11 + [i] * 9 + [p]
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.lstm_train_fwd.argtypes = [p] * 12 + [i] * 15 + [l, i, p]
         lib.lstm_train_fwd.restype = i
-        lib.lstm_train_bwd.argtypes = [p] * 20 + [i] * 11 + [p]
+        lib.lstm_train_bwd.argtypes = [p] * 20 + [i] * 15 + [l, i, p]
         lib.lstm_train_bwd.restype = i
+        lib.lstm_train_clusters.argtypes = [i, i, i, i, l]
+        lib.lstm_train_clusters.restype = i
         lib.lstm_train_error_string.argtypes = [i]
         lib.lstm_train_error_string.restype = ctypes.c_char_p
         lib._bound = True
     return lib
+
+
+def clusters_in_flight(B, T, C, H, dt, dev) -> tuple:
+    """(forward, backward chain) clusters that fit on the card at once for
+    the plan of this shape (cudaOccupancyMaxActiveClusters), beside the
+    plan's row tiles: more tiles than clusters run in several waves."""
+    pl = _plan_on(dev, B, C, H, dt)
+    lib, bf = _lib(), int(dt == torch.bfloat16)
+    with torch.cuda.device(dev):
+        return (lib.lstm_train_clusters(1, bf, int(C > 0), pl.CL, pl.fwd.smem),
+                lib.lstm_train_clusters(0, bf, int(C > 0), pl.CL, pl.bwd.smem))
 
 
 def _ptr(t):
@@ -285,13 +440,18 @@ def _launch_fwd(x, h0, c0, w_ih, bias, w_hh, reverse, residuals,
     hT, cT = torch.empty_like(h0), torch.empty_like(c0)
     gates = torch.empty((T, B, 4 * H), device=dev, dtype=dt) if residuals else None
     cseq = torch.empty((T, B, H), device=dev, dtype=dt) if residuals else None
+    pl = _plan_on(dev, B, C, H, dt)
+    f = pl.fwd
+    # float32 without W_ih resident: x @ W_ih + bias for every step (scratch)
+    xp = torch.empty((T, B, 4 * H), device=dev, dtype=torch.float32) if f.xproj else None
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.lstm_train_fwd(
             x.data_ptr(), h0.data_ptr(), c0.data_ptr(), _ptr(wi), _ptr(b),
             wh.data_ptr(), y.data_ptr(), hT.data_ptr(), cT.data_ptr(), _ptr(gates),
-            _ptr(cseq), B, T, C, H, int(reverse), _KDT[dt], _KDT[h0.dtype],
-            int(proj), int(time_major), _stream(dev))
+            _ptr(cseq), _ptr(xp), B, T, C, H, int(reverse), _KDT[dt], _KDT[h0.dtype],
+            int(proj), int(time_major), pl.CL, pl.U, f.M, 0 if f.xproj else pl.Cp, f.nbuf,
+            f.xproj, f.smem, min(f.n_tiles, pl.clusters), _stream(dev))
     _raise_on(err, lib, "lstm_train_fwd")
     _count(FWD_BY_ENTRY, _entry(proj, time_major))
     return y, hT, cT, gates, cseq
@@ -300,7 +460,7 @@ def _launch_fwd(x, h0, c0, w_ih, bias, w_hh, reverse, residuals,
 def _split_rows(R: int):
     """(n_split, rows per split) of the weight-gradient product's T*B rows:
     fixed ranges, a multiple of the stage depth, summed in a fixed order."""
-    n = min(16, math.ceil(R / _SPLIT_ROWS))
+    n = min(32, math.ceil(R / _SPLIT_ROWS))
     rows = math.ceil(math.ceil(R / n) / _RB) * _RB
     return math.ceil(R / rows), rows
 
@@ -315,14 +475,14 @@ def _launch_bwd(x, h0, c0, w_ih, bias, w_hh, y, gates, cseq, dy, dhT, dcT,
     f32 = dict(device=dev, dtype=torch.float32)
     x = x.contiguous() if proj else None    # the hoisted backward reads no xp
     h0, c0 = h0.contiguous(), c0.contiguous()
-    wi_t = w_ih.t().to(dt).contiguous() if proj else None   # [4H, C]: torch's
-    wh_t = w_hh.t().to(dt).contiguous()     # [4H, H]
+    wi = w_ih.to(dt).contiguous() if proj else None     # [C, 4H]
+    wh = w_hh.to(dt).contiguous()                      # [H, 4H]
     dy = dy.to(dt).contiguous()
     dhT = (dhT.to(torch.float32).contiguous() if dhT is not None
            else torch.zeros((B, H), **f32))
     dcT = (dcT.to(torch.float32).contiguous() if dcT is not None
            else torch.zeros((B, H), **f32))
-    n_tiles = -(-B // _BT)
+    pl = _plan_on(dev, B, C, H, dt)
     n_split, rows = _split_rows(B * T)
     dx = torch.empty_like(x) if proj else None    # in x's layout
     dh0, dc0 = torch.empty((B, H), **f32), torch.empty((B, H), **f32)
@@ -331,18 +491,19 @@ def _launch_bwd(x, h0, c0, w_ih, bias, w_hh, y, gates, cseq, dy, dhT, dcT,
     dbias = torch.empty((G,), **f32) if proj else None
     # dgates rounded to the dot dtype: scratch, or the hoisted variant's dxp_t
     dg = torch.empty((T, B, G), device=dev, dtype=dt)
-    db_part = torch.empty((n_tiles, G), **f32) if proj else None   # scratch
+    db_part = torch.empty((B, G), **f32) if proj else None         # scratch
     w_part = torch.empty((n_split, H + C, G), **f32)                # scratch
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.lstm_train_bwd(
-            _ptr(x), h0.data_ptr(), c0.data_ptr(), _ptr(wi_t),
-            wh_t.data_ptr(), y.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
+            _ptr(x), h0.data_ptr(), c0.data_ptr(), _ptr(wi),
+            wh.data_ptr(), y.data_ptr(), gates.data_ptr(), cseq.data_ptr(),
             dy.data_ptr(), dhT.data_ptr(), dcT.data_ptr(), _ptr(dx),
             dh0.data_ptr(), dc0.data_ptr(), _ptr(dw_ih), dw_hh.data_ptr(),
             _ptr(dbias), dg.data_ptr(), _ptr(db_part), w_part.data_ptr(),
             B, T, C, H, int(reverse), _KDT[dt], _KDT[h0.dtype], n_split, rows,
-            int(proj), int(time_major or not proj), _stream(dev))
+            int(proj), int(time_major or not proj), pl.CL, pl.U, pl.bwd.M, pl.bwd.nbuf,
+            pl.bwd.smem, min(pl.bwd.n_tiles, pl.clusters), _stream(dev))
     _raise_on(err, lib, "lstm_train_bwd")
     _count(BWD_BY_ENTRY, _entry(proj, time_major))
     if not proj:
