@@ -9,8 +9,11 @@ width (random weights from a seed):
   0. device: torch / CUDA versions, the card's name and power limit;
   1. build: nvcc builds the seven CUDA sources from the checkout, in
      parallel, and prints each build's seconds and ptxas registers and spills,
-     and the training LSTM kernels' tensor-core (HMMA) instructions from
-     cuobjdump (every bf16 kernel has some, every f32 one none);
+     and the tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) from
+     cuobjdump of the training LSTM kernels (every bf16 kernel has some,
+     every f32 one none), `dparn_attention` and `masker` (the attention's and
+     the resident convs' wgmma routes have HGMMA, no kernel with float32 dots
+     either);
   2. `fused_skim_frames` vs `fused_skim_frames_ref` on the card at the
      flagship shapes (f32 and bf16, 20 carried chunks), at a ragged batch and
      at a small shape, with CUDA-event timings of both;
@@ -55,12 +58,16 @@ width (random weights from a seed):
      streams x K = 2) of 64 tokens x 128, a ragged R = 2,002 and a small F =
      8, C = 16 case, f32 (max|d|/max|ref| <= 1e-4) and bf16 (SNR >= 30 dB),
      with CUDA-event times, the bound and stock modules (nn.TransformerEncoder
-     + Linear + LayerNorm) as the yardstick;
-  2g. `center_chunk` at 2048 streams and `dparn_center_chunk` at 1024, the
-     zoo maskers' weights, vs their plain versions over 10 carried chunks (y
+     + Linear + LayerNorm) as the yardstick; two calls bit-equal, the
+     launches by the plan's path (wgmma for the bf16 model geometry);
+  2g. `center_chunk` at 2048 streams and `dparn_center_chunk` at 1024 (and
+     at a ragged 3 streams), the zoo maskers' weights, vs their plain
+     versions over 10 carried chunks (y
      and the 11 carries; the bars of 2f), with the time of one chunk, the
      bound and the port's route for the same layers (cuDNN convs + the
-     bottleneck kernels) as the yardstick;
+     bottleneck kernels) as the yardstick; two calls bit-equal, the launches
+     by path, and one call's device ms by pass (convs, attention, inter,
+     dual path, copies) from a profiler window;
   2h. the card's __dp4a rate (a loop in skim_stream.cu, CUDA events), the
      int8 products' peak; then the int8 and bf16-scratch variants at full
      width, each against its own plain version over 5 carried chunks:
@@ -124,9 +131,11 @@ width (random weights from a seed):
      1 `dparn_center_chunk` per mk_kernel tick;
   4c. DPARN serving: `make_session_server(half=True, fused=True,
      attn_kernel=True)` at 256 and 1024 sessions: 25 ticks after 3 warm-up,
-     2 `dparn_intra_pass` and 2 `lstm_scan` per tick, 0 underruns, bf16 slot
-     0 against the f32 engine (bar 25 dB);
-  4h. DPARN at 1024 sessions on `mk_kernel` + xscr_half, as 4g (bar 25 dB);
+     2 `dparn_intra_pass` and 2 `lstm_scan` per tick, every attention launch
+     on the wgmma path, 0 underruns, bf16 slot 0 against the f32 engine (bar
+     25 dB);
+  4h. DPARN at 1024 sessions on `mk_kernel` + xscr_half, as 4g (bar 25 dB),
+     every launch on the wgmma attention and resident convs;
   5. one f32 training step (B=2 x 1 s) on the card against the same step on
      the CPU in f64 (and the CPU's f32 step beside it): loss, grad_norm,
      every gradient and updated parameter;
@@ -243,6 +252,9 @@ ATTN_CASES = [("2048 streams", 4096, 64, 128, 8, 128, 10),
 # phase 2g: (kernel, zoo model, streams, timed repetitions)
 CENTER_CASES = [("center_chunk", "ns_dpcrn_v0_causal", 2048, 5),
                 ("dparn_center_chunk", "ns_dparn_v0_causal", 1024, 5)]
+# and 3 streams: no conv tile lies in one (frame, k) block, so the resident
+# convs gather row by row (held to the same bars, not in the kernels line)
+CENTER_RAGGED = ("dparn_center_chunk", "ns_dparn_v0_causal", 3, 2)
 NS_STREAMS, NS_SECONDS = 4, 2.0     # phases 3b, 3c
 NS_SLOTS, NS_TICKS, NS_WARM = (256, 2048), 25, 3    # phases 4b, 4d
 DPARN_SLOTS = (256, 1024)           # phase 4c
@@ -277,9 +289,44 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def _sass_name(mangled: str) -> str:
+    """A short kernel name for a SASS function: the LSTM training kernels
+    as `lstm_fwd_cluster<bf16><proj>`, the others as namespace::kernel with
+    their template arguments (<bf16> / <f32> weights, <db> bf16 dots, the
+    integer arguments: conv_tc_kernel's n-tiles and ring buffers)."""
+    short = re.search(r"lstm_[a-z_]+?_(?:cluster|prod|reduce)", mangled)
+    if short:
+        name = short.group(0) + ("<bf16>" if "bfloat16" in mangled
+                                 else "<f32>" if re.search(r"(?:cluster|prod)If", mangled)
+                                 else "")
+        return name + ("<proj>" if "Lb1" in mangled else "")
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    pos, ids = m.end(), []
+    while True:           # the length-prefixed identifiers of the nested name
+        d = re.match(r"(\d+)", mangled[pos:])
+        if not d:
+            break
+        n, pos = int(d.group(1)), pos + d.end()
+        ids.append(mangled[pos:pos + n])
+        pos += n
+    ids = [i for i in ids if not i.startswith("_GLOBAL__N")]
+    rest = mangled[pos:]
+    args = ""
+    if rest.startswith("I"):
+        t = rest[1:rest.find("EE") + 1] if "EE" in rest else rest[1:]
+        args = "".join((["<bf16>"] if t.startswith("13__nv_bfloat16") else
+                        ["<f32>"] if t.startswith("f") else [])
+                       + (["<db>"] if re.search(r"Lb1E", t) else [])
+                       + [f"<{a}>" for a in re.findall(r"Li(\d+)E", t)])
+    return "::".join(ids[-2:]) + args
+
+
 def hmma_counts(build_dir: str, name: str) -> dict:
-    """{kernel: tensor-core (HMMA) instructions} in the SASS of a built
-    library (`cuobjdump -sass`), {} where the toolkit has no cuobjdump."""
+    """{kernel: (mma.sync HMMA, wgmma HGMMA) tensor-core instructions} in the
+    SASS of a built library (`cuobjdump -sass`), {} where the toolkit has no
+    cuobjdump."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
         return {}
@@ -289,16 +336,13 @@ def hmma_counts(build_dir: str, name: str) -> dict:
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            short = re.search(r"lstm_[a-z_]+?_(?:cluster|prod|reduce)", m.group(1))
-            fn = (short.group(0) if short else m.group(1)) + (
-                "<bf16>" if "bfloat16" in m.group(1)
-                else "<f32>" if re.search(r"(?:cluster|prod)If", m.group(1)) else "")
-            if "Lb1" in m.group(1):
-                fn += "<proj>"
-            counts[fn] = 0
+            fn = _sass_name(m.group(1))
+            counts[fn] = [0, 0]
+        elif fn is not None and "HGMMA" in line:
+            counts[fn][1] += 1
         elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    return counts
+            counts[fn][0] += 1
+    return {k: tuple(v) for k, v in counts.items()}
 
 
 def expect_launches(got, want, what: str):
@@ -1184,14 +1228,26 @@ def attn_case(dak, name, R, F, C, heads, FFD, reps, gen, dev):
     ws = attn_weights(C, FFD, gen)
     x = 0.5 * torch.randn(R, F, C, generator=gen)
     pe = 0.1 * torch.randn(F, C, generator=gen)
-    res = {"name": name, "shape": f"R={R} F={F} C={C} heads={heads} FFD={FFD}"}
+    res = {"name": name, "shape": f"R={R} F={F} C={C} heads={heads} FFD={FFD}", "paths": {}}
+    by_path = getattr(dak, "LAUNCHES_BY_PATH", None)
     for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         xd, ped, wd = x.to(dev, dt), pe.to(dev, dt), [w.to(dev, dt) for w in ws]
+        if by_path is not None:
+            by_path.clear()
         got = dak._launch(xd, ped, wd, heads, dt)
+        again = dak._launch(xd, ped, wd, heads, dt)
         want = dak.dparn_intra_pass_ref(xd, ped, wd, heads, dt)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name} {label}: non-finite kernel output")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} {label}: two calls of the kernel differ")
+        if by_path is not None:
+            res["paths"][label] = dict(by_path)
+            bf = dt == torch.bfloat16
+            expect_launches(res["paths"][label],
+                            {dak.plan(R, F, C, FFD, heads, bf, bf, dak.sm_count(dev)).path: 2},
+                            f"{name} {label} launches by path")
         if dt == torch.float32:
             res["f32_rel"] = ((got - want).abs().max() / want.abs().max()).item()
             res["f32_max_abs_err"] = (got - want).abs().max().item()
@@ -1201,7 +1257,7 @@ def attn_case(dak, name, R, F, C, heads, FFD, reps, gen, dev):
             res["bf16_snr_db"] = snr_db(got, want)
             if res["bf16_snr_db"] < 30.0:
                 raise AssertionError(f"{name} bf16: SNR {res['bf16_snr_db']:.1f} dB < 30")
-        del got, want
+        del got, again, want
         res[f"{label}_ms"] = cuda_ms(lambda: dak._launch(xd, ped, wd, heads, dt), reps)
         res[f"{label}_plain_ms"] = cuda_ms(
             lambda: dak.dparn_intra_pass_ref(xd, ped, wd, heads, dt), 2, 1)
@@ -1288,6 +1344,48 @@ def stock_center_ms(masker, x, reps):
         return cuda_ms(run, reps)
 
 
+def flat_outs(outs) -> list:
+    """A wide-center call's outputs as one list of tensors."""
+    flat = []
+    for o in outs:
+        flat += list(o) if isinstance(o, (list, tuple)) else [o]
+    return flat
+
+
+#: the wide center's passes by kernel name (`center_split`)
+CENTER_PASSES = (("convs", r"conv_(?:tc_)?kernel"), ("attention", r"dparn_(?:attn|wgmma)"),
+                 ("inter", r"dp_inter_kernel"), ("dual path", r"dp_(?:intra|proj)_kernel"),
+                 ("copies", r"last_frame_kernel|to_half_kernel"))
+
+
+def center_split(fn, reps: int = 3) -> dict:
+    """{pass: device ms a call} of a wide-center call (`CENTER_PASSES`) from
+    a torch.profiler window over `reps` calls; {} when the profiler saw no
+    device time."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        key = next((k for k, pat in CENTER_PASSES if re.search(pat, e.key)), "other")
+        split[key] = split.get(key, 0.0) + us / 1e3 / reps
+    return split
+
+
+def split_line(split: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in split.items()) if split else "not measured"
+
+
 def center_case(mkk, name, zoo_name, B, reps, dev):
     """`center_chunk` / `dparn_center_chunk` against the plain version on
     the card over DP_CHUNKS carried chunks (y and the 11 carries), f32 then
@@ -1328,6 +1426,15 @@ def center_case(mkk, name, zoo_name, B, reps, dev):
                                           pe, a[1][0:3], *a[1][3:7], a[1][7:9], a[1][9:11],
                                           cw, bw, heads, dt)
             plain = getattr(mkk, name + "_ref")
+            by_path = getattr(mkk, "LAUNCHES_BY_PATH", None)
+            if by_path is not None:
+                by_path.clear()
+            x1, c1 = xs[0].to(dt), [t.to(dt) for t in carries0]
+            first, second = kern(x1, c1), kern(x1, c1)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(flat_outs(first), flat_outs(second))):
+                raise AssertionError(f"{name} {label}: two calls of the kernel differ")
+            del first, second
             runs = []
             for fn in (lambda x, c: kern(x, c), lambda x, c: call(plain, x, c)):
                 c = [t.to(dt) for t in carries0]
@@ -1354,10 +1461,12 @@ def center_case(mkk, name, zoo_name, B, reps, dev):
             res["bf16_snr_db"] = min(snr)
             if min(snr) < 30.0:
                 raise AssertionError(f"{name} bf16: SNR (y, 11 carries) {snr} dB < 30")
+        if by_path is not None:
+            res.setdefault("paths", {})[label] = dict(by_path)
         del runs, got, want
-        x1, c1 = xs[0].to(dt), [t.to(dt) for t in carries0]
         with torch.no_grad():
             res[f"{label}_ms"] = cuda_ms(lambda: kern(x1, c1), reps)
+            res[f"{label}_split"] = center_split(lambda: kern(x1, c1))
             res[f"{label}_plain_ms"] = cuda_ms(lambda: call(plain, x1, c1), 2, 1)
         res[f"{label}_stock_ms"] = stock_center_ms(masker, x1.permute(2, 3, 0, 1), reps)
         res[f"{label}_bound"] = bound_ms(*center_work(name, F, K, B, chans, H, dt), dt)
@@ -1829,8 +1938,27 @@ class PlainCalls:
             setattr(mod, fn, orig)
 
 
+def engine_step_ms(engine, mode, options, x, n_slots, reps=10) -> list:
+    """The engine step alone at n_slots in bf16, host clock around a synced
+    step, NS_WARM untimed steps first: ms of each of `reps` steps."""
+    from puresound_tpu_torch.streaming.file_eval import engine_step_options
+
+    step_kw, init_kw = engine_step_options(engine, **mode)
+    state = engine.init_state(n_slots, torch.bfloat16, **init_kw)
+    step_ms = []
+    with torch.no_grad():
+        for k in range(NS_WARM + reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, state = engine.step(x, state, **step_kw, **options)
+            torch.cuda.synchronize()
+            if k >= NS_WARM:
+                step_ms.append(1e3 * (time.perf_counter() - t1))
+    return step_ms
+
+
 def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, card, phase,
-               options=None, by_option=None):
+               options=None, by_option=None, by_path=None):
     """make_session_server(half=True, **mode) for the full-width NS model at
     n_slots sessions: NS_WARM warm-up ticks, then NS_TICKS ticks with
     exact launches, every output finite, 0 underruns; slot 0 in bf16
@@ -1838,7 +1966,8 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
     tick p50/p99 and the engine step alone. `options` (int8_hh /
     xscr_half) are bound to the server's step function, with `by_option` =
     (module, key): that many launches must carry the option and no plain
-    version may run."""
+    version may run. `by_path` = (module, key, launches a tick): every launch
+    of the module must take that path (its LAUNCHES_BY_PATH)."""
     from puresound_tpu_torch.streaming.deploy import make_session_server
     from puresound_tpu_torch.streaming.file_eval import engine_step_options
     from puresound_tpu_torch.streaming.server import ServeStats
@@ -1862,6 +1991,8 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
                 zero_counters(counters)
                 if by_option:
                     by_option[0].LAUNCHES_BY_OPTION.clear()
+                if by_path:
+                    by_path[0].LAUNCHES_BY_PATH.clear()
                 plain.calls = 0
             for i, sid in enumerate(sids):
                 server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
@@ -1881,23 +2012,18 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
     if by_option:
         expect_launches(dict(by_option[0].LAUNCHES_BY_OPTION), {by_option[1]: NS_TICKS},
                         f"{zoo_name} serving {n_slots} slots, launches by option")
+    paths = dict(by_path[0].LAUNCHES_BY_PATH) if by_path else None
+    if by_path:
+        expect_launches(paths, {by_path[1]: by_path[2] * NS_TICKS},
+                        f"{zoo_name} serving {n_slots} slots, launches by path")
     stats = server.stats.snapshot()
     if stats["underrun_slot_ticks"] != 0:
         raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
     # the engine step alone, host clock around a synced step
-    engine = bundle.engine
-    step_kw, init_kw = engine_step_options(engine, **mode)
-    x = torch.from_numpy(feed[:, :chunk]).to(dev, torch.bfloat16)
-    state = engine.init_state(n_slots, torch.bfloat16, **init_kw)
-    step_ms = []
+    step_ms = engine_step_ms(bundle.engine, mode, options,
+                             torch.from_numpy(feed[:, :chunk]).to(dev, torch.bfloat16), n_slots)
+    step_kw, init_kw = engine_step_options(bundle.engine, **mode)
     with torch.no_grad():
-        for k in range(NS_WARM + 10):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            _, state = engine.step(x, state, **step_kw, **options)
-            torch.cuda.synchronize()
-            if k >= NS_WARM:
-                step_ms.append(1e3 * (time.perf_counter() - t1))
         st = ns["engine"].init_state(1, **init_kw)
         ref = []
         for k in range(n_ticks):
@@ -1913,7 +2039,9 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
         opts += "; its step_fn bound to " + ", ".join(f"{k}=True" for k in options)
     log(phase, f"{zoo_name}, make_session_server(half=True, {opts}), {n_slots} sessions, "
         f"{NS_TICKS} ticks of {chunk} samples after {NS_WARM} warm-up: every output "
-        f"finite, launches ({names}) {launches}, 0 underruns; tick p50 "
+        f"finite, launches ({names}) {launches}"
+        + (f", every {by_path[0].__name__.rsplit('.', 1)[-1]} launch on path "
+           f"{by_path[1]!r} ({paths})" if by_path else "") + ", 0 underruns; tick p50 "
         f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; engine step "
         f"alone p50 {float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); bf16 slot 0 "
         f"vs the f32 engine SNR {half_snr:.1f} dB (bar {bar_db:g}); plain-version calls "
@@ -2801,17 +2929,36 @@ def run(dev: torch.device) -> int:
                          for k, r, st, ld in _build.ptxas_report(name))
         log("1 build", f"{name}.cu built in {_build.build_seconds[name]:.1f} s "
             f"(nvcc, sm_90a); ptxas: {regs}", t)
-    # the LSTM training kernels: bf16 products on tensor cores, f32 on CUDA cores
-    hmma = hmma_counts(_build.BUILD_DIR, "lstm_train")
-    if hmma:
-        bad = [k for k, n in hmma.items() if ("<bf16>" in k) != (n > 0)
-               and "reduce" not in k]
-        log("1 build", "lstm_train.cu HMMA (tensor-core) instructions by kernel (cuobjdump "
-            "-sass): " + "; ".join(f"{k} {n}" for k, n in sorted(hmma.items())), t)
+    # tensor cores where bf16 wants them (the LSTM training kernels: mma.sync;
+    # the bf16 attention route and the wide center's resident convs: wgmma)
+    # and none in any kernel with float32 dots
+    for lib, want in (("lstm_train", lambda k: "<bf16>" in k and "reduce" not in k),
+                      ("dparn_attention", None), ("masker", None)):
+        hmma = hmma_counts(_build.BUILD_DIR, lib)
+        if not hmma:
+            log("1 build", f"cuobjdump not found: {lib} HMMA / HGMMA not read", t)
+            continue
+        log("1 build", f"{lib}.cu tensor-core instructions by kernel, HMMA (mma.sync) / "
+            "HGMMA (wgmma) (cuobjdump -sass): " + "; ".join(
+                f"{k} {a}/{b}" for k, (a, b) in sorted(hmma.items())), t)
+        if want is not None:
+            bad = [k for k, (a, b) in hmma.items() if want(k) != (a + b > 0)]
+        elif lib == "dparn_attention":
+            # wgmma in the bf16 route and tensor cores nowhere else
+            bad = [k for k, (a, b) in hmma.items()
+                   if (a + b > 0) != (k == "dparn_wgmma::attn_kernel")]
+            if not hmma.get("dparn_wgmma::attn_kernel", (0, 0))[1]:
+                bad.append("no HGMMA in the wgmma route")
+        else:
+            # float32 dots: the dtype-templated kernels without <db>
+            bad = [k for k, (a, b) in hmma.items()
+                   if ("<f32>" in k or "<bf16>" in k) and "<db>" not in k and a + b]
+            convs = [b for k, (a, b) in hmma.items() if "conv_tc_kernel" in k]
+            if not convs or not all(convs):
+                bad.append(f"HGMMA in the conv_tc_kernels: {convs}")
         if bad:
-            raise AssertionError(f"tensor cores where bf16 wants them and f32 does not: {bad}")
-    else:
-        log("1 build", "cuobjdump not found: HMMA count not read", t)
+            raise AssertionError(f"{lib}: tensor cores where they should not be, or "
+                                 f"none where they should: {bad}")
 
     # --------------------------------------------------- 2. kernel vs plain
     gen = torch.Generator().manual_seed(SEED)
@@ -2947,23 +3094,31 @@ def run(dev: torch.device) -> int:
         t = time.perf_counter()
         r = attn_case(dak, name, R, F, C, heads, FFD, reps, gen, dev)
         attn_results[name] = r
-        log("2f dparn_intra_pass", f"{r['shape']}: f32 max|d|/max|ref| {r['f32_rel']:.2e} "
+        log("2f dparn_intra_pass", f"{r['shape']}: two calls bit-equal; launches by path "
+            f"{r['paths']}; f32 max|d|/max|ref| {r['f32_rel']:.2e} "
             f"(bar 1e-4), bf16 SNR {r['bf16_snr_db']:.1f} dB (bar 30); " + "; ".join(
                 f"{lb} ms kernel {r[f'{lb}_ms']:.3f}, plain {r[f'{lb}_plain_ms']:.3f}, "
                 f"stock nn.TransformerEncoder x2 + Linear + LayerNorm "
                 f"{r[f'{lb}_stock_ms']:.3f}, bound {r[f'{lb}_bound'][0]:.3f} "
                 f"({r[f'{lb}_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
+    # both routes of the kernel were held against the plain version under bf16
+    routes = {p for r in attn_results.values() for p in r["paths"].get("bf16", {})}
+    if routes != set(dak.PATHS):
+        raise AssertionError(f"2f ran the bf16 routes {sorted(routes)}, not {dak.PATHS}")
 
     # --------------------------------------------- 2g. the wide-center masker
     center_results = {}
-    for name, zoo_name, B, reps in CENTER_CASES:
+    for name, zoo_name, B, reps in CENTER_CASES + [CENTER_RAGGED]:
         t = time.perf_counter()
         r = center_case(mkk, name, zoo_name, B, reps, dev)
-        center_results[name] = r
-        log("2g center", f"{name}, {r['shape']}, {DP_CHUNKS} carried chunks: f32 "
+        if (name, zoo_name, B, reps) != CENTER_RAGGED:
+            center_results[name] = r
+        log("2g center", f"{name}, {r['shape']}, {DP_CHUNKS} carried chunks: two calls "
+            f"bit-equal; launches by path {r['paths']}; f32 "
             f"max|d|/max|ref| (y, 11 carries) {r['f32_rel']:.2e} (bar 1e-4), bf16 SNR "
             f"{r['bf16_snr_db']:.1f} dB (bar 30); " + "; ".join(
-                f"{lb} ms per chunk kernel {r[f'{lb}_ms']:.3f}, plain "
+                f"{lb} ms per chunk kernel {r[f'{lb}_ms']:.3f} (device ms by pass, profiler: "
+                f"{split_line(r[f'{lb}_split'])}), plain "
                 f"{r[f'{lb}_plain_ms']:.3f}, the port's cuDNN convs + bottleneck kernels "
                 f"{r[f'{lb}_stock_ms']:.3f}, bound {r[f'{lb}_bound'][0]:.3f} "
                 f"({r[f'{lb}_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
@@ -3142,13 +3297,15 @@ def run(dev: torch.device) -> int:
         dev, card, "3c dparn")
     dparn_serve = {n: ns_serving(dparn, "ns_dparn_v0_causal",
                                  {"fused": True, "attn_kernel": True}, counters,
-                                 (0, 2, 2, 0), 25.0, n, dev, card, "4c dparn serving")
+                                 (0, 2, 2, 0), 25.0, n, dev, card, "4c dparn serving",
+                                 by_path=(dak, "wgmma", 2))
                    for n in DPARN_SLOTS}
     dparn_routes = dparn["routes"]
     # -------------------------- 4h. DPARN wide-center serving with xscr_half
     dparn_q = ns_serving(dparn, "ns_dparn_v0_causal", {"mk_kernel": True}, counters,
                          (0, 0, 0, 1), 25.0, DPARN_SLOTS[-1], dev, card, "4h dparn xscr_half",
-                         options={"xscr_half": True}, by_option=(mkk, "xscr_half"))
+                         options={"xscr_half": True}, by_option=(mkk, "xscr_half"),
+                         by_path=(mkk, "attn=wgmma,conv=resident", 1))
     del dparn
 
     # ----------------------------------------------- 5. card vs CPU step

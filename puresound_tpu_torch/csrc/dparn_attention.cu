@@ -16,23 +16,37 @@
 // GB of x and y in float32: operations bound it, 1.9 ms at the 67 TFLOP/s of
 // float32 without tensor cores.
 //
-// What this design does about it. A TPU tile keeps r_tile rows in VMEM; here
-// one CTA takes one row and keeps it, Q, K, V, a temporary and the logits in
-// about 190 KB of shared memory, so none of the ~30 stock ops' intermediates
-// leaves the SM; the 128 x 128 weights stream through in cp.async tiles
-// (dparn_attention.cuh). Under bfloat16 dots (serving) the products and the
-// attention run as mma.sync tiles on the tensor cores; float32 dots stay on
-// CUDA cores. wgmma, TMA and more than one row per SM are later work.
+// What this design does about it. A TPU tile keeps r_tile rows in VMEM;
+// here nothing of a row's ~30 stock ops' intermediates leaves the SM. Under
+// bf16 weights and dots at the model's geometry (F = 64, C = FFD = 128, 8
+// heads: the serving path) a persistent CTA runs two rows at once on wgmma,
+// one per consumer warpgroup, with the weights streamed once per row pair by
+// the bulk copy engine through an mbarrier ring (dparn_wgmma.cuh): the bound
+// there is the bf16 tensor-core peak, 0.13 ms. Every other shape and dtype
+// keeps one CTA a row with the row, Q, K, V and the logits in float32 shared
+// memory and cp.async weight tiles on CUDA cores (dparn_attention.cuh;
+// float32 dots stay off the tensor cores: TF32 would change the numerics).
+// The launch plan comes from ops/dparn_attention_kernel.py `plan` and is
+// checked again here.
 #include "dparn_attention.cuh"
 
+// plan: path, rows a CTA, warpgroups, stages, KT, shared bytes, CTAs (`plan`
+// in the wrapper); strides: each weight's (in, out) strides in elements;
+// packed: 13 x 128 x 128 bf16 scratch for the wgmma path
 extern "C" int dparn_intra_pass(const void* x, const void* pe, const void* const* weights,
-                                void* y, int R, int F, int C, int FFD, int heads, int x_bf16,
-                                int pe_bf16, int w_bf16, int dot_bf16, void* stream) {
+                                const long* strides, void* y, int R, int F, int C, int FFD,
+                                int heads, int x_bf16, int pe_bf16, int w_bf16, int dot_bf16,
+                                const int* plan, void* packed, void* stream) {
   dparn_attn::AttnParams p{};
   p.x = x;
   p.pe = pe;
-  for (int i = 0; i < dparn_attn::NW; ++i) p.w[i] = weights[i];
+  for (int i = 0; i < dparn_attn::NW; ++i) {
+    p.w[i] = weights[i];
+    p.ws[i][0] = strides[2 * i];
+    p.ws[i][1] = strides[2 * i + 1];
+  }
   p.y = y;
+  p.packed = packed;
   p.sr = (long)F * C;
   p.sf = C;
   p.R = R;
@@ -45,9 +59,9 @@ extern "C" int dparn_intra_pass(const void* x, const void* pe, const void* const
   p.y_bf16 = x_bf16;
   p.residual = 0;
   return static_cast<int>(
-      dparn_attn::dispatch(p, w_bf16, dot_bf16, static_cast<cudaStream_t>(stream)));
+      dparn_attn::dispatch(p, plan, w_bf16, dot_bf16, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* dparn_attention_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return dparn_attn::error_string(err);
 }

@@ -1,7 +1,10 @@
-// DPARN's intra-frequency attention pass for one row per CTA, shared by
-// dparn_attention.cu (dparn_intra_pass) and masker.cu (the DPARN wide
-// center, where it reads and writes the [F, K*B, CH] activation in place
-// and adds its input back: `residual`).
+// DPARN's intra-frequency attention pass, shared by dparn_attention.cu
+// (dparn_intra_pass) and masker.cu (the DPARN wide center, where it reads
+// and writes the [F, K*B, CH] activation in place and adds its input back:
+// `residual`). `run` launches the route of the plan (`make_plan` below, the
+// wrapper's `plan` computed again): the model's geometry under bf16 weights
+// and dots runs dparn_wgmma.cuh (two rows a CTA on wgmma); every other shape
+// and dtype runs the one-row kernel of this file:
 //
 // A row is F tokens of C channels. The CTA keeps it in shared memory in
 // float32, channel-major ([C][F + 4]: the 4 tokens a thread multiplies
@@ -10,22 +13,20 @@
 // (q, k, v, the out-projection, the two feed-forward layers, the FC): the
 // weights ([C, N], JAX's [in, out] layout) stream through shared memory in
 // tiles of KT rows copied with cp.async and double-buffered (lstm_gates.cuh);
-// with float32 dots each thread owns 4 tokens x 8 output channels on CUDA
-// cores, with bfloat16 dots and weights (serving) each warp runs mma.sync
-// m16n8k16 tiles on the tensor cores. Attention per head: the F x F logits
-// (/ sqrt(Dh)), a row softmax in float32 (max-subtracted; 4 threads a row,
-// shuffles), the probabilities times V, on CUDA cores (4 x 4 / 4 x 1 per
-// thread) or, under bfloat16 dots with Dh % 16 == 0, on the tensor cores;
-// its output overwrites that head's Q, which nothing reads again. LayerNorms are
-// two-pass over C, eps 1e-5, 4 threads a row. Every product operand is
-// rounded to the dot dtype (DB: bfloat16) where it is written -- q, k, v,
-// the probabilities, the attention output, the feed-forward hidden layer
-// -- or copied rounded when it is also a residual (x); sums, the softmax
-// and the norms stay float32. Weights are all float32 or all bfloat16.
+// each thread owns 4 tokens x 8 output channels on CUDA cores. Attention per
+// head: the F x F logits (/ sqrt(Dh)), a row softmax in float32
+// (max-subtracted; 4 threads a row, shuffles), the probabilities times V
+// (4 x 4 / 4 x 1 per thread); its output overwrites that head's Q, which
+// nothing reads again. LayerNorms are two-pass over C, eps 1e-5, 4 threads a
+// row. Every product operand is rounded to the dot dtype (DB: bfloat16)
+// where it is written -- q, k, v, the probabilities, the attention output,
+// the feed-forward hidden layer -- or copied rounded when it is also a
+// residual (x); sums, the softmax and the norms stay float32. Weights are all float32 or all bfloat16.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "dparn_wgmma.cuh"
 #include "lstm_gates.cuh"
 
 namespace dparn_attn {
@@ -39,8 +40,10 @@ constexpr float EPS = 1e-5f;
 struct AttnParams {
   const void* x;       // element (r, f, c) at r * sr + f * sf + c
   const void* pe;      // [F, C], added to layer 1's attention input
-  const void* w[NW];   // JAX's flat order, products [in, out]
+  const void* w[NW];   // JAX's flat order, products [in, out] (contiguous off the wgmma path)
+  long ws[NW][2];      // their strides (in, out) in elements (the wgmma path's pack reads them)
   void* y;             // the same strides as x (may be x)
+  void* packed;        // the wgmma path's repacked weights (dparn_wgmma::pack_kernel)
   long sr, sf;
   int R, F, C, FFD, heads, KT;
   int x_bf16, pe_bf16, y_bf16, residual;  // residual: y = x + pass(x)
@@ -137,121 +140,6 @@ __device__ void block_gemm(const float* A, int ld, int M, int K, const WT* W, in
       }
     }
   }
-  __syncthreads();
-}
-
-// ----------------------------------------------- tensor-core products (bf16)
-// Under bfloat16 dots every operand above is already a bfloat16 value, so
-// mma.sync m16n8k16 (bf16 x bf16, float32 sums) computes the same products
-// as the CUDA-core loop. Warp w owns m-tile w / wpm (16 tokens) and the
-// n-tiles (8 channels) sub, sub + wpm, ... (sub = w % wpm, wpm = 8 / (M / 16)),
-// so its A fragment serves all its tiles.
-constexpr int MAX_TILES = 8;
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B operand layouts: a staged bf16 weight tile [k][ldb], a float32 [k][ldb]
-// buffer, or a float32 [n][ldb] buffer
-enum BLayout { B_W16_KN, B_F32_KN, B_F32_NK };
-
-template <int BL>
-__device__ __forceinline__ unsigned frag_b(const void* S, int ldb, int k, int n) {
-  if (BL == B_W16_KN) {
-    const unsigned short* w = static_cast<const unsigned short*>(S);
-    return (unsigned)w[(long)k * ldb + n] | ((unsigned)w[(long)(k + 1) * ldb + n] << 16);
-  }
-  const float* f = static_cast<const float*>(S);
-  if (BL == B_F32_KN) return pack_bf16(f[(long)k * ldb + n], f[(long)(k + 1) * ldb + n]);
-  const float2 v = *reinterpret_cast<const float2*>(f + (long)n * ldb + k);
-  return pack_bf16(v.x, v.y);
-}
-
-// acc[j] += A[m-tile][k0 .. k0 + 16 ksteps) . B[.., n-tile j], A[m][k] = A_s[k][m]
-template <int BL>
-__device__ __forceinline__ void mma_steps(float (&acc)[MAX_TILES][4], const float* A, int lda,
-                                          int m0, int k0, int ksteps, const void* Bs, int ldb,
-                                          int bk0, int sub, int wpm, int NT) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    const float* p = A + (long)(k0 + 16 * ks + 2 * t) * lda + m0 + g;
-    const unsigned a[4] = {pack_bf16(p[0], p[lda]), pack_bf16(p[8], p[lda + 8]),
-                           pack_bf16(p[8 * lda], p[9 * lda]),
-                           pack_bf16(p[8 * lda + 8], p[9 * lda + 8])};
-    const int kb = bk0 + 16 * ks + 2 * t;
-#pragma unroll
-    for (int j = 0; j < MAX_TILES; ++j) {
-      const int n = (sub + j * wpm) * 8 + g;
-      if (sub + j * wpm < NT)
-        mma_bf16(acc[j], a, frag_b<BL>(Bs, ldb, kb, n), frag_b<BL>(Bs, ldb, kb + 8, n));
-    }
-  }
-}
-
-// out[n][m] = act(acc / div + bias[n]) for the warp's tiles
-template <typename WT, bool DB>
-__device__ __forceinline__ void store_tiles(const float (&acc)[MAX_TILES][4], float* out,
-                                            int ld, int m0, int sub, int wpm, int NT,
-                                            const WT* bias, bool relu, bool round_out,
-                                            float div) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < MAX_TILES; ++j) {
-    if (sub + j * wpm >= NT) continue;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int n = (sub + j * wpm) * 8 + 2 * t + (e & 1), m = m0 + g + 8 * (e >> 1);
-      float v = acc[j][e] / div + (bias ? ldw(bias, n) : 0.f);
-      if (relu) v = fmaxf(v, 0.f);
-      if (round_out) v = rnd<DB>(v);
-      out[(long)n * ld + m] = v;
-    }
-  }
-}
-
-// whether the tensor-core path takes an M-token product
-__device__ __forceinline__ bool mma_rows(int M) {
-  return M % 16 == 0 && M <= 128 && 8 % (M / 16) == 0;
-}
-
-// block_gemm on tensor cores (bf16 weights, bf16 dots; M, K % 16 == 0)
-__device__ void block_gemm_mma(const float* A, int ld, int M, int K,
-                               const __nv_bfloat16* W, int N, __nv_bfloat16* w_s, int KT,
-                               float* out, const __nv_bfloat16* bias, bool relu,
-                               bool round_out) {
-  const int MT = M / 16, wpm = (blockDim.x / 32) / MT, w = threadIdx.x / 32;
-  const int m0 = (w / wpm) * 16, sub = w % wpm, NT = N / 8;
-  const int ntiles = (K + KT - 1) / KT;
-  float acc[MAX_TILES][4] = {};
-  stage_rows(w_s, W, 0, K < KT ? K : KT, N);
-  cp_async_commit();
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * KT, rows = K - k0 < KT ? K - k0 : KT;
-    if (t + 1 < ntiles) {
-      const int k1 = k0 + KT;
-      stage_rows(w_s + ((t + 1) & 1) * KT * N, W, k1, K - k1 < KT ? K - k1 : KT, N);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    mma_steps<B_W16_KN>(acc, A, ld, m0, k0, rows / 16, w_s + (t & 1) * KT * N, N, 0, sub, wpm,
-                        NT);
-    __syncthreads();
-  }
-  store_tiles<__nv_bfloat16, true>(acc, out, ld, m0, sub, wpm, NT, bias, relu, round_out, 1.f);
   __syncthreads();
 }
 
@@ -369,51 +257,10 @@ __device__ void attention(float* Q, const float* Kb, const float* V, float* L, i
   }
 }
 
-// the same attention on tensor cores (bf16 dots, F % 16 == 0, Dh % 16 == 0):
-// the logits are A = q_h^T [F x Dh] times B = k_h [Dh x F], the output A =
-// the probabilities [F x F] times B = v_h [F x Dh]
-__device__ void attention_mma(float* Q, const float* Kb, const float* V, float* L, int F,
-                              int C, int heads, int ld) {
-  const int Dh = C / heads, wpm = (blockDim.x / 32) / (F / 16), w = threadIdx.x / 32;
-  const int m0 = (w / wpm) * 16, sub = w % wpm;
-  const float scale = sqrtf((float)Dh);
-  const __nv_bfloat16* none = nullptr;
-  for (int h = 0; h < heads; ++h) {
-    float* q = Q + (long)h * Dh * ld;
-    const float* k = Kb + (long)h * Dh * ld;
-    const float* v = V + (long)h * Dh * ld;
-    float acc[MAX_TILES][4] = {};
-    mma_steps<B_F32_KN>(acc, q, ld, m0, 0, Dh / 16, k, ld, 0, sub, wpm, F / 8);
-    store_tiles<__nv_bfloat16, true>(acc, L, ld, m0, sub, wpm, F / 8, none, false, false,
-                                     scale);
-    __syncthreads();
-    softmax_rows<true>(L, F, ld);
-    float o[MAX_TILES][4] = {};
-    mma_steps<B_F32_NK>(o, L, ld, m0, 0, F / 16, v, ld, 0, sub, wpm, Dh / 8);
-    store_tiles<__nv_bfloat16, true>(o, q, ld, m0, sub, wpm, Dh / 8, none, false, true, 1.f);
-    __syncthreads();
-  }
-}
-
 // shared-memory floats of the activation buffers (the weight tiles follow)
 inline size_t act_floats(int F, int C, int FFD) {
   const int ld = F + 4, CM = C > FFD ? C : FFD;
   return (size_t)(4 * C + CM + F) * ld;
-}
-
-// the product on tensor cores when the dots and weights are bfloat16 and the
-// shape fits, else on CUDA cores
-template <typename WT, bool DB>
-__device__ __forceinline__ void gemm(const float* A, int ld, int M, int K, const WT* W, int N,
-                                     WT* w_s, int KT, float* out, const WT* bias, bool relu,
-                                     bool round_out) {
-  if constexpr (DB && std::is_same<WT, __nv_bfloat16>::value) {
-    if (mma_rows(M) && K % 16 == 0 && KT % 16 == 0) {
-      block_gemm_mma(A, ld, M, K, W, N, w_s, KT, out, bias, relu, round_out);
-      return;
-    }
-  }
-  block_gemm<WT, DB>(A, ld, M, K, W, N, w_s, KT, out, bias, relu, round_out);
 }
 
 template <typename WT, bool DB>
@@ -447,14 +294,11 @@ __global__ void __launch_bounds__(THREADS) dparn_attn_kernel(AttnParams p) {
       __syncthreads();
       A = T;
     }
-    gemm<WT, DB>(A, lda, F, C, wt(w0), C, w_s, p.KT, Q, nullptr, false, true);
-    gemm<WT, DB>(A, lda, F, C, wt(w0 + 1), C, w_s, p.KT, Kb, nullptr, false, true);
-    gemm<WT, DB>(A, lda, F, C, wt(w0 + 2), C, w_s, p.KT, V, nullptr, false, true);
-    if (DB && mma_rows(F) && (C / p.heads) % 16 == 0)
-      attention_mma(Q, Kb, V, L, F, C, p.heads, lda);
-    else
-      attention<DB>(Q, Kb, V, L, F, C, p.heads, lda);
-    gemm<WT, DB>(Q, lda, F, C, wt(w0 + 3), C, w_s, p.KT, T, nullptr, false, false);
+    block_gemm<WT, DB>(A, lda, F, C, wt(w0), C, w_s, p.KT, Q, nullptr, false, true);
+    block_gemm<WT, DB>(A, lda, F, C, wt(w0 + 1), C, w_s, p.KT, Kb, nullptr, false, true);
+    block_gemm<WT, DB>(A, lda, F, C, wt(w0 + 2), C, w_s, p.KT, V, nullptr, false, true);
+    attention<DB>(Q, Kb, V, L, F, C, p.heads, lda);
+    block_gemm<WT, DB>(Q, lda, F, C, wt(w0 + 3), C, w_s, p.KT, T, nullptr, false, false);
     layer_norm<WT>(X, X, T, F, C, lda, wt(w0 + 4), wt(w0 + 5));
     A = X;
     if (DB) {
@@ -463,8 +307,8 @@ __global__ void __launch_bounds__(THREADS) dparn_attn_kernel(AttnParams p) {
       __syncthreads();
       A = Kb;
     }
-    gemm<WT, DB>(A, lda, F, C, wt(w0 + 6), FFD, w_s, p.KT, T, wt(w0 + 7), true, true);
-    gemm<WT, DB>(T, lda, F, FFD, wt(w0 + 8), C, w_s, p.KT, Q, wt(w0 + 9), false, false);
+    block_gemm<WT, DB>(A, lda, F, C, wt(w0 + 6), FFD, w_s, p.KT, T, wt(w0 + 7), true, true);
+    block_gemm<WT, DB>(T, lda, F, FFD, wt(w0 + 8), C, w_s, p.KT, Q, wt(w0 + 9), false, false);
     layer_norm<WT>(X, X, Q, F, C, lda, wt(w0 + 10), wt(w0 + 11));
   }
   const float* A = X;
@@ -474,7 +318,7 @@ __global__ void __launch_bounds__(THREADS) dparn_attn_kernel(AttnParams p) {
     __syncthreads();
     A = Kb;
   }
-  gemm<WT, DB>(A, lda, F, C, wt(24), C, w_s, p.KT, Q, wt(25), false, false);
+  block_gemm<WT, DB>(A, lda, F, C, wt(24), C, w_s, p.KT, Q, wt(25), false, false);
   layer_norm<WT>(Q, Q, nullptr, F, C, lda, wt(26), wt(27));
   for (int i = threadIdx.x; i < F * C; i += blockDim.x) {
     const int f = i / C, c = i % C;
@@ -484,31 +328,96 @@ __global__ void __launch_bounds__(THREADS) dparn_attn_kernel(AttnParams p) {
   }
 }
 
-// launch one CTA per row; picks the weight tile rows that fit shared memory
-template <typename WT, bool DB>
-cudaError_t run(AttnParams p, cudaStream_t stream) {
-  const int CM = p.C > p.FFD ? p.C : p.FFD;
-  const size_t act = sizeof(float) * act_floats(p.F, p.C, p.FFD);
-  int dev = 0, cap = 227 * 1024;
-  if (cudaGetDevice(&dev) == cudaSuccess)
+// ------------------------------------------------------------------ plans
+// The launch plan, computed by ops/dparn_attention_kernel.py `plan` and
+// again here: `run` refuses a plan that differs (PLAN_MISMATCH). Path 1
+// (wgmma, dparn_wgmma.cuh) takes the model's geometry under bf16 weights and
+// dots; every other shape and dtype keeps the kernel above (path 0), one
+// row a CTA on CUDA cores.
+enum Path { PATH_CUDA_CORES = 0, PATH_WGMMA = 1 };
+constexpr int PLAN_FIELDS = 7;   // path, rows a CTA, warpgroups, stages, KT, smem, CTAs
+constexpr int PLAN_MISMATCH = 10000;
+
+inline bool wgmma_geometry(const AttnParams& p, bool w_bf16, bool dot_bf16) {
+  return w_bf16 && dot_bf16 && p.F == dparn_wgmma::F && p.C == dparn_wgmma::C &&
+         p.FFD == dparn_wgmma::C && p.heads == dparn_wgmma::HEADS;
+}
+
+inline cudaError_t make_plan(const AttnParams& p, bool w_bf16, bool dot_bf16,
+                             int (&plan)[PLAN_FIELDS]) {
+  int dev = 0, cap = 227 * 1024, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
     cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  p.KT = 64;   // 2 tiles a 128-row product in bf16, 4 in float32 (shared memory)
-  while (p.KT > 1 && act + sizeof(WT) * 2 * (size_t)p.KT * CM > (size_t)cap) p.KT /= 2;
-  const size_t smem = act + sizeof(WT) * 2 * (size_t)p.KT * CM;
-  if (smem > (size_t)cap) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(dparn_attn_kernel<WT, DB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (wgmma_geometry(p, w_bf16, dot_bf16)) {
+    const int v[PLAN_FIELDS] = {PATH_WGMMA, dparn_wgmma::NWG, dparn_wgmma::NWG,
+                                dparn_wgmma::STAGES, 0, (int)dparn_wgmma::SMEM,
+                                dparn_wgmma::ctas(p.R, sms)};
+    for (int i = 0; i < PLAN_FIELDS; ++i) plan[i] = v[i];
+    return (size_t)cap >= dparn_wgmma::SMEM ? cudaSuccess : cudaErrorInvalidConfiguration;
+  }
+  const int CM = p.C > p.FFD ? p.C : p.FFD;
+  const size_t act = sizeof(float) * act_floats(p.F, p.C, p.FFD), wsz = w_bf16 ? 2 : 4;
+  int KT = 64;   // 2 tiles a 128-row product in bf16, 4 in float32 (shared memory)
+  while (KT > 1 && act + wsz * 2 * (size_t)KT * CM > (size_t)cap) KT /= 2;
+  const size_t smem = act + wsz * 2 * (size_t)KT * CM;
+  const int v[PLAN_FIELDS] = {PATH_CUDA_CORES, 1, 0, 2, KT, (int)smem, p.R};
+  for (int i = 0; i < PLAN_FIELDS; ++i) plan[i] = v[i];
+  return smem <= (size_t)cap ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+// launch the planned kernel; `want` is the caller's plan
+template <typename WT, bool DB>
+cudaError_t run(AttnParams p, const int* want, cudaStream_t stream) {
+  constexpr bool WB = std::is_same<WT, __nv_bfloat16>::value;
+  int plan[PLAN_FIELDS];
+  cudaError_t err = make_plan(p, WB, DB, plan);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < PLAN_FIELDS; ++i)
+    if (plan[i] != want[i]) return static_cast<cudaError_t>(PLAN_MISMATCH);
+  if constexpr (WB && DB) {
+    if (plan[0] == PATH_WGMMA) {
+      dparn_wgmma::Params q{};
+      q.x = p.x;
+      q.pe = p.pe;
+      for (int i = 0; i < NW; ++i) {
+        q.w[i] = static_cast<const __nv_bfloat16*>(p.w[i]);
+        q.ws[i][0] = p.ws[i][0];
+        q.ws[i][1] = p.ws[i][1];
+      }
+      q.packed = static_cast<__nv_bfloat16*>(p.packed);
+      q.y = p.y;
+      q.sr = p.sr;
+      q.sf = p.sf;
+      q.R = p.R;
+      q.x_bf16 = p.x_bf16;
+      q.pe_bf16 = p.pe_bf16;
+      q.y_bf16 = p.y_bf16;
+      q.residual = p.residual;
+      return dparn_wgmma::run(q, plan[6], stream);
+    }
+  }
+  p.KT = plan[4];
+  const size_t smem = (size_t)plan[5];
+  err = cudaFuncSetAttribute(dparn_attn_kernel<WT, DB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dparn_attn_kernel<WT, DB><<<p.R, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-inline cudaError_t dispatch(const AttnParams& p, int w_bf16, int dot_bf16,
+inline cudaError_t dispatch(const AttnParams& p, const int* plan, int w_bf16, int dot_bf16,
                             cudaStream_t stream) {
   if (w_bf16)
-    return dot_bf16 ? run<__nv_bfloat16, true>(p, stream) : run<__nv_bfloat16, false>(p, stream);
-  return dot_bf16 ? run<float, true>(p, stream) : run<float, false>(p, stream);
+    return dot_bf16 ? run<__nv_bfloat16, true>(p, plan, stream)
+                    : run<__nv_bfloat16, false>(p, plan, stream);
+  return dot_bf16 ? run<float, true>(p, plan, stream) : run<float, false>(p, plan, stream);
+}
+
+inline const char* error_string(int err) {
+  return err == PLAN_MISMATCH ? "the launch plan differs from the source's own"
+                              : cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // namespace dparn_attn

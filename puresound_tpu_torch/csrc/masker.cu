@@ -25,19 +25,23 @@
 // What bounds it on the H100. At 2,048 streams (K = 2) the six convs are
 // about 106 GFLOP and DPCRN's dual path 464 (DPARN's attention and inter
 // blocks about 412): operations bound it, about 8.5 ms at the 67 TFLOP/s of
-// float32 without tensor cores.
+// float32 without tensor cores, 0.58 ms at the 989 TFLOP/s of bf16.
 //
 // What this design does about it. A TPU tile keeps the whole [F, K*bt + bt,
 // C] stage stack of a stream tile in 100 MB of VMEM; an SM cannot hold a
 // stream's. So the call is a sequence of passes with scratch in device
-// memory, all launched by this one C call: per conv layer one kernel whose
-// CTA owns TM output rows (TM x C_out <= 8,192 outputs) and walks its 6 (or
-// 12, with the skip) taps, staging the gathered input rows [C_in][TM] and
-// the tap's weights [C_in][C_out] in shared memory, then 4 x 8 outputs per
-// thread on CUDA cores or, under bfloat16 dots and weights, mma.sync tiles on
-// the tensor cores; a small copy kernel per carry; the bottleneck's passes
-// as they are. Keeping the stages on chip across layers, and tensor cores
-// in the dual-path passes, are later work.
+// memory, all launched by this one C call. Under bfloat16 dots and weights
+// (serving) each conv is an implicit GEMM on wgmma in persistent CTAs that
+// keep the layer's weights resident in shared memory and gather each tap's
+// input rows with cp.async a ring of buffers ahead (conv_tc_kernel below);
+// the DPARN bottleneck's attention passes run dparn_attention.cuh's wgmma
+// route. Under float32 dots (or weights) a CTA owns TM output rows (TM x
+// C_out <= 8,192) and walks its 6 (or 12, with the skip) taps, staging the
+// input rows [C_in][TM] and the tap's weights [C_in][C_out] in shared memory,
+// 4 x 8 outputs a thread on CUDA cores. A small copy kernel per carry; the
+// dual-path and inter passes as they are. The routes come from the plans of
+// ops/masker_kernel.py (`conv_plan`) and ops/dparn_attention_kernel.py
+// (`plan`), checked again here before any launch.
 //
 // int8_hh (DPCRN): the dual-path passes' int8 recurrent products (see
 // dual_path.cu). xscr_half: the bottleneck activation is a bfloat16 buffer;
@@ -45,6 +49,7 @@
 // every residual write rounds, and u0 reads it, its carry rounded likewise.
 #include "dparn_attention.cuh"
 #include "dual_path_passes.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -66,7 +71,7 @@ struct ConvParams {
   int h_bf16, hc_bf16, s_bf16, sc_bf16, out_bf16, round_out, tconv;
   int hc_round;         // round the h carry to bfloat16 (it enters xscr_half's scratch)
   int F, K, B, Ch, Cs, Co, TM;
-  int mma;              // the products on tensor cores (bf16 dots and weights)
+  const __nv_bfloat16* wpack;   // resident path: conv_pack_kernel's image of the layer
 };
 
 // 4 consecutive channels of a float32 or bfloat16 tensor (i % 4 == 0)
@@ -149,50 +154,6 @@ __device__ void stage_tap(float* W, const WT* w, int n) {
   }
 }
 
-// The conv on tensor cores: the gathered rows and the tap's weights are
-// bfloat16 values, so mma.sync m16n8k16 tiles (float32 sums) compute the
-// CUDA-core loop's products. Warp w owns m-tile w / wpm and the n-tiles sub,
-// sub + wpm, ... as in dparn_attention.cuh; then bias, PReLU, the rounding
-// and the store.
-__device__ void conv_mma(const ConvParams& p, float* A, int lda, float* W, long row0) {
-  using namespace dparn_attn;
-  const int TM = p.TM, Co = p.Co, wpm = (blockDim.x / 32) / (TM / 16), w = threadIdx.x / 32;
-  const int m0 = (w / wpm) * 16, sub = w % wpm, NT = Co / 8;
-  float acc[MAX_TILES][4] = {};
-  for (int part = 0; part < (p.s ? 2 : 1); ++part) {
-    const int C = part ? p.Cs : p.Ch;
-    const __nv_bfloat16* const* ws =
-        reinterpret_cast<const __nv_bfloat16* const*>(part ? p.ws : p.wh);
-    for (int g = 0; g < NCONV; ++g) {
-      gather<true>(A, lda, part ? p.s : p.h, part ? p.s_bf16 : p.h_bf16, part ? p.sc : p.hc,
-                   part ? p.sc_bf16 : p.hc_bf16, C, g / 3, g % 3, row0, p.F, p.K, p.B, TM,
-                   p.tconv);
-      stage_tap<__nv_bfloat16, true>(W, ws[g], C * Co);
-      __syncthreads();
-      mma_steps<B_F32_KN>(acc, A, lda, m0, 0, C / 16, W, Co, 0, sub, wpm, NT);
-      __syncthreads();
-    }
-  }
-  const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.bias);
-  const float alpha = __bfloat162float(*static_cast<const __nv_bfloat16*>(p.alpha));
-  const long NR = (long)p.F * p.K * p.B;
-  const int lane = threadIdx.x & 31, gi = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < MAX_TILES; ++j) {
-    if (sub + j * wpm >= NT) continue;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int n = (sub + j * wpm) * 8 + 2 * t + (e & 1);
-      const long row = row0 + m0 + gi + 8 * (e >> 1);
-      if (row >= NR) continue;
-      float v = acc[j][e] + __bfloat162float(bias[n]);
-      v = v >= 0.f ? v : alpha * v;
-      if (p.round_out) v = rnd<true>(v);
-      st(p.out, row * Co + n, v, p.out_bf16);
-    }
-  }
-}
-
 template <typename WT, bool DB>
 __global__ void __launch_bounds__(THREADS) conv_kernel(ConvParams p) {
   extern __shared__ __align__(16) float smem[];
@@ -201,12 +162,6 @@ __global__ void __launch_bounds__(THREADS) conv_kernel(ConvParams p) {
   float* A = smem;                 // [Cmax][lda]
   float* W = A + Cmax * lda;       // [Cmax][Co]
   const long row0 = (long)blockIdx.x * TM;
-  if constexpr (DB && std::is_same<WT, __nv_bfloat16>::value) {
-    if (p.mma) {
-      conv_mma(p, A, lda, W, row0);
-      return;
-    }
-  }
   const int mt = threadIdx.x, m0 = (mt / ng) * 4, n0 = (mt % ng) * 8;
   float acc[4][8];
 #pragma unroll
@@ -257,6 +212,236 @@ __global__ void __launch_bounds__(THREADS) conv_kernel(ConvParams p) {
   }
 }
 
+
+// ---------------------------------------------- the convs on tensor cores
+// Under bf16 dots and weights a conv is an implicit GEMM [rows x (taps C_in)]
+// . [(taps C_in) x C_out] on wgmma (float32 sums). A persistent CTA of two
+// warpgroups stages its share of the layer's weights once: N = C_out /
+// co_split output channels of every tap, K-major and swizzled (hopper.cuh
+// `swz`), copied with cp.async from the image `conv_pack_kernel` makes per
+// call from the weights' own strides. It then walks row tiles of TM rows:
+// per tap (and part) it gathers the tile's input rows as bf16 into a ring of
+// NS (3, or 2) swizzled [TM][C_in] buffers with cp.async (float32 inputs are
+// loaded, rounded and stored), NS - 1 taps ahead of the products, starting
+// the next gather while this tap's wgmma runs; each warpgroup multiplies 64 rows by
+// the tap's [C_in x N] weights (m64nNk16 over C_in / 16 slices, both operands
+// from shared memory), or with 64-row tiles the tile by half the columns.
+// Where the weights do not fit beside a ring of 128-row tiles, the tiles
+// shrink to 64 rows, then co_split CTAs share a row tile. The epilogue runs
+// in registers: bias, PReLU, the rounding (round_out), the store (bf16 or
+// float32 pairs).
+constexpr int TC_TM = 128;   // rows a tile, halved where the weights leave no room
+
+// an output row's position (fo, k, b), found once per tile
+struct RowPos {
+  int fo, k, b, ok;
+};
+
+__device__ __forceinline__ RowPos row_pos(const ConvParams& p, int row) {
+  const int KB = p.K * p.B;   // rows < 2^31 (the wrapper checks)
+  const int fo = row / KB, kb = row - fo * KB, k = kb / p.B;
+  return {fo, k, kb - k * p.B, row < p.F * KB};
+}
+
+// where the input of tap (t, df) for output row `rp` lives: its tensor
+// (null: a zero row outside [0, F)), bf16 flag and element offset
+struct TapSrc {
+  const void* src;
+  int bf;
+  long off;
+};
+
+__device__ __forceinline__ TapSrc tap_src(const ConvParams& p, int part, int t, int df,
+                                          const RowPos& rp) {
+  const int C = part ? p.Cs : p.Ch;
+  const int fi = p.tconv ? rp.fo + 1 - df : rp.fo - 1 + df, kf = rp.k - 1 + t;
+  if (!rp.ok || fi < 0 || fi >= p.F) return {nullptr, 0, 0};
+  if (kf < 0)
+    return {part ? p.sc : p.hc, part ? p.sc_bf16 : p.hc_bf16, ((long)fi * p.B + rp.b) * C};
+  return {part ? p.s : p.h, part ? p.s_bf16 : p.h_bf16,
+          (((long)fi * p.K + kf) * p.B + rp.b) * C};
+}
+
+// channels 8 c8 .. 8 c8 + 7 of a gathered row into shared memory: cp.async
+// from bf16, a rounded copy from float32, zeros for a zero row
+__device__ __forceinline__ void gather_chunk(uint32_t d, const TapSrc& s, long off, int c8) {
+  if (s.src == nullptr) {
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(d), "r"(0) : "memory");
+  } else if (s.bf) {
+    hopper::cp_async16(d, static_cast<const __nv_bfloat16*>(s.src) + off + 8 * c8);
+  } else {
+    const float4* q = reinterpret_cast<const float4*>(static_cast<const float*>(s.src) + off +
+                                                      8 * c8);
+    const float4 lo = q[0], hi = q[1];
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(d),
+                 "r"(hopper::bf16x2(lo.x, lo.y)), "r"(hopper::bf16x2(lo.z, lo.w)),
+                 "r"(hopper::bf16x2(hi.x, hi.y)), "r"(hopper::bf16x2(hi.z, hi.w))
+                 : "memory");
+  }
+}
+
+// the input of tap (t, df) of one part for a tile of TM rows into the
+// swizzled buffer dst. `rp`: the tile's first row when B is a multiple of TM
+// (the tile lies in one (fo, k) frame, so the tap's rows are one contiguous
+// block, or the carry's, or zeros, and consecutive threads copy consecutive
+// 16-byte chunks); else this thread's row (each thread gathers one row's
+// chunks). C is a power of two (tile_width), so the chunk walk shifts.
+template <int TM>
+__device__ __forceinline__ void tc_gather(uint32_t dst, const ConvParams& p, int part, int t,
+                                          int df, const RowPos& rp) {
+  const int C = part ? p.Cs : p.Ch, lg = __ffs(C / 8) - 1;   // log2 of the chunks a row
+  const TapSrc s = tap_src(p, part, t, df, rp);
+  if (p.B % TM == 0) {
+    // thread tid copies chunk tid % (C / 8) of rows tid / (C / 8) + j R: R =
+    // THREADS / (C / 8) rows on (a multiple of 8, so the swizzle's row phase
+    // and the atom column stay, and each step adds a constant)
+    const int c8 = threadIdx.x & ((1 << lg) - 1), r = threadIdx.x >> lg, R = THREADS >> lg;
+    const uint32_t step = R * (C >= 64 ? 128 : 64);
+    uint32_t d = dst + hopper::swz(r, 8 * c8, TM, C);
+    long off = s.off + (long)r * C;
+    for (int j = 0; j < TM / R; ++j, d += step, off += (long)R * C) gather_chunk(d, s, off, c8);
+  } else {
+    const int r = threadIdx.x % TM;
+    for (int c8 = threadIdx.x / TM; c8 < C / 8; c8 += THREADS / TM)
+      gather_chunk(dst + hopper::swz(r, 8 * c8, TM, C), s, s.off, c8);
+  }
+}
+
+struct PackParams {
+  const __nv_bfloat16* w[2 * NCONV];   // the h taps, then the skip taps
+  long ws[2 * NCONV][2];               // their strides (in, out) in elements
+  int Ch, Cs, Co, N;                   // N = Co / co_split
+  __nv_bfloat16* dst;
+};
+
+// dst[part][Co / N blocks][tap] = the block's W_tap^T [N][C] swizzled (swz)
+__global__ void conv_pack_kernel(PackParams p) {
+  const int nh = NCONV * p.Co * p.Ch, n_all = nh + NCONV * p.Co * p.Cs;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_all; i += gridDim.x * blockDim.x) {
+    const int part = i >= nh, j = part ? i - nh : i, C = part ? p.Cs : p.Ch;
+    const int g = j / (p.Co * C), n = j / C % p.Co, k = j % C, t = part * NCONV + g;
+    const long block = ((long)(n / p.N) * NCONV + g) * p.N * C;
+    p.dst[(part ? nh : 0) + block + hopper::swz(n % p.N, k, p.N, C) / 2] =
+        p.w[t][k * p.ws[t][0] + n * p.ws[t][1]];
+  }
+}
+
+inline long pack_elems(int Ch, int Cs, int Co) { return (long)NCONV * Co * (Ch + Cs); }
+
+// channel counts the swizzled tiles take: 32, 64, 128, 256
+__host__ __device__ inline bool tile_width(int c) { return c >= 32 && c <= 256 && !(c & (c - 1)); }
+
+// N: this CTA's output channels; TM = 128: each warpgroup 64 rows x N; TM =
+// 64: each warpgroup the tile's 64 rows x N / 2
+
+template <int N, int TM>
+__global__ void __launch_bounds__(THREADS, 2) conv_tc_kernel(ConvParams p, int co_split, int NS) {
+  constexpr int NW = TM == 128 ? N : N / 2;   // a warpgroup's columns
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const uint32_t raw = hopper::smem_addr(tc_smem);
+  const uint32_t Wh = raw + ((1024 - (raw & 1023)) & 1023);   // swizzled tiles: 1,024-aligned
+  const int Co = p.Co, Cmax = p.Ch > p.Cs ? p.Ch : p.Cs;
+  const int nparts = p.s ? 2 : 1, nst = NCONV * nparts;
+  const int col = blockIdx.x % co_split, n_base = col * N;
+  const int ctas = gridDim.x / co_split, cta = blockIdx.x / co_split;
+  const long NR = (long)p.F * p.K * p.B;
+  const int ntiles = (int)((NR + TM - 1) / TM);
+  const int mine = cta < ntiles ? (ntiles - 1 - cta) / ctas + 1 : 0;
+  const uint32_t Ws = Wh + NCONV * N * p.Ch * 2;
+  const uint32_t ring = Ws + NCONV * N * p.Cs * 2;
+  const uint32_t buf_bytes = TM * Cmax * 2;
+  // the layer's weights once: this CTA's block of the packed image, 16-byte
+  // cp.async (the first ring wait covers them)
+  for (int part = 0; part < nparts; ++part) {
+    const int C = part ? p.Cs : p.Ch, chunks = NCONV * N * C / 8;
+    const __nv_bfloat16* src = p.wpack + (part ? NCONV * Co * p.Ch : 0) + (long)col * chunks * 8;
+    for (int i = threadIdx.x; i < chunks; i += blockDim.x)
+      hopper::cp_async16((part ? Ws : Wh) + 16 * i, src + 8 * i);
+  }
+  lstm_gates::cp_async_commit();
+  const int tid = threadIdx.x, wg = tid / 128, w = tid % 128 / 32, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  // the gathers walk the stages (tile, part, tap) NS - 1 ahead of the
+  // products, with counters of their own; a tile's row position is found
+  // once (this thread's row where B is not a multiple of TM)
+  int g_tile = 0, g_in = 0, g_slot = 0;
+  RowPos rp{};
+  auto gather_next = [&]() {
+    if (g_in == 0)
+      rp = row_pos(p, (cta + g_tile * ctas) * TM + (p.B % TM == 0 ? 0 : tid % TM));
+    const int part = g_in >= NCONV, tap = g_in - part * NCONV, t = tap >= 3;
+    tc_gather<TM>(ring + g_slot * buf_bytes, p, part, t, tap - 3 * t, rp);
+    if (++g_in == nst) {
+      g_in = 0;
+      ++g_tile;
+    }
+    if (++g_slot == NS) g_slot = 0;
+  };
+  const int r_wg = TM == 128 ? 64 * wg : 0, n_wg = TM == 128 ? 0 : NW * wg;
+  float acc[NW / 2];
+  const int S = mine * nst;
+  for (int q = 0; q < NS - 1; ++q) {
+    if (q < S) gather_next();
+    lstm_gates::cp_async_commit();
+  }
+  const __nv_bfloat16* bias = static_cast<const __nv_bfloat16*>(p.bias);
+  const float alpha = __bfloat162float(*static_cast<const __nv_bfloat16*>(p.alpha));
+  int tile = 0, in = 0, slot = 0;
+  for (int q = 0; q < S; ++q) {
+    if (NS == 3)   // the stage's gathers landed (the ring's later ones may fly)
+      lstm_gates::cp_async_wait<1>();
+    else
+      lstm_gates::cp_async_wait<0>();
+    hopper::fence_async_smem();   // the gathered rows (and weights) visible to wgmma
+    __syncthreads();              // ... and every warpgroup's products of stage q - 1 done
+    const int part = in >= NCONV, tap = in - part * NCONV;
+    const int C = part ? p.Cs : p.Ch;
+    const uint32_t a_s = ring + slot * buf_bytes;
+    const uint32_t w_s = (part ? Ws : Wh) + tap * N * C * 2;
+    hopper::pin(acc);
+    hopper::wg_fence();
+#pragma unroll 4
+    for (int ks = 0; ks < C / 16; ++ks)
+      hopper::wgmma_ss<NW>(acc, hopper::desc_tile(a_s, r_wg, ks, TM, C),
+                           hopper::desc_tile(w_s, n_wg, ks, N, C), in > 0 || ks > 0);
+    hopper::wg_commit();
+    // the next gather (into the buffer stage q - 1 read) overlaps the products
+    if (q + NS - 1 < S) gather_next();
+    lstm_gates::cp_async_commit();
+    hopper::wg_wait0();
+    hopper::pin(acc);
+    if (in == nst - 1) {   // the tile's epilogue
+      const long row0 = (long)(cta + tile * ctas) * TM + r_wg + 16 * w + g;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long row = row0 + 8 * h;
+          const int n = n_base + n_wg + 8 * j + 2 * tq;
+          if (row >= NR) continue;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] = acc[4 * j + 2 * h + e] + __bfloat162float(bias[n + e]);
+            v[e] = v[e] >= 0.f ? v[e] : alpha * v[e];
+            if (p.round_out) v[e] = rnd<true>(v[e]);
+          }
+          if (p.out_bf16)
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + row * Co + n) =
+                __floats2bfloat162_rn(v[0], v[1]);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(p.out) + row * Co + n) =
+                make_float2(v[0], v[1]);
+        }
+    }
+    if (++in == nst) {
+      in = 0;
+      ++tile;
+    }
+    if (++slot == NS) slot = 0;
+  }
+}
+
 // dst [F, B, C] = src [F, K, B, C] at frame K - 1 (rounded to the dot dtype
 // when `round`)
 template <bool DB>
@@ -269,6 +454,19 @@ __global__ void last_frame_kernel(const void* src, int src_bf16, void* dst, int 
     float v = ld(src, (f * K + K - 1) * BC + i % BC, src_bf16);
     st(dst, i, round ? rnd<DB>(v) : v, dst_bf16);
   }
+}
+
+struct Limits {
+  int cap, sms;   // shared memory a block may opt into, SMs
+};
+inline Limits limits() {
+  Limits l{227 * 1024, 132};
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&l.cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaDeviceGetAttribute(&l.sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return l;
 }
 
 struct Center {
@@ -285,13 +483,76 @@ struct Center {
   void* scr;                // d2, d3, u0, u1 outputs (the dot dtype)
   float* f32;               // d4 output (, yf / yb)
   void* xs;                 // the bottleneck activation (bfloat16 under xscr_half)
+  const int* plan;          // the attention plan (7), then the six convs' (6 each)
+  void* packed;             // the wgmma attention's repacked weights, a block each
+  const long* cws;          // the conv weights' strides (in, out), 2 each
+  const long* bws;          // the DPARN bottleneck weights' strides (2 each), or null
+  void* conv_pack;          // the resident convs' weight images, in layer order
+  Limits lim;
 };
 
+// ------------------------------------------------------------------ plans
+// Each conv's plan comes from ops/masker_kernel.py `conv_plan` and is
+// computed again here (conv_plan below); a plan that differs is refused.
+// the fields: weights (1 resident, 0 streamed), co_split, TM, stages, smem, CTAs
+constexpr int CONV_PLAN_FIELDS = 6;
+constexpr int SMEM_PER_SM = 233472, BLOCK_RESERVE = 1024;
+
+// resident weights on tensor cores (bf16 dots and weights, input channels
+// 32 to 256, N = C_out / co_split of 32, 64 or 128): the fewest co_split CTAs
+// a row tile, then tiles of 128 rows before 64 (N >= 64), then 3 ring
+// buffers before 2, that fit; else the CUDA-core loop with each tap's
+// weights staged per tile ("streamed")
+inline bool conv_plan(bool tc, int Ch, int Cs, int Co, long NR, const Limits& l,
+                      int (&pl)[CONV_PLAN_FIELDS]) {
+  const int Cmax = Ch > Cs ? Ch : Cs;
+  if (tc && tile_width(Ch) && (Cs == 0 || tile_width(Cs))) {
+    for (int cs = 1; cs <= 4; cs *= 2) {
+      const int N = Co % cs ? 0 : Co / cs;
+      if (N != 32 && N != 64 && N != 128) continue;
+      for (int tm = TC_TM; tm >= TC_TM / 2 && (tm == TC_TM || N >= 64); tm /= 2)
+        for (int ns = 3; ns >= 2; --ns) {
+          const long smem = 1024 + 2L * NCONV * N * (Ch + Cs) + 2L * ns * tm * Cmax;
+          if (smem > l.cap) continue;
+          const long per_sm = SMEM_PER_SM / (smem + BLOCK_RESERVE) < 2
+                                  ? SMEM_PER_SM / (smem + BLOCK_RESERVE) : 2;
+          const long tiles = (NR + tm - 1) / tm * cs;
+          long ctas = tiles < l.sms * per_sm ? tiles : l.sms * per_sm;
+          ctas -= ctas % cs;
+          const int v[CONV_PLAN_FIELDS] = {1, cs, tm, ns, (int)smem, (int)ctas};
+          for (int i = 0; i < CONV_PLAN_FIELDS; ++i) pl[i] = v[i];
+          return true;
+        }
+    }
+  }
+  // CUDA cores: 4-row microtiles, so TM is a multiple of 4 (float4 rows)
+  const int TM = (8192 / Co < 256 ? 8192 / Co : 256) & ~3;
+  const long smem = 4L * ((long)Cmax * (TM + 4) + (long)Cmax * Co);
+  const int v[CONV_PLAN_FIELDS] = {0, 1, TM, 1, (int)smem, (int)((NR + TM - 1) / TM)};
+  for (int i = 0; i < CONV_PLAN_FIELDS; ++i) pl[i] = v[i];
+  return smem <= l.cap;
+}
+
+template <int N, int TM>
+cudaError_t launch_tc(const ConvParams& p, const int* pl, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(conv_tc_kernel<N, TM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, pl[4]);
+  if (err != cudaSuccess) return err;
+  conv_tc_kernel<N, TM><<<pl[5], THREADS, pl[4], stream>>>(p, pl[1], pl[3]);
+  return cudaGetLastError();
+}
+
+// `w` indexes the layer's first weight in the flat list (h taps, skip taps
+// when `s`, then bias and alpha); `wp` walks the resident images
 template <typename WT, bool DB>
-cudaError_t conv(const Center& q, const void* h, int h_bf16, const void* hc, const void* s,
-                 int s_bf16, const void* sc, const void* const* wh, const void* const* ws,
-                 const void* bias, const void* alpha, void* out, int out_bf16, int round_out,
-                 int tconv, int Ch, int Cs, int Co, cudaStream_t stream, int hc_round = 0) {
+cudaError_t conv(const Center& q, const int* want, __nv_bfloat16*& wp, int w, const void* h,
+                 int h_bf16, const void* hc, const void* s, int s_bf16, const void* sc,
+                 void* out, int out_bf16, int round_out, int tconv, int Ch, int Cs, int Co,
+                 cudaStream_t stream, int hc_round = 0) {
+  const void* const* wh = q.cw + w;
+  const void* const* ws = s ? q.cw + w + NCONV : nullptr;
+  const void* bias = q.cw[w + (s ? 2 : 1) * NCONV];
+  const void* alpha = q.cw[w + (s ? 2 : 1) * NCONV + 1];
   ConvParams p{};
   p.hc_round = hc_round;
   p.h = h;
@@ -318,22 +579,40 @@ cudaError_t conv(const Center& q, const void* h, int h_bf16, const void* hc, con
   p.Ch = Ch;
   p.Cs = s ? Cs : 0;
   p.Co = Co;
-  // tensor cores under bf16 dots and weights when the channel counts fill
-  // k16 / n8 tiles; then TM = 16 * 2^i <= 128 rows, TM * Co <= 8192
-  int tm = 128;
-  while (tm * Co > 8192) tm /= 2;
-  p.mma = DB && std::is_same<WT, __nv_bfloat16>::value && Ch % 16 == 0 && p.Cs % 16 == 0 &&
-          tm >= 16;
-  // CUDA cores: 4-row microtiles, so TM is a multiple of 4 (float4 rows)
-  p.TM = p.mma ? tm : (8192 / Co < 256 ? 8192 / Co : 256) & ~3;
-  const int Cmax = Ch > p.Cs ? Ch : p.Cs;
-  const size_t smem = sizeof(float) * ((size_t)Cmax * (p.TM + 4) + (size_t)Cmax * Co);
-  cudaError_t err = cudaFuncSetAttribute(conv_kernel<WT, DB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
   const long NR = (long)q.F * q.K * q.B;
-  conv_kernel<WT, DB><<<(unsigned)((NR + p.TM - 1) / p.TM), THREADS, smem, stream>>>(p);
+  int pl[CONV_PLAN_FIELDS];
+  if (!conv_plan(DB && std::is_same<WT, __nv_bfloat16>::value, Ch, p.Cs, Co, NR, q.lim, pl))
+    return cudaErrorInvalidConfiguration;
+  for (int i = 0; i < CONV_PLAN_FIELDS; ++i)
+    if (pl[i] != want[i]) return static_cast<cudaError_t>(dparn_attn::PLAN_MISMATCH);
+  if (pl[0] == 1) {
+    PackParams pk{};
+    for (int g = 0; g < (s ? 2 : 1) * NCONV; ++g) {
+      pk.w[g] = static_cast<const __nv_bfloat16*>(q.cw[w + g]);
+      pk.ws[g][0] = q.cws[2 * (w + g)];
+      pk.ws[g][1] = q.cws[2 * (w + g) + 1];
+    }
+    pk.Ch = Ch;
+    pk.Cs = p.Cs;
+    pk.Co = Co;
+    pk.N = Co / pl[1];
+    pk.dst = wp;
+    conv_pack_kernel<<<64, 256, 0, stream>>>(pk);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    p.wpack = wp;
+    wp += pack_elems(Ch, p.Cs, Co);
+    const int N = Co / pl[1];
+    if (pl[2] == 64)
+      return N == 128 ? launch_tc<128, 64>(p, pl, stream) : launch_tc<64, 64>(p, pl, stream);
+    if (N == 128) return launch_tc<128, 128>(p, pl, stream);
+    return N == 64 ? launch_tc<64, 128>(p, pl, stream) : launch_tc<32, 128>(p, pl, stream);
+  }
+  p.TM = pl[2];
+  cudaError_t err = cudaFuncSetAttribute(conv_kernel<WT, DB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, pl[4]);
+  if (err != cudaSuccess) return err;
+  conv_kernel<WT, DB><<<pl[5], THREADS, pl[4], stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -360,21 +639,22 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
   float* d4 = q.f32;
   float* y_dir = d4 + n * q.CH;
   void* xs = q.xs;
-  const void* const* cw = q.cw;
   const void* const* cin = q.cin;
   void* const* cout = q.cout;
   cudaError_t err;
 #define CHECK(call) \
   if ((err = (call)) != cudaSuccess) return err
   // ------------------------------------------------ down: d2, d3, d4
-  CHECK((conv<WT, DB>(q, q.x, q.x_bf16, cin[0], nullptr, 0, nullptr, cw, nullptr, cw[6],
-                      cw[7], d2, sb, 1, 0, q.C0, 0, q.C2, stream)));
+  const int* cp = q.plan + dparn_attn::PLAN_FIELDS;   // the six convs' plans
+  __nv_bfloat16* wp = static_cast<__nv_bfloat16*>(q.conv_pack);
+  CHECK((conv<WT, DB>(q, cp, wp, 0, q.x, q.x_bf16, cin[0], nullptr, 0, nullptr, d2, sb, 1, 0,
+                      q.C0, 0, q.C2, stream)));
   CHECK(last_frame<DB>(q, q.x, q.x_bf16, cout[0], q.C0, 1, stream));
-  CHECK((conv<WT, DB>(q, d2, sb, cin[1], nullptr, 0, nullptr, cw + 8, nullptr, cw[14],
-                      cw[15], d3, sb, 1, 0, q.C2, 0, q.C3, stream)));
+  CHECK((conv<WT, DB>(q, cp + 6, wp, 8, d2, sb, cin[1], nullptr, 0, nullptr, d3, sb, 1, 0,
+                      q.C2, 0, q.C3, stream)));
   CHECK(last_frame<DB>(q, d2, sb, cout[1], q.C2, 0, stream));
-  CHECK((conv<WT, DB>(q, d3, sb, cin[2], nullptr, 0, nullptr, cw + 16, nullptr, cw[22],
-                      cw[23], d4, 0, 0, 0, q.C3, 0, q.CH, stream)));
+  CHECK((conv<WT, DB>(q, cp + 12, wp, 16, d3, sb, cin[2], nullptr, 0, nullptr, d4, 0, 0, 0,
+                      q.C3, 0, q.CH, stream)));
   CHECK(last_frame<DB>(q, d3, sb, cout[2], q.C3, 0, stream));
   CHECK(last_frame<DB>(q, d4, 0, cout[4], q.CH, 1, stream));
   // ------------------------------------------------ the bottleneck
@@ -395,7 +675,11 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
       a.x_bf16 = q.xs_bf16;
       a.y_bf16 = q.xs_bf16;
       a.pe = q.pe;
-      for (int i = 0; i < dparn_attn::NW; ++i) a.w[i] = w[i];
+      for (int i = 0; i < dparn_attn::NW; ++i) {
+        a.w[i] = w[i];
+        a.ws[i][0] = q.bws[2 * (PER * blk + i)];
+        a.ws[i][1] = q.bws[2 * (PER * blk + i) + 1];
+      }
       a.y = xs;
       a.sr = q.CH;
       a.sf = (long)q.K * q.B * q.CH;
@@ -406,7 +690,9 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
       a.heads = q.heads;
       a.pe_bf16 = q.pe_bf16;
       a.residual = 1;
-      CHECK((dparn_attn::run<WT, DB>(a, stream)));
+      a.packed = static_cast<__nv_bfloat16*>(q.packed) +
+                 (size_t)blk * dparn_wgmma::NPROD * dparn_wgmma::C * dparn_wgmma::C;
+      CHECK((dparn_attn::run<WT, DB>(a, q.plan, stream)));
       const void* const* iw = w + dparn_attn::NW;
       dual_path_passes::InterParams ip{xs, xs, cin[7 + blk], cin[9 + blk], cout[7 + blk],
                                        cout[9 + blk], iw[0], iw[1], iw[2], iw[3], iw[4],
@@ -417,14 +703,30 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
   }
   CHECK(last_frame<DB>(q, xs, q.xs_bf16, cout[3], q.CH, 0, stream));
   // ------------------------------------------------ up: u0, u1, u2
-  CHECK((conv<WT, DB>(q, xs, q.xs_bf16, cin[3], d4, 0, cin[4], cw + 24, cw + 30, cw[36],
-                      cw[37], u0, sb, 1, 1, q.CH, q.CH, q.C4, stream, q.xs_bf16)));
+  // resident u0 weights: its float32 inputs (the bottleneck's x_scr, the d4
+  // skip) enter as bf16 copies (scratch after u1's), gathered by cp.async
+  const void* u0h = xs;
+  const void* u0s = d4;
+  int u0h_bf16 = q.xs_bf16, u0s_bf16 = 0;
+  if (cp[18] == 1) {
+    char* half = static_cast<char*>(q.scr) + se * n * (q.C2 + q.C3 + q.C4 + q.Cu2);
+    if (!q.xs_bf16) {
+      CHECK(dual_path_passes::to_half(xs, 0, half, n * q.CH, stream));
+      u0h = half;
+      u0h_bf16 = 1;
+    }
+    CHECK(dual_path_passes::to_half(d4, 0, half + 2 * n * q.CH, n * q.CH, stream));
+    u0s = half + 2 * n * q.CH;
+    u0s_bf16 = 1;
+  }
+  CHECK((conv<WT, DB>(q, cp + 18, wp, 24, u0h, u0h_bf16, cin[3], u0s, u0s_bf16, cin[4], u0,
+                      sb, 1, 1, q.CH, q.CH, q.C4, stream, q.xs_bf16)));
   CHECK(last_frame<DB>(q, u0, sb, cout[5], q.C4, 0, stream));
-  CHECK((conv<WT, DB>(q, u0, sb, cin[5], d3, sb, cin[2], cw + 38, cw + 44, cw[50], cw[51], u1,
-                      sb, 1, 1, q.C4, q.C3, q.Cu2, stream)));
+  CHECK((conv<WT, DB>(q, cp + 24, wp, 38, u0, sb, cin[5], d3, sb, cin[2], u1, sb, 1, 1, q.C4,
+                      q.C3, q.Cu2, stream)));
   CHECK(last_frame<DB>(q, u1, sb, cout[6], q.Cu2, 0, stream));
-  CHECK((conv<WT, DB>(q, u1, sb, cin[6], d2, sb, cin[1], cw + 52, cw + 58, cw[64], cw[65],
-                      q.y, q.x_bf16, 0, 1, q.Cu2, q.C2, q.yC, stream)));
+  CHECK((conv<WT, DB>(q, cp + 30, wp, 52, u1, sb, cin[6], d2, sb, cin[1], q.y, q.x_bf16, 0, 1,
+                      q.Cu2, q.C2, q.yC, stream)));
 #undef CHECK
   return cudaSuccess;
 }
@@ -432,17 +734,26 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
 }  // namespace
 
 // geo: kind (0 DPCRN, 1 DPARN), F, K, B, C0, C2, C3, C4, CH, Cu2, yC, H, FFD,
-// heads, x_bf16, carries_bf16, weights_bf16, dot_bf16, pe_bf16, xscr_half
+// heads, x_bf16, carries_bf16, weights_bf16, dot_bf16, pe_bf16, xscr_half;
+// plan: the attention passes' (dparn_attn::PLAN_FIELDS, zeros for DPCRN),
+// then d2, d3, d4, u0, u1, u2's (CONV_PLAN_FIELDS each); packed: the wgmma
+// attention's repacked weights (2 x 13 x 128 x 128 bf16) or null;
+// conv_strides / bneck_strides: each weight's (in, out) strides in elements
+// (the bottleneck's for DPARN only); conv_pack: the resident convs' weight
+// images (pack_elems each, in layer order) or null
 extern "C" int masker_center_chunk(const int* geo, const void* x, const void* pe,
                                    const void* const* carries_in, void* const* carries_out,
                                    const void* const* conv_weights,
                                    const void* const* bneck_weights,
                                    const void* const* s_hh, void* y, void* scr,
-                                   void* f32_scr, void* xs, void* stream) {
+                                   void* f32_scr, void* xs, const int* plan, void* packed,
+                                   const long* conv_strides, const long* bneck_strides,
+                                   void* conv_pack, void* stream) {
   Center q{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6], geo[7], geo[8], geo[9],
            geo[10], geo[11], geo[12], geo[13], geo[14], geo[15], geo[16], geo[17], geo[18],
            geo[19], x, pe, carries_in, carries_out, conv_weights, bneck_weights, s_hh, y,
-           scr, static_cast<float*>(f32_scr), xs};
+           scr, static_cast<float*>(f32_scr), xs, plan, packed, conv_strides,
+           bneck_strides, conv_pack, limits()};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q.w_bf16)
@@ -453,5 +764,5 @@ extern "C" int masker_center_chunk(const int* geo, const void* x, const void* pe
 }
 
 extern "C" const char* masker_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return dparn_attn::error_string(err);
 }

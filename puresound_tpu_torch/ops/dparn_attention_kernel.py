@@ -20,12 +20,16 @@ same function: all run the one kernel here.
 
 Dispatch: a CPU tensor runs `dparn_intra_pass_ref`; a CUDA tensor launches
 `csrc/dparn_attention.cu` (built with nvcc at first use) or raises.
-`r_tile` / `interpret` are TPU settings and have no counterpart.
+`r_tile` / `interpret` are TPU settings and have no counterpart. `plan`
+picks the kernel's route before the launch (wgmma for the model's geometry
+under bf16 weights and dots, else CUDA cores, one row a CTA);
+the C entry computes the plan again and refuses one that differs.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -34,6 +38,8 @@ from .lstm_scan_kernel import _rounder
 
 #: kernel launches since the caller last set it to 0 (one per `_launch`)
 LAUNCHES = 0
+#: the same launches by the plan's path ("wgmma", "cuda_cores")
+LAUNCHES_BY_PATH: dict = {}
 
 ATTN_LAYER_NAMES = ("wqT", "wkT", "wvT", "woT", "ln1_g", "ln1_b",
                     "ff1_k", "ff1_b", "ff2_k", "ff2_b", "ln2_g", "ln2_b")
@@ -91,6 +97,83 @@ def dparn_intra_pass_ref(x, pe, weights, heads: int, dot_dtype=torch.float32,
     return intra_core_ref(x.to(cdt), pe.to(cdt), list(weights), heads, rnd).to(x.dtype)
 
 
+# -------------------------------------------------------------------- plan
+SMEM_MAX = 232448        # shared memory a block may use on the H100 (bytes)
+H100_SMS = 132
+PATHS = ("cuda_cores", "wgmma")     # csrc/dparn_attention.cuh `Path`
+# the wgmma route's geometry and layout (csrc/dparn_wgmma.cuh)
+WG_F, WG_C, WG_HEADS = 64, 128, 8
+WG_WARPGROUPS, WG_STAGES, WG_PRODUCTS = 2, 3, 13
+WG_SMEM = (1024 + WG_STAGES * WG_C * WG_C * 2 + WG_WARPGROUPS * 4 * WG_F * WG_C * 2
+           + 2 * WG_STAGES * 8)
+
+
+class AttnPlanError(ValueError):
+    """A dparn_intra_pass shape for which no route of the kernel fits."""
+
+
+@dataclass(frozen=True)
+class AttnPlan:
+    """How `csrc/dparn_attention.cu` runs one call: the path, rows a CTA
+    works on at once (one per consumer warpgroup on wgmma), consumer
+    warpgroups (0: the one-row kernel's 8 plain warps), stages of the weight
+    ring (2: the one-row kernel's double-buffered tiles of `kt` rows), its
+    shared-memory bytes and CTAs (persistent on wgmma, one a row else)."""
+    path: str
+    rows_per_cta: int
+    warpgroups: int
+    stages: int
+    kt: int
+    smem: int
+    ctas: int
+
+    def ints(self):
+        """The plan as the C entry takes it."""
+        return [PATHS.index(self.path), self.rows_per_cta, self.warpgroups, self.stages,
+                self.kt, self.smem, self.ctas]
+
+
+def plan(R: int, F: int, C: int, FFD: int, heads: int, w_bf16: bool, dot_bf16: bool,
+         sms: int = H100_SMS) -> AttnPlan:
+    """The route of one call over R rows of [F, C] (`make_plan` in
+    csrc/dparn_attention.cuh computes the same). wgmma takes F = 64, C = FFD
+    = 128, 8 heads under bf16 weights and dots: two rows a CTA, one per
+    consumer warpgroup, a 3-slot ring of [128 x 128] weight images, at most
+    `sms` persistent CTAs. Everything else runs one row a CTA with its
+    activations in float32 shared memory and the weights in double-buffered
+    tiles of kt rows (the largest power of two up to 64 that fits), on CUDA
+    cores. Raises AttnPlanError where nothing fits 232,448 bytes."""
+    if R <= 0 or F <= 0 or C <= 0 or FFD <= 0 or heads <= 0:
+        raise AttnPlanError(f"no route for R={R}, F={F}, C={C}, FFD={FFD}, heads={heads}")
+    if (w_bf16 and dot_bf16 and (F, C, FFD, heads) == (WG_F, WG_C, WG_C, WG_HEADS)):
+        return AttnPlan("wgmma", WG_WARPGROUPS, WG_WARPGROUPS, WG_STAGES, 0, WG_SMEM,
+                        min((R + 1) // 2, sms))
+    CM = max(C, FFD)
+    act = 4 * (4 * C + CM + F) * (F + 4)
+    wsz = 2 if w_bf16 else 4
+    kt = 64
+    while kt > 1 and act + wsz * 2 * kt * CM > SMEM_MAX:
+        kt //= 2
+    smem = act + wsz * 2 * kt * CM
+    if smem > SMEM_MAX:
+        raise AttnPlanError(f"F={F}, C={C}, FFD={FFD}: one row needs {smem} bytes of "
+                            f"shared memory, more than {SMEM_MAX}")
+    return AttnPlan("cuda_cores", 1, 0, 2, kt, smem, R)
+
+
+def sm_count(dev) -> int:
+    """The card's SMs (the persistent routes' CTAs)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def packed_scratch(pl: AttnPlan, dev, blocks: int = 1):
+    """The wgmma route's repacked weights (13 images of 128 x 128 bf16 a
+    block), or None."""
+    if pl.path != "wgmma":
+        return None
+    return torch.empty(blocks * WG_PRODUCTS * WG_C * WG_C, device=dev, dtype=torch.bfloat16)
+
+
 # -------------------------------------------------------------------- CUDA
 def _lib():
     from ._build import load
@@ -98,7 +181,7 @@ def _lib():
     lib = load("dparn_attention")
     if not getattr(lib, "_bound", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dparn_intra_pass.argtypes = [p] * 4 + [i] * 9 + [p]
+        lib.dparn_intra_pass.argtypes = [p] * 5 + [i] * 9 + [p] * 3
         lib.dparn_intra_pass.restype = i
         lib.dparn_attention_error_string.argtypes = [i]
         lib.dparn_attention_error_string.restype = ctypes.c_char_p
@@ -144,6 +227,23 @@ def aligned(weights):
     return [w if w.data_ptr() % 16 == 0 else w.clone() for w in ws]
 
 
+def as_views(weights):
+    """Weights for a kernel that reads matrices through their strides (a
+    pack kernel repacks them): matrices as they are, vectors as `aligned`
+    makes them."""
+    return [w if w.dim() == 2 or (w.is_contiguous() and w.data_ptr() % 16 == 0)
+            else aligned([w])[0] for w in weights]
+
+
+def strides_of(ws):
+    """Each weight's (in, out) strides in elements, flat, for the C entry."""
+    flat = []
+    for w in ws:
+        st = w.stride()
+        flat += st if len(st) == 2 else (st[0], 0)
+    return (ctypes.c_long * len(flat))(*flat)
+
+
 def _launch(x, pe, weights, heads, dot_dtype):
     global LAUNCHES
     if x.dim() != 3:
@@ -158,20 +258,26 @@ def _launch(x, pe, weights, heads, dot_dtype):
         raise ValueError(f"pe must be [F, C] = {(F, C)} on {x.device}")
     if R == 0 or R * F * C >= 2 ** 31:
         raise ValueError(f"the kernel takes 0 < R * F * C < 2^31, x {tuple(x.shape)}")
+    pl = plan(R, F, C, FFD, heads, wdt == torch.bfloat16, dot_dtype == torch.bfloat16,
+              sm_count(x.device))
     x, pe = x.contiguous(), pe.contiguous()
-    ws = aligned(weights)
+    # the wgmma path's pack kernel reads the matrices through their strides
+    ws = as_views(weights) if pl.path == "wgmma" else aligned(weights)
     y = torch.empty_like(x)
+    packed = packed_scratch(pl, x.device)
     ptrs = (ctypes.c_void_p * N_WEIGHTS)(*[w.data_ptr() for w in ws])
     lib = _lib()
     with torch.cuda.device(x.device):
         err = lib.dparn_intra_pass(
-            x.data_ptr(), pe.data_ptr(), ptrs, y.data_ptr(), R, F, C, FFD, heads,
+            x.data_ptr(), pe.data_ptr(), ptrs, strides_of(ws), y.data_ptr(), R, F, C, FFD, heads,
             _KDT[x.dtype], _KDT[pe.dtype], _KDT[wdt], _KDT[dot_dtype],
+            (ctypes.c_int * 7)(*pl.ints()), None if packed is None else packed.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError("dparn_intra_pass launch failed: "
                            + lib.dparn_attention_error_string(err).decode())
     LAUNCHES += 1
+    LAUNCHES_BY_PATH[pl.path] = LAUNCHES_BY_PATH.get(pl.path, 0) + 1
     return y
 
 

@@ -37,7 +37,11 @@ products in int8 as `dual_path_chunk` does (21 weights a block, `n_pb`
 u0 h carry enters it rounded, and u0 reads it as its h part.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches
-`csrc/masker.cu` (built with nvcc at first use) or raises. JAX's `b_tile` and its `fc` / `rc` /
+`csrc/masker.cu` (built with nvcc at first use) or raises. `conv_plan` picks
+each conv's route before the launch (resident bf16 weights on the tensor
+cores, else the CUDA-core loop), `dparn_attention_kernel.plan` the DPARN
+attention passes'; the C entry computes both again and refuses a plan that
+differs. JAX's `b_tile` and its `fc` / `rc` /
 `n_ichunk` chunkings are TPU tilings with the same numbers and have no
 counterpart; the banded weight builders (`build_layer_blocks`,
 `pack_channel_perm`, `_dense_conv_matrix`) are on no path yet.
@@ -45,13 +49,16 @@ counterpart; the banded weight builders (`build_layer_blocks`,
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import List, Sequence
 
 import torch
 import torch.nn.functional as Fn
 
+from . import dparn_attention_kernel as dak
 from .dparn_attention_kernel import N_WEIGHTS as N_ATTN
-from .dparn_attention_kernel import aligned, check_geometry, check_weights, intra_core_ref
+from .dparn_attention_kernel import aligned, as_views, check_geometry, check_weights
+from .dparn_attention_kernel import intra_core_ref, strides_of
 from .dual_path_kernel import INTER_NAMES, block_names, dual_path_chunk_ref, half_store
 from .dual_path_kernel import inter_block_ref, kernel_weights
 from .lstm_scan_kernel import _rounder
@@ -61,6 +68,9 @@ from .quant import option_key
 LAUNCHES = 0
 #: the same launches by option ("" for none; "int8_hh", "xscr_half", ...)
 LAUNCHES_BY_OPTION: dict = {}
+#: the same launches by path: "attn=<dparn_attention_kernel.plan path>,conv=
+#: <the convs' weights, '+'-joined where they differ>" ("conv=..." for DPCRN)
+LAUNCHES_BY_PATH: dict = {}
 
 N_CONV = 6                        # (2 time slots) x (3 freq taps)
 N_DOWN = N_UP = 3
@@ -173,6 +183,103 @@ def dparn_center_chunk_ref(x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weigh
     return (*out, h_out, c_out)
 
 
+# -------------------------------------------------------------------- plan
+TC_TM = 128                  # rows a tile on the tensor cores, or half (csrc/masker.cu)
+SMEM_PER_SM, BLOCK_RESERVE = 233472, 1024
+
+
+class MaskerPlanError(ValueError):
+    """A wide-center conv for which no route of csrc/masker.cu fits."""
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How one conv of the wide center runs: "resident" weights (a
+    persistent CTA stages its share of the layer's bf16 weights once; tiles of
+    `tm` rows gathered through a ring of `stages` cp.async buffers; wgmma)
+    or "streamed" (the CUDA-core loop: each tap's weights staged per tile of
+    `tm` rows, one buffer); `co_split` CTAs share a row tile's C_out; shared
+    bytes and CTAs of the launch."""
+    weights: str
+    co_split: int
+    tm: int
+    stages: int
+    smem: int
+    ctas: int
+
+    def ints(self):
+        return [int(self.weights == "resident"), self.co_split, self.tm, self.stages,
+                self.smem, self.ctas]
+
+
+def _tile_width(c: int) -> bool:
+    """Channel counts the swizzled tiles take (csrc/masker.cu `tile_width`):
+    32, 64, 128, 256."""
+    return c in (32, 64, 128, 256)
+
+
+def conv_plan(Ch: int, Cs: int, Co: int, rows: int, tensor_cores: bool,
+              sms: int = dak.H100_SMS) -> ConvPlan:
+    """The route of one conv (`conv_plan` in csrc/masker.cu computes the
+    same): Ch / Cs the h and skip parts' input channels (Cs 0: no skip), Co
+    the output channels, `rows` = F * K * B output rows, `tensor_cores` bf16
+    dots and weights. Resident weights on wgmma take input channels of 32,
+    64, 128 or 256 and N = C_out / co_split of 32, 64 or 128: the fewest
+    co_split CTAs, then tiles of 128 rows before 64 (each warpgroup then N /
+    2 columns, so N >= 64), then 3 ring buffers before 2, that fit 232,448
+    bytes (1 KB of it the tiles' alignment); at most 2 CTAs an SM (228 KB an
+    SM, 1 KB kept a CTA), persistent, a multiple of co_split. Else the
+    CUDA-core loop. Raises MaskerPlanError where neither fits."""
+    if rows <= 0 or Ch <= 0 or Cs < 0 or Co <= 0:
+        raise MaskerPlanError(f"no route for Ch={Ch}, Cs={Cs}, Co={Co}, rows={rows}")
+    cmax = max(Ch, Cs)
+    if tensor_cores and _tile_width(Ch) and (Cs == 0 or _tile_width(Cs)):
+        for cs in (1, 2, 4):
+            n = 0 if Co % cs else Co // cs
+            if n not in (32, 64, 128):
+                continue
+            for tm, ns in ((TC_TM, 3), (TC_TM, 2), (TC_TM // 2, 3), (TC_TM // 2, 2)):
+                smem = 1024 + 2 * 6 * n * (Ch + Cs) + 2 * ns * tm * cmax
+                if smem > dak.SMEM_MAX or (tm < TC_TM and n < 64):
+                    continue
+                per_sm = min(2, SMEM_PER_SM // (smem + BLOCK_RESERVE))
+                ctas = min(-(-rows // tm) * cs, sms * per_sm)
+                return ConvPlan("resident", cs, tm, ns, smem, ctas - ctas % cs)
+    tm = min(8192 // Co, 256) & ~3
+    smem = 4 * (cmax * (tm + 4) + cmax * Co)
+    if smem > dak.SMEM_MAX or tm == 0:
+        raise MaskerPlanError(f"Ch={Ch}, Cs={Cs}, Co={Co}: no conv route fits "
+                              f"{dak.SMEM_MAX} bytes of shared memory")
+    return ConvPlan("streamed", 1, tm, 1, smem, -(-rows // tm))
+
+
+def conv_layers(chans):
+    """(Ch, Cs, Co) of d2, d3, d4, u0, u1, u2 for channel counts (C0, C2, C3,
+    C4, CH, Cu2, yC)."""
+    C0, C2, C3, C4, CH, Cu2, yC = chans
+    return [(C0, 0, C2), (C2, 0, C3), (C3, 0, CH), (CH, CH, C4), (C4, C3, Cu2),
+            (Cu2, C2, yC)]
+
+
+def conv_plans(F: int, K: int, B: int, chans, tensor_cores: bool,
+               sms: int = dak.H100_SMS):
+    """The six convs' plans (d2, d3, d4, u0, u1, u2)."""
+    return tuple(conv_plan(h, s, o, F * K * B, tensor_cores, sms)
+                 for h, s, o in conv_layers(chans))
+
+
+def pack_elems(Ch: int, Cs: int, Co: int) -> int:
+    """bf16 elements of a resident conv's weight image (`pack_elems` in
+    csrc/masker.cu): each part's [C_out blocks][6 taps][N][C] swizzled."""
+    return 6 * Co * (Ch + Cs)
+
+
+def path_key(attn, convs) -> str:
+    """LAUNCHES_BY_PATH's key of a launch."""
+    ws = "+".join(sorted({c.weights for c in convs}, key=("resident", "streamed").index))
+    return (f"attn={attn.path}," if attn is not None else "") + f"conv={ws}"
+
+
 # -------------------------------------------------------------------- CUDA
 def _lib():
     from ._build import load
@@ -180,7 +287,7 @@ def _lib():
     lib = load("masker")
     if not getattr(lib, "_bound", False):
         p = ctypes.c_void_p
-        lib.masker_center_chunk.argtypes = [p] * 13
+        lib.masker_center_chunk.argtypes = [p] * 18
         lib.masker_center_chunk.restype = ctypes.c_int
         lib.masker_error_string.argtypes = [ctypes.c_int]
         lib.masker_error_string.restype = ctypes.c_char_p
@@ -270,17 +377,42 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
     if bneck_weights[0].dtype != wdt:
         raise TypeError("the conv and bottleneck weights must share one dtype")
     dev = x.device
+    sms = dak.sm_count(dev)
+    tc = wdt == torch.bfloat16 and dot_dtype == torch.bfloat16
+    convs = conv_plans(F, K, B, chans, tc, sms)
+    attn = (dak.plan(K * B, F, CH, FFD, heads, wdt == torch.bfloat16,
+                     dot_dtype == torch.bfloat16, sms) if kind == 1 else None)
+    plan_ints = (attn.ints() if attn is not None else [0] * 7) + sum(
+        (c.ints() for c in convs), [])
+    packed = dak.packed_scratch(attn, dev, 2) if attn is not None else None
+    n_pack = sum(pack_elems(*l) for l, c in zip(conv_layers(chans), convs)
+                 if c.weights == "resident")
+    conv_pack = (torch.empty(n_pack, device=dev, dtype=torch.bfloat16) if n_pack
+                 else None)
     x = x.contiguous()
     pe = pe.contiguous() if pe is not None else x
     carries = [t.contiguous() for t in carries]
-    cw = aligned(conv_weights)
-    bw, scales = (kernel_weights(bneck_weights, int8_hh) if kind == 0
-                  else (aligned(bneck_weights), []))
+    # resident convs and the wgmma attention repack their matrices from any
+    # strides; the CUDA-core passes stage contiguous rows
+    resident = all(c.weights == "resident" for c in convs)
+    cw = as_views(conv_weights) if resident else aligned(conv_weights)
+    if kind == 0:
+        bw, scales = kernel_weights(bneck_weights, int8_hh)
+    elif attn.path == "wgmma":
+        bw, scales = [], []
+        for b in range(2):
+            w = bneck_weights[b * DPARN_PER_BLOCK:(b + 1) * DPARN_PER_BLOCK]
+            bw += as_views(w[:N_ATTN]) + aligned(w[N_ATTN:])
+    else:
+        bw, scales = aligned(bneck_weights), []
     y = torch.empty((F, K, B, y_C), device=dev, dtype=x.dtype)
     outs = [torch.empty_like(t) for t in carries]
     sdt = torch.bfloat16 if dot_dtype == torch.bfloat16 else torch.float32
     n = F * K * B
-    scr = torch.empty(n * (C2 + C3 + C4 + Cu2), device=dev, dtype=sdt)
+    # the stage outputs d2, d3, u0, u1 (+ bf16 copies of u0's float32 inputs
+    # when its weights are resident)
+    scr = torch.empty(n * (C2 + C3 + C4 + Cu2 + (2 * CH if convs[3].weights == "resident"
+                                                  else 0)), device=dev, dtype=sdt)
     f32 = torch.empty(n * (CH + (2 * H if kind == 0 else 0)), device=dev,
                       dtype=torch.float32)                  # d4 (, yf / yb)
     xs = torch.empty(n * CH, device=dev,                    # the bottleneck's x_scr
@@ -295,6 +427,10 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
             (ctypes.c_int * len(geo))(*geo), x.data_ptr(), pe.data_ptr(), arr(carries),
             arr(outs), arr(cw), arr(bw), arr(scales) if int8_hh else None, y.data_ptr(),
             scr.data_ptr(), f32.data_ptr(), xs.data_ptr(),
+            (ctypes.c_int * len(plan_ints))(*plan_ints),
+            None if packed is None else packed.data_ptr(), strides_of(cw),
+            strides_of(bw) if kind == 1 else None,
+            None if conv_pack is None else conv_pack.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("wide-center launch failed: "
@@ -302,6 +438,8 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
     LAUNCHES += 1
     key = option_key(int8_hh=int8_hh, xscr_half=xscr_half)
     LAUNCHES_BY_OPTION[key] = LAUNCHES_BY_OPTION.get(key, 0) + 1
+    pk = path_key(attn, convs)
+    LAUNCHES_BY_PATH[pk] = LAUNCHES_BY_PATH.get(pk, 0) + 1
     return (y, outs[0:3], outs[3], outs[4], outs[5], outs[6], outs[7:9], outs[9:11])
 
 
