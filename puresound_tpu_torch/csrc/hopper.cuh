@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by dparn_wgmma.cuh and masker.cu:
+// Hopper (sm_90a) building blocks shared by dparn_wgmma.cuh, masker.cu and
+// tcn_train.cu:
 // mbarriers, the bulk copy engine (TMA without a tensor map: cp.async.bulk
 // of a contiguous image into shared memory, completion counted in bytes on
 // an mbarrier), wgmma on bf16 operands in shared memory laid out K-major and
-// swizzled (`swz`, `desc_tile` below), cp.async.
+// swizzled (`swz`, `desc_tile` below; B also MN-major, `desc_mn`), cp.async.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -176,6 +177,69 @@ __device__ __forceinline__ uint64_t desc_tile(uint32_t tile, int r0, int ks, int
   const uint32_t a = tile + (k >> lw) * rows * sb + r0 * sb + (k & ((1u << lw) - 1)) * 2;
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)((8 * sb) >> 4) << 32) | ((uint64_t)(sb == 128 ? 1 : 2) << 62);
+}
+
+// ------------------------------------------- MN-major B tiles (trans-b)
+// B [K][N] stored N-contiguous: atoms of 64 N-elements x 8 K-rows with the
+// 128-byte swizzle, byte offset swz(k, n, K, N) (N a multiple of 64). The
+// descriptor of the 16-deep K slice ks from N element n0 (a multiple of
+// 64) on: the leading byte offset steps to the next 64 N-elements (K * 128
+// bytes), the stride byte offset to the next 8 K-rows (1,024 bytes).
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int n0, int ks, int K) {
+  const uint32_t a = tile + (n0 >> 6) * K * 128 + ks * 16 * 128;
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(((uint32_t)K * 128) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (+)= A . B for one K slice, A K-major, B MN-major (desc_mn): N = 64
+__device__ __forceinline__ void wgmma_m64n64_tb(float (&d)[32], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the same with N = 128
+__device__ __forceinline__ void wgmma_m64n128_tb(float (&d)[64], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tb(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (N == 64)
+    wgmma_m64n64_tb(d, da, db, accumulate);
+  else
+    wgmma_m64n128_tb(d, da, db, accumulate);
 }
 
 // ---------------------------------------------------- cp.async, packing

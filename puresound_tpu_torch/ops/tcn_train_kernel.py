@@ -23,13 +23,16 @@ w_pw [Ch, Ch], w_out [C, Ch], gammas / betas / biases [width], alphas [1].
 
 Dispatch: one `torch.autograd.Function` for both devices. A CPU tensor
 runs the plain forward and backward below; a CUDA tensor launches
-`csrc/tcn_train.cu` (built with nvcc at first use) or raises.
+`csrc/tcn_train.cu` (built with nvcc at first use) on the route `_plan`
+gives by shape and dtype (bf16 at C, Ch in {64, 128, 256}: the 1x1
+products and their weight gradients on wgmma; else CUDA cores), or raises.
 """
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import List, Sequence
+import functools
+from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -189,8 +192,170 @@ def tcn_block_train_bwd_ref(x, dy, *params, dilation: int = 1, compute_dtype=Non
 
 # -------------------------------------------------------------------- CUDA
 _KDT = {torch.float32: 0, torch.bfloat16: 1}
-_RB = 32               # columns per stage of the weight-gradient product
-_SPLIT_COLS = 4096
+#: the plan's constants; csrc/tcn_train.cu holds the same numbers
+H100_SMS = 132           # persistent CTAs of a wgmma pass
+SMEM_MAX = 232448        # bytes of shared memory a block may use
+WG_COLS = 64             # columns a weight-gradient chunk on the wgmma route
+DW_SEG = 2048            # columns a depthwise segment
+ALIGN_F = 64             # floats: every scratch region starts on 256 bytes
+SPLIT_COLS = 4096        # CUDA-core weight gradient: columns a split, at least
+MAX_SPLIT = 32           # and at most this many splits
+STAGE_BYTES = 8 * 16 * 40 * 4   # a wgmma product's epilogue staging: 16 rows x 40 floats a warp
+_TILE, _RB, _MAXK = 64, 32, 8
+ROUTES = ("cuda_cores", "wgmma")
+
+#: launches by (direction, route) since the caller last cleared it: ("fwd",
+#: "wgmma"), ("bwd", "cuda_cores"), ...
+LAUNCHES_BY_ROUTE: Dict[Tuple[str, str], int] = {}
+
+
+class TcnPlanError(ValueError):
+    """No route of csrc/tcn_train.cu takes the shape."""
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    O: int
+    K: int
+    ncol: int     # columns a tile (wgmma) or the CUDA-core tile's 64
+    smem: int     # dynamic shared bytes (0: the CUDA-core kernel's static tiles)
+
+    def tiles(self, T: int) -> int:
+        """Column tiles of one sample."""
+        return -(-T // self.ncol)
+
+
+@dataclass(frozen=True)
+class WgradPlan:
+    O: int
+    K: int
+    n_split: int     # fixed column ranges, summed in order
+    per_split: int   # wgmma: WG_COLS-column chunks of a sample a range; CUDA cores: flat columns
+    n_ob: int        # O-blocks (wgmma), 1 on CUDA cores
+    smem: int
+
+
+@dataclass(frozen=True)
+class TcnPlan:
+    route: str                     # "wgmma" or "cuda_cores"
+    pitch: int                     # Tp: float32 scratch row length, T rounded up to 8
+    gemms: Tuple[GemmPlan, ...]    # `_gemm_dims`' order
+    wgrads: Tuple[WgradPlan, ...]  # `_wgrad_dims`' order
+    dw_smem: Tuple[int, int]       # depthwise forward / backward shared bytes
+    fwd_scratch: int               # float32 scratch of a forward call
+    bwd_scratch: int               # ... and of a backward call
+
+    def ints(self) -> List[int]:
+        """The fields in csrc/tcn_train.cu's order (`make_plan`)."""
+        out = [ROUTES.index(self.route), self.pitch]
+        for g in self.gemms:
+            out += [g.ncol, g.smem]
+        for w in self.wgrads:
+            out += [w.n_split, w.per_split, w.n_ob, w.smem]
+        return out + list(self.dw_smem)
+
+
+def _gemm_dims(C: int, Ch: int):
+    """(O, K) of the six 1x1 products' W [O][K]: forward W_in, W_pw, W_out;
+    backward W_out^T, W_pw^T, W_in^T."""
+    return ((Ch, C), (Ch, Ch), (C, Ch), (Ch, C), (Ch, Ch), (C, Ch))
+
+
+def _wgrad_dims(C: int, Ch: int):
+    """(O, K) of the weight gradients dW_out, dW_pw, dW_in."""
+    return ((C, Ch), (Ch, Ch), (Ch, C))
+
+
+def _al(n: int) -> int:
+    return -(-n // ALIGN_F) * ALIGN_F
+
+
+def _param_sizes(C: int, Ch: int, k: int) -> List[int]:
+    return [Ch * C, Ch, Ch, 1, Ch * k, Ch, Ch, Ch, 1, Ch * Ch, Ch, Ch, Ch, 1, C * Ch, C]
+
+
+def _scratch_floats(route, B, C, Ch, T, k, Tp, gemms, wgrads, backward: bool) -> int:
+    """Float32 scratch of one call: csrc/tcn_train.cu `carve`'s regions, each
+    rounded up to ALIGN_F floats, in its order."""
+    wg = route == "wgmma"
+    N = B * Ch * Tp
+    n = _al(N) * (5 if backward else 3)
+    pst = max([Ch, gemms[0].tiles(T), gemms[1].tiles(T)] if wg
+              else [Ch, -(-T // _TILE) * -(-Ch // _TILE)])
+    n += _al(B * pst * 2) + _al(6 * B) + sum(_al(s) for s in _param_sizes(C, Ch, k))
+    if backward:
+        n += _al(6 * B) + _al(B * Ch * 3)
+        if wg:
+            n += _al(B * max(gemms[3].tiles(T), gemms[4].tiles(T)) * Ch * 3)
+        n += _al(B * Ch * (1 + k))
+        n += _al(max(w.n_split * w.O * w.K for w in wgrads))
+        n += _al(max(w.n_split * w.O for w in wgrads))
+        if not wg:
+            n += _al(C * Ch) + _al(Ch * Ch) + _al(Ch * C)
+    if wg:
+        n += sum(_al(g.O * g.K // 2) for g in gemms[:6 if backward else 3])
+    return n
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, C: int, Ch: int, T: int, k: int, dtype, dilation: int = 1) -> TcnPlan:
+    """The route and launch geometry of one call (`make_plan` in
+    csrc/tcn_train.cu computes the same and refuses a plan that differs).
+
+    bf16 x with C and Ch in {64, 128, 256} takes the wgmma route: each 1x1
+    product keeps its weight resident and walks column tiles of 128 columns
+    of a sample (64 where O = 256: two m-blocks a warpgroup, or where 128
+    do not fit), two tile buffers and the epilogue's staging within
+    SMEM_MAX; each weight gradient splits the B * ceil(T / 64) chunks of 64
+    columns into at most H100_SMS / (O-blocks) fixed ranges, O-blocks of 128
+    rows where K = 256, else 256. Everything else (float32, other widths)
+    takes the CUDA cores: 64 x 64 tiles, the weight gradients over ranges of
+    at least SPLIT_COLS flat B*T columns (at most MAX_SPLIT). Raises
+    TcnPlanError where no route takes the shape."""
+    if dtype not in _KDT:
+        raise TcnPlanError(f"the kernel takes float32/bfloat16 x, not {dtype}")
+    if (k % 2 == 0 or k > _MAXK - 1 or min(B, C, Ch, T, k, dilation) <= 0
+            or B * T >= 2 ** 31):
+        raise TcnPlanError(f"no route for B={B} C={C} Ch={Ch} T={T} k={k} "
+                           f"dilation={dilation}")
+    wg = dtype == torch.bfloat16 and C in (64, 128, 256) and Ch in (64, 128, 256)
+    gemms = []
+    for O, K in _gemm_dims(C, Ch):
+        if not wg:
+            gemms.append(GemmPlan(O, K, _TILE, 0))
+            continue
+        for nc in ((64,) if O > 128 else (128, 64)):
+            smem = 1024 + 2 * O * K + 2 * 2 * nc * K + STAGE_BYTES
+            if smem <= SMEM_MAX:
+                break
+        else:
+            raise TcnPlanError(f"O={O} K={K}: no column tile fits {SMEM_MAX} bytes")
+        gemms.append(GemmPlan(O, K, nc, smem))
+    wgrads = []
+    for O, K in _wgrad_dims(C, Ch):
+        if wg:
+            ob = 128 * (1 if K // 64 >= 4 else 2)
+            n_ob = -(-O // ob)
+            nch = B * -(-T // WG_COLS)
+            n = max(1, min(H100_SMS // n_ob, nch))
+            per = -(-nch // n)
+            wgrads.append(WgradPlan(O, K, -(-nch // per), per, n_ob,
+                                    1024 + 2 * (ob + K) * 128))
+        else:
+            R = B * T
+            n = max(1, min(MAX_SPLIT, -(-R // SPLIT_COLS)))
+            per = -(-(-(-R // n)) // _RB) * _RB
+            wgrads.append(WgradPlan(O, K, -(-R // per), per, 1, 0))
+    pad = ((k - 1) // 2) * dilation
+    dw = (4 * (DW_SEG + 2 * pad), 4 * (2 * (DW_SEG + 2 * pad) + DW_SEG))
+    if dw[1] > SMEM_MAX:
+        raise TcnPlanError(f"dilation {dilation}: the depthwise halo does not fit "
+                           f"{SMEM_MAX} bytes")
+    route = "wgmma" if wg else "cuda_cores"
+    Tp = -(-T // 8) * 8
+    scr = [_scratch_floats(route, B, C, Ch, T, k, Tp, gemms, wgrads, bw)
+           for bw in (False, True)]
+    return TcnPlan(route, Tp, tuple(gemms), tuple(wgrads), dw, *scr)
 
 
 def _lib():
@@ -198,17 +363,31 @@ def _lib():
 
     lib = load("tcn_train")
     if not getattr(lib, "_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tcn_train_scratch_floats.argtypes = [i] * 7
-        lib.tcn_train_scratch_floats.restype = ctypes.c_long
-        lib.tcn_train_fwd.argtypes = [p, p] + [i] * 7 + [p]
+        p, i, l = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+        lib.tcn_train_plan_fields.restype = i
+        lib.tcn_train_plan.argtypes = [i] * 7 + [p, p]
+        lib.tcn_train_plan.restype = i
+        lib.tcn_train_fwd.argtypes = [p, p, p, l] + [i] * 8 + [p]
         lib.tcn_train_fwd.restype = i
-        lib.tcn_train_bwd.argtypes = [p, p] + [i] * 9 + [p]
+        lib.tcn_train_bwd.argtypes = [p, p, p, l] + [i] * 8 + [p]
         lib.tcn_train_bwd.restype = i
         lib.tcn_train_error_string.argtypes = [i]
         lib.tcn_train_error_string.restype = ctypes.c_char_p
         lib._bound = True
     return lib
+
+
+def source_plan(B, C, Ch, T, k, dilation, dtype):
+    """(plan fields, (forward, backward) scratch floats) as the CUDA source
+    computes them, or None where it takes no route: the card-side check of
+    `_plan` (the library is built on first use)."""
+    lib = _lib()
+    n = lib.tcn_train_plan_fields()
+    fields, scr = (ctypes.c_int * n)(), (ctypes.c_long * 2)()
+    if not lib.tcn_train_plan(B, C, Ch, T, k, dilation, _KDT[dtype],
+                              ctypes.addressof(fields), ctypes.addressof(scr)):
+        return None
+    return list(fields), tuple(scr)
 
 
 def _check(x, params: Sequence[torch.Tensor]):
@@ -235,6 +414,16 @@ def _check(x, params: Sequence[torch.Tensor]):
     return B, C, Ch, T, kw
 
 
+def _params(params):
+    """(the parameters as the kernel reads them, 1 where they are bf16): one
+    dtype for all, float32 or bfloat16, else float32 copies."""
+    dt = params[0].dtype
+    if dt not in _KDT or any(p.dtype != dt for p in params):
+        dt = torch.float32
+    return [p if p.dtype == dt and p.is_contiguous() else p.detach().to(dt).contiguous()
+            for p in params], _KDT[dt]
+
+
 def _ptrs(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
@@ -245,55 +434,55 @@ def _raise_on(err, lib, what):
                            + lib.tcn_train_error_string(err).decode())
 
 
-def _split_cols(R: int):
-    """(n_split, columns per split) of the weight-gradient product's B*T
-    columns: fixed ranges, a multiple of the stage depth, summed in a fixed
-    order."""
-    n = max(1, min(32, math.ceil(R / _SPLIT_COLS)))
-    cols = math.ceil(math.ceil(R / n) / _RB) * _RB
-    return math.ceil(R / cols), cols
+def _count(direction: str, route: str):
+    key = (direction, route)
+    LAUNCHES_BY_ROUTE[key] = LAUNCHES_BY_ROUTE.get(key, 0) + 1
+
+
+def _launch(fn, x, ptrs, pl, backward, dims, p_bf16):
+    lib = _lib()
+    n = pl.bwd_scratch if backward else pl.fwd_scratch
+    scratch = torch.empty(n, device=x.device, dtype=torch.float32)
+    fields = pl.ints()
+    plan = (ctypes.c_int * len(fields))(*fields)
+    with torch.cuda.device(x.device):
+        err = getattr(lib, fn)(ctypes.addressof(ptrs), ctypes.addressof(plan),
+                               scratch.data_ptr(), n, *dims, _KDT[x.dtype], p_bf16,
+                               torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, lib, fn)
 
 
 def _launch_fwd(x, params, dilation):
     global FWD_LAUNCHES
     B, C, Ch, T, kw = _check(x, params)
+    pl = _plan(B, C, Ch, T, kw, x.dtype, dilation)
     x = x.contiguous()
-    p32 = [p.detach().to(torch.float32).contiguous() for p in params]
+    ps, p_bf16 = _params(params)
     y = torch.empty_like(x)
-    lib = _lib()
-    scratch = torch.empty(lib.tcn_train_scratch_floats(B, C, Ch, T, kw, 0, 0),
-                          device=x.device, dtype=torch.float32)
-    ptrs = _ptrs([x, *p32, y])
-    with torch.cuda.device(x.device):
-        err = lib.tcn_train_fwd(ctypes.addressof(ptrs), scratch.data_ptr(), B, C,
-                                Ch, T, kw, dilation, _KDT[x.dtype],
-                                torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, lib, "tcn_train_fwd")
+    ptrs = _ptrs([x, *ps, y])
+    _launch("tcn_train_fwd", x, ptrs, pl, False,
+            (B, C, Ch, T, kw, dilation), p_bf16)
     FWD_LAUNCHES += 1
+    _count("fwd", pl.route)
     return y
 
 
 def _launch_bwd(x, dy, params, dilation):
     global BWD_LAUNCHES
     B, C, Ch, T, kw = _check(x, params)
-    f32 = dict(device=x.device, dtype=torch.float32)
+    pl = _plan(B, C, Ch, T, kw, x.dtype, dilation)
     x = x.contiguous()
     dy = dy.to(x.dtype).contiguous()
-    p32 = [p.detach().to(torch.float32).contiguous() for p in params]
-    w_t = [p32[i].t().contiguous() for i in (0, 9, 14)]   # W_in^T, W_pw^T, W_out^T
+    ps, p_bf16 = _params(params)
     dx = torch.empty_like(x)
-    grads = [torch.empty(p.shape, **f32) for p in params]
-    n_split, cols = _split_cols(B * T)
-    lib = _lib()
-    scratch = torch.empty(lib.tcn_train_scratch_floats(B, C, Ch, T, kw, 1, n_split),
-                          **f32)
-    ptrs = _ptrs([x, dy, *p32, *w_t, dx, *grads])
-    with torch.cuda.device(x.device):
-        err = lib.tcn_train_bwd(ctypes.addressof(ptrs), scratch.data_ptr(), B, C,
-                                Ch, T, kw, dilation, _KDT[x.dtype], n_split, cols,
-                                torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, lib, "tcn_train_bwd")
+    flat = torch.empty(sum(p.numel() for p in params), device=x.device, dtype=ps[0].dtype)
+    grads = list(torch.split(flat, [p.numel() for p in params]))
+    grads = [g.view(p.shape) for g, p in zip(grads, params)]
+    ptrs = _ptrs([x, dy, *ps, dx, *grads])
+    _launch("tcn_train_bwd", x, ptrs, pl, True,
+            (B, C, Ch, T, kw, dilation), p_bf16)
     BWD_LAUNCHES += 1
+    _count("bwd", pl.route)
     return (dx, *[g.to(p.dtype) for g, p in zip(grads, params)])
 
 
