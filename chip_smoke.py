@@ -9,12 +9,14 @@ width (random weights from a seed):
   0. device: torch / CUDA versions, the card's name and power limit;
   1. build: nvcc builds the seven CUDA sources from the checkout, in
      parallel, and prints each build's seconds and ptxas registers and spills,
-     and the tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) from
-     cuobjdump of the training LSTM kernels (every bf16 kernel has some,
-     every f32 one none), the TCN block's (its wgmma route's kernels have
-     HGMMA, the CUDA-core ones none), `dparn_attention` and `masker` (the
-     attention's and the resident convs' wgmma routes have HGMMA, no kernel
-     with float32 dots either);
+     and the tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma, IMMA:
+     int8 mma.sync) from cuobjdump of the training LSTM kernels (every bf16
+     kernel has some, every f32 one none), the TCN block's (its wgmma route's
+     kernels have HGMMA, the CUDA-core ones none), `dparn_attention`,
+     `masker` and `dual_path` (the attention's and the resident convs' wgmma
+     routes have HGMMA, no kernel with float32 dots either; the dual-path
+     passes' tensor-core kernels: both chains HMMA, their int8_hh builds IMMA
+     too, the projection HGMMA; the CUDA-core passes none);
   2. `fused_skim_frames` vs `fused_skim_frames_ref` on the card at the
      flagship shapes (f32 and bf16, 20 carried chunks), at a ragged batch and
      at a small shape, with CUDA-event timings of both;
@@ -58,7 +60,11 @@ width (random weights from a seed):
      bound and cuDNN's LSTM forward (C=128) as the yardstick;
   2e. `dual_path_chunk` vs its plain version at 2048 streams, a ragged 1,001
      and a small shape, f32 and bf16, over 10 carried chunks (y and the
-     four carries), with CUDA-event times of one chunk and the bound;
+     four carries), with CUDA-event times of one chunk and the bound; two
+     calls bit-equal; the passes launched by route (`LAUNCHES_BY_PASS`: the
+     model geometry's bf16 chunk on the tensor cores, A / C `mma`, B
+     `wgmma`; f32 on the CUDA cores) and one chunk's device ms by pass
+     (intra scans, intra projection, inter) from a profiler window;
   2f. `dparn_intra_pass` vs its plain version at R = 4,096 rows (2048
      streams x K = 2) of 64 tokens x 128, a ragged R = 2,002 and a small F =
      8, C = 16 case, f32 (max|d|/max|ref| <= 1e-4) and bf16 (SNR >= 30 dB),
@@ -71,8 +77,9 @@ width (random weights from a seed):
      and the 11 carries; the bars of 2f), with the time of one chunk, the
      bound and the port's route for the same layers (cuDNN convs + the
      bottleneck kernels) as the yardstick; two calls bit-equal, the launches
-     by path, and one call's device ms by pass (convs, attention, inter,
-     dual path, copies) from a profiler window;
+     by path and the dual-path passes by route, and one call's device ms by
+     pass (convs, attention, intra scans, intra projection, inter, copies)
+     from a profiler window;
   2h. the card's __dp4a rate (a loop in skim_stream.cu, CUDA events), the
      int8 products' peak; then the int8 and bf16-scratch variants at full
      width, each against its own plain version over 5 carried chunks:
@@ -84,7 +91,9 @@ width (random weights from a seed):
      xscr_half dual_path_chunk's y and the centers' u0h carry-out must lie
      on the bfloat16 grid and the control's must not. bf16 I/O: SNR >= 30
      dB. CUDA-event times beside the same kernel's f32 / bf16 times from 2,
-     2e, 2g, the bound (int8 at the measured dp4a rate) and the share of it;
+     2e, 2g, the bound (int8 at the measured dp4a rate on the CUDA cores; the
+     dual-path passes' bf16 int8 products at the dense int8 tensor-core rate,
+     1,979 T op/s) and the share of it;
   3. flagship: 6,375,440 parameters; `StreamingTSE.embed` launches the TCN
      kernel 5 times; 20 streamed ticks through `StreamingTSE.step(fused=True)`
      equal the offline `inference`, which launches the LSTM kernel 10 times
@@ -120,8 +129,9 @@ width (random weights from a seed):
   4b. NS serving: `make_session_server(half=True, dp_kernel=True)` at 256
      and 2048 sessions attached without enrollment, 25 ticks after 3
      warm-up, one `dual_path_chunk` per tick, every output finite, 0
-     underruns; tick p50/p99, the engine step alone, and bf16 slot 0
-     against the f32 engine (bar 35 dB);
+     underruns; the dual-path passes by route (`mma` / `wgmma`, 2 a tick
+     each; 4d, 4g and 4h likewise); tick p50/p99, the engine step alone, and
+     bf16 slot 0 against the f32 engine (bar 35 dB);
   4d. the same through `mk_kernel=True` (one `center_chunk` per tick, bar 25
      dB), printed beside 4b's numbers;
   4g. DPCRN at 2048 sessions through `make_session_server(half=True)` with
@@ -319,6 +329,10 @@ def _sass_name(mangled: str) -> str:
         pos += n
     ids = [i for i in ids if not i.startswith("_GLOBAL__N")]
     rest = mangled[pos:]
+    if ids and ids[-1] == "dp_chain_kernel":   # <INTER, Q8>: the pass and int8_hh
+        inter, q8 = re.findall(r"Lb([01])E", rest)[:2]
+        return f"dp_tc::dp_chain_kernel<{'C' if inter == '1' else 'A'}>" + (
+            "<q8>" if q8 == "1" else "")
     args = ""
     if rest.startswith("I"):
         t = rest[1:rest.find("EE") + 1] if "EE" in rest else rest[1:]
@@ -330,9 +344,9 @@ def _sass_name(mangled: str) -> str:
 
 
 def hmma_counts(build_dir: str, name: str) -> dict:
-    """{kernel: (mma.sync HMMA, wgmma HGMMA) tensor-core instructions} in the
-    SASS of a built library (`cuobjdump -sass`), {} where the toolkit has no
-    cuobjdump."""
+    """{kernel: (mma.sync HMMA, wgmma HGMMA, int8 mma.sync IMMA) tensor-core
+    instructions} in the SASS of a built library (`cuobjdump -sass`), {}
+    where the toolkit has no cuobjdump."""
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
         return {}
@@ -343,11 +357,13 @@ def hmma_counts(build_dir: str, name: str) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = _sass_name(m.group(1))
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn is not None and "HGMMA" in line:
             counts[fn][1] += 1
         elif fn is not None and "HMMA" in line:
             counts[fn][0] += 1
+        elif fn is not None and "IMMA" in line:
+            counts[fn][2] += 1
     return {k: tuple(v) for k, v in counts.items()}
 
 
@@ -1237,17 +1253,45 @@ def dp_weights(CH, H, gen, n_blocks=2):
     return ws
 
 
+def dp_plan(dpk, F, K, B, CH, H, dt, int8_hh: bool = False):
+    """The dual-path passes' launch plan of a call in dtype dt (weights and
+    dots) on this card."""
+    bf16 = dt == torch.bfloat16
+    return dpk._plan(F, K, B, CH, H, bf16, bf16, int8_hh,
+                     sms=torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def dp_pass_launches(plan, blocks: int, passes: str = "ABC") -> dict:
+    """The LAUNCHES_BY_PASS of calls on `plan` that ran `blocks` blocks."""
+    return {f"{p}:{plan.passes[p]}": blocks for p in passes}
+
+
 def dual_path_case(dpk, name, B, F, K, CH, H, reps, gen, dev):
     """`dual_path_chunk` kernel against its plain version on the card over
     DP_CHUNKS carried chunks, f32 then bf16 (x, weights, carries and dots),
-    with CUDA-event times of one chunk and the bound."""
+    with CUDA-event times of one chunk and the bound; two calls bit-equal,
+    the launches by pass on the plan's route, one call's device ms by pass."""
     ws = dp_weights(CH, H, gen)
     cgen = torch.Generator(device=dev).manual_seed(SEED)
     xs = [torch.randn(F, K, B, CH, device=dev, generator=cgen) for _ in range(DP_CHUNKS)]
     carries = [0.3 * torch.randn(F, B, H, device=dev, generator=cgen) for _ in range(4)]
-    res = {"name": name, "shape": f"B={B} F={F} K={K} CH={CH} H={H}"}
+    res = {"name": name, "shape": f"B={B} F={F} K={K} CH={CH} H={H}", "passes": {}}
     for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         wd = [w.to(dev, dt) for w in ws]
+        plan = dp_plan(dpk, F, K, B, CH, H, dt)
+        res[f"{label}_route"] = plan.route
+        x1 = xs[0].to(dt)
+        h1, c1 = [t.to(dt) for t in carries[:2]], [t.to(dt) for t in carries[2:]]
+        dpk.LAUNCHES_BY_PASS.clear()
+        first, second = dpk._launch(x1, h1, c1, wd, dt), dpk._launch(x1, h1, c1, wd, dt)
+        torch.cuda.synchronize()
+        flat = lambda o: [o[0]] + list(o[1]) + list(o[2])
+        if not all(torch.equal(a, b) for a, b in zip(flat(first), flat(second))):
+            raise AssertionError(f"{name} {label}: two calls of the kernel differ")
+        expect_launches(dict(dpk.LAUNCHES_BY_PASS), dp_pass_launches(plan, 4),
+                        f"{name} {label}: dual_path_chunk passes by route")
+        res["passes"][label] = dict(dpk.LAUNCHES_BY_PASS)
+        del first, second
         runs = []
         for fn in (dpk._launch, dpk.dual_path_chunk_ref):
             h, c = [t.to(dt) for t in carries[:2]], [t.to(dt) for t in carries[2:]]
@@ -1277,9 +1321,9 @@ def dual_path_case(dpk, name, B, F, K, CH, H, reps, gen, dev):
             if min(snr) < 30.0:
                 raise AssertionError(f"{name} bf16: SNR (y, h1, h2, c1, c2) {snr} dB < 30")
         del runs, got, want
-        x1 = xs[0].to(dt)
-        h1, c1 = [t.to(dt) for t in carries[:2]], [t.to(dt) for t in carries[2:]]
         res[f"{label}_ms"] = cuda_ms(lambda: dpk._launch(x1, h1, c1, wd, dt), reps)
+        res[f"{label}_split"] = center_split(lambda: dpk._launch(x1, h1, c1, wd, dt),
+                                             passes=DP_PASSES)
         res[f"{label}_plain_ms"] = cuda_ms(
             lambda: dpk.dual_path_chunk_ref(x1, h1, c1, wd, dt), 2, 1)
         res[f"{label}_bound"] = bound_ms(*dual_path_work(F, K, B, CH, H, dt), dt)
@@ -1458,16 +1502,22 @@ def flat_outs(outs) -> list:
     return flat
 
 
+#: the dual-path passes by kernel name, both routes (the CUDA-core kernels'
+#: names and the tensor-core ones: dp_chain_kernel<false, ..> is pass A,
+#: <true, ..> pass C)
+DP_PASSES = (("intra scans", r"dp_intra_kernel|dp_chain_kernel<false"),
+             ("intra proj", r"dp_proj(?:_tc)?_kernel"),
+             ("inter", r"dp_inter_kernel|dp_chain_kernel<true"),
+             ("copies", r"last_frame_kernel|to_half_kernel"))
 #: the wide center's passes by kernel name (`center_split`)
-CENTER_PASSES = (("convs", r"conv_(?:tc_)?kernel"), ("attention", r"dparn_(?:attn|wgmma)"),
-                 ("inter", r"dp_inter_kernel"), ("dual path", r"dp_(?:intra|proj)_kernel"),
-                 ("copies", r"last_frame_kernel|to_half_kernel"))
+CENTER_PASSES = (("convs", r"conv_(?:tc_)?kernel"),
+                 ("attention", r"dparn_(?:attn|wgmma)")) + DP_PASSES
 
 
-def center_split(fn, reps: int = 3) -> dict:
-    """{pass: device ms a call} of a wide-center call (`CENTER_PASSES`) from
-    a torch.profiler window over `reps` calls; {} when the profiler saw no
-    device time."""
+def center_split(fn, reps: int = 3, passes=CENTER_PASSES) -> dict:
+    """{pass: device ms a call} of a wide-center call (`CENTER_PASSES`; a
+    dual_path_chunk call with DP_PASSES) from a torch.profiler window over
+    `reps` calls; {} when the profiler saw no device time."""
     from torch.autograd import DeviceType
 
     fn()
@@ -1483,7 +1533,7 @@ def center_split(fn, reps: int = 3) -> dict:
             continue
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
-        key = next((k for k, pat in CENTER_PASSES if re.search(pat, e.key)), "other")
+        key = next((k for k, pat in passes if re.search(pat, e.key)), "other")
         split[key] = split.get(key, 0.0) + us / 1e3 / reps
     return split
 
@@ -1498,6 +1548,7 @@ def center_case(mkk, name, zoo_name, B, reps, dev):
     bf16 (x, carries, weights and dots), the full-width zoo masker's
     weights; CUDA-event time of one chunk, the bound, and the port's
     dp_kernel-style route for the same layers as the yardstick."""
+    from puresound_tpu_torch.ops import dual_path_kernel as dpk
     from puresound_tpu_torch.streaming.halfprec import to_half
 
     masker = full_width_masker(zoo_name, dev, SEED)
@@ -1535,11 +1586,17 @@ def center_case(mkk, name, zoo_name, B, reps, dev):
             by_path = getattr(mkk, "LAUNCHES_BY_PATH", None)
             if by_path is not None:
                 by_path.clear()
+            dpk.LAUNCHES_BY_PASS.clear()
             x1, c1 = xs[0].to(dt), [t.to(dt) for t in carries0]
             first, second = kern(x1, c1), kern(x1, c1)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(flat_outs(first), flat_outs(second))):
                 raise AssertionError(f"{name} {label}: two calls of the kernel differ")
+            expect_launches(dict(dpk.LAUNCHES_BY_PASS), dp_pass_launches(
+                dp_plan(dpk, F, K, B, chans[4], H, dt), 4,
+                "ABC" if name == "center_chunk" else "C"),
+                f"{name} {label}: the dual-path passes by route")
+            res.setdefault("passes", {})[label] = dict(dpk.LAUNCHES_BY_PASS)
             del first, second
             runs = []
             for fn in (lambda x, c: kern(x, c), lambda x, c: call(plain, x, c)):
@@ -1626,10 +1683,17 @@ def opts_of(variant: str) -> dict:
     return {k: True for k in variant.split("+")}
 
 
+#: the card's dense int8 tensor-core rate (H100 SXM data sheet), op/s: the
+#: peak of int8 products that run on mma.sync m16n8k32
+INT8_TC_OPS = 1979e12
+
+
 def mixed_bound(ops: dict, nbytes: float) -> tuple:
     """bound_ms for work of several types: each type's operations over its
-    own peak (int8: INT8_CORE_OPS), the times summed, against the bytes."""
-    t_ops = sum(v / (INT8_CORE_OPS if t == "int8" else PEAK_OPS[t]) for t, v in ops.items())
+    own peak ("int8": on the CUDA cores at INT8_CORE_OPS; "int8_tc": on the
+    tensor cores at INT8_TC_OPS), the times summed, against the bytes."""
+    peak = {"int8": INT8_CORE_OPS, "int8_tc": INT8_TC_OPS}
+    t_ops = sum(v / peak.get(t) if t in peak else v / PEAK_OPS[t] for t, v in ops.items())
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -1650,17 +1714,18 @@ def qskim_work(n, C, H, F, B, dt, variant, fusion="film"):
     return ops, weights + (2 * B * F * C + terms + 4 * n * B * H) * e
 
 
-def q_dual_path_work(work, F, K, B, H, dt, variant, n_blocks=2):
+def q_dual_path_work(work, F, K, B, H, dt, variant, n_blocks=2, tc=False):
     """A dual-path kernel's (flops, bytes) split by type: int8_hh moves the
     recurrent products (the two intra directions and the inter scan, h [H]
-    x W_hh [H, 4H] per row and step) to int8 and reads each of the 3 W_hh a
+    x W_hh [H, 4H] per row and step) to int8 ("int8_tc" where they run on
+    the tensor cores, `tc`: the bf16 route) and reads each of the 3 W_hh a
     block as 1 byte a weight plus its 4H float32 scales."""
     flops, nbytes = work
     if "int8_hh" not in variant:
         return {dt: flops}, nbytes
     hh = n_blocks * 3 * 2.0 * K * B * F * H * 4 * H
     e = torch.finfo(dt).bits // 8
-    return ({dt: flops - hh, "int8": hh},
+    return ({dt: flops - hh, "int8_tc" if tc else "int8": hh},
             nbytes - n_blocks * 3 * (H * 4 * H * (e - 1) - 16 * H))
 
 
@@ -1808,7 +1873,8 @@ def qdp_case(dpk, variant, reps, gen, dev):
         res[f"{label}_plain_ms"] = cuda_ms(
             lambda: dpk.dual_path_chunk_ref(x1, h1, c1, wd, dt, **kw), 2, 1)
         res[f"{label}_bound"] = mixed_bound(*q_dual_path_work(
-            dual_path_work(F, K, B, CH, H, dt), F, K, B, H, dt, variant))
+            dual_path_work(F, K, B, CH, H, dt), F, K, B, H, dt, variant,
+            tc=dp_plan(dpk, F, K, B, CH, H, dt, "int8_hh" in variant).route == "mma"))
     return res
 
 
@@ -1819,6 +1885,7 @@ def qcenter_case(mkk, name, zoo_name, B, variants, reps, dev):
     version over Q_CHUNKS carried chunks, f32 then bf16; one result a
     variant. Under xscr_half every chunk's f32 u0h carry-out (the last
     frame of the bottleneck's scratch) must lie on the bfloat16 grid."""
+    from puresound_tpu_torch.ops import dual_path_kernel as dpk
     from puresound_tpu_torch.streaming.halfprec import to_half
 
     masker = full_width_masker(zoo_name, dev, SEED)
@@ -1887,7 +1954,8 @@ def qcenter_case(mkk, name, zoo_name, B, variants, reps, dev):
             res[f"{label}_ms"] = cuda_ms(lambda: kern(x1, c1, **kw), reps)
             res[f"{label}_plain_ms"] = cuda_ms(lambda: ref(x1, c1, **kw), 2, 1)
             res[f"{label}_bound"] = mixed_bound(*q_dual_path_work(
-                center_work(name, F, K, B, chans, H, dt), F, K, B, H, dt, variant))
+                center_work(name, F, K, B, chans, H, dt), F, K, B, H, dt, variant,
+                tc=dp_plan(dpk, F, K, B, chans[4], H, dt, "int8_hh" in variant).route == "mma"))
     return list(out.values())
 
 
@@ -1921,7 +1989,12 @@ def quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base) -> dict:
             kernel = r["name"].split()[0]
             f32_ms, bf16_ms = base["fused_skim_frames gate" if " gate " in r["name"]
                                    else kernel]
-            int8_note = ", int8 at INT8_CORE_OPS" if "int8" in r["name"] else ""
+            # int8 products: CUDA cores (__dp4a), but the dual-path passes' bf16
+            # route runs them on the tensor cores (q_dual_path_work)
+            int8_note = {lb: ("" if "int8" not in r["name"] else
+                              ", int8 on the tensor cores at INT8_TC_OPS"
+                              if lb == "bf16" and kernel != "fused_skim_frames" else
+                              ", int8 at INT8_CORE_OPS") for lb in ("f32", "bf16")}
             grid = (f"; {r['grid_what']} on the bf16 grid: kernel {r['f32_on_bf16_grid']}, "
                     f"control {r['f32_control_on_bf16_grid']}" if "xscr_half" in r["name"]
                     else "")
@@ -1933,7 +2006,7 @@ def quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base) -> dict:
                 "; ".join(
                     f"{lb} ms kernel {r[f'{lb}_ms']:.3f} (the same kernel without the option "
                     f"{ms:.3f}), plain {r[f'{lb}_plain_ms']:.3f}, bound "
-                    f"{r[f'{lb}_bound'][0]:.3f} ({r[f'{lb}_bound'][1]}{int8_note}), share "
+                    f"{r[f'{lb}_bound'][0]:.3f} ({r[f'{lb}_bound'][1]}{int8_note[lb]}), share "
                     f"{100 * r[f'{lb}_bound'][0] / r[f'{lb}_ms']:.1f} %"
                     for lb, ms in (("f32", f32_ms), ("bf16", bf16_ms))) + f" [{card}]", t)
     return results
@@ -2063,8 +2136,15 @@ def engine_step_ms(engine, mode, options, x, n_slots, reps=10) -> list:
     return step_ms
 
 
+#: the dual-path passes a tick of bf16 NS serving launches, by route
+#: (dual_path_kernel.LAUNCHES_BY_PASS): DPCRN's two blocks run A, B and C,
+#: DPARN's wide center the inter pass C of each block
+DPCRN_TC_PASSES = {"A:mma": 2, "B:wgmma": 2, "C:mma": 2}
+DPARN_TC_PASSES = {"C:mma": 2}
+
+
 def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, card, phase,
-               options=None, by_option=None, by_path=None):
+               options=None, by_option=None, by_path=None, by_pass=None):
     """make_session_server(half=True, **mode) for the full-width NS model at
     n_slots sessions: NS_WARM warm-up ticks, then NS_TICKS ticks with
     exact launches, every output finite, 0 underruns; slot 0 in bf16
@@ -2073,7 +2153,9 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
     xscr_half) are bound to the server's step function, with `by_option` =
     (module, key): that many launches must carry the option and no plain
     version may run. `by_path` = (module, key, launches a tick): every launch
-    of the module must take that path (its LAUNCHES_BY_PATH)."""
+    of the module must take that path (its LAUNCHES_BY_PATH). `by_pass`:
+    the dual-path passes a tick launches by route (LAUNCHES_BY_PASS)."""
+    from puresound_tpu_torch.ops import dual_path_kernel as dpk
     from puresound_tpu_torch.streaming.deploy import make_session_server
     from puresound_tpu_torch.streaming.file_eval import engine_step_options
     from puresound_tpu_torch.streaming.server import ServeStats
@@ -2099,6 +2181,7 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
                     by_option[0].LAUNCHES_BY_OPTION.clear()
                 if by_path:
                     by_path[0].LAUNCHES_BY_PATH.clear()
+                dpk.LAUNCHES_BY_PASS.clear()
                 plain.calls = 0
             for i, sid in enumerate(sids):
                 server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
@@ -2122,6 +2205,10 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
     if by_path:
         expect_launches(paths, {by_path[1]: by_path[2] * NS_TICKS},
                         f"{zoo_name} serving {n_slots} slots, launches by path")
+    passes = dict(dpk.LAUNCHES_BY_PASS)
+    if by_pass is not None:
+        expect_launches(passes, {k: v * NS_TICKS for k, v in by_pass.items()},
+                        f"{zoo_name} serving {n_slots} slots, dual-path passes by route")
     stats = server.stats.snapshot()
     if stats["underrun_slot_ticks"] != 0:
         raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
@@ -2147,14 +2234,16 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
         f"{NS_TICKS} ticks of {chunk} samples after {NS_WARM} warm-up: every output "
         f"finite, launches ({names}) {launches}"
         + (f", every {by_path[0].__name__.rsplit('.', 1)[-1]} launch on path "
-           f"{by_path[1]!r} ({paths})" if by_path else "") + ", 0 underruns; tick p50 "
+           f"{by_path[1]!r} ({paths})" if by_path else "")
+        + (f", dual-path passes by route {passes}" if by_pass is not None else "")
+        + ", 0 underruns; tick p50 "
         f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; engine step "
         f"alone p50 {float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); bf16 slot 0 "
         f"vs the f32 engine SNR {half_snr:.1f} dB (bar {bar_db:g}); plain-version calls "
         f"{plain.calls} [{card}]", t)
     return {"launches": launches, "tick_p50": stats["tick_ms_p50"],
             "tick_p99": stats["tick_ms_p99"], "step_p50": float(np.median(step_ms)),
-            "snr": half_snr}
+            "snr": half_snr, "passes": passes}
 
 
 # ------------------------------------------------------------ phases 4e, 4f
@@ -3040,31 +3129,45 @@ def run(dev: torch.device) -> int:
     # center's resident convs: wgmma) and none in any kernel with float32 dots
     for lib, want in (("lstm_train", lambda k: "<bf16>" in k and "reduce" not in k),
                       ("tcn_train", lambda k: k.startswith("tcn_wg_")),
-                      ("dparn_attention", None), ("masker", None)):
+                      ("dparn_attention", None), ("masker", None), ("dual_path", None)):
         hmma = hmma_counts(_build.BUILD_DIR, lib)
         if not hmma:
-            log("1 build", f"cuobjdump not found: {lib} HMMA / HGMMA not read", t)
+            log("1 build", f"cuobjdump not found: {lib} HMMA / HGMMA / IMMA not read", t)
             continue
         log("1 build", f"{lib}.cu tensor-core instructions by kernel, HMMA (mma.sync) / "
-            "HGMMA (wgmma) (cuobjdump -sass): " + "; ".join(
-                f"{k} {a}/{b}" for k, (a, b) in sorted(hmma.items())), t)
+            "HGMMA (wgmma) / IMMA (int8 mma.sync) (cuobjdump -sass): " + "; ".join(
+                f"{k} {a}/{b}/{i}" for k, (a, b, i) in sorted(hmma.items())), t)
         if want is not None:
-            bad = [k for k, (a, b) in hmma.items() if want(k) != (a + b > 0)]
+            bad = [k for k, v in hmma.items() if want(k) != (sum(v) > 0)]
             if not any(want(k) for k in hmma):
                 bad.append("no kernel of the tensor-core route")
         elif lib == "dparn_attention":
             # wgmma in the bf16 route and tensor cores nowhere else
-            bad = [k for k, (a, b) in hmma.items()
-                   if (a + b > 0) != (k == "dparn_wgmma::attn_kernel")]
-            if not hmma.get("dparn_wgmma::attn_kernel", (0, 0))[1]:
+            bad = [k for k, v in hmma.items()
+                   if (sum(v) > 0) != (k == "dparn_wgmma::attn_kernel")]
+            if not hmma.get("dparn_wgmma::attn_kernel", (0, 0, 0))[1]:
                 bad.append("no HGMMA in the wgmma route")
         else:
             # float32 dots: the dtype-templated kernels without <db>
-            bad = [k for k, (a, b) in hmma.items()
-                   if ("<f32>" in k or "<bf16>" in k) and "<db>" not in k and a + b]
-            convs = [b for k, (a, b) in hmma.items() if "conv_tc_kernel" in k]
-            if not convs or not all(convs):
-                bad.append(f"HGMMA in the conv_tc_kernels: {convs}")
+            bad = [k for k, v in hmma.items()
+                   if ("<f32>" in k or "<bf16>" in k) and "<db>" not in k and sum(v)]
+            if lib == "masker":
+                convs = [b for k, (a, b, i) in hmma.items() if "conv_tc_kernel" in k]
+                if not convs or not all(convs):
+                    bad.append(f"HGMMA in the conv_tc_kernels: {convs}")
+            # the dual-path passes (both libraries): the tensor-core route's
+            # chains HMMA, and IMMA under int8_hh, its projection HGMMA; the
+            # CUDA-core passes none
+            for k, (a, b, i) in hmma.items():
+                if k.startswith("dual_path_passes::") and a + b + i:
+                    bad.append(f"{k}: tensor cores in a CUDA-core pass")
+                elif k.startswith("dp_tc::dp_chain_kernel") and not (
+                        a and (i if "<q8>" in k else not i)):
+                    bad.append(f"{k}: HMMA {a}, IMMA {i}")
+                elif k.startswith("dp_tc::dp_proj_tc_kernel") and not b:
+                    bad.append(f"{k}: no HGMMA")
+            if sum(k.startswith("dp_tc::") for k in hmma) != 6:
+                bad.append("not the 6 kernels of the dual-path tensor-core route")
         if bad:
             raise AssertionError(f"{lib}: tensor cores where they should not be, or "
                                  f"none where they should: {bad}")
@@ -3190,12 +3293,20 @@ def run(dev: torch.device) -> int:
         t = time.perf_counter()
         r = dual_path_case(dpk, name, B, F, K, CH, H, reps, gen, dev)
         dp_results[name] = r
-        log("2e dual_path", f"{r['shape']}, {DP_CHUNKS} carried chunks: f32 "
+        log("2e dual_path", f"{r['shape']}, {DP_CHUNKS} carried chunks: two calls "
+            f"bit-equal; passes by route {r['passes']}; f32 "
             f"max|d|/max|ref| (y, carries) {r['f32_rel']:.2e} (bar 1e-4), bf16 SNR "
             f"{r['bf16_snr_db']:.1f} dB (bar 30); " + "; ".join(
-                f"{lb} ms per chunk kernel {r[f'{lb}_ms']:.3f}, plain "
+                f"{lb} ms per chunk kernel {r[f'{lb}_ms']:.3f} (device ms by pass, profiler: "
+                f"{split_line(r[f'{lb}_split'])}), plain "
                 f"{r[f'{lb}_plain_ms']:.3f}, bound {r[f'{lb}_bound'][0]:.3f} "
                 f"({r[f'{lb}_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
+    # the model geometry's bf16 chunk took the tensor cores, f32 the CUDA cores
+    for name, _, _, _, CH, H, _ in DP_CASES:
+        r = dp_results[name]
+        if CH == H == 128 and (r["f32_route"], r["bf16_route"]) != ("cuda", "mma"):
+            raise AssertionError(f"2e {name}: routes f32 {r['f32_route']}, bf16 "
+                                 f"{r['bf16_route']}, not cuda, mma")
 
     # ------------------------------------ 2f. the DPARN intra attention pass
     attn_results = {}
@@ -3223,7 +3334,8 @@ def run(dev: torch.device) -> int:
         if (name, zoo_name, B, reps) != CENTER_RAGGED:
             center_results[name] = r
         log("2g center", f"{name}, {r['shape']}, {DP_CHUNKS} carried chunks: two calls "
-            f"bit-equal; launches by path {r['paths']}; f32 "
+            f"bit-equal; launches by path {r['paths']}; dual-path passes by route "
+            f"{r.get('passes')}; f32 "
             f"max|d|/max|ref| (y, 11 carries) {r['f32_rel']:.2e} (bar 1e-4), bf16 SNR "
             f"{r['bf16_snr_db']:.1f} dB (bar 30); " + "; ".join(
                 f"{lb} ms per chunk kernel {r[f'{lb}_ms']:.3f} (device ms by pass, profiler: "
@@ -3375,12 +3487,14 @@ def run(dev: torch.device) -> int:
         ("mk_kernel", {"mk_kernel": True}, (0, 0, 0, 1))], counters, (6, 0, 0, 0),
         dev, card, "3b ns")
     ns_serve = {n: ns_serving(ns, "ns_dpcrn_v0_causal", {"dp_kernel": True}, counters,
-                              (0, 0, 1, 0), 35.0, n, dev, card, "4b ns serving")
+                              (0, 0, 1, 0), 35.0, n, dev, card, "4b ns serving",
+                              by_pass=DPCRN_TC_PASSES)
                 for n in NS_SLOTS}
     ns_routes = ns["routes"]
     # ------------------------------- 4d. the wide-center route of DPCRN serving
     mk_serve = {n: ns_serving(ns, "ns_dpcrn_v0_causal", {"mk_kernel": True}, counters,
-                              (0, 0, 0, 1), 25.0, n, dev, card, "4d ns mk_kernel")
+                              (0, 0, 0, 1), 25.0, n, dev, card, "4d ns mk_kernel",
+                              by_pass=DPCRN_TC_PASSES)
                 for n in NS_SLOTS}
     log("4d ns mk_kernel", "tick p50 / engine step p50 ms, dp_kernel (4b) against mk_kernel: "
         + "; ".join(f"{n} slots {ns_serve[n]['tick_p50']:.3f} / {ns_serve[n]['step_p50']:.3f} "
@@ -3396,7 +3510,8 @@ def run(dev: torch.device) -> int:
             ("dp_kernel", "int8_hh+xscr_half", 20.0, (0, 0, 1, 0), dpk)):
         ns_q[(route, opt)] = ns_serving(
             ns, "ns_dpcrn_v0_causal", {route: True}, counters, per_tick, bar, NS_SLOTS[-1],
-            dev, card, "4g ns quantized", options=opts_of(opt), by_option=(mod, opt))
+            dev, card, "4g ns quantized", options=opts_of(opt), by_option=(mod, opt),
+            by_pass=DPCRN_TC_PASSES)
     del ns
 
     # ------------------------------------- 3c, 4c. NS: ns_dparn_v0_causal
@@ -3418,7 +3533,8 @@ def run(dev: torch.device) -> int:
     dparn_q = ns_serving(dparn, "ns_dparn_v0_causal", {"mk_kernel": True}, counters,
                          (0, 0, 0, 1), 25.0, DPARN_SLOTS[-1], dev, card, "4h dparn xscr_half",
                          options={"xscr_half": True}, by_option=(mkk, "xscr_half"),
-                         by_path=(mkk, "attn=wgmma,conv=resident", 1))
+                         by_path=(mkk, "attn=wgmma,conv=resident", 1),
+                         by_pass=DPARN_TC_PASSES)
     del dparn
 
     # ----------------------------------------------- 5. card vs CPU step
@@ -3561,6 +3677,9 @@ def run(dev: torch.device) -> int:
         "bound_by": dp["f32_bound"][1], "library_ms": None,
         "bf16_ms": dp["bf16_ms"], "bf16_plain_ms": dp["bf16_plain_ms"],
         "bf16_bound_ms": dp["bf16_bound"][0], "bf16_snr_db": dp["bf16_snr_db"],
+        "bf16_route": dp["bf16_route"], "device_ms_by_pass": {
+            lb: dp[f"{lb}_split"] for lb in ("f32", "bf16")},
+        "serving_passes_by_route": {n: r["passes"] for n, r in ns_serve.items()},
         "shape": dp["shape"]})
     at = attn_results["2048 streams"]
     kernels.append({
@@ -3592,7 +3711,9 @@ def run(dev: torch.device) -> int:
                         else "dparn_intra_pass + lstm_scan"),
             "bf16_ms": r["bf16_ms"], "bf16_plain_ms": r["bf16_plain_ms"],
             "bf16_bound_ms": r["bf16_bound"][0], "bf16_stock_ms": r["bf16_stock_ms"],
-            "bf16_snr_db": r["bf16_snr_db"], "shape": r["shape"]})
+            "bf16_snr_db": r["bf16_snr_db"], "passes_by_route": r.get("passes"),
+            "device_ms_by_pass": {lb: r[f"{lb}_split"] for lb in ("f32", "bf16")},
+            "shape": r["shape"]})
     q_launches = {
         "fused_skim_frames int8_hh": tse_q["int8_hh"]["launches"],
         "fused_skim_frames int8_full": tse_q["int8_full"]["launches"],
@@ -3620,6 +3741,11 @@ def run(dev: torch.device) -> int:
             "int8_peak": ("CUDA cores (__dp4a), int8_core_ops measured by phase 2h's "
                           "dp4a loop" if "int8" in name else None),
             "int8_core_ops": INT8_CORE_OPS if "int8" in name else None,
+            "bf16_int8_peak": (("tensor cores (mma.sync m16n8k32), int8_tc_ops"
+                                if kernel != "fused_skim_frames" else
+                                "CUDA cores (__dp4a), int8_core_ops")
+                               if "int8" in name else None),
+            "int8_tc_ops": INT8_TC_OPS if "int8" in name else None,
             "without_option_ms": base[base_key][0], "snr_db": r["f32_snr_db"],
             "snr_bar_db": r["f32_bar_db"], "control_snr_db": r["f32_control_snr_db"],
             "floor_snr_db": r["f32_floor_snr_db"],

@@ -1,11 +1,18 @@
 // The passes of DPCRN's dual-path bottleneck, shared by dual_path.cu
 // (dual_path_chunk) and masker.cu (the wide-center kernels, whose DPCRN
 // bottleneck is this code and whose DPARN bottleneck reuses its inter pass).
-// See dual_path.cu for what each pass computes and why it is built so.
+// See dual_path.cu for what each pass computes and why it is built so. Two
+// routes, chosen by the launch plan (ops/dual_path_kernel.py `_plan`, checked
+// again by dp_tc::check_plan): the tensor-core route of dual_path_tc.cuh
+// under bf16 weights and dots at the widths it takes, else the CUDA-core
+// passes below.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "dual_path_tc.cuh"
 #include "lstm_gates.cuh"
 
 namespace dual_path_passes {
@@ -342,11 +349,15 @@ struct Chunk {
   void* const* h_out;
   void* const* c_out;
   void* x_scr;              // float32, or bfloat16 under xscr_half (xs_bf16)
-  float* y_dir;
+  void* y_dir;              // yf / yb [2][F][R][H]: float32, bfloat16 on the tensor cores
   int n, F, K, B, CH, H, x_bf16, s_bf16, y_bf16, xs_bf16;
+  const int* plan;          // dp_tc::PLAN_FIELDS
+  const void* const* img;   // tensor cores: IMAGES per block (ops/dual_path_kernel.py tc_images)
+  __nv_bfloat16* x16;       // tensor cores without xscr_half: the bf16 copy of x_scr
 };
 
 constexpr int PER_BLOCK = 18;
+constexpr int IMAGES = 8;   // W_ih / W_hh of f, b, i; [PW_f; PW_b]^T; PW_i^T
 
 // xscr_half's first copy of x into the bfloat16 scratch
 __global__ void to_half_kernel(const void* src, int src_bf16, __nv_bfloat16* dst, long n) {
@@ -367,21 +378,15 @@ inline const float* scale_of(const Chunk& q, int blk, int i) {
 }
 
 template <typename WT, bool DB>
+cudaError_t run_tc(const Chunk& q, const void* x, int x_bf16, cudaStream_t stream);
+
+template <typename WT, bool DB>
 cudaError_t run(const Chunk& q, cudaStream_t stream) {
   const int H = q.H, CH = q.CH, R = q.K * q.B;
   const long NR = (long)q.F * R, NI = (long)q.F * q.B;
-  // the intra pass runs 2 directions; row groups as lstm_gates.cuh picks them
-  const int rg_a = row_groups(R, H, 2), rg_c = row_groups(NI, H, 1);
-  const int rg_b = row_groups(NR, CH, 1);
-  const int bt_a = rg_a * RB, bt_b = rg_b * RB, bt_c = rg_c * RB;
-  const int kt = tile_rows<WT>(4 * H);
-  const size_t w_bytes = sizeof(WT) * 2 * (size_t)kt * 4 * H;
-  const size_t smem_a = w_bytes + sizeof(float) * ((size_t)CH + 2 * H) * (bt_a + 4);
-  const size_t smem_b = sizeof(float) * ((size_t)2 * H * (bt_b + 4) + bt_b * (CH + 1) + 2 * bt_b);
-  const size_t smem_c = w_bytes + sizeof(float) * (((size_t)CH + 2 * H) * (bt_c + 4) +
-                                                   (size_t)bt_c * (CH + 1) + 2 * bt_c) +
-                        (q.s_hh ? sizeof(int) * 2 * (size_t)(H / 4) * (bt_c + 4) : 0);
-  cudaError_t err;
+  constexpr int w_bf16 = std::is_same<WT, __nv_bfloat16>::value;
+  cudaError_t err = dp_tc::check_plan(q.plan, q.F, q.K, q.B, CH, H, w_bf16, DB, q.s_hh != nullptr);
+  if (err != cudaSuccess) return err;
   const void* x = q.x;
   int x_bf16 = q.x_bf16;
   if (q.xs_bf16) {  // xscr_half: every pass reads the rounded copy
@@ -389,6 +394,13 @@ cudaError_t run(const Chunk& q, cudaStream_t stream) {
     x = q.x_scr;
     x_bf16 = 1;
   }
+  if (q.plan[0] == 1) return run_tc<WT, DB>(q, x, x_bf16, stream);
+  // the CUDA-core passes: the intra pass runs 2 directions; row groups as
+  // lstm_gates.cuh picks them, from the plan
+  const int rg_a = q.plan[1], rg_b = q.plan[4], rg_c = q.plan[6];
+  const int kt = tile_rows<WT>(4 * H);
+  const size_t smem_a = q.plan[3], smem_b = q.plan[5], smem_c = q.plan[8];
+  float* y_dir = static_cast<float*>(q.y_dir);
   if ((err = allow_smem(dp_intra_kernel<WT, DB>, smem_a)) != cudaSuccess) return err;
   if ((err = allow_smem(dp_proj_kernel<WT, DB>, smem_b)) != cudaSuccess) return err;
   if ((err = allow_smem(dp_inter_kernel<WT, DB>, smem_c)) != cudaSuccess) return err;
@@ -396,40 +408,152 @@ cudaError_t run(const Chunk& q, cudaStream_t stream) {
     const void* const* w = q.w + blk * PER_BLOCK;
     const bool first = blk == 0, last = blk == q.n - 1;
     IntraParams a{first ? x : q.x_scr, {w[0], w[3]}, {w[1], w[4]}, {w[2], w[5]},
-                  {scale_of(q, blk, 0), scale_of(q, blk, 1)}, q.y_dir,
+                  {scale_of(q, blk, 0), scale_of(q, blk, 1)}, y_dir,
                   first ? x_bf16 : q.xs_bf16, q.F, R, CH, H, rg_a, kt};
-    dp_intra_kernel<WT, DB><<<dim3((R + bt_a - 1) / bt_a, 2), warps(rg_a * H), smem_a,
+    dp_intra_kernel<WT, DB><<<dim3((R + RB * rg_a - 1) / (RB * rg_a), 2), warps(rg_a * H), smem_a,
                               stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    ProjParams b{q.y_dir, first ? x : q.x_scr, q.x_scr, w[6], w[7], w[8], w[9], w[10],
+    ProjParams b{y_dir, first ? x : q.x_scr, q.x_scr, w[6], w[7], w[8], w[9], w[10],
                  first ? x_bf16 : q.xs_bf16, q.xs_bf16, (int)NR, CH, H, rg_b};
-    dp_proj_kernel<WT, DB><<<(unsigned)((NR + bt_b - 1) / bt_b), warps(rg_b * CH), smem_b,
+    dp_proj_kernel<WT, DB><<<(unsigned)((NR + RB * rg_b - 1) / (RB * rg_b)), warps(rg_b * CH), smem_b,
                              stream>>>(b);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     InterParams c{q.x_scr, q.y, q.h_in[blk], q.c_in[blk], q.h_out[blk], q.c_out[blk],
                   w[11], w[12], w[13], w[14], w[15], w[16], w[17], scale_of(q, blk, 2),
                   last, q.y_bf16, q.s_bf16, q.xs_bf16, q.F, q.K, q.B, CH, H, rg_c, kt};
-    dp_inter_kernel<WT, DB><<<(unsigned)((NI + bt_c - 1) / bt_c), warps(rg_c * H), smem_c,
+    dp_inter_kernel<WT, DB><<<(unsigned)((NI + RB * rg_c - 1) / (RB * rg_c)), warps(rg_c * H), smem_c,
                               stream>>>(c);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-// one inter pass (C) alone: the DPARN bottleneck's inter section
+// The tensor-core route of every block (bf16 weights and dots): A and C on
+// mma.sync chains in clusters of 2, B on wgmma (dual_path_tc.cuh). Their x
+// operand is a bf16 copy: x itself when it is bf16, the scratch under
+// xscr_half, else x16, written by to_half for the first block and by the
+// epilogues of B (for C) and C (for the next block's A).
 template <typename WT, bool DB>
-cudaError_t run_inter(InterParams c, cudaStream_t stream) {
-  const long NI = (long)c.F * c.B;
-  c.RG = row_groups(NI, c.H, 1);
+cudaError_t run_tc(const Chunk& q, const void* x, int x_bf16, cudaStream_t stream) {
+  if constexpr (std::is_same<WT, __nv_bfloat16>::value && DB) {
+    using bf16 = __nv_bfloat16;
+    const int R = q.K * q.B;
+    const long NR = (long)q.F * R;
+    const bool q8 = q.s_hh != nullptr;
+    cudaError_t err;
+    const bf16* xa = static_cast<const bf16*>(x);
+    if (!x_bf16) {
+      if ((err = to_half(x, 0, q.x16, NR * q.CH, stream)) != cudaSuccess) return err;
+      xa = q.x16;
+    }
+    const bf16* xs16 = q.xs_bf16 ? static_cast<const bf16*>(q.x_scr) : q.x16;
+    bf16* y_dir = static_cast<bf16*>(q.y_dir);
+    for (int blk = 0; blk < q.n; ++blk) {
+      const void* const* w = q.w + blk * PER_BLOCK;
+      const void* const* im = q.img + blk * IMAGES;
+      const bool first = blk == 0, last = blk == q.n - 1;
+      dp_tc::ChainParams a{};
+      a.xa = first ? xa : xs16;
+      a.w_ih[0] = static_cast<const bf16*>(im[0]);
+      a.w_hh[0] = im[1];
+      a.w_ih[1] = static_cast<const bf16*>(im[2]);
+      a.w_hh[1] = im[3];
+      a.bias[0] = static_cast<const bf16*>(w[2]);
+      a.bias[1] = static_cast<const bf16*>(w[5]);
+      a.s_hh[0] = scale_of(q, blk, 0);
+      a.s_hh[1] = scale_of(q, blk, 1);
+      a.y_dir = y_dir;
+      a.F = q.F; a.K = q.K; a.B = q.B; a.R = R; a.CH = q.CH; a.H = q.H;
+      a.M = q.plan[1];
+      a.nbx = q.plan[2];
+      if ((err = dp_tc::launch_chain_q(a, false, q8, q.plan[3], stream)) != cudaSuccess) return err;
+      dp_tc::ProjParams b{y_dir, first ? x : q.x_scr, q.x_scr, q.xs_bf16 ? nullptr : q.x16,
+                          static_cast<const bf16*>(im[6]), static_cast<const bf16*>(w[8]),
+                          static_cast<const bf16*>(w[9]), static_cast<const bf16*>(w[10]), NR,
+                          first ? x_bf16 : q.xs_bf16, q.xs_bf16, q.H};
+      if ((err = dp_tc::launch_proj(b, q.CH, q.plan[5], stream)) != cudaSuccess) return err;
+      dp_tc::ChainParams c{};
+      c.xa = xs16;
+      c.w_ih[0] = static_cast<const bf16*>(im[4]);
+      c.w_hh[0] = im[5];
+      c.bias[0] = static_cast<const bf16*>(w[13]);
+      c.s_hh[0] = scale_of(q, blk, 2);
+      c.x = q.x_scr;
+      c.y = q.y;
+      c.x16_out = last || q.xs_bf16 ? nullptr : q.x16;
+      c.h_in = q.h_in[blk];
+      c.c_in = q.c_in[blk];
+      c.h_out = q.h_out[blk];
+      c.c_out = q.c_out[blk];
+      c.pw = static_cast<const bf16*>(im[7]);
+      c.pb = static_cast<const bf16*>(w[15]);
+      c.lg = static_cast<const bf16*>(w[16]);
+      c.lb = static_cast<const bf16*>(w[17]);
+      c.last = last;
+      c.y_bf16 = q.y_bf16;
+      c.s_bf16 = q.s_bf16;
+      c.xs_bf16 = q.xs_bf16;
+      c.F = q.F; c.K = q.K; c.B = q.B; c.R = R; c.CH = q.CH; c.H = q.H;
+      c.M = q.plan[6];
+      c.nbx = q.plan[7];
+      if ((err = dp_tc::launch_chain_q(c, true, q8, q.plan[8], stream)) != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  } else {
+    return cudaErrorInvalidConfiguration;   // the plan gives this route bf16 only
+  }
+}
+
+// one inter pass (C) alone: the DPARN bottleneck's inter section. `plan`:
+// dp_tc::PLAN_FIELDS; tensor cores: `img` its W_ih, W_hh and PW_i^T images,
+// `x16` a bf16 scratch for the rounded copy of x (unused under xscr_half)
+template <typename WT, bool DB>
+cudaError_t run_inter(InterParams c, const int* plan, const void* const* img,
+                      __nv_bfloat16* x16, cudaStream_t stream) {
+  constexpr int w_bf16 = std::is_same<WT, __nv_bfloat16>::value;
+  cudaError_t err = dp_tc::check_plan(plan, c.F, c.K, c.B, c.CH, c.H, w_bf16, DB,
+                                      c.s_hh != nullptr);
+  if (err != cudaSuccess) return err;
+  if (plan[0] == 1) {
+    if constexpr (w_bf16 && DB) {
+      using bf16 = __nv_bfloat16;
+      const long n = (long)c.F * c.K * c.B * c.CH;
+      if (!c.xs_bf16 && (err = to_half(c.x, 0, x16, n, stream)) != cudaSuccess) return err;
+      dp_tc::ChainParams t{};
+      t.xa = c.xs_bf16 ? static_cast<const bf16*>(c.x) : x16;
+      t.w_ih[0] = static_cast<const bf16*>(img[0]);
+      t.w_hh[0] = img[1];
+      t.bias[0] = static_cast<const bf16*>(c.bias);
+      t.s_hh[0] = c.s_hh;
+      t.x = c.x;
+      t.y = c.y;
+      t.h_in = c.h_in;
+      t.c_in = c.c_in;
+      t.h_out = c.h_out;
+      t.c_out = c.c_out;
+      t.pw = static_cast<const bf16*>(img[2]);
+      t.pb = static_cast<const bf16*>(c.pb);
+      t.lg = static_cast<const bf16*>(c.g);
+      t.lb = static_cast<const bf16*>(c.b);
+      t.last = c.last;
+      t.y_bf16 = c.y_bf16;
+      t.s_bf16 = c.s_bf16;
+      t.xs_bf16 = c.xs_bf16;
+      t.F = c.F; t.K = c.K; t.B = c.B; t.R = c.K * c.B; t.CH = c.CH; t.H = c.H;
+      t.M = plan[6];
+      t.nbx = plan[7];
+      return dp_tc::launch_chain_q(t, true, c.s_hh != nullptr, plan[8], stream);
+    } else {
+      return cudaErrorInvalidConfiguration;
+    }
+  }
+  c.RG = plan[6];
   c.KT = tile_rows<WT>(4 * c.H);
   const int bt = c.RG * RB;
-  const size_t smem = sizeof(WT) * 2 * (size_t)c.KT * 4 * c.H +
-                      sizeof(float) * (((size_t)c.CH + 2 * c.H) * (bt + 4) +
-                                       (size_t)bt * (c.CH + 1) + 2 * bt) +
-                      (c.s_hh ? sizeof(int) * 2 * (size_t)(c.H / 4) * (bt + 4) : 0);
-  cudaError_t err = allow_smem(dp_inter_kernel<WT, DB>, smem);
+  const size_t smem = plan[8];
+  err = allow_smem(dp_inter_kernel<WT, DB>, smem);
   if (err != cudaSuccess) return err;
-  dp_inter_kernel<WT, DB><<<(unsigned)((NI + bt - 1) / bt), warps(c.RG * c.H), smem,
+  dp_inter_kernel<WT, DB><<<(unsigned)(((long)c.F * c.B + bt - 1) / bt), warps(c.RG * c.H), smem,
                             stream>>>(c);
   return cudaGetLastError();
 }

@@ -190,13 +190,18 @@ __host__ __device__ inline int tile_rows_q(int KT) {
   return kt < 1 ? 1 : kt;
 }
 
-// row groups of 8 rows per CTA: as many as fit 512 threads (at most 64),
-// halved while the smaller tiles still fit one wave on the card's SMs (a
-// small batch spreads its serial chains over more SMs)
-inline int row_groups(long rows, int width, int copies) {
+// the current card's SMs (an H100 SXM's 132 where they cannot be read)
+inline int sm_count() {
   int sms = 132, dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// row groups of 8 rows per CTA: as many as fit 512 threads (at most 64),
+// halved while the smaller tiles still fit one wave on `sms` SMs (a small
+// batch spreads its serial chains over more SMs)
+inline int row_groups(long rows, int width, int copies, int sms = sm_count()) {
   int rg = 512 / width;
   rg = rg < 1 ? 1 : (rg > 64 ? 64 : rg);
   while (rg > 1 && (rows + RB * (rg / 2) - 1) / (RB * (rg / 2)) * copies <= sms) rg /= 2;

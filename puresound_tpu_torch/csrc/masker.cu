@@ -38,10 +38,16 @@
 // route. Under float32 dots (or weights) a CTA owns TM output rows (TM x
 // C_out <= 8,192) and walks its 6 (or 12, with the skip) taps, staging the
 // input rows [C_in][TM] and the tap's weights [C_in][C_out] in shared memory,
-// 4 x 8 outputs a thread on CUDA cores. A small copy kernel per carry; the
-// dual-path and inter passes as they are. The routes come from the plans of
-// ops/masker_kernel.py (`conv_plan`) and ops/dparn_attention_kernel.py
-// (`plan`), checked again here before any launch.
+// 4 x 8 outputs a thread on CUDA cores. A small copy kernel per carry. The
+// bottleneck's dual-path passes (DPCRN's three a block, DPARN's inter pass)
+// take dual_path_passes.cuh's route from their own plan: under bf16 dots and
+// weights the tensor-core passes of dual_path_tc.cuh (the intra and inter
+// chains on mma.sync in clusters of 2 CTAs, the intra projection on wgmma),
+// else the CUDA-core passes. What bounds the center now: the chains' step
+// latency and their shared-memory operand traffic (PERF.md has the device
+// ms by pass). The routes come from the plans of ops/masker_kernel.py
+// (`conv_plan`), ops/dparn_attention_kernel.py (`plan`) and
+// ops/dual_path_kernel.py (`_plan`), checked again here before any launch.
 //
 // int8_hh (DPCRN): the dual-path passes' int8 recurrent products (see
 // dual_path.cu). xscr_half: the bottleneck activation is a bfloat16 buffer;
@@ -488,6 +494,9 @@ struct Center {
   const long* cws;          // the conv weights' strides (in, out), 2 each
   const long* bws;          // the DPARN bottleneck weights' strides (2 each), or null
   void* conv_pack;          // the resident convs' weight images, in layer order
+  const void* const* dp_img;  // the bottleneck's tensor-core images (DPCRN 8, DPARN 3 a
+                              // block; ops/dual_path_kernel.py), or null
+  void* dp16;               // tensor cores: bf16 yf / yb (DPCRN) then x_scr's bf16 copy
   Limits lim;
 };
 
@@ -637,7 +646,14 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
   void* u0 = scr + se * n * (q.C2 + q.C3);
   void* u1 = scr + se * n * (q.C2 + q.C3 + q.C4);
   float* d4 = q.f32;
-  float* y_dir = d4 + n * q.CH;
+  // the dual-path passes' plan (dp_tc::PLAN_FIELDS) after the convs'; on the
+  // tensor cores yf / yb and x_scr's bf16 copy live in dp16
+  const int* dp_plan = q.plan + dparn_attn::PLAN_FIELDS + NCONV * CONV_PLAN_FIELDS;
+  const bool dp_tc_route = dp_plan[0] == 1;
+  __nv_bfloat16* dp16 = static_cast<__nv_bfloat16*>(q.dp16);
+  void* y_dir = dp_tc_route ? static_cast<void*>(dp16) : static_cast<void*>(d4 + n * q.CH);
+  __nv_bfloat16* x16 =
+      dp_tc_route && !q.xs_bf16 ? dp16 + (q.kind == 0 ? 2 * n * q.H : 0) : nullptr;
   void* xs = q.xs;
   const void* const* cin = q.cin;
   void* const* cout = q.cout;
@@ -661,7 +677,7 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
   if (q.kind == 0) {
     dual_path_passes::Chunk c{d4, cin + 7, cin + 9, q.bw, q.s_hh, xs, cout + 7, cout + 9,
                               xs, y_dir, 2, q.F, q.K, q.B, q.CH, q.H, 0, q.c_bf16,
-                              q.xs_bf16, q.xs_bf16};
+                              q.xs_bf16, q.xs_bf16, dp_plan, q.dp_img, x16};
     CHECK((dual_path_passes::run<WT, DB>(c, stream)));
   } else {
     constexpr int PER = dparn_attn::NW + 7;
@@ -698,7 +714,8 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
                                        cout[9 + blk], iw[0], iw[1], iw[2], iw[3], iw[4],
                                        iw[5], iw[6], nullptr, 0, q.xs_bf16, q.c_bf16,
                                        q.xs_bf16, q.F, q.K, q.B, q.CH, q.H, 0, 0};
-      CHECK((dual_path_passes::run_inter<WT, DB>(ip, stream)));
+      CHECK((dual_path_passes::run_inter<WT, DB>(
+          ip, dp_plan, q.dp_img ? q.dp_img + 3 * blk : nullptr, x16, stream)));
     }
   }
   CHECK(last_frame<DB>(q, xs, q.xs_bf16, cout[3], q.CH, 0, stream));
@@ -736,7 +753,9 @@ cudaError_t run(const Center& q, cudaStream_t stream) {
 // geo: kind (0 DPCRN, 1 DPARN), F, K, B, C0, C2, C3, C4, CH, Cu2, yC, H, FFD,
 // heads, x_bf16, carries_bf16, weights_bf16, dot_bf16, pe_bf16, xscr_half;
 // plan: the attention passes' (dparn_attn::PLAN_FIELDS, zeros for DPCRN),
-// then d2, d3, d4, u0, u1, u2's (CONV_PLAN_FIELDS each); packed: the wgmma
+// then d2, d3, d4, u0, u1, u2's (CONV_PLAN_FIELDS each), then the dual-path
+// passes' (dp_tc::PLAN_FIELDS); dp_img / dp16: the dual-path passes' tensor-
+// core images and bf16 scratch (dual_path_chunk's img / y_dir + x16); packed: the wgmma
 // attention's repacked weights (2 x 13 x 128 x 128 bf16) or null;
 // conv_strides / bneck_strides: each weight's (in, out) strides in elements
 // (the bottleneck's for DPARN only); conv_pack: the resident convs' weight
@@ -748,12 +767,13 @@ extern "C" int masker_center_chunk(const int* geo, const void* x, const void* pe
                                    const void* const* s_hh, void* y, void* scr,
                                    void* f32_scr, void* xs, const int* plan, void* packed,
                                    const long* conv_strides, const long* bneck_strides,
-                                   void* conv_pack, void* stream) {
+                                   void* conv_pack, const void* const* dp_img, void* dp16,
+                                   void* stream) {
   Center q{geo[0], geo[1], geo[2], geo[3], geo[4], geo[5], geo[6], geo[7], geo[8], geo[9],
            geo[10], geo[11], geo[12], geo[13], geo[14], geo[15], geo[16], geo[17], geo[18],
            geo[19], x, pe, carries_in, carries_out, conv_weights, bneck_weights, s_hh, y,
            scr, static_cast<float*>(f32_scr), xs, plan, packed, conv_strides,
-           bneck_strides, conv_pack, limits()};
+           bneck_strides, conv_pack, dp_img, dp16, limits()};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (q.w_bf16)
@@ -764,5 +784,6 @@ extern "C" int masker_center_chunk(const int* geo, const void* x, const void* pe
 }
 
 extern "C" const char* masker_error_string(int err) {
+  if (err == dp_tc::PLAN_MISMATCH) return "the dual-path plan differs from dual_path_tc.cuh's";
   return dparn_attn::error_string(err);
 }

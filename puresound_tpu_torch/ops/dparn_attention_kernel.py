@@ -34,6 +34,7 @@ from typing import Sequence
 
 import torch
 
+from .hardware import H100_SMS, SMEM_MAX, sm_count
 from .lstm_scan_kernel import _rounder
 
 #: kernel launches since the caller last set it to 0 (one per `_launch`)
@@ -98,8 +99,6 @@ def dparn_intra_pass_ref(x, pe, weights, heads: int, dot_dtype=torch.float32,
 
 
 # -------------------------------------------------------------------- plan
-SMEM_MAX = 232448        # shared memory a block may use on the H100 (bytes)
-H100_SMS = 132
 PATHS = ("cuda_cores", "wgmma")     # csrc/dparn_attention.cuh `Path`
 # the wgmma route's geometry and layout (csrc/dparn_wgmma.cuh)
 WG_F, WG_C, WG_HEADS = 64, 128, 8
@@ -159,11 +158,6 @@ def plan(R: int, F: int, C: int, FFD: int, heads: int, w_bf16: bool, dot_bf16: b
         raise AttnPlanError(f"F={F}, C={C}, FFD={FFD}: one row needs {smem} bytes of "
                             f"shared memory, more than {SMEM_MAX}")
     return AttnPlan("cuda_cores", 1, 0, 2, kt, smem, R)
-
-
-def sm_count(dev) -> int:
-    """The card's SMs (the persistent routes' CTAs)."""
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def packed_scratch(pl: AttnPlan, dev, blocks: int = 1):

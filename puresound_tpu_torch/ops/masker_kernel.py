@@ -59,8 +59,10 @@ from . import dparn_attention_kernel as dak
 from .dparn_attention_kernel import N_WEIGHTS as N_ATTN
 from .dparn_attention_kernel import aligned, as_views, check_geometry, check_weights
 from .dparn_attention_kernel import intra_core_ref, strides_of
+from . import dual_path_kernel as dpk
 from .dual_path_kernel import INTER_NAMES, block_names, dual_path_chunk_ref, half_store
 from .dual_path_kernel import inter_block_ref, kernel_weights
+from .hardware import H100_SMS, SMEM_MAX, sm_count
 from .lstm_scan_kernel import _rounder
 from .quant import option_key
 
@@ -219,7 +221,7 @@ def _tile_width(c: int) -> bool:
 
 
 def conv_plan(Ch: int, Cs: int, Co: int, rows: int, tensor_cores: bool,
-              sms: int = dak.H100_SMS) -> ConvPlan:
+              sms: int = H100_SMS) -> ConvPlan:
     """The route of one conv (`conv_plan` in csrc/masker.cu computes the
     same): Ch / Cs the h and skip parts' input channels (Cs 0: no skip), Co
     the output channels, `rows` = F * K * B output rows, `tensor_cores` bf16
@@ -240,16 +242,16 @@ def conv_plan(Ch: int, Cs: int, Co: int, rows: int, tensor_cores: bool,
                 continue
             for tm, ns in ((TC_TM, 3), (TC_TM, 2), (TC_TM // 2, 3), (TC_TM // 2, 2)):
                 smem = 1024 + 2 * 6 * n * (Ch + Cs) + 2 * ns * tm * cmax
-                if smem > dak.SMEM_MAX or (tm < TC_TM and n < 64):
+                if smem > SMEM_MAX or (tm < TC_TM and n < 64):
                     continue
                 per_sm = min(2, SMEM_PER_SM // (smem + BLOCK_RESERVE))
                 ctas = min(-(-rows // tm) * cs, sms * per_sm)
                 return ConvPlan("resident", cs, tm, ns, smem, ctas - ctas % cs)
     tm = min(8192 // Co, 256) & ~3
     smem = 4 * (cmax * (tm + 4) + cmax * Co)
-    if smem > dak.SMEM_MAX or tm == 0:
+    if smem > SMEM_MAX or tm == 0:
         raise MaskerPlanError(f"Ch={Ch}, Cs={Cs}, Co={Co}: no conv route fits "
-                              f"{dak.SMEM_MAX} bytes of shared memory")
+                              f"{SMEM_MAX} bytes of shared memory")
     return ConvPlan("streamed", 1, tm, 1, smem, -(-rows // tm))
 
 
@@ -262,7 +264,7 @@ def conv_layers(chans):
 
 
 def conv_plans(F: int, K: int, B: int, chans, tensor_cores: bool,
-               sms: int = dak.H100_SMS):
+               sms: int = H100_SMS):
     """The six convs' plans (d2, d3, d4, u0, u1, u2)."""
     return tuple(conv_plan(h, s, o, F * K * B, tensor_cores, sms)
                  for h, s, o in conv_layers(chans))
@@ -287,7 +289,7 @@ def _lib():
     lib = load("masker")
     if not getattr(lib, "_bound", False):
         p = ctypes.c_void_p
-        lib.masker_center_chunk.argtypes = [p] * 18
+        lib.masker_center_chunk.argtypes = [p] * 20
         lib.masker_center_chunk.restype = ctypes.c_int
         lib.masker_error_string.argtypes = [ctypes.c_int]
         lib.masker_error_string.restype = ctypes.c_char_p
@@ -377,13 +379,16 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
     if bneck_weights[0].dtype != wdt:
         raise TypeError("the conv and bottleneck weights must share one dtype")
     dev = x.device
-    sms = dak.sm_count(dev)
+    sms = sm_count(dev)
     tc = wdt == torch.bfloat16 and dot_dtype == torch.bfloat16
     convs = conv_plans(F, K, B, chans, tc, sms)
     attn = (dak.plan(K * B, F, CH, FFD, heads, wdt == torch.bfloat16,
                      dot_dtype == torch.bfloat16, sms) if kind == 1 else None)
+    dpp = dpk._plan(F, K, B, CH, H, wdt == torch.bfloat16, dot_dtype == torch.bfloat16,
+                    int8_hh, sms)
+    dp_tc = dpp.route == "mma"
     plan_ints = (attn.ints() if attn is not None else [0] * 7) + sum(
-        (c.ints() for c in convs), [])
+        (c.ints() for c in convs), []) + dpp.ints()
     packed = dak.packed_scratch(attn, dev, 2) if attn is not None else None
     n_pack = sum(pack_elems(*l) for l, c in zip(conv_layers(chans), convs)
                  if c.weights == "resident")
@@ -397,14 +402,20 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
     resident = all(c.weights == "resident" for c in convs)
     cw = as_views(conv_weights) if resident else aligned(conv_weights)
     if kind == 0:
-        bw, scales = kernel_weights(bneck_weights, int8_hh)
-    elif attn.path == "wgmma":
-        bw, scales = [], []
-        for b in range(2):
-            w = bneck_weights[b * DPARN_PER_BLOCK:(b + 1) * DPARN_PER_BLOCK]
-            bw += as_views(w[:N_ATTN]) + aligned(w[N_ATTN:])
+        bw, scales = kernel_weights(bneck_weights, int8_hh, dp_tc)
+        dp_img = dpk.tc_images(bneck_weights, int8_hh, 2) if dp_tc else None
     else:
-        bw, scales = aligned(bneck_weights), []
+        blocks = [bneck_weights[b * DPARN_PER_BLOCK:(b + 1) * DPARN_PER_BLOCK]
+                  for b in range(2)]
+        if attn.path == "wgmma":
+            bw, scales = [], []
+            for w in blocks:
+                bw += as_views(w[:N_ATTN]) + aligned(w[N_ATTN:])
+        else:
+            bw, scales = aligned(bneck_weights), []
+        # the inter pass's images: w_ih, w_hh, pw_i of each block
+        dp_img = (sum((dpk.inter_images(*w[N_ATTN:N_ATTN + 2], w[N_ATTN + 3])
+                       for w in blocks), []) if dp_tc else None)
     y = torch.empty((F, K, B, y_C), device=dev, dtype=x.dtype)
     outs = [torch.empty_like(t) for t in carries]
     sdt = torch.bfloat16 if dot_dtype == torch.bfloat16 else torch.float32
@@ -413,8 +424,11 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
     # when its weights are resident)
     scr = torch.empty(n * (C2 + C3 + C4 + Cu2 + (2 * CH if convs[3].weights == "resident"
                                                   else 0)), device=dev, dtype=sdt)
-    f32 = torch.empty(n * (CH + (2 * H if kind == 0 else 0)), device=dev,
+    f32 = torch.empty(n * (CH + (2 * H if kind == 0 and not dp_tc else 0)), device=dev,
                       dtype=torch.float32)                  # d4 (, yf / yb)
+    # the tensor-core dual-path passes: bf16 yf / yb (DPCRN), x_scr's bf16 copy
+    dp16 = (torch.empty(n * ((2 * H if kind == 0 else 0) + (0 if xscr_half else CH)),
+                        device=dev, dtype=torch.bfloat16) if dp_tc else None)
     xs = torch.empty(n * CH, device=dev,                    # the bottleneck's x_scr
                      dtype=torch.bfloat16 if xscr_half else torch.float32)
     geo = [kind, F, K, B, C0, C2, C3, C4, CH, Cu2, y_C, H, FFD, heads,
@@ -431,6 +445,7 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
             None if packed is None else packed.data_ptr(), strides_of(cw),
             strides_of(bw) if kind == 1 else None,
             None if conv_pack is None else conv_pack.data_ptr(),
+            arr(dp_img) if dp_tc else None, None if dp16 is None else dp16.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("wide-center launch failed: "
@@ -440,6 +455,7 @@ def _launch(kind, x, pe, dc, u0h, u0s, u1h, u2h, h_in, c_in, conv_weights,
     LAUNCHES_BY_OPTION[key] = LAUNCHES_BY_OPTION.get(key, 0) + 1
     pk = path_key(attn, convs)
     LAUNCHES_BY_PATH[pk] = LAUNCHES_BY_PATH.get(pk, 0) + 1
+    dpk.count_passes(dpp, 2, "ABC" if kind == 0 else "C")
     return (y, outs[0:3], outs[3], outs[4], outs[5], outs[6], outs[7:9], outs[9:11])
 
 
