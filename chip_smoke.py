@@ -16,15 +16,24 @@ width (random weights from a seed):
      `masker` and `dual_path` (the attention's and the resident convs' wgmma
      routes have HGMMA, no kernel with float32 dots either; the dual-path
      passes' tensor-core kernels: both chains HMMA, their int8_hh builds IMMA
-     too, the projection HGMMA; the CUDA-core passes none);
+     too, the projection HGMMA; the CUDA-core passes none), and
+     `skim_stream` (the three builds of the tensor-core kernel HMMA, its
+     int8_hh / int8_full builds IMMA too, the CUDA-core kernel none);
   2. `fused_skim_frames` vs `fused_skim_frames_ref` on the card at the
      flagship shapes (f32 and bf16, 20 carried chunks), at a ragged batch and
-     at a small shape, with CUDA-event timings of both;
+     at a small shape, with CUDA-event timings of both; every launch on the
+     route its plan names (bf16 at the flagship's widths: tensor cores; f32
+     and the small shape: CUDA cores), two calls bit-equal, one call's device
+     ms by kernel from a profiler window, and the bf16 plan's cluster size K
+     and rows a tile M beside the clusters in flight; the flagship at 256
+     streams too (the tile phases 4 and 4i serve: K=8, M=32), from a
+     generator of its own;
   2i. the Gate mode of `fused_skim_frames` vs its plain version with every
-     block a Gate at the flagship's width (Hg=128, B=1024), a ragged 1,001
+     block a Gate at the flagship's width (Hg=128, B=1024 and 256), a ragged 1,001
      and the mixed pattern ("gate", "", "gate") at C=H=16, over 10 carried
      chunks (f32 max|d|/max|ref| <= 1e-4, bf16 SNR >= 30 dB), with
-     CUDA-event times beside the FiLM kernel's from phase 2;
+     CUDA-event times beside the FiLM kernel's from phase 2, routes, two
+     calls bit-equal and the device ms as in phase 2;
   2b. `lstm_scan_train_fp` forward and backward vs their plain versions at
      the training shapes of phase 6 (SegLSTM 896 x 150, C=128, H=256;
      MemLSTM 64 x 14, C=H=256) and of the recipe (SegLSTM 240 x 150; MemLSTM
@@ -96,6 +105,8 @@ width (random weights from a seed):
      1,979 T op/s) and the share of it;
   3. flagship: 6,375,440 parameters; `StreamingTSE.embed` launches the TCN
      kernel 5 times; 20 streamed ticks through `StreamingTSE.step(fused=True)`
+     (f32: every launch on the CUDA cores; phases 4, 4e, 4f and 4i serve in
+     bf16, every launch on the tensor cores, and 3g in f32 on the CUDA cores)
      equal the offline `inference`, which launches the LSTM kernel 10 times
      (4 SegLSTM + 6 MemLSTM scans) and the TCN kernel 5 times;
   4. serving: `make_session_server(half=True, fused=True)` with 256 sessions
@@ -208,13 +219,19 @@ TCN_SOURCE = "puresound_tpu_torch/csrc/tcn_train.cu"
 # phase 2: (name, blocks, C, H, streams, frames, fusion modes)
 SKIM_CASES = [("flagship B=1024", 4, 128, 256, 1024, 15, ("film",) * 4),
               ("ragged B=1001", 4, 128, 256, 1001, 15, ("film",) * 4),
-              ("small C=16 H=16 B=13", 3, 16, 16, 13, 4, ("film", "", "film"))]
+              ("small C=16 H=16 B=13", 3, 16, 16, 13, 4, ("film", "", "film")),
+              ("flagship B=256", 4, 128, 256, 256, 15, ("film",) * 4)]
 # phase 2i: the Gate mode, the same columns; 10 carried chunks at the bars of
 # phases 2e-2g (f32 max|d|/max|ref| 1e-4, bf16 SNR 30 dB)
 GATE_HG = 128                       # the Gate width of a Gate SkiM (JAX skim.py:192-194)
 GATE_CASES = [("gate flagship B=1024", 4, 128, 256, 1024, 15, ("gate",) * 4),
               ("gate ragged B=1001", 4, 128, 256, 1001, 15, ("gate",) * 4),
-              ("gate mixed C=16 H=16 B=13", 3, 16, 16, 13, 4, ("gate", "", "gate"))]
+              ("gate mixed C=16 H=16 B=13", 3, 16, 16, 13, 4, ("gate", "", "gate")),
+              ("gate flagship B=256", 4, 128, 256, 256, 15, ("gate",) * 4)]
+# the 256-stream cases (the tile of phases 4 and 4i: clusters of 8, 32 rows
+# a tile) draw from generators of their own, so the other cases' data stay
+# as they were
+SERVE_SEEDS = {"flagship B=256": SEED + 2, "gate flagship B=256": SEED + 3}
 GATE_CHUNKS, GATE_BARS = 10, (1e-4, 30.0)
 # phase 2j: lstm_scan_train(_tm) and lstm_scan_train_fp_tm at the SegLSTM
 # shapes of phase 6, both directions, and its MemLSTM shape (the hoisted
@@ -413,12 +430,26 @@ def snr_db(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 # ------------------------------------------------------------------ phase 2
+#: fused_skim_frames's kernels by route (`center_split` patterns)
+SKIM_KERNELS = (("mma", r"skim_tc_kernel"), ("cuda", r"skim_frames_kernel"))
+
+
+def skim_route(dt, C, H, modes) -> str:
+    """The route fused_skim_frames's plan takes at the model geometry (bf16
+    dots at C=128, H=256, n >= 2: tensor cores) and elsewhere (CUDA cores)."""
+    geometry = C == 128 and H == 256 and len(modes) >= 2
+    return "mma" if dt == torch.bfloat16 and geometry else "cuda"
+
+
 @torch.no_grad()
 def kernel_case(ops, SkiM, name, n, C, H, B, F, modes, chunks, gen, dev,
                 bars=(1e-3, 40.0)):
     """Kernel vs plain over `chunks` carried chunks, f32 then bf16: f32
-    max|d|/max|ref| within bars[0], bf16 SNR at least bars[1] dB. The
-    masker's fusion is Gate when a mode is "gate", else FiLM."""
+    max|d|/max|ref| within bars[0], bf16 SNR at least bars[1] dB; every
+    launch on the route `skim_route` names (LAUNCHES_BY_ROUTE), two calls
+    bit-equal, one call's device ms by kernel from a profiler window; the
+    bf16 plan's (route, K, M) and the clusters of K in flight. The masker's
+    fusion is Gate when a mode is "gate", else FiLM."""
     masker = SkiM(input_size=C, hidden_size=H, output_size=C, n_blocks=n,
                   seg_size=F * 10, causal=True, embed_dim=192, embed_norm=True,
                   embed_fusion="Gate" if "gate" in modes else "FiLM",
@@ -432,11 +463,16 @@ def kernel_case(ops, SkiM, name, n, C, H, B, F, modes, chunks, gen, dev,
     h0 = (0.3 * torch.randn(n, B, H, generator=gen)).to(dev)
     c0 = (0.3 * torch.randn(n, B, H, generator=gen)).to(dev)
     res = {"name": name}
+    plan = ops.plan_on(dev, B, C, H, ge.shape[2], modes,
+                       torch.bfloat16)
+    res["bf16_plan"] = (f"{plan.route} K={plan.K} M={plan.M} (clusters in flight by K "
+                        f"{ops.tc_clusters(dev)})" if plan.route == "mma" else plan.route)
     for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         ws = w32 if dt == torch.float32 else ops.SkimWeights(
             w.to(dt) for w in w32)
         args = (se.to(dt), be.to(dt), ge.to(dt))
         runs = {}
+        ops.LAUNCHES_BY_ROUTE.clear()
         for fn in (ops.fused_skim_frames, ops.fused_skim_frames_ref):
             h, c = h0.to(dt), c0.to(dt)
             ys = []
@@ -445,6 +481,9 @@ def kernel_case(ops, SkiM, name, n, C, H, B, F, modes, chunks, gen, dev,
                 ys.append(y)
             runs[fn] = (torch.cat(ys, 1), h, c)
         torch.cuda.synchronize()
+        res[f"{label}_routes"] = dict(ops.LAUNCHES_BY_ROUTE)
+        expect_launches(res[f"{label}_routes"], {skim_route(dt, C, H, modes): chunks},
+                        f"{name} {label}, fused_skim_frames launches by route")
         got, want = runs[ops.fused_skim_frames], runs[ops.fused_skim_frames_ref]
         for t in got:
             if not torch.isfinite(t).all():
@@ -465,10 +504,15 @@ def kernel_case(ops, SkiM, name, n, C, H, B, F, modes, chunks, gen, dev,
                 raise AssertionError(f"{name} bf16: SNR (y, h, c) = {snrs} dB "
                                      f"< {bars[1]:g} dB")
         x1, h1, c1 = xs[0].to(dt), h0.to(dt), c0.to(dt)
+        call = lambda: ops.fused_skim_frames(x1, *args, h1, c1, ws, modes, dot_dtype=dt)
+        first, again = call(), call()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{name} {label}: two calls of the kernel differ")
         for fn, key in ((ops.fused_skim_frames, "ms"),
                         (ops.fused_skim_frames_ref, "plain_ms")):
             res[f"{label}_{key}"] = cuda_ms(
                 lambda: fn(x1, *args, h1, c1, ws, modes, dot_dtype=dt))
+        res[f"{label}_split"] = center_split(call, passes=SKIM_KERNELS)
     return res
 
 
@@ -1698,17 +1742,18 @@ def mixed_bound(ops: dict, nbytes: float) -> tuple:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def qskim_work(n, C, H, F, B, dt, variant, fusion="film"):
+def qskim_work(n, C, H, F, B, dt, variant, fusion="film", tc=False):
     """skim_work split by type: int8_hh moves h @ W_hh to int8, int8_full
-    every dot but the Gate's (JAX leaves those float); a quantized matrix is
-    read as 1 byte a weight plus its float32 scales."""
+    every dot but the Gate's (JAX leaves those float), "int8_tc" where they
+    run on the tensor cores (`tc`: the bf16 route at the model geometry); a
+    quantized matrix is read as 1 byte a weight plus its float32 scales."""
     e = torch.finfo(dt).bits // 8
     rows = 2.0 * B * F * n
     dots = {fusion: (fusion_macs(C, fusion), 2 * C), "ih": (C * 4 * H, 4 * H),
             "hh": (H * 4 * H, 4 * H), "proj": (H * C, C)}
     q = {"hh"} if variant == "int8_hh" else set(dots) - {"gate"}
     ops = {dt: sum(rows * m for k, (m, _) in dots.items() if k not in q),
-           "int8": sum(rows * m for k, (m, _) in dots.items() if k in q)}
+           "int8_tc" if tc else "int8": sum(rows * m for k, (m, _) in dots.items() if k in q)}
     weights = sum((m + 4 * s) if k in q else m * e for k, (m, s) in dots.items()) * n
     terms = n * B * GATE_HG if fusion == "gate" else 2 * n * B * C
     return ops, weights + (2 * B * F * C + terms + 4 * n * B * H) * e
@@ -1795,6 +1840,9 @@ def qskim_case(ops, SkiM, variant, reps, gen, dev, fusion="film"):
     c0 = (0.3 * torch.randn(n, B, H, generator=gen)).to(dev)
     res = {"name": f"fused_skim_frames {'gate ' if fusion == 'gate' else ''}{variant}",
            "shape": f"n={n} C={C} H={H} F={F} B={B}, {fusion}"}
+    plan = ops.plan_on(dev, B, C, H, ge.shape[2], modes, torch.bfloat16, int8_hh=True,
+                       int8_full="int8_full" in kw)
+    res["bf16_plan"] = f"{plan.route} K={plan.K} M={plan.M}"
     for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         cast = lambda ws, d=dt: ops.SkimWeights(w if w.dtype == torch.int8 else w.to(d)
                                                 for w in ws)
@@ -1806,6 +1854,7 @@ def qskim_case(ops, SkiM, variant, reps, gen, dev, fusion="film"):
             f64 = torch.float64
             specs.append((ops.fused_skim_frames_ref, cast(wq, f64), kw, f64))
         runs = []
+        ops.LAUNCHES_BY_ROUTE.clear()
         for fn, w, o, rdt in specs:
             h, c = h0.to(rdt), c0.to(rdt)
             ys = []
@@ -1815,14 +1864,23 @@ def qskim_case(ops, SkiM, variant, reps, gen, dev, fusion="film"):
                 ys.append(y)
             runs.append([torch.cat(ys, 1), h, c])
         torch.cuda.synchronize()
+        # the option's launches and the control's, on the plan's route
+        res[f"{label}_routes"] = dict(ops.LAUNCHES_BY_ROUTE)
+        expect_launches(res[f"{label}_routes"], {skim_route(dt, C, H, modes): 2 * Q_CHUNKS},
+                        f"{res['name']} {label}, launches by route")
         hold(res, label, *runs)
         check_bar(res, label)
         x1, h1, c1 = xs[0].to(dt), h0.to(dt), c0.to(dt)
+        first, again = (ops.fused_skim_frames(x1, *args, h1, c1, ws, modes, dot_dtype=dt, **kw)
+                        for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{res['name']} {label}: two calls of the kernel differ")
         res[f"{label}_ms"] = cuda_ms(lambda: ops.fused_skim_frames(
             x1, *args, h1, c1, ws, modes, dot_dtype=dt, **kw), reps)
         res[f"{label}_plain_ms"] = cuda_ms(lambda: ops.fused_skim_frames_ref(
             x1, *args, h1, c1, ws, modes, dot_dtype=dt, **kw), 2, 1)
-        res[f"{label}_bound"] = mixed_bound(*qskim_work(n, C, H, F, B, dt, variant, fusion))
+        res[f"{label}_bound"] = mixed_bound(*qskim_work(
+            n, C, H, F, B, dt, variant, fusion, skim_route(dt, C, H, modes) == "mma"))
     return res
 
 
@@ -1989,11 +2047,11 @@ def quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base) -> dict:
             kernel = r["name"].split()[0]
             f32_ms, bf16_ms = base["fused_skim_frames gate" if " gate " in r["name"]
                                    else kernel]
-            # int8 products: CUDA cores (__dp4a), but the dual-path passes' bf16
-            # route runs them on the tensor cores (q_dual_path_work)
+            # int8 products: CUDA cores (__dp4a) in float32, the tensor cores in
+            # the bf16 routes (qskim_work, q_dual_path_work)
             int8_note = {lb: ("" if "int8" not in r["name"] else
                               ", int8 on the tensor cores at INT8_TC_OPS"
-                              if lb == "bf16" and kernel != "fused_skim_frames" else
+                              if lb == "bf16" else
                               ", int8 at INT8_CORE_OPS") for lb in ("f32", "bf16")}
             grid = (f"; {r['grid_what']} on the bf16 grid: kernel {r['f32_on_bf16_grid']}, "
                     f"control {r['f32_control_on_bf16_grid']}" if "xscr_half" in r["name"]
@@ -2002,7 +2060,10 @@ def quant_phase(ops, SkiM, dpk, mkk, gen, dev, card, base) -> dict:
                 f"kernel vs plain SNR f32 {r['f32_snr_db']:.2f} dB (bar {r['f32_bar_db']:g}; "
                 f"control {r['f32_control_snr_db']:.2f}; the f32 plain version against "
                 f"itself in f64 {r['f32_floor_snr_db']:.2f}) / bf16 {r['bf16_snr_db']:.2f} dB (bar "
-                f"{r['bf16_bar_db']:g}; control {r['bf16_control_snr_db']:.2f}){grid}; " +
+                f"{r['bf16_bar_db']:g}; control {r['bf16_control_snr_db']:.2f}){grid}; "
+                + (f"bf16 plan {r['bf16_plan']}; " if "bf16_plan" in r else "")
+                + (f"launches by route (option and control) f32 {r['f32_routes']}, bf16 "
+                   f"{r['bf16_routes']}; two calls bit-equal; " if "f32_routes" in r else "") +
                 "; ".join(
                     f"{lb} ms kernel {r[f'{lb}_ms']:.3f} (the same kernel without the option "
                     f"{ms:.3f}), plain {r[f'{lb}_plain_ms']:.3f}, bound "
@@ -2302,6 +2363,7 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card, label="tse_skim_v0
                 server.stats = ServeStats()
                 ops.LAUNCHES = 0
                 ops.LAUNCHES_BY_OPTION.clear()
+                ops.LAUNCHES_BY_ROUTE.clear()
                 plain.calls = 0
             for i, sid in enumerate(sids):
                 server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
@@ -2319,6 +2381,8 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card, label="tse_skim_v0
     expect_launches(dict(ops.LAUNCHES_BY_OPTION), {option or "": NS_TICKS},
                     f"{what}, launches by option")
     expect_launches(plain.calls, 0, f"{what}, plain versions")
+    routes = dict(ops.LAUNCHES_BY_ROUTE)
+    expect_launches(routes, {"mma": NS_TICKS}, f"{what}, launches by route")
     stats = server.stats.snapshot()
     if stats["underrun_slot_ticks"] != 0:
         raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
@@ -2337,12 +2401,13 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card, label="tse_skim_v0
         f"{bound}, {n_slots} streams: engine step alone p50 "
         f"{float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}, {NS_TICKS} synced "
         f"steps); {NS_TICKS} server ticks of {chunk} samples after {NS_WARM} warm-up: every "
-        f"output finite, fused_skim_frames launches {launches} (all {option or 'no option'}), "
+        f"output finite, fused_skim_frames launches {launches} (all {option or 'no option'}; "
+        f"by route {routes}), "
         f"plain-version "
         f"calls {plain.calls}, 0 underruns; tick p50 {stats['tick_ms_p50']:.3f} ms, p99 "
         f"{stats['tick_ms_p99']:.3f} ms; slot 0 vs the f32 engine SNR {snr:.1f} dB (bar "
         f"{bar:g}) [{card}]", t)
-    return {"launches": launches, "tick_p50": stats["tick_ms_p50"],
+    return {"launches": launches, "routes": routes, "tick_p50": stats["tick_ms_p50"],
             "tick_p99": stats["tick_ms_p99"], "step_p50": float(np.median(step_ms)),
             "snr": snr}
 
@@ -2398,6 +2463,7 @@ def gate_full_width(ops, lk, tk, dev, card):
     for fused in (True, False):
         state = engine.init_state(n_str)
         ops.LAUNCHES = 0
+        ops.LAUNCHES_BY_ROUTE.clear()
         outs = []
         for k in range(ticks):
             y, state = engine.step(audio[:, k * S:(k + 1) * S], dvec, state, fused=fused)
@@ -2405,6 +2471,9 @@ def gate_full_width(ops, lk, tk, dev, card):
         torch.cuda.synchronize()
         launches[fused] = ops.LAUNCHES
         streamed[fused] = torch.cat(outs, -1)
+        # float32 dots: the CUDA-core kernel
+        expect_launches(dict(ops.LAUNCHES_BY_ROUTE), {"cuda": ticks} if fused else {},
+                        f"Gate streamed ticks (fused={fused}), launches by route")
     zero_counts(lk, tk)
     offline = model.inference(offline_equivalent_input(audio, 32, 16),
                               enroll)[:, :streamed[True].shape[-1]]
@@ -2462,6 +2531,7 @@ def transport_phase(ops, model, n_slots, dev, card):
                 torch.cuda.synchronize()
                 server.stats = ServeStats()
                 ops.LAUNCHES = 0
+                ops.LAUNCHES_BY_ROUTE.clear()
                 t_win = time.perf_counter()
             for i, sid in enumerate(sids):
                 server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
@@ -2474,6 +2544,8 @@ def transport_phase(ops, model, n_slots, dev, card):
         window_ms = 1e3 * (time.perf_counter() - t_win) / NS_TICKS
         launches = ops.LAUNCHES
         expect_launches(launches, NS_TICKS, f"{label} serving, fused_skim_frames")
+        expect_launches(dict(ops.LAUNCHES_BY_ROUTE), {"mma": NS_TICKS},
+                        f"{label} serving, fused_skim_frames launches by route")
         if kw.get("pipelined") and server.flush() != n_slots:
             raise AssertionError("flush() did not scatter the last tick")
         for i, sid in enumerate(sids):
@@ -2491,7 +2563,8 @@ def transport_phase(ops, model, n_slots, dev, card):
         f"{n_slots} sessions, {NS_TICKS} ticks after {NS_WARM} warm-up each: " + "; ".join(
             f"{label} tick p50 {st['tick_ms_p50']:.3f} ms, p99 {st['tick_ms_p99']:.3f} ms, "
             f"window {w:.3f} ms per tick ({n_slots * chunk / 16.0 / w:.1f} x real time, "
-            f"{chunk / 16.0:g} ms of audio a slot and tick), launches {n}"
+            f"{chunk / 16.0:g} ms of audio a slot and tick), launches {n} (all on the "
+            "tensor-core route)"
             for label, (_, st, n, w) in out.items())
         + f"; pipelined + pcm16 outputs bit-equal to unpipelined pcm16 ({pcm.size:,} "
         f"samples); pcm16 vs float32 transport SNR {snr:.1f} dB [{card}]", t)
@@ -3129,7 +3202,8 @@ def run(dev: torch.device) -> int:
     # center's resident convs: wgmma) and none in any kernel with float32 dots
     for lib, want in (("lstm_train", lambda k: "<bf16>" in k and "reduce" not in k),
                       ("tcn_train", lambda k: k.startswith("tcn_wg_")),
-                      ("dparn_attention", None), ("masker", None), ("dual_path", None)):
+                      ("dparn_attention", None), ("masker", None), ("dual_path", None),
+                      ("skim_stream", None)):
         hmma = hmma_counts(_build.BUILD_DIR, lib)
         if not hmma:
             log("1 build", f"cuobjdump not found: {lib} HMMA / HGMMA / IMMA not read", t)
@@ -3141,6 +3215,18 @@ def run(dev: torch.device) -> int:
             bad = [k for k, v in hmma.items() if want(k) != (sum(v) > 0)]
             if not any(want(k) for k in hmma):
                 bad.append("no kernel of the tensor-core route")
+        elif lib == "skim_stream":
+            # fused_skim_frames: every build of the tensor-core kernel HMMA,
+            # its int8 builds (<1> int8_hh, <3> int8_full) IMMA too; the
+            # CUDA-core kernel and the probes none
+            tc = sorted(k for k in hmma if k.startswith("skim_tc::skim_tc_kernel"))
+            bad = [] if tc == [f"skim_tc::skim_tc_kernel<{q}>" for q in (0, 1, 3)] else [
+                f"the tensor-core kernels {tc}"]
+            for k, (a, b, i) in hmma.items():
+                if k in tc and not (a and (i > 0) == (not k.endswith("<0>"))):
+                    bad.append(f"{k}: HMMA {a}, IMMA {i}")
+                elif k not in tc and a + b + i:
+                    bad.append(f"{k}: tensor cores in a CUDA-core kernel")
         elif lib == "dparn_attention":
             # wgmma in the bf16 route and tensor cores nowhere else
             bad = [k for k, v in hmma.items()
@@ -3177,13 +3263,18 @@ def run(dev: torch.device) -> int:
     results = []
     for name, n, C, H, B, F, modes in SKIM_CASES:
         t = time.perf_counter()
-        r = kernel_case(ops, SkiM, name, n, C, H, B, F, modes, 20, gen, dev)
+        g = torch.Generator().manual_seed(SERVE_SEEDS[name]) if name in SERVE_SEEDS else gen
+        r = kernel_case(ops, SkiM, name, n, C, H, B, F, modes, 20, g, dev)
         results.append(r)
         log("2 kernel", f"{name}: f32 max|d|/max|ref| {r['f32_rel_err']:.3e} "
             f"(max|d| {r['f32_max_abs_err']:.3e}), bf16 SNR "
-            f"{r['bf16_snr_db']:.1f} dB; median ms kernel/plain: f32 "
+            f"{r['bf16_snr_db']:.1f} dB; bf16 plan {r['bf16_plan']}; launches by route f32 "
+            f"{r['f32_routes']}, bf16 {r['bf16_routes']}; two calls bit-equal; median ms "
+            "kernel/plain: f32 "
             f"{r['f32_ms']:.3f}/{r['f32_plain_ms']:.3f}, bf16 "
-            f"{r['bf16_ms']:.3f}/{r['bf16_plain_ms']:.3f} [{card}]", t)
+            f"{r['bf16_ms']:.3f}/{r['bf16_plain_ms']:.3f}; one call's device ms by "
+            f"kernel (profiler): f32 {split_line(r['f32_split'])}, bf16 "
+            f"{split_line(r['bf16_split'])} [{card}]", t)
 
     # --------------------------------------- 2i. the Gate mode vs plain
     # phases 2i and 2j draw from generators of their own, so the data of
@@ -3192,7 +3283,9 @@ def run(dev: torch.device) -> int:
     gate_results = {}
     for name, n, C, H, B, F, modes in GATE_CASES:
         t = time.perf_counter()
-        r = kernel_case(ops, SkiM, name, n, C, H, B, F, modes, GATE_CHUNKS, gate_gen, dev,
+        g = (torch.Generator().manual_seed(SERVE_SEEDS[name]) if name in SERVE_SEEDS
+             else gate_gen)
+        r = kernel_case(ops, SkiM, name, n, C, H, B, F, modes, GATE_CHUNKS, g, dev,
                         GATE_BARS)
         gate_results[name] = r
         flag_ms = (f"; FiLM flagship (phase 2) f32 {results[0]['f32_ms']:.3f} / bf16 "
@@ -3200,9 +3293,12 @@ def run(dev: torch.device) -> int:
         log("2i gate", f"{name}, modes {modes}, {GATE_CHUNKS} carried chunks: f32 "
             f"max|d|/max|ref| {r['f32_rel_err']:.3e} (bar {GATE_BARS[0]:g}; max|d| "
             f"{r['f32_max_abs_err']:.3e}), bf16 SNR {r['bf16_snr_db']:.1f} dB (bar "
-            f"{GATE_BARS[1]:g}); median ms kernel/plain: f32 {r['f32_ms']:.3f}/"
-            f"{r['f32_plain_ms']:.3f}, bf16 {r['bf16_ms']:.3f}/{r['bf16_plain_ms']:.3f}"
-            f"{flag_ms} [{card}]", t)
+            f"{GATE_BARS[1]:g}); bf16 plan {r['bf16_plan']}; launches by route f32 "
+            f"{r['f32_routes']}, bf16 "
+            f"{r['bf16_routes']}; two calls bit-equal; median ms kernel/plain: f32 "
+            f"{r['f32_ms']:.3f}/{r['f32_plain_ms']:.3f}, bf16 {r['bf16_ms']:.3f}/"
+            f"{r['bf16_plain_ms']:.3f}{flag_ms}; one call's device ms by kernel (profiler): "
+            f"f32 {split_line(r['f32_split'])}, bf16 {split_line(r['bf16_split'])} [{card}]", t)
 
     # ------------------------------------- 2b. LSTM training kernel vs plain
     lstm_results = {}
@@ -3372,6 +3468,7 @@ def run(dev: torch.device) -> int:
                         "StreamingTSE.embed, TCN (fwd, bwd)")
         state = engine.init_state(n_str)
         ops.LAUNCHES = 0
+        ops.LAUNCHES_BY_ROUTE.clear()
         outs = []
         for k in range(ticks):
             y, state = engine.step(audio[:, k * S:(k + 1) * S], dvec, state,
@@ -3379,6 +3476,9 @@ def run(dev: torch.device) -> int:
             outs.append(y)
         torch.cuda.synchronize()
         launches = ops.LAUNCHES
+        # float32 dots: the CUDA-core kernel
+        expect_launches(dict(ops.LAUNCHES_BY_ROUTE), {"cuda": ticks},
+                        "streamed f32 ticks, fused_skim_frames launches by route")
         streamed = torch.cat(outs, -1)
         zero_counts(lk, tk)
         offline = model.inference(offline_equivalent_input(audio, 32, 16),
@@ -3397,7 +3497,7 @@ def run(dev: torch.device) -> int:
         f"{n_str} streams fused == offline inference: max|d| {err:.3e}, "
         f"max|y| {peak:.3e}; fused_skim_frames launches {launches}; offline "
         f"inference's LSTM and TCN kernel launches (fwd, bwd) {offline_launches}; "
-        f"embed's TCN launches 5", t)
+        f"embed's TCN launches 5; fused_skim_frames launches by route {{'cuda': {ticks}}}", t)
 
     # -------------------------------------------------------- 4. serving
     t = time.perf_counter()
@@ -3423,6 +3523,7 @@ def run(dev: torch.device) -> int:
     t_attach = time.perf_counter() - t
     served = np.zeros((n_slots, chunk * n_ticks), np.float32)
     ops.LAUNCHES = 0
+    ops.LAUNCHES_BY_ROUTE.clear()
     for k in range(n_ticks):
         for i, sid in enumerate(sids):
             server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
@@ -3438,6 +3539,9 @@ def run(dev: torch.device) -> int:
     serve_launches = ops.LAUNCHES
     stats = server.stats.snapshot()
     expect_launches(serve_launches, n_ticks, "serving ticks, fused_skim_frames")
+    serve_routes = dict(ops.LAUNCHES_BY_ROUTE)
+    expect_launches(serve_routes, {"mma": n_ticks},
+                    "bf16 serving ticks, fused_skim_frames launches by route")
     if stats["underrun_slot_ticks"] != 0:
         raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
     # slot 0 served in bf16 against the f32 engine on the same audio
@@ -3455,7 +3559,7 @@ def run(dev: torch.device) -> int:
     log("4 serving", f"{n_slots} sessions (attach {t_attach:.2f} s, "
         f"{5 * n_slots} TCN launches), "
         f"{n_ticks} ticks of {chunk} samples: {n_slots} finite outputs per "
-        f"tick, 0 underruns, launches {serve_launches}; tick p50 "
+        f"tick, 0 underruns, launches {serve_launches} (by route {serve_routes}); tick p50 "
         f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; "
         f"bf16 slot 0 vs f32 engine SNR {half_snr:.1f} dB [{card}]", t)
 
@@ -3565,6 +3669,8 @@ def run(dev: torch.device) -> int:
         "bf16_bound_ms": bound_ms(*skim_work(4, 128, 256, 15, 1024, torch.bfloat16),
                                   torch.bfloat16)[0],
         "bf16_snr_db": flag["bf16_snr_db"],
+        "launches_by_route": serve_routes, "bf16_route": "mma (skim_stream_tc.cuh)",
+        "device_ms_by_kernel": {lb: flag[f"{lb}_split"] for lb in ("f32", "bf16")},
         "shape": "n=4 C=128 H=256 F=15 B=1024"}]
     seg = lstm_results["SegLSTM"]
     # phase 6c's launches by entry
@@ -3599,6 +3705,8 @@ def run(dev: torch.device) -> int:
         "bf16_bound_ms": bound_ms(*skim_work(4, 128, 256, 15, 1024, torch.bfloat16, "gate"),
                                   torch.bfloat16)[0],
         "bf16_snr_db": gate_flag["bf16_snr_db"], "film_ms": flag["f32_ms"],
+        "launches_by_route": {n: r["routes"] for n, r in gate_serve.items()},
+        "device_ms_by_kernel": {lb: gate_flag[f"{lb}_split"] for lb in ("f32", "bf16")},
         "shape": "n=4 C=128 H=256 Hg=128 F=15 B=1024, every block a Gate"})
     seg_u = unfused_results["SegLSTM"]
     for half, i in (("fwd", 0), ("bwd", 1)):
@@ -3741,9 +3849,7 @@ def run(dev: torch.device) -> int:
             "int8_peak": ("CUDA cores (__dp4a), int8_core_ops measured by phase 2h's "
                           "dp4a loop" if "int8" in name else None),
             "int8_core_ops": INT8_CORE_OPS if "int8" in name else None,
-            "bf16_int8_peak": (("tensor cores (mma.sync m16n8k32), int8_tc_ops"
-                                if kernel != "fused_skim_frames" else
-                                "CUDA cores (__dp4a), int8_core_ops")
+            "bf16_int8_peak": ("tensor cores (mma.sync m16n8k32), int8_tc_ops"
                                if "int8" in name else None),
             "int8_tc_ops": INT8_TC_OPS if "int8" in name else None,
             "without_option_ms": base[base_key][0], "snr_db": r["f32_snr_db"],

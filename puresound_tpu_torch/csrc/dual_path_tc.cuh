@@ -40,16 +40,15 @@ constexpr int PLAN_MISMATCH = 10001;
 constexpr float LN_EPS = 1e-5f;
 
 // ------------------------------------------------------------ small parts
-__device__ __forceinline__ void cl_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cl_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cl_sync() {
-  cl_arrive();
-  cl_wait();
-}
+using hopper::cl_arrive;
+using hopper::cl_sync;
+using hopper::cl_wait;
+using hopper::ldsm_x2;
+using hopper::ldsm_x4;
+using hopper::mma_bf16;
+using hopper::mma_s8;
+using hopper::sigm_f;
+using hopper::tanh_f;
 
 // Element offsets in a [rows][L] tile whose 16-byte chunks are XOR-swizzled
 // by the row (chunk j of row r at j ^ (r % 8), fewer bits where a row has
@@ -62,47 +61,6 @@ __device__ __forceinline__ int swz2(int row, int k, int L) {   // bfloat16
 __device__ __forceinline__ int swz1(int row, int k, int L) {   // int8
   const int nch = L >> 4, m = (nch < 8 ? nch : 8) - 1;
   return row * L + ((((k >> 4) ^ (row & m))) << 4) + (k & 15);
-}
-
-// d += a . b: m16n8k16, bf16 operands, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// d += a . b: m16n8k32, int8 operands, exact int32 sums
-__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the cell's nonlinearities on the fast exponential (tanh as 1 - 2 / (1 +
-// e^2v)), as lstm_train.cu's chains: within about 1e-7 of expf-based ones
-__device__ __forceinline__ float sigm_f(float v) {
-  return __fdividef(1.0f, 1.0f + __expf(-v));
-}
-__device__ __forceinline__ float tanh_f(float v) {
-  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * v));
-}
-
-// four (two) 8 x 8 b16 matrices from shared memory: lane l gives the address
-// of row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x2(unsigned (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
 }
 
 __device__ __forceinline__ void st2(void* p, long i, float a, float b, int bf) {

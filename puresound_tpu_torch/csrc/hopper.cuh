@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by dparn_wgmma.cuh, masker.cu and
-// tcn_train.cu:
-// mbarriers, the bulk copy engine (TMA without a tensor map: cp.async.bulk
-// of a contiguous image into shared memory, completion counted in bytes on
-// an mbarrier), wgmma on bf16 operands in shared memory laid out K-major and
-// swizzled (`swz`, `desc_tile` below; B also MN-major, `desc_mn`), cp.async.
+// Hopper (sm_90a) building blocks shared by dparn_wgmma.cuh, masker.cu,
+// tcn_train.cu, dual_path_tc.cuh and skim_stream_tc.cuh: cluster barriers,
+// mma.sync and ldmatrix, mbarriers, the bulk copy engine (TMA without a
+// tensor map: cp.async.bulk of a contiguous image into shared memory,
+// completion counted in bytes on an mbarrier), wgmma on bf16 operands in
+// shared memory laid out K-major and swizzled (`swz`, `desc_tile` below; B
+// also MN-major, `desc_mn`), cp.async.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -13,6 +14,60 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------ cluster barriers
+__device__ __forceinline__ void cl_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cl_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cl_sync() {
+  cl_arrive();
+  cl_wait();
+}
+
+// ---------------------------------------------------- mma.sync, ldmatrix
+// d += a . b: m16n8k16, bf16 operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a . b: m16n8k32, int8 operands, exact int32 sums
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the cell's nonlinearities on the fast exponential (tanh as 1 - 2 / (1 +
+// e^2v)), as lstm_train.cu's chains: within about 1e-7 of expf-based ones
+__device__ __forceinline__ float sigm_f(float v) {
+  return __fdividef(1.0f, 1.0f + __expf(-v));
+}
+__device__ __forceinline__ float tanh_f(float v) {
+  return 1.0f - __fdividef(2.0f, 1.0f + __expf(2.0f * v));
+}
+
+// four (two) 8 x 8 b16 matrices from shared memory: lane l gives the address
+// of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
 }
 
 // ------------------------------------------------------------- mbarriers

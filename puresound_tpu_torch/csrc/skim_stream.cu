@@ -11,46 +11,58 @@
 //   out:   x += LN(h @ proj_w + proj_b)
 // Loads in the input dtype (float32 or bfloat16), all math in float32; with
 // bf16 weights (dot_dtype=bf16) each dot operand is rounded to bf16 and the
-// sum runs in float32. h/c stay in shared memory (float32) for the whole chunk
-// and are written back in the state's dtype; y is written in x's dtype.
+// sum runs in float32. h/c stay on chip (float32) for the whole chunk and
+// are written back in the state's dtype; y is written in x's dtype.
 //
 // What bounds it on the H100: the weights (flagship n=4, C=128, H=256: about
 // 1.8 M values, 3.7 MB in bf16 / 7.4 MB in f32) fit in the 50 MB L2 but not in
-// one SM's 227 KB of shared memory, so every CTA streams all of them from L2
-// once per frame: L2 bytes = weights x frames x tiles. The frame loop and the
-// block loop are serial (each step needs the previous h). Measured on an H100
-// SXM (80 GB, 700 W) at the flagship shapes in f32, the serial chain of one CTA
-// is the bound up to one wave (B <= 8 x 132): a chunk of 15 frames takes 4.7 ms
-// at B = 8 and 4.9 ms at B = 1024 (PERF.md).
+// one SM's 227 KB of shared memory, and the frame loop and the block loop are
+// serial (each step needs the previous h): a call is a chain of F x n block
+// steps (60 at the flagship's 15 frames), each of which must bring its
+// weights into the SMs that use them.
 //
-// What this design does about it: one CTA per tile of BT=8 streams, one thread
-// per hidden unit (looping when H > blockDim). Thread j computes the four gate
-// pre-activations of unit j for all 8 streams, so each weight is read once per
-// tile and frame and reused 8 times from a register; reads of a weight row are
-// coalesced across j; the cell update is thread-local and c of unit j never
-// leaves its owner's shared-memory slot. The tile's x and h values are
-// broadcast from shared memory. LayerNorm is one warp per stream. A ragged last
-// tile is masked. Tensor cores (wgmma) and TMA-fed weight tiles are later work.
+// Two routes, chosen by the launch plan (ops/skim_stream_kernel.py `_plan`,
+// computed again by skim_stream_tc.cuh `make_plan` at each launch; a plan
+// that differs is refused):
+//  - tensor cores (bf16 dots at C = 128, Hg = 128, n >= 2; the flagship's
+//    serving route, with and without int8_hh / int8_full, FiLM, Gate or
+//    unconditioned blocks), skim_stream_tc.cuh: clusters of K CTAs split
+//    the hidden units, M = 16 or 32 streams a tile; every product on
+//    mma.sync (bf16 m16n8k16, int8 m16n8k32), the weights streamed from L2
+//    through a bulk-copy ring in images the wrapper packs once; h exchanged
+//    through distributed shared memory, one cluster barrier a block step.
+//  - CUDA cores (float32 dots, and widths off the model geometry), below:
+//    one CTA per tile of BT=8 streams, one thread per hidden unit (looping
+//    when H > blockDim). Thread j computes the four gate pre-activations of
+//    unit j for all 8 streams, so each weight is read from L2 once per tile
+//    and frame and reused 8 times from a register; reads of a weight row are
+//    coalesced across j; the cell update is thread-local and c of unit j
+//    never leaves its owner's shared-memory slot. The tile's x and h values
+//    are broadcast from shared memory. LayerNorm is one warp per stream. A
+//    ragged last tile is masked. At the flagship's shapes in f32 the serial
+//    chain of one CTA is the bound up to one wave (B <= 8 x 132) (PERF.md).
 //
 // int8 (q_mode bit 0: int8_hh, the recurrent product; bit 1: int8_full, also
-// the FiLM dots, W_ih and the projection): JAX's dot_hh / dot_dyn. A warp per
-// stream quantizes the activation rows once per block step into shared memory
-// (clip(rint(v * 127)) for h; per-row amax, clip(rint(v / amax * 127)) for x
-// and xn), packed 4 a word along k; the quantized weights come packed the
-// same way ([K/4][N] words, w_q) with their scales already divided (w_s), so
-// thread j sums 4 products per __dp4a on the CUDA cores into int32 (exact)
-// and scales once: acc * s, or acc * (amax / 127) * s. A weight word is a
-// quarter of the float32 bytes, so L2 traffic per frame falls 4x for each
-// quantized matrix.
+// the FiLM dots, W_ih and the projection): JAX's dot_hh / dot_dyn. On the
+// CUDA cores a warp per stream quantizes the activation rows once per block
+// step into shared memory (clip(rint(v * 127)) for h; per-row amax,
+// clip(rint(v / amax * 127)) for x and xn), packed 4 a word along k; the
+// quantized weights come packed the same way ([K/4][N] words, w_q) with their
+// scales already divided (w_s), so thread j sums 4 products per __dp4a into
+// int32 (exact) and scales once: acc * s, or acc * (amax / 127) * s. The
+// tensor-core route sums the same int8 values exactly on m16n8k32 and scales
+// them the same way.
 //
 // Gate (gate_mask): four more products of width Hg per block step (x @ Win,
-// u @ Wl and u @ Wrx together, (left * right) @ Wout), thread o owning output
-// column o for the tile's 8 streams as in the FiLM dots, in the dot dtype
-// whatever q_mode says (JAX leaves them unquantized). Its two LayerNorms, the
-// PReLUs and the sigmoid run in one pass of the warp that owns the stream, so
-// a Gate block adds four barriers to the serial chain of block steps.
+// u @ Wl and u @ Wrx together, (left * right) @ Wout), in the dot dtype
+// whatever q_mode says (JAX leaves them unquantized). On the CUDA cores
+// thread o owns output column o for the tile's 8 streams as in the FiLM
+// dots; its two LayerNorms, the PReLUs and the sigmoid run in one pass of
+// the warp that owns the stream.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "skim_stream_tc.cuh"
 
 namespace {
 
@@ -601,17 +613,37 @@ extern "C" int skim_stream_frames(const void* x, const void* se, const void* be,
                                   const void* g_mat, const void* g_vec, int B, int F,
                                   int C, int H, int Hg, int n_blocks, int film_mask,
                                   int gate_mask, int x_bf16, int s_bf16, int w_bf16,
-                                  int q_mode, void* stream) {
+                                  int q_mode, const int* plan, const void* img,
+                                  void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = skim_tc::check_plan(plan, B, C, H, Hg, n_blocks, film_mask, gate_mask,
+                                        w_bf16, q_mode & 1, (q_mode >> 1) & 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (plan[0] == 1) {
+    const int M = plan[2];
+    const skim_tc::TcParams tp{x, se, be, ge, h_in, c_in, y, h_out, c_out,
+                               static_cast<const unsigned char*>(img),
+                               static_cast<const float*>(w_vec), static_cast<const float*>(w_s),
+                               static_cast<const float*>(g_vec), B, F, C, H, Hg, n_blocks,
+                               film_mask, gate_mask, x_bf16, s_bf16, plan[1], M, plan[3],
+                               plan[5], (B + M - 1) / M};
+    err = skim_tc::launch(tp, q_mode, plan[4], s);
+    return static_cast<int>(err == cudaSuccess ? cudaGetLastError() : err);
+  }
   Params p{x, se, be, ge, h_in, c_in, y, h_out, c_out, w_mat,
            static_cast<const float*>(w_vec), static_cast<const int*>(w_q),
            static_cast<const float*>(w_s), g_mat, static_cast<const float*>(g_vec),
            B, F, C, H, Hg, n_blocks, film_mask, gate_mask, x_bf16, s_bf16, q_mode};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      w_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
+  err = w_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s);
   return static_cast<int>(err);
 }
 
+// clusters of K CTAs of the tensor-core kernel in flight on the card
+// (cudaOccupancyMaxActiveClusters at one CTA an SM); 0 where none fits
+extern "C" int skim_tc_clusters(int K) { return skim_tc::sm_clusters(K); }
+
 extern "C" const char* skim_stream_error_string(int err) {
+  if (err == skim_tc::PLAN_MISMATCH)
+    return "the launch plan differs from skim_stream_tc.cuh make_plan's";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
