@@ -18,7 +18,9 @@ width (random weights from a seed):
      passes' tensor-core kernels: both chains HMMA, their int8_hh builds IMMA
      too, the projection HGMMA; the CUDA-core passes none), and
      `skim_stream` (the three builds of the tensor-core kernel HMMA, its
-     int8_hh / int8_full builds IMMA too, the CUDA-core kernel none);
+     int8_hh / int8_full builds IMMA too, the CUDA-core kernel none), and
+     `lstm_scan` (both builds of the tensor-core kernel HMMA, the CUDA-core
+     kernel none);
   2. `fused_skim_frames` vs `fused_skim_frames_ref` on the card at the
      flagship shapes (f32 and bf16, 20 carried chunks), at a ragged batch and
      at a small shape, with CUDA-event timings of both; every launch on the
@@ -64,9 +66,19 @@ width (random weights from a seed):
      version's distance;
   2d. `lstm_scan` vs its plain version at DPCRN's fused serving scans with
      2048 streams (intra 4,096 rows x 64 steps, forward and reverse; inter
-     131,072 rows x 2 steps with carries) and a ragged reverse case, f32 and
-     bf16 xp / weights / state with f32 dots, with CUDA-event times, the
-     bound and cuDNN's LSTM forward (C=128) as the yardstick;
+     131,072 rows x 2 steps with carries), DPARN's inter scan at 1024
+     streams (65,536 x 2), a bf16 xp / weights case with f32 h0 / c0 (its f32
+     hT / cT held within 1e-4 of max|ref|: the dots stayed f32), two ragged
+     1,001-row cases at H = 128 (a 9-row last tile; reverse with bf16 dots,
+     the one-piece build, and forward with f32 dots) and a ragged reverse
+     case at H = 24, f32 and bf16 xp / weights / state with f32 dots (bf16
+     dots where the case says): launches by route (`LAUNCHES_BY_ROUTE`:
+     every bf16 case at H = 128 on the tensor cores, `tc`; f32 and H = 24 on
+     `cuda`), two calls bit-equal, f32 within 1e-4 of max|ref|, bf16 SNR >=
+     40 dB, one call's device ms (CUDA events), the bound on the route's rule
+     (`tc`: three bf16 products a multiply-add, one under bf16 dots, at 989
+     TFLOP/s; `cuda`: one f32 FMA at 67) and cuDNN's LSTM forward (C=128) as
+     the yardstick;
   2e. `dual_path_chunk` vs its plain version at 2048 streams, a ragged 1,001
      and a small shape, f32 and bf16, over 10 carried chunks (y and the
      four carries), with CUDA-event times of one chunk and the bound; two
@@ -145,6 +157,8 @@ width (random weights from a seed):
      bf16 slot 0 against the f32 engine (bar 35 dB);
   4d. the same through `mk_kernel=True` (one `center_chunk` per tick, bar 25
      dB), printed beside 4b's numbers;
+  4j. the same through `fused=True` at 2048 sessions (6 `lstm_scan` per tick,
+     every one on the tensor cores, bar 35 dB);
   4g. DPCRN at 2048 sessions through `make_session_server(half=True)` with
      its step_fn bound to the option: `dp_kernel` + int8_hh, `mk_kernel` +
      int8_hh, `dp_kernel` + xscr_half, `mk_kernel` + xscr_half and
@@ -159,8 +173,8 @@ width (random weights from a seed):
   4c. DPARN serving: `make_session_server(half=True, fused=True,
      attn_kernel=True)` at 256 and 1024 sessions: 25 ticks after 3 warm-up,
      2 `dparn_intra_pass` and 2 `lstm_scan` per tick, every attention launch
-     on the wgmma path, 0 underruns, bf16 slot 0 against the f32 engine (bar
-     25 dB);
+     on the wgmma path and every scan on the tensor cores, 0 underruns, bf16
+     slot 0 against the f32 engine (bar 25 dB);
   4h. DPARN at 1024 sessions on `mk_kernel` + xscr_half, as 4g (bar 25 dB),
      every launch on the wgmma attention and resident convs;
   5. one f32 training step (B=2 x 1 s) on the card against the same step on
@@ -260,12 +274,26 @@ LSCAN_SOURCE = "puresound_tpu_torch/csrc/lstm_scan.cu"
 DP_REPLACES = "puresound_tpu/ops/dual_path_kernel.py:433"
 DP_SOURCE = "puresound_tpu_torch/csrc/dual_path.cu"
 # phase 2d: (name, rows, T, H, reverse, carries, the bf16 run's dot dtype,
-# timed repetitions), the DPCRN serving scans at 2048 streams (bf16 xp with
-# f32 dots, as the fused route runs them) and a ragged case with bf16 dots
-LSCAN_CASES = [("intra", 4096, 64, 128, False, False, torch.float32, 20),
-               ("intra reverse", 4096, 64, 128, True, False, torch.float32, 20),
-               ("inter", 131072, 2, 128, False, True, torch.float32, 20),
-               ("ragged reverse", 13, 7, 24, True, True, torch.bfloat16, 20)]
+# its state dtype, timed repetitions), the DPCRN serving scans at 2048
+# streams (bf16 xp, weights and state with f32 dots, as the fused route runs
+# them), DPARN's inter scan at 1024, bf16 xp / weights with f32 state (hT /
+# cT in f32, held to the f32 bar: the proof that the dots stayed f32), two
+# ragged row counts at H = 128 (1,001 rows: the last 16-row tile holds 9;
+# bf16 and f32 dots) and a ragged case at H = 24 with bf16 dots; the bf16
+# runs at H = 128 take the tensor cores, the rest the CUDA cores
+LSCAN_CASES = [("intra", 4096, 64, 128, False, False, torch.float32, torch.bfloat16, 20),
+               ("intra reverse", 4096, 64, 128, True, False, torch.float32, torch.bfloat16, 20),
+               ("inter", 131072, 2, 128, False, True, torch.float32, torch.bfloat16, 20),
+               ("DPARN inter", 65536, 2, 128, False, True, torch.float32, torch.bfloat16, 20),
+               ("f32 state", 4096, 16, 128, True, True, torch.float32, torch.float32, 10),
+               ("ragged reverse", 13, 7, 24, True, True, torch.bfloat16, torch.bfloat16, 20),
+               ("ragged tc", 1001, 7, 128, True, True, torch.bfloat16, torch.bfloat16, 10),
+               ("ragged tc f32 dots", 1001, 7, 128, False, True, torch.float32,
+                torch.bfloat16, 10)]
+# the cases added with the tensor-core route draw from generators of their own,
+# so the other cases' data stay as they were
+LSCAN_SEEDS = {"DPARN inter": SEED + 21, "f32 state": SEED + 22, "ragged tc": SEED + 23,
+               "ragged tc f32 dots": SEED + 24}
 # phase 2e: (name, streams, F, K, CH, H, timed repetitions)
 DP_CASES = [("2048 streams", 2048, 64, 2, 128, 128, 10),
             ("ragged B=1001", 1001, 64, 2, 128, 128, 5),
@@ -1201,13 +1229,24 @@ def tcn_seed_sweep(tk, dev, card):
 
 
 # ------------------------------------------------------------------ phase 2d
-def lscan_work(B, T, H, dt):
-    """(operations, bytes) of one lstm_scan call: the H x 4H recurrent dot
-    per row and step; xp, w_hh and h0 / c0 read once, y and hT / cT written
-    once (xp, y and the state in `dt`)."""
-    e = torch.finfo(dt).bits // 8
+def lscan_work(B, T, H, dt, state_dt=None):
+    """(multiply-add operations x 2, bytes) of one lstm_scan call: the H x 4H
+    recurrent dot per row and step; xp, w_hh and h0 / c0 read once, y and hT
+    / cT written once (xp, y and w_hh in `dt`, the state in `state_dt`)."""
+    e, es = torch.finfo(dt).bits // 8, torch.finfo(state_dt or dt).bits // 8
     G = 4 * H
-    return 2.0 * B * T * H * G, (B * T * G + H * G + 4 * B * H + B * T * H) * e
+    return 2.0 * B * T * H * G, (B * T * G + H * G + B * T * H) * e + 4 * B * H * es
+
+
+def lscan_bound(plan, B, T, H, dt, state_dt=None):
+    """The least time of a call on its route: on the tensor cores each
+    multiply-add is `plan.pieces` bf16 products (three exact pieces of h
+    under float32 dots, one under bfloat16 dots) at 989 TFLOP/s; on the CUDA
+    cores one float32 FMA at 67 TFLOP/s; against bytes at 3.35 TB/s."""
+    flops, nbytes = lscan_work(B, T, H, dt, state_dt)
+    if plan.route == "tc":
+        return bound_ms(plan.pieces * flops, nbytes, torch.bfloat16)
+    return bound_ms(flops, nbytes, torch.float32)
 
 
 def cudnn_lstm_fwd_ms(B, T, C, H, dt, dev, reps):
@@ -1225,44 +1264,69 @@ def cudnn_lstm_fwd_ms(B, T, C, H, dt, dev, reps):
         return None
 
 
-def lstm_scan_case(lsk, name, B, T, H, reverse, carries, bf16_dot, gen, dev, reps):
+def lstm_scan_case(lsk, name, B, T, H, reverse, carries, bf16_dot, bf16_state, gen, dev,
+                   reps):
     """`lstm_scan` kernel against its plain version on the card, f32 then
-    bf16 xp / weights / state with `bf16_dot` dots (f32 on the fused serving
-    route), with CUDA-event times, the bound and cuDNN's forward."""
+    bf16 xp / weights with `bf16_dot` dots (f32 on the fused serving route)
+    and `bf16_state` h0 / c0: the route each call took (LAUNCHES_BY_ROUTE;
+    bf16 at H = 128 on the tensor cores, the rest on the CUDA cores), two
+    calls bit-equal, the bars (f32 and every float32 output: max|d| <= 1e-4
+    max|ref|; bf16 outputs: SNR >= 40 dB), one call's device ms (CUDA
+    events), the plain version's, the bound on the route's rule and cuDNN's
+    forward."""
     k = 1.0 / math.sqrt(H)
     xp = torch.randn(B, T, 4 * H, generator=gen)
     h0 = 0.3 * torch.randn(B, H, generator=gen) if carries else torch.zeros(B, H)
     c0 = 0.3 * torch.randn(B, H, generator=gen) if carries else torch.zeros(B, H)
     w = (torch.rand(H, 4 * H, generator=gen) * 2 - 1) * k
+    bf = torch.bfloat16
     res = {"name": name, "shape": f"rows={B} T={T} H={H} reverse={reverse}, bf16 run "
-           f"with {str(bf16_dot)[6:]} dots"}
-    for label, dt, dot in (("f32", torch.float32, torch.float32),
-                           ("bf16", torch.bfloat16, bf16_dot)):
-        args = [a.to(dev, dt) for a in (xp, h0, c0, w)]
+           f"with {str(bf16_dot)[6:]} dots and {str(bf16_state)[6:]} state"}
+    for label, dt, dot, sdt in (("f32", torch.float32, torch.float32, torch.float32),
+                                ("bf16", bf, bf16_dot, bf16_state)):
+        args = [xp.to(dev, dt), h0.to(dev, sdt), c0.to(dev, sdt), w.to(dev, dt)]
+        plan = lsk._plan(B, H, dt == bf, dt == bf, dot == bf)
+        want_route = "tc" if dt == bf and H in lsk.TC_WIDTHS else "cuda"
+        if plan.route != want_route:
+            raise AssertionError(f"{name} {label}: plan {plan}, not the {want_route} route")
+        lsk.LAUNCHES_BY_ROUTE.clear()
         got = lsk._launch(*args, reverse, dot)
+        again = lsk._launch(*args, reverse, dot)
         want = lsk.lstm_scan_ref(*args, reverse, dot)
         torch.cuda.synchronize()
+        expect_launches(dict(lsk.LAUNCHES_BY_ROUTE), {want_route: 2},
+                        f"lstm_scan {name} {label}, launches by route")
+        res[f"{label}_route"] = plan.route
+        res[f"{label}_pieces"] = plan.pieces
+        res[f"{label}_bit_equal"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not res[f"{label}_bit_equal"]:
+            raise AssertionError(f"{name} {label}: two calls differ")
         for g in got:
             if not torch.isfinite(g).all():
                 raise AssertionError(f"{name} {label}: non-finite kernel output")
+        rel = [((g.float() - r.float()).abs().max() / r.float().abs().max()).item()
+               for g, r in zip(got, want)]
+        snr = [snr_db(g, r) for g, r in zip(got, want)]
+        f32_out = [g.dtype == torch.float32 for g in got]
+        bad = [i for i in range(3) if (rel[i] > 1e-4 if f32_out[i] else snr[i] < 40.0)]
+        if bad:
+            raise AssertionError(f"{name} {label}: (y, hT, cT) max|d|/max|ref| {rel}, SNR "
+                                 f"{snr} dB; over the bar (f32 1e-4, bf16 40 dB): {bad}")
         if dt == torch.float32:
-            rel = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(got, want)]
             res["f32_rel"] = max(rel)
             res["f32_max_abs_err"] = max((g - r).abs().max().item() for g, r in zip(got, want))
-            if max(rel) > 1e-4:
-                raise AssertionError(f"{name} f32: max|d|/max|ref| (y, hT, cT) {rel} > 1e-4")
         else:
-            snr = [snr_db(g, r) for g, r in zip(got, want)]
-            res["bf16_snr_db"] = min(snr)
-            if min(snr) < 40.0:
-                raise AssertionError(f"{name} bf16: SNR (y, hT, cT) {snr} dB < 40")
-        del got, want
+            res["bf16_snr_db"] = min(s for s, f in zip(snr, f32_out) if not f)
+            res["bf16_f32_state_rel"] = max([r for r, f in zip(rel, f32_out) if f], default=None)
+        del got, again, want
         res[f"{label}_ms"] = cuda_ms(lambda: lsk._launch(*args, reverse, dot), reps)
         res[f"{label}_plain_ms"] = cuda_ms(
             lambda: lsk.lstm_scan_ref(*args, reverse, dot), max(2, reps // 4), 1)
-        # the peak of the dot's operand type
-        res[f"{label}_bound"] = bound_ms(*lscan_work(B, T, H, dt), dot)
-        res[f"{label}_lib_ms"] = (None if reverse else
+        res[f"{label}_bound"] = lscan_bound(plan, B, T, H, dt, sdt)
+        res[f"{label}_bound_rule"] = (
+            f"{plan.pieces} bf16 product(s) a multiply-add at 989 TFLOP/s"
+            if plan.route == "tc" else "one f32 FMA a multiply-add at 67 TFLOP/s")
+        res[f"{label}_lib_ms"] = (None if reverse or sdt != dt else
                                   cudnn_lstm_fwd_ms(B, T, 128, H, dt, dev, reps))
     return res
 
@@ -2205,7 +2269,7 @@ DPARN_TC_PASSES = {"C:mma": 2}
 
 
 def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, card, phase,
-               options=None, by_option=None, by_path=None, by_pass=None):
+               options=None, by_option=None, by_path=None, by_pass=None, by_route=None):
     """make_session_server(half=True, **mode) for the full-width NS model at
     n_slots sessions: NS_WARM warm-up ticks, then NS_TICKS ticks with
     exact launches, every output finite, 0 underruns; slot 0 in bf16
@@ -2215,7 +2279,9 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
     (module, key): that many launches must carry the option and no plain
     version may run. `by_path` = (module, key, launches a tick): every launch
     of the module must take that path (its LAUNCHES_BY_PATH). `by_pass`:
-    the dual-path passes a tick launches by route (LAUNCHES_BY_PASS)."""
+    the dual-path passes a tick launches by route (LAUNCHES_BY_PASS).
+    `by_route` = (module, route, launches a tick): every launch of the
+    module on that route (its LAUNCHES_BY_ROUTE)."""
     from puresound_tpu_torch.ops import dual_path_kernel as dpk
     from puresound_tpu_torch.streaming.deploy import make_session_server
     from puresound_tpu_torch.streaming.file_eval import engine_step_options
@@ -2242,6 +2308,8 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
                     by_option[0].LAUNCHES_BY_OPTION.clear()
                 if by_path:
                     by_path[0].LAUNCHES_BY_PATH.clear()
+                if by_route:
+                    by_route[0].LAUNCHES_BY_ROUTE.clear()
                 dpk.LAUNCHES_BY_PASS.clear()
                 plain.calls = 0
             for i, sid in enumerate(sids):
@@ -2266,6 +2334,10 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
     if by_path:
         expect_launches(paths, {by_path[1]: by_path[2] * NS_TICKS},
                         f"{zoo_name} serving {n_slots} slots, launches by path")
+    routes = dict(by_route[0].LAUNCHES_BY_ROUTE) if by_route else None
+    if by_route:
+        expect_launches(routes, {by_route[1]: by_route[2] * NS_TICKS},
+                        f"{zoo_name} serving {n_slots} slots, launches by route")
     passes = dict(dpk.LAUNCHES_BY_PASS)
     if by_pass is not None:
         expect_launches(passes, {k: v * NS_TICKS for k, v in by_pass.items()},
@@ -2297,6 +2369,8 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
         + (f", every {by_path[0].__name__.rsplit('.', 1)[-1]} launch on path "
            f"{by_path[1]!r} ({paths})" if by_path else "")
         + (f", dual-path passes by route {passes}" if by_pass is not None else "")
+        + (f", every {by_route[0].__name__.rsplit('.', 1)[-1]} launch on route "
+           f"{by_route[1]!r} ({routes})" if by_route else "")
         + ", 0 underruns; tick p50 "
         f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; engine step "
         f"alone p50 {float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); bf16 slot 0 "
@@ -2304,7 +2378,7 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
         f"{plain.calls} [{card}]", t)
     return {"launches": launches, "tick_p50": stats["tick_ms_p50"],
             "tick_p99": stats["tick_ms_p99"], "step_p50": float(np.median(step_ms)),
-            "snr": half_snr, "passes": passes}
+            "snr": half_snr, "passes": passes, "routes": routes}
 
 
 # ------------------------------------------------------------ phases 4e, 4f
@@ -3202,6 +3276,7 @@ def run(dev: torch.device) -> int:
     # center's resident convs: wgmma) and none in any kernel with float32 dots
     for lib, want in (("lstm_train", lambda k: "<bf16>" in k and "reduce" not in k),
                       ("tcn_train", lambda k: k.startswith("tcn_wg_")),
+                      ("lstm_scan", lambda k: k.startswith("lstm_scan_tc_kernel")),
                       ("dparn_attention", None), ("masker", None), ("dual_path", None),
                       ("skim_stream", None)):
         hmma = hmma_counts(_build.BUILD_DIR, lib)
@@ -3371,16 +3446,23 @@ def run(dev: torch.device) -> int:
 
     # ------------------------------------------- 2d. the serving LSTM scan
     lscan_results = {}
-    for name, B, T, H, reverse, carries, bf16_dot, reps in LSCAN_CASES:
+    for name, B, T, H, reverse, carries, bf16_dot, bf16_state, reps in LSCAN_CASES:
         t = time.perf_counter()
-        r = lstm_scan_case(lsk, name, B, T, H, reverse, carries, bf16_dot, gen, dev, reps)
+        g = torch.Generator().manual_seed(LSCAN_SEEDS[name]) if name in LSCAN_SEEDS else gen
+        r = lstm_scan_case(lsk, name, B, T, H, reverse, carries, bf16_dot, bf16_state, g,
+                           dev, reps)
         lscan_results[name] = r
         fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
-        log("2d lstm_scan", f"{r['shape']}: f32 max|d|/max|ref| {r['f32_rel']:.2e}, bf16 "
-            f"SNR {r['bf16_snr_db']:.1f} dB; " + "; ".join(
-                f"{lb} ms kernel {r[f'{lb}_ms']:.3f}, plain {r[f'{lb}_plain_ms']:.3f}, "
-                f"bound {r[f'{lb}_bound'][0]:.3f} ({r[f'{lb}_bound'][1]}), cuDNN LSTM "
-                f"forward with C=128 (it also projects the input) "
+        state = ("" if r["bf16_f32_state_rel"] is None else
+                 f", its f32 hT / cT max|d|/max|ref| {r['bf16_f32_state_rel']:.2e} (bar 1e-4)")
+        log("2d lstm_scan", f"{r['shape']}: launches by route f32 {r['f32_route']} / bf16 "
+            f"{r['bf16_route']} (2 each), two calls bit-equal; f32 max|d|/max|ref| "
+            f"{r['f32_rel']:.2e} (bar 1e-4), bf16 SNR {r['bf16_snr_db']:.1f} dB (bar 40)"
+            f"{state}; " + "; ".join(
+                f"{lb} device ms of one call {r[f'{lb}_ms']:.3f}, plain "
+                f"{r[f'{lb}_plain_ms']:.3f}, bound {r[f'{lb}_bound'][0]:.3f} "
+                f"({r[f'{lb}_bound'][1]}; {r[f'{lb}_bound_rule']}), "
+                f"cuDNN LSTM forward with C=128 (it also projects the input) "
                 f"{fmt(r[f'{lb}_lib_ms'])}" for lb in ("f32", "bf16")) + f" [{card}]", t)
 
     # --------------------------------------- 2e. the dual-path bottleneck
@@ -3604,6 +3686,10 @@ def run(dev: torch.device) -> int:
         + "; ".join(f"{n} slots {ns_serve[n]['tick_p50']:.3f} / {ns_serve[n]['step_p50']:.3f} "
                     f"against {mk_serve[n]['tick_p50']:.3f} / {mk_serve[n]['step_p50']:.3f}"
                     for n in NS_SLOTS) + f" [{card}]", time.perf_counter())
+    # ------------------------- 4j. the fused route of DPCRN serving (lstm_scan)
+    fused_serve = ns_serving(ns, "ns_dpcrn_v0_causal", {"fused": True}, counters, (0, 6, 0, 0),
+                             35.0, NS_SLOTS[-1], dev, card, "4j ns fused",
+                             by_route=(lsk, "tc", 6))
     # ------------------- 4g. DPCRN serving with the int8 and bf16-scratch options
     ns_q = {}
     for route, opt, bar, per_tick, mod in (
@@ -3630,7 +3716,7 @@ def run(dev: torch.device) -> int:
     dparn_serve = {n: ns_serving(dparn, "ns_dparn_v0_causal",
                                  {"fused": True, "attn_kernel": True}, counters,
                                  (0, 2, 2, 0), 25.0, n, dev, card, "4c dparn serving",
-                                 by_path=(dak, "wgmma", 2))
+                                 by_path=(dak, "wgmma", 2), by_route=(lsk, "tc", 2))
                    for n in DPARN_SLOTS}
     dparn_routes = dparn["routes"]
     # -------------------------- 4h. DPARN wide-center serving with xscr_half
@@ -3765,16 +3851,30 @@ def run(dev: torch.device) -> int:
     intra = lscan_results["intra"]
     kernels.append({
         "name": "lstm_scan", "route": "cuda", "source": LSCAN_SOURCE,
-        "replaces": LSCAN_REPLACES, "launches": ns_routes["fused"][1][1],
+        "replaces": LSCAN_REPLACES,
+        "launches": (ns_routes["fused"][1][1] + fused_serve["launches"][1]
+                     + sum(r["launches"][1] for r in dparn_serve.values())),
+        "launches_by_phase": {"3b fused (f32, cuda)": ns_routes["fused"][1][1],
+                              "4j DPCRN fused serving": fused_serve["routes"],
+                              "4c DPARN serving": {n: r["routes"]
+                                                   for n, r in dparn_serve.items()}},
         "max_abs_err": intra["f32_max_abs_err"], "ms": intra["f32_ms"],
         "plain_ms": intra["f32_plain_ms"], "bound_ms": intra["f32_bound"][0],
         "bound_by": intra["f32_bound"][1], "library_ms": intra["f32_lib_ms"],
         "library": "cuDNN nn.LSTM forward, C=128 (also projects the input)",
+        "bf16_route": f"{intra['bf16_route']} ({intra['bf16_pieces']} bf16 piece(s) of h)",
         "bf16_ms": intra["bf16_ms"], "bf16_plain_ms": intra["bf16_plain_ms"],
-        "bf16_bound_ms": intra["bf16_bound"][0], "bf16_library_ms": intra["bf16_lib_ms"],
+        "bf16_bound_ms": intra["bf16_bound"][0], "bf16_bound_by": intra["bf16_bound"][1],
+        "bf16_bound_rule": intra["bf16_bound_rule"], "bf16_library_ms": intra["bf16_lib_ms"],
         "bf16_snr_db": intra["bf16_snr_db"],
+        "two_calls_bit_equal": all(r[f"{lb}_bit_equal"] for r in lscan_results.values()
+                                   for lb in ("f32", "bf16")),
         "inter_ms": lscan_results["inter"]["f32_ms"],
-        "inter_bf16_ms": lscan_results["inter"]["bf16_ms"], "shape": intra["shape"]})
+        "inter_bf16_ms": lscan_results["inter"]["bf16_ms"],
+        "inter_bf16_bound_ms": lscan_results["inter"]["bf16_bound"][0],
+        "dparn_inter_bf16_ms": lscan_results["DPARN inter"]["bf16_ms"],
+        "f32_state_hT_cT_rel": lscan_results["f32 state"]["bf16_f32_state_rel"],
+        "shape": intra["shape"]})
     dp = dp_results["2048 streams"]
     kernels.append({
         "name": "dual_path_chunk", "route": "cuda", "source": DP_SOURCE,

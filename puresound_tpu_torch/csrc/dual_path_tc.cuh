@@ -50,29 +50,15 @@ using hopper::mma_s8;
 using hopper::sigm_f;
 using hopper::tanh_f;
 
-// Element offsets in a [rows][L] tile whose 16-byte chunks are XOR-swizzled
-// by the row (chunk j of row r at j ^ (r % 8), fewer bits where a row has
-// fewer than 8 chunks): the 8 rows of an mma fragment load hit 8 distinct
-// chunks, so the loads are free of bank conflicts without padding.
-__device__ __forceinline__ int swz2(int row, int k, int L) {   // bfloat16
-  const int nch = L >> 3, m = (nch < 8 ? nch : 8) - 1;
-  return row * L + ((((k >> 3) ^ (row & m))) << 3) + (k & 7);
-}
+// Element offsets in swizzled [rows][L] tiles: hopper::swz2 (bfloat16) and
+// its int8 form (chunk j of row r at j ^ (r % 8), fewer bits where a row has
+// fewer than 8 chunks).
+using hopper::ld2;
+using hopper::st2;
+using hopper::swz2;
 __device__ __forceinline__ int swz1(int row, int k, int L) {   // int8
   const int nch = L >> 4, m = (nch < 8 ? nch : 8) - 1;
   return row * L + ((((k >> 4) ^ (row & m))) << 4) + (k & 15);
-}
-
-__device__ __forceinline__ void st2(void* p, long i, float a, float b, int bf) {
-  if (bf)
-    *reinterpret_cast<unsigned*>(static_cast<bf16*>(p) + i) = hopper::bf16x2(a, b);
-  else
-    *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(a, b);
-}
-__device__ __forceinline__ float2 ld2(const void* p, long i, int bf) {
-  if (bf) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                  static_cast<const bf16*>(p) + i));
-  return *reinterpret_cast<const float2*>(static_cast<const float*>(p) + i);
 }
 
 // --------------------------------------------------------------- the plan

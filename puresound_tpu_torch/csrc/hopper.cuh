@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by dparn_wgmma.cuh, masker.cu,
-// tcn_train.cu, dual_path_tc.cuh and skim_stream_tc.cuh: cluster barriers,
-// mma.sync and ldmatrix, mbarriers, the bulk copy engine (TMA without a
-// tensor map: cp.async.bulk of a contiguous image into shared memory,
-// completion counted in bytes on an mbarrier), wgmma on bf16 operands in
-// shared memory laid out K-major and swizzled (`swz`, `desc_tile` below; B
-// also MN-major, `desc_mn`), cp.async.
+// tcn_train.cu, dual_path_tc.cuh, skim_stream_tc.cuh and lstm_scan.cu:
+// cluster barriers, mma.sync and ldmatrix, mbarriers, the bulk copy engine
+// (TMA without a tensor map: cp.async.bulk of a contiguous image into shared
+// memory, completion counted in bytes on an mbarrier), wgmma on bf16
+// operands in shared memory laid out K-major and swizzled (`swz`,
+// `desc_tile` below; B also MN-major, `desc_mn`), cp.async, the row-swizzled
+// mma.sync tiles (`swz2`).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -301,6 +302,30 @@ __device__ __forceinline__ void wgmma_tb(float (&d)[N / 2], uint64_t da, uint64_
 __device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<unsigned*>(&v);
+}
+
+// Element offsets in a [rows][L] bfloat16 tile whose 16-byte chunks are
+// XOR-swizzled by the row (chunk j of row r at j ^ (r % 8), fewer bits where
+// a row has fewer than 8 chunks): the 8 rows of an mma fragment load hit 8
+// distinct chunks, so the loads are free of bank conflicts without padding
+// (dual_path_tc.cuh, lstm_scan.cu).
+__device__ __forceinline__ int swz2(int row, int k, int L) {
+  const int nch = L >> 3, m = (nch < 8 ? nch : 8) - 1;
+  return row * L + ((((k >> 3) ^ (row & m))) << 3) + (k & 7);
+}
+
+// two neighbouring values of a float32 or bfloat16 tensor (`bf`, chosen at
+// run time), i even
+__device__ __forceinline__ void st2(void* p, long i, float a, float b, int bf) {
+  if (bf)
+    *reinterpret_cast<unsigned*>(static_cast<__nv_bfloat16*>(p) + i) = bf16x2(a, b);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(a, b);
+}
+__device__ __forceinline__ float2 ld2(const void* p, long i, int bf) {
+  if (bf) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                  static_cast<const __nv_bfloat16*>(p) + i));
+  return *reinterpret_cast<const float2*>(static_cast<const float*>(p) + i);
 }
 
 // cp.async of 16 bytes to a shared-memory address

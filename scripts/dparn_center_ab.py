@@ -20,15 +20,13 @@ unless `--skip-serving`, DPARN's bf16 engine step at 1,024 slots on
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import sys
 
-import numpy as np
 import torch
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from ab_common import HERE, load_chip_smoke, ns_engine_step
 
 
 def variant_ms(cs, mkk, name, zoo_name, B, variant, dt, dev, reps=5):
@@ -58,23 +56,6 @@ def variant_ms(cs, mkk, name, zoo_name, B, variant, dt, dev, reps=5):
                                               cw, bw, heads, dt, **opts), reps)
 
 
-def serving_step(cs, mode, options, n_slots, dev):
-    """DPARN's bf16 engine step alone at n_slots (phase 4c / 4h's reading):
-    p50 and min ms over 10 steps."""
-    from puresound_tpu_torch.streaming.file_eval import build_engine
-    from puresound_tpu_torch.streaming.halfprec import to_half
-    from puresound_tpu_torch.zoo.ns import init_model
-
-    gen = torch.Generator().manual_seed(cs.SEED)
-    model = init_model("ns_dparn_v0_causal", device=dev, generator=gen)
-    to_half(model)
-    engine = build_engine(model).eval()
-    rng = np.random.default_rng(cs.SEED)
-    x = torch.from_numpy((0.1 * rng.standard_normal((n_slots, 256))).astype(np.float32))
-    ms = cs.engine_step_ms(engine, mode, options, x.to(dev, torch.bfloat16), n_slots)
-    return {"p50": float(np.median(ms)), "min": min(ms)}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
@@ -84,10 +65,7 @@ def main() -> int:
         print("dparn_center_ab: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(a.root))
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = load_chip_smoke()
     from puresound_tpu_torch.ops import _build
     from puresound_tpu_torch.ops import dparn_attention_kernel as dak
     from puresound_tpu_torch.ops import masker_kernel as mkk
@@ -113,10 +91,10 @@ def main() -> int:
     if not a.skip_serving:
         n = cs.DPARN_SLOTS[-1]
         out["serving"] = {
-            "4c fused+attn_kernel": serving_step(cs, {"fused": True, "attn_kernel": True}, {},
-                                                 n, dev),
-            "4h mk_kernel+xscr_half": serving_step(cs, {"mk_kernel": True},
-                                                   {"xscr_half": True}, n, dev)}
+            "4c fused+attn_kernel": ns_engine_step(
+                cs, "ns_dparn_v0_causal", {"fused": True, "attn_kernel": True}, {}, n, dev),
+            "4h mk_kernel+xscr_half": ns_engine_step(
+                cs, "ns_dparn_v0_causal", {"mk_kernel": True}, {"xscr_half": True}, n, dev)}
     print(json.dumps(out, default=str))
     return 0
 

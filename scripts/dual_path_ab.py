@@ -18,8 +18,7 @@ It prints the SASS tensor-core instructions of the dual-path kernels
 version at its bars, two calls bit-equal, the device ms by pass), the
 CUDA-event medians of its int8_hh / xscr_half / both variants, phase 2g's
 `center_chunk` (2,048 streams) and `dparn_center_chunk` (1,024) with their
-device ms by pass and their variants, a digest of `lstm_scan`'s outputs at
-phase 2d's shapes (equal digests: equal outputs, bit for bit) and, unless
+device ms by pass and their variants and, unless
 `--skip-serving`, the bf16 engine steps of DPCRN at 2,048 slots on
 `dp_kernel` and `mk_kernel`, of DPARN at 1,024 on `mk_kernel` + xscr_half
 and at 256 on `fused` + `attn_kernel`, which runs none of the dual-path
@@ -28,25 +27,14 @@ passes (phases 4b, 4d, 4h, 4c).
 from __future__ import annotations
 
 import argparse
-import hashlib
-import importlib.util
 import json
 import os
 import sys
 import types
 
-import numpy as np
 import torch
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def load_chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
+from ab_common import HERE, load_chip_smoke, ns_engine_step
 
 
 def legacy_tree(cs, dpk):
@@ -106,43 +94,6 @@ def center_variant_ms(cs, mkk, name, zoo_name, B, variant, dt, dev, reps=5):
                                               cw, bw, heads, dt, **opts), reps)
 
 
-def lscan_digest(cs, lsk, dev) -> dict:
-    """sha256 of `lstm_scan`'s outputs (y, hT, cT) at phase 2d's shapes, f32
-    and bf16, from inputs of a generator of their own."""
-    gen = torch.Generator().manual_seed(cs.SEED + 11)
-    out = {}
-    for name, B, T, H, reverse, carries, bf16_dot, _ in cs.LSCAN_CASES:
-        xp = torch.randn(B, T, 4 * H, generator=gen)
-        h0 = 0.3 * torch.randn(B, H, generator=gen) if carries else torch.zeros(B, H)
-        c0 = 0.3 * torch.randn(B, H, generator=gen) if carries else torch.zeros(B, H)
-        w = (torch.rand(H, 4 * H, generator=gen) * 2 - 1) / H ** 0.5
-        for label, dt, dot in (("f32", torch.float32, torch.float32),
-                               ("bf16", torch.bfloat16, bf16_dot)):
-            got = lsk._launch(*[a.to(dev, dt) for a in (xp, h0, c0, w)], reverse, dot)
-            h = hashlib.sha256()
-            for t in got:
-                h.update(t.float().cpu().numpy().tobytes())
-            out[f"{name} {label}"] = h.hexdigest()[:16]
-    return out
-
-
-def serving_step(cs, zoo_name, mode, options, n_slots, dev):
-    """The bf16 engine step alone at n_slots (phases 4b / 4d / 4h's
-    reading): p50 and min ms over 10 steps."""
-    from puresound_tpu_torch.streaming.file_eval import build_engine
-    from puresound_tpu_torch.streaming.halfprec import to_half
-    from puresound_tpu_torch.zoo.ns import init_model
-
-    gen = torch.Generator().manual_seed(cs.SEED)
-    model = init_model(zoo_name, device=dev, generator=gen)
-    to_half(model)
-    engine = build_engine(model).eval()
-    rng = np.random.default_rng(cs.SEED)
-    x = torch.from_numpy((0.1 * rng.standard_normal((n_slots, 256))).astype(np.float32))
-    ms = cs.engine_step_ms(engine, mode, options, x.to(dev, torch.bfloat16), n_slots)
-    return {"p50": float(np.median(ms)), "min": min(ms)}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
@@ -155,7 +106,6 @@ def main() -> int:
     cs = load_chip_smoke()
     from puresound_tpu_torch.ops import _build
     from puresound_tpu_torch.ops import dual_path_kernel as dpk
-    from puresound_tpu_torch.ops import lstm_scan_kernel as lsk
     from puresound_tpu_torch.ops import masker_kernel as mkk
 
     if not mkk.__file__.startswith(os.path.abspath(a.root)):
@@ -184,18 +134,17 @@ def main() -> int:
             out["center_variants"][f"{n} {v}"] = {
                 lb: center_variant_ms(cs, mkk, n, zoo, B, v, dt, dev)
                 for lb, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
-    out["lstm_scan_digest"] = lscan_digest(cs, lsk, dev)
     if not a.skip_serving:
         dp_slots, ar_slots = cs.NS_SLOTS[-1], cs.DPARN_SLOTS[-1]
         out["serving"] = {
-            f"4b DPCRN dp_kernel {dp_slots}": serving_step(
+            f"4b DPCRN dp_kernel {dp_slots}": ns_engine_step(
                 cs, "ns_dpcrn_v0_causal", {"dp_kernel": True}, {}, dp_slots, dev),
-            f"4d DPCRN mk_kernel {dp_slots}": serving_step(
+            f"4d DPCRN mk_kernel {dp_slots}": ns_engine_step(
                 cs, "ns_dpcrn_v0_causal", {"mk_kernel": True}, {}, dp_slots, dev),
-            f"4h DPARN mk_kernel+xscr_half {ar_slots}": serving_step(
+            f"4h DPARN mk_kernel+xscr_half {ar_slots}": ns_engine_step(
                 cs, "ns_dparn_v0_causal", {"mk_kernel": True}, {"xscr_half": True},
                 ar_slots, dev),
-            f"4c DPARN fused+attn_kernel {cs.DPARN_SLOTS[0]}": serving_step(
+            f"4c DPARN fused+attn_kernel {cs.DPARN_SLOTS[0]}": ns_engine_step(
                 cs, "ns_dparn_v0_causal", {"fused": True, "attn_kernel": True}, {},
                 cs.DPARN_SLOTS[0], dev)}
     print(json.dumps(out, default=str))

@@ -25,7 +25,6 @@ the Gate model at 256 and 1,024.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import sys
@@ -34,17 +33,9 @@ import time
 import numpy as np
 import torch
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from ab_common import load_chip_smoke
 SLOTS = (256, 1024)
 VARIANTS = ("", "int8_hh", "int8_full")
-
-
-def load_chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
 
 
 @torch.no_grad()

@@ -3,7 +3,9 @@
 float32 at atol 1e-6, as tests/test_pallas_kernels.py holds the Pallas
 kernel against the cell scan: forward and reverse, a ragged row count,
 bfloat16 xp with float32 and with bfloat16 dots (y is bfloat16 there, held
-within one bf16 step, 2^-8, of the Pallas output). Then DPRNNblock2D.step_chunk(fused=True)
+within one bf16 step, 2^-8, of the Pallas output), and the tensor-core
+route's serving inputs (bf16 xp and W_hh, f32 dots, bf16 or f32 carries, H =
+16 to 128) likewise. Then DPRNNblock2D.step_chunk(fused=True)
 against JAX's (float32, atol 1e-5 / rtol 1e-4: a whole block of products
 on top of the scan). The CUDA kernel is held against the plain version on
 the card by chip_smoke.py (phase 2d)."""
@@ -95,3 +97,31 @@ def test_cuda_only_checks_raise_before_a_launch():
     with pytest.raises(TypeError, match="float32/bfloat16"):
         lsk._check(xp.double(), torch.zeros(2, 600), torch.zeros(2, 600),
                    torch.zeros(600, 2400), torch.float32)
+
+
+@pytest.mark.parametrize("B,T,H,reverse,state", [
+    (8, 10, 16, False, "bf16"), (8, 10, 16, True, "bf16"), (33, 6, 32, True, "f32"),
+    (13, 7, 24, False, "bf16"), (40, 3, 64, False, "f32"), (5, 4, 128, True, "bf16")])
+def test_plain_bf16_route_matches_pallas(rng, B, T, H, reverse, state):
+    """bf16 xp and W_hh, float32 dots, carries in bf16 or f32 (the tensor-core
+    route's serving inputs): the plain version against the Pallas kernel in
+    interpret mode; y (bf16) within one bf16 step, the f32 carries at 1e-6."""
+    xp = rng.standard_normal((B, T, 4 * H)).astype(np.float32)
+    h0 = (0.3 * rng.standard_normal((B, H))).astype(np.float32)
+    c0 = (0.3 * rng.standard_normal((B, H))).astype(np.float32)
+    w = (rng.uniform(-1, 1, (H, 4 * H)) / np.sqrt(H)).astype(np.float32)
+    sdt = torch.bfloat16 if state == "bf16" else torch.float32
+    t = [torch.from_numpy(a) for a in (xp, h0, c0, w)]
+    t = [t[0].bfloat16(), t[1].to(sdt), t[2].to(sdt), t[3].bfloat16()]
+    j = [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16 if a.dtype == torch.bfloat16
+                                               else jnp.float32) for a in t]
+    want = j_lstm_scan(*j, reverse=reverse, interpret=True)
+    got = lsk.lstm_scan(*t, reverse=reverse)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == sdt
+    np.testing.assert_allclose(got[0].float().numpy(),
+                               np.asarray(want[0].astype(jnp.float32)), atol=2 ** -8)
+    tol = 2 ** -8 if state == "bf16" else 1e-6
+    for g, wt in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(wt.astype(jnp.float32)),
+                                   atol=tol)
+    assert lsk.LAUNCHES == 0 and not lsk.LAUNCHES_BY_ROUTE
