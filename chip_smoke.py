@@ -1,10 +1,11 @@
 """Chip smoke test of puresound_tpu_torch on one NVIDIA card.
 
 Drives the port's serving and training paths for the flagship
-`tse_skim_v0_causal` (also under the training LSTM path's two switches),
-the serving path of the flagship's configuration with Gate fusion, and the
-NS serving paths of `ns_dpcrn_v0_causal` and `ns_dparn_v0_causal`, at full
-width (random weights from a seed):
+`tse_skim_v0_causal` (also under the training LSTM path's two switches, and
+its shipped GE2E recipe), the serving path of the flagship's configuration
+with Gate fusion, and the NS serving and training paths of
+`ns_dpcrn_v0_causal` and `ns_dparn_v0_causal` (their shipped recipes too), at
+full width (random weights from a seed):
 
   0. device: torch / CUDA versions, the card's name and power limit;
   1. build: nvcc builds the seven CUDA sources from the checkout, in
@@ -39,7 +40,10 @@ width (random weights from a seed):
   2b. `lstm_scan_train_fp` forward and backward vs their plain versions at
      the training shapes of phase 6 (SegLSTM 896 x 150, C=128, H=256;
      MemLSTM 64 x 14, C=H=256) and of the recipe (SegLSTM 240 x 150; MemLSTM
-     12 x 20) and a ragged 13 x 7 reverse case, f32 and bf16, with CUDA-event
+     12 x 20), a ragged 13 x 7 reverse case, NS training's scans at the vctk
+     configs' B=16 x 3 s (intra BiLSTM 5,952 x 64 both directions, inter
+     1,024 x 372, C=H=128) and the flagship's at the 1c recipe's B=48 (SegLSTM
+     960 x 150, MemLSTM 48 x 20), f32 and bf16, with CUDA-event
      timings, the bounds from the shapes, and cuDNN's LSTM as the yardstick;
      two calls of each kernel bit-equal; at the SegLSTM shape the device ms
      of each kernel of one call from a profiler window (the backward's
@@ -54,7 +58,8 @@ width (random weights from a seed):
      each kernel bit-equal and, at SegLSTM, the device ms by kernel;
   2c. `tcn_block_train` forward and backward vs their plain versions at the
      speaker net's shapes in phase 6 (B=64, C=128, Ch=256, T=1,999) and in
-     the recipe (B=12, T=4,999), dilations 1 and 16 each, and a ragged case,
+     the recipe (B=12, T=4,999) and the 1c recipe's contrastive batch (B=48,
+     T=4,999), dilations 1 and 16 each, and a ragged case,
      f32 and bf16, with CUDA-event timings, the bounds, and the stock module
      under autograd as the yardstick; the plan equal to the CUDA source's,
      the launches on the route it names (bf16 at the speaker / recipe
@@ -199,6 +204,27 @@ width (random weights from a seed):
      epoch of 12 steps + 1 dev batch: finite losses, exact launch counts,
      the step p50 over steps 2-11 and the host's gap between steps, and
      `epoch_0.ckpt` reloads into a fresh model;
+  6d. NS training at full width: `ns_dpcrn_v0_causal` and `ns_dparn_v0_causal`
+     at the vctk configs' B=16 x 3 s (stft_ov, Adam 1e-4 with weight decay
+     1e-5, clip 10, dropout 0.1 drawn on the card from the model's
+     generator), f32 and bf16 compute: step p50, audio-s/s, peak memory, the
+     LSTM kernels' share of device time; 6 + 6 (DPCRN) or 2 + 2 (DPARN)
+     `lstm_scan_train_fp` launches a step, no TCN and no serving kernel
+     (`fused_skim_frames`, `lstm_scan`, `dual_path_chunk`, `dparn_intra_pass`,
+     the centers); then one f32 step (B=2 x 0.5 s, dropout 0) on the card
+     against the CPU's f64 step, the CPU's f32 step beside;
+  6e. the flagship's shipped recipe: `python -m puresound_tpu_torch.egs.tse.main
+     egs/tse/conf/libri2mix_max_2spk_clean_16k_1c.yaml --action train`, read
+     from the file with only the data paths, output directories, epochs,
+     workers and seed overridden, on a synthetic manifest of 12 speakers x 8
+     utterances: GE2E on SpeakerSampler's batches of 12 x 4 (B=48 x 3 s, 5 s
+     enrollments), 6 steps + 3 dev batches: finite losses, GE2E's w / b moved,
+     exact launches, no serving kernel, step p50 and host gap as 6b, and
+     `epoch_0.ckpt` (loss_func_spk.* included) reloads equal;
+  6f. the NS recipes: `python -m puresound_tpu_torch.egs.ns.main
+     egs/ns/conf/vctk_{dpcrn,dparn}_1a.yaml --action train`, the same
+     overrides, on a synthetic wav2scp / wav2ref manifest: 4 steps of B=16 x 3
+     s + 1 dev batch, the same checks;
   7. the kernels JSON line.
 
 Each phase prints one line with its result and time; any failure raises and
@@ -262,13 +288,29 @@ LSTM_CASES = [("SegLSTM", 896, 150, 128, 256, False, 20),
               ("MemLSTM", 64, 14, 256, 256, False, 20),
               ("recipe SegLSTM", 240, 150, 128, 256, False, 20),
               ("recipe MemLSTM", 12, 20, 256, 256, False, 20),
-              ("ragged", 13, 7, 24, 16, True, 20)]
+              ("ragged", 13, 7, 24, 16, True, 20),
+              ("NS intra", 5952, 64, 128, 128, False, 10),
+              ("NS intra reverse", 5952, 64, 128, 128, True, 10),
+              ("NS inter", 1024, 372, 128, 128, False, 10),
+              ("1c SegLSTM", 960, 150, 128, 256, False, 10),
+              ("1c MemLSTM", 48, 20, 256, 256, False, 10)]
+# the NS training scans at the vctk configs' B=16 x 3 s (intra: 16 x 372
+# frames of F=64 bins, both directions; inter: 16 x 64 bins of 372 frames;
+# C = H = 128) and the flagship's at the 1c recipe's B=48 x 3 s, from
+# generators of their own, so the other cases' data stay as they were
+LSTM_SEEDS = {"NS intra": SEED + 31, "NS intra reverse": SEED + 32, "NS inter": SEED + 33,
+              "1c SegLSTM": SEED + 34, "1c MemLSTM": SEED + 35}
 # phase 2c: (name, B, C, Ch, T, dilation, timed repetitions)
 TCN_CASES = [("speaker d=1", 64, 128, 256, 1999, 1, 10),
              ("speaker d=16", 64, 128, 256, 1999, 16, 10),
              ("recipe d=1", 12, 128, 256, 4999, 1, 10),
              ("recipe d=16", 12, 128, 256, 4999, 16, 10),
-             ("ragged", 5, 20, 36, 13, 16, 10)]
+             ("ragged", 5, 20, 36, 13, 16, 10),
+             ("1c recipe d=1", 48, 128, 256, 4999, 1, 5),
+             ("1c recipe d=16", 48, 128, 256, 4999, 16, 5)]
+# the speaker net at the 1c recipe's contrastive batch (12 speakers x 4
+# utterances, 5 s enrollments), from generators of their own
+TCN_SEEDS = {"1c recipe d=1": SEED + 36, "1c recipe d=16": SEED + 37}
 LSCAN_REPLACES = "puresound_tpu/ops/lstm_scan_kernel.py:109"
 LSCAN_SOURCE = "puresound_tpu_torch/csrc/lstm_scan.cu"
 DP_REPLACES = "puresound_tpu/ops/dual_path_kernel.py:433"
@@ -1091,14 +1133,16 @@ def tcn_split(tk, B, C, Ch, T, dilation, dt, dev, reps=5):
 
 #: phase 2c's cases whose bf16 calls must take the wgmma route (the model's
 #: widths); the others' take the CUDA cores, as the plan says
-TCN_WGMMA_CASES = ("speaker d=1", "speaker d=16", "recipe d=1", "recipe d=16")
+TCN_WGMMA_CASES = ("speaker d=1", "speaker d=16", "recipe d=1", "recipe d=16",
+                   "1c recipe d=1", "1c recipe d=16")
 
 
 def tcn_phase(tk, gen, dev, card) -> dict:
     out = {}
     for name, B, C, Ch, T, dilation, reps in TCN_CASES:
         t = time.perf_counter()
-        r = tcn_kernel_case(tk, name, B, C, Ch, T, dilation, gen, dev, reps)
+        g = torch.Generator().manual_seed(TCN_SEEDS[name]) if name in TCN_SEEDS else gen
+        r = tcn_kernel_case(tk, name, B, C, Ch, T, dilation, g, dev, reps)
         out[name] = r
         want = "wgmma" if name in TCN_WGMMA_CASES else "cuda_cores"
         if (r["f32_route"], r["bf16_route"]) != ("cuda_cores", want):
@@ -3061,9 +3105,10 @@ def step_determinism(dev, card):
     return found
 
 
-def write_tse_manifest(folder: str, n: int, seed: int) -> str:
+def write_tse_manifest(folder: str, n: int, seed: int, n_spk: int = 7) -> str:
     """A synthetic TSE manifest folder (the recipe's five files) of n
-    mixtures of 4 s and 6 s enrollments at 16 kHz, keys mix_<i>_s1."""
+    mixtures of 4 s and 6 s enrollments at 16 kHz, keys mix_<i>_s1, target
+    speaker sp<i mod n_spk>."""
     from scipy.io import wavfile
 
     rng = np.random.default_rng(seed)
@@ -3082,28 +3127,179 @@ def write_tse_manifest(folder: str, n: int, seed: int) -> str:
         lines["wav2scp"].append(f"{key} {path('mix')}")
         lines["wav2ref"].append(f"{key} {path('clean')}")
         lines["ref2list"].append(f"{key} {path('enroll')}")
-        lines["ref2spk"].append(f"{key} sp{i % 7}")
-        lines["wav2spk"].append(f"{key} sp{i % 7}-sp{(i + 3) % 7}")
+        lines["ref2spk"].append(f"{key} sp{i % n_spk}")
+        lines["wav2spk"].append(f"{key} sp{i % n_spk}-sp{(i + 3) % n_spk}")
     for name, ls in lines.items():
         with open(os.path.join(folder, f"{name}.txt"), "w") as f:
             f.write("\n".join(ls) + "\n")
     return folder
 
 
-def recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
-    """`python -m puresound_tpu_torch.egs.tse.main <config> --action train`
-    on the card (run in this process with `runpy`, so the launch counts are
-    read here): the flagship at full width, TSE.yaml's defaults (SI-SNR,
-    alpha 10, 3 s, fixed_length 5 s enrollment, batch 12), 4 fork'd loader
-    workers, one epoch of RECIPE_STEPS train batches and 1 dev batch. Each
+def write_ns_manifest(folder: str, n: int, seed: int) -> str:
+    """A synthetic NS manifest folder (wav2scp / wav2ref) of n noisy / clean
+    pairs of 4 s at 16 kHz, keys utt_<i>."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    scp, ref = [], []
+    sr = 16000
+    for i in range(n):
+        clean = 0.1 * rng.standard_normal(4 * sr)
+        for name, sig, lines in (("noisy", clean + 0.05 * rng.standard_normal(4 * sr), scp),
+                                 ("clean", clean, ref)):
+            path = os.path.join(folder, f"{name}_{i}.wav")
+            wavfile.write(path, sr, np.clip(sig * 32768, -32768, 32767).astype(np.int16))
+            lines.append(f"utt_{i} {path}")
+    for name, lines in (("wav2scp", scp), ("wav2ref", ref)):
+        with open(os.path.join(folder, f"{name}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return folder
+
+
+def serving_counters():
+    """The serving kernels' launch counts: a training step launches none
+    (JAX's training forward reaches no Pallas kernel but the LSTM and TCN
+    training kernels)."""
+    from puresound_tpu_torch.ops import dparn_attention_kernel as dak
+    from puresound_tpu_torch.ops import dual_path_kernel as dpk
+    from puresound_tpu_torch.ops import lstm_scan_kernel as lsk
+    from puresound_tpu_torch.ops import masker_kernel as mkk
+    from puresound_tpu_torch.ops import skim_stream_kernel as ops
+
+    return [("fused_skim_frames", ops, "LAUNCHES"), ("lstm_scan", lsk, "LAUNCHES"),
+            ("dual_path_chunk", dpk, "LAUNCHES"), ("dparn_intra_pass", dak, "LAUNCHES"),
+            ("center_chunk / dparn_center_chunk", mkk, "LAUNCHES")]
+
+
+def run_recipe(lk, tk, module: str, cfg: str, backend: str) -> dict:
+    """`python -m <module> <cfg> --action train --backend <backend>`, run in
+    this process with `runpy` so the launch counts are read here. Each train
     step is timed on the host clock with the card synchronised before and
     after it; the gap between two steps is the host's time in which the card
     has nothing queued, split into the wait for the loader's next batch, the
     batch's copy to the card, and the rest (logging the step's metrics)."""
     import runpy
-    import tempfile
 
     from puresound_tpu_torch.tasks import base, ns
+
+    trainers, spans, waits, copies = [], [], [], []
+    build, loader_iter = ns.NsTask._build_steps, base.DataLoader.__iter__
+
+    def timed_iter(self):
+        batches = loader_iter(self)
+        while True:
+            t1 = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return
+            waits.append(time.perf_counter() - t1)
+            yield batch
+
+    def timed_build(self):
+        build(self)
+        trainers.append(self)
+        step, to_card = self._train_step, self._batch_kwargs
+
+        def timed_copy(batch):
+            t1 = time.perf_counter()
+            out = to_card(batch)
+            copies.append(time.perf_counter() - t1)
+            return out
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            spans.append((t1, time.perf_counter()))
+            return out
+
+        self._train_step, self._batch_kwargs = timed, timed_copy
+
+    serving = serving_counters()
+    argv = sys.argv
+    sys.argv = [module, cfg, "--action", "train", "--backend", backend]
+    ns.NsTask._build_steps, base.DataLoader.__iter__ = timed_build, timed_iter
+    zero_counts(lk, tk)
+    zero_counters(serving)
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        torch.cuda.synchronize()
+    finally:
+        ns.NsTask._build_steps, base.DataLoader.__iter__ = build, loader_iter
+        sys.argv = argv
+    trainer = trainers[0]
+    with open(os.path.join(trainer.hparam["TRAIN"]["log_dir"], "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    return {"trainer": trainer, "spans": spans, "waits": waits, "copies": copies,
+            "launches": counts(lk, tk), "serving": counter_values(serving),
+            "losses": [r["value"] for r in logged if r["name"] == "train/batch_loss"],
+            "dev_loss": [r["value"] for r in logged if r["name"] == "train/avg_dev_loss"]}
+
+
+def recipe_checks(res: dict, steps: int, dev, fresh, label: str):
+    """Finite losses, one per step and one dev average, training on the
+    card, no serving kernel launched, and `epoch_0.ckpt` reloading equal
+    into `fresh` (a model of the recipe's configuration)."""
+    losses, dev_loss = res["losses"], res["dev_loss"]
+    if (len(losses) != steps or len(dev_loss) != 1
+            or not np.isfinite(losses + dev_loss).all()):
+        raise AssertionError(f"{label}: losses {losses}, dev {dev_loss}")
+    trainer = res["trainer"]
+    if trainer.device.type != dev.type:
+        raise AssertionError(f"{label}: trained on {trainer.device}")
+    if any(res["serving"]):
+        raise AssertionError(f"{label}: serving kernels launched {res['serving']}")
+    save_dir = trainer.hparam["TRAIN"]["model_save_dir"]
+    tree = torch.load(os.path.join(save_dir, "epoch_0.ckpt"), map_location=dev,
+                      weights_only=True)
+    fresh.load_state_dict({**tree["params"], **tree["batch_stats"]}, strict=True)
+    for (n, a), b in zip(trainer.model.state_dict().items(), fresh.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: checkpoint tensor {n} differs after reload")
+    with open(os.path.join(save_dir, "epoch_0.info")) as f:
+        return f.read().split("\n")
+
+
+def step_gaps(res: dict, steps: int, warm: int) -> dict:
+    """Step ms, the host gaps between steps and their split (the first
+    `steps` waits and copies are the train loader's), p50 over the steps
+    after `warm`."""
+    spans = res["spans"]
+    step_ms = [1e3 * (b - a) for a, b in spans]
+    gap_ms = [1e3 * (spans[i + 1][0] - spans[i][1]) for i in range(steps - 1)]
+    window = 1e3 * (spans[-1][1] - spans[warm][0])
+    # the gap before step i holds the wait for batch i and its copy
+    wait_ms = [1e3 * res["waits"][i + 1] for i in range(steps - 1)]
+    copy_ms = [1e3 * res["copies"][i + 1] for i in range(steps - 1)]
+    rest_ms = [g - a - b for g, a, b in zip(gap_ms, wait_ms, copy_ms)]
+    p50 = lambda v: float(np.median(v[warm:]))
+    return {"step_ms": step_ms, "gap_ms": gap_ms, "wait_ms": wait_ms, "copy_ms": copy_ms,
+            "busy": sum(step_ms[warm:]) / window, "window_ms": window,
+            "step_p50": float(np.median(step_ms[warm:])), "gap_p50": p50(gap_ms),
+            "wait_p50": p50(wait_ms), "copy_p50": p50(copy_ms), "rest_p50": p50(rest_ms)}
+
+
+def gap_text(g: dict, steps: int, warm: int, audio_s: float) -> str:
+    sm = g["step_ms"][warm:]
+    return (f"synced step ms over steps {warm}-{steps - 1}: p50 {g['step_p50']:.3f} (min "
+            f"{min(sm):.3f}, max {max(sm):.3f}), {audio_s * 1e3 / g['step_p50']:.1f} "
+            f"audio-s/s; the untimed first steps {[round(x, 3) for x in g['step_ms'][:warm]]}; "
+            f"host gap between steps p50 {g['gap_p50']:.3f} ms (max "
+            f"{max(g['gap_ms'][warm:]):.3f}): loader wait p50 {g['wait_p50']:.3f}, copy to "
+            f"the card {g['copy_p50']:.3f}, the rest {g['rest_p50']:.3f}; steps fill "
+            f"{100 * g['busy']:.1f} % of the {g['window_ms']:.1f} ms from step {warm}'s "
+            "start to the last step's end")
+
+
+def recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
+    """Phase 6b: the TSE recipe on a config of its own (TSE.yaml's defaults:
+    SI-SNR, alpha 10, 3 s, fixed_length 5 s enrollment, batch 12, no speaker
+    loss), the flagship at full width, 4 fork'd loader workers, one epoch of
+    RECIPE_STEPS train batches and 1 dev batch."""
+    import tempfile
+
     from puresound_tpu_torch.zoo.tse import init_model
 
     t = time.perf_counter()
@@ -3137,103 +3333,309 @@ def recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
         path = os.path.join(tmp, "TSE.yaml")
         with open(path, "w") as f:    # YAML's JSON form
             json.dump(cfg, f, indent=1)
-        # time each train step, each batch's wait and copy, and keep the
-        # trainer (measurement only)
-        trainers, spans, waits, copies = [], [], [], []
-        build, loader_iter = ns.NsTask._build_steps, base.DataLoader.__iter__
-
-        def timed_iter(self):
-            batches = loader_iter(self)
-            while True:
-                t1 = time.perf_counter()
-                batch = next(batches, None)
-                if batch is None:
-                    return
-                waits.append(time.perf_counter() - t1)
-                yield batch
-
-        def timed_build(self):
-            build(self)
-            trainers.append(self)
-            step, to_card = self._train_step, self._batch_kwargs
-
-            def timed_copy(batch):
-                t1 = time.perf_counter()
-                out = to_card(batch)
-                copies.append(time.perf_counter() - t1)
-                return out
-
-            def timed(state, batch):
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                out = step(state, batch)
-                torch.cuda.synchronize()
-                spans.append((t1, time.perf_counter()))
-                return out
-
-            self._train_step, self._batch_kwargs = timed, timed_copy
-
-        argv = sys.argv
-        sys.argv = ["puresound_tpu_torch.egs.tse.main", path, "--action", "train",
-                    "--backend", backend]
-        ns.NsTask._build_steps, base.DataLoader.__iter__ = timed_build, timed_iter
-        zero_counts(lk, tk)
-        try:
-            runpy.run_module("puresound_tpu_torch.egs.tse.main", run_name="__main__",
-                             alter_sys=True)
-            torch.cuda.synchronize()
-        finally:
-            ns.NsTask._build_steps, base.DataLoader.__iter__ = build, loader_iter
-            sys.argv = argv
-        got = counts(lk, tk)
+        res = run_recipe(lk, tk, "puresound_tpu_torch.egs.tse.main", path, backend)
         # each train step 10 + 10 LSTM and 5 + 5 TCN launches, the dev batch 10 + 5
         steps = RECIPE_STEPS
+        got = res["launches"]
         expect_launches(got, (10 * steps + 10, 10 * steps, 5 * steps + 5, 5 * steps),
                         "recipe, LSTM and TCN (fwd, bwd)")
-        with open(os.path.join(tmp, "logs", "metrics.jsonl")) as f:
-            logged = [json.loads(line) for line in f]
-        losses = [r["value"] for r in logged if r["name"] == "train/batch_loss"]
-        dev_loss = [r["value"] for r in logged if r["name"] == "train/avg_dev_loss"]
-        if len(losses) != steps or len(dev_loss) != 1 or not np.isfinite(losses + dev_loss).all():
-            raise AssertionError(f"recipe losses {losses}, dev {dev_loss}")
-        trainer = trainers[0]
-        if trainer.device.type != dev.type:
-            raise AssertionError(f"the recipe trained on {trainer.device}")
-        fresh = init_model("tse_skim_v0_causal", device=dev)
-        tree = torch.load(os.path.join(tmp, "models", "epoch_0.ckpt"),
-                          map_location=dev, weights_only=True)
-        fresh.load_state_dict({**tree["params"], **tree["batch_stats"]}, strict=True)
-        for (n, a), b in zip(trainer.model.state_dict().items(),
-                             fresh.state_dict().values()):
-            if not torch.equal(a, b):
-                raise AssertionError(f"checkpoint tensor {n} differs after reload")
-        info = open(os.path.join(tmp, "models", "epoch_0.info")).read().split("\n")
-    step_ms = [1e3 * (b - a) for a, b in spans]
-    gap_ms = [1e3 * (spans[i + 1][0] - spans[i][1]) for i in range(steps - 1)]
-    w = RECIPE_WARM
-    window = 1e3 * (spans[-1][1] - spans[w][0])
-    busy = sum(step_ms[w:]) / window
-    # the gap before step i holds the wait for batch i and its copy (the
-    # first `steps` waits and copies are the train loader's)
-    wait_ms = [1e3 * waits[i + 1] for i in range(steps - 1)]
-    copy_ms = [1e3 * copies[i + 1] for i in range(steps - 1)]
-    rest_ms = [g - a - b for g, a, b in zip(gap_ms, wait_ms, copy_ms)]
-    p50 = lambda v: float(np.median(v[w:]))
+        info = recipe_checks(res, steps, dev, init_model("tse_skim_v0_causal", device=dev),
+                             "6b recipe")
+    g = step_gaps(res, steps, RECIPE_WARM)
+    losses, dev_loss = res["losses"], res["dev_loss"]
     log("6b recipe", f"python -m puresound_tpu_torch.egs.tse.main --action train: "
         f"flagship, B=12 x 3 s, 5 s enrollment, 4 loader workers, 1 epoch of {steps} "
-        f"steps + 1 dev batch on {trainer.device}: losses {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f}, dev {dev_loss[0]:.4f}; synced step ms over steps {w}-"
-        f"{steps - 1}: p50 {np.median(step_ms[w:]):.3f} (min {min(step_ms[w:]):.3f}, max "
-        f"{max(step_ms[w:]):.3f}), {12 * 3 * 1e3 / np.median(step_ms[w:]):.1f} "
-        f"audio-s/s; the untimed first steps {[round(x, 3) for x in step_ms[:w]]}; "
-        f"host gap between steps p50 {p50(gap_ms):.3f} ms (max "
-        f"{max(gap_ms[w:]):.3f}): loader wait p50 {p50(wait_ms):.3f}, copy to the "
-        f"card {p50(copy_ms):.3f}, the rest {p50(rest_ms):.3f}; steps fill {100 * busy:.1f} % of the {window:.1f} "
-        f"ms from step {w}'s start to the last step's end; launches LSTM fwd/bwd "
-        f"{got[:2]}, TCN fwd/bwd {got[2:]}; epoch_0.ckpt reloads equal "
+        f"steps + 1 dev batch on {res['trainer'].device}: losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, dev {dev_loss[0]:.4f}; "
+        + gap_text(g, steps, RECIPE_WARM, 12 * 3)
+        + f"; launches LSTM fwd/bwd {got[:2]}, TCN fwd/bwd {got[2:]}, serving kernels "
+        f"{res['serving']}; epoch_0.ckpt reloads equal ({info[0]}, {info[1]}) [{card}]", t)
+    return dict(g, launches=got)
+
+
+#: phase 6e: the flagship's shipped recipe config, and what a run may override
+SHIPPED_1C = "egs/tse/conf/libri2mix_max_2spk_clean_16k_1c.yaml"
+#: phase 6f: the NS recipes' shipped configs
+SHIPPED_NS = ("egs/ns/conf/vctk_dpcrn_1a.yaml", "egs/ns/conf/vctk_dparn_1a.yaml")
+RECIPE_1C_SPK, RECIPE_1C_UTTS = 12, 8       # the train manifest: speakers x utterances
+NS_RECIPE_STEPS = 4                          # phase 6f: train batches in its epoch
+
+
+def shipped_config(path: str, tmp: str, train: str, dev: str, **train_kw) -> str:
+    """The shipped config read from its file, with only the data paths, the
+    output directories, num_epochs 1, the loader workers and the seed
+    overridden, written back into `tmp`."""
+    from puresound_tpu_torch.src.utils import dump_hparam, load_hparam
+
+    hp = load_hparam(path)
+    hp["DATASET"].update(train=train, dev=dev, eval=None)
+    hp["TRAIN"].update(num_epochs=1, num_workers=4, seed=SEED,
+                       model_save_dir=os.path.join(tmp, "models"),
+                       log_dir=os.path.join(tmp, "logs"), **train_kw)
+    out = os.path.join(tmp, os.path.basename(path))
+    dump_hparam(hp, out)
+    return out
+
+
+def shipped_1c_phase(lk, tk, dev, card, backend: str = "cuda"):
+    """Phase 6e: `python -m puresound_tpu_torch.egs.tse.main
+    egs/tse/conf/libri2mix_max_2spk_clean_16k_1c.yaml --action train`: the
+    flagship under GE2E (task 1: SI-SNR + alpha x GE2E over the enrollments'
+    d-vectors) on SpeakerSampler's batches of 12 speakers x 4 utterances (B=48
+    x 3 s, 5 s enrollments), repeat x len(ds) // 48 batches a set."""
+    import tempfile
+
+    from puresound_tpu_torch.src.utils import load_hparam
+    from puresound_tpu_torch.zoo.tse import init_loss, init_model
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        n_train = RECIPE_1C_SPK * RECIPE_1C_UTTS
+        path = shipped_config(
+            SHIPPED_1C, tmp,
+            write_tse_manifest(os.path.join(tmp, "train"), n_train, 3, RECIPE_1C_SPK),
+            write_tse_manifest(os.path.join(tmp, "dev"), 48, 4, RECIPE_1C_SPK))
+        hp = load_hparam(path)
+        batch = hp["TRAIN"]["p_spks"] * hp["TRAIN"]["p_utts"]
+        steps = hp["TRAIN"]["repeat"] * n_train // batch
+        dev_batches = hp["TRAIN"]["repeat"] * 48 // batch
+        res = run_recipe(lk, tk, "puresound_tpu_torch.egs.tse.main", path, backend)
+        got = res["launches"]
+        # task 1: the speaker net once a step, on the enrollments
+        expect_launches(got, (10 * (steps + dev_batches), 10 * steps,
+                              5 * (steps + dev_batches), 5 * steps),
+                        "6e 1c recipe, LSTM and TCN (fwd, bwd)")
+        ge2e = res["trainer"].model.loss_func_spk
+        w, b = ge2e.w.item(), ge2e.b.item()
+        if type(ge2e).__name__ != "GE2ELoss" or w == 10.0 or b == -5.0:
+            raise AssertionError(f"6e: speaker loss {type(ge2e).__name__}, w {w}, b {b}")
+        fresh = init_model(hp["MODEL"]["type"], *init_loss(hp, device=dev), device=dev)
+        info = recipe_checks(res, steps, dev, fresh, "6e 1c recipe")
+        if not {"loss_func_spk.w", "loss_func_spk.b"} <= set(fresh.state_dict()):
+            raise AssertionError("6e: the checkpoint lacks GE2E's parameters")
+    g = step_gaps(res, steps, RECIPE_WARM)
+    losses = res["losses"]
+    log("6e 1c recipe", f"python -m puresound_tpu_torch.egs.tse.main {SHIPPED_1C} --action "
+        f"train (paths, epochs, workers 4, seed overridden): flagship + GE2E (task 1, "
+        f"alpha {hp['LOSS']['alpha']}), SpeakerSampler batches of {hp['TRAIN']['p_spks']} "
+        f"speakers x {hp['TRAIN']['p_utts']} = B={batch} x 3 s, 5 s enrollments, {steps} "
+        f"steps + {dev_batches} dev batches on {res['trainer'].device}: losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, dev {res['dev_loss'][0]:.4f}; GE2E w "
+        f"10 -> {w:.6f}, b -5 -> {b:.6f}; " + gap_text(g, steps, RECIPE_WARM, batch * 3)
+        + f"; launches LSTM fwd/bwd {got[:2]}, TCN fwd/bwd {got[2:]}, serving kernels "
+        f"{res['serving']}; epoch_0.ckpt reloads equal, loss_func_spk.w / .b included "
         f"({info[0]}, {info[1]}) [{card}]", t)
-    return {"step_ms": step_ms, "gap_ms": gap_ms, "wait_ms": wait_ms, "copy_ms": copy_ms,
-            "busy": busy, "launches": got}
+    return dict(g, launches=got, steps=steps)
+
+
+def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
+    """Phase 6f: `python -m puresound_tpu_torch.egs.ns.main
+    egs/ns/conf/vctk_{dpcrn,dparn}_1a.yaml --action train` on a synthetic
+    manifest: B=16 x 3 s, stft_ov, Adam with weight decay 1e-5, dropout 0.1,
+    one epoch of NS_RECIPE_STEPS steps and 1 dev batch."""
+    import tempfile
+
+    from puresound_tpu_torch.src.utils import load_hparam
+    from puresound_tpu_torch.zoo.ns import init_model
+
+    out = {}
+    for conf in SHIPPED_NS:
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = shipped_config(conf, tmp,
+                                  write_ns_manifest(os.path.join(tmp, "train"),
+                                                    16 * NS_RECIPE_STEPS, 5),
+                                  write_ns_manifest(os.path.join(tmp, "dev"), 16, 6))
+            hp = load_hparam(path)
+            name = hp["MODEL"]["type"]
+            res = run_recipe(lk, tk, "puresound_tpu_torch.egs.ns.main", path, backend)
+            got, steps = res["launches"], NS_RECIPE_STEPS
+            n = NS_TRAIN_LAUNCHES[name]
+            expect_launches(got, (n * (steps + 1), n * steps, 0, 0),
+                            f"6f {name} recipe, LSTM and TCN (fwd, bwd)")
+            info = recipe_checks(res, steps, dev, init_model(name, device=dev),
+                                 f"6f {name} recipe")
+        g = step_gaps(res, steps, 1)
+        losses = res["losses"]
+        log("6f ns recipe", f"python -m puresound_tpu_torch.egs.ns.main {conf} --action train "
+            f"(paths, epochs, workers 4, seed overridden): {name}, {hp['LOSS']['sig_loss']}, "
+            f"Adam weight decay {hp['OPTIMIZER']['weight_decay']}, B="
+            f"{hp['TRAIN']['batch_size']} x {hp['DATASET']['max_length']} s, {steps} steps + "
+            f"1 dev batch on {res['trainer'].device}: losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, dev {res['dev_loss'][0]:.4f}; "
+            + gap_text(g, steps, 1, hp["TRAIN"]["batch_size"] * hp["DATASET"]["max_length"])
+            + f"; launches LSTM fwd/bwd {got[:2]}, TCN {got[2:]}, serving kernels "
+            f"{res['serving']}; epoch_0.ckpt reloads equal ({info[0]}, {info[1]}) [{card}]", t)
+        out[name] = dict(g, launches=got)
+    return out
+
+
+# ------------------------------------------------------------ phase 6d
+NS_TRAIN_B, NS_TRAIN_SECONDS = 16, 3.0       # the vctk configs' batch and crop
+#: lstm_scan_train_fp launches a step, forward and backward alike: DPCRN's
+#: two blocks each run a BiLSTM (two scans) and an inter LSTM, DPARN's only
+#: the inter LSTM (its intra attention trains under autograd)
+NS_TRAIN_LAUNCHES = {"ns_dpcrn_v0_causal": 6, "ns_dparn_v0_causal": 2}
+NS_CHECK_B, NS_CHECK_SECONDS = 2, 0.5        # the card vs CPU step
+
+
+def ns_train_parts(name, dev, gen, dtype=torch.float32):
+    """(model on the stft_ov loss, TrainState with the vctk configs' Adam,
+    step with their clip) on `dev`."""
+    from puresound_tpu_torch.parallel import TrainState, make_train_step
+    from puresound_tpu_torch.zoo.ns import init_loss, init_model
+
+    model = init_model(name, init_loss({"LOSS": {"sig_loss": "stft_ov"}}), device=dev,
+                       generator=gen)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, weight_decay=1e-5)
+    step = make_train_step(model, grad_clip=10.0,
+                           compute_dtype=None if dtype == torch.float32 else dtype)
+    return model, TrainState(model, opt), step
+
+
+def ns_batch(B: int, seconds: float, dev) -> dict:
+    rng = np.random.default_rng(SEED + 5)
+    L = int(16000 * seconds)
+    clean = 0.1 * rng.standard_normal((B, L))
+    noisy = clean + 0.05 * rng.standard_normal((B, L))
+    return {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+            for k, v in (("noisy", noisy), ("ref_clean", clean))}
+
+
+def ns_card_vs_cpu(name, lk, dev, card):
+    """One f32 step of the full-width model on the card against the same
+    step on the CPU in float64, with the CPU's own f32 step beside it
+    (dropout 0 on all three: the devices' mask streams differ), from the
+    same weights: loss, grad_norm, every gradient. The Unet's conv weight
+    gradients come through training-mode BatchNorm (JAX's single-pass
+    variance), sums that cancel: the CPU's own f32 step misses the f64 one
+    by up to ~2e-2 of a tensor's max and ~1e-2 of the gradient norm. So
+    each reading is held within its bar (loss 1e-4, grad_norm 1e-3, a
+    tensor 3e-3 of max|ref|) or within three times the CPU f32 step's
+    distance, two f32 computations of the same arithmetic in other orders."""
+    from puresound_tpu_torch.nnet.lobe.dropout import Dropout
+
+    t = time.perf_counter()
+    sides = []
+    cpu = torch.device("cpu")
+    for d, dt in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+        model, state, step = ns_train_parts(name, d, torch.Generator().manual_seed(SEED))
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        model.to(dt)
+        zero_counts(lk)
+        state, m = step(state, {k: v.to(dt)
+                                for k, v in ns_batch(NS_CHECK_B, NS_CHECK_SECONDS, d).items()})
+        sides.append(({n: p.grad.cpu().double() for n, p in model.named_parameters()},
+                      {k: float(v) for k, v in m.items()},
+                      tuple(count_of(lk, a) for a in _fwd_bwd(lk))))
+    (gpu, gm, gl), (cpu32, cm, cl), (ref, rm, _) = sides
+    n = NS_TRAIN_LAUNCHES[name]
+    expect_launches(gl, (n, n), f"6d {name} card step, LSTM (fwd, bwd)")
+    expect_launches(cl, (0, 0), f"6d {name} CPU step, LSTM (fwd, bwd)")
+    rel = lambda side, key: abs(side[key] - rm[key]) / abs(rm[key])
+    loss_rel, norm_rel = rel(gm, "loss"), rel(gm, "grad_norm")
+    cpu_loss_rel, cpu_norm_rel = rel(cm, "loss"), rel(cm, "grad_norm")
+    if loss_rel > max(1e-4, 3 * cpu_loss_rel) or norm_rel > max(1e-3, 3 * cpu_norm_rel):
+        raise AssertionError(f"6d {name}: loss rel {loss_rel:.3e} (CPU f32 {cpu_loss_rel:.3e}), "
+                             f"grad_norm rel {norm_rel:.3e} (CPU f32 {cpu_norm_rel:.3e}) over "
+                             "the bars")
+    g_all = max(g.abs().max().item() for g in ref.values())
+    worst, worst_cpu, over = (0.0, ""), (0.0, ""), []
+    for p, g64 in ref.items():
+        gmax = g64.abs().max().item()
+        if gmax <= 1e-6 * g_all:
+            continue
+        rel = (gpu[p] - g64).abs().max().item() / gmax
+        rel_cpu = (cpu32[p] - g64).abs().max().item() / gmax
+        worst, worst_cpu = max(worst, (rel, p)), max(worst_cpu, (rel_cpu, p))
+        if rel > 3e-3:
+            over.append(f"{p} {rel:.2e} (CPU f32 {rel_cpu:.2e})")
+            if rel > 3 * rel_cpu:
+                raise AssertionError(f"6d {name} grad {p}: max|d|/max|ref| {rel:.3e} > 3e-3 "
+                                     f"and > three times the CPU f32 step's {rel_cpu:.3e}")
+    log("6d ns train step", f"{name} B={NS_CHECK_B} x {NS_CHECK_SECONDS:g} s, stft_ov, dropout "
+        f"0, f32 on the card vs f64 on the CPU: loss {gm['loss']:.6f} / {rm['loss']:.6f} "
+        f"(rel {loss_rel:.2e}; CPU f32 {cpu_loss_rel:.2e}), grad_norm rel {norm_rel:.2e} (CPU "
+        f"f32 {cpu_norm_rel:.2e}); worst grad max|d|/max|ref| card {worst[0]:.2e} "
+        f"({worst[1]}), CPU f32 {worst_cpu[0]:.2e} ({worst_cpu[1]}); card tensors over 3e-3, "
+        f"each within three times the CPU f32 distance: {over or 'none'}; LSTM "
+        f"launches fwd/bwd {gl} on the card, TF32 off [{card}]", t)
+    return {"loss_rel": loss_rel, "norm_rel": norm_rel, "cpu_norm_rel": cpu_norm_rel,
+            "worst_grad_rel": worst[0], "worst_cpu_f32_rel": worst_cpu[0]}
+
+
+def ns_training_phase(lk, tk, dev, card) -> dict:
+    """Phase 6d: `ns_dpcrn_v0_causal` and `ns_dparn_v0_causal` at full width
+    on the vctk configs' B=16 x 3 s (stft_ov, Adam 1e-4 with weight decay
+    1e-5, clip 10, dropout 0.1 from the model's generator on the card), f32
+    and bf16 compute: 2 warm-up, 5 timed and 2 profiled steps; exact LSTM
+    launches every step, no TCN and no serving kernel; then the f32 step
+    against the CPU's f64 step."""
+    serving = serving_counters()
+    out = {}
+    for name in NS_TRAIN_LAUNCHES:
+        n = NS_TRAIN_LAUNCHES[name]
+        for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            t = time.perf_counter()
+            model, state, step = ns_train_parts(name, dev, torch.Generator().manual_seed(SEED),
+                                                dtype)
+            batch = ns_batch(NS_TRAIN_B, NS_TRAIN_SECONDS, dev)
+            first = {p: w.detach().clone() for p, w in model.named_parameters()}
+            torch.cuda.reset_peak_memory_stats()
+            times, losses = [], []
+            zero_counts(lk, tk)
+            zero_counters(serving)
+            for i in range(7):
+                seen = counts(lk, tk)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                state, m = step(state, batch)
+                b.record()
+                torch.cuda.synchronize()
+                expect_launches(tuple(x - y for x, y in zip(counts(lk, tk), seen)),
+                                (n, n, 0, 0), f"6d {name} {label} step {i}, LSTM and TCN")
+                losses.append(float(m["loss"]))
+                if i >= 2:
+                    times.append(a.elapsed_time(b))
+            peak = torch.cuda.max_memory_allocated()
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"6d {name} {label}: losses {losses}")
+            moved = sum(not torch.equal(first[p], w.detach())
+                        for p, w in model.named_parameters())
+            if moved != len(first):
+                raise AssertionError(f"6d {name} {label}: {len(first) - moved} parameter "
+                                     "tensors did not move")
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    state, m = step(state, batch)
+                torch.cuda.synchronize()
+            if any(counter_values(serving)):
+                raise AssertionError(f"6d {name}: serving kernels launched "
+                                     f"{counter_values(serving)}")
+            lstm_ms, device_ms, top = device_share(prof, "lstm_")
+            p50 = float(np.median(times))
+            share = ("not measured (the profiler saw no device time)" if device_ms is None
+                     else f"LSTM kernels {lstm_ms:.3f} ({100 * lstm_ms / device_ms:.1f} %) of "
+                     f"{device_ms:.3f} ms over 2 steps; top kernels: " + "; ".join(
+                         f"{ms:.3f} ms {k[:60]}" for ms, k in top))
+            log("6d ns training", f"{name} {label} B={NS_TRAIN_B} x {NS_TRAIN_SECONDS:g} s, "
+                f"stft_ov, Adam 1e-4 + weight decay 1e-5, clip 10, dropout 0.1: loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}, all {moved} parameter tensors moved; "
+                f"{n} + {n} LSTM launches a step, 0 TCN, serving kernels "
+                f"{counter_values(serving)}; step p50 {p50:.3f} ms (min {min(times):.3f}, max "
+                f"{max(times):.3f}), {NS_TRAIN_B * NS_TRAIN_SECONDS * 1e3 / p50:.1f} audio-s/s; "
+                f"peak {peak / 2**30:.2f} GiB; device time {share} [{card}]", t)
+            out[(name, label)] = {"step_ms_p50": p50, "peak_bytes": peak,
+                                  "lstm_ms": lstm_ms, "device_ms": device_ms,
+                                  "launches": counts(lk, tk)}
+            del model, state, step, batch, first
+        out[(name, "check")] = ns_card_vs_cpu(name, lk, dev, card)
+    return out
 
 
 def run(dev: torch.device) -> int:
@@ -3379,7 +3781,8 @@ def run(dev: torch.device) -> int:
     lstm_results = {}
     for name, B, T, C, H, reverse, reps in LSTM_CASES:
         t = time.perf_counter()
-        r = lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps)
+        g = torch.Generator().manual_seed(LSTM_SEEDS[name]) if name in LSTM_SEEDS else gen
+        r = lstm_kernel_case(lk, name, B, T, C, H, reverse, g, dev, reps)
         lstm_results[name] = r
         fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
         split = ""
@@ -3741,6 +4144,28 @@ def run(dev: torch.device) -> int:
     # ------------------------------------------- 6b. the recipe's trainer
     recipe = recipe_phase(lk, tk, dev, card)
 
+    # --------------------------------------- 6d. NS training at full width
+    ns_train = ns_training_phase(lk, tk, dev, card)
+    # ------------------------------ 6e. the flagship's shipped GE2E recipe
+    recipe_1c = shipped_1c_phase(lk, tk, dev, card)
+    # ----------------------------------------------- 6f. the NS recipes
+    ns_recipes = ns_recipe_phase(lk, tk, dev, card)
+    # the training launches of phases 6d-6f, (LSTM fwd, bwd, TCN fwd, bwd)
+    new_training = [r["launches"] for k, r in ns_train.items() if k[1] != "check"]
+    new_training += [recipe_1c["launches"]] + [r["launches"] for r in ns_recipes.values()]
+    new_launches = [sum(c[i] for c in new_training) for i in range(4)]
+
+    def case_line(r, half):
+        """One phase 2b / 2c case's times beside its bound and yardsticks."""
+        lib = "lib" if f"f32_lib_{half}_ms" in r else None
+        return {"shape": r["shape"], "ms": r[f"f32_{half}_ms"],
+                "plain_ms": r[f"f32_plain_{half}_ms"], "bound_ms": r[f"f32_{half}_bound"][0],
+                "bound_by": r[f"f32_{half}_bound"][1],
+                "library_ms": r[f"f32_lib_{half}_ms"] if lib else None,
+                "bf16_ms": r[f"bf16_{half}_ms"], "bf16_plain_ms": r[f"bf16_plain_{half}_ms"],
+                "bf16_bound_ms": r[f"bf16_{half}_bound"][0],
+                "bf16_library_ms": r[f"bf16_lib_{half}_ms"] if lib else None}
+
     # ------------------------------------------------- 7. the kernels line
     flag = results[0]
     skim_bound = bound_ms(*skim_work(4, 128, 256, 15, 1024, torch.float32),
@@ -3767,7 +4192,9 @@ def run(dev: torch.device) -> int:
             "name": f"lstm_scan_train_fp ({'forward' if i == 0 else 'backward'})",
             "route": "cuda", "source": LSTM_SOURCE, "replaces": replaces,
             "launches": (train["f32"]["launches"][i] + train["bf16"]["launches"][i]
-                         + recipe["launches"][i] + by_entry(half, "fp")),
+                         + recipe["launches"][i] + by_entry(half, "fp") + new_launches[i]),
+            "launches_6d_6f": new_launches[i],
+            "new_shapes": {n: case_line(lstm_results[n], half) for n in LSTM_SEEDS},
             "max_abs_err": seg["f32_max_abs_err"], "ms": seg[f"f32_{half}_ms"],
             "plain_ms": seg[f"f32_plain_{half}_ms"],
             "bound_ms": seg[f"f32_{half}_bound"][0],
@@ -3836,7 +4263,9 @@ def run(dev: torch.device) -> int:
             "name": f"tcn_block_train ({'forward' if half == 'fwd' else 'backward'})",
             "route": "cuda", "source": TCN_SOURCE, "replaces": replaces,
             "launches": (train["f32"]["launches"][i] + train["bf16"]["launches"][i]
-                         + recipe["launches"][i]),
+                         + recipe["launches"][i] + new_launches[i]),
+            "launches_6d_6f": new_launches[i],
+            "new_shapes": {n: case_line(tcn_results[n], half) for n in TCN_SEEDS},
             "max_abs_err": spk["f32_max_abs_err"], "ms": spk[f"f32_{half}_ms"],
             "plain_ms": spk[f"f32_plain_{half}_ms"],
             "bound_ms": spk[f"f32_{half}_bound"][0],

@@ -5,13 +5,14 @@ its counterpart's file name and math, and its tests hold the two against
 each other on the CPU. This package imports `torch` and never `jax`.
 
 What is ported (the serving and training slices of the flagship
-`tse_skim_v0_causal`, the recipe's trainer, and NS serving of
-`ns_dpcrn_v0_causal`):
-    zoo.tse.init_model                 — the flagship, random init from a Generator
-    zoo.ns.init_model                  — the DPCRN NS models
+`tse_skim_v0_causal`, the recipes' trainers with the shipped GE2E config,
+and NS serving and training of `ns_dpcrn_v0_causal` / `ns_dparn_v0_causal`):
+    zoo.tse.init_model, init_loss      — the flagship, random init from a Generator; every loss
+    zoo.ns.init_model, init_loss       — the DPCRN / DPARN NS models; their losses
     nnet                               — encoders (FreeEncDec, ConvSTFT), TCN speaker net,
-                                         SkiM, the Unet and DPCRN, the wrapper and TF masks
-    nnet.loss.sdr                      — the SDR loss family (SI-SNR for the flagship)
+                                         SkiM, the Unet, DPCRN and DPARN, the wrapper (tasks
+                                         0-4) and TF masks, Dropout from the model's generator
+    nnet.loss                          — SDR family, GE2E / Triplet / F1, AAM-softmax, STFT losses
     ops.skim_stream_kernel             — the fused SkiM streaming step (CUDA, sm_90a)
     ops.lstm_train_kernel              — the LSTM scan, forward and backward (CUDA, sm_90a)
     ops.tcn_train_kernel               — the TCN block, forward and backward (CUDA, sm_90a)
@@ -19,9 +20,9 @@ What is ported (the serving and training slices of the flagship
     ops.dual_path_kernel               — DPCRN's dual-path bottleneck (CUDA, sm_90a)
     ops.quant                          — the int8 serving quantizer and plain int8 products
     parallel                           — TrainState, adam, make_train_step
-    src                                — AudioIO, load_hparam, the C++ host library
-    tasks                              — DataLoader, TseDataset, TseTask (the trainer)
-    egs.tse.main                       — the recipe's command line (--action train)
+    src                                — AudioIO, load_hparam, SpeakerSampler, the C++ host library
+    tasks                              — DataLoader, TseDataset, TseTask, NsDataset, NsTask
+    egs.tse.main, egs.ns.main          — the recipes' command lines (--action train)
     streaming                          — StreamingTSE, StreamingNS, SessionServer, make_session_server
     utils.from_jax                     — JAX variables -> this package's state_dict
 

@@ -5,9 +5,10 @@
         --action train [--backend cuda|cpu]
 
 Trains on the CUDA card unless `--backend cpu` asks for the CPU; `cuda`
-raises where torch sees no card. The other actions (dev / eval / tSNE /
-export_model / stream_eval / serve), contrastive (GE2E) batches and
-`--num_processes > 1` are not ported yet and raise.
+raises where torch sees no card. With `TRAIN.contrastive_learning` the
+batches are `SpeakerSampler`'s, p_spks speakers x p_utts utterances, as the
+GE2E loss needs them. The other actions (dev / eval / tSNE / export_model /
+stream_eval / serve) and `--num_processes > 1` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import argparse
 
 import torch
 
+from ...src.sampler import SpeakerSampler
 from ...src.utils import create_folder, load_hparam
 from ...tasks.base import DataLoader
 from ...tasks.tse import TseCollateFunc, TseDataset, TseTask
@@ -33,11 +35,7 @@ def _device(backend: str) -> torch.device:
 
 
 def init_dataloader(hparam):
-    ds = hparam["DATASET"]
-    if hparam["TRAIN"].get("contrastive_learning"):
-        raise NotImplementedError(
-            "contrastive (GE2E) batches through SpeakerSampler are not ported yet "
-            "(ROADMAP queue 1 item 5)")
+    ds, train = hparam["DATASET"], hparam["TRAIN"]
     common = dict(
         resample_to=ds["sample_rate"], max_length=ds["max_length"],
         noise_folder=ds.get("noise_folder"), rir_folder=ds.get("rir_folder"),
@@ -52,17 +50,25 @@ def init_dataloader(hparam):
                           inactive_training=ds["inactive_training"], **common)
     dev_ds = TseDataset(folder=ds["dev"], single_spk_pb=0.0, inactive_training=0.0,
                         **common)
-    kw = dict(batch_size=hparam["TRAIN"]["batch_size"], shuffle=True,
-              collate_fn=TseCollateFunc(),
-              num_workers=int(hparam["TRAIN"].get("num_workers", 0)),
-              seed=hparam["TRAIN"].get("seed"))
+    n_work = int(train.get("num_workers", 0))
+    if train.get("contrastive_learning"):
+        p_spks, p_utts, repeat = train["p_spks"], train["p_utts"], train["repeat"]
+        # the sampler's batch count for each set (`egs/tse/main.py:81-96`)
+        loader = lambda d: DataLoader(
+            d, batch_sampler=SpeakerSampler(d.sampler_meta(),
+                                            repeat * len(d) // (p_spks * p_utts),
+                                            n_spks=p_spks, n_per=p_utts),
+            collate_fn=TseCollateFunc(), num_workers=n_work, seed=train.get("seed"))
+        return loader(train_ds), loader(dev_ds)
+    kw = dict(batch_size=train["batch_size"], shuffle=True, collate_fn=TseCollateFunc(),
+              num_workers=n_work, seed=train.get("seed"))
     return DataLoader(train_ds, **kw), DataLoader(dev_ds, **kw)
 
 
 def action_train(hparam, device) -> TseTask:
-    sig_loss, cls_loss = init_loss(hparam)
-    model = init_model(hparam["MODEL"]["type"], sig_loss, cls_loss, device=device,
-                       generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    losses = init_loss(hparam, device=device, generator=gen)
+    model = init_model(hparam["MODEL"]["type"], *losses, device=device, generator=gen)
     train_loader, dev_loader = init_dataloader(hparam)
     trainer = TseTask(hparam, model, device, train_loader, dev_loader)
     trainer.train()

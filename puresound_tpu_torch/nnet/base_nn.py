@@ -4,8 +4,9 @@
 or a conv-STFT (ConvEncDec) encoder with RI-concat features (the first bin
 dropped and re-padded when `drop_first_bin`) and any mask of
 `apply_tf_masks`: encoder -> speaker net -> masker -> mask -> decoder. `forward` returns the
-training loss of the task (`base_nn.py:200`): tasks 0/4 (`_forward`) and 1
-(`_forward_join`); `inference` (`:282`) returns the waveform. The module's
+training loss of the task (`base_nn.py:200`): tasks 0/4 (`_forward`), 1
+(`_forward_join`), 2 (`_forward_contrastive`) and 3 (`_forward_join_loop`);
+`inference` (`:282`) returns the waveform. The module's
 own `training` flag takes the place of JAX's `train` argument.
 """
 from __future__ import annotations
@@ -94,8 +95,9 @@ def run_speaker_net(layers, x: torch.Tensor) -> torch.Tensor:
 
 class SoTaskWrapModule(nn.Module):
     """Single-output wrapper (SE / TSE): encoder -> (speaker net) -> masker
-    -> mask -> decoder. Submodule names match PureSound's wrapper; the loss
-    functions are plain callables and hold no parameters."""
+    -> mask -> decoder. Submodule names match PureSound's wrapper. A loss
+    that is an `nn.Module` (GE2E, AAM-softmax) is a submodule: its
+    parameters train with the model under `loss_func_spk.*`."""
 
     def __init__(self, encoder: nn.Module, masker: nn.Module,
                  speaker_net: Optional[Sequence[nn.Module]] = None,
@@ -110,7 +112,7 @@ class SoTaskWrapModule(nn.Module):
         if not isinstance(encoder, (FreeEncDec, ConvEncDec)):
             raise NotImplementedError(
                 f"encoder {type(encoder).__name__} is not ported yet (ROADMAP "
-                "queue 1 item 5: FbankEnc)")
+                "queue 1 item 5b: FbankEnc)")
         self.encoder = encoder
         self.masker = masker
         self.speaker_net = (nn.ModuleList(speaker_net)
@@ -149,10 +151,11 @@ class SoTaskWrapModule(nn.Module):
         if task == 1:
             return self._forward_join(noisy, enroll, ref_clean, spk_class, alpha,
                                       return_loss_detail, inactive_labels)
-        if task in (2, 3):
-            raise NotImplementedError(
-                f"task {task} (GE2E / triplet losses) is not ported yet "
-                "(ROADMAP queue 1: loss/metrics.py)")
+        if task == 2:
+            return self._forward_contrastive(noisy, enroll)
+        if task == 3:
+            return self._forward_join_loop(noisy, enroll, ref_clean, spk_class, alpha,
+                                           return_loss_detail, inactive_labels)
         raise NotImplementedError("wrapper constructed without loss functions")
 
     def _encode(self, wav):
@@ -206,6 +209,39 @@ class SoTaskWrapModule(nn.Module):
             if return_loss_detail:
                 return loss_wav + alpha * loss_spk, (loss_wav, loss_spk)
             return loss_wav + alpha * loss_spk
+        return loss_wav
+
+    def _forward_contrastive(self, noisy, enroll):
+        """GE2E on the enrollment's and the enhanced waveform's d-vectors."""
+        dvec = self._dvec(self._encode(enroll))
+        enh_wav = self._mask_and_decode(self._encode(noisy), dvec)
+        # as JAX (`base_nn.py:252-254`): the enhanced waveform is re-embedded
+        # through the mixture encoder
+        enh_dvec = self._dvec(self._encode(enh_wav))
+        N = dvec.shape[0]
+        # JAX's interleave (`:256-258`): row 2i is dvec i, row 2i + 1 its
+        # enhanced waveform's d-vector, so GE2E sees N speakers x 2
+        total = torch.cat([dvec, enh_dvec], dim=-1).reshape(N * 2, -1)
+        return self.loss_func_spk(total, None)
+
+    def _forward_join_loop(self, noisy, enroll, ref_clean, spk_class, alpha,
+                           return_loss_detail, inactive_labels):
+        """Task 1's losses plus the triplet (enrollment, enhanced, residual
+        noise) over their d-vectors, weighted 1 / alpha."""
+        dvec = self._dvec(self._encode(enroll))
+        enh_wav = self._mask_and_decode(self._encode(noisy), dvec)
+        enh_dvec = self._dvec(self._encode(enh_wav))
+        noise_dvec = self._dvec(self._encode(noisy - enh_wav))
+        triplet = torch.stack([dvec, enh_dvec, noise_dvec], dim=1)
+        enh_wav, ref_clean = align_waveform(enh_wav, ref_clean)
+        loss_wav = self.loss_func_wav(enh_wav, ref_clean, inactive_labels)
+        if self.loss_func_spk is not None and spk_class is not None:
+            loss_spk = self.loss_func_spk(dvec, spk_class)
+            loss_loop = self.loss_func_others(triplet)
+            total = loss_wav + alpha * loss_spk + (1 / alpha) * loss_loop
+            if return_loss_detail:
+                return total, (loss_wav, loss_spk, (1 / alpha) * loss_loop)
+            return total
         return loss_wav
 
     def inference(self, noisy: torch.Tensor,

@@ -89,7 +89,7 @@ class ConvSTFT(nn.Module):
         if output_format != "Complex":
             raise NotImplementedError(
                 f"ConvSTFT {output_format!r} output is not ported yet (ROADMAP queue 1 "
-                "item 5: FbankEnc's MagPhase)")
+                "item 5b: FbankEnc's MagPhase)")
         self.n_fft, self.freq_bins, self.iSTFT = n_fft, freq_bins, iSTFT
         self.hop = hop_length if hop_length is not None else win // 4
         wsin, wcos, _, _ = fourier_kernels(n_fft, win_length=win,

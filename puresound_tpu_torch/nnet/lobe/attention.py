@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ...utils.init import const, generator_or_default, uniform
+from .dropout import Dropout
 from .norm import _moments
 from .rnn import Linear
 
@@ -42,11 +43,12 @@ def sinusoid_table(d_model: int, max_len: int = 5000) -> np.ndarray:
 class PositionalEncoding(nn.Module):
     """Adds the sinusoidal table to [N, T, C] (dropout off in eval)."""
 
-    def __init__(self, d_model: int, dropout: float = 0.1, max_len: int = 5000):
+    def __init__(self, d_model: int, dropout: float = 0.1, max_len: int = 5000, *,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.d_model, self.max_len = d_model, max_len
         self.pe_table = sinusoid_table(d_model, max_len)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout, device=device, generator=generator)
         self._on: Dict[torch.device, torch.Tensor] = {}
 
     def table(self, T: int, device) -> torch.Tensor:
@@ -163,14 +165,15 @@ class MhaSelfAttenLayer(nn.Module):
         g = generator_or_default(generator)
         self.improved, self.position_encoding = improved, position_encoding
         self.self_atten = MHA(feats_dim, nhead, generator=g, **fk)
-        self.atten_drop = nn.Dropout(dropout)
+        self.atten_drop = Dropout(dropout, device=device, generator=g)
         self.norm1 = LayerNorm(feats_dim, **fk)
         if position_encoding:
-            self.pos = PositionalEncoding(feats_dim, dropout)
+            self.pos = PositionalEncoding(feats_dim, dropout, device=device, generator=g)
         self.feedforward = nn.Sequential(
             Linear(feats_dim, hidden_dim, generator=g, **fk), nn.ReLU(),
-            nn.Dropout(dropout), Linear(hidden_dim, feats_dim, generator=g, **fk),
-            nn.Dropout(dropout))
+            Dropout(dropout, device=device, generator=g),
+            Linear(hidden_dim, feats_dim, generator=g, **fk),
+            Dropout(dropout, device=device, generator=g))
         self.norm2 = LayerNorm(feats_dim, **fk)
 
     def forward(self, x: torch.Tensor, causal: bool = False,

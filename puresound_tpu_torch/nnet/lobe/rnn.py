@@ -28,6 +28,7 @@ from torch import nn
 from ...ops.lstm_train_kernel import (lstm_scan_train, lstm_scan_train_fp,
                                       lstm_scan_train_fp_tm, lstm_scan_train_tm)
 from ...utils.init import fan_in_bound, generator_or_default, uniform
+from .dropout import Dropout
 
 #: the input projection inside the scan kernel (JAX `rnn.py:47`); off, the
 #: projection is hoisted out and the scan runs `lstm_scan_train`
@@ -166,7 +167,7 @@ class SingleRNN(nn.Module):
         rt = rnn_type.upper()
         if rt in ("GRU", "RNN"):
             raise NotImplementedError(
-                f"SingleRNN {rt} is not ported yet (ROADMAP queue 1 item 5: "
+                f"SingleRNN {rt} is not ported yet (ROADMAP queue 1 item 5b: "
                 "the rest of the TSE zoo)")
         if rt != "LSTM":
             raise ValueError(f"unsupported rnn type {rnn_type}")
@@ -176,7 +177,7 @@ class SingleRNN(nn.Module):
         self.rnn = LSTM(input_size, hidden_size, bidirectional, generator=g, **fk)
         D = 2 if bidirectional else 1
         self.proj = Linear(D * hidden_size, input_size, generator=g, **fk)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout, device=device, generator=g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, C, T] -> [N, C, T]."""

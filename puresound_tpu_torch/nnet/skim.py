@@ -145,11 +145,11 @@ class SkiM(nn.Module):
         if dropout:
             raise NotImplementedError(
                 "SkiM dropout is not ported (the flagship trains with 0; "
-                "ROADMAP queue 1: the rest of the TSE zoo)")
+                "ROADMAP queue 1 item 5b: the rest of the TSE zoo)")
         if not causal or seg_overlap:
             raise NotImplementedError(
                 "non-causal / overlapped-segment SkiM is not ported yet "
-                "(ROADMAP queue 1: the rest of the TSE zoo)")
+                "(ROADMAP queue 1 item 5b: the rest of the TSE zoo)")
         if embed_dim and embed_fusion.lower() not in ("film", "gate"):
             raise NameError(embed_fusion)
         fk = dict(device=device, dtype=dtype)

@@ -1,7 +1,7 @@
 """Frequency-axis U-Net (counterpart of puresound_tpu/nnet/unet.py:27-293).
 
 Only the `Unet` base is ported (`UnetTcn` and `UnetFsmn` wait, ROADMAP
-queue 1 item 5). The shape algebra is JAX's (and PureSound's):
+queue 1 item 5b). The shape algebra is JAX's (and PureSound's):
 - down layer i: zero pad (time (k_t-1-delay, delay), freq centred), Conv2d
   of stride (s_f, s_t), norm, activation, dropout;
 - up layer: ConvTranspose2d(kernel (k_f, t_kernel), padding k_f//2,
@@ -28,6 +28,7 @@ from torch import nn
 from ..utils.init import generator_or_default
 from .lobe.activation import get_activation
 from .lobe.cnn import Conv2d, ConvTranspose2d
+from .lobe.dropout import Dropout
 from .lobe.norm import apply_norm, get_norm
 
 
@@ -53,7 +54,7 @@ class Unet(nn.Module):
         if skip_conv or multi_output != 1:
             raise NotImplementedError(
                 "Unet skip_conv / multi_output is not ported yet (ROADMAP queue 1 "
-                "item 5: the rest of the TSE zoo)")
+                "item 5b: the rest of the TSE zoo)")
         if input_type.lower() not in ("ri", "real"):
             raise TypeError("input_type must be RI or Real")
         self.input_type, self.input_dim, self.dropout = input_type, input_dim, dropout
@@ -77,7 +78,8 @@ class Unet(nn.Module):
                 nn.ZeroPad2d((kt - delay[i] - 1, delay[i], kf // 2, kf // 2)),
                 Conv2d(chans[i], chans[i + 1], (kf, kt), stride=(stride_f[i], stride_t[i]),
                        dilation=(dilation_f[i], dilation_t[i]), generator=g, **fk),
-                norm(chans[i + 1], **fk), mk_act(), nn.Dropout(dropout)))
+                norm(chans[i + 1], **fk), mk_act(),
+                Dropout(dropout, device=device, generator=g)))
         self.cnn_up = nn.ModuleList()
         for i in reversed(range(n)):
             k, s = kernel_f[i], stride_f[i]

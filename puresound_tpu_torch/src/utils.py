@@ -1,11 +1,12 @@
-"""Host-side utilities the recipe needs: the config loader, the manifest
-loader and `create_folder` (counterpart of puresound_tpu/src/utils.py,
+"""Host-side utilities the recipe needs: the config loader and writer, the
+manifest loader and `create_folder` (counterpart of puresound_tpu/src/utils.py,
 kept as this package's own copy so that it never imports the JAX package).
 """
 from __future__ import annotations
 
 import io
 import json
+import math
 import os
 from typing import Dict
 
@@ -40,6 +41,22 @@ def load_hparam(filename: str) -> Dict:
         for k, v in doc.items():
             hparam[k] = v
     return hparam
+
+
+def _json_form(v) -> str:
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{json.dumps(str(k))}: {_json_form(x)}"
+                               for k, x in v.items()) + "}"
+    if isinstance(v, float) and math.isfinite(v):
+        return f"{v:.17e}"        # with its dot: PyYAML reads `1e-05` as a string
+    return json.dumps(v)
+
+
+def dump_hparam(hparam: Dict, filename: str) -> None:
+    """Write a config in YAML's JSON form, which `load_hparam` reads back
+    equal with PyYAML or without it."""
+    with open(filename, "w") as f:
+        f.write(_json_form(hparam) + "\n")
 
 
 def create_folder(folder_name: str) -> None:

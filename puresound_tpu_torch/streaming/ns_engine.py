@@ -38,7 +38,7 @@ class StreamingNS(nn.Module):
         if speaker_net is not None:
             raise NotImplementedError(
                 "STFT-domain TSE streaming (a speaker net) needs UnetTcn, not "
-                "ported yet (ROADMAP queue 1 item 5)")
+                "ported yet (ROADMAP queue 1 item 5b)")
         self.encoder, self.masker = encoder, masker
         self.mask_constraint, self.output_constraint = mask_constraint, output_constraint
         self.drop_first_bin, self.f_type, self.mask_type = drop_first_bin, f_type, mask_type
@@ -93,7 +93,7 @@ class StreamingNS(nn.Module):
         if dvec is not None:
             raise NotImplementedError(
                 "STFT-domain TSE streaming is not ported yet (ROADMAP queue 1 "
-                "item 5: UnetTcn)")
+                "item 5b: UnetTcn)")
         if sum(map(bool, (fused, dp_kernel, mk_kernel))) > 1:
             raise ValueError("fused / dp_kernel / mk_kernel are mutually exclusive")
         n_fft, hop = self.encoder.fft_length, self.encoder.hop_length

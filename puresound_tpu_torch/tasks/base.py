@@ -216,24 +216,30 @@ class _EpochBatches(torch.utils.data.Dataset):
 
 
 class DataLoader:
-    """Host-side loader: shuffling, batching and collate (the
-    `batch_sampler` of contrastive batches is not ported yet, ROADMAP queue
-    1 item 5). num_workers == 0 builds each batch in this process;
-    num_workers > 0 hands an epoch's batches to torch's DataLoader with
-    fork'd workers, which run numpy code only and never touch the CUDA
-    state the parent may have initialised before it forked; a batch's
-    arrays come back through shared memory.
+    """Host-side loader: shuffling and batching, or a `batch_sampler`'s
+    batches (`SpeakerSampler`'s, for contrastive training), and collate.
+    num_workers == 0 builds each batch in this process; num_workers > 0
+    hands an epoch's batches to torch's DataLoader with fork'd workers,
+    which run numpy code only and never touch the CUDA state the parent may
+    have initialised before it forked; a batch's arrays come back through
+    shared memory.
 
-    Every batch is built under an RNG seeded from (seed, epoch, batch), so
-    the batches do not depend on num_workers; without `seed` a random base
-    is drawn per loader (fork'd workers never share one RNG stream)."""
+    The epoch's batches are drawn in this process before any is built, the
+    sampler from Python's global `random` as JAX's does. Every batch is
+    built under an RNG seeded from (seed, epoch, batch), and the global
+    `random` / `np.random` states are put back after each one, so neither
+    the batches nor the sampler's next draws depend on num_workers (JAX's
+    process pool gives the same batches); without `seed` a random base is
+    drawn per loader (fork'd workers never share one RNG stream)."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  collate_fn: Optional[Callable] = None, num_workers: int = 0,
-                 drop_last: bool = False,
+                 batch_sampler=None, drop_last: bool = False,
                  prefetch: int = 2, seed: Optional[int] = None,
                  shard: Optional[tuple] = None):
         if shard is not None:
+            if batch_sampler is not None:
+                raise ValueError("shard= is incompatible with batch_sampler")
             raise NotImplementedError(
                 "DataLoader(shard=...) (multi-process training) is not ported "
                 "yet (ROADMAP queue 1 item 2: DDP)")
@@ -242,6 +248,7 @@ class DataLoader:
         self.shuffle = shuffle
         self.collate_fn = collate_fn or _as_is
         self.num_workers = num_workers
+        self.batch_sampler = batch_sampler
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.seed = seed
@@ -254,6 +261,9 @@ class DataLoader:
         self._epoch = epoch
 
     def _batches(self):
+        if self.batch_sampler is not None:
+            yield from self.batch_sampler
+            return
         idx = list(range(len(self.dataset)))
         if self.shuffle:
             if self.seed is not None:
@@ -267,6 +277,8 @@ class DataLoader:
             yield b
 
     def __len__(self):
+        if self.batch_sampler is not None:
+            return len(self.batch_sampler)
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
@@ -275,10 +287,15 @@ class DataLoader:
         return (base * 1_000_003 + self._epoch * 7919 + seq) % (2**63)
 
     def _make(self, indices, seq: int):
+        states = random.getstate(), np.random.get_state()
         s = self._batch_seed(seq)
         random.seed(s)
         np.random.seed(s % (2**32))
-        return self.collate_fn([self.dataset[i] for i in indices])
+        try:
+            return self.collate_fn([self.dataset[i] for i in indices])
+        finally:
+            random.setstate(states[0])
+            np.random.set_state(states[1])
 
     def __iter__(self):
         self._epoch += 1
@@ -412,10 +429,12 @@ class BaseTrainer:
     # ---------------------------------------------------------- checkpoints
     def _ckpt_tree(self, epoch, loss) -> Dict:
         params = dict(self.model.named_parameters())
+        state = self.model.state_dict()
+        # the persistent buffers only (the BatchNorm statistics): the STFT
+        # bases of ConvEncDec are constants rebuilt with the module
         return {
-            "params": {n: t.detach() for n, t in self.model.state_dict().items()
-                       if n in params},
-            "batch_stats": {n: b.detach() for n, b in self.model.named_buffers()},
+            "params": {n: t.detach() for n, t in state.items() if n in params},
+            "batch_stats": {n: t.detach() for n, t in state.items() if n not in params},
             "opt_state": self.state.optimizer.state_dict(),
             "meta": {"epoch": int(epoch), "learning_rate": self.current_lr,
                      "loss": float(loss["total_loss"]),

@@ -1,6 +1,7 @@
-"""The shared dataset pieces and the trainer loop of the SE tasks
-(counterpart of puresound_tpu/tasks/ns.py: `_AugmentedDataset` `:26-106`,
-`NsTask` `:161-412`).
+"""The NS dataset, its collate, the shared dataset pieces and the trainer
+loop of the SE tasks (counterpart of puresound_tpu/tasks/ns.py:
+`NsCollateFunc` `:17`, `_AugmentedDataset` `:26-106`, `NsDataset`
+`:109-158`, `NsTask` `:161-412`).
 
 The host augmentation chain (noise, RIR, speed, frequency response) is not
 ported yet and raises (ROADMAP queue 1 item 2); cropping, resampling and
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import os
 import random
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -23,7 +24,7 @@ import torch
 from ..src import native
 from ..src.audio import AudioIO
 from ..src.utils import load_text_as_dict
-from .base import BaseTrainer, DeferredMetricSink, TaskDataset
+from .base import BaseTrainer, DeferredMetricSink, TaskDataset, pad_stack
 
 _AUGMENT_OPTIONS = ("noise_folder", "rir_folder", "speed_perturbed",
                     "perturb_frequency_response")
@@ -81,6 +82,59 @@ class _AugmentedDataset(TaskDataset):
             lo, hi = self.vol_perturbed
         ratio = float(np.random.uniform(lo, hi))
         return [np.clip(w * ratio, -1, 1) for w in wavs]
+
+
+class NsCollateFunc:
+    def __call__(self, batch: Any) -> Dict:
+        return {
+            "uttid": [b["uttid"] for b in batch],
+            "clean_wav": pad_stack([b["clean_wav"] for b in batch]),
+            "process_wav": pad_stack([b["process_wav"] for b in batch]),
+        }
+
+
+class NsDataset(_AugmentedDataset):
+    """Parallel noisy / clean NS dataset (`wav2scp.txt`, `wav2ref.txt`): the
+    random crop and the volume draw."""
+
+    def __init__(self, folder: str, resample_to: int,
+                 max_length: Optional[int] = None,
+                 noise_folder: Optional[str] = None,
+                 rir_folder: Optional[str] = None, rir_mode: str = "image",
+                 vol_perturbed: Optional[tuple] = None,
+                 speed_perturbed: bool = False,
+                 perturb_frequency_response: bool = False):
+        self.max_length = max_length
+        self.noise_folder = noise_folder
+        self.rir_folder = rir_folder
+        self.rir_mode = rir_mode
+        self.speed_perturbed = speed_perturbed
+        self.vol_perturbed = vol_perturbed
+        self.perturb_frequency_response = perturb_frequency_response
+        self._check_augmentation()
+        super().__init__(folder, resample_to=resample_to)
+
+    @property
+    def folder_content(self):
+        return {"wav2scp": "wav2scp.txt", "wav2ref": "wav2ref.txt"}
+
+    def __getitem__(self, index: int) -> Dict:
+        key = self.idx_df[index]
+        feats = self.get_feature(key)
+        return {"uttid": key,
+                "process_wav": feats["process_wav"].reshape(1, -1),
+                "clean_wav": feats["clean_wav"].reshape(1, -1)}
+
+    def get_feature(self, key: str) -> Dict:
+        wav = self._open_resampled(self.df[key]["wav2scp"])
+        clean_wav = self._open_resampled(self.df[key]["wav2ref"])
+        if self.max_length is not None:
+            wav, clean_wav = self._random_crop_pair(wav, clean_wav)
+        process_wav = wav
+        if self.vol_perturbed is not None:
+            clean_wav, process_wav = self._vol_perturb(clean_wav, process_wav)
+        return {"clean_wav": clean_wav.astype(np.float32),
+                "process_wav": process_wav.astype(np.float32)}
 
 
 class NsTask(BaseTrainer):

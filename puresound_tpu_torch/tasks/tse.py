@@ -5,9 +5,9 @@ TseDataset `:32`, TseTask `:227`).
 
 `TRAIN.fused_scan` is accepted and changes nothing: the port always runs
 the speaker net's TCN blocks through `tcn_block_train` and every SkiM LSTM
-scan through `lstm_scan_train_fp` (the CUDA kernels on the card). The GE2E
-batches of contrastive training (`SpeakerSampler`, tasks 2/3) are not
-ported yet (ROADMAP queue 1 item 5).
+scan through `lstm_scan_train_fp` (the CUDA kernels on the card).
+`TseDataset.sampler_meta` feeds `SpeakerSampler`, the GE2E batches of
+contrastive training.
 """
 from __future__ import annotations
 
@@ -67,6 +67,7 @@ class TseDataset(_AugmentedDataset):
         self.is_vad_dataset = is_vad_dataset
         self._check_augmentation()
         super().__init__(folder, resample_to=resample_to)
+        # the speaker label map (JAX's `create_df2spk`)
         spk_ids = sorted(set(self.df[k]["ref2spk"] for k in self.df))
         self.ref2spk = {s: i for i, s in enumerate(spk_ids)}
 
@@ -193,6 +194,14 @@ class TseDataset(_AugmentedDataset):
         else:
             raise NameError(mode)
         return enroll_wav[:, :max_length]
+
+    def sampler_meta(self) -> Dict[str, list]:
+        """{speaker id: [dataset indices of its utterances]}, for
+        `SpeakerSampler`."""
+        spk2utt: Dict[str, list] = {}
+        for idx in range(len(self.df)):
+            spk2utt.setdefault(self.df[self.idx_df[idx]]["ref2spk"], []).append(idx)
+        return spk2utt
 
 
 class TseTask(NsTask):

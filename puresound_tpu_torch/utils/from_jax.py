@@ -188,12 +188,21 @@ def speaker_net_layer(p, s=None) -> Flat:
     raise NotImplementedError(f"speaker-net layer with keys {sorted(p)}")
 
 
+def speaker_loss(p) -> Flat:
+    """The speaker loss's parameters: GE2E's scale `w` and bias `b`, or
+    AAM-softmax's `weight` [n_class, input_dim], under the same names."""
+    return {k: _a(v) for k, v in p.items()}
+
+
 def so_wrapper_tse_skim(variables: Mapping) -> Flat:
-    """A TSE SoTaskWrapModule (FreeEncDec + SkiM + speaker net)."""
+    """A TSE SoTaskWrapModule (FreeEncDec + SkiM + speaker net, and the
+    speaker loss's parameters where the tree has them)."""
     p = variables["params"]
     s = variables.get("batch_stats", {})
     parts = [_prefix("encoder", free_encdec(p["encoder"])),
              _prefix("masker", skim(p["masker"]))]
+    if "loss_func_spk" in p:
+        parts.append(_prefix("loss_func_spk", speaker_loss(p["loss_func_spk"])))
     for key in p:
         if key.startswith("speaker_net_"):
             i = key.rsplit("_", 1)[1]

@@ -1,6 +1,6 @@
 """NS model zoo (counterpart of puresound_tpu/zoo/ns.py): `ns_dpcrn_v0_causal`,
 `ns_dparn_v0_causal` and their `transpose_delay` lookahead forms
-`ns_dpcrn_v0` / `ns_dparn_v0`. `init_loss` waits for the NS trainer."""
+`ns_dpcrn_v0` / `ns_dparn_v0`, and `init_loss` (`:15-27`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,11 +11,30 @@ from ..nnet.base_nn import SoTaskWrapModule
 from ..nnet.dparn import DPARN
 from ..nnet.dpcrn import DPCRN
 from ..nnet.encoder import ConvEncDec
+from ..nnet.loss.sdr import SDRLoss
+from ..nnet.loss.stft_loss import MultiResolutionSTFTLoss, over_suppression_loss
 from ..utils.init import generator_or_default
 from .tse import _device
 
 #: zoo names of the JAX package that this port does not build yet
 JAX_ONLY = ()
+
+def init_loss(hparam):
+    """The signal loss of the LOSS config: the SDR modes (`sisnr`, `sdsdr`,
+    `sdr`, `tsdr` with `sig_threshold`), `stft` (multi-resolution STFT) or
+    `stft_ov` (that plus over-suppression); None for anything else."""
+    sig_loss = hparam["LOSS"]["sig_loss"]
+    sig = sig_loss.lower() if sig_loss else None
+    if sig in ("sisnr", "sdsdr", "sdr", "tsdr"):
+        return SDRLoss.init_mode(sig, threshold=hparam["LOSS"].get("sig_threshold"))
+    if sig == "stft":
+        loss = MultiResolutionSTFTLoss()
+        return lambda enh, ref, dummy: loss(enh, ref)
+    if sig == "stft_ov":
+        loss = MultiResolutionSTFTLoss()
+        return lambda enh, ref, dummy: loss(enh, ref) + over_suppression_loss(enh, ref)
+    return None
+
 
 _UNET_KW = dict(
     input_type="RI", input_dim=512, activation_type="PReLU",

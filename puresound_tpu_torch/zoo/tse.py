@@ -1,6 +1,7 @@
 """TSE model zoo (counterpart of puresound_tpu/zoo/tse.py): the flagship
-`tse_skim_v0_causal` (`:157-170`) and `init_loss` (`:33`) for the SDR
-losses. The other names and losses are still JAX-only."""
+`tse_skim_v0_causal` (`:157-170`), `init_loss` (`:33`) with every loss of
+the JAX package's, and `cross_entropy` (`:25`). The other names are still
+JAX-only (ROADMAP queue 1 item 5b)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,7 +13,10 @@ from ..nnet.conv_tasnet import TCN
 from ..nnet.encoder import FreeEncDec
 from ..nnet.lobe.cnn import Conv1d
 from ..nnet.lobe.pooling import AttentiveStatisticsPooling
+from ..nnet.loss.aamsoftmax import AAMsoftmax
+from ..nnet.loss.metrics import F1Loss, GE2ELoss, TripletLoss
 from ..nnet.loss.sdr import SDRLoss
+from ..nnet.loss.stft_loss import MultiResolutionSTFTLoss, over_suppression_loss
 from ..nnet.skim import SkiM
 from ..utils.init import generator_or_default
 
@@ -23,22 +27,65 @@ JAX_ONLY = ("td_tse_conv_tasnet_v0", "td_tse_conv_tasnet_v0_causal",
             "tse_skim_v0_causal_vad", "veve_dprnn_v0_causal")
 
 
-def init_loss(hparam):
-    """(sig_loss, cls_loss) from the LOSS config (`:33`): the SDR losses
-    `sisnr`, `sdsdr`, `sdr`, `tsdr` with `sig_threshold`; no speaker loss."""
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of logits [N, C] against integer labels [N] (a
+    float32 one-hot, as JAX's)."""
+    onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
+    return -(onehot.to(torch.float32) * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
+def init_loss(hparam, *, device=None, dtype=torch.float32,
+              generator: Optional[torch.Generator] = None):
+    """(sig_loss, cls_loss), or (sig_loss, cls_loss, cls_loss_other) when the
+    config names one, from the LOSS config (`:33-78`). The losses with
+    parameters (GE2E's scale and bias, AAM-softmax's weight) are built on
+    `device`, the card unless the caller says otherwise; AAM-softmax's
+    weight draws from `generator`."""
     loss = hparam["LOSS"]
     sig_loss, cls_loss = loss.get("sig_loss"), loss.get("cls_loss")
-    if cls_loss or loss.get("cls_loss_other"):
-        raise NotImplementedError(
-            f"speaker loss {cls_loss or loss.get('cls_loss_other')!r} is not ported "
-            "yet (ROADMAP queue 1 item 5: loss/metrics.py, loss/aamsoftmax.py)")
-    if not sig_loss:
-        return None, None
-    if sig_loss.lower() not in ("sisnr", "sdsdr", "sdr", "tsdr"):
-        raise NotImplementedError(
-            f"signal loss {sig_loss!r} is not ported yet (ROADMAP queue 1 item 6: "
-            "loss/stft_loss.py; item 5: F1)")
-    return SDRLoss.init_mode(sig_loss.lower(), threshold=loss.get("sig_threshold")), None
+    threshold = loss.get("sig_threshold")
+    fk = lambda: dict(device=_device(device), dtype=dtype)
+
+    sig = sig_loss.lower() if sig_loss else None
+    if sig in ("sisnr", "sdsdr", "sdr", "tsdr"):
+        sig_loss = SDRLoss.init_mode(sig, threshold=threshold)
+    elif sig == "sisnr_stft":
+        sdr_loss = SDRLoss.init_mode("sisnr", threshold=threshold)
+        stft_loss = MultiResolutionSTFTLoss()
+        sig_loss = lambda enh, ref, others: stft_loss(enh, ref) + sdr_loss(enh, ref, others)
+    elif sig == "sisnr_ov":
+        sdr_loss = SDRLoss.init_mode("sisnr", threshold=threshold)
+        sig_loss = lambda enh, ref, others: (sdr_loss(enh, ref, others)
+                                             + over_suppression_loss(enh, ref))
+    elif sig == "f1":
+        f1 = F1Loss()
+        sig_loss = lambda enh, ref, others: f1(enh, ref)
+    else:
+        sig_loss = None
+
+    cls = cls_loss.lower() if cls_loss else None
+    if cls == "cross_entropy":
+        cls_loss = cross_entropy
+    elif cls == "aamsoftmax":
+        cls_loss = AAMsoftmax(input_dim=loss["embed_dim"], n_class=loss["n_class"],
+                              margin=loss["margin"], scale=loss["scale"],
+                              generator=generator, **fk())
+    elif cls == "ge2e":
+        if not hparam["TRAIN"]["contrastive_learning"]:
+            raise ValueError("cls_loss ge2e needs TRAIN.contrastive_learning: its "
+                             "batches are p_spks speakers x p_utts utterances")
+        cls_loss = GE2ELoss(nspks=hparam["TRAIN"]["p_spks"],
+                            putts=hparam["TRAIN"]["p_utts"], add_norm=True, **fk())
+    else:
+        cls_loss = None
+
+    other = loss.get("cls_loss_other")
+    if other is None:
+        return sig_loss, cls_loss
+    if other.lower() == "triplet":
+        return sig_loss, cls_loss, TripletLoss(margin=0.3, add_norm=True,
+                                               distance="consine")
+    raise NotImplementedError(other)
 
 
 def _tcn_speaker_net(feat_dim: int, embed_dim: int = 192, tcn_dim: int = 256,
@@ -85,6 +132,6 @@ def init_model(name: str, sig_loss=None, cls_loss=None, other_loss=None, *,
             loss_func_others=other_loss, mask_constraint="ReLU").eval()
     if name in JAX_ONLY:
         raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP queue 1: the rest of the "
+            f"{name!r} is not ported yet (ROADMAP queue 1 item 5b: the rest of the "
             "TSE zoo); only 'tse_skim_v0_causal' is")
     raise NameError(name)

@@ -416,16 +416,8 @@ def test_cli_defaults_to_the_card_and_unported_options_raise(tmp_path, manifest,
                  [cfg, "--backend", "cpu", "--num_processes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(cli.parse_args(argv))
-    hp = _hparam(str(tmp_path), manifest)
-    for section, key, value in (("TRAIN", "contrastive_learning", True),):
-        hp[section][key] = value
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.init_dataloader(hp)
     from puresound_tpu_torch.zoo.tse import init_loss
 
-    for loss in (dict(sig_loss="sisnr_stft"), dict(sig_loss="sisnr", cls_loss="ge2e")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_loss({"LOSS": loss})
     assert init_loss({"LOSS": {"sig_loss": "tsdr", "sig_threshold": -30}})[1] is None
     for train in (dict(mp_devices=2), dict(remat=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
