@@ -4,8 +4,9 @@ Drives the port's serving and training paths for the flagship
 `tse_skim_v0_causal` (also under the training LSTM path's two switches, and
 its shipped GE2E recipe), the serving path of the flagship's configuration
 with Gate fusion, and the NS serving and training paths of
-`ns_dpcrn_v0_causal` and `ns_dparn_v0_causal` (their shipped recipes too), at
-full width (random weights from a seed):
+`ns_dpcrn_v0_causal` and `ns_dparn_v0_causal` (their shipped recipes too,
+and the recipes' evaluation actions), at full width (random weights from a
+seed):
 
   0. device: torch / CUDA versions, the card's name and power limit;
   1. build: nvcc builds the seven CUDA sources from the checkout, in
@@ -225,7 +226,27 @@ full width (random weights from a seed):
      egs/ns/conf/vctk_{dpcrn,dparn}_1a.yaml --action train`, the same
      overrides, on a synthetic wav2scp / wav2ref manifest: 4 steps of B=16 x 3
      s + 1 dev batch, the same checks;
-  7. the kernels JSON line.
+  7. the recipes' evaluation actions through their CLIs (run in-process with
+     `runpy`), on the checkpoints 6e / 6f kept (epoch_0.ckpt and an
+     epoch_1.ckpt their trainers' `save_ckpt` wrote after a seeded 1 %
+     move), TRAIN.model_average 2, for `..._1c.yaml` and
+     `vctk_{dpcrn,dparn}_1a.yaml` read from their files, on a synthetic
+     Kaldi-style set of 8 mixtures of 4 s (3 s enrollments for TSE): `--action
+     dev --metrics detail` (every printed row finite and equal to `Metrics`
+     of the outputs; model, Metrics and loading seconds), `eval` (RTF at B=1),
+     `eval --batch_eval 4 --eval_quantum 0.75` (RTF; >= 60 dB from B=1
+     before the zero-padded tail's last window), `eval --backend cpu` on
+     the first 2 (the card's f32 wavs >= 60 dB from the CPU's),
+     `stream_eval` on every route (NS: the first 2 mixtures, stock and
+     DPCRN `--dp_kernel` / `--mk_kernel`, DPARN `--fused --attn_kernel` /
+     `--mk_kernel`; TSE: one 1 s mixture, its unfused step as JAX's) >= 60
+     dB from the offline inference of the zero-primed input (the engines'
+     contract), and `--half` at the serving bars (35 dB flagship and
+     DPCRN, 25 dB DPARN); every model tensor on the card; exact launches
+     (dev / eval: the forward training kernels, no backward, no serving
+     kernel; each stream route its own: the flagship's unfused step runs
+     its SegLSTMs a frame at a time through `lstm_scan_train_fp`);
+  8. the kernels JSON line (phase 7's launches in `launches_7`).
 
 Each phase prints one line with its result and time; any failure raises and
 the run exits non-zero. The last line is
@@ -242,6 +263,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3377,12 +3399,14 @@ def shipped_config(path: str, tmp: str, train: str, dev: str, **train_kw) -> str
     return out
 
 
-def shipped_1c_phase(lk, tk, dev, card, backend: str = "cuda"):
+def shipped_1c_phase(lk, tk, dev, card, backend: str = "cuda", keep: str = None):
     """Phase 6e: `python -m puresound_tpu_torch.egs.tse.main
     egs/tse/conf/libri2mix_max_2spk_clean_16k_1c.yaml --action train`: the
     flagship under GE2E (task 1: SI-SNR + alpha x GE2E over the enrollments'
     d-vectors) on SpeakerSampler's batches of 12 speakers x 4 utterances (B=48
-    x 3 s, 5 s enrollments), repeat x len(ds) // 48 batches a set."""
+    x 3 s, 5 s enrollments), repeat x len(ds) // 48 batches a set. `keep`:
+    a folder that receives the run's checkpoints for phase 7
+    (`keep_checkpoints`)."""
     import tempfile
 
     from puresound_tpu_torch.src.utils import load_hparam
@@ -3413,6 +3437,8 @@ def shipped_1c_phase(lk, tk, dev, card, backend: str = "cuda"):
         info = recipe_checks(res, steps, dev, fresh, "6e 1c recipe")
         if not {"loss_func_spk.w", "loss_func_spk.b"} <= set(fresh.state_dict()):
             raise AssertionError("6e: the checkpoint lacks GE2E's parameters")
+        if keep:
+            keep_checkpoints(res["trainer"], os.path.join(keep, hp["MODEL"]["type"]))
     g = step_gaps(res, steps, RECIPE_WARM)
     losses = res["losses"]
     log("6e 1c recipe", f"python -m puresound_tpu_torch.egs.tse.main {SHIPPED_1C} --action "
@@ -3428,11 +3454,13 @@ def shipped_1c_phase(lk, tk, dev, card, backend: str = "cuda"):
     return dict(g, launches=got, steps=steps)
 
 
-def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
+def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda", keep: str = None):
     """Phase 6f: `python -m puresound_tpu_torch.egs.ns.main
     egs/ns/conf/vctk_{dpcrn,dparn}_1a.yaml --action train` on a synthetic
     manifest: B=16 x 3 s, stft_ov, Adam with weight decay 1e-5, dropout 0.1,
-    one epoch of NS_RECIPE_STEPS steps and 1 dev batch."""
+    one epoch of NS_RECIPE_STEPS steps and 1 dev batch. `keep`: a folder
+    that receives each run's checkpoints (in <keep>/<model name>) for
+    phase 7."""
     import tempfile
 
     from puresound_tpu_torch.src.utils import load_hparam
@@ -3455,6 +3483,8 @@ def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
                             f"6f {name} recipe, LSTM and TCN (fwd, bwd)")
             info = recipe_checks(res, steps, dev, init_model(name, device=dev),
                                  f"6f {name} recipe")
+            if keep:
+                keep_checkpoints(res["trainer"], os.path.join(keep, name))
         g = step_gaps(res, steps, 1)
         losses = res["losses"]
         log("6f ns recipe", f"python -m puresound_tpu_torch.egs.ns.main {conf} --action train "
@@ -3468,6 +3498,464 @@ def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda"):
             f"{res['serving']}; epoch_0.ckpt reloads equal ({info[0]}, {info[1]}) [{card}]", t)
         out[name] = dict(g, launches=got)
     return out
+
+
+# ------------------------------------------------------------ phase 7
+#: the evaluation set: mixtures of 4 s at 16 kHz (TSE: 3 s enrollments)
+EVAL_UTTS, EVAL_SECONDS, EVAL_ENROLL_SECONDS = 8, 4.0, 3.0
+#: the eval set's first mixtures, which the CPU's eval and NS stream_eval take
+EVAL_SUBSET = 2
+#: TSE stream_eval's set (mixtures, seconds): its unfused engine step, JAX's
+#: choice for TSE streaming, dispatches some 12,000 ops a 16 ms chunk
+#: (scripts/tse_stream_ops.py)
+TSE_STREAM = (1, 1.0)
+TSE_MEM_LAUNCHES = 6    # the flagship's MemLSTM scans at a segment's end
+EVAL_BATCH = 4
+#: --batch_eval's grid: the 4 s mixtures are zero-padded to 4.5 s and the 3 s
+#: enrollments (4x the grid) are on it, so nothing is tiled
+EVAL_QUANTUM = 0.75
+EVAL_BAR_DB = 60.0      # f32: card vs CPU, batched vs not, streamed vs offline
+#: bf16 streaming against f32 (PERF.md section 2; GATE_BF16_BAR for the flagship)
+HALF_BARS_DB = {"tse_skim_v0_causal": GATE_BF16_BAR, "ns_dpcrn_v0_causal": 35.0,
+                "ns_dparn_v0_causal": 25.0}
+#: (config, CLI module, zoo name, launches an inference (LSTM fwd, TCN fwd),
+#:  stream_eval routes: (flags, launches a tick (LSTM fwd, serving kernels))).
+#: The flagship's unfused step runs each of its 4 SegLSTMs one frame at a
+#: time through lstm_scan_train_fp (16 frames a tick), and its 6 MemLSTM
+#: scans at every 150th frame (TSE_MEM_LAUNCHES)
+EVAL_RECIPES = (
+    (SHIPPED_1C, "puresound_tpu_torch.egs.tse.main", "tse_skim_v0_causal", (10, 5),
+     (((), (4 * 16, (0, 0, 0, 0, 0))),)),
+    (SHIPPED_NS[0], "puresound_tpu_torch.egs.ns.main", "ns_dpcrn_v0_causal", (6, 0),
+     (((), (6, (0, 0, 0, 0, 0))), (("--dp_kernel",), (0, (0, 0, 1, 0, 0))),
+      (("--mk_kernel",), (0, (0, 0, 0, 0, 1))))),
+    (SHIPPED_NS[1], "puresound_tpu_torch.egs.ns.main", "ns_dparn_v0_causal", (2, 0),
+     (((), (2, (0, 0, 0, 0, 0))), (("--fused", "--attn_kernel"), (0, (0, 2, 0, 2, 0))),
+      (("--mk_kernel",), (0, (0, 0, 0, 0, 1))))))
+
+
+def eval_signal(rng, n: int) -> np.ndarray:
+    """Speech-like: a 120-300 Hz harmonic tone with a syllable-rate envelope
+    and pauses (PESQ and STOI find active frames)."""
+    t = np.arange(n) / 16000
+    f0 = rng.uniform(120, 300)
+    tone = sum(np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 6.3)) / k for k in range(1, 8))
+    env = np.clip(np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6.3)), 0, None)
+    return 0.1 * tone * env
+
+
+def write_eval_manifest(folder: str, n: int, seed: int, tse: bool,
+                        seconds: float = None) -> str:
+    """A Kaldi-style dev / eval folder of n mixtures of `seconds` (default
+    EVAL_SECONDS) s at 16 kHz (keys mix_<i>_s1): wav2scp / wav2ref, and for
+    TSE ref2list (one 3 s enrollment of the target), ref2spk and wav2spk."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    files = ("wav2scp", "wav2ref") + (("ref2list", "ref2spk", "wav2spk") if tse else ())
+    lines = {f: [] for f in files}
+    L = int(16000 * (seconds or EVAL_SECONDS))
+    for i in range(n):
+        clean, other = eval_signal(rng, L), eval_signal(rng, L)
+        sigs = {"mix": clean + 0.7 * other + 0.01 * rng.standard_normal(L), "clean": clean}
+        if tse:
+            sigs["enroll"] = eval_signal(rng, int(16000 * EVAL_ENROLL_SECONDS))
+        path = lambda name: os.path.join(folder, f"{name}_{i}.wav")
+        for name, sig in sigs.items():
+            wavfile.write(path(name), 16000, np.clip(sig * 32768, -32768, 32767).astype(np.int16))
+        key = f"mix_{i}_s1"
+        lines["wav2scp"].append(f"{key} {path('mix')}")
+        lines["wav2ref"].append(f"{key} {path('clean')}")
+        if tse:
+            lines["ref2list"].append(f"{key} {path('enroll')}")
+            lines["ref2spk"].append(f"{key} sp{i}")
+            lines["wav2spk"].append(f"{key} sp{i}-sp{i + n}")
+    for name, ls in lines.items():
+        with open(os.path.join(folder, f"{name}.txt"), "w") as f:
+            f.write("\n".join(ls) + "\n")
+    return folder
+
+
+def keep_checkpoints(trainer, folder: str):
+    """A recipe run's epoch_0.ckpt, and an epoch_1.ckpt that the trainer's
+    `save_ckpt` writes after every parameter moved by 1 % noise from a
+    generator of its own, into `folder` (phase 7 averages the two)."""
+    os.makedirs(folder, exist_ok=True)
+    save_dir = trainer.hparam["TRAIN"]["model_save_dir"]
+    shutil.copy(os.path.join(save_dir, "epoch_0.ckpt"), folder)
+    gen = torch.Generator().manual_seed(SEED + 70)
+    with torch.no_grad():
+        for p in trainer.model.parameters():
+            noise = torch.randn(p.shape, generator=gen).to(p.device, p.dtype)
+            p.add_(0.01 * p.abs().mean() * noise)
+    trainer.save_ckpt(os.path.join(folder, "epoch_1.ckpt"), 1, {"total_loss": 0.0})
+
+
+class EvalProbe:
+    """While entered, records what the recipes' evaluation actions do:
+    every `SoTaskWrapModule.inference` output (its time with the card
+    synchronised before and after), every array `AudioIO.save` writes
+    (before int16), the model each `resolve_eval_params` loads (and the
+    time it takes: two checkpoints read and averaged), every
+    `stream_signal`'s RTF and the time spent in `Metrics`."""
+
+    def __init__(self):
+        from puresound_tpu_torch.nnet.base_nn import SoTaskWrapModule
+        from puresound_tpu_torch.src.audio import AudioIO
+        from puresound_tpu_torch.src.metrics import Metrics
+        from puresound_tpu_torch.streaming import file_eval
+        from puresound_tpu_torch.tasks.base import BaseTrainer
+
+        self.targets = [(SoTaskWrapModule, "inference"), (AudioIO, "save"),
+                        (BaseTrainer, "resolve_eval_params"), (file_eval, "stream_signal")]
+        self.targets += [(Metrics, m) for m in ("pesq_wb", "stoi", "bss_sdr", "sisnr",
+                                                "sisnr_imp")]
+        self.reset()
+
+    def reset(self):
+        self.outputs, self.saved, self.models, self.rtfs = [], {}, [], []
+        self.model_s = self.metric_s = self.load_s = 0.0
+
+    def __enter__(self):
+        self.orig = [(obj, name, obj.__dict__[name]) for obj, name in self.targets]
+        probe = self
+        inference = self.orig[0][2]
+
+        def timed_inference(model, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inference(model, *args)
+            torch.cuda.synchronize()
+            probe.model_s += time.perf_counter() - t
+            probe.outputs.append(out.detach().float().cpu().numpy())
+            return out
+
+        save = self.orig[1][2].__func__
+
+        def recording_save(wav, f_path, sr):
+            probe.saved[os.path.basename(f_path)[:-4]] = np.array(wav, np.float32).reshape(-1)
+            return save(wav, f_path, sr)
+
+        resolve = self.orig[2][2].__func__
+
+        def recording_resolve(*args):
+            t = time.perf_counter()
+            model = resolve(*args)
+            probe.load_s += time.perf_counter() - t
+            probe.models.append(model)
+            return model
+
+        stream = self.orig[3][2]
+
+        def recording_stream(*args, **kw):
+            enh, rtf = stream(*args, **kw)
+            probe.rtfs.append(rtf)
+            return enh, rtf
+
+        def timed(fn):
+            def metric(*args):
+                t = time.perf_counter()
+                try:
+                    return fn(*args)
+                finally:
+                    probe.metric_s += time.perf_counter() - t
+            return staticmethod(metric)
+
+        SoTaskWrapModule, AudioIO, BaseTrainer, file_eval = (o for o, _ in self.targets[:4])
+        SoTaskWrapModule.inference = timed_inference
+        AudioIO.save = staticmethod(recording_save)
+        BaseTrainer.resolve_eval_params = staticmethod(recording_resolve)
+        file_eval.stream_signal = recording_stream
+        for obj, name, fn in self.orig[4:]:
+            setattr(obj, name, timed(fn.__func__))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.orig:
+            setattr(obj, name, fn)
+
+
+def run_cli(module: str, cfg: str, args, probe: EvalProbe, lk, tk) -> dict:
+    """`python -m <module> <cfg> <args>`, run in this process with `runpy`
+    (its standard output captured): wall seconds, the launches (LSTM fwd,
+    LSTM bwd, TCN fwd, TCN bwd; the serving kernels), and what `probe`
+    recorded."""
+    import contextlib
+    import io
+    import runpy
+
+    serving = serving_counters()
+    probe.reset()
+    zero_counts(lk, tk)
+    zero_counters(serving)
+    argv, out = sys.argv, io.StringIO()
+    sys.argv = [module, cfg, *args]
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        sys.argv = argv
+    log("7 eval actions", f"{module.split('.')[-2]} {' '.join(args)}: {wall:.3f} s", t)
+    return {"wall_s": wall, "stdout": out.getvalue(), "launches": counts(lk, tk),
+            "serving": counter_values(serving), "outputs": probe.outputs,
+            "saved": dict(probe.saved), "models": list(probe.models), "rtfs": list(probe.rtfs),
+            "model_s": probe.model_s, "metric_s": probe.metric_s, "load_s": probe.load_s}
+
+
+def check_models(res: dict, dev, label: str, want: int = 1):
+    """`want` models loaded, every parameter and buffer on `dev`, in eval mode."""
+    models = res["models"]
+    if len(models) != want:
+        raise AssertionError(f"{label}: {len(models)} models loaded, not {want}")
+    for m in models:
+        off = [n for n, t in list(m.named_parameters()) + list(m.named_buffers())
+               if t.device.type != dev.type]
+        if off or m.training:
+            raise AssertionError(f"{label}: tensors off the card {off[:3]}, "
+                                 f"training {m.training}")
+
+
+def dev_rows(stdout: str, n_cols: int) -> dict:
+    """The per-utterance rows `dev` printed: {key: [float, ...]}."""
+    rows = {}
+    for line in stdout.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == n_cols + 1 and parts[0].startswith("mix_"):
+            rows[parts[0]] = [float(p) for p in parts[1:]]
+    return rows
+
+
+def rescore(folder: str, outputs, tse: bool) -> dict:
+    """`Metrics` on the dev outputs the probe recorded, in the manifest's
+    order, against the manifest's own wavs: the rows dev must print."""
+    from puresound_tpu_torch.src.audio import AudioIO
+    from puresound_tpu_torch.src.metrics import Metrics
+    from puresound_tpu_torch.src.utils import load_text_as_dict
+
+    scp = load_text_as_dict(os.path.join(folder, "wav2scp.txt"))
+    ref = load_text_as_dict(os.path.join(folder, "wav2ref.txt"))
+    rows = {}
+    for key, enh in zip(sorted(scp), outputs):
+        clean, noisy = AudioIO.open(ref[key][0])[0], AudioIO.open(scp[key][0])[0]
+        sisnr, sisnri = Metrics.sisnr(clean, enh), Metrics.sisnr_imp(clean, enh, noisy)
+        row = [Metrics.pesq_wb(clean, enh), Metrics.stoi(clean, enh),
+               Metrics.bss_sdr(clean, enh), sisnr, sisnri]
+        if tse:
+            row.append(1 if (sisnri < 0 and sisnr < 30) else 0)
+        rows[key] = [float(v) for v in row]
+    return rows
+
+
+def snr_np(got: np.ndarray, want: np.ndarray) -> float:
+    return snr_db(torch.from_numpy(np.asarray(got)), torch.from_numpy(np.asarray(want)))
+
+
+def eval_actions_phase(lk, tk, dev, card, keep: str, backend: str = "cuda"):
+    """Phase 7: the recipes' evaluation actions through their CLIs (runpy,
+    as 6b), on the checkpoints phases 6e / 6f kept, TRAIN.model_average 2
+    (epochs 0 and 1 averaged), on a synthetic dev / eval set of EVAL_UTTS
+    mixtures: `--action dev --metrics detail`, `eval`, `eval --batch_eval
+    4`, `eval --backend cpu` and `stream_eval` on every route, with and
+    without `--half`, on `libri2mix_max_2spk_clean_16k_1c.yaml` and
+    `vctk_{dpcrn,dparn}_1a.yaml` read from their files."""
+    import tempfile
+
+    from puresound_tpu_torch.src.utils import dump_hparam, load_hparam
+
+    out = {"launches": [0, 0, 0, 0], "serving": [0] * 5, "by_model": {}}
+    probe = EvalProbe()
+    with tempfile.TemporaryDirectory() as tmp, probe:
+        for conf, module, name, per_inference, routes in EVAL_RECIPES:
+            t = time.perf_counter()
+            tse = name.startswith("tse")
+            full = write_eval_manifest(os.path.join(tmp, name, "full"), EVAL_UTTS, SEED + 80,
+                                       tse)
+            subset = write_eval_manifest(os.path.join(tmp, name, "subset"), EVAL_SUBSET,
+                                         SEED + 80, tse)
+            stream = subset if not tse else write_eval_manifest(
+                os.path.join(tmp, name, "stream"), TSE_STREAM[0], SEED + 81, tse, TSE_STREAM[1])
+            hp = load_hparam(conf)
+            hp["TRAIN"].update(model_save_dir=os.path.join(keep, name), model_average=2,
+                               log_dir=os.path.join(tmp, name, "logs"))
+            cfgs = {}
+            for label, folder in (("full", full), ("subset", subset), ("stream", stream)):
+                hp["DATASET"].update(dev=folder, eval=folder, train=folder)
+                cfgs[label] = os.path.join(tmp, name, f"{label}.yaml")
+                dump_hparam(hp, cfgs[label])
+            ck = ["--ckpt", "epoch_1.ckpt"]
+            cli = lambda cfg, *args, on=backend: run_cli(module, cfgs[cfg],
+                                                         [*args, *ck, "--backend", on],
+                                                         probe, lk, tk)
+            res = {"dev": cli("full", "--action", "dev", "--metrics", "detail"),
+                   "eval": cli("full", "--action", "eval"),
+                   "batch": cli("full", "--action", "eval", "--batch_eval", str(EVAL_BATCH),
+                                "--eval_quantum", str(EVAL_QUANTUM)),
+                   "cpu": cli("subset", "--action", "eval", on="cpu")}
+            for flags, _ in routes:
+                for half in ((), ("--half",)) if not flags else ((),):
+                    res[("stream",) + flags + half] = cli("stream", "--action", "stream_eval",
+                                                          *flags, *half)
+            summary = check_eval_runs(res, name, tse, per_inference, routes, full, stream, dev)
+            runs = [r for k, r in res.items() if k != "cpu"]
+            summary["launches"] = [sum(r["launches"][i] for r in runs) for i in range(4)]
+            summary["serving"] = [sum(r["serving"][i] for r in runs) for i in range(5)]
+            out["launches"] = [a + b for a, b in zip(out["launches"], summary["launches"])]
+            out["serving"] = [a + b for a, b in zip(out["serving"], summary["serving"])]
+            out["by_model"][name] = summary
+            log("7 eval actions", f"python -m {module} {conf} (--ckpt epoch_1.ckpt, "
+                "TRAIN.model_average 2: epochs 0 and 1 averaged) on "
+                f"{EVAL_UTTS} mixtures of {EVAL_SECONDS:g} s" + (
+                    f", {EVAL_ENROLL_SECONDS:g} s enrollments" if tse else "")
+                + ": " + summary["text"] + f" [{card}]", t)
+    return out
+
+
+def stream_set(tse: bool) -> tuple:
+    """(mixtures, samples a mixture) of stream_eval's set."""
+    n, seconds = TSE_STREAM if tse else (EVAL_SUBSET, EVAL_SECONDS)
+    return n, int(16000 * seconds)
+
+
+def stream_ticks(tse: bool) -> int:
+    """stream_signal's steps an utterance: the chunks that cover the input
+    and the engine's delay, and the warm-up step."""
+    L, chunk = stream_set(tse)[1], 256
+    delay = 0 if tse else 512 - 128
+    return -(-(L + delay) // chunk) + 1
+
+
+def check_eval_runs(res, name, tse, per_inference, routes, folder, stream, dev):
+    """Phase 7's checks of one recipe's runs; returns the numbers and the
+    log text."""
+    from puresound_tpu_torch.src.audio import AudioIO
+    from puresound_tpu_torch.src.utils import load_text_as_dict
+
+    n, L = EVAL_UTTS, int(16000 * EVAL_SECONDS)
+    n_b = -(-n // EVAL_BATCH)
+    lf, tf = per_inference
+    for key, calls in (("dev", n), ("eval", n), ("batch", n_b)):
+        expect_launches((res[key]["launches"], res[key]["serving"]),
+                        ((lf * calls, 0, tf * calls, 0), (0,) * 5),
+                        f"7 {name} {key}: training (LSTM fwd/bwd, TCN fwd/bwd), serving")
+    expect_launches((res["cpu"]["launches"], res["cpu"]["serving"]), ((0,) * 4, (0,) * 5),
+                    f"7 {name} eval --backend cpu")
+    n_s, L_s = stream_set(tse)
+    ticks = stream_ticks(tse) * n_s
+    # the flagship's MemLSTMs at each segment's end: the warm-up step's 16
+    # frames reach none
+    mem = TSE_MEM_LAUNCHES * ((stream_ticks(tse) - 1) * 16 // 150) * n_s if tse else 0
+    for flags, (l_tick, serving_tick) in routes:
+        for half in ((), ("--half",)) if not flags else ((),):
+            r = res[("stream",) + flags + half]
+            expect_launches((r["launches"], r["serving"]),
+                            ((l_tick * ticks + mem, 0, 5 * n_s if tse else 0, 0),
+                             tuple(s * ticks for s in serving_tick)),
+                            f"7 {name} stream_eval {' '.join(flags + half) or 'stock'}")
+            check_models(r, dev, f"7 {name} stream_eval", 2 if (tse and half) else 1)
+    for key in ("dev", "eval", "batch"):
+        check_models(res[key], dev, f"7 {name} {key}")
+    check_models(res["cpu"], torch.device("cpu"), f"7 {name} eval --backend cpu")
+
+    # dev: the printed rows are finite and Metrics of the outputs
+    printed = dev_rows(res["dev"]["stdout"], 6 if tse else 5)
+    want = rescore(folder, res["dev"]["outputs"], tse)
+    if printed != want or len(printed) != n or not np.isfinite(list(want.values())).all():
+        raise AssertionError(f"7 {name} dev: printed {printed}, Metrics of the outputs {want}")
+    means = np.mean(list(want.values()), axis=0)
+
+    # f32: the card against the CPU; batched against one at a time (before
+    # the padded tail's last window)
+    keys = sorted(res["eval"]["saved"])
+    sub = keys[:EVAL_SUBSET]
+    card_cpu = min(snr_np(res["eval"]["saved"][k], res["cpu"]["saved"][k]) for k in sub)
+    tail = 32 if tse else 512
+    batch = min(snr_np(res["batch"]["saved"][k][:L - tail], res["eval"]["saved"][k][:L - tail])
+                for k in keys)
+    # streamed == offline inference on the zero-primed input (the engines'
+    # contract), the averaged model eval loaded; NS past the first window
+    model = res["eval"]["models"][0]
+    scp = load_text_as_dict(os.path.join(stream, "wav2scp.txt"))
+    enr = load_text_as_dict(os.path.join(stream, "ref2list.txt")) if tse else {}
+    pad = 16 if tse else 384
+    offline = {}
+    with torch.inference_mode():
+        for k in sorted(scp):
+            x = torch.from_numpy(AudioIO.open(scp[k][0])[0]).to(dev)
+            args = [torch.nn.functional.pad(x, (pad, 0))]
+            if tse:
+                e = AudioIO.open(enr[k][0], target_lvl=-28)[0]
+                args.append(torch.from_numpy(e).to(dev))
+            offline[k] = model.inference(*args)[0].float().cpu().numpy()
+    # the time-domain engine's output lines up with the primed offline
+    # output (delay 0: it lags the input by the prime), the STFT engine's
+    # with the input (JAX's tests); eval's output with the input
+    lo, hi, shift = (0, L_s, 0) if tse else (512, L_s - 1024, pad)
+    lag = pad if tse else 0
+    streams = {}
+    for flags, _ in routes:
+        r = res[("stream",) + flags]
+        got = min(snr_np(r["saved"][k][lo:hi], offline[k][lo + shift:hi + shift])
+                  for k in offline)
+        to_eval = (None if tse else min(
+            snr_np(r["saved"][k][512 + lag:hi], res["eval"]["saved"][k][512:hi - lag])
+            for k in offline))
+        streams[" ".join(flags) or "stock"] = (got, to_eval, float(np.mean(r["rtfs"])))
+    r_half = res[("stream", "--half")]
+    half = min(snr_np(r_half["saved"][k], res[("stream",)]["saved"][k]) for k in offline)
+    bars = {"card vs CPU": card_cpu, "batched vs unbatched": batch,
+            **{f"stream {s} vs offline": v[0] for s, v in streams.items()}}
+    low = {k: v for k, v in bars.items() if not v >= EVAL_BAR_DB}
+    if low or not half >= HALF_BARS_DB[name]:
+        raise AssertionError(f"7 {name}: below {EVAL_BAR_DB} dB {low}; --half {half:.1f} dB "
+                             f"(bar {HALF_BARS_DB[name]})")
+
+    audio_s = n * EVAL_SECONDS
+    d, e, b = res["dev"], res["eval"], res["batch"]
+    cols = ("PESQ", "STOI", "SDR", "SiSNR", "SiSNRi") + (("NSR",) if tse else ())
+    summary = {
+        "dev_wall_s": d["wall_s"], "dev_model_s": d["model_s"], "dev_metrics_s": d["metric_s"],
+        "dev_load_s": d["load_s"], "eval_load_s": res["eval"]["load_s"],
+        "dev_means": dict(zip(cols, map(float, means))),
+        "eval_wall_s": e["wall_s"], "eval_model_s": e["model_s"],
+        "eval_rtf": audio_s / e["wall_s"], "eval_model_rtf": audio_s / e["model_s"],
+        "batch_wall_s": b["wall_s"], "batch_model_s": b["model_s"],
+        "batch_rtf": audio_s / b["wall_s"], "batch_model_rtf": audio_s / b["model_s"],
+        "cpu_eval_wall_s": res["cpu"]["wall_s"], "card_vs_cpu_db": card_cpu,
+        "batch_vs_unbatched_db": batch, "half_vs_f32_db": half, "streams": streams,
+        "stream_wall_s": {" ".join(k[1:]) or "stock": r["wall_s"] for k, r in res.items()
+                          if k[0] == "stream"},
+        "half_rtf": float(np.mean(r_half["rtfs"]))}
+    summary["text"] = (
+        f"dev --metrics detail {d['wall_s']:.2f} s (model {d['model_s']:.3f} s synced, Metrics "
+        f"{d['metric_s']:.2f} s, reading and averaging the checkpoints "
+        f"{d['load_s']:.2f} s, the rest (the model's build, data, printing) "
+        f"{d['wall_s'] - d['model_s'] - d['metric_s'] - d['load_s']:.2f} s), "
+        "means " + ", ".join(f"{c} {v:.4f}" for c, v in summary["dev_means"].items())
+        + f", every row finite and equal to Metrics of the outputs; eval B=1 {e['wall_s']:.2f} s "
+        f"(RTF {summary['eval_rtf']:.1f}, model alone {summary['eval_model_rtf']:.1f}; loading "
+        f"{e['load_s']:.2f} s); "
+        f"--batch_eval {EVAL_BATCH} --eval_quantum {EVAL_QUANTUM} {b['wall_s']:.2f} s (RTF "
+        f"{summary['batch_rtf']:.1f}, model alone {summary['batch_model_rtf']:.1f}), "
+        f"{batch:.1f} dB from B=1 before the last window; card vs --backend cpu "
+        f"{card_cpu:.1f} dB (CPU eval of {EVAL_SUBSET} {res['cpu']['wall_s']:.2f} s); "
+        f"stream_eval on {n_s} mixture(s) of {L_s / 16000:g} s, 16 ms chunks: " + "; ".join(
+            f"{s} {summary['stream_wall_s'][s]:.2f} s, RTF {v[2]:.2f}, {v[0]:.1f} dB from the "
+            "offline inference of the zero-primed input" + (
+                "" if v[1] is None else f", {v[1]:.1f} dB from eval's past the first window")
+            for s, v in streams.items())
+        + f"; --half {summary['stream_wall_s']['--half']:.2f} s, RTF {summary['half_rtf']:.2f}, "
+        f"{half:.1f} dB from f32 (bar {HALF_BARS_DB[name]:g}); launches dev / eval / batch "
+        f"(LSTM fwd, TCN fwd) {d['launches'][::2]} / {e['launches'][::2]} / "
+        f"{b['launches'][::2]}, no backward, no serving kernel; stream_eval (LSTM fwd, TCN fwd;"
+        " serving) " + "; ".join(f"{' '.join(k[1:]) or 'stock'} {r['launches'][::2]}; "
+                                 f"{r['serving']}" for k, r in res.items() if k[0] == "stream")
+        + "; every model tensor on the card")
+    return summary
 
 
 # ------------------------------------------------------------ phase 6d
@@ -4146,10 +4634,20 @@ def run(dev: torch.device) -> int:
 
     # --------------------------------------- 6d. NS training at full width
     ns_train = ns_training_phase(lk, tk, dev, card)
-    # ------------------------------ 6e. the flagship's shipped GE2E recipe
-    recipe_1c = shipped_1c_phase(lk, tk, dev, card)
-    # ----------------------------------------------- 6f. the NS recipes
-    ns_recipes = ns_recipe_phase(lk, tk, dev, card)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        # -------------------------- 6e. the flagship's shipped GE2E recipe
+        recipe_1c = shipped_1c_phase(lk, tk, dev, card, keep=keep)
+        # ------------------------------------------- 6f. the NS recipes
+        ns_recipes = ns_recipe_phase(lk, tk, dev, card, keep=keep)
+        # ------------------- 7. the recipes' evaluation actions on 6e / 6f's
+        t = time.perf_counter()
+        evals = eval_actions_phase(lk, tk, dev, card, keep)
+        log("7 eval actions", "phase 7 in all, launches (LSTM fwd, LSTM bwd, TCN fwd, TCN "
+            f"bwd) {evals['launches']}, serving (fused_skim_frames, lstm_scan, "
+            f"dual_path_chunk, dparn_intra_pass, the centers) {evals['serving']}", t)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     # the training launches of phases 6d-6f, (LSTM fwd, bwd, TCN fwd, bwd)
     new_training = [r["launches"] for k, r in ns_train.items() if k[1] != "check"]
     new_training += [recipe_1c["launches"]] + [r["launches"] for r in ns_recipes.values()]
@@ -4166,7 +4664,7 @@ def run(dev: torch.device) -> int:
                 "bf16_bound_ms": r[f"bf16_{half}_bound"][0],
                 "bf16_library_ms": r[f"bf16_lib_{half}_ms"] if lib else None}
 
-    # ------------------------------------------------- 7. the kernels line
+    # ---------------------------------------------------- 8. the kernels line
     flag = results[0]
     skim_bound = bound_ms(*skim_work(4, 128, 256, 15, 1024, torch.float32),
                           torch.float32)
@@ -4192,8 +4690,9 @@ def run(dev: torch.device) -> int:
             "name": f"lstm_scan_train_fp ({'forward' if i == 0 else 'backward'})",
             "route": "cuda", "source": LSTM_SOURCE, "replaces": replaces,
             "launches": (train["f32"]["launches"][i] + train["bf16"]["launches"][i]
-                         + recipe["launches"][i] + by_entry(half, "fp") + new_launches[i]),
-            "launches_6d_6f": new_launches[i],
+                         + recipe["launches"][i] + by_entry(half, "fp") + new_launches[i]
+                         + evals["launches"][i]),
+            "launches_6d_6f": new_launches[i], "launches_7": evals["launches"][i],
             "new_shapes": {n: case_line(lstm_results[n], half) for n in LSTM_SEEDS},
             "max_abs_err": seg["f32_max_abs_err"], "ms": seg[f"f32_{half}_ms"],
             "plain_ms": seg[f"f32_plain_{half}_ms"],
@@ -4263,8 +4762,8 @@ def run(dev: torch.device) -> int:
             "name": f"tcn_block_train ({'forward' if half == 'fwd' else 'backward'})",
             "route": "cuda", "source": TCN_SOURCE, "replaces": replaces,
             "launches": (train["f32"]["launches"][i] + train["bf16"]["launches"][i]
-                         + recipe["launches"][i] + new_launches[i]),
-            "launches_6d_6f": new_launches[i],
+                         + recipe["launches"][i] + new_launches[i] + evals["launches"][i]),
+            "launches_6d_6f": new_launches[i], "launches_7": evals["launches"][i],
             "new_shapes": {n: case_line(tcn_results[n], half) for n in TCN_SEEDS},
             "max_abs_err": spk["f32_max_abs_err"], "ms": spk[f"f32_{half}_ms"],
             "plain_ms": spk[f"f32_plain_{half}_ms"],
@@ -4282,7 +4781,9 @@ def run(dev: torch.device) -> int:
         "name": "lstm_scan", "route": "cuda", "source": LSCAN_SOURCE,
         "replaces": LSCAN_REPLACES,
         "launches": (ns_routes["fused"][1][1] + fused_serve["launches"][1]
-                     + sum(r["launches"][1] for r in dparn_serve.values())),
+                     + sum(r["launches"][1] for r in dparn_serve.values())
+                     + evals["serving"][1]),
+        "launches_7": evals["serving"][1],
         "launches_by_phase": {"3b fused (f32, cuda)": ns_routes["fused"][1][1],
                               "4j DPCRN fused serving": fused_serve["routes"],
                               "4c DPARN serving": {n: r["routes"]
@@ -4308,7 +4809,8 @@ def run(dev: torch.device) -> int:
     kernels.append({
         "name": "dual_path_chunk", "route": "cuda", "source": DP_SOURCE,
         "replaces": DP_REPLACES,
-        "launches": sum(r["launches"][2] for r in ns_serve.values()),
+        "launches": sum(r["launches"][2] for r in ns_serve.values()) + evals["serving"][2],
+        "launches_7": evals["serving"][2],
         "max_abs_err": dp["f32_max_abs_err"], "ms": dp["f32_ms"],
         "plain_ms": dp["f32_plain_ms"], "bound_ms": dp["f32_bound"][0],
         "bound_by": dp["f32_bound"][1], "library_ms": None,
@@ -4322,7 +4824,8 @@ def run(dev: torch.device) -> int:
     kernels.append({
         "name": "dparn_intra_pass", "route": "cuda", "source": DPARN_SOURCE,
         "replaces": DPARN_REPLACES,
-        "launches": sum(r["launches"][2] for r in dparn_serve.values()),
+        "launches": sum(r["launches"][2] for r in dparn_serve.values()) + evals["serving"][3],
+        "launches_7": evals["serving"][3],
         "max_abs_err": at["f32_max_abs_err"], "ms": at["f32_ms"],
         "plain_ms": at["f32_plain_ms"], "bound_ms": at["f32_bound"][0],
         "bound_by": at["f32_bound"][1], "library_ms": None,
@@ -4332,13 +4835,17 @@ def run(dev: torch.device) -> int:
         "bf16_ms": at["bf16_ms"], "bf16_plain_ms": at["bf16_plain_ms"],
         "bf16_bound_ms": at["bf16_bound"][0], "bf16_stock_ms": at["bf16_stock_ms"],
         "bf16_snr_db": at["bf16_snr_db"], "shape": at["shape"]})
-    center_launches = {"center_chunk": sum(r["launches"][3] for r in mk_serve.values()),
-                       "dparn_center_chunk": dparn_routes["mk_kernel"][1][3]}
+    center_7 = {"center_chunk": evals["by_model"]["ns_dpcrn_v0_causal"]["serving"][4],
+                "dparn_center_chunk": evals["by_model"]["ns_dparn_v0_causal"]["serving"][4]}
+    center_launches = {"center_chunk": sum(r["launches"][3] for r in mk_serve.values())
+                       + center_7["center_chunk"],
+                       "dparn_center_chunk": dparn_routes["mk_kernel"][1][3]
+                       + center_7["dparn_center_chunk"]}
     for name, r in center_results.items():
         kernels.append({
             "name": name, "route": "cuda", "source": CENTER_SOURCE,
             "replaces": CENTER_REPLACES[name], "entry": CENTER_ENTRY[name],
-            "launches": center_launches[name],
+            "launches": center_launches[name], "launches_7": center_7[name],
             "max_abs_err": r["f32_max_abs_err"], "ms": r["f32_ms"],
             "plain_ms": r["f32_plain_ms"], "bound_ms": r["f32_bound"][0],
             "bound_by": r["f32_bound"][1], "library_ms": None,

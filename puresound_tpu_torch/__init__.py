@@ -6,7 +6,8 @@ each other on the CPU. This package imports `torch` and never `jax`.
 
 What is ported (the serving and training slices of the flagship
 `tse_skim_v0_causal`, the recipes' trainers with the shipped GE2E config,
-and NS serving and training of `ns_dpcrn_v0_causal` / `ns_dparn_v0_causal`):
+NS serving and training of `ns_dpcrn_v0_causal` / `ns_dparn_v0_causal`, and
+the recipes' evaluation actions for all three):
     zoo.tse.init_model, init_loss      — the flagship, random init from a Generator; every loss
     zoo.ns.init_model, init_loss       — the DPCRN / DPARN NS models; their losses
     nnet                               — encoders (FreeEncDec, ConvSTFT), TCN speaker net,
@@ -20,11 +21,18 @@ and NS serving and training of `ns_dpcrn_v0_causal` / `ns_dparn_v0_causal`):
     ops.dual_path_kernel               — DPCRN's dual-path bottleneck (CUDA, sm_90a)
     ops.quant                          — the int8 serving quantizer and plain int8 products
     parallel                           — TrainState, adam, make_train_step
-    src                                — AudioIO, load_hparam, SpeakerSampler, the C++ host library
-    tasks                              — DataLoader, TseDataset, TseTask, NsDataset, NsTask
-    egs.tse.main, egs.ns.main          — the recipes' command lines (--action train)
-    streaming                          — StreamingTSE, StreamingNS, SessionServer, make_session_server
-    utils.from_jax                     — JAX variables -> this package's state_dict
+    src                                — AudioIO (FLAC through src.flac without the C++ host
+                                         library), load_hparam, SpeakerSampler, src.metrics
+                                         (PESQ via src.pesq_native, STOI, SDR, SI-SNR, F1)
+    tasks                              — DataLoader, TseDataset, TseTask, NsDataset, NsTask,
+                                         eval-time checkpoint loading and model averaging,
+                                         tasks.batch_eval.BucketedBatchRunner
+    egs.tse.main, egs.ns.main          — the recipes' command lines (--action train, dev, eval,
+                                         stream_eval); egs.tse.local.binarize (PVAD)
+    streaming                          — StreamingTSE, StreamingNS, SessionServer, make_session_server,
+                                         file_eval.stream_signal
+    utils.from_jax, utils.flax_ckpt    — JAX variables -> this package's state_dict; the JAX
+                                         package's msgpack checkpoints read without flax
 
 Kernels build from `csrc/` with nvcc at first use on a CUDA tensor; a CPU
 tensor takes each kernel's plain PyTorch version.

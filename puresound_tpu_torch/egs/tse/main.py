@@ -1,28 +1,45 @@
-"""TSE recipe command line: train (counterpart of egs/tse/main.py:
-`init_dataloader` `:46-113`, `action_train` `:116-144`, `main` `:443-491`).
+"""TSE recipe command line: train, dev, eval and stream_eval (counterpart of
+egs/tse/main.py: `load_eval_model` `:33-43`, `init_dataloader` `:46-113`,
+`action_train` `:116-144`, `action_dev` `:147-253`, `action_eval`
+`:311-375`, `action_stream_eval` `:402-440`, `main` `:443-491`).
 
     python -m puresound_tpu_torch.egs.tse.main <TSE.yaml-style config> \\
-        --action train [--backend cuda|cpu]
+        --action train|dev|eval|stream_eval [--ckpt epoch_N.ckpt] [--backend cuda|cpu]
 
-Trains on the CUDA card unless `--backend cpu` asks for the CPU; `cuda`
+Runs on the CUDA card unless `--backend cpu` asks for the CPU; `cuda`
 raises where torch sees no card. With `TRAIN.contrastive_learning` the
 batches are `SpeakerSampler`'s, p_spks speakers x p_utts utterances, as the
-GE2E loss needs them. The other actions (dev / eval / tSNE / export_model /
-stream_eval / serve) and `--num_processes > 1` are not ported yet and raise.
+GE2E loss needs them. dev / eval / stream_eval load `--ckpt` (a file under
+TRAIN.model_save_dir, the port's or the JAX package's) honouring
+`TRAIN.model_average`, and score or write the dev / eval sets; `--batch_eval
+N` batches dev / eval N utterances at a time in length buckets. tSNE,
+export_model, serve and `--num_processes > 1` are not ported yet and raise.
 """
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
+from ...src.audio import AudioIO
+from ...src.metrics import Metrics
 from ...src.sampler import SpeakerSampler
-from ...src.utils import create_folder, load_hparam
-from ...tasks.base import DataLoader
+from ...src.utils import create_folder, load_hparam, load_text_as_dict
+from ...streaming.file_eval import build_engine, stream_signal
+from ...streaming.halfprec import to_half
+from ...tasks.base import BaseTrainer, DataLoader
+from ...tasks.batch_eval import BucketedBatchRunner
 from ...tasks.tse import TseCollateFunc, TseDataset, TseTask
 from ...zoo.tse import init_loss, init_model
+from .local.binarize import Binarize
 
 ACTIONS = ("train", "dev", "eval", "tSNE", "export_model", "stream_eval", "serve")
+#: the actions that raise, and the ROADMAP item each waits for
+NOT_PORTED = {
+    "tSNE": "queue 1 item 2: tSNE, which needs scikit-learn and matplotlib",
+    "export_model": "queue 1 item 8: utils/export.py on torch.export",
+    "serve": "queue 1 item 3: the socket front"}
 
 
 def _device(backend: str) -> torch.device:
@@ -30,7 +47,7 @@ def _device(backend: str) -> torch.device:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("--backend cuda (the default) needs a CUDA card and "
-                           "torch sees none; pass --backend cpu to train on the CPU")
+                           "torch sees none; pass --backend cpu to run on the CPU")
     return torch.device("cuda")
 
 
@@ -75,19 +92,246 @@ def action_train(hparam, device) -> TseTask:
     return trainer
 
 
-def main(config) -> TseTask:
-    if config.action != "train":
-        raise NotImplementedError(
-            f"--action {config.action} is not ported yet (ROADMAP queue 1 item 2: "
-            "the recipe's other actions); only train is")
+# ------------------------------------------------------------- evaluation
+def load_eval_model(hparam, ckpt_name: str, device):
+    """The zoo model (no losses) on `device` in eval mode, its parameters
+    from the checkpoint (TRAIN.model_average: N averages the last N epoch
+    checkpoints)."""
+    model = init_model(hparam["MODEL"]["type"], device=device)
+    return BaseTrainer.resolve_eval_params(hparam, ckpt_name, model).eval()
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def _binarizer(sr: int) -> Binarize:
+    return Binarize(threshold=0.5, stability=0.05, sample_rate=sr, mode="moving_average")
+
+
+def _runner(model, hparam, device, batch_eval: int, eval_quantum: float):
+    """`--batch_eval N`: enrollments on a 4x coarser grid (the bucket keys
+    are the (mixture, enrollment) product, and enrollment lengths vary
+    continuously)."""
+    sr = hparam["DATASET"]["sample_rate"]
+    return BucketedBatchRunner(model.inference, batch_size=batch_eval,
+                               quantum=(int(sr * eval_quantum), int(sr * eval_quantum * 4)),
+                               pad_modes=("zero", "tile"), device=device)
+
+
+def _dev_pairs(model, hparam, device, loader, batch_eval, eval_quantum):
+    """(batch, enhanced [1, ...]) in manifest order, one utterance at a
+    time or bucketed at batch_eval."""
+    if batch_eval > 0:
+        batches = list(loader)
+        runner = _runner(model, hparam, device, batch_eval, eval_quantum)
+        outs = runner.run([(b["process_wav"], b["enroll_wav"]) for b in batches])
+        print(f"batch_eval: {len(runner.bucket_keys)} bucket shapes "
+              f"for {len(batches)} utterances")
+        for b, o in zip(batches, outs):
+            yield b, o[None]
+        return
+    for b in loader:
+        yield b, model.inference(_tensor(b["process_wav"], device),
+                                 _tensor(b["enroll_wav"], device)).cpu().numpy()
+
+
+def action_dev(hparam, device, ckpt, metrics="simple", batch_eval=0,
+               eval_quantum=1.0) -> dict:
+    """Score the dev set (PESQ / STOI / SDR with `--metrics detail`, SI-SNR,
+    SI-SNRi, NSR; accuracy / precision / recall / F1 of the binarized output
+    for a PVAD set), printing a row per utterance and the means; returns
+    the means."""
+    ds = hparam["DATASET"]
+    is_vad = ds["type"].lower() == "pvad"
+    dev_ds = TseDataset(folder=ds["dev"], resample_to=ds["sample_rate"], max_length=None,
+                        rir_mode=ds.get("rir_mode") or "image",
+                        enroll_rule=ds.get("enroll_rule"), is_vad_dataset=is_vad)
+    loader = DataLoader(dev_ds, batch_size=1, shuffle=False, collate_fn=TseCollateFunc())
+    model = load_eval_model(hparam, ckpt, device)
+    with torch.inference_mode():
+        pairs = _dev_pairs(model, hparam, device, loader, batch_eval, eval_quantum)
+        if is_vad:
+            return _score_vad(pairs, _binarizer(ds["sample_rate"]))
+        return _score_tse(pairs, metrics)
+
+
+def _score_vad(pairs, binarizer) -> dict:
+    scores = {k: [] for k in ("accuracy", "precision", "recall", "f1_score")}
+    print("accuracy, precision, recall, f1_score")
+    for batch, enh in pairs:
+        score = Metrics.f1_score(batch["clean_wav"], binarizer(enh).astype(np.float32))
+        for k, v in scores.items():
+            v.append(score[k])
+        print(f"{batch['uttid'][0]}, " + ", ".join(str(v[-1]) for v in scores.values()))
+    means = {k: np.mean(v) for k, v in scores.items()}
+    for k, v in means.items():
+        print(f"{k}: {v}")
+    return means
+
+
+def _detail_scores(clean, enh, metrics: str):
+    """(PESQ, STOI, SDR); zeros under `--metrics simple`."""
+    if metrics != "detail":
+        return 0, 0, 0
+    try:
+        pesq = Metrics.pesq_wb(clean, enh)
+    except ValueError:  # utterance too short for PESQ (< 0.25 s)
+        pesq = 0
+    return pesq, Metrics.stoi(clean, enh), Metrics.bss_sdr(clean, enh)
+
+
+def _score_tse(pairs, metrics: str) -> dict:
+    names = ("PESQ", "STOI", "SDR", "SiSNR", "SiSNRi", "NSR", "NSR-negative")
+    scores = {k: [] for k in names}
+    print("uttid, PESQ, STOI, SDR, SISNR, SISNRi, NSR")
+    for batch, enh in pairs:
+        clean, noisy = batch["clean_wav"], batch["process_wav"]
+        sisnr = Metrics.sisnr(clean, enh)
+        sisnri = Metrics.sisnr_imp(clean, enh, noisy)
+        nsr = 1 if (sisnri < 0 and sisnr < 30) else 0
+        row = (*_detail_scores(clean, enh, metrics), sisnr, sisnri, nsr,
+               1 if (nsr and sisnr < 0) else 0)
+        for k, v in zip(names, row):
+            scores[k].append(v)
+        print(f"{batch['uttid'][0]}, " + ", ".join(str(v) for v in row[:6]))
+    means = {k: np.mean(v) for k, v in scores.items()}
+    for k, v in means.items():
+        print(f"{k}: {v}")
+    return means
+
+
+def _eval_sets(hparam):
+    ds = hparam["DATASET"]
+    return (load_text_as_dict(f"{ds['eval']}/wav2scp.txt"),
+            load_text_as_dict(f"{ds['eval']}/ref2list.txt"))
+
+
+def _open(path: str, sr: int, target_lvl=None) -> np.ndarray:
+    wav, wav_sr = AudioIO.open(f_path=path, target_lvl=target_lvl)
+    return AudioIO.resample(wav, wav_sr, sr) if wav_sr != sr else wav
+
+
+def _load_pair(test_audio, enroll_dct, key, sr):
+    """(mixture [1, L], the key's enrollments at -28 dB joined [1, L'])."""
+    enrolls = [_open(p, sr, target_lvl=-28) for p in enroll_dct[key]]
+    return (np.asarray(_open(test_audio[key][0], sr)),
+            np.concatenate(enrolls, axis=-1))
+
+
+def action_eval(hparam, device, ckpt, batch_eval=0, eval_quantum=1.0) -> str:
+    """Enhance the eval set (wav2scp.txt, ref2list.txt) into
+    TRAIN.model_save_dir/eval_audio/<key>.wav; returns that folder."""
+    sr = hparam["DATASET"]["sample_rate"]
+    out_dir = f"{hparam['TRAIN']['model_save_dir']}/eval_audio"
+    create_folder(out_dir)
+    model = load_eval_model(hparam, ckpt, device)
+    test_audio, enroll_dct = _eval_sets(hparam)
+    post = _binarizer(sr) if hparam["DATASET"]["type"].lower() == "pvad" else None
+
+    def finish(key, enh):
+        enh = np.asarray(enh).reshape(1, -1)
+        if post is not None:
+            enh = post(enh).astype(np.float32)
+        AudioIO.save(enh.reshape(1, -1), f"{out_dir}/{key}.wav", sr)
+
+    keys = list(test_audio.keys())
+    with torch.inference_mode():
+        if batch_eval > 0:
+            runner = _runner(model, hparam, device, batch_eval, eval_quantum)
+            # macro-chunks keep the host's memory bounded on large sets
+            group = max(batch_eval * 8, 64)
+            for start in range(0, len(keys), group):
+                chunk = keys[start:start + group]
+                outs = runner.run([_load_pair(test_audio, enroll_dct, k, sr) for k in chunk])
+                for k, o in zip(chunk, outs):
+                    print(f"Running inference: {k}")
+                    finish(k, o)
+            return out_dir
+        for key in keys:
+            print(f"Running inference: {key}")
+            noisy, enroll = _load_pair(test_audio, enroll_dct, key, sr)
+            finish(key, model.inference(_tensor(noisy, device),
+                                        _tensor(enroll, device)).cpu().numpy())
+    return out_dir
+
+
+def action_stream_eval(hparam, device, ckpt, chunk_ms=16.0, half=False) -> list:
+    """Stream the eval set through `StreamingTSE` (the unfused step, as
+    JAX's): each enrollment embedded once (in float32), the mixture
+    streamed in `chunk_ms` chunks; writes
+    TRAIN.model_save_dir/stream_eval_audio/<key>.wav aligned with the input
+    and prints each utterance's RTF and their mean; returns the RTFs."""
+    sr = hparam["DATASET"]["sample_rate"]
+    out_dir = f"{hparam['TRAIN']['model_save_dir']}/stream_eval_audio"
+    create_folder(out_dir)
+    engine = build_engine(load_eval_model(hparam, ckpt, device))
+    # under --half the stream runs on a bfloat16 copy; the embedding stays float32
+    streamer = (build_engine(to_half(load_eval_model(hparam, ckpt, device)))
+                if half else engine)
+    test_audio, enroll_dct = _eval_sets(hparam)
+    rtfs = []
+    for key in test_audio.keys():
+        noisy, enroll = _load_pair(test_audio, enroll_dct, key, sr)
+        with torch.inference_mode():
+            dvec = engine.embed(_tensor(enroll.reshape(1, -1), device))
+        enh, rtf = stream_signal(streamer, noisy, sr, chunk_ms=chunk_ms, dvec=dvec,
+                                 half=half)
+        rtfs.append(rtf)
+        print(f"Streamed {key}: RTF {rtf:.1f}x real time")
+        AudioIO.save(enh.reshape(1, -1), f"{out_dir}/{key}.wav", sr)
+    if rtfs:
+        print(f"Average RTF over {len(rtfs)} utts: {np.mean(rtfs):.1f}x "
+              f"({chunk_ms} ms chunks)")
+    return rtfs
+
+
+def check_action(config, not_ported=NOT_PORTED) -> None:
+    """Raise for an action or option that is not ported, and for a missing
+    --ckpt (every action but train needs one, `egs/tse/main.py:467-469`)."""
+    if config.action in not_ported:
+        raise NotImplementedError(f"--action {config.action} is not ported yet "
+                                  f"(ROADMAP {not_ported[config.action]})")
     if config.num_processes > 1:
         raise NotImplementedError(
             "--num_processes > 1 (multi-process training) is not ported yet "
             "(ROADMAP queue 1 item 2: DDP)")
+    if config.action != "train" and not config.ckpt:
+        raise ValueError(f"--ckpt is required for --action {config.action} "
+                         "(a filename under TRAIN.model_save_dir)")
+
+
+def main(config):
+    check_action(config)
     device = _device(config.backend)
     hparam = load_hparam(config.config_path)
     create_folder(hparam["TRAIN"]["model_save_dir"])
-    return action_train(hparam, device)
+    if config.action == "train":
+        return action_train(hparam, device)
+    if config.action == "dev":
+        return action_dev(hparam, device, config.ckpt, config.metrics,
+                          config.batch_eval, config.eval_quantum)
+    if config.action == "eval":
+        return action_eval(hparam, device, config.ckpt, config.batch_eval,
+                           config.eval_quantum)
+    return action_stream_eval(hparam, device, config.ckpt, config.chunk_ms, config.half)
+
+
+def add_eval_args(parser) -> None:
+    """The flags of dev / eval / stream_eval, as JAX's recipes name them."""
+    parser.add_argument("--ckpt", type=str, default=None,
+                        help="a checkpoint under TRAIN.model_save_dir (every action but train)")
+    parser.add_argument("--metrics", type=str, default="simple",
+                        choices=["simple", "detail"])
+    parser.add_argument("--batch_eval", type=int, default=0,
+                        help="dev / eval: bucketed batched inference at this batch size "
+                             "(0: one utterance at a time)")
+    parser.add_argument("--eval_quantum", type=float, default=1.0,
+                        help="batch_eval: the length buckets' grid in seconds")
+    parser.add_argument("--chunk_ms", type=float, default=16.0,
+                        help="stream_eval chunk size in milliseconds")
+    parser.add_argument("--half", action="store_true",
+                        help="stream_eval in bfloat16 (serving mode)")
 
 
 def parse_args(argv=None):
@@ -96,6 +340,7 @@ def parse_args(argv=None):
     parser.add_argument("--action", type=str, default="train", choices=ACTIONS)
     parser.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--num_processes", type=int, default=1)
+    add_eval_args(parser)
     return parser.parse_args(argv)
 
 

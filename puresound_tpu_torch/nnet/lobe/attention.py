@@ -48,7 +48,7 @@ class PositionalEncoding(nn.Module):
         super().__init__()
         self.d_model, self.max_len = d_model, max_len
         self.pe_table = sinusoid_table(d_model, max_len)
-        self.drop = Dropout(dropout, device=device, generator=generator)
+        self.drop = Dropout(dropout, generator=generator)
         self._on: Dict[torch.device, torch.Tensor] = {}
 
     def table(self, T: int, device) -> torch.Tensor:
@@ -165,15 +165,15 @@ class MhaSelfAttenLayer(nn.Module):
         g = generator_or_default(generator)
         self.improved, self.position_encoding = improved, position_encoding
         self.self_atten = MHA(feats_dim, nhead, generator=g, **fk)
-        self.atten_drop = Dropout(dropout, device=device, generator=g)
+        self.atten_drop = Dropout(dropout, generator=g)
         self.norm1 = LayerNorm(feats_dim, **fk)
         if position_encoding:
             self.pos = PositionalEncoding(feats_dim, dropout, device=device, generator=g)
         self.feedforward = nn.Sequential(
             Linear(feats_dim, hidden_dim, generator=g, **fk), nn.ReLU(),
-            Dropout(dropout, device=device, generator=g),
+            Dropout(dropout, generator=g),
             Linear(hidden_dim, feats_dim, generator=g, **fk),
-            Dropout(dropout, device=device, generator=g))
+            Dropout(dropout, generator=g))
         self.norm2 = LayerNorm(feats_dim, **fk)
 
     def forward(self, x: torch.Tensor, causal: bool = False,

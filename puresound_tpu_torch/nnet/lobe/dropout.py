@@ -2,7 +2,7 @@
 flax's `nn.Dropout` as the JAX package's modules use it)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -14,22 +14,26 @@ class Dropout(nn.Module):
     """In training mode, zero each element with probability `p` and scale
     the others by 1 / (1 - p), as flax does (`where(keep, x / (1 - p), 0)`);
     in eval mode the identity. Each call draws a seed from the generator the
-    model was built from and the mask from it on the module's device, never
-    from torch's global RNG; an input on another device raises."""
+    model was built from and the mask from that seed on the input's device
+    (a generator of that device's, made at its first use), never from
+    torch's global RNG."""
 
-    def __init__(self, p: float = 0.0, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, p: float = 0.0, *, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.p = p
         self.generator = generator_or_default(generator)
-        self._masks = torch.Generator(device=torch.device("cpu" if device is None
-                                                          else device))
+        self._masks: Dict[torch.device, torch.Generator] = {}
+
+    def _mask_generator(self, device: torch.device) -> torch.Generator:
+        if device not in self._masks:
+            self._masks[device] = torch.Generator(device=device)
+        return self._masks[device]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.p):
             return x
         seed = int(torch.randint(2 ** 62, (), generator=self.generator))
-        keep = torch.rand(x.shape, generator=self._masks.manual_seed(seed),
+        keep = torch.rand(x.shape, generator=self._mask_generator(x.device).manual_seed(seed),
                           device=x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                   device=x.device))

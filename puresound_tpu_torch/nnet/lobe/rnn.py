@@ -177,7 +177,7 @@ class SingleRNN(nn.Module):
         self.rnn = LSTM(input_size, hidden_size, bidirectional, generator=g, **fk)
         D = 2 if bidirectional else 1
         self.proj = Linear(D * hidden_size, input_size, generator=g, **fk)
-        self.drop = Dropout(dropout, device=device, generator=g)
+        self.drop = Dropout(dropout, generator=g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, C, T] -> [N, C, T]."""

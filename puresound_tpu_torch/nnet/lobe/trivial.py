@@ -10,6 +10,7 @@ from torch import nn
 from ...utils.init import generator_or_default
 from .activation import PReLU
 from .cnn import Conv1d
+from .dropout import Dropout
 from .norm import ChanLN, LayerNormLast
 
 
@@ -19,8 +20,10 @@ class Gate(nn.Module):
     [in_conv(x); cond]. x: [N, C, T], condition: [N, E].
 
     PureSound's layout (`left_conv` / `right_conv` are Sequential(conv, cLN,
-    PReLU)). Dropout after each PReLU runs in training mode only and draws
-    its mask from the module's own `torch.Generator`, never the global RNG.
+    PReLU)). Dropout after each PReLU (JAX's `drop`) runs in training mode
+    only: `Dropout` draws each mask's seed from the module's own
+    `torch.Generator`, never the global RNG, and the mask on the input's
+    device.
     """
 
     def __init__(self, input_size: int, hidden_size: int, embed_size: int,
@@ -29,7 +32,7 @@ class Gate(nn.Module):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
-        self.hidden_size, self.dropout, self.generator = hidden_size, dropout, g
+        self.hidden_size, self.generator = hidden_size, g
         self.in_conv = Conv1d(input_size, hidden_size, 1, bias=False,
                               generator=g, **fk)
         self.left_conv = nn.Sequential(
@@ -41,19 +44,13 @@ class Gate(nn.Module):
             ChanLN(hidden_size, **fk), PReLU(**fk))
         self.out_conv = Conv1d(hidden_size, input_size, 1, bias=False,
                                generator=g, **fk)
-
-    def _drop(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and self.dropout):
-            return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=self.generator.device) >= self.dropout
-        return x * keep.to(x.device, x.dtype) / (1.0 - self.dropout)
+        self.drop = Dropout(dropout, generator=g)
 
     def forward(self, x: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
         u = self.in_conv(x)
         cond = condition[:, :, None].expand(*condition.shape, u.shape[-1])
-        left = self._drop(self.left_conv(u))
-        right = torch.sigmoid(self._drop(
+        left = self.drop(self.left_conv(u))
+        right = torch.sigmoid(self.drop(
             self.right_conv(torch.cat([u, cond.to(u.dtype)], dim=1))))
         return self.out_conv(left * right) + x
 

@@ -79,7 +79,7 @@ class Unet(nn.Module):
                 Conv2d(chans[i], chans[i + 1], (kf, kt), stride=(stride_f[i], stride_t[i]),
                        dilation=(dilation_f[i], dilation_t[i]), generator=g, **fk),
                 norm(chans[i + 1], **fk), mk_act(),
-                Dropout(dropout, device=device, generator=g)))
+                Dropout(dropout, generator=g)))
         self.cnn_up = nn.ModuleList()
         for i in reversed(range(n)):
             k, s = kernel_f[i], stride_f[i]

@@ -2,7 +2,8 @@
 puresound_tpu/src/audio.py:24-145; host numpy / scipy).
 
 WAV and FLAC decode through the C++ library of `csrc/` (`src/native.py`)
-where it loads; without it WAV goes through scipy and FLAC raises. The
+where it loads; without it WAV goes through scipy and FLAC through the
+pure-Python decoder of `src/flac.py` (JAX's `src/audio.py:20,43`). The
 resampler is the library's polyphase kernel (bit-exact with
 `scipy.signal.resample_poly` on float32), else scipy's. The augmentation
 chain (`AudioAugmentor`) is not ported yet (ROADMAP queue 1 item 2).
@@ -18,6 +19,7 @@ from scipy.io import wavfile
 from scipy.signal import resample_poly
 
 from . import native
+from .flac import read_flac
 
 
 class AudioIO:
@@ -33,12 +35,10 @@ class AudioIO:
         if native.available():
             try:
                 return native.read_flac(f_path) if is_flac else native.read_wav(f_path)
-            except ValueError:
-                pass  # unusual WAV encodings fall through to scipy
+            except (ValueError, RuntimeError):
+                pass  # unusual encodings fall through to the Python path
         if is_flac:
-            raise NotImplementedError(
-                f"{f_path}: FLAC needs the native decoder of csrc/ (make -C csrc); "
-                "the pure-Python decoder is not ported (ROADMAP queue 1 item 2)")
+            return read_flac(f_path)
         sr, wav = wavfile.read(f_path)
         if wav.dtype == np.int16:
             wav = wav.astype(np.float32) / 32768.0

@@ -1,12 +1,20 @@
-"""Streaming-engine helpers (counterpart of puresound_tpu/streaming/file_eval.py:20-66,
-160-186): the output delay, the kernel flags' validation, and the engine
-matching an offline wrapper. `stream_signal` (the file-streaming CLI) is
-not ported yet (ROADMAP queue 1 item 8)."""
+"""File-based streaming evaluation (counterpart of
+puresound_tpu/streaming/file_eval.py): run a waveform through a streaming
+engine in real-time-sized chunks and report the real-time factor
+(`stream_signal`, the recipes' `stream_eval`), the output delay, the kernel
+flags' validation, and the engine matching an offline wrapper."""
 from __future__ import annotations
+
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
 
 from ..nnet.dparn import _DPARNBase
 from ..nnet.encoder import ConvEncDec, FreeEncDec
 from .engine import StreamingTSE
+from .halfprec import to_half
 from .ns_engine import StreamingNS
 
 
@@ -50,6 +58,73 @@ def engine_step_options(engine, fused: bool = False, dp_kernel: bool = False,
     if attn_kernel:
         kw["attn_kernel"] = True
     return kw, {}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def stream_signal(engine, wav: np.ndarray, sr: int, chunk_ms: float = 16.0,
+                  dvec: Optional[torch.Tensor] = None, half: bool = False,
+                  fused: bool = False, dp_kernel: bool = False,
+                  attn_kernel: bool = False, mk_kernel: bool = False
+                  ) -> Tuple[np.ndarray, float]:
+    """Stream `wav` [L] through `engine` chunk by chunk, on the engine's
+    device (JAX's `:69-157`).
+
+    Returns (enhanced [L] aligned with the input, real-time factor: audio
+    seconds over wall seconds, > 1 faster than real time). One warm-up step
+    on zeros runs first; the file then streams from a fresh state. The
+    timed loop starts and ends with the card synchronised, so the RTF holds
+    the device's time, not only the host's queueing.
+
+    half=True streams in bfloat16: `to_half` casts the engine's float32
+    weights in place (hand it a copy to keep the float32 ones) and `dvec`
+    is cast. fused / dp_kernel / attn_kernel / mk_kernel pick the STFT
+    engines' kernel routes (`engine_step_options`); a TSE engine takes the
+    unfused step, as JAX's does.
+    """
+    device = next(engine.parameters()).device
+    hop = engine.encoder.hop_length
+    chunk = max(1, int(round(sr * chunk_ms / 1000.0)) // hop) * hop
+    delay = engine_delay_samples(engine)
+    wav = np.asarray(wav, np.float32).reshape(-1)
+    L = wav.shape[0]
+    n_chunks = -(-(L + delay) // chunk)
+    dt = torch.bfloat16 if half else torch.float32
+    if half:
+        to_half(engine)
+        if dvec is not None:
+            dvec = dvec.to(dt)
+    x = np.zeros((1, n_chunks * chunk), np.float32)
+    x[0, :L] = wav
+    x = torch.from_numpy(x).to(device)
+
+    kw, init_kw = engine_step_options(engine, fused=fused, dp_kernel=dp_kernel,
+                                      attn_kernel=attn_kernel, mk_kernel=mk_kernel)
+    if isinstance(engine, StreamingNS):
+        run = lambda c, s: engine.step(c, s, dvec, **kw)
+    elif isinstance(engine, StreamingTSE):
+        run = lambda c, s: engine.step(c, dvec, s)
+    else:
+        raise TypeError(f"unknown streaming engine {type(engine)}")
+    init_state = lambda: engine.init_state(1, dt, device, **init_kw)
+
+    with torch.inference_mode():
+        run(torch.zeros((1, chunk), dtype=dt, device=device), init_state())
+        state = init_state()
+        outs = []
+        _sync(device)
+        t0 = time.perf_counter()
+        for i in range(n_chunks):
+            y, state = run(x[:, i * chunk:(i + 1) * chunk].to(dt), state)
+            outs.append(y)
+        _sync(device)
+        elapsed = time.perf_counter() - t0
+        out = torch.cat(outs, dim=-1)[0].float().cpu().numpy()
+    rtf = (n_chunks * chunk / sr) / max(elapsed, 1e-9)
+    return out[delay:delay + L], rtf
 
 
 def build_engine(model):

@@ -12,20 +12,27 @@ is the group's lr = base lr x factor. The scheduler sets the base LR and
 keeps the factors. Checkpoints (`epoch_{n}.ckpt`, `torch.save`) hold the
 parameters, the buffers (JAX's `batch_stats`), the optimizer state, the
 bookkeeping (`meta`) and the scheduler, with JAX's resume semantics.
-Reading a flax-msgpack checkpoint of the JAX package is not ported (ROADMAP
+The eval-time loaders (`load_params_from_ckpt`, `resolve_eval_params`,
+`average_checkpoints`, JAX's `:733-806`) read these and the JAX package's
+flax-msgpack checkpoints alike, told apart by their first bytes. Resuming
+training from a JAX checkpoint (its optimizer state) is not ported (ROADMAP
 queue 1 item 2).
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import random
+import re
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..src.utils import create_folder, load_text_as_dict
+from ..utils import flax_ckpt
+from ..utils.from_jax import flat_from_jax, for_model, to_torch
 
 
 # ---------------------------------------------------------------------------
@@ -352,6 +359,23 @@ class DeferredMetricSink:
             self._consume(*prev)
 
 
+def checkpoint_state(filename: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint's parameters and persistent buffers by the port's
+    state_dict names, on the CPU: the port's own `torch.save` file (a zip
+    archive, `PK\\x03\\x04`) or the JAX package's `flax.serialization.to_bytes`
+    one (a msgpack map), told apart by the bytes, not the file name."""
+    with open(filename, "rb") as f:
+        data = f.read()
+    if data[:4] == b"PK\x03\x04":
+        tree = torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
+        return {**tree["params"], **tree["batch_stats"]}
+    if flax_ckpt.is_msgpack_map(data):
+        tree = flax_ckpt.msgpack_restore(data)
+        return to_torch(flat_from_jax({"params": tree["params"],
+                                       "batch_stats": tree.get("batch_stats") or {}}))
+    raise ValueError(f"{filename}: neither a torch.save checkpoint nor a flax msgpack one")
+
+
 def _f32(lr: float) -> float:
     """The learning rate as JAX holds it (a float32 hyperparameter)."""
     return float(np.float32(lr))
@@ -471,6 +495,59 @@ class BaseTrainer:
         self.scheduler.load_state_dict(tree["scheduler"])
         self.set_learning_rate(float(meta["learning_rate"]))
         return int(meta["epoch"]), float(meta["learning_rate"]), float(meta["loss"])
+
+    @staticmethod
+    def load_params_from_ckpt(filename: str, model: torch.nn.Module) -> torch.nn.Module:
+        """Eval-time loading: the checkpoint's parameters and buffers into
+        `model` (the optimizer state is ignored; keys the model lacks are
+        dropped, keys it has must be there, `for_model`). Returns `model`."""
+        model.load_state_dict(for_model(checkpoint_state(filename), model), strict=True)
+        return model
+
+    @staticmethod
+    def resolve_eval_params(hparam: Dict, ckpt_name: str,
+                            model: torch.nn.Module) -> torch.nn.Module:
+        """Load eval-time parameters into `model` honouring
+        ``TRAIN.model_average``: N > 1 averages the N epoch checkpoints ending
+        at ``--ckpt epoch_k.ckpt`` (epochs k-N+1 .. k, skipping the epochs
+        whose file is missing); any other value, a checkpoint not named
+        ``epoch_<n>.ckpt``, or fewer than two files found load the one
+        checkpoint."""
+        save_dir = hparam["TRAIN"]["model_save_dir"]
+        n_avg = int(hparam.get("TRAIN", {}).get("model_average") or 0)
+        m = re.fullmatch(r"epoch_(\d+)\.ckpt", ckpt_name)
+        if n_avg > 1 and m:
+            k = int(m.group(1))
+            paths = [os.path.join(save_dir, f"epoch_{e}.ckpt")
+                     for e in range(max(0, k - n_avg + 1), k + 1)]
+            paths = [p for p in paths if os.path.isfile(p)]
+            if len(paths) > 1:
+                print(f"model_average: averaging {len(paths)} checkpoints "
+                      f"ending at {ckpt_name}")
+                return BaseTrainer.average_checkpoints(paths, model)
+        return BaseTrainer.load_params_from_ckpt(os.path.join(save_dir, ckpt_name), model)
+
+    @staticmethod
+    def average_checkpoints(filenames, model: torch.nn.Module) -> torch.nn.Module:
+        """The mean of several checkpoints' parameters and buffers into
+        `model`, as JAX's: summed in float64 in the order given, divided by
+        their count, cast to float32. A tensor that is not floating point
+        (none of the ported models has one) is not averaged: the last
+        checkpoint's is taken."""
+        acc: Dict[str, torch.Tensor] = {}
+        for fn in filenames:
+            for name, t in for_model(checkpoint_state(fn), model).items():
+                if not t.is_floating_point():
+                    acc[name] = t
+                elif name in acc:
+                    acc[name] = acc[name] + t.to(torch.float64)
+                else:
+                    acc[name] = t.to(torch.float64)
+        n = float(len(filenames))
+        avg = {k: (a / n).to(torch.float32) if a.is_floating_point() else a
+               for k, a in acc.items()}
+        model.load_state_dict(avg, strict=True)
+        return model
 
     # -------------------------------------------------------------- running
     def train_one_epoch(self, current_epoch: int) -> Dict:

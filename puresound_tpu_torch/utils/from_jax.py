@@ -8,13 +8,14 @@ onto them one module type at a time. Leaves may be numpy or jax arrays
     sd = from_jax(variables)               # a whole TSE or NS SoTaskWrapModule
     model.load_state_dict(sd)
     grads = params_by_name(jax_grads)      # {name: array} like the params
+    model.load_state_dict(for_model(sd, model))   # a checkpoint with extra keys
 
 The per-module converters take (params, batch_stats) subtrees and return a
 flat {name: np.ndarray} dict; `to_torch` turns one into tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -305,13 +306,34 @@ def params_by_name(tree: Mapping) -> Flat:
     return so_wrapper_tse_skim({"params": tree})
 
 
-def from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+def flat_from_jax(variables: Mapping) -> Flat:
     """flax variables ({"params", "batch_stats"}) of a TSE (FreeEncDec +
     SkiM) or NS (ConvEncDec + DPCRN / DPARN) SoTaskWrapModule, or of its
-    streaming engine -> state_dict, told apart by the masker's keys."""
+    streaming engine -> {state_dict name: np.ndarray}, told apart by the
+    masker's keys."""
     masker = variables["params"]["masker"]
     if "dprnn_block1" in masker:
         if "intra_atten1" in masker["dprnn_block1"]:
-            return to_torch(so_wrapper_ns_dparn(variables))
-        return to_torch(so_wrapper_ns_dpcrn(variables))
-    return to_torch(so_wrapper_tse_skim(variables))
+            return so_wrapper_ns_dparn(variables)
+        return so_wrapper_ns_dpcrn(variables)
+    return so_wrapper_tse_skim(variables)
+
+
+def from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """`flat_from_jax` as tensors: the state_dict of the same model."""
+    return to_torch(flat_from_jax(variables))
+
+
+def for_model(state: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, Any]:
+    """The entries of `state` that `model`'s state_dict holds, as JAX's
+    eval load keeps them (`serialization.from_state_dict` on the eval
+    model's own tree, puresound_tpu/tasks/base.py:733-748): a key the model
+    lacks is dropped (a training checkpoint's `loss_func_spk.*`, GE2E's w /
+    b, in a model built without losses); a key of the model that `state`
+    lacks raises."""
+    names = list(model.state_dict())
+    missing = [n for n in names if n not in state]
+    if missing:
+        raise KeyError(f"the checkpoint lacks {len(missing)} of the model's tensors, "
+                       f"e.g. {missing[:3]}")
+    return {n: state[n] for n in names}

@@ -1,7 +1,9 @@
 """Port parity, Gate-conditioned SkiM (`embed_fusion="Gate"`):
 
 - `ChanLN` (cLN) and `Gate` against the JAX layers in float64 (atol 1e-8 /
-  rtol 1e-6), and the Gate's dropout drawn from its own generator;
+  rtol 1e-6), also with dropout in eval mode and at rate 0 in training
+  mode, and the Gate's dropout drawn from its own generator, its masks
+  on the input's device (`nnet/lobe/dropout.py`'s `Dropout`);
 - `SkiM(embed_fusion="Gate")` offline, `step_frames` and the fused step's
   plain route against JAX's SkiM in float64, with every block a Gate and
   with the mixed pattern (1, 0, 1); `from_jax` on it;
@@ -94,6 +96,42 @@ def test_gate_matches_jax(rng, sizes):
     tm = Gate(C, Hd, E, dtype=torch.float64).eval()
     tm.load_state_dict(fj.to_torch(fj.gate(v["params"])), strict=True)
     _close(tm(torch.from_numpy(x), torch.from_numpy(cond)).detach().numpy(), want)
+
+
+@pytest.mark.parametrize("dropout,train", [(0.3, False), (0.0, True)],
+                         ids=["eval mode", "rate 0 in training"])
+def test_gate_with_dropout_matches_jax(rng, dropout, train):
+    C, Hd, E = 16, 12, 8
+    x, cond = rng.standard_normal((2, C, 9)), rng.standard_normal((2, E))
+    jm = JGate(C, Hd, E, dropout=dropout)
+    v = _perturbed_f64(jm.init(KEY, jnp.zeros((2, C, 9)), jnp.zeros((2, E))), rng)
+    with jax.enable_x64(True):
+        want = jm.apply(v, jnp.asarray(x), jnp.asarray(cond), train=train,
+                        rngs={"dropout": KEY})
+    tm = Gate(C, Hd, E, dropout=dropout, dtype=torch.float64).train(train)
+    tm.load_state_dict(fj.to_torch(fj.gate(v["params"])), strict=True)
+    _close(tm(torch.from_numpy(x), torch.from_numpy(cond)).detach().numpy(), want)
+
+
+def test_gate_dropout_draws_its_masks_on_the_inputs_device(rng, monkeypatch):
+    """Each of the Gate's two masks comes from a generator of the input's
+    device, and is made there (never on the CPU and copied)."""
+    from puresound_tpu_torch.nnet.lobe.dropout import Dropout
+
+    seen, rand = [], torch.rand
+
+    def recording_rand(*shape, generator=None, device=None, **kw):
+        seen.append((generator.device, torch.device(device)))
+        return rand(*shape, generator=generator, device=device, **kw)
+
+    m = Gate(8, 16, 4, dropout=0.5, dtype=torch.float64,
+             generator=torch.Generator().manual_seed(0)).train()
+    assert isinstance(m.drop, Dropout) and m.drop.generator is m.generator
+    x, cond = (torch.from_numpy(rng.standard_normal(s)) for s in ((2, 8, 20), (2, 4)))
+    monkeypatch.setattr(torch, "rand", recording_rand)
+    m(x, cond)
+    assert seen == [(x.device, x.device)] * 2
+    assert set(m.drop._masks) == {x.device}
 
 
 def test_gate_dropout_draws_from_its_generator(rng):

@@ -451,7 +451,7 @@ def test_cli_defaults_to_the_card_and_other_actions_raise(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--backend cpu"):
             cli.main(cli.parse_args([str(cfg)]))
-    for argv in (["--action", "dev"], ["--action", "serve"],
+    for argv in (["--action", "export_model"], ["--action", "serve"],
                  ["--backend", "cpu", "--num_processes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(cli.parse_args([str(cfg), *argv]))

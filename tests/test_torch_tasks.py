@@ -412,8 +412,8 @@ def test_cli_defaults_to_the_card_and_unported_options_raise(tmp_path, manifest,
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--backend cpu"):
             cli.main(cli.parse_args([cfg]))
-    for argv in ([cfg, "--action", "dev"], [cfg, "--action", "serve"],
-                 [cfg, "--backend", "cpu", "--num_processes", "2"]):
+    for argv in ([cfg, "--action", "tSNE"], [cfg, "--action", "export_model"],
+                 [cfg, "--action", "serve"], [cfg, "--backend", "cpu", "--num_processes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(cli.parse_args(argv))
     from puresound_tpu_torch.zoo.tse import init_loss

@@ -315,6 +315,10 @@ def test_port_imports_no_jax():
             "puresound_tpu_torch.nnet.dparn, puresound_tpu_torch.nnet.lobe.attention, "
             "puresound_tpu_torch.ops.dparn_attention_kernel, "
             "puresound_tpu_torch.ops.masker_kernel, puresound_tpu_torch.ops.quant, "
-            "puresound_tpu_torch.dsp.stft, sys; "
-            "assert not {'jax', 'flax', 'puresound_tpu'} & set(sys.modules)")
+            "puresound_tpu_torch.dsp.stft, puresound_tpu_torch.egs.ns.main, "
+            "puresound_tpu_torch.egs.tse.local.binarize, puresound_tpu_torch.src.metrics, "
+            "puresound_tpu_torch.src.pesq_native, puresound_tpu_torch.src.flac, "
+            "puresound_tpu_torch.tasks.batch_eval, puresound_tpu_torch.tasks.base, "
+            "puresound_tpu_torch.utils.flax_ckpt, puresound_tpu_torch.utils.from_jax, sys; "
+            "assert not {'jax', 'flax', 'msgpack', 'puresound_tpu'} & set(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
