@@ -3,10 +3,12 @@
 Drives the port's serving and training paths for the flagship
 `tse_skim_v0_causal` (also under the training LSTM path's two switches, and
 its shipped GE2E recipe), the serving path of the flagship's configuration
-with Gate fusion, and the NS serving and training paths of
+with Gate fusion, the NS serving and training paths of
 `ns_dpcrn_v0_causal` and `ns_dparn_v0_causal` (their shipped recipes too,
-and the recipes' evaluation actions), at full width (random weights from a
-seed):
+and the recipes' evaluation actions), and the remaining shipped recipes:
+the Conv-TasNet TSE models `td_tse_conv_tasnet_v0{,_causal}`, the PVAD model
+`tse_skim_v0_causal_vad` and the lookahead NS models `ns_{dpcrn,dparn}_v0`,
+at full width (random weights from a seed):
 
   0. device: torch / CUDA versions, the card's name and power limit;
   1. build: nvcc builds the seven CUDA sources from the checkout, in
@@ -246,7 +248,52 @@ seed):
      (dev / eval: the forward training kernels, no backward, no serving
      kernel; each stream route its own: the flagship's unfused step runs
      its SegLSTMs a frame at a time through `lstm_scan_train_fp`);
-  8. the kernels JSON line (phase 7's launches in `launches_7`).
+  2k. the kernels at the remaining recipes' shapes against their plain
+     versions, each case from a generator of its own: `tcn_block_train`
+     forward / backward at C=512, Ch=256, B=12 x T=2,999, d = 1, 16, 128
+     (the Conv-TasNet masker's blocks; CUDA cores at both dtypes) with
+     phase 2c's bars and the stock module beside; `fused_skim_frames` at the
+     PVAD widths (n=2, C=128, H=64, FiLM) at B=256 and 1,024 over 20 carried
+     chunks (f32 max|d|/max|ref| <= 1e-4, bf16 SNR >= 30 dB; bf16 on the
+     tensor cores, `mma` K=2 M=16; f32 on the CUDA cores); `lstm_scan_train_fp`
+     at the PVAD recipe's SegLSTM (240 x 150, C=128, H=64) and MemLSTM (12 x
+     20, C=H=64) with phase 2b's bars and cuDNN beside;
+  4k. `tse_skim_v0_causal_vad` (1,133,200 parameters, a Sigmoid output)
+     through `make_session_server(half=True, fused=True)` at 256 sessions:
+     100 ticks after 3 warm-up, every launch on `mma`, no plain version,
+     tick p50 / p99, bf16 slot 0 against the f32 engine (30 dB); then
+     `td_tse_conv_tasnet_v0_causal` in f32 through `make_session_server` on
+     its unfused step (fused=True must raise) at 8 sessions: 5 TCN launches
+     an attach, every slot's stream >= 60 dB from the offline inference of
+     its zero-primed input;
+  6g. the shipped `libri2mix_max_2spk_clean_16k_{1a,1b}.yaml` (Conv-TasNet,
+     SI-SNR + 10 x AAM-softmax on spk_label, 251 classes) and
+     `libri2mix-pvad_max_2spk_clean_16k_1a.yaml` (PVAD, F1 on frame labels,
+     single-speaker / inactive draws at 0.1) through the TSE CLI, read from
+     their files with paths, epochs, workers and seed overridden, on
+     synthetic manifests (frame labels as ref2vad for PVAD): 3 steps of B=12
+     x 3 s + 1 dev batch, finite losses, exact launches by kernel (v0: 21
+     masker blocks + 5 speaker blocks on `tcn_block_train` a forward; the
+     causal model's BatchNorm masker on the stock path, its 5 speaker blocks
+     on the kernel; PVAD 4 LSTM + 5 TCN), AAM-softmax's weight moved,
+     `epoch_0.ckpt` reloading equal, step p50, host gap, peak memory; then
+     one f32 step of each model (B=2 x 0.5 s) on the card against the CPU's
+     f64 step, the CPU's f32 beside;
+  6h. `vctk_{dpcrn,dparn}_1b.yaml` (the lookahead `ns_{dpcrn,dparn}_v0`)
+     through the NS CLI, with 6f's checks;
+  7b. the evaluation actions of the five configs on 6g / 6h's checkpoints
+     (model_average 2), 4 mixtures of 4 s: `dev --metrics detail` (PVAD:
+     accuracy / precision / recall / F1 equal to `Metrics.f1_score` of the
+     binarised outputs against the frame labels; the others Metrics of the
+     outputs), `eval`, `eval --backend cpu` (the card's f32 outputs >= 60 dB
+     from the CPU's), `stream_eval` (the causal Conv-TasNet and PVAD on the
+     unfused step; the `_1b` models on stock, `--fused`, `--dp_kernel`
+     (DPCRN), `--fused --attn_kernel` (DPARN)) >= 60 dB from the offline
+     inference of the zero-primed input; the non-causal v0's `stream_eval`
+     and `--mk_kernel` on a `_1b` model raise;
+  8. the kernels JSON line (phase 7's launches in `launches_7`, the new
+     phases' in `launches_4k` / `_6g` / `_6h` / `_7b`, the new shapes'
+     times and bounds in `new_shapes`).
 
 Each phase prints one line with its result and time; any failure raises and
 the run exits non-zero. The last line is
@@ -255,6 +302,7 @@ Run from the repo root: `python3 chip_smoke.py` (needs one CUDA card).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -527,9 +575,10 @@ SKIM_KERNELS = (("mma", r"skim_tc_kernel"), ("cuda", r"skim_frames_kernel"))
 
 
 def skim_route(dt, C, H, modes) -> str:
-    """The route fused_skim_frames's plan takes at the model geometry (bf16
-    dots at C=128, H=256, n >= 2: tensor cores) and elsewhere (CUDA cores)."""
-    geometry = C == 128 and H == 256 and len(modes) >= 2
+    """The route fused_skim_frames's plan takes at the models' geometry (bf16
+    dots at C=128, H=256 (the flagship) or H=64 (the PVAD model), n >= 2:
+    tensor cores) and elsewhere (CUDA cores)."""
+    geometry = C == 128 and H in (64, 256) and len(modes) >= 2
     return "mma" if dt == torch.bfloat16 and geometry else "cuda"
 
 
@@ -2455,11 +2504,11 @@ Q_BARS = {"int8_hh": 20.0, "int8_full": 15.0}   # JAX's bars (tests/test_pallas_
 
 @torch.no_grad()
 def tse_quant_serving(ops, model, option, n_slots, dev, card, label="tse_skim_v0_causal",
-                      phase="4e tse quantized", bar=None):
-    """Phase 4e (and 4i): a TSE model through make_session_server(half=True,
+                      phase="4e tse quantized", bar=None, ticks=NS_TICKS):
+    """Phase 4e (and 4i, 4k): a TSE model through make_session_server(half=True,
     fused=True) at n_slots with its step_fn bound to `option`=True (None:
     no option): the engine step alone (as bench.py's int8 probes time it),
-    then NS_WARM + NS_TICKS server ticks: exact launches (every one with
+    then NS_WARM + `ticks` server ticks: exact launches (every one with
     the option, no plain version), every output finite, 0 underruns, tick
     p50/p99, and slot 0 against the f32 engine on the same audio (JAX's bar
     for the option, or `bar`)."""
@@ -2475,7 +2524,7 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card, label="tse_skim_v0
     server, engine, chunk = bundle.server, bundle.engine, bundle.chunk_samples
     opts = {option: True} if option else {}
     server.step_fn = functools.partial(server.step_fn, **opts)
-    n_ticks = NS_WARM + NS_TICKS
+    n_ticks = NS_WARM + ticks
     rng = np.random.default_rng(SEED)
     enrolls = (0.1 * rng.standard_normal((n_slots, 16000))).astype(np.float32)
     feed = (0.1 * rng.standard_normal((n_slots, chunk * n_ticks))).astype(np.float32)
@@ -2517,12 +2566,12 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card, label="tse_skim_v0
         torch.cuda.synchronize()
     launches = ops.LAUNCHES
     what = f"{label} {option or 'bf16'} serving"
-    expect_launches(launches, NS_TICKS, f"{what}, fused_skim_frames")
-    expect_launches(dict(ops.LAUNCHES_BY_OPTION), {option or "": NS_TICKS},
+    expect_launches(launches, ticks, f"{what}, fused_skim_frames")
+    expect_launches(dict(ops.LAUNCHES_BY_OPTION), {option or "": ticks},
                     f"{what}, launches by option")
     expect_launches(plain.calls, 0, f"{what}, plain versions")
     routes = dict(ops.LAUNCHES_BY_ROUTE)
-    expect_launches(routes, {"mma": NS_TICKS}, f"{what}, launches by route")
+    expect_launches(routes, {"mma": ticks}, f"{what}, launches by route")
     stats = server.stats.snapshot()
     if stats["underrun_slot_ticks"] != 0:
         raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
@@ -2540,7 +2589,7 @@ def tse_quant_serving(ops, model, option, n_slots, dev, card, label="tse_skim_v0
     log(phase, f"{label}, make_session_server(half=True, fused=True) "
         f"{bound}, {n_slots} streams: engine step alone p50 "
         f"{float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}, {NS_TICKS} synced "
-        f"steps); {NS_TICKS} server ticks of {chunk} samples after {NS_WARM} warm-up: every "
+        f"steps); {ticks} server ticks of {chunk} samples after {NS_WARM} warm-up: every "
         f"output finite, fused_skim_frames launches {launches} (all {option or 'no option'}; "
         f"by route {routes}), "
         f"plain-version "
@@ -3127,20 +3176,26 @@ def step_determinism(dev, card):
     return found
 
 
-def write_tse_manifest(folder: str, n: int, seed: int, n_spk: int = 7) -> str:
+def write_tse_manifest(folder: str, n: int, seed: int, n_spk: int = 7,
+                       vad: bool = False) -> str:
     """A synthetic TSE manifest folder (the recipe's five files) of n
     mixtures of 4 s and 6 s enrollments at 16 kHz, keys mix_<i>_s1, target
-    speaker sp<i mod n_spk>."""
+    speaker sp<i mod n_spk>; `vad`: a PVAD set, the target active in
+    alternate quarter seconds and its 0 / 1 frame labels as ref2vad."""
     from scipy.io import wavfile
 
     rng = np.random.default_rng(seed)
     os.makedirs(folder, exist_ok=True)
-    lines = {f: [] for f in ("wav2scp", "wav2ref", "ref2list", "ref2spk", "wav2spk")}
+    lines = {f: [] for f in ("wav2scp", "wav2ref", "ref2list", "ref2spk", "wav2spk")
+             + (("ref2vad",) if vad else ())}
     sr = 16000
     for i in range(n):
-        clean = 0.1 * rng.standard_normal(4 * sr)
+        active = (np.arange(4 * sr) // (sr // 4) + i) % 2 if vad else 1.0
+        clean = 0.1 * rng.standard_normal(4 * sr) * active
         sigs = {"mix": clean + 0.05 * rng.standard_normal(4 * sr), "clean": clean,
                 "enroll": 0.1 * rng.standard_normal(6 * sr)}
+        if vad:
+            sigs["vad"] = active.astype(np.float64)
         for name, sig in sigs.items():
             wavfile.write(os.path.join(folder, f"{name}_{i}.wav"), sr,
                           np.clip(sig * 32768, -32768, 32767).astype(np.int16))
@@ -3151,6 +3206,8 @@ def write_tse_manifest(folder: str, n: int, seed: int, n_spk: int = 7) -> str:
         lines["ref2list"].append(f"{key} {path('enroll')}")
         lines["ref2spk"].append(f"{key} sp{i % n_spk}")
         lines["wav2spk"].append(f"{key} sp{i % n_spk}-sp{(i + 3) % n_spk}")
+        if vad:
+            lines["ref2vad"].append(f"{key} {path('vad')}")
     for name, ls in lines.items():
         with open(os.path.join(folder, f"{name}.txt"), "w") as f:
             f.write("\n".join(ls) + "\n")
@@ -3454,8 +3511,10 @@ def shipped_1c_phase(lk, tk, dev, card, backend: str = "cuda", keep: str = None)
     return dict(g, launches=got, steps=steps)
 
 
-def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda", keep: str = None):
-    """Phase 6f: `python -m puresound_tpu_torch.egs.ns.main
+def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda", keep: str = None,
+                    confs=SHIPPED_NS, phase: str = "6f ns recipe"):
+    """Phase 6f (and 6h, `confs` the lookahead `_1b` configs):
+    `python -m puresound_tpu_torch.egs.ns.main
     egs/ns/conf/vctk_{dpcrn,dparn}_1a.yaml --action train` on a synthetic
     manifest: B=16 x 3 s, stft_ov, Adam with weight decay 1e-5, dropout 0.1,
     one epoch of NS_RECIPE_STEPS steps and 1 dev batch. `keep`: a folder
@@ -3467,7 +3526,7 @@ def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda", keep: str = None):
     from puresound_tpu_torch.zoo.ns import init_model
 
     out = {}
-    for conf in SHIPPED_NS:
+    for conf in confs:
         t = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp:
             path = shipped_config(conf, tmp,
@@ -3480,14 +3539,14 @@ def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda", keep: str = None):
             got, steps = res["launches"], NS_RECIPE_STEPS
             n = NS_TRAIN_LAUNCHES[name]
             expect_launches(got, (n * (steps + 1), n * steps, 0, 0),
-                            f"6f {name} recipe, LSTM and TCN (fwd, bwd)")
+                            f"{phase} {name}, LSTM and TCN (fwd, bwd)")
             info = recipe_checks(res, steps, dev, init_model(name, device=dev),
-                                 f"6f {name} recipe")
+                                 f"{phase} {name}")
             if keep:
                 keep_checkpoints(res["trainer"], os.path.join(keep, name))
         g = step_gaps(res, steps, 1)
         losses = res["losses"]
-        log("6f ns recipe", f"python -m puresound_tpu_torch.egs.ns.main {conf} --action train "
+        log(phase, f"python -m puresound_tpu_torch.egs.ns.main {conf} --action train "
             f"(paths, epochs, workers 4, seed overridden): {name}, {hp['LOSS']['sig_loss']}, "
             f"Adam weight decay {hp['OPTIMIZER']['weight_decay']}, B="
             f"{hp['TRAIN']['batch_size']} x {hp['DATASET']['max_length']} s, {steps} steps + "
@@ -3545,15 +3604,17 @@ def eval_signal(rng, n: int) -> np.ndarray:
 
 
 def write_eval_manifest(folder: str, n: int, seed: int, tse: bool,
-                        seconds: float = None) -> str:
+                        seconds: float = None, vad: bool = False) -> str:
     """A Kaldi-style dev / eval folder of n mixtures of `seconds` (default
     EVAL_SECONDS) s at 16 kHz (keys mix_<i>_s1): wav2scp / wav2ref, and for
-    TSE ref2list (one 3 s enrollment of the target), ref2spk and wav2spk."""
+    TSE ref2list (one 3 s enrollment of the target), ref2spk and wav2spk;
+    `vad`: ref2vad too, the target's 0 / 1 activity by 10 ms frames."""
     from scipy.io import wavfile
 
     rng = np.random.default_rng(seed)
     os.makedirs(folder, exist_ok=True)
-    files = ("wav2scp", "wav2ref") + (("ref2list", "ref2spk", "wav2spk") if tse else ())
+    files = (("wav2scp", "wav2ref") + (("ref2list", "ref2spk", "wav2spk") if tse else ())
+             + (("ref2vad",) if vad else ()))
     lines = {f: [] for f in files}
     L = int(16000 * (seconds or EVAL_SECONDS))
     for i in range(n):
@@ -3561,6 +3622,9 @@ def write_eval_manifest(folder: str, n: int, seed: int, tse: bool,
         sigs = {"mix": clean + 0.7 * other + 0.01 * rng.standard_normal(L), "clean": clean}
         if tse:
             sigs["enroll"] = eval_signal(rng, int(16000 * EVAL_ENROLL_SECONDS))
+        if vad:
+            frames = np.abs(clean[:L // 160 * 160]).reshape(-1, 160).max(-1) > 0.01
+            sigs["vad"] = np.repeat(frames, 160).astype(np.float64)
         path = lambda name: os.path.join(folder, f"{name}_{i}.wav")
         for name, sig in sigs.items():
             wavfile.write(path(name), 16000, np.clip(sig * 32768, -32768, 32767).astype(np.int16))
@@ -3571,6 +3635,8 @@ def write_eval_manifest(folder: str, n: int, seed: int, tse: bool,
             lines["ref2list"].append(f"{key} {path('enroll')}")
             lines["ref2spk"].append(f"{key} sp{i}")
             lines["wav2spk"].append(f"{key} sp{i}-sp{i + n}")
+        if vad:
+            lines["ref2vad"].append(f"{key} {path('vad')}")
     for name, ls in lines.items():
         with open(os.path.join(folder, f"{name}.txt"), "w") as f:
             f.write("\n".join(ls) + "\n")
@@ -3963,7 +4029,8 @@ NS_TRAIN_B, NS_TRAIN_SECONDS = 16, 3.0       # the vctk configs' batch and crop
 #: lstm_scan_train_fp launches a step, forward and backward alike: DPCRN's
 #: two blocks each run a BiLSTM (two scans) and an inter LSTM, DPARN's only
 #: the inter LSTM (its intra attention trains under autograd)
-NS_TRAIN_LAUNCHES = {"ns_dpcrn_v0_causal": 6, "ns_dparn_v0_causal": 2}
+NS_TRAIN_LAUNCHES = {"ns_dpcrn_v0_causal": 6, "ns_dparn_v0_causal": 2,
+                     "ns_dpcrn_v0": 6, "ns_dparn_v0": 2}
 NS_CHECK_B, NS_CHECK_SECONDS = 2, 0.5        # the card vs CPU step
 
 
@@ -4123,6 +4190,614 @@ def ns_training_phase(lk, tk, dev, card) -> dict:
                                   "launches": counts(lk, tk)}
             del model, state, step, batch, first
         out[(name, "check")] = ns_card_vs_cpu(name, lk, dev, card)
+    return out
+
+
+# ------------------------------------------------------------ phase 2k
+#: the kernels at the shapes the remaining shipped recipes give them, each
+#: case from a generator of its own (NEW_SEEDS), so the earlier phases'
+#: data stay as they were. tcn_block_train at C = 512 (the Conv-TasNet
+#: masker's un-embedded blocks, 1a recipe, B=12 x 3 s: 2,999 frames; its
+#: speaker net is C = 512 too): (name, B, C, Ch, T, dilation, reps)
+TCN512_CASES = [("C=512 d=1", 12, 512, 256, 2999, 1, 5),
+                ("C=512 d=16", 12, 512, 256, 2999, 16, 5),
+                ("C=512 d=128", 12, 512, 256, 2999, 128, 5)]
+#: fused_skim_frames at the PVAD model's widths (n=2, C=128, H=64, FiLM),
+#: 4k's serving tile and 1,024 streams: (name, n, C, H, B, F, modes)
+PVAD_SKIM_CASES = [("PVAD B=256", 2, 128, 64, 256, 15, ("film",) * 2),
+                   ("PVAD B=1024", 2, 128, 64, 1024, 15, ("film",) * 2)]
+#: lstm_scan_train_fp at the PVAD recipe's scans (B=12 x 3 s: 20 segments
+#: of 150 frames; SegLSTM C=128, H=64; MemLSTM C=H=64)
+PVAD_LSTM_CASES = [("PVAD SegLSTM", 240, 150, 128, 64, False, 20),
+                   ("PVAD MemLSTM", 12, 20, 64, 64, False, 20)]
+NEW_SEEDS = {name: SEED + 90 + i for i, (name, *_) in enumerate(
+    TCN512_CASES + PVAD_SKIM_CASES + PVAD_LSTM_CASES)}
+NEW_CHUNKS, NEW_BARS = 20, (1e-4, 30.0)     # carried chunks; f32 max|d|/max|ref|, bf16 dB
+
+
+def new_shapes_phase(ops, SkiM, lk, tk, dev, card) -> dict:
+    """Phase 2k: the three kernels of the new recipes' paths at their new
+    shapes against their plain versions (the bars and checks of phases 2,
+    2b and 2c: routes as the plans name them, two calls bit-equal, CUDA-event
+    times, the bounds, the yardsticks)."""
+    gen = lambda name: torch.Generator().manual_seed(NEW_SEEDS[name])
+    out = {"tcn": {}, "skim": {}, "lstm": {}}
+    for name, B, C, Ch, T, dilation, reps in TCN512_CASES:
+        t = time.perf_counter()
+        r = tcn_kernel_case(tk, name, B, C, Ch, T, dilation, gen(name), dev, reps)
+        if (r["f32_route"], r["bf16_route"]) != ("cuda_cores", "cuda_cores"):
+            raise AssertionError(f"2k {name}: routes f32 {r['f32_route']}, bf16 "
+                                 f"{r['bf16_route']}, not the CUDA cores (_plan: wgmma at "
+                                 "C, Ch in {64, 128, 256} only)")
+        out["tcn"][name] = r
+        log("2k tcn", f"{r['shape']}: f32 max|d|/max|ref| y {r['f32_val_rel']:.2e}, dx and "
+            f"grads {r['f32_grad_rel']:.2e}; bf16 SNR y {r['bf16_val_snr']:.1f} dB, dx and "
+            f"grads {r['bf16_grad_snr']:.1f} dB; L2 vs the exact reference kernel / plain: f32 "
+            f"{r['f32_l2_vs_exact']:.2e} / {r['f32_plain_l2_vs_exact']:.2e}, bf16 "
+            f"{r['bf16_l2_vs_exact']:.2e} / {r['bf16_plain_l2_vs_exact']:.2e}; held by the L2 "
+            f"bar: f32 {[x[0] for x in r['f32_l2_fallback']] or 'none'}, bf16 "
+            f"{[x[0] for x in r['bf16_l2_fallback']] or 'none'}; routes f32 / bf16 "
+            f"{r['f32_route']} / {r['bf16_route']}, two calls bit-equal; " + "; ".join(
+                f"{lb} ms fwd/bwd kernel {r[f'{lb}_fwd_ms']:.3f}/{r[f'{lb}_bwd_ms']:.3f}, "
+                f"plain {r[f'{lb}_plain_fwd_ms']:.3f}/{r[f'{lb}_plain_bwd_ms']:.3f}, stock "
+                f"module fwd+bwd {r[f'{lb}_stock_ms']:.3f}, bound "
+                f"{r[f'{lb}_fwd_bound'][0]:.3f}/{r[f'{lb}_bwd_bound'][0]:.3f} "
+                f"({r[f'{lb}_fwd_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
+    for name, n, C, H, B, F, modes in PVAD_SKIM_CASES:
+        t = time.perf_counter()
+        r = kernel_case(ops, SkiM, name, n, C, H, B, F, modes, NEW_CHUNKS, gen(name), dev,
+                        NEW_BARS)
+        for lb, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            r[f"{lb}_bound"] = bound_ms(*skim_work(n, C, H, F, B, dt), dt)
+        out["skim"][name] = r
+        log("2k skim", f"{name} (n={n} C={C} H={H} F={F}), {NEW_CHUNKS} carried chunks: f32 "
+            f"max|d|/max|ref| {r['f32_rel_err']:.3e} (bar {NEW_BARS[0]:g}), bf16 SNR "
+            f"{r['bf16_snr_db']:.1f} dB (bar {NEW_BARS[1]:g}); bf16 plan {r['bf16_plan']}; "
+            f"launches by route f32 {r['f32_routes']}, bf16 {r['bf16_routes']}; two calls "
+            "bit-equal; " + "; ".join(
+                f"{lb} ms kernel {r[f'{lb}_ms']:.3f}, plain {r[f'{lb}_plain_ms']:.3f}, bound "
+                f"{r[f'{lb}_bound'][0]:.4f} ({r[f'{lb}_bound'][1]}), device ms by kernel "
+                f"{split_line(r[f'{lb}_split'])}" for lb in ("f32", "bf16")) + f" [{card}]", t)
+    for name, B, T, C, H, reverse, reps in PVAD_LSTM_CASES:
+        t = time.perf_counter()
+        r = lstm_kernel_case(lk, name, B, T, C, H, reverse, gen(name), dev, reps)
+        out["lstm"][name] = r
+        fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
+        log("2k lstm", f"{r['shape']}: two calls of each kernel bit-equal; clusters in "
+            f"flight (fwd, bwd) f32 {lk.clusters_in_flight(B, T, C, H, torch.float32, dev)}, "
+            f"bf16 {lk.clusters_in_flight(B, T, C, H, torch.bfloat16, dev)}; f32 "
+            f"max|d|/max|ref| values {r['f32_val_rel']:.2e}, grads {r['f32_grad_rel']:.2e}; "
+            f"bf16 SNR values {r['bf16_val_snr']:.1f} dB, grads {r['bf16_grad_snr']:.1f} dB; "
+            + "; ".join(
+                f"{lb} ms fwd/bwd kernel {r[f'{lb}_fwd_ms']:.3f}/{r[f'{lb}_bwd_ms']:.3f}, "
+                f"plain {r[f'{lb}_plain_fwd_ms']:.3f}/{r[f'{lb}_plain_bwd_ms']:.3f}, cuDNN "
+                f"{fmt(r[f'{lb}_lib_fwd_ms'])}/{fmt(r[f'{lb}_lib_bwd_ms'])}, bound "
+                f"{r[f'{lb}_fwd_bound'][0]:.4f}/{r[f'{lb}_bwd_bound'][0]:.4f}"
+                for lb in ("f32", "bf16")) + f" [{card}]", t)
+    return out
+
+
+# ------------------------------------------------------------ phase 4k
+PVAD_PARAMS = 1_133_200             # tse_skim_v0_causal_vad, as the JAX zoo counts
+PVAD_SLOTS, PVAD_TICKS = 256, 100   # phase 4k's sessions and timed ticks
+TASNET_SLOTS, TASNET_TICKS = 8, 20  # phase 4k's Conv-TasNet sessions and ticks
+
+
+def pvad_serving(ops, dev, card) -> dict:
+    """Phase 4k (PVAD): `tse_skim_v0_causal_vad` through
+    make_session_server(half=True, fused=True) at PVAD_SLOTS sessions, as
+    phase 4i serves the Gate model: PVAD_TICKS ticks after warm-up, every
+    launch on the tensor cores (K=2, M=16 at H=64), no plain version, tick
+    p50 / p99, bf16 slot 0's Sigmoid output against the f32 engine (30 dB)."""
+    from puresound_tpu_torch.zoo.tse import init_model
+
+    model = init_model("tse_skim_v0_causal_vad", device=dev,
+                       generator=torch.Generator().manual_seed(SEED + 100))
+    n = sum(p.numel() for p in model.parameters())
+    if n != PVAD_PARAMS or model.output_constraint != "Sigmoid":
+        raise AssertionError(f"PVAD model: {n} parameters, output {model.output_constraint}")
+    return tse_quant_serving(ops, model, None, PVAD_SLOTS, dev, card,
+                             "tse_skim_v0_causal_vad", "4k pvad serving", 30.0, PVAD_TICKS)
+
+
+def conv_tasnet_serving(tk, dev, card) -> dict:
+    """Phase 4k (Conv-TasNet): `td_tse_conv_tasnet_v0_causal` through
+    make_session_server in f32 on its unfused step (fused=None: the masker
+    has no fused step; fused=True raises): TASNET_SLOTS sessions attached by
+    enrollment (5 TCN launches each, C = 512 on the CUDA cores), TASNET_TICKS
+    ticks of 16 ms; each slot's stream equal to the offline inference of its
+    zero-primed input (>= 60 dB); tick p50 / p99."""
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+    from puresound_tpu_torch.streaming.engine import offline_equivalent_input
+    from puresound_tpu_torch.zoo.tse import init_model
+
+    t = time.perf_counter()
+    model = init_model("td_tse_conv_tasnet_v0_causal", device=dev,
+                       generator=torch.Generator().manual_seed(SEED + 101))
+    try:
+        make_session_server(model, None, n_slots=2, fused=True)
+        raise AssertionError("4k: fused=True served a ConvTasNet masker")
+    except ValueError as e:
+        if "ConvTasNet" not in str(e):
+            raise
+    bundle = make_session_server(model, None, n_slots=TASNET_SLOTS, chunk_ms=16.0,
+                                 lockstep=True, enroll_len=16000)
+    server, chunk = bundle.server, bundle.chunk_samples
+    rng = np.random.default_rng(SEED + 102)
+    enrolls = (0.1 * rng.standard_normal((TASNET_SLOTS, 48000))).astype(np.float32)
+    feed = (0.1 * rng.standard_normal((TASNET_SLOTS, chunk * TASNET_TICKS))).astype(np.float32)
+    zero_counts(tk)
+    tk.LAUNCHES_BY_ROUTE.clear()
+    sids = [server.attach(enroll=enrolls[i]) for i in range(TASNET_SLOTS)]
+    torch.cuda.synchronize()
+    expect_launches((dict(tk.LAUNCHES_BY_ROUTE), tk.BWD_LAUNCHES),
+                    ({("fwd", "cuda_cores"): 5 * TASNET_SLOTS}, 0),
+                    "4k conv-tasnet attaches, TCN launches by route")
+    served = np.zeros_like(feed)
+    with PlainCalls() as plain:
+        for k in range(TASNET_TICKS):
+            for i, sid in enumerate(sids):
+                server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+            if server.tick() != TASNET_SLOTS:
+                raise AssertionError(f"4k conv-tasnet tick {k}: not every slot served")
+            for i, sid in enumerate(sids):
+                got = server.hub.pop_output(sid, chunk)
+                if len(got) != chunk or not np.isfinite(got).all():
+                    raise AssertionError(f"4k conv-tasnet tick {k} slot {sid}: bad output")
+                served[i, k * chunk:(k + 1) * chunk] = got
+        torch.cuda.synchronize()
+    stats = server.stats.snapshot()
+    with torch.no_grad():
+        x = torch.from_numpy(feed).to(dev)
+        offline = model.inference(offline_equivalent_input(x, 32, 16),
+                                  torch.from_numpy(enrolls).to(dev))[:, :feed.shape[1]]
+    snr = min(snr_np(served[i], offline[i].cpu().numpy()) for i in range(TASNET_SLOTS))
+    if snr < EVAL_BAR_DB or stats["underrun_slot_ticks"] or plain.calls:
+        raise AssertionError(f"4k conv-tasnet: streamed vs offline {snr:.1f} dB (bar "
+                             f"{EVAL_BAR_DB:g}), underruns {stats['underrun_slot_ticks']}, "
+                             f"plain-version calls {plain.calls}")
+    log("4k conv-tasnet serving", f"td_tse_conv_tasnet_v0_causal "
+        f"({sum(p.numel() for p in model.parameters()):,} params), make_session_server f32, "
+        f"fused=None -> the unfused step (fused=True raises a ValueError naming ConvTasNet), "
+        f"{TASNET_SLOTS} sessions attached by 3 s enrollments (TCN launches {5 * TASNET_SLOTS}"
+        f", all on the CUDA cores at C=512), {TASNET_TICKS} ticks of {chunk} samples: 0 "
+        f"underruns, every output finite, tick p50 {stats['tick_ms_p50']:.3f} ms, p99 "
+        f"{stats['tick_ms_p99']:.3f} ms; each slot vs the offline inference of its zero-primed "
+        f"input: worst {snr:.1f} dB (bar {EVAL_BAR_DB:g}) [{card}]", t)
+    return {"launches": 5 * TASNET_SLOTS, "tick_p50": stats["tick_ms_p50"],
+            "tick_p99": stats["tick_ms_p99"], "snr": snr}
+
+
+# ------------------------------------------------------------ phase 6g
+SHIPPED_TSE = ("egs/tse/conf/libri2mix_max_2spk_clean_16k_1a.yaml",
+               "egs/tse/conf/libri2mix_max_2spk_clean_16k_1b.yaml",
+               "egs/tse/conf/libri2mix-pvad_max_2spk_clean_16k_1a.yaml")
+SHIPPED_NS_1B = ("egs/ns/conf/vctk_dpcrn_1b.yaml", "egs/ns/conf/vctk_dparn_1b.yaml")
+TSE_RECIPE_STEPS = 3                # phase 6g: train batches of 12 in its epoch
+#: (lstm_scan_train_fp, tcn_block_train) launches of one forward: the
+#: speaker net's 5 blocks; td_tse_conv_tasnet_v0's masker's 21 un-embedded
+#: gLN blocks (its causal model's are BatchNorm blocks, on the stock path);
+#: the PVAD SkiM's 2 SegLSTMs and the h / c MemLSTMs between its 2 blocks
+TSE_LAUNCHES = {"td_tse_conv_tasnet_v0": (0, 26), "td_tse_conv_tasnet_v0_causal": (0, 5),
+                "tse_skim_v0_causal_vad": (4, 5)}
+TSE_CHECK_B, TSE_CHECK_SECONDS = 2, 0.5      # the card vs CPU step
+
+
+def tse_train_parts(name, hp, dev):
+    """(the zoo model with the config's losses, TrainState with Adam at the
+    config's rate, step with its clip) on `dev`, from a seed."""
+    from puresound_tpu_torch.parallel import TrainState, make_train_step
+    from puresound_tpu_torch.zoo.tse import init_loss, init_model
+
+    gen = torch.Generator().manual_seed(SEED + 103)
+    model = init_model(name, *init_loss(hp, device=dev, generator=gen), device=dev,
+                       generator=gen)
+    opt = torch.optim.Adam(model.parameters(), lr=hp["OPTIMIZER"]["lr"])
+    step = make_train_step(model, {"alpha": hp["LOSS"]["alpha"]},
+                           grad_clip=hp["OPTIMIZER"]["gradiend_clip"])
+    return model, TrainState(model, opt), step
+
+
+def tse_batch(dev, vad: bool) -> dict:
+    rng = np.random.default_rng(SEED + 104)
+    L = int(16000 * TSE_CHECK_SECONDS)
+    b = {k: torch.from_numpy((0.1 * rng.standard_normal((TSE_CHECK_B, L))).astype(np.float32))
+         for k in ("noisy", "enroll", "ref_clean")}
+    if vad:
+        b["ref_clean"] = (b["ref_clean"] > 0).float()
+    b["spk_class"] = torch.arange(TSE_CHECK_B)
+    return {k: v.to(dev) for k, v in b.items()}
+
+
+@contextlib.contextmanager
+def record_tcn_launches(tk):
+    """While entered, every tcn_block_train launch's inputs and outputs
+    (copies, stream-ordered) go into the yielded list as (dilation, x,
+    params, dy or None, outputs)."""
+    calls, (fwd, bwd) = [], (tk._launch_fwd, tk._launch_bwd)
+
+    def rec_fwd(x, params, dilation):
+        y = fwd(x, params, dilation)
+        calls.append((dilation, x.clone(), [p.clone() for p in params], None, [y.clone()]))
+        return y
+
+    def rec_bwd(x, dy, params, dilation):
+        out = bwd(x, dy, params, dilation)
+        calls.append((dilation, x.clone(), [p.clone() for p in params], dy.clone(),
+                      [o.clone() for o in out]))
+        return out
+
+    tk._launch_fwd, tk._launch_bwd = rec_fwd, rec_bwd
+    try:
+        yield calls
+    finally:
+        tk._launch_fwd, tk._launch_bwd = fwd, bwd
+
+
+def replay_tcn_launches(tk, calls, label: str) -> float:
+    """Each recorded launch again from its inputs: bit-equal to what the step
+    computed, and within phase 2c's f32 bars (max|d|/max|ref|: y and dx 1e-4,
+    the parameter gradients 1e-3, the PReLU slopes 3e-3) of the exact
+    reference at those inputs. Returns the worst reading."""
+    alphas = {3, 8, 13}
+    worst = 0.0
+    for i, (d, x, ps, dy, outs) in enumerate(calls):
+        if dy is None:
+            again = [tk._launch_fwd(x, ps, d)]
+            exact = [tk.tcn_block_train_ref(x, *ps, dilation=d, compute_dtype=torch.float64)]
+            bars = [1e-4]
+        else:
+            again = list(tk._launch_bwd(x, dy, ps, d))
+            exact = list(tk.tcn_block_train_bwd_ref(x, dy, *ps, dilation=d,
+                                                    compute_dtype=torch.float64))
+            bars = [1e-4] + [3e-3 if k in alphas else 1e-3 for k in range(16)]
+        if not all(torch.equal(a, b) for a, b in zip(outs, again)):
+            raise AssertionError(f"{label}: launch {i} replayed differs from the step's")
+        for o, e, bar in zip(outs, exact, bars):
+            r = ((o.double() - e).abs().max() / e.abs().max().clamp_min(1e-300)).item()
+            worst = max(worst, r)
+            if r > bar:
+                raise AssertionError(f"{label}: launch {i} (d={d}) {r:.3e} from the exact "
+                                     f"reference at its inputs, bar {bar:g}")
+    return worst
+
+
+def tse_card_vs_cpu(name, hp, lk, tk, dev, card) -> dict:
+    """One f32 training step of the full-width zoo model with the config's
+    losses (SI-SNR + alpha AAM-softmax, or F1 on frame labels) on the card
+    against the same step on the CPU in float64, with the CPU's own f32 step
+    beside it, from the same weights (B=2 x 0.5 s). Loss and grad_norm
+    within 1e-4 / 1e-3, the whole gradient within 3e-3 of the f64 one by
+    relative L2 (each, or three times the CPU f32 distance); each tensor's
+    max|d|/max|ref| printed against 3e-3 and three times the CPU f32
+    distance (phase 6d's bars). Those per-tensor bars are not gated here: a
+    PReLU or ReLU input within rounding of 0 takes the other slope in one
+    f32 computation and not in another, and behind a global norm such a flip
+    moves a whole sample's gradient (phase 2c's note); the CPU's f32 step,
+    the f64 step's arithmetic in another precision, flips less than any
+    other order does. What the kernels contribute is gated instead: every
+    tcn_block_train launch of the card step, replayed from its inputs, is
+    bit-equal and within phase 2c's f32 bars of the exact reference."""
+    t = time.perf_counter()
+    sides = []
+    cpu = torch.device("cpu")
+    for d, dt in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+        model, state, step = tse_train_parts(name, hp, d)
+        model.to(dt)
+        zero_counts(lk, tk)
+        batch = {k: v.to(dt) if v.is_floating_point() else v
+                 for k, v in tse_batch(d, name.endswith("vad")).items()}
+        with record_tcn_launches(tk) as calls:
+            state, m = step(state, batch)
+        sides.append(({n: p.grad.cpu().double() for n, p in model.named_parameters()},
+                      {k: float(v) for k, v in m.items()}, counts(lk, tk), calls))
+        del model, state
+    (gpu, gm, gl, calls), (cpu32, cm, cl, _), (ref, rm, _, _) = sides
+    lf, tf = TSE_LAUNCHES[name]
+    expect_launches(gl, (lf, lf, tf, tf), f"6g {name} card step, LSTM and TCN (fwd, bwd)")
+    expect_launches(cl, (0, 0, 0, 0), f"6g {name} CPU step, LSTM and TCN (fwd, bwd)")
+    replay = replay_tcn_launches(tk, calls, f"6g {name} card step")
+    rel = lambda side, key: abs(side[key] - rm[key]) / abs(rm[key])
+    loss_rel, norm_rel = rel(gm, "loss"), rel(gm, "grad_norm")
+    cpu_loss_rel, cpu_norm_rel = rel(cm, "loss"), rel(cm, "grad_norm")
+    flat = lambda g: torch.cat([g[p].reshape(-1) for p in ref])
+    total = ((flat(gpu) - flat(ref)).norm() / flat(ref).norm()).item()
+    total_cpu = ((flat(cpu32) - flat(ref)).norm() / flat(ref).norm()).item()
+    if (loss_rel > max(1e-4, 3 * cpu_loss_rel) or norm_rel > max(1e-3, 3 * cpu_norm_rel)
+            or not total <= max(3e-3, 3 * total_cpu)):
+        raise AssertionError(f"6g {name}: loss rel {loss_rel:.3e} (CPU f32 {cpu_loss_rel:.3e}), "
+                             f"grad_norm rel {norm_rel:.3e} (CPU f32 {cpu_norm_rel:.3e}), the "
+                             f"whole gradient {total:.3e} by relative L2 (CPU f32 {total_cpu:.3e})")
+    g_all = max(g.abs().max().item() for g in ref.values())
+    worst, worst_cpu, over = (0.0, ""), (0.0, ""), []
+    for p, g64 in ref.items():
+        gmax = g64.abs().max().item()
+        if gmax <= 1e-6 * g_all:
+            continue    # an exact zero gradient (ASP's conv bias ahead of its softmax)
+        r_card = (gpu[p] - g64).abs().max().item() / gmax
+        r_cpu = (cpu32[p] - g64).abs().max().item() / gmax
+        worst, worst_cpu = max(worst, (r_card, p)), max(worst_cpu, (r_cpu, p))
+        if r_card > max(3e-3, 3 * r_cpu):
+            over.append(f"{p} {r_card:.2e} (CPU f32 {r_cpu:.2e})")
+    log("6g tse train step", f"{name} B={TSE_CHECK_B} x {TSE_CHECK_SECONDS:g} s, "
+        f"{hp['LOSS']['sig_loss']} + {hp['LOSS']['alpha']} x {hp['LOSS']['cls_loss']}, f32 on "
+        f"the card vs f64 on the CPU: loss {gm['loss']:.6f} / {rm['loss']:.6f} (rel "
+        f"{loss_rel:.2e}; CPU f32 {cpu_loss_rel:.2e}), grad_norm rel {norm_rel:.2e} (CPU f32 "
+        f"{cpu_norm_rel:.2e}), the whole gradient by relative L2 {total:.2e} (bar 3e-3 or three "
+        f"times the CPU f32 step's {total_cpu:.2e}); {len(calls)} tcn_block_train launches replayed bit-equal, worst "
+        f"{replay:.2e} from the exact reference at their inputs (phase 2c's bars); worst grad "
+        f"max|d|/max|ref| card {worst[0]:.2e} ({worst[1]}), CPU f32 {worst_cpu[0]:.2e} "
+        f"({worst_cpu[1]}); tensors over 3e-3 and three times the CPU f32 distance (kink "
+        f"flips, not gated): {over or 'none'}; LSTM and TCN launches fwd/bwd {gl} on the card "
+        f"[{card}]", t)
+    return {"loss_rel": loss_rel, "norm_rel": norm_rel, "grad_l2": total,
+            "grad_l2_cpu_f32": total_cpu, "worst_grad_rel": worst[0],
+            "worst_cpu_f32_rel": worst_cpu[0], "replay_worst": replay, "over": over,
+            "launches": gl}
+
+
+def shipped_tse_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
+    """Phase 6g: `python -m puresound_tpu_torch.egs.tse.main <config> --action
+    train` for the 1a / 1b (Conv-TasNet, AAM-softmax on spk_label, 251
+    classes) and PVAD (SkiM H=64, F1 on frame labels, single-speaker and
+    inactive-speaker draws at 0.1) configs, read from their files with the
+    paths, epochs, workers and seed overridden; B=12 x 3 s, 5 s enrollments,
+    TSE_RECIPE_STEPS steps + 1 dev batch: finite losses, exact launches, the
+    AAM-softmax weight moved, epoch_0.ckpt reloading equal, step p50, host
+    gap and peak memory; then one f32 step of each model against the CPU's
+    f64 step. Each run's checkpoints go to <keep>/<model name> for 7b."""
+    import tempfile
+
+    from puresound_tpu_torch.src.utils import load_hparam
+    from puresound_tpu_torch.zoo.tse import init_loss, init_model
+
+    out = {}
+    for conf in SHIPPED_TSE:
+        t = time.perf_counter()
+        vad = "pvad" in conf
+        with tempfile.TemporaryDirectory() as tmp:
+            path = shipped_config(
+                conf, tmp,
+                write_tse_manifest(os.path.join(tmp, "train"), 12 * TSE_RECIPE_STEPS, 7,
+                                   vad=vad),
+                write_tse_manifest(os.path.join(tmp, "dev"), 12, 8, vad=vad))
+            hp = load_hparam(path)
+            name, steps = hp["MODEL"]["type"], TSE_RECIPE_STEPS
+            torch.cuda.reset_peak_memory_stats()
+            res = run_recipe(lk, tk, "puresound_tpu_torch.egs.tse.main", path, backend)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            lf, tf = TSE_LAUNCHES[name]
+            got = res["launches"]
+            expect_launches(got, (lf * (steps + 1), lf * steps, tf * (steps + 1), tf * steps),
+                            f"6g {name} recipe, LSTM and TCN (fwd, bwd)")
+            model = res["trainer"].model
+            moved = None
+            if hp["LOSS"]["cls_loss"] == "aamsoftmax":
+                # the recipe's AAM-softmax weight: the first draw of its generator
+                w0 = init_loss(hp, device=dev, generator=torch.Generator().manual_seed(0))[1]
+                moved = (model.loss_func_spk.weight - w0.weight).abs().max().item()
+                if type(model.loss_func_spk).__name__ != "AAMsoftmax" or not moved > 0:
+                    raise AssertionError(f"6g {name}: speaker loss "
+                                         f"{type(model.loss_func_spk).__name__}, moved {moved}")
+            elif model.loss_func_spk is not None:
+                raise AssertionError(f"6g {name}: a speaker loss where the config has none")
+            fresh = init_model(name, *init_loss(hp, device=dev), device=dev)
+            info = recipe_checks(res, steps, dev, fresh, f"6g {name} recipe")
+            keep_checkpoints(res["trainer"], os.path.join(keep, name))
+        g = step_gaps(res, steps, 1)
+        losses = res["losses"]
+        log("6g tse recipe", f"python -m puresound_tpu_torch.egs.tse.main {conf} --action "
+            f"train (paths, epochs, workers 4, seed overridden): {name} "
+            f"({sum(p.numel() for p in fresh.parameters()):,} params with the losses'), "
+            f"{hp['LOSS']['sig_loss']} + alpha {hp['LOSS']['alpha']} x "
+            f"{hp['LOSS']['cls_loss']}, single-speaker / inactive draws "
+            f"{hp['DATASET']['single_spk_prob']} / {hp['DATASET']['inactive_training']}, "
+            f"multi_gpu {hp['TRAIN']['multi_gpu']} on one card, B={hp['TRAIN']['batch_size']} "
+            f"x 3 s, {steps} steps + 1 dev batch on {res['trainer'].device}: losses "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, dev {res['dev_loss'][0]:.4f}"
+            + ("" if moved is None else f"; AAM-softmax weight moved by max {moved:.3e}")
+            + "; " + gap_text(g, steps, 1, hp["TRAIN"]["batch_size"] * 3)
+            + f"; peak memory {peak:.2f} GiB; launches LSTM fwd/bwd {got[:2]}, TCN fwd/bwd "
+            f"{got[2:]}, serving kernels {res['serving']}; epoch_0.ckpt reloads equal "
+            f"({info[0]}, {info[1]}) [{card}]", t)
+        check = tse_card_vs_cpu(name, hp, lk, tk, dev, card)
+        out[name] = dict(g, launches=tuple(a + b for a, b in zip(got, check["launches"])),
+                         peak_gib=peak, steps=steps, check=check, aam_moved=moved)
+    return out
+
+
+# ------------------------------------------------------------ phase 7b
+EVAL_7B_UTTS = 4
+#: (config, CLI module, zoo name, launches an inference (LSTM fwd, TCN fwd),
+#:  stream_eval routes: (flags, launches a tick (LSTM fwd, serving kernels)),
+#:  or None where the model refuses to stream). The PVAD model's unfused
+#:  step runs its 2 SegLSTMs a frame at a time (16 frames a tick) and its 2
+#:  MemLSTM scans at every 150th frame
+EVAL_7B = (
+    (SHIPPED_TSE[0], "puresound_tpu_torch.egs.tse.main", "td_tse_conv_tasnet_v0", (0, 26),
+     None),
+    (SHIPPED_TSE[1], "puresound_tpu_torch.egs.tse.main", "td_tse_conv_tasnet_v0_causal",
+     (0, 5), (((), (0, (0, 0, 0, 0, 0))),)),
+    (SHIPPED_TSE[2], "puresound_tpu_torch.egs.tse.main", "tse_skim_v0_causal_vad", (4, 5),
+     (((), (2 * 16, (0, 0, 0, 0, 0))),)),
+    (SHIPPED_NS_1B[0], "puresound_tpu_torch.egs.ns.main", "ns_dpcrn_v0", (6, 0),
+     (((), (6, (0, 0, 0, 0, 0))), (("--fused",), (0, (0, 6, 0, 0, 0))),
+      (("--dp_kernel",), (0, (0, 0, 1, 0, 0))))),
+    (SHIPPED_NS_1B[1], "puresound_tpu_torch.egs.ns.main", "ns_dparn_v0", (2, 0),
+     (((), (2, (0, 0, 0, 0, 0))), (("--fused", "--attn_kernel"), (0, (0, 2, 0, 2, 0))))))
+PVAD_MEM_LAUNCHES = 2
+
+
+def cli_raises(module, cfg, args, probe, lk, tk, what: str) -> str:
+    """`run_cli` that must raise a ValueError; returns its message."""
+    try:
+        run_cli(module, cfg, args, probe, lk, tk)
+    except ValueError as e:
+        return str(e)
+    raise AssertionError(f"7b: {what} ran")
+
+
+def eval_7b_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
+    """Phase 7b: the evaluation actions of the five new configs through
+    their CLIs (runpy), on the checkpoints phases 6g / 6h kept
+    (TRAIN.model_average 2), on EVAL_7B_UTTS mixtures of 4 s: `dev --metrics
+    detail` (every row equal to Metrics of the outputs: the PVAD model's
+    accuracy / precision / recall / F1 of the binarised output against the
+    frame labels), `eval`, `eval --backend cpu` on the first EVAL_SUBSET
+    (the card's f32 outputs >= 60 dB from the CPU's), `stream_eval` on each
+    route >= 60 dB from the offline inference of the zero-primed input (the
+    non-causal v0 refuses to stream; `--mk_kernel` refuses a lookahead
+    model), exact launches."""
+    import tempfile
+
+    from puresound_tpu_torch.egs.tse.local.binarize import Binarize
+    from puresound_tpu_torch.src.audio import AudioIO
+    from puresound_tpu_torch.src.metrics import Metrics
+    from puresound_tpu_torch.src.utils import dump_hparam, load_hparam, load_text_as_dict
+    from puresound_tpu_torch.streaming.file_eval import build_engine, engine_delay_samples
+
+    out = {"launches": [0, 0, 0, 0], "serving": [0] * 5, "by_model": {}}
+    probe = EvalProbe()
+    with tempfile.TemporaryDirectory() as tmp, probe:
+        for conf, module, name, (lf, tf), routes in EVAL_7B:
+            t = time.perf_counter()
+            tse, vad = module.endswith("tse.main"), name.endswith("vad")
+            full = write_eval_manifest(os.path.join(tmp, name, "full"), EVAL_7B_UTTS,
+                                       SEED + 110, tse, vad=vad)
+            subset = write_eval_manifest(os.path.join(tmp, name, "subset"), EVAL_SUBSET,
+                                         SEED + 110, tse, vad=vad)
+            stream = subset if not tse else write_eval_manifest(
+                os.path.join(tmp, name, "stream"), TSE_STREAM[0], SEED + 111, tse,
+                TSE_STREAM[1], vad=vad)
+            hp = load_hparam(conf)
+            hp["TRAIN"].update(model_save_dir=os.path.join(keep, name), model_average=2,
+                               log_dir=os.path.join(tmp, name, "logs"))
+            cfgs = {}
+            for label, folder in (("full", full), ("subset", subset), ("stream", stream)):
+                hp["DATASET"].update(dev=folder, eval=folder, train=folder)
+                cfgs[label] = os.path.join(tmp, name, f"{label}.yaml")
+                dump_hparam(hp, cfgs[label])
+            ck = ["--ckpt", "epoch_1.ckpt"]
+            cli = lambda cfg, *args, on=backend: run_cli(module, cfgs[cfg],
+                                                         [*args, *ck, "--backend", on],
+                                                         probe, lk, tk)
+            res = {"dev": cli("full", "--action", "dev", "--metrics", "detail"),
+                   "eval": cli("full", "--action", "eval"),
+                   "cpu": cli("subset", "--action", "eval", on="cpu")}
+            n = EVAL_7B_UTTS
+            for key in ("dev", "eval"):
+                expect_launches((res[key]["launches"], res[key]["serving"]),
+                                ((lf * n, 0, tf * n, 0), (0,) * 5),
+                                f"7b {name} {key}: training (LSTM fwd/bwd, TCN fwd/bwd), "
+                                "serving")
+                check_models(res[key], dev, f"7b {name} {key}")
+            expect_launches((res["cpu"]["launches"], res["cpu"]["serving"]),
+                            ((0,) * 4, (0,) * 5), f"7b {name} eval --backend cpu")
+            check_models(res["cpu"], torch.device("cpu"), f"7b {name} eval --backend cpu")
+            # dev: the printed rows are Metrics of the outputs
+            if vad:
+                binarize = Binarize(threshold=0.5, stability=0.05, sample_rate=16000,
+                                    mode="moving_average")
+                labels = load_text_as_dict(os.path.join(full, "ref2vad.txt"))
+                want = {}
+                for key, enh in zip(sorted(labels), res["dev"]["outputs"]):
+                    score = Metrics.f1_score(AudioIO.open(labels[key][0])[0][None],
+                                             binarize(enh).astype(np.float32))
+                    want[key] = [float(score[c]) for c in ("accuracy", "precision",
+                                                           "recall", "f1_score")]
+                printed = dev_rows(res["dev"]["stdout"], 4)
+            else:
+                want = rescore(full, res["dev"]["outputs"], tse)
+                printed = dev_rows(res["dev"]["stdout"], 6 if tse else 5)
+            if (printed != want or len(printed) != n
+                    or not np.isfinite(list(want.values())).all()):
+                raise AssertionError(f"7b {name} dev: printed {printed}, Metrics of the "
+                                     f"outputs {want}")
+            means = np.mean(list(want.values()), axis=0)
+            # the card's f32 outputs against the CPU's (PVAD: before binarising)
+            card_cpu = min(snr_np(a, b) for a, b in zip(res["eval"]["outputs"][:EVAL_SUBSET],
+                                                          res["cpu"]["outputs"]))
+            if not card_cpu >= EVAL_BAR_DB:
+                raise AssertionError(f"7b {name}: card vs CPU {card_cpu:.1f} dB")
+            # stream_eval on each route against the offline inference of the
+            # zero-primed input
+            streams, refused = {}, []
+            n_s, L_s = stream_set(tse)
+            if routes is None:
+                refused.append(cli_raises(module, cfgs["stream"], ["--action", "stream_eval",
+                                                                   *ck, "--backend", backend],
+                                          probe, lk, tk, f"{name} stream_eval"))
+            else:
+                model = res["eval"]["models"][0]
+                scp = load_text_as_dict(os.path.join(stream, "wav2scp.txt"))
+                enr = load_text_as_dict(os.path.join(stream, "ref2list.txt")) if tse else {}
+                pad = 16 if tse else 384
+                offline = {}
+                with torch.inference_mode():
+                    for k in sorted(scp):
+                        x = torch.from_numpy(AudioIO.open(scp[k][0])[0]).to(dev)
+                        args = [torch.nn.functional.pad(x, (pad, 0))]
+                        if tse:
+                            e = AudioIO.open(enr[k][0], target_lvl=-28)[0]
+                            args.append(torch.from_numpy(e).to(dev))
+                        offline[k] = model.inference(*args)[0].float().cpu().numpy()
+                lo, hi, shift = (0, L_s, 0) if tse else (512, L_s - 1024, pad)
+                # stream_signal's steps an utterance: the chunks that cover the
+                # input and the engine's delay (a lookahead model's too), and
+                # the warm-up step
+                per_utt = -(-(L_s + engine_delay_samples(build_engine(model))) // 256) + 1
+                ticks = per_utt * n_s
+                mem = (PVAD_MEM_LAUNCHES * ((per_utt - 1) * 16 // 150) * n_s if vad else 0)
+                for flags, (l_tick, serving_tick) in routes:
+                    r = cli("stream", "--action", "stream_eval", *flags)
+                    expect_launches((r["launches"], r["serving"]),
+                                    ((l_tick * ticks + mem, 0, tf * n_s, 0),
+                                     tuple(s * ticks for s in serving_tick)),
+                                    f"7b {name} stream_eval {' '.join(flags) or 'stock'}")
+                    check_models(r, dev, f"7b {name} stream_eval")
+                    got = min(snr_np(r["saved"][k][lo:hi], offline[k][lo + shift:hi + shift])
+                              for k in offline)
+                    if not got >= EVAL_BAR_DB:
+                        raise AssertionError(f"7b {name} stream_eval {flags}: {got:.1f} dB "
+                                             "from offline")
+                    streams[" ".join(flags) or "stock"] = (got, float(np.mean(r["rtfs"])),
+                                                          r["wall_s"], r["launches"],
+                                                          r["serving"])
+                    for i in range(4):
+                        out["launches"][i] += r["launches"][i]
+                    out["serving"] = [a + b for a, b in zip(out["serving"], r["serving"])]
+                if not tse:
+                    refused.append(cli_raises(module, cfgs["stream"], [
+                        "--action", "stream_eval", "--mk_kernel", *ck, "--backend", backend],
+                        probe, lk, tk, f"{name} stream_eval --mk_kernel"))
+            for key in ("dev", "eval"):
+                out["launches"] = [a + b for a, b in zip(out["launches"], res[key]["launches"])]
+            audio_s = n * EVAL_SECONDS
+            cols = (("accuracy", "precision", "recall", "f1_score") if vad else
+                    ("PESQ", "STOI", "SDR", "SiSNR", "SiSNRi") + (("NSR",) if tse else ()))
+            d, e = res["dev"], res["eval"]
+            summary = {"dev_wall_s": d["wall_s"], "dev_model_s": d["model_s"],
+                       "dev_metrics_s": d["metric_s"],
+                       "dev_means": dict(zip(cols, map(float, means))),
+                       "eval_wall_s": e["wall_s"], "eval_rtf": audio_s / e["wall_s"],
+                       "eval_model_rtf": audio_s / e["model_s"], "card_vs_cpu_db": card_cpu,
+                       "streams": streams, "refused": refused}
+            out["by_model"][name] = summary
+            log("7b eval actions", f"python -m {module} {conf} (--ckpt epoch_1.ckpt, "
+                f"model_average 2) on {n} mixtures of {EVAL_SECONDS:g} s: dev --metrics detail "
+                f"{d['wall_s']:.2f} s (model {d['model_s']:.3f} s synced, Metrics "
+                f"{d['metric_s']:.2f} s), means " + ", ".join(
+                    f"{c} {v:.4f}" for c, v in summary["dev_means"].items())
+                + f", every row equal to Metrics of the outputs; eval B=1 {e['wall_s']:.2f} s "
+                f"(RTF {summary['eval_rtf']:.1f}, model alone {summary['eval_model_rtf']:.1f});"
+                f" card vs --backend cpu {card_cpu:.1f} dB; stream_eval on {n_s} mixture(s) of "
+                f"{L_s / 16000:g} s: " + ("; ".join(
+                    f"{s} {v[2]:.2f} s, RTF {v[1]:.2f}, {v[0]:.1f} dB from the offline "
+                    f"inference of the zero-primed input, launches (LSTM fwd, TCN fwd) "
+                    f"{v[3][::2]}, serving {v[4]}" for s, v in streams.items()) or "refused")
+                + "; refused as they must: " + ("; ".join(refused) or "none")
+                + f"; launches dev / eval (LSTM fwd, TCN fwd) {d['launches'][::2]} / "
+                f"{e['launches'][::2]}, no backward, no serving kernel [{card}]", t)
     return out
 
 
@@ -4648,6 +5323,30 @@ def run(dev: torch.device) -> int:
             f"dual_path_chunk, dparn_intra_pass, the centers) {evals['serving']}", t)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+
+    # ------- the remaining shipped recipes: Conv-TasNet, PVAD, lookahead NS
+    # 2k. their kernels at the new shapes against the plain versions
+    new_shapes = new_shapes_phase(ops, SkiM, lk, tk, dev, card)
+    # 4k. PVAD and Conv-TasNet serving
+    pvad_serve = pvad_serving(ops, dev, card)
+    tasnet_serve = conv_tasnet_serving(tk, dev, card)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_7b_")
+    try:
+        # 6g. the shipped 1a / 1b / PVAD recipes' train
+        tse_recipes = shipped_tse_phase(lk, tk, dev, card, keep)
+        # 6h. the lookahead NS recipes' train
+        ns_1b = ns_recipe_phase(lk, tk, dev, card, keep=keep, confs=SHIPPED_NS_1B,
+                                phase="6h ns lookahead recipe")
+        # 7b. the five configs' evaluation actions on 6g / 6h's checkpoints
+        t = time.perf_counter()
+        evals_7b = eval_7b_phase(lk, tk, dev, card, keep)
+        log("7b eval actions", "phase 7b in all, launches (LSTM fwd, LSTM bwd, TCN fwd, TCN "
+            f"bwd) {evals_7b['launches']}, serving (fused_skim_frames, lstm_scan, "
+            f"dual_path_chunk, dparn_intra_pass, the centers) {evals_7b['serving']}", t)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    launches_6g = [sum(r["launches"][i] for r in tse_recipes.values()) for i in range(4)]
+    launches_6h = [sum(r["launches"][i] for r in ns_1b.values()) for i in range(4)]
     # the training launches of phases 6d-6f, (LSTM fwd, bwd, TCN fwd, bwd)
     new_training = [r["launches"] for k, r in ns_train.items() if k[1] != "check"]
     new_training += [recipe_1c["launches"]] + [r["launches"] for r in ns_recipes.values()]
@@ -4664,13 +5363,25 @@ def run(dev: torch.device) -> int:
                 "bf16_bound_ms": r[f"bf16_{half}_bound"][0],
                 "bf16_library_ms": r[f"bf16_lib_{half}_ms"] if lib else None}
 
+    def skim_line(r):
+        """One phase 2k fused_skim_frames case's times beside its bound."""
+        return {"shape": r["name"], "ms": r["f32_ms"], "plain_ms": r["f32_plain_ms"],
+                "bound_ms": r["f32_bound"][0], "bound_by": r["f32_bound"][1],
+                "library_ms": None, "max_abs_err": r["f32_max_abs_err"],
+                "bf16_ms": r["bf16_ms"], "bf16_plain_ms": r["bf16_plain_ms"],
+                "bf16_bound_ms": r["bf16_bound"][0], "bf16_snr_db": r["bf16_snr_db"],
+                "bf16_plan": r["bf16_plan"], "routes": {"f32": r["f32_routes"],
+                                                        "bf16": r["bf16_routes"]}}
+
     # ---------------------------------------------------- 8. the kernels line
     flag = results[0]
     skim_bound = bound_ms(*skim_work(4, 128, 256, 15, 1024, torch.float32),
                           torch.float32)
     kernels = [{
         "name": "fused_skim_frames", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": serve_launches,
+        "replaces": REPLACES, "launches": serve_launches + pvad_serve["launches"],
+        "launches_4k": pvad_serve["launches"],
+        "new_shapes": {n: skim_line(r) for n, r in new_shapes["skim"].items()},
         "max_abs_err": flag["f32_max_abs_err"], "ms": flag["f32_ms"],
         "plain_ms": flag["f32_plain_ms"], "bound_ms": skim_bound[0],
         "bound_by": skim_bound[1], "library_ms": None,
@@ -4691,9 +5402,13 @@ def run(dev: torch.device) -> int:
             "route": "cuda", "source": LSTM_SOURCE, "replaces": replaces,
             "launches": (train["f32"]["launches"][i] + train["bf16"]["launches"][i]
                          + recipe["launches"][i] + by_entry(half, "fp") + new_launches[i]
-                         + evals["launches"][i]),
+                         + evals["launches"][i] + launches_6g[i] + launches_6h[i]
+                         + evals_7b["launches"][i]),
             "launches_6d_6f": new_launches[i], "launches_7": evals["launches"][i],
-            "new_shapes": {n: case_line(lstm_results[n], half) for n in LSTM_SEEDS},
+            "launches_6g": launches_6g[i], "launches_6h": launches_6h[i],
+            "launches_7b": evals_7b["launches"][i],
+            "new_shapes": {**{n: case_line(lstm_results[n], half) for n in LSTM_SEEDS},
+                           **{n: case_line(r, half) for n, r in new_shapes["lstm"].items()}},
             "max_abs_err": seg["f32_max_abs_err"], "ms": seg[f"f32_{half}_ms"],
             "plain_ms": seg[f"f32_plain_{half}_ms"],
             "bound_ms": seg[f"f32_{half}_bound"][0],
@@ -4762,9 +5477,14 @@ def run(dev: torch.device) -> int:
             "name": f"tcn_block_train ({'forward' if half == 'fwd' else 'backward'})",
             "route": "cuda", "source": TCN_SOURCE, "replaces": replaces,
             "launches": (train["f32"]["launches"][i] + train["bf16"]["launches"][i]
-                         + recipe["launches"][i] + new_launches[i] + evals["launches"][i]),
+                         + recipe["launches"][i] + new_launches[i] + evals["launches"][i]
+                         + (tasnet_serve["launches"] if half == "fwd" else 0)
+                         + launches_6g[i] + evals_7b["launches"][i]),
             "launches_6d_6f": new_launches[i], "launches_7": evals["launches"][i],
-            "new_shapes": {n: case_line(tcn_results[n], half) for n in TCN_SEEDS},
+            "launches_4k": tasnet_serve["launches"] if half == "fwd" else 0,
+            "launches_6g": launches_6g[i], "launches_7b": evals_7b["launches"][i],
+            "new_shapes": {**{n: case_line(tcn_results[n], half) for n in TCN_SEEDS},
+                           **{n: case_line(r, half) for n, r in new_shapes["tcn"].items()}},
             "max_abs_err": spk["f32_max_abs_err"], "ms": spk[f"f32_{half}_ms"],
             "plain_ms": spk[f"f32_plain_{half}_ms"],
             "bound_ms": spk[f"f32_{half}_bound"][0],
@@ -4782,8 +5502,8 @@ def run(dev: torch.device) -> int:
         "replaces": LSCAN_REPLACES,
         "launches": (ns_routes["fused"][1][1] + fused_serve["launches"][1]
                      + sum(r["launches"][1] for r in dparn_serve.values())
-                     + evals["serving"][1]),
-        "launches_7": evals["serving"][1],
+                     + evals["serving"][1] + evals_7b["serving"][1]),
+        "launches_7": evals["serving"][1], "launches_7b": evals_7b["serving"][1],
         "launches_by_phase": {"3b fused (f32, cuda)": ns_routes["fused"][1][1],
                               "4j DPCRN fused serving": fused_serve["routes"],
                               "4c DPARN serving": {n: r["routes"]
@@ -4809,8 +5529,9 @@ def run(dev: torch.device) -> int:
     kernels.append({
         "name": "dual_path_chunk", "route": "cuda", "source": DP_SOURCE,
         "replaces": DP_REPLACES,
-        "launches": sum(r["launches"][2] for r in ns_serve.values()) + evals["serving"][2],
-        "launches_7": evals["serving"][2],
+        "launches": (sum(r["launches"][2] for r in ns_serve.values()) + evals["serving"][2]
+                     + evals_7b["serving"][2]),
+        "launches_7": evals["serving"][2], "launches_7b": evals_7b["serving"][2],
         "max_abs_err": dp["f32_max_abs_err"], "ms": dp["f32_ms"],
         "plain_ms": dp["f32_plain_ms"], "bound_ms": dp["f32_bound"][0],
         "bound_by": dp["f32_bound"][1], "library_ms": None,
@@ -4824,8 +5545,9 @@ def run(dev: torch.device) -> int:
     kernels.append({
         "name": "dparn_intra_pass", "route": "cuda", "source": DPARN_SOURCE,
         "replaces": DPARN_REPLACES,
-        "launches": sum(r["launches"][2] for r in dparn_serve.values()) + evals["serving"][3],
-        "launches_7": evals["serving"][3],
+        "launches": (sum(r["launches"][2] for r in dparn_serve.values()) + evals["serving"][3]
+                     + evals_7b["serving"][3]),
+        "launches_7": evals["serving"][3], "launches_7b": evals_7b["serving"][3],
         "max_abs_err": at["f32_max_abs_err"], "ms": at["f32_ms"],
         "plain_ms": at["f32_plain_ms"], "bound_ms": at["f32_bound"][0],
         "bound_by": at["f32_bound"][1], "library_ms": None,

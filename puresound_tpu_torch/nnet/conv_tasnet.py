@@ -1,18 +1,19 @@
-"""Residual TCN block (counterpart of puresound_tpu/nnet/conv_tasnet.py:38)
-in the speaker net's form: non-causal, no embedding input.
+"""The residual TCN block and the ConvTasNet masker (counterparts of
+puresound_tpu/nnet/conv_tasnet.py:38-124 and :230-314).
 
-Every block with global norms (gLN / gGN) and an odd kernel runs through
-`ops.tcn_train_kernel.tcn_block_train`, in training and in inference alike
-(JAX's `_fusable` / `_fused_call`, `:79-105`): the CUDA kernel for a CUDA
-tensor, its plain version for a CPU tensor. JAX's v5e engagement floors
-(`_FUSED_TCN_MIN_ROWS*`, `_FUSED_TCN_MAX_C_BF16`) and the
-`PURESOUND_FUSED_TCN` switch are TPU facts and are dropped here. A block
-with BatchNorm norms takes the stock path under autograd, as in JAX; the
-causal / embedded blocks of ConvTasNet are still JAX-only (ROADMAP queue 1).
+Every block with global norms (gLN / gGN), an odd kernel, no embedding
+input and no causal padding runs through `ops.tcn_train_kernel.tcn_block_train`,
+in training and in inference alike (JAX's `_fusable` / `_fused_call`,
+`:79-105`): the CUDA kernel for a CUDA tensor, its plain version for a CPU
+tensor. JAX's v5e engagement floors (`_FUSED_TCN_MIN_ROWS*`,
+`_FUSED_TCN_MAX_C_BF16`) and the `PURESOUND_FUSED_TCN` switch are TPU facts
+and are dropped here. Embedded, causal and BatchNorm blocks take the stock
+path under autograd, as in JAX. `GatedTCN` (`tcn_layer="gated"`) is not
+ported: no ported model builds it (ROADMAP queue 1 item 5b(iii)).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -33,8 +34,18 @@ def _gain_bias(norm: nn.Module):
     return None
 
 
+def _with_embed(x: torch.Tensor, embed: Optional[torch.Tensor]) -> torch.Tensor:
+    """x [N, C, T] with the embedding [N, E] broadcast over T and
+    concatenated on the channels."""
+    if embed is None:
+        return x
+    e = embed[:, :, None].to(x.dtype).expand(-1, -1, x.shape[-1])
+    return torch.cat([x, e], dim=1)
+
+
 class TCN(nn.Module):
-    """1x1-in -> norm -> PReLU -> DSConv -> 1x1-out, +res. x: [N, C, T].
+    """(embedding concat) -> 1x1-in -> norm -> PReLU -> DSConv -> 1x1-out,
+    +res. x: [N, C, T], embed: [N, emb_dim] or None.
 
     Layout follows PureSound:
     `in_conv` = Sequential(conv, norm, PReLU), `dconv` = Sequential(DSConv).
@@ -42,27 +53,35 @@ class TCN(nn.Module):
 
     def __init__(self, in_channels: int, hid_channels: int, kernel: int,
                  dilation: int, tcn_norm: str = "gLN", dconv_norm: str = "gGN",
-                 *, device=None, dtype=torch.float32,
+                 *, emb_dim: int = 0, causal: bool = False, dropout: float = 0.0,
+                 device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if dropout:
+            raise NotImplementedError(
+                "TCN dropout is not ported (every zoo model passes 0)")
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
         self.kernel, self.dilation = kernel, dilation
+        self.hid_channels, self.emb_dim, self.causal = hid_channels, emb_dim, causal
         self.in_conv = nn.Sequential(
-            Conv1d(in_channels, hid_channels, 1, bias=False, generator=g, **fk),
+            Conv1d(in_channels + emb_dim, hid_channels, 1, bias=False, generator=g, **fk),
             get_norm(tcn_norm)(hid_channels, **fk), PReLU(**fk))
         self.dconv = nn.Sequential(DepthwiseSeparableConv1d(
             hid_channels, hid_channels, norm_cls=dconv_norm, kernel=kernel,
-            dilation=dilation, generator=g, **fk))
+            dilation=dilation, causal=causal, generator=g, **fk))
         self.out_conv = Conv1d(hid_channels, in_channels, 1, generator=g, **fk)
 
     def fused_params(self):
         """The block's parameters in `tcn_block_train`'s order, or None when
-        the block is not one the kernel takes (other norms, an even kernel)."""
+        the block is not one the kernel takes (other norms, an even kernel,
+        an embedding input or causal padding: the kernel's residual has no
+        embedding channels and its depthwise conv is centred)."""
         ds = self.dconv[0]
         norms = [_gain_bias(n) for n in (self.in_conv[1], ds.depthwise[1],
                                          ds.pointwise[1])]
-        if any(n is None for n in norms) or self.kernel % 2 == 0:
+        if (any(n is None for n in norms) or self.kernel % 2 == 0 or self.emb_dim
+                or self.causal):
             return None
         (g1, b1), (g2, b2), (g3, b3) = norms
         return (self.in_conv[0].weight[:, :, 0], g1, b1, self.in_conv[2].weight,
@@ -71,8 +90,100 @@ class TCN(nn.Module):
                 ds.pointwise[0].bias, g3, b3, ds.pointwise[2].weight,
                 self.out_conv.weight[:, :, 0], self.out_conv.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        params = self.fused_params()
+    def forward(self, x: torch.Tensor, embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        params = self.fused_params() if embed is None else None
         if params is not None:
             return tcn_block_train(x, *params, dilation=self.dilation)
-        return self.out_conv(self.dconv(self.in_conv(x))) + x
+        return self.out_conv(self.dconv(self.in_conv(_with_embed(x, embed)))) + x
+
+    @property
+    def ctx_frames(self) -> int:
+        return self.dconv[0].ctx_frames
+
+    def init_ctx(self, batch: int, dtype=torch.float32, device=None) -> torch.Tensor:
+        return torch.zeros((batch, self.hid_channels, self.ctx_frames), dtype=dtype,
+                           device=device)
+
+    def step_chunk(self, x: torch.Tensor, embed: Optional[torch.Tensor],
+                   ctx: torch.Tensor):
+        """One causal streaming chunk: x [B, C, K] and the carried depthwise
+        context -> (y [B, C, K], the new context). The 1x1 convs and the
+        norms (eval mode) are frame-local."""
+        h = self.in_conv(_with_embed(x, embed))
+        y, ctx = self.dconv[0].step_chunk(h, ctx)
+        return self.out_conv(y) + x, ctx
+
+
+class ConvTasNet(nn.Module):
+    """`repeat_tcn` stacks of `per_tcn_stack` TCN blocks with dilation
+    tcn_dilated_basic**i; block i of a stack takes the speaker embedding
+    when tcn_with_embed[i]. x: [N, C, T] -> mask [N, C, T].
+
+    Module names follow PureSound's (`tcn_list.{r}.{i}`)."""
+
+    def __init__(self, input_dim: int = 512, embed_dim: int = 256,
+                 embed_norm: bool = False, tcn_layer: str = "normal",
+                 tcn_kernel: int = 3, tcn_dim: int = 256, tcn_dilated_basic: int = 2,
+                 per_tcn_stack: int = 5, repeat_tcn: int = 4,
+                 tcn_with_embed: Sequence[int] = (1, 0, 0, 0, 0),
+                 tcn_norm: str = "gLN", dconv_norm: str = "gGN", causal: bool = False,
+                 *, device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if per_tcn_stack != len(tcn_with_embed):
+            raise ValueError("tcn_with_embed needs one flag a block of a stack")
+        if tcn_layer.lower() != "normal":
+            raise NotImplementedError(
+                f"tcn_layer {tcn_layer!r} (GatedTCN) is not ported yet (ROADMAP queue 1 "
+                "item 5b(iii): UnetTcn and the Unet speaker net)")
+        g = generator_or_default(generator)
+        self.embed_norm, self.causal = embed_norm, causal
+        self.tcn_with_embed = tuple(tcn_with_embed)
+        self.tcn_list = nn.ModuleList(
+            nn.ModuleList(
+                TCN(input_dim, tcn_dim, tcn_kernel, tcn_dilated_basic ** i,
+                    tcn_norm=tcn_norm, dconv_norm=dconv_norm,
+                    emb_dim=embed_dim if self.tcn_with_embed[i] else 0,
+                    causal=causal, device=device, dtype=dtype, generator=g)
+                for i in range(per_tcn_stack))
+            for _ in range(repeat_tcn))
+
+    def _norm_dvec(self, dvec: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if self.embed_norm and dvec is not None:
+            dvec = dvec / torch.linalg.norm(dvec, dim=1, keepdim=True).clamp_min(1e-12)
+        return dvec
+
+    def _blocks(self):
+        """(block, takes the embedding) in order."""
+        for stack in self.tcn_list:
+            for i, layer in enumerate(stack):
+                yield layer, bool(self.tcn_with_embed[i])
+
+    def forward(self, x: torch.Tensor, dvec: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dvec = self._norm_dvec(dvec)
+        for layer, embedded in self._blocks():
+            x = layer(x, dvec) if embedded else layer(x)
+        return x
+
+    # -------------------------------------------------------------- streaming
+    def init_state(self, batch: int, dtype=torch.float32, device=None) -> dict:
+        """Streaming state: each block's depthwise-input context (the masker
+        is convolutional, so this is all of it). Only a causal ConvTasNet
+        streams, as JAX's `init_state` asserts."""
+        if not self.causal:
+            raise ValueError("streaming needs a causal ConvTasNet")
+        if device is None:
+            device = self.tcn_list[0][0].out_conv.weight.device
+        return {"ctx": [layer.init_ctx(batch, dtype, device) for layer, _ in self._blocks()]}
+
+    def step_frames(self, x: torch.Tensor, dvec: Optional[torch.Tensor], state: dict):
+        """One streaming chunk in SkiM's streaming API: frames x [B, K, C]
+        -> (mask frames [B, C, K], the new state); equal to the offline
+        forward on the chunked input."""
+        dvec = self._norm_dvec(dvec)
+        h = x.transpose(1, 2)
+        ctxs = []
+        for (layer, embedded), ctx in zip(self._blocks(), state["ctx"]):
+            h, ctx = layer.step_chunk(h, dvec if embedded else None, ctx)
+            ctxs.append(ctx)
+        return h, dict(state, ctx=ctxs)

@@ -38,9 +38,12 @@ class Conv1d(nn.Module):
         self.bias = (uniform((out_channels,), bound, g, device, dtype)
                      if bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.padding:
-            x = F.pad(x, (self.padding, self.padding))
+    def forward(self, x: torch.Tensor, pad: Optional[int] = None) -> torch.Tensor:
+        """`pad` overrides the module's symmetric padding (0: a streaming
+        step whose context is already in x)."""
+        pad = self.padding if pad is None else pad
+        if pad:
+            x = F.pad(x, (pad, pad))
         b = self.bias.to(x.dtype) if self.bias is not None else None
         return F.conv1d(x, self.weight.to(x.dtype), b, stride=self.stride,
                         dilation=self.dilation, groups=self.groups)
@@ -154,22 +157,28 @@ class ConvTranspose2d(nn.Module):
 
 
 class DepthwiseSeparableConv1d(nn.Module):
-    """Depthwise dilated conv -> 1x1 conv, each norm + PReLU (the
-    non-causal form without 1x1-in or skip that the TCN block uses; the
-    causal / transform / skip variants are still JAX-only, ROADMAP queue 1).
+    """Depthwise dilated conv -> 1x1 conv, each norm + PReLU (JAX
+    `nnet/lobe/cnn.py:222-292` without the 1x1-in or skip, which no ported
+    model builds). A causal block pads (k-1)*d on both sides and trims that
+    many frames on the right of its output; `step_chunk` streams it with the
+    depthwise input's last (k-1)*d frames carried.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_cls: str = "gGN", kernel: int = 3, stride: int = 1,
-                 dilation: int = 1, *, device=None, dtype=torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 dilation: int = 1, causal: bool = False, *, device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
+        if causal and norm_cls in ("gLN", "gGN"):
+            raise ValueError("Conflict between global normalization and causal operation.")
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
         norm = get_norm(norm_cls)
+        self.causal = causal
+        self.padding = (kernel - 1) * dilation if causal else ((kernel - 1) // 2) * dilation
         self.depthwise = nn.Sequential(
             Conv1d(in_channels, in_channels, kernel, stride=stride,
-                   dilation=dilation, padding=((kernel - 1) // 2) * dilation,
+                   dilation=dilation, padding=self.padding,
                    groups=in_channels, generator=g, **fk),
             norm(in_channels, **fk), PReLU(**fk))
         self.pointwise = nn.Sequential(
@@ -177,4 +186,22 @@ class DepthwiseSeparableConv1d(nn.Module):
             norm(out_channels, **fk), PReLU(**fk))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pointwise(self.depthwise(x))
+        y = self.pointwise(self.depthwise(x))
+        if self.causal and self.padding:
+            y = y[..., :-self.padding]
+        return y
+
+    @property
+    def ctx_frames(self) -> int:
+        """Frames of depthwise input a causal streaming step carries."""
+        return self.padding
+
+    def step_chunk(self, x: torch.Tensor, ctx: torch.Tensor):
+        """One causal streaming chunk: x [B, C, K] and the carried context
+        ctx [B, C, (k-1)*d] -> (y [B, C_out, K], the new context)."""
+        if not self.causal:
+            raise ValueError("step_chunk needs a causal DepthwiseSeparableConv1d")
+        full = torch.cat([ctx, x], dim=-1)
+        conv, norm, act = self.depthwise
+        y = self.pointwise(act(norm(conv(full, pad=0))))
+        return y, full[..., full.shape[-1] - self.padding:]

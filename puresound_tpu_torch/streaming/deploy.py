@@ -47,7 +47,8 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
                         pcm16: bool = False,
                         pcm16_scale: float = 8192.0) -> ServingBundle:
     """Build a SessionServer for a SoTaskWrapModule: TSE (FreeEncDec +
-    SkiM + speaker net) or NS (ConvEncDec + DPCRN / DPARN).
+    SkiM or causal ConvTasNet + speaker net) or NS (ConvEncDec + DPCRN /
+    DPARN).
 
     Args:
         model: the offline wrapper (its device is the serving device).
@@ -60,8 +61,10 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
             hub surface stays float32.
         fused: TSE runs the SkiM stack through `fused_skim_frames`; NS runs
             the masker's recurrences through `lstm_scan`. None (the default)
-            means on for TSE and off for NS, so that an NS call with
-            dp_kernel=True or mk_kernel=True stands.
+            means on for a TSE masker with a fused step (SkiM), off for one
+            without (ConvTasNet) and off for NS, so that an NS call with
+            dp_kernel=True or mk_kernel=True stands. True raises a ValueError
+            for a TSE masker without a fused step.
         dp_kernel: NS only, the whole DPCRN bottleneck through
             `dual_path_chunk` (exclusive with fused).
         attn_kernel: NS DPARN only, each block's intra pass through
@@ -106,15 +109,20 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
         if dp_kernel or attn_kernel or mk_kernel:
             raise ValueError("dp_kernel/attn_kernel/mk_kernel apply to STFT-domain "
                              "engines; time-domain TSE serving fuses via fused=True")
-        seg = engine.masker.seg_size
-        if (chunk // hop) % seg:
+        has_fused = hasattr(engine.masker, "step_frames_fused")
+        if fused and not has_fused:
+            raise ValueError(f"fused=True needs a masker with a fused step (SkiM); "
+                             f"{type(engine.masker).__name__} has none")
+        seg = getattr(engine.masker, "seg_size", None)
+        if seg is not None and (chunk // hop) % seg:
             warnings.warn(
                 f"chunk of {chunk // hop} frames does not cover whole SkiM "
                 f"segments (seg_size={seg}): sessions attached mid-serving will "
                 "see shifted segment boundaries vs a fresh engine (SkiM's "
                 "segment clock is shared across slots). Attach-before-first-tick "
                 "serving is unaffected.", stacklevel=2)
-        step_kw = dict(fused=True, dot_dtype=dt) if fused in (None, True) else {}
+        step_kw = (dict(fused=True, dot_dtype=dt) if fused in (None, True) and has_fused
+                   else {})
         init_kw = {}
     else:
         step_kw, init_kw = engine_step_options(engine, fused=bool(fused),

@@ -1,8 +1,9 @@
 """Streaming TSE engine (counterpart of puresound_tpu/streaming/engine.py:27).
 
-All per-stream state — encoder tail, per-block SkiM (h, c), MemLSTM
-internals, decoder overlap-add carry — lives in one explicit dict with a
-stream-batch axis; `step` advances every stream by one chunk.
+All per-stream state — encoder tail, the masker's state (SkiM's per-block
+(h, c) and MemLSTM internals, or a causal ConvTasNet's depthwise contexts),
+decoder overlap-add carry — lives in one explicit dict with a stream-batch
+axis; `step` advances every stream by one chunk.
 
 Equivalence contract (tested): feeding chunks of x equals offline
 `inference` on `offline_equivalent_input(x)` truncated to the emitted length.
@@ -64,7 +65,8 @@ class StreamingTSE(nn.Module):
              state: dict, fused: bool = False, dot_dtype=torch.float32,
              int8_hh: bool = False, int8_full: bool = False):
         """Advance every stream by one chunk [B, S] (S a multiple of the hop).
-        fused=True runs the SkiM block stack through the fused kernel;
+        fused=True runs the SkiM block stack through the fused kernel (a
+        ConvTasNet masker has none);
         int8_hh / int8_full quantize its recurrent (and, with int8_full, all
         its) products (`fused_skim_frames`). Returns ([B, S], new state)."""
         if (int8_hh or int8_full) and not fused:

@@ -195,21 +195,38 @@ def speaker_loss(p) -> Flat:
     return {k: _a(v) for k, v in p.items()}
 
 
-def so_wrapper_tse_skim(variables: Mapping) -> Flat:
-    """A TSE SoTaskWrapModule (FreeEncDec + SkiM + speaker net, and the
-    speaker loss's parameters where the tree has them)."""
+def _tse_wrapper(variables: Mapping, masker: Flat) -> Flat:
+    """A time-domain TSE SoTaskWrapModule around its masker's tensors: the
+    FreeEncDec, the speaker net, and the speaker loss's parameters where the
+    tree has them."""
     p = variables["params"]
     s = variables.get("batch_stats", {})
-    parts = [_prefix("encoder", free_encdec(p["encoder"])),
-             _prefix("masker", skim(p["masker"]))]
+    parts = [_prefix("encoder", free_encdec(p["encoder"])), _prefix("masker", masker)]
     if "loss_func_spk" in p:
         parts.append(_prefix("loss_func_spk", speaker_loss(p["loss_func_spk"])))
-    for key in p:
-        if key.startswith("speaker_net_"):
-            i = key.rsplit("_", 1)[1]
-            parts.append(_prefix(f"speaker_net.{i}",
-                                 speaker_net_layer(p[key], s.get(key))))
+    parts += [_prefix(f"speaker_net.{key.rsplit('_', 1)[1]}",
+                      speaker_net_layer(p[key], s.get(key)))
+              for key in p if key.startswith("speaker_net_")]
     return _merge(*parts)
+
+
+def so_wrapper_tse_skim(variables: Mapping) -> Flat:
+    """A TSE SoTaskWrapModule with a SkiM masker."""
+    return _tse_wrapper(variables, skim(variables["params"]["masker"]))
+
+
+def conv_tasnet(p, s=None) -> Flat:
+    """ConvTasNet's blocks: flax's `tcn_list_{r}_{i}` -> `tcn_list.{r}.{i}`
+    (BatchNorm's running statistics from `s`)."""
+    return _merge(*(_prefix("tcn_list." + key[len("tcn_list_"):].replace("_", "."),
+                            tcn(p[key], _sub(s, key)))
+                    for key in p if key.startswith("tcn_list_")))
+
+
+def so_wrapper_td_conv_tasnet(variables: Mapping) -> Flat:
+    """A TSE SoTaskWrapModule with a ConvTasNet masker."""
+    return _tse_wrapper(variables, conv_tasnet(variables["params"]["masker"],
+                                               variables.get("batch_stats", {}).get("masker")))
 
 
 def single_rnn(p) -> Flat:
@@ -299,19 +316,21 @@ def so_wrapper_ns_dparn(variables: Mapping) -> Flat:
 
 
 def params_by_name(tree: Mapping) -> Flat:
-    """A params-shaped pytree of a TSE SoTaskWrapModule (its params, a
+    """A params-shaped pytree of a SoTaskWrapModule (its params, a
     gradient, an optimizer moment) -> {port parameter name: array}, each
     laid out as the port's parameter (kernels transposed, as the weights
     are), so gradients and updated parameters compare name by name."""
-    return so_wrapper_tse_skim({"params": tree})
+    return flat_from_jax({"params": tree})
 
 
 def flat_from_jax(variables: Mapping) -> Flat:
     """flax variables ({"params", "batch_stats"}) of a TSE (FreeEncDec +
-    SkiM) or NS (ConvEncDec + DPCRN / DPARN) SoTaskWrapModule, or of its
-    streaming engine -> {state_dict name: np.ndarray}, told apart by the
-    masker's keys."""
+    SkiM or ConvTasNet) or NS (ConvEncDec + DPCRN / DPARN) SoTaskWrapModule,
+    or of its streaming engine -> {state_dict name: np.ndarray}, told apart
+    by the masker's keys."""
     masker = variables["params"]["masker"]
+    if "tcn_list_0_0" in masker:
+        return so_wrapper_td_conv_tasnet(variables)
     if "dprnn_block1" in masker:
         if "intra_atten1" in masker["dprnn_block1"]:
             return so_wrapper_ns_dparn(variables)

@@ -1,7 +1,9 @@
 """TSE model zoo (counterpart of puresound_tpu/zoo/tse.py): the flagship
-`tse_skim_v0_causal` (`:157-170`), `init_loss` (`:33`) with every loss of
-the JAX package's, and `cross_entropy` (`:25`). The other names are still
-JAX-only (ROADMAP queue 1 item 5b)."""
+`tse_skim_v0_causal` (`:157-170`), the Conv-TasNet models
+`td_tse_conv_tasnet_v0` / `_causal` (`:94-121`), the PVAD model
+`tse_skim_v0_causal_vad` (`:212-224`), `init_loss` (`:33`) with every loss
+of the JAX package's, and `cross_entropy` (`:25`). The other names are still
+JAX-only (ROADMAP queue 1 item 5b(iii))."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,7 +11,7 @@ from typing import Optional
 import torch
 
 from ..nnet.base_nn import SoTaskWrapModule
-from ..nnet.conv_tasnet import TCN
+from ..nnet.conv_tasnet import TCN, ConvTasNet
 from ..nnet.encoder import FreeEncDec
 from ..nnet.lobe.cnn import Conv1d
 from ..nnet.lobe.pooling import AttentiveStatisticsPooling
@@ -21,10 +23,12 @@ from ..nnet.skim import SkiM
 from ..utils.init import generator_or_default
 
 #: zoo names of the JAX package that this port does not build yet
-JAX_ONLY = ("td_tse_conv_tasnet_v0", "td_tse_conv_tasnet_v0_causal",
-            "tse_unet_tcn_v0", "tse_unet_tcn_v0_causal", "tse_unet_tcn_v1",
+JAX_ONLY = ("tse_unet_tcn_v0", "tse_unet_tcn_v0_causal", "tse_unet_tcn_v1",
             "tse_skim_v0", "tse_skim_v1_causal", "tse_skim_v2_causal",
-            "tse_skim_v0_causal_vad", "veve_dprnn_v0_causal")
+            "veve_dprnn_v0_causal")
+#: the zoo names this port builds
+PORTED = ("tse_skim_v0_causal", "tse_skim_v0_causal_vad", "td_tse_conv_tasnet_v0",
+          "td_tse_conv_tasnet_v0_causal")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -115,23 +119,40 @@ def init_model(name: str, sig_loss=None, cls_loss=None, other_loss=None, *,
     """Build a named TSE model in eval mode, on the card unless `device`
     says otherwise. The losses make `forward` the training loss
     (`sig_loss` the waveform loss, `cls_loss` the speaker loss)."""
-    if name == "tse_skim_v0_causal":
-        # 6,375,440 parameters, as the JAX package counts; lookahead 16
-        fk = dict(device=_device(device), dtype=dtype,
-                  generator=generator_or_default(generator))
-        return SoTaskWrapModule(
-            encoder=FreeEncDec(win_length=32, hop_length=16, laten_length=128,
-                               output_active=True, **fk),
-            masker=SkiM(input_size=128, hidden_size=256, output_size=128,
-                        n_blocks=4, seg_size=150, seg_overlap=False,
-                        causal=True, embed_dim=192, embed_norm=True,
-                        block_with_embed=(1, 1, 1, 1), embed_fusion="FiLM",
-                        **fk),
-            speaker_net=_tcn_speaker_net(128, **fk),
-            loss_func_wav=sig_loss, loss_func_spk=cls_loss,
-            loss_func_others=other_loss, mask_constraint="ReLU").eval()
     if name in JAX_ONLY:
         raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP queue 1 item 5b: the rest of the "
-            "TSE zoo); only 'tse_skim_v0_causal' is")
-    raise NameError(name)
+            f"{name!r} is not ported yet (ROADMAP queue 1 item 5b(iii): the rest of "
+            "the TSE zoo)")
+    if name not in PORTED:
+        raise NameError(name)
+    fk = dict(device=_device(device), dtype=dtype,
+              generator=generator_or_default(generator))
+    losses = dict(loss_func_wav=sig_loss, loss_func_spk=cls_loss,
+                  loss_func_others=other_loss)
+    if name in ("td_tse_conv_tasnet_v0", "td_tse_conv_tasnet_v0_causal"):
+        # 10,156,311 parameters (v0), as the reference counts; the causal
+        # model's masker norms are BatchNorm
+        causal = name.endswith("causal")
+        norms = ("bN1d", "bN1d") if causal else ("gLN", "gGN")
+        return SoTaskWrapModule(
+            encoder=FreeEncDec(win_length=32, hop_length=16, laten_length=512, **fk),
+            masker=ConvTasNet(512, 192, True, tcn_kernel=3, tcn_dim=256,
+                              repeat_tcn=3, tcn_dilated_basic=2, per_tcn_stack=8,
+                              tcn_with_embed=(1, 0, 0, 0, 0, 0, 0, 0),
+                              tcn_norm=norms[0], dconv_norm=norms[1], causal=causal,
+                              tcn_layer="normal", **fk),
+            speaker_net=_tcn_speaker_net(512, **fk), mask_constraint="ReLU",
+            **losses).eval()
+    # tse_skim_v0_causal: 6,375,440 parameters, as the JAX package counts;
+    # tse_skim_v0_causal_vad (PVAD, a Sigmoid output): 1,181,392; lookahead 16
+    vad = name.endswith("vad")
+    n_blocks = 2 if vad else 4
+    return SoTaskWrapModule(
+        encoder=FreeEncDec(win_length=32, hop_length=16, laten_length=128,
+                           output_active=True, **fk),
+        masker=SkiM(input_size=128, hidden_size=64 if vad else 256, output_size=128,
+                    n_blocks=n_blocks, seg_size=150, seg_overlap=False,
+                    causal=True, embed_dim=192, embed_norm=True,
+                    block_with_embed=(1,) * n_blocks, embed_fusion="FiLM", **fk),
+        speaker_net=_tcn_speaker_net(128, **fk), mask_constraint="ReLU",
+        output_constraint="Sigmoid" if vad else "linear", **losses).eval()

@@ -56,6 +56,10 @@ from puresound_tpu_torch.tasks import base, tse
 from puresound_tpu_torch.utils import from_jax as fj
 from puresound_tpu_torch.zoo.tse import cross_entropy
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 ATOL, RTOL = 1e-8, 1e-6
 SR = 8000
 C, E, N_CLASS = 16, 8, 5

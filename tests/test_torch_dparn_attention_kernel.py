@@ -13,6 +13,10 @@ from puresound_tpu.ops.dparn_attention_kernel import dparn_intra_pass as j_intra
 from puresound_tpu_torch.nnet.dparn import DPARNblock2D
 from puresound_tpu_torch.ops import dparn_attention_kernel as dak
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 F, C, HEADS, FFD, R = 8, 16, 4, 16, 6
 
 

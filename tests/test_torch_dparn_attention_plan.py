@@ -18,6 +18,10 @@ import chip_smoke
 from puresound_tpu_torch.nnet.dparn import DPARN
 from puresound_tpu_torch.ops import dparn_attention_kernel as dak
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 SMEM_MAX = 232448   # bytes of shared memory a block may use on the H100
 H100_SMS = 132
 CSRC = os.path.join(os.path.dirname(os.path.dirname(dak.__file__)), "csrc")

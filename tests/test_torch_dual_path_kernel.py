@@ -26,6 +26,10 @@ from puresound_tpu_torch.ops import dual_path_kernel as dpk
 from puresound_tpu_torch.streaming.ns_engine import StreamingNS
 from puresound_tpu_torch.utils.from_jax import from_jax
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 N_FFT, HOP = 128, 32
 UNET = dict(input_type="RI", input_dim=N_FFT, norm_type="bN2d", dropout=0.0,

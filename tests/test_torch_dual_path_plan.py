@@ -21,6 +21,10 @@ from puresound_tpu_torch.nnet.dparn import DPARN
 from puresound_tpu_torch.ops import dual_path_kernel as dpk
 from puresound_tpu_torch.ops.quant import HH_DIV, dot_hh_ref, quantize_cols
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 SMEM_MAX = 232448   # bytes of shared memory a block may use on the H100
 H100_SMS = 132
 CSRC = os.path.join(os.path.dirname(os.path.dirname(dpk.__file__)), "csrc")

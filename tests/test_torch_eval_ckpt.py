@@ -60,6 +60,10 @@ from puresound_tpu_torch.tasks import base
 from puresound_tpu_torch.utils import flax_ckpt
 from puresound_tpu_torch.utils import from_jax as fj
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 ATOL, RTOL = 1e-8, 1e-6
 KEY = jax.random.PRNGKey(0)
 C, E = 24, 8

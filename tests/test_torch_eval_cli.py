@@ -53,6 +53,10 @@ from puresound_tpu_torch.src.utils import dump_hparam, load_hparam
 from puresound_tpu_torch.streaming.file_eval import build_engine, stream_signal
 from puresound_tpu_torch.utils import from_jax as fj
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SR = 16000
 L, L_ENROLL = 12000, 10000

@@ -34,6 +34,10 @@ from puresound_tpu_torch.nnet.skim import SkiM
 from puresound_tpu_torch.src import audio, flac, metrics, native
 from puresound_tpu_torch.tasks.batch_eval import BucketedBatchRunner, quantize_length
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -52,6 +52,10 @@ from puresound_tpu_torch.utils import from_jax as fj
 from puresound_tpu_torch.utils.tree import tree_leaves
 from puresound_tpu_torch.zoo.tse import _tcn_speaker_net
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 ATOL, RTOL = 1e-8, 1e-6
 PATTERNS = {"all_gate": (1, 1, 1), "mixed": (1, 0, 1)}

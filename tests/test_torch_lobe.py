@@ -28,6 +28,10 @@ from puresound_tpu_torch.nnet.lobe import rnn as t_rnn
 from puresound_tpu_torch.nnet.lobe import trivial as t_triv
 from puresound_tpu_torch.utils import from_jax as fj
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 F64 = dict(dtype=torch.float64)
 ATOL, RTOL = 1e-8, 1e-6

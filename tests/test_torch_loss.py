@@ -12,6 +12,10 @@ import torch
 from puresound_tpu.nnet.loss import sdr as j_sdr
 from puresound_tpu_torch.nnet.loss import sdr as t_sdr
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 ATOL, RTOL = 1e-8, 1e-6
 MODES = ("sisnr", "sdsdr", "sdr", "tsdr", "sasdr", "sasisnr", "satsdr")
 SA = ("sasdr", "sasisnr", "satsdr")

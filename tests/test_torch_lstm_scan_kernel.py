@@ -21,6 +21,10 @@ from puresound_tpu_torch.nnet.dpcrn import DPRNNblock2D
 from puresound_tpu_torch.ops import lstm_scan_kernel as lsk
 from puresound_tpu_torch.utils.from_jax import dprnn_block2d, to_torch
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 
 

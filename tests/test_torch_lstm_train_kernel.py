@@ -16,6 +16,10 @@ import torch
 from puresound_tpu.ops.lstm_train_kernel import lstm_scan_train_fp as j_scan
 from puresound_tpu_torch.ops import lstm_train_kernel as lk
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 B, T, H, C = 8, 12, 16, 8  # C != H catches axis mixups (test_pallas_kernels.py:313)
 GRADS = ("dx", "dh0", "dc0", "dw_ih", "dbias", "dw_hh")
 

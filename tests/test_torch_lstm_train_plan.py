@@ -15,6 +15,10 @@ from puresound_tpu_torch.nnet import skim
 from puresound_tpu_torch.nnet.lobe import rnn
 from puresound_tpu_torch.ops import lstm_train_kernel as lk
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 SMEM_MAX = 232448   # bytes of shared memory a block may use on the H100
 H100_CLUSTERS = 15  # clusters of 8 CTAs an H100 SXM holds at once (the card's report)
 

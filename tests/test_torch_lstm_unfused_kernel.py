@@ -26,6 +26,10 @@ import torch
 from puresound_tpu.ops import lstm_train_kernel as jk
 from puresound_tpu_torch.ops import lstm_train_kernel as lk
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 B, T, H, C = 8, 12, 16, 8
 ENTRIES = ("lstm_scan_train", "lstm_scan_train_tm", "lstm_scan_train_fp_tm")
 TIME_MAJOR = {"lstm_scan_train": False, "lstm_scan_train_tm": True,

@@ -19,6 +19,10 @@ from puresound_tpu_torch.nnet.dpcrn import DPCRN
 from puresound_tpu_torch.ops import masker_kernel as mk
 from puresound_tpu_torch.utils.from_jax import dparn, dpcrn, to_torch
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 UNET = dict(input_type="RI", input_dim=128, norm_type="bN2d", dropout=0.0,
             channels=(1, 8, 8, 16, 16, 32), transpose_t_size=2, transpose_delay=False,

@@ -28,6 +28,10 @@ from puresound_tpu_torch.streaming.ns_engine import StreamingNS
 from puresound_tpu_torch.utils.from_jax import from_jax
 from puresound_tpu_torch.zoo.ns import init_model
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 ATOL, RTOL = 1e-8, 1e-6
 N_FFT, HOP = 128, 32

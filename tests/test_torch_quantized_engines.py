@@ -46,6 +46,10 @@ from puresound_tpu_torch.streaming.engine import StreamingTSE
 from puresound_tpu_torch.streaming.ns_engine import StreamingNS
 from puresound_tpu_torch.utils.from_jax import from_jax
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 SNR_BAR = 50.0
 #: JAX's accuracy bars for each option against its float route

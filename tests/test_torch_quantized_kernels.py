@@ -37,6 +37,10 @@ from puresound_tpu_torch.ops import skim_stream_kernel as ops
 from puresound_tpu_torch.ops.quant import dot_hh_ref, quantize_cols
 from puresound_tpu_torch.utils import from_jax as fj
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 ONE_ATOL, ONE_RTOL = 2e-5, 1e-2
 SNR_BAR = 50.0

@@ -44,6 +44,10 @@ from puresound_tpu_torch.streaming.file_eval import engine_step_options
 from puresound_tpu_torch.streaming.server import SessionServer
 from puresound_tpu_torch.utils.from_jax import from_jax
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 SCALE = 8192.0
 C, E = 24, 8

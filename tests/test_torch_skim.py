@@ -12,6 +12,10 @@ from puresound_tpu_torch.nnet import skim as t_skim
 from puresound_tpu_torch.utils import from_jax as fj
 from puresound_tpu_torch.utils.tree import tree_leaves
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 ATOL, RTOL = 1e-8, 1e-6
 KW = dict(input_size=16, hidden_size=24, output_size=16, n_blocks=3,

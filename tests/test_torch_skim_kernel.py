@@ -18,6 +18,10 @@ from puresound_tpu.ops.skim_stream_kernel import fused_skim_frames as j_fused
 from puresound_tpu_torch.nnet.skim import SkiM
 from puresound_tpu_torch.ops import skim_stream_kernel as ops
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 MODES = ("film", "", "film")
 B, F, C, H = 8, 4, 16, 32
 

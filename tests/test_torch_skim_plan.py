@@ -25,6 +25,10 @@ from puresound_tpu_torch.ops import skim_stream_kernel as ops
 from puresound_tpu_torch.ops.quant import (DYN_DIV, HH_DIV, dot_dyn_ref, dot_hh_ref,
                                            quantize_cols)
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 SMEM_MAX = 232448   # bytes of shared memory a block may use on the H100
 CSRC = os.path.join(os.path.dirname(os.path.dirname(ops.__file__)), "csrc")
 TC_SRC = open(os.path.join(CSRC, "skim_stream_tc.cuh")).read()

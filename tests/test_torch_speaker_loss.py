@@ -27,6 +27,10 @@ from puresound_tpu_torch.nnet.loss.aamsoftmax import AAMsoftmax, glorot_truncate
 from puresound_tpu_torch.nnet.loss.metrics import F1_loss, F1Loss, GE2ELoss, TripletLoss
 from puresound_tpu_torch.zoo import tse as zoo
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 ATOL, RTOL = 1e-8, 1e-6
 NSPK, NUTT, D = 3, 4, 16
 

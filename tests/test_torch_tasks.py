@@ -45,6 +45,10 @@ from puresound_tpu_torch.nnet.skim import SkiM
 from puresound_tpu_torch.tasks import base, tse
 from puresound_tpu_torch.utils import from_jax as fj
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 SR = 8000
 C, E = 16, 8
 ENC = dict(win_length=16, hop_length=8, laten_length=C, output_active=True)

@@ -26,6 +26,10 @@ from puresound_tpu_torch.nnet.conv_tasnet import TCN
 from puresound_tpu_torch.ops import tcn_train_kernel as tk
 from puresound_tpu_torch.utils import from_jax as fj
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 B, C, CH, K = 3, 16, 24, 3
 CASES = [(1, 100), (4, 100), (16, 13)]   # (dilation, T)

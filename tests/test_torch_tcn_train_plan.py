@@ -21,6 +21,10 @@ import chip_smoke
 from puresound_tpu_torch.nnet import conv_tasnet
 from puresound_tpu_torch.ops import tcn_train_kernel as tk
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 SMEM_MAX = 232448   # bytes of shared memory a block may use on the H100
 DILATIONS = (1, 2, 4, 8, 16)   # the speaker net's five blocks (zoo/tse.py)
 SOURCE = os.path.join(os.path.dirname(tk.__file__), os.pardir, "csrc", "tcn_train.cu")

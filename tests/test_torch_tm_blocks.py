@@ -45,6 +45,10 @@ from puresound_tpu_torch.ops import lstm_train_kernel as lk
 from puresound_tpu_torch.parallel import TrainState, adam, make_train_step
 from puresound_tpu_torch.utils import from_jax as fj
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 ATOL, RTOL = 1e-8, 1e-6
 SETTINGS = {"unfused_proj": dict(fused_proj=False, tm=False),

@@ -35,6 +35,10 @@ from puresound_tpu_torch.nnet.skim import SkiM
 from puresound_tpu_torch.parallel import TrainState, adam, make_train_step
 from puresound_tpu_torch.utils import from_jax as fj
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 ATOL, RTOL = 1e-8, 1e-6
 WIN, HOP, C, E = 32, 16, 24, 8

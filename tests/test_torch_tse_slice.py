@@ -33,6 +33,10 @@ from puresound_tpu_torch.streaming.engine import (StreamingTSE,
 from puresound_tpu_torch.utils.from_jax import from_jax
 from puresound_tpu_torch.zoo.tse import init_model
 
+# one intra-op thread a process: the suite's workers share the cores, and
+# torch's thread pool on busy cores slows its small ops several times over
+torch.set_num_threads(1)
+
 KEY = jax.random.PRNGKey(0)
 ATOL, RTOL = 1e-8, 1e-6
 WIN, HOP, C, E = 32, 16, 24, 8
