@@ -8,7 +8,9 @@ with Gate fusion, the NS serving and training paths of
 and the recipes' evaluation actions), and the remaining shipped recipes:
 the Conv-TasNet TSE models `td_tse_conv_tasnet_v0{,_causal}`, the PVAD model
 `tse_skim_v0_causal_vad` and the lookahead NS models `ns_{dpcrn,dparn}_v0`,
-at full width (random weights from a seed):
+and DSS (`egs/dss/conf/dss_dparn_1a.yaml`: serving, the recipe, its
+evaluation) with the recipes' TCP serving front, at full width (random
+weights from a seed):
 
   0. device: torch / CUDA versions, the card's name and power limit;
   1. build: nvcc builds the seven CUDA sources from the checkout, in
@@ -291,9 +293,45 @@ at full width (random weights from a seed):
      (DPCRN), `--fused --attn_kernel` (DPARN)) >= 60 dB from the offline
      inference of the zero-primed input; the non-causal v0's `stream_eval`
      and `--mk_kernel` on a `_1b` model raise;
+  4l. DSS, `dss_dparn_mout_v0` (ConvEncDec 512 / 512 / 128 + DPARN_Mout,
+     M = 2 sources, 1,216,461 parameters): `make_session_server(half=True,
+     mk_kernel=True)` at 1,024 slots and `(half=True, fused=True,
+     attn_kernel=True)` at 256, 100 ticks after 3 warm-up (1
+     `dparn_center_chunk` a tick on `attn=wgmma,conv=resident`, its passes 2
+     `C:mma`; or 2 `dparn_intra_pass` on `wgmma` and 2 `lstm_scan` on `tc`),
+     every slot's row de-interleaved into its two sources, bf16 slot 0 >=
+     25 dB from the f32 engine per source, tick p50 / p99 and the engine
+     step; an f32 stock server at 8 slots (2 `lstm_scan_train_fp` a tick)
+     whose every slot's two sources are >= 60 dB from the offline inference
+     of its zero-primed input; then `run_serve` on 127.0.0.1, port 0,
+     through its on_started / stop_event hooks, for the flagship (bf16,
+     fused, 15 ms ticks, each client's HELLO a 3 s enrollment embedded on
+     the card), `ns_dpcrn_v0_causal` and DSS (f32, `mk_kernel`): 8
+     concurrent StreamingClients of 2 s and 100 samples each, in lockstep;
+     each client holds exactly (sent // chunk) * chunk samples a source and
+     is >= 60 dB from the engine stepped outside the server (its step
+     function at the server's batch); exact launches; tick p50 / p99 and
+     underruns from ServeStats;
+  6i. the shipped `egs/dss/conf/dss_dparn_1a.yaml` through
+     `python -m puresound_tpu_torch.egs.dss.main --action train` (paths,
+     epochs, workers and seed overridden) on a synthetic manifest with
+     silent near and far references: 3 steps of B=8 x 3 s + 1 dev batch on
+     `sasisnr`, exact launches (2 inter LSTMs a forward), `epoch_0.ckpt`
+     reloading equal, step p50, host gap, peak memory; then one f32 step
+     (B=2 x 0.5 s, one inactive far side, dropout 0) on the card against the
+     CPU's f64 step, the CPU's f32 beside (loss, grad_norm and the whole
+     gradient gated as 6g);
+  7c. the DSS CLI's evaluation on 6i's checkpoints (model_average 2), 4
+     mixtures of 4 s: `dev` (every printed SI-SNR, near and far, equal to
+     `Metrics.sisnr` of the outputs), `eval`, `eval --batch_eval 2` (>= 60
+     dB from B=1), `eval --backend cpu` (the card's f32 wavs >= 60 dB from
+     the CPU's), `stream_eval` on the stock, `--fused` and `--mk_kernel`
+     routes (each source >= 60 dB from the offline inference of the
+     zero-primed input) and `--half` (>= 25 dB); exact launches;
+     `export_model` raises;
   8. the kernels JSON line (phase 7's launches in `launches_7`, the new
-     phases' in `launches_4k` / `_6g` / `_6h` / `_7b`, the new shapes'
-     times and bounds in `new_shapes`).
+     phases' in `launches_4k` / `_6g` / `_6h` / `_7b` / `_4l` / `_6i` /
+     `_7c`, the new shapes' times and bounds in `new_shapes`).
 
 Each phase prints one line with its result and time; any failure raises and
 the run exits non-zero. The last line is
@@ -2384,7 +2422,8 @@ DPARN_TC_PASSES = {"C:mma": 2}
 
 
 def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, card, phase,
-               options=None, by_option=None, by_path=None, by_pass=None, by_route=None):
+               options=None, by_option=None, by_path=None, by_pass=None, by_route=None,
+               ticks=None):
     """make_session_server(half=True, **mode) for the full-width NS model at
     n_slots sessions: NS_WARM warm-up ticks, then NS_TICKS ticks with
     exact launches, every output finite, 0 underruns; slot 0 in bf16
@@ -2396,7 +2435,10 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
     of the module must take that path (its LAUNCHES_BY_PATH). `by_pass`:
     the dual-path passes a tick launches by route (LAUNCHES_BY_PASS).
     `by_route` = (module, route, launches a tick): every launch of the
-    module on that route (its LAUNCHES_BY_ROUTE)."""
+    module on that route (its LAUNCHES_BY_ROUTE). `ticks`: the timed ticks
+    (NS_TICKS by default). A SIMO (DSS) server's slot returns its M sources
+    sample-interleaved, chunk * M samples a tick: each slot's output is
+    de-interleaved, and slot 0 held to the bar source by source."""
     from puresound_tpu_torch.ops import dual_path_kernel as dpk
     from puresound_tpu_torch.streaming.deploy import make_session_server
     from puresound_tpu_torch.streaming.file_eval import engine_step_options
@@ -2406,13 +2448,15 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
     options = options or {}
     bundle = make_session_server(ns["model"], None, n_slots=n_slots, chunk_ms=16.0,
                                  half=True, lockstep=True, **mode)
-    server, chunk = bundle.server, bundle.chunk_samples
+    server, chunk, M = bundle.server, bundle.chunk_samples, bundle.n_sources
     server.step_fn = functools.partial(server.step_fn, **options)
-    n_ticks = NS_WARM + NS_TICKS
+    timed = ticks or NS_TICKS
+    n_ticks = NS_WARM + timed
     rng = np.random.default_rng(SEED)
     feed = (0.1 * rng.standard_normal((n_slots, chunk * n_ticks))).astype(np.float32)
     sids = [server.attach() for _ in range(n_slots)]
-    served = np.zeros_like(feed)
+    width = chunk * M
+    served = np.zeros((n_slots, width * n_ticks), np.float32)
     with PlainCalls() as plain:
         for k in range(n_ticks):
             if k == NS_WARM:
@@ -2432,31 +2476,33 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
             if server.tick() != n_slots:
                 raise AssertionError(f"tick {k}: not every slot served")
             for i, sid in enumerate(sids):
-                got = server.hub.pop_output(sid, chunk)
-                if len(got) != chunk or not np.isfinite(got).all():
+                got = server.hub.pop_output(sid, width)
+                if len(got) != width or not np.isfinite(got).all():
                     raise AssertionError(f"tick {k} slot {sid}: bad output")
-                served[i, k * chunk:(k + 1) * chunk] = got
+                served[i, k * width:(k + 1) * width] = got
         torch.cuda.synchronize()
     launches = counter_values(counters)
     names = ", ".join(n for n, _, _ in counters)
-    expect_launches(launches, tuple(NS_TICKS * w for w in per_tick),
+    expect_launches(launches, tuple(timed * w for w in per_tick),
                     f"{zoo_name} serving {n_slots} slots, ({names})")
     expect_launches(plain.calls, 0, f"{zoo_name} serving, plain versions")
     if by_option:
-        expect_launches(dict(by_option[0].LAUNCHES_BY_OPTION), {by_option[1]: NS_TICKS},
+        expect_launches(dict(by_option[0].LAUNCHES_BY_OPTION), {by_option[1]: timed},
                         f"{zoo_name} serving {n_slots} slots, launches by option")
     paths = dict(by_path[0].LAUNCHES_BY_PATH) if by_path else None
     if by_path:
-        expect_launches(paths, {by_path[1]: by_path[2] * NS_TICKS},
+        expect_launches(paths, {by_path[1]: by_path[2] * timed},
                         f"{zoo_name} serving {n_slots} slots, launches by path")
     routes = dict(by_route[0].LAUNCHES_BY_ROUTE) if by_route else None
     if by_route:
-        expect_launches(routes, {by_route[1]: by_route[2] * NS_TICKS},
+        expect_launches(routes, {by_route[1]: by_route[2] * timed},
                         f"{zoo_name} serving {n_slots} slots, launches by route")
     passes = dict(dpk.LAUNCHES_BY_PASS)
     if by_pass is not None:
-        expect_launches(passes, {k: v * NS_TICKS for k, v in by_pass.items()},
+        expect_launches(passes, {k: v * timed for k, v in by_pass.items()},
                         f"{zoo_name} serving {n_slots} slots, dual-path passes by route")
+    # every slot's row de-interleaved into its M sources: [n_slots, M, T]
+    sources = served.reshape(n_slots, -1, M).transpose(0, 2, 1)
     stats = server.stats.snapshot()
     if stats["underrun_slot_ticks"] != 0:
         raise AssertionError(f"{stats['underrun_slot_ticks']} underruns")
@@ -2470,8 +2516,9 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
         for k in range(n_ticks):
             y, st = ns["engine"].step(torch.from_numpy(
                 feed[:1, k * chunk:(k + 1) * chunk]).to(dev), st, **step_kw)
-            ref.append(y)
-    half_snr = snr_db(torch.from_numpy(served[0]), torch.cat(ref, -1)[0].cpu())
+            ref.append(y.reshape(M, chunk))
+    ref = torch.cat(ref, -1).cpu()                              # [M, T]
+    half_snr = min(snr_db(torch.from_numpy(sources[0, m]), ref[m]) for m in range(M))
     if half_snr < bar_db:
         raise AssertionError(f"{zoo_name} bf16 serving vs f32: SNR {half_snr:.1f} dB < "
                              f"{bar_db:g}")
@@ -2479,8 +2526,10 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
     if options:
         opts += "; its step_fn bound to " + ", ".join(f"{k}=True" for k in options)
     log(phase, f"{zoo_name}, make_session_server(half=True, {opts}), {n_slots} sessions, "
-        f"{NS_TICKS} ticks of {chunk} samples after {NS_WARM} warm-up: every output "
-        f"finite, launches ({names}) {launches}"
+        f"{timed} ticks of {chunk} samples after {NS_WARM} warm-up: every output "
+        f"finite" + (f", {M} sources a slot ({width} samples a tick, sample-interleaved; "
+                     f"every row de-interleaved, {sources.shape})" if M > 1 else "")
+        + f", launches ({names}) {launches}"
         + (f", every {by_path[0].__name__.rsplit('.', 1)[-1]} launch on path "
            f"{by_path[1]!r} ({paths})" if by_path else "")
         + (f", dual-path passes by route {passes}" if by_pass is not None else "")
@@ -2489,8 +2538,8 @@ def ns_serving(ns, zoo_name, mode, counters, per_tick, bar_db, n_slots, dev, car
         + ", 0 underruns; tick p50 "
         f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; engine step "
         f"alone p50 {float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); bf16 slot 0 "
-        f"vs the f32 engine SNR {half_snr:.1f} dB (bar {bar_db:g}); plain-version calls "
-        f"{plain.calls} [{card}]", t)
+        f"vs the f32 engine SNR {half_snr:.1f} dB{' (the worse source)' if M > 1 else ''} "
+        f"(bar {bar_db:g}); plain-version calls {plain.calls} [{card}]", t)
     return {"launches": launches, "tick_p50": stats["tick_ms_p50"],
             "tick_p99": stats["tick_ms_p99"], "step_p50": float(np.median(step_ms)),
             "snr": half_snr, "passes": passes, "routes": routes}
@@ -3660,21 +3709,23 @@ def keep_checkpoints(trainer, folder: str):
 
 class EvalProbe:
     """While entered, records what the recipes' evaluation actions do:
-    every `SoTaskWrapModule.inference` output (its time with the card
+    every `SoTaskWrapModule.inference` / `SiMoTaskWrapModule.inference`
+    output (its time with the card
     synchronised before and after), every array `AudioIO.save` writes
     (before int16), the model each `resolve_eval_params` loads (and the
     time it takes: two checkpoints read and averaged), every
     `stream_signal`'s RTF and the time spent in `Metrics`."""
 
     def __init__(self):
-        from puresound_tpu_torch.nnet.base_nn import SoTaskWrapModule
+        from puresound_tpu_torch.nnet.base_nn import SiMoTaskWrapModule, SoTaskWrapModule
         from puresound_tpu_torch.src.audio import AudioIO
         from puresound_tpu_torch.src.metrics import Metrics
         from puresound_tpu_torch.streaming import file_eval
         from puresound_tpu_torch.tasks.base import BaseTrainer
 
         self.targets = [(SoTaskWrapModule, "inference"), (AudioIO, "save"),
-                        (BaseTrainer, "resolve_eval_params"), (file_eval, "stream_signal")]
+                        (BaseTrainer, "resolve_eval_params"), (file_eval, "stream_signal"),
+                        (SiMoTaskWrapModule, "inference")]
         self.targets += [(Metrics, m) for m in ("pesq_wb", "stoi", "bss_sdr", "sisnr",
                                                 "sisnr_imp")]
         self.reset()
@@ -3686,16 +3737,17 @@ class EvalProbe:
     def __enter__(self):
         self.orig = [(obj, name, obj.__dict__[name]) for obj, name in self.targets]
         probe = self
-        inference = self.orig[0][2]
 
-        def timed_inference(model, *args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = inference(model, *args)
-            torch.cuda.synchronize()
-            probe.model_s += time.perf_counter() - t
-            probe.outputs.append(out.detach().float().cpu().numpy())
-            return out
+        def timed_inference(inference):
+            def timed(model, *args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = inference(model, *args)
+                torch.cuda.synchronize()
+                probe.model_s += time.perf_counter() - t
+                probe.outputs.append(out.detach().float().cpu().numpy())
+                return out
+            return timed
 
         save = self.orig[1][2].__func__
 
@@ -3728,12 +3780,13 @@ class EvalProbe:
                     probe.metric_s += time.perf_counter() - t
             return staticmethod(metric)
 
-        SoTaskWrapModule, AudioIO, BaseTrainer, file_eval = (o for o, _ in self.targets[:4])
-        SoTaskWrapModule.inference = timed_inference
+        SoTaskWrapModule, AudioIO, BaseTrainer, file_eval, SiMo = (o for o, _ in self.targets[:5])
+        SoTaskWrapModule.inference = timed_inference(self.orig[0][2])
+        SiMo.inference = timed_inference(self.orig[4][2])
         AudioIO.save = staticmethod(recording_save)
         BaseTrainer.resolve_eval_params = staticmethod(recording_resolve)
         file_eval.stream_signal = recording_stream
-        for obj, name, fn in self.orig[4:]:
+        for obj, name, fn in self.orig[5:]:
             setattr(obj, name, timed(fn.__func__))
         return self
 
@@ -4801,6 +4854,531 @@ def eval_7b_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------ phases 4l, 6i, 7c
+SHIPPED_DSS = "egs/dss/conf/dss_dparn_1a.yaml"
+DSS_NAME = "dss_dparn_mout_v0"
+DSS_PARAMS = 1_216_461              # the JAX recipe's build_model, parameter for parameter
+DSS_SLOTS = (1024, 256)             # phase 4l: mk_kernel, fused + attn_kernel
+DSS_TICKS = 100                     # phase 4l's timed ticks a serving point
+DSS_HALF_BAR = 25.0                 # bf16 against f32, each source (DPARN's serving bar)
+DSS_F32_SLOTS, DSS_F32_TICKS = 8, 20
+SOCKET_CLIENTS, SOCKET_SECONDS = 8, 2.0
+DSS_RECIPE_STEPS = 3                # phase 6i: train batches of 8 in its epoch
+DSS_EVAL_UTTS = 4                   # phase 7c: mixtures of EVAL_SECONDS
+
+
+def dss_model(dev, seed, sig_loss=None):
+    """The DSS recipe's model (`egs.dss.main.build_model` on the shipped
+    config), weights from a seed."""
+    from puresound_tpu_torch.egs.dss.main import build_model
+    from puresound_tpu_torch.src.utils import load_hparam
+
+    return build_model(load_hparam(SHIPPED_DSS), sig_loss, device=dev,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+def dss_f32_serving(dss, counters, dev, card) -> dict:
+    """Phase 4l (f32): make_session_server on the stock step at
+    DSS_F32_SLOTS sessions, DSS_F32_TICKS ticks of 16 ms (2
+    lstm_scan_train_fp launches a tick, the inter LSTMs): every slot's two
+    sources, de-interleaved, >= 60 dB from the offline inference of its
+    zero-primed input past n_fft."""
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+
+    t = time.perf_counter()
+    n, ticks = DSS_F32_SLOTS, DSS_F32_TICKS
+    bundle = make_session_server(dss["model"], None, n_slots=n, chunk_ms=16.0, lockstep=True)
+    server, chunk, M = bundle.server, bundle.chunk_samples, bundle.n_sources
+    rng = np.random.default_rng(SEED + 121)
+    feed = (0.1 * rng.standard_normal((n, chunk * ticks))).astype(np.float32)
+    sids = [server.attach() for _ in range(n)]
+    served = np.zeros((n, chunk * M * ticks), np.float32)
+    zero_counters(counters)
+    with PlainCalls() as plain:
+        for k in range(ticks):
+            for i, sid in enumerate(sids):
+                server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+            if server.tick() != n:
+                raise AssertionError(f"4l dss f32 tick {k}: not every slot served")
+            for i, sid in enumerate(sids):
+                served[i, k * chunk * M:(k + 1) * chunk * M] = server.hub.pop_output(
+                    sid, chunk * M)
+        torch.cuda.synchronize()
+    launches = counter_values(counters)
+    expect_launches(launches, (2 * ticks, 0, 0, 0), "4l dss f32 stock serving, (lstm_scan_"
+                    "train_fp, lstm_scan, dparn_intra_pass, dparn_center_chunk)")
+    stats = server.stats.snapshot()
+    sources = served.reshape(n, -1, M).transpose(0, 2, 1)
+    with torch.no_grad():
+        x = torch.from_numpy(feed).to(dev)
+        offline = dss["model"].inference(torch.nn.functional.pad(x, (384, 0)))
+        offline = offline[..., :feed.shape[1]].cpu().numpy()
+    snr = min(snr_np(sources[i, m, 512:], offline[i, m, 512:])
+              for i in range(n) for m in range(M))
+    if snr < EVAL_BAR_DB or plain.calls or stats["underrun_slot_ticks"]:
+        raise AssertionError(f"4l dss f32: streamed vs offline {snr:.1f} dB, plain-version "
+                             f"calls {plain.calls}, underruns {stats['underrun_slot_ticks']}")
+    log("4l dss serving", f"{DSS_NAME} f32 on the stock step, make_session_server at {n} "
+        f"sessions, {ticks} ticks of {chunk} samples, {M} sources a slot interleaved: launches "
+        f"{launches}, tick p50 {stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f}; "
+        f"every slot's two sources vs the offline inference of its zero-primed input past "
+        f"n_fft: worst {snr:.1f} dB (bar {EVAL_BAR_DB:g}) [{card}]", t)
+    return {"launches": launches, "snr": snr, "tick_p50": stats["tick_ms_p50"],
+            "tick_p99": stats["tick_ms_p99"]}
+
+
+def socket_round(label, model, serve_kw, counters, want, dev, card, by_route=None,
+                 chunk_ms=16.0) -> dict:
+    """Phase 4l (the socket front): `run_serve` on 127.0.0.1, port 0, run on
+    a thread through its on_started / stop_event hooks, SOCKET_CLIENTS slots
+    in lockstep; SOCKET_CLIENTS concurrent StreamingClients (a TSE client's
+    HELLO a 3 s enrollment, embedded on the card; NS / DSS an empty one)
+    each send SOCKET_SECONDS s and 100 samples more, then BYE. Each client
+    holds exactly (sent // chunk) * chunk samples per source, and its float32
+    output is >= 60 dB from the bundle's engine stepped outside the server
+    (the server's step function at its batch, each client's audio in its
+    slot's row). `want(ticks)`: the counters' launches in the round;
+    `by_route` = (module, route): every launch of the module on that route
+    (as many as want's first)."""
+    import threading
+
+    from puresound_tpu_torch.streaming.deploy import run_serve
+    from puresound_tpu_torch.streaming.engine import StreamingTSE
+    from puresound_tpu_torch.streaming.file_eval import engine_step_options
+    from puresound_tpu_torch.streaming.socket_server import StreamingClient
+
+    t = time.perf_counter()
+    ready, stop, started = threading.Event(), threading.Event(), {}
+
+    def on_started(front, bundle):
+        started.update(front=front, bundle=bundle)
+        ready.set()
+
+    zero_counters(counters)
+    if by_route:
+        by_route[0].LAUNCHES_BY_ROUTE.clear()
+    serve = threading.Thread(target=run_serve, args=(model, None, SOCKET_CLIENTS), kwargs=dict(
+        host="127.0.0.1", port=0, stop_event=stop, on_started=on_started, chunk_ms=chunk_ms,
+        lockstep=True, **serve_kw), daemon=True)
+    serve.start()
+    if not ready.wait(timeout=300):
+        raise AssertionError(f"4l {label}: run_serve did not start")
+    front, bundle = started["front"], started["bundle"]
+    chunk, M, K = bundle.chunk_samples, bundle.n_sources, SOCKET_CLIENTS
+    rng = np.random.default_rng(SEED + 130)
+    n = int(16000 * SOCKET_SECONDS) + 100
+    audio = (0.1 * rng.standard_normal((K, n))).astype(np.float32)
+    enrolls = ((0.1 * rng.standard_normal((K, 48000))).astype(np.float32)
+               if bundle.embed_fn is not None else None)
+    clients, got, errors = [None] * K, [None] * K, []
+    attached = threading.Barrier(K)
+
+    def session(i):
+        try:
+            c = StreamingClient(*front.address, timeout=300.0).hello(
+                None if enrolls is None else enrolls[i])
+            clients[i] = c
+            attached.wait(timeout=300)      # every slot attached before the first tick
+            c.send(audio[i])
+            got[i] = c.finish()
+        except BaseException as e:          # noqa: BLE001 - reported below
+            errors.append(f"client {i}: {e!r}")
+            attached.abort()
+
+    threads = [threading.Thread(target=session, args=(i,)) for i in range(K)]
+    t1 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    launches = counter_values(counters)
+    stats = bundle.server.stats.snapshot()
+    stop.set()
+    serve.join(timeout=60)
+    if errors or serve.is_alive():
+        raise AssertionError(f"4l {label}: {errors or 'run_serve did not stop'}")
+    ticks = n // chunk
+    want = want(ticks)
+    expect_launches(launches, want, f"4l {label} socket round, "
+                    f"({', '.join(c for c, _, _ in counters)})")
+    routes = dict(by_route[0].LAUNCHES_BY_ROUTE) if by_route else {}
+    if by_route:
+        expect_launches(routes, {by_route[1]: want[0]},
+                        f"4l {label} socket round, launches by route")
+    shape = (M, ticks * chunk) if M > 1 else (ticks * chunk,)
+    if any(g.shape != shape for g in got):
+        raise AssertionError(f"4l {label}: received {[g.shape for g in got]}, not {shape}")
+    # the bundle's engine outside the server: its step function at its batch
+    engine = bundle.engine
+    tse = isinstance(engine, StreamingTSE)
+    dt = next(engine.parameters()).dtype
+    init_kw = {} if tse else engine_step_options(engine, **{
+        k: v for k, v in serve_kw.items() if k in ("fused", "attn_kernel", "mk_kernel",
+                                                   "dp_kernel")})[1]
+    slots = [c.slot for c in clients]
+    batch = np.zeros((K, ticks * chunk), np.float32)
+    batch[slots] = audio[:, :ticks * chunk]
+    step_args = ()
+    if tse:
+        dvec = np.zeros((K, bundle.embed_dim), np.float32)
+        for i, s in enumerate(slots):
+            dvec[s] = bundle.embed_fn(enrolls[i][None]).cpu().numpy()[0]
+        step_args = (torch.from_numpy(dvec).to(dev),)
+    state, ref = engine.init_state(K, dt, **init_kw), []
+    for k in range(ticks):
+        y, state = bundle.server.step_fn(batch[:, k * chunk:(k + 1) * chunk], *step_args,
+                                         state)
+        ref.append(y.cpu().numpy())
+    ref = np.concatenate(ref, axis=-1)
+    worst = min(snr_np(g.reshape(M, -1)[m], ref[s].reshape(-1, M)[:, m])
+                for g, s in zip(got, slots) for m in range(M))
+    if not worst >= EVAL_BAR_DB:
+        raise AssertionError(f"4l {label}: a client's output {worst:.1f} dB from the engine")
+    log("4l socket front", f"{label}: run_serve(127.0.0.1:0, {SOCKET_CLIENTS} slots, "
+        f"chunk_ms {chunk_ms:g}, lockstep, " + ", ".join(f"{k}={v}" for k, v in serve_kw.items()) + f") through on_started / "
+        f"stop_event; {K} concurrent StreamingClients"
+        + (", each HELLO a 3 s enrollment embedded on the card" if tse else ", empty HELLOs")
+        + f", {n} samples each ({ticks} ticks of {chunk}): each received {shape} "
+        f"((sent // chunk) * chunk a source), worst {worst:.1f} dB from the engine stepped "
+        f"outside the server (bar {EVAL_BAR_DB:g}); launches {launches}"
+        + (f" (by route {routes})" if by_route else "") + f"; round {wall:.3f} s "
+        f"wall ({ticks * chunk * K / 16000 / wall:.1f} audio-s/s over the {K} sessions); tick "
+        f"p50 {stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms, underruns "
+        f"{stats['underrun_slot_ticks']} [{card}]", t)
+    return {"launches": launches, "wall_s": wall, "snr": worst, "ticks": stats["ticks"],
+            "tick_p50": stats["tick_ms_p50"], "tick_p99": stats["tick_ms_p99"],
+            "underruns": stats["underrun_slot_ticks"]}
+
+
+def dss_serving_phase(ops, lk, tk, flagship, dev, card) -> dict:
+    """Phase 4l: DSS serving (`make_session_server(half=True, mk_kernel=True)`
+    at 1,024 slots and `(half=True, fused=True, attn_kernel=True)` at 256,
+    as ns_serving with DSS_TICKS ticks; the f32 stock server at 8 slots
+    against offline inference), then the socket front for the flagship,
+    `ns_dpcrn_v0_causal` and DSS (`socket_round`)."""
+    from puresound_tpu_torch.ops import dparn_attention_kernel as dak
+    from puresound_tpu_torch.ops import lstm_scan_kernel as lsk
+    from puresound_tpu_torch.ops import masker_kernel as mkk
+    from puresound_tpu_torch.streaming.file_eval import build_engine
+    from puresound_tpu_torch.zoo.ns import init_model
+
+    t = time.perf_counter()
+    model = dss_model(dev, SEED + 120)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != DSS_PARAMS or model.masker.multi_output != 2:
+        raise AssertionError(f"{DSS_NAME}: {n_params} parameters")
+    dss = {"model": model, "engine": build_engine(model)}
+    counters = [("lstm_scan_train_fp", lk, "FWD_BY_ENTRY"), ("lstm_scan", lsk, "LAUNCHES"),
+                ("dparn_intra_pass", dak, "LAUNCHES"), ("dparn_center_chunk", mkk, "LAUNCHES")]
+    log("4l dss serving", f"{DSS_NAME} ({SHIPPED_DSS}: ConvEncDec 512 / 512 / 128, "
+        f"DPARN_Mout M=2, H=128, 8 heads), {n_params:,} params", t)
+    # each route's launches a tick (lstm_scan_train_fp, lstm_scan,
+    # dparn_intra_pass, dparn_center_chunk) and the paths and routes they take
+    routes = (({"mk_kernel": True}, (0, 0, 0, 1),
+               dict(by_path=(mkk, "attn=wgmma,conv=resident", 1), by_pass=DPARN_TC_PASSES)),
+              ({"fused": True, "attn_kernel": True}, (0, 2, 2, 0),
+               dict(by_path=(dak, "wgmma", 2), by_route=(lsk, "tc", 2))))
+    out = {"params": n_params, "serving": {}}
+    for (mode, per_tick, checks), slots in zip(routes, DSS_SLOTS):
+        out["serving"]["+".join(mode)] = ns_serving(
+            dss, DSS_NAME, mode, counters, per_tick, DSS_HALF_BAR, slots, dev, card,
+            "4l dss serving", ticks=DSS_TICKS, **checks)
+    out["f32"] = dss_f32_serving(dss, counters, dev, card)
+    # the socket front: the flagship (bf16, fused, enrollment HELLOs; 15 ms
+    # ticks, whose 15 frames divide its segments of 150 as the fused step
+    # needs), DPCRN and DSS (f32, mk_kernel)
+    tse_counters = [("fused_skim_frames", ops, "LAUNCHES"), ("tcn_block_train fwd", tk,
+                                                            _fwd_bwd(tk)[0])]
+    out["socket"] = {
+        "tse_skim_v0_causal": socket_round(
+            "tse_skim_v0_causal", flagship, dict(half=True, fused=True), tse_counters,
+            # 5 TCN launches an attach, and 5 for the probe that reads the
+            # embedding's width when the server is built
+            lambda ticks: (ticks, 5 * (SOCKET_CLIENTS + 1)), dev, card, by_route=(ops, "mma"),
+            chunk_ms=15.0),
+        "ns_dpcrn_v0_causal": socket_round(
+            "ns_dpcrn_v0_causal", init_model("ns_dpcrn_v0_causal", device=dev,
+                                             generator=torch.Generator().manual_seed(SEED)),
+            dict(mk_kernel=True), [("center_chunk", mkk, "LAUNCHES")], lambda ticks: (ticks,),
+            dev, card),
+        DSS_NAME: socket_round(DSS_NAME, model, dict(mk_kernel=True), counters,
+                               lambda ticks: (0, 0, 0, ticks), dev, card)}
+    return out
+
+
+def write_dss_manifest(folder: str, n: int, seed: int, seconds=(3.5, 2.5),
+                       silent: bool = True) -> str:
+    """A synthetic DSS manifest folder (wav2scp / ref2near / ref2far) of n
+    mixtures at 16 kHz, keys mix_<i>, lengths cycling through `seconds`
+    (cropped to, or padded up to, the recipe's 3 s): a speech-like near
+    talker and a noisier far one; with `silent`, every fourth item's near
+    reference and every fourth (offset two) far reference all zeros."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    lines = {"wav2scp": [], "ref2near": [], "ref2far": []}
+    for i in range(n):
+        L = int(16000 * seconds[i % len(seconds)])
+        near = eval_signal(rng, L) * (0 if silent and i % 4 == 1 else 1)
+        far = 0.4 * eval_signal(rng, L) * (0 if silent and i % 4 == 3 else 1)
+        for name, sig, key in (("mix", near + far + 0.005 * rng.standard_normal(L), "wav2scp"),
+                               ("near", near, "ref2near"), ("far", far, "ref2far")):
+            path = os.path.join(folder, f"{name}_{i}.wav")
+            wavfile.write(path, 16000, np.clip(sig * 32768, -32768, 32767).astype(np.int16))
+            lines[key].append(f"mix_{i} {path}")
+    for name, ls in lines.items():
+        with open(os.path.join(folder, f"{name}.txt"), "w") as f:
+            f.write("\n".join(ls) + "\n")
+    return folder
+
+
+def dss_card_vs_cpu(lk, dev, card) -> dict:
+    """One f32 training step of the full-width DSS model on the shipped
+    sasisnr loss (B=NS_CHECK_B x NS_CHECK_SECONDS s, one inactive far side,
+    dropout 0) on the card against the same step on the CPU in float64, the
+    CPU's own f32 step beside it: loss and grad_norm within 1e-4 / 1e-3 and
+    the whole gradient within 3e-3 by relative L2 of the f64 step's (each,
+    or three times the CPU f32 step's distance), as phases 6f / 6g gate;
+    the worst tensor readings printed."""
+    from puresound_tpu_torch.nnet.lobe.dropout import Dropout
+    from puresound_tpu_torch.nnet.loss.sdr import SDRLoss
+    from puresound_tpu_torch.parallel import TrainState, make_train_step
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(SEED + 142)
+    L = int(16000 * NS_CHECK_SECONDS)
+    noisy = (0.1 * rng.standard_normal((NS_CHECK_B, L))).astype(np.float32)
+    ref = (0.1 * rng.standard_normal((NS_CHECK_B, 2, L))).astype(np.float32)
+    inact = np.array([[False, True], [False, False]])
+    sides = []
+    cpu = torch.device("cpu")
+    for d, dt in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
+        model = dss_model(d, SEED + 143, SDRLoss.init_mode("sasisnr"))
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        model.to(dt)
+        state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-4))
+        step = make_train_step(model, grad_clip=10.0)
+        zero_counts(lk)
+        batch = {"noisy": torch.from_numpy(noisy).to(d, dt),
+                 "ref_clean": torch.from_numpy(ref).to(d, dt),
+                 "inactive_labels": torch.from_numpy(inact).to(d)}
+        state, m = step(state, batch)
+        sides.append(({n: p.grad.cpu().double() for n, p in model.named_parameters()},
+                      {k: float(v) for k, v in m.items()},
+                      tuple(count_of(lk, a) for a in _fwd_bwd(lk))))
+        del model, state
+    (gpu, gm, gl), (cpu32, cm, cl), (ref64, rm, _) = sides
+    expect_launches(gl, (2, 2), "6i dss card step, LSTM (fwd, bwd)")
+    expect_launches(cl, (0, 0), "6i dss CPU step, LSTM (fwd, bwd)")
+    rel = lambda side, key: abs(side[key] - rm[key]) / abs(rm[key])
+    loss_rel, norm_rel = rel(gm, "loss"), rel(gm, "grad_norm")
+    cpu_loss_rel, cpu_norm_rel = rel(cm, "loss"), rel(cm, "grad_norm")
+    flat = lambda g: torch.cat([g[p].reshape(-1) for p in ref64])
+    total = ((flat(gpu) - flat(ref64)).norm() / flat(ref64).norm()).item()
+    total_cpu = ((flat(cpu32) - flat(ref64)).norm() / flat(ref64).norm()).item()
+    if (loss_rel > max(1e-4, 3 * cpu_loss_rel) or norm_rel > max(1e-3, 3 * cpu_norm_rel)
+            or not total <= max(3e-3, 3 * total_cpu)):
+        raise AssertionError(f"6i dss: loss rel {loss_rel:.3e} (CPU f32 {cpu_loss_rel:.3e}), "
+                             f"grad_norm rel {norm_rel:.3e} (CPU f32 {cpu_norm_rel:.3e}), the "
+                             f"whole gradient {total:.3e} (CPU f32 {total_cpu:.3e})")
+    g_all = max(g.abs().max().item() for g in ref64.values())
+    worst, worst_cpu = (0.0, ""), (0.0, "")
+    for p, g64 in ref64.items():
+        gmax = g64.abs().max().item()
+        if gmax > 1e-6 * g_all:
+            worst = max(worst, ((gpu[p] - g64).abs().max().item() / gmax, p))
+            worst_cpu = max(worst_cpu, ((cpu32[p] - g64).abs().max().item() / gmax, p))
+    log("6i dss train step", f"{DSS_NAME} B={NS_CHECK_B} x {NS_CHECK_SECONDS:g} s, sasisnr "
+        f"with one inactive far side, dropout 0, f32 on the card vs f64 on the CPU: loss "
+        f"{gm['loss']:.6f} / {rm['loss']:.6f} (rel {loss_rel:.2e}; CPU f32 {cpu_loss_rel:.2e}), "
+        f"grad_norm rel {norm_rel:.2e} (CPU f32 {cpu_norm_rel:.2e}), the whole gradient by "
+        f"relative L2 {total:.2e} (CPU f32 {total_cpu:.2e}); worst tensor max|d|/max|ref| "
+        f"(not gated) card {worst[0]:.2e} ({worst[1]}), CPU f32 {worst_cpu[0]:.2e} "
+        f"({worst_cpu[1]}); LSTM launches fwd/bwd {gl} on the card [{card}]", t)
+    return {"loss_rel": loss_rel, "norm_rel": norm_rel, "grad_l2": total,
+            "grad_l2_cpu_f32": total_cpu, "worst_grad_rel": worst[0], "launches": gl}
+
+
+def dss_recipe_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
+    """Phase 6i: `python -m puresound_tpu_torch.egs.dss.main
+    egs/dss/conf/dss_dparn_1a.yaml --action train` read from the file with
+    the paths, epochs, workers and seed overridden, on a synthetic manifest
+    with silent near and far references: DSS_RECIPE_STEPS steps of B=8 x 3 s
+    + 1 dev batch, finite sasisnr losses, exact launches (2 inter LSTMs a
+    forward), epoch_0.ckpt reloading equal, step p50, host gap and peak
+    memory; then `dss_card_vs_cpu`. The run's checkpoints go to
+    <keep>/<model name> for 7c."""
+    import tempfile
+
+    from puresound_tpu_torch.egs.dss.main import build_model
+    from puresound_tpu_torch.src.utils import load_hparam
+
+    t = time.perf_counter()
+    steps = DSS_RECIPE_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        path = shipped_config(SHIPPED_DSS, tmp,
+                              write_dss_manifest(os.path.join(tmp, "train"), 8 * steps,
+                                                 SEED + 140),
+                              write_dss_manifest(os.path.join(tmp, "dev"), 8, SEED + 141))
+        hp = load_hparam(path)
+        torch.cuda.reset_peak_memory_stats()
+        res = run_recipe(lk, tk, "puresound_tpu_torch.egs.dss.main", path, backend)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = res["launches"]
+        expect_launches(got, (2 * (steps + 1), 2 * steps, 0, 0),
+                        "6i dss recipe, LSTM and TCN (fwd, bwd)")
+        info = recipe_checks(res, steps, dev, build_model(hp, device=dev), "6i dss recipe")
+        keep_checkpoints(res["trainer"], os.path.join(keep, DSS_NAME))
+    g = step_gaps(res, steps, 1)
+    losses = res["losses"]
+    log("6i dss recipe", f"python -m puresound_tpu_torch.egs.dss.main {SHIPPED_DSS} --action "
+        f"train (paths, epochs, workers 4, seed overridden): {DSS_NAME}, "
+        f"{hp['LOSS']['sig_loss']}, B={hp['TRAIN']['batch_size']} x "
+        f"{hp['DATASET']['max_length']} s with silent near / far references, {steps} steps + "
+        f"1 dev batch on {res['trainer'].device}: losses {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"dev {res['dev_loss'][0]:.4f}; " + gap_text(g, steps, 1, hp["TRAIN"]["batch_size"] * 3)
+        + f"; peak memory {peak:.2f} GiB; launches LSTM fwd/bwd {got[:2]}, TCN {got[2:]}, "
+        f"serving kernels {res['serving']}; epoch_0.ckpt reloads equal ({info[0]}, {info[1]}) "
+        f"[{card}]", t)
+    check = dss_card_vs_cpu(lk, dev, card)
+    return dict(g, launches=tuple(a + b for a, b in zip(got, check["launches"] + (0, 0))),
+                peak_gib=peak, steps=steps, check=check)
+
+
+def eval_7c_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
+    """Phase 7c: the DSS CLI's evaluation actions (runpy) on 6i's checkpoints
+    (TRAIN.model_average 2), DSS_EVAL_UTTS mixtures of EVAL_SECONDS s:
+    `dev` (every printed SI-SNR, near and far, equal to `Metrics.sisnr` of
+    the outputs), `eval` (RTF), `eval --batch_eval 2` (>= 60 dB from B=1),
+    `eval --backend cpu` on the first EVAL_SUBSET (the card's f32 wavs >= 60
+    dB from the CPU's), `stream_eval` (the dev set, as JAX's DSS recipe: the
+    first EVAL_SUBSET) on the stock, `--fused` and `--mk_kernel` routes, each
+    source >= 60 dB from the offline inference of the zero-primed input,
+    and `--half` >= DSS_HALF_BAR; exact launches; export_model raises."""
+    import tempfile
+
+    from puresound_tpu_torch.src.audio import AudioIO
+    from puresound_tpu_torch.src.metrics import Metrics
+    from puresound_tpu_torch.src.utils import dump_hparam, load_hparam, load_text_as_dict
+
+    module = "puresound_tpu_torch.egs.dss.main"
+    out = {"launches": [0, 0, 0, 0], "serving": [0] * 5}
+    probe = EvalProbe()
+    t = time.perf_counter()
+    n, L = DSS_EVAL_UTTS, int(16000 * EVAL_SECONDS)
+    with tempfile.TemporaryDirectory() as tmp, probe:
+        full = write_dss_manifest(os.path.join(tmp, "full"), n, SEED + 150, (EVAL_SECONDS,),
+                                  silent=False)
+        subset = write_dss_manifest(os.path.join(tmp, "subset"), EVAL_SUBSET, SEED + 150,
+                                    (EVAL_SECONDS,), silent=False)
+        hp = load_hparam(SHIPPED_DSS)
+        hp["TRAIN"].update(model_save_dir=os.path.join(keep, DSS_NAME), model_average=2,
+                           log_dir=os.path.join(tmp, "logs"))
+        cfgs = {}
+        for label, folder in (("full", full), ("subset", subset)):
+            hp["DATASET"].update(dev=folder, eval=folder, train=folder)
+            cfgs[label] = os.path.join(tmp, f"{label}.yaml")
+            dump_hparam(hp, cfgs[label])
+        ck = ["--ckpt", "epoch_1.ckpt"]
+        cli = lambda cfg, *args, on=backend: run_cli(module, cfgs[cfg],
+                                                     [*args, *ck, "--backend", on], probe, lk, tk)
+        res = {"dev": cli("full", "--action", "dev"), "eval": cli("full", "--action", "eval"),
+               "batch": cli("full", "--action", "eval", "--batch_eval", "2"),
+               "cpu": cli("subset", "--action", "eval", on="cpu")}
+        for key, calls in (("dev", n), ("eval", n), ("batch", -(-n // 2))):
+            expect_launches((res[key]["launches"], res[key]["serving"]),
+                            ((2 * calls, 0, 0, 0), (0,) * 5),
+                            f"7c dss {key}: training (LSTM fwd/bwd, TCN fwd/bwd), serving")
+            check_models(res[key], dev, f"7c dss {key}")
+        expect_launches((res["cpu"]["launches"], res["cpu"]["serving"]), ((0,) * 4, (0,) * 5),
+                        "7c dss eval --backend cpu")
+        check_models(res["cpu"], torch.device("cpu"), "7c dss eval --backend cpu")
+        # dev: the printed rows are Metrics.sisnr of the outputs, near and far
+        scp = load_text_as_dict(os.path.join(full, "wav2scp.txt"))
+        refs = {s: load_text_as_dict(os.path.join(full, f"ref2{s}.txt")) for s in ("near", "far")}
+        want = {k: [float(Metrics.sisnr(AudioIO.open(refs[s][k][0])[0], o[:, m]))
+                    for m, s in enumerate(("near", "far"))]
+                for k, o in zip(sorted(scp), res["dev"]["outputs"])}
+        printed = {}
+        for line in res["dev"]["stdout"].splitlines():
+            parts = [p.strip() for p in line.split(",")]
+            if len(parts) == 3 and parts[0].startswith("mix_"):
+                printed[parts[0]] = [float(p) for p in parts[1:]]
+        if printed != want or len(printed) != n or not np.isfinite(list(want.values())).all():
+            raise AssertionError(f"7c dss dev: printed {printed}, Metrics of the outputs {want}")
+        means = np.mean(list(want.values()), axis=0)
+        saved = lambda key: res[key]["saved"]
+        names = [f"mix_{i}_{s}" for i in range(n) for s in ("near", "far")]
+        if sorted(saved("eval")) != sorted(names):
+            raise AssertionError(f"7c dss eval wrote {sorted(saved('eval'))}")
+        batch = min(snr_np(saved("batch")[k], saved("eval")[k]) for k in names)
+        card_cpu = min(snr_np(saved("eval")[k], saved("cpu")[k]) for k in saved("cpu"))
+        if not (batch >= EVAL_BAR_DB and card_cpu >= EVAL_BAR_DB):
+            raise AssertionError(f"7c dss: batch_eval {batch:.1f} dB, card vs CPU "
+                                 f"{card_cpu:.1f} dB")
+        # stream_eval on the subset (DATASET.dev) against the offline inference
+        # of the zero-primed input, each source
+        model = res["eval"]["models"][0]
+        sub = load_text_as_dict(os.path.join(subset, "wav2scp.txt"))
+        with torch.inference_mode():
+            offline = {k: model.inference(torch.nn.functional.pad(
+                torch.from_numpy(AudioIO.open(sub[k][0])[0]).to(dev), (384, 0)))[0]
+                .float().cpu().numpy() for k in sorted(sub)}
+        ticks = (-(-(L + 384) // 256) + 1) * EVAL_SUBSET
+        lo, hi, shift = 512, L - 1024, 384
+        streams = {}
+        for flags, bar, per_tick in (((), EVAL_BAR_DB, (2, (0, 0, 0, 0, 0))),
+                                     (("--fused",), EVAL_BAR_DB, (0, (0, 2, 0, 0, 0))),
+                                     (("--mk_kernel",), EVAL_BAR_DB, (0, (0, 0, 0, 0, 1))),
+                                     (("--half",), DSS_HALF_BAR, (2, (0, 0, 0, 0, 0)))):
+            r = cli("subset", "--action", "stream_eval", *flags)
+            expect_launches((r["launches"], r["serving"]),
+                            ((per_tick[0] * ticks, 0, 0, 0),
+                             tuple(v * ticks for v in per_tick[1])),
+                            f"7c dss stream_eval {' '.join(flags) or 'stock'}")
+            check_models(r, dev, "7c dss stream_eval")
+            got = min(snr_np(r["saved"][f"{k}_{s}"][lo:hi], offline[k][m, lo + shift:hi + shift])
+                      for k in offline for m, s in enumerate(("near", "far")))
+            if not got >= bar:
+                raise AssertionError(f"7c dss stream_eval {flags}: {got:.1f} dB from offline "
+                                     f"(bar {bar:g})")
+            streams[" ".join(flags) or "stock"] = (got, float(np.mean(r["rtfs"])), r["wall_s"],
+                                                  r["launches"], r["serving"])
+            out["launches"] = [a + b for a, b in zip(out["launches"], r["launches"])]
+            out["serving"] = [a + b for a, b in zip(out["serving"], r["serving"])]
+        try:
+            run_cli(module, cfgs["full"], ["--action", "export_model", *ck], probe, lk, tk)
+            raise AssertionError("7c dss: export_model ran")
+        except NotImplementedError as e:
+            refused = str(e)
+    for key in ("dev", "eval", "batch"):
+        out["launches"] = [a + b for a, b in zip(out["launches"], res[key]["launches"])]
+    audio_s = n * EVAL_SECONDS
+    d, e = res["dev"], res["eval"]
+    out.update(dev_means={"near": float(means[0]), "far": float(means[1])},
+               eval_rtf=audio_s / e["wall_s"], eval_model_rtf=audio_s / e["model_s"],
+               batch_rtf=audio_s / res["batch"]["wall_s"], card_vs_cpu_db=card_cpu,
+               batch_db=batch, streams=streams)
+    log("7c dss eval actions", f"python -m {module} {SHIPPED_DSS} (--ckpt epoch_1.ckpt, "
+        f"model_average 2) on {n} mixtures of {EVAL_SECONDS:g} s: dev {d['wall_s']:.2f} s "
+        f"(model {d['model_s']:.3f} s synced, Metrics {d['metric_s']:.2f} s), SI-SNR near "
+        f"{means[0]:.4f} / far {means[1]:.4f}, every row equal to Metrics.sisnr of the "
+        f"outputs; eval B=1 {e['wall_s']:.2f} s (RTF {out['eval_rtf']:.1f}, model alone "
+        f"{out['eval_model_rtf']:.1f}), --batch_eval 2 RTF {out['batch_rtf']:.1f} and "
+        f"{batch:.1f} dB from B=1; card vs --backend cpu {card_cpu:.1f} dB; stream_eval on "
+        f"{EVAL_SUBSET} mixtures: " + "; ".join(
+            f"{s} {v[2]:.2f} s, RTF {v[1]:.2f}, {v[0]:.1f} dB from the offline inference of "
+            f"the zero-primed input (each source), launches (LSTM fwd) {v[3][0]}, serving "
+            f"{v[4]}" for s, v in streams.items())
+        + f"; export_model raises: {refused} [{card}]", t)
+    return out
+
+
 def run(dev: torch.device) -> int:
     t0 = time.perf_counter()
     from puresound_tpu_torch.ops import _build
@@ -5345,6 +5923,37 @@ def run(dev: torch.device) -> int:
             f"dual_path_chunk, dparn_intra_pass, the centers) {evals_7b['serving']}", t)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+    # ------------------------------------------------- DSS and the socket front
+    # 4l. DSS serving, then run_serve's socket front for three models
+    dss_serve = dss_serving_phase(ops, lk, tk, model, dev, card)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_7c_")
+    try:
+        # 6i. the shipped DSS recipe's train
+        dss_train = dss_recipe_phase(lk, tk, dev, card, keep)
+        # 7c. its evaluation actions on 6i's checkpoints
+        evals_7c = eval_7c_phase(lk, tk, dev, card, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    sock = dss_serve["socket"]
+    dss_by_slots = dss_serve["serving"]
+    # each kernel's launches in phases 4l / 6i / 7c
+    launches_4l = {
+        "fused_skim_frames": sock["tse_skim_v0_causal"]["launches"][0],
+        "tcn_block_train fwd": sock["tse_skim_v0_causal"]["launches"][1],
+        "lstm_scan_train_fp fwd": dss_serve["f32"]["launches"][0],
+        "lstm_scan": sum(r["launches"][1] for r in dss_by_slots.values()),
+        "dparn_intra_pass": sum(r["launches"][2] for r in dss_by_slots.values()),
+        "center_chunk": sock["ns_dpcrn_v0_causal"]["launches"][0],
+        "dparn_center_chunk": (sum(r["launches"][3] for r in dss_by_slots.values())
+                               + sock[DSS_NAME]["launches"][3])}
+    launches_6i = {"lstm_scan_train_fp fwd": dss_train["launches"][0],
+                   "lstm_scan_train_fp bwd": dss_train["launches"][1]}
+    launches_7c = {"lstm_scan_train_fp fwd": evals_7c["launches"][0],
+                   "lstm_scan": evals_7c["serving"][1],
+                   "dparn_center_chunk": evals_7c["serving"][4]}
+    log("8 dss launches", f"4l {launches_4l}; 6i {launches_6i}; 7c {launches_7c}",
+        time.perf_counter())
+
     launches_6g = [sum(r["launches"][i] for r in tse_recipes.values()) for i in range(4)]
     launches_6h = [sum(r["launches"][i] for r in ns_1b.values()) for i in range(4)]
     # the training launches of phases 6d-6f, (LSTM fwd, bwd, TCN fwd, bwd)
@@ -5617,6 +6226,13 @@ def run(dev: torch.device) -> int:
             "bf16_bound_ms": r["bf16_bound"][0], "bf16_without_option_ms": base[base_key][1],
             "bf16_snr_db": r["bf16_snr_db"], "bf16_control_snr_db": r["bf16_control_snr_db"],
             "shape": r["shape"]})
+    for k in kernels:
+        # the DSS phases' launches, by the kernel's name ("... (forward)" /
+        # "(backward)" as fwd / bwd)
+        key = k["name"].replace(" (forward)", " fwd").replace(" (backward)", " bwd")
+        for phase, table in (("4l", launches_4l), ("6i", launches_6i), ("7c", launches_7c)):
+            k[f"launches_{phase}"] = table.get(key, 0)
+            k["launches"] += table.get(key, 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

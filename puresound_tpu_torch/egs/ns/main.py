@@ -1,17 +1,20 @@
-"""NS recipe command line: train, dev, eval and stream_eval (counterpart of
-egs/ns/main.py: `load_eval_model` `:29-40`, `init_dataloader` `:42-84`,
-`action_train` `:86-106`, `action_dev` `:109-173`, `action_eval`
-`:176-220`, `action_stream_eval` `:223-252`, `main` `:281-324`).
+"""NS recipe command line: train, dev, eval, stream_eval and serve
+(counterpart of egs/ns/main.py: `load_eval_model` `:29-40`,
+`init_dataloader` `:42-84`, `action_train` `:86-106`, `action_dev`
+`:109-173`, `action_eval` `:176-220`, `action_stream_eval` `:223-252`,
+`action_serve` `:255-266`, `main` `:281-324`).
 
     python -m puresound_tpu_torch.egs.ns.main <NS.yaml-style config> \\
-        --action train|dev|eval|stream_eval [--ckpt epoch_N.ckpt] [--backend cuda|cpu]
+        --action train|dev|eval|stream_eval|serve [--ckpt epoch_N.ckpt] [--backend cuda|cpu]
 
 Runs on the CUDA card unless `--backend cpu` asks for the CPU; `cuda`
 raises where torch sees no card. dev / eval / stream_eval load `--ckpt`
 (the port's checkpoint or the JAX package's) honouring
-`TRAIN.model_average`; stream_eval takes the engine's kernel routes
-(`--fused`, `--dp_kernel`, `--attn_kernel`, `--mk_kernel`). serve,
-export_model and `--num_processes > 1` are not ported yet and raise.
+`TRAIN.model_average`; stream_eval and serve take the engine's kernel
+routes (`--fused`, `--dp_kernel`, `--attn_kernel`, `--mk_kernel`). serve
+opens the TCP front on `--port` with `--serve_slots` sessions, each
+attached by an empty HELLO. export_model and `--num_processes > 1` are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from ...src.audio import AudioIO
 from ...src.metrics import Metrics
 from ...src.utils import create_folder, load_hparam, load_text_as_dict
+from ...streaming.deploy import run_serve
 from ...streaming.file_eval import build_engine, stream_signal
 from ...streaming.halfprec import to_half
 from ...tasks.base import BaseTrainer, DataLoader
@@ -30,10 +34,11 @@ from ...tasks.batch_eval import BucketedBatchRunner
 from ...tasks.ns import NsCollateFunc, NsDataset, NsTask
 from ...zoo.ns import init_loss, init_model
 from ..tse.main import NOT_PORTED as TSE_NOT_PORTED
-from ..tse.main import _detail_scores, _device, _open, _tensor, add_eval_args, check_action
+from ..tse.main import (_detail_scores, _device, _open, _tensor, add_eval_args,
+                       add_serve_args, check_action)
 
 ACTIONS = ("train", "dev", "eval", "stream_eval", "serve", "export_model")
-NOT_PORTED = {k: TSE_NOT_PORTED[k] for k in ("serve", "export_model")}
+NOT_PORTED = {"export_model": TSE_NOT_PORTED["export_model"]}
 
 
 def init_dataloader(hparam):
@@ -170,6 +175,18 @@ def action_stream_eval(hparam, device, ckpt, chunk_ms=16.0, half=False, fused=Fa
     return rtfs
 
 
+def action_serve(hparam, device, ckpt, chunk_ms, n_slots, port, half=False, fused=False,
+                 dp_kernel=False, attn_kernel=False, mk_kernel=False,
+                 pcm16=False) -> None:
+    """Serve the checkpoint through the TCP front until Ctrl-C (JAX's
+    `egs/ns/main.py:255-266`)."""
+    model = load_eval_model(hparam, ckpt, device)
+    run_serve(model, None, n_slots, port=port, chunk_ms=chunk_ms,
+              sr=hparam["DATASET"]["sample_rate"], half=half, fused=fused,
+              dp_kernel=dp_kernel, attn_kernel=attn_kernel, mk_kernel=mk_kernel,
+              pcm16=pcm16)
+
+
 def main(config):
     check_action(config, NOT_PORTED)
     device = _device(config.backend)
@@ -183,6 +200,11 @@ def main(config):
     if config.action == "eval":
         return action_eval(hparam, device, config.ckpt, config.batch_eval,
                            config.eval_quantum)
+    if config.action == "serve":
+        return action_serve(hparam, device, config.ckpt, config.chunk_ms,
+                            config.serve_slots, config.port, config.half, config.fused,
+                            config.dp_kernel, config.attn_kernel, config.mk_kernel,
+                            config.pcm16)
     return action_stream_eval(hparam, device, config.ckpt, config.chunk_ms, config.half,
                               config.fused, config.dp_kernel, config.attn_kernel,
                               config.mk_kernel)
@@ -195,6 +217,7 @@ def parse_args(argv=None):
     parser.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--num_processes", type=int, default=1)
     add_eval_args(parser)
+    add_serve_args(parser)
     parser.add_argument("--fused", action="store_true",
                         help="stream_eval with the recurrences through lstm_scan")
     parser.add_argument("--dp_kernel", action="store_true",

@@ -1,10 +1,11 @@
-"""TSE recipe command line: train, dev, eval and stream_eval (counterpart of
-egs/tse/main.py: `load_eval_model` `:33-43`, `init_dataloader` `:46-113`,
-`action_train` `:116-144`, `action_dev` `:147-253`, `action_eval`
-`:311-375`, `action_stream_eval` `:402-440`, `main` `:443-491`).
+"""TSE recipe command line: train, dev, eval, stream_eval and serve
+(counterpart of egs/tse/main.py: `load_eval_model` `:33-43`,
+`init_dataloader` `:46-113`, `action_train` `:116-144`, `action_dev`
+`:147-253`, `action_eval` `:311-375`, `action_serve` `:389-399`,
+`action_stream_eval` `:402-440`, `main` `:443-491`).
 
     python -m puresound_tpu_torch.egs.tse.main <TSE.yaml-style config> \\
-        --action train|dev|eval|stream_eval [--ckpt epoch_N.ckpt] [--backend cuda|cpu]
+        --action train|dev|eval|stream_eval|serve [--ckpt epoch_N.ckpt] [--backend cuda|cpu]
 
 Runs on the CUDA card unless `--backend cpu` asks for the CPU; `cuda`
 raises where torch sees no card. With `TRAIN.contrastive_learning` the
@@ -12,8 +13,11 @@ batches are `SpeakerSampler`'s, p_spks speakers x p_utts utterances, as the
 GE2E loss needs them. dev / eval / stream_eval load `--ckpt` (a file under
 TRAIN.model_save_dir, the port's or the JAX package's) honouring
 `TRAIN.model_average`, and score or write the dev / eval sets; `--batch_eval
-N` batches dev / eval N utterances at a time in length buckets. tSNE,
-export_model, serve and `--num_processes > 1` are not ported yet and raise.
+N` batches dev / eval N utterances at a time in length buckets. serve opens
+the TCP front (`streaming.socket_server`) on `--port` with `--serve_slots`
+sessions, each enrolled by its HELLO (a d-vector or an enrollment
+waveform); `--fused` serves the SkiM stack through `fused_skim_frames`.
+tSNE, export_model and `--num_processes > 1` are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from ...src.audio import AudioIO
 from ...src.metrics import Metrics
 from ...src.sampler import SpeakerSampler
 from ...src.utils import create_folder, load_hparam, load_text_as_dict
+from ...streaming.deploy import run_serve
 from ...streaming.file_eval import build_engine, stream_signal
 from ...streaming.halfprec import to_half
 from ...tasks.base import BaseTrainer, DataLoader
@@ -38,8 +43,7 @@ ACTIONS = ("train", "dev", "eval", "tSNE", "export_model", "stream_eval", "serve
 #: the actions that raise, and the ROADMAP item each waits for
 NOT_PORTED = {
     "tSNE": "queue 1 item 2: tSNE, which needs scikit-learn and matplotlib",
-    "export_model": "queue 1 item 8: utils/export.py on torch.export",
-    "serve": "queue 1 item 3: the socket front"}
+    "export_model": "queue 1 item 8: utils/export.py on torch.export"}
 
 
 def _device(backend: str) -> torch.device:
@@ -286,6 +290,17 @@ def action_stream_eval(hparam, device, ckpt, chunk_ms=16.0, half=False) -> list:
     return rtfs
 
 
+def action_serve(hparam, device, ckpt, chunk_ms, n_slots, port, half=False, fused=False,
+                 pcm16=False) -> None:
+    """Serve the checkpoint through the TCP front until Ctrl-C: each
+    connection enrolls its own target speaker (its HELLO a d-vector or an
+    enrollment waveform) and streams mixture audio in for enhanced audio
+    out (JAX's `egs/tse/main.py:389-399`)."""
+    model = load_eval_model(hparam, ckpt, device)
+    run_serve(model, None, n_slots, port=port, chunk_ms=chunk_ms,
+              sr=hparam["DATASET"]["sample_rate"], half=half, fused=fused, pcm16=pcm16)
+
+
 def check_action(config, not_ported=NOT_PORTED) -> None:
     """Raise for an action or option that is not ported, and for a missing
     --ckpt (every action but train needs one, `egs/tse/main.py:467-469`)."""
@@ -314,6 +329,10 @@ def main(config):
     if config.action == "eval":
         return action_eval(hparam, device, config.ckpt, config.batch_eval,
                            config.eval_quantum)
+    if config.action == "serve":
+        return action_serve(hparam, device, config.ckpt, config.chunk_ms,
+                            config.serve_slots, config.port, config.half, config.fused,
+                            config.pcm16)
     return action_stream_eval(hparam, device, config.ckpt, config.chunk_ms, config.half)
 
 
@@ -331,7 +350,18 @@ def add_eval_args(parser) -> None:
     parser.add_argument("--chunk_ms", type=float, default=16.0,
                         help="stream_eval chunk size in milliseconds")
     parser.add_argument("--half", action="store_true",
-                        help="stream_eval in bfloat16 (serving mode)")
+                        help="stream_eval / serve in bfloat16 (serving mode)")
+
+
+def add_serve_args(parser) -> None:
+    """The flags of serve, as JAX's recipes name them."""
+    parser.add_argument("--serve_slots", type=int, default=64,
+                        help="serve: fixed concurrent-session capacity")
+    parser.add_argument("--port", type=int, default=7654,
+                        help="serve: TCP port for the socket front-end")
+    parser.add_argument("--pcm16", action="store_true",
+                        help="serve: move each tick's audio host<->device as int16 PCM "
+                             "(half the transfer bytes; the conversions on the card)")
 
 
 def parse_args(argv=None):
@@ -341,6 +371,10 @@ def parse_args(argv=None):
     parser.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"])
     parser.add_argument("--num_processes", type=int, default=1)
     add_eval_args(parser)
+    add_serve_args(parser)
+    parser.add_argument("--fused", action="store_true",
+                        help="serve: the SkiM stack through fused_skim_frames "
+                             "(bf16 with --half)")
     return parser.parse_args(argv)
 
 

@@ -6,8 +6,10 @@ dropped and re-padded when `drop_first_bin`) and any mask of
 `apply_tf_masks`: encoder -> speaker net -> masker -> mask -> decoder. `forward` returns the
 training loss of the task (`base_nn.py:200`): tasks 0/4 (`_forward`), 1
 (`_forward_join`), 2 (`_forward_contrastive`) and 3 (`_forward_join_loop`);
-`inference` (`:282`) returns the waveform. The module's
-own `training` flag takes the place of JAX's `train` argument.
+`inference` (`:282`) returns the waveform. `SiMoTaskWrapModule` (`:296-371`)
+is the single-input multi-output wrapper of DSS: an [N, M, C, T] mask applied
+to the repeated mixture and decoded into [N, M, L]. The module's own
+`training` flag takes the place of JAX's `train` argument.
 """
 from __future__ import annotations
 
@@ -248,3 +250,60 @@ class SoTaskWrapModule(nn.Module):
                   enroll: Optional[torch.Tensor] = None) -> torch.Tensor:
         """noisy [N, L] (+ enroll [N, L']) -> enhanced [N, L]."""
         return self._mask_and_decode(self._encode(noisy), self._condition(enroll))
+
+
+class SiMoTaskWrapModule(nn.Module):
+    """Single-input multi-output wrapper (DSS separation): the masker emits
+    [N, M, C, T] masks, the mixture's features are repeated per source and
+    flattened into the batch for the mask and the decoder (`base_nn.py:296`).
+    `forward` returns the training loss, `inference` [N, M, L]."""
+
+    def __init__(self, encoder: nn.Module, masker: nn.Module,
+                 loss_func_wav: Optional[Callable] = None, f_type: str = "real",
+                 mask_type: str = "real", mask_constraint: str = "linear",
+                 output_constraint: str = "linear", drop_first_bin: bool = False):
+        super().__init__()
+        if not isinstance(encoder, (FreeEncDec, ConvEncDec)):
+            raise NotImplementedError(
+                f"encoder {type(encoder).__name__} is not ported yet (ROADMAP "
+                "queue 1 item 5b: FbankEnc)")
+        self.encoder, self.masker = encoder, masker
+        self.loss_func_wav = loss_func_wav
+        self.f_type, self.mask_type = f_type, mask_type
+        self.mask_constraint = mask_constraint
+        self.output_constraint = output_constraint
+        self.drop_first_bin = drop_first_bin
+
+    _encode = SoTaskWrapModule._encode
+    _decode = SoTaskWrapModule._decode
+
+    def _decode_multi(self, enh_feats: torch.Tensor) -> torch.Tensor:
+        """[N, M, C, T] -> [N, M, L], all N * M streams in one decode."""
+        N, M, C, T = enh_feats.shape
+        return self._decode(enh_feats.reshape(N * M, C, T)).reshape(N, M, -1)
+
+    def _separate(self, noisy: torch.Tensor) -> torch.Tensor:
+        feats = self._encode(noisy)
+        mask = get_mask(self.masker(feats), self.mask_constraint)   # [N, M, C, T]
+        N, M, C, T = mask.shape
+        rep = feats[:, None].expand(N, M, C, T).reshape(N * M, C, T)
+        enh = apply_tf_masks(rep, mask.reshape(N * M, C, T), self.mask_type, self.f_type)
+        return wav_output_constrain(self._decode_multi(enh.reshape(N, M, C, T)),
+                                    self.output_constraint)
+
+    def forward(self, noisy, ref_clean, inactive_labels=None):
+        """The loss of [N, M, L] outputs against ref_clean [N, M, L'] (ref
+        truncated or front-padded to the outputs, as JAX's `:348-352`): a
+        source-aggregated loss takes [N, M, L] with inactive labels [N, M],
+        any other the flattened [N * M, L] with [N * M] labels (`:353-366`)."""
+        enh_wav, ref_clean = align_waveform(self._separate(noisy), ref_clean)
+        N, M, L = enh_wav.shape
+        if getattr(self.loss_func_wav, "source_aggregated", False):
+            return self.loss_func_wav(enh_wav, ref_clean, inactive_labels)
+        inact = inactive_labels.reshape(-1) if inactive_labels is not None else None
+        return self.loss_func_wav(enh_wav.reshape(N * M, -1),
+                                  ref_clean.reshape(N * M, -1), inact)
+
+    def inference(self, noisy: torch.Tensor) -> torch.Tensor:
+        """noisy [N, L] -> the M separated sources [N, M, L]."""
+        return self._separate(noisy)

@@ -9,8 +9,9 @@ carries the inter LSTM's (h, c); `attn_kernel=True` runs the whole intra
 pass through `ops.dparn_attention_kernel.dparn_intra_pass` and `fused=True`
 the inter recurrence through `ops.lstm_scan_kernel.lstm_scan`.
 `DPARN.center_kernel_chunk` runs the six stride-1 inner layers through
-`ops.masker_kernel.dparn_center_chunk`. `DPARN_Mout`, the SIMO separator,
-waits for DSS (ROADMAP queue 1 item 7).
+`ops.masker_kernel.dparn_center_chunk`. `DPARN_Mout` is the SIMO
+separator of DSS: `multi_output` M masks, [N, M, C, T], from the last up
+layer's M-fold channels; it streams on every route of `DPARN`.
 """
 from __future__ import annotations
 
@@ -176,3 +177,8 @@ class _DPARNBase(DualPathStreaming, Unet):
 
 class DPARN(_DPARNBase):
     """Single-output DPARN."""
+
+
+class DPARN_Mout(_DPARNBase):
+    """Multi-output DPARN for SIMO separation (set multi_output=M): masks
+    [N, M, C, T] offline and [B, M, C, K] from `stream_frames`."""

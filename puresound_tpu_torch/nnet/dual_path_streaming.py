@@ -16,7 +16,10 @@ import torch
 
 class DualPathStreaming:
     def causal_streamable(self) -> bool:
-        return super().causal_streamable() and not self.spectral_compress
+        """The Unet's conv conditions and no spectral compression; unlike the
+        plain Unet's, any multi_output streams (`DPARN_Mout`), as in JAX
+        (`dual_path_streaming.py:22-29`)."""
+        return self._conv_streamable() and not self.spectral_compress
 
     def init_stream_state(self, batch: int, dtype=torch.float32, device=None,
                           dp_kernel: bool = False, mk_kernel: bool = False) -> dict:
@@ -55,7 +58,8 @@ class DualPathStreaming:
                       dp_kernel: bool = False, int8_hh: bool = False,
                       attn_kernel: bool = False, xscr_half: bool = False,
                       mk_kernel: bool = False):
-        """A chunk of frames x [B, C, K] -> (mask [B, C, K], new state).
+        """A chunk of frames x [B, C, K] -> (mask [B, C, K], or [B, M, C, K]
+        with multi_output M, new state).
 
         Equals the offline forward on the chunked input for causal configs;
         transpose_delay configs emit the mask `stream_delay_frames` frames

@@ -1,7 +1,10 @@
 """Frequency-axis U-Net (counterpart of puresound_tpu/nnet/unet.py:27-293).
 
 Only the `Unet` base is ported (`UnetTcn` and `UnetFsmn` wait, ROADMAP
-queue 1 item 5b). The shape algebra is JAX's (and PureSound's):
+queue 1 item 5b). With `multi_output` M > 1 the last up layer emits
+chans[0] * M channels, read as (M, chans[0]) and unpacked to an [N, M, C, T]
+mask (the SIMO separator, `DPARN_Mout`). The shape algebra is JAX's (and
+PureSound's):
 - down layer i: zero pad (time (k_t-1-delay, delay), freq centred), Conv2d
   of stride (s_f, s_t), norm, activation, dropout;
 - up layer: ConvTranspose2d(kernel (k_f, t_kernel), padding k_f//2,
@@ -34,7 +37,7 @@ from .lobe.norm import apply_norm, get_norm
 
 class Unet(nn.Module):
     """Freq-axis down/up 2-D CNN: x [N, C, T] (RI-concat or real) -> mask
-    [N, C, T]."""
+    [N, C, T] ([N, M, C, T] when multi_output M > 1)."""
 
     def __init__(self, input_type: str = "RI", input_dim: int = 512,
                  activation_type: str = "PReLU", norm_type: str = "bN2d",
@@ -51,13 +54,14 @@ class Unet(nn.Module):
         if not (len(kernel_f) == len(stride_t) == len(stride_f) == len(dilation_t)
                 == len(dilation_f) == len(delay) == n):
             raise ValueError("the per-layer tuples need one entry per layer")
-        if skip_conv or multi_output != 1:
+        if skip_conv:
             raise NotImplementedError(
-                "Unet skip_conv / multi_output is not ported yet (ROADMAP queue 1 "
-                "item 5b: the rest of the TSE zoo)")
+                "Unet skip_conv is not ported yet (ROADMAP queue 1 item 5b(iii): the "
+                "rest of the TSE zoo)")
         if input_type.lower() not in ("ri", "real"):
             raise TypeError("input_type must be RI or Real")
         self.input_type, self.input_dim, self.dropout = input_type, input_dim, dropout
+        self.multi_output = multi_output
         self.transpose_t_size, self.transpose_delay = transpose_t_size, transpose_delay
         self.kernel_t, self.kernel_f = tuple(kernel_t), tuple(kernel_f)
         self.stride_t, self.stride_f = tuple(stride_t), tuple(stride_f)
@@ -84,7 +88,8 @@ class Unet(nn.Module):
         for i in reversed(range(n)):
             k, s = kernel_f[i], stride_f[i]
             p = k // 2
-            layers = [ConvTranspose2d(chans[i + 1] * 2, chans[i], (k, transpose_t_size),
+            out_ch = chans[i] if i != 0 else chans[i] * multi_output
+            layers = [ConvTranspose2d(chans[i + 1] * 2, out_ch, (k, transpose_t_size),
                                       stride=(s, stride_t[i]),
                                       dilation=(dilation_f[i], dilation_t[i]),
                                       padding=(p, 0), output_padding=(s - k + 2 * p, 0),
@@ -106,6 +111,14 @@ class Unet(nn.Module):
         return x[:, None] if x.dim() == 3 else x
 
     def _unpack_output(self, x):
+        """[N, CH, F, T] -> [N, C, T]; with multi_output M the channels are
+        (M, CH / M) and the result [N, M, C, T]."""
+        if self.multi_output != 1:
+            N, ch, F, T = x.shape
+            x = x.reshape(N, self.multi_output, ch // self.multi_output, F, T)
+            if self.input_type.lower() == "ri":
+                return torch.cat([x[:, :, 0], x[:, :, 1]], dim=2)
+            return x[:, :, 0]
         if self.input_type.lower() == "ri":
             return torch.cat([x[:, 0], x[:, 1]], dim=1)
         return x[:, 0]
@@ -147,7 +160,12 @@ class Unet(nn.Module):
     # ------------------------------------------------------------- streaming
     def causal_streamable(self) -> bool:
         """Chunked streaming needs a 1-frame conv context per down layer
-        (time kernel 2, stride 1, no per-layer delay) and transpose_t_size 2."""
+        (time kernel 2, stride 1, no per-layer delay) and transpose_t_size 2;
+        the plain Unet streams one output only, as JAX's (`unet.py:200-207`),
+        while the dual-path models stream M (`DualPathStreaming`)."""
+        return self._conv_streamable() and self.multi_output == 1
+
+    def _conv_streamable(self) -> bool:
         return (all(k == 2 for k in self.kernel_t)
                 and all(s == 1 for s in self.stride_t)
                 and all(d == 1 for d in self.dilation_t)
@@ -198,7 +216,7 @@ class Unet(nn.Module):
         return h, skips, new_down
 
     def _stream_up(self, h: torch.Tensor, skips, state: dict, start: int = 0):
-        """Bottleneck output [B, ch, F, K] -> (mask [B, C, K], new up
+        """Bottleneck output [B, ch, F, K] -> (mask [B, C, K] or [B, M, C, K], new up
         carries, new skip FIFOs). `start` skips the first up layers (a
         center-fused kernel ran them; state["up"][j - start] then carries
         layer j)."""

@@ -5,23 +5,39 @@ The same `csrc/libpuresound_audio.so` that puresound_tpu/src/native.py
 loads, found and built (`make -C csrc`) here so that this package never
 imports the JAX package. Nothing runs at import time. This is host I/O for
 the data pipeline, not the device.
+
+Several processes may load at once (test workers, loader workers, the JAX
+package's own loader running the same `make`). The check-and-build runs
+under an exclusive `fcntl` lock on `build/native/native.lock`, so one
+process builds and the others wait for it; each process then loads a
+private copy of the library, taken whole (copied, its size and mtime the
+same before and after, then renamed into place), so a `make` that another
+loader runs meanwhile cannot hand it a half-written file. A build that
+fails raises with make's output, and every later call raises it again; a
+copy caught mid-write is taken again.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
 import threading
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "csrc")
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(ROOT, "csrc")
 LIB_PATH = os.path.join(CSRC, "libpuresound_audio.so")
+#: the lock file and the private copies (git-ignored)
+PRIVATE_DIR = os.path.join(ROOT, "build", "native")
+COPY_ATTEMPTS = 20
 
 _lib: Optional[ctypes.CDLL] = None
-_error: Optional[Exception] = None   # the failure of the one build attempt
+_error: Optional[Exception] = None   # a failed build, raised again on every call
 _lock = threading.Lock()
 
 
@@ -53,26 +69,60 @@ def _bind_audio(lib: ctypes.CDLL) -> None:
     lib.ps_resample_poly_f32.restype = ctypes.c_int
 
 
+def _stat(path: str) -> Tuple[int, int]:
+    st = os.stat(path)
+    return st.st_size, st.st_mtime_ns
+
+
+def _private_copy() -> str:
+    """A whole copy of the built library for this process: the source's
+    size and mtime unchanged across the copy (no writer meanwhile), then
+    renamed into place. Raises OSError when no stable copy was taken."""
+    private = os.path.join(PRIVATE_DIR, f"libpuresound_audio.{os.getpid()}.so")
+    for _ in range(COPY_ATTEMPTS):
+        before = _stat(LIB_PATH)
+        shutil.copyfile(LIB_PATH, private + ".part")
+        if _stat(LIB_PATH) == before == (os.path.getsize(private + ".part"), before[1]):
+            os.replace(private + ".part", private)
+            return private
+        time.sleep(0.1)     # another loader's make is writing it: take it again
+    raise OSError(f"{LIB_PATH} kept changing while it was copied")
+
+
+def _build_and_load() -> ctypes.CDLL:
+    """Check and build under the cross-process lock, then load this
+    process's private copy (removed once loaded: the mapping stays)."""
+    global _error
+    os.makedirs(PRIVATE_DIR, exist_ok=True)
+    with open(os.path.join(PRIVATE_DIR, "native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if _stale():
+                proc = subprocess.run(["make", "-C", CSRC], capture_output=True, text=True)
+                if proc.returncode != 0:
+                    _error = RuntimeError(f"make -C {CSRC} failed:\n"
+                                          f"{proc.stdout}\n{proc.stderr}")
+                    raise _error
+            private = _private_copy()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    try:
+        return ctypes.CDLL(private)
+    finally:
+        os.remove(private)
+
+
 def load() -> ctypes.CDLL:
     """The library handle, built first when missing or older than a
-    source. Raises with make's output when the build fails; make runs once
-    per process, and later calls raise the first failure again."""
-    global _lib, _error
+    source. Raises with make's output when the build fails (and again on
+    every later call); a load that fails otherwise is tried afresh on the
+    next call."""
+    global _lib
     with _lock:
         if _lib is None:
             if _error is not None:
                 raise _error
-            try:
-                if _stale():
-                    proc = subprocess.run(["make", "-C", CSRC],
-                                          capture_output=True, text=True)
-                    if proc.returncode != 0:
-                        raise RuntimeError(f"make -C {CSRC} failed:\n"
-                                           f"{proc.stdout}\n{proc.stderr}")
-                lib = ctypes.CDLL(LIB_PATH)
-            except (RuntimeError, OSError) as e:
-                _error = e
-                raise
+            lib = _build_and_load()
             _bind_audio(lib)
             _lib = lib
         return _lib

@@ -1,10 +1,12 @@
 """One-call deployment: model -> ready-to-tick SessionServer.
 
 Counterpart of puresound_tpu/streaming/deploy.py:40 (`make_session_server`):
-the time-domain TSE branch and the STFT-engine (NS) branch
-(`:119-122, 191-197`), with the pipelined and int16 (pcm16) transports
-(`:199-246`). The server owns a copy of the model (cast to bfloat16 when
-`half`), so the caller's module is never changed.
+the time-domain TSE branch, the STFT-engine (NS) branch and the SIMO (DSS)
+branch (`:119-122, 170-197`), with the pipelined and int16 (pcm16)
+transports (`:199-246`), and `run_serve` (`:247-285`), the recipes'
+`--action serve`: the server behind the TCP front of `socket_server`. The
+server owns a copy of the model (cast to bfloat16 when `half`), so the
+caller's module is never changed.
 """
 from __future__ import annotations
 
@@ -21,8 +23,9 @@ from .engine import StreamingTSE
 from .file_eval import build_engine, engine_step_options
 from .halfprec import to_half
 from .server import SessionServer, infer_slot_axes
+from .simo_engine import StreamingDSS
 
-__all__ = ["ServingBundle", "make_session_server"]
+__all__ = ["ServingBundle", "make_session_server", "run_serve"]
 
 
 @dataclass
@@ -32,8 +35,9 @@ class ServingBundle:
     server: SessionServer
     engine: torch.nn.Module
     chunk_samples: int
-    embed_fn: Optional[Callable]    # None for an unconditioned NS engine
+    embed_fn: Optional[Callable]    # None for an unconditioned NS / DSS engine
     embed_dim: Optional[int]
+    n_sources: int = 1              # > 1: SIMO separation, sources sample-interleaved
 
 
 def make_session_server(model, weights: Optional[dict], n_slots: int,
@@ -46,9 +50,12 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
                         ring_capacity: int = 1 << 16,
                         pcm16: bool = False,
                         pcm16_scale: float = 8192.0) -> ServingBundle:
-    """Build a SessionServer for a SoTaskWrapModule: TSE (FreeEncDec +
+    """Build a SessionServer for a SoTaskWrapModule, TSE (FreeEncDec +
     SkiM or causal ConvTasNet + speaker net) or NS (ConvEncDec + DPCRN /
-    DPARN).
+    DPARN), or for the DSS SiMoTaskWrapModule (ConvEncDec + DPARN_Mout),
+    whose step returns its M sources sample-interleaved, [B, S * M] (sample
+    s of source m at s * M + m), so that they ride each slot's one output
+    ring; `n_sources` of the bundle is the engine's M.
 
     Args:
         model: the offline wrapper (its device is the serving device).
@@ -67,10 +74,10 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
             for a TSE masker without a fused step.
         dp_kernel: NS only, the whole DPCRN bottleneck through
             `dual_path_chunk` (exclusive with fused).
-        attn_kernel: NS DPARN only, each block's intra pass through
-            `dparn_intra_pass` (combines with fused).
-        mk_kernel: NS only, the six stride-1 inner layers of a causal DPCRN
-            or DPARN through the wide-center kernel (`center_chunk` /
+        attn_kernel: a DPARN (NS) or DPARN_Mout (DSS) masker, each block's
+            intra pass through `dparn_intra_pass` (combines with fused).
+        mk_kernel: NS and DSS, the six stride-1 inner layers of a causal
+            DPCRN or DPARN through the wide-center kernel (`center_chunk` /
             `dparn_center_chunk`; exclusive with fused and dp_kernel).
         enroll_len: TSE enrollment length (samples) of the probe that reads
             the embedding width (default 5 s).
@@ -90,7 +97,8 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
         raise NotImplementedError(
             "mesh serving is not ported yet (ROADMAP queue 1 item 8: "
             "multi-device)")
-    if isinstance(model.encoder, FreeEncDec) and model.speaker_net is None:
+    if (isinstance(model.encoder, FreeEncDec)
+            and getattr(model, "speaker_net", None) is None):
         raise ValueError(
             "embedding-free TSE conditioning lives in the initial recurrent "
             "state; SessionServer cannot attach per-slot sessions for it")
@@ -159,6 +167,13 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
                 out, st = engine.step(to_dev(chunk_b), dvec.to(dt), st, **step_kw,
                                       **options)
                 return from_dev(out), st
+    elif isinstance(engine, StreamingDSS):
+        def step_fn(chunk_b, st, **options):
+            with torch.no_grad():
+                out, st = engine.step(to_dev(chunk_b), st, **step_kw, **options)
+                B, M, S = out.shape
+                # interleaved, then quantised under pcm16, as JAX's order
+                return from_dev(out.transpose(1, 2).reshape(B, S * M)), st
     else:
         def step_fn(chunk_b, st, **options):
             with torch.no_grad():
@@ -171,4 +186,43 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
                            ring_capacity=ring_capacity, pipelined=pipelined,
                            pcm16=pcm16, pcm16_scale=scale)
     return ServingBundle(server=server, engine=engine, chunk_samples=chunk,
-                         embed_fn=embed_fn, embed_dim=embed_dim)
+                         embed_fn=embed_fn, embed_dim=embed_dim,
+                         n_sources=getattr(engine, "n_sources", 1))
+
+
+def run_serve(model, weights: Optional[dict], n_slots: int, host: str = "0.0.0.0",
+              port: int = 7654, stats_every_s: float = 10.0, stop_event=None,
+              on_started=None, **kw) -> None:
+    """The recipes' `--action serve`: build the SessionServer
+    (make_session_server's keywords pass through), open the TCP front, and
+    print the `[serve]` telemetry lines every `stats_every_s` until Ctrl-C,
+    or until `stop_event` is set; `on_started(front, bundle)` and
+    `stop_event` let a test or an embedding program drive the live server."""
+    import time
+
+    from .socket_server import SocketServingFront
+
+    bundle = make_session_server(model, weights, n_slots, **kw)
+    front = SocketServingFront(bundle.server, host=host, port=port,
+                               n_sources=bundle.n_sources).start()
+    addr = front.address
+    if on_started is not None:
+        on_started(front, bundle)
+    mode = ("TSE (per-session enrollment)" if bundle.embed_fn else
+            f"SIMO x{bundle.n_sources}" if bundle.n_sources > 1 else "NS")
+    print(f"[serve] {mode} on {addr[0]}:{addr[1]} — {n_slots} slots, "
+          f"{bundle.chunk_samples} samples/tick "
+          f"({bundle.chunk_samples / (kw.get('sr', 16000) / 1000.0):.1f} ms)", flush=True)
+    try:
+        while stop_event is None or not stop_event.is_set():
+            time.sleep(stats_every_s if stop_event is None else 0.05)
+            if stop_event is None:
+                s = bundle.server.stats.snapshot()
+                print(f"[serve] active={bundle.server.n_active}/{n_slots} "
+                      f"ticks={s['ticks']} p50={s['tick_ms_p50']:.2f}ms "
+                      f"p99={s['tick_ms_p99']:.2f}ms "
+                      f"underruns={s['underrun_slot_ticks']}", flush=True)
+    except KeyboardInterrupt:
+        print("[serve] shutting down", flush=True)
+    finally:
+        front.stop()

@@ -2,7 +2,8 @@
 puresound_tpu/streaming/file_eval.py): run a waveform through a streaming
 engine in real-time-sized chunks and report the real-time factor
 (`stream_signal`, the recipes' `stream_eval`), the output delay, the kernel
-flags' validation, and the engine matching an offline wrapper."""
+flags' validation, and the engine matching an offline wrapper: StreamingTSE,
+StreamingNS, or StreamingDSS for a SIMO wrapper."""
 from __future__ import annotations
 
 import time
@@ -11,16 +12,21 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..nnet.base_nn import SiMoTaskWrapModule
 from ..nnet.dparn import _DPARNBase
 from ..nnet.encoder import ConvEncDec, FreeEncDec
 from .engine import StreamingTSE
 from .halfprec import to_half
 from .ns_engine import StreamingNS
+from .simo_engine import StreamingDSS
+
+#: the STFT-domain engines, which take the kernel-route flags
+_STFT_ENGINES = (StreamingNS, StreamingDSS)
 
 
 def engine_delay_samples(engine) -> int:
     """Samples by which the streamed output lags the input (to trim)."""
-    if isinstance(engine, StreamingNS):
+    if isinstance(engine, _STFT_ENGINES):
         hop = engine.encoder.hop_length
         mask_delay = getattr(engine.masker, "stream_delay_frames", 0)
         return (engine.encoder.fft_length - hop) + mask_delay * hop
@@ -38,9 +44,9 @@ def engine_step_options(engine, fused: bool = False, dp_kernel: bool = False,
     if sum(map(bool, (fused, dp_kernel, mk_kernel))) > 1:
         raise ValueError("fused / dp_kernel / mk_kernel are mutually exclusive "
                          "(each already fuses the bottleneck)")
-    if (fused or dp_kernel or mk_kernel) and not isinstance(engine, StreamingNS):
+    if (fused or dp_kernel or mk_kernel) and not isinstance(engine, _STFT_ENGINES):
         raise ValueError("fused/dp_kernel/mk_kernel apply to STFT-domain engines "
-                         f"(StreamingNS), not {type(engine).__name__}")
+                         f"(StreamingNS/StreamingDSS), not {type(engine).__name__}")
     if dp_kernel and not hasattr(engine.masker, "bottleneck_kernel_chunk"):
         raise ValueError("dp_kernel requires a DPCRN masker "
                          f"(got {type(engine.masker).__name__})")
@@ -73,7 +79,8 @@ def stream_signal(engine, wav: np.ndarray, sr: int, chunk_ms: float = 16.0,
     """Stream `wav` [L] through `engine` chunk by chunk, on the engine's
     device (JAX's `:69-157`).
 
-    Returns (enhanced [L] aligned with the input, real-time factor: audio
+    Returns (enhanced [L] aligned with the input, [M, L] for a SIMO
+    engine, and the real-time factor: audio
     seconds over wall seconds, > 1 faster than real time). One warm-up step
     on zeros runs first; the file then streams from a fresh state. The
     timed loop starts and ends with the card synchronised, so the RTF holds
@@ -105,6 +112,8 @@ def stream_signal(engine, wav: np.ndarray, sr: int, chunk_ms: float = 16.0,
                                       attn_kernel=attn_kernel, mk_kernel=mk_kernel)
     if isinstance(engine, StreamingNS):
         run = lambda c, s: engine.step(c, s, dvec, **kw)
+    elif isinstance(engine, StreamingDSS):
+        run = lambda c, s: engine.step(c, s, **kw)
     elif isinstance(engine, StreamingTSE):
         run = lambda c, s: engine.step(c, dvec, s)
     else:
@@ -124,11 +133,14 @@ def stream_signal(engine, wav: np.ndarray, sr: int, chunk_ms: float = 16.0,
         elapsed = time.perf_counter() - t0
         out = torch.cat(outs, dim=-1)[0].float().cpu().numpy()
     rtf = (n_chunks * chunk / sr) / max(elapsed, 1e-9)
-    return out[delay:delay + L], rtf
+    return out[..., delay:delay + L], rtf
 
 
 def build_engine(model):
-    """The streaming engine over an offline SoTaskWrapModule's submodules."""
+    """The streaming engine over an offline wrapper's submodules:
+    StreamingDSS for a SiMoTaskWrapModule, else by the encoder."""
+    if isinstance(model, SiMoTaskWrapModule):
+        return StreamingDSS.from_offline(model)
     if isinstance(model.encoder, ConvEncDec):
         return StreamingNS.from_offline(model)
     if isinstance(model.encoder, FreeEncDec):

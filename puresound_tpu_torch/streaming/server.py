@@ -103,6 +103,8 @@ class StreamHub:
         lib.hub_scatter.argtypes = [c.c_void_p, c.c_int64, f32p,
                                     c.POINTER(c.c_int8)]
         lib.hub_reset_stream.argtypes = [c.c_void_p, c.c_int]
+        lib.hub_output_dropped.argtypes = [c.c_void_p, c.c_int]
+        lib.hub_output_dropped.restype = c.c_int64
         lib._hub_bound = True
 
     def __del__(self):
@@ -131,6 +133,11 @@ class StreamHub:
     def output_available(self, stream_id: int) -> int:
         return int(self._lib.hub_output_available(self._hub, stream_id))
 
+    def output_dropped(self, stream_id: int) -> int:
+        """Samples `scatter` dropped on this stream's full output ring since
+        its last reset (a client that stopped reading)."""
+        return int(self._lib.hub_output_dropped(self._hub, stream_id))
+
     def reset_stream(self, stream_id: int):
         """Drop everything buffered in one stream's rings (slot reuse)."""
         self._lib.hub_reset_stream(self._hub, stream_id)
@@ -144,6 +151,9 @@ class StreamHub:
         return batch, mask.astype(bool), ready
 
     def scatter(self, batch: np.ndarray, mask: np.ndarray):
+        """Push row i of batch [n_streams, width] to stream i's output ring
+        where mask[i]; the width is the step's output per tick (chunk, or
+        chunk * M for M sample-interleaved sources)."""
         batch = np.ascontiguousarray(batch, np.float32)
         m = np.ascontiguousarray(mask.astype(np.int8))
         self._lib.hub_scatter(self._hub, batch.shape[1], self._fptr(batch),
@@ -280,8 +290,9 @@ class SessionServer(StreamingServer):
 
     step_fn(chunk [B, S] numpy, dvec [B, E] tensor, state) -> (out [B, S],
     state) for TSE, step_fn(chunk, state) for an engine without
-    conditioning (embed_dim None, e.g. NS); it is stateless and the server
-    owns the state. `fresh_state` is the engine's init_state(n_slots) and
+    conditioning (embed_dim None, e.g. NS; DSS returns [B, S * M], its M
+    sources sample-interleaved, and each slot's output ring takes S * M
+    samples a tick); it is stateless and the server owns the state. `fresh_state` is the engine's init_state(n_slots) and
     `slot_axes` its `infer_slot_axes`. A slot's state is reset at its
     session's first ready tick, so a session that joins mid-serving gets
     the output of a fresh engine fed the same audio. Each TSE session
@@ -366,6 +377,10 @@ class SessionServer(StreamingServer):
             self._active[sid] = False
             self._pending_reset[sid] = False
             self.hub.reset_stream(sid)
+
+    @property
+    def n_active(self) -> int:
+        return int(self._active.sum())
 
     # ------------------------------------------------------------------ tick
     def tick(self) -> int:

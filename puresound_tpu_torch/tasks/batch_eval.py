@@ -58,7 +58,8 @@ class BucketedBatchRunner:
 
     Args:
         fn: callable taking ``arity`` tensors, each ``[B, L_k]`` on
-            `device`, returning a tensor ``[B, ...]`` (extra axes allowed).
+            `device`, returning a tensor ``[B, ...]`` (extra axes allowed,
+            e.g. ``[B, M, T]`` from the SIMO separator).
         batch_size: fixed batch; short groups are padded up to it.
         quantum: bucket grid in samples, one int for all inputs or one per
             input (a coarser grid for enrollments keeps their continuously

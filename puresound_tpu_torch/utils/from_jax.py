@@ -5,7 +5,7 @@ port keeps PureSound's module and parameter names, so the flax tree maps
 onto them one module type at a time. Leaves may be numpy or jax arrays
 (anything `np.asarray` takes); this module never imports jax.
 
-    sd = from_jax(variables)               # a whole TSE or NS SoTaskWrapModule
+    sd = from_jax(variables)               # a whole TSE / NS wrapper or the DSS SIMO one
     model.load_state_dict(sd)
     grads = params_by_name(jax_grads)      # {name: array} like the params
     model.load_state_dict(for_model(sd, model))   # a checkpoint with extra keys
@@ -315,6 +315,13 @@ def so_wrapper_ns_dparn(variables: Mapping) -> Flat:
                   _prefix("masker", dparn(p["masker"], s.get("masker"))))
 
 
+def simo_wrapper_dss_dparn(variables: Mapping) -> Flat:
+    """The DSS SiMoTaskWrapModule (ConvEncDec + DPARN_Mout) or its
+    StreamingDSS: the tree of the NS DPARN wrapper, the last up conv's
+    output channels M-fold."""
+    return so_wrapper_ns_dparn(variables)
+
+
 def params_by_name(tree: Mapping) -> Flat:
     """A params-shaped pytree of a SoTaskWrapModule (its params, a
     gradient, an optimizer moment) -> {port parameter name: array}, each
@@ -326,8 +333,9 @@ def params_by_name(tree: Mapping) -> Flat:
 def flat_from_jax(variables: Mapping) -> Flat:
     """flax variables ({"params", "batch_stats"}) of a TSE (FreeEncDec +
     SkiM or ConvTasNet) or NS (ConvEncDec + DPCRN / DPARN) SoTaskWrapModule,
-    or of its streaming engine -> {state_dict name: np.ndarray}, told apart
-    by the masker's keys."""
+    of the DSS SiMoTaskWrapModule (ConvEncDec + DPARN_Mout), or of their
+    streaming engines -> {state_dict name: np.ndarray}, told apart by the
+    masker's keys (a DPARN and a DPARN_Mout share their names)."""
     masker = variables["params"]["masker"]
     if "tcn_list_0_0" in masker:
         return so_wrapper_td_conv_tasnet(variables)

@@ -455,7 +455,9 @@ def test_cli_defaults_to_the_card_and_other_actions_raise(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--backend cpu"):
             cli.main(cli.parse_args([str(cfg)]))
-    for argv in (["--action", "export_model"], ["--action", "serve"],
-                 ["--backend", "cpu", "--num_processes", "2"]):
+    for argv in (["--action", "export_model"], ["--backend", "cpu", "--num_processes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(cli.parse_args([str(cfg), *argv]))
+    # serve is ported: like every action but train it needs a checkpoint
+    with pytest.raises(ValueError, match="--ckpt is required"):
+        cli.main(cli.parse_args([str(cfg), "--action", "serve", "--backend", "cpu"]))

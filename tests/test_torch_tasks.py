@@ -417,9 +417,12 @@ def test_cli_defaults_to_the_card_and_unported_options_raise(tmp_path, manifest,
         with pytest.raises(RuntimeError, match="--backend cpu"):
             cli.main(cli.parse_args([cfg]))
     for argv in ([cfg, "--action", "tSNE"], [cfg, "--action", "export_model"],
-                 [cfg, "--action", "serve"], [cfg, "--backend", "cpu", "--num_processes", "2"]):
+                 [cfg, "--backend", "cpu", "--num_processes", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(cli.parse_args(argv))
+    # serve is ported: like every action but train it needs a checkpoint
+    with pytest.raises(ValueError, match="--ckpt is required"):
+        cli.main(cli.parse_args([cfg, "--action", "serve", "--backend", "cpu"]))
     from puresound_tpu_torch.zoo.tse import init_loss
 
     assert init_loss({"LOSS": {"sig_loss": "tsdr", "sig_threshold": -30}})[1] is None
