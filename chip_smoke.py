@@ -329,9 +329,31 @@ weights from a seed):
      routes (each source >= 60 dB from the offline inference of the
      zero-primed input) and `--half` (>= 25 dB); exact launches;
      `export_model` raises;
+  6j. the rest of the trainer. Synthetic corpora from the seed (8 coloured
+     noises of 2-6 s, 8 RIRs of 0.3 s). The host chain: vctk_dpcrn_1a.yaml
+     (noise, RIR early, volume, speed, frequency response), the Conv-TasNet
+     TSE `_1a` (the same, enroll_augment, inactive_training 0.2) and
+     dss_dparn_1a.yaml (noise, speed, volume) through their CLIs, each
+     beside the same config with augmentation off: 3 steps + 1 dev batch,
+     finite losses, exact launches, step p50, host gap and the loader's share
+     of it. The device chain: NS and TSE `_1a` with augment_on_device (step
+     p50, host gap), and one batch's draws from the task's generator applied
+     on the card and on the CPU in float64 (<= 1e-5 of max|ref|). Remat:
+     the flagship's B=64 x 2 s step and the causal Conv-TasNet's B=12 x 3 s
+     step (BatchNorm, dropout 0.1 in its masker) under remat False / True /
+     "dots" (the blocks recomputed one at a time), cuDNN deterministic:
+     gradients and new BatchNorm statistics bit-equal to remat=False, the
+     forward kernels twice a step under recomputation, step p50 and peak
+     memory a mode (True's below False's).
+     Resume: vctk_dpcrn_1a for 2 epochs straight == 1 epoch then resumed from
+     epoch_0.ckpt (parameters, Adam moments and steps, scheduler, logged
+     losses bit-equal). Data parallelism: `multihost.initialize` joins a NCCL
+     group of one process, and the data-parallel NS step equals the plain
+     one bit for bit over 2 steps (a two-process run needs two cards: a line
+     says it was not run);
   8. the kernels JSON line (phase 7's launches in `launches_7`, the new
      phases' in `launches_4k` / `_6g` / `_6h` / `_7b` / `_4l` / `_6i` /
-     `_7c`, the new shapes' times and bounds in `new_shapes`).
+     `_7c` / `_6j`, the new shapes' times and bounds in `new_shapes`).
 
 Each phase prints one line with its result and time; any failure raises and
 the run exits non-zero. The last line is
@@ -3006,7 +3028,10 @@ SETTING_ENTRIES = {"FUSED_PROJ_SCAN=False": {"hoisted": 10},
 #: alike; bf16, which differs between calls: same 0 / 0.99998 / 1.7e-2 -
 #: 2.4e-2 / 0.37 - 1.29, hoisted 5.1e-3 (one bf16 ulp) / 0.981 / 0.61 / 8.5
 #: - 32.5 (speaker_net.0.in_conv.2.weight), so no slope bar in bf16 (and a
-#: leaf of the opposite sign reads 2)
+#: leaf of the opposite sign reads 2). Those readings were taken with
+#: cuDNN's default algorithms, whose Conv1d weight gradient differs between
+#: two calls of one step; one bf16 "same" reading fell to cosine 0.99989
+#: that way. Both steps of a comparison now run with cuDNN deterministic.
 SETTING_BARS = {("f32", "same"): (1e-5, 0.99999, 1e-4, 1e-4),
                 ("f32", "hoisted"): (1e-5, 0.99999, 1e-2, 3e-2),
                 ("bf16", "same"): (2e-2, 0.9999, 0.1, None),
@@ -3055,6 +3080,19 @@ class lstm_switches:
         rnn.FUSED_PROJ_SCAN, skim.TM_BLOCKS = self.prev
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """`torch.backends.cudnn.deterministic` set for a `with` block, restored
+    after it: cuDNN's default Conv1d weight-gradient algorithm accumulates in
+    an order that changes between calls (phase 6c's determinism probe)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def one_step(dev, dtype, batch):
     """(loss, {name: gradient in float32}, (model, state, step)) after one
     step of a fresh flagship from SEED."""
@@ -3077,13 +3115,16 @@ def train_settings_phase(lk, tk, dev, card):
     """Phase 6c: the full-width flagship step (B=64 x 2 s) under each of
     TRAIN_SETTINGS, f32 and bf16: loss and every gradient against the
     default route's step from the same weights and batch (SETTING_BARS),
-    the LSTM launches by entry against SETTING_ENTRIES in every step, step
+    both steps with cuDNN deterministic, so that the comparison sees the
+    route and not cuDNN's order of accumulation; the timed steps run with
+    cuDNN as the caller set it. The LSTM launches by entry against SETTING_ENTRIES in every step, step
     p50 over 5 timed steps after 1, and the memory peak. The launches by
     entry of the 7 steps are returned for the kernels line."""
     results = {}
     batch = train_batch(TRAIN_B, TRAIN_SECONDS, dev)
     for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        ref_loss, ref_g, (model, _, _) = one_step(dev, dt, batch)
+        with deterministic_cudnn():
+            ref_loss, ref_g, (model, _, _) = one_step(dev, dt, batch)
         slopes = prelu_slopes(model)
         del model
         for setting, kw in TRAIN_SETTINGS.items():
@@ -3093,8 +3134,9 @@ def train_settings_phase(lk, tk, dev, card):
             with lstm_switches(**kw):
                 torch.cuda.reset_peak_memory_stats()
                 zero_counts(lk, tk)
-                loss, grads, (model, state, step) = one_step(dev, dt, batch)
-                torch.cuda.synchronize()
+                with deterministic_cudnn():
+                    loss, grads, (model, state, step) = one_step(dev, dt, batch)
+                    torch.cuda.synchronize()
                 expect_launches(entry_counts(lk), (want, want),
                                 f"{setting} {label} step, LSTM launches (fwd, bwd) by entry")
                 expect_launches(counts(lk, tk), (10, 10, 5, 5),
@@ -3335,10 +3377,10 @@ def run_recipe(lk, tk, module: str, cfg: str, backend: str) -> dict:
             copies.append(time.perf_counter() - t1)
             return out
 
-        def timed(state, batch):
+        def timed(state, batch, **kw):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            out = step(state, batch)
+            out = step(state, batch, **kw)
             torch.cuda.synchronize()
             spans.append((t1, time.perf_counter()))
             return out
@@ -3489,17 +3531,19 @@ RECIPE_1C_SPK, RECIPE_1C_UTTS = 12, 8       # the train manifest: speakers x utt
 NS_RECIPE_STEPS = 4                          # phase 6f: train batches in its epoch
 
 
-def shipped_config(path: str, tmp: str, train: str, dev: str, **train_kw) -> str:
+def shipped_config(path: str, tmp: str, train: str, dev: str, dataset=None,
+                   **train_kw) -> str:
     """The shipped config read from its file, with only the data paths, the
     output directories, num_epochs 1, the loader workers and the seed
-    overridden, written back into `tmp`."""
+    overridden (and `train_kw`'s TRAIN keys, `dataset`'s DATASET keys),
+    written back into `tmp`."""
     from puresound_tpu_torch.src.utils import dump_hparam, load_hparam
 
     hp = load_hparam(path)
-    hp["DATASET"].update(train=train, dev=dev, eval=None)
-    hp["TRAIN"].update(num_epochs=1, num_workers=4, seed=SEED,
-                       model_save_dir=os.path.join(tmp, "models"),
-                       log_dir=os.path.join(tmp, "logs"), **train_kw)
+    hp["DATASET"].update(train=train, dev=dev, eval=None, **(dataset or {}))
+    hp["TRAIN"].update(dict(dict(num_epochs=1, num_workers=4, seed=SEED,
+                                 model_save_dir=os.path.join(tmp, "models"),
+                                 log_dir=os.path.join(tmp, "logs")), **train_kw))
     out = os.path.join(tmp, os.path.basename(path))
     dump_hparam(hp, out)
     return out
@@ -4325,7 +4369,8 @@ def new_shapes_phase(ops, SkiM, lk, tk, dev, card) -> dict:
                 f"{lb} ms fwd/bwd kernel {r[f'{lb}_fwd_ms']:.3f}/{r[f'{lb}_bwd_ms']:.3f}, "
                 f"plain {r[f'{lb}_plain_fwd_ms']:.3f}/{r[f'{lb}_plain_bwd_ms']:.3f}, cuDNN "
                 f"{fmt(r[f'{lb}_lib_fwd_ms'])}/{fmt(r[f'{lb}_lib_bwd_ms'])}, bound "
-                f"{r[f'{lb}_fwd_bound'][0]:.4f}/{r[f'{lb}_bwd_bound'][0]:.4f}"
+                f"{r[f'{lb}_fwd_bound'][0]:.4g}/{r[f'{lb}_bwd_bound'][0]:.4g} "
+                f"({r[f'{lb}_fwd_bound'][1]}/{r[f'{lb}_bwd_bound'][1]})"
                 for lb in ("f32", "bf16")) + f" [{card}]", t)
     return out
 
@@ -5379,6 +5424,418 @@ def eval_7c_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 6j
+#: phase 6j's shipped configs, read from their files
+SHIPPED_6J = {"ns": "egs/ns/conf/vctk_dpcrn_1a.yaml", "tse": SHIPPED_TSE[0],
+              "dss": SHIPPED_DSS}
+AUG_STEPS = 3                    # train steps a run (step_gaps needs three)
+AUG_VOL = "0.5,1.5"              # vol_perturbed's range
+AUG_DEVICE_BAR = 1e-5            # card vs CPU apply, max|d| / max|ref|
+#: the runs' launches a step (LSTM, TCN), forward and backward alike
+AUG_LAUNCHES = {"ns": (6, 0), "tse": (0, 26), "dss": (2, 0)}
+REMAT_TASNET_B, REMAT_TASNET_SECONDS = 12, 3.0   # the causal Conv-TasNet's step
+REMAT_TIMED = 3                  # timed steps a remat mode, after the compared one
+RESUME_STEPS = 2                 # train batches an epoch in the resume check
+DP_B, DP_SECONDS = 16, 3.0       # the world-of-one step (vctk_dpcrn_1a's batch)
+
+
+def write_noise_corpus(folder: str, seed: int, n: int = 8) -> str:
+    """n files of 2-6 s of coloured noise at 16 kHz: white noise through a
+    one-pole low-pass whose pole is drawn per file."""
+    from scipy.io import wavfile
+    from scipy.signal import lfilter
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n):
+        a = rng.uniform(0.5, 0.98)
+        x = lfilter([1 - a], [1, -a], rng.standard_normal(int(16000 * rng.uniform(2, 6))))
+        wavfile.write(os.path.join(folder, f"noise_{i}.wav"), 16000,
+                      (0.3 * x / np.abs(x).max() * 32767).astype(np.int16))
+    return folder
+
+
+def write_rir_corpus(folder: str, seed: int, n: int = 8) -> str:
+    """n impulse responses of 0.3 s at 16 kHz: a direct-path peak after a
+    drawn delay, then an exponentially decaying noise tail."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    L = int(0.3 * 16000)
+    for i in range(n):
+        peak = int(rng.integers(20, 200))
+        h = np.zeros(L)
+        h[peak] = 0.9
+        t = np.arange(L - peak - 1)
+        h[peak + 1:] = 0.3 * rng.standard_normal(t.size) * np.exp(-t / rng.uniform(400, 1600))
+        wavfile.write(os.path.join(folder, f"rir_{i}.wav"), 16000,
+                      (np.clip(h, -1, 1) * 32767).astype(np.int16))
+    return folder
+
+
+def aug_dataset(kind: str, mode: str, corpora) -> dict:
+    """The DATASET keys of a 6j run: every host option of the kind on
+    (`host`), RIR / noise / volume in the step (`device`), or none (`off`)."""
+    noise, rir = corpora
+    off = {"noise_folder": None, "vol_perturbed": None, "speed_perturbed": False}
+    if kind != "dss":
+        off.update(rir_folder=None, rir_mode=None, perturb_frequency_response=False,
+                   augment_on_device=False)
+    if kind == "tse":    # inactive draws in every mode: only augmentation differs
+        off.update(enroll_augment=False, inactive_training=0.2)
+    if mode == "off":
+        return off
+    on = {"noise_folder": noise, "vol_perturbed": AUG_VOL}
+    if kind == "dss":
+        return dict(off, **on, speed_perturbed=True)
+    on.update(rir_folder=rir, rir_mode="early")
+    if mode == "device":
+        return dict(off, **on, augment_on_device=True)
+    on.update(speed_perturbed=True, perturb_frequency_response=True)
+    if kind == "tse":
+        on.update(enroll_augment=True, inactive_training=0.2)
+    return dict(off, **on)
+
+
+def aug_run(lk, tk, kind: str, mode: str, corpora, dev, backend: str) -> dict:
+    """One 6j recipe run (AUG_STEPS steps + 1 dev batch) through its CLI:
+    finite losses, exact launches, the checkpoint reloading; its step p50
+    and host gap."""
+    import tempfile
+
+    from puresound_tpu_torch.src.utils import load_hparam
+
+    conf = SHIPPED_6J[kind]
+    steps = AUG_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        if kind == "ns":
+            mk, module = write_ns_manifest, "puresound_tpu_torch.egs.ns.main"
+        elif kind == "tse":
+            mk, module = write_tse_manifest, "puresound_tpu_torch.egs.tse.main"
+        else:
+            mk, module = write_dss_manifest, "puresound_tpu_torch.egs.dss.main"
+        B = load_hparam(conf)["TRAIN"]["batch_size"]
+        path = shipped_config(conf, tmp, mk(os.path.join(tmp, "train"), B * steps, SEED + 150),
+                              mk(os.path.join(tmp, "dev"), B, SEED + 151),
+                              dataset=aug_dataset(kind, mode, corpora))
+        hp = load_hparam(path)
+        res = run_recipe(lk, tk, module, path, backend)
+        lstm, tcn = AUG_LAUNCHES[kind]
+        got = res["launches"]
+        expect_launches(got, (lstm * (steps + 1), lstm * steps, tcn * (steps + 1),
+                              tcn * steps), f"6j {kind} {mode}, LSTM and TCN (fwd, bwd)")
+        if kind == "ns":
+            from puresound_tpu_torch.zoo.ns import init_model
+
+            fresh = init_model(hp["MODEL"]["type"], device=dev)
+        elif kind == "tse":
+            from puresound_tpu_torch.zoo.tse import init_loss, init_model
+
+            fresh = init_model(hp["MODEL"]["type"], *init_loss(hp, device=dev), device=dev)
+        else:
+            from puresound_tpu_torch.egs.dss.main import build_model
+
+            fresh = build_model(hp, device=dev)
+        recipe_checks(res, steps, dev, fresh, f"6j {kind} {mode}")
+    g = step_gaps(res, steps, 1)
+    return dict(g, launches=got, trainer=res["trainer"], losses=res["losses"], hp=hp,
+                audio_s=B * hp["DATASET"]["max_length"])
+
+
+def device_chain_check(trainer, dev) -> dict:
+    """One batch's draws from the task's generator, applied on the card and
+    by the plain path on the CPU in float64: max|d| / max|ref| of the input,
+    the target and (TSE) the enrollment."""
+    from puresound_tpu_torch.src.augment_torch import DeviceAugmentor
+
+    aug = trainer.device_augmentor
+    ds = trainer.hparam["DATASET"]
+    B, L = trainer.hparam["TRAIN"]["batch_size"], int(16000 * ds["max_length"])
+    rng = np.random.default_rng(SEED + 152)
+    clean = 0.1 * rng.standard_normal((B, L))
+    sig = {"noisy": clean + 0.05 * rng.standard_normal((B, L)), "clean": clean,
+           "enroll": 0.1 * rng.standard_normal((B, L))}
+    draws = aug.draw(trainer.augment_generator, B)
+    inactive = torch.from_numpy(rng.random(B) < 0.3)
+    card = aug.apply(*(torch.from_numpy(sig[k]).float().to(dev) for k in ("noisy", "clean")),
+                     draws, vol_extra=[torch.from_numpy(sig["enroll"]).float().to(dev)],
+                     inactive=inactive.to(dev))
+    cpu_aug = DeviceAugmentor(**dict(trainer._augmentor_kwargs(), device="cpu"))
+    ref = cpu_aug.apply(*(torch.from_numpy(sig[k]) for k in ("noisy", "clean")),
+                        {k: v.cpu() for k, v in draws.items()},
+                        vol_extra=[torch.from_numpy(sig["enroll"])], inactive=inactive)
+    rel = {name: ((a.double().cpu() - b).abs().max() / b.abs().max()).item()
+           for name, a, b in (("input", card[0], ref[0]), ("target", card[1], ref[1]),
+                              ("enroll", card[2][0], ref[2][0]))}
+    if not all(r <= AUG_DEVICE_BAR for r in rel.values()):
+        raise AssertionError(f"6j device chain: card vs CPU {rel} > {AUG_DEVICE_BAR}")
+    used = {k: int(v.sum()) for k, v in draws.items() if v.dtype == torch.bool}
+    return {"rel": rel, "used": used, "B": B, "L": L}
+
+
+def augmentation_phase(lk, tk, dev, card, backend: str = "cuda") -> dict:
+    """Phase 6j (augmentation): each config without augmentation and with
+    every host option on (the loader's chain, 4 fork'd workers), then NS and
+    TSE with augment_on_device (RIR, noise, volume in the step), and one
+    batch of the device chain on the card against the CPU."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpora = (write_noise_corpus(os.path.join(tmp, "noise"), SEED + 153),
+                   write_rir_corpus(os.path.join(tmp, "rir"), SEED + 154))
+        for kind, modes in (("ns", ("off", "host", "device")), ("tse", ("off", "host", "device")),
+                            ("dss", ("off", "host"))):
+            for mode in modes:
+                t = time.perf_counter()
+                r = aug_run(lk, tk, kind, mode, corpora, dev, backend)
+                hp, trainer = r.pop("hp"), r.pop("trainer")
+                extra = ""
+                if mode == "device":
+                    r["check"] = device_chain_check(trainer, dev)
+                    extra = (f"; one batch's draws (B={r['check']['B']} x "
+                             f"{r['check']['L']}, used {r['check']['used']}) applied on the "
+                             f"card vs the CPU's float64: max|d|/max|ref| " + ", ".join(
+                                 f"{k} {v:.2e}" for k, v in r["check"]["rel"].items())
+                             + f" (bar {AUG_DEVICE_BAR:g})")
+                share = r["wait_p50"] / r["gap_p50"] if r["gap_p50"] > 0 else float("nan")
+                opts = [k for k, v in aug_dataset(kind, mode, corpora).items() if v]
+                log("6j augmentation", f"{SHIPPED_6J[kind]} ({hp['MODEL']['type']}), "
+                    f"augmentation {mode} ({', '.join(opts) or 'none'}), B="
+                    f"{hp['TRAIN']['batch_size']} x {hp['DATASET']['max_length']} s, "
+                    f"{AUG_STEPS} steps + 1 dev batch, 4 loader workers: "
+                    f"losses {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; "
+                    + gap_text(r, AUG_STEPS, 1, r["audio_s"])
+                    + f"; the loader's share of the gap {100 * share:.1f} %; launches "
+                    f"LSTM fwd/bwd {r['launches'][:2]}, TCN {r['launches'][2:]}{extra} [{card}]",
+                    t)
+                out[(kind, mode)] = r
+    return out
+
+
+def tasnet_remat_model(dev, gen):
+    """The causal Conv-TasNet TSE model (BatchNorm blocks) on SI-SNR, its
+    masker's TCN blocks at dropout 0.1 (no zoo model sets one; the speaker
+    net's gLN blocks keep none, so they stay on tcn_block_train)."""
+    from puresound_tpu_torch.nnet.conv_tasnet import TCN
+    from puresound_tpu_torch.nnet.loss.sdr import SDRLoss
+    from puresound_tpu_torch.zoo import init_tse_model
+
+    model = init_tse_model("td_tse_conv_tasnet_v0_causal", sig_loss=SDRLoss.init_mode("sisnr"),
+                           device=dev, generator=gen)
+    for block in model.masker.modules():
+        if isinstance(block, TCN):
+            block.drop.p = 0.1
+    return model
+
+
+def remat_phase(lk, tk, dev, card) -> dict:
+    """Phase 6j (remat): the flagship's B=64 x 2 s step and the causal
+    Conv-TasNet's B=12 x 3 s step (BatchNorm, dropout 0.1) under remat
+    False / True / "dots" (the blocks recomputed one at a time in the
+    backward), cuDNN held to its deterministic algorithms: one step from the
+    same state a mode, its gradients and new BatchNorm statistics bit-equal
+    to remat=False's, the kernels' forwards twice a step under
+    recomputation, remat=True's peak below remat=False's; then the step p50
+    and peak memory a mode."""
+    from puresound_tpu_torch.parallel import TrainState, make_train_step
+
+    cases = (("flagship", lambda: train_parts(dev, torch.Generator().manual_seed(SEED))[0],
+              lambda: train_batch(TRAIN_B, TRAIN_SECONDS, dev), (10, 10, 5, 5)),
+             ("causal Conv-TasNet", lambda: tasnet_remat_model(
+                 dev, torch.Generator().manual_seed(SEED + 155)),
+              lambda: train_batch(REMAT_TASNET_B, REMAT_TASNET_SECONDS, dev), (0, 0, 5, 5)))
+    out = {}
+    with deterministic_cudnn():
+        for label, build, batch_of, per_step in cases:
+            t = time.perf_counter()
+            batch = batch_of()
+            runs = {}
+            for mode in (False, True, "dots"):
+                model = build()
+                state = TrainState(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+                step = make_train_step(model, grad_clip=10.0, remat=mode)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts(lk, tk)
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                got = counts(lk, tk)
+                grads = [p.grad.clone() for p in model.parameters()]
+                stats = [b.clone() for b in model.buffers()]
+                times = []
+                for _ in range(REMAT_TIMED):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    step(state, batch)
+                    torch.cuda.synchronize()
+                    times.append(1e3 * (time.perf_counter() - t1))
+                total = counts(lk, tk)
+                want = per_step if mode is False else (2 * per_step[0], per_step[1],
+                                                       2 * per_step[2], per_step[3])
+                expect_launches(got, want, f"6j remat {label} {mode}, LSTM and TCN (fwd, bwd)")
+                runs[mode] = {"loss": float(m["loss"]), "grads": grads, "stats": stats,
+                              "peak_gib": peak / 2 ** 30, "step_p50": float(np.median(times)),
+                              "step_launches": got, "launches": total}
+                del model, state, step
+                torch.cuda.empty_cache()
+            base = runs[False]
+            for mode in (True, "dots"):
+                r = runs[mode]
+                if not (all(map(torch.equal, r["grads"], base["grads"]))
+                        and all(map(torch.equal, r["stats"], base["stats"]))):
+                    raise AssertionError(f"6j remat {label} {mode}: gradients or statistics "
+                                         "differ from remat=False")
+            if not runs[True]["peak_gib"] < base["peak_gib"]:
+                raise AssertionError(f"6j remat {label}: remat=True peak "
+                                     f"{runs[True]['peak_gib']:.2f} GiB not below "
+                                     f"{base['peak_gib']:.2f}")
+            n_stats = sum(s.numel() for s in base["stats"])
+            log("6j remat", f"{label} B={batch['noisy'].shape[0]} x "
+                f"{batch['noisy'].shape[1] / 16000:g} s, cuDNN deterministic: remat True / "
+                f"'dots' gradients ({len(base['grads'])} tensors) and new BatchNorm "
+                f"statistics ({n_stats} values) bit-equal to remat=False; " + "; ".join(
+                    f"remat {mode}: step p50 {r['step_p50']:.3f} ms, peak "
+                    f"{r['peak_gib']:.2f} GiB, launches in the compared step LSTM fwd/bwd "
+                    f"{r['step_launches'][:2]}, TCN {r['step_launches'][2:]}"
+                    for mode, r in runs.items()) + f" [{card}]", t)
+            out[label] = {str(k): {kk: v for kk, v in r.items() if kk not in ("grads", "stats")}
+                          for k, r in runs.items()}
+            del runs, batch
+    return out
+
+
+def resume_phase(lk, tk, dev, card, backend: str = "cuda") -> dict:
+    """Phase 6j (resume): vctk_dpcrn_1a.yaml through the NS CLI for 2 epochs
+    straight, and for 1 epoch then resumed from epoch_0.ckpt for the second,
+    cuDNN deterministic: parameters, buffers, Adam's moments and steps, the
+    scheduler and the bookkeeping bit-equal after epoch 2."""
+    import tempfile
+
+    conf = SHIPPED_6J["ns"]
+    t = time.perf_counter()
+    with deterministic_cudnn():
+        with tempfile.TemporaryDirectory() as tmp:
+            train = write_ns_manifest(os.path.join(tmp, "train"), 16 * RESUME_STEPS, SEED + 156)
+            dv = write_ns_manifest(os.path.join(tmp, "dev"), 16, SEED + 157)
+            runs = {}
+            for label, sub, kw in (("straight", "a", dict(num_epochs=2)),
+                                   ("first", "b", dict(num_epochs=1)),
+                                   ("resumed", "b", dict(num_epochs=2, resume_epoch=1))):
+                os.makedirs(os.path.join(tmp, sub), exist_ok=True)
+                path = shipped_config(conf, os.path.join(tmp, sub), train, dv, **kw)
+                runs[label] = run_recipe(lk, tk, "puresound_tpu_torch.egs.ns.main", path,
+                                         backend)
+    a, b = runs["straight"]["trainer"], runs["resumed"]["trainer"]
+    diff = [n for (n, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values())
+            if not torch.equal(x, y)]
+    moments = 0
+    for pa, pb in zip(a.model.parameters(), b.model.parameters()):
+        sa, sb = a.state.optimizer.state[pa], b.state.optimizer.state[pb]
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            moments += 1
+            if not torch.equal(sa[k].cpu(), sb[k].cpu()):
+                diff.append(f"adam {k}")
+    if diff or a.scheduler.state_dict() != b.scheduler.state_dict() \
+            or (a.overall_step, a.state.step) != (b.overall_step, b.state.step):
+        raise AssertionError(f"6j resume: the resumed run differs: {diff[:5]}, scheduler "
+                             f"{a.scheduler.state_dict()} vs {b.scheduler.state_dict()}")
+    # the resumed run appends to the first run's metrics.jsonl
+    losses = {k: r["losses"] for k, r in runs.items()}
+    if losses["resumed"] != losses["straight"] or len(losses["first"]) != RESUME_STEPS:
+        raise AssertionError(f"6j resume: losses {losses}")
+    n = NS_TRAIN_LAUNCHES[a.hparam["MODEL"]["type"]]
+    got = [runs[k]["launches"] for k in ("straight", "first", "resumed")]
+    expect_launches(got[0], (2 * n * (RESUME_STEPS + 1), 2 * n * RESUME_STEPS, 0, 0),
+                    "6j resume straight, LSTM and TCN (fwd, bwd)")
+    log("6j resume", f"python -m puresound_tpu_torch.egs.ns.main {conf} --action train, "
+        f"{RESUME_STEPS} steps + 1 dev batch an epoch, cuDNN deterministic: 2 epochs "
+        f"straight == 1 epoch then TRAIN.resume_epoch 1 from epoch_0.ckpt: "
+        f"{len(a.model.state_dict())} state tensors, {moments} Adam tensors, the scheduler "
+        f"{a.scheduler.state_dict()}, step {a.state.step}, the {len(losses['straight'])} "
+        f"logged losses bit-equal; launches straight / first / resumed {got} [{card}]", t)
+    return {"launches": tuple(map(sum, zip(*got))), "losses": losses["straight"]}
+
+
+def data_parallel_phase(lk, tk, dev, card) -> dict:
+    """Phase 6j (data parallelism): `multihost.initialize` joins a NCCL
+    group of one process on the card, and the data-parallel step (BatchNorm
+    and the loss on the global batch, the gradients all-reduced) of the NS
+    model of vctk_dpcrn_1a (ns_dpcrn_v0_causal, B=16 x 3 s, dropout 0.1,
+    stft_ov) equals the
+    plain step bit for bit over 2 steps. A two-process run needs two
+    cards."""
+    import socket
+
+    from puresound_tpu_torch.parallel import make_train_step, multihost
+
+    t = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0, dev)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        if backend != "nccl" or multihost.process_count() != 1:
+            raise AssertionError(f"6j data parallel: backend {backend}, world "
+                                 f"{multihost.process_count()}")
+        batch = ns_batch(DP_B, DP_SECONDS, dev)
+        runs = []
+        for dp in (False, True):
+            model, state, step = ns_train_parts("ns_dpcrn_v0_causal", dev,
+                                                torch.Generator().manual_seed(SEED + 158))
+            if dp:
+                step = make_train_step(model, grad_clip=10.0, data_parallel=True)
+            zero_counts(lk, tk)
+            losses = []
+            for _ in range(2):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            runs.append((losses, [p.detach().clone() for p in model.parameters()],
+                         [b.clone() for b in model.buffers()], counts(lk, tk)))
+        (l0, p0, b0, c0), (l1, p1, b1, c1) = runs
+        n = NS_TRAIN_LAUNCHES["ns_dpcrn_v0_causal"]
+        expect_launches(c1, (2 * n, 2 * n, 0, 0), "6j data-parallel step, LSTM and TCN (fwd, bwd)")
+        if l0 != l1 or not all(map(torch.equal, p0, p1)) or not all(map(torch.equal, b0, b1)):
+            raise AssertionError(f"6j data parallel: losses {l0} vs {l1}, or parameters / "
+                                 "statistics differ")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        multihost.shutdown()
+    log("6j data parallel", f"multihost.initialize: NCCL group of 1 process on {dev}; "
+        f"ns_dpcrn_v0_causal B={DP_B} x {DP_SECONDS:g} s, stft_ov, dropout 0.1, 2 steps through "
+        f"make_train_step(data_parallel=True) == the plain step bit for bit (losses {l1}, "
+        f"{len(p1)} parameters, {len(b1)} buffers); launches {c1} [{card}]", t)
+    log("6j data parallel", f"two processes not run: this machine has "
+        f"{torch.cuda.device_count()} card(s) and NCCL takes one process per card; the "
+        "two-process step is held against one process on the CPU (gloo) by "
+        "tests/test_torch_multiprocess.py", time.perf_counter())
+    return {"launches": tuple(a + b for a, b in zip(c0, c1)), "losses": l1}
+
+
+def trainer_phase(lk, tk, dev, card, backend: str = "cuda") -> dict:
+    """Phase 6j: the rest of the trainer (augmentation, remat, resume, data
+    parallelism); returns each kernel's launches over it."""
+    aug = augmentation_phase(lk, tk, dev, card, backend)
+    rem = remat_phase(lk, tk, dev, card)
+    res = resume_phase(lk, tk, dev, card, backend)
+    dp = data_parallel_phase(lk, tk, dev, card)
+    total = [0, 0, 0, 0]
+    for r in list(aug.values()) + [res, dp] + [m for c in rem.values() for m in c.values()]:
+        for i, v in enumerate(r["launches"]):
+            total[i] += v
+    return {"augmentation": aug, "remat": rem, "resume": res, "data_parallel": dp,
+            "launches": {"lstm_scan_train_fp fwd": total[0], "lstm_scan_train_fp bwd": total[1],
+                         "tcn_block_train fwd": total[2], "tcn_block_train bwd": total[3]}}
+
+
 def run(dev: torch.device) -> int:
     t0 = time.perf_counter()
     from puresound_tpu_torch.ops import _build
@@ -5934,6 +6391,8 @@ def run(dev: torch.device) -> int:
         evals_7c = eval_7c_phase(lk, tk, dev, card, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+    # 6j. the rest of the trainer: augmentation, remat, resume, data parallelism
+    launches_6j = trainer_phase(lk, tk, dev, card)["launches"]
     sock = dss_serve["socket"]
     dss_by_slots = dss_serve["serving"]
     # each kernel's launches in phases 4l / 6i / 7c
@@ -6227,10 +6686,11 @@ def run(dev: torch.device) -> int:
             "bf16_snr_db": r["bf16_snr_db"], "bf16_control_snr_db": r["bf16_control_snr_db"],
             "shape": r["shape"]})
     for k in kernels:
-        # the DSS phases' launches, by the kernel's name ("... (forward)" /
+        # the DSS phases' and 6j's launches, by the kernel's name ("... (forward)" /
         # "(backward)" as fwd / bwd)
         key = k["name"].replace(" (forward)", " fwd").replace(" (backward)", " bwd")
-        for phase, table in (("4l", launches_4l), ("6i", launches_6i), ("7c", launches_7c)):
+        for phase, table in (("4l", launches_4l), ("6i", launches_6i), ("7c", launches_7c),
+                             ("6j", launches_6j)):
             k[f"launches_{phase}"] = table.get(key, 0)
             k["launches"] += table.get(key, 0)
     print(json.dumps({"kernels": kernels}))

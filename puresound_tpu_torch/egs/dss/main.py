@@ -15,8 +15,11 @@ the JAX package's) honouring `TRAIN.model_average`. dev prints each
 utterance's SI-SNR of the near and the far output and their means; eval
 and stream_eval write `<key>_near.wav` / `<key>_far.wav`; stream_eval
 takes `--half`, `--fused` and `--mk_kernel`; serve opens the TCP front,
-each session's two sources sample-interleaved. export_model and
-`--num_processes > 1` are not ported yet and raise.
+each session's two sources sample-interleaved. The host augmentation chain
+(noise_folder, speed_perturbed, vol_perturbed), TRAIN.remat and
+multi-process training (`--num_processes --process_id --coordinator`, one
+process per card) work as in the TSE recipe; augment_on_device raises, as
+JAX's DSS recipe fails on it. export_model is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ from ...tasks.dss import DssCollateFunc, DssDataset, DssTask
 from ...utils.init import generator_or_default
 from ...zoo.tse import _device as _model_device
 from ..tse.main import NOT_PORTED as TSE_NOT_PORTED
-from ..tse.main import _device, _open, _tensor, check_action
+from ..tse.main import (_open, _tensor, add_process_args, check_action, loader_kwargs,
+                       run_main)
 
 ACTIONS = ("train", "dev", "eval", "stream_eval", "serve", "export_model")
 NOT_PORTED = {"export_model": TSE_NOT_PORTED["export_model"]}
@@ -78,7 +82,7 @@ def init_dataloader(hparam):
                    noise_folder=ds.get("noise_folder"), vol_perturbed=ds.get("vol_perturbed"),
                    speed_perturbed=ds.get("speed_perturbed", False)),
         batch_size=train["batch_size"], shuffle=True, collate_fn=DssCollateFunc(),
-        num_workers=int(train.get("num_workers", 0)), seed=train.get("seed"))
+        num_workers=int(train.get("num_workers", 0)), **loader_kwargs(train))
     return make(ds["train"]), make(ds["dev"])
 
 
@@ -231,9 +235,12 @@ def action_serve(hparam, device, ckpt, chunk_ms, n_slots, port, half=False, fuse
 
 def main(config):
     check_action(config, NOT_PORTED)
-    device = _device(config.backend)
     hparam = load_hparam(config.config_path)
     create_folder(hparam["TRAIN"]["model_save_dir"])
+    return run_main(config, hparam, lambda device: _run(config, hparam, device))
+
+
+def _run(config, hparam, device):
     if config.action == "train":
         return action_train(hparam, device)
     if config.action == "dev":
@@ -251,9 +258,7 @@ def main(config):
 
 
 def parse_args(argv=None):
-    """JAX's DSS flags (`egs/dss/main.py:312-353`), with `--backend cuda|cpu`
-    (multi-process training's `--coordinator` / `--process_id` wait with
-    `--num_processes`, ROADMAP queue 1 item 2)."""
+    """JAX's DSS flags (`egs/dss/main.py:312-353`), with `--backend cuda|cpu`."""
     parser = argparse.ArgumentParser()
     parser.add_argument("config_path", type=str)
     parser.add_argument("--action", type=str, default="train", choices=ACTIONS)
@@ -278,7 +283,7 @@ def parse_args(argv=None):
     parser.add_argument("--eval_quantum", type=float, default=1.0,
                         help="batch_eval: the length buckets' grid in seconds")
     parser.add_argument("--ckpt", type=str, default=None)
-    parser.add_argument("--num_processes", type=int, default=1)
+    add_process_args(parser)
     return parser.parse_args(argv)
 
 

@@ -13,8 +13,10 @@ raises where torch sees no card. dev / eval / stream_eval load `--ckpt`
 `TRAIN.model_average`; stream_eval and serve take the engine's kernel
 routes (`--fused`, `--dp_kernel`, `--attn_kernel`, `--mk_kernel`). serve
 opens the TCP front on `--port` with `--serve_slots` sessions, each
-attached by an empty HELLO. export_model and `--num_processes > 1` are not
-ported yet and raise.
+attached by an empty HELLO. Augmentation (host chain or
+augment_on_device), TRAIN.remat and multi-process training (`--num_processes
+--process_id --coordinator`, one process per card) work as in the TSE
+recipe. export_model is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ from ...tasks.batch_eval import BucketedBatchRunner
 from ...tasks.ns import NsCollateFunc, NsDataset, NsTask
 from ...zoo.ns import init_loss, init_model
 from ..tse.main import NOT_PORTED as TSE_NOT_PORTED
-from ..tse.main import (_detail_scores, _device, _open, _tensor, add_eval_args,
-                       add_serve_args, check_action)
+from ..tse.main import (_detail_scores, _open, _tensor, add_eval_args,
+                       add_process_args, add_serve_args, check_action, loader_kwargs,
+                       on_device_split, run_main)
 
 ACTIONS = ("train", "dev", "eval", "stream_eval", "serve", "export_model")
 NOT_PORTED = {"export_model": TSE_NOT_PORTED["export_model"]}
@@ -51,8 +54,8 @@ def init_dataloader(hparam):
         perturb_frequency_response=ds.get("perturb_frequency_response", False),
         vol_perturbed=ds.get("vol_perturbed"))
     kw = dict(batch_size=train["batch_size"], shuffle=True, collate_fn=NsCollateFunc(),
-              num_workers=int(train.get("num_workers", 0)), seed=train.get("seed"))
-    return (DataLoader(NsDataset(folder=ds["train"], **common), **kw),
+              num_workers=int(train.get("num_workers", 0)), **loader_kwargs(train))
+    return (DataLoader(NsDataset(folder=ds["train"], **on_device_split(ds, common)), **kw),
             DataLoader(NsDataset(folder=ds["dev"], **common), **kw))
 
 
@@ -189,9 +192,12 @@ def action_serve(hparam, device, ckpt, chunk_ms, n_slots, port, half=False, fuse
 
 def main(config):
     check_action(config, NOT_PORTED)
-    device = _device(config.backend)
     hparam = load_hparam(config.config_path)
     create_folder(hparam["TRAIN"]["model_save_dir"])
+    return run_main(config, hparam, lambda device: _run(config, hparam, device))
+
+
+def _run(config, hparam, device):
     if config.action == "train":
         return action_train(hparam, device)
     if config.action == "dev":
@@ -215,7 +221,7 @@ def parse_args(argv=None):
     parser.add_argument("config_path", type=str)
     parser.add_argument("--action", type=str, default="train", choices=ACTIONS)
     parser.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"])
-    parser.add_argument("--num_processes", type=int, default=1)
+    add_process_args(parser)
     add_eval_args(parser)
     add_serve_args(parser)
     parser.add_argument("--fused", action="store_true",

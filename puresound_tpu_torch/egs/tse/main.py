@@ -16,16 +16,26 @@ TRAIN.model_save_dir, the port's or the JAX package's) honouring
 N` batches dev / eval N utterances at a time in length buckets. serve opens
 the TCP front (`streaming.socket_server`) on `--port` with `--serve_slots`
 sessions, each enrolled by its HELLO (a d-vector or an enrollment
-waveform); `--fused` serves the SkiM stack through `fused_skim_frames`.
-tSNE, export_model and `--num_processes > 1` are not ported yet and raise.
+waveform); `--fused` serves the SkiM stack through `fused_skim_frames`
+(its chunk's frames must divide SkiM's seg_size: `--chunk_ms 15` for the
+shipped configs). The DATASET keys turn on the host augmentation chain
+(noise_folder, rir_folder / rir_mode, vol_perturbed, speed_perturbed,
+perturb_frequency_response, enroll_augment) or, with augment_on_device,
+RIR, noise and volume in the step; TRAIN.remat recomputes the forward in
+the backward. `--num_processes N --process_id i --coordinator host:port`
+trains data-parallel, one process per card (NCCL; gloo with `--backend
+cpu`), with TRAIN.multi_gpu: true as JAX's recipes ask. tSNE and
+export_model are not ported yet and raise.
 """
 from __future__ import annotations
 
 import argparse
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ...parallel import multihost
 from ...src.audio import AudioIO
 from ...src.metrics import Metrics
 from ...src.sampler import SpeakerSampler
@@ -46,13 +56,35 @@ NOT_PORTED = {
     "export_model": "queue 1 item 8: utils/export.py on torch.export"}
 
 
-def _device(backend: str) -> torch.device:
+def _device(backend: str, process_id: Optional[int] = None) -> torch.device:
+    """The CPU, or the card (card process_id modulo the cards seen in a
+    multi-process run: one process per card)."""
     if backend == "cpu":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("--backend cuda (the default) needs a CUDA card and "
                            "torch sees none; pass --backend cpu to run on the CPU")
-    return torch.device("cuda")
+    if process_id is None:
+        return torch.device("cuda")
+    return torch.device("cuda", process_id % torch.cuda.device_count())
+
+
+def loader_kwargs(train) -> Dict:
+    """The seed, and in a multi-process run this process's shard of every
+    global batch (JAX's `egs/tse/main.py:100-105`)."""
+    if multihost.process_count() > 1:
+        return dict(shard=(multihost.process_index(), multihost.process_count()),
+                    seed=int(train.get("seed") or 0))
+    return dict(seed=train.get("seed"))
+
+
+def on_device_split(ds, common: Dict) -> Dict:
+    """The train set's dataset options: with augment_on_device, RIR, noise
+    and volume move into the step (the dev set keeps the host chain, so dev
+    losses compare across modes)."""
+    if not ds.get("augment_on_device"):
+        return common
+    return dict(common, noise_folder=None, rir_folder=None, vol_perturbed=None)
 
 
 def init_dataloader(hparam):
@@ -68,7 +100,8 @@ def init_dataloader(hparam):
         enroll_rule=ds.get("enroll_rule"),
         is_vad_dataset=ds["type"].lower() == "pvad")
     train_ds = TseDataset(folder=ds["train"], single_spk_pb=ds["single_spk_prob"],
-                          inactive_training=ds["inactive_training"], **common)
+                          inactive_training=ds["inactive_training"],
+                          **on_device_split(ds, common))
     dev_ds = TseDataset(folder=ds["dev"], single_spk_pb=0.0, inactive_training=0.0,
                         **common)
     n_work = int(train.get("num_workers", 0))
@@ -82,7 +115,7 @@ def init_dataloader(hparam):
             collate_fn=TseCollateFunc(), num_workers=n_work, seed=train.get("seed"))
         return loader(train_ds), loader(dev_ds)
     kw = dict(batch_size=train["batch_size"], shuffle=True, collate_fn=TseCollateFunc(),
-              num_workers=n_work, seed=train.get("seed"))
+              num_workers=n_work, **loader_kwargs(train))
     return DataLoader(train_ds, **kw), DataLoader(dev_ds, **kw)
 
 
@@ -302,25 +335,52 @@ def action_serve(hparam, device, ckpt, chunk_ms, n_slots, port, half=False, fuse
 
 
 def check_action(config, not_ported=NOT_PORTED) -> None:
-    """Raise for an action or option that is not ported, and for a missing
-    --ckpt (every action but train needs one, `egs/tse/main.py:467-469`)."""
+    """Raise for an action that is not ported, for --num_processes > 1 with
+    another action than train, and for a missing --ckpt (every action but
+    train needs one, `egs/tse/main.py:448-469`)."""
     if config.action in not_ported:
         raise NotImplementedError(f"--action {config.action} is not ported yet "
                                   f"(ROADMAP {not_ported[config.action]})")
-    if config.num_processes > 1:
-        raise NotImplementedError(
-            "--num_processes > 1 (multi-process training) is not ported yet "
-            "(ROADMAP queue 1 item 2: DDP)")
+    if config.num_processes > 1 and config.action != "train":
+        raise ValueError("--num_processes > 1 applies to --action train")
     if config.action != "train" and not config.ckpt:
         raise ValueError(f"--ckpt is required for --action {config.action} "
                          "(a filename under TRAIN.model_save_dir)")
 
 
+def join_processes(config, hparam) -> torch.device:
+    """This process's device; with --num_processes > 1 the process group
+    joined first (contrastive batches refused, as JAX's recipe does)."""
+    if config.num_processes <= 1:
+        return _device(config.backend)
+    if hparam["TRAIN"].get("contrastive_learning"):
+        raise NotImplementedError("SpeakerSampler batches are not process-sharded; "
+                                  "use one process for contrastive training")
+    device = _device(config.backend, config.process_id)
+    multihost.initialize(config.coordinator, config.num_processes, config.process_id,
+                         device)
+    return device
+
+
+def run_main(config, hparam, run) -> object:
+    """`run(device)` in this process, inside the process group when there
+    is one (left at the end)."""
+    device = join_processes(config, hparam)
+    try:
+        return run(device)
+    finally:
+        if config.num_processes > 1:
+            multihost.shutdown()
+
+
 def main(config):
     check_action(config)
-    device = _device(config.backend)
     hparam = load_hparam(config.config_path)
     create_folder(hparam["TRAIN"]["model_save_dir"])
+    return run_main(config, hparam, lambda device: _run(config, hparam, device))
+
+
+def _run(config, hparam, device):
     if config.action == "train":
         return action_train(hparam, device)
     if config.action == "dev":
@@ -364,12 +424,23 @@ def add_serve_args(parser) -> None:
                              "(half the transfer bytes; the conversions on the card)")
 
 
+def add_process_args(parser) -> None:
+    """The multi-process flags, with JAX's defaults."""
+    parser.add_argument("--coordinator", type=str, default="localhost:12345",
+                        help="multi-process training: process 0's address host:port")
+    parser.add_argument("--num_processes", type=int, default=1,
+                        help="multi-process training: total process count (one "
+                             "process per card; launch this CLI once per process)")
+    parser.add_argument("--process_id", type=int, default=0,
+                        help="multi-process training: this process's rank")
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("config_path", type=str)
     parser.add_argument("--action", type=str, default="train", choices=ACTIONS)
     parser.add_argument("--backend", type=str, default="cuda", choices=["cuda", "cpu"])
-    parser.add_argument("--num_processes", type=int, default=1)
+    add_process_args(parser)
     add_eval_args(parser)
     add_serve_args(parser)
     parser.add_argument("--fused", action="store_true",

@@ -22,6 +22,7 @@ from ..ops.tcn_train_kernel import tcn_block_train
 from ..utils.init import generator_or_default
 from .lobe.activation import PReLU
 from .lobe.cnn import Conv1d, DepthwiseSeparableConv1d
+from .lobe.dropout import Dropout
 from .lobe.norm import GlobLN, GroupNorm1, get_norm
 
 
@@ -57,9 +58,6 @@ class TCN(nn.Module):
                  device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dropout:
-            raise NotImplementedError(
-                "TCN dropout is not ported (every zoo model passes 0)")
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
         self.kernel, self.dilation = kernel, dilation
@@ -70,18 +68,21 @@ class TCN(nn.Module):
         self.dconv = nn.Sequential(DepthwiseSeparableConv1d(
             hid_channels, hid_channels, norm_cls=dconv_norm, kernel=kernel,
             dilation=dilation, causal=causal, generator=g, **fk))
+        # after the DSConv, as JAX's `drop` (no zoo model sets it)
+        self.drop = Dropout(dropout, generator=g)
         self.out_conv = Conv1d(hid_channels, in_channels, 1, generator=g, **fk)
 
     def fused_params(self):
         """The block's parameters in `tcn_block_train`'s order, or None when
         the block is not one the kernel takes (other norms, an even kernel,
         an embedding input or causal padding: the kernel's residual has no
-        embedding channels and its depthwise conv is centred)."""
+        embedding channels and its depthwise conv is centred) or dropout (the
+        kernel has none between the DSConv and the output conv)."""
         ds = self.dconv[0]
         norms = [_gain_bias(n) for n in (self.in_conv[1], ds.depthwise[1],
                                          ds.pointwise[1])]
         if (any(n is None for n in norms) or self.kernel % 2 == 0 or self.emb_dim
-                or self.causal):
+                or self.causal or self.drop.p):
             return None
         (g1, b1), (g2, b2), (g3, b3) = norms
         return (self.in_conv[0].weight[:, :, 0], g1, b1, self.in_conv[2].weight,
@@ -94,7 +95,7 @@ class TCN(nn.Module):
         params = self.fused_params() if embed is None else None
         if params is not None:
             return tcn_block_train(x, *params, dilation=self.dilation)
-        return self.out_conv(self.dconv(self.in_conv(_with_embed(x, embed)))) + x
+        return self.out_conv(self.drop(self.dconv(self.in_conv(_with_embed(x, embed))))) + x
 
     @property
     def ctx_frames(self) -> int:

@@ -7,6 +7,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ...parallel import remat
 from ...utils.init import generator_or_default
 
 
@@ -32,7 +33,7 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.p):
             return x
-        seed = int(torch.randint(2 ** 62, (), generator=self.generator))
+        seed = remat.dropout_seed(self.generator)
         keep = torch.rand(x.shape, generator=self._mask_generator(x.device).manual_seed(seed),
                           device=x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,

@@ -14,6 +14,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ...parallel import multihost, remat
 from ...utils.init import const
 
 
@@ -93,7 +94,9 @@ class BatchNorm(nn.Module):
     JAX's weak-typed scalar does. When the new stats keep the buffers'
     dtype they are written in place; otherwise (bfloat16 buffers given to
     `torch.func.functional_call`) the buffers are rebound to the float32
-    result, which the caller reads back.
+    result, which the caller reads back. Inside `multihost.global_batch`
+    the statistics are the global batch's (the moments all-reduced); a
+    recomputation under `TRAIN.remat` leaves the running stats alone.
     """
 
     momentum = 0.1
@@ -123,12 +126,24 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = (0,) + tuple(range(2, x.dim()))
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
             n = x.numel() // x.shape[1]
-            with torch.no_grad():
-                self._update("running_mean", mean)
-                self._update("running_var", var * n / max(n - 1, 1))
+            if multihost.syncing():
+                # the global batch's statistics (data parallelism): the mean
+                # over processes of their local moments, every process holding
+                # as many rows (the lockstep loader); a world of one is exact
+                world = multihost.process_count()
+                moments = multihost.all_reduce_sum(
+                    torch.stack([xf.mean(dim=dims), (xf * xf).mean(dim=dims)])) / world
+                n *= world
+                mean = moments[0]
+                var = (moments[1] - mean * mean).clamp_min(0.0)
+            else:
+                mean = xf.mean(dim=dims)
+                var = ((xf * xf).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            if not remat.recomputing():
+                with torch.no_grad():
+                    self._update("running_mean", mean)
+                    self._update("running_var", var * n / max(n - 1, 1))
         else:
             mean, var = self.running_mean, self.running_var
         rstd = torch.rsqrt(var.reshape(shape) + self.eps)

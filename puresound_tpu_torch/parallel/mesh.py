@@ -7,9 +7,10 @@ its parameters and the step count. `make_train_step` returns
 
 - mixed precision: with `compute_dtype`, every float32 parameter, buffer and
   batch tensor is cast to it and the forward and backward run on the casts
-  (through `torch.func.functional_call`; not `torch.autocast`, which keeps
-  chosen ops in float32). The gradients reach the masters through the cast;
-  the loss and the new running statistics come back in float32;
+  (the module reparametrised on them for the forward and the backward; not
+  `torch.autocast`, which keeps chosen ops in float32). The gradients reach
+  the masters through the cast; the loss and the new running statistics
+  come back in float32;
 - the global-norm clip `min(1, clip / max(norm, 1e-12))`, `grad_norm` being
   the norm before clipping;
 - `accum_steps` micro-batches split on the leading axis, their gradients and
@@ -23,8 +24,20 @@ new state: the optimizer writes the parameters in place, the running
 statistics are copied into the module's buffers, and each parameter's
 `.grad` holds the gradient that was applied (clipped, zeroed on a skip).
 Nothing reads back to the host: the metrics are 0-d tensors on the
-model's device. Sharding (`mesh`, `tp`), rematerialisation (`remat`) and
-in-step augmentation (`augment_fn`) are not ported yet (ROADMAP queue 1).
+model's device.
+
+- `augment_fn(generator, batch) -> batch` runs on the batch's device before
+  the forward (the on-device chain, `src.augment_torch`), its draws from
+  the generator the step is given;
+- `remat` (True / "dots") recomputes the model's blocks in the backward,
+  one at a time (`parallel.remat`), with the same dropout masks and one
+  running-statistics update;
+- `data_parallel`: the step runs inside `multihost.global_batch` (BatchNorm
+  and the losses on the global batch) and averages the gradients across
+  processes before the clip, the non-finite check and the optimizer.
+
+Sharding over a device mesh (`mesh`, `tp`) is not ported (ROADMAP queue 1
+item 8).
 """
 from __future__ import annotations
 
@@ -33,7 +46,10 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
-from torch.func import functional_call
+from torch.nn.utils.stateless import _reparametrize_module
+
+from . import multihost
+from .remat import check_mode, regions
 
 
 def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -65,27 +81,27 @@ class TrainState:
         return self
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"make_train_step({name}=...) is not ported yet (ROADMAP queue 1: "
-        "the trainer; queue 1 item 8: multi-device)")
-
-
 def make_train_step(model: nn.Module, loss_kwargs: Optional[Dict] = None,
                     grad_clip: Optional[float] = None, compute_dtype=None,
                     accum_steps: int = 1, skip_nonfinite: bool = False, *,
                     mesh=None, tp: bool = False, remat=False,
-                    augment_fn: Optional[Callable] = None) -> Callable:
-    """step(state, batch) -> (state, metrics) for a wrapper whose forward
-    returns its training loss (or (loss, details)); `batch` is a dict of
-    forward kwargs (noisy / enroll / ref_clean / ...). The metrics are
-    `loss`, `grad_norm`, `skipped` (with `skip_nonfinite`) and `loss_i`
-    for each loss detail."""
-    for name, value in (("mesh", mesh), ("tp", tp), ("remat", remat),
-                        ("augment_fn", augment_fn)):
+                    augment_fn: Optional[Callable] = None,
+                    data_parallel: bool = False) -> Callable:
+    """step(state, batch, generator=None) -> (state, metrics) for a wrapper
+    whose forward returns its training loss (or (loss, details)); `batch`
+    is a dict of forward kwargs (noisy / enroll / ref_clean / ...), and
+    `generator` feeds `augment_fn`. The metrics are `loss`, `grad_norm`,
+    `skipped` (with `skip_nonfinite`) and `loss_i` for each loss detail."""
+    for name, value in (("mesh", mesh), ("tp", tp)):
         if value:
-            _not_ported(name)
+            raise NotImplementedError(
+                f"make_train_step({name}=...) is not ported yet (ROADMAP queue 1 "
+                "item 8: multi-device)")
+    if data_parallel and not multihost.dist.is_initialized():
+        raise ValueError("data_parallel needs multihost.initialize first")
     loss_kwargs = loss_kwargs or {}
+
+    check_mode(remat)
 
     def cast(t):
         if (compute_dtype is not None and isinstance(t, torch.Tensor)
@@ -106,12 +122,13 @@ def make_train_step(model: nn.Module, loss_kwargs: Optional[Dict] = None,
         tensors = {n: cast(p) for n, p in params.items()}
         bufs = {n: cast(b) for n, b in stats.items()}
         tensors.update(bufs)
-        out = functional_call(net, tensors, (),
-                              {**{k: cast(v) for k, v in batch.items()},
-                               **loss_kwargs}, strict=True)
-        loss, detail = out if isinstance(out, tuple) else (out, None)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
+        # the module runs on `tensors` through the backward too, where
+        # remat's blocks are recomputed
+        with _reparametrize_module(net, tensors, strict=True), regions(net, remat):
+            out = net(**{k: cast(v) for k, v in batch.items()}, **loss_kwargs)
+            loss, detail = out if isinstance(out, tuple) else (out, None)
+            grads = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params.values(), grads)]
         # BatchNorm updated the buffers it was given (in place, or rebound
@@ -121,10 +138,20 @@ def make_train_step(model: nn.Module, loss_kwargs: Optional[Dict] = None,
         detail = None if detail is None else [as_f32(d) for d in detail]
         return as_f32(loss), detail, grads, new_stats
 
-    def step(state: TrainState, batch: Dict):
+    def grads_of(net, params, stats, batch):
+        if not data_parallel:
+            return micro(net, params, stats, batch)
+        with multihost.global_batch(net):
+            return micro(net, params, stats, batch)
+
+    def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None):
         net = state.model
         if net is not model:
             raise ValueError("the state holds another module than the step's")
+        if augment_fn is not None:
+            if generator is None:
+                raise ValueError("a step with augment_fn needs its generator")
+            batch = augment_fn(generator, batch)
         was_training = net.training
         net.train()
         params = dict(net.named_parameters())
@@ -134,7 +161,7 @@ def make_train_step(model: nn.Module, loss_kwargs: Optional[Dict] = None,
             pieces = {k: split(v) for k, v in batch.items()}
             grads, loss, details = None, 0.0, []
             for i in range(accum_steps):
-                mloss, mdetail, mgrads, stats = micro(
+                mloss, mdetail, mgrads, stats = grads_of(
                     net, params, stats, {k: v[i] for k, v in pieces.items()})
                 grads = mgrads if grads is None else [
                     a + b for a, b in zip(grads, mgrads)]
@@ -145,8 +172,10 @@ def make_train_step(model: nn.Module, loss_kwargs: Optional[Dict] = None,
             detail = (None if details[0] is None else
                       [torch.stack(d).mean(0) for d in zip(*details)])
         else:
-            loss, detail, grads, stats = micro(net, params, stats, batch)
+            loss, detail, grads, stats = grads_of(net, params, stats, batch)
         net.train(was_training)
+        if data_parallel:
+            grads = multihost.all_reduce_mean(grads)
 
         gnorm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))

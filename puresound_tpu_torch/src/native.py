@@ -1,5 +1,5 @@
 """Loader of the repository's C++ host library (csrc/): the ring hub, the
-audio decoders and the polyphase resampler.
+audio decoders, the polyphase resampler and the biquad filter.
 
 The same `csrc/libpuresound_audio.so` that puresound_tpu/src/native.py
 loads, found and built (`make -C csrc`) here so that this package never
@@ -67,6 +67,8 @@ def _bind_audio(lib: ctypes.CDLL) -> None:
     lib.ps_resample_poly_f32.argtypes = [f32p, ctypes.c_int64, ctypes.c_int64,
                                          ctypes.c_int64, f32p]
     lib.ps_resample_poly_f32.restype = ctypes.c_int
+    lib.ps_biquad_f32.argtypes = [f32p, f32p, f32p, ctypes.c_int64, f32p]
+    lib.ps_biquad_f32.restype = None
 
 
 def _stat(path: str) -> Tuple[int, int]:
@@ -177,3 +179,23 @@ def resample_poly(x: np.ndarray, up: int, down: int) -> np.ndarray:
         if rc != 0:
             raise ValueError(f"ps_resample_poly_f32 failed ({rc})")
     return out.reshape(lead + (ny,))
+
+
+def biquad(b: np.ndarray, a: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """lfilter(b, a, x) for an order-2 IIR along the last axis, float32
+    (direct form II transposed, zero initial state)."""
+    lib = load()
+    a = np.ascontiguousarray(a, np.float32)
+    b = np.ascontiguousarray(b, np.float32)
+    if a.shape != (3,) or b.shape != (3,):
+        raise ValueError("biquad expects 3-tap a/b")
+    if a[0] != 1.0:
+        b = b / a[0]
+        a = a / a[0]
+    x = np.ascontiguousarray(x, np.float32)
+    lead = x.shape[:-1]
+    flat = x.reshape(-1, x.shape[-1])
+    out = np.empty_like(flat)
+    for r in range(flat.shape[0]):
+        lib.ps_biquad_f32(b, a, flat[r], flat.shape[1], out[r])
+    return out.reshape(lead + (flat.shape[1],))

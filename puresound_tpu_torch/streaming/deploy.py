@@ -122,7 +122,17 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
             raise ValueError(f"fused=True needs a masker with a fused step (SkiM); "
                              f"{type(engine.masker).__name__} has none")
         seg = getattr(engine.masker, "seg_size", None)
-        if seg is not None and (chunk // hop) % seg:
+        frames = chunk // hop
+        if fused in (None, True) and has_fused and seg % frames:
+            # the fused step needs whole chunks in a segment; JAX asserts it
+            # only at the first tick, which kills the serving thread
+            works = ", ".join(f"{f * hop * 1000 / sr:g}" for f in range(1, seg + 1)
+                              if seg % f == 0)
+            raise ValueError(
+                f"the fused SkiM step needs the chunk's {frames} frames to divide "
+                f"seg_size {seg}; chunk_ms={chunk_ms:g} does not. Chunk lengths "
+                f"that work at hop {hop} and {sr} Hz (ms): {works}")
+        if seg is not None and frames % seg:
             warnings.warn(
                 f"chunk of {chunk // hop} frames does not cover whole SkiM "
                 f"segments (seg_size={seg}): sessions attached mid-serving will "

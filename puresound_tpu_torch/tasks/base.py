@@ -14,9 +14,14 @@ parameters, the buffers (JAX's `batch_stats`), the optimizer state, the
 bookkeeping (`meta`) and the scheduler, with JAX's resume semantics.
 The eval-time loaders (`load_params_from_ckpt`, `resolve_eval_params`,
 `average_checkpoints`, JAX's `:733-806`) read these and the JAX package's
-flax-msgpack checkpoints alike, told apart by their first bytes. Resuming
-training from a JAX checkpoint (its optimizer state) is not ported (ROADMAP
-queue 1 item 2).
+flax-msgpack checkpoints alike, told apart by their first bytes, and so does
+`load_ckpt`: training resumes from a JAX checkpoint with its parameters,
+batch statistics, optax's Adam moments and count, learning rate, scheduler
+and bookkeeping. The port's own checkpoints also hold the states of the
+model's dropout generator and of the task's augmentation generator, so a
+resumed run draws what the straight run would. In a multi-process run
+(`parallel.multihost`) the loader takes its process's rows of each global
+batch (`shard=`) and only the primary writes checkpoints and logs.
 """
 from __future__ import annotations
 
@@ -30,9 +35,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel import multihost
 from ..src.utils import create_folder, load_text_as_dict
 from ..utils import flax_ckpt
-from ..utils.from_jax import flat_from_jax, for_model, to_torch
+from ..utils.from_jax import flat_from_jax, for_model, params_by_name, to_torch
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +243,13 @@ class DataLoader:
     `random` / `np.random` states are put back after each one, so neither
     the batches nor the sampler's next draws depend on num_workers (JAX's
     process pool gives the same batches); without `seed` a random base is
-    drawn per loader (fork'd workers never share one RNG stream)."""
+    drawn per loader (fork'd workers never share one RNG stream).
+
+    `shard=(process_id, n_processes)` makes the loader one process's part of
+    a multi-process run, as JAX's: `batch_size` is the global batch, every
+    process draws the same global order (so shuffling needs `seed`) and
+    takes its contiguous batch_size / n_processes rows, and a short last
+    batch is padded by wrapping around, so every process steps in lockstep."""
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  collate_fn: Optional[Callable] = None, num_workers: int = 0,
@@ -245,11 +257,18 @@ class DataLoader:
                  prefetch: int = 2, seed: Optional[int] = None,
                  shard: Optional[tuple] = None):
         if shard is not None:
+            rank, world = shard
             if batch_sampler is not None:
                 raise ValueError("shard= is incompatible with batch_sampler")
-            raise NotImplementedError(
-                "DataLoader(shard=...) (multi-process training) is not ported "
-                "yet (ROADMAP queue 1 item 2: DDP)")
+            if shuffle and seed is None:
+                raise ValueError("sharded loading requires seed= so every "
+                                 "process shuffles identically")
+            if batch_size % world:
+                raise ValueError(f"batch_size {batch_size} must divide by "
+                                 f"n_processes {world}")
+            if not 0 <= rank < world:
+                raise ValueError(f"process_id {rank} outside 0..{world - 1}")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -279,8 +298,15 @@ class DataLoader:
                 random.shuffle(idx)
         for i in range(0, len(idx), self.batch_size):
             b = idx[i:i + self.batch_size]
-            if len(b) < self.batch_size and self.drop_last:
-                continue
+            if len(b) < self.batch_size:
+                if self.drop_last:
+                    continue
+                if self.shard is not None:      # lockstep: pad, never ragged
+                    b = (b * ((self.batch_size - 1) // len(b) + 1))[:self.batch_size]
+            if self.shard is not None:
+                rank, world = self.shard
+                per = self.batch_size // world
+                b = b[rank * per:(rank + 1) * per]
             yield b
 
     def __len__(self):
@@ -376,6 +402,34 @@ def checkpoint_state(filename: str) -> Dict[str, torch.Tensor]:
     raise ValueError(f"{filename}: neither a torch.save checkpoint nor a flax msgpack one")
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _find_adam(tree) -> Dict:
+    """The one ScaleByAdamState of a restored optax state (a dict with the
+    fields count, mu and nu), wherever the chain nests it."""
+    found = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            if set(t) == {"count", "mu", "nu"}:
+                found.append(t)
+                return
+            for v in t.values():
+                walk(v)
+
+    walk(tree)
+    if len(found) != 1:
+        raise ValueError(f"{len(found)} ScaleByAdamState in the checkpoint's "
+                         "optimizer state; resuming needs exactly one")
+    return found[0]
+
+
 def _f32(lr: float) -> float:
     """The learning rate as JAX holds it (a float32 hyperparameter)."""
     return float(np.float32(lr))
@@ -395,7 +449,7 @@ class BaseTrainer:
         self.best_epoch = np.inf
         self.overall_step = 0
         self.build_optim()
-        if hparam["TRAIN"].get("use_tensorboard"):
+        if hparam["TRAIN"].get("use_tensorboard") and multihost.is_primary():
             self.tf_writer = TensorboardWriter(hparam["TRAIN"]["log_dir"])
         else:
             self.tf_writer = None
@@ -451,6 +505,21 @@ class BaseTrainer:
         return self._lr
 
     # ---------------------------------------------------------- checkpoints
+    def _generators(self) -> Dict[str, torch.Generator]:
+        """The generators a resumed run must continue: the model's dropout
+        generator (one per distinct generator, in module order) and the
+        task's augmentation generator."""
+        out: Dict[str, torch.Generator] = {}
+        seen = set()
+        for m in self.model.modules():
+            g = getattr(m, "generator", None)
+            if isinstance(g, torch.Generator) and id(g) not in seen:
+                seen.add(id(g))
+                out[f"model_{len(seen) - 1}"] = g
+        if getattr(self, "augment_generator", None) is not None:
+            out["augment"] = self.augment_generator
+        return out
+
     def _ckpt_tree(self, epoch, loss) -> Dict:
         params = dict(self.model.named_parameters())
         state = self.model.state_dict()
@@ -468,6 +537,7 @@ class BaseTrainer:
                      "overall_step": int(self.overall_step),
                      "step": int(self.state.step)},
             "scheduler": self.scheduler.state_dict(),
+            "rng": {k: g.get_state() for k, g in self._generators().items()},
         }
 
     def save_ckpt(self, filename: str, epoch: int, loss: Dict) -> None:
@@ -482,7 +552,17 @@ class BaseTrainer:
             f.write(f"best_dev_loss: {self.best_loss}\n")
 
     def load_ckpt(self, filename: str) -> Tuple[int, float, float]:
-        tree = torch.load(filename, map_location=self.device, weights_only=True)
+        """Resume from the port's checkpoint or the JAX package's (a flax
+        msgpack map, told apart by its first bytes)."""
+        with open(filename, "rb") as f:
+            data = f.read()
+        if flax_ckpt.is_msgpack_map(data):
+            return self._load_jax_ckpt(flax_ckpt.msgpack_restore(data))
+        tree = torch.load(io.BytesIO(data), map_location=self.device, weights_only=True)
+        gens = self._generators()
+        for k, st in tree.get("rng", {}).items():
+            if k in gens:
+                gens[k].set_state(st.cpu())
         state = dict(tree["params"])
         state.update(tree["batch_stats"])
         self.model.load_state_dict(state, strict=True)
@@ -493,6 +573,55 @@ class BaseTrainer:
         self.overall_step = int(meta["overall_step"])
         self.state.step = int(meta["step"])
         self.scheduler.load_state_dict(tree["scheduler"])
+        self.set_learning_rate(float(meta["learning_rate"]))
+        return int(meta["epoch"]), float(meta["learning_rate"]), float(meta["loss"])
+
+    def _load_jax_ckpt(self, tree: Dict) -> Tuple[int, float, float]:
+        """JAX's `load_ckpt` (puresound_tpu/tasks/base.py:710-730) on the
+        port: the parameters and batch statistics by the converter of
+        `utils.from_jax`; optax's ScaleByAdamState (found by its fields
+        count / mu / nu in the restored tree) into each parameter's Adam
+        `exp_avg` / `exp_avg_sq` / `step`, the moments laid out by
+        `params_by_name` as the weights are; the learning rate, best loss
+        and epoch, step count and scheduler from the tree. A moment leaf
+        the converter does not carry over one to one raises."""
+        state = to_torch(flat_from_jax({"params": tree["params"],
+                                        "batch_stats": tree.get("batch_stats") or {}}))
+        self.model.load_state_dict(for_model(state, self.model), strict=True)
+        adam = _find_adam(tree["opt_state"])
+        params = dict(self.model.named_parameters())
+        moments = {}
+        for key in ("mu", "nu"):
+            flat = params_by_name(adam[key])
+            n_jax = sum(np.asarray(a).size for a in _leaves(adam[key]))
+            if set(flat) != set(params) or n_jax != sum(a.size for a in flat.values()):
+                extra = sorted(set(flat) ^ set(params))
+                raise ValueError(
+                    f"optax {key!r}: {n_jax} values in the checkpoint, "
+                    f"{sum(a.size for a in flat.values())} mapped onto the "
+                    f"model's {len(params)} parameters (unmatched: {extra[:4]})")
+            for n, a in flat.items():
+                if a.shape != tuple(params[n].shape):
+                    raise ValueError(f"optax {key!r} {n}: {a.shape} != "
+                                     f"{tuple(params[n].shape)}")
+            moments[key] = flat
+        count = int(np.asarray(adam["count"]))
+        scalar = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+        opt = self.state.optimizer
+        for n, p in params.items():
+            opt.state[p] = {"step": torch.tensor(float(count), dtype=scalar),
+                            "exp_avg": torch.as_tensor(moments["mu"][n]).to(p),
+                            "exp_avg_sq": torch.as_tensor(moments["nu"][n]).to(p)}
+        self.state.step = count
+        meta = tree["meta"]
+        self.best_loss = float(meta["best_loss"])
+        be = float(meta["best_epoch"])
+        self.best_epoch = np.inf if be < 0 else be
+        self.overall_step = int(meta["overall_step"])
+        if "scheduler" in tree:
+            self.scheduler.load_state_dict(
+                {k: (int(v) if k in ("step_count", "bad_epochs") else float(v))
+                 for k, v in tree["scheduler"].items()})
         self.set_learning_rate(float(meta["learning_rate"]))
         return int(meta["epoch"]), float(meta["learning_rate"]), float(meta["loss"])
 
@@ -585,11 +714,12 @@ class BaseTrainer:
                 self.tf_writer.update_ep_loss("train/avg_dev_loss",
                                               dev_loss["total_loss"], epoch)
 
-            save_dir = self.hparam["TRAIN"]["model_save_dir"]
-            create_folder(save_dir)
-            self.save_ckpt(os.path.join(save_dir, f"epoch_{epoch}.ckpt"), epoch, loss)
-            self.save_ckpt_info(os.path.join(save_dir, f"epoch_{epoch}.info"),
-                                epoch, lr, loss)
+            if multihost.is_primary():
+                save_dir = self.hparam["TRAIN"]["model_save_dir"]
+                create_folder(save_dir)
+                self.save_ckpt(os.path.join(save_dir, f"epoch_{epoch}.ckpt"), epoch, loss)
+                self.save_ckpt_info(os.path.join(save_dir, f"epoch_{epoch}.info"),
+                                    epoch, lr, loss)
 
             if epoch >= self.hparam["OPTIMIZER"]["num_epochs_decay"]:
                 new_lr = self.scheduler.step(
@@ -597,5 +727,6 @@ class BaseTrainer:
                     if self.hparam["OPTIMIZER"]["lr_scheduler"] == "Plateau" else None)
                 self.set_learning_rate(new_lr)
 
-            self.gen_logging(epoch=epoch, prefix="")
+            if multihost.is_primary():
+                self.gen_logging(epoch=epoch, prefix="")
             self.early_stopping(current_epoch=epoch, stop_criterion=25)

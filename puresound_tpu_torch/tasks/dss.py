@@ -5,8 +5,10 @@ puresound_tpu/tasks/dss.py: `DssCollateFunc` `:16`, `DssDataset` `:31-115`,
 Inactive flags come from all-zero references, and an inactive side's
 target becomes the mixture; the trainer stacks [near, far] into the SIMO
 wrapper's [N, 2, L] targets with [N, 2] labels. The host augmentation
-chain (noise, speed) is not ported yet and raises (ROADMAP queue 1 item
-2); the random crop and the volume draw are.
+chain (noise, speed, volume) is the shared one of `tasks/ns.py`, the mixture's
+speed draw applied to both references. `DATASET.augment_on_device` raises:
+JAX's `DssTask` inherits the NS wiring, whose on-device chain cannot take
+the [N, 2, L] targets.
 """
 from __future__ import annotations
 
@@ -34,18 +36,20 @@ class DssCollateFunc:
 
 class DssDataset(_AugmentedDataset):
     """Mixture / near / far manifest (`wav2scp.txt`, `ref2near.txt`,
-    `ref2far.txt`): the random crop, the volume draw and the inactive
-    flags."""
+    `ref2far.txt`): the random crop, the host augmentation chain and the
+    inactive flags."""
 
     def __init__(self, folder: str, resample_to: int, max_length: Optional[int] = None,
                  noise_folder: Optional[str] = None, vol_perturbed: Optional[tuple] = None,
                  speed_perturbed: bool = False):
         self.max_length = max_length
         self.noise_folder = noise_folder
+        self.rir_folder = None
         self.speed_perturbed = speed_perturbed
         self.vol_perturbed = vol_perturbed
-        self._check_augmentation()
+        self.perturb_frequency_response = False
         super().__init__(folder, resample_to=resample_to)
+        self._maybe_augmentor()
 
     @property
     def folder_content(self):
@@ -81,9 +85,15 @@ class DssDataset(_AugmentedDataset):
         # the mixture (JAX `dss.py:80-86`)
         inactive_near = bool(np.sum(np.abs(near)) == 0)
         inactive_far = bool(np.sum(np.abs(far)) == 0)
-        process_wav = wav
-        if self.vol_perturbed is not None:
-            near, far, process_wav = self._vol_perturb(near, far, process_wav)
+        if self.augmentor:
+            process_wav, (speed, _, _, _, _, _) = self.wave_process(wav)
+            if speed is not None:
+                near, _ = self.augmentor.sox_speed_perturbed(near, speed)
+                far, _ = self.augmentor.sox_speed_perturbed(far, speed)
+            if self.vol_perturbed is not None:
+                near, far, process_wav = self._vol_perturb(near, far, process_wav)
+        else:
+            process_wav = wav
         if inactive_near:
             near = process_wav.copy()
         if inactive_far:
@@ -102,6 +112,14 @@ class DssTask(NsTask):
         inact = np.stack([batch["inactive_nearend"], batch["inactive_farfield"]], axis=1)
         return {"noisy": self._tensor(batch["process_wav"]), "ref_clean": self._tensor(ref),
                 "inactive_labels": torch.as_tensor(inact, device=self.device)}
+
+    def _device_augment_fn(self):
+        raise ValueError(
+            "DATASET.augment_on_device does not support DSS: JAX's DssTask takes "
+            "NsTask's on-device chain, which fails on the [N, 2, L] near / far "
+            "targets (its volume, NaN rollback and RIR broadcast [N] against "
+            "[N, 2]); run the host chain (noise_folder, speed_perturbed, "
+            "vol_perturbed) instead")
 
     def inference(self, noisy, enroll=None):
         was_training = self.model.training

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..parallel import multihost
 from ..src.audio import AudioIO
 from ..src.utils import load_text_as_dict
 from .base import pad_stack
@@ -38,9 +39,10 @@ class TseCollateFunc:
 class TseDataset(_AugmentedDataset):
     """TSE / PVAD dataset with single-speaker and inactive-speaker cases,
     the enrollment rules (None/longest/shortest/fixed_length/full), the
-    enrollment level draw (-28 dBFS with sqrt(10) std) and the volume draw.
-    `enroll_augment` acts only together with the host augmentation chain,
-    which raises here."""
+    enrollment level draw (-28 dBFS with sqrt(10) std) and the host
+    augmentation chain; `enroll_augment` runs RIR, noise and the frequency
+    response on the enrollment too. An inactive utterance's target is the
+    augmented mixture (TSE) or zeros (PVAD)."""
 
     def __init__(self, folder: str, resample_to: int,
                  max_length: Optional[int] = None,
@@ -65,8 +67,8 @@ class TseDataset(_AugmentedDataset):
         self.enroll_rule = enroll_rule
         self.enroll_augment = enroll_augment
         self.is_vad_dataset = is_vad_dataset
-        self._check_augmentation()
         super().__init__(folder, resample_to=resample_to)
+        self._maybe_augmentor()
         # the speaker label map (JAX's `create_df2spk`)
         spk_ids = sorted(set(self.df[k]["ref2spk"] for k in self.df))
         self.ref2spk = {s: i for i, s in enumerate(spk_ids)}
@@ -135,13 +137,20 @@ class TseDataset(_AugmentedDataset):
             wav, clean_wav = self._random_crop_pair(
                 wav, clean_wav, avoid_zero_target=not self.is_vad_dataset)
 
-        process_wav = wav
-        if self.vol_perturbed is not None:
-            if not self.is_vad_dataset:
-                clean_wav, process_wav, enroll_wav = self._vol_perturb(
-                    clean_wav, process_wav, enroll_wav)
-            else:
-                process_wav, enroll_wav = self._vol_perturb(process_wav, enroll_wav)
+        if self.augmentor:
+            process_wav, (speed, _, rir_id, rir_ch, a, b) = self.wave_process(
+                wav, noise_snr_range=(5, 15))
+            clean_wav = self._match_target(
+                clean_wav, speed, rir_id, rir_ch, a, b, self.rir_mode,
+                skip_signal_warp=self.is_vad_dataset)
+            if self.vol_perturbed is not None:
+                if not self.is_vad_dataset:
+                    clean_wav, process_wav, enroll_wav = self._vol_perturb(
+                        clean_wav, process_wav, enroll_wav)
+                else:
+                    process_wav, enroll_wav = self._vol_perturb(process_wav, enroll_wav)
+        else:
+            process_wav = wav
 
         if inactive:
             clean_wav = (process_wav.copy() if not self.is_vad_dataset
@@ -193,6 +202,19 @@ class TseDataset(_AugmentedDataset):
             enroll_wav = np.concatenate([_open(p) for p in enroll_list], axis=-1)
         else:
             raise NameError(mode)
+
+        if self.augmentor and self.enroll_augment:
+            backup = enroll_wav.copy()
+            if self.rir_folder is not None and np.random.rand() < 0.5:
+                enroll_wav, _, _ = self.augmentor.apply_rir(enroll_wav)
+            if self.noise_folder is not None and np.random.rand() < 0.5:
+                snr = float(np.random.uniform(5, 15))
+                enroll_wav = self.augmentor.add_bg_noise(enroll_wav, [snr])[0]
+            if self.perturb_frequency_response and np.random.rand() < 0.8:
+                enroll_wav, _, _ = self.augmentor.add_variaion_response(enroll_wav)
+            if np.isnan(enroll_wav).any():
+                print("Enroll augmentation warning: nan, rolled back")
+                enroll_wav = backup
         return enroll_wav[:, :max_length]
 
     def sampler_meta(self) -> Dict[str, list]:
@@ -217,6 +239,21 @@ class TseTask(NsTask):
         return {"alpha": self.hparam["LOSS"].get("alpha", 10.0),
                 "return_loss_detail": True}
 
+    def _device_augment_fn(self):
+        """NsTask's on-device chain with the TSE specifics of JAX's
+        (`tasks/tse.py:261-297`): noise SNR from (5, 15), the volume ratio
+        scales the enrollment too, inactive utterances take the augmented
+        mixture as their target; enroll_augment stays in the loader."""
+        from ..src.augment_torch import DeviceAugmentor
+
+        if str(self.hparam["DATASET"].get("type", "")).lower() == "pvad":
+            raise ValueError("augment_on_device does not support PVAD "
+                             "(VAD-label targets must not be warped)")
+        self.device_augmentor = DeviceAugmentor(**self._augmentor_kwargs(),
+                                                noise_snr_range=(5.0, 15.0))
+        return self.device_augmentor.make_augment_fn(inactive_key="inactive_labels",
+                                                     vol_keys=("enroll",))
+
     def _batch_kwargs(self, batch) -> Dict:
         return {"noisy": self._tensor(batch["process_wav"]),
                 "enroll": self._tensor(batch["enroll_wav"]),
@@ -237,7 +274,8 @@ class TseTask(NsTask):
         loss = float(metrics["loss"])
         detail = {k: float(v) for k, v in metrics.items() if k.startswith("loss_")}
         msg = ", ".join(f"{k}: {v:.4f}" for k, v in detail.items())
-        print(f"epoch: {current_epoch}, iter: {batch_idx + 1}, "
+        if multihost.is_primary():
+            print(f"epoch: {current_epoch}, iter: {batch_idx + 1}, "
               f"batch_loss: {loss:.4f}{', ' + msg if msg else ''}")
         if self.tf_writer:
             self.tf_writer.update_step_loss("train/batch_loss", loss, overall)

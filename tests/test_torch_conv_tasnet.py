@@ -172,8 +172,7 @@ def test_tcn_fused_params_only_for_the_kernels_blocks():
     assert TCN(6, 5, 3, 1, emb_dim=4).fused_params() is None
     assert TCN(6, 5, 3, 1, "bN1d", "bN1d", causal=True).fused_params() is None
     assert TCN(6, 5, 3, 1, "bN1d", "bN1d").fused_params() is None
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TCN(6, 5, 3, 1, dropout=0.1)
+    assert TCN(6, 5, 3, 1, dropout=0.1).fused_params() is None
 
 
 # ------------------------------------------------------------- ConvTasNet

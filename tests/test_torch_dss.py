@@ -383,9 +383,14 @@ def test_dss_batches_match_jax_bit_for_bit(manifest, case):
 
 
 def test_dss_dataset_augmentation_options_raise(manifest):
+    """The host options are ported (their batches against JAX's in
+    tests/test_torch_augment.py); the on-device chain raises for DSS, whose
+    [N, 2, L] targets JAX's chain cannot take."""
     for opt in (dict(noise_folder=manifest), dict(speed_perturbed=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dss.DssDataset(manifest, resample_to=SR, **opt)
+        assert dss.DssDataset(manifest, resample_to=SR, **opt).augmentor is not None
+    task = object.__new__(dss.DssTask)
+    with pytest.raises(ValueError, match=r"\[N, 2, L\]"):
+        task._device_augment_fn()
 
 
 def _loader_batch(manifest):
@@ -727,8 +732,8 @@ def test_cli_needs_a_ckpt_and_unported_actions_raise(tmp_path):
             cli.main(cli.parse_args([str(cfg), "--action", action, "--backend", "cpu"]))
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         cli.main(cli.parse_args([str(cfg), "--action", "export_model", "--ckpt", "x"]))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        cli.main(cli.parse_args([str(cfg), "--num_processes", "2"]))
+    with pytest.raises(ValueError, match="--action train"):
+        cli.main(cli.parse_args([str(cfg), "--action", "dev", "--num_processes", "2"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--backend cpu"):
             cli.main(cli.parse_args([str(cfg), "--action", "eval", "--ckpt", "x"]))

@@ -264,9 +264,12 @@ def test_streaming_serves_the_updated_weights(pair, rng):
 
 def test_unported_step_options_raise():
     model = _port_model(torch.float32)
-    for option in (dict(mesh=object()), dict(tp=True), dict(remat=True),
-                   dict(augment_fn=lambda b: b)):
+    for option in (dict(mesh=object()), dict(tp=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_step(model, **option)
+    # remat and augment_fn are ported (tests/test_torch_remat.py,
+    # tests/test_torch_device_augment.py)
+    with pytest.raises(ValueError, match="remat"):
+        make_train_step(model, remat="all")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SkiM(**SKIM, dropout=0.1)

@@ -326,3 +326,20 @@ def test_port_imports_no_jax():
             "puresound_tpu_torch.utils.flax_ckpt, puresound_tpu_torch.utils.from_jax, sys; "
             "assert not {'jax', 'flax', 'msgpack', 'puresound_tpu'} & set(sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+@pytest.mark.parametrize("fused", [True, None])
+def test_fused_server_refuses_a_chunk_that_does_not_divide_the_segment(fused):
+    """The flagship (seg_size 150, hop 16 at 16 kHz) on the fused SkiM step:
+    16 ms chunks (16 frames) raise at build time, naming the lengths that
+    work; 15 ms builds. The unfused step keeps only the attach warning."""
+    from puresound_tpu_torch.zoo import tse as zoo
+
+    model = zoo.init_model("tse_skim_v0_causal", device="cpu")
+    with pytest.raises(ValueError, match=r"16 frames.*seg_size 150.*\b15\b"):
+        make_session_server(model, None, n_slots=2, chunk_ms=16.0, fused=fused)
+    with pytest.warns(UserWarning, match="whole SkiM segments"):
+        bundle = make_session_server(model, None, n_slots=2, chunk_ms=15.0, fused=fused)
+    assert bundle.server is not None
+    with pytest.warns(UserWarning, match="whole SkiM segments"):
+        make_session_server(model, None, n_slots=2, chunk_ms=16.0, fused=False)
