@@ -7,8 +7,9 @@ with Gate fusion, the NS serving and training paths of
 `ns_dpcrn_v0_causal` and `ns_dparn_v0_causal` (their shipped recipes too,
 and the recipes' evaluation actions), and the remaining shipped recipes:
 the Conv-TasNet TSE models `td_tse_conv_tasnet_v0{,_causal}`, the PVAD model
-`tse_skim_v0_causal_vad` and the lookahead NS models `ns_{dpcrn,dparn}_v0`,
-and DSS (`egs/dss/conf/dss_dparn_1a.yaml`: serving, the recipe, its
+`tse_skim_v0_causal_vad`, the lookahead NS models `ns_{dpcrn,dparn}_v0`,
+the rest of the time-domain TSE zoo (`tse_skim_v0`, `tse_skim_v{1,2}_causal`,
+`veve_dprnn_v0_causal`), and DSS (`egs/dss/conf/dss_dparn_1a.yaml`: serving, the recipe, its
 evaluation) with the recipes' TCP serving front, at full width (random
 weights from a seed):
 
@@ -351,9 +352,39 @@ weights from a seed):
      group of one process, and the data-parallel NS step equals the plain
      one bit for bit over 2 steps (a two-process run needs two cards: a line
      says it was not run);
+  2l. the time-domain rest of the TSE zoo (`tse_skim_v0`, `tse_skim_v1_causal`,
+     `tse_skim_v2_causal`, `veve_dprnn_v0_causal`): `lstm_scan_train_fp`
+     forward and backward vs plain at v0's SegLSTM 240 x 150 reverse (C=128,
+     H=256), its MemLSTM 12 x 20 at C=512 both ways, v1's speaker BiLSTM
+     12 x 4,999 (H=192: 24 units a CTA), DPRNN's intra 1,800 x 20 and inter
+     240 x 150 (H=64) and its streaming inter step 5,120 x 1, and
+     `tcn_block_train` at v2's speaker net (B=12, C=80, T=622, d=1 and 16,
+     the CUDA cores), f32 and bf16 at phase 2b / 2c's bars, two calls
+     bit-equal, CUDA-event times, the bounds, cuDNN's LSTM (its forward
+     direction for a reverse scan) or the stock TCN module beside;
+  4m. v1 and v2 through `make_session_server(half=True, fused=True)` at 256
+     sessions attached by 1 s enrollments (embedded on the card), 100 ticks
+     of 15 ms after warm-up: every `fused_skim_frames` launch on the tensor
+     cores, the MemLSTM scans at segment ends, tick p50 / p99, the engine
+     step alone, slot 0 >= 35 dB from the f32 engine; each also as an f32
+     unfused server at 8 sessions (every slot >= 60 dB from the offline
+     inference of its zero-primed input); veve as a fixed cohort of 256
+     streams through `StreamingServer` (20 ms chunks, states from
+     `init_state(enroll_feats=)`; every stream >= 60 dB from offline); exact
+     launches throughout;
+  6k. the four through `python -m puresound_tpu_torch.egs.tse.main --action
+     train` on a copy of `..._1a.yaml` with MODEL.type swapped (B=12 x 3 s, 5
+     s enrollments, 3 steps + 1 dev batch: finite losses, exact launches,
+     step p50, host gap, peak memory, epoch_0.ckpt reloading equal), and one
+     f32 step each (B=2 x 0.5 s, dropout 0, SpecAugment's draws fixed) on the
+     card against the CPU's f64 step, gated as 6g;
+  7d. their `dev`, `eval` and `eval --batch_eval 2` (>= 60 dB from B=1) on
+     6k's checkpoints, `stream_eval --chunk_ms 15` for v1 / v2 (>= 60 dB
+     from offline, exact launches); v0 and veve refuse to stream;
   8. the kernels JSON line (phase 7's launches in `launches_7`, the new
      phases' in `launches_4k` / `_6g` / `_6h` / `_7b` / `_4l` / `_6i` /
-     `_7c` / `_6j`, the new shapes' times and bounds in `new_shapes`).
+     `_7c` / `_6j` / `_2l` / `_4m` / `_6k` / `_7d`, the new shapes' times and
+     bounds in `new_shapes`).
 
 Each phase prints one line with its result and time; any failure raises and
 the run exits non-zero. The last line is
@@ -826,7 +857,7 @@ def lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
         res[f"{label}_fwd_bound"] = bound_ms(ff, fb, dt)
         res[f"{label}_bwd_bound"] = bound_ms(bf, bb, dt)
         (res[f"{label}_lib_fwd_ms"], res[f"{label}_lib_bwd_ms"],
-         res[f"{label}_lib_fwdbwd_ms"]) = cudnn_lstm_ms(*args, *cot, reverse, reps)
+         res[f"{label}_lib_fwdbwd_ms"]) = cudnn_lstm_ms(*args, *cot, reps)
     return res
 
 
@@ -899,17 +930,17 @@ def lstm_split(lk, B, T, C, H, dt, dev, reps=5, hoisted=False):
     return out
 
 
-def cudnn_lstm_ms(x, h0, c0, w_ih, bias, w_hh, dy, dhT, dcT, reverse, reps):
+def cudnn_lstm_ms(x, h0, c0, w_ih, bias, w_hh, dy, dhT, dcT, reps):
     """cuDNN's LSTM (`torch.nn.LSTM`) on the same weights and inputs: (ms of
     its forward, ms of its backward alone, one `torch.autograd.grad` call
-    over a kept graph, ms of forward + backward), or Nones where it does not
-    apply (it has no reverse-only direction) or refuses the dtype. A
-    yardstick only: the port never calls it."""
-    if reverse:
-        return None, None, None
+    over a kept graph, ms of forward + backward), or Nones where it refuses
+    the dtype. It has no reverse-only direction: for a reverse scan it runs
+    its forward direction, the same work. A yardstick only: the port never
+    calls it."""
     B, T, C = x.shape
     H = w_hh.shape[0]
-    lstm = torch.nn.LSTM(C, H, batch_first=True).to(device=x.device, dtype=x.dtype)
+    with torch.random.fork_rng(devices=[]):   # its init draws leave the global RNG as it was
+        lstm = torch.nn.LSTM(C, H, batch_first=True).to(device=x.device, dtype=x.dtype)
     with torch.no_grad():
         lstm.weight_ih_l0.copy_(w_ih.T)
         lstm.weight_hh_l0.copy_(w_hh.T)
@@ -1050,7 +1081,7 @@ def lstm_unfused_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
         res[f"fp_tm_{label}_bwd_bound"] = bound_ms(bf, bb, dt)
         (res[f"{label}_lib_fwd_ms"], res[f"{label}_lib_bwd_ms"],
          res[f"{label}_lib_fwdbwd_ms"]) = cudnn_lstm_ms(xd, h0d, c0d, wid, bd, whd,
-                                                        dy.to(dev, dt), *cot, reverse, reps)
+                                                        dy.to(dev, dt), *cot, reps)
     res["fp_tm_bit_equal"] = True
     return res
 
@@ -4481,15 +4512,18 @@ TSE_LAUNCHES = {"td_tse_conv_tasnet_v0": (0, 26), "td_tse_conv_tasnet_v0_causal"
 TSE_CHECK_B, TSE_CHECK_SECONDS = 2, 0.5      # the card vs CPU step
 
 
-def tse_train_parts(name, hp, dev):
+def tse_train_parts(name, hp, dev, prepare=None):
     """(the zoo model with the config's losses, TrainState with Adam at the
-    config's rate, step with its clip) on `dev`, from a seed."""
+    config's rate, step with its clip) on `dev`, from a seed; `prepare(model)`
+    adjusts the model first (phase 6k: dropout 0)."""
     from puresound_tpu_torch.parallel import TrainState, make_train_step
     from puresound_tpu_torch.zoo.tse import init_loss, init_model
 
     gen = torch.Generator().manual_seed(SEED + 103)
     model = init_model(name, *init_loss(hp, device=dev, generator=gen), device=dev,
                        generator=gen)
+    if prepare is not None:
+        prepare(model)
     opt = torch.optim.Adam(model.parameters(), lr=hp["OPTIMIZER"]["lr"])
     step = make_train_step(model, {"alpha": hp["LOSS"]["alpha"]},
                            grad_clip=hp["OPTIMIZER"]["gradiend_clip"])
@@ -4560,7 +4594,8 @@ def replay_tcn_launches(tk, calls, label: str) -> float:
     return worst
 
 
-def tse_card_vs_cpu(name, hp, lk, tk, dev, card) -> dict:
+def tse_card_vs_cpu(name, hp, lk, tk, dev, card, prepare=None,
+                    phase: str = "6g tse train step") -> dict:
     """One f32 training step of the full-width zoo model with the config's
     losses (SI-SNR + alpha AAM-softmax, or F1 on frame labels) on the card
     against the same step on the CPU in float64, with the CPU's own f32 step
@@ -4580,7 +4615,7 @@ def tse_card_vs_cpu(name, hp, lk, tk, dev, card) -> dict:
     sides = []
     cpu = torch.device("cpu")
     for d, dt in ((dev, torch.float32), (cpu, torch.float32), (cpu, torch.float64)):
-        model, state, step = tse_train_parts(name, hp, d)
+        model, state, step = tse_train_parts(name, hp, d, prepare)
         model.to(dt)
         zero_counts(lk, tk)
         batch = {k: v.to(dt) if v.is_floating_point() else v
@@ -4592,9 +4627,9 @@ def tse_card_vs_cpu(name, hp, lk, tk, dev, card) -> dict:
         del model, state
     (gpu, gm, gl, calls), (cpu32, cm, cl, _), (ref, rm, _, _) = sides
     lf, tf = TSE_LAUNCHES[name]
-    expect_launches(gl, (lf, lf, tf, tf), f"6g {name} card step, LSTM and TCN (fwd, bwd)")
-    expect_launches(cl, (0, 0, 0, 0), f"6g {name} CPU step, LSTM and TCN (fwd, bwd)")
-    replay = replay_tcn_launches(tk, calls, f"6g {name} card step")
+    expect_launches(gl, (lf, lf, tf, tf), f"{phase} {name} card step, LSTM and TCN (fwd, bwd)")
+    expect_launches(cl, (0, 0, 0, 0), f"{phase} {name} CPU step, LSTM and TCN (fwd, bwd)")
+    replay = replay_tcn_launches(tk, calls, f"{phase} {name} card step")
     rel = lambda side, key: abs(side[key] - rm[key]) / abs(rm[key])
     loss_rel, norm_rel = rel(gm, "loss"), rel(gm, "grad_norm")
     cpu_loss_rel, cpu_norm_rel = rel(cm, "loss"), rel(cm, "grad_norm")
@@ -4603,7 +4638,7 @@ def tse_card_vs_cpu(name, hp, lk, tk, dev, card) -> dict:
     total_cpu = ((flat(cpu32) - flat(ref)).norm() / flat(ref).norm()).item()
     if (loss_rel > max(1e-4, 3 * cpu_loss_rel) or norm_rel > max(1e-3, 3 * cpu_norm_rel)
             or not total <= max(3e-3, 3 * total_cpu)):
-        raise AssertionError(f"6g {name}: loss rel {loss_rel:.3e} (CPU f32 {cpu_loss_rel:.3e}), "
+        raise AssertionError(f"{phase} {name}: loss rel {loss_rel:.3e} (CPU f32 {cpu_loss_rel:.3e}), "
                              f"grad_norm rel {norm_rel:.3e} (CPU f32 {cpu_norm_rel:.3e}), the "
                              f"whole gradient {total:.3e} by relative L2 (CPU f32 {total_cpu:.3e})")
     g_all = max(g.abs().max().item() for g in ref.values())
@@ -4617,7 +4652,7 @@ def tse_card_vs_cpu(name, hp, lk, tk, dev, card) -> dict:
         worst, worst_cpu = max(worst, (r_card, p)), max(worst_cpu, (r_cpu, p))
         if r_card > max(3e-3, 3 * r_cpu):
             over.append(f"{p} {r_card:.2e} (CPU f32 {r_cpu:.2e})")
-    log("6g tse train step", f"{name} B={TSE_CHECK_B} x {TSE_CHECK_SECONDS:g} s, "
+    log(phase, f"{name} B={TSE_CHECK_B} x {TSE_CHECK_SECONDS:g} s, "
         f"{hp['LOSS']['sig_loss']} + {hp['LOSS']['alpha']} x {hp['LOSS']['cls_loss']}, f32 on "
         f"the card vs f64 on the CPU: loss {gm['loss']:.6f} / {rm['loss']:.6f} (rel "
         f"{loss_rel:.2e}; CPU f32 {cpu_loss_rel:.2e}), grad_norm rel {norm_rel:.2e} (CPU f32 "
@@ -5836,6 +5871,575 @@ def trainer_phase(lk, tk, dev, card, backend: str = "cuda") -> dict:
                          "tcn_block_train fwd": total[2], "tcn_block_train bwd": total[3]}}
 
 
+# ------------------------------------------------------------ phases 2l, 4m, 6k, 7d
+#: the time-domain rest of the TSE zoo and its parameter counts (JAX's)
+ZOO_PARAMS = {"tse_skim_v0": 15_575_568, "tse_skim_v1_causal": 6_249_217,
+              "tse_skim_v2_causal": 6_221_552, "veve_dprnn_v0_causal": 723_585}
+#: (lstm_scan_train_fp, tcn_block_train) launches of one forward: v0's 4
+#: bidirectional SegLSTMs (8 scans) and 3 bidirectional MemLSTMs (h and c:
+#: 12); v1's 4 SegLSTMs, 3 x 2 MemLSTM scans and its speaker BiLSTM (2);
+#: v2's 10 masker scans and 5 TCN blocks; veve's 6 blocks of an intra and an
+#: inter scan over the mixture and again over the enrollment
+ZOO_LAUNCHES = {"tse_skim_v0": (20, 5), "tse_skim_v1_causal": (12, 0),
+                "tse_skim_v2_causal": (10, 5), "veve_dprnn_v0_causal": (24, 0)}
+TSE_LAUNCHES.update(ZOO_LAUNCHES)
+#: lstm_scan_train_fp at the zoo's new scans (B=12 x 3 s, 5 s enrollments):
+#: (name, rows, steps, C, H, reverse, reps). v0's SegLSTM (backward
+#: direction), its MemLSTM at C = 2H = 512 both ways, v1's speaker BiLSTM
+#: over 4,999 frames at H = 192 (24 units a CTA), DPRNN's intra (20 steps)
+#: and inter (150) scans at H = 64, and its streaming inter step (256
+#: streams x 20 positions, one step)
+ZOO_LSTM_CASES = [("v0 SegLSTM reverse", 240, 150, 128, 256, True, 10),
+                  ("v0 MemLSTM C=512", 12, 20, 512, 256, False, 20),
+                  ("v0 MemLSTM C=512 reverse", 12, 20, 512, 256, True, 20),
+                  ("v1 speaker BiLSTM", 12, 4999, 128, 192, False, 3),
+                  ("DPRNN intra", 1800, 20, 128, 64, False, 20),
+                  ("DPRNN inter", 240, 150, 128, 64, False, 10),
+                  ("DPRNN stream inter", 5120, 1, 128, 64, False, 20)]
+#: tcn_block_train at v2's speaker net: 5 s enrollments through FbankEnc
+#: (VALID 512-sample frames at hop 128: 622 frames, 80 mel banks)
+ZOO_TCN_CASES = [("v2 speaker C=80 d=1", 12, 80, 256, 622, 1, 10),
+                 ("v2 speaker C=80 d=16", 12, 80, 256, 622, 16, 10)]
+ZOO_SEEDS = {name: SEED + 120 + i for i, (name, *_) in enumerate(
+    ZOO_LSTM_CASES + ZOO_TCN_CASES)}
+ZOO_SLOTS, ZOO_TICKS = 256, 100     # phase 4m: bf16 fused serving
+ZOO_HELD = 8                        # phase 4m: slots held against the f32 engine
+ZOO_DVEC_COS = 0.999                # phase 4m: bf16 d-vector vs the f32 embed, cosine bar
+ZOO_F32_SLOTS, ZOO_F32_TICKS = 8, 20
+VEVE_STREAMS, VEVE_TICKS = 256, 20  # phase 4m: the embedding-free cohort, 20 ms chunks
+ZOO_RECIPE_STEPS = 3                # phase 6k
+ZOO_EVAL_UTTS = 4                   # phase 7d: mixtures of EVAL_SECONDS
+ZOO_EVAL_BATCH, ZOO_EVAL_QUANTUM = 2, 0.25    # the 4 s mixtures and 3 s enrollments on the grid
+ZOO_DRAWS = ((0.6, 0.3), (0.0, 0.0))          # SpecAugment's uniforms in 6k's card vs CPU step
+
+
+def zoo_shapes_phase(lk, tk, dev, card) -> dict:
+    """Phase 2l: `lstm_scan_train_fp` and `tcn_block_train` at the new zoo
+    models' shapes against their plain versions (phase 2b / 2c's bars, two
+    calls bit-equal, CUDA-event times, the bounds, cuDNN's LSTM or the stock
+    TCN module beside); "launches": each kernel's launches in the phase."""
+    gen = lambda name: torch.Generator().manual_seed(ZOO_SEEDS[name])
+    out = {"lstm": {}, "tcn": {}}
+    zero_counts(lk, tk)
+    fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
+    for name, B, T, C, H, reverse, reps in ZOO_LSTM_CASES:
+        t = time.perf_counter()
+        r = lstm_kernel_case(lk, name, B, T, C, H, reverse, gen(name), dev, reps)
+        r["plans"] = {lb: (lambda pl: f"CL={pl.CL} U={pl.U} fwd M={pl.fwd.M} nbuf="
+                           f"{pl.fwd.nbuf} xproj={pl.fwd.xproj} smem={pl.fwd.smem}, bwd M="
+                           f"{pl.bwd.M} smem={pl.bwd.smem}")(lk._plan_on(dev, B, C, H, dt))
+                      for lb, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+        out["lstm"][name] = r
+        log("2l lstm", f"{r['shape']}: plans {r['plans']}; two calls of each kernel bit-equal; "
+            f"clusters in flight (fwd, bwd) f32 "
+            f"{lk.clusters_in_flight(B, T, C, H, torch.float32, dev)}, bf16 "
+            f"{lk.clusters_in_flight(B, T, C, H, torch.bfloat16, dev)}; f32 max|d|/max|ref| "
+            f"values {r['f32_val_rel']:.2e}, grads {r['f32_grad_rel']:.2e}; bf16 SNR values "
+            f"{r['bf16_val_snr']:.1f} dB, grads {r['bf16_grad_snr']:.1f} dB; " + "; ".join(
+                f"{lb} ms fwd/bwd kernel {r[f'{lb}_fwd_ms']:.3f}/{r[f'{lb}_bwd_ms']:.3f}, "
+                f"plain {r[f'{lb}_plain_fwd_ms']:.3f}/{r[f'{lb}_plain_bwd_ms']:.3f}, cuDNN"
+                f"{' (forward direction)' if reverse else ''} "
+                f"{fmt(r[f'{lb}_lib_fwd_ms'])}/{fmt(r[f'{lb}_lib_bwd_ms'])}, bound "
+                f"{r[f'{lb}_fwd_bound'][0]:.4g}/{r[f'{lb}_bwd_bound'][0]:.4g} "
+                f"({r[f'{lb}_fwd_bound'][1]}/{r[f'{lb}_bwd_bound'][1]})"
+                for lb in ("f32", "bf16")) + f" [{card}]", t)
+    for name, B, C, Ch, T, dilation, reps in ZOO_TCN_CASES:
+        t = time.perf_counter()
+        r = tcn_kernel_case(tk, name, B, C, Ch, T, dilation, gen(name), dev, reps)
+        if (r["f32_route"], r["bf16_route"]) != ("cuda_cores", "cuda_cores"):
+            raise AssertionError(f"2l {name}: routes f32 {r['f32_route']}, bf16 "
+                                 f"{r['bf16_route']}, not the CUDA cores (_plan: wgmma at "
+                                 "C, Ch in {64, 128, 256} only)")
+        out["tcn"][name] = r
+        log("2l tcn", f"{r['shape']}: f32 max|d|/max|ref| y {r['f32_val_rel']:.2e}, dx and "
+            f"grads {r['f32_grad_rel']:.2e}; bf16 SNR y {r['bf16_val_snr']:.1f} dB, dx and "
+            f"grads {r['bf16_grad_snr']:.1f} dB; L2 vs the exact reference kernel / plain: f32 "
+            f"{r['f32_l2_vs_exact']:.2e} / {r['f32_plain_l2_vs_exact']:.2e}, bf16 "
+            f"{r['bf16_l2_vs_exact']:.2e} / {r['bf16_plain_l2_vs_exact']:.2e}; held by the L2 "
+            f"bar: f32 {[x[0] for x in r['f32_l2_fallback']] or 'none'}, bf16 "
+            f"{[x[0] for x in r['bf16_l2_fallback']] or 'none'}; routes f32 / bf16 "
+            f"{r['f32_route']} / {r['bf16_route']}, two calls bit-equal; " + "; ".join(
+                f"{lb} ms fwd/bwd kernel {r[f'{lb}_fwd_ms']:.3f}/{r[f'{lb}_bwd_ms']:.3f}, "
+                f"plain {r[f'{lb}_plain_fwd_ms']:.3f}/{r[f'{lb}_plain_bwd_ms']:.3f}, stock "
+                f"module fwd+bwd {r[f'{lb}_stock_ms']:.3f}, bound "
+                f"{r[f'{lb}_fwd_bound'][0]:.3f}/{r[f'{lb}_bwd_bound'][0]:.3f} "
+                f"({r[f'{lb}_fwd_bound'][1]})" for lb in ("f32", "bf16")) + f" [{card}]", t)
+    out["launches"] = counts(lk, tk)
+    if 0 in out["launches"]:
+        raise AssertionError(f"2l: launches (LSTM fwd, bwd, TCN fwd, bwd) {out['launches']}")
+    return out
+
+
+def zoo_model(name, dev, seed):
+    """The zoo model at full width from a seed, its parameter count JAX's."""
+    from puresound_tpu_torch.zoo.tse import init_model
+
+    model = init_model(name, device=dev, generator=torch.Generator().manual_seed(seed))
+    n = sum(p.numel() for p in model.parameters())
+    if n != ZOO_PARAMS[name]:
+        raise AssertionError(f"{name}: {n:,} parameters, JAX counts {ZOO_PARAMS[name]:,}")
+    return model
+
+
+def zoo_bf16_serving(ops, lk, tk, name, dev, card) -> dict:
+    """Phase 4m: `name` through make_session_server(half=True, fused=True) at
+    ZOO_SLOTS sessions, 15 ms ticks, each session attached by its 1 s
+    enrollment (embedded on the card in bf16: v1's speaker BiLSTM, 2
+    lstm_scan_train_fp launches; v2's FbankEnc + 5 tcn_block_train), every
+    d-vector within cosine ZOO_DVEC_COS of the f32 embed; the engine step
+    alone, then NS_WARM + ZOO_TICKS ticks: every launch of fused_skim_frames
+    on the tensor cores, the MemLSTM's 6 scans at each segment end, no plain
+    version, 0 underruns, tick p50 / p99; ZOO_HELD slots spread over the
+    server against the f32 engine on the same audio and the f32 embed of the
+    same enrollments (>= 35 dB each), so the bf16 embed is held too."""
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+    from puresound_tpu_torch.streaming.engine import StreamingTSE
+    from puresound_tpu_torch.streaming.server import ServeStats
+
+    t = time.perf_counter()
+    bf = torch.bfloat16
+    model = zoo_model(name, dev, SEED + 130)
+    engine32 = StreamingTSE.from_offline(model).eval()
+    bundle = make_session_server(model, None, n_slots=ZOO_SLOTS, chunk_ms=15.0, half=True,
+                                 fused=True, lockstep=True, enroll_len=16000)
+    server, engine, chunk = bundle.server, bundle.engine, bundle.chunk_samples
+    n_ticks = NS_WARM + ZOO_TICKS
+    rng = np.random.default_rng(SEED + 131)
+    enrolls = (0.1 * rng.standard_normal((ZOO_SLOTS, 16000))).astype(np.float32)
+    feed = (0.1 * rng.standard_normal((ZOO_SLOTS, chunk * n_ticks))).astype(np.float32)
+    lf, tf = (2, 0) if name.endswith("v1_causal") else (0, 5)
+    zero_counts(lk, tk)
+    ta = time.perf_counter()
+    sids = [server.attach(enroll=enrolls[i]) for i in range(ZOO_SLOTS)]
+    torch.cuda.synchronize()
+    t_attach = time.perf_counter() - ta
+    expect_launches(counts(lk, tk), (lf * ZOO_SLOTS, 0, tf * ZOO_SLOTS, 0),
+                    f"4m {name} attaches, LSTM and TCN (fwd, bwd)")
+    dvecs = torch.from_numpy(server._dvec.copy()).to(dev)
+    with torch.no_grad():
+        d32 = engine32.embed(torch.from_numpy(enrolls).to(dev))
+    cos = torch.nn.functional.cosine_similarity(d32, dvecs).min().item()
+    if not cos >= ZOO_DVEC_COS:
+        raise AssertionError(f"4m {name}: bf16 d-vector cosine to the f32 embed {cos:.6f} "
+                             f"< {ZOO_DVEC_COS:g}")
+    x = torch.from_numpy(feed[:, :chunk]).to(dev, bf)
+    state, step_ms = engine.init_state(ZOO_SLOTS, bf), []
+    with torch.no_grad():
+        for k in range(NS_WARM + NS_TICKS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, state = engine.step(x, dvecs.to(bf), state, fused=True, dot_dtype=bf)
+            torch.cuda.synchronize()
+            if k >= NS_WARM:
+                step_ms.append(1e3 * (time.perf_counter() - t1))
+    served = np.zeros_like(feed)
+    with PlainCalls() as plain:
+        for k in range(n_ticks):
+            if k == NS_WARM:
+                torch.cuda.synchronize()
+                server.stats = ServeStats()
+                ops.LAUNCHES = 0
+                ops.LAUNCHES_BY_ROUTE.clear()
+                zero_counts(lk, tk)
+                plain.calls = 0
+            for i, sid in enumerate(sids):
+                server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+            if server.tick() != ZOO_SLOTS:
+                raise AssertionError(f"4m {name} tick {k}: not every slot served")
+            for i, sid in enumerate(sids):
+                got = server.hub.pop_output(sid, chunk)
+                if len(got) != chunk or not np.isfinite(got).all():
+                    raise AssertionError(f"4m {name} tick {k} slot {sid}: bad output")
+                served[i, k * chunk:(k + 1) * chunk] = got
+        torch.cuda.synchronize()
+    frames = chunk // 16
+    ends = sum(((k + 1) * frames) % 150 == 0 for k in range(NS_WARM, n_ticks))
+    routes = dict(ops.LAUNCHES_BY_ROUTE)
+    expect_launches((ops.LAUNCHES, routes, counts(lk, tk), plain.calls),
+                    (ZOO_TICKS, {"mma": ZOO_TICKS}, (6 * ends, 0, 0, 0), 0),
+                    f"4m {name} serving ticks: fused_skim_frames, by route, LSTM / TCN "
+                    "(the MemLSTM at segment ends), plain versions")
+    stats = server.stats.snapshot()
+    if stats["underrun_slot_ticks"]:
+        raise AssertionError(f"4m {name}: {stats['underrun_slot_ticks']} underruns")
+    held = np.linspace(0, ZOO_SLOTS - 1, ZOO_HELD).round().astype(int)
+    st, ref = engine32.init_state(ZOO_HELD), []
+    with torch.no_grad():
+        for k in range(n_ticks):
+            y, st = engine32.step(torch.from_numpy(feed[held, k * chunk:(k + 1) * chunk]).to(dev),
+                                  d32[held], st, fused=True)
+            ref.append(y)
+    ref = torch.cat(ref, -1).cpu()
+    snrs = [snr_db(torch.from_numpy(served[i]), ref[j]) for j, i in enumerate(held)]
+    snr = min(snrs)
+    if not snr >= GATE_BF16_BAR:
+        raise AssertionError(f"4m {name} bf16 vs f32: SNR by slot {dict(zip(held, snrs))} dB, "
+                             f"under {GATE_BF16_BAR:g}")
+    log("4m zoo serving", f"{name} ({ZOO_PARAMS[name]:,} params), make_session_server(half="
+        f"True, fused=True), {ZOO_SLOTS} sessions attached by 1 s enrollments in {t_attach:.2f} "
+        f"s (embedded on the card in bf16: LSTM / TCN launches {lf * ZOO_SLOTS} / "
+        f"{tf * ZOO_SLOTS}; d-vector cosine to the f32 embed, worst of {ZOO_SLOTS}, {cos:.6f}, "
+        f"bar {ZOO_DVEC_COS:g}); engine "
+        f"step alone p50 {float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); "
+        f"{ZOO_TICKS} ticks of {chunk} samples after {NS_WARM} warm-up: every output finite, "
+        f"fused_skim_frames launches {ZOO_TICKS} (by route {routes}), MemLSTM scans {6 * ends} "
+        f"at {ends} segment ends, plain-version calls 0, 0 underruns; tick p50 "
+        f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; slots "
+        f"{held.tolist()} vs the f32 engine on the f32 embed: worst {snr:.1f} dB, best "
+        f"{max(snrs):.1f} (bar {GATE_BF16_BAR:g}) [{card}]", t)
+    res = {"launches": ZOO_TICKS, "lstm": lf * ZOO_SLOTS + 6 * ends, "tcn": tf * ZOO_SLOTS,
+           "tick_p50": stats["tick_ms_p50"], "tick_p99": stats["tick_ms_p99"],
+           "step_p50": float(np.median(step_ms)), "snr": snr, "dvec_cos": cos,
+           "attach_s": t_attach}
+    res["f32"] = zoo_f32_serving(lk, tk, name, model, dev, card)
+    return res
+
+
+def zoo_f32_serving(lk, tk, name, model, dev, card) -> dict:
+    """Phase 4m: the f32 unfused server (fused=False) at ZOO_F32_SLOTS
+    sessions attached by 3 s enrollments, ZOO_F32_TICKS ticks of 15 ms: exact
+    launches (4 SegLSTM one-frame scans a frame, 6 MemLSTM scans a segment
+    end), each slot >= 60 dB from the offline inference of its zero-primed
+    input."""
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+    from puresound_tpu_torch.streaming.engine import offline_equivalent_input
+
+    t = time.perf_counter()
+    bundle = make_session_server(model, None, n_slots=ZOO_F32_SLOTS, chunk_ms=15.0,
+                                 fused=False, lockstep=True, enroll_len=16000)
+    server, chunk = bundle.server, bundle.chunk_samples
+    rng = np.random.default_rng(SEED + 132)
+    enrolls = (0.1 * rng.standard_normal((ZOO_F32_SLOTS, 48000))).astype(np.float32)
+    feed = (0.1 * rng.standard_normal((ZOO_F32_SLOTS, chunk * ZOO_F32_TICKS))).astype(np.float32)
+    lf, tf = (2, 0) if name.endswith("v1_causal") else (0, 5)
+    zero_counts(lk, tk)
+    sids = [server.attach(enroll=enrolls[i]) for i in range(ZOO_F32_SLOTS)]
+    served = np.zeros_like(feed)
+    with PlainCalls() as plain:
+        for k in range(ZOO_F32_TICKS):
+            for i, sid in enumerate(sids):
+                server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+            if server.tick() != ZOO_F32_SLOTS:
+                raise AssertionError(f"4m {name} f32 tick {k}: not every slot served")
+            for i, sid in enumerate(sids):
+                served[i, k * chunk:(k + 1) * chunk] = server.hub.pop_output(sid, chunk)
+        torch.cuda.synchronize()
+    frames = ZOO_F32_TICKS * chunk // 16
+    want = (lf * ZOO_F32_SLOTS + 4 * frames + 6 * (frames // 150), 0, tf * ZOO_F32_SLOTS, 0)
+    got = counts(lk, tk)
+    expect_launches((got, plain.calls), (want, 0), f"4m {name} f32 server, LSTM / TCN, plain")
+    stats = server.stats.snapshot()
+    with torch.no_grad():
+        x = torch.from_numpy(feed).to(dev)
+        offline = model.inference(offline_equivalent_input(x, 32, 16),
+                                  torch.from_numpy(enrolls).to(dev))[:, :feed.shape[1]]
+    snr = min(snr_np(served[i], offline[i].cpu().numpy()) for i in range(ZOO_F32_SLOTS))
+    if snr < EVAL_BAR_DB or stats["underrun_slot_ticks"] or not np.isfinite(served).all():
+        raise AssertionError(f"4m {name} f32: streamed vs offline {snr:.1f} dB (bar "
+                             f"{EVAL_BAR_DB:g}), underruns {stats['underrun_slot_ticks']}")
+    log("4m zoo serving", f"{name} f32, make_session_server(fused=False): {ZOO_F32_SLOTS} "
+        f"sessions attached by 3 s enrollments, {ZOO_F32_TICKS} ticks of {chunk} samples: "
+        f"launches LSTM / TCN fwd {got[0]} / {got[2]} (as the path predicts), plain-version "
+        f"calls 0, 0 underruns, tick p50 {stats['tick_ms_p50']:.3f} ms, p99 "
+        f"{stats['tick_ms_p99']:.3f} ms; each slot vs the offline inference of its "
+        f"zero-primed input: worst {snr:.1f} dB (bar {EVAL_BAR_DB:g}) [{card}]", t)
+    return {"lstm": got[0], "tcn": got[2], "snr": snr, "tick_p50": stats["tick_ms_p50"],
+            "tick_p99": stats["tick_ms_p99"]}
+
+
+def veve_cohort(lk, dev, card) -> dict:
+    """Phase 4m: `veve_dprnn_v0_causal` in f32, a fixed cohort of VEVE_STREAMS
+    streams through the port's StreamingServer (20 ms chunks, one segment of
+    20 frames a tick), their states from `init_state(enroll_feats=)` of their
+    3 s enrollments: exact launches (12 a tick: each block's intra scan over
+    [B, 20] and its one-step inter scan over [B * 20, 1]; 12 for the
+    conditioning), every stream >= 60 dB from the offline inference of its
+    zero-primed input with its enrollment; tick p50 / p99. A 16 ms chunk is
+    refused at build, naming the lengths that work."""
+    from puresound_tpu_torch.streaming.engine import StreamingTSE, offline_equivalent_input
+    from puresound_tpu_torch.streaming.file_eval import check_chunk_frames
+    from puresound_tpu_torch.streaming.server import StreamingServer
+
+    t = time.perf_counter()
+    model = zoo_model("veve_dprnn_v0_causal", dev, SEED + 133)
+    engine = StreamingTSE.from_offline(model).eval()
+    try:
+        check_chunk_frames(engine, 256, 16000)
+        raise AssertionError("4m veve: a 16 ms chunk passed the segment check")
+    except ValueError as e:
+        refused = str(e)
+    chunk, n, ticks = 320, VEVE_STREAMS, VEVE_TICKS
+    rng = np.random.default_rng(SEED + 134)
+    enrolls = (0.1 * rng.standard_normal((n, 48000))).astype(np.float32)
+    feed = (0.1 * rng.standard_normal((n, chunk * ticks))).astype(np.float32)
+    zero_counts(lk)
+    with torch.no_grad():
+        e = torch.from_numpy(enrolls).to(dev)
+        state = {"s": engine.init_state(n, enroll_feats=engine.embed(e))}
+    torch.cuda.synchronize()
+    cond = count_of(lk, "FWD_BY_ENTRY")
+
+    def step_fn(batch):
+        with torch.no_grad():
+            y, state["s"] = engine.step(torch.from_numpy(batch).to(dev), None, state["s"])
+        return y
+
+    server = StreamingServer(step_fn, n, chunk, lockstep=True)
+    served = np.zeros_like(feed)
+    zero_counts(lk)
+    with PlainCalls() as plain:
+        for k in range(ticks):
+            for i in range(n):
+                server.hub.push_input(i, feed[i, k * chunk:(k + 1) * chunk])
+            if server.tick() != n:
+                raise AssertionError(f"4m veve tick {k}: not every stream served")
+            for i in range(n):
+                served[i, k * chunk:(k + 1) * chunk] = server.hub.pop_output(i, chunk)
+        torch.cuda.synchronize()
+    expect_launches((cond, count_of(lk, "FWD_BY_ENTRY"), count_of(lk, "BWD_BY_ENTRY"),
+                     plain.calls), (12, 12 * ticks, 0, 0),
+                    "4m veve: conditioning and ticks, lstm_scan_train_fp fwd / bwd, plain")
+    stats = server.stats.snapshot()
+    with torch.no_grad():
+        offline = model.inference(offline_equivalent_input(torch.from_numpy(feed).to(dev), 32, 16),
+                                  e)[:, :feed.shape[1]].cpu().numpy()
+    snr = min(snr_np(served[i], offline[i]) for i in range(n))
+    if snr < EVAL_BAR_DB or not np.isfinite(served).all():
+        raise AssertionError(f"4m veve: streamed vs offline {snr:.1f} dB (bar {EVAL_BAR_DB:g})")
+    log("4m zoo serving", f"veve_dprnn_v0_causal ({ZOO_PARAMS['veve_dprnn_v0_causal']:,} "
+        f"params) f32: {n} streams through StreamingServer, states from init_state(enroll_"
+        f"feats=) of 3 s enrollments ({cond} LSTM launches), {ticks} ticks of {chunk} samples: "
+        f"launches {12 * ticks} (12 a tick), plain-version calls 0, tick p50 "
+        f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; each stream vs the "
+        f"offline inference of its zero-primed input with its enrollment: worst {snr:.1f} dB "
+        f"(bar {EVAL_BAR_DB:g}); a 16 ms chunk refused: {refused} [{card}]", t)
+    return {"lstm": cond + 12 * ticks, "snr": snr, "tick_p50": stats["tick_ms_p50"],
+            "tick_p99": stats["tick_ms_p99"]}
+
+
+def zoo_serving_phase(ops, lk, tk, dev, card) -> dict:
+    """Phase 4m: v1 / v2 served fused in bf16 and unfused in f32, and the
+    veve cohort."""
+    out = {name: zoo_bf16_serving(ops, lk, tk, name, dev, card)
+           for name in ("tse_skim_v1_causal", "tse_skim_v2_causal")}
+    out["veve_dprnn_v0_causal"] = veve_cohort(lk, dev, card)
+    return out
+
+
+def zoo_step_prepare(model):
+    """6k's card vs CPU step: dropout 0 (v1's speaker BiLSTM), SpecAugment's
+    draws fixed (v2), on both sides."""
+    for m in model.modules():
+        if type(m).__name__ == "Dropout":
+            m.p = 0.0
+        if type(m).__name__ == "SpecAugment":
+            m.draw = lambda g: torch.tensor(ZOO_DRAWS, device=g.device)
+
+
+def zoo_recipe_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
+    """Phase 6k: each of the four through `python -m
+    puresound_tpu_torch.egs.tse.main` on a copy of the shipped 1a config
+    with MODEL.type swapped (SI-SNR + 10 x AAM-softmax, B=12 x 3 s, 5 s
+    enrollments), ZOO_RECIPE_STEPS steps + 1 dev batch: finite losses, exact
+    launches, step p50, host gap, peak memory, epoch_0.ckpt reloading equal;
+    then one f32 step (B=2 x 0.5 s, dropout 0, SpecAugment's draws fixed) on
+    the card against the CPU's f64 step, gated as phase 6g. Checkpoints go
+    to <keep>/<name> for 7d."""
+    import tempfile
+
+    from puresound_tpu_torch.src.utils import dump_hparam, load_hparam
+    from puresound_tpu_torch.zoo.tse import init_loss, init_model
+
+    out = {}
+    for name in ZOO_PARAMS:
+        t = time.perf_counter()
+        steps = ZOO_RECIPE_STEPS
+        with tempfile.TemporaryDirectory() as tmp:
+            path = shipped_config(
+                SHIPPED_TSE[0], tmp,
+                write_tse_manifest(os.path.join(tmp, "train"), 12 * steps, 9),
+                write_tse_manifest(os.path.join(tmp, "dev"), 12, 10))
+            hp = load_hparam(path)
+            hp["MODEL"]["type"] = name
+            dump_hparam(hp, path)
+            torch.cuda.reset_peak_memory_stats()
+            res = run_recipe(lk, tk, "puresound_tpu_torch.egs.tse.main", path, backend)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            lf, tf = ZOO_LAUNCHES[name]
+            got = res["launches"]
+            expect_launches(got, (lf * (steps + 1), lf * steps, tf * (steps + 1), tf * steps),
+                            f"6k {name} recipe, LSTM and TCN (fwd, bwd)")
+            model = res["trainer"].model
+            w0 = init_loss(hp, device=dev, generator=torch.Generator().manual_seed(0))[1]
+            moved = (model.loss_func_spk.weight - w0.weight).abs().max().item()
+            if (moved > 0) != (model.task != 4):
+                raise AssertionError(f"6k {name}: task {model.task}, AAM-softmax weight "
+                                     f"moved {moved}")
+            fresh = init_model(name, *init_loss(hp, device=dev), device=dev)
+            info = recipe_checks(res, steps, dev, fresh, f"6k {name} recipe")
+            keep_checkpoints(res["trainer"], os.path.join(keep, name))
+        g = step_gaps(res, steps, 1)
+        losses = res["losses"]
+        log("6k zoo recipe", f"python -m puresound_tpu_torch.egs.tse.main {SHIPPED_TSE[0]} "
+            f"with MODEL.type {name} ({ZOO_PARAMS[name]:,} params; task {model.task}), "
+            f"B={hp['TRAIN']['batch_size']} x 3 s, 5 s enrollments, {steps} steps + 1 dev batch "
+            f"on {res['trainer'].device}: losses {losses[0]:.4f} -> {losses[-1]:.4f}, dev "
+            f"{res['dev_loss'][0]:.4f}, AAM-softmax weight moved by max {moved:.3e}; "
+            + gap_text(g, steps, 1, hp["TRAIN"]["batch_size"] * 3)
+            + f"; peak memory {peak:.2f} GiB; launches LSTM fwd/bwd {got[:2]}, TCN fwd/bwd "
+            f"{got[2:]}, serving kernels {res['serving']}; epoch_0.ckpt reloads equal "
+            f"({info[0]}, {info[1]}) [{card}]", t)
+        check = tse_card_vs_cpu(name, hp, lk, tk, dev, card, zoo_step_prepare,
+                                "6k zoo train step")
+        out[name] = dict(g, launches=tuple(a + b for a, b in zip(got, check["launches"])),
+                         peak_gib=peak, steps=steps, check=check, aam_moved=moved)
+    return out
+
+
+def eval_7d_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
+    """Phase 7d: the four models' evaluation actions through the TSE CLI on
+    6k's checkpoints (model_average 2), ZOO_EVAL_UTTS mixtures of 4 s with 3
+    s enrollments: `dev --metrics detail` (every row equal to Metrics of the
+    outputs), `eval`, `eval --batch_eval 2` (on the grid: >= 60 dB from B=1),
+    and `stream_eval` at 15 ms for v1 / v2 (>= 60 dB from the offline
+    inference of the zero-primed input, exact launches); v0 (non-causal) and
+    veve (embedding-free) refuse to stream with a ValueError."""
+    import tempfile
+
+    from puresound_tpu_torch.src.audio import AudioIO
+    from puresound_tpu_torch.src.utils import dump_hparam, load_hparam, load_text_as_dict
+
+    module = "puresound_tpu_torch.egs.tse.main"
+    out = {"launches": [0, 0, 0, 0], "serving": [0] * 5, "by_model": {}}
+    probe = EvalProbe()
+    with tempfile.TemporaryDirectory() as tmp, probe:
+        for name in ZOO_PARAMS:
+            t = time.perf_counter()
+            lf, tf = ZOO_LAUNCHES[name]
+            full = write_eval_manifest(os.path.join(tmp, name, "full"), ZOO_EVAL_UTTS,
+                                       SEED + 140, True)
+            stream = write_eval_manifest(os.path.join(tmp, name, "stream"), TSE_STREAM[0],
+                                         SEED + 141, True, TSE_STREAM[1])
+            hp = load_hparam(SHIPPED_TSE[0])
+            hp["MODEL"]["type"] = name
+            hp["TRAIN"].update(model_save_dir=os.path.join(keep, name), model_average=2,
+                               log_dir=os.path.join(tmp, name, "logs"))
+            cfgs = {}
+            for label, folder in (("full", full), ("stream", stream)):
+                hp["DATASET"].update(dev=folder, eval=folder, train=folder)
+                cfgs[label] = os.path.join(tmp, name, f"{label}.yaml")
+                dump_hparam(hp, cfgs[label])
+            ck = ["--ckpt", "epoch_1.ckpt", "--backend", backend]
+            cli = lambda cfg, *args: run_cli(module, cfgs[cfg], [*args, *ck], probe, lk, tk)
+            res = {"dev": cli("full", "--action", "dev", "--metrics", "detail"),
+                   "eval": cli("full", "--action", "eval"),
+                   "batch": cli("full", "--action", "eval", "--batch_eval",
+                                str(ZOO_EVAL_BATCH), "--eval_quantum", str(ZOO_EVAL_QUANTUM))}
+            n = ZOO_EVAL_UTTS
+            n_b = -(-n // ZOO_EVAL_BATCH)
+            for key, calls in (("dev", n), ("eval", n), ("batch", n_b)):
+                expect_launches((res[key]["launches"], res[key]["serving"]),
+                                ((lf * calls, 0, tf * calls, 0), (0,) * 5),
+                                f"7d {name} {key}: LSTM fwd/bwd, TCN fwd/bwd; serving")
+                check_models(res[key], dev, f"7d {name} {key}")
+            want = rescore(full, res["dev"]["outputs"], True)
+            printed = dev_rows(res["dev"]["stdout"], 6)
+            if printed != want or len(printed) != n or not np.isfinite(
+                    list(want.values())).all():
+                raise AssertionError(f"7d {name} dev: printed {printed}, Metrics {want}")
+            keys = sorted(res["eval"]["saved"])
+            batch = min(snr_np(res["batch"]["saved"][k], res["eval"]["saved"][k]) for k in keys)
+            if not batch >= EVAL_BAR_DB:
+                raise AssertionError(f"7d {name}: batched vs unbatched {batch:.1f} dB")
+            streams, refused = {}, None
+            n_s, L_s = stream_set(True)
+            if name in ("tse_skim_v0", "veve_dprnn_v0_causal"):
+                try:
+                    cli("stream", "--action", "stream_eval", "--chunk_ms", "15")
+                    raise AssertionError(f"7d {name}: stream_eval ran")
+                except ValueError as e:
+                    refused = str(e)
+            else:
+                r = cli("stream", "--action", "stream_eval", "--chunk_ms", "15")
+                per_utt = -(-L_s // 240) + 1
+                ticks = per_utt * n_s
+                mem = 6 * ((per_utt - 1) * 15 // 150) * n_s
+                spk = 2 if name.endswith("v1_causal") else 0
+                expect_launches((r["launches"], r["serving"]),
+                                ((4 * 15 * ticks + mem + spk * n_s, 0, tf * n_s, 0), (0,) * 5),
+                                f"7d {name} stream_eval")
+                check_models(r, dev, f"7d {name} stream_eval")
+                model = res["eval"]["models"][0]
+                scp = load_text_as_dict(os.path.join(stream, "wav2scp.txt"))
+                enr = load_text_as_dict(os.path.join(stream, "ref2list.txt"))
+                got = []
+                with torch.inference_mode():
+                    for k in sorted(scp):
+                        x = torch.from_numpy(AudioIO.open(scp[k][0])[0]).to(dev)
+                        e = torch.from_numpy(AudioIO.open(enr[k][0], target_lvl=-28)[0]).to(dev)
+                        off = model.inference(torch.nn.functional.pad(x, (16, 0)), e)
+                        got.append(snr_np(r["saved"][k][:L_s], off[0, :L_s].float().cpu().numpy()))
+                streams = {"db": min(got), "rtf": float(np.mean(r["rtfs"])),
+                           "launches": r["launches"]}
+                if not streams["db"] >= EVAL_BAR_DB:
+                    raise AssertionError(f"7d {name} stream_eval: {streams['db']:.1f} dB")
+                out["launches"] = [a + b for a, b in zip(out["launches"], r["launches"])]
+            for key in ("dev", "eval", "batch"):
+                out["launches"] = [a + b for a, b in zip(out["launches"], res[key]["launches"])]
+            d, e, b = res["dev"], res["eval"], res["batch"]
+            audio_s = n * EVAL_SECONDS
+            means = dict(zip(("PESQ", "STOI", "SDR", "SiSNR", "SiSNRi", "NSR"),
+                             map(float, np.mean(list(want.values()), axis=0))))
+            out["by_model"][name] = {"dev_wall_s": d["wall_s"], "eval_rtf": audio_s / e["wall_s"],
+                                     "eval_model_rtf": audio_s / e["model_s"],
+                                     "batch_rtf": audio_s / b["wall_s"], "batch_db": batch,
+                                     "streams": streams, "refused": refused, "dev_means": means}
+            log("7d zoo eval", f"python -m {module} (1a with MODEL.type {name}; --ckpt "
+                f"epoch_1.ckpt, model_average 2) on {n} mixtures of {EVAL_SECONDS:g} s: dev "
+                f"--metrics detail {d['wall_s']:.2f} s, means " + ", ".join(
+                    f"{c} {v:.4f}" for c, v in means.items())
+                + f", every row equal to Metrics of the outputs; eval B=1 {e['wall_s']:.2f} s "
+                f"(RTF {audio_s / e['wall_s']:.1f}, model alone {audio_s / e['model_s']:.1f}); "
+                f"--batch_eval {ZOO_EVAL_BATCH} --eval_quantum {ZOO_EVAL_QUANTUM} "
+                f"{b['wall_s']:.2f} s (RTF {audio_s / b['wall_s']:.1f}), {batch:.1f} dB from B=1; "
+                + (f"stream_eval 15 ms on {n_s} mixture of {L_s / 16000:g} s: RTF "
+                   f"{streams['rtf']:.2f}, {streams['db']:.1f} dB from the offline inference of "
+                   f"the zero-primed input, launches (LSTM fwd, TCN fwd) "
+                   f"{streams['launches'][::2]}" if streams else f"stream_eval refused: {refused}")
+                + f"; launches dev / eval / batch (LSTM fwd, TCN fwd) {d['launches'][::2]} / "
+                f"{e['launches'][::2]} / {b['launches'][::2]}, no backward, no serving kernel "
+                f"[{card}]", t)
+    return out
+
+
+def zoo_phases(ops, lk, tk, dev, card) -> dict:
+    """Phases 2l, 4m, 6k and 7d; each kernel's launches by phase."""
+    import tempfile
+
+    shapes = zoo_shapes_phase(lk, tk, dev, card)
+    serving = zoo_serving_phase(ops, lk, tk, dev, card)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_7d_")
+    try:
+        recipes = zoo_recipe_phase(lk, tk, dev, card, keep)
+        evals = eval_7d_phase(lk, tk, dev, card, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    bf = [serving[n] for n in ("tse_skim_v1_causal", "tse_skim_v2_causal")]
+    l4m = sum(r["lstm"] + r["f32"]["lstm"] for r in bf) + serving["veve_dprnn_v0_causal"]["lstm"]
+    t4m = sum(r["tcn"] + r["f32"]["tcn"] for r in bf)
+    r6k = [sum(r["launches"][i] for r in recipes.values()) for i in range(4)]
+    table = lambda v: {"lstm_scan_train_fp fwd": v[0], "lstm_scan_train_fp bwd": v[1],
+                       "tcn_block_train fwd": v[2], "tcn_block_train bwd": v[3]}
+    launches = {"2l": table(shapes["launches"]),
+                "4m": dict(table((l4m, 0, t4m, 0)),
+                           fused_skim_frames=sum(r["launches"] for r in bf)),
+                "6k": table(r6k), "7d": table(evals["launches"])}
+    log("8 zoo launches", f"2l {launches['2l']}; 4m {launches['4m']}; 6k {launches['6k']}; "
+        f"7d {launches['7d']}", time.perf_counter())
+    return {"shapes": shapes, "serving": serving, "recipes": recipes, "evals": evals,
+            "launches": launches}
+
+
 def run(dev: torch.device) -> int:
     t0 = time.perf_counter()
     from puresound_tpu_torch.ops import _build
@@ -6393,6 +6997,8 @@ def run(dev: torch.device) -> int:
         shutil.rmtree(keep, ignore_errors=True)
     # 6j. the rest of the trainer: augmentation, remat, resume, data parallelism
     launches_6j = trainer_phase(lk, tk, dev, card)["launches"]
+    # ------------------- the time-domain rest of the TSE zoo: 2l, 4m, 6k, 7d
+    zoo = zoo_phases(ops, lk, tk, dev, card)
     sock = dss_serve["socket"]
     dss_by_slots = dss_serve["serving"]
     # each kernel's launches in phases 4l / 6i / 7c
@@ -6476,7 +7082,8 @@ def run(dev: torch.device) -> int:
             "launches_6g": launches_6g[i], "launches_6h": launches_6h[i],
             "launches_7b": evals_7b["launches"][i],
             "new_shapes": {**{n: case_line(lstm_results[n], half) for n in LSTM_SEEDS},
-                           **{n: case_line(r, half) for n, r in new_shapes["lstm"].items()}},
+                           **{n: case_line(r, half) for n, r in new_shapes["lstm"].items()},
+                           **{n: case_line(r, half) for n, r in zoo["shapes"]["lstm"].items()}},
             "max_abs_err": seg["f32_max_abs_err"], "ms": seg[f"f32_{half}_ms"],
             "plain_ms": seg[f"f32_plain_{half}_ms"],
             "bound_ms": seg[f"f32_{half}_bound"][0],
@@ -6552,7 +7159,8 @@ def run(dev: torch.device) -> int:
             "launches_4k": tasnet_serve["launches"] if half == "fwd" else 0,
             "launches_6g": launches_6g[i], "launches_7b": evals_7b["launches"][i],
             "new_shapes": {**{n: case_line(tcn_results[n], half) for n in TCN_SEEDS},
-                           **{n: case_line(r, half) for n, r in new_shapes["tcn"].items()}},
+                           **{n: case_line(r, half) for n, r in new_shapes["tcn"].items()},
+                           **{n: case_line(r, half) for n, r in zoo["shapes"]["tcn"].items()}},
             "max_abs_err": spk["f32_max_abs_err"], "ms": spk[f"f32_{half}_ms"],
             "plain_ms": spk[f"f32_plain_{half}_ms"],
             "bound_ms": spk[f"f32_{half}_bound"][0],
@@ -6690,9 +7298,13 @@ def run(dev: torch.device) -> int:
         # "(backward)" as fwd / bwd)
         key = k["name"].replace(" (forward)", " fwd").replace(" (backward)", " bwd")
         for phase, table in (("4l", launches_4l), ("6i", launches_6i), ("7c", launches_7c),
-                             ("6j", launches_6j)):
+                             ("6j", launches_6j), ("4m", zoo["launches"]["4m"]),
+                             ("6k", zoo["launches"]["6k"]), ("7d", zoo["launches"]["7d"])):
             k[f"launches_{phase}"] = table.get(key, 0)
             k["launches"] += table.get(key, 0)
+        # phase 2l's launches hold each kernel against its plain version: counted
+        # apart, not as launches of a main path
+        k["launches_2l"] = zoo["launches"]["2l"].get(key, 0)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

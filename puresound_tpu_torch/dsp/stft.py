@@ -1,8 +1,8 @@
 """STFT substrate (counterpart of puresound_tpu/dsp/stft.py).
 
-The window and Fourier-kernel builders are host-side numpy, copied from the
-JAX package's module (`:27-91`, `:213-222`) so that the port imports nothing
-of it; `overlap_add` (`:171`) and `window_sumsquare` (`:203`) run on tensors.
+The window, Fourier-kernel and mel-filterbank builders are host-side numpy,
+copied from the JAX package's module (`:27-91`, `:98-164`, `:213-222`) so
+that the port imports nothing of it; `overlap_add` (`:171`) and `window_sumsquare` (`:203`) run on tensors.
 """
 from __future__ import annotations
 
@@ -50,6 +50,68 @@ def inverse_fourier_basis(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
     k = np.arange(n_fft)
     phase = 2.0 * np.pi * k[:, None] * k[None, :] / n_fft
     return np.cos(phase).astype(np.float32), np.sin(phase).astype(np.float32)
+
+
+def hz_to_mel(frequencies) -> np.ndarray:
+    """Hz -> mel on the Slaney scale (librosa's default, no HTK)."""
+    freqs = np.asanyarray(frequencies, dtype=np.float64)
+    f_sp = 200.0 / 3
+    mels = freqs / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    if mels.ndim:
+        log_t = freqs >= min_log_hz
+        mels = np.where(log_t, min_log_mel + np.log(np.maximum(freqs, 1e-10) / min_log_hz)
+                        / logstep, mels)
+    elif freqs >= min_log_hz:
+        mels = min_log_mel + np.log(freqs / min_log_hz) / logstep
+    return mels
+
+
+def mel_to_hz(mels) -> np.ndarray:
+    """mel -> Hz, the inverse of `hz_to_mel`."""
+    mels = np.asanyarray(mels, dtype=np.float64)
+    f_sp = 200.0 / 3
+    freqs = f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    if mels.ndim:
+        log_t = mels >= min_log_mel
+        freqs = np.where(log_t, min_log_hz * np.exp(logstep * (mels - min_log_mel)), freqs)
+    elif mels >= min_log_mel:
+        freqs = min_log_hz * np.exp(logstep * (mels - min_log_mel))
+    return freqs
+
+
+def fft_frequencies(sr: int = 16000, n_fft: int = 512) -> np.ndarray:
+    return np.linspace(0, float(sr) / 2, int(1 + n_fft // 2), endpoint=True)
+
+
+def mel_frequencies(n_mels: int = 128, fmin: float = 0.0, fmax: float = 8000.0) -> np.ndarray:
+    return mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels))
+
+
+def mel_filterbank(sr: int, n_fft: int, n_banks: int = 128, fmin: float = 0.0,
+                   fmax: Optional[float] = None, norm: int = 1) -> np.ndarray:
+    """Triangular Slaney-normalised mel filterbank [n_banks, n_fft//2+1],
+    float32; raises ValueError where a bank would be empty."""
+    if fmax is None:
+        fmax = float(sr) / 2
+    fftfreqs = fft_frequencies(sr=sr, n_fft=n_fft)
+    mel_f = mel_frequencies(n_banks + 2, fmin=fmin, fmax=fmax)
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0, np.minimum(lower, upper)).astype(np.float32)
+    if norm == 1:
+        enorm = 2.0 / (mel_f[2:n_banks + 2] - mel_f[:n_banks])
+        weights *= enorm[:, None].astype(np.float32)
+    if not np.all((mel_f[:-2] == 0) | (weights.max(axis=1) > 0)):
+        raise ValueError("Empty mel filter channels; raise sr/fmax or lower n_banks.")
+    return weights
 
 
 def periodic_hann_sumsquare(n_fft: int, hop: int) -> np.ndarray:

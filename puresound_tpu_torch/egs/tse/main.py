@@ -24,8 +24,10 @@ perturb_frequency_response, enroll_augment) or, with augment_on_device,
 RIR, noise and volume in the step; TRAIN.remat recomputes the forward in
 the backward. `--num_processes N --process_id i --coordinator host:port`
 trains data-parallel, one process per card (NCCL; gloo with `--backend
-cpu`), with TRAIN.multi_gpu: true as JAX's recipes ask. tSNE and
-export_model are not ported yet and raise.
+cpu`), with TRAIN.multi_gpu: true as JAX's recipes ask. stream_eval
+refuses an embedding-free model (`veve_dprnn_v0_causal`: its enrollment
+conditions the masker's initial state, which JAX's stream_eval never sets)
+and a non-causal one. tSNE and export_model are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -300,9 +302,17 @@ def action_stream_eval(hparam, device, ckpt, chunk_ms=16.0, half=False) -> list:
     TRAIN.model_save_dir/stream_eval_audio/<key>.wav aligned with the input
     and prints each utterance's RTF and their mean; returns the RTFs."""
     sr = hparam["DATASET"]["sample_rate"]
+    model = load_eval_model(hparam, ckpt, device)
+    if model.embedding_free_tse:
+        raise ValueError(
+            f"stream_eval does not stream the embedding-free {hparam['MODEL']['type']}: its "
+            "enrollment conditions the masker's initial recurrent state "
+            "(StreamingTSE.init_state(enroll_feats=)), which JAX's stream_eval never sets, "
+            "so JAX's streams it unconditioned; stream it through the engine with "
+            "init_state(enroll_feats=engine.embed(enroll)) and dvec None instead")
     out_dir = f"{hparam['TRAIN']['model_save_dir']}/stream_eval_audio"
     create_folder(out_dir)
-    engine = build_engine(load_eval_model(hparam, ckpt, device))
+    engine = build_engine(model)
     # under --half the stream runs on a bfloat16 copy; the embedding stays float32
     streamer = (build_engine(to_half(load_eval_model(hparam, ckpt, device)))
                 if half else engine)

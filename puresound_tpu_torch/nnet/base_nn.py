@@ -3,7 +3,9 @@
 `SoTaskWrapModule` with a time-domain (FreeEncDec) encoder and real masks,
 or a conv-STFT (ConvEncDec) encoder with RI-concat features (the first bin
 dropped and re-padded when `drop_first_bin`) and any mask of
-`apply_tf_masks`: encoder -> speaker net -> masker -> mask -> decoder. `forward` returns the
+`apply_tf_masks`: encoder -> speaker net -> masker -> mask -> decoder; the
+enrollment goes through `encoder_spk` where one is set (`tse_skim_v2_causal`'s
+FbankEnc), else through the mixture's encoder. `forward` returns the
 training loss of the task (`base_nn.py:200`): tasks 0/4 (`_forward`), 1
 (`_forward_join`), 2 (`_forward_contrastive`) and 3 (`_forward_join_loop`);
 `inference` (`:282`) returns the waveform. `SiMoTaskWrapModule` (`:296-371`)
@@ -18,7 +20,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from .encoder import ConvEncDec, FreeEncDec
+from .encoder import ConvEncDec, FbankEnc, FreeEncDec
 
 
 def mul_complex(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -88,6 +90,20 @@ def align_waveform(enh: torch.Tensor, ref: torch.Tensor,
     return enh, ref[..., :le]
 
 
+def check_encoder(encoder: nn.Module) -> None:
+    """The mixture encoder must decode its own features: FreeEncDec or
+    ConvEncDec. FbankEnc's inverse takes (mel, phase), not the masked
+    features the wrapper decodes (JAX's `_decode` fails on it as well), so
+    it serves as `encoder_spk` only."""
+    if isinstance(encoder, FbankEnc):
+        raise ValueError("FbankEnc cannot be the mixture encoder: the wrapper decodes "
+                         "with encoder.inverse(feats) and FbankEnc's inverse takes (mel, "
+                         "phase); pass it as encoder_spk")
+    if not isinstance(encoder, (FreeEncDec, ConvEncDec)):
+        raise TypeError(f"the mixture encoder must be FreeEncDec or ConvEncDec, not "
+                        f"{type(encoder).__name__}")
+
+
 def run_speaker_net(layers, x: torch.Tensor) -> torch.Tensor:
     """Walk the speaker-net layers (TCN / pooling / conv)."""
     for layer in layers:
@@ -109,13 +125,12 @@ class SoTaskWrapModule(nn.Module):
                  embedding_free_tse: bool = False,
                  mask_constraint: str = "linear",
                  output_constraint: str = "linear", f_type: str = "real",
-                 mask_type: str = "real", drop_first_bin: bool = False):
+                 mask_type: str = "real", drop_first_bin: bool = False,
+                 encoder_spk: Optional[nn.Module] = None):
         super().__init__()
-        if not isinstance(encoder, (FreeEncDec, ConvEncDec)):
-            raise NotImplementedError(
-                f"encoder {type(encoder).__name__} is not ported yet (ROADMAP "
-                "queue 1 item 5b: FbankEnc)")
+        check_encoder(encoder)
         self.encoder = encoder
+        self.encoder_spk = encoder_spk
         self.masker = masker
         self.speaker_net = (nn.ModuleList(speaker_net)
                             if speaker_net is not None else None)
@@ -160,13 +175,20 @@ class SoTaskWrapModule(nn.Module):
                                            return_loss_detail, inactive_labels)
         raise NotImplementedError("wrapper constructed without loss functions")
 
-    def _encode(self, wav):
-        """Waveform -> masker features ([N, C, T]; RI-concat for the STFT)."""
-        feats = self.encoder(wav)
-        if isinstance(self.encoder, ConvEncDec):
+    def _encode(self, wav, encoder=None):
+        """Waveform -> features ([N, C, T]; RI-concat for the STFT) through
+        `encoder`, the mixture's by default."""
+        encoder = self.encoder if encoder is None else encoder
+        feats = encoder(wav)
+        if isinstance(encoder, ConvEncDec):
             lo = 1 if self.drop_first_bin else 0
             feats = torch.cat([feats[:, lo:, :, 0], feats[:, lo:, :, 1]], dim=1)
         return feats
+
+    def _encode_enroll(self, wav):
+        """Enrollment waveform -> speaker-net features: through
+        `encoder_spk` where one is set (JAX `base_nn.py:162-170`)."""
+        return self._encode(wav, self.encoder_spk)
 
     def _decode(self, enh_feats):
         """Masked features -> waveform (the DC bin re-padded for the STFT)."""
@@ -184,7 +206,7 @@ class SoTaskWrapModule(nn.Module):
     def _condition(self, enroll):
         if enroll is None:
             return None
-        feats = self._encode(enroll)
+        feats = self._encode_enroll(enroll)
         return feats if self.embedding_free_tse else self._dvec(feats)
 
     def _mask_and_decode(self, noisy_feats, dvec):
@@ -202,7 +224,7 @@ class SoTaskWrapModule(nn.Module):
 
     def _forward_join(self, noisy, enroll, ref_clean, spk_class, alpha,
                       return_loss_detail, inactive_labels):
-        dvec = self._dvec(self._encode(enroll))
+        dvec = self._dvec(self._encode_enroll(enroll))
         enh_wav = self._mask_and_decode(self._encode(noisy), dvec)
         enh_wav, ref_clean = align_waveform(enh_wav, ref_clean)
         loss_wav = self.loss_func_wav(enh_wav, ref_clean, inactive_labels)
@@ -215,7 +237,7 @@ class SoTaskWrapModule(nn.Module):
 
     def _forward_contrastive(self, noisy, enroll):
         """GE2E on the enrollment's and the enhanced waveform's d-vectors."""
-        dvec = self._dvec(self._encode(enroll))
+        dvec = self._dvec(self._encode_enroll(enroll))
         enh_wav = self._mask_and_decode(self._encode(noisy), dvec)
         # as JAX (`base_nn.py:252-254`): the enhanced waveform is re-embedded
         # through the mixture encoder
@@ -230,10 +252,10 @@ class SoTaskWrapModule(nn.Module):
                            return_loss_detail, inactive_labels):
         """Task 1's losses plus the triplet (enrollment, enhanced, residual
         noise) over their d-vectors, weighted 1 / alpha."""
-        dvec = self._dvec(self._encode(enroll))
+        dvec = self._dvec(self._encode_enroll(enroll))
         enh_wav = self._mask_and_decode(self._encode(noisy), dvec)
-        enh_dvec = self._dvec(self._encode(enh_wav))
-        noise_dvec = self._dvec(self._encode(noisy - enh_wav))
+        enh_dvec = self._dvec(self._encode_enroll(enh_wav))
+        noise_dvec = self._dvec(self._encode_enroll(noisy - enh_wav))
         triplet = torch.stack([dvec, enh_dvec, noise_dvec], dim=1)
         enh_wav, ref_clean = align_waveform(enh_wav, ref_clean)
         loss_wav = self.loss_func_wav(enh_wav, ref_clean, inactive_labels)
@@ -263,10 +285,7 @@ class SiMoTaskWrapModule(nn.Module):
                  mask_type: str = "real", mask_constraint: str = "linear",
                  output_constraint: str = "linear", drop_first_bin: bool = False):
         super().__init__()
-        if not isinstance(encoder, (FreeEncDec, ConvEncDec)):
-            raise NotImplementedError(
-                f"encoder {type(encoder).__name__} is not ported yet (ROADMAP "
-                "queue 1 item 5b: FbankEnc)")
+        check_encoder(encoder)
         self.encoder, self.masker = encoder, masker
         self.loss_func_wav = loss_func_wav
         self.f_type, self.mask_type = f_type, mask_type

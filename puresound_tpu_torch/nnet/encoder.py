@@ -1,8 +1,9 @@
 """Waveform front-ends (counterpart of puresound_tpu/nnet/encoder.py).
 
-`FreeEncDec` (`:60`), the learned filterbank of the TSE flagship, and the
+`FreeEncDec` (`:60`), the learned filterbank of the TSE flagship, the
 conv-STFT pair of the NS models: `ConvSTFT` (`:100`) and its wrapper
-`ConvEncDec` (`:284`). The analysis is a strided conv with the windowed
+`ConvEncDec` (`:284`), and the mel front-end `FbankEnc` (`:323`), the
+enrollment encoder of `tse_skim_v2_causal`. The analysis is a strided conv with the windowed
 sin/cos kernels (parameters when trainable); the synthesis is a matmul
 against the fixed inverse-DFT basis, then overlap-add and the window-sum
 division. The bases are non-persistent buffers, so the state_dict holds
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..dsp.stft import (fourier_kernels, hann_window, inverse_fourier_basis,
-                        overlap_add, window_sumsquare)
+                        mel_filterbank, overlap_add, window_sumsquare)
 from ..utils.init import generator_or_default, uniform
 
 
@@ -69,8 +70,10 @@ class ConvSTFT(nn.Module):
     """Conv-STFT with (optionally trainable) windowed Fourier kernels.
 
     forward: [N, L] -> [N, F, T, 2], (re, im) with the DFT's sign
-    (imag = -sum(x * sin)); inverse: [N, F, T, 2] -> [N, L]. The "Complex"
-    format only. `wsin` / `wcos` are [F, n_fft] like JAX's.
+    (imag = -sum(x * sin)) for "Complex", or (magnitude, phase) for
+    "MagPhase" (`encoder.py:171-193`: the magnitude sqrt(p + 1e-8) when
+    trainable); inverse: [N, F, T, 2] -> [N, L], a MagPhase input re-polarised
+    first. `wsin` / `wcos` are [F, n_fft] like JAX's.
     """
 
     def __init__(self, n_fft: int = 2048, win_length: Optional[int] = None,
@@ -86,10 +89,9 @@ class ConvSTFT(nn.Module):
             raise ValueError("window length must be <= n_fft")
         if win_type.lower() != "hann":
             raise NotImplementedError(f"window type {win_type}")
-        if output_format != "Complex":
-            raise NotImplementedError(
-                f"ConvSTFT {output_format!r} output is not ported yet (ROADMAP queue 1 "
-                "item 5b: FbankEnc's MagPhase)")
+        if output_format not in ("Complex", "MagPhase"):
+            raise NotImplementedError(output_format)
+        self.output_format, self.trainable = output_format, trainable
         self.n_fft, self.freq_bins, self.iSTFT = n_fft, freq_bins, iSTFT
         self.hop = hop_length if hop_length is not None else win // 4
         wsin, wcos, _, _ = fourier_kernels(n_fft, win_length=win,
@@ -139,7 +141,11 @@ class ConvSTFT(nn.Module):
         spec = F.conv1d(x[:, None, :], w, stride=self.hop)     # [N, 2F', T]
         nk, fb = self.wcos.shape[0], self.num_freq_out
         re, im = spec[:, :nk][:, :fb], spec[:, nk:][:, :fb]
-        return torch.stack([re, -im], dim=-1)
+        if self.output_format == "Complex":
+            return torch.stack([re, -im], dim=-1)
+        power = re ** 2 + im ** 2
+        mags = torch.sqrt(power + 1e-8) if self.trainable else torch.sqrt(power)
+        return torch.stack([mags, torch.atan2(-im, re)], dim=-1)
 
     # ---------------------------------------------------------- streaming
     def stream_analysis_ri(self, buf: torch.Tensor, K: int,
@@ -183,6 +189,9 @@ class ConvSTFT(nn.Module):
         """X [N, F, T, 2] -> [N, L]."""
         if X.dim() != 4:
             raise ValueError("inverse expects [N, freq, T, 2] input")
+        if self.output_format == "MagPhase":
+            mag, phase = X[..., 0], X[..., 1]
+            return self._synthesize(mag * torch.cos(phase), mag * torch.sin(phase))
         return self._synthesize(X[..., 0], X[..., 1])
 
 
@@ -216,3 +225,60 @@ class ConvEncDec(nn.Module):
 
     def inverse(self, X: torch.Tensor) -> torch.Tensor:
         return self.encoder.inverse(X)
+
+
+class FbankEnc(nn.Module):
+    """Conv mel-spectrogram front-end (JAX `encoder.py:323-391`).
+
+    forward "Magnitude": [N, L] -> mel power [N, n_banks, T] (the power
+    + 1e-8 when trainable); "MagPhase": (mel magnitude [N, n_banks, T],
+    phase [N, F, T]) (the magnitude sqrt(p + 1e-8) when trainable).
+    `inverse(mel, phase)` (MagPhase, iSTFT=True): the pseudo-inverse mel
+    map, then `ConvSTFT._synthesize`. The STFT is the `stft` submodule;
+    `filterbank` [F, n_banks] / `inv_filterbank` [n_banks, F] are
+    parameters when trainable, else non-persistent buffers (JAX holds no
+    variables for them then).
+    """
+
+    def __init__(self, fft_length: int = 512, win_type: str = "hann",
+                 win_length: int = 512, freq_bins: Optional[int] = None,
+                 hop_length: int = 128, freq_scale: str = "no", fmin: float = 0.0,
+                 fmax: float = 8000.0, sr: int = 16000, trainable: bool = False,
+                 output_format: str = "Magnitude", n_banks: int = 80,
+                 iSTFT: bool = False, *, device=None, dtype=torch.float32):
+        super().__init__()
+        if output_format.lower() not in ("magnitude", "magphase"):
+            raise NotImplementedError(output_format)
+        self.output_format, self.trainable = output_format.lower(), trainable
+        self.fft_length, self.hop_length, self.n_banks = fft_length, hop_length, n_banks
+        self.stft = ConvSTFT(n_fft=fft_length, win_length=win_length, freq_bins=freq_bins,
+                             hop_length=hop_length, freq_scale=freq_scale, iSTFT=iSTFT,
+                             fmin=fmin, fmax=fmax, sr=sr, trainable=trainable,
+                             output_format="Complex", win_type=win_type, device=device,
+                             dtype=dtype)
+        # JAX honours sr here where PureSound hardcodes 16 kHz (`:362-365`)
+        mel_fb_t = mel_filterbank(sr=sr, n_fft=fft_length, n_banks=n_banks).T
+        inv_mel = np.linalg.pinv(mel_fb_t).astype(np.float32)
+        for name, a in (("filterbank", mel_fb_t), ("inv_filterbank", inv_mel)):
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+            if trainable:
+                setattr(self, name, nn.Parameter(t))
+            else:
+                self.register_buffer(name, t, persistent=False)
+
+    def forward(self, x: torch.Tensor):
+        X = self.stft(x)                                    # [N, F, T, 2]
+        re, im = X[..., 0], X[..., 1]
+        power = re ** 2 + im ** 2
+        fb = self.filterbank.to(x.dtype)
+        if self.output_format == "magphase":
+            mag = torch.sqrt(power + 1e-8) if self.trainable else torch.sqrt(power)
+            return torch.einsum("nft,fm->nmt", mag, fb), torch.atan2(im, re)
+        mag = power + 1e-8 if self.trainable else power
+        return torch.einsum("nft,fm->nmt", mag, fb)
+
+    def inverse(self, melspec: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+        if self.output_format != "magphase":
+            raise NotImplementedError("inverse only supports MagPhase format")
+        spec = torch.einsum("nmt,mf->nft", melspec, self.inv_filterbank.to(melspec.dtype))
+        return self.stft._synthesize(spec * torch.cos(phase), spec * torch.sin(phase))

@@ -25,17 +25,11 @@ class Dropout(nn.Module):
         self.generator = generator_or_default(generator)
         self._masks: Dict[torch.device, torch.Generator] = {}
 
-    def _mask_generator(self, device: torch.device) -> torch.Generator:
-        if device not in self._masks:
-            self._masks[device] = torch.Generator(device=device)
-        return self._masks[device]
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.p):
             return x
-        seed = remat.dropout_seed(self.generator)
-        keep = torch.rand(x.shape, generator=self._mask_generator(x.device).manual_seed(seed),
-                          device=x.device) >= self.p
+        keep = torch.rand(x.shape, device=x.device, generator=remat.seeded_generator(
+            self.generator, self._masks, x.device)) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                   device=x.device))
 

@@ -167,8 +167,8 @@ class SingleRNN(nn.Module):
         rt = rnn_type.upper()
         if rt in ("GRU", "RNN"):
             raise NotImplementedError(
-                f"SingleRNN {rt} is not ported yet (ROADMAP queue 1 item 5b: "
-                "the rest of the TSE zoo)")
+                f"SingleRNN {rt} is not ported yet (ROADMAP queue 1 item 5b(iii): "
+                "the UnetTcn models)")
         if rt != "LSTM":
             raise ValueError(f"unsupported rnn type {rnn_type}")
         fk = dict(device=device, dtype=dtype)

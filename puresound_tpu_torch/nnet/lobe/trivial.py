@@ -1,12 +1,14 @@
-"""Gate and FiLM conditioning and spectral compression (counterpart of
-puresound_tpu/nnet/lobe/trivial.py:50, :88, :188)."""
+"""Gate and FiLM conditioning, the 50 %-overlap segment split / merge, spectral
+compression and SpecAugment (counterpart of puresound_tpu/nnet/lobe/trivial.py:50,
+:88, :130, :188, :196)."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ...parallel import remat
 from ...utils.init import generator_or_default
 from .activation import PReLU
 from .cnn import Conv1d
@@ -103,3 +105,83 @@ def spectral_compression(x: torch.Tensor, alpha: float = 0.3,
     mag = torch.sqrt(re ** 2 + im ** 2 + 1e-8) ** alpha
     phase = torch.atan2(im, re)
     return mag * torch.exp(1j * torch.angle(phase))
+
+
+class SplitMerge:
+    """50 %-overlap segment split / merge of the dual-path models (JAX
+    `trivial.py:130-163`); no parameters."""
+
+    @staticmethod
+    def split(x: torch.Tensor, seg_size: int) -> Tuple[torch.Tensor, int]:
+        """x [N, C, T] -> (segments [N, S, K, C], rest)."""
+        stride = seg_size // 2
+        N, C, T = x.shape
+        rest = seg_size - (stride + T % seg_size) % seg_size
+        x = nn.functional.pad(x, (stride, rest + stride))
+        seg1 = x[:, :, :-stride].reshape(N, C, -1, seg_size)
+        seg2 = x[:, :, stride:].reshape(N, C, -1, seg_size)
+        segments = torch.cat([seg1, seg2], dim=-1).reshape(N, C, -1, seg_size)
+        return segments.permute(0, 2, 3, 1), rest
+
+    @staticmethod
+    def merge(x: torch.Tensor, rest: int) -> torch.Tensor:
+        """x [N, S, K, C] -> [N, C, T]: the two half-shifted sequences
+        averaged, the split's padding cut."""
+        N, S, K, C = x.shape
+        stride = K // 2
+        x = x.permute(0, 3, 1, 2).reshape(N, C, -1, K * 2)
+        x1 = x[..., :K].reshape(N, C, -1)[:, :, stride:]
+        x2 = x[..., K:].reshape(N, C, -1)[:, :, :-stride]
+        out = (x1 + x2) / 2
+        return out[..., :-rest] if rest > 0 else out
+
+
+class SpecAugment(nn.Module):
+    """One frequency and one time mask on [N, C, T], shared by the batch
+    (JAX `trivial.py:196-229`): a width drawn uniformly in [0, mask_length)
+    and a uniform start, as torchaudio's `mask_along_axis`; the identity
+    when not training or for an axis of length 0. The draws and the mask are
+    apart: `draw(generator)` gives the two uniforms of each axis ([2, 2]:
+    frequency, time) on the generator's device, and `apply(x, draws)`
+    computes JAX's `_mask_axis` from them. In training the forward draws a
+    seed from the model's generator (`remat.dropout_seed`, replayed when a
+    checkpointed forward is recomputed) and the uniforms from it on the
+    input's device."""
+
+    def __init__(self, freq_mask_length: int, time_mask_length: int,
+                 fill_value: float = 0.0, *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.freq_mask_length, self.time_mask_length = freq_mask_length, time_mask_length
+        self.fill_value = fill_value
+        self.generator = generator_or_default(generator)
+        self._draws: Dict[torch.device, torch.Generator] = {}
+
+    @staticmethod
+    def draw(generator: torch.Generator) -> torch.Tensor:
+        return torch.rand((2, 2), generator=generator, device=generator.device)
+
+    def apply(self, x: torch.Tensor, draws: torch.Tensor) -> torch.Tensor:
+        for axis, length, (u1, u2) in ((1, self.freq_mask_length, draws[0]),
+                                       (2, self.time_mask_length, draws[1])):
+            if not length:
+                continue
+            size = x.shape[axis]
+            value = u1 * length
+            start = u2 * (size - value)
+            idx = torch.arange(size, dtype=draws.dtype, device=x.device)
+            shape = [1] * x.dim()
+            shape[axis] = size
+            mask = ((idx >= start) & (idx < start + value)).reshape(shape)
+            x = torch.where(mask, torch.full((), self.fill_value, dtype=x.dtype,
+                                             device=x.device), x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        return self.apply(x, self.draw(remat.seeded_generator(self.generator, self._draws,
+                                                              x.device)))
+
+    def extra_repr(self) -> str:
+        return (f"freq_mask_length={self.freq_mask_length}, "
+                f"time_mask_length={self.time_mask_length}, fill_value={self.fill_value}")

@@ -1,24 +1,29 @@
 """SkiM — Skipping-Memory LSTM (counterpart of puresound_tpu/nnet/skim.py).
 
-Causal SkiM with FiLM, Gate (or no) conditioning: the offline forward
+SkiM with FiLM, Gate (or no) conditioning, causal or not, with or without
+50 %-overlapped segments (`SplitMerge`) and dropout: the offline forward
 (`skim.py:236`), differentiable, with every SegLSTM / MemLSTM scan through
-a training LSTM kernel (`nnet/lobe/rnn.py`; the SegLSTM finals feed
+a training LSTM kernel (`nnet/lobe/rnn.py`; a non-causal block scans both
+directions, the backward one with `reverse=True`; the SegLSTM finals feed
 MemLSTM, and its outputs the next block's h0/c0, gradients included); the
 explicit streaming state (`init_state` `:293`); the per-frame streaming
 step (`step_frames` `:384`); and the fused streaming step
 (`step_frames_fused` `:523`) that runs the block stack through
-`ops.skim_stream_kernel.fused_skim_frames`. Module and parameter names
-follow PureSound (`seg_lstm`, `mem_lstm`, `seg_input_fusion`,
-`output_fc`), so its checkpoints load as they are.
+`ops.skim_stream_kernel.fused_skim_frames`. Only a causal SkiM streams:
+`init_state` and `step_frames_fused` raise a ValueError for a non-causal
+one, as JAX asserts (`:539`). Module and parameter names follow PureSound
+(`seg_lstm`, `mem_lstm`, `seg_input_fusion`, `output_fc`), so its
+checkpoints load as they are.
 
 The streaming state keeps the JAX pytree's keys; its shared segment clock
 `frame_count` is a host int, so the segment-boundary test never reads the
 device.
 
 `TM_BLOCKS` (JAX's `PURESOUND_TM_BLOCKS`, default off, read at import)
-runs the offline block stack time-major, [K, N*S, C]: one transpose in and
-one out, with `SegLSTM.call_tm` and `LSTM.call_tm` in between (`skim.py:42`,
-`:258-283`). The math is the same; tests set the module attribute.
+runs the offline block stack of non-overlapped segments time-major,
+[K, N*S, C]: one transpose in and one out, with `SegLSTM.call_tm` and
+`LSTM.call_tm` in between (`skim.py:42`, `:258-283`). The math is the same;
+tests set the module attribute.
 """
 from __future__ import annotations
 
@@ -33,9 +38,10 @@ from ..ops.skim_stream_kernel import SkimWeights, fused_skim_frames
 from ..utils.init import generator_or_default
 from .lobe.activation import PReLU
 from .lobe.cnn import Conv1d
+from .lobe.dropout import Dropout
 from .lobe.norm import LayerNormLast
 from .lobe.rnn import LSTM, Linear
-from .lobe.trivial import FiLM, Gate
+from .lobe.trivial import FiLM, Gate, SplitMerge
 
 #: run the offline block stack time-major (JAX `skim.py:42`)
 TM_BLOCKS = os.environ.get("PURESOUND_TM_BLOCKS", "0") != "0"
@@ -44,78 +50,76 @@ GATE_HIDDEN = 128
 
 
 class SegLSTM(nn.Module):
-    """Intra-segment LSTM + projection + LayerNorm residual.
+    """Intra-segment LSTM (bidirectional when not causal) + dropout +
+    projection + LayerNorm residual.
 
-    forward(x [B, K, C], h [1, B, H], c [1, B, H]) -> (y, h', c').
+    forward(x [B, K, C], h [D, B, H], c [D, B, H]) -> (y, h', c').
     """
 
     def __init__(self, input_size: int, hidden_size: int, causal: bool = True,
-                 *, device=None, dtype=torch.float32,
+                 dropout: float = 0.0, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
-        self.hidden_size = hidden_size
+        self.hidden_size, self.num_directions = hidden_size, 1 if causal else 2
         self.lstm = LSTM(input_size, hidden_size, bidirectional=not causal,
                          generator=g, **fk)
-        self.proj = Linear(hidden_size, input_size, generator=g, **fk)
+        self.drop = Dropout(dropout, generator=g)
+        self.proj = Linear(self.num_directions * hidden_size, input_size, generator=g, **fk)
         self.norm = LayerNormLast(input_size, **fk)
 
+    def _zeros(self, x, h, B):
+        return h if h is not None else x.new_zeros((self.num_directions, B, self.hidden_size))
+
     def forward(self, x, h=None, c=None):
-        if h is None:
-            h = x.new_zeros((1, x.shape[0], self.hidden_size))
-        if c is None:
-            c = x.new_zeros((1, x.shape[0], self.hidden_size))
-        y, (h, c) = self.lstm(x, (h, c))
-        return x + self.norm(self.proj(y)), h, c
+        B = x.shape[0]
+        y, (h, c) = self.lstm(x, (self._zeros(x, h, B), self._zeros(x, c, B)))
+        return x + self.norm(self.proj(self.drop(y))), h, c
 
     def call_tm(self, x_t, h=None, c=None):
         """Time-major forward: x_t [K, B, C] (JAX `skim.py:75-89`); the
-        projection, norm and residual act on the last axis."""
-        if h is None:
-            h = x_t.new_zeros((1, x_t.shape[1], self.hidden_size))
-        if c is None:
-            c = x_t.new_zeros((1, x_t.shape[1], self.hidden_size))
-        y, (h, c) = self.lstm.call_tm(x_t, (h, c))
-        return x_t + self.norm(self.proj(y)), h, c
+        dropout, projection, norm and residual act on the last axis."""
+        B = x_t.shape[1]
+        y, (h, c) = self.lstm.call_tm(x_t, (self._zeros(x_t, h, B), self._zeros(x_t, c, B)))
+        return x_t + self.norm(self.proj(self.drop(y))), h, c
 
 
 class MemLSTM(nn.Module):
-    """Inter-segment memory LSTM over SegLSTM (h, c) states (causal)."""
+    """Inter-segment memory LSTM over SegLSTM (h, c) states: causal (input
+    H, one direction, the memory shifted one segment) or not (input 2H, both
+    directions, no shift); dropout after each net (JAX `skim.py:92-158`)."""
 
-    def __init__(self, hidden_size: int, causal: bool = True, *, device=None,
-                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+    def __init__(self, hidden_size: int, causal: bool = True, dropout: float = 0.0, *,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
-        if not causal:
-            raise NotImplementedError(
-                "non-causal MemLSTM is not ported yet (ROADMAP queue 1)")
-        H = hidden_size
-        self.h_net = LSTM(H, H, generator=g, **fk)
-        self.h_proj = Linear(H, H, generator=g, **fk)
-        self.h_norm = LayerNormLast(H, **fk)
-        self.c_net = LSTM(H, H, generator=g, **fk)
-        self.c_proj = Linear(H, H, generator=g, **fk)
-        self.c_norm = LayerNormLast(H, **fk)
+        self.causal = causal
+        H, C = hidden_size, hidden_size if causal else 2 * hidden_size
+        for b in ("h", "c"):
+            setattr(self, f"{b}_net", LSTM(C, H, bidirectional=not causal, generator=g, **fk))
+            setattr(self, f"{b}_drop", Dropout(dropout, generator=g))
+            setattr(self, f"{b}_proj", Linear(C, C, generator=g, **fk))
+            setattr(self, f"{b}_norm", LayerNormLast(C, **fk))
 
-    @staticmethod
-    def _branch(net, proj, norm, x, states):
-        y, new_states = net(x, states)
-        return x + norm(proj(y)), new_states
+    def _branch(self, b, x, states):
+        y, new_states = getattr(self, f"{b}_net")(x, states)
+        y = getattr(self, f"{b}_proj")(getattr(self, f"{b}_drop")(y))
+        return x + getattr(self, f"{b}_norm")(y), new_states
 
     def forward(self, h, c):
         """Offline. h/c: [N, S, D, H] -> next-block init states [D, N*S, H]
-        (segment s gets the memory of segment s-1; segment 0 zeros)."""
+        (causal: segment s gets the memory of segment s-1, segment 0 zeros)."""
         N, S, D, H = h.shape
-        h_seq, _ = self._branch(self.h_net, self.h_proj, self.h_norm,
-                                h.reshape(N, S, D * H), None)
-        c_seq, _ = self._branch(self.c_net, self.c_proj, self.c_norm,
-                                c.reshape(N, S, D * H), None)
+        h_seq, _ = self._branch("h", h.reshape(N, S, D * H), None)
+        c_seq, _ = self._branch("c", c.reshape(N, S, D * H), None)
         outs = []
         for seq in (h_seq, c_seq):
             seq = seq.reshape(N, S, D, H)
-            seq = torch.cat([torch.zeros_like(seq[:, :1]), seq[:, :-1]], dim=1)
+            if self.causal:
+                seq = torch.cat([torch.zeros_like(seq[:, :1]), seq[:, :-1]], dim=1)
             outs.append(seq.reshape(N * S, D, H).transpose(0, 1))
         return outs[0], outs[1]
 
@@ -123,16 +127,14 @@ class MemLSTM(nn.Module):
         """Streaming one-segment step. h/c: [B, D, H] final SegLSTM states;
         returns the next SegLSTM init (h', c') [D, B, H] + new internals."""
         B, D, H = h.shape
-        h_seq, h_states = self._branch(self.h_net, self.h_proj, self.h_norm,
-                                       h.reshape(B, 1, D * H), h_states)
-        c_seq, c_states = self._branch(self.c_net, self.c_proj, self.c_norm,
-                                       c.reshape(B, 1, D * H), c_states)
+        h_seq, h_states = self._branch("h", h.reshape(B, 1, D * H), h_states)
+        c_seq, c_states = self._branch("c", c.reshape(B, 1, D * H), c_states)
         return (h_seq.reshape(B, D, H).transpose(0, 1),
                 c_seq.reshape(B, D, H).transpose(0, 1), h_states, c_states)
 
 
 class SkiM(nn.Module):
-    """Causal skipping-memory LSTM masker. x: [N, C, T] -> [N, C_out, T]."""
+    """Skipping-memory LSTM masker. x: [N, C, T] -> [N, C_out, T]."""
 
     def __init__(self, input_size: int, hidden_size: int, output_size: int,
                  n_blocks: int = 2, seg_size: int = 20, seg_overlap: bool = False,
@@ -142,26 +144,18 @@ class SkiM(nn.Module):
                  dropout: float = 0.0, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dropout:
-            raise NotImplementedError(
-                "SkiM dropout is not ported (the flagship trains with 0; "
-                "ROADMAP queue 1 item 5b: the rest of the TSE zoo)")
-        if not causal or seg_overlap:
-            raise NotImplementedError(
-                "non-causal / overlapped-segment SkiM is not ported yet "
-                "(ROADMAP queue 1 item 5b: the rest of the TSE zoo)")
         if embed_dim and embed_fusion.lower() not in ("film", "gate"):
             raise NameError(embed_fusion)
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
         self.input_size, self.hidden_size = input_size, hidden_size
         self.output_size, self.n_blocks = output_size, n_blocks
-        self.seg_size, self.causal = seg_size, causal
+        self.seg_size, self.causal, self.seg_overlap = seg_size, causal, seg_overlap
         self.embed_dim, self.embed_norm = embed_dim, embed_norm
         self.embed_fusion = embed_fusion.lower() if embed_dim else None
         self.block_with_embed = tuple(block_with_embed or ())
         self.seg_lstm = nn.ModuleList(
-            SegLSTM(input_size, hidden_size, causal, generator=g, **fk)
+            SegLSTM(input_size, hidden_size, causal, dropout, generator=g, **fk)
             for _ in range(n_blocks))
         if embed_dim:
             fusion = lambda: (
@@ -172,7 +166,7 @@ class SkiM(nn.Module):
                 fusion() if self.block_with_embed[i] else nn.Identity()
                 for i in range(n_blocks))
         self.mem_lstm = nn.ModuleList(
-            MemLSTM(hidden_size, causal, generator=g, **fk)
+            MemLSTM(hidden_size, causal, dropout, generator=g, **fk)
             for _ in range(n_blocks - 1))
         self.output_fc = nn.Sequential(
             PReLU(**fk), Conv1d(input_size, output_size, 1, generator=g, **fk))
@@ -209,13 +203,16 @@ class SkiM(nn.Module):
         embed = self._norm_embed(embed)
         N, C, T = x.shape
         K = self.seg_size
-        rest = K - T % K  # a whole extra segment when K | T, as the reference
-        xt = torch.nn.functional.pad(x.transpose(1, 2), (0, 0, 0, rest))
-        S = xt.shape[1] // K
+        if self.seg_overlap:
+            seg, rest = SplitMerge.split(x, K)         # [N, S, K, C]
+        else:
+            rest = K - T % K  # a whole extra segment when K | T, as the reference
+            seg = torch.nn.functional.pad(x.transpose(1, 2), (0, 0, 0, rest))
+        S = seg.numel() // (N * K * C)
         embed_rep = (embed[:, None, :].expand(N, S, embed.shape[1])
                      .reshape(N * S, -1) if embed is not None else None)
-        out = xt.reshape(N * S, K, C)
-        tm = TM_BLOCKS       # the stack time-major: [K, N*S, C]
+        out = seg.reshape(N * S, K, C)
+        tm = TM_BLOCKS and not self.seg_overlap    # the stack time-major: [K, N*S, C]
         if tm:
             out = out.transpose(0, 1)
         h = c = None
@@ -230,12 +227,20 @@ class SkiM(nn.Module):
                 h, c = self.mem_lstm[i](h_n, c_n)
         if tm:
             out = out.transpose(0, 1)
+        if self.seg_overlap:
+            return self.output_fc(SplitMerge.merge(out.reshape(N, S, K, C), rest))
         out = out.reshape(N, S * K, C)[:, :T, :]
         return self.output_fc(out.transpose(1, 2))
 
     # -------------------------------------------------------------- streaming
+    def _check_streams(self):
+        if not self.causal or self.seg_overlap:
+            raise ValueError("streaming needs a causal SkiM over non-overlapped segments "
+                             "(JAX asserts it, puresound_tpu/nnet/skim.py:539)")
+
     def init_state(self, batch: int, dtype=torch.float32, device=None) -> dict:
         """Explicit streaming state for `batch` concurrent streams."""
+        self._check_streams()
         if device is None:
             device = self.output_fc[1].weight.device
         H = self.hidden_size
@@ -388,6 +393,7 @@ class SkiM(nn.Module):
         seg_size, so a segment boundary only falls at a chunk's end; the
         MemLSTM update at the boundary runs outside the kernel. int8_hh /
         int8_full quantize the kernel's products as JAX's do (`:526-554`)."""
+        self._check_streams()
         B, F, C = x.shape
         if self.seg_size % F:
             raise ValueError(f"chunk frames {F} must divide seg_size "

@@ -3,7 +3,8 @@
 
 `regions(model, mode)` runs every block of the model under
 `torch.utils.checkpoint` (the non-reentrant one, `checkpointed`): the
-encoder, the speaker net's layers and the masker's blocks (the elements of
+encoder, the enrollment's encoder (`encoder_spk`), the speaker net's layers
+and the masker's blocks (the elements of
 its module lists, or its other children), so the backward recomputes them
 one block at a time and holds one block's activations at once. `True`
 keeps only each block's inputs; `"dots"` also keeps the outputs of the
@@ -18,10 +19,11 @@ versions on the CPU are aten ops, whose products the policy keeps).
 Two pieces of module state would make the recomputation differ from the
 forward, where JAX's functional checkpoint has none:
 
-- `Dropout` draws a fresh seed from the model's generator on every call,
-  and `torch.utils.checkpoint` restores only torch's default generators.
-  The forward records the seeds it drew (`dropout_seed`), and the
-  recomputation replays them;
+- `Dropout` and `SpecAugment` draw a fresh seed from the model's generator
+  on every call, and `torch.utils.checkpoint` restores only torch's default
+  generators. The forward records the seeds it drew (`dropout_seed`, which
+  `seeded_generator` draws through), and
+  the recomputation replays them;
 - BatchNorm in training updates its running statistics on every call. The
   recomputation does not (`recomputing`).
 """
@@ -56,6 +58,17 @@ def dropout_seed(generator: torch.Generator) -> int:
     if _STATE["record"] is not None:
         _STATE["record"].append(seed)
     return seed
+
+
+def seeded_generator(generator: torch.Generator, cache: dict,
+                     device: torch.device) -> torch.Generator:
+    """The generator of `device` kept in a module's `cache` (made at its
+    first use), seeded with `dropout_seed(generator)`: what `Dropout` and
+    `SpecAugment` draw from, so a recomputation draws the same."""
+    seed = dropout_seed(generator)
+    if device not in cache:
+        cache[device] = torch.Generator(device=device)
+    return cache[device].manual_seed(seed)
 
 
 def recomputing() -> bool:
@@ -125,9 +138,9 @@ def checkpointed(fn: Callable, mode) -> Callable:
 
 
 def blocks(model: nn.Module) -> List[nn.Module]:
-    """The modules `regions` recomputes: the wrapper's encoder, its speaker
-    net's layers and its masker's blocks (the leaves of nested module
-    lists; any other child whole)."""
+    """The modules `regions` recomputes: the wrapper's encoder and
+    enrollment encoder, its speaker net's layers and its masker's blocks
+    (the leaves of nested module lists; any other child whole)."""
     out: List[nn.Module] = []
 
     def leaves(m: nn.Module):
@@ -137,7 +150,7 @@ def blocks(model: nn.Module) -> List[nn.Module]:
         else:
             out.append(m)
 
-    for name in ("encoder", "speaker_net"):
+    for name in ("encoder", "encoder_spk", "speaker_net"):
         if getattr(model, name, None) is not None:
             leaves(getattr(model, name))
     masker = getattr(model, "masker", None)

@@ -20,7 +20,7 @@ import torch
 
 from ..nnet.encoder import FreeEncDec
 from .engine import StreamingTSE
-from .file_eval import build_engine, engine_step_options
+from .file_eval import build_engine, check_chunk_frames, engine_step_options
 from .halfprec import to_half
 from .server import SessionServer, infer_slot_axes
 from .simo_engine import StreamingDSS
@@ -117,6 +117,7 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
         if dp_kernel or attn_kernel or mk_kernel:
             raise ValueError("dp_kernel/attn_kernel/mk_kernel apply to STFT-domain "
                              "engines; time-domain TSE serving fuses via fused=True")
+        check_chunk_frames(engine, chunk, sr)
         has_fused = hasattr(engine.masker, "step_frames_fused")
         if fused and not has_fused:
             raise ValueError(f"fused=True needs a masker with a fused step (SkiM); "

@@ -1,9 +1,12 @@
 """Streaming TSE engine (counterpart of puresound_tpu/streaming/engine.py:27).
 
 All per-stream state — encoder tail, the masker's state (SkiM's per-block
-(h, c) and MemLSTM internals, or a causal ConvTasNet's depthwise contexts),
-decoder overlap-add carry — lives in one explicit dict with a stream-batch
-axis; `step` advances every stream by one chunk.
+(h, c) and MemLSTM internals, a causal ConvTasNet's depthwise contexts, or
+DPRNN's inter-segment (h, c)), decoder overlap-add carry — lives in one
+explicit dict with a stream-batch axis; `step` advances every stream by one
+chunk. The enrollment is embedded through `encoder_spk` where the model has
+one; an embedding-free model (DPRNN "veve", no speaker net) takes its
+conditioning through `init_state(enroll_feats=)` and steps with dvec None.
 
 Equivalence contract (tested): feeding chunks of x equals offline
 `inference` on `offline_equivalent_input(x)` truncated to the emitted length.
@@ -27,7 +30,7 @@ class StreamingTSE(nn.Module):
 
     def __init__(self, encoder: FreeEncDec, masker: nn.Module,
                  speaker_net=None, mask_constraint: str = "linear",
-                 output_constraint: str = "linear"):
+                 output_constraint: str = "linear", encoder_spk: Optional[nn.Module] = None):
         super().__init__()
         if not isinstance(encoder, FreeEncDec):
             raise TypeError("StreamingTSE requires a FreeEncDec encoder")
@@ -35,6 +38,7 @@ class StreamingTSE(nn.Module):
             raise TypeError("StreamingTSE requires a masker with the "
                             "streaming API (init_state/step_frames)")
         self.encoder = encoder
+        self.encoder_spk = encoder_spk
         self.masker = masker
         self.speaker_net = (nn.ModuleList(speaker_net)
                             if speaker_net is not None else None)
@@ -45,20 +49,33 @@ class StreamingTSE(nn.Module):
     def from_offline(cls, model) -> "StreamingTSE":
         """The engine over an offline SoTaskWrapModule's submodules."""
         return cls(model.encoder, model.masker, model.speaker_net,
-                   model.mask_constraint, model.output_constraint)
+                   model.mask_constraint, model.output_constraint, model.encoder_spk)
 
     def embed(self, enroll: torch.Tensor) -> torch.Tensor:
-        """Enrollment waveform [B, L] -> speaker embedding [B, E]."""
-        return run_speaker_net(self.speaker_net, self.encoder(enroll)).squeeze(-1)
+        """Enrollment waveform [B, L] -> speaker embedding [B, E], or the
+        enrollment features [B, C, T'] of an embedding-free model (no speaker
+        net), which go to `init_state(enroll_feats=)`."""
+        enc = self.encoder_spk if self.encoder_spk is not None else self.encoder
+        feats = enc(enroll)
+        if self.speaker_net is None:
+            return feats
+        return run_speaker_net(self.speaker_net, feats).squeeze(-1)
 
-    def init_state(self, batch: int, dtype=torch.float32, device=None) -> dict:
+    def init_state(self, batch: int, dtype=torch.float32, device=None,
+                   enroll_feats: Optional[torch.Tensor] = None) -> dict:
+        """The streams' state; `enroll_feats` (an embedding-free masker's
+        `embed` output, [batch, C, T']) conditions the masker's initial
+        recurrent state (`condition_stream_state`); step it with dvec None."""
         if device is None:
             device = self.encoder.decoder.weight.device
         keep = self.encoder.win_length - self.encoder.hop_length
+        masker_state = self.masker.init_state(batch, dtype, device)
+        if enroll_feats is not None:
+            masker_state = self.masker.condition_stream_state(masker_state, enroll_feats)
         return {
             "enc_tail": torch.zeros((batch, keep), device=device, dtype=dtype),
             "dec_tail": torch.zeros((batch, keep), device=device, dtype=dtype),
-            "skim": self.masker.init_state(batch, dtype, device),
+            "skim": masker_state,
         }
 
     def step(self, chunk: torch.Tensor, dvec: Optional[torch.Tensor],

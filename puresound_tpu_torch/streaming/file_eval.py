@@ -66,6 +66,22 @@ def engine_step_options(engine, fused: bool = False, dp_kernel: bool = False,
     return kw, {}
 
 
+def check_chunk_frames(engine, chunk: int, sr: int) -> None:
+    """Raise a ValueError, naming the chunk lengths that work, where the
+    engine's masker cannot step `chunk` samples: a DPRNN chunk must be a
+    whole number of segments (JAX asserts it at the first step,
+    puresound_tpu/nnet/dprnn.py:172)."""
+    ok = getattr(engine.masker, "chunk_frames_ok", None)
+    hop = engine.encoder.hop_length
+    if ok is None or ok(chunk // hop):
+        return
+    seg = engine.masker.seg_size
+    works = ", ".join(f"{k * seg * hop * 1000 / sr:g}" for k in range(1, 5))
+    raise ValueError(f"a {type(engine.masker).__name__} chunk must be a whole number of "
+                     f"segments of {seg} frames; {chunk // hop} frames ({chunk} samples) is "
+                     f"not. Chunk lengths that work at hop {hop} and {sr} Hz (ms): {works}, ...")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -95,6 +111,8 @@ def stream_signal(engine, wav: np.ndarray, sr: int, chunk_ms: float = 16.0,
     device = next(engine.parameters()).device
     hop = engine.encoder.hop_length
     chunk = max(1, int(round(sr * chunk_ms / 1000.0)) // hop) * hop
+    if isinstance(engine, StreamingTSE):
+        check_chunk_frames(engine, chunk, sr)
     delay = engine_delay_samples(engine)
     wav = np.asarray(wav, np.float32).reshape(-1)
     L = wav.shape[0]

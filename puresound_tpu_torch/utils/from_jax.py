@@ -5,7 +5,8 @@ port keeps PureSound's module and parameter names, so the flax tree maps
 onto them one module type at a time. Leaves may be numpy or jax arrays
 (anything `np.asarray` takes); this module never imports jax.
 
-    sd = from_jax(variables)               # a whole TSE / NS wrapper or the DSS SIMO one
+    sd = from_jax(variables)               # a whole TSE (SkiM, ConvTasNet, DPRNN) / NS
+                                           # wrapper or the DSS SIMO one
     model.load_state_dict(sd)
     grads = params_by_name(jax_grads)      # {name: array} like the params
     model.load_state_dict(for_model(sd, model))   # a checkpoint with extra keys
@@ -102,7 +103,9 @@ def _sub(tree: Optional[Mapping], key: str):
 
 def dsconv(p, s=None, norm_kind: str = "gGN") -> Flat:
     if "in_conv" in p or "skip_conv" in p:
-        raise NotImplementedError("DSConv 1x1-in / skip is not ported yet")
+        raise NotImplementedError(
+            "DSConv 1x1-in / skip (GatedTCN's) is not ported yet (ROADMAP queue 1 item "
+            "5b(iii): the UnetTcn models)")
     return _merge(*(
         _merge(_prefix(f"{prefix}.0", conv1d(p[f"{name}_conv"])),
                _prefix(f"{prefix}.1", norm(p[f"{name}_norm"],
@@ -179,14 +182,30 @@ def free_encdec(p) -> Flat:
     return {"encoder.weight": _a(p["enc_w"]), "decoder.weight": _a(p["dec_w"])}
 
 
+def single_rnn(p) -> Flat:
+    return _merge(_prefix("rnn", lstm(p["rnn"])), _prefix("proj", linear(p["proj"])))
+
+
 def speaker_net_layer(p, s=None) -> Flat:
+    """A speaker-net layer with parameters: TCN, ASP, the 1x1 conv or the
+    SingleRNN LSTM (`tse_skim_v1_causal`'s)."""
     if "dconv" in p:
         return tcn(p, s)
     if "tdnn_conv" in p:
         return asp(p, s)
+    if "rnn" in p:
+        return single_rnn(p)
     if "w" in p:
         return conv1d(p)
-    raise NotImplementedError(f"speaker-net layer with keys {sorted(p)}")
+    raise NotImplementedError(
+        f"speaker-net layer with keys {sorted(p)} (GatedTCN, the UnetTcn models' speaker "
+        "net, waits for ROADMAP queue 1 item 5b(iii))")
+
+
+def fbank_enc(p) -> Flat:
+    """A trainable FbankEnc: its STFT kernels and the two mel maps."""
+    return _merge(_prefix("stft", conv_stft(p["stft"])),
+                  {k: _a(p[k]) for k in ("filterbank", "inv_filterbank")})
 
 
 def speaker_loss(p) -> Flat:
@@ -202,6 +221,8 @@ def _tse_wrapper(variables: Mapping, masker: Flat) -> Flat:
     p = variables["params"]
     s = variables.get("batch_stats", {})
     parts = [_prefix("encoder", free_encdec(p["encoder"])), _prefix("masker", masker)]
+    if "encoder_spk" in p:
+        parts.append(_prefix("encoder_spk", fbank_enc(p["encoder_spk"])))
     if "loss_func_spk" in p:
         parts.append(_prefix("loss_func_spk", speaker_loss(p["loss_func_spk"])))
     parts += [_prefix(f"speaker_net.{key.rsplit('_', 1)[1]}",
@@ -229,8 +250,25 @@ def so_wrapper_td_conv_tasnet(variables: Mapping) -> Flat:
                                                variables.get("batch_stats", {}).get("masker")))
 
 
-def single_rnn(p) -> Flat:
-    return _merge(_prefix("rnn", lstm(p["rnn"])), _prefix("proj", linear(p["proj"])))
+def dprnn(p) -> Flat:
+    """DPRNN: flax's `{part}_{i}` -> `{part}.{i}` (PureSound's module lists),
+    the FiLMs where the tree has them."""
+    parts = []
+    for key in p:
+        kind, _, i = key.rpartition("_")
+        fn = {"input_film": film, "intra_rnn": lstm, "inter_rnn": lstm,
+              "intra_proj": linear, "inter_proj": linear, "intra_norm": layer_norm_last,
+              "inter_norm": layer_norm_last}.get(kind)
+        if fn is not None:
+            parts.append(_prefix(f"{kind}.{i}", fn(p[key])))
+    parts += [_prefix("output_fc.0", prelu(p["out_act"])),
+              _prefix("output_fc.1", conv1d(p["out_conv"]))]
+    return _merge(*parts)
+
+
+def so_wrapper_tse_dprnn(variables: Mapping) -> Flat:
+    """A TSE SoTaskWrapModule with a DPRNN masker (`veve_dprnn_v0_causal`)."""
+    return _tse_wrapper(variables, dprnn(variables["params"]["masker"]))
 
 
 def dprnn_block2d(p) -> Flat:
@@ -332,13 +370,15 @@ def params_by_name(tree: Mapping) -> Flat:
 
 def flat_from_jax(variables: Mapping) -> Flat:
     """flax variables ({"params", "batch_stats"}) of a TSE (FreeEncDec +
-    SkiM or ConvTasNet) or NS (ConvEncDec + DPCRN / DPARN) SoTaskWrapModule,
+    SkiM, ConvTasNet or DPRNN; a trainable FbankEnc `encoder_spk`) or NS (ConvEncDec + DPCRN / DPARN) SoTaskWrapModule,
     of the DSS SiMoTaskWrapModule (ConvEncDec + DPARN_Mout), or of their
     streaming engines -> {state_dict name: np.ndarray}, told apart by the
     masker's keys (a DPARN and a DPARN_Mout share their names)."""
     masker = variables["params"]["masker"]
     if "tcn_list_0_0" in masker:
         return so_wrapper_td_conv_tasnet(variables)
+    if "intra_rnn_0" in masker:
+        return so_wrapper_tse_dprnn(variables)
     if "dprnn_block1" in masker:
         if "intra_atten1" in masker["dprnn_block1"]:
             return so_wrapper_ns_dparn(variables)

@@ -1,9 +1,13 @@
-"""TSE model zoo (counterpart of puresound_tpu/zoo/tse.py): the flagship
-`tse_skim_v0_causal` (`:157-170`), the Conv-TasNet models
-`td_tse_conv_tasnet_v0` / `_causal` (`:94-121`), the PVAD model
-`tse_skim_v0_causal_vad` (`:212-224`), `init_loss` (`:33`) with every loss
-of the JAX package's, and `cross_entropy` (`:25`). The other names are still
-JAX-only (ROADMAP queue 1 item 5b(iii))."""
+"""TSE model zoo (counterpart of puresound_tpu/zoo/tse.py): the SkiM models
+`tse_skim_v0` / `tse_skim_v0_causal` (`:157-170`, the flagship the causal
+one), `tse_skim_v1_causal` (a BiLSTM speaker net, `:172-189`),
+`tse_skim_v2_causal` (FbankEnc + SpecAugment + TCN speaker net,
+`:191-210`), the PVAD model `tse_skim_v0_causal_vad` (`:212-224`), the
+Conv-TasNet models `td_tse_conv_tasnet_v0` / `_causal` (`:94-121`), the
+embedding-free DPRNN `veve_dprnn_v0_causal` (`:226-237`), `init_loss`
+(`:33`) with every loss of the JAX package's, and `cross_entropy` (`:25`).
+The STFT-domain UnetTcn models are still JAX-only (ROADMAP queue 1 item
+5b(iii))."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,9 +16,12 @@ import torch
 
 from ..nnet.base_nn import SoTaskWrapModule
 from ..nnet.conv_tasnet import TCN, ConvTasNet
-from ..nnet.encoder import FreeEncDec
+from ..nnet.dprnn import DPRNN
+from ..nnet.encoder import FbankEnc, FreeEncDec
 from ..nnet.lobe.cnn import Conv1d
 from ..nnet.lobe.pooling import AttentiveStatisticsPooling
+from ..nnet.lobe.rnn import SingleRNN
+from ..nnet.lobe.trivial import SpecAugment
 from ..nnet.loss.aamsoftmax import AAMsoftmax
 from ..nnet.loss.metrics import F1Loss, GE2ELoss, TripletLoss
 from ..nnet.loss.sdr import SDRLoss
@@ -23,12 +30,11 @@ from ..nnet.skim import SkiM
 from ..utils.init import generator_or_default
 
 #: zoo names of the JAX package that this port does not build yet
-JAX_ONLY = ("tse_unet_tcn_v0", "tse_unet_tcn_v0_causal", "tse_unet_tcn_v1",
-            "tse_skim_v0", "tse_skim_v1_causal", "tse_skim_v2_causal",
-            "veve_dprnn_v0_causal")
+JAX_ONLY = ("tse_unet_tcn_v0", "tse_unet_tcn_v0_causal", "tse_unet_tcn_v1")
 #: the zoo names this port builds
 PORTED = ("tse_skim_v0_causal", "tse_skim_v0_causal_vad", "td_tse_conv_tasnet_v0",
-          "td_tse_conv_tasnet_v0_causal")
+          "td_tse_conv_tasnet_v0_causal", "tse_skim_v0", "tse_skim_v1_causal",
+          "tse_skim_v2_causal", "veve_dprnn_v0_causal")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -92,13 +98,18 @@ def init_loss(hparam, *, device=None, dtype=torch.float32,
     raise NotImplementedError(other)
 
 
+def _pooled(feat_dim: int, embed_dim: int = 192, **fk):
+    """ASP pooling + the 1x1 conv to the d-vector, the speaker nets' tail."""
+    return [AttentiveStatisticsPooling(feat_dim, 128, **fk),
+            Conv1d(feat_dim * 2, embed_dim, 1, bias=False, **fk)]
+
+
 def _tcn_speaker_net(feat_dim: int, embed_dim: int = 192, tcn_dim: int = 256,
                      **fk):
     """5x TCN + ASP pooling + 1x1 conv (the standard TSE speaker net)."""
     return ([TCN(feat_dim, tcn_dim, kernel=3, dilation=2 ** i,
                  tcn_norm="gLN", dconv_norm="gGN", **fk) for i in range(5)]
-            + [AttentiveStatisticsPooling(feat_dim, 128, **fk),
-               Conv1d(feat_dim * 2, embed_dim, 1, bias=False, **fk)])
+            + _pooled(feat_dim, embed_dim, **fk))
 
 
 def _device(device):
@@ -121,8 +132,8 @@ def init_model(name: str, sig_loss=None, cls_loss=None, other_loss=None, *,
     (`sig_loss` the waveform loss, `cls_loss` the speaker loss)."""
     if name in JAX_ONLY:
         raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP queue 1 item 5b(iii): the rest of "
-            "the TSE zoo)")
+            f"{name!r} is not ported yet (ROADMAP queue 1 item 5b(iii): the STFT-domain "
+            "UnetTcn models)")
     if name not in PORTED:
         raise NameError(name)
     fk = dict(device=_device(device), dtype=dtype,
@@ -143,16 +154,46 @@ def init_model(name: str, sig_loss=None, cls_loss=None, other_loss=None, *,
                               tcn_layer="normal", **fk),
             speaker_net=_tcn_speaker_net(512, **fk), mask_constraint="ReLU",
             **losses).eval()
-    # tse_skim_v0_causal: 6,375,440 parameters, as the JAX package counts;
-    # tse_skim_v0_causal_vad (PVAD, a Sigmoid output): 1,181,392; lookahead 16
+    skim_encoder = lambda: FreeEncDec(win_length=32, hop_length=16, laten_length=128,
+                                      output_active=True, **fk)
+    if name == "veve_dprnn_v0_causal":
+        # embedding-free TSE (the enrollment's features condition the inter
+        # LSTMs' initial states): 723,585 parameters, as the JAX zoo counts
+        return SoTaskWrapModule(
+            encoder=skim_encoder(),
+            masker=DPRNN(input_size=128, hidden_size=64, output_size=128, n_blocks=6,
+                         seg_size=20, seg_overlap=False, causal=True, embed_dim=0,
+                         embed_norm=False, block_with_embed=(0,) * 6,
+                         embedding_free_tse=True, **fk),
+            speaker_net=None, mask_constraint="ReLU", embedding_free_tse=True,
+            **losses).eval()
+    # parameters as the JAX package counts: tse_skim_v0_causal 6,375,440;
+    # tse_skim_v0 (both directions in every LSTM) 15,575,568;
+    # tse_skim_v1_causal 6,249,217; tse_skim_v2_causal 6,221,552;
+    # tse_skim_v0_causal_vad (PVAD, a Sigmoid output) 1,133,200
     vad = name.endswith("vad")
     n_blocks = 2 if vad else 4
+    # the generator draws in the wrapper's order: encoder, masker, speaker net
+    encoder = skim_encoder()
+    masker = SkiM(input_size=128, hidden_size=64 if vad else 256, output_size=128,
+                  n_blocks=n_blocks, seg_size=150, seg_overlap=False,
+                  causal=name != "tse_skim_v0", embed_dim=192, embed_norm=True,
+                  block_with_embed=(1,) * n_blocks, embed_fusion="FiLM", **fk)
+    encoder_spk = None
+    if name == "tse_skim_v1_causal":
+        speaker_net = ([SingleRNN("LSTM", 128, 192, bidirectional=True, dropout=0.05, **fk)]
+                       + _pooled(128, **fk))
+    elif name == "tse_skim_v2_causal":
+        encoder_spk = FbankEnc(trainable=False, output_format="Magnitude", n_banks=80,
+                               device=fk["device"], dtype=fk["dtype"])
+        speaker_net = ([SpecAugment(freq_mask_length=10, time_mask_length=0, fill_value=0.0,
+                                    generator=fk["generator"])]
+                       + [TCN(80, 256, kernel=3, dilation=2 ** i, tcn_norm="gLN",
+                              dconv_norm="gGN", **fk) for i in range(5)]
+                       + _pooled(80, **fk))
+    else:
+        speaker_net = _tcn_speaker_net(128, **fk)
     return SoTaskWrapModule(
-        encoder=FreeEncDec(win_length=32, hop_length=16, laten_length=128,
-                           output_active=True, **fk),
-        masker=SkiM(input_size=128, hidden_size=64 if vad else 256, output_size=128,
-                    n_blocks=n_blocks, seg_size=150, seg_overlap=False,
-                    causal=True, embed_dim=192, embed_norm=True,
-                    block_with_embed=(1,) * n_blocks, embed_fusion="FiLM", **fk),
-        speaker_net=_tcn_speaker_net(128, **fk), mask_constraint="ReLU",
-        output_constraint="Sigmoid" if vad else "linear", **losses).eval()
+        encoder=encoder, masker=masker, speaker_net=speaker_net, encoder_spk=encoder_spk,
+        mask_constraint="ReLU", output_constraint="Sigmoid" if vad else "linear",
+        **losses).eval()

@@ -52,6 +52,7 @@ def _cases():
     out = [(f"2b {n}", B, C, H) for n, B, T, C, H, rev, reps in chip_smoke.LSTM_CASES]
     for n, B, T, C, H, rev, reps in chip_smoke.UNFUSED_CASES:
         out += [(f"2j {n} fp_tm", B, C, H), (f"2j {n} hoisted", B, 0, H)]
+    out += [(f"2l {n}", B, C, H) for n, B, T, C, H, rev, reps in chip_smoke.ZOO_LSTM_CASES]
     return out
 
 
@@ -75,6 +76,21 @@ def test_seglstm_rows_run_in_one_wave(bf16):
         assert pl.fwd.smem == 128 * 392 * 2 + 2 * 64 * 392 * 2 + 128 * 4
     else:      # the f32 slices do not fit beside the tile: x projected first
         assert (pl.fwd.M, pl.fwd.nbuf, pl.fwd.xproj) == (60, 1, 1)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_zoo_layouts_the_issue_shapes_take(bf16):
+    """The new zoo's layouts: v1's speaker BiLSTM at H = 192 takes 24 units a
+    CTA (three 8-unit groups beside each 16-row tile under bf16); v0's
+    MemLSTM at C = 2H = 512 projects x first under float32 and holds one
+    224,000-byte buffer under bf16, within the 232,448 a block may use."""
+    spk = _check(12, 128, 192, bf16)
+    assert (spk.CL, spk.U) == (8, 24)
+    mem = _check(12, 512, 256, bf16)
+    if bf16:
+        assert (mem.fwd.M, mem.fwd.nbuf, mem.fwd.xproj, mem.fwd.smem) == (16, 1, 0, 224000)
+    else:
+        assert (mem.fwd.M, mem.fwd.xproj) == (4, 1)
 
 
 def _launches(model_fn, run, switches=()):
@@ -137,6 +153,10 @@ MODELS = [
     ("tse_skim_v0_causal TM_BLOCKS=True", lambda: _tse("tse_skim_v0_causal"), _tse_run,
      ((skim, "TM_BLOCKS", True),)),
     ("gate skim", _gate, _tse_run, ()),
+    ("tse_skim_v0", lambda: _tse("tse_skim_v0"), _tse_run, ()),
+    ("tse_skim_v1_causal", lambda: _tse("tse_skim_v1_causal"), _tse_run, ()),
+    ("tse_skim_v2_causal", lambda: _tse("tse_skim_v2_causal"), _tse_run, ()),
+    ("veve_dprnn_v0_causal", lambda: _tse("veve_dprnn_v0_causal"), _tse_run, ()),
     ("ns_dpcrn_v0_causal", lambda: _ns("ns_dpcrn_v0_causal"), _ns_run, ()),
     ("ns_dparn_v0_causal", lambda: _ns("ns_dparn_v0_causal"), _ns_run, ()),
 ]

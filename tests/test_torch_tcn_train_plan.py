@@ -36,6 +36,11 @@ def _shapes():
     out += [(f"speaker B=64 T=1999 d={d}", 64, 128, 256, 1999, 3, d) for d in DILATIONS]
     out += [(f"recipe B=12 T=4999 d={d}", 12, 128, 256, 4999, 3, d) for d in DILATIONS]
     out += [("serving attach B=1 T=999", 1, 128, 256, 999, 3, 1)]
+    out += [(f"2l {n}", B, C, Ch, T, 3, d) for n, B, C, Ch, T, d, _ in chip_smoke.ZOO_TCN_CASES]
+    # tse_skim_v2_causal's speaker net (FbankEnc: 80 banks, 512-sample frames
+    # at hop 128) at a 1 s serving attach and the recipe's 5 s enrollments
+    out += [(f"v2 speaker B={B} T={T} d={d}", B, 80, 256, T, 3, d)
+            for B, T in ((1, 122), (12, 622)) for d in DILATIONS]
     return out
 
 
@@ -211,6 +216,14 @@ def test_plan_covers_the_flagship_launches(batch):
         for dtype in (torch.float32, torch.bfloat16):
             pl = _check(batch, C, Ch, T, k, d, dtype)
             assert pl.route == ("wgmma" if dtype == torch.bfloat16 else "cuda_cores")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_v2_speaker_net_takes_the_cuda_cores(dtype):
+    """C = 80 is no wgmma width (64, 128, 256): both dtypes take the CUDA
+    cores, whose 64-wide tiles cover K = 80 in two."""
+    for d in DILATIONS:
+        assert _check(12, 80, 256, 622, 3, d, dtype).route == "cuda_cores"
 
 
 @pytest.mark.parametrize("shape", [(64, 128, 256, 1999, 4, 1), (64, 128, 256, 1999, 9, 1),

@@ -268,8 +268,9 @@ def test_unported_step_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_step(model, **option)
     # remat and augment_fn are ported (tests/test_torch_remat.py,
-    # tests/test_torch_device_augment.py)
+    # tests/test_torch_device_augment.py), and SkiM's dropout
+    # (tests/test_torch_skim_zoo.py)
     with pytest.raises(ValueError, match="remat"):
         make_train_step(model, remat="all")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SkiM(**SKIM, dropout=0.1)
+    skim = SkiM(**SKIM, dropout=0.1)
+    assert skim.seg_lstm[0].drop.p == skim.mem_lstm[0].h_drop.p == 0.1

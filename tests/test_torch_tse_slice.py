@@ -288,7 +288,7 @@ def test_flagship_parameter_count():
     assert sum(p.numel() for p in model.parameters()) == 6_375_440
     assert sum(b.numel() for b in model.buffers()) == 256
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model("tse_skim_v1_causal", device="cpu")
+        init_model("tse_unet_tcn_v0", device="cpu")
 
 
 def test_init_model_defaults_to_the_card():
