@@ -241,8 +241,8 @@ weights from a seed):
      of the outputs; model, Metrics and loading seconds), `eval` (RTF at B=1),
      `eval --batch_eval 4 --eval_quantum 0.75` (RTF; >= 60 dB from B=1
      before the zero-padded tail's last window), `eval --backend cpu` on
-     the first 2 (the card's f32 wavs >= 60 dB from the CPU's),
-     `stream_eval` on every route (NS: the first 2 mixtures, stock and
+     the first mixture (the card's f32 wavs >= 60 dB from the CPU's),
+     `stream_eval` on every route (NS: the first mixture, stock and
      DPCRN `--dp_kernel` / `--mk_kernel`, DPARN `--fused --attn_kernel` /
      `--mk_kernel`; TSE: one 1 s mixture, its unfused step as JAX's) >= 60
      dB from the offline inference of the zero-primed input (the engines'
@@ -356,7 +356,8 @@ weights from a seed):
      `tse_skim_v2_causal`, `veve_dprnn_v0_causal`): `lstm_scan_train_fp`
      forward and backward vs plain at v0's SegLSTM 240 x 150 reverse (C=128,
      H=256), its MemLSTM 12 x 20 at C=512 both ways, v1's speaker BiLSTM
-     12 x 4,999 (H=192: 24 units a CTA), DPRNN's intra 1,800 x 20 and inter
+     12 x 4,999 (H=192: 24 units a CTA; its plain version timed by the
+     check's one call), DPRNN's intra 1,800 x 20 and inter
      240 x 150 (H=64) and its streaming inter step 5,120 x 1, and
      `tcn_block_train` at v2's speaker net (B=12, C=80, T=622, d=1 and 16,
      the CUDA cores), f32 and bf16 at phase 2b / 2c's bars, two calls
@@ -381,10 +382,25 @@ weights from a seed):
   7d. their `dev`, `eval` and `eval --batch_eval 2` (>= 60 dB from B=1) on
      6k's checkpoints, `stream_eval --chunk_ms 15` for v1 / v2 (>= 60 dB
      from offline, exact launches); v0 and veve refuse to stream;
+  4n. the STFT-domain TSE zoo (`tse_unet_tcn_v0`, `_v0_causal`, `_v1`;
+     UnetTcn with GatedTCN blocks, which launch none of the port's
+     kernels): `tse_unet_tcn_v0_causal` through `make_session_server(half=
+     True)` at 256 sessions attached by 1 s enrollments, 16 ms ticks (2 hop
+     frames), 100 ticks after warm-up: tick p50 / p99, the engine step
+     alone, 8 slots >= 35 dB from the f32 engine; the f32 server at 8
+     sessions (every slot >= 60 dB from the offline inference of its
+     zero-primed input, 1,152 samples behind); no kernel and no plain
+     version launched;
+  6l. the three through the TSE CLI's train on `..._1a.yaml` with
+     MODEL.type swapped (as 6k), and one f32 step each on the card against
+     the CPU's f64 step (dropout 0), gated as 6g;
+  7e. their `dev` / `eval` on 6l's checkpoints (RTF), `stream_eval` at 16
+     ms for the causal one (>= 60 dB from offline); v0 / v1 refuse to
+     stream with a ValueError;
   8. the kernels JSON line (phase 7's launches in `launches_7`, the new
      phases' in `launches_4k` / `_6g` / `_6h` / `_7b` / `_4l` / `_6i` /
-     `_7c` / `_6j` / `_2l` / `_4m` / `_6k` / `_7d`, the new shapes' times and
-     bounds in `new_shapes`).
+     `_7c` / `_6j` / `_2l` / `_4m` / `_6k` / `_7d` / `_4n` / `_6l` / `_7e`,
+     the new shapes' times and bounds in `new_shapes`).
 
 Each phase prints one line with its result and time; any failure raises and
 the run exits non-zero. The last line is
@@ -526,8 +542,14 @@ TRAIN_B, TRAIN_SECONDS = 64, 2.0    # phase 6: the JAX bench's B=64 x 2 s
 RECIPE_STEPS, RECIPE_WARM = 12, 2   # phase 6b: steps in its epoch, untimed ones
 
 
+_START = time.perf_counter()
+
+
 def log(phase: str, msg: str, t0: float):
-    print(f"[{phase}] {msg} ({time.perf_counter() - t0:.2f} s)", flush=True)
+    """A phase's line: its message, the seconds since `t0`, and the run's
+    clock (seconds since this module was loaded), which places the phase."""
+    now = time.perf_counter()
+    print(f"[{phase}] {msg} ({now - t0:.2f} s; at {now - _START:.0f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -591,17 +613,33 @@ def _sass_name(mangled: str) -> str:
     return "::".join(ids[-2:]) + args
 
 
-def hmma_counts(build_dir: str, name: str) -> dict:
-    """{kernel: (mma.sync HMMA, wgmma HGMMA, int8 mma.sync IMMA) tensor-core
-    instructions} in the SASS of a built library (`cuobjdump -sass`), {}
-    where the toolkit has no cuobjdump."""
+def sass_dumps(build_dir: str, names) -> dict:
+    """{name: `cuobjdump -sass` of lib<name>.so}, the dumps run side by side
+    (threads waiting on the subprocesses); {} where the toolkit has no
+    cuobjdump."""
+    from concurrent.futures import ThreadPoolExecutor
+
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
         return {}
-    out = subprocess.run([exe, "-sass", os.path.join(build_dir, f"lib{name}.so")],
-                         capture_output=True, text=True, check=True).stdout
+    dump = lambda name: subprocess.run([exe, "-sass", os.path.join(build_dir, f"lib{name}.so")],
+                                       capture_output=True, text=True, check=True).stdout
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(dump, names)))
+
+
+def hmma_counts(build_dir: str, name: str, sass: str = None) -> dict:
+    """{kernel: (mma.sync HMMA, wgmma HGMMA, int8 mma.sync IMMA) tensor-core
+    instructions} in the SASS of a built library (`cuobjdump -sass`, or the
+    dump `sass` already taken), {} where the toolkit has no cuobjdump."""
+    if sass is None:
+        sass = sass_dumps(build_dir, [name]).get(name)
+        if sass is None:
+            return {}
     counts, fn = {}, None
-    for line in out.splitlines():
+    for line in sass.splitlines():
+        if "MMA" not in line and "Function : " not in line:
+            continue
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = _sass_name(m.group(1))
@@ -818,10 +856,12 @@ def hold_values_grads(res, label, name, vals, grads):
                                  f"{sg} dB < 30")
 
 
-def lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
+def lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps, plain_once=False):
     """`lstm_scan_train_fp` kernel (forward + backward) against its plain
     version on the card, f32 then bf16, with CUDA-event times and cuDNN's
-    LSTM (`torch.nn.LSTM`, the same weights) as the library yardstick."""
+    LSTM (`torch.nn.LSTM`, the same weights) as the library yardstick.
+    `plain_once`: the plain version's time is that of the one call the check
+    makes (a long scan's Python loop, thousands of steps, is not repeated)."""
     k = 1.0 / math.sqrt(H)
     uni = lambda *s: (torch.rand(s, generator=gen) * 2 - 1) * k
     x = 0.5 * torch.randn(B, T, C, generator=gen)
@@ -830,6 +870,7 @@ def lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
     dy = torch.randn(B, T, H, generator=gen)
     dhT, dcT = torch.randn(B, H, generator=gen), torch.randn(B, H, generator=gen)
     res = {"name": name, "shape": f"B={B} T={T} C={C} H={H} reverse={reverse}"}
+    want = []
     for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         args = [a.to(dev, dt) for a in (x, h0, c0, w_ih, bias, w_hh)]
         cot = [a.to(dev, dt) for a in (dy,)] + [dhT.to(dev), dcT.to(dev)]
@@ -838,21 +879,29 @@ def lstm_kernel_case(lk, name, B, T, C, H, reverse, gen, dev, reps):
         repeat_equal(f"{name} {label} lstm_scan_train_fp", got_f, got_b,
                      lk._launch_fwd(*args, reverse, residuals=True),
                      lk._launch_bwd(*args, *got_f[:1], *got_f[3:], *cot, reverse))
-        want_f = lk.lstm_scan_train_fp_ref(*args, reverse)
-        want_b = lk.lstm_scan_train_fp_bwd_ref(*args, want_f[0], *want_f[3:], *cot,
-                                               reverse)
+        pf = lambda: lk.lstm_scan_train_fp_ref(*args, reverse)
+        if plain_once:
+            res[f"{label}_plain_fwd_ms"] = cuda_ms(lambda: want.append(pf()), 1, 0)
+            want_f = want.pop()
+        else:
+            want_f = pf()
+        pb = lambda: lk.lstm_scan_train_fp_bwd_ref(*args, want_f[0], *want_f[3:],
+                                                   *cot, reverse)
+        if plain_once:
+            res[f"{label}_plain_bwd_ms"] = cuda_ms(lambda: want.append(pb()), 1, 0)
+            want_b = want.pop()
+        else:
+            want_b = pb()
         torch.cuda.synchronize()
         hold_values_grads(res, label, name, list(zip(got_f[:3], want_f[:3])),
                           list(zip(got_b, want_b)))
         kf = lambda: lk._launch_fwd(*args, reverse, residuals=True)
         kb = lambda: lk._launch_bwd(*args, *got_f[:1], *got_f[3:], *cot, reverse)
-        pf = lambda: lk.lstm_scan_train_fp_ref(*args, reverse)
-        pb = lambda: lk.lstm_scan_train_fp_bwd_ref(*args, want_f[0], *want_f[3:],
-                                                   *cot, reverse)
         res[f"{label}_fwd_ms"] = cuda_ms(kf, reps)
         res[f"{label}_bwd_ms"] = cuda_ms(kb, reps)
-        res[f"{label}_plain_fwd_ms"] = cuda_ms(pf, max(2, reps // 4), 1)
-        res[f"{label}_plain_bwd_ms"] = cuda_ms(pb, max(2, reps // 4), 1)
+        if not plain_once:
+            res[f"{label}_plain_fwd_ms"] = cuda_ms(pf, max(2, reps // 4), 1)
+            res[f"{label}_plain_bwd_ms"] = cuda_ms(pb, max(2, reps // 4), 1)
         ff, fb, bf, bb = lstm_work(B, T, C, H, dt)
         res[f"{label}_fwd_bound"] = bound_ms(ff, fb, dt)
         res[f"{label}_bwd_bound"] = bound_ms(bf, bb, dt)
@@ -3686,8 +3735,10 @@ def ns_recipe_phase(lk, tk, dev, card, backend: str = "cuda", keep: str = None,
 # ------------------------------------------------------------ phase 7
 #: the evaluation set: mixtures of 4 s at 16 kHz (TSE: 3 s enrollments)
 EVAL_UTTS, EVAL_SECONDS, EVAL_ENROLL_SECONDS = 8, 4.0, 3.0
-#: the eval set's first mixtures, which the CPU's eval and NS stream_eval take
-EVAL_SUBSET = 2
+#: the eval set's first mixtures, which the CPU's eval and NS / DSS
+#: stream_eval take (one: at two, the host-bound B = 1 streams took about
+#: 120 s of phases 7-7c on an H100)
+EVAL_SUBSET = 1
 #: TSE stream_eval's set (mixtures, seconds): its unfused engine step, JAX's
 #: choice for TSE streaming, dispatches some 12,000 ops a 16 ms chunk
 #: (scripts/tse_stream_ops.py)
@@ -5902,6 +5953,9 @@ ZOO_TCN_CASES = [("v2 speaker C=80 d=1", 12, 80, 256, 622, 1, 10),
                  ("v2 speaker C=80 d=16", 12, 80, 256, 622, 16, 10)]
 ZOO_SEEDS = {name: SEED + 120 + i for i, (name, *_) in enumerate(
     ZOO_LSTM_CASES + ZOO_TCN_CASES)}
+#: the cases whose plain version is timed by the check's own call: the
+#: speaker BiLSTM's 4,999-step Python loop (about 55 s of repeats before)
+ZOO_PLAIN_ONCE = {"v1 speaker BiLSTM"}
 ZOO_SLOTS, ZOO_TICKS = 256, 100     # phase 4m: bf16 fused serving
 ZOO_HELD = 8                        # phase 4m: slots held against the f32 engine
 ZOO_DVEC_COS = 0.999                # phase 4m: bf16 d-vector vs the f32 embed, cosine bar
@@ -5924,7 +5978,8 @@ def zoo_shapes_phase(lk, tk, dev, card) -> dict:
     fmt = lambda v: "n/a" if v is None else f"{v:.3f}"
     for name, B, T, C, H, reverse, reps in ZOO_LSTM_CASES:
         t = time.perf_counter()
-        r = lstm_kernel_case(lk, name, B, T, C, H, reverse, gen(name), dev, reps)
+        r = lstm_kernel_case(lk, name, B, T, C, H, reverse, gen(name), dev, reps,
+                             plain_once=name in ZOO_PLAIN_ONCE)
         r["plans"] = {lb: (lambda pl: f"CL={pl.CL} U={pl.U} fwd M={pl.fwd.M} nbuf="
                            f"{pl.fwd.nbuf} xproj={pl.fwd.xproj} smem={pl.fwd.smem}, bwd M="
                            f"{pl.bwd.M} smem={pl.bwd.smem}")(lk._plan_on(dev, B, C, H, dt))
@@ -6440,6 +6495,362 @@ def zoo_phases(ops, lk, tk, dev, card) -> dict:
             "launches": launches}
 
 
+# ------------------------------------------------------------ phases 4n, 6l, 7e
+#: the STFT-domain TSE models and their parameter counts (JAX's, from
+#: `jax.eval_shape` of init; with the 1a config's AAM-softmax 48,192 more)
+UNET_PARAMS = {"tse_unet_tcn_v0": 13_324_533, "tse_unet_tcn_v0_causal": 13_324_533,
+               "tse_unet_tcn_v1": 13_177_077}
+#: the Unet path launches none of the port's kernels: no LSTM, and its
+#: GatedTCN blocks have no kernel (JAX's have no Pallas call either)
+TSE_LAUNCHES.update({name: (0, 0) for name in UNET_PARAMS})
+UNET_SERVED = "tse_unet_tcn_v0_causal"   # the one that streams
+UNET_CHUNK_MS = 16.0                # 2 hop frames a tick
+UNET_SLOTS, UNET_TICKS = 256, 100   # phase 4n: bf16 serving
+UNET_HALF_BAR = 35.0                # bf16 vs the f32 engine, dB (read 43.1 on an H100)
+UNET_F32_SLOTS, UNET_F32_TICKS = 8, 40
+UNET_LOOKAHEAD = 1152               # 6 frames of transpose_delay + the 384-sample overlap-add
+UNET_RECIPE_STEPS = 3               # phase 6l
+UNET_EVAL_UTTS = 4                  # phase 7e: mixtures of EVAL_SECONDS
+
+
+def unet_model(name, dev, seed):
+    """The STFT-domain zoo model at full width from a seed, its parameter
+    count JAX's."""
+    from puresound_tpu_torch.zoo.tse import init_model
+
+    model = init_model(name, device=dev, generator=torch.Generator().manual_seed(seed))
+    n = sum(p.numel() for p in model.parameters())
+    if n != UNET_PARAMS[name]:
+        raise AssertionError(f"{name}: {n:,} parameters, JAX counts {UNET_PARAMS[name]:,}")
+    return model
+
+
+def no_launches(lk, tk, serving, plain, label: str):
+    """The Unet path's rule: no training kernel, no serving kernel and no
+    plain version of a kernel ran."""
+    expect_launches((counts(lk, tk), counter_values(serving), plain),
+                    ((0, 0, 0, 0), (0,) * len(serving), 0),
+                    f"{label}: LSTM / TCN (fwd, bwd), serving kernels, plain versions")
+
+
+def unet_f32_serving(lk, tk, model, dev, card) -> dict:
+    """Phase 4n: the f32 server at UNET_F32_SLOTS sessions attached by 3 s
+    enrollments, UNET_F32_TICKS ticks of 16 ms: each slot >= 60 dB from the
+    offline inference of its zero-primed input, UNET_LOOKAHEAD samples
+    behind (past the first analysis window)."""
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+
+    t = time.perf_counter()
+    bundle = make_session_server(model, None, n_slots=UNET_F32_SLOTS, chunk_ms=UNET_CHUNK_MS,
+                                 lockstep=True, enroll_len=16000)
+    server, chunk = bundle.server, bundle.chunk_samples
+    rng = np.random.default_rng(SEED + 151)
+    enrolls = (0.1 * rng.standard_normal((UNET_F32_SLOTS, 48000))).astype(np.float32)
+    feed = (0.1 * rng.standard_normal((UNET_F32_SLOTS, chunk * UNET_F32_TICKS))).astype(
+        np.float32)
+    serving = serving_counters()
+    zero_counts(lk, tk)
+    zero_counters(serving)
+    sids = [server.attach(enroll=enrolls[i]) for i in range(UNET_F32_SLOTS)]
+    served = np.zeros_like(feed)
+    with PlainCalls() as plain:
+        for k in range(UNET_F32_TICKS):
+            for i, sid in enumerate(sids):
+                server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+            if server.tick() != UNET_F32_SLOTS:
+                raise AssertionError(f"4n f32 tick {k}: not every slot served")
+            for i, sid in enumerate(sids):
+                served[i, k * chunk:(k + 1) * chunk] = server.hub.pop_output(sid, chunk)
+        torch.cuda.synchronize()
+    no_launches(lk, tk, serving, plain.calls, "4n f32 server")
+    stats = server.stats.snapshot()
+    n_fft, hop = model.encoder.fft_length, model.encoder.hop_length
+    shift = model.masker.stream_delay_frames * hop
+    if n_fft - hop + shift != UNET_LOOKAHEAD:
+        raise AssertionError(f"4n: lookahead {n_fft - hop + shift}, not {UNET_LOOKAHEAD}")
+    with torch.no_grad():
+        x = torch.nn.functional.pad(torch.from_numpy(feed).to(dev), (n_fft - hop, 0))
+        offline = model.inference(x, torch.from_numpy(enrolls).to(dev)).cpu().numpy()
+    L = feed.shape[1]
+    snr = min(snr_np(served[i, n_fft + shift:], offline[i, n_fft:L - shift])
+              for i in range(UNET_F32_SLOTS))
+    if snr < EVAL_BAR_DB or stats["underrun_slot_ticks"] or not np.isfinite(served).all():
+        raise AssertionError(f"4n f32: streamed vs offline {snr:.1f} dB (bar {EVAL_BAR_DB:g}), "
+                             f"underruns {stats['underrun_slot_ticks']}")
+    log("4n unet serving", f"{UNET_SERVED} f32, make_session_server: {UNET_F32_SLOTS} sessions "
+        f"attached by 3 s enrollments, {UNET_F32_TICKS} ticks of {chunk} samples: no kernel "
+        f"launched and no plain version (the Unet path has none), 0 underruns, tick p50 "
+        f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; each slot vs the "
+        f"offline inference of its zero-primed input, {UNET_LOOKAHEAD} samples behind: worst "
+        f"{snr:.1f} dB (bar {EVAL_BAR_DB:g}) [{card}]", t)
+    return {"snr": snr, "tick_p50": stats["tick_ms_p50"], "tick_p99": stats["tick_ms_p99"]}
+
+
+def unet_serving_phase(lk, tk, dev, card) -> dict:
+    """Phase 4n: `tse_unet_tcn_v0_causal` through make_session_server(half=
+    True) at UNET_SLOTS sessions, 16 ms ticks (2 hop frames), each session
+    attached by its 1 s enrollment (embedded on the card in bf16, every
+    d-vector within cosine ZOO_DVEC_COS of the f32 embed); the engine step
+    alone, then NS_WARM + UNET_TICKS ticks: no kernel and no plain version
+    launched, 0 underruns, tick p50 / p99; ZOO_HELD slots against the f32
+    engine on the f32 embed (>= UNET_HALF_BAR); then the f32 server at
+    UNET_F32_SLOTS (>= 60 dB from offline)."""
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+    from puresound_tpu_torch.streaming.ns_engine import StreamingNS
+    from puresound_tpu_torch.streaming.server import ServeStats
+
+    t = time.perf_counter()
+    bf = torch.bfloat16
+    model = unet_model(UNET_SERVED, dev, SEED + 150)
+    engine32 = StreamingNS.from_offline(model).eval()
+    bundle = make_session_server(model, None, n_slots=UNET_SLOTS, chunk_ms=UNET_CHUNK_MS,
+                                 half=True, lockstep=True, enroll_len=16000)
+    server, engine, chunk = bundle.server, bundle.engine, bundle.chunk_samples
+    if chunk != 2 * model.encoder.hop_length or bundle.embed_dim != 192:
+        raise AssertionError(f"4n: chunk {chunk}, embed_dim {bundle.embed_dim}")
+    n_ticks = NS_WARM + UNET_TICKS
+    rng = np.random.default_rng(SEED + 152)
+    enrolls = (0.1 * rng.standard_normal((UNET_SLOTS, 16000))).astype(np.float32)
+    feed = (0.1 * rng.standard_normal((UNET_SLOTS, chunk * n_ticks))).astype(np.float32)
+    serving = serving_counters()
+    zero_counts(lk, tk)
+    zero_counters(serving)
+    ta = time.perf_counter()
+    sids = [server.attach(enroll=enrolls[i]) for i in range(UNET_SLOTS)]
+    torch.cuda.synchronize()
+    t_attach = time.perf_counter() - ta
+    dvecs = torch.from_numpy(server._dvec.copy()).to(dev)
+    with torch.no_grad():
+        d32 = engine32.embed(torch.from_numpy(enrolls).to(dev))
+    cos = torch.nn.functional.cosine_similarity(d32, dvecs).min().item()
+    if not cos >= ZOO_DVEC_COS:
+        raise AssertionError(f"4n: bf16 d-vector cosine to the f32 embed {cos:.6f} < "
+                             f"{ZOO_DVEC_COS:g}")
+    x = torch.from_numpy(feed[:, :chunk]).to(dev, bf)
+    state, step_ms = engine.init_state(UNET_SLOTS, bf), []
+    with torch.no_grad():
+        for k in range(NS_WARM + NS_TICKS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, state = engine.step(x, state, dvecs.to(bf))
+            torch.cuda.synchronize()
+            if k >= NS_WARM:
+                step_ms.append(1e3 * (time.perf_counter() - t1))
+    served = np.zeros_like(feed)
+    with PlainCalls() as plain:
+        for k in range(n_ticks):
+            if k == NS_WARM:
+                torch.cuda.synchronize()
+                server.stats = ServeStats()
+            for i, sid in enumerate(sids):
+                server.hub.push_input(sid, feed[i, k * chunk:(k + 1) * chunk])
+            if server.tick() != UNET_SLOTS:
+                raise AssertionError(f"4n tick {k}: not every slot served")
+            for i, sid in enumerate(sids):
+                got = server.hub.pop_output(sid, chunk)
+                if len(got) != chunk or not np.isfinite(got).all():
+                    raise AssertionError(f"4n tick {k} slot {sid}: bad output")
+                served[i, k * chunk:(k + 1) * chunk] = got
+        torch.cuda.synchronize()
+    no_launches(lk, tk, serving, plain.calls, "4n bf16 attaches, engine steps and ticks")
+    stats = server.stats.snapshot()
+    if stats["underrun_slot_ticks"]:
+        raise AssertionError(f"4n: {stats['underrun_slot_ticks']} underruns")
+    held = np.linspace(0, UNET_SLOTS - 1, ZOO_HELD).round().astype(int)
+    st, ref = engine32.init_state(ZOO_HELD), []
+    with torch.no_grad():
+        for k in range(n_ticks):
+            y, st = engine32.step(torch.from_numpy(feed[held, k * chunk:(k + 1) * chunk]).to(dev),
+                                  st, d32[held])
+            ref.append(y)
+    ref = torch.cat(ref, -1).cpu()
+    snrs = [snr_db(torch.from_numpy(served[i]), ref[j]) for j, i in enumerate(held)]
+    snr = min(snrs)
+    if not snr >= UNET_HALF_BAR:
+        raise AssertionError(f"4n bf16 vs f32: SNR by slot {dict(zip(held, snrs))} dB, under "
+                             f"{UNET_HALF_BAR:g}")
+    log("4n unet serving", f"{UNET_SERVED} ({UNET_PARAMS[UNET_SERVED]:,} params), "
+        f"make_session_server(half=True), {UNET_SLOTS} sessions attached by 1 s enrollments in "
+        f"{t_attach:.2f} s (embedded on the card in bf16; d-vector cosine to the f32 embed, "
+        f"worst of {UNET_SLOTS}, {cos:.6f}, bar {ZOO_DVEC_COS:g}); engine step alone p50 "
+        f"{float(np.median(step_ms)):.3f} ms (min {min(step_ms):.3f}); {UNET_TICKS} ticks of "
+        f"{chunk} samples after {NS_WARM} warm-up: every output finite, no kernel launched and "
+        f"no plain version (the Unet path has none), 0 underruns; tick p50 "
+        f"{stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms; slots "
+        f"{held.tolist()} vs the f32 engine on the f32 embed: worst {snr:.1f} dB, best "
+        f"{max(snrs):.1f} (bar {UNET_HALF_BAR:g}) [{card}]", t)
+    return {"tick_p50": stats["tick_ms_p50"], "tick_p99": stats["tick_ms_p99"],
+            "step_p50": float(np.median(step_ms)), "snr": snr, "dvec_cos": cos,
+            "attach_s": t_attach, "f32": unet_f32_serving(lk, tk, model, dev, card)}
+
+
+def unet_recipe_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
+    """Phase 6l: each STFT-domain model through `python -m
+    puresound_tpu_torch.egs.tse.main` on a copy of the shipped 1a config with
+    MODEL.type swapped (SI-SNR + 10 x AAM-softmax, B=12 x 3 s, 5 s
+    enrollments), UNET_RECIPE_STEPS steps + 1 dev batch: finite losses, no
+    kernel launched, step p50, host gap, peak memory, epoch_0.ckpt reloading
+    equal; then one f32 step (B=2 x 0.5 s, dropout 0) on the card against
+    the CPU's f64 step, gated as phase 6g. Checkpoints go to <keep>/<name>
+    for 7e."""
+    import tempfile
+
+    from puresound_tpu_torch.src.utils import dump_hparam, load_hparam
+    from puresound_tpu_torch.zoo.tse import init_loss, init_model
+
+    out = {}
+    for name in UNET_PARAMS:
+        t = time.perf_counter()
+        steps = UNET_RECIPE_STEPS
+        with tempfile.TemporaryDirectory() as tmp:
+            path = shipped_config(
+                SHIPPED_TSE[0], tmp,
+                write_tse_manifest(os.path.join(tmp, "train"), 12 * steps, 9),
+                write_tse_manifest(os.path.join(tmp, "dev"), 12, 10))
+            hp = load_hparam(path)
+            hp["MODEL"]["type"] = name
+            dump_hparam(hp, path)
+            torch.cuda.reset_peak_memory_stats()
+            res = run_recipe(lk, tk, "puresound_tpu_torch.egs.tse.main", path, backend)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            expect_launches(res["launches"], (0, 0, 0, 0), f"6l {name} recipe, LSTM and TCN")
+            model = res["trainer"].model
+            w0 = init_loss(hp, device=dev, generator=torch.Generator().manual_seed(0))[1]
+            moved = (model.loss_func_spk.weight - w0.weight).abs().max().item()
+            if not moved > 0:
+                raise AssertionError(f"6l {name}: the AAM-softmax weight did not move")
+            fresh = init_model(name, *init_loss(hp, device=dev), device=dev)
+            info = recipe_checks(res, steps, dev, fresh, f"6l {name} recipe")
+            keep_checkpoints(res["trainer"], os.path.join(keep, name))
+        g = step_gaps(res, steps, 1)
+        losses = res["losses"]
+        log("6l unet recipe", f"python -m puresound_tpu_torch.egs.tse.main {SHIPPED_TSE[0]} "
+            f"with MODEL.type {name} ({UNET_PARAMS[name]:,} params), "
+            f"B={hp['TRAIN']['batch_size']} x 3 s, 5 s enrollments, {steps} steps + 1 dev batch "
+            f"on {res['trainer'].device}: losses {losses[0]:.4f} -> {losses[-1]:.4f}, dev "
+            f"{res['dev_loss'][0]:.4f}, AAM-softmax weight moved by max {moved:.3e}; "
+            + gap_text(g, steps, 1, hp["TRAIN"]["batch_size"] * 3)
+            + f"; peak memory {peak:.2f} GiB; no kernel launched (LSTM / TCN "
+            f"{res['launches']}, serving {res['serving']}); epoch_0.ckpt reloads equal "
+            f"({info[0]}, {info[1]}) [{card}]", t)
+        check = tse_card_vs_cpu(name, hp, lk, tk, dev, card, zoo_step_prepare,
+                                "6l unet train step")
+        out[name] = dict(g, peak_gib=peak, steps=steps, check=check, aam_moved=moved)
+    return out
+
+
+def eval_7e_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
+    """Phase 7e: the three models' evaluation actions through the TSE CLI on
+    6l's checkpoints (model_average 2), UNET_EVAL_UTTS mixtures of 4 s with 3
+    s enrollments: `dev --metrics detail` (every row equal to Metrics of the
+    outputs) and `eval` (RTF); `stream_eval` at 16 ms for the causal model
+    (>= 60 dB from the offline inference of the zero-primed input past the
+    first window, RTF); v0 and v1 (non-causal) refuse to stream with the
+    engine's ValueError. No kernel is launched."""
+    import tempfile
+
+    from puresound_tpu_torch.src.audio import AudioIO
+    from puresound_tpu_torch.src.utils import dump_hparam, load_hparam, load_text_as_dict
+
+    module = "puresound_tpu_torch.egs.tse.main"
+    out = {}
+    probe = EvalProbe()
+    with tempfile.TemporaryDirectory() as tmp, probe:
+        for name in UNET_PARAMS:
+            t = time.perf_counter()
+            full = write_eval_manifest(os.path.join(tmp, name, "full"), UNET_EVAL_UTTS,
+                                       SEED + 155, True)
+            stream = write_eval_manifest(os.path.join(tmp, name, "stream"), TSE_STREAM[0],
+                                         SEED + 156, True, TSE_STREAM[1])
+            hp = load_hparam(SHIPPED_TSE[0])
+            hp["MODEL"]["type"] = name
+            hp["TRAIN"].update(model_save_dir=os.path.join(keep, name), model_average=2,
+                               log_dir=os.path.join(tmp, name, "logs"))
+            cfgs = {}
+            for label, folder in (("full", full), ("stream", stream)):
+                hp["DATASET"].update(dev=folder, eval=folder, train=folder)
+                cfgs[label] = os.path.join(tmp, name, f"{label}.yaml")
+                dump_hparam(hp, cfgs[label])
+            ck = ["--ckpt", "epoch_1.ckpt", "--backend", backend]
+            cli = lambda cfg, *args: run_cli(module, cfgs[cfg], [*args, *ck], probe, lk, tk)
+            res = {"dev": cli("full", "--action", "dev", "--metrics", "detail"),
+                   "eval": cli("full", "--action", "eval")}
+            n = UNET_EVAL_UTTS
+            for key in ("dev", "eval"):
+                expect_launches((res[key]["launches"], res[key]["serving"]),
+                                ((0, 0, 0, 0), (0,) * 5), f"7e {name} {key}: no kernel")
+                check_models(res[key], dev, f"7e {name} {key}")
+            want = rescore(full, res["dev"]["outputs"], True)
+            printed = dev_rows(res["dev"]["stdout"], 6)
+            if printed != want or len(printed) != n or not np.isfinite(
+                    list(want.values())).all():
+                raise AssertionError(f"7e {name} dev: printed {printed}, Metrics {want}")
+            streams, refused = {}, None
+            n_s, L_s = stream_set(True)
+            if name != UNET_SERVED:
+                try:
+                    cli("stream", "--action", "stream_eval", "--chunk_ms", str(UNET_CHUNK_MS))
+                    raise AssertionError(f"7e {name}: stream_eval ran")
+                except ValueError as e:
+                    refused = str(e)
+            else:
+                r = cli("stream", "--action", "stream_eval", "--chunk_ms", str(UNET_CHUNK_MS))
+                expect_launches((r["launches"], r["serving"]), ((0, 0, 0, 0), (0,) * 5),
+                                f"7e {name} stream_eval: no kernel")
+                check_models(r, dev, f"7e {name} stream_eval")
+                model = res["eval"]["models"][0]
+                scp = load_text_as_dict(os.path.join(stream, "wav2scp.txt"))
+                enr = load_text_as_dict(os.path.join(stream, "ref2list.txt"))
+                pad = model.encoder.fft_length - model.encoder.hop_length
+                lo, hi = 512, L_s - 1024
+                got = []
+                with torch.inference_mode():
+                    for k in sorted(scp):
+                        x = torch.from_numpy(AudioIO.open(scp[k][0])[0]).to(dev)
+                        e = torch.from_numpy(AudioIO.open(enr[k][0], target_lvl=-28)[0]).to(dev)
+                        off = model.inference(torch.nn.functional.pad(x, (pad, 0)), e)
+                        off = off[0].float().cpu().numpy()
+                        got.append(snr_np(r["saved"][k][lo:hi], off[lo + pad:hi + pad]))
+                streams = {"db": min(got), "rtf": float(np.mean(r["rtfs"])),
+                           "wall_s": r["wall_s"]}
+                if not streams["db"] >= EVAL_BAR_DB:
+                    raise AssertionError(f"7e {name} stream_eval: {streams['db']:.1f} dB")
+            d, e = res["dev"], res["eval"]
+            audio_s = n * EVAL_SECONDS
+            means = dict(zip(("PESQ", "STOI", "SDR", "SiSNR", "SiSNRi", "NSR"),
+                             map(float, np.mean(list(want.values()), axis=0))))
+            out[name] = {"dev_wall_s": d["wall_s"], "eval_rtf": audio_s / e["wall_s"],
+                         "eval_model_rtf": audio_s / e["model_s"], "streams": streams,
+                         "refused": refused, "dev_means": means}
+            log("7e unet eval", f"python -m {module} (1a with MODEL.type {name}; --ckpt "
+                f"epoch_1.ckpt, model_average 2) on {n} mixtures of {EVAL_SECONDS:g} s: dev "
+                f"--metrics detail {d['wall_s']:.2f} s, means " + ", ".join(
+                    f"{c} {v:.4f}" for c, v in means.items())
+                + f", every row equal to Metrics of the outputs; eval B=1 {e['wall_s']:.2f} s "
+                f"(RTF {audio_s / e['wall_s']:.1f}, model alone {audio_s / e['model_s']:.1f}); "
+                + (f"stream_eval {UNET_CHUNK_MS:g} ms on {n_s} mixture of {L_s / 16000:g} s: "
+                   f"{streams['wall_s']:.2f} s, RTF {streams['rtf']:.2f}, {streams['db']:.1f} dB "
+                   "from the offline inference of the zero-primed input past the first window"
+                   if streams else f"stream_eval refused: {refused}")
+                + f"; no kernel launched [{card}]", t)
+    return out
+
+
+def unet_phases(lk, tk, dev, card) -> dict:
+    """Phases 4n, 6l and 7e: the STFT-domain TSE zoo (UnetTcn), which
+    launches none of the port's kernels."""
+    import tempfile
+
+    serving = unet_serving_phase(lk, tk, dev, card)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_7e_")
+    try:
+        recipes = unet_recipe_phase(lk, tk, dev, card, keep)
+        evals = eval_7e_phase(lk, tk, dev, card, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    return {"serving": serving, "recipes": recipes, "evals": evals}
+
+
 def run(dev: torch.device) -> int:
     t0 = time.perf_counter()
     from puresound_tpu_torch.ops import _build
@@ -6478,12 +6889,13 @@ def run(dev: torch.device) -> int:
     # tensor cores where bf16 wants them (the LSTM training kernels: mma.sync;
     # the TCN block's wgmma route, the bf16 attention route and the wide
     # center's resident convs: wgmma) and none in any kernel with float32 dots
+    sass = sass_dumps(_build.BUILD_DIR, sources)
     for lib, want in (("lstm_train", lambda k: "<bf16>" in k and "reduce" not in k),
                       ("tcn_train", lambda k: k.startswith("tcn_wg_")),
                       ("lstm_scan", lambda k: k.startswith("lstm_scan_tc_kernel")),
                       ("dparn_attention", None), ("masker", None), ("dual_path", None),
                       ("skim_stream", None)):
-        hmma = hmma_counts(_build.BUILD_DIR, lib)
+        hmma = hmma_counts(_build.BUILD_DIR, lib, sass.get(lib)) if sass else {}
         if not hmma:
             log("1 build", f"cuobjdump not found: {lib} HMMA / HGMMA / IMMA not read", t)
             continue
@@ -6999,6 +7411,9 @@ def run(dev: torch.device) -> int:
     launches_6j = trainer_phase(lk, tk, dev, card)["launches"]
     # ------------------- the time-domain rest of the TSE zoo: 2l, 4m, 6k, 7d
     zoo = zoo_phases(ops, lk, tk, dev, card)
+    # ------------------- the STFT-domain TSE zoo: 4n, 6l, 7e (no kernel launched)
+    unet_phases(lk, tk, dev, card)
+    launches_unet = {"4n": {}, "6l": {}, "7e": {}}
     sock = dss_serve["socket"]
     dss_by_slots = dss_serve["serving"]
     # each kernel's launches in phases 4l / 6i / 7c
@@ -7299,7 +7714,8 @@ def run(dev: torch.device) -> int:
         key = k["name"].replace(" (forward)", " fwd").replace(" (backward)", " bwd")
         for phase, table in (("4l", launches_4l), ("6i", launches_6i), ("7c", launches_7c),
                              ("6j", launches_6j), ("4m", zoo["launches"]["4m"]),
-                             ("6k", zoo["launches"]["6k"]), ("7d", zoo["launches"]["7d"])):
+                             ("6k", zoo["launches"]["6k"]), ("7d", zoo["launches"]["7d"]),
+                             *launches_unet.items()):
             k[f"launches_{phase}"] = table.get(key, 0)
             k["launches"] += table.get(key, 0)
         # phase 2l's launches hold each kernel against its plain version: counted

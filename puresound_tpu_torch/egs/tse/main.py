@@ -27,7 +27,10 @@ trains data-parallel, one process per card (NCCL; gloo with `--backend
 cpu`), with TRAIN.multi_gpu: true as JAX's recipes ask. stream_eval
 refuses an embedding-free model (`veve_dprnn_v0_causal`: its enrollment
 conditions the masker's initial state, which JAX's stream_eval never sets)
-and a non-causal one. tSNE and export_model are not ported yet and raise.
+and a non-causal one (stream_eval and serve refuse `tse_unet_tcn_v0` /
+`_v1` with the streaming engine's ValueError; the causal STFT-domain
+`tse_unet_tcn_v0_causal` streams through `StreamingNS` with its speaker
+net). tSNE and export_model are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -296,8 +299,9 @@ def action_eval(hparam, device, ckpt, batch_eval=0, eval_quantum=1.0) -> str:
 
 
 def action_stream_eval(hparam, device, ckpt, chunk_ms=16.0, half=False) -> list:
-    """Stream the eval set through `StreamingTSE` (the unfused step, as
-    JAX's): each enrollment embedded once (in float32), the mixture
+    """Stream the eval set through the model's engine (`StreamingTSE` on the
+    unfused step, as JAX's, or `StreamingNS` for an STFT-domain model): each
+    enrollment embedded once (in float32), the mixture
     streamed in `chunk_ms` chunks; writes
     TRAIN.model_save_dir/stream_eval_audio/<key>.wav aligned with the input
     and prints each utterance's RTF and their mean; returns the RTFs."""

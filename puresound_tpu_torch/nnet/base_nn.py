@@ -104,6 +104,13 @@ def check_encoder(encoder: nn.Module) -> None:
                         f"{type(encoder).__name__}")
 
 
+def ri_concat(feats: torch.Tensor, drop_first_bin: bool) -> torch.Tensor:
+    """An STFT's [N, F, T, 2] -> the RI-concat features [N, 2F', T], the
+    first (DC) bin dropped with `drop_first_bin`."""
+    lo = 1 if drop_first_bin else 0
+    return torch.cat([feats[:, lo:, :, 0], feats[:, lo:, :, 1]], dim=1)
+
+
 def run_speaker_net(layers, x: torch.Tensor) -> torch.Tensor:
     """Walk the speaker-net layers (TCN / pooling / conv)."""
     for layer in layers:
@@ -180,10 +187,7 @@ class SoTaskWrapModule(nn.Module):
         `encoder`, the mixture's by default."""
         encoder = self.encoder if encoder is None else encoder
         feats = encoder(wav)
-        if isinstance(encoder, ConvEncDec):
-            lo = 1 if self.drop_first_bin else 0
-            feats = torch.cat([feats[:, lo:, :, 0], feats[:, lo:, :, 1]], dim=1)
-        return feats
+        return ri_concat(feats, self.drop_first_bin) if isinstance(encoder, ConvEncDec) else feats
 
     def _encode_enroll(self, wav):
         """Enrollment waveform -> speaker-net features: through

@@ -8,8 +8,8 @@ in training and in inference alike (JAX's `_fusable` / `_fused_call`,
 tensor. JAX's v5e engagement floors (`_FUSED_TCN_MIN_ROWS*`,
 `_FUSED_TCN_MAX_C_BF16`) and the `PURESOUND_FUSED_TCN` switch are TPU facts
 and are dropped here. Embedded, causal and BatchNorm blocks take the stock
-path under autograd, as in JAX. `GatedTCN` (`tcn_layer="gated"`) is not
-ported: no ported model builds it (ROADMAP queue 1 item 5b(iii)).
+path under autograd, as in JAX. `GatedTCN` has no kernel in JAX either
+(no `_fused_call`): it runs as plain PyTorch on every device.
 """
 from __future__ import annotations
 
@@ -115,10 +115,123 @@ class TCN(nn.Module):
         return self.out_conv(y) + x, ctx
 
 
+def tcn_stacks(dim: int, tcn_layer: str, kernel: int, hid: int, dilated_basic: int,
+               per_stack: int, repeat: int, with_embed: Sequence[int], embed_dim: int,
+               tcn_norm: str, dconv_norm: str, causal: bool, use_film: bool = False, *,
+               device=None, dtype=torch.float32, generator: torch.Generator) -> nn.ModuleList:
+    """`repeat` stacks of `per_stack` TCN (`tcn_layer` "normal") or GatedTCN
+    ("gated") blocks at dilation dilated_basic**i, block i taking the
+    embedding where with_embed[i] (and FiLM-ing it, for a gated block, under
+    `use_film`): ConvTasNet's and UnetTcn's `tcn_list` (JAX
+    `conv_tasnet.py:249-272`, `unet.py:313-336`)."""
+    if len(with_embed) != per_stack:
+        raise ValueError("tcn_with_embed needs one flag a block of a stack")
+    fk = dict(device=device, dtype=dtype, generator=generator)
+
+    def block(i):
+        emb = embed_dim if with_embed[i] else 0
+        if tcn_layer.lower() == "normal":
+            return TCN(dim, hid, kernel, dilated_basic ** i, tcn_norm=tcn_norm,
+                       dconv_norm=dconv_norm, emb_dim=emb, causal=causal, **fk)
+        if tcn_layer.lower() == "gated":
+            return GatedTCN(dim, hid, kernel, dilated_basic ** i, emb_dim=emb,
+                            causal=causal, tcn_norm=tcn_norm,
+                            use_film=use_film if emb else False, **fk)
+        raise NameError(tcn_layer)
+    return nn.ModuleList(nn.ModuleList(block(i) for i in range(per_stack))
+                         for _ in range(repeat))
+
+
+class GatedTCN(nn.Module):
+    """Gated two-branch TCN block (JAX `conv_tasnet.py:127-227`): u =
+    in_conv(x); y = x + out_conv(left(u) * sigmoid(right(u_r))), each branch
+    a dilated conv, norm, PReLU and dropout; u_r is u with the embedding
+    concatenated, or FiLM-ed (cond_scale(e) * u + cond_bias(e)) under
+    `use_film`. A causal block pads (k-1)*d on both sides, so its norms
+    see (k-1)*d frames more, and trims them on the right after `out_conv`.
+
+    PureSound's layout: `in_conv`, `left_conv` / `right_conv` =
+    Sequential(conv, norm, PReLU), `out_conv`, `cond_scale` / `cond_bias`;
+    no biases."""
+
+    def __init__(self, in_channels: int, hid_channels: int, kernel: int,
+                 dilation: int, dropout: float = 0.0, emb_dim: int = 0,
+                 causal: bool = False, tcn_norm: str = "gLN", use_film: bool = False, *,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        g = generator_or_default(generator)
+        self.hid_channels, self.emb_dim = hid_channels, emb_dim
+        self.causal, self.use_film = causal, use_film
+        self.padd = (kernel - 1) * dilation if causal else (kernel - 1) * dilation // 2
+        norm = get_norm(tcn_norm)
+        branch = lambda c_in: nn.Sequential(
+            Conv1d(c_in, hid_channels, kernel, dilation=dilation, padding=self.padd,
+                   bias=False, generator=g, **fk),
+            norm(hid_channels, **fk), PReLU(**fk))
+        self.in_conv = Conv1d(in_channels, hid_channels, 1, bias=False, generator=g, **fk)
+        self.left_conv = branch(hid_channels)
+        self.left_drop = Dropout(dropout, generator=g)
+        if use_film:
+            self.cond_scale = Conv1d(emb_dim, hid_channels, 1, bias=False, generator=g, **fk)
+            self.cond_bias = Conv1d(emb_dim, hid_channels, 1, bias=False, generator=g, **fk)
+        self.right_conv = branch(hid_channels if use_film else hid_channels + emb_dim)
+        self.right_drop = Dropout(dropout, generator=g)
+        self.out_conv = Conv1d(hid_channels, in_channels, 1, bias=False, generator=g, **fk)
+
+    def _condition(self, u: torch.Tensor, embed: Optional[torch.Tensor]) -> torch.Tensor:
+        if embed is None:
+            return u
+        if not self.use_film:
+            return _with_embed(u, embed)
+        cond = embed[:, :, None].to(u.dtype)
+        return self.cond_scale(cond) * u + self.cond_bias(cond)
+
+    def forward(self, x: torch.Tensor, embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+        u = self.in_conv(x)
+        left = self.left_drop(self.left_conv(u))
+        right = torch.sigmoid(self.right_drop(self.right_conv(self._condition(u, embed))))
+        y = self.out_conv(left * right)
+        if self.causal and self.padd:
+            y = y[..., :-self.padd]
+        return y + x
+
+    @property
+    def ctx_frames(self) -> int:
+        return self.padd
+
+    def init_ctx(self, batch: int, dtype=torch.float32, device=None) -> dict:
+        """The two carried contexts: `h`, the hidden stream (the left
+        branch's input), and `r`, the right branch's input after the FiLM or
+        the concat (the offline conv pads it after conditioning, so zeros
+        here are exact)."""
+        if device is None:
+            device = self.in_conv.weight.device
+        right_ch = self.hid_channels + (0 if self.use_film else self.emb_dim)
+        z = lambda c: torch.zeros((batch, c, self.padd), dtype=dtype, device=device)
+        return {"h": z(self.hid_channels), "r": z(right_ch)}
+
+    def step_chunk(self, x: torch.Tensor, embed: Optional[torch.Tensor], ctx: dict):
+        """One causal streaming chunk: x [B, C, K] and the carried contexts
+        -> (y [B, C, K], the new contexts); the norms in eval mode are
+        frame-local."""
+        if not self.causal:
+            raise ValueError("step_chunk needs a causal GatedTCN")
+        u = self.in_conv(x)
+        h_full = torch.cat([ctx["h"], u], dim=-1)
+        r_full = torch.cat([ctx["r"], self._condition(u, embed)], dim=-1)
+        keep = lambda t: t[..., t.shape[-1] - self.padd:]
+        run = lambda seq, t: seq[2](seq[1](seq[0](t, pad=0)))
+        left, right = run(self.left_conv, h_full), torch.sigmoid(run(self.right_conv, r_full))
+        return self.out_conv(left * right) + x, {"h": keep(h_full), "r": keep(r_full)}
+
+
 class ConvTasNet(nn.Module):
     """`repeat_tcn` stacks of `per_tcn_stack` TCN blocks with dilation
-    tcn_dilated_basic**i; block i of a stack takes the speaker embedding
-    when tcn_with_embed[i]. x: [N, C, T] -> mask [N, C, T].
+    tcn_dilated_basic**i (`GatedTCN` blocks with `tcn_layer="gated"`); block
+    i of a stack takes the speaker embedding when tcn_with_embed[i]. x:
+    [N, C, T] -> mask [N, C, T].
 
     Module names follow PureSound's (`tcn_list.{r}.{i}`)."""
 
@@ -131,23 +244,13 @@ class ConvTasNet(nn.Module):
                  *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if per_tcn_stack != len(tcn_with_embed):
-            raise ValueError("tcn_with_embed needs one flag a block of a stack")
-        if tcn_layer.lower() != "normal":
-            raise NotImplementedError(
-                f"tcn_layer {tcn_layer!r} (GatedTCN) is not ported yet (ROADMAP queue 1 "
-                "item 5b(iii): UnetTcn and the Unet speaker net)")
         g = generator_or_default(generator)
         self.embed_norm, self.causal = embed_norm, causal
         self.tcn_with_embed = tuple(tcn_with_embed)
-        self.tcn_list = nn.ModuleList(
-            nn.ModuleList(
-                TCN(input_dim, tcn_dim, tcn_kernel, tcn_dilated_basic ** i,
-                    tcn_norm=tcn_norm, dconv_norm=dconv_norm,
-                    emb_dim=embed_dim if self.tcn_with_embed[i] else 0,
-                    causal=causal, device=device, dtype=dtype, generator=g)
-                for i in range(per_tcn_stack))
-            for _ in range(repeat_tcn))
+        self.tcn_list = tcn_stacks(input_dim, tcn_layer, tcn_kernel, tcn_dim,
+                                   tcn_dilated_basic, per_tcn_stack, repeat_tcn,
+                                   self.tcn_with_embed, embed_dim, tcn_norm, dconv_norm,
+                                   causal, device=device, dtype=dtype, generator=g)
 
     def _norm_dvec(self, dvec: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         if self.embed_norm and dvec is not None:

@@ -157,16 +157,19 @@ class ConvTranspose2d(nn.Module):
 
 
 class DepthwiseSeparableConv1d(nn.Module):
-    """Depthwise dilated conv -> 1x1 conv, each norm + PReLU (JAX
-    `nnet/lobe/cnn.py:222-292` without the 1x1-in or skip, which no ported
-    model builds). A causal block pads (k-1)*d on both sides and trims that
-    many frames on the right of its output; `step_chunk` streams it with the
-    depthwise input's last (k-1)*d frames carried.
+    """(1x1-in ->) depthwise dilated conv -> 1x1 conv, each norm + PReLU
+    (+ a 1x1 skip of the input) (JAX `nnet/lobe/cnn.py:222-292`). The
+    1x1-in (`in_conv`, PureSound's Sequential) comes with `hid_channels`,
+    the skip (`skip_conv`) with `skip`. A causal block pads (k-1)*d on both
+    sides and trims that many frames on the right of its output;
+    `step_chunk` streams it with the depthwise input's last (k-1)*d frames
+    carried.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_cls: str = "gGN", kernel: int = 3, stride: int = 1,
-                 dilation: int = 1, causal: bool = False, *, device=None,
+                 dilation: int = 1, causal: bool = False,
+                 hid_channels: Optional[int] = None, skip: bool = False, *, device=None,
                  dtype=torch.float32, generator: Optional[torch.Generator] = None):
         super().__init__()
         if causal and norm_cls in ("gLN", "gGN"):
@@ -174,22 +177,30 @@ class DepthwiseSeparableConv1d(nn.Module):
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
         norm = get_norm(norm_cls)
-        self.causal = causal
+        self.causal, self.skip = causal, skip
+        hid = hid_channels if hid_channels is not None else in_channels
         self.padding = (kernel - 1) * dilation if causal else ((kernel - 1) // 2) * dilation
+        if hid_channels is not None:
+            self.in_conv = nn.Sequential(Conv1d(in_channels, hid, 1, generator=g, **fk),
+                                         norm(hid, **fk), PReLU(**fk))
         self.depthwise = nn.Sequential(
-            Conv1d(in_channels, in_channels, kernel, stride=stride,
-                   dilation=dilation, padding=self.padding,
-                   groups=in_channels, generator=g, **fk),
-            norm(in_channels, **fk), PReLU(**fk))
+            Conv1d(hid, hid, kernel, stride=stride, dilation=dilation,
+                   padding=self.padding, groups=hid, generator=g, **fk),
+            norm(hid, **fk), PReLU(**fk))
         self.pointwise = nn.Sequential(
-            Conv1d(in_channels, out_channels, 1, generator=g, **fk),
+            Conv1d(hid, out_channels, 1, generator=g, **fk),
             norm(out_channels, **fk), PReLU(**fk))
+        if skip:
+            self.skip_conv = Conv1d(in_channels, out_channels, 1, generator=g, **fk)
+
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        return self.in_conv(x) if hasattr(self, "in_conv") else x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.pointwise(self.depthwise(x))
+        y = self.pointwise(self.depthwise(self._in(x)))
         if self.causal and self.padding:
             y = y[..., :-self.padding]
-        return y
+        return y + self.skip_conv(x) if self.skip else y
 
     @property
     def ctx_frames(self) -> int:
@@ -198,10 +209,12 @@ class DepthwiseSeparableConv1d(nn.Module):
 
     def step_chunk(self, x: torch.Tensor, ctx: torch.Tensor):
         """One causal streaming chunk: x [B, C, K] and the carried context
-        ctx [B, C, (k-1)*d] -> (y [B, C_out, K], the new context)."""
+        ctx [B, hid, (k-1)*d] -> (y [B, C_out, K], the new context)."""
         if not self.causal:
             raise ValueError("step_chunk needs a causal DepthwiseSeparableConv1d")
-        full = torch.cat([ctx, x], dim=-1)
+        full = torch.cat([ctx, self._in(x)], dim=-1)
         conv, norm, act = self.depthwise
         y = self.pointwise(act(norm(conv(full, pad=0))))
+        if self.skip:
+            y = y + self.skip_conv(x)
         return y, full[..., full.shape[-1] - self.padding:]

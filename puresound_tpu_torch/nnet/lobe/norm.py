@@ -65,6 +65,21 @@ class ChanLN(GlobLN):
                 + self.beta.reshape(shape).to(x.dtype))
 
 
+class InstantLN(GlobLN):
+    """Instant layer norm (iLN, JAX `norm.py:86-94`): a [N, CH, C, T] tensor
+    normalised over (channel, freq) frame by frame, the affine over the
+    CH * C flattened channels (`channel_size` is CH * C)."""
+
+    def forward(self, x):
+        N, CH, C, T = x.shape
+        flat = x.reshape(N, CH * C, T)
+        mean, var = _moments(flat, (1,))
+        shape = _channel_shape(flat, self.channel_size)
+        return (_normalize(flat, mean, var, self.eps)
+                * self.gamma.reshape(shape).to(x.dtype)
+                + self.beta.reshape(shape).to(x.dtype)).reshape(N, CH, C, T)
+
+
 class GroupNorm1(nn.Module):
     """GroupNorm with one group: layer norm over (C, *), eps 1e-8."""
 
@@ -169,16 +184,11 @@ class LayerNormLast(nn.Module):
                 + self.bias.to(x.dtype))
 
 
-_REGISTRY = {"gLN": GlobLN, "cLN": ChanLN, "gGN": GroupNorm1,
+_REGISTRY = {"gLN": GlobLN, "cLN": ChanLN, "iLN": InstantLN, "gGN": GroupNorm1,
              "bN1d": BatchNorm, "bN2d": BatchNorm}
-_NOT_PORTED = ("iLN",)
 
 
 def get_norm(name: str) -> Callable[..., nn.Module]:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"norm {name!r} is not ported yet (ROADMAP queue 1: the rest of "
-            "the TSE zoo / NS)")
     if name not in _REGISTRY:
         raise NameError(f"Could not interpret normalization identifier: {name}")
     return _REGISTRY[name]

@@ -1,6 +1,6 @@
-"""Gate and FiLM conditioning, the 50 %-overlap segment split / merge, spectral
-compression and SpecAugment (counterpart of puresound_tpu/nnet/lobe/trivial.py:50,
-:88, :130, :188, :196)."""
+"""Magnitude, Gate and FiLM conditioning, the 50 %-overlap segment split / merge,
+the moving average, spectral compression and SpecAugment (counterpart of
+puresound_tpu/nnet/lobe/trivial.py:26, :50, :88, :130, :166, :188, :196)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -14,6 +14,28 @@ from .activation import PReLU
 from .cnn import Conv1d
 from .dropout import Dropout
 from .norm import ChanLN, LayerNormLast
+
+
+class Magnitude(nn.Module):
+    """Complex [N, C, T, 2] or RI-concat [N, 2C, T] -> magnitude [N, C, T],
+    sqrt(re^2 + im^2 + 1e-8), the first bin dropped with `drop_first`,
+    log1p-compressed with `log1p` (JAX `trivial.py:26-47`)."""
+
+    def __init__(self, drop_first: bool = True, log1p: bool = False):
+        super().__init__()
+        self.drop_first, self.log1p = drop_first, log1p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 4:
+            re, im = x[..., 0], x[..., 1]
+        elif x.dim() == 3:
+            re, im = torch.chunk(x, 2, dim=1)
+        else:
+            raise TypeError("Magnitude expects 3-D or 4-D input")
+        if self.drop_first:
+            re, im = re[:, 1:, :], im[:, 1:, :]
+        mag = torch.sqrt(re ** 2 + im ** 2 + 1e-8)
+        return torch.log1p(mag) if self.log1p else mag
 
 
 class Gate(nn.Module):
@@ -134,6 +156,25 @@ class SplitMerge:
         x2 = x[..., K:].reshape(N, C, -1)[:, :, :-stride]
         out = (x1 + x2) / 2
         return out[..., :-rest] if rest > 0 else out
+
+
+class MovingAverage1D(nn.Module):
+    """Moving average of `kernel_size` samples at `stride` over [N, T]
+    (JAX `trivial.py:166-185`); `add_padding` pads kernel_size - 1 samples
+    on the left (`causal`) or kernel_size // 2 on both sides first."""
+
+    def __init__(self, kernel_size: int, stride: int, add_padding: bool = False,
+                 causal: bool = True):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.add_padding, self.causal = add_padding, causal
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel_size
+        if self.add_padding:
+            x = nn.functional.pad(x, (k - 1, 0) if self.causal else (k // 2, k // 2))
+        w = torch.full((1, 1, k), 1.0 / k, dtype=x.dtype, device=x.device)
+        return nn.functional.conv1d(x[:, None, :], w, stride=self.stride)[:, 0, :]
 
 
 class SpecAugment(nn.Module):

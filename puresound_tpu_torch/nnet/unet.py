@@ -1,25 +1,35 @@
-"""Frequency-axis U-Net (counterpart of puresound_tpu/nnet/unet.py:27-293).
+"""Frequency-axis U-Net and its TCN / FSMN bottleneck variants (counterpart
+of puresound_tpu/nnet/unet.py:27-293, `UnetTcn` :296-392, `UnetFsmn`
+:395-477).
 
-Only the `Unet` base is ported (`UnetTcn` and `UnetFsmn` wait, ROADMAP
-queue 1 item 5b). With `multi_output` M > 1 the last up layer emits
-chans[0] * M channels, read as (M, chans[0]) and unpacked to an [N, M, C, T]
-mask (the SIMO separator, `DPARN_Mout`). The shape algebra is JAX's (and
-PureSound's):
+With `multi_output` M > 1 the last up layer emits chans[0] * M channels,
+read as (M, chans[0]) and unpacked to an [N, M, C, T] mask (the SIMO
+separator, `DPARN_Mout`). The shape algebra is JAX's (and PureSound's):
 - down layer i: zero pad (time (k_t-1-delay, delay), freq centred), Conv2d
   of stride (s_f, s_t), norm, activation, dropout;
 - up layer: ConvTranspose2d(kernel (k_f, t_kernel), padding k_f//2,
   output_padding s_f - k_f + 2*(k_f//2)), norm and activation but on the
   last, then t_kernel-1 frames trimmed on the right (or on the left with
-  `transpose_delay`, the semi-causal lookahead mode).
+  `transpose_delay`, the semi-causal lookahead mode). The skip enters an
+  up layer concatenated, or with `skip_conv` added after a 1x1 conv and the
+  activation (`skip_cnn[j]` = [Conv2d, act]).
 Module names follow PureSound's Sequential layout: `cnn_down[i]` =
 [ZeroPad2d, Conv2d, norm, act, Dropout], `cnn_up[j]` = [ConvTranspose2d,
 norm, act] (the last up layer only the transpose conv), so a state_dict
 reads `masker.cnn_down.0.1.weight`.
 
+`UnetTcn` runs `repeat_tcn` x `per_tcn_stack` TCN or GatedTCN blocks, and
+`UnetFsmn` a chain of FSMN layers with their memory handed on, over the
+bottleneck flattened to [N, ch * F, T]; the speaker embedding (L2-normalised
+under `embed_norm`) conditions the blocks flagged for it.
+
 The streaming helpers run a chunk of K frames through the causal layers
 (time kernel 2): a down conv prepends its carried last input frame as a
 one-tap term, a transpose conv keeps its last input frame pending, and
-with `transpose_delay` per-layer FIFOs realign the skips.
+with `transpose_delay` per-layer FIFOs realign the skips. A UnetTcn streams
+with causal blocks only, a UnetFsmn with r_context 0; JAX asserts both when
+the stream state is made, the port raises a ValueError as the streaming
+engine is built (`check_streamable`).
 """
 from __future__ import annotations
 
@@ -29,10 +39,12 @@ import torch
 from torch import nn
 
 from ..utils.init import generator_or_default
+from .conv_tasnet import tcn_stacks
 from .lobe.activation import get_activation
 from .lobe.cnn import Conv2d, ConvTranspose2d
 from .lobe.dropout import Dropout
 from .lobe.norm import apply_norm, get_norm
+from .lobe.rnn import FSMN, ConditionFSMN
 
 
 class Unet(nn.Module):
@@ -54,14 +66,10 @@ class Unet(nn.Module):
         if not (len(kernel_f) == len(stride_t) == len(stride_f) == len(dilation_t)
                 == len(dilation_f) == len(delay) == n):
             raise ValueError("the per-layer tuples need one entry per layer")
-        if skip_conv:
-            raise NotImplementedError(
-                "Unet skip_conv is not ported yet (ROADMAP queue 1 item 5b(iii): the "
-                "rest of the TSE zoo)")
         if input_type.lower() not in ("ri", "real"):
             raise TypeError("input_type must be RI or Real")
         self.input_type, self.input_dim, self.dropout = input_type, input_dim, dropout
-        self.multi_output = multi_output
+        self.multi_output, self.skip_conv = multi_output, skip_conv
         self.transpose_t_size, self.transpose_delay = transpose_t_size, transpose_delay
         self.kernel_t, self.kernel_f = tuple(kernel_t), tuple(kernel_f)
         self.stride_t, self.stride_f = tuple(stride_t), tuple(stride_f)
@@ -89,7 +97,8 @@ class Unet(nn.Module):
             k, s = kernel_f[i], stride_f[i]
             p = k // 2
             out_ch = chans[i] if i != 0 else chans[i] * multi_output
-            layers = [ConvTranspose2d(chans[i + 1] * 2, out_ch, (k, transpose_t_size),
+            layers = [ConvTranspose2d(chans[i + 1] * (1 if skip_conv else 2), out_ch,
+                                      (k, transpose_t_size),
                                       stride=(s, stride_t[i]),
                                       dilation=(dilation_f[i], dilation_t[i]),
                                       padding=(p, 0), output_padding=(s - k + 2 * p, 0),
@@ -97,6 +106,11 @@ class Unet(nn.Module):
             if i != 0:
                 layers += [norm(chans[i], **fk), mk_act()]
             self.cnn_up.append(nn.Sequential(*layers))
+        if skip_conv:
+            self.skip_cnn = nn.ModuleList(
+                nn.Sequential(Conv2d(chans[i + 1], chans[i + 1], (1, 1), generator=g, **fk),
+                              mk_act())
+                for i in reversed(range(n)))
 
     @property
     def num_freq(self) -> int:
@@ -133,10 +147,18 @@ class Unet(nn.Module):
     def _up(self, x, skips):
         trim = self.transpose_t_size - 1
         for i, seq in enumerate(self.cnn_up):
-            x = seq(torch.cat([x, skips[-i - 1]], dim=1))
+            if self.skip_conv:
+                x = seq(x + self.skip_cnn[i](skips[-i - 1]))
+            else:
+                x = seq(torch.cat([x, skips[-i - 1]], dim=1))
             if trim:
                 x = x[..., trim:] if self.transpose_delay else x[..., :-trim]
         return x
+
+    def bottleneck_dim(self) -> int:
+        """Channels x frequencies of the bottleneck, the width of the
+        flattened features UnetTcn / UnetFsmn run on."""
+        return self._stream_freqs()[-1] * self._chans[-1]
 
     def shape_info(self):
         """(down-path freqs, up-path freqs)."""
@@ -160,8 +182,8 @@ class Unet(nn.Module):
     # ------------------------------------------------------------- streaming
     def causal_streamable(self) -> bool:
         """Chunked streaming needs a 1-frame conv context per down layer
-        (time kernel 2, stride 1, no per-layer delay) and transpose_t_size 2;
-        the plain Unet streams one output only, as JAX's (`unet.py:200-207`),
+        (time kernel 2, stride 1, no per-layer delay), transpose_t_size 2
+        and no skip_conv; the plain Unet streams one output only, as JAX's (`unet.py:200-207`),
         while the dual-path models stream M (`DualPathStreaming`)."""
         return self._conv_streamable() and self.multi_output == 1
 
@@ -170,7 +192,7 @@ class Unet(nn.Module):
                 and all(s == 1 for s in self.stride_t)
                 and all(d == 1 for d in self.dilation_t)
                 and all(d == 0 for d in self.delay)
-                and self.transpose_t_size == 2)
+                and self.transpose_t_size == 2 and not self.skip_conv)
 
     @property
     def stream_delay_frames(self) -> int:
@@ -189,7 +211,7 @@ class Unet(nn.Module):
                                 device=None) -> dict:
         if not self.causal_streamable():
             raise ValueError("streaming needs time kernels 2, strides/dilations "
-                             "1, no delay, transpose_t_size 2")
+                             "1, no delay, transpose_t_size 2, no skip_conv")
         freqs, chans, n = self._stream_freqs(), self._chans, self._n_cnn
         z = lambda *s: torch.zeros(s, device=device, dtype=dtype)
         state = {"down": [z(batch, chans[i], freqs[i]) for i in range(n)],
@@ -239,3 +261,164 @@ class Unet(nn.Module):
                 y = seq[2](apply_norm(seq[1], y))
             h = y
         return self._unpack_output(h), new_up, new_skipq
+
+
+def _unit_dvec(dvec: Optional[torch.Tensor], embed_norm: bool) -> Optional[torch.Tensor]:
+    """The d-vector L2-normalised (norm clipped at 1e-12) under `embed_norm`
+    (JAX `unet.py:343`)."""
+    if embed_norm and dvec is not None:
+        dvec = dvec / torch.linalg.norm(dvec, dim=1, keepdim=True).clamp_min(1e-12)
+    return dvec
+
+
+class _BottleneckUnet(Unet):
+    """A Unet whose bottleneck, flattened to [N, ch * F, T], runs through
+    `_bottleneck` (offline) or `_stream_bottleneck` (a streaming chunk)."""
+
+    def forward(self, x: torch.Tensor, dvec: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dvec = _unit_dvec(dvec, self.embed_norm)
+        h, skips = self._down(self._pack_input(x))
+        N, ch, F, T = h.shape
+        h = self._bottleneck(h.reshape(N, ch * F, T), dvec).reshape(N, ch, F, T)
+        return self._unpack_output(self._up(h, skips))
+
+    def init_stream_state(self, batch: int, dtype=torch.float32, device=None) -> dict:
+        self.check_streamable()
+        if device is None:
+            device = self.cnn_up[0][0].weight.device
+        state = self._init_unet_stream_state(batch, dtype, device)
+        state[self._carry_key] = self._init_carries(batch, dtype, device)
+        return state
+
+    def stream_frames(self, x: torch.Tensor, state: dict,
+                      dvec: Optional[torch.Tensor] = None):
+        """One streaming chunk: x [B, C, K] -> (mask [B, C, K], new state).
+        With transpose_delay the mask lags by `stream_delay_frames`:
+        stream[..., t] == offline[..., t - delay] (the first frames are
+        warm-up); without it the stream is frame-exact."""
+        dvec = _unit_dvec(dvec, self.embed_norm)
+        h, skips, new_down = self._stream_down(x, state)
+        B, ch, F, K = h.shape
+        t, carries = self._stream_bottleneck(h.reshape(B, ch * F, K), dvec,
+                                             state[self._carry_key])
+        mask, new_up, new_skipq = self._stream_up(t.reshape(B, ch, F, K), skips, state)
+        new_state = dict(state, down=new_down, up=new_up, **{self._carry_key: carries})
+        if self.transpose_delay:
+            new_state["skipq"] = new_skipq
+        return mask, new_state
+
+
+class UnetTcn(_BottleneckUnet):
+    """Unet with `repeat_tcn` stacks of `per_tcn_stack` TCN (`tcn_layer`
+    "normal") or GatedTCN ("gated") blocks over the flattened bottleneck;
+    block i of a stack takes the d-vector where tcn_with_embed[i] (FiLM-ed,
+    for a gated block, under `tcn_use_film`). `tcn_list.{r}.{i}` as
+    PureSound names it. x [N, C, T] (+ dvec [N, E]) -> mask [N, C, T]."""
+
+    _carry_key = "tcn"
+
+    def __init__(self, embed_dim: int = 0, embed_norm: bool = False,
+                 tcn_layer: str = "normal", tcn_kernel: int = 3, tcn_dim: int = 256,
+                 tcn_dilated_basic: int = 2, per_tcn_stack: int = 5, repeat_tcn: int = 4,
+                 tcn_with_embed: Sequence[int] = (1, 0, 0, 0, 0),
+                 tcn_use_film: bool = False, tcn_norm: str = "gLN",
+                 dconv_norm: str = "gGN", causal: bool = False, *, device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None,
+                 **unet):
+        g = generator_or_default(generator)
+        super().__init__(**unet, device=device, dtype=dtype, generator=g)
+        self.embed_norm, self.causal = embed_norm, causal
+        self.tcn_with_embed = tuple(tcn_with_embed)
+        self.tcn_list = tcn_stacks(self.bottleneck_dim(), tcn_layer, tcn_kernel, tcn_dim,
+                                   tcn_dilated_basic, per_tcn_stack, repeat_tcn,
+                                   self.tcn_with_embed, embed_dim, tcn_norm, dconv_norm,
+                                   causal, tcn_use_film, device=device, dtype=dtype,
+                                   generator=g)
+
+    def _blocks(self, dvec):
+        """(block, its embedding or None) in order."""
+        for stack in self.tcn_list:
+            for i, layer in enumerate(stack):
+                yield layer, dvec if self.tcn_with_embed[i] else None
+
+    def _bottleneck(self, x, dvec):
+        for layer, e in self._blocks(dvec):
+            x = layer(x, e) if e is not None else layer(x)
+        return x
+
+    def check_streamable(self) -> None:
+        """Raise a ValueError unless this masker streams: causal blocks and
+        the causal Unet layers (JAX asserts it in `init_stream_state`,
+        `unet.py:360`)."""
+        if not self.causal:
+            raise ValueError("streaming needs a causal UnetTcn (causal TCN blocks); "
+                             "this one is not causal")
+        if not self.causal_streamable():
+            raise ValueError("streaming needs time kernels 2, strides/dilations 1, no "
+                             "delay, transpose_t_size 2, no skip_conv")
+
+    def _init_carries(self, batch, dtype, device):
+        return [layer.init_ctx(batch, dtype, device) for layer, _ in self._blocks(None)]
+
+    def _stream_bottleneck(self, t, dvec, ctxs):
+        new = []
+        for (layer, e), ctx in zip(self._blocks(dvec), ctxs):
+            t, ctx = layer.step_chunk(t, e, ctx)
+            new.append(ctx)
+        return t, new
+
+
+class UnetFsmn(_BottleneckUnet):
+    """Unet with `num_fsmn` FSMN layers over the flattened bottleneck, the
+    memory handed from layer to layer; layer i is a ConditionFSMN (the
+    d-vector by FiLM under `use_film`, else concat-projected) where
+    fsmn_with_embed[i]. `fsmn_list.{i}`. x [N, C, T] (+ dvec) -> mask."""
+
+    _carry_key = "fsmn"
+
+    def __init__(self, embed_dim: int = 0, embed_norm: bool = False,
+                 fsmn_l_context: int = 3, fsmn_r_context: int = 0, fsmn_dim: int = 256,
+                 num_fsmn: int = 8, fsmn_with_embed: Sequence[int] = (1,) * 8,
+                 fsmn_norm: str = "gLN", use_film: bool = True, *, device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None,
+                 **unet):
+        g = generator_or_default(generator)
+        super().__init__(**unet, device=device, dtype=dtype, generator=g)
+        if num_fsmn != len(fsmn_with_embed):
+            raise ValueError("fsmn_with_embed needs one flag a layer")
+        self.embed_norm, self.fsmn_r_context = embed_norm, fsmn_r_context
+        self.fsmn_with_embed = tuple(fsmn_with_embed)
+        dim = self.bottleneck_dim()
+        fk = dict(norm_type=fsmn_norm, device=device, dtype=dtype, generator=g)
+        self.fsmn_list = nn.ModuleList(
+            ConditionFSMN(dim, dim, fsmn_dim, fsmn_l_context, fsmn_r_context,
+                          embed_dim=embed_dim, use_film=use_film, **fk) if flag else
+            FSMN(dim, dim, fsmn_dim, fsmn_l_context, fsmn_r_context, **fk)
+            for flag in self.fsmn_with_embed)
+
+    def _bottleneck(self, x, dvec):
+        memory = None
+        for flag, layer in zip(self.fsmn_with_embed, self.fsmn_list):
+            x, memory = layer(x, dvec, memory) if flag else layer(x, memory)
+        return x
+
+    def check_streamable(self) -> None:
+        """Raise a ValueError unless this masker streams: causal FSMN layers
+        (r_context 0) and the causal Unet layers (JAX asserts it in
+        `init_stream_state`, `unet.py:447-448`)."""
+        if self.fsmn_r_context:
+            raise ValueError(f"streaming needs causal FSMN layers (fsmn_r_context 0), "
+                             f"not {self.fsmn_r_context}")
+        if not self.causal_streamable():
+            raise ValueError("streaming needs time kernels 2, strides/dilations 1, no "
+                             "delay, transpose_t_size 2, no skip_conv")
+
+    def _init_carries(self, batch, dtype, device):
+        return [layer.init_ctx(batch, dtype, device) for layer in self.fsmn_list]
+
+    def _stream_bottleneck(self, t, dvec, rings):
+        memory, new = None, []
+        for flag, layer, ring in zip(self.fsmn_with_embed, self.fsmn_list, rings):
+            t, memory, ring = layer.step_chunk(t, memory, ring, dvec if flag else None)
+            new.append(ring)
+        return t, new

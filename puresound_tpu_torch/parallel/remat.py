@@ -4,8 +4,9 @@
 `regions(model, mode)` runs every block of the model under
 `torch.utils.checkpoint` (the non-reentrant one, `checkpointed`): the
 encoder, the enrollment's encoder (`encoder_spk`), the speaker net's layers
-and the masker's blocks (the elements of
-its module lists, or its other children), so the backward recomputes them
+and the masker's blocks (the elements of its module lists, or its other
+children: a Unet masker's down / up / skip layers and each TCN, GatedTCN or
+FSMN block of UnetTcn / UnetFsmn), so the backward recomputes them
 one block at a time and holds one block's activations at once. `True`
 keeps only each block's inputs; `"dots"` also keeps the outputs of the
 matrix products and convolutions (`DOT_OPS`, what `checkpoint_dots` keeps)

@@ -1,8 +1,9 @@
 """One-call deployment: model -> ready-to-tick SessionServer.
 
 Counterpart of puresound_tpu/streaming/deploy.py:40 (`make_session_server`):
-the time-domain TSE branch, the STFT-engine (NS) branch and the SIMO (DSS)
-branch (`:119-122, 170-197`), with the pipelined and int16 (pcm16)
+the time-domain TSE branch, the STFT-engine branch (NS, and STFT-domain TSE
+with a speaker net, `:182-188`) and the SIMO (DSS) branch (`:119-122,
+170-197`), with the pipelined and int16 (pcm16)
 transports (`:199-246`), and `run_serve` (`:247-285`), the recipes'
 `--action serve`: the server behind the TCP front of `socket_server`. The
 server owns a copy of the model (cast to bfloat16 when `half`), so the
@@ -22,6 +23,7 @@ from ..nnet.encoder import FreeEncDec
 from .engine import StreamingTSE
 from .file_eval import build_engine, check_chunk_frames, engine_step_options
 from .halfprec import to_half
+from .ns_engine import StreamingNS
 from .server import SessionServer, infer_slot_axes
 from .simo_engine import StreamingDSS
 
@@ -51,8 +53,9 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
                         pcm16: bool = False,
                         pcm16_scale: float = 8192.0) -> ServingBundle:
     """Build a SessionServer for a SoTaskWrapModule, TSE (FreeEncDec +
-    SkiM or causal ConvTasNet + speaker net) or NS (ConvEncDec + DPCRN /
-    DPARN), or for the DSS SiMoTaskWrapModule (ConvEncDec + DPARN_Mout),
+    SkiM or causal ConvTasNet + speaker net, or ConvEncDec + causal UnetTcn
+    + speaker net) or NS (ConvEncDec + DPCRN / DPARN), or for the DSS
+    SiMoTaskWrapModule (ConvEncDec + DPARN_Mout),
     whose step returns its M sources sample-interleaved, [B, S * M] (sample
     s of source m at s * M + m), so that they ride each slot's one output
     ring; `n_sources` of the bundle is the engine's M.
@@ -164,7 +167,10 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
             device=device, dtype=dt)
         from_dev = lambda y: y.float()
     embed_fn = embed_dim = None
-    if isinstance(engine, StreamingTSE):
+    stft_tse = isinstance(engine, StreamingNS) and engine.speaker_net is not None
+    if isinstance(engine, StreamingTSE) or stft_tse:
+        # a session attaches by its enrollment (or a d-vector): the
+        # time-domain and the STFT-domain TSE engines alike
         def embed_fn(enroll):
             with torch.no_grad():
                 x = torch.as_tensor(np.asarray(enroll, np.float32), device=device)
@@ -173,9 +179,16 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
         probe = embed_fn(np.zeros((1, enroll_len or 5 * sr), np.float32))
         embed_dim = int(probe.shape[-1])
 
+    if isinstance(engine, StreamingTSE):
         def step_fn(chunk_b, dvec, st, **options):
             with torch.no_grad():
                 out, st = engine.step(to_dev(chunk_b), dvec.to(dt), st, **step_kw,
+                                      **options)
+                return from_dev(out), st
+    elif stft_tse:
+        def step_fn(chunk_b, dvec, st, **options):
+            with torch.no_grad():
+                out, st = engine.step(to_dev(chunk_b), st, dvec.to(dt), **step_kw,
                                       **options)
                 return from_dev(out), st
     elif isinstance(engine, StreamingDSS):

@@ -3,7 +3,9 @@ puresound_tpu/streaming/file_eval.py): run a waveform through a streaming
 engine in real-time-sized chunks and report the real-time factor
 (`stream_signal`, the recipes' `stream_eval`), the output delay, the kernel
 flags' validation, and the engine matching an offline wrapper: StreamingTSE,
-StreamingNS, or StreamingDSS for a SIMO wrapper."""
+StreamingNS (with the speaker net of an STFT-domain TSE model, whose
+d-vector `stream_signal` passes to every step), or StreamingDSS for a SIMO
+wrapper."""
 from __future__ import annotations
 
 import time
@@ -14,6 +16,7 @@ import torch
 
 from ..nnet.base_nn import SiMoTaskWrapModule
 from ..nnet.dparn import _DPARNBase
+from ..nnet.dual_path_streaming import DualPathStreaming
 from ..nnet.encoder import ConvEncDec, FreeEncDec
 from .engine import StreamingTSE
 from .halfprec import to_half
@@ -53,6 +56,10 @@ def engine_step_options(engine, fused: bool = False, dp_kernel: bool = False,
     if mk_kernel and not hasattr(engine.masker, "center_kernel_chunk"):
         raise ValueError("mk_kernel requires a DPCRN or DPARN masker "
                          f"(got {type(engine.masker).__name__})")
+    if ((fused or attn_kernel) and isinstance(engine, StreamingNS)
+            and not isinstance(engine.masker, DualPathStreaming)):
+        raise ValueError("fused / attn_kernel apply to DPCRN / DPARN maskers, not "
+                         f"{type(engine.masker).__name__}")
     if attn_kernel and not isinstance(engine.masker, _DPARNBase):
         raise ValueError("attn_kernel requires a DPARN masker "
                          f"(got {type(engine.masker).__name__})")

@@ -5,7 +5,13 @@ A causal STFT-domain masker runs as a chunked stateful step batched over
 streams: the analysis keeps an (n_fft - hop) sample tail, the masker its
 1-frame conv contexts and recurrent carries, the overlap-add an (n_fft -
 hop) sample tail. Output lags input by n_fft - hop samples (24 ms at
-512/128), plus `masker.stream_delay_frames * hop` with transpose_delay.
+512/128), plus `masker.stream_delay_frames * hop` with transpose_delay
+(the UnetTcn models' 6 frames: 768 samples, 1,152 in all).
+
+With a speaker net the engine serves STFT-domain TSE (the causal
+UnetTcn): `embed` the enrollment once, then pass the d-vector to every
+`step`. A masker that cannot stream (a non-causal UnetTcn, a UnetFsmn with
+right context) is refused with a ValueError when the engine is built.
 
 Equivalence contract (tested): streamed chunks of x equal offline
 `inference` on [zeros(n_fft - hop), x] delayed by the masker's stream
@@ -19,27 +25,33 @@ import torch
 from torch import nn
 
 from ..dsp.stft import overlap_add, periodic_hann_sumsquare
-from ..nnet.base_nn import apply_tf_masks, get_mask, wav_output_constrain
+from ..nnet.base_nn import (apply_tf_masks, get_mask, ri_concat, run_speaker_net,
+                            wav_output_constrain)
 from ..nnet.encoder import ConvEncDec
+
+
+def _asked(**flags) -> dict:
+    return {k: True for k, v in flags.items() if v}
 
 
 class StreamingNS(nn.Module):
     """Streaming wrapper over the offline wrapper's submodules (so its
     state_dict names) for a ConvEncDec encoder and a masker with
-    `init_stream_state` / `stream_frames`."""
+    `init_stream_state` / `stream_frames`, and the speaker net (and
+    `encoder_spk`) of an STFT-domain TSE model."""
 
     def __init__(self, encoder: ConvEncDec, masker: nn.Module, speaker_net=None,
                  mask_constraint: str = "linear", output_constraint: str = "linear",
                  drop_first_bin: bool = True, f_type: str = "Complex",
-                 mask_type: str = "Complex"):
+                 mask_type: str = "Complex", encoder_spk: Optional[nn.Module] = None):
         super().__init__()
         if not isinstance(encoder, ConvEncDec):
             raise TypeError("StreamingNS requires a ConvEncDec (STFT) encoder")
-        if speaker_net is not None:
-            raise NotImplementedError(
-                "STFT-domain TSE streaming (a speaker net) needs UnetTcn, not "
-                "ported yet (ROADMAP queue 1 item 5b)")
-        self.encoder, self.masker = encoder, masker
+        check = getattr(masker, "check_streamable", None)
+        if check is not None:
+            check()
+        self.encoder, self.masker, self.encoder_spk = encoder, masker, encoder_spk
+        self.speaker_net = nn.ModuleList(speaker_net) if speaker_net is not None else None
         self.mask_constraint, self.output_constraint = mask_constraint, output_constraint
         self.drop_first_bin, self.f_type, self.mask_type = drop_first_bin, f_type, mask_type
 
@@ -48,7 +60,18 @@ class StreamingNS(nn.Module):
         """The engine over an offline SoTaskWrapModule's submodules."""
         return cls(model.encoder, model.masker, model.speaker_net,
                    model.mask_constraint, model.output_constraint,
-                   model.drop_first_bin, model.f_type, model.mask_type)
+                   model.drop_first_bin, model.f_type, model.mask_type,
+                   model.encoder_spk)
+
+    def embed(self, enroll: torch.Tensor) -> torch.Tensor:
+        """Enrollment waveform [B, L] -> speaker embedding [B, E] (RI-concat
+        features, the first bin dropped with `drop_first_bin`, through the
+        speaker net; JAX `ns_engine.py:90-106`)."""
+        enc = self.encoder_spk if self.encoder_spk is not None else self.encoder
+        feats = enc(enroll)
+        if isinstance(enc, ConvEncDec):
+            feats = ri_concat(feats, self.drop_first_bin)
+        return run_speaker_net(self.speaker_net, feats).squeeze(-1)
 
     @property
     def _mask_delay(self) -> int:
@@ -67,11 +90,10 @@ class StreamingNS(nn.Module):
         if device is None:
             device = self.encoder.encoder.wsin.device
         z = lambda *s: torch.zeros(s, device=device, dtype=dtype)
+        routes = _asked(dp_kernel=dp_kernel, mk_kernel=mk_kernel)
         state = {"enc_tail": z(batch, n_fft - hop), "ola_tail": z(batch, n_fft - hop),
                  "wsum": torch.from_numpy(periodic_hann_sumsquare(n_fft, hop)).to(device),
-                 "masker": self.masker.init_stream_state(batch, dtype, device,
-                                                         dp_kernel=dp_kernel,
-                                                         mk_kernel=mk_kernel)}
+                 "masker": self.masker.init_stream_state(batch, dtype, device, **routes)}
         if self._mask_delay > 0:
             # a lookahead masker emits mask[t - delay] at t: delay the
             # features to pair each mask with its own frame
@@ -89,11 +111,8 @@ class StreamingNS(nn.Module):
         dp_kernel=True a DPCRN's whole bottleneck through `dual_path_chunk`
         and mk_kernel=True the six stride-1 inner layers through the
         wide-center kernel (state from init_state(dp_kernel=True) /
-        init_state(mk_kernel=True)). Returns ([B, S], new state)."""
-        if dvec is not None:
-            raise NotImplementedError(
-                "STFT-domain TSE streaming is not ported yet (ROADMAP queue 1 "
-                "item 5b: UnetTcn)")
+        init_state(mk_kernel=True)). `dvec` [B, E], the speaker embedding of
+        each stream, conditions a TSE masker. Returns ([B, S], new state)."""
         if sum(map(bool, (fused, dp_kernel, mk_kernel))) > 1:
             raise ValueError("fused / dp_kernel / mk_kernel are mutually exclusive")
         n_fft, hop = self.encoder.fft_length, self.encoder.hop_length
@@ -104,9 +123,14 @@ class StreamingNS(nn.Module):
 
         buf = torch.cat([state["enc_tail"], chunk.to(state["enc_tail"].dtype)], dim=-1)
         ri = self.encoder.encoder.stream_analysis_ri(buf, K, self.drop_first_bin)
-        mask, masker_state = self.masker.stream_frames(
-            ri, state["masker"], fused=fused, dp_kernel=dp_kernel, int8_hh=int8_hh,
-            attn_kernel=attn_kernel, xscr_half=xscr_half, mk_kernel=mk_kernel)
+        # only the routes asked for reach the masker (a UnetTcn takes none)
+        routes = _asked(fused=fused, dp_kernel=dp_kernel, int8_hh=int8_hh,
+                        attn_kernel=attn_kernel, xscr_half=xscr_half, mk_kernel=mk_kernel)
+        if dvec is not None:
+            mask, masker_state = self.masker.stream_frames(ri, state["masker"],
+                                                           dvec.to(ri.dtype), **routes)
+        else:
+            mask, masker_state = self.masker.stream_frames(ri, state["masker"], **routes)
         mask = get_mask(mask, self.mask_constraint)
         feats, new_feat_q = ri, None
         if self._mask_delay > 0:

@@ -5,8 +5,9 @@ port keeps PureSound's module and parameter names, so the flax tree maps
 onto them one module type at a time. Leaves may be numpy or jax arrays
 (anything `np.asarray` takes); this module never imports jax.
 
-    sd = from_jax(variables)               # a whole TSE (SkiM, ConvTasNet, DPRNN) / NS
-                                           # wrapper or the DSS SIMO one
+    sd = from_jax(variables)               # a whole TSE (SkiM, ConvTasNet, DPRNN,
+                                           # UnetTcn / UnetFsmn) / NS wrapper or the
+                                           # DSS SIMO one
     model.load_state_dict(sd)
     grads = params_by_name(jax_grads)      # {name: array} like the params
     model.load_state_dict(for_model(sd, model))   # a checkpoint with extra keys
@@ -80,9 +81,10 @@ def norm(p, s=None, kind: str = "gLN") -> Flat:
 
 
 def lstm(p) -> Flat:
-    """LSTM `fwd` (and `bwd`, torch's `*_reverse` set) LSTMCellParams."""
+    """LSTM `fwd` (and `bwd`, torch's `*_reverse` set) LSTMCellParams, or a
+    GRU's / RNN's `cell_f` (and `cell_b`): the same four tensors."""
     out = {}
-    for d, sfx in (("fwd", ""), ("bwd", "_reverse")):
+    for d, sfx in (("fwd", ""), ("bwd", "_reverse"), ("cell_f", ""), ("cell_b", "_reverse")):
         if d in p:
             c = p[d]
             out.update({f"weight_ih_l0{sfx}": _a(c["w_ih"]).T.copy(),
@@ -101,17 +103,24 @@ def _sub(tree: Optional[Mapping], key: str):
     return tree.get(key) if tree else None
 
 
+def _conv_norm_act(p, s, name: str, prefix: str, norm_kind: str) -> Flat:
+    """flax's `{name}_conv` / `_norm` / `_act` -> PureSound's Sequential
+    `{prefix}.0` / `.1` / `.2`."""
+    return _merge(_prefix(f"{prefix}.0", conv1d(p[f"{name}_conv"])),
+                  _prefix(f"{prefix}.1", norm(p[f"{name}_norm"], _sub(s, f"{name}_norm"),
+                                              norm_kind)),
+                  _prefix(f"{prefix}.2", prelu(p[f"{name}_act"])))
+
+
 def dsconv(p, s=None, norm_kind: str = "gGN") -> Flat:
-    if "in_conv" in p or "skip_conv" in p:
-        raise NotImplementedError(
-            "DSConv 1x1-in / skip (GatedTCN's) is not ported yet (ROADMAP queue 1 item "
-            "5b(iii): the UnetTcn models)")
-    return _merge(*(
-        _merge(_prefix(f"{prefix}.0", conv1d(p[f"{name}_conv"])),
-               _prefix(f"{prefix}.1", norm(p[f"{name}_norm"],
-                                           _sub(s, f"{name}_norm"), norm_kind)),
-               _prefix(f"{prefix}.2", prelu(p[f"{name}_act"])))
-        for name, prefix in (("dw", "depthwise"), ("pw", "pointwise"))))
+    """DepthwiseSeparableConv1d, with the 1x1-in (`in_conv`) and the skip
+    (`skip_conv`) where the tree has them."""
+    parts = [_conv_norm_act(p, s, name, prefix, norm_kind)
+             for name, prefix in (("in", "in_conv"), ("dw", "depthwise"), ("pw", "pointwise"))
+             if f"{name}_conv" in p]
+    if "skip_conv" in p:
+        parts.append(_prefix("skip_conv", conv1d(p["skip_conv"])))
+    return _merge(*parts)
 
 
 def tcn(p, s=None, tcn_norm: str = "gLN", dconv_norm: str = "gGN") -> Flat:
@@ -121,6 +130,32 @@ def tcn(p, s=None, tcn_norm: str = "gLN", dconv_norm: str = "gGN") -> Flat:
         _prefix("in_conv.2", prelu(p["in_act"])),
         _prefix("dconv.0", dsconv(p["dconv"], _sub(s, "dconv"), dconv_norm)),
         _prefix("out_conv", conv1d(p["out_conv"])))
+
+
+def gated_tcn(p, s=None, tcn_norm: str = "gLN") -> Flat:
+    """GatedTCN: `left_conv` / `right_conv` are Sequential(conv, norm,
+    PReLU); FiLM's `cond_scale` / `cond_bias` where the tree has them."""
+    return _merge(*(_prefix(k, conv1d(p[k])) for k in ("in_conv", "out_conv", "cond_scale",
+                                                       "cond_bias") if k in p),
+                  *(_conv_norm_act(p, s, side, f"{side}_conv", tcn_norm)
+                    for side in ("left", "right")))
+
+
+def tcn_block(p, s=None) -> Flat:
+    """A TCN or a GatedTCN block, told apart by its keys."""
+    return tcn(p, s) if "dconv" in p else gated_tcn(p, s)
+
+
+def fsmn(p, s=None, norm_kind: str = "gLN") -> Flat:
+    """FSMN / ConditionFSMN: flax's raw kernels -> the 1x1 / depthwise convs
+    `in_proj`, `ctx_conv`, `out_proj` (+ `embed_proj`, or FiLM's
+    `cond_scale` / `cond_bias`) and `out_norm`."""
+    names = {"in_proj_w": "in_proj.weight", "ctx_w": "ctx_conv.weight",
+             "out_proj_w": "out_proj.weight", "out_proj_b": "out_proj.bias",
+             "embed_proj_w": "embed_proj.weight", "cond_scale_w": "cond_scale.weight",
+             "cond_bias_w": "cond_bias.weight"}
+    return _merge({names[k]: _a(v) for k, v in p.items() if k in names},
+                  _prefix("out_norm", norm(p["out_norm"], _sub(s, "out_norm"), norm_kind)))
 
 
 def film(p) -> Flat:
@@ -183,23 +218,25 @@ def free_encdec(p) -> Flat:
 
 
 def single_rnn(p) -> Flat:
-    return _merge(_prefix("rnn", lstm(p["rnn"])), _prefix("proj", linear(p["proj"])))
+    """SingleRNN: an LSTM's cells under `rnn`, a GRU's / RNN's `cell_f` /
+    `cell_b` beside `proj` (JAX `rnn.py:305-312`); PureSound's `rnn`."""
+    return _merge(_prefix("rnn", lstm(p.get("rnn", p))), _prefix("proj", linear(p["proj"])))
 
 
 def speaker_net_layer(p, s=None) -> Flat:
-    """A speaker-net layer with parameters: TCN, ASP, the 1x1 conv or the
-    SingleRNN LSTM (`tse_skim_v1_causal`'s)."""
+    """A speaker-net layer with parameters: TCN, GatedTCN (the Unet speaker
+    net's), ASP, the 1x1 conv or the SingleRNN (`tse_skim_v1_causal`'s)."""
     if "dconv" in p:
         return tcn(p, s)
+    if "left_conv" in p:
+        return gated_tcn(p, s)
     if "tdnn_conv" in p:
         return asp(p, s)
-    if "rnn" in p:
+    if "rnn" in p or "cell_f" in p:
         return single_rnn(p)
     if "w" in p:
         return conv1d(p)
-    raise NotImplementedError(
-        f"speaker-net layer with keys {sorted(p)} (GatedTCN, the UnetTcn models' speaker "
-        "net, waits for ROADMAP queue 1 item 5b(iii))")
+    raise NotImplementedError(f"speaker-net layer with keys {sorted(p)}")
 
 
 def fbank_enc(p) -> Flat:
@@ -215,12 +252,15 @@ def speaker_loss(p) -> Flat:
 
 
 def _tse_wrapper(variables: Mapping, masker: Flat) -> Flat:
-    """A time-domain TSE SoTaskWrapModule around its masker's tensors: the
-    FreeEncDec, the speaker net, and the speaker loss's parameters where the
-    tree has them."""
+    """A TSE SoTaskWrapModule around its masker's tensors: the FreeEncDec
+    (or the STFT-domain models' ConvEncDec), the speaker net, and the speaker
+    loss's parameters where the tree has them."""
     p = variables["params"]
     s = variables.get("batch_stats", {})
-    parts = [_prefix("encoder", free_encdec(p["encoder"])), _prefix("masker", masker)]
+    enc = p["encoder"]
+    encoder = (free_encdec(enc) if "enc_w" in enc
+               else _prefix("encoder", conv_stft(enc["encoder"])))
+    parts = [_prefix("encoder", encoder), _prefix("masker", masker)]
     if "encoder_spk" in p:
         parts.append(_prefix("encoder_spk", fbank_enc(p["encoder_spk"])))
     if "loss_func_spk" in p:
@@ -237,10 +277,11 @@ def so_wrapper_tse_skim(variables: Mapping) -> Flat:
 
 
 def conv_tasnet(p, s=None) -> Flat:
-    """ConvTasNet's blocks: flax's `tcn_list_{r}_{i}` -> `tcn_list.{r}.{i}`
-    (BatchNorm's running statistics from `s`)."""
+    """ConvTasNet's (or UnetTcn's) blocks: flax's `tcn_list_{r}_{i}` ->
+    `tcn_list.{r}.{i}`, TCN or GatedTCN (BatchNorm's running statistics
+    from `s`)."""
     return _merge(*(_prefix("tcn_list." + key[len("tcn_list_"):].replace("_", "."),
-                            tcn(p[key], _sub(s, key)))
+                            tcn_block(p[key], _sub(s, key)))
                     for key in p if key.startswith("tcn_list_")))
 
 
@@ -280,13 +321,14 @@ def dprnn_block2d(p) -> Flat:
 def unet_updown(p, s=None) -> Flat:
     """The Unet's conv stacks in PureSound's Sequential layout: cnn_down[i]
     = [pad, Conv2d, norm, act, dropout], cnn_up[j] = [ConvTranspose2d, norm,
-    act]."""
+    act], skip_cnn[j] = [Conv2d, act] (`skip_conv`)."""
     parts = []
     for key in p:
         kind, _, i = key.rpartition("_")
         slot = {"cnn_down": ("cnn_down", 1), "down_norm": ("cnn_down", 2),
                 "down_act": ("cnn_down", 3), "cnn_up": ("cnn_up", 0),
-                "up_norm": ("cnn_up", 1), "up_act": ("cnn_up", 2)}.get(kind)
+                "up_norm": ("cnn_up", 1), "up_act": ("cnn_up", 2),
+                "skip_cnn": ("skip_cnn", 0), "skip_act": ("skip_cnn", 1)}.get(kind)
         if slot is None:
             continue
         name = f"{slot[0]}.{i}.{slot[1]}"
@@ -297,6 +339,27 @@ def unet_updown(p, s=None) -> Flat:
         else:
             parts.append(_prefix(name, conv1d(p[key])))
     return _merge(*parts)
+
+
+def unet_tcn(p, s=None) -> Flat:
+    """UnetTcn: the Unet's stacks and the nested `tcn_list.{r}.{i}`."""
+    return _merge(unet_updown(p, s), conv_tasnet(p, s))
+
+
+def unet_fsmn(p, s=None) -> Flat:
+    """UnetFsmn: the Unet's stacks and `fsmn_list.{i}`."""
+    return _merge(unet_updown(p, s),
+                  *(_prefix(f"fsmn_list.{key.rpartition('_')[2]}", fsmn(p[key], _sub(s, key)))
+                    for key in p if key.startswith("fsmn_list_")))
+
+
+def so_wrapper_tse_unet(variables: Mapping) -> Flat:
+    """An STFT-domain TSE SoTaskWrapModule (ConvEncDec + UnetTcn / UnetFsmn
+    + the speaker net) or its StreamingNS."""
+    masker = variables["params"]["masker"]
+    s = variables.get("batch_stats", {}).get("masker")
+    fn = unet_fsmn if "fsmn_list_0" in masker else unet_tcn
+    return _tse_wrapper(variables, fn(masker, s))
 
 
 def dpcrn(p, s=None) -> Flat:
@@ -370,11 +433,15 @@ def params_by_name(tree: Mapping) -> Flat:
 
 def flat_from_jax(variables: Mapping) -> Flat:
     """flax variables ({"params", "batch_stats"}) of a TSE (FreeEncDec +
-    SkiM, ConvTasNet or DPRNN; a trainable FbankEnc `encoder_spk`) or NS (ConvEncDec + DPCRN / DPARN) SoTaskWrapModule,
-    of the DSS SiMoTaskWrapModule (ConvEncDec + DPARN_Mout), or of their
-    streaming engines -> {state_dict name: np.ndarray}, told apart by the
-    masker's keys (a DPARN and a DPARN_Mout share their names)."""
+    SkiM, ConvTasNet or DPRNN; a trainable FbankEnc `encoder_spk`; ConvEncDec
+    + UnetTcn / UnetFsmn) or NS (ConvEncDec + DPCRN / DPARN)
+    SoTaskWrapModule, of the DSS SiMoTaskWrapModule (ConvEncDec +
+    DPARN_Mout), or of their streaming engines -> {state_dict name:
+    np.ndarray}, told apart by the masker's keys (a DPARN and a DPARN_Mout
+    share their names)."""
     masker = variables["params"]["masker"]
+    if "cnn_down_0" in masker and ("tcn_list_0_0" in masker or "fsmn_list_0" in masker):
+        return so_wrapper_tse_unet(variables)
     if "tcn_list_0_0" in masker:
         return so_wrapper_td_conv_tasnet(variables)
     if "intra_rnn_0" in masker:

@@ -4,10 +4,10 @@ one), `tse_skim_v1_causal` (a BiLSTM speaker net, `:172-189`),
 `tse_skim_v2_causal` (FbankEnc + SpecAugment + TCN speaker net,
 `:191-210`), the PVAD model `tse_skim_v0_causal_vad` (`:212-224`), the
 Conv-TasNet models `td_tse_conv_tasnet_v0` / `_causal` (`:94-121`), the
-embedding-free DPRNN `veve_dprnn_v0_causal` (`:226-237`), `init_loss`
-(`:33`) with every loss of the JAX package's, and `cross_entropy` (`:25`).
-The STFT-domain UnetTcn models are still JAX-only (ROADMAP queue 1 item
-5b(iii))."""
+embedding-free DPRNN `veve_dprnn_v0_causal` (`:226-237`), the STFT-domain
+UnetTcn models `tse_unet_tcn_v0` / `_v0_causal` / `_v1` (`:123-155`),
+`init_loss` (`:33`) with every loss of the JAX package's, and
+`cross_entropy` (`:25`)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,26 +15,29 @@ from typing import Optional
 import torch
 
 from ..nnet.base_nn import SoTaskWrapModule
-from ..nnet.conv_tasnet import TCN, ConvTasNet
+from ..nnet.conv_tasnet import TCN, ConvTasNet, GatedTCN
 from ..nnet.dprnn import DPRNN
-from ..nnet.encoder import FbankEnc, FreeEncDec
+from ..nnet.encoder import ConvEncDec, FbankEnc, FreeEncDec
 from ..nnet.lobe.cnn import Conv1d
 from ..nnet.lobe.pooling import AttentiveStatisticsPooling
 from ..nnet.lobe.rnn import SingleRNN
-from ..nnet.lobe.trivial import SpecAugment
+from ..nnet.lobe.trivial import Magnitude, SpecAugment
 from ..nnet.loss.aamsoftmax import AAMsoftmax
 from ..nnet.loss.metrics import F1Loss, GE2ELoss, TripletLoss
 from ..nnet.loss.sdr import SDRLoss
 from ..nnet.loss.stft_loss import MultiResolutionSTFTLoss, over_suppression_loss
 from ..nnet.skim import SkiM
+from ..nnet.unet import UnetTcn
 from ..utils.init import generator_or_default
 
 #: zoo names of the JAX package that this port does not build yet
-JAX_ONLY = ("tse_unet_tcn_v0", "tse_unet_tcn_v0_causal", "tse_unet_tcn_v1")
+JAX_ONLY = ()
+#: the STFT-domain TSE models
+UNET_TCN = ("tse_unet_tcn_v0", "tse_unet_tcn_v0_causal", "tse_unet_tcn_v1")
 #: the zoo names this port builds
 PORTED = ("tse_skim_v0_causal", "tse_skim_v0_causal_vad", "td_tse_conv_tasnet_v0",
           "td_tse_conv_tasnet_v0_causal", "tse_skim_v0", "tse_skim_v1_causal",
-          "tse_skim_v2_causal", "veve_dprnn_v0_causal")
+          "tse_skim_v2_causal", "veve_dprnn_v0_causal") + UNET_TCN
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -112,6 +115,37 @@ def _tcn_speaker_net(feat_dim: int, embed_dim: int = 192, tcn_dim: int = 256,
             + _pooled(feat_dim, embed_dim, **fk))
 
 
+def _unet_tcn(name: str, losses: dict, **fk):
+    """The STFT-domain TSE models (JAX `zoo/tse.py:123-155`): a trainable
+    512-point STFT (hop 128), a 6-layer Unet (transpose_delay: 6 frames of
+    lookahead, 1,152 samples with the overlap-add) around 3 x 5 GatedTCN
+    blocks on the 128 x 4 = 512-wide bottleneck, the first of each stack
+    taking the d-vector (by FiLM in v1); the speaker net the RI enrollment's
+    magnitude through 5 GatedTCN(256, 128), ASP and a 1x1 conv. The causal
+    model's masker norms are BatchNorm."""
+    causal = name.endswith("causal")
+    return SoTaskWrapModule(
+        encoder=ConvEncDec(fft_length=512, win_type="hann", win_length=512, hop_length=128,
+                           trainable=True, output_format="Complex", device=fk["device"],
+                           dtype=fk["dtype"]),
+        masker=UnetTcn(
+            embed_dim=192, embed_norm=True, input_type="RI", input_dim=512,
+            activation_type="PReLU", norm_type="bN2d" if causal else "gLN",
+            channels=(1, 32, 64, 128, 128, 128, 128), transpose_t_size=2,
+            transpose_delay=True, skip_conv=False, kernel_t=(2,) * 6, kernel_f=(5,) * 6,
+            stride_t=(1,) * 6, stride_f=(2,) * 6, dilation_t=(1,) * 6,
+            dilation_f=(1,) * 6, delay=(0,) * 6, tcn_layer="gated", tcn_kernel=3,
+            tcn_dim=256, tcn_dilated_basic=2, per_tcn_stack=5, repeat_tcn=3,
+            tcn_with_embed=(1, 0, 0, 0, 0), tcn_norm="bN1d" if causal else "gLN",
+            dconv_norm="bN1d" if causal else "gGN", causal=causal,
+            tcn_use_film=name.endswith("v1"), **fk),
+        speaker_net=([Magnitude(drop_first=False)]
+                     + [GatedTCN(256, 128, 3, dilation=2 ** i, causal=False, tcn_norm="gLN",
+                                 **fk) for i in range(5)]
+                     + _pooled(256, **fk)),
+        mask_constraint="linear", drop_first_bin=True, **losses)
+
+
 def _device(device):
     """None means the card; the CPU only when a caller asks for it."""
     if device is not None:
@@ -130,16 +164,16 @@ def init_model(name: str, sig_loss=None, cls_loss=None, other_loss=None, *,
     """Build a named TSE model in eval mode, on the card unless `device`
     says otherwise. The losses make `forward` the training loss
     (`sig_loss` the waveform loss, `cls_loss` the speaker loss)."""
-    if name in JAX_ONLY:
-        raise NotImplementedError(
-            f"{name!r} is not ported yet (ROADMAP queue 1 item 5b(iii): the STFT-domain "
-            "UnetTcn models)")
     if name not in PORTED:
         raise NameError(name)
     fk = dict(device=_device(device), dtype=dtype,
               generator=generator_or_default(generator))
     losses = dict(loss_func_wav=sig_loss, loss_func_spk=cls_loss,
                   loss_func_others=other_loss)
+    if name in UNET_TCN:
+        # 13,324,533 parameters (v0 and v0_causal; the causal one's 17,792
+        # BatchNorm statistics beside) and 13,177,077 (v1), as JAX counts
+        return _unet_tcn(name, losses, **fk).eval()
     if name in ("td_tse_conv_tasnet_v0", "td_tse_conv_tasnet_v0_causal"):
         # 10,156,311 parameters (v0), as the reference counts; the causal
         # model's masker norms are BatchNorm

@@ -240,10 +240,14 @@ def test_conv_tasnet_step_frames_match_jax_and_offline(sizes):
 
 
 def test_conv_tasnet_streaming_needs_causal_and_normal_blocks():
+    """A non-causal ConvTasNet refuses to stream; gated blocks
+    (`tcn_layer="gated"`, ported) build GatedTCNs, and a causal gated stack
+    streams with both contexts a block."""
     with pytest.raises(ValueError, match="causal"):
         ConvTasNet(**MASKER, **NORMS[False]).init_state(1)
-    with pytest.raises(NotImplementedError, match="GatedTCN"):
-        ConvTasNet(**{**MASKER, "tcn_layer": "gated"})
+    gated = ConvTasNet(**{**MASKER, "tcn_layer": "gated"}, **NORMS[True])
+    assert type(gated.tcn_list[0][0]).__name__ == "GatedTCN"
+    assert set(gated.init_state(1)["ctx"][0]) == {"h", "r"}
 
 
 # -------------------------------------------------- the wrapper, end to end

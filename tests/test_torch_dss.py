@@ -160,13 +160,14 @@ def test_from_jax_simo_wrapper_is_strict(pair):
 
 def test_multi_output_streaming_checks_and_skip_conv():
     """JAX's split: the plain Unet streams one output only, the dual-path
-    models any; skip_conv still raises with its item."""
+    models any; skip_conv (ported) builds and does not stream, as JAX's
+    `causal_streamable`."""
     geo = {k: v for k, v in GEOMS["small"].items() if k not in ("rnn_hidden", "nhead")}
     assert not Unet(**COMMON, **geo).causal_streamable()
     assert Unet(**dict(COMMON, multi_output=1), **geo).causal_streamable()
     assert DPARN_Mout(**COMMON, **GEOMS["small"]).causal_streamable()
-    with pytest.raises(NotImplementedError, match=r"item 5b\(iii\)"):
-        Unet(**COMMON, **geo, skip_conv=True)
+    skip = Unet(**dict(COMMON, multi_output=1), **geo, skip_conv=True)
+    assert len(skip.skip_cnn) == len(skip.cnn_up) and not skip.causal_streamable()
 
 
 def test_simo_inference_matches_jax(pair, rng):

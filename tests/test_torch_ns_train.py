@@ -281,8 +281,8 @@ def test_ns_train_step_matches_jax(rng, kind):
                                    train=True, mutable=["batch_stats"])
             return out, upd["batch_stats"]
 
-        _, jgrads = jax.value_and_grad(loss_fn, has_aux=True)(v["params"])
-        (_, jstats), _ = jax.value_and_grad(loss_fn, has_aux=True)(v["params"])
+        # one call gives both: the gradients and, in the aux, the statistics
+        (_, jstats), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(v["params"])
     state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
     step = make_train_step(model, grad_clip=10.0)
     state, m = step(state, {k: torch.from_numpy(a) for k, a in batch.items()})

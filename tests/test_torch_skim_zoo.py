@@ -517,13 +517,13 @@ def test_jax_checkpoint_reads_into_the_eval_model(name, tmp_path):
 
 
 def test_zoo_names_and_the_mixture_encoder_rule(monkeypatch):
-    """JAX_ONLY holds the three UnetTcn names and raises naming its item;
-    each new name builds on the card by default (raising without one);
-    FbankEnc refuses to be the mixture encoder."""
-    assert zoo.JAX_ONLY == ("tse_unet_tcn_v0", "tse_unet_tcn_v0_causal", "tse_unet_tcn_v1")
-    for name in zoo.JAX_ONLY:
-        with pytest.raises(NotImplementedError, match="5b"):
-            zoo.init_model(name, device="cpu")
+    """JAX_ONLY is empty now that the three UnetTcn names are ported
+    (tests/test_torch_unet_tcn.py); each new name builds on the card by
+    default (raising without one); FbankEnc refuses to be the mixture
+    encoder."""
+    assert zoo.JAX_ONLY == ()
+    assert set(zoo.UNET_TCN) == {"tse_unet_tcn_v0", "tse_unet_tcn_v0_causal",
+                                 "tse_unet_tcn_v1"} and set(zoo.UNET_TCN) <= set(zoo.PORTED)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ZOO + ("veve_dprnn_v0_causal",):
         assert name in zoo.PORTED

@@ -287,8 +287,11 @@ def test_flagship_parameter_count():
                        generator=torch.Generator().manual_seed(0))
     assert sum(p.numel() for p in model.parameters()) == 6_375_440
     assert sum(b.numel() for b in model.buffers()) == 256
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model("tse_unet_tcn_v0", device="cpu")
+    # tse_unet_tcn_v0 is ported: JAX's count (jax.eval_shape of init,
+    # tests/test_torch_unet_tcn.py), 13,372,725 with the 1a config's
+    # 251-class AAM-softmax, the reference's count
+    unet_tcn = init_model("tse_unet_tcn_v0", device="cpu")
+    assert sum(p.numel() for p in unet_tcn.parameters()) == 13_324_533
 
 
 def test_init_model_defaults_to_the_card():
