@@ -311,8 +311,12 @@ weights from a seed):
      concurrent StreamingClients of 2 s and 100 samples each, in lockstep;
      each client holds exactly (sent // chunk) * chunk samples a source and
      is >= 60 dB from the engine stepped outside the server (its step
-     function at the server's batch); exact launches; tick p50 / p99 and
-     underruns from ServeStats;
+     function at the server's batch); the f32 models serve a second round
+     under `cudnn.deterministic`, where every client must equal the engine
+     bit for bit (with cuDNN's default algorithms the Unet's up-convolution
+     makes two calls of the f32 step differ, about 147 dB); exact launches;
+     tick p50 / p99 and underruns from ServeStats (each round's; the default
+     algorithms' are the served path's);
   6i. the shipped `egs/dss/conf/dss_dparn_1a.yaml` through
      `python -m puresound_tpu_torch.egs.dss.main --action train` (paths,
      epochs, workers and seed overridden) on a synthetic manifest with
@@ -329,7 +333,9 @@ weights from a seed):
      the CPU's), `stream_eval` on the stock, `--fused` and `--mk_kernel`
      routes (each source >= 60 dB from the offline inference of the
      zero-primed input) and `--half` (>= 25 dB); exact launches;
-     `export_model` raises;
+     `export_model` writes the five artifacts of a SIMO model, and its
+     loaded FullModel equals the eager inference (within 1e-5 of max|ref|,
+     the same launches);
   6j. the rest of the trainer. Synthetic corpora from the seed (8 coloured
      noises of 2-6 s, 8 RIRs of 0.3 s). The host chain: vctk_dpcrn_1a.yaml
      (noise, RIR early, volume, speed, frequency response), the Conv-TasNet
@@ -397,10 +403,28 @@ weights from a seed):
   7e. their `dev` / `eval` on 6l's checkpoints (RTF), `stream_eval` at 16
      ms for the causal one (>= 60 dB from offline); v0 / v1 refuse to
      stream with a ValueError;
+  7f. the recipes' last actions (`export_phase`): the flagship (f32,
+     seed SEED) through the TSE CLI's `export_model` (`torch.export`, the
+     LSTM and TCN forwards as `puresound_tpu_torch::` ops): export / save
+     seconds an artifact; each artifact loaded with `torch.export.load`,
+     its graph naming the ops; FullModel, SpeakerNet, MaskNet, EncoderNet,
+     decoderNet on seeded card inputs and StreamStep over 40 chunks of 64
+     samples (across a 150-frame segment boundary: its `cond` branch)
+     within 1e-5 of max|ref| of the eager module (bit-equality printed)
+     with the same LSTM / TCN launches; eager and artifact ms (CUDA
+     events); `ns_dpcrn_v0_causal` through the NS CLI's `export_model`, its
+     FullModel the same way; the op's dispatch cost (the unfused B=1
+     streaming step, op against its body called directly, in turns);
+     tSNE's d-vectors on 6 mixtures of 2 speakers, card against CPU (each
+     within cosine 0.9999), and `--action tSNE` through the CLI on the card
+     (where scikit-learn or matplotlib is missing, it raises
+     ModuleNotFoundError after embedding the set, as JAX's would);
+     `probe_lookahead_receptive` of the flagship, card == CPU;
   8. the kernels JSON line (phase 7's launches in `launches_7`, the new
      phases' in `launches_4k` / `_6g` / `_6h` / `_7b` / `_4l` / `_6i` /
-     `_7c` / `_6j` / `_2l` / `_4m` / `_6k` / `_7d` / `_4n` / `_6l` / `_7e`,
-     the new shapes' times and bounds in `new_shapes`).
+     `_7c` / `_6j` / `_2l` / `_4m` / `_6k` / `_7d` / `_4n` / `_6l` / `_7e` /
+     `_7f`, the new shapes' times and bounds in `new_shapes`; the LSTM
+     forward's op dispatch cost in `op_dispatch_us`).
 
 Each phase prints one line with its result and time; any failure raises and
 the run exits non-zero. The last line is
@@ -5058,8 +5082,14 @@ def dss_f32_serving(dss, counters, dev, card) -> dict:
             "tick_p99": stats["tick_ms_p99"]}
 
 
-def socket_round(label, model, serve_kw, counters, want, dev, card, by_route=None,
-                 chunk_ms=16.0) -> dict:
+def socket_round(*args, exact=False, **kw) -> dict:
+    """`_socket_round`, under `cudnn.deterministic` where `exact`."""
+    with deterministic_cudnn() if exact else contextlib.nullcontext():
+        return _socket_round(*args, exact=exact, **kw)
+
+
+def _socket_round(label, model, serve_kw, counters, want, dev, card, by_route=None,
+                  chunk_ms=16.0, exact=False) -> dict:
     """Phase 4l (the socket front): `run_serve` on 127.0.0.1, port 0, run on
     a thread through its on_started / stop_event hooks, SOCKET_CLIENTS slots
     in lockstep; SOCKET_CLIENTS concurrent StreamingClients (a TSE client's
@@ -5068,7 +5098,11 @@ def socket_round(label, model, serve_kw, counters, want, dev, card, by_route=Non
     holds exactly (sent // chunk) * chunk samples per source, and its float32
     output is >= 60 dB from the bundle's engine stepped outside the server
     (the server's step function at its batch, each client's audio in its
-    slot's row). `want(ticks)`: the counters' launches in the round;
+    slot's row); `exact`: the round runs under `cudnn.deterministic` and
+    every client's output must equal the engine's bit for bit (an f32 NS /
+    DSS step with cuDNN's default algorithms differs between two calls at
+    about 147 dB: the Unet's up-convolution, `scripts/socket_diverge.py`).
+    `want(ticks)`: the counters' launches in the round;
     `by_route` = (module, route): every launch of the module on that route
     (as many as want's first)."""
     import threading
@@ -5165,20 +5199,26 @@ def socket_round(label, model, serve_kw, counters, want, dev, card, by_route=Non
     ref = np.concatenate(ref, axis=-1)
     worst = min(snr_np(g.reshape(M, -1)[m], ref[s].reshape(-1, M)[:, m])
                 for g, s in zip(got, slots) for m in range(M))
-    if not worst >= EVAL_BAR_DB:
-        raise AssertionError(f"4l {label}: a client's output {worst:.1f} dB from the engine")
+    equal = all(np.array_equal(g.reshape(M, -1)[m], ref[s].reshape(-1, M)[:, m])
+                for g, s in zip(got, slots) for m in range(M))
+    if not worst >= EVAL_BAR_DB or (exact and not equal):
+        raise AssertionError(f"4l {label}: a client's output {worst:.1f} dB from the engine"
+                             + (" (not bit-equal under cudnn.deterministic)" if exact else ""))
     log("4l socket front", f"{label}: run_serve(127.0.0.1:0, {SOCKET_CLIENTS} slots, "
         f"chunk_ms {chunk_ms:g}, lockstep, " + ", ".join(f"{k}={v}" for k, v in serve_kw.items()) + f") through on_started / "
         f"stop_event; {K} concurrent StreamingClients"
         + (", each HELLO a 3 s enrollment embedded on the card" if tse else ", empty HELLOs")
         + f", {n} samples each ({ticks} ticks of {chunk}): each received {shape} "
         f"((sent // chunk) * chunk a source), worst {worst:.1f} dB from the engine stepped "
-        f"outside the server (bar {EVAL_BAR_DB:g}); launches {launches}"
+        f"outside the server (bar {EVAL_BAR_DB:g}; "
+        + ("bit-equal, gated: the round and the engine under cudnn.deterministic"
+           if exact else f"{'bit-equal' if equal else 'not bit-equal'}") + f"); launches {launches}"
         + (f" (by route {routes})" if by_route else "") + f"; round {wall:.3f} s "
         f"wall ({ticks * chunk * K / 16000 / wall:.1f} audio-s/s over the {K} sessions); tick "
         f"p50 {stats['tick_ms_p50']:.3f} ms, p99 {stats['tick_ms_p99']:.3f} ms, underruns "
         f"{stats['underrun_slot_ticks']} [{card}]", t)
-    return {"launches": launches, "wall_s": wall, "snr": worst, "ticks": stats["ticks"],
+    return {"launches": launches, "wall_s": wall, "snr": worst, "bit_equal": equal,
+            "ticks": stats["ticks"],
             "tick_p50": stats["tick_ms_p50"], "tick_p99": stats["tick_ms_p99"],
             "underruns": stats["underrun_slot_ticks"]}
 
@@ -5219,23 +5259,28 @@ def dss_serving_phase(ops, lk, tk, flagship, dev, card) -> dict:
     out["f32"] = dss_f32_serving(dss, counters, dev, card)
     # the socket front: the flagship (bf16, fused, enrollment HELLOs; 15 ms
     # ticks, whose 15 frames divide its segments of 150 as the fused step
-    # needs), DPCRN and DSS (f32, mk_kernel)
+    # needs), DPCRN and DSS (f32, mk_kernel). The f32 models serve twice:
+    # with cuDNN's default algorithms, as users serve (the 60 dB bar and the
+    # tick numbers), then under cudnn.deterministic (the bit-equality gate)
     tse_counters = [("fused_skim_frames", ops, "LAUNCHES"), ("tcn_block_train fwd", tk,
                                                             _fwd_bwd(tk)[0])]
+    dpcrn = init_model("ns_dpcrn_v0_causal", device=dev,
+                       generator=torch.Generator().manual_seed(SEED))
     out["socket"] = {
         "tse_skim_v0_causal": socket_round(
             "tse_skim_v0_causal", flagship, dict(half=True, fused=True), tse_counters,
             # 5 TCN launches an attach, and 5 for the probe that reads the
             # embedding's width when the server is built
             lambda ticks: (ticks, 5 * (SOCKET_CLIENTS + 1)), dev, card, by_route=(ops, "mma"),
-            chunk_ms=15.0),
-        "ns_dpcrn_v0_causal": socket_round(
-            "ns_dpcrn_v0_causal", init_model("ns_dpcrn_v0_causal", device=dev,
-                                             generator=torch.Generator().manual_seed(SEED)),
-            dict(mk_kernel=True), [("center_chunk", mkk, "LAUNCHES")], lambda ticks: (ticks,),
-            dev, card),
-        DSS_NAME: socket_round(DSS_NAME, model, dict(mk_kernel=True), counters,
-                               lambda ticks: (0, 0, 0, ticks), dev, card)}
+            chunk_ms=15.0)}
+    for exact in (False, True):
+        tag = " deterministic" if exact else ""
+        out["socket"]["ns_dpcrn_v0_causal" + tag] = socket_round(
+            "ns_dpcrn_v0_causal" + tag, dpcrn, dict(mk_kernel=True),
+            [("center_chunk", mkk, "LAUNCHES")], lambda ticks: (ticks,), dev, card, exact=exact)
+        out["socket"][DSS_NAME + tag] = socket_round(
+            DSS_NAME + tag, model, dict(mk_kernel=True), counters,
+            lambda ticks: (0, 0, 0, ticks), dev, card, exact=exact)
     return out
 
 
@@ -5390,9 +5435,12 @@ def eval_7c_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
     dB from the CPU's), `stream_eval` (the dev set, as JAX's DSS recipe: the
     first EVAL_SUBSET) on the stock, `--fused` and `--mk_kernel` routes, each
     source >= 60 dB from the offline inference of the zero-primed input,
-    and `--half` >= DSS_HALF_BAR; exact launches; export_model raises."""
+    and `--half` >= DSS_HALF_BAR; exact launches; `export_model` writes
+    JAX's artifact set for a SIMO model and its loaded FullModel equals the
+    eager inference (`held_to_eager`)."""
     import tempfile
 
+    from puresound_tpu_torch.egs.dss import main as dss_cli
     from puresound_tpu_torch.src.audio import AudioIO
     from puresound_tpu_torch.src.metrics import Metrics
     from puresound_tpu_torch.src.utils import dump_hparam, load_hparam, load_text_as_dict
@@ -5482,11 +5530,26 @@ def eval_7c_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
                                                   r["launches"], r["serving"])
             out["launches"] = [a + b for a, b in zip(out["launches"], r["launches"])]
             out["serving"] = [a + b for a, b in zip(out["serving"], r["serving"])]
+        # export_model (outside the probe, whose timed inference would see the
+        # trace's fake tensors): the artifacts JAX's export writes for a SIMO
+        # model; the loaded FullModel against the eager inference on the
+        # first mixture
+        probe.__exit__(None, None, None)
         try:
-            run_cli(module, cfgs["full"], ["--action", "export_model", *ck], probe, lk, tk)
-            raise AssertionError("7c dss: export_model ran")
-        except NotImplementedError as e:
-            refused = str(e)
+            r = export_cli(dss_cli, cfgs["full"], lk, tk, backend, ckpt="epoch_1.ckpt")
+        finally:
+            probe.__enter__()
+        expect_launches(r["launches"], (2, 0, 0, 0), "7c dss export_model (the eager masker "
+                        "call on the dummy input)")
+        written = sorted(r["paths"])
+        if written != ["EncoderNet", "FullModel", "MaskNet", "StreamStep", "decoderNet"]:
+            raise AssertionError(f"7c dss export_model wrote {written}")
+        full = torch.export.load(r["paths"]["FullModel"])
+        wav = torch.from_numpy(AudioIO.open(scp[sorted(scp)[0]][0])[0]).to(dev)[:, :16000 * 5]
+        wav = torch.nn.functional.pad(wav, (0, 16000 * 5 - wav.shape[-1]))
+        with torch.no_grad():
+            exported = held_to_eager("7c dss FullModel", lambda: model.inference(wav),
+                                     lambda: full.module()(wav), lk, tk)
     for key in ("dev", "eval", "batch"):
         out["launches"] = [a + b for a, b in zip(out["launches"], res[key]["launches"])]
     audio_s = n * EVAL_SECONDS
@@ -5506,7 +5569,12 @@ def eval_7c_phase(lk, tk, dev, card, keep: str, backend: str = "cuda") -> dict:
             f"{s} {v[2]:.2f} s, RTF {v[1]:.2f}, {v[0]:.1f} dB from the offline inference of "
             f"the zero-primed input (each source), launches (LSTM fwd) {v[3][0]}, serving "
             f"{v[4]}" for s, v in streams.items())
-        + f"; export_model raises: {refused} [{card}]", t)
+        + f"; export_model {r['wall_s']:.2f} s (export / save s "
+        + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in r["seconds"].items())
+        + f"), its artifacts {written}, the loaded FullModel "
+        f"{exported['rel_err']:.2e} of max|ref| from the eager inference "
+        f"({'bit-equal' if exported['bit_equal'] else UNEQUAL}, launches "
+        f"{exported['launches']} as eager) [{card}]", t)
     return out
 
 
@@ -6851,6 +6919,419 @@ def unet_phases(lk, tk, dev, card) -> dict:
     return {"serving": serving, "recipes": recipes, "evals": evals}
 
 
+# ------------------------------------------------------------ phase 7f
+EXPORT_CHUNKS = 40         # StreamStep's 4-hop chunks: 160 frames, past a 150-frame segment
+EXPORT_TSNE = (6, 2)       # the tSNE dev set: mixtures, speakers
+EXPORT_DVEC_COS = 0.9999   # tSNE's d-vectors, card against CPU, each utterance
+EXPORT_PROBE = 16000       # probe_lookahead_receptive's signal, samples
+EXPORT_BAR = 1e-5          # a loaded artifact against the eager module, of max|ref|
+#: why an STFT model's artifact is not bit-equal to its eager module: two
+#: eager calls are not either (phase 4l, scripts/socket_diverge.py)
+UNEQUAL = "not bit-equal: cuDNN's default algorithm for the Unet's up-convolution"
+DISPATCH_STEPS = 10        # unfused B=1 streaming steps a turn of the op-cost timing
+DISPATCH_CALLS = 400       # one-row scans a turn of the op-cost timing
+DISPATCH_TURNS = 4         # turns op, direct, direct, op
+
+
+def write_port_ckpt(model, path: str) -> str:
+    """An eval checkpoint of `model` in the port's format (its state_dict,
+    read back by `load_eval_model`)."""
+    torch.save({"params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                "batch_stats": {}}, path)
+    return path
+
+
+@contextlib.contextmanager
+def timed_exports(seconds: list):
+    """Every `torch.export.export` and `torch.export.save` inside appends
+    (its kind, seconds) to `seconds`, in call order."""
+    export, save = torch.export.export, torch.export.save
+
+    def timed(kind, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            seconds.append((kind, time.perf_counter() - t))
+            return out
+        return call
+
+    torch.export.export, torch.export.save = timed("export", export), timed("save", save)
+    try:
+        yield
+    finally:
+        torch.export.export, torch.export.save = export, save
+
+
+def export_cli(module, cfg: str, lk, tk, backend: str = "cuda",
+               ckpt: str = "epoch_0.ckpt") -> dict:
+    """`--action export_model --ckpt <ckpt>` through a recipe CLI in this
+    process: the paths by artifact name, each artifact's export and
+    save seconds, the launches (LSTM fwd, bwd, TCN fwd, bwd) of the eager
+    calls on the dummy input that export makes first, the wall seconds."""
+    seconds = []
+    before = counts(lk, tk)
+    t = time.perf_counter()
+    with timed_exports(seconds):
+        paths = module.main(module.parse_args([cfg, "--action", "export_model", "--ckpt",
+                                               ckpt, "--backend", backend]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    names = [os.path.basename(p).split(".")[-2] for p in paths]
+    ex_s = [s for k, s in seconds if k == "export"]
+    sv_s = [s for k, s in seconds if k == "save"]
+    if not (len(ex_s) == len(sv_s) == len(names)):
+        raise AssertionError(f"export_model: {len(names)} artifacts, {seconds}")
+    return {"paths": dict(zip(names, paths)), "launches": since(before, lk, tk), "wall_s": wall,
+            "seconds": {n: (e, s) for n, e, s in zip(names, ex_s, sv_s)}}
+
+
+def since(before, lk, tk) -> tuple:
+    """The launches (LSTM fwd, bwd, TCN fwd, bwd) since `counts` read `before`."""
+    return tuple(a - b for a, b in zip(counts(lk, tk), before))
+
+
+def held_to_eager(label, eager_fn, artifact_fn, lk, tk):
+    """One call of the eager module and one of the loaded artifact on the
+    same inputs: (max|d| / max|ref|, bit-equal, launches of each), failing
+    beyond EXPORT_BAR, on a launch count that differs or on no launch of a
+    kernel the eager call made."""
+    before = counts(lk, tk)
+    ref = eager_fn()
+    torch.cuda.synchronize()
+    eager = since(before, lk, tk)
+    before = counts(lk, tk)
+    got = artifact_fn()
+    torch.cuda.synchronize()
+    art = since(before, lk, tk)
+    # on the host: the eager engine's state keeps SkiM's clock as an int
+    leaves = lambda tree: [torch.as_tensor(x).detach().cpu()
+                           for x in torch.utils._pytree.tree_leaves(tree)]
+    refs, gots = leaves(ref), leaves(got)
+    if len(refs) != len(gots) or any(a.shape != b.shape for a, b in zip(refs, gots)):
+        raise AssertionError(f"7f {label}: outputs {[tuple(g.shape) for g in gots]}, eager "
+                             f"{[tuple(r.shape) for r in refs]}")
+    peak = max(r.double().abs().max().item() for r in refs)
+    err = max((g.double() - r.double()).abs().max().item() for g, r in zip(gots, refs))
+    equal = all(torch.equal(g, r) for g, r in zip(gots, refs))
+    if not (err <= EXPORT_BAR * peak and all(torch.isfinite(g).all() for g in gots)):
+        raise AssertionError(f"7f {label}: artifact max|d| {err:.3e} > {EXPORT_BAR:g} * "
+                             f"max|ref| ({peak:.3e})")
+    expect_launches(art, eager, f"7f {label}: the artifact's launches (LSTM fwd, bwd, TCN "
+                    "fwd, bwd) against the eager call's")
+    return {"rel_err": err / max(peak, 1e-30), "bit_equal": equal, "launches": art}
+
+
+def dispatch_cost(lk, model, dev) -> dict:
+    """What the torch.library op costs `lstm_scan_train_fp` on the host, in
+    turns op, direct, direct, op (DISPATCH_TURNS of them; direct:
+    `lk._fp_op` swapped for its body `lk._fp_forward` for the turn):
+    DISPATCH_CALLS one-row, one-step scans (B=1, C=128, H=256, the
+    flagship's unfused streaming shape) a turn, host microseconds a call
+    without a sync; and the flagship's unfused streaming step at B = 1 (16 ms
+    chunks: 64 such scans), DISPATCH_STEPS synced steps a turn on the host
+    clock, the same input state every step."""
+    from puresound_tpu_torch.streaming.engine import StreamingTSE
+
+    engine = StreamingTSE.from_offline(model)
+    g = torch.Generator().manual_seed(SEED + 171)
+    r = lambda *shape: (0.1 * torch.randn(*shape, generator=g)).to(dev)
+    scan = (r(1, 1, 128), r(1, 256), r(1, 256), r(128, 1024), r(1024), r(256, 1024),
+            False, False)
+    chunk = r(1, 256)
+    op = lk._fp_op
+    kinds = ["op", "direct", "direct", "op"] * (DISPATCH_TURNS // 4)
+    calls, steps = {"op": [], "direct": []}, {"op": [], "direct": []}
+    with torch.no_grad():
+        dvec = engine.embed(r(1, 16000))
+        state = engine.init_state(1)
+        for kind in kinds:
+            lk._fp_op = op if kind == "op" else lk._fp_forward
+            try:
+                before = count_of(lk, "FWD_BY_ENTRY")
+                for _ in range(3):
+                    engine.step(chunk, dvec, state)
+                    lk._scan_fp(*scan)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(DISPATCH_CALLS):
+                    lk._scan_fp(*scan)
+                calls[kind].append(1e6 * (time.perf_counter() - t) / DISPATCH_CALLS)
+                torch.cuda.synchronize()
+                for _ in range(DISPATCH_STEPS):
+                    t = time.perf_counter()
+                    engine.step(chunk, dvec, state)
+                    torch.cuda.synchronize()
+                    steps[kind].append(1e3 * (time.perf_counter() - t))
+                launched = count_of(lk, "FWD_BY_ENTRY") - before
+            finally:
+                lk._fp_op = op
+            expect_launches(launched, 65 * 3 + DISPATCH_CALLS + 64 * DISPATCH_STEPS,
+                            f"7f dispatch ({kind}): LSTM launches")
+    med = lambda v: float(np.median(v))
+    return {"op_call_us": med(calls["op"]), "direct_call_us": med(calls["direct"]),
+            "per_op_us": med(calls["op"]) - med(calls["direct"]),
+            "op_ms": med(steps["op"]), "direct_ms": med(steps["direct"]),
+            "op_min_ms": min(steps["op"]), "direct_min_ms": min(steps["direct"]),
+            "calls_by_turn": calls}
+
+
+def export_phase(lk, tk, dev, card, backend: str = "cuda") -> dict:
+    """Phase 7f: the recipes' last actions. The flagship (f32 eval, seed
+    SEED) through the TSE CLI's `export_model`: each artifact's export and
+    save seconds; each loaded with `torch.export.load` (importing the port
+    registers its ops), the graphs naming the `puresound_tpu_torch::` ops;
+    FullModel, SpeakerNet, MaskNet, EncoderNet and decoderNet on seeded card
+    inputs and StreamStep over EXPORT_CHUNKS carried chunks (a 150-frame
+    segment boundary crossed) against the eager module and engine: within
+    EXPORT_BAR of max|ref|, bit-equality printed, the same LSTM / TCN
+    launches as the eager calls; eager and artifact ms (CUDA events). Then
+    `ns_dpcrn_v0_causal` through the NS CLI's export_model (its FullModel
+    the same way; DSS's export runs in 7c); the op's dispatch cost
+    (`dispatch_cost`); tSNE's d-vectors (`tsne_dvecs`) on EXPORT_TSNE
+    mixtures on the card and on the CPU (each within cosine
+    EXPORT_DVEC_COS) and `--action tSNE` through the CLI on the card (where
+    scikit-learn or matplotlib is missing it must raise ModuleNotFoundError
+    after embedding the set); and `probe_lookahead_receptive` of the
+    flagship, card against CPU."""
+    import copy
+    import importlib.util
+    import io
+    import random
+    import tempfile
+
+    from puresound_tpu_torch.egs.ns import main as ns_cli
+    from puresound_tpu_torch.egs.tse import main as tse_cli
+    from puresound_tpu_torch.src.utils import dump_hparam, load_hparam
+    from puresound_tpu_torch.streaming.engine import StreamingTSE
+    from puresound_tpu_torch.utils import export as ex
+    from puresound_tpu_torch.utils.model_info import probe_lookahead_receptive
+    from puresound_tpu_torch.zoo.ns import init_model as init_ns
+    from puresound_tpu_torch.zoo.tse import init_model
+
+    t0 = time.perf_counter()
+    out, start = {}, counts(lk, tk)
+    g = torch.Generator().manual_seed(SEED + 170)
+    with tempfile.TemporaryDirectory() as tmp:
+        # ------------------------------------------------ the flagship's export
+        t = time.perf_counter()
+        model = init_model("tse_skim_v0_causal", device=dev,
+                           generator=torch.Generator().manual_seed(SEED)).eval()
+        tse_dir = os.path.join(tmp, "tse")
+        os.makedirs(tse_dir)
+        write_port_ckpt(model, os.path.join(tse_dir, "epoch_0.ckpt"))
+        n_utt, n_spk = EXPORT_TSNE
+        dev_set = write_tse_manifest(os.path.join(tmp, "dev"), n_utt, SEED + 172, n_spk=n_spk)
+        hp = load_hparam(SHIPPED_1C)
+        hp["DATASET"].update(train=dev_set, dev=dev_set, eval=dev_set)
+        hp["TRAIN"].update(model_save_dir=tse_dir, log_dir=os.path.join(tmp, "logs"),
+                           model_average=1)
+        cfg = os.path.join(tmp, "tse.yaml")
+        dump_hparam(hp, cfg)
+        res = export_cli(tse_cli, cfg, lk, tk, backend)
+        want = {"EncoderNet", "decoderNet", "SpeakerNet", "MaskNet", "FullModel", "StreamStep"}
+        if set(res["paths"]) != want:
+            raise AssertionError(f"7f export_model wrote {sorted(res['paths'])}")
+        programs = {n: torch.export.load(p) for n, p in res["paths"].items()}
+        ops = {n: ex.op_nodes(p) for n, p in programs.items()}
+        want_ops = {"EncoderNet": {}, "decoderNet": {}, "SpeakerNet": {"tcn_block_train": 5},
+                    "MaskNet": {"lstm_scan_train_fp": 10},
+                    "FullModel": {"tcn_block_train": 5, "lstm_scan_train_fp": 10}}
+        if ({n: ops[n] for n in want_ops} != want_ops
+                or set(ops["StreamStep"]) != {"lstm_scan_train_fp"}):
+            raise AssertionError(f"7f: the ops in the exported graphs {ops}")
+        log("7f export", f"tse_skim_v0_causal (f32, seed {SEED}) through python -m "
+            f"puresound_tpu_torch.egs.tse.main {SHIPPED_1C} --action export_model: "
+            f"{res['wall_s']:.2f} s; export / save s by artifact " + ", ".join(
+                f"{n} {e:.2f} / {s:.2f} ({os.path.getsize(res['paths'][n]) / 1e6:.1f} MB)"
+                for n, (e, s) in res["seconds"].items())
+            + f"; its eager dummy calls' launches {res['launches']}; puresound_tpu_torch:: ops "
+            f"by graph {ops} [{card}]", t)
+        out["export_s"] = res["seconds"]
+
+        # ------------------------------- each artifact against the eager module
+        t = time.perf_counter()
+        mods = {n: p.module() for n, p in programs.items()}
+        wav = (0.1 * torch.randn(1, 80000, generator=g)).to(dev)
+        enroll = (0.1 * torch.randn(1, 80000, generator=g)).to(dev)
+        checks, timing = {}, {}
+        with torch.no_grad():
+            feats = model._encode(wav)
+            dvec = model.inference_tse_embedding(enroll)
+            calls = {"FullModel": (lambda: model.inference(wav, enroll), (wav, enroll)),
+                     "SpeakerNet": (lambda: model.inference_tse_embedding(enroll), (enroll,)),
+                     "MaskNet": (lambda: model.masker(feats, dvec.squeeze(-1)),
+                                 (feats, dvec.squeeze(-1))),
+                     "EncoderNet": (lambda: model._encode(wav), (wav,)),
+                     "decoderNet": (lambda: model._decode(feats), (feats,))}
+            for name, (eager_fn, args) in calls.items():
+                checks[name] = held_to_eager(name, eager_fn, lambda: mods[name](*args), lk, tk)
+                if name in ("FullModel", "SpeakerNet"):
+                    timing[name] = (cuda_ms(eager_fn, reps=5, warmup=1),
+                                    cuda_ms(lambda: mods[name](*args), reps=5, warmup=1))
+            # StreamStep over carried chunks, across a segment boundary
+            engine = StreamingTSE.from_offline(model)
+            dv = engine.embed(enroll[:, :16000])
+            chunks = (0.1 * torch.randn(EXPORT_CHUNKS, 1, 64, generator=g)).to(dev)
+            st, st_x = engine.init_state(1), ex.stream_state(engine)
+            step = mods["StreamStep"]
+            ys, ys_x = [], []
+
+            def eager_run():
+                s = st
+                for c in chunks:
+                    y, s = engine.step(c, dv, s)
+                    ys.append(y)
+                return torch.cat(ys, -1), s
+
+            def artifact_run():
+                s = st_x
+                for c in chunks:
+                    y, s = step(c, dv, s)
+                    ys_x.append(y)
+                return torch.cat(ys_x, -1), s
+
+            checks["StreamStep"] = held_to_eager(
+                f"StreamStep over {EXPORT_CHUNKS} chunks", eager_run, artifact_run, lk, tk)
+            frames = int(ex.stream_state(engine)["skim"]["frame_count"]) + 4 * EXPORT_CHUNKS
+            if frames <= model.masker.seg_size or checks["StreamStep"]["launches"][0] != (
+                    16 * EXPORT_CHUNKS + 6 * (frames // model.masker.seg_size)):
+                raise AssertionError(f"7f StreamStep: {frames} frames, launches "
+                                     f"{checks['StreamStep']['launches']}")
+            timing["StreamStep"] = (cuda_ms(lambda: engine.step(chunks[0], dv, st), reps=10),
+                                    cuda_ms(lambda: step(chunks[0], dv, st_x), reps=10))
+        log("7f export", "loaded artifacts against the eager module on seeded card inputs "
+            f"(bar {EXPORT_BAR:g} of max|ref|): " + "; ".join(
+                f"{n} {c['rel_err']:.2e} ({'bit-equal' if c['bit_equal'] else 'not bit-equal'}"
+                f", launches {c['launches']} as eager)" for n, c in checks.items())
+            + f"; StreamStep over {EXPORT_CHUNKS} chunks of 64 samples crosses the 150-frame "
+            "segment boundary (its cond branch); ms eager / artifact (CUDA events): "
+            + ", ".join(f"{n} {a:.3f} / {b:.3f}" for n, (a, b) in timing.items())
+            + f" [{card}]", t)
+        out.update(checks=checks, timing=timing)
+
+        # ------------------------------------------- the NS CLI's export_model
+        t = time.perf_counter()
+        ns = init_ns("ns_dpcrn_v0_causal", device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 173)).eval()
+        ns_dir = os.path.join(tmp, "ns")
+        os.makedirs(ns_dir)
+        write_port_ckpt(ns, os.path.join(ns_dir, "epoch_0.ckpt"))
+        hp = load_hparam(SHIPPED_NS[0])
+        hp["TRAIN"].update(model_save_dir=ns_dir, log_dir=os.path.join(tmp, "logs"),
+                           model_average=1)
+        ns_cfg = os.path.join(tmp, "ns.yaml")
+        dump_hparam(hp, ns_cfg)
+        ns_res = export_cli(ns_cli, ns_cfg, lk, tk, backend)
+        if set(ns_res["paths"]) != {"EncoderNet", "MaskNet", "decoderNet", "FullModel",
+                                    "StreamStep"}:
+            raise AssertionError(f"7f ns export_model wrote {sorted(ns_res['paths'])}")
+        full = torch.export.load(ns_res["paths"]["FullModel"])
+        with torch.no_grad():
+            ns_check = held_to_eager("ns FullModel", lambda: ns.inference(wav),
+                                     lambda: full.module()(wav), lk, tk)
+        log("7f export", f"ns_dpcrn_v0_causal through python -m puresound_tpu_torch.egs.ns.main "
+            f"{SHIPPED_NS[0]} --action export_model: {ns_res['wall_s']:.2f} s; export / save s "
+            + ", ".join(f"{n} {e:.2f} / {s:.2f}" for n, (e, s) in ns_res["seconds"].items())
+            + f"; FullModel ops {ex.op_nodes(full)}, against eager {ns_check['rel_err']:.2e} "
+            f"({'bit-equal' if ns_check['bit_equal'] else UNEQUAL}), launches "
+            f"{ns_check['launches']} as eager [{card}]", t)
+        out["ns"] = {"seconds": ns_res["seconds"], "check": ns_check}
+
+        # ------------------------------------------------ the op's dispatch cost
+        t = time.perf_counter()
+        out["dispatch"] = d = dispatch_cost(lk, model, dev)
+        log("7f dispatch", f"lstm_scan_train_fp through its torch.library op against the op's "
+            f"body called directly, {DISPATCH_TURNS} turns op, direct, direct, op: one-row "
+            f"one-step scans (B=1, C=128, H=256), {DISPATCH_CALLS} calls a turn, host us a "
+            f"call (no sync) op p50 {d['op_call_us']:.1f} / direct {d['direct_call_us']:.1f}: "
+            f"{d['per_op_us']:.1f} us an op (by turn {d['calls_by_turn']}); the flagship's "
+            f"unfused StreamingTSE.step at B=1, 16 ms chunks (64 scans a step), "
+            f"{DISPATCH_STEPS} synced steps a turn: op p50 {d['op_ms']:.3f} ms (min "
+            f"{d['op_min_ms']:.3f}), direct p50 {d['direct_ms']:.3f} ms (min "
+            f"{d['direct_min_ms']:.3f}) [{card}]", t)
+
+        # ---------------------------------------------------------------- tSNE
+        # its model half (`tsne_dvecs`, what `--action tSNE` runs first) on the
+        # card and on the CPU; then the action through the CLI on the card,
+        # which imports scikit-learn and matplotlib after the d-vectors, as
+        # JAX's does: where this machine lacks them it raises there
+        # (the dev loader draws its enrollments' levels from a seed it takes
+        # from Python's RNG: seeded alike, the three runs embed one set)
+        t = time.perf_counter()
+        hp_tse = load_hparam(cfg)
+        before = counts(lk, tk)
+        random.seed(SEED + 174)
+        a, spk, _ = tse_cli.tsne_dvecs(hp_tse, dev, "epoch_0.ckpt")
+        torch.cuda.synchronize()
+        dvec_launches = since(before, lk, tk)
+        random.seed(SEED + 174)
+        b, _, _ = tse_cli.tsne_dvecs(hp_tse, torch.device("cpu"), "epoch_0.ckpt")
+        cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+        if not (a.shape == b.shape == (n_utt, 192) and cos.min() >= EXPORT_DVEC_COS):
+            raise AssertionError(f"7f tSNE: d-vectors {a.shape}, cosine card vs CPU {cos}")
+        expect_launches(dvec_launches, (0, 0, 5 * n_utt, 0), "7f tSNE d-vectors on the card "
+                        "(LSTM fwd, bwd, TCN fwd, bwd)")
+        missing = [m for m in ("sklearn", "matplotlib") if importlib.util.find_spec(m) is None]
+        argv = [cfg, "--action", "tSNE", "--ckpt", "epoch_0.ckpt", "--backend", backend]
+        before = counts(lk, tk)
+        random.seed(SEED + 174)
+        if missing:
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    tse_cli.main(tse_cli.parse_args(argv))
+                raise AssertionError(f"7f tSNE ran without {missing}")
+            except ModuleNotFoundError as e:
+                if e.name not in missing:
+                    raise
+                action = (f"scikit-learn / matplotlib are not installed on this machine "
+                          f"({missing}): --action tSNE embedded the set on the card, then "
+                          f"raised {e!r} where JAX's action imports them (its silhouette, "
+                          "t-SNE, PNG and HTML are held on the CPU by "
+                          "tests/test_torch_periphery.py)")
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                res_tsne = tse_cli.main(tse_cli.parse_args(argv))
+            for ext in ("png", "html"):
+                if os.path.getsize(os.path.join(tse_dir, f"Speaker_dev_tSNE.{ext}")) < 1000:
+                    raise AssertionError(f"7f tSNE: Speaker_dev_tSNE.{ext}")
+            if not np.array_equal(res_tsne["dvecs"], a):
+                raise AssertionError("7f tSNE: the action's d-vectors are not tsne_dvecs'")
+            action = (f"--action tSNE on the card: silhouette {res_tsne['silhouette']:.6f}, "
+                      "Speaker_dev_tSNE.png / .html written")
+        torch.cuda.synchronize()
+        expect_launches(since(before, lk, tk), dvec_launches, "7f --action tSNE on the card")
+        log("7f tSNE", f"{n_utt} mixtures of {n_spk} speakers ({sorted(set(spk))}): d-vectors "
+            f"[{n_utt}, 192] through inference_tse_embedding, cosine card vs CPU min "
+            f"{cos.min():.7f} (bar {EXPORT_DVEC_COS}), launches {dvec_launches}; {action} "
+            f"[{card}]", t)
+        out["tsne_cos"] = float(cos.min())
+
+        # --------------------------------------------------------------- probe
+        t = time.perf_counter()
+        cpu_model = copy.deepcopy(model).cpu()
+        e16 = enroll[:, :16000]
+        before = counts(lk, tk)
+        card_probe = probe_lookahead_receptive(lambda x: model.inference(x, e16),
+                                               length=EXPORT_PROBE, device=dev)
+        torch.cuda.synchronize()
+        probe_launches = since(before, lk, tk)
+        cpu_probe = probe_lookahead_receptive(lambda x: cpu_model.inference(x, e16.cpu()),
+                                              length=EXPORT_PROBE, device="cpu")
+        if card_probe != cpu_probe or card_probe[0] != 16:
+            raise AssertionError(f"7f probe: (lookahead, receptive) card {card_probe}, CPU "
+                                 f"{cpu_probe}")
+        expect_launches(probe_launches, (20, 0, 10, 0), "7f probe on the card")
+        log("7f probe", f"probe_lookahead_receptive(tse_skim_v0_causal, {EXPORT_PROBE} samples, "
+            f"inf from sample {EXPORT_PROBE // 2}): card {card_probe} == CPU {cpu_probe} (the "
+            f"kernels' __expf gates give the plain path's NaN pattern); launches "
+            f"{probe_launches} [{card}]", t)
+        out["probe"] = card_probe
+    out["launches"] = since(start, lk, tk)
+    log("7f export and periphery", f"phase 7f in all, launches (LSTM fwd, bwd, TCN fwd, bwd) "
+        f"{out['launches']}", t0)
+    return out
+
+
 def run(dev: torch.device) -> int:
     t0 = time.perf_counter()
     from puresound_tpu_torch.ops import _build
@@ -7413,7 +7894,11 @@ def run(dev: torch.device) -> int:
     zoo = zoo_phases(ops, lk, tk, dev, card)
     # ------------------- the STFT-domain TSE zoo: 4n, 6l, 7e (no kernel launched)
     unet_phases(lk, tk, dev, card)
-    launches_unet = {"4n": {}, "6l": {}, "7e": {}}
+    launches_late = {"4n": {}, "6l": {}, "7e": {}}
+    # ---------- 7f. export_model on torch.export, tSNE, the inf-injection probe
+    export = export_phase(lk, tk, dev, card)
+    launches_late["7f"] = {"lstm_scan_train_fp fwd": export["launches"][0],
+                           "tcn_block_train fwd": export["launches"][2]}
     sock = dss_serve["socket"]
     dss_by_slots = dss_serve["serving"]
     # each kernel's launches in phases 4l / 6i / 7c
@@ -7423,9 +7908,11 @@ def run(dev: torch.device) -> int:
         "lstm_scan_train_fp fwd": dss_serve["f32"]["launches"][0],
         "lstm_scan": sum(r["launches"][1] for r in dss_by_slots.values()),
         "dparn_intra_pass": sum(r["launches"][2] for r in dss_by_slots.values()),
-        "center_chunk": sock["ns_dpcrn_v0_causal"]["launches"][0],
+        "center_chunk": sum(sock["ns_dpcrn_v0_causal" + tag]["launches"][0]
+                            for tag in ("", " deterministic")),
         "dparn_center_chunk": (sum(r["launches"][3] for r in dss_by_slots.values())
-                               + sock[DSS_NAME]["launches"][3])}
+                               + sum(sock[DSS_NAME + tag]["launches"][3]
+                                     for tag in ("", " deterministic")))}
     launches_6i = {"lstm_scan_train_fp fwd": dss_train["launches"][0],
                    "lstm_scan_train_fp bwd": dss_train["launches"][1]}
     launches_7c = {"lstm_scan_train_fp fwd": evals_7c["launches"][0],
@@ -7708,6 +8195,7 @@ def run(dev: torch.device) -> int:
             "bf16_bound_ms": r["bf16_bound"][0], "bf16_without_option_ms": base[base_key][1],
             "bf16_snr_db": r["bf16_snr_db"], "bf16_control_snr_db": r["bf16_control_snr_db"],
             "shape": r["shape"]})
+    kernels[1]["op_dispatch_us"] = export["dispatch"]["per_op_us"]
     for k in kernels:
         # the DSS phases' and 6j's launches, by the kernel's name ("... (forward)" /
         # "(backward)" as fwd / bwd)
@@ -7715,7 +8203,7 @@ def run(dev: torch.device) -> int:
         for phase, table in (("4l", launches_4l), ("6i", launches_6i), ("7c", launches_7c),
                              ("6j", launches_6j), ("4m", zoo["launches"]["4m"]),
                              ("6k", zoo["launches"]["6k"]), ("7d", zoo["launches"]["7d"]),
-                             *launches_unet.items()):
+                             *launches_late.items()):
             k[f"launches_{phase}"] = table.get(key, 0)
             k["launches"] += table.get(key, 0)
         # phase 2l's launches hold each kernel against its plain version: counted

@@ -42,6 +42,9 @@ Kernels build from `csrc/` with nvcc at first use on a CUDA tensor; a CPU
 tensor takes each kernel's plain PyTorch version.
 """
 
+# registers the puresound_tpu_torch:: ops, which torch.export.load needs
+from .ops import lstm_train_kernel as _lstm_ops, tcn_train_kernel as _tcn_ops  # noqa: E402,F401
+
 __version__ = "0.1.0"
 
 __all__ = ["dsp", "egs", "nnet", "ops", "parallel", "src", "streaming", "tasks",

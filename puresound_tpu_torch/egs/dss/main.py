@@ -1,11 +1,13 @@
 """DSS (near / far separation) recipe command line: train, dev, eval,
-stream_eval and serve (counterpart of egs/dss/main.py: `build_model`
-`:16-34`, `load_eval_model` `:37-52`, `action_train` `:55-96`, `action_dev`
-`:99-148`, `action_eval` `:151-207`, `action_serve` `:210-221`,
-`action_stream_eval` `:224-253`, `main` `:268-309`).
+stream_eval, serve and export_model (counterpart of egs/dss/main.py:
+`build_model` `:16-34`, `load_eval_model` `:37-52`, `action_train`
+`:55-96`, `action_dev` `:99-148`, `action_eval` `:151-207`, `action_serve`
+`:210-221`, `action_stream_eval` `:224-253`, `action_export` `:256-265`,
+`main` `:268-309`).
 
     python -m puresound_tpu_torch.egs.dss.main <egs/dss/conf/dss_dparn_1a.yaml-style config> \\
-        --action train|dev|eval|stream_eval|serve [--ckpt epoch_N.ckpt] [--backend cuda|cpu]
+        --action train|dev|eval|stream_eval|serve|export_model [--ckpt epoch_N.ckpt] \\
+        [--backend cuda|cpu]
 
 The model is the SIMO wrapper of a ConvEncDec (512 / 512 / 128) and a
 `DPARN_Mout` with two outputs, near and far. Runs on the CUDA card unless
@@ -19,7 +21,12 @@ each session's two sources sample-interleaved. The host augmentation chain
 (noise_folder, speed_perturbed, vol_perturbed), TRAIN.remat and
 multi-process training (`--num_processes --process_id --coordinator`, one
 process per card) work as in the TSE recipe; augment_on_device raises, as
-JAX's DSS recipe fails on it. export_model is not ported yet and raises.
+JAX's DSS recipe fails on it. export_model writes the model's
+`torch.export` artifacts to TRAIN.model_save_dir/<ckpt>.<Name>.pt2, as the
+TSE recipe's does.
+Still raising, built for several cards (ROADMAP queue 1 item 8b): mesh
+serving, `TRAIN.mp_devices > 1` / tensor parallelism, and
+`MhaSelfAttenLayer(improved=True)`.
 """
 from __future__ import annotations
 
@@ -44,12 +51,10 @@ from ...tasks.batch_eval import BucketedBatchRunner
 from ...tasks.dss import DssCollateFunc, DssDataset, DssTask
 from ...utils.init import generator_or_default
 from ...zoo.tse import _device as _model_device
-from ..tse.main import NOT_PORTED as TSE_NOT_PORTED
-from ..tse.main import (_open, _tensor, add_process_args, check_action, loader_kwargs,
-                       run_main)
+from ..tse.main import (_open, _tensor, add_process_args, check_action, export_model,
+                       loader_kwargs, run_main)
 
 ACTIONS = ("train", "dev", "eval", "stream_eval", "serve", "export_model")
-NOT_PORTED = {"export_model": TSE_NOT_PORTED["export_model"]}
 SOURCES = ("near", "far")
 
 
@@ -234,7 +239,7 @@ def action_serve(hparam, device, ckpt, chunk_ms, n_slots, port, half=False, fuse
 
 
 def main(config):
-    check_action(config, NOT_PORTED)
+    check_action(config)
     hparam = load_hparam(config.config_path)
     create_folder(hparam["TRAIN"]["model_save_dir"])
     return run_main(config, hparam, lambda device: _run(config, hparam, device))
@@ -249,6 +254,8 @@ def _run(config, hparam, device):
     if config.action == "eval":
         return action_eval(hparam, device, config.ckpt, config.batch_eval,
                            config.eval_quantum)
+    if config.action == "export_model":
+        return export_model(load_eval_model(hparam, config.ckpt, device), hparam, config.ckpt)
     if config.action == "serve":
         return action_serve(hparam, device, config.ckpt, config.chunk_ms,
                             config.serve_slots, config.port, config.half, config.fused,

@@ -1,11 +1,12 @@
-"""NS recipe command line: train, dev, eval, stream_eval and serve
-(counterpart of egs/ns/main.py: `load_eval_model` `:29-40`,
+"""NS recipe command line: train, dev, eval, stream_eval, serve and
+export_model (counterpart of egs/ns/main.py: `load_eval_model` `:29-40`,
 `init_dataloader` `:42-84`, `action_train` `:86-106`, `action_dev`
 `:109-173`, `action_eval` `:176-220`, `action_stream_eval` `:223-252`,
-`action_serve` `:255-266`, `main` `:281-324`).
+`action_serve` `:255-266`, `action_export` `:269-278`, `main` `:281-324`).
 
     python -m puresound_tpu_torch.egs.ns.main <NS.yaml-style config> \\
-        --action train|dev|eval|stream_eval|serve [--ckpt epoch_N.ckpt] [--backend cuda|cpu]
+        --action train|dev|eval|stream_eval|serve|export_model [--ckpt epoch_N.ckpt] \\
+        [--backend cuda|cpu]
 
 Runs on the CUDA card unless `--backend cpu` asks for the CPU; `cuda`
 raises where torch sees no card. dev / eval / stream_eval load `--ckpt`
@@ -16,7 +17,11 @@ opens the TCP front on `--port` with `--serve_slots` sessions, each
 attached by an empty HELLO. Augmentation (host chain or
 augment_on_device), TRAIN.remat and multi-process training (`--num_processes
 --process_id --coordinator`, one process per card) work as in the TSE
-recipe. export_model is not ported yet and raises.
+recipe. export_model writes the model's `torch.export` artifacts to
+TRAIN.model_save_dir/<ckpt>.<Name>.pt2, as the TSE recipe's does.
+Still raising, built for several cards (ROADMAP queue 1 item 8b): mesh
+serving, `TRAIN.mp_devices > 1` / tensor parallelism, and
+`MhaSelfAttenLayer(improved=True)`.
 """
 from __future__ import annotations
 
@@ -35,13 +40,11 @@ from ...tasks.base import BaseTrainer, DataLoader
 from ...tasks.batch_eval import BucketedBatchRunner
 from ...tasks.ns import NsCollateFunc, NsDataset, NsTask
 from ...zoo.ns import init_loss, init_model
-from ..tse.main import NOT_PORTED as TSE_NOT_PORTED
 from ..tse.main import (_detail_scores, _open, _tensor, add_eval_args,
-                       add_process_args, add_serve_args, check_action, loader_kwargs,
-                       on_device_split, run_main)
+                       add_process_args, add_serve_args, check_action, export_model,
+                       loader_kwargs, on_device_split, run_main)
 
 ACTIONS = ("train", "dev", "eval", "stream_eval", "serve", "export_model")
-NOT_PORTED = {"export_model": TSE_NOT_PORTED["export_model"]}
 
 
 def init_dataloader(hparam):
@@ -191,7 +194,7 @@ def action_serve(hparam, device, ckpt, chunk_ms, n_slots, port, half=False, fuse
 
 
 def main(config):
-    check_action(config, NOT_PORTED)
+    check_action(config)
     hparam = load_hparam(config.config_path)
     create_folder(hparam["TRAIN"]["model_save_dir"])
     return run_main(config, hparam, lambda device: _run(config, hparam, device))
@@ -206,6 +209,8 @@ def _run(config, hparam, device):
     if config.action == "eval":
         return action_eval(hparam, device, config.ckpt, config.batch_eval,
                            config.eval_quantum)
+    if config.action == "export_model":
+        return export_model(load_eval_model(hparam, config.ckpt, device), hparam, config.ckpt)
     if config.action == "serve":
         return action_serve(hparam, device, config.ckpt, config.chunk_ms,
                             config.serve_slots, config.port, config.half, config.fused,

@@ -1,11 +1,13 @@
-"""TSE recipe command line: train, dev, eval, stream_eval and serve
-(counterpart of egs/tse/main.py: `load_eval_model` `:33-43`,
-`init_dataloader` `:46-113`, `action_train` `:116-144`, `action_dev`
-`:147-253`, `action_eval` `:311-375`, `action_serve` `:389-399`,
+"""TSE recipe command line: train, dev, tSNE, eval, export_model,
+stream_eval and serve (counterpart of egs/tse/main.py: `load_eval_model`
+`:33-43`, `init_dataloader` `:46-113`, `action_train` `:116-144`,
+`action_dev` `:147-253`, `action_tsne` `:256-310`, `action_eval`
+`:311-375`, `action_export` `:378-386`, `action_serve` `:389-399`,
 `action_stream_eval` `:402-440`, `main` `:443-491`).
 
     python -m puresound_tpu_torch.egs.tse.main <TSE.yaml-style config> \\
-        --action train|dev|eval|stream_eval|serve [--ckpt epoch_N.ckpt] [--backend cuda|cpu]
+        --action train|dev|tSNE|eval|export_model|stream_eval|serve \\
+        [--ckpt epoch_N.ckpt] [--backend cuda|cpu]
 
 Runs on the CUDA card unless `--backend cpu` asks for the CPU; `cuda`
 raises where torch sees no card. With `TRAIN.contrastive_learning` the
@@ -30,7 +32,16 @@ conditions the masker's initial state, which JAX's stream_eval never sets)
 and a non-causal one (stream_eval and serve refuse `tse_unet_tcn_v0` /
 `_v1` with the streaming engine's ValueError; the causal STFT-domain
 `tse_unet_tcn_v0_causal` streams through `StreamingNS` with its speaker
-net). tSNE and export_model are not ported yet and raise.
+net). tSNE embeds the dev set's enrollments (`inference_tse_embedding`),
+prints their silhouette by speaker and writes a t-SNE plot,
+TRAIN.model_save_dir/Speaker_dev_tSNE.png and .html (scikit-learn and
+matplotlib, imported by the action). export_model writes the model's
+`torch.export` artifacts (`utils.export.export_program`) to
+TRAIN.model_save_dir/<ckpt>.<Name>.pt2; load them after importing
+puresound_tpu_torch, which registers the kernels' ops.
+Still raising, built for several cards (ROADMAP queue 1 item 8b): mesh
+serving, `TRAIN.mp_devices > 1` / tensor parallelism, and
+`MhaSelfAttenLayer(improved=True)`.
 """
 from __future__ import annotations
 
@@ -55,10 +66,6 @@ from ...zoo.tse import init_loss, init_model
 from .local.binarize import Binarize
 
 ACTIONS = ("train", "dev", "eval", "tSNE", "export_model", "stream_eval", "serve")
-#: the actions that raise, and the ROADMAP item each waits for
-NOT_PORTED = {
-    "tSNE": "queue 1 item 2: tSNE, which needs scikit-learn and matplotlib",
-    "export_model": "queue 1 item 8: utils/export.py on torch.export"}
 
 
 def _device(backend: str, process_id: Optional[int] = None) -> torch.device:
@@ -337,6 +344,81 @@ def action_stream_eval(hparam, device, ckpt, chunk_ms=16.0, half=False) -> list:
     return rtfs
 
 
+def tsne_dvecs(hparam, device, ckpt):
+    """The dev set's enrollment d-vectors through `inference_tse_embedding`
+    on `device` (float64 on the host, [N, E]), their speakers (ref2spk.txt)
+    and utterance ids, in manifest order: the part of `--action tSNE` that
+    runs the model."""
+    ds = hparam["DATASET"]
+    dev_ds = TseDataset(folder=ds["dev"], resample_to=ds["sample_rate"], max_length=None,
+                        rir_mode=ds.get("rir_mode") or "image",
+                        enroll_rule=ds.get("enroll_rule"))
+    loader = DataLoader(dev_ds, batch_size=1, shuffle=False, collate_fn=TseCollateFunc())
+    model = load_eval_model(hparam, ckpt, device)
+    spk_dct = load_text_as_dict(f"{ds['dev']}/ref2spk.txt")
+    spk_list, dvec_list, uttids = [], [], []
+    dtype = next(model.parameters()).dtype
+    with torch.inference_mode():
+        for batch in loader:
+            enroll = _tensor(batch["enroll_wav"], device).to(dtype)
+            dvec = model.inference_tse_embedding(enroll)
+            spk_list.append(spk_dct[batch["uttid"][0]][0])
+            uttids.append(batch["uttid"][0])
+            dvec_list.append(dvec.double().cpu().numpy().reshape(-1))
+    return np.stack(dvec_list), spk_list, uttids
+
+
+def action_tsne(hparam, device, ckpt) -> dict:
+    """The dev set's enrollment d-vectors (`tsne_dvecs`), their silhouette
+    score by speaker and a 2-d t-SNE of them, written as
+    TRAIN.model_save_dir/Speaker_dev_tSNE.png and .html (JAX's
+    `egs/tse/main.py:256-310`). scikit-learn and matplotlib are imported
+    here, after the d-vectors, so a machine without them raises only here.
+    Returns the d-vectors [N, E] (float64), speakers, utterance ids,
+    silhouette and the t-SNE points."""
+    dvecs, spk_list, uttids = tsne_dvecs(hparam, device, ckpt)
+    from sklearn import manifold
+    from sklearn.metrics import silhouette_score
+
+    from ...utils.scatter_html import write_scatter_html
+
+    silhouette = silhouette_score(dvecs, spk_list)
+    print(f"silhouette: {silhouette}")
+    perplexity = min(30.0, max(1.0, len(dvecs) - 1))
+    tsne = manifold.TSNE(n_components=2, init="random", random_state=5,
+                         perplexity=perplexity, verbose=1).fit_transform(dvecs)
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    spk_idx = {s: i for i, s in enumerate(sorted(set(spk_list)))}
+    plt.figure(figsize=(8, 8))
+    plt.scatter(tsne[:, 0], tsne[:, 1], c=[spk_idx[s] for s in spk_list], cmap="tab20",
+                alpha=0.5)
+    plt.xticks([])
+    plt.yticks([])
+    out = f"{hparam['TRAIN']['model_save_dir']}/Speaker_dev_tSNE.png"
+    plt.savefig(out)
+    plt.close()
+    print(f"saved {out}")
+    html = f"{hparam['TRAIN']['model_save_dir']}/Speaker_dev_tSNE.html"
+    write_scatter_html(html, tsne, spk_list, uttids, title="Speaker dev t-SNE")
+    print(f"saved {html}")
+    return {"dvecs": dvecs, "speakers": spk_list, "uttids": uttids,
+            "silhouette": silhouette, "tsne": tsne}
+
+
+def export_model(model, hparam, ckpt) -> list:
+    """Write `model`'s torch.export artifacts to
+    TRAIN.model_save_dir/<ckpt>.<Name>.pt2 (every recipe's export_model,
+    JAX's `egs/tse/main.py:378-386`); returns the paths."""
+    from ...utils.export import export_program
+
+    return export_program(model, hparam["DATASET"]["sample_rate"],
+                          hparam["TRAIN"]["model_save_dir"], ckpt)
+
+
 def action_serve(hparam, device, ckpt, chunk_ms, n_slots, port, half=False, fused=False,
                  pcm16=False) -> None:
     """Serve the checkpoint through the TCP front until Ctrl-C: each
@@ -348,13 +430,10 @@ def action_serve(hparam, device, ckpt, chunk_ms, n_slots, port, half=False, fuse
               sr=hparam["DATASET"]["sample_rate"], half=half, fused=fused, pcm16=pcm16)
 
 
-def check_action(config, not_ported=NOT_PORTED) -> None:
-    """Raise for an action that is not ported, for --num_processes > 1 with
-    another action than train, and for a missing --ckpt (every action but
-    train needs one, `egs/tse/main.py:448-469`)."""
-    if config.action in not_ported:
-        raise NotImplementedError(f"--action {config.action} is not ported yet "
-                                  f"(ROADMAP {not_ported[config.action]})")
+def check_action(config) -> None:
+    """Raise for --num_processes > 1 with another action than train, and
+    for a missing --ckpt (every action but train needs one,
+    `egs/tse/main.py:448-469`)."""
     if config.num_processes > 1 and config.action != "train":
         raise ValueError("--num_processes > 1 applies to --action train")
     if config.action != "train" and not config.ckpt:
@@ -403,6 +482,10 @@ def _run(config, hparam, device):
     if config.action == "eval":
         return action_eval(hparam, device, config.ckpt, config.batch_eval,
                            config.eval_quantum)
+    if config.action == "tSNE":
+        return action_tsne(hparam, device, config.ckpt)
+    if config.action == "export_model":
+        return export_model(load_eval_model(hparam, config.ckpt, device), hparam, config.ckpt)
     if config.action == "serve":
         return action_serve(hparam, device, config.ckpt, config.chunk_ms,
                             config.serve_slots, config.port, config.half, config.fused,

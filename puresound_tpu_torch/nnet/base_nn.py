@@ -277,6 +277,11 @@ class SoTaskWrapModule(nn.Module):
         """noisy [N, L] (+ enroll [N, L']) -> enhanced [N, L]."""
         return self._mask_and_decode(self._encode(noisy), self._condition(enroll))
 
+    def inference_tse_embedding(self, enroll: torch.Tensor) -> torch.Tensor:
+        """Enrollment [N, L'] -> the speaker net's output (JAX
+        `base_nn.py:291-293`): [N, E, 1] for the pooled nets."""
+        return run_speaker_net(self.speaker_net, self._encode_enroll(enroll))
+
 
 class SiMoTaskWrapModule(nn.Module):
     """Single-input multi-output wrapper (DSS separation): the masker emits

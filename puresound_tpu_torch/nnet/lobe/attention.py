@@ -10,7 +10,7 @@ Linear, ReLU, Dropout, Linear, Dropout). Its norms are flax `nn.LayerNorm`s:
 eps 1e-5, statistics in at least float32 with the single-pass variance
 E[x^2] - E[x]^2 clipped at 0, the output in the promoted dtype of the input
 and the parameters. `improved=True` (the LSTM feed-forward of DPTNet) is not
-ported yet (ROADMAP queue 1 item 8).
+ported yet (ROADMAP queue 1 item 8b).
 """
 from __future__ import annotations
 
@@ -160,7 +160,7 @@ class MhaSelfAttenLayer(nn.Module):
         if improved:
             raise NotImplementedError(
                 "MhaSelfAttenLayer(improved=True), the LSTM feed-forward, is not "
-                "ported yet (ROADMAP queue 1 item 8)")
+                "ported yet (ROADMAP queue 1 item 8b)")
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
         self.improved, self.position_encoding = improved, position_encoding

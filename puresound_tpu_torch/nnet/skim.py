@@ -16,8 +16,9 @@ one, as JAX asserts (`:539`). Module and parameter names follow PureSound
 checkpoints load as they are.
 
 The streaming state keeps the JAX pytree's keys; its shared segment clock
-`frame_count` is a host int, so the segment-boundary test never reads the
-device.
+`frame_count` is a host int, so the eager segment-boundary test never reads
+the device. A 0-d tensor clock (the exported StreamStep's) takes the
+boundary through the `cond` operator instead.
 
 `TM_BLOCKS` (JAX's `PURESOUND_TM_BLOCKS`, default off, read at import)
 runs the offline block stack of non-overlapped segments time-major,
@@ -32,6 +33,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..ops.quant import quantize_cols
 from ..ops.skim_stream_kernel import SkimWeights, fused_skim_frames
@@ -131,6 +134,30 @@ class MemLSTM(nn.Module):
         c_seq, c_states = self._branch("c", c.reshape(B, 1, D * H), c_states)
         return (h_seq.reshape(B, D, H).transpose(0, 1),
                 c_seq.reshape(B, D, H).transpose(0, 1), h_states, c_states)
+
+
+class _MemUpdate(nn.Module):
+    """SkiM's segment-boundary update over its MemLSTMs (held, not owned:
+    built on the fly, it adds no names to SkiM's state_dict)."""
+
+    def __init__(self, mem_lstm: nn.ModuleList):
+        super().__init__()
+        self.mem_lstm = mem_lstm
+
+    def forward(self, seg_h, seg_c, mem_h, mem_c):
+        """Next-segment SegLSTM inits: block 0 zeros, block i+1 the output
+        of mem_lstm[i] on block i's final states; and the new MemLSTM
+        states."""
+        next_h, next_c = [torch.zeros_like(seg_h[0])], [torch.zeros_like(seg_c[0])]
+        new_mem_h, new_mem_c = [], []
+        for i, mem in enumerate(self.mem_lstm):
+            h_out, c_out, mh, mc = mem.step(seg_h[i].transpose(0, 1),
+                                            seg_c[i].transpose(0, 1), mem_h[i], mem_c[i])
+            next_h.append(h_out)
+            next_c.append(c_out)
+            new_mem_h.append(tuple(mh))
+            new_mem_c.append(tuple(mc))
+        return next_h, next_c, new_mem_h, new_mem_c
 
 
 class SkiM(nn.Module):
@@ -265,25 +292,48 @@ class SkiM(nn.Module):
     def _mem_update(self, state, seg_h, seg_c):
         """Next-segment SegLSTM inits: block 0 zeros, block i+1 the output
         of mem_lstm[i] on block i's final states."""
-        next_h, next_c = [torch.zeros_like(seg_h[0])], [torch.zeros_like(seg_c[0])]
-        new_mem_h, new_mem_c = [], []
-        for i in range(self.n_blocks - 1):
-            h_out, c_out, mh, mc = self.mem_lstm[i].step(
-                seg_h[i].transpose(0, 1), seg_c[i].transpose(0, 1),
-                state["mem_h"][i], state["mem_c"][i])
-            next_h.append(h_out)
-            next_c.append(c_out)
-            new_mem_h.append(mh)
-            new_mem_c.append(mc)
-        return next_h, next_c, new_mem_h, new_mem_c
+        return _MemUpdate(self.mem_lstm)(seg_h, seg_c, state["mem_h"], state["mem_c"])
 
     def _advance_clock(self, state, seg_h, seg_c, frames: int) -> dict:
         count = state["frame_count"] + frames
         st = dict(state, seg_h=seg_h, seg_c=seg_c, frame_count=count)
+        if isinstance(count, torch.Tensor):
+            return self._advance_tensor_clock(st, count)
         if count % self.seg_size == 0:
             nh, nc, mh, mc = self._mem_update(st, seg_h, seg_c)
             st = dict(st, seg_h=nh, seg_c=nc, mem_h=mh, mem_c=mc)
         return st
+
+    def _advance_tensor_clock(self, st: dict, count: torch.Tensor) -> dict:
+        """The segment boundary on a 0-d tensor clock (the exported
+        StreamStep's, `utils.export.stream_state`): the `cond` operator keeps
+        both branches in a traced graph, where a host int would freeze one
+        (JAX carries a device int32 and takes `lax.cond`, `skim.py:368-381`).
+        The operator takes and returns flat tensors, the MemLSTM weights
+        among its operands (`functional_call`); called directly it traces its
+        branches without `torch.cond`'s compile step."""
+        update = _MemUpdate(self.mem_lstm)
+        names, weights = zip(*update.named_parameters()) if self.n_blocks > 1 else ((), ())
+        # detached: an operand that requires grad sends the operator through
+        # its autograd path, which traces a backward at every call
+        weights = [w.detach() for w in weights]
+        flat, spec = tree_flatten((st["seg_h"], st["seg_c"], st["mem_h"], st["mem_c"]))
+        n = len(flat)
+
+        def boundary(*operands):
+            state = tree_unflatten(list(operands[:n]), spec)
+            out = functional_call(update, dict(zip(names, operands[n:])), state)
+            return tuple(tree_flatten(out)[0])
+
+        def carry(*operands):
+            # a branch returns no alias of its operands
+            return tuple(t.clone() for t in operands[:n])
+
+        out = torch.ops.higher_order.cond(count % self.seg_size == 0, boundary, carry,
+                                          (*flat, *weights))
+        nh, nc, mh, mc = tree_unflatten(list(out), spec)
+        return dict(st, seg_h=list(nh), seg_c=list(nc), mem_h=[tuple(m) for m in mh],
+                    mem_c=[tuple(m) for m in mc])
 
     def step_frames(self, x: torch.Tensor, embed: Optional[torch.Tensor],
                     state: dict):

@@ -34,7 +34,10 @@ differ there by design. Weights are JAX's layout: w_ih [C, 4H], bias
 Dispatch: one `torch.autograd.Function` per variant for both devices. A
 CPU tensor runs the plain forward and backward below; a CUDA tensor
 launches `csrc/lstm_train.cu` (built with nvcc at first use) or raises.
-Without a gradient to compute the forward skips the residual stores. The
+Without a gradient to compute the forward skips the residual stores and
+goes through the `torch.library` ops `puresound_tpu_torch::lstm_scan_train_fp`
+(both layouts, `time_major`) and `puresound_tpu_torch::lstm_scan_train_tm`,
+whose bodies are that same dispatch: `torch.export` records the op. The
 kernels' layout (cluster size, units and rows a cluster, buffers) comes
 from `_plan`, which raises `LstmPlanError` (a ValueError) for a shape no
 layout fits; the source checks it again at each launch.
@@ -572,15 +575,62 @@ def _needs_grad(*args):
     return torch.is_grad_enabled() and any(a.requires_grad for a in args)
 
 
+# ------------------------------------------------------------ library ops
+# The no-grad forwards are `torch.library` ops, so that `torch.export` (and
+# any later capture) records one node a scan instead of the ctypes launch or
+# the plain version's unrolled step loop. Each op's body is the dispatch
+# above: a CUDA tensor launches the kernel (and counts it in FWD_BY_ENTRY),
+# a CPU tensor runs the plain version, any other device raises. The fake
+# bodies give shapes and dtypes only; nothing builds at registration.
+def _fp_forward(x, h0, c0, w_ih, bias, w_hh, reverse, time_major):
+    args = (x, h0, c0, w_ih, bias, w_hh, reverse)
+    if _on_card(x):
+        out = _launch_fwd(*args, residuals=False, time_major=time_major)
+    else:
+        out = lstm_scan_train_fp_ref(*args, time_major)
+    return out[:3]
+
+
+def _hoisted_forward(xp_t, h0, c0, w_hh, reverse):
+    if _on_card(xp_t):
+        out = _launch_fwd(xp_t, h0, c0, None, None, w_hh, reverse,
+                          residuals=False, time_major=True)
+    else:
+        out = lstm_scan_train_ref(xp_t, h0, c0, w_hh, reverse)
+    return out[:3]
+
+
+# one dispatcher entry a kernel key, no Python wrapper around the op: a
+# `torch.library.custom_op` adds its own checks on the host to every call
+_LIB = torch.library.Library("puresound_tpu_torch", "FRAGMENT")
+_LIB.define("lstm_scan_train_fp(Tensor x, Tensor h0, Tensor c0, Tensor w_ih, Tensor bias, "
+            "Tensor w_hh, bool reverse, bool time_major) -> (Tensor, Tensor, Tensor)")
+_LIB.define("lstm_scan_train_tm(Tensor xp_t, Tensor h0, Tensor c0, Tensor w_hh, "
+            "bool reverse) -> (Tensor, Tensor, Tensor)")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("lstm_scan_train_fp", _fp_forward, _key)
+    _LIB.impl("lstm_scan_train_tm", _hoisted_forward, _key)
+_fp_op = torch.ops.puresound_tpu_torch.lstm_scan_train_fp.default
+_hoisted_op = torch.ops.puresound_tpu_torch.lstm_scan_train_tm.default
+
+
+@torch.library.register_fake("puresound_tpu_torch::lstm_scan_train_fp", lib=_LIB)
+def _(x, h0, c0, w_ih, bias, w_hh, reverse, time_major):
+    return (x.new_empty((x.shape[0], x.shape[1], w_hh.shape[0])), h0.new_empty(h0.shape),
+            c0.new_empty(c0.shape))
+
+
+@torch.library.register_fake("puresound_tpu_torch::lstm_scan_train_tm", lib=_LIB)
+def _(xp_t, h0, c0, w_hh, reverse):
+    return (xp_t.new_empty((xp_t.shape[0], xp_t.shape[1], w_hh.shape[0])),
+            h0.new_empty(h0.shape), c0.new_empty(c0.shape))
+
+
 def _scan_fp(x, h0, c0, w_ih, bias, w_hh, reverse, time_major):
     args = (x, h0, c0, w_ih, bias, w_hh)
     if _needs_grad(*args):
         return _ScanFP.apply(*args, reverse, time_major)
-    if _on_card(x):
-        out = _launch_fwd(*args, reverse, residuals=False, time_major=time_major)
-    else:
-        out = lstm_scan_train_fp_ref(*args, reverse, time_major)
-    return out[:3]
+    return _fp_op(*args, reverse, time_major)
 
 
 def lstm_scan_train_fp(x, h0, c0, w_ih, bias, w_hh, reverse: bool = False):
@@ -606,12 +656,7 @@ def lstm_scan_train_tm(xp_t, h0, c0, w_hh, reverse: bool = False):
     [H, 4H] -> (y_t [T, B, H], hT, cT)."""
     if _needs_grad(xp_t, h0, c0, w_hh):
         return _ScanHoisted.apply(xp_t, h0, c0, w_hh, reverse)
-    if _on_card(xp_t):
-        out = _launch_fwd(xp_t, h0, c0, None, None, w_hh, reverse,
-                          residuals=False, time_major=True)
-    else:
-        out = lstm_scan_train_ref(xp_t, h0, c0, w_hh, reverse)
-    return out[:3]
+    return _hoisted_op(xp_t, h0, c0, w_hh, reverse)
 
 
 def lstm_scan_train(xp, h0, c0, w_hh, reverse: bool = False):

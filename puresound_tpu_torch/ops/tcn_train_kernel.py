@@ -26,6 +26,8 @@ runs the plain forward and backward below; a CUDA tensor launches
 `csrc/tcn_train.cu` (built with nvcc at first use) on the route `_plan`
 gives by shape and dtype (bf16 at C, Ch in {64, 128, 256}: the 1x1
 products and their weight gradients on wgmma; else CUDA cores), or raises.
+Without a gradient the forward goes through the `torch.library` op
+`puresound_tpu_torch::tcn_block_train`, whose body is that same dispatch.
 """
 from __future__ import annotations
 
@@ -503,6 +505,23 @@ def _backward(x, dy, params, dilation):
     return _launch_bwd(x, dy, params, dilation)
 
 
+# The no-grad forward is the `torch.library` op puresound_tpu_torch::tcn_block_train,
+# so that `torch.export` records one node a block; its body is `_forward`
+# (the kernel on a CUDA tensor, counted in FWD_LAUNCHES, the plain version on
+# a CPU tensor), registered on the dispatcher's CPU and CUDA keys; its fake
+# body gives the shape only.
+_LIB = torch.library.Library("puresound_tpu_torch", "FRAGMENT")
+_LIB.define("tcn_block_train(Tensor x, Tensor[] params, int dilation) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("tcn_block_train", _forward, _key)
+_tcn_op = torch.ops.puresound_tpu_torch.tcn_block_train.default
+
+
+@torch.library.register_fake("puresound_tpu_torch::tcn_block_train", lib=_LIB)
+def _(x, params, dilation):
+    return x.new_empty(x.shape)
+
+
 class _TcnBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dilation, *params):
@@ -526,4 +545,4 @@ def tcn_block_train(x, w_in, g1, b1, al1, w_dw, b_dw, g2, b2, al2, w_pw, b_pw,
               al3, w_out, b_out)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
         return _TcnBlock.apply(x, dilation, *params)
-    return _forward(x, params, dilation)
+    return _tcn_op(x, list(params), dilation)

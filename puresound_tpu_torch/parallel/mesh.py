@@ -37,7 +37,7 @@ model's device.
   processes before the clip, the non-finite check and the optimizer.
 
 Sharding over a device mesh (`mesh`, `tp`) is not ported (ROADMAP queue 1
-item 8).
+item 8b).
 """
 from __future__ import annotations
 
@@ -96,7 +96,7 @@ def make_train_step(model: nn.Module, loss_kwargs: Optional[Dict] = None,
         if value:
             raise NotImplementedError(
                 f"make_train_step({name}=...) is not ported yet (ROADMAP queue 1 "
-                "item 8: multi-device)")
+                "item 8b: multi-device)")
     if data_parallel and not multihost.dist.is_initialized():
         raise ValueError("data_parallel needs multihost.initialize first")
     loss_kwargs = loss_kwargs or {}

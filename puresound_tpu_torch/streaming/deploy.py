@@ -98,7 +98,7 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
     """
     if mesh is not None:
         raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP queue 1 item 8: "
+            "mesh serving is not ported yet (ROADMAP queue 1 item 8b: "
             "multi-device)")
     if (isinstance(model.encoder, FreeEncDec)
             and getattr(model, "speaker_net", None) is None):

@@ -206,7 +206,7 @@ class NsTask(BaseTrainer):
                 "<rank> --coordinator host:port)")
         if int(train.get("mp_devices") or 1) > 1:
             raise NotImplementedError("TRAIN.mp_devices > 1 (tensor parallelism) is not "
-                                      "ported yet (ROADMAP queue 1 item 8: multi-device)")
+                                      "ported yet (ROADMAP queue 1 item 8b: multi-device)")
         self.model = model
         # the on-device chain's draws (JAX's PRNGKey(TRAIN.seed)); the same
         # seed on every process, whose draws are the global batch's

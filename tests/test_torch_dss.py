@@ -728,11 +728,10 @@ def test_cli_trains_the_shipped_config_on_the_cpu(tmp_path, manifest, monkeypatc
 def test_cli_needs_a_ckpt_and_unported_actions_raise(tmp_path):
     cfg = tmp_path / "c.yaml"
     dump_hparam(_hp(str(tmp_path), tmp_path / "models"), str(cfg))
-    for action in ("dev", "eval", "stream_eval", "serve"):
+    # export_model is ported: like every action but train it needs --ckpt
+    for action in ("dev", "eval", "stream_eval", "serve", "export_model"):
         with pytest.raises(ValueError, match="--ckpt is required"):
             cli.main(cli.parse_args([str(cfg), "--action", action, "--backend", "cpu"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        cli.main(cli.parse_args([str(cfg), "--action", "export_model", "--ckpt", "x"]))
     with pytest.raises(ValueError, match="--action train"):
         cli.main(cli.parse_args([str(cfg), "--action", "dev", "--num_processes", "2"]))
     if not torch.cuda.is_available():

@@ -461,7 +461,8 @@ def test_cli_defaults_to_the_card_and_other_actions_raise(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--backend cpu"):
             cli.main(cli.parse_args([str(cfg)]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # export_model is ported: like every action but train it needs --ckpt
+    with pytest.raises(ValueError, match="--ckpt is required"):
         cli.main(cli.parse_args([str(cfg), "--action", "export_model"]))
     # multi-process runs train only (JAX's check)
     with pytest.raises(ValueError, match="--action train"):

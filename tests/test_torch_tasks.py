@@ -422,8 +422,10 @@ def test_cli_defaults_to_the_card_and_unported_options_raise(tmp_path, manifest,
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--backend cpu"):
             cli.main(cli.parse_args([cfg]))
+    # tSNE and export_model are ported: like every action but train they
+    # need a checkpoint
     for argv in ([cfg, "--action", "tSNE"], [cfg, "--action", "export_model"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="--ckpt is required"):
             cli.main(cli.parse_args(argv))
     with pytest.raises(ValueError, match="--action train"):
         cli.main(cli.parse_args([cfg, "--action", "eval", "--num_processes", "2"]))
