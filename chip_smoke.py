@@ -444,9 +444,12 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
+
+from puresound_tpu_torch.utils import roofline
 
 SEED = 1234
 REPLACES = "puresound_tpu/ops/skim_stream_kernel.py:270"
@@ -811,8 +814,9 @@ def kernel_case(ops, SkiM, name, n, C, H, B, F, modes, chunks, gen, dev,
 
 
 # ------------------------------------------------------------------ phase 2b
-PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
-PEAK_BYTES = 3.35e12
+# the H100 SXM's dense peaks (utils/roofline.py)
+PEAK_OPS = {torch.float32: roofline.H100_F32_FLOPS, torch.bfloat16: roofline.H100_BF16_FLOPS}
+PEAK_BYTES = roofline.H100_HBM_BYTES_S
 
 
 def bound_ms(flops: float, nbytes: float, dt) -> tuple:
@@ -2072,7 +2076,7 @@ def opts_of(variant: str) -> dict:
 
 #: the card's dense int8 tensor-core rate (H100 SXM data sheet), op/s: the
 #: peak of int8 products that run on mma.sync m16n8k32
-INT8_TC_OPS = 1979e12
+INT8_TC_OPS = roofline.H100_INT8_OPS
 
 
 def mixed_bound(ops: dict, nbytes: float) -> tuple:
@@ -7332,6 +7336,615 @@ def export_phase(lk, tk, dev, card, backend: str = "cuda") -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 8
+SEQPAR_SECONDS, SEQPAR_ENROLL = 60.0, 1.0   # 8a: one recording at B=1
+SEQPAR_HALOS = (0.5, 1.0, 2.0)              # the flagship's left halos, seconds
+SEQPAR_BAR = 1e-4                           # finite receptive field: max|d| / max|ref|
+SEQPAR_EDGE = 16000                         # the recording's last second left out
+MESH_SLOTS, MESH_TICKS, MESH_WARM = 16, 20, 3
+MESH_BAR = 1e-4                             # mesh vs one device where not bit-equal
+TP_B, TP_SECONDS = 16, 2.0
+ATTN_ROWS, ATTN_T, ATTN_C, ATTN_HEADS = 4096, 64, 128, 8
+# the demos step the flagship's unfused step, host-bound (a final run's
+# 8e took 33 + 27 s at 4 s / 3 s on one host, 41 + 71 s on another)
+DEMO_SECONDS, LIVE_MICS, LIVE_SECONDS = 1.0, 4, 1.0
+PROF_SLOTS, PROF_STEPS = 1024, 3
+PROF_KERNEL = "skim_tc_kernel"              # fused_skim_frames' bf16 kernel in a trace
+
+
+def _wall(fn):
+    """(fn(), seconds) with the card synchronised on both ends."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def seqpar_phase(lk, tk, dev, card) -> dict:
+    """Phase 8a: `seq_parallel_infer` of one SEQPAR_SECONDS recording at
+    B=1 over meshes of [dev] * 2 and [dev] * 4. The flagship
+    (tse_skim_v0_causal, seed SEED, chunks aligned to its 2,400-sample
+    segment grid, a right halo of a segment and a window): each chunk's
+    interior equals `inference` on that halo-extended chunk bit for bit, and
+    the SNR against the unsharded run (from the first chunk boundary to the
+    recording's last second) at left halos SEQPAR_HALOS, the burn-in curve.
+    td_tse_conv_tasnet_v0_causal (finite receptive field) with the halo its
+    `probe_lookahead_receptive` measures: within SEQPAR_BAR of max|ref| past
+    a receptive field and a lookahead from either end of the recording.
+    Launches and wall seconds of sharded against unsharded (one card: no
+    speed-up expected)."""
+    from puresound_tpu_torch.parallel import make_mesh, overlapped_chunks, seq_parallel_infer
+    from puresound_tpu_torch.utils.model_info import probe_lookahead_receptive
+    from puresound_tpu_torch.zoo.tse import init_model
+
+    rng = np.random.default_rng(SEED + 220)
+    r = lambda n: torch.from_numpy((0.1 * rng.standard_normal((1, n))).astype(np.float32))
+    x, enroll = r(int(16000 * SEQPAR_SECONDS)).to(dev), r(int(16000 * SEQPAR_ENROLL)).to(dev)
+    meshes = {n: make_mesh(n_dp=n, devices=[dev] * n) for n in (2, 4)}
+    out, launches = {}, [0, 0, 0, 0]
+    for name in ("tse_skim_v0_causal", "td_tse_conv_tasnet_v0_causal"):
+        t = time.perf_counter()
+        model = init_model(name, device=dev, generator=torch.Generator().manual_seed(SEED))
+
+        def fn(c):
+            with torch.no_grad():
+                return model.inference(c, enroll)
+
+        hop = model.encoder.hop_length
+        if name == "tse_skim_v0_causal":
+            align = hop * model.masker.seg_size
+            halo_r = align + 2 * hop
+            halos = [int(16000 * h) for h in SEQPAR_HALOS]
+            look = recep = None
+        else:
+            look, recep = probe_lookahead_receptive(fn, length=160000, device=dev)
+            if look is None or recep is None:
+                raise AssertionError(f"8a {name}: lookahead {look}, receptive field {recep}")
+            align, halo_r, halos = hop, look, [recep]
+        fn(x[:, :32000])
+        zero_counts(lk, tk)
+        ref, wall_ref = _wall(lambda: fn(x))
+        ref_launches = counts(lk, tk)
+        res = {"unsharded_s": wall_ref, "launches_unsharded": ref_launches,
+               "halos": halos, "align": align, "halo_right": halo_r,
+               "lookahead": look, "receptive": recep}
+        peak = ref.abs().max().item()
+        for n, mesh in meshes.items():
+            for h in halos:
+                zero_counts(lk, tk)
+                y, wall = _wall(lambda: seq_parallel_infer(fn, x, mesh, h, halo_r, align))
+                c = counts(lk, tk)
+                expect_launches(c, tuple(n * v for v in ref_launches),
+                                f"8a {name} over {n}: LSTM and TCN (fwd, bwd)")
+                launches = [a + b for a, b in zip(launches, c)]
+                chunks, Lc, T = overlapped_chunks(x, n, h, halo_r, align)
+                hl = chunks.shape[-1] - Lc - halo_r
+                for i in range(n):
+                    piece = fn(chunks[i])[..., hl:hl + Lc][..., :max(0, T - i * Lc)]
+                    if not torch.equal(piece, y[..., i * Lc:i * Lc + piece.shape[-1]]):
+                        raise AssertionError(f"8a {name} over {n}, halo {h}: chunk {i}'s "
+                                             "interior is not its own inference")
+                # the flagship from the first chunk boundary on (chunk 0's start
+                # burns in on the zero halo the whole-signal run never sees,
+                # whatever the halo); the finite receptive field past its reach
+                # of the recording's edges
+                lo, hi = ((Lc, T - SEQPAR_EDGE) if recep is None
+                          else (recep + look + 16, T - recep - look - 16))
+                a, b = ref[:, lo:hi], y[:, lo:hi]
+                err = (a - b).abs().max().item() / max(peak, 1e-30)
+                res[(n, h)] = {"snr_db": snr_db(b, a), "rel_err": err, "wall_s": wall,
+                               "launches": c}
+                if recep is not None and not err <= SEQPAR_BAR:
+                    raise AssertionError(f"8a {name} over {n}: max|d| / max|ref| {err:.3e} > "
+                                         f"{SEQPAR_BAR:g} at halo {h} (its receptive field)")
+        if recep is None and not res[(2, halos[-1])]["snr_db"] >= 25.0:
+            raise AssertionError(f"8a {name}: {res[(2, halos[-1])]['snr_db']:.1f} dB at the "
+                                 f"{SEQPAR_HALOS[-1]:g} s halo (bar 25)")
+        out[name] = res
+        log("8a seqpar", f"{name}, {SEQPAR_SECONDS:g} s at B=1 over make_mesh(devices=[{dev}] * "
+            f"n), align {align}, right halo {halo_r}" + (
+                f", probed lookahead {look} / receptive field {recep}" if recep else "")
+            + f": every chunk's interior == its own inference bit for bit; unsharded "
+            f"{wall_ref:.3f} s, launches {ref_launches}; " + "; ".join(
+                f"n={n} halo {h}: SNR {res[(n, h)]['snr_db']:.1f} dB, max|d|/max|ref| "
+                f"{res[(n, h)]['rel_err']:.2e}, {res[(n, h)]['wall_s']:.3f} s"
+                for n in meshes for h in halos) + f" [{card}]", t)
+        del model
+    return {"launches": tuple(launches), "models": out}
+
+
+def _mesh_server_run(make, kind, dev, chunk_rng_seed):
+    """Attach MESH_SLOTS sessions (TSE by 1 s enrollments from a seed), then
+    MESH_WARM + MESH_TICKS ticks of every slot: (outputs [slots, L], tick
+    ms of the timed ticks, launches of the timed ticks, of the attaches)."""
+    from puresound_tpu_torch.ops import lstm_train_kernel as lk
+    from puresound_tpu_torch.ops import tcn_train_kernel as tk
+
+    bundle = make()
+    server, chunk = bundle.server, bundle.chunk_samples
+    rng = np.random.default_rng(chunk_rng_seed)
+    zero_counts(lk, tk)
+    if kind == "tse":
+        sids = [server.attach(enroll=(0.1 * rng.standard_normal(16000)).astype(np.float32))
+                for _ in range(MESH_SLOTS)]
+    else:
+        sids = [server.attach() for _ in range(MESH_SLOTS)]
+    attach_launches = counts(lk, tk)
+    n = MESH_WARM + MESH_TICKS
+    audio = (0.1 * rng.standard_normal((MESH_SLOTS, n * chunk))).astype(np.float32)
+    outs, ticks = [[] for _ in sids], []
+    for k in range(n):
+        if k == MESH_WARM:
+            torch.cuda.synchronize()
+            zero_counts(lk, tk)
+        for i, sid in enumerate(sids):
+            server.hub.push_input(sid, audio[i, k * chunk:(k + 1) * chunk])
+        t = time.perf_counter()
+        server.tick()
+        if k >= MESH_WARM:
+            ticks.append(1e3 * (time.perf_counter() - t))
+        for i, sid in enumerate(sids):
+            avail = server.hub.output_available(sid)
+            if avail:
+                outs[i].append(server.hub.pop_output(sid, avail))
+    torch.cuda.synchronize()
+    tick_launches = counts(lk, tk)
+    server.flush()
+    for i, sid in enumerate(sids):
+        avail = server.hub.output_available(sid)
+        if avail:
+            outs[i].append(server.hub.pop_output(sid, avail))
+    return (np.stack([np.concatenate(o) for o in outs]), ticks, tick_launches,
+            attach_launches)
+
+
+def mesh_serving_phase(lk, tk, dev, card) -> dict:
+    """Phase 8b: `make_session_server(mesh=make_mesh(n_dp=2, devices=[dev] *
+    2))` against the one-device server on the same weights and audio,
+    MESH_SLOTS slots, MESH_WARM + MESH_TICKS ticks: the flagship's stock
+    step in f32 (15 ms ticks, attached by 1 s enrollments) and
+    ns_dpcrn_v0_causal's under `cudnn.deterministic` (16 ms). Every slot's
+    output bit-equal or within MESH_BAR of max|ref| (said which); each
+    replica launches the one-device step's scans over half the rows, so a
+    mesh tick launches twice as many; the TSE mesh pipelined == unpipelined;
+    mesh + fused=True raises."""
+    from puresound_tpu_torch.parallel import make_mesh
+    from puresound_tpu_torch.streaming.deploy import make_session_server
+    from puresound_tpu_torch.zoo import ns as zns
+    from puresound_tpu_torch.zoo import tse as ztse
+
+    mesh = make_mesh(n_dp=2, devices=[dev, dev])
+    res, launches = {}, [0, 0, 0, 0]
+    for name, kind in (("tse_skim_v0_causal", "tse"), ("ns_dpcrn_v0_causal", "ns")):
+        t = time.perf_counter()
+        zoo = ztse if kind == "tse" else zns
+        model = zoo.init_model(name, device=dev, generator=torch.Generator().manual_seed(SEED))
+        kw = (dict(chunk_ms=15.0, enroll_len=16000, fused=False) if kind == "tse"
+              else dict(chunk_ms=16.0))
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = kind == "ns"
+        try:
+            runs = {}
+            for label, m, extra in (("one", None, {}), ("mesh", mesh, {}),
+                                    ("mesh pipelined", mesh, dict(pipelined=True))):
+                # every session attaches before the first tick: the SkiM
+                # segment clock's mid-serving warning does not apply
+                warnings.filterwarnings("ignore", message="chunk of 15 frames")
+                runs[label] = _mesh_server_run(
+                    lambda: make_session_server(model, None, MESH_SLOTS, mesh=m, lockstep=True,
+                                                **kw, **extra), kind, dev, SEED + 221)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        (want, t1, c1, a1), (got, tm, cm, am), (piped, _, cp, _) = (
+            runs["one"], runs["mesh"], runs["mesh pipelined"])
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"8b {name}: mesh output {got.shape}, one device {want.shape}")
+        equal = np.array_equal(got, want)
+        err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+        if not err <= MESH_BAR:
+            raise AssertionError(f"8b {name}: mesh vs one device max|d|/max|ref| {err:.3e}")
+        if not np.array_equal(piped, got):
+            raise AssertionError(f"8b {name}: pipelined mesh server != unpipelined")
+        expect_launches(cm, tuple(2 * v for v in c1),
+                        f"8b {name}: a mesh tick's launches against twice the one device's")
+        expect_launches(am, a1, f"8b {name}: the attaches' launches (the first replica embeds)")
+        if not c1[0]:
+            raise AssertionError(f"8b {name}: the stock step launched no LSTM kernel")
+        launches = [a + b + c + d + e for a, b, c, d, e in zip(launches, cm, am, cp, a1)]
+        p = lambda v, q: float(np.percentile(v, q))
+        res[name] = {"bit_equal": equal, "rel_err": err, "one_p50": p(t1, 50),
+                     "one_p99": p(t1, 99), "mesh_p50": p(tm, 50), "mesh_p99": p(tm, 99),
+                     "launches_tick": tuple(v / MESH_TICKS for v in cm),
+                     "one_launches_tick": tuple(v / MESH_TICKS for v in c1)}
+        log("8b mesh serving", f"{name} stock step f32, {MESH_SLOTS} slots over dp=2 on "
+            f"[{dev}] * 2 against one device, {MESH_TICKS} ticks after {MESH_WARM}"
+            + (", cudnn.deterministic" if kind == "ns" else ", attached by 1 s enrollments")
+            + f": every slot {'bit-equal' if equal else f'within {err:.2e} of max|ref| (not bit-equal)'}; "
+            f"pipelined == unpipelined; tick p50 / p99 one device {p(t1, 50):.3f} / "
+            f"{p(t1, 99):.3f} ms, mesh {p(tm, 50):.3f} / {p(tm, 99):.3f} ms; LSTM / TCN "
+            f"launches a tick {res[name]['one_launches_tick']} -> "
+            f"{res[name]['launches_tick']}, attaches {a1} [{card}]", t)
+    model = ztse.init_model("tse_skim_v0_causal", device=dev)
+    try:
+        make_session_server(model, None, 4, mesh=mesh, fused=True)
+    except ValueError as e:
+        log("8b mesh serving", f"mesh + fused=True raises JAX's ValueError: {e}",
+            time.perf_counter())
+    else:
+        raise AssertionError("8b: mesh + fused=True served")
+    return {"launches": tuple(launches), "models": res}
+
+
+def tp_phase(lk, tk, dev, card) -> dict:
+    """Phase 8c: `multihost.initialize` joins a NCCL group of one process;
+    `make_train_step(mesh=make_mesh(1, 1), tp=True)` on the flagship
+    (B=TP_B x TP_SECONDS s, SI-SNR, clip 10) over 2 steps == the plain step
+    bit for bit under `cudnn.deterministic`, the same launches; then one
+    `NsTask` epoch of one batch with TRAIN.mp_devices 1 under multi_gpu.
+    mp = 2 needs two cards (NCCL takes one process a card)."""
+    import socket
+
+    from puresound_tpu_torch.parallel import (make_mesh, make_train_step, multihost,
+                                              shard_state_to_mesh)
+    from puresound_tpu_torch.tasks.ns import NsTask
+    from puresound_tpu_torch.zoo.ns import init_loss
+    from puresound_tpu_torch.zoo.ns import init_model as ns_model
+
+    t = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0, dev)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = train_batch(TP_B, TP_SECONDS, dev)
+        runs = []
+        for tp in (False, True):
+            model, state, step = train_parts(dev, torch.Generator().manual_seed(SEED + 230))
+            if tp:
+                mesh = make_mesh(1, 1)
+                if not mesh.over_ranks or mesh.shape != {"dp": 1, "mp": 1}:
+                    raise AssertionError(f"8c: {mesh}")
+                shard_state_to_mesh(mesh, state, tp=True)
+                step = make_train_step(model, grad_clip=10.0, mesh=mesh, tp=True)
+            zero_counts(lk, tk)
+            losses = []
+            for _ in range(2):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            runs.append((losses, [p.detach().clone() for p in model.parameters()],
+                         counts(lk, tk)))
+        (l0, p0, c0), (l1, p1, c1) = runs
+        expect_launches(c1, c0, "8c tp step against the plain step, LSTM and TCN (fwd, bwd)")
+        if not c1[0] or l0 != l1 or not all(map(torch.equal, p0, p1)):
+            raise AssertionError(f"8c tp: losses {l0} vs {l1}, launches {c1}, or parameters "
+                                 "differ")
+        hp = {"DATASET": {"sample_rate": 16000},
+              "OPTIMIZER": {"lr": 1e-3, "lr_scheduler": "Plateau", "gradiend_clip": 10.0,
+                            "weight_decay": 1e-5},
+              "TRAIN": {"multi_gpu": True, "mp_devices": 1, "seed": SEED}}
+        nb = ns_batch(4, 1.0, dev)
+        loader = [{"process_wav": nb["noisy"].cpu().numpy(),
+                   "clean_wav": nb["ref_clean"].cpu().numpy()}]
+        task = NsTask(hp, ns_model("ns_dpcrn_v0_causal",
+                                   init_loss({"LOSS": {"sig_loss": "stft_ov"}}), device=dev,
+                                   generator=torch.Generator().manual_seed(SEED)),
+                      dev, loader, [])
+        zero_counts(lk, tk)
+        loss = task.train_one_epoch(0)["total_loss"]
+        torch.cuda.synchronize()
+        c2 = counts(lk, tk)
+        n = NS_TRAIN_LAUNCHES["ns_dpcrn_v0_causal"]
+        expect_launches(c2, (n, n, 0, 0), "8c NsTask step (mp_devices 1), LSTM and TCN")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        multihost.shutdown()
+    log("8c tensor parallel", f"NCCL group of 1 on {dev}; flagship B={TP_B} x {TP_SECONDS:g} s, "
+        f"2 steps through make_train_step(mesh=make_mesh(1, 1), tp=True) == the plain step "
+        f"bit for bit (losses {l1}), launches {c1} both; NsTask (mp_devices 1, multi_gpu) "
+        f"one step of ns_dpcrn_v0_causal B=4 x 1 s, loss {loss:.4f}, launches {c2} [{card}]", t)
+    log("8c tensor parallel", f"mp = 2 not run: this machine has {torch.cuda.device_count()} "
+        "card(s) and NCCL takes one process a card; (dp, mp) = (1, 2) and (2, 2) are held "
+        "against one process on the CPU (gloo) by tests/test_torch_tp.py", time.perf_counter())
+    return {"launches": tuple(a + b + c for a, b, c in zip(c0, c1, c2))}
+
+
+@contextlib.contextmanager
+def plain_f64(lk):
+    """Inside, a float64 scan on the card takes `lstm_scan_train_fp`'s
+    plain version (the kernels run f32 and bf16); launches nothing."""
+    on_card = lk._on_card
+    lk._on_card = lambda x: on_card(x) and x.dtype != torch.float64
+    try:
+        yield
+    finally:
+        lk._on_card = on_card
+
+
+def _improved_f64(lk, ref, x, w, mask=None) -> dict:
+    """y, dx and the parameter gradients of sum(ref(x) * w) in float64 on
+    the card; with `mask`, the LSTM's ReLU takes those decisions (the card
+    run's) instead of its own."""
+    if mask is not None:
+        def ff(a):
+            y, _ = ref.recurrent(a)
+            return ref.ff_drop2(ref.ff2(ref.ff_drop1(y * mask)))
+        ref._feedforward = ff
+    for p in ref.parameters():
+        p.grad = None
+    xr = x.clone().requires_grad_()
+    try:
+        with plain_f64(lk):
+            yr = ref(xr)
+            (yr * w).sum().backward()
+    finally:
+        ref.__dict__.pop("_feedforward", None)
+    return {"y": yr.detach(), "dx": xr.grad,
+            **{n: p.grad.clone() for n, p in ref.named_parameters()}}
+
+
+def improved_attention_phase(lk, tk, dev, card) -> dict:
+    """Phase 8d: `MhaSelfAttenLayer(improved=True)` at DPARN's intra widths
+    (C=128, hidden 128, 8 heads; ATTN_ROWS rows x ATTN_T tokens), uni- and
+    bidirectional, f32 and bf16: forward and backward of sum(y * w) on the
+    card against the same layer in float64 (on the card, its LSTM through
+    the plain version: on the CPU the reference takes 12-13 s a direction,
+    `scripts/periphery_diverge.py`) that
+    takes the card run's ReLU decisions after the LSTM (output, input and
+    parameter gradients: f32 within 1e-4 of max|ref|, bf16 >= 30 dB); the
+    readings against the float64 layer's own decisions beside them (an
+    LSTM output near 0 that f32 puts on the other side of the ReLU moves
+    the LSTM's gradients by up to ~5e-3 of max|ref|, bf16's by ~25 dB); one
+    `lstm_scan_train_fp` forward and one backward launch a direction."""
+    import copy
+
+    from puresound_tpu_torch.nnet.lobe.attention import MhaSelfAttenLayer
+
+    rng = np.random.default_rng(SEED + 240)
+    shape = (ATTN_ROWS, ATTN_C, ATTN_T)
+    x64 = torch.from_numpy(rng.standard_normal(shape)).to(dev)
+    w64 = torch.from_numpy(rng.standard_normal(shape)).to(dev)
+    res, launches = {}, [0, 0, 0, 0]
+    for bi in (False, True):
+        t = time.perf_counter()
+        ref = MhaSelfAttenLayer(ATTN_C, ATTN_C, ATTN_HEADS, improved=True, bidirectional=bi,
+                                dtype=torch.float64,
+                                generator=torch.Generator().manual_seed(SEED)).eval().to(dev)
+        zero_counts(lk, tk)
+        own = _improved_f64(lk, ref, x64, w64)
+        expect_launches(counts(lk, tk), (0, 0, 0, 0), "8d the float64 reference (plain)")
+        d = 2 if bi else 1
+        for dt in (torch.float32, torch.bfloat16):
+            layer = copy.deepcopy(ref).to(dt)
+            for p in layer.parameters():
+                p.grad = None
+            x = x64.to(dt).requires_grad_()
+            layer(x[:2].detach())      # warm-up on two rows
+            signs = []
+            hook = layer.recurrent.register_forward_hook(
+                lambda m, i, o: signs.append((o[0] > 0).to(torch.float64)))
+            zero_counts(lk, tk)
+            y = layer(x)
+            (y * w64.to(dt)).sum().backward()
+            torch.cuda.synchronize()
+            c = counts(lk, tk)
+            hook.remove()
+            expect_launches(c, (d, d, 0, 0), f"8d improved layer bi={bi} {dt}: LSTM (fwd, bwd)")
+            launches = [a + b for a, b in zip(launches, c)]
+            got = {"y": y.detach(), "dx": x.grad,
+                   **{n: p.grad for n, p in layer.named_parameters()}}
+            want = _improved_f64(lk, ref, x64, w64, signs[0])
+            f32 = dt == torch.float32
+            read = ((lambda g, v: (g.double() - v).abs().max().item()
+                     / max(v.abs().max().item(), 1e-30)) if f32
+                    else (lambda g, v: snr_db(g, v)))
+            readings = {k: read(got[k], v) for k, v in want.items()}
+            bad = {k: r for k, r in readings.items() if not (r <= 1e-4 if f32 else r >= 30.0)}
+            if bad:
+                raise AssertionError(f"8d improved layer bi={bi} {dt}: {bad} (all {readings})")
+            own_read = {k: read(got[k], v) for k, v in own.items()}
+            pick = max if f32 else min
+            res[(bi, "f32" if f32 else "bf16")] = {
+                "worst": pick(readings.values()), "y": readings["y"],
+                "own_worst": pick(own_read.values()), "launches": c}
+        r32, r16 = res[(bi, "f32")], res[(bi, "bf16")]
+        log("8d improved attention", f"MhaSelfAttenLayer(improved=True, bidirectional={bi}), "
+            f"{ATTN_ROWS} rows x {ATTN_T} tokens, C=hidden={ATTN_C}, {ATTN_HEADS} heads: y, dx "
+            f"and {len(own) - 2} parameter gradients against float64 (on the card, plain LSTM) "
+            f"with the card's ReLU decisions: f32 worst max|d|/max|ref| {r32['worst']:.2e} (y "
+            f"{r32['y']:.2e}), bf16 worst {r16['worst']:.1f} dB (y {r16['y']:.1f}); with its "
+            f"own decisions f32 {r32['own_worst']:.2e}, bf16 {r16['own_worst']:.1f} dB; "
+            f"launches {r32['launches']} a forward + backward [{card}]", t)
+    return {"launches": tuple(launches), "readings": res}
+
+
+def _write_wav(path: str, sig: np.ndarray) -> str:
+    from scipy.io import wavfile
+
+    wavfile.write(path, 16000, np.clip(sig * 32768, -32768, 32767).astype(np.int16))
+    return path
+
+
+def demo_phase(lk, tk, dev, card) -> dict:
+    """Phase 8e: `demo_app` on a DEMO_SECONDS mixture from a seed (the
+    flagship, random weights from SEED, 20 ms chunks, real-time cadence
+    off): its enhanced output equals StreamingTSE stepped over the same
+    chunks bit for bit; per-chunk latency p50 / p99 and RTF. `live_demo`:
+    LIVE_MICS simulated mics at real-time cadence for LIVE_SECONDS through
+    the ring hub and `StreamingServer` (lockstep) on the card: each sink
+    equals the engine on the same [LIVE_MICS, chunk] batches bit for bit;
+    per-stream latency p50 / p99, pieces later than a chunk. Then
+    `mic_demo.check_environment()`'s report."""
+    from puresound_tpu_torch.egs.tse.demo import demo_app, live_demo, mic_demo
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    try:
+        t = time.perf_counter()
+        rng = np.random.default_rng(SEED + 250)
+        enroll = _write_wav(os.path.join(tmp, "enroll.wav"), 0.1 * rng.standard_normal(16000))
+        noisy = _write_wav(os.path.join(tmp, "noisy.wav"),
+                           0.1 * rng.standard_normal(int(16000 * DEMO_SECONDS)))
+        zero_counts(lk, tk)
+        res = demo_app.main(demo_app.parse_args(
+            ["--enroll", enroll, "--input", noisy, "--output", os.path.join(tmp, "out.wav"),
+             "--device", str(dev), "--seed", str(SEED), "--no-realtime"]))
+        torch.cuda.synchronize()
+        c_app = counts(lk, tk)
+        engine = demo_app.load_or_init(demo_app.build_flagship_engine, None, dev, SEED)
+        chunk = res["chunk"]
+        x = torch.from_numpy(demo_app.read_mono(noisy)[0]).to(dev)
+        with torch.no_grad():
+            dvec = torch.from_numpy(res["dvec"]).to(dev)
+            st, outs = engine.init_state(1), []
+            for i in range(x.shape[0] // chunk):
+                y, st = engine.step(x[None, i * chunk:(i + 1) * chunk], dvec, st)
+                outs.append(y[0])
+        want = torch.cat(outs).cpu().numpy()
+        if not np.array_equal(res["enhanced"], want):
+            raise AssertionError("8e demo_app: its output != StreamingTSE over the same chunks")
+        lat = res["latency_ms"][1:]
+        app = {"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99)),
+               "rtf": res["rtf"], "launches": c_app}
+        log("8e demos", f"demo_app --device {dev} --no-realtime, {DEMO_SECONDS:g} s in "
+            f"{len(res['latency_ms'])} chunks of {chunk} samples: == StreamingTSE bit for bit; "
+            f"per-chunk ms p50 {app['p50']:.3f} / p99 {app['p99']:.3f}, compute / real time "
+            f"{app['rtf']:.3f}; launches {c_app} [{card}]", t)
+        t = time.perf_counter()
+        zero_counts(lk, tk)
+        live = live_demo.run(live_demo.parse_args(
+            ["--enroll", enroll, "--input", noisy, "--n-mics", str(LIVE_MICS), "--seconds",
+             str(LIVE_SECONDS), "--device", str(dev), "--seed", str(SEED),
+             "--out-dir", os.path.join(tmp, "live")]))
+        torch.cuda.synchronize()
+        c_live = counts(lk, tk)
+        chunk, wav = live["chunk"], live["wav"]
+        n = len(wav) // chunk
+        with torch.no_grad():
+            st, outs = live["engine"].init_state(LIVE_MICS), []
+            for i in range(n):
+                xb = torch.from_numpy(np.repeat(wav[None, i * chunk:(i + 1) * chunk],
+                                                LIVE_MICS, 0)).to(dev)
+                y, st = live["engine"].step(xb, live["dvec"], st)
+                outs.append(y)
+        want = torch.cat(outs, 1).cpu().numpy()
+        for i, audio in enumerate(live["sinks"]):
+            if not np.array_equal(audio[:n * chunk], want[i]):
+                raise AssertionError(f"8e live_demo: sink {i} != the engine")
+        per = live["per_stream"]
+        log("8e demos", f"live_demo: {LIVE_MICS} mics at real-time cadence for "
+            f"{LIVE_SECONDS:g} s, {live['ticks']} lockstep ticks of {chunk} samples on {dev}: "
+            f"every sink == the engine bit for bit; per-stream latency p50 / p99 ms "
+            + ", ".join(f"{p['p50_ms']:.1f} / {p['p99_ms']:.1f}" for p in per)
+            + f"; pieces later than a chunk {[p['late_pieces'] for p in per]}; all complete "
+            f"{live['ok']}; launches {c_live} [{card}]", t)
+        ok, missing = mic_demo.check_environment()
+        log("8e demos", f"mic_demo.check_environment(): ok {ok}, missing {missing}",
+            time.perf_counter())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": tuple(a + b for a, b in zip(c_app, c_live)), "app": app,
+            "live": per}
+
+
+def kernel_events(prof, pattern: str) -> int:
+    """How many device events of kernels whose name holds `pattern` a
+    torch.profiler window recorded."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and pattern in e.key
+               and not getattr(e, "is_user_annotation", False))
+
+
+def profiling_phase(ops, dev, card) -> dict:
+    """Phase 8f: `utils.profiling.timed` on the flagship's fused bf16
+    serving step (`StreamingTSE.step(fused=True)`, B=PROF_SLOTS, 15 frames);
+    `profiler_trace` of PROF_STEPS steps, whose kernels include
+    fused_skim_frames' (`skim_tc_kernel`), its device ms; `roofline.summarize`
+    of `fused_skim_kernel_cost` at that shape (56.4 GFLOP, 0.057 ms at the
+    bf16 peak) against the kernel's device ms."""
+    from puresound_tpu_torch.streaming.engine import StreamingTSE
+    from puresound_tpu_torch.streaming.halfprec import to_half
+    from puresound_tpu_torch.utils import profiling, roofline
+    from puresound_tpu_torch.zoo.tse import init_model
+
+    t = time.perf_counter()
+    model = init_model("tse_skim_v0_causal", device=dev,
+                       generator=torch.Generator().manual_seed(SEED))
+    to_half(model)
+    engine = StreamingTSE.from_offline(model).eval()
+    g = torch.Generator().manual_seed(SEED + 260)
+    x = (0.1 * torch.randn(PROF_SLOTS, 240, generator=g)).to(dev, torch.bfloat16)
+    dvec = torch.randn(PROF_SLOTS, 192, generator=g).to(dev, torch.bfloat16)
+    state = engine.init_state(PROF_SLOTS, torch.bfloat16)
+
+    def step():
+        with torch.no_grad():
+            return engine.step(x, dvec, state, fused=True, dot_dtype=torch.bfloat16)[0]
+
+    ops.LAUNCHES = 0
+    tm = profiling.timed(step, iters=20, warmup=3)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with profiling.profiler_trace(tmp) as prof:
+            for _ in range(PROF_STEPS):
+                step()
+        trace = os.path.join(tmp, "trace.json")
+        with open(trace) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launched = ops.LAUNCHES
+    expect_launches(launched, 1 + 2 + 20 + PROF_STEPS, "8f fused_skim_frames")
+    if not any(PROF_KERNEL in n for n in names):
+        raise AssertionError(f"8f: no {PROF_KERNEL} in the trace's events")
+    kernel_ms, total_ms, top = device_share(prof, PROF_KERNEL)
+    if kernel_ms is None:
+        raise AssertionError("8f: the profiler recorded no device time")
+    # a call's device ms from the launches the window recorded (a window
+    # after others in one process has kept only its last step's events)
+    recorded = kernel_events(prof, PROF_KERNEL)
+    if not 1 <= recorded <= PROF_STEPS:
+        raise AssertionError(f"8f: {recorded} {PROF_KERNEL} events for {PROF_STEPS} steps")
+    kernel_ms /= recorded
+    flag = roofline.summarize(1.0, **{k: v for k, v in zip(("flops", "bytes_hbm"), (
+        roofline.fused_skim_kernel_cost(1024, 15, 128, 256, 4, ("film",) * 4).values()))})
+    if abs(flag["gflops_per_step"] - 56.4) > 0.05 or abs(flag["bound_ms"] - 0.057) > 5e-4:
+        raise AssertionError(f"8f: the roofline of the flagship's fused call at 1024 {flag}")
+    cost = roofline.fused_skim_kernel_cost(PROF_SLOTS, 15, 128, 256, 4, ("film",) * 4)
+    s = roofline.summarize(kernel_ms, cost["flops"], cost["bytes"])
+    log("8f profiling", f"timed(fused bf16 step, B={PROF_SLOTS}, 15 frames): {tm}; "
+        f"profiler_trace of {PROF_STEPS} steps ({recorded} recorded): {PROF_KERNEL} "
+        f"{kernel_ms:.3f} device ms a step of {total_ms / recorded:.3f}; "
+        f"summarize(fused_skim_kernel_cost(...)): "
+        f"{s['gflops_per_step']} GFLOP, bound {s['bound_ms']:.4f} ms, "
+        f"{s['tflops']} TFLOP/s = {s['mfu_pct_bf16peak']} % of the H100's bf16 peak, "
+        f"{s['hbm_gbps']} GB/s [{card}]", t)
+    return {"launches": launched, "timing": tm, "kernel_ms": kernel_ms, "summary": s}
+
+
+def periphery_phase(ops, lk, tk, dev, card) -> dict:
+    """Phase 8: the multi-device and demo periphery, 8a-8f; returns the
+    launches by kernel (the kernels line's `launches_8`)."""
+    t = time.perf_counter()
+    parts = {"8a": seqpar_phase(lk, tk, dev, card),
+             "8b": mesh_serving_phase(lk, tk, dev, card),
+             "8c": tp_phase(lk, tk, dev, card),
+             "8d": improved_attention_phase(lk, tk, dev, card),
+             "8e": demo_phase(lk, tk, dev, card)}
+    prof = profiling_phase(ops, dev, card)
+    total = [sum(p["launches"][i] for p in parts.values()) for i in range(4)]
+    launches = {"lstm_scan_train_fp fwd": total[0], "lstm_scan_train_fp bwd": total[1],
+                "tcn_block_train fwd": total[2], "tcn_block_train bwd": total[3],
+                "fused_skim_frames": prof["launches"]}
+    log("8 periphery", f"launches by kernel {launches}; by sub-phase "
+        + "; ".join(f"{k} {v['launches']}" for k, v in parts.items()), t)
+    return {"launches": launches, "parts": parts, "profiling": prof}
+
+
 def run(dev: torch.device) -> int:
     t0 = time.perf_counter()
     from puresound_tpu_torch.ops import _build
@@ -7899,6 +8512,9 @@ def run(dev: torch.device) -> int:
     export = export_phase(lk, tk, dev, card)
     launches_late["7f"] = {"lstm_scan_train_fp fwd": export["launches"][0],
                            "tcn_block_train fwd": export["launches"][2]}
+    # ---- 8. the multi-device and demo periphery: seqpar, mesh serving, tp,
+    # the improved attention layer, the demos, profiling and roofline
+    launches_late["8"] = periphery_phase(ops, lk, tk, dev, card)["launches"]
     sock = dss_serve["socket"]
     dss_by_slots = dss_serve["serving"]
     # each kernel's launches in phases 4l / 6i / 7c

@@ -19,9 +19,9 @@ augment_on_device), TRAIN.remat and multi-process training (`--num_processes
 --process_id --coordinator`, one process per card) work as in the TSE
 recipe. export_model writes the model's `torch.export` artifacts to
 TRAIN.model_save_dir/<ckpt>.<Name>.pt2, as the TSE recipe's does.
-Still raising, built for several cards (ROADMAP queue 1 item 8b): mesh
-serving, `TRAIN.mp_devices > 1` / tensor parallelism, and
-`MhaSelfAttenLayer(improved=True)`.
+`TRAIN.mp_devices: k` with `--num_processes N` (N % k == 0) trains
+tensor-parallel over the (N / k, k) process mesh, the loader sharding by
+dp index.
 """
 from __future__ import annotations
 

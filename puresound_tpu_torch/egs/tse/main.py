@@ -39,9 +39,9 @@ matplotlib, imported by the action). export_model writes the model's
 `torch.export` artifacts (`utils.export.export_program`) to
 TRAIN.model_save_dir/<ckpt>.<Name>.pt2; load them after importing
 puresound_tpu_torch, which registers the kernels' ops.
-Still raising, built for several cards (ROADMAP queue 1 item 8b): mesh
-serving, `TRAIN.mp_devices > 1` / tensor parallelism, and
-`MhaSelfAttenLayer(improved=True)`.
+`TRAIN.mp_devices: k` with `--num_processes N` (N % k == 0) trains
+tensor-parallel over the (N / k, k) process mesh, the loader sharding by
+dp index.
 """
 from __future__ import annotations
 
@@ -83,9 +83,11 @@ def _device(backend: str, process_id: Optional[int] = None) -> torch.device:
 
 def loader_kwargs(train) -> Dict:
     """The seed, and in a multi-process run this process's shard of every
-    global batch (JAX's `egs/tse/main.py:100-105`)."""
+    global batch (JAX's `egs/tse/main.py:100-105`): its dp index's rows, so
+    the mp ranks of one dp row (`TRAIN.mp_devices`) load the same rows."""
     if multihost.process_count() > 1:
-        return dict(shard=(multihost.process_index(), multihost.process_count()),
+        multihost.mesh_groups(int(train.get("mp_devices") or 1))
+        return dict(shard=(multihost.dp_index(), multihost.dp_count()),
                     seed=int(train.get("seed") or 0))
     return dict(seed=train.get("seed"))
 

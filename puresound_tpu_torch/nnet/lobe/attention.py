@@ -9,8 +9,10 @@ block with a ReLU feed-forward (PureSound's `feedforward` Sequential:
 Linear, ReLU, Dropout, Linear, Dropout). Its norms are flax `nn.LayerNorm`s:
 eps 1e-5, statistics in at least float32 with the single-pass variance
 E[x^2] - E[x]^2 clipped at 0, the output in the promoted dtype of the input
-and the parameters. `improved=True` (the LSTM feed-forward of DPTNet) is not
-ported yet (ROADMAP queue 1 item 8b).
+and the parameters. `improved=True` is DPTNet's block: the feed-forward is
+the port's `LSTM` lobe (uni- or bidirectional, its scans on
+`lstm_scan_train_fp`), then ReLU, dropout, `ff2`, dropout, and no
+positional encoding (JAX `:121-158`).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from torch import nn
 from ...utils.init import const, generator_or_default, uniform
 from .dropout import Dropout
 from .norm import _moments
-from .rnn import Linear
+from .rnn import LSTM, Linear
 
 
 def sinusoid_table(d_model: int, max_len: int = 5000) -> np.ndarray:
@@ -149,7 +151,9 @@ class LayerNorm(nn.Module):
 
 class MhaSelfAttenLayer(nn.Module):
     """Post-norm transformer encoder block on x [N, C, T] -> [N, C, T]:
-    norm1(x + MHA(pos(x))), then norm2(. + ff2(relu(ff1(.))))."""
+    norm1(x + MHA(pos(x))), then norm2(. + ff2(relu(ff1(.)))); improved:
+    norm1(x + MHA(x)), then norm2(. + ff2(relu(LSTM(.)))) with `recurrent`
+    (hidden_dim a direction) and `ff2` [D * hidden_dim -> feats_dim]."""
 
     def __init__(self, feats_dim: int, hidden_dim: int, nhead: int,
                  dropout: float = 0.0, improved: bool = False,
@@ -157,24 +161,35 @@ class MhaSelfAttenLayer(nn.Module):
                  device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if improved:
-            raise NotImplementedError(
-                "MhaSelfAttenLayer(improved=True), the LSTM feed-forward, is not "
-                "ported yet (ROADMAP queue 1 item 8b)")
         fk = dict(device=device, dtype=dtype)
         g = generator_or_default(generator)
-        self.improved, self.position_encoding = improved, position_encoding
+        self.improved = improved
+        self.position_encoding = position_encoding and not improved
         self.self_atten = MHA(feats_dim, nhead, generator=g, **fk)
         self.atten_drop = Dropout(dropout, generator=g)
         self.norm1 = LayerNorm(feats_dim, **fk)
-        if position_encoding:
-            self.pos = PositionalEncoding(feats_dim, dropout, device=device, generator=g)
-        self.feedforward = nn.Sequential(
-            Linear(feats_dim, hidden_dim, generator=g, **fk), nn.ReLU(),
-            Dropout(dropout, generator=g),
-            Linear(hidden_dim, feats_dim, generator=g, **fk),
-            Dropout(dropout, generator=g))
+        if improved:
+            self.recurrent = LSTM(feats_dim, hidden_dim, bidirectional, generator=g, **fk)
+            self.ff_drop1 = Dropout(dropout, generator=g)
+            self.ff2 = Linear(hidden_dim * (2 if bidirectional else 1), feats_dim,
+                              generator=g, **fk)
+            self.ff_drop2 = Dropout(dropout, generator=g)
+        else:
+            if position_encoding:
+                self.pos = PositionalEncoding(feats_dim, dropout, device=device,
+                                              generator=g)
+            self.feedforward = nn.Sequential(
+                Linear(feats_dim, hidden_dim, generator=g, **fk), nn.ReLU(),
+                Dropout(dropout, generator=g),
+                Linear(hidden_dim, feats_dim, generator=g, **fk),
+                Dropout(dropout, generator=g))
         self.norm2 = LayerNorm(feats_dim, **fk)
+
+    def _feedforward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.improved:
+            return self.feedforward(x)
+        y, _ = self.recurrent(x)
+        return self.ff_drop2(self.ff2(self.ff_drop1(torch.relu(y))))
 
     def forward(self, x: torch.Tensor, causal: bool = False,
                 context_range: Optional[int] = None,
@@ -185,5 +200,5 @@ class MhaSelfAttenLayer(nn.Module):
             x = self.pos(x)
         x, w = self.self_atten(x, x, x, causal=causal, context_range=context_range)
         x = self.norm1(src + self.atten_drop(x))
-        x = self.norm2(x + self.feedforward(x)).transpose(1, 2)
+        x = self.norm2(x + self._feedforward(x)).transpose(1, 2)
         return (x, w) if return_atten_weight else x

@@ -144,11 +144,13 @@ class BatchNorm(nn.Module):
             n = x.numel() // x.shape[1]
             if multihost.syncing():
                 # the global batch's statistics (data parallelism): the mean
-                # over processes of their local moments, every process holding
+                # over the dp group's processes of their local moments, each holding
                 # as many rows (the lockstep loader); a world of one is exact
-                world = multihost.process_count()
+                group = multihost.sync_group()
+                world = multihost.dist.get_world_size(group)
                 moments = multihost.all_reduce_sum(
-                    torch.stack([xf.mean(dim=dims), (xf * xf).mean(dim=dims)])) / world
+                    torch.stack([xf.mean(dim=dims), (xf * xf).mean(dim=dims)]),
+                    group) / world
                 n *= world
                 mean = moments[0]
                 var = (moments[1] - mean * mean).clamp_min(0.0)

@@ -17,6 +17,15 @@ does:
 
 Checkpoints, logs and dev prints are the primary's (`is_primary`).
 
+Tensor parallelism (`parallel.mesh.make_train_step(tp=True)`) lays the
+world out as a ("dp", "mp") grid, rank r at (r // n_mp, r % n_mp), as JAX's
+`make_mesh` reshapes its devices. `mesh_groups(n_mp)` makes the subgroups:
+the ranks of one dp row share an "mp" group and hold the same rows of the
+global batch; the ranks of one mp column share a "dp" group. The global
+batch, BatchNorm's moments and the gradient mean then run over the dp group
+(`group()`): over the world they would count the mp ranks' rows n_mp times.
+`dp_index()` / `dp_count()` say which rows a rank loads.
+
 Launch (the same argv on every process apart from --process_id):
 
     python -m puresound_tpu_torch.egs.ns.main conf.yaml --action train \\
@@ -31,8 +40,12 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-#: set inside `global_batch`: BatchNorm all-reduces its batch sums
-_SYNC = {"on": False}
+#: set inside `global_batch`: BatchNorm all-reduces its batch sums over
+#: `group` (None: the world)
+_SYNC = {"on": False, "group": None}
+#: the ("dp", "mp") layout of the world: n_mp, this rank's dp group (None:
+#: the world) and the (dp, mp) groups made by `mesh_groups`, by n_mp
+_MESH = {"n_mp": 1, "dp": None, "groups": {}}
 
 
 def initialize(coordinator: str, num_processes: int, process_id: int,
@@ -55,9 +68,52 @@ def initialize(coordinator: str, num_processes: int, process_id: int,
 
 
 def shutdown() -> None:
-    """Leave the process group (a no-op outside one)."""
+    """Leave the process group (a no-op outside one) and forget its mesh
+    groups."""
+    _MESH.update(n_mp=1, dp=None, groups={})
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def mesh_groups(n_mp: int):
+    """(dp group, mp group) of this rank in the (world / n_mp, n_mp) grid,
+    made once per n_mp (every process calls this alike: `new_group` is
+    collective) and kept as the layout `dp_index`, `dp_count`, `mp_index`
+    and `group` read. n_mp = 1 is the plain data-parallel layout: the world
+    is the dp group and there is no mp group."""
+    world, rank = process_count(), process_index()
+    if n_mp < 1 or world % n_mp:
+        raise ValueError(f"mp size {n_mp} does not divide the {world} processes")
+    if n_mp not in _MESH["groups"]:
+        if n_mp == 1:
+            _MESH["groups"][1] = (None, None)
+        else:
+            n_dp = world // n_mp
+            mp = [dist.new_group([i * n_mp + j for j in range(n_mp)]) for i in range(n_dp)]
+            dp = [dist.new_group([i * n_mp + j for i in range(n_dp)]) for j in range(n_mp)]
+            _MESH["groups"][n_mp] = (dp[rank % n_mp], mp[rank // n_mp])
+    _MESH["n_mp"], _MESH["dp"] = n_mp, _MESH["groups"][n_mp][0]
+    return _MESH["groups"][n_mp]
+
+
+def dp_index() -> int:
+    """This rank's row of the grid: which part of the global batch it
+    loads (the loader's shard)."""
+    return process_index() // _MESH["n_mp"]
+
+
+def dp_count() -> int:
+    return process_count() // _MESH["n_mp"]
+
+
+def mp_index() -> int:
+    """This rank's column: which slice of a tensor-parallel leaf it holds."""
+    return process_index() % _MESH["n_mp"]
+
+
+def group():
+    """The dp group (None, the world, without tensor parallelism)."""
+    return _MESH["dp"]
 
 
 def process_count() -> int:
@@ -87,77 +143,83 @@ def host_local(tree):
 
 # ------------------------------------------------------------ collectives
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over processes; the gradient of every input is the sum of the
-    gradients of the output over processes."""
+    """Sum over the processes of `group`; the gradient of every input is the
+    sum of the gradients of the output over them."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 class _AllGather(torch.autograd.Function):
-    """Concatenate every process's rows in process order; each process's
-    rows get the sum over processes of the gradient of theirs."""
+    """Concatenate the rows of `group`'s processes in rank order; each
+    process's rows get the sum over them of the gradient of theirs."""
 
     @staticmethod
-    def forward(ctx, x):
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, x.contiguous())
-        ctx.rows = x.shape[0]
+    def forward(ctx, x, group):
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        ctx.rows, ctx.group = x.shape[0], group
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        r = dist.get_rank() * ctx.rows
-        return g[r:r + ctx.rows]
+        dist.all_reduce(g, group=ctx.group)
+        r = dist.get_rank(ctx.group) * ctx.rows
+        return g[r:r + ctx.rows], None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    return _AllReduceSum.apply(x, group)
 
 
-def all_gather_rows(x):
-    """x [b, ...] on every process -> [world * b, ...] in process order
-    (differentiable for floating tensors; others pass through as they are
-    when they are not tensors of at least one dimension)."""
+def all_gather_rows(x, group=None):
+    """x [b, ...] on every process of `group` (None: the world) -> [n * b,
+    ...] in rank order (differentiable for floating tensors; others pass
+    through as they are when they are not tensors of at least one
+    dimension)."""
     if not isinstance(x, torch.Tensor) or x.dim() == 0:
         return x
     if x.is_floating_point():
-        return _AllGather.apply(x)
+        return _AllGather.apply(x, group)
     as_bytes = x.dtype == torch.bool
     y = x.to(torch.uint8) if as_bytes else x.contiguous()
-    parts = [torch.empty_like(y) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, y)
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, y, group=group)
     out = torch.cat(parts)
     return out.bool() if as_bytes else out
 
 
-def all_reduce_mean(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
-    """The mean over processes of each tensor, through one flat buffer per
-    dtype (one all-reduce each)."""
-    world = process_count()
+def all_reduce_mean(tensors: List[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The mean over the processes of `group` (None: the world) of each
+    tensor, through one flat buffer per dtype (one all-reduce each)."""
+    world = dist.get_world_size(group) if dist.is_initialized() else 1
     out: List[torch.Tensor] = [None] * len(tensors)
     by_dtype = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
     for idx in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat = flat / world
         off = 0
         for i in idx:
             n = tensors[i].numel()
-            out[i] = flat[off:off + n].view_as(tensors[i])
+            # laid out as the input (a gradient may come transposed): the
+            # gradient norm then reduces in the plain step's order, and a
+            # world of one stays bit-equal to it
+            out[i] = torch.empty_like(tensors[i]).copy_(flat[off:off + n].view(
+                tensors[i].shape))
             off += n
     return out
 
@@ -167,27 +229,35 @@ def syncing() -> bool:
     return _SYNC["on"]
 
 
-class _GatheredLoss:
-    """A loss callable whose tensor inputs are first gathered over
-    processes."""
+def sync_group():
+    """The group BatchNorm reduces its moments over inside `global_batch`."""
+    return _SYNC["group"]
 
-    def __init__(self, fn):
-        self.fn = fn
+
+class _GatheredLoss:
+    """A loss callable whose tensor inputs are first gathered over the
+    processes of `group`."""
+
+    def __init__(self, fn, group):
+        self.fn, self.group = fn, group
 
     def __call__(self, *args, **kwargs):
-        return self.fn(*[all_gather_rows(a) for a in args],
-                       **{k: all_gather_rows(v) for k, v in kwargs.items()})
+        g = self.group
+        return self.fn(*[all_gather_rows(a, g) for a in args],
+                       **{k: all_gather_rows(v, g) for k, v in kwargs.items()})
 
 
 _LOSSES = ("loss_func_wav", "loss_func_spk")
 
 
 @contextlib.contextmanager
-def global_batch(model: nn.Module) -> Iterator[None]:
+def global_batch(model: nn.Module, group=None) -> Iterator[None]:
     """Inside: BatchNorm's training statistics and the wrapper's losses
-    (`loss_func_wav`, `loss_func_spk`) are those of the global batch. A
-    loss that is a module (AAM-softmax, GE2E) gathers its inputs in a
-    forward pre-hook; a plain callable is wrapped for the duration."""
+    (`loss_func_wav`, `loss_func_spk`) are those of the global batch, the
+    rows of `group`'s processes (None: the world; under tensor parallelism
+    the dp group). A loss that is a module (AAM-softmax, GE2E) gathers its
+    inputs in a forward pre-hook; a plain callable is wrapped for the
+    duration."""
     if not dist.is_initialized():
         raise RuntimeError("global_batch needs an initialized process group "
                            "(multihost.initialize)")
@@ -199,16 +269,17 @@ def global_batch(model: nn.Module) -> Iterator[None]:
                 continue
             if isinstance(fn, nn.Module):
                 hook = fn.register_forward_pre_hook(
-                    lambda m, args, kwargs: (tuple(all_gather_rows(a) for a in args),
-                                             {k: all_gather_rows(v)
+                    lambda m, args, kwargs: (tuple(all_gather_rows(a, group) for a in args),
+                                             {k: all_gather_rows(v, group)
                                               for k, v in kwargs.items()}),
                     with_kwargs=True)
                 undo.append(hook.remove)
             else:
-                setattr(model, name, _GatheredLoss(fn))
+                setattr(model, name, _GatheredLoss(fn, group))
                 undo.append(lambda name=name, fn=fn: setattr(model, name, fn))
-        prev, _SYNC["on"] = _SYNC["on"], True
-        undo.append(lambda: _SYNC.__setitem__("on", prev))
+        prev = dict(_SYNC)
+        _SYNC.update(on=True, group=group)
+        undo.append(lambda: _SYNC.update(prev))
         yield
     finally:
         for fn in reversed(undo):

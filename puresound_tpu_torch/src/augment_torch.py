@@ -231,11 +231,12 @@ class DeviceAugmentor:
         """`apply` on this batch's draws. In a multi-process run the draws
         are those of the global batch (every process's generator seeded
         alike), each process taking its rows', as JAX's replicated key
-        draws for the global batch."""
-        B, world = noisy.shape[0], multihost.process_count()
+        draws for the global batch (under tensor parallelism the rows of this
+        rank's dp index, which its mp peers share)."""
+        B, world = noisy.shape[0], multihost.dp_count()
         draws = self.draw(generator, B * world)
         if world > 1:
-            r = multihost.process_index() * B
+            r = multihost.dp_index() * B
             draws = {k: v[r:r + B] for k, v in draws.items()}
         return self.apply(noisy, clean, draws, vol_extra=vol_extra, inactive=inactive)
 

@@ -4,10 +4,10 @@ Counterpart of puresound_tpu/streaming/deploy.py:40 (`make_session_server`):
 the time-domain TSE branch, the STFT-engine branch (NS, and STFT-domain TSE
 with a speaker net, `:182-188`) and the SIMO (DSS) branch (`:119-122,
 170-197`), with the pipelined and int16 (pcm16)
-transports (`:199-246`), and `run_serve` (`:247-285`), the recipes'
-`--action serve`: the server behind the TCP front of `socket_server`. The
-server owns a copy of the model (cast to bfloat16 when `half`), so the
-caller's module is never changed.
+transports (`:199-246`), mesh serving (`mesh=`, `:88-93, 238`) and
+`run_serve` (`:247-285`), the recipes' `--action serve`: the server behind
+the TCP front of `socket_server`. The server owns a copy of the model (cast
+to bfloat16 when `half`), so the caller's module is never changed.
 """
 from __future__ import annotations
 
@@ -89,7 +89,11 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
         pcm16: the audio crosses the host link as int16 at pcm16_scale; the
             step converts on the device (x / scale in, clip(y * scale,
             +-32767) truncated to int16 out).
-        mesh: not ported yet (raises; the card is one H100).
+        mesh: a single-process `parallel.Mesh` of devices (one may repeat):
+            the slots are served over its dp devices, each holding a replica
+            of the engine (`SessionServer(mesh=)`). The replicas run the stock
+            step: `fused` (whose default None then means off), `dp_kernel`,
+            `attn_kernel` and `mk_kernel` raise JAX's ValueError.
 
     The server's `step_fn` passes keyword options on to `engine.step`: serve
     the int8 / bf16-scratch kernels (`int8_hh`, `int8_full`, `xscr_half`,
@@ -97,9 +101,15 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
     `server.step_fn = functools.partial(server.step_fn, int8_hh=True)`.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP queue 1 item 8b: "
-            "multi-device)")
+        if fused or dp_kernel or attn_kernel or mk_kernel:
+            # as JAX's: only the stock step is served over a mesh
+            raise ValueError("mesh serving supports the stock step only — "
+                             "drop the fused/dp_kernel/attn_kernel/mk_kernel "
+                             "flags (or serve single-device with them)")
+        if mesh.over_ranks:
+            raise ValueError("mesh serving is single-process: build the mesh from "
+                             "local devices (make_mesh(devices=[...]))")
+        fused = False
     if (isinstance(model.encoder, FreeEncDec)
             and getattr(model, "speaker_net", None) is None):
         raise ValueError(
@@ -156,16 +166,6 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
         return engine.init_state(n, dt, **init_kw)
 
     scale = float(pcm16_scale)
-    if pcm16:
-        # only int16 crosses the host link: dequantize and quantize on the
-        # device, as JAX's wrapper does inside its jit (deploy.py:199-217)
-        to_dev = lambda b: (torch.from_numpy(np.ascontiguousarray(b, np.int16)).to(device)
-                            .float() / scale).to(dt)
-        from_dev = lambda y: (y.float() * scale).clamp(-32767.0, 32767.0).to(torch.int16)
-    else:
-        to_dev = lambda b: torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(
-            device=device, dtype=dt)
-        from_dev = lambda y: y.float()
     embed_fn = embed_dim = None
     stft_tse = isinstance(engine, StreamingNS) and engine.speaker_net is not None
     if isinstance(engine, StreamingTSE) or stft_tse:
@@ -179,36 +179,60 @@ def make_session_server(model, weights: Optional[dict], n_slots: int,
         probe = embed_fn(np.zeros((1, enroll_len or 5 * sr), np.float32))
         embed_dim = int(probe.shape[-1])
 
-    if isinstance(engine, StreamingTSE):
-        def step_fn(chunk_b, dvec, st, **options):
-            with torch.no_grad():
-                out, st = engine.step(to_dev(chunk_b), dvec.to(dt), st, **step_kw,
-                                      **options)
-                return from_dev(out), st
-    elif stft_tse:
-        def step_fn(chunk_b, dvec, st, **options):
-            with torch.no_grad():
-                out, st = engine.step(to_dev(chunk_b), st, dvec.to(dt), **step_kw,
-                                      **options)
-                return from_dev(out), st
-    elif isinstance(engine, StreamingDSS):
-        def step_fn(chunk_b, st, **options):
-            with torch.no_grad():
-                out, st = engine.step(to_dev(chunk_b), st, **step_kw, **options)
-                B, M, S = out.shape
-                # interleaved, then quantised under pcm16, as JAX's order
-                return from_dev(out.transpose(1, 2).reshape(B, S * M)), st
+    def make_step(engine, device):
+        """The server's step on `engine`, whose device is `device`."""
+        if pcm16:
+            # only int16 crosses the host link: dequantize and quantize on
+            # the device, as JAX's wrapper does inside its jit (deploy.py:199-217)
+            to_dev = lambda b: (torch.from_numpy(np.ascontiguousarray(b, np.int16))
+                                .to(device).float() / scale).to(dt)
+            from_dev = lambda y: (y.float() * scale).clamp(-32767.0, 32767.0).to(torch.int16)
+        else:
+            to_dev = lambda b: torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(
+                device=device, dtype=dt)
+            from_dev = lambda y: y.float()
+        if isinstance(engine, StreamingTSE):
+            def step_fn(chunk_b, dvec, st, **options):
+                with torch.no_grad():
+                    out, st = engine.step(to_dev(chunk_b), dvec.to(dt), st, **step_kw,
+                                          **options)
+                    return from_dev(out), st
+        elif stft_tse:
+            def step_fn(chunk_b, dvec, st, **options):
+                with torch.no_grad():
+                    out, st = engine.step(to_dev(chunk_b), st, dvec.to(dt), **step_kw,
+                                          **options)
+                    return from_dev(out), st
+        elif isinstance(engine, StreamingDSS):
+            def step_fn(chunk_b, st, **options):
+                with torch.no_grad():
+                    out, st = engine.step(to_dev(chunk_b), st, **step_kw, **options)
+                    B, M, S = out.shape
+                    # interleaved, then quantised under pcm16, as JAX's order
+                    return from_dev(out.transpose(1, 2).reshape(B, S * M)), st
+        else:
+            def step_fn(chunk_b, st, **options):
+                with torch.no_grad():
+                    out, st = engine.step(to_dev(chunk_b), st, **step_kw, **options)
+                    return from_dev(out), st
+        return step_fn
+
+    if mesh is None:
+        step_fn = make_step(engine, device)
     else:
-        def step_fn(chunk_b, st, **options):
-            with torch.no_grad():
-                out, st = engine.step(to_dev(chunk_b), st, **step_kw, **options)
-                return from_dev(out), st
+        # one engine a device (a repeated device shares its replica's
+        # module: the step is stateless, the server owns the state)
+        engines = {device: engine}
+        for d in mesh.along("dp"):
+            if d not in engines:
+                engines[d] = copy.deepcopy(engine).to(d)
+        step_fn = [make_step(engines[d], d) for d in mesh.along("dp")]
 
     server = SessionServer(step_fn, init_state(n_slots), n_slots, chunk,
                            embed_dim, infer_slot_axes(init_state),
                            embed_fn=embed_fn, lockstep=lockstep,
                            ring_capacity=ring_capacity, pipelined=pipelined,
-                           pcm16=pcm16, pcm16_scale=scale)
+                           pcm16=pcm16, pcm16_scale=scale, mesh=mesh)
     return ServingBundle(server=server, engine=engine, chunk_samples=chunk,
                          embed_fn=embed_fn, embed_dim=embed_dim,
                          n_sources=getattr(engine, "n_sources", 1))

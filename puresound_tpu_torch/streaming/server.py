@@ -7,6 +7,12 @@ by puresound_tpu_torch.src.native); the serving thread gathers a fixed
 output. A slot without a full chunk contributes zeros for that tick and
 its output is withheld.
 
+SessionServer(mesh=) serves the slot batch over the dp devices of a
+single-process mesh (`parallel.make_mesh(devices=...)`; a device may repeat):
+each replica holds its contiguous slots' part of the state and of the
+d-vectors, and a tick launches every replica's step on its rows before it
+reads any output back.
+
 SessionServer(pipelined=True) does not wait for a tick's own output: the
 device-to-host copy of tick t goes into a pinned host buffer behind a CUDA
 event, and the tick scatters tick t-1's output, so the copy and the ring I/O
@@ -265,14 +271,16 @@ def infer_slot_axes(init_state, b1: int = 2, b2: int = 3):
 
 def _axes_state_reset(slot_axes):
     """Masked per-slot reset with explicit slot axes. A leaf without a slot
-    axis (the shared SkiM clock) resets only when every slot resets."""
+    axis (the shared SkiM clock) resets only when every slot resets
+    (`every`: of the whole server, where `mask` is one replica's part)."""
 
-    def reset(state, fresh, mask: np.ndarray):
+    def reset(state, fresh, mask: np.ndarray, every: Optional[bool] = None):
         masks = {}
+        every = mask.all() if every is None else every
 
         def w(ax, s, f):
             if ax < 0:
-                return f if mask.all() else s
+                return f if every else s
             rep = s.shape[ax] // mask.shape[0]  # slot-major folded axis
             key = (rep, s.device)
             if key not in masks:
@@ -309,20 +317,45 @@ class SessionServer(StreamingServer):
     gathered batch goes to step_fn as int16 (clip(x * pcm16_scale,
     +-32767), truncated), step_fn returns int16, and the output is scaled
     back by 1 / pcm16_scale on the host.
+
+    mesh: a single-process `parallel.Mesh` whose dp devices serve the slots
+    (n_slots divisible by the dp size, else a ValueError as JAX's): replica
+    i holds slots [i * n / dp, (i + 1) * n / dp), its part of the state (cut
+    on `slot_axes` by `parallel.shard_by_slots`) and of the d-vectors on its
+    device. `step_fn` is then one callable per replica (each on its
+    replica's device), or one callable that follows its inputs' device. A
+    tick cuts the gathered batch by rows, launches every replica's step
+    before it waits on any, and joins the outputs in slot order; resets and
+    attaches reach the replica that holds the slot.
     """
 
     def __init__(self, step_fn, fresh_state, n_slots: int, chunk_samples: int,
                  embed_dim: Optional[int], slot_axes, embed_fn=None,
                  ring_capacity: int = 1 << 16, lockstep: bool = False,
                  pipelined: bool = False, pcm16: bool = False,
-                 pcm16_scale: float = 8192.0):
+                 pcm16_scale: float = 8192.0, mesh=None):
         super().__init__(step_fn, n_slots, chunk_samples,
                          ring_capacity=ring_capacity, lockstep=lockstep)
-        tensors = [t for t in tree_leaves(fresh_state)
-                   if isinstance(t, torch.Tensor)]
-        self.device = tensors[0].device if tensors else torch.device("cpu")
-        self._fresh = fresh_state
-        self._state = fresh_state
+        if mesh is None:
+            tensors = [t for t in tree_leaves(fresh_state)
+                       if isinstance(t, torch.Tensor)]
+            self._devices = [tensors[0].device if tensors else torch.device("cpu")]
+            self._fresh = [fresh_state]
+        else:
+            from ..parallel.mesh import shard_by_slots
+
+            n_dp = mesh.shape["dp"]
+            if n_slots % n_dp:
+                raise ValueError(f"n_slots={n_slots} not divisible by the dp mesh axis "
+                                 f"({n_dp})")
+            self._fresh = shard_by_slots(mesh, fresh_state, n_slots, slot_axes=slot_axes)
+            self._devices = mesh.along("dp")
+            if isinstance(step_fn, (list, tuple)) and len(step_fn) != n_dp:
+                raise ValueError(f"{len(step_fn)} step functions for {n_dp} replicas")
+        self.mesh = mesh
+        self.device = self._devices[0]
+        self._per = n_slots // len(self._devices)
+        self._state = list(self._fresh)
         self._embed_fn = embed_fn
         self._reset = _axes_state_reset(slot_axes)
         self._dvec = (np.zeros((n_slots, embed_dim), np.float32)
@@ -338,11 +371,20 @@ class SessionServer(StreamingServer):
         self._lock = threading.Lock()
         self.pipelined = pipelined
         self._pcm16_scale = float(pcm16_scale) if pcm16 else None
-        self._copy = _HostCopy()
-        self._inflight = None  # (pending host copy, mask, gen) of tick t-1
+        self._copies = [_HostCopy() for _ in self._devices]
+        self._inflight = None  # (pending host copies, mask, gen) of tick t-1
 
-    def _put_rows(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.array(arr)).to(self.device)
+    def _rows(self, i: int) -> slice:
+        return slice(i * self._per, (i + 1) * self._per)
+
+    def _put_rows(self, arr: np.ndarray) -> list:
+        """Each replica's rows of a host array, on its device."""
+        return [torch.from_numpy(np.array(arr[self._rows(i)])).to(d)
+                for i, d in enumerate(self._devices)]
+
+    def _step_fns(self) -> list:
+        fn = self.step_fn
+        return list(fn) if isinstance(fn, (list, tuple)) else [fn] * len(self._devices)
 
     # ------------------------------------------------------------- lifecycle
     def attach(self, enroll=None, dvec=None) -> int:
@@ -409,15 +451,23 @@ class SessionServer(StreamingServer):
             # nothing to step: still drain a pipelined output, so a paused
             # stream gets its last chunk
             return self.flush() if self.pipelined else 0
-        if reset_now.any():
-            self._state = self._reset(self._state, self._fresh, reset_now)
+        every = bool(reset_now.all())
+        for i in range(len(self._devices)):
+            part = reset_now[self._rows(i)]
+            if part.any():
+                self._state[i] = self._reset(self._state[i], self._fresh[i], part, every)
         if self._pcm16_scale is not None:
             batch = np.clip(batch * self._pcm16_scale, -32767.0, 32767.0).astype(np.int16)
-        if dvec is None:
-            out, self._state = self.step_fn(batch, self._state)
-        else:
-            out, self._state = self.step_fn(batch, dvec, self._state)
-        pending = (self._copy.start(out), mask, gen)
+        # every replica's step is launched before any output is read back
+        outs = []
+        for i, fn in enumerate(self._step_fns()):
+            rows = batch[self._rows(i)]
+            if dvec is None:
+                out, self._state[i] = fn(rows, self._state[i])
+            else:
+                out, self._state[i] = fn(rows, dvec[i], self._state[i])
+            outs.append(out)
+        pending = ([c.start(o) for c, o in zip(self._copies, outs)], mask, gen)
         if self.pipelined:
             # scatter the last tick's output while the device runs this one
             prev, self._inflight = self._inflight, pending
@@ -429,7 +479,8 @@ class SessionServer(StreamingServer):
         return n
 
     def _scatter_owned(self, pending, mask, gen) -> int:
-        out = _HostCopy.finish(pending)
+        parts = [_HostCopy.finish(p) for p in pending]
+        out = parts[0] if len(parts) == 1 else np.concatenate(parts)
         if self._pcm16_scale is not None:
             out = out.astype(np.float32) * (1.0 / self._pcm16_scale)
         with self._lock:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..parallel import multihost
+from ..parallel.mesh import gathered
 from ..src.utils import create_folder, load_text_as_dict
 from ..utils import flax_ckpt
 from ..utils.from_jax import flat_from_jax, for_model, params_by_name, to_torch
@@ -702,31 +703,39 @@ class BaseTrainer:
         for epoch in range(start, num_epochs):
             lr = self.current_lr
             loss = self.train_one_epoch(current_epoch=epoch)
-            dev_loss = self.compute_dev_loss(current_epoch=epoch)
-
-            if dev_loss["total_loss"] <= self.best_loss:
-                self.best_loss = dev_loss["total_loss"]
-                self.best_epoch = epoch
-
-            if self.tf_writer:
-                self.tf_writer.update_ep_lr(lr, epoch)
-                self.tf_writer.update_ep_loss("train/avg_loss", loss["total_loss"], epoch)
-                self.tf_writer.update_ep_loss("train/avg_dev_loss",
-                                              dev_loss["total_loss"], epoch)
-
-            if multihost.is_primary():
-                save_dir = self.hparam["TRAIN"]["model_save_dir"]
-                create_folder(save_dir)
-                self.save_ckpt(os.path.join(save_dir, f"epoch_{epoch}.ckpt"), epoch, loss)
-                self.save_ckpt_info(os.path.join(save_dir, f"epoch_{epoch}.info"),
-                                    epoch, lr, loss)
-
-            if epoch >= self.hparam["OPTIMIZER"]["num_epochs_decay"]:
-                new_lr = self.scheduler.step(
-                    dev_loss["total_loss"]
-                    if self.hparam["OPTIMIZER"]["lr_scheduler"] == "Plateau" else None)
-                self.set_learning_rate(new_lr)
-
-            if multihost.is_primary():
-                self.gen_logging(epoch=epoch, prefix="")
+            # a tensor-parallel state is whole for the dev loss, the
+            # checkpoint and the logging inference (every rank gathers)
+            with gathered(self.state):
+                self._end_epoch(epoch, lr, loss)
             self.early_stopping(current_epoch=epoch, stop_criterion=25)
+
+    def _end_epoch(self, epoch: int, lr: float, loss: Dict) -> None:
+        """The dev loss, the bookkeeping, the primary's checkpoint, the
+        scheduler and the primary's logging of one finished epoch."""
+        dev_loss = self.compute_dev_loss(current_epoch=epoch)
+
+        if dev_loss["total_loss"] <= self.best_loss:
+            self.best_loss = dev_loss["total_loss"]
+            self.best_epoch = epoch
+
+        if self.tf_writer:
+            self.tf_writer.update_ep_lr(lr, epoch)
+            self.tf_writer.update_ep_loss("train/avg_loss", loss["total_loss"], epoch)
+            self.tf_writer.update_ep_loss("train/avg_dev_loss",
+                                          dev_loss["total_loss"], epoch)
+
+        if multihost.is_primary():
+            save_dir = self.hparam["TRAIN"]["model_save_dir"]
+            create_folder(save_dir)
+            self.save_ckpt(os.path.join(save_dir, f"epoch_{epoch}.ckpt"), epoch, loss)
+            self.save_ckpt_info(os.path.join(save_dir, f"epoch_{epoch}.info"),
+                                epoch, lr, loss)
+
+        if epoch >= self.hparam["OPTIMIZER"]["num_epochs_decay"]:
+            new_lr = self.scheduler.step(
+                dev_loss["total_loss"]
+                if self.hparam["OPTIMIZER"]["lr_scheduler"] == "Plateau" else None)
+            self.set_learning_rate(new_lr)
+
+        if multihost.is_primary():
+            self.gen_logging(epoch=epoch, prefix="")

@@ -9,8 +9,14 @@ device, or on one card per process of a multi-process run
 (`parallel.multihost`, `TRAIN.multi_gpu: true` as JAX asks), with
 `DATASET.augment_on_device` (RIR, noise and volume in the step,
 `src.augment_torch`, its draws from the task's `augment_generator`) and
-`TRAIN.remat`. `TRAIN.multi_gpu` over several cards in one process raises
-and points to `--num_processes`; `mp_devices > 1` raises. The dev loss runs
+`TRAIN.remat`. `TRAIN.mp_devices: k` over `--num_processes N` (N % k == 0)
+trains tensor-parallel on the (N / k, k) mesh (`parallel.mesh`): each rank
+keeps its slices of the eligible parameters and Adam moments
+(`TRAIN.tp_min_size`, default 64), the loader shards by dp index, and the
+dev loss, the logging inference and the checkpoints (whole tensors, which
+load into a plain model and into JAX's reader) see the gathered
+parameters. `TRAIN.multi_gpu` over several cards in one process, and
+`mp_devices > 1` in one process, raise and point to `--num_processes`. The dev loss runs
 under `torch.no_grad` with the model in eval mode (BatchNorm on its running
 statistics, JAX's `train=False`), summed on the device and read back once
 per epoch; in a multi-process run it is the global batch's.
@@ -201,21 +207,39 @@ class NsTask(BaseTrainer):
         n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
         if train.get("multi_gpu") and not self._dp and n_cards > 1:
             raise NotImplementedError(
-                f"TRAIN.multi_gpu over {n_cards} cards in one process is not ported: "
-                f"run one process per card (--num_processes {n_cards} --process_id "
+                f"TRAIN.multi_gpu over {n_cards} cards in one process: the port "
+                f"trains one process per card (--num_processes {n_cards} --process_id "
                 "<rank> --coordinator host:port)")
-        if int(train.get("mp_devices") or 1) > 1:
-            raise NotImplementedError("TRAIN.mp_devices > 1 (tensor parallelism) is not "
-                                      "ported yet (ROADMAP queue 1 item 8b: multi-device)")
+        n_mp = int(train.get("mp_devices") or 1)
+        if n_mp > 1 and not self._dp:
+            raise ValueError(
+                f"TRAIN.mp_devices: {n_mp} (tensor parallelism) runs one process per "
+                f"card: launch --num_processes N with N % {n_mp} == 0 (--process_id "
+                "<rank> --coordinator host:port)")
         self.model = model
         # the on-device chain's draws (JAX's PRNGKey(TRAIN.seed)); the same
         # seed on every process, whose draws are the global batch's
         self.augment_generator = torch.Generator(device=device).manual_seed(
             int(train.get("seed") or 0))
         super().__init__(hparam, device)
+        self._mesh, self._tp = None, n_mp > 1
+        if self._dp:
+            from ..parallel.mesh import make_mesh, shard_state_to_mesh
+
+            # after the resume above: a checkpoint holds whole tensors
+            self._mesh = make_mesh(n_mp=n_mp)
+            shard_state_to_mesh(self._mesh, self.state, tp=self._tp,
+                                tp_min_size=self._tp_min_size())
+            if self._tp and multihost.is_primary():
+                print(f"Tensor+data-parallel training over {self._mesh.shape['dp']}x"
+                      f"{self._mesh.shape['mp']} process mesh, "
+                      f"{len(self.state.tp_layout)} parameters sharded")
         self.train_dataloader = train_dataloader
         self.dev_dataloader = dev_dataloader
         self._build_steps()
+
+    def _tp_min_size(self) -> int:
+        return int(self.hparam["TRAIN"].get("tp_min_size") or 64)
 
     def _loss_kwargs(self) -> Dict:
         return {}
@@ -250,7 +274,7 @@ class NsTask(BaseTrainer):
             accum_steps=int(train.get("grad_accum") or 1),
             skip_nonfinite=bool(train.get("skip_nan_steps")),
             remat=train.get("remat", False), augment_fn=augment_fn,
-            data_parallel=self._dp)
+            mesh=self._mesh, tp=self._tp, tp_min_size=self._tp_min_size())
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
@@ -293,8 +317,8 @@ class NsTask(BaseTrainer):
         was_training = self.model.training
         self.model.eval()
         step, total = 0, None
-        with torch.no_grad(), (multihost.global_batch(self.model) if self._dp
-                               else contextlib.nullcontext()):
+        with torch.no_grad(), (multihost.global_batch(self.model, multihost.group())
+                               if self._dp else contextlib.nullcontext()):
             for batch in self.dev_dataloader:
                 step += 1
                 out = self.model(**self._eval_kwargs(batch))

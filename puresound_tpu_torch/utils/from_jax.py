@@ -382,17 +382,18 @@ def flax_layer_norm(p) -> Flat:
 
 
 def mha_self_atten_layer(p) -> Flat:
-    """MhaSelfAttenLayer(improved=False): MHA under `self_atten.atten`
-    (torch MultiheadAttention's names), the feed-forward Sequential's
-    Linears at 0 and 3."""
-    if "recurrent" in p:
-        raise NotImplementedError("MhaSelfAttenLayer(improved=True) is not ported yet")
+    """MhaSelfAttenLayer: MHA under `self_atten.atten` (torch
+    MultiheadAttention's names) and the norms; improved=False the
+    feed-forward Sequential's Linears at 0 and 3, improved=True the LSTM
+    `recurrent` and `ff2`."""
+    ff = (_merge(_prefix("recurrent", lstm(p["recurrent"])), _prefix("ff2", linear(p["ff2"])))
+          if "recurrent" in p else
+          _merge(_prefix("feedforward.0", linear(p["ff1"])),
+                 _prefix("feedforward.3", linear(p["ff2"]))))
     return _merge({"self_atten.atten.in_proj_weight": _a(p["self_atten"]["in_proj"]),
                    "self_atten.atten.out_proj.weight": _a(p["self_atten"]["out_proj"])},
                   _prefix("norm1", flax_layer_norm(p["norm1"])),
-                  _prefix("norm2", flax_layer_norm(p["norm2"])),
-                  _prefix("feedforward.0", linear(p["ff1"])),
-                  _prefix("feedforward.3", linear(p["ff2"])))
+                  _prefix("norm2", flax_layer_norm(p["norm2"])), ff)
 
 
 def dparn_block2d(p) -> Flat:
@@ -458,6 +459,28 @@ def from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return to_torch(flat_from_jax(variables))
 
 
+_NORM_PAIRS = (("gamma", "weight"), ("beta", "bias"))
+
+
+def _norm_names(state: Mapping[str, Any], names) -> Mapping[str, Any]:
+    """flax's gamma / beta of a norm the tree does not name the kind of
+    (`norm` reads them as a gLN's gamma / beta in a TCN's 1x1-in and as a
+    GroupNorm's weight / bias in its depthwise / pointwise convs) under the
+    names the model has: a cLN (gamma / beta) where the converter wrote a
+    GroupNorm's, and the other way round."""
+    have = set(names)
+    out = dict(state)
+    for n in names:
+        if n in out:
+            continue
+        head, _, leaf = n.rpartition(".")
+        for a, b in _NORM_PAIRS:
+            other = {a: b, b: a}.get(leaf) if leaf in (a, b) else None
+            if other and f"{head}.{other}" in out and f"{head}.{other}" not in have:
+                out[n] = out.pop(f"{head}.{other}")
+    return out
+
+
 def for_model(state: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, Any]:
     """The entries of `state` that `model`'s state_dict holds, as JAX's
     eval load keeps them (`serialization.from_state_dict` on the eval
@@ -466,6 +489,7 @@ def for_model(state: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, Any
     b, in a model built without losses); a key of the model that `state`
     lacks raises."""
     names = list(model.state_dict())
+    state = _norm_names(state, names)
     missing = [n for n in names if n not in state]
     if missing:
         raise KeyError(f"the checkpoint lacks {len(missing)} of the model's tensors, "

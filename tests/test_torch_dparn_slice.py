@@ -137,8 +137,21 @@ def test_mha_self_atten_layer_matches_jax(pair, rng, layer):
 
 
 def test_improved_attention_layer_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MhaSelfAttenLayer(16, 16, 4, improved=True)
+    """improved=True builds now (it raised before it was ported): the LSTM
+    feed-forward and no positions, against its plain math with
+    torch.nn.LSTM on the same weights; and nothing of it raises."""
+    g = torch.Generator().manual_seed(3)
+    layer = MhaSelfAttenLayer(16, 12, 4, improved=True, dtype=torch.float64,
+                              generator=g).eval()
+    assert not hasattr(layer, "pos") and not hasattr(layer, "feedforward")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 16, 7)))
+    ref = torch.nn.LSTM(16, 12, batch_first=True, dtype=torch.float64)
+    ref.load_state_dict(layer.recurrent.state_dict())
+    xt = x.transpose(1, 2)
+    a = layer.norm1(xt + layer.self_atten(xt, xt, xt, causal=False)[0])
+    want = layer.norm2(a + layer.ff2(torch.relu(ref(a)[0]))).transpose(1, 2)
+    with torch.no_grad():
+        _close(layer(x).numpy(), want.detach().numpy())
 
 
 @pytest.mark.parametrize("fused,attn_kernel", [(False, False), (True, False),

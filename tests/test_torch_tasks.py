@@ -435,7 +435,9 @@ def test_cli_defaults_to_the_card_and_unported_options_raise(tmp_path, manifest,
     from puresound_tpu_torch.zoo.tse import init_loss
 
     assert init_loss({"LOSS": {"sig_loss": "tsdr", "sig_threshold": -30}})[1] is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # tensor parallelism is ported: it runs one process per card, so one
+    # process with mp_devices > 1 points to --num_processes
+    with pytest.raises(ValueError, match="--num_processes"):
         _port_task(_hparam(str(tmp_path), manifest, mp_devices=2), manifest, variables)
     with pytest.raises(ValueError, match="remat"):       # True / "dots" are ported
         _port_task(_hparam(str(tmp_path), manifest, remat="all"), manifest, variables)

@@ -263,9 +263,17 @@ def test_streaming_serves_the_updated_weights(pair, rng):
 
 
 def test_unported_step_options_raise():
+    """mesh= / tp= are ported (tests/test_torch_tp.py): tp=True without a
+    mesh, and a mesh of local devices for training, raise and point to the
+    process mesh (--num_processes)."""
+    from puresound_tpu_torch.parallel import make_mesh
+
     model = _port_model(torch.float32)
-    for option in (dict(mesh=object()), dict(tp=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a mesh over the process group"):
+        make_train_step(model, tp=True)
+    local = make_mesh(devices=[torch.device("cpu")] * 2)
+    for option in (dict(mesh=local), dict(mesh=local, tp=True)):
+        with pytest.raises(ValueError, match="--num_processes"):
             make_train_step(model, **option)
     # remat and augment_fn are ported (tests/test_torch_remat.py,
     # tests/test_torch_device_augment.py), and SkiM's dropout

@@ -244,11 +244,25 @@ def test_half_serving_runs_finite(rng, ring_hub):
     assert ops.LAUNCHES == 0  # CPU tensors take the plain version
 
 
-@pytest.mark.parametrize("option", [dict(mesh=object())])
-def test_unported_serving_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_session_server(_port_model(torch.float32), None, n_slots=1,
-                            **option)
+@pytest.mark.parametrize("option", [dict(fused=True)])
+def test_unported_serving_options_raise(option, rng, ring_hub):
+    """Mesh serving is ported (tests/test_torch_mesh.py): with the fused
+    kernel it raises JAX's ValueError; the stock step serves over the mesh."""
+    from puresound_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+    model = _port_model(torch.float32)
+    with pytest.raises(ValueError, match="mesh serving supports the stock step only"):
+        make_session_server(model, None, n_slots=2, mesh=mesh, enroll_len=400, **option)
+    server = make_session_server(model, None, n_slots=2, mesh=mesh, enroll_len=400,
+                                 chunk_ms=10.0).server
+    sids = [server.attach(enroll=rng.standard_normal(400).astype(np.float32))
+            for _ in range(2)]
+    for sid in sids:
+        server.hub.push_input(sid, rng.standard_normal(160).astype(np.float32))
+    assert server.tick() == 2
+    for sid in sids:
+        assert np.isfinite(server.hub.pop_output(sid, 160)).all()
 
 
 def test_streaming_server_and_slot_axes(rng, ring_hub):
