@@ -420,11 +420,28 @@ weights from a seed):
      (where scikit-learn or matplotlib is missing, it raises
      ModuleNotFoundError after embedding the set, as JAX's would);
      `probe_lookahead_receptive` of the flagship, card == CPU;
+  (phase 8, `periphery_phase`: 8a-8f, the multi-device and demo periphery;)
+  9a. `SkiM.step_chunk` (`step_chunk_phase`): the flagship on 64 streams x
+     23 segments of 150 frames, f32 and bf16, against the f32 `step_frames`
+     stream and the offline inference of the zero-primed input (f32 within
+     1e-4 of max|ref|, bf16 >= 30 dB), two streams bit-equal, a stream
+     taking turns between the two steps; exact `lstm_scan_train_fp`
+     launches (a segment: 4 SegLSTM scans of B x 150 steps + 6 MemLSTM
+     one-step scans through `step_chunk`, 606 through `step_frames`); a
+     segment's wall ms through each at B = 64 (the f32 streams' segments)
+     and B = 1; the kernel alone at 64 x 150 without a gradient against its
+     plain version, its bound and cuDNN's forward;
+  9b. `FFC` / `SpectralTransform` / `LayerNorm2D` (`ffc_phase`) at N, CH,
+     F, T = 8, 64, 257, 300 with JAX-layout variables through `from_jax`, in
+     eval and training mode: card f32 vs the card's f64 (1e-4), that f64 vs
+     the CPU's on one sample (1e-9), bf16 >= 30 dB, the causal FFC's
+     causality;
   8. the kernels JSON line (phase 7's launches in `launches_7`, the new
      phases' in `launches_4k` / `_6g` / `_6h` / `_7b` / `_4l` / `_6i` /
      `_7c` / `_6j` / `_2l` / `_4m` / `_6k` / `_7d` / `_4n` / `_6l` / `_7e` /
-     `_7f`, the new shapes' times and bounds in `new_shapes`; the LSTM
-     forward's op dispatch cost in `op_dispatch_us`).
+     `_7f` / `_8` / `_9`, the new shapes' times and bounds in `new_shapes`
+     (9a's segment shape under "9a step_chunk segment"); the LSTM forward's
+     op dispatch cost in `op_dispatch_us`).
 
 Each phase prints one line with its result and time; any failure raises and
 the run exits non-zero. The last line is
@@ -7945,6 +7962,443 @@ def periphery_phase(ops, lk, tk, dev, card) -> dict:
     return {"launches": launches, "parts": parts, "profiling": prof}
 
 
+# ------------------------------------------------------------------ phase 9
+CHUNK_STREAMS = 64          # 9a: streams of the flagship
+#: 9a: segments of 150 frames a stream (3.45 s at 16 kHz); the f32 streams'
+#: segments after the first CHUNK_WARM are B = CHUNK_STREAMS's timing
+CHUNK_WARM, CHUNK_TIMED = 3, 20
+CHUNK_SEGMENTS = CHUNK_WARM + CHUNK_TIMED
+CHUNK_MIXED = ("chunk", "frames")  # 9a: the mixed stream's turns, a segment each
+CHUNK_MIXED_SEGMENTS = 6    # 9a: the mixed stream's length, held against step_frames'
+CHUNK_BAR = 1e-4            # 9a / 9b f32: max|d| / max|ref|
+HALF_BAR_DB = 30.0          # 9a / 9b bf16, dB
+FFC_SHAPE = (8, 64, 257, 300)      # 9b: N, CH, F, T
+FFC_ALPHA, FFC_KERNEL = 0.3, (3, 3)
+FFC_CUT = 150               # 9b: the causal FFC's frames kept when the later ones change
+FFC_CPU_BAR = 1e-9          # 9b: the card's f64 against the CPU's f64 (one sample, eval)
+
+
+def scan_fwd_work(B, T, C, H, dt):
+    """(flops, bytes) of one `lstm_scan_train_fp` forward without a gradient:
+    x, h0 / c0 and the weights read once, y and hT / cT written once (no
+    residuals)."""
+    e = torch.finfo(dt).bits // 8
+    G = 4 * H
+    flops = 2.0 * B * T * (C + H) * G
+    nbytes = (B * T * C + (C + H + 1) * G + 4 * B * H + B * T * H) * e
+    return flops, nbytes
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+def event_ms(fn):
+    """(fn(), the ms between two CUDA events around it, synchronised)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def hold_f32_bf16(label, f32, bf16, want, res, key):
+    """f32 within CHUNK_BAR of max|want|, bf16 at least HALF_BAR_DB from it;
+    the readings go to res[key]."""
+    for name, t in (("f32", f32), ("bf16", bf16)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{label}: non-finite {name} output")
+    err, snr = rel_err(f32, want), snr_db(bf16.float(), want)
+    res[key] = {"f32_rel": err, "bf16_snr_db": snr}
+    if err > CHUNK_BAR or snr < HALF_BAR_DB:
+        raise AssertionError(f"{label}: f32 max|d| / max|ref| {err:.3e} (bar {CHUNK_BAR:g}), "
+                             f"bf16 {snr:.1f} dB (bar {HALF_BAR_DB:g})")
+
+
+def step_chunk_kernel_case(lk, dev, card) -> dict:
+    """9a's launch shape of `lstm_scan_train_fp` alone: CHUNK_STREAMS rows x
+    150 steps, C=128, H=256, no gradient (residuals off, as the op launches
+    it), against its plain version on the same inputs (f32 within 1e-4, bf16
+    >= 30 dB), two calls bit-equal, CUDA-event ms beside the plain version's,
+    the bound and cuDNN's forward at the shape."""
+    B, T, C, H = CHUNK_STREAMS, 150, 128, 256
+    gen = torch.Generator().manual_seed(SEED + 241)
+    k = 1.0 / math.sqrt(H)
+    uni = lambda *s: (torch.rand(s, generator=gen) * 2 - 1) * k
+    x = 0.5 * torch.randn(B, T, C, generator=gen)
+    h0, c0 = 0.3 * torch.randn(B, H, generator=gen), 0.3 * torch.randn(B, H, generator=gen)
+    w_ih, bias, w_hh = uni(C, 4 * H), uni(4 * H), uni(H, 4 * H)
+    res = {"shape": f"B={B} T={T} C={C} H={H}, no gradient"}
+    for label, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = [a.to(dev, dt) for a in (x, h0, c0, w_ih, bias, w_hh)]
+        kern = lambda: lk._launch_fwd(*args, False, residuals=False)
+        got, again = kern(), kern()
+        plain = lambda: lk.lstm_scan_train_fp_ref(*args, False)
+        want = plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got[:3], again[:3]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"9a kernel {label}: two calls not bit-equal")
+        if label == "f32":
+            res["f32_rel"] = max(rel_err(g, w) for g, w in zip(got[:3], want[:3]))
+            res["f32_max_abs_err"] = max((g - w).abs().max().item()
+                                         for g, w in zip(got[:3], want[:3]))
+            if res["f32_rel"] > CHUNK_BAR:
+                raise AssertionError(f"9a kernel f32: {res['f32_rel']:.3e} of max|ref|")
+        else:
+            res["bf16_snr_db"] = min(snr_db(g.float(), w.float())
+                                     for g, w in zip(got[:3], want[:3]))
+            if res["bf16_snr_db"] < HALF_BAR_DB:
+                raise AssertionError(f"9a kernel bf16: {res['bf16_snr_db']:.1f} dB")
+        res[f"{label}_ms"] = cuda_ms(kern, 20)
+        res[f"{label}_plain_ms"] = cuda_ms(plain, 3, 1)
+        res[f"{label}_bound"] = bound_ms(*scan_fwd_work(B, T, C, H, dt), dt)
+        res[f"{label}_lib_ms"] = cudnn_lstm_fwd_ms(B, T, C, H, dt, dev, 20)
+    return res
+
+
+def step_chunk_phase(lk, tk, dev, card) -> dict:
+    """Phase 9a: `SkiM.step_chunk` at full width. The flagship
+    (tse_skim_v0_causal, seed SEED) on CHUNK_STREAMS streams x CHUNK_SEGMENTS
+    segments of 150 frames (the encoder's frames of the zero-primed audio),
+    conditioned by 1 s enrollments: the f32 `step_chunk` stream against the
+    f32 `step_frames` stream and against the offline `inference` of the
+    zero-primed input (its masker's output, and the waveform decoded from
+    the streamed masks), within CHUNK_BAR of max|ref|; the bf16 (`to_half`)
+    `step_chunk` stream >= HALF_BAR_DB from the same f32 references; two
+    `step_chunk` streams bit-equal in each dtype; a stream taking turns
+    (CHUNK_MIXED) over CHUNK_MIXED_SEGMENTS against the `step_frames` one.
+    Every part's `lstm_scan_train_fp` forward launches exactly as the code
+    makes them: a segment through `step_chunk` n_blocks SegLSTM scans of B
+    rows x 150 steps plus 2 (n_blocks - 1) MemLSTM one-step scans; through
+    `step_frames` 150 n_blocks one-step scans plus the same MemLSTM ones.
+    The wall ms of a segment through each step (CUDA events, CHUNK_WARM
+    warm-up, the median of CHUNK_TIMED): at B = CHUNK_STREAMS the f32
+    streams' own segments, at B = 1 two streams of their own. Then the
+    kernel alone at the segment's shape."""
+    import copy
+
+    from puresound_tpu_torch.nnet.base_nn import apply_tf_masks, get_mask, wav_output_constrain
+    from puresound_tpu_torch.streaming.engine import offline_equivalent_input
+    from puresound_tpu_torch.streaming.halfprec import to_half
+    from puresound_tpu_torch.zoo.tse import init_model
+
+    t = time.perf_counter()
+    model = init_model("tse_skim_v0_causal", device=dev,
+                       generator=torch.Generator().manual_seed(SEED)).eval()
+    half = to_half(copy.deepcopy(model))
+    masker = model.masker
+    K, n = masker.seg_size, masker.n_blocks
+    mem = 2 * (n - 1)
+    per_seg = {"chunk": n + mem, "frames": K * n + mem}
+    B, S = CHUNK_STREAMS, CHUNK_SEGMENTS
+    win, hop = model.encoder.win_length, model.encoder.hop_length
+    rng = np.random.default_rng(SEED + 240)
+    audio = torch.from_numpy((0.1 * rng.standard_normal((B, S * K * hop))).astype(np.float32)
+                             ).to(dev)
+    enroll = torch.from_numpy((0.1 * rng.standard_normal((B, 16000))).astype(np.float32)
+                              ).to(dev)
+    primed = offline_equivalent_input(audio, win, hop)
+    res, launches = {}, [0, 0]
+
+    def counted(fn, want_lstm, want_tcn, what):
+        zero_counts(lk, tk)
+        out = fn()
+        torch.cuda.synchronize()
+        c = counts(lk, tk)
+        expect_launches(c, (want_lstm, 0, want_tcn, 0), f"9a {what}, LSTM and TCN (fwd, bwd)")
+        launches[0] += c[0]
+        launches[1] += c[2]
+        return out
+
+    def stream(m, frames, dvec, turns, dt, segments, times=None):
+        """The streams through `turns`, a segment a call; each call's
+        CUDA-event ms appended to `times` where given."""
+        state, outs = m.init_state(frames.shape[0], dt, dev), []
+        for s in range(segments):
+            step = m.step_chunk if turns[s % len(turns)] == "chunk" else m.step_frames
+            call = lambda: step(frames[:, s * K:(s + 1) * K], dvec, state)
+            if times is None:
+                y, state = call()
+            else:
+                (y, state), ms = event_ms(call)
+                times.append(ms)
+            outs.append(y)
+        if state["frame_count"] != segments * K:
+            raise AssertionError(f"9a: the clock reads {state['frame_count']} after "
+                                 f"{segments} segments")
+        return torch.cat(outs, -1)
+
+    def decoded(mdl, feats, mask):
+        enh = apply_tf_masks(feats, get_mask(mask, mdl.mask_constraint), mdl.mask_type,
+                             mdl.f_type)
+        return wav_output_constrain(mdl._decode(enh), mdl.output_constraint)
+
+    want = lambda turns, segments=S: sum(per_seg[turns[s % len(turns)]]
+                                         for s in range(segments))
+    outs, times = {}, {("chunk", B): [], ("frames", B): []}
+    with torch.no_grad():
+        for label, mdl, dt in (("f32", model, torch.float32), ("bf16", half, torch.bfloat16)):
+            x, e = primed.to(dt), enroll.to(dt)
+            feats = mdl._encode(x)
+            if feats.shape[-1] != S * K:
+                raise AssertionError(f"9a: {feats.shape[-1]} frames, not {S * K}")
+            dvec = counted(lambda: mdl._condition(e), 0, 5, f"{label} d-vectors")
+            frames = feats.transpose(1, 2).contiguous()
+            o = {"offline": counted(lambda: mdl.inference(x, e), n + mem, 5,
+                                    f"{label} inference"),
+                 "offline_mask": counted(lambda: mdl.masker(feats, dvec), n + mem, 0,
+                                         f"{label} offline masker")}
+            timed = times[("chunk", B)] if label == "f32" else None
+            o["chunk"] = counted(lambda: stream(mdl.masker, frames, dvec, ("chunk",), dt, S,
+                                                timed),
+                                 want(("chunk",)), 0, f"{label} step_chunk")
+            again = counted(lambda: stream(mdl.masker, frames, dvec, ("chunk",), dt, S),
+                            want(("chunk",)), 0, f"{label} step_chunk again")
+            if not torch.equal(o["chunk"], again):
+                raise AssertionError(f"9a {label}: two step_chunk streams not bit-equal")
+            o["wave"] = decoded(mdl, feats, o["chunk"])
+            if label == "f32":
+                o["frames"] = counted(
+                    lambda: stream(mdl.masker, frames, dvec, ("frames",), dt, S,
+                                   times[("frames", B)]),
+                    want(("frames",)), 0, "f32 step_frames")
+                o["mixed"] = counted(
+                    lambda: stream(mdl.masker, frames, dvec, CHUNK_MIXED, dt,
+                                   CHUNK_MIXED_SEGMENTS),
+                    want(CHUNK_MIXED, CHUNK_MIXED_SEGMENTS), 0, "f32 mixed stream")
+            outs[label] = o
+        # B = 1: a stream of each step on frames of its own
+        fr = torch.from_numpy((0.1 * rng.standard_normal((1, S * K, masker.input_size))
+                               ).astype(np.float32)).to(dev)
+        dv = torch.from_numpy(rng.standard_normal((1, masker.embed_dim)).astype(np.float32)
+                              ).to(dev)
+        for kind in ("chunk", "frames"):
+            times[(kind, 1)] = []
+            counted(lambda: stream(masker, fr, dv, (kind,), torch.float32, S, times[(kind, 1)]),
+                    want((kind,)), 0, f"B=1 {kind} stream")
+    f, h = outs["f32"], outs["bf16"]
+    hold_f32_bf16("9a step_chunk vs step_frames", f["chunk"], h["chunk"], f["frames"], res,
+                  "vs_frames")
+    hold_f32_bf16("9a step_chunk vs offline masker", f["chunk"], h["chunk"], f["offline_mask"],
+                  res, "vs_offline_mask")
+    hold_f32_bf16("9a step_chunk vs offline inference", f["wave"], h["wave"], f["offline"],
+                  res, "vs_offline")
+    res["mixed_rel"] = rel_err(f["mixed"], f["frames"][..., :f["mixed"].shape[-1]])
+    if res["mixed_rel"] > CHUNK_BAR:
+        raise AssertionError(f"9a mixed stream vs step_frames: {res['mixed_rel']:.3e}")
+    timing = {k: float(np.median(v[CHUNK_WARM:])) for k, v in times.items()}
+    res["timing_ms"] = {f"B={b} {kind}": v for (kind, b), v in timing.items()}
+    log("9a step_chunk", f"tse_skim_v0_causal, {B} streams x {S} segments of {K} frames, "
+        f"{n} blocks: f32 step_chunk vs step_frames {res['vs_frames']['f32_rel']:.2e}, vs the "
+        f"offline masker {res['vs_offline_mask']['f32_rel']:.2e}, decoded vs inference "
+        f"{res['vs_offline']['f32_rel']:.2e} of max|ref|; bf16 step_chunk "
+        f"{res['vs_frames']['bf16_snr_db']:.1f} / {res['vs_offline_mask']['bf16_snr_db']:.1f} / "
+        f"{res['vs_offline']['bf16_snr_db']:.1f} dB from them; two streams bit-equal in each "
+        f"dtype; mixed {CHUNK_MIXED} over {CHUNK_MIXED_SEGMENTS} segments "
+        f"{res['mixed_rel']:.2e}; LSTM fwd a segment {per_seg['chunk']} (step_chunk) / "
+        f"{per_seg['frames']} (step_frames), exact; one segment's wall ms (CUDA events, "
+        f"{CHUNK_WARM} warm-up, median of {CHUNK_TIMED}), step_chunk / step_frames: " + "; ".join(
+            f"B={b} {timing[('chunk', b)]:.3f} / {timing[('frames', b)]:.3f} "
+            f"({timing[('frames', b)] / timing[('chunk', b)]:.1f}x)" for b in (1, B))
+        + f" [{card}]", t)
+    t = time.perf_counter()
+    res["kernel"] = kc = step_chunk_kernel_case(lk, dev, card)
+    log("9a step_chunk kernel", f"lstm_scan_train_fp at {kc['shape']}: f32 {kc['f32_ms']:.3f} ms "
+        f"(plain {kc['f32_plain_ms']:.3f}, bound {kc['f32_bound'][0]:.4f} by "
+        f"{kc['f32_bound'][1]}, cuDNN {kc['f32_lib_ms']}), {kc['f32_rel']:.2e} of max|ref|; "
+        f"bf16 {kc['bf16_ms']:.3f} (plain {kc['bf16_plain_ms']:.3f}, bound "
+        f"{kc['bf16_bound'][0]:.4f} by {kc['bf16_bound'][1]}, cuDNN {kc['bf16_lib_ms']}), "
+        f"{kc['bf16_snr_db']:.1f} dB; two calls bit-equal [{card}]", t)
+    res["launches"] = tuple(launches)
+    res["per_segment"] = per_seg
+    return res
+
+
+def _flax_conv(i, o, k, rng) -> dict:
+    """A flax `Conv2d`'s {w, b}, U(+-1/sqrt(fan-in)) from `rng`."""
+    b = 1.0 / math.sqrt(i * k[0] * k[1])
+    return {"w": rng.uniform(-b, b, (o, i, *k)).astype(np.float32),
+            "b": rng.uniform(-b, b, (o,)).astype(np.float32)}
+
+
+def _flax_bn(c, rng) -> tuple:
+    """A flax `BatchNorm`'s params and batch_stats, off their init (scales
+    near 1, running variances positive)."""
+    n = lambda: rng.standard_normal(c).astype(np.float32)
+    return ({"scale": 1 + 0.1 * n(), "bias": 0.1 * n()},
+            {"mean": 0.1 * n(), "var": 0.5 + np.abs(n())})
+
+
+def spectral_variables(cin, cout, kernel, rng) -> tuple:
+    """JAX's SpectralTransform variables in flax's layout (params,
+    batch_stats), drawn from `rng`."""
+    params, stats = {}, {}
+    for name, c in (("in_bn", cout), ("fft_bn", 2 * cout)):
+        params[name], stats[name] = _flax_bn(c, rng)
+    params.update(in_conv=_flax_conv(cin, cout, kernel, rng),
+                  fft_conv=_flax_conv(2 * cout, 2 * cout, (1, 1), rng),
+                  out_conv=_flax_conv(cout, cout, (1, 1), rng))
+    return params, stats
+
+
+def ffc_variables(cin, cout, alpha, kernel, rng) -> tuple:
+    """JAX's FFC variables in flax's layout (params, batch_stats), drawn
+    from `rng`."""
+    g_in, g_out = int(cin * alpha), int(cout * alpha)
+    st_p, st_s = spectral_variables(g_in, g_out, kernel, rng)
+    params = {"global_spec_trans": st_p,
+              "global_conv": _flax_conv(g_in, cout - g_out, kernel, rng),
+              "local_global_conv": _flax_conv(cin - g_in, g_out, kernel, rng),
+              "local_local_conv": _flax_conv(cin - g_in, cout - g_out, kernel, rng)}
+    stats = {"global_spec_trans": st_s}
+    for name, c in (("global_bn", g_out), ("local_bn", cout - g_out)):
+        params[name], stats[name] = _flax_bn(c, rng)
+    return params, stats
+
+
+def ffc_phase(dev, card) -> dict:
+    """Phase 9b: the FFC family on the card. `LayerNorm2D(CH, F)`,
+    `SpectralTransform(CH, CH)` (causal) and `FFC(CH, CH, alpha=FFC_ALPHA)`
+    (causal and not) at FFC_SHAPE with JAX-layout variables drawn from a seed
+    and loaded through `utils.from_jax` (`layer_norm_2d`,
+    `spectral_transform`, `ffc`), in eval and training mode: the card's f32
+    within CHUNK_BAR of max|ref| of the same module's f64 run, in training
+    the running statistics too, and the card's bf16 >= HALF_BAR_DB from it
+    (its FFT in f32). The f64 reference runs on the card (cuDNN and cuFFT in
+    f64; the CPU took most of a minute for the eight of them), and is held
+    to the CPU's f64 run of the same module on the first sample in eval mode
+    (within FFC_CPU_BAR); the causal FFC's first FFC_CUT frames unchanged
+    when the later ones change. Plain PyTorch and cuFFT: no kernel of the
+    port."""
+    from puresound_tpu_torch.nnet.lobe.cnn import FFC, SpectralTransform
+    from puresound_tpu_torch.nnet.lobe.norm import LayerNorm2D
+    from puresound_tpu_torch.utils import from_jax as fj
+
+    t = time.perf_counter()
+    N, CH, F, T = FFC_SHAPE
+    rng = np.random.default_rng(SEED + 250)
+    x = torch.from_numpy(rng.standard_normal((N, CH, F, T)).astype(np.float32))
+    ffc_vars = ffc_variables(CH, CH, FFC_ALPHA, FFC_KERNEL, rng)
+    st_vars = spectral_variables(CH, CH, FFC_KERNEL, rng)
+    ln = {"w": 1 + 0.1 * rng.standard_normal((1, CH, F, 1)).astype(np.float32),
+          "b": 0.1 * rng.standard_normal((1, CH, F, 1)).astype(np.float32)}
+    cases = {
+        "LayerNorm2D": (lambda: LayerNorm2D(CH, F), fj.layer_norm_2d(ln)),
+        "SpectralTransform causal": (
+            lambda: SpectralTransform(CH, CH, FFC_KERNEL, causal=True),
+            fj.spectral_transform(*st_vars)),
+        **{f"FFC {'causal' if c else 'non-causal'}": (
+            functools.partial(FFC, CH, CH, alpha=FFC_ALPHA, kernel_size=FFC_KERNEL, causal=c),
+            fj.ffc(*ffc_vars)) for c in (True, False)}}
+    res, cpu_s = {}, 0.0
+    with torch.no_grad():
+        for name, (make, flat) in cases.items():
+            sd = fj.to_torch(flat)
+            for train in (False, True):
+                if train and name == "LayerNorm2D":
+                    continue
+                mods = {}
+                for dt in (torch.float64, torch.float32, torch.bfloat16):
+                    m = make()
+                    m.load_state_dict(sd, strict=True)
+                    mods[dt] = m.to(device=dev, dtype=dt).train(train)
+                label = f"{name} {'train' if train else 'eval'}"
+                want = mods[torch.float64](x.to(dev, torch.float64))
+                f32 = mods[torch.float32](x.to(dev))
+                bf16 = mods[torch.bfloat16](x.to(dev, torch.bfloat16))
+                hold_f32_bf16(f"9b {label}", f32, bf16.float(), want, res, label)
+                if bf16.dtype != torch.bfloat16:
+                    raise AssertionError(f"9b {label}: bf16 in, {bf16.dtype} out")
+                if train:
+                    ref = mods[torch.float64].state_dict()
+                    err = max(rel_err(v, ref[k]) for k, v in
+                              mods[torch.float32].state_dict().items() if "running" in k)
+                    res[label]["running_rel"] = err
+                    if err > CHUNK_BAR:
+                        raise AssertionError(f"9b {label}: running statistics {err:.3e}")
+                else:
+                    t_cpu = time.perf_counter()
+                    cpu = make()
+                    cpu.load_state_dict(sd, strict=True)
+                    on_cpu = cpu.double().eval()(x[:1].double())
+                    cpu_s += time.perf_counter() - t_cpu
+                    res[label]["card_f64_vs_cpu_f64"] = err = rel_err(want[:1].cpu(), on_cpu)
+                    if err > FFC_CPU_BAR:
+                        raise AssertionError(f"9b {label}: the card's f64 {err:.3e} of max|ref| "
+                                             f"from the CPU's (bar {FFC_CPU_BAR:g})")
+        causal = cases["FFC causal"][0]().to(dev).eval()
+        causal.load_state_dict(fj.to_torch(fj.ffc(*ffc_vars)), strict=True)
+        x2 = x.clone()
+        x2[..., FFC_CUT:] = torch.from_numpy(
+            rng.standard_normal((N, CH, F, T - FFC_CUT)).astype(np.float32))
+        base, pert = causal(x.to(dev)), causal(x2.to(dev))
+        early = rel_err(pert[..., :FFC_CUT], base[..., :FFC_CUT])
+        late = rel_err(pert[..., FFC_CUT:], base[..., FFC_CUT:])
+    res["causal_early_rel"], res["causal_late_rel"] = early, late
+    if early > 1e-5 or late < 1e-2:
+        raise AssertionError(f"9b causal FFC: frames before {FFC_CUT} moved {early:.2e} of max|y|"
+                             f" when later frames changed (bar 1e-5), later ones {late:.2e}")
+    log("9b ffc", f"N, CH, F, T = {FFC_SHAPE}, alpha {FFC_ALPHA}, kernel {FFC_KERNEL}, JAX-layout "
+        "variables through from_jax: card f32 vs card f64 / card bf16: " + "; ".join(
+            f"{k} {v['f32_rel']:.2e} / {v['bf16_snr_db']:.1f} dB"
+            + (f" (running stats {v['running_rel']:.2e})" if "running_rel" in v else "")
+            + (f" (card f64 vs CPU f64 {v['card_f64_vs_cpu_f64']:.1e})"
+               if "card_f64_vs_cpu_f64" in v else "")
+            for k, v in res.items() if isinstance(v, dict))
+        + f"; causal FFC: frames < {FFC_CUT} moved {early:.2e}, later {late:.2e} of max|y|; "
+        f"the CPU's one-sample f64 runs {cpu_s:.1f} s [{card}]", t)
+    return res
+
+
+def chunk_ffc_phase(lk, tk, dev, card) -> dict:
+    """Phase 9: 9a `step_chunk_phase` and 9b `ffc_phase`; returns 9a's
+    launches by kernel (the kernels line's `launches_9`) and both results."""
+    chunk = step_chunk_phase(lk, tk, dev, card)
+    ffc = ffc_phase(dev, card)
+    launches = {"lstm_scan_train_fp fwd": chunk["launches"][0],
+                "tcn_block_train fwd": chunk["launches"][1]}
+    return {"launches": launches, "chunk": chunk, "ffc": ffc}
+
+
+def phase9_alone() -> int:
+    """Phase 9 alone on one CUDA card, after building the two sources it
+    launches (`lstm_train`, `tcn_train`): `python3 -c "import chip_smoke,
+    sys; sys.exit(chip_smoke.phase9_alone())"` from the repo root."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from puresound_tpu_torch.ops import _build
+    from puresound_tpu_torch.ops import lstm_train_kernel as lk
+    from puresound_tpu_torch.ops import tcn_train_kernel as tk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, card = torch.device("cuda", 0), card_line()
+    t = time.perf_counter()
+    _build.build(("lstm_train", "tcn_train"))
+    for mod in (lk, tk):
+        mod._lib()
+    log("1 build", "lstm_train, tcn_train built", t)
+    out = chunk_ffc_phase(lk, tk, dev, card)
+    print(json.dumps({"launches_9": out["launches"],
+                      "lstm_scan_train_fp step_chunk shape": kernel_line(out["chunk"]["kernel"])}))
+    print(card)
+    return 0
+
+
+def kernel_line(kc: dict) -> dict:
+    """9a's kernel case in the kernels line's format."""
+    return {"shape": kc["shape"], "ms": kc["f32_ms"], "plain_ms": kc["f32_plain_ms"],
+            "bound_ms": kc["f32_bound"][0], "bound_by": kc["f32_bound"][1],
+            "library_ms": kc["f32_lib_ms"], "max_abs_err": kc["f32_max_abs_err"],
+            "bf16_ms": kc["bf16_ms"], "bf16_plain_ms": kc["bf16_plain_ms"],
+            "bf16_bound_ms": kc["bf16_bound"][0], "bf16_library_ms": kc["bf16_lib_ms"],
+            "bf16_snr_db": kc["bf16_snr_db"]}
+
+
 def run(dev: torch.device) -> int:
     t0 = time.perf_counter()
     from puresound_tpu_torch.ops import _build
@@ -8515,6 +8969,9 @@ def run(dev: torch.device) -> int:
     # ---- 8. the multi-device and demo periphery: seqpar, mesh serving, tp,
     # the improved attention layer, the demos, profiling and roofline
     launches_late["8"] = periphery_phase(ops, lk, tk, dev, card)["launches"]
+    # ---- 9. SkiM.step_chunk at full width; FFC / SpectralTransform / LayerNorm2D
+    phase9 = chunk_ffc_phase(lk, tk, dev, card)
+    launches_late["9"] = phase9["launches"]
     sock = dss_serve["socket"]
     dss_by_slots = dss_serve["serving"]
     # each kernel's launches in phases 4l / 6i / 7c
@@ -8812,6 +9269,7 @@ def run(dev: torch.device) -> int:
             "bf16_snr_db": r["bf16_snr_db"], "bf16_control_snr_db": r["bf16_control_snr_db"],
             "shape": r["shape"]})
     kernels[1]["op_dispatch_us"] = export["dispatch"]["per_op_us"]
+    kernels[1]["new_shapes"]["9a step_chunk segment"] = kernel_line(phase9["chunk"]["kernel"])
     for k in kernels:
         # the DSS phases' and 6j's launches, by the kernel's name ("... (forward)" /
         # "(backward)" as fwd / bwd)

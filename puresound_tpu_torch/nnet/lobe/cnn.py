@@ -4,7 +4,8 @@
 symmetric padding; `Conv2d` / `ConvTranspose2d` are torch-compatible too, with the causal
 frame-streaming forms of the Unet; `DepthwiseSeparableConv1d` keeps PureSound's
 `in_conv` / `depthwise` / `pointwise` Sequential layout so its state_dict
-names match the reference.
+names match the reference. `SpectralTransform` / `FFC` are the Fast Fourier
+Convolution blocks (JAX `cnn.py:294-369`) on `Conv2d` and `bN2d`.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from torch import nn
 
 from ...utils.init import generator_or_default, uniform
 from .activation import PReLU
-from .norm import get_norm
+from .norm import BatchNorm, get_norm
 
 
 class Conv1d(nn.Module):
@@ -218,3 +219,82 @@ class DepthwiseSeparableConv1d(nn.Module):
         if self.skip:
             y = y + self.skip_conv(x)
         return y, full[..., full.shape[-1] - self.padding:]
+
+
+def _ffc_pad(kernel_size, causal: bool):
+    """((freq top, bottom), (time left, right)): the frequency axis padded
+    kf // 2 each side; time (kt - 1, 0) when causal, else kt // 2 each side."""
+    kf, kt = kernel_size
+    return ((kf // 2, kf // 2), (kt - 1, 0) if causal else (kt // 2, kt // 2))
+
+
+class SpectralTransform(nn.Module):
+    """FFC's spectral branch on x [N, CH, F, T] (JAX `cnn.py:294-324`): a
+    conv + BatchNorm + ReLU, the real FFT along frequency (dim 2), a 1x1
+    conv + BatchNorm + ReLU on [real, imag] stacked on the channels, the
+    inverse FFT back to F bins, the residual and a 1x1 conv out.
+
+    torch's CUDA FFT takes no bfloat16 (JAX's refuses it on any device), so
+    a bfloat16 / float16 input takes its FFT-domain part in float32 and
+    rounds back where JAX casts (`ffted.astype(x.dtype)`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=(3, 3),
+                 stride=(1, 1), causal: bool = True, *, device=None,
+                 dtype=torch.float32, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        g = generator_or_default(generator)
+        self.in_conv = Conv2d(in_channels, out_channels, kernel_size, stride=stride,
+                              pad=_ffc_pad(kernel_size, causal), generator=g, **fk)
+        self.in_bn = BatchNorm(out_channels, **fk)
+        self.fft_conv = Conv2d(2 * out_channels, 2 * out_channels, (1, 1), generator=g, **fk)
+        self.fft_bn = BatchNorm(2 * out_channels, **fk)
+        self.out_conv = Conv2d(out_channels, out_channels, (1, 1), generator=g, **fk)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.in_bn(self.in_conv(x)))
+        xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
+        ffted = torch.fft.rfft(xf, dim=2)
+        cat = torch.cat([ffted.real, ffted.imag], dim=1)
+        re, im = torch.relu(self.fft_bn(self.fft_conv(cat))).chunk(2, dim=1)
+        ffted = torch.fft.irfft(torch.complex(re, im), n=x.shape[2], dim=2)
+        return self.out_conv(x + ffted.to(x.dtype))
+
+
+class FFC(nn.Module):
+    """Fast Fourier Convolution on x [N, C_in, F, T] (JAX `cnn.py:327-369`):
+    the first int(C_in * alpha) channels are global (`global_spec_trans`
+    and `global_conv`), the rest local (`local_global_conv`,
+    `local_local_conv`); global_out = ReLU(bN(spectral + local->global)),
+    local_out = ReLU(bN(global->local + local->local)); the output is
+    [local, global] on the channels. Where int(C * alpha) is 0 for the
+    input or the output, a zero-channel conv's init divides by zero
+    (ZeroDivisionError), as JAX's does."""
+
+    def __init__(self, in_channels: int, out_channels: int, alpha: float = 0.3,
+                 kernel_size=(3, 3), stride=(1, 1), causal: bool = True, *,
+                 device=None, dtype=torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        fk = dict(device=device, dtype=dtype)
+        g = generator_or_default(generator)
+        self.fft_in_ch = int(in_channels * alpha)
+        fft_out = int(out_channels * alpha)
+        local_in, local_out = in_channels - self.fft_in_ch, out_channels - fft_out
+        conv = lambda i, o: Conv2d(i, o, kernel_size, stride=stride,
+                                   pad=_ffc_pad(kernel_size, causal), generator=g, **fk)
+        self.global_spec_trans = SpectralTransform(self.fft_in_ch, fft_out, kernel_size,
+                                                   stride, causal, generator=g, **fk)
+        self.global_conv = conv(self.fft_in_ch, local_out)
+        self.local_global_conv = conv(local_in, fft_out)
+        self.local_local_conv = conv(local_in, local_out)
+        self.global_bn = BatchNorm(fft_out, **fk)
+        self.local_bn = BatchNorm(local_out, **fk)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        global_in, local_in = x[:, :self.fft_in_ch], x[:, self.fft_in_ch:]
+        global_out = torch.relu(self.global_bn(self.global_spec_trans(global_in)
+                                               + self.local_global_conv(local_in)))
+        local_out = torch.relu(self.local_bn(self.global_conv(global_in)
+                                             + self.local_local_conv(local_in)))
+        return torch.cat([local_out, global_out], dim=1)

@@ -1,7 +1,9 @@
 """Normalization layers over channel-first [N, C, T] data.
 
 Counterpart of puresound_tpu/nnet/lobe/norm.py (`bN2d` is the same
-BatchNorm on [N, C, F, T]). Statistics are taken in at
+BatchNorm on [N, C, F, T]; `LayerNorm2D` the FFC family's channel +
+frequency norm; the module-level aliases and `is_batchnorm` as JAX's
+`:196-216`). Statistics are taken in at
 least float32 (float64 stays float64), with the single-pass variance
 E[x^2] - mean^2 of the reference (norm.py:20-32). Parameter names follow
 PureSound's torch modules: GlobLN and ChanLN keep gamma/beta, the gGN alias
@@ -98,6 +100,29 @@ class GroupNorm1(nn.Module):
                 + self.bias.reshape(shape).to(x.dtype))
 
 
+class LayerNorm2D(nn.Module):
+    """Channel + frequency layer norm of a [N, CH, F, T] tensor, frame by
+    frame, with a [1, CH, F, 1] affine (JAX `norm.py:97-117`): the unbiased
+    std (ddof 1, torch's `.std()`), eps added to the std, not the variance;
+    `w` starts at 1, `b` at 1e-4. The moments are taken in at least float32
+    and the normalisation runs in the input's dtype, as JAX's."""
+
+    def __init__(self, ch: int, f: int, eps: float = 1e-8, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.ch, self.f, self.eps = ch, f, eps
+        self.w = const((1, ch, f, 1), 1.0, device, dtype)
+        self.b = const((1, ch, f, 1), 1e-4, device, dtype)
+
+    def forward(self, x):
+        n = x.shape[1] * x.shape[2]
+        mean, var = _moments(x, (1, 2))
+        std = torch.sqrt(var * (n / max(n - 1, 1)))
+        inv = (1.0 / (std + self.eps)).to(x.dtype)
+        return ((x - mean.to(x.dtype)) * inv * self.w.to(x.dtype)
+                + self.b.to(x.dtype))
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over dim 1 with running statistics (`norm.py:120-163`).
 
@@ -186,14 +211,28 @@ class LayerNormLast(nn.Module):
                 + self.bias.to(x.dtype))
 
 
+# the aliases (JAX `norm.py:196-202`); LN2D is not in the registry, as in JAX
+gLN = GlobLN
+cLN = ChanLN
+iLN = InstantLN
+bN1d = BatchNorm
+bN2d = BatchNorm
+gGN = GroupNorm1
+LN2D = LayerNorm2D
+
 _REGISTRY = {"gLN": GlobLN, "cLN": ChanLN, "iLN": InstantLN, "gGN": GroupNorm1,
              "bN1d": BatchNorm, "bN2d": BatchNorm}
+_IS_BATCHNORM = {"bN1d", "bN2d"}
 
 
 def get_norm(name: str) -> Callable[..., nn.Module]:
     if name not in _REGISTRY:
         raise NameError(f"Could not interpret normalization identifier: {name}")
     return _REGISTRY[name]
+
+
+def is_batchnorm(name: str) -> bool:
+    return name in _IS_BATCHNORM
 
 
 def apply_norm(norm_module: nn.Module, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Attentive statistics pooling (counterpart of
-puresound_tpu/nnet/lobe/pooling.py:22). In training mode its BatchNorm
+"""Attentive statistics pooling and `length_to_mask` (counterpart of
+puresound_tpu/nnet/lobe/pooling.py:17, :22). In training mode its BatchNorm
 takes batch statistics and updates its running stats (`pooling.py:41`)."""
 from __future__ import annotations
 
@@ -11,6 +11,13 @@ from torch import nn
 from ...utils.init import generator_or_default
 from .cnn import Conv1d
 from .norm import BatchNorm
+
+
+def length_to_mask(length: torch.Tensor, max_len: int) -> torch.Tensor:
+    """[B] lengths -> [B, max_len] float32 mask, 1 where the index is below
+    the length."""
+    return (torch.arange(max_len, device=length.device)[None, :]
+            < length[:, None]).to(torch.float32)
 
 
 class AttentiveStatisticsPooling(nn.Module):

@@ -1,6 +1,7 @@
-"""Magnitude, Gate and FiLM conditioning, the 50 %-overlap segment split / merge,
-the moving average, spectral compression and SpecAugment (counterpart of
-puresound_tpu/nnet/lobe/trivial.py:26, :50, :88, :130, :166, :188, :196)."""
+"""LambdaLayer, Magnitude, Gate and FiLM conditioning, the 50 %-overlap segment
+split / merge, the moving average, spectral compression and SpecAugment
+(counterpart of puresound_tpu/nnet/lobe/trivial.py:19, :26, :50, :88, :130,
+:166, :188, :196)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -14,6 +15,17 @@ from .activation import PReLU
 from .cnn import Conv1d
 from .dropout import Dropout
 from .norm import ChanLN, LayerNormLast
+
+
+class LambdaLayer(nn.Module):
+    """A module around a callable: forward(x, **kwargs) = fn(x, **kwargs)."""
+
+    def __init__(self, fn=None):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x, **kwargs):
+        return self.fn(x, **kwargs)
 
 
 class Magnitude(nn.Module):

@@ -6,18 +6,24 @@ SkiM with FiLM, Gate (or no) conditioning, causal or not, with or without
 a training LSTM kernel (`nnet/lobe/rnn.py`; a non-causal block scans both
 directions, the backward one with `reverse=True`; the SegLSTM finals feed
 MemLSTM, and its outputs the next block's h0/c0, gradients included); the
-explicit streaming state (`init_state` `:293`); the per-frame streaming
-step (`step_frames` `:384`); and the fused streaming step
+explicit streaming state (`init_state` `:293`); the segment step
+(`step_chunk` `:345`: one scan of seg_size frames a block, then the
+MemLSTM update); the per-frame streaming step (`step_frames` `:384`); and
+the fused streaming step
 (`step_frames_fused` `:523`) that runs the block stack through
 `ops.skim_stream_kernel.fused_skim_frames`. Only a causal SkiM streams:
 `init_state` and `step_frames_fused` raise a ValueError for a non-causal
-one, as JAX asserts (`:539`). Module and parameter names follow PureSound
+one, as JAX asserts (`:539`); `step_chunk` also for a chunk that is not
+one segment or a clock not at a segment boundary, the preconditions JAX
+documents (`:347-351`). Module and parameter names follow PureSound
 (`seg_lstm`, `mem_lstm`, `seg_input_fusion`, `output_fc`), so its
 checkpoints load as they are.
 
 The streaming state keeps the JAX pytree's keys; its shared segment clock
 `frame_count` is a host int, so the eager segment-boundary test never reads
-the device. A 0-d tensor clock (the exported StreamStep's) takes the
+the device. `step_chunk` advances it by seg_size (JAX's leaves it), so that
+`step_chunk` and `step_frames` can take turns on one stream at segment
+boundaries. A 0-d tensor clock (the exported StreamStep's) takes the
 boundary through the `cond` operator instead.
 
 `TM_BLOCKS` (JAX's `PURESOUND_TM_BLOCKS`, default off, read at import)
@@ -334,6 +340,25 @@ class SkiM(nn.Module):
         nh, nc, mh, mc = tree_unflatten(list(out), spec)
         return dict(st, seg_h=list(nh), seg_c=list(nc), mem_h=[tuple(m) for m in mh],
                     mem_c=[tuple(m) for m in mc])
+
+    def step_chunk(self, x: torch.Tensor, embed: Optional[torch.Tensor],
+                   state: dict):
+        """Exactly one segment: x [B, K, C] with K == seg_size, the clock at
+        a segment boundary -> ([B, C_out, K], new state). Each block's
+        SegLSTM scans the K frames in one call (one `lstm_scan_train_fp`
+        launch of B rows x K steps on a CUDA tensor); the MemLSTM update
+        follows, and the clock advances by K."""
+        self._check_streams()
+        K = x.shape[1]
+        if K != self.seg_size:
+            raise ValueError(f"step_chunk takes one segment of {self.seg_size} frames, "
+                             f"not {K}")
+        if int(state["frame_count"]) % K:
+            raise ValueError(f"step_chunk needs the clock at a segment boundary; it is "
+                             f"at frame {int(state['frame_count'])}")
+        embed = self._norm_embed(embed)
+        y, seg_h, seg_c = self._blocks_over_frames(x, embed, state["seg_h"], state["seg_c"])
+        return self.output_fc(y.transpose(1, 2)), self._advance_clock(state, seg_h, seg_c, K)
 
     def step_frames(self, x: torch.Tensor, embed: Optional[torch.Tensor],
                     state: dict):

@@ -96,6 +96,15 @@ class AudioIO:
         return target_lvl * wav
 
     @staticmethod
+    def audio_cut(wav: np.ndarray, sr: int, length_s: float):
+        """A random `length_s` window of a [C, L] (or [L]) signal, zero-padded
+        at the end when shorter: ([C, sr * length_s], (offset, end))."""
+        if wav.ndim == 1:
+            wav = wav[None, :]
+        wav, offset, end = AudioIO.cut_audio(wav, sr, length_s, padding=True)
+        return wav, (offset, end)
+
+    @staticmethod
     def cut_audio(wav: np.ndarray, sr: int, length_s: float, padding: bool = False):
         audio_len = wav.shape[-1]
         target = int(sr * length_s)

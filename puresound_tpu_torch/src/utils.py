@@ -1,5 +1,5 @@
-"""Host-side utilities the recipe needs: the config loader and writer, the
-manifest loader, `create_folder`, the corpus folder walk and the
+"""Host-side utilities the recipe needs: `str2bool` / `str2list`, the config
+loader and writer, the manifest loader, `create_folder`, the corpus folder walk and the
 convolutions of the augmentation chain (counterpart of
 puresound_tpu/src/utils.py, kept as this package's own copy so that it
 never imports the JAX package).
@@ -13,6 +13,14 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+
+
+def str2bool(v: str) -> bool:
+    return v.lower() in ("true", "yes")
+
+
+def str2list(s: str) -> List[str]:
+    return s.strip().split()
 
 
 def load_text_as_dict(file_path: str, separator: str = " ",

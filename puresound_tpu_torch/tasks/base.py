@@ -80,6 +80,26 @@ class TensorboardWriter:
             self.tf_writer.add_scalar(name, float(loss), step)
         self._log("scalar", name, loss, step)
 
+    def add_ep_picture(self, name: str, pic: Any, epoch: int, log: bool = True) -> None:
+        """A [H, W] (or the first of [N, H, W]) image as a figure, log10 of
+        it by default; nothing without tensorboard."""
+        if self.tf_writer is None:
+            return
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        pic = np.asarray(pic)
+        if log:
+            pic = np.log10(np.maximum(pic, 1e-12))
+        if pic.ndim == 3:
+            pic = pic[0]
+        fig = plt.figure()
+        plt.imshow(pic, origin="lower")
+        self.tf_writer.add_figure(name, fig, epoch)
+        plt.close(fig)
+
     def add_ep_audio(self, name: str, audio: Any, epoch: int, sr: int = 16000) -> None:
         if self.tf_writer is None:
             return
@@ -87,6 +107,14 @@ class TensorboardWriter:
         if audio.ndim == 3:
             audio = audio[0]
         self.tf_writer.add_audio(name, torch.from_numpy(audio), epoch, sr)
+
+    def update_ep_metric(self, **kwargs) -> None:
+        """`add_scalar(**kwargs)` (tag, scalar_value, global_step) on
+        tensorboard where there is one; always a line in metrics.jsonl."""
+        if self.tf_writer:
+            self.tf_writer.add_scalar(**kwargs)
+        self._log("scalar", kwargs.get("tag", "metric"),
+                  kwargs.get("scalar_value", 0.0), kwargs.get("global_step", 0))
 
     def close(self) -> None:
         if self.tf_writer:

@@ -207,6 +207,30 @@ def skim(p) -> Flat:
     return _merge(*parts)
 
 
+def layer_norm_2d(p) -> Flat:
+    """LayerNorm2D: its [1, CH, F, 1] `w` / `b` under the same names."""
+    return {"w": _a(p["w"]), "b": _a(p["b"])}
+
+
+def spectral_transform(p, s=None) -> Flat:
+    """SpectralTransform: the three Conv2d (`in_conv`, `fft_conv`,
+    `out_conv`) and the two BatchNorms with their running statistics
+    (`in_bn`, `fft_bn`; flax's `batch_stats` in `s`)."""
+    return _merge(*(_prefix(k, conv1d(p[k])) for k in ("in_conv", "fft_conv", "out_conv")),
+                  *(_prefix(k, norm(p[k], _sub(s, k))) for k in ("in_bn", "fft_bn")))
+
+
+def ffc(p, s=None) -> Flat:
+    """FFC: `global_spec_trans`, the three Conv2d of the channel split and
+    the two BatchNorms (`global_bn`, `local_bn`) with their statistics."""
+    return _merge(
+        _prefix("global_spec_trans", spectral_transform(p["global_spec_trans"],
+                                                        _sub(s, "global_spec_trans"))),
+        *(_prefix(k, conv1d(p[k]))
+          for k in ("global_conv", "local_global_conv", "local_local_conv")),
+        *(_prefix(k, norm(p[k], _sub(s, k))) for k in ("global_bn", "local_bn")))
+
+
 def asp(p, s=None) -> Flat:
     return _merge(_prefix("tdnn.0", conv1d(p["tdnn_conv"])),
                   _prefix("tdnn.2", norm(p["tdnn_bn"], _sub(s, "tdnn_bn"))),
